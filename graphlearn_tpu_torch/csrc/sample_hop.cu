@@ -19,8 +19,10 @@
 // turn k DMA descriptors into one; on the GPU a scattered 4-byte read costs
 // one 32-byte sector either way, and a warp per seed would leave 27 of 32
 // lanes idle at k = 5, so nothing is staged. The position is clamped to
-// [0, n_edges), so no value of epos reads outside indices.
+// [0, n_edges) (csr_pick.cuh), so no value of epos reads outside indices.
 #include <cuda_runtime.h>
+
+#include "csr_pick.cuh"
 
 namespace {
 
@@ -32,9 +34,7 @@ __global__ void sample_hop_kernel(const int* __restrict__ indices,
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n_picks) return;
-  long long p = epos[i];
-  p = p < 0 ? 0 : (p >= n_edges ? n_edges - 1 : p);
-  picked[i] = indices[p];
+  picked[i] = csr_pick(indices, n_edges, epos[i]);
 }
 
 constexpr int kThreads = 256;

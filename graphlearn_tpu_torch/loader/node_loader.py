@@ -3,11 +3,13 @@
 Counterpart of ``graphlearn_tpu/loader/node_loader.py``. ``SeedBatcher``
 is the JAX package's numpy batcher, so the shuffled seed order is the
 same in both packages for the same seed. ``NodeLoader`` samples and
-collates each batch; the JAX loader's flight recorder, metrics and
-calibrated-caps overflow guard do not apply to tree batches and are not
+collates each batch, under the calibrated-caps overflow guard
+(``OverflowGuardMixin``) when the sampler runs the merge engine with
+``frontier_caps``. The JAX loader's flight recorder and metrics are not
 ported.
 """
 from typing import Optional
+import warnings
 
 import numpy as np
 
@@ -89,17 +91,102 @@ class SeedBatcher:
     self._consumed = self._pending_skip
 
 
-class NodeLoader:
+class OverflowGuardMixin:
+  """Calibrated-caps overflow guard (``graphlearn_tpu/loader/
+  node_loader.py:OverflowGuardMixin``).
+
+  A batch whose new nodes exceed a calibrated frontier cap is truncated,
+  and every sampled batch carries an on-device ``metadata['overflow']``
+  flag. The loader applies ``overflow_policy``:
+
+    'raise' (default) — accumulate the flag on the device (no host sync
+        in the batch loop), fetch it once at epoch end, raise if any
+        batch was truncated.
+    'warn'      — the same, with ``warnings.warn``.
+    'recompute' — read each batch's flag on the host and replay an
+        offending batch at full capacities with the same PRNG key (the
+        untruncated version of the same draw). One sync per batch.
+    'off'       — no guard (``calibrate.check_no_overflow`` still works).
+  """
+
+  _OVERFLOW_POLICIES = ('raise', 'warn', 'recompute', 'off')
+
+  def _init_overflow_policy(self, policy: str):
+    if policy not in self._OVERFLOW_POLICIES:
+      raise ValueError(f'overflow_policy {policy!r} not in '
+                       f'{self._OVERFLOW_POLICIES}')
+    self.overflow_policy = policy
+    self.overflow_recomputes = 0   # full-capacity replays ('recompute')
+    self._ovf_accum = None         # on-device accumulated flag
+    self._full_sampler = None      # lazy uncapped clone
+
+  def _overflow_guarded(self) -> bool:
+    return getattr(self.sampler, 'clamped_exact', False) and \
+        self.overflow_policy != 'off'
+
+  def _overflow_epoch_start(self):
+    """(guarded, recompute) for this epoch. Drops a flag left by an
+    earlier epoch that was left early: its verdict was forfeited and must
+    not taint this one."""
+    self._ovf_accum = None
+    guarded = self._overflow_guarded()
+    return guarded, guarded and self.overflow_policy == 'recompute'
+
+  def _accumulate_overflow(self, out):
+    flag = out.metadata.get('overflow')
+    if flag is None:
+      return
+    self._ovf_accum = (flag if self._ovf_accum is None
+                       else self._ovf_accum | flag)
+
+  def _batch_overflowed(self, out) -> bool:
+    flag = out.metadata.get('overflow')
+    return flag is not None and bool(flag)
+
+  def _replay_sampler(self):
+    if self._full_sampler is None:
+      self._full_sampler = self.sampler.uncapped_clone()
+    return self._full_sampler
+
+  def check_overflow(self) -> bool:
+    """True iff a batch sampled since the current epoch started tripped
+    the overflow flag (one device fetch). For consumers that leave an
+    epoch early: the automatic check runs only when the iterator ends."""
+    if self._ovf_accum is None:
+      return False
+    return bool(self._ovf_accum)
+
+  def _finish_epoch_overflow(self):
+    if self._ovf_accum is None:
+      return
+    flag, self._ovf_accum = self._ovf_accum, None
+    if bool(flag):
+      msg = (
+          'calibrated frontier_caps overflowed this epoch: at least one '
+          'batch was truncated (quietly biased). Re-calibrate with more '
+          'slack (sampler.calibrate.estimate_frontier_caps), or pass '
+          "overflow_policy='recompute' to replay offending batches at "
+          'full capacities (exact, one host sync per batch).')
+      if self.overflow_policy == 'warn':
+        warnings.warn(msg, stacklevel=2)
+      else:
+        raise RuntimeError(msg)
+
+
+class NodeLoader(OverflowGuardMixin):
   """Sample-and-collate loader over seed nodes.
 
   ``device=None`` means the card; it must be the dataset's device.
   ``seed_labels_only`` gathers labels for the seed block only.
+  ``overflow_policy`` is the calibrated-caps guard's
+  (``OverflowGuardMixin``).
   """
 
   def __init__(self, data: Dataset, node_sampler, input_nodes,
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, device=None,
-               seed: Optional[int] = None, seed_labels_only: bool = False):
+               seed: Optional[int] = None, seed_labels_only: bool = False,
+               overflow_policy: str = 'raise'):
     self.device = resolve_device(device)
     if data.device != self.device:
       raise ValueError(f'dataset lives on {data.device}, loader asked for '
@@ -113,6 +200,7 @@ class NodeLoader:
       self.input_type, self.input_seeds = None, input_nodes
     self.input_seeds = np.asarray(self.input_seeds).reshape(-1)
     self.batch_size = batch_size
+    self._init_overflow_policy(overflow_policy)
     self._batcher = SeedBatcher(len(self.input_seeds), batch_size, shuffle,
                                 drop_last, seed)
 
@@ -120,10 +208,24 @@ class NodeLoader:
     return len(self._batcher)
 
   def __iter__(self):
+    guarded, recompute = self._overflow_epoch_start()
     for idx in self._batcher:
       inp = NodeSamplerInput(self.input_seeds[idx], self.input_type)
-      out = self.sampler.sample_from_nodes(inp, batch_cap=self.batch_size)
+      if recompute:
+        key = self.sampler._next_key()
+        out = self.sampler.sample_from_nodes(inp, batch_cap=self.batch_size,
+                                             key=key)
+        if self._batch_overflowed(out):
+          self.overflow_recomputes += 1
+          out = self._replay_sampler().sample_from_nodes(
+              inp, batch_cap=self.batch_size, key=key)
+      else:
+        out = self.sampler.sample_from_nodes(inp, batch_cap=self.batch_size)
+        if guarded:
+          self._accumulate_overflow(out)
       yield self._collate_fn(out)
+    if guarded and not recompute:
+      self._finish_epoch_overflow()
 
   def _collate_fn(self, out):
     feats = id2i = None

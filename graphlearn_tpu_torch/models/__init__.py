@@ -1,2 +1,2 @@
 from . import convert, train
-from .models import GraphSAGE, TreeSAGEConv
+from .models import GraphSAGE, MergeSAGEConv, TreeSAGEConv

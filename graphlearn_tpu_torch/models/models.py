@@ -1,13 +1,20 @@
-"""GraphSAGE over tree-positional batches (the layered, dense forward).
+"""GraphSAGE over tree and merge batches (the layered, dense forwards).
 
 Counterpart of ``graphlearn_tpu/models/models.py``: ``_tree_blocks``,
 ``_masked_run_mean`` / ``_masked_flat_run_mean`` (the 'reshape'
-implementation), ``TreeSAGEConv`` and ``GraphSAGE`` with hop offsets and
-``tree_dense=True``. In a tree batch the children of slot ``s`` of depth
-block ``d`` are the contiguous slots ``[o_d + s*k_d, o_d + (s+1)*k_d)``,
-so mean aggregation is a reshape and a masked mean: no gathers, no
-scatters. Parameter names follow the flax modules (``conv{i}``,
-``lin_self``, ``lin_nbr``) so ``models.convert`` maps one onto the other.
+implementation), ``TreeSAGEConv``, ``MergeSAGEConv`` and ``GraphSAGE``
+with hop offsets and ``tree_dense=True`` or ``merge_dense=True``.
+
+- In a tree batch the children of slot ``s`` of depth block ``d`` are
+  the contiguous slots ``[o_d + s*k_d, o_d + (s+1)*k_d)``, so mean
+  aggregation is a reshape and a masked mean: no gathers, no scatters.
+- In a merge (exact-dedup) batch each hop's edges are ``k``-runs in
+  frontier order, and each hop's targets one contiguous block of the
+  node buffer, so mean aggregation is one source-row gather, a masked
+  reshape-mean and one dense block write per hop.
+
+Parameter names follow the flax modules (``conv{i}``, ``lin_self``,
+``lin_nbr``) so ``models.convert`` maps one onto the other.
 """
 from typing import Optional, Sequence
 
@@ -92,35 +99,99 @@ class TreeSAGEConv(nn.Module):
     return self.lin_self(x[:r]) + self.lin_nbr(agg)
 
 
+class MergeSAGEConv(nn.Module):
+  """SAGEConv over merge-layout batches: per-hop blocked mean
+  aggregation instead of a segment scatter-add.
+
+  The merge engine emits each hop's edges in frontier order (each
+  frontier node's ``k`` draws in consecutive slots), and appended each
+  hop's frontier as one contiguous block, so a hop's mean aggregate is a
+  ``[frontier, k]`` masked reshape-mean written as one dense block at the
+  hop's target base. Exact for every merge batch, including calibrated
+  caps (dedup expands each node at most once).
+
+  The block write reproduces ``lax.dynamic_update_slice``: its start is
+  clamped to ``[0, n - f]``, so a hop without a valid run (base ``n``)
+  writes its zero block at ``n - f``; the start stays a device tensor
+  (``index_copy_`` at ``clamp(base) + arange(f)``), never read on the
+  host. ``out_rows`` produces only the leading rows the next layer reads.
+  """
+
+  def __init__(self, in_dim: int, out_dim: int, edge_offsets: Sequence[int],
+               fanouts: Sequence[int], use_bias: bool = True,
+               out_rows: Optional[int] = None):
+    super().__init__()
+    self.edge_offsets = tuple(edge_offsets)
+    self.fanouts = tuple(fanouts)
+    self.out_rows = out_rows
+    self.lin_self = nn.Linear(in_dim, out_dim, bias=use_bias)
+    self.lin_nbr = nn.Linear(in_dim, out_dim, bias=False)
+
+  def forward(self, x, edge_index, edge_mask):
+    n = x.shape[0] if self.out_rows is None else int(self.out_rows)
+    row, col = edge_index[0], edge_index[1]
+    acc = x.new_zeros((n, x.shape[-1]))
+    e0 = 0
+    for i, e1 in enumerate(self.edge_offsets):
+      k = self.fanouts[i]
+      width = e1 - e0
+      assert width % k == 0, (
+          f'hop {i} edge block {width} not a multiple of fanout {k}; '
+          'edge_offsets/fanouts must come from the same plan as the '
+          'merge-mode loader (models.train.merge_hop_offsets)')
+      f = width // k
+      assert f <= n, (f, n)
+      m = edge_mask[e0:e1].reshape(f, k)
+      mean = _masked_flat_run_mean(x[row[e0:e1].clamp(min=0).long()], m, k)
+      # the k-run's target local idx (masked slots carry -1: take max)
+      tgt = col[e0:e1].reshape(f, k).max(1).values
+      ok = m.any(1) & (tgt >= 0)
+      # base from tgt[j] - j: immune to leading all-masked runs
+      # (zero-degree frontier nodes read tgt = -1)
+      ar = torch.arange(f, dtype=tgt.dtype, device=x.device)
+      base = torch.where(ok, tgt - ar, n).min()
+      start = torch.clamp(base, 0, n - f).to(torch.int64)
+      acc.index_copy_(0, start + ar.to(torch.int64),
+                      torch.where(ok[:, None], mean, 0.0))
+      e0 = e1
+    return self.lin_self(x[:n]) + self.lin_nbr(acc)
+
+
 class GraphSAGE(nn.Module):
-  """Multi-layer GraphSAGE with the layered tree-dense forward.
+  """Multi-layer GraphSAGE with a layered dense forward.
 
   Layer ``l`` processes only the node/edge prefix its depth needs
   (``hop_node_offsets`` / ``hop_edge_offsets``, from
-  ``models.train.tree_hop_offsets``), and intermediate layers produce
-  only the next layer's rows. ``device=None`` means the card. Weights
-  are drawn on the CPU from ``generator`` (nn.Linear's default
-  distribution) and then moved, so a seed gives the same model on every
-  device.
+  ``models.train.tree_hop_offsets`` for tree batches or
+  ``merge_hop_offsets`` for merge batches), and intermediate layers
+  produce only the next layer's rows. ``tree_dense=True`` aggregates
+  with ``TreeSAGEConv``, ``merge_dense=True`` with ``MergeSAGEConv``
+  (mutually exclusive). ``device=None`` means the card. Weights are
+  drawn on the CPU from ``generator`` (nn.Linear's default distribution)
+  and then moved, so a seed gives the same model on every device.
 
-  Only ``tree_dense=True`` with mean aggregation is ported; the segment
-  (edge_index) forward comes with the merge/exact slice.
+  Only the two dense mean forwards are ported; the segment (edge_index
+  scatter) forward comes later.
   """
 
   def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                num_layers: int = 3, hop_node_offsets=None,
-               hop_edge_offsets=None, tree_dense: bool = True,
-               fanouts=None, aggr: str = 'mean', device=None,
-               generator: Optional[torch.Generator] = None):
+               hop_edge_offsets=None, tree_dense: bool = False,
+               merge_dense: bool = False, fanouts=None, aggr: str = 'mean',
+               device=None, generator: Optional[torch.Generator] = None):
     super().__init__()
     device = resolve_device(device)
-    if not tree_dense or hop_node_offsets is None or aggr != 'mean':
+    if tree_dense == merge_dense or hop_node_offsets is None or \
+        aggr != 'mean':
       raise NotImplementedError(
-          'GraphSAGE: this slice ports the layered tree_dense mean forward '
-          '(hop offsets + fanouts); the segment forward comes later')
-    assert fanouts is not None, 'tree_dense requires the loader fanouts'
+          'GraphSAGE: the port has the layered tree_dense and merge_dense '
+          'mean forwards (one of them, with hop offsets and fanouts); the '
+          'segment forward comes later')
+    assert fanouts is not None, (
+        'the dense forwards require the loader fanouts')
     assert len(hop_node_offsets) >= num_layers + 1 and \
         len(hop_edge_offsets) >= num_layers
+    self.merge_dense = merge_dense
     self.num_layers = num_layers
     self.hop_node_offsets = tuple(hop_node_offsets)
     self.hop_edge_offsets = tuple(hop_edge_offsets)
@@ -131,9 +202,14 @@ class GraphSAGE(nn.Module):
       hops_used = num_layers - i
       out_rows = (self.hop_node_offsets[hops_used - 1]
                   if i < num_layers - 1 else None)
-      self.add_module(f'conv{i}', TreeSAGEConv(
-          dim_in, dim, self.hop_node_offsets[:hops_used + 1],
-          self.fanouts[:hops_used], out_rows=out_rows))
+      if merge_dense:
+        conv = MergeSAGEConv(dim_in, dim, self.hop_edge_offsets[:hops_used],
+                             self.fanouts[:hops_used], out_rows=out_rows)
+      else:
+        conv = TreeSAGEConv(dim_in, dim,
+                            self.hop_node_offsets[:hops_used + 1],
+                            self.fanouts[:hops_used], out_rows=out_rows)
+      self.add_module(f'conv{i}', conv)
     self.reset_parameters(generator)
     self.to(device)
 
@@ -157,13 +233,16 @@ class GraphSAGE(nn.Module):
     assert self.hop_node_offsets[self.num_layers] == x.shape[0], (
         f'layered forward: hop offsets {self.hop_node_offsets} do not match '
         f'the batch node buffer ({x.shape[0]}); build them with '
-        'models.train.tree_hop_offsets from the loader\'s batch_size and '
-        'fanouts')
+        'models.train.tree_hop_offsets (tree batches) or merge_hop_offsets '
+        '(merge batches) from the loader\'s batch_size and fanouts')
     for i, conv in enumerate(self.convs()):
       hops_used = self.num_layers - i
       n_in = self.hop_node_offsets[hops_used]
       e_used = self.hop_edge_offsets[hops_used - 1]
-      x = conv(x[:n_in], edge_mask[:e_used])
+      if self.merge_dense:
+        x = conv(x[:n_in], edge_index[:, :e_used], edge_mask[:e_used])
+      else:
+        x = conv(x[:n_in], edge_mask[:e_used])
       if i < self.num_layers - 1:
         x = torch.relu(x)
     return x

@@ -1,13 +1,14 @@
 """Forward and evaluation helpers over loader batches.
 
 Counterpart of ``graphlearn_tpu/models/train.py`` for sampled inference:
-``make_forward_fn``, ``make_eval_counts``, ``tree_hop_offsets`` and
-``batch_to_dict``. The model owns its parameters (an ``nn.Module``), so
+``make_forward_fn``, ``make_eval_counts``, ``tree_hop_offsets``,
+``merge_hop_offsets`` and ``batch_to_dict``. The model owns its parameters (an ``nn.Module``), so
 the functions take the batch only. Training comes with a later slice.
 """
 import torch
 
-from ..sampler.neighbor_sampler import tree_layout
+from ..sampler.neighbor_sampler import (capacity_plan,
+                                        merge_layout_from_caps, tree_layout)
 
 
 def make_forward_fn(model):
@@ -41,6 +42,15 @@ def tree_hop_offsets(batch_cap: int, fanouts):
   """(hop_node_offsets, hop_edge_offsets) for the layered forward over
   tree batches: the sampler's own layout plan."""
   return tree_layout(batch_cap, list(fanouts))
+
+
+def merge_hop_offsets(batch_cap: int, fanouts, frontier_caps=None):
+  """(hop_node_offsets, hop_edge_offsets) for the layered forward over
+  merge (exact-dedup) batches: the sampler's own capacity plan and merge
+  layout (prefix widths = cumulative clamped frontier caps, edge blocks
+  ``caps[i] * k`` wide)."""
+  caps = capacity_plan(batch_cap, list(fanouts), frontier_caps)
+  return merge_layout_from_caps(caps, list(fanouts))
 
 
 def batch_to_dict(batch):

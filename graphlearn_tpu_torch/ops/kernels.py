@@ -23,13 +23,18 @@ BUILD_DIR = _PKG.parent / 'build' / 'torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-# kernel name -> (source file, C entry points with their argtypes)
+# kernel name -> (source file, C entry points -> (argtypes, restype)); a
+# launching entry point returns its cudaError_t as an int
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     'gather_rows': ('gather_rows.cu', {
-        'glt_gather_rows': [_P, _P, _I, _P, _L, _L, _L, _I, _P]}),
+        'glt_gather_rows': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I)}),
     'sample_hop': ('sample_hop.cu', {
-        'glt_sample_hop': [_P, _L, _P, _P, _L, _I, _P]}),
+        'glt_sample_hop': ([_P, _L, _P, _P, _L, _I, _P], _I)}),
+    'sample_level': ('sample_level.cu', {
+        'glt_sample_level_scratch': ([_L, _L], _L),
+        'glt_sample_level': ([_P, _L, _P, _P, _L, _P, _L, _P, _L, _L, _P, _P,
+                              _P, _P, _P, _I, _P], _I)}),
 }
 
 _libs = {}
@@ -103,9 +108,9 @@ def lib(name: str):
       if not path.exists():
         build_all([name])
       handle = ctypes.CDLL(str(path))
-      for fn, argtypes in SOURCES[name][1].items():
+      for fn, (argtypes, restype) in SOURCES[name][1].items():
         getattr(handle, fn).argtypes = argtypes
-        getattr(handle, fn).restype = ctypes.c_int
+        getattr(handle, fn).restype = restype
       _libs[name] = handle
     return _libs[name]
 

@@ -66,7 +66,8 @@ def test_tree_dense_forward_matches_flax(fanouts):
 def test_params_from_flax_round_trip():
   no, eo = gtt.sampler.tree_layout(4, [3, 2])
   model = gtt.models.GraphSAGE(5, 7, 3, num_layers=2, hop_node_offsets=no,
-                               hop_edge_offsets=eo, fanouts=[3, 2],
+                               hop_edge_offsets=eo, tree_dense=True,
+                               fanouts=[3, 2],
                                device='cpu',
                                generator=torch.Generator().manual_seed(0))
   flax_tree = convert.params_to_flax(model.state_dict())
@@ -83,7 +84,8 @@ def test_seeded_init_is_reproducible():
 
   def make():
     return gtt.models.GraphSAGE(5, 7, 3, num_layers=2, hop_node_offsets=no,
-                                hop_edge_offsets=eo, fanouts=[3, 2],
+                                hop_edge_offsets=eo, tree_dense=True,
+                                fanouts=[3, 2],
                                 device='cpu',
                                 generator=torch.Generator().manual_seed(9))
 

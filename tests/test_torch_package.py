@@ -2,7 +2,8 @@
 
 (a) No module of graphlearn_tpu_torch imports jax or graphlearn_tpu.
 (b) No entry point runs on the CPU unless asked: without a GPU, building
-    a Dataset, NeighborLoader or GraphSAGE with no ``device`` raises.
+    a Dataset, NeighborLoader, NeighborSampler or GraphSAGE (tree or
+    merge forward) with no ``device`` raises.
 (c) On CPU tensors the kernel wrappers take their plain versions and the
     launch counters stay 0.
 """
@@ -72,10 +73,19 @@ def test_entry_points_default_to_the_card(no_gpu):
   ds = _cpu_dataset()
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.loader.NeighborLoader(ds, [2], np.arange(5), batch_size=4)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.loader.NeighborLoader(ds, [2], np.arange(5), batch_size=4,
+                              dedup='auto', frontier_caps='auto')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.sampler.NeighborSampler(ds.graph, [2])
   no, eo = gtt.sampler.tree_layout(4, [2])
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.models.GraphSAGE(4, 8, 3, num_layers=1, hop_node_offsets=no,
-                         hop_edge_offsets=eo, fanouts=[2])
+                         hop_edge_offsets=eo, tree_dense=True, fanouts=[2])
+  no, eo = gtt.models.train.merge_hop_offsets(4, [2])
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.models.GraphSAGE(4, 8, 3, num_layers=1, hop_node_offsets=no,
+                         hop_edge_offsets=eo, merge_dense=True, fanouts=[2])
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.data.Graph(ds.graph.topo)
   with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -91,7 +101,8 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
   assert len(batches) == 3
   x = batches[0].x
   assert x.device.type == 'cpu' and x.shape == (4 + 12 + 24, 4)
-  assert ops.launch_counts() == {'gather_rows': 0, 'sample_hop': 0}
+  assert ops.launch_counts() == {'gather_rows': 0, 'sample_hop': 0,
+                                 'sample_level': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -103,4 +114,9 @@ def test_kernel_wrappers_refuse_mixed_devices():
   epos = torch.zeros((2, 2), dtype=torch.int32, device='meta')
   with pytest.raises(ValueError, match='CUDA'):
     ops.sample_hop(ind, epos)
-  assert ops.launch_counts() == {'gather_rows': 0, 'sample_hop': 0}
+  mask = torch.ones((2, 2), dtype=torch.bool)
+  with pytest.raises(ValueError, match='CUDA'):
+    ops.sample_level(ind, epos, mask, ind[:2], torch.tensor(1, dtype=torch.int32),
+                     4, 10)
+  assert ops.launch_counts() == {'gather_rows': 0, 'sample_hop': 0,
+                                 'sample_level': 0}

@@ -67,7 +67,7 @@ def test_sampler_refuses_later_slices():
   rng = np.random.default_rng(0)
   ei = rng.integers(0, 10, (2, 40))
   tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=10), device='cpu')
-  for kwargs in (dict(dedup='merge'), dict(with_weight=True),
+  for kwargs in (dict(dedup='map_table'), dict(with_weight=True),
                  dict(node_budget=5), dict(strategy='block'),
                  dict(padded_window=8), dict(with_edge=True)):
     with pytest.raises(NotImplementedError):
