@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of graphlearn_tpu_torch: sampled GraphSAGE inference
-on one CUDA GPU, on the tree path and on the merge (exact-dedup) path.
+on one CUDA GPU, on the tree path and on the merge (exact-dedup) path,
+and GraphSAGE embedding serving (full-graph materializer + engine).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -32,18 +33,38 @@ Phases (any failure exits non-zero, and the result line is not printed):
    last batch is recomputed on the CPU from the same sampler state
    (plain versions): ids, masks and features exact, logits within
    rtol=1e-3, atol=1e-4 (TF32 off; the two devices sum in other orders).
+4. Serving, on the same graph and width: ``GraphSAGE(100, 256, 47)``,
+   3 layers, the plain segment forward, weights from seed 0.
+   ``EmbeddingMaterializer(block_size=2048, chunk_size=8).materialize()``
+   (ms per layer pass by CUDA events), the table against one direct
+   full-graph forward on the card and 512 rows of every layer pass
+   recomputed on the CPU from the card's own input store; then
+   ``mat.embedding_store()`` routed through gather v2
+   (``set_kernel_routing(use_pallas_v2=True, block_rows=256,
+   run_span=8)``) behind ``ServingEngine(buckets=(16, 64, 256))``: eight
+   client threads send 64 requests each (a synthetic mix: lengths 1-300;
+   ids 3/4 zipf(1.5), 1/4 contiguous ranges), every answer equal to the table,
+   one gather-v2 launch per engine batch; then 16 poisoned rows marked
+   stale must come back as the CPU's final-layer recompute. The launch
+   counters are set to 0 before the materializer and read after the
+   engine. Then the gather-v2 kernel against its plain version at the
+   engine's caps over the served table and at the JAX probe shape
+   (131,072 ids over [1M, 128] f32, presorted chunks and four id
+   distributions), with K1 and ``index_select`` on the same ids.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes the
 whole report as JSON; ``--profile`` adds a torch.profiler pass over each
-phase of both slices. ``--rehearse`` runs every phase on the CPU at a
-tiny size through the plain versions (no result line; exit code 3).
+phase of both slices, one materialization pass and 50 engine batches.
+``--rehearse`` runs every phase on the CPU at a tiny size through the
+plain versions (no result line; exit code 3).
 """
 import argparse
 import concurrent.futures
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -58,6 +79,12 @@ HUB_DEG = 513   # least degree of the added hub seeds in the K3 check
 BATCHES = 6   # counted slice batches (plus one through the loader iterator)
 REPS = 20     # timed calls per kernel measurement
 SPIN_CYCLES = 2_000_000   # ~1 ms of spin ahead of a device-timed call
+SERVE_BLOCK, SERVE_CHUNK = 2048, 8   # materializer block_size, chunk_size
+SERVE_BUCKETS = (16, 64, 256)
+CLIENTS, REQUESTS = 8, 64            # client threads, requests per thread
+RECHECK_ROWS = 512                   # rows recomputed on the CPU per layer
+STALE_ROWS = 16
+PROBE_ROWS, PROBE_CHUNKS = 1_000_000, 1024   # the JAX gather-v2 probe shape
 
 
 def log(*a):
@@ -119,6 +146,18 @@ def timed(torch, fn, reps: int, device):
 
 def bound_ms(nbytes: int) -> float:
   return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def _event(torch, cuda):
+  if not cuda:
+    return time.perf_counter()
+  ev = torch.cuda.Event(enable_timing=True)
+  ev.record()
+  return ev
+
+
+def _span(a, b, cuda):
+  return a.elapsed_time(b) if cuda else (b - a) * 1e3
 
 
 def kernel_phase(torch, gtt, ds, device, gen, reps):
@@ -400,16 +439,6 @@ def slice_phase(torch, gtt, loader, device, gen_seed, num_batches, cpu_ds,
   guarded = loader._overflow_guarded()
   assert guarded == (mode == 'merge'), (mode, guarded)
 
-  def event():
-    if not cuda:
-      return time.perf_counter()
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-  def span(a, b):
-    return a.elapsed_time(b) if cuda else (b - a) * 1e3
-
   loader._overflow_epoch_start()
   ops.reset_launch_counts()
   per_batch = []
@@ -419,23 +448,24 @@ def slice_phase(torch, gtt, loader, device, gen_seed, num_batches, cpu_ds,
     seeds = loader.input_seeds[idx]
     if i == num_batches - 1:
       check = (loader.sampler.state_dict(), seeds)
-    e0 = event()
+    e0 = _event(torch, cuda)
     out = loader.sampler.sample_from_nodes(NodeSamplerInput(seeds),
                                            batch_cap=BATCH)
     if guarded:
       loader._accumulate_overflow(out)     # the loader's own guard
-    e1 = event()
+    e1 = _event(torch, cuda)
     batch = loader._collate_fn(out)
-    e2 = event()
+    e2 = _event(torch, cuda)
     d = train.batch_to_dict(batch)
     c, t = eval_counts(d)
-    e3 = event()
+    e3 = _event(torch, cuda)
     if cuda:
       e3.synchronize()
     correct += int(c)
     total += int(t)
-    per_batch.append(dict(sample_ms=span(e0, e1), collate_ms=span(e1, e2),
-                          forward_ms=span(e2, e3)))
+    per_batch.append(dict(sample_ms=_span(e0, e1, cuda),
+                          collate_ms=_span(e1, e2, cuda),
+                          forward_ms=_span(e2, e3, cuda)))
     last = (out, batch, d)
   overflow = loader.check_overflow()
   # one more batch through the loader's own iterator (the user's loop),
@@ -500,12 +530,8 @@ def cross_check(torch, gtt, cpu_ds, check, model, out, batch, logits, mode,
 
 
 def profile_phases(torch, gtt, ds, device, mode, caps, reps: int = 3):
-  """torch.profiler over ``reps`` batches of each phase alone: wall ms
-  per batch (host clock, synchronised), device-busy ms per batch (the
-  union of the kernel and copy intervals the profiler saw) and the top
-  device consumers. The batches use their own sampler stream."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
+  """:func:`profiled` over ``reps`` batches of each phase of a sampled
+  slice alone. The batches use their own sampler stream."""
   from graphlearn_tpu_torch.models import train
   from graphlearn_tpu_torch.sampler import NodeSamplerInput
   seeds = np.arange(BATCH)
@@ -520,43 +546,367 @@ def profile_phases(torch, gtt, ds, device, mode, caps, reps: int = 3):
       'collate': lambda: loader._collate_fn(out),
       'forward': lambda: eval_counts(batch),
   }
-  cuda = device.type == 'cuda'
-  sync = torch.cuda.synchronize if cuda else (lambda: None)
-  acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
   result = {}
   for name, fn in phases.items():
     fn()
-    sync()
-    with profile(activities=acts) as prof:
-      t0 = time.perf_counter()
-      for _ in range(reps):
-        fn()
-      sync()
-      wall = (time.perf_counter() - t0) * 1e3 / reps
-    spans, per_name, launches = [], {}, 0
-    for e in prof.events():
-      if e.device_type != DeviceType.CUDA:
-        continue
-      launches += 1
-      spans.append((e.time_range.start, e.time_range.end))
-      per_name[e.name] = per_name.get(e.name, 0.0) + \
-          e.time_range.elapsed_us() / 1e3 / reps
-    busy, end = 0.0, -1.0
-    for a, b in sorted(spans):
-      if b > end:
-        busy += b - max(a, end)
-        end = b
-    busy_ms = busy / 1e3 / reps
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
-    result[name] = dict(wall_ms=wall, device_busy_ms=busy_ms,
-                        idle_share=1 - busy_ms / wall if wall else None,
-                        device_ops_per_batch=launches / reps,
-                        top_device_ms=dict(top))
-    log(f'profile {mode} {name}: wall_ms={wall:.3f} '
-        f'device_busy_ms={busy_ms:.3f} '
-        f'device_ops/batch={launches / reps:.0f} top=' +
-        '; '.join(f'{k[:60]}={v:.3f}' for k, v in top))
+    result[name] = profiled(torch, fn, reps, device, f'{mode} {name}')
   return result
+
+
+def profiled(torch, fn, reps, device, label):
+  """torch.profiler over ``reps`` calls of ``fn`` (warmed up by the
+  caller): wall ms per call (host clock, synchronised), device-busy ms
+  per call (the union of the kernel and copy intervals the profiler saw),
+  device ops per call and the top device consumers."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  cuda = device.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+  sync()
+  with profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+      fn()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+  spans, per_name, launches = [], {}, 0
+  for e in prof.events():
+    if e.device_type != DeviceType.CUDA:
+      continue
+    launches += 1
+    spans.append((e.time_range.start, e.time_range.end))
+    per_name[e.name] = per_name.get(e.name, 0.0) + \
+        e.time_range.elapsed_us() / 1e3 / reps
+  busy, end = 0.0, -1.0
+  for a, b in sorted(spans):
+    if b > end:
+      busy += b - max(a, end)
+      end = b
+  busy_ms = busy / 1e3 / reps
+  top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+  log(f'profile {label}: wall_ms={wall:.3f} device_busy_ms={busy_ms:.3f} '
+      f'device_ops/call={launches / reps:.0f} top=' +
+      '; '.join(f'{k[:60]}={v:.3f}' for k, v in top))
+  return dict(wall_ms=wall, device_busy_ms=busy_ms,
+              idle_share=1 - busy_ms / wall if wall else None,
+              device_ops_per_call=launches / reps, top_device_ms=dict(top))
+
+
+def recompute_rows(torch, cmodel, layer, x_self, nbr, x_nbr):
+  """One conv layer of ``cmodel`` on the CPU over a block of rows:
+  ``x_self [b, F]``, their padded neighbour ids ``nbr [b, W]`` and the
+  neighbour rows ``x_nbr [b, W, F]`` read from the card's input store."""
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.serving.materialize import _block_edges
+  b, w = nbr.shape
+  x = torch.cat([x_self, x_nbr.reshape(b * w, -1)])
+  with torch.no_grad():
+    return train.make_layer_slice_fn(cmodel, layer, layer + 1)(dict(
+        x=x, edge_index=torch.as_tensor(_block_edges(b, w)),
+        edge_mask=(nbr >= 0).reshape(-1)))[:b]
+
+
+def serve_requests(rng, n):
+  """One client's requests, a synthetic smoke mix (no trace behind it):
+  lengths uniform in 1-300 (over 256 they split across the largest
+  bucket); 3/4 of them ids from zipf(1.5) % N, 1/4 contiguous ranges, so
+  gather v2's full runs occur."""
+  reqs = []
+  for _ in range(REQUESTS):
+    length = int(rng.integers(1, 301))
+    if rng.random() < 0.75:
+      ids = rng.zipf(1.5, length) % n
+    else:
+      start = int(rng.integers(0, n - length))
+      ids = np.arange(start, start + length)
+    reqs.append(ids.astype(np.int64))
+  return reqs
+
+
+def serving_phase(torch, gtt, ds, device, topo, smi, profile):
+  """The serving tier at full width through its entry points. Launch
+  counters are set to 0 before the materializer and read after the
+  engine's last request."""
+  from graphlearn_tpu_torch import metrics, ops
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.serving import (EmbeddingMaterializer,
+                                            ServingEngine)
+  n = topo.num_nodes
+  layers = len(FANOUTS)
+  cuda = device.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  model = gtt.models.GraphSAGE(
+      FEAT_DIM, HIDDEN, CLASSES, num_layers=layers, device=device,
+      generator=torch.Generator().manual_seed(0)).eval()
+  cmodel = gtt.models.GraphSAGE(FEAT_DIM, HIDDEN, CLASSES,
+                                num_layers=layers, device='cpu').eval()
+  cmodel.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+  deg = np.diff(topo.indptr)
+  rng = np.random.default_rng(2)
+  check = np.concatenate([[0, n - 1, int(deg.argmax())], rng.choice(
+      np.arange(1, n - 1), RECHECK_ROWS - 3, replace=False)])
+  check_t = torch.as_tensor(check).to(device)
+  rep = {}
+
+  # ---- 1. materialize, timing each layer pass
+  ops.reset_launch_counts()
+  t0 = time.perf_counter()
+  mat = EmbeddingMaterializer(ds, model, block_size=SERVE_BLOCK,
+                              chunk_size=SERVE_CHUNK)
+  sync()
+  rep['materializer_setup_s'] = time.perf_counter() - t0
+  run_pass = mat._layer_pass
+  passes = []
+
+  def timed_pass(layer, prev):
+    a = _event(torch, cuda)
+    out = run_pass(layer, prev)
+    b = _event(torch, cuda)
+    sync()
+    nbr = mat._nbr[check_t]
+    passes.append(dict(
+        layer=layer, ms=_span(a, b, cuda), x_self=prev[check_t].cpu(),
+        nbr=nbr.cpu(), x_nbr=prev[nbr.clamp(min=0).long()].cpu(),
+        out=out[check_t].cpu()))
+    return out
+
+  mat._layer_pass = timed_pass
+  emb = mat.materialize()
+  del mat._layer_pass
+  w, n_pad = mat._w, mat.n_pad
+  rep['W'], rep['n_pad'] = w, n_pad
+  rep['pass_ms'] = [p['ms'] for p in passes]
+  rep['node_rows_per_s'] = [n_pad / (p['ms'] / 1e3) for p in passes]
+  log(f'serving materialize: N={n} N_pad={n_pad} W={w} block={SERVE_BLOCK} '
+      f'chunk={SERVE_CHUNK} ({n_pad // SERVE_BLOCK} blocks of '
+      f'{SERVE_BLOCK * (w + 1)} rows); set-up '
+      f'{rep["materializer_setup_s"]:.1f}s; ms per layer pass ' +
+      ' '.join(f'{m:.2f}' for m in rep['pass_ms']) + '; node rows/s ' +
+      ' '.join(f'{r:.4g}' for r in rep['node_rows_per_s']) + f' on {smi}')
+
+  # ---- 2. the table against one direct full-graph forward on the card
+  key = np.repeat(np.arange(n, dtype=np.int32), deg)
+  ei = torch.as_tensor(np.stack([topo.indices, key])).to(device)
+  em = torch.ones(ei.shape[1], dtype=torch.bool, device=device)
+  x = ds.node_features.device_table()[0]
+  if cuda:
+    torch.cuda.reset_peak_memory_stats()
+  a = _event(torch, cuda)
+  with torch.no_grad():
+    direct = train.make_forward_fn(model)(dict(x=x, edge_index=ei,
+                                               edge_mask=em))
+  b = _event(torch, cuda)
+  sync()
+  rep['direct_forward_ms'] = _span(a, b, cuda)
+  rep['direct_peak_bytes'] = torch.cuda.max_memory_allocated() if cuda else None
+  rep['direct_max_abs_diff'] = float((emb[:n] - direct).abs().max())
+  torch.testing.assert_close(emb[:n], direct, rtol=1e-3, atol=1e-4)
+  del direct, ei, em
+  log(f'serving direct full-graph forward: {rep["direct_forward_ms"]:.1f} ms, '
+      f'max_memory_allocated {rep["direct_peak_bytes"]} B; table vs direct '
+      f'max abs diff {rep["direct_max_abs_diff"]:.3g} (rtol 1e-3, atol 1e-4)')
+
+  # ---- 3. every layer pass recomputed on the CPU at RECHECK_ROWS rows
+  rep['recheck_max_abs_diff'] = []
+  for p in passes:
+    ref = recompute_rows(torch, cmodel, p['layer'], p['x_self'], p['nbr'],
+                         p['x_nbr'])
+    torch.testing.assert_close(p['out'], ref, rtol=1e-3, atol=1e-4)
+    rep['recheck_max_abs_diff'].append(float((p['out'] - ref).abs().max()))
+  log(f'serving CPU recompute of {RECHECK_ROWS} rows per layer (node 0, '
+      f'N-1, the max-degree node {check[2]} of degree {deg.max()}): max abs '
+      'diff ' + ' '.join(f'{d:.3g}' for d in rep['recheck_max_abs_diff']))
+
+  # ---- 4./5. the store routed through gather v2, behind the engine
+  store = mat.embedding_store()
+  store.set_kernel_routing(use_pallas_v2=True, block_rows=256, run_span=8)
+  table = store.table[:n].cpu().numpy()
+  client_reqs = [serve_requests(np.random.default_rng(100 + c), n)
+                 for c in range(CLIENTS)]
+  metrics.reset('serving')
+  latencies = [[] for _ in range(CLIENTS)]
+  bad, errors = [0] * CLIENTS, []
+  engine = ServingEngine(store, buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                         refresh_fn=mat.refresh_rows)
+
+  def client(c):
+    try:
+      for ids in client_reqs[c]:
+        t = time.perf_counter()
+        rows = engine.lookup(ids, timeout=120)
+        latencies[c].append((time.perf_counter() - t) * 1e3)
+        bad[c] += not np.array_equal(rows, table[ids])
+    except Exception as exc:  # noqa: BLE001 — reported and failed below
+      errors.append(f'client {c}: {type(exc).__name__}: {exc}')
+
+  stale = np.concatenate([np.arange(1, 5), rng.choice(
+      np.arange(5, n), STALE_ROWS - 4, replace=False)])
+  with engine:
+    # warm-up, one lookup per bucket (first use of each device function
+    # loads its module); counted in the launches, not in the latencies
+    for cap in SERVE_BUCKETS:
+      engine.lookup(np.arange(cap))
+    warm = metrics.snapshot()['counters']
+    base = ops.launch_counts()
+    metrics.reset('serving')
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(600)
+    rep['clients_wall_s'] = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), 'a client hung'
+    assert not errors, errors
+    snap = metrics.snapshot()
+    mid = ops.launch_counts()
+    # ---- 6. poison, mark stale, serve the refresh
+    store.update_rows(stale, np.full((STALE_ROWS, CLASSES), 1e9, np.float32))
+    engine.mark_stale(stale)
+    fresh = engine.lookup(stale)
+    stale_left = engine.stale_count()
+  counts = ops.launch_counts()
+  end = metrics.snapshot()
+  sent = CLIENTS * REQUESTS
+  assert sum(bad) == 0, f'{sum(bad)} responses differ from the table'
+  assert snap['counters']['serving.requests'] == sent, snap['counters']
+  # one gather-v2 launch per engine batch (none on the CPU: plain version)
+  per = 1 if cuda else 0
+  assert mid['gather_runs'] - base['gather_runs'] == \
+      per * snap['counters']['serving.batches'], (mid, base, snap['counters'])
+  assert counts['gather_runs'] == per * (
+      warm['serving.batches'] + end['counters']['serving.batches']), (
+          counts, warm, end['counters'])
+  assert counts['sample_hop'] == counts['sample_level'] == 0, counts
+  assert counts['gather_rows'] >= per * len(passes) * (n_pad // SERVE_BLOCK), \
+      counts
+  assert stale_left == 0 and end['counters']['serving.refreshed'] == \
+      STALE_ROWS, (stale_left, end['counters'])
+  pen = mat._penultimate
+  st = torch.as_tensor(stale).to(device)
+  nbr = mat._nbr[st]
+  ref = recompute_rows(torch, cmodel, layers - 1, pen[st].cpu(), nbr.cpu(),
+                       pen[nbr.clamp(min=0).long()].cpu())
+  torch.testing.assert_close(torch.as_tensor(fresh), ref, rtol=1e-3,
+                             atol=1e-4)
+  assert np.isfinite(fresh).all() and fresh.shape == (STALE_ROWS, CLASSES)
+  lat = np.concatenate([np.asarray(v) for v in latencies])
+  hist = end['histograms']
+  fill = hist['serving.batch_fill']
+  rep.update(
+      launches=counts, requests=sent, batches=snap['counters'][
+          'serving.batches'], refreshed=STALE_ROWS,
+      refresh_max_abs_diff=float((torch.as_tensor(fresh) - ref).abs().max()),
+      client_p50_ms=float(np.percentile(lat, 50)),
+      client_p90_ms=float(np.percentile(lat, 90)),
+      client_p99_ms=float(np.percentile(lat, 99)),
+      client_max_ms=float(lat.max()), client_latencies_ms=lat.tolist(),
+      warmup_batches=warm['serving.batches'],
+      total_ms=metrics.histogram('serving.total_ms').percentiles(),
+      compute_ms=metrics.histogram('serving.compute_ms').percentiles(),
+      queue_wait_ms=metrics.histogram('serving.queue_wait_ms').percentiles(),
+      mean_fill=fill['sum'] / fill['count'],
+      requests_per_s=sent / rep['clients_wall_s'])
+  log(f'serving engine: {sent} requests from {CLIENTS} threads in '
+      f'{rep["clients_wall_s"]:.2f}s, all equal to the table; batches '
+      f'{rep["batches"]}, mean fill {rep["mean_fill"]:.3f}; launches '
+      f'{counts} (gather_runs == batches incl. the refresh lookup); '
+      f'refresh of {STALE_ROWS} poisoned rows max abs diff '
+      f'{rep["refresh_max_abs_diff"]:.3g} on {smi}')
+  log(f'serving latency (ms): client p50 {rep["client_p50_ms"]:.3f} p90 '
+      f'{rep["client_p90_ms"]:.3f} p99 {rep["client_p99_ms"]:.3f} max '
+      f'{rep["client_max_ms"]:.3f}; serving.total_ms p50 '
+      f'{rep["total_ms"]["p50"]:.3f} p99 {rep["total_ms"]["p99"]:.3f}; '
+      f'compute_ms p50 {rep["compute_ms"]["p50"]:.3f} p99 '
+      f'{rep["compute_ms"]["p99"]:.3f} on {smi}')
+  if profile:
+    h1 = run_pass(0, mat._x0)
+    run_pass(1, h1)
+    reqs = [r[:256] for r in client_reqs[0][:50]]
+    with ServingEngine(store, buckets=SERVE_BUCKETS,
+                       max_wait_ms=2.0) as eng:
+      eng.lookup(reqs[0])
+      rep['profile'] = dict(
+          layer_pass_1=profiled(torch, lambda: run_pass(1, h1), 1, device,
+                                'serving layer pass 1'),
+          engine_50_batches=profiled(
+              torch, lambda: [eng.lookup(r) for r in reqs], 1, device,
+              'serving 50 engine batches'))
+    del h1
+  return rep, store.table
+
+
+def gather_runs_phase(torch, table, n, device, reps, probe_rows):
+  """The gather-v2 kernel against its plain version (exact, and against
+  index_select), with K1 and index_select on the same ids: at the
+  engine's caps over the served table, and at the JAX probe shape."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.ops import gather
+  rng = np.random.default_rng(3)
+  records = []
+
+  def case(name, tab, ids_np, presorted=False):
+    ids = torch.as_tensor(ids_np.astype(np.int32)).to(device)
+    b = ids.numel()
+    got, ms, call_ms = timed(torch, lambda: ops.gather_rows_hbm2(
+        tab, ids, 256, 8, presorted), reps, device)
+    ref, plain_ms, plain_call_ms = timed(torch, lambda: (
+        ops.gather_rows_hbm2_plain(tab, ids, 256, 8, presorted)), reps,
+                                         device)
+    clamped = ids.clamp(0, tab.shape[0] - 1).long()
+    lib, lib_ms, lib_call_ms = timed(
+        torch, lambda: torch.index_select(tab, 0, clamped), reps, device)
+    _, k1_ms, k1_call_ms = timed(
+        torch, lambda: ops.gather_rows_hbm(tab, ids), reps, device)
+    if device.type == 'cuda':
+      torch.cuda.synchronize()
+    exact = bool(torch.equal(got, ref)) and bool(torch.equal(got, lib))
+    err = float((got.float() - ref.float()).abs().max())
+    plan, _, span = gather._sorted_plan(tab.shape[0], ids, 256, 8, presorted)
+    kind, _ = ops.decode_gather_plan(plan[:b])
+    run_share = float((kind != 0).float().mean())
+    row = tab.shape[1] * tab.element_size()
+    uniq = int(torch.unique(clamped).numel())
+    # What table[clip(ids)] must move, whatever the design: the ids read
+    # once, each distinct row read once, every output row written once.
+    # The plan and the sort's perm belong to this kernel, not the function.
+    nbytes = b * ids.element_size() + uniq * row + b * row
+    rec = dict(case=name, table=f'{tuple(tab.shape)} {tab.dtype}', ids=b,
+               presorted=presorted, unique_rows=uniq, run_share=run_share,
+               exact=exact, max_abs_err=err, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+               library_ms=lib_ms, library_call_ms=lib_call_ms,
+               k1_ms=k1_ms, k1_call_ms=k1_call_ms,
+               bound_ms=bound_ms(nbytes), bytes=nbytes)
+    records.append(rec)
+    log(f'kernel gather_runs {name}: ids={b} table={rec["table"]} '
+        f'presorted={presorted} run_share={run_share:.3f} exact={exact} '
+        f'ms={ms:.4f} plain_ms={plain_ms:.4f} index_select_ms={lib_ms:.4f} '
+        f'k1_ms={k1_ms:.4f} bound_ms={rec["bound_ms"]:.4f}; call ms '
+        f'{call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f} {k1_call_ms:.4f}')
+    assert exact, f'gather_runs {name}: kernel != plain version'
+
+  for cap in SERVE_BUCKETS:
+    reqs = serve_requests(rng, n)
+    ids = np.concatenate(reqs)[:cap]
+    case(f'serve cap {cap}', table, ids)
+  probe = torch.randn((probe_rows, 128), device=device, generator=(
+      torch.Generator(device).manual_seed(5)))
+  chunks = min(PROBE_CHUNKS, probe_rows // 128 // 2)
+  starts = np.sort(rng.choice(probe_rows // 128, chunks, replace=False)) * 128
+  ids = (starts[:, None] + np.arange(128)[None, :]).reshape(-1)
+  b = ids.size
+  case('probe chunks presorted', probe, ids, presorted=True)
+  case('probe chunks', probe, ids)
+  c0 = int(rng.integers(0, probe_rows - b))
+  for name, dist in (
+      ('random', rng.integers(0, probe_rows, b)),
+      ('dup', rng.choice(rng.integers(0, probe_rows, b // 16), b)),
+      ('runs', np.arange(c0, c0 + b))):
+    case(f'probe {name}', probe, dist)
+  return records
 
 
 def main(argv=None):
@@ -649,10 +999,17 @@ def main(argv=None):
     report['profile'] = {
         mode: profile_phases(torch, gtt, ds, device, mode, caps)
         for mode in ('tree', 'merge')}
+  report['serving'], table = serving_phase(torch, gtt, ds, device, topo, smi,
+                                           args.profile)
+  report['kernels']['gather_runs'] = gather_runs_phase(
+      torch, table, n_nodes, device, reps,
+      PROBE_ROWS if device.type == 'cuda' else n_nodes)
   ktab = report['kernels']
   widest = ktab['sample_level']['levels'][-1]
-  launches = {k: report['tree']['launches'][k] + report['merge']['launches'][k]
-              for k in report['tree']['launches']}
+  serve_cap = ktab['gather_runs'][len(SERVE_BUCKETS) - 1]
+  launches = {k: sum(report[p]['launches'][k]
+                     for p in ('tree', 'merge', 'serving'))
+              for k in report['serving']['launches']}
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -681,6 +1038,14 @@ def main(argv=None):
                            [ktab['sample_level']['edge_case']]),
            ms=widest['ms'], plain_ms=widest['plain_ms'],
            bound_ms=widest['bound_ms'], bound_by='bytes', library_ms=None),
+      dict(name='gather_runs', route='cuda',
+           source='graphlearn_tpu_torch/csrc/gather_runs.cu',
+           replaces='graphlearn_tpu/ops/gather_pallas.py:196',
+           launches=launches['gather_runs'],
+           max_abs_err=max(c['max_abs_err'] for c in ktab['gather_runs']),
+           ms=serve_cap['ms'], plain_ms=serve_cap['plain_ms'],
+           bound_ms=serve_cap['bound_ms'], bound_by='bytes',
+           library_ms=serve_cap['library_ms']),
   ]}
   if args.out:
     with open(args.out, 'w') as fh:

@@ -36,6 +36,16 @@ class Feature:
                           torch.as_tensor(np.asarray(id2index)).to(
                               self.device))
 
+  def set_kernel_routing(self, use_pallas_v2: bool = False,
+                         block_rows: int = 256, run_span: int = 8):
+    """Route the all-device lookup (``feature[ids]``) through the
+    run-segmented gather (``ops.gather_rows_hbm2``) at the given grid
+    point instead of the row-gather kernel. The loaders' fused collate
+    gather is not routed, as in the JAX package."""
+    self._unified.use_pallas_v2 = bool(use_pallas_v2)
+    self._unified.pallas_v2_block_rows = int(block_rows)
+    self._unified.pallas_v2_run_span = int(run_span)
+
   @property
   def unified(self) -> UnifiedTensor:
     return self._unified

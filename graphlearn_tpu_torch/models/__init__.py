@@ -1,2 +1,3 @@
-from . import convert, train
+from . import conv, convert, train
+from .conv import SAGEConv
 from .models import GraphSAGE, MergeSAGEConv, TreeSAGEConv

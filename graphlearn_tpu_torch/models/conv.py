@@ -1,0 +1,81 @@
+"""Masked message passing over padded COO batches: the segment forward.
+
+Counterpart of ``graphlearn_tpu/models/conv.py`` (``_masked_targets``,
+the ``segment_*_agg`` aggregators and ``SAGEConv``). ``edge_index`` is
+``[2, E]`` with ``row`` the message source and ``col`` the target; -1
+pads. Aggregation scatters into ``n + 1`` segments and drops the last,
+where every invalid edge goes.
+"""
+import torch
+from torch import nn
+
+
+def _masked_targets(col, edge_mask, num_nodes: int):
+  """Padded or invalid edges scatter into segment ``num_nodes``
+  (dropped)."""
+  return torch.where(edge_mask & (col >= 0), col,
+                     num_nodes).to(torch.int64)
+
+
+def segment_mean_agg(msgs, col, edge_mask, num_nodes: int):
+  """Mean of edge messages at their target nodes."""
+  tgt = _masked_targets(col, edge_mask, num_nodes)
+  summed = msgs.new_zeros((num_nodes + 1, msgs.shape[1]))
+  summed.index_add_(0, tgt, msgs)
+  # counts in f32 (exact for any degree), scaled in the message dtype
+  count = torch.zeros(num_nodes + 1, dtype=torch.float32,
+                      device=msgs.device)
+  count.index_add_(0, tgt, torch.ones(tgt.shape[0], dtype=torch.float32,
+                                      device=msgs.device))
+  inv = (1.0 / torch.clamp(count[:num_nodes, None], min=1.0)).to(msgs.dtype)
+  return summed[:num_nodes] * inv
+
+
+def segment_sum_agg(msgs, col, edge_mask, num_nodes: int):
+  tgt = _masked_targets(col, edge_mask, num_nodes)
+  summed = msgs.new_zeros((num_nodes + 1, msgs.shape[1]))
+  summed.index_add_(0, tgt, msgs)
+  return summed[:num_nodes]
+
+
+def segment_max_agg(msgs, col, edge_mask, num_nodes: int):
+  """Max of edge messages at their targets; a node without messages
+  gets 0 (``segment_max``'s -inf, and any non-finite value, zeroed)."""
+  tgt = _masked_targets(col, edge_mask, num_nodes)
+  out = torch.full((num_nodes + 1, msgs.shape[1]), float('-inf'),
+                   dtype=msgs.dtype, device=msgs.device)
+  out.scatter_reduce_(0, tgt[:, None].expand_as(msgs), msgs, 'amax')
+  out = torch.where(torch.isfinite(out), out, 0.0)
+  return out[:num_nodes]
+
+
+_AGGS = {'mean': segment_mean_agg, 'sum': segment_sum_agg,
+         'max': segment_max_agg}
+
+
+class SAGEConv(nn.Module):
+  """GraphSAGE conv: ``lin_self(x_v) + lin_nbr(agg_{u->v} x_u)``.
+
+  Messages are gathered as ``x[max(row, 0)]`` and the slots with
+  ``row < 0`` zeroed in place, so the ``[E, F]`` message tensor is the
+  only edge-sized float buffer (at full-graph scale it dominates device
+  memory).
+  """
+
+  def __init__(self, in_dim: int, out_dim: int, aggr: str = 'mean',
+               use_bias: bool = True):
+    super().__init__()
+    if aggr not in _AGGS:
+      raise ValueError(f'aggr must be one of {sorted(_AGGS)}, got {aggr!r}')
+    self.aggr = aggr
+    self.lin_self = nn.Linear(in_dim, out_dim, bias=use_bias)
+    self.lin_nbr = nn.Linear(in_dim, out_dim, bias=False)
+
+  def forward(self, x, edge_index, edge_mask):
+    n = x.shape[0]
+    row, col = edge_index[0], edge_index[1]
+    src = x[torch.clamp(row, min=0).to(torch.int64)]
+    src.masked_fill_((row < 0)[:, None], 0)
+    agg = _AGGS[self.aggr](src, col, edge_mask, n)
+    del src
+    return self.lin_self(x) + self.lin_nbr(agg)

@@ -1,9 +1,11 @@
-"""GraphSAGE over tree and merge batches (the layered, dense forwards).
+"""GraphSAGE: the plain segment forward and the layered, dense forwards.
 
 Counterpart of ``graphlearn_tpu/models/models.py``: ``_tree_blocks``,
 ``_masked_run_mean`` / ``_masked_flat_run_mean`` (the 'reshape'
 implementation), ``TreeSAGEConv``, ``MergeSAGEConv`` and ``GraphSAGE``
-with hop offsets and ``tree_dense=True`` or ``merge_dense=True``.
+either without hop offsets (the segment forward over ``SAGEConv``, with
+the ``layers=(lo, hi)`` slice the serving tier runs) or with hop offsets
+and ``tree_dense=True`` or ``merge_dense=True``.
 
 - In a tree batch the children of slot ``s`` of depth block ``d`` are
   the contiguous slots ``[o_d + s*k_d, o_d + (s+1)*k_d)``, so mean
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from ..utils import resolve_device
+from .conv import SAGEConv
 
 
 def _tree_blocks(node_offsets, fanouts, n_rows):
@@ -158,20 +161,25 @@ class MergeSAGEConv(nn.Module):
 
 
 class GraphSAGE(nn.Module):
-  """Multi-layer GraphSAGE with a layered dense forward.
+  """Multi-layer GraphSAGE.
 
-  Layer ``l`` processes only the node/edge prefix its depth needs
+  Without hop offsets and dense flags it is the plain segment forward:
+  every layer is a ``SAGEConv`` over the whole ``edge_index``, and
+  ``forward(..., layers=(lo, hi))`` runs only conv layers ``[lo, hi)``
+  (the serving tier's materializer and refresh). With hop offsets, layer
+  ``l`` processes only the node/edge prefix its depth needs
   (``hop_node_offsets`` / ``hop_edge_offsets``, from
   ``models.train.tree_hop_offsets`` for tree batches or
   ``merge_hop_offsets`` for merge batches), and intermediate layers
   produce only the next layer's rows. ``tree_dense=True`` aggregates
   with ``TreeSAGEConv``, ``merge_dense=True`` with ``MergeSAGEConv``
-  (mutually exclusive). ``device=None`` means the card. Weights are
-  drawn on the CPU from ``generator`` (nn.Linear's default distribution)
-  and then moved, so a seed gives the same model on every device.
+  (mutually exclusive). ReLU follows every layer but the last.
+  ``device=None`` means the card. Weights are drawn on the CPU from
+  ``generator`` (nn.Linear's default distribution) and then moved, so a
+  seed gives the same model on every device.
 
-  Only the two dense mean forwards are ported; the segment (edge_index
-  scatter) forward comes later.
+  The layered segment forward (hop offsets without a dense flag) is not
+  ported yet.
   """
 
   def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
@@ -181,18 +189,31 @@ class GraphSAGE(nn.Module):
                device=None, generator: Optional[torch.Generator] = None):
     super().__init__()
     device = resolve_device(device)
+    self.segment = (hop_node_offsets is None and not tree_dense and
+                    not merge_dense)
+    self.merge_dense = merge_dense
+    self.num_layers = num_layers
+    self.out_dim = out_dim
+    if self.segment:
+      self.hop_node_offsets = self.hop_edge_offsets = self.fanouts = None
+      for i in range(num_layers):
+        dim_in = in_dim if i == 0 else hidden_dim
+        dim = out_dim if i == num_layers - 1 else hidden_dim
+        self.add_module(f'conv{i}', SAGEConv(dim_in, dim, aggr=aggr))
+      self.reset_parameters(generator)
+      self.to(device)
+      return
     if tree_dense == merge_dense or hop_node_offsets is None or \
         aggr != 'mean':
       raise NotImplementedError(
-          'GraphSAGE: the port has the layered tree_dense and merge_dense '
-          'mean forwards (one of them, with hop offsets and fanouts); the '
-          'segment forward comes later')
+          'GraphSAGE: the port has the segment forward (no hop offsets, '
+          'no dense flag) and the layered tree_dense and merge_dense mean '
+          'forwards (one of them, with hop offsets and fanouts); the '
+          'layered segment forward comes later')
     assert fanouts is not None, (
         'the dense forwards require the loader fanouts')
     assert len(hop_node_offsets) >= num_layers + 1 and \
         len(hop_edge_offsets) >= num_layers
-    self.merge_dense = merge_dense
-    self.num_layers = num_layers
     self.hop_node_offsets = tuple(hop_node_offsets)
     self.hop_edge_offsets = tuple(hop_edge_offsets)
     self.fanouts = tuple(fanouts)
@@ -229,7 +250,20 @@ class GraphSAGE(nn.Module):
       p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
                                             generator=generator))
 
-  def forward(self, x, edge_index, edge_mask):
+  def forward(self, x, edge_index, edge_mask, layers=None):
+    if self.segment:
+      # layers=(lo, hi): only conv layers [lo, hi) of the same forward,
+      # the serving tier's layer slice
+      lo, hi = (0, self.num_layers) if layers is None else layers
+      assert 0 <= lo <= hi <= self.num_layers, (layers, self.num_layers)
+      for i in range(lo, hi):
+        x = getattr(self, f'conv{i}')(x, edge_index, edge_mask)
+        if i < self.num_layers - 1:
+          x = torch.relu(x)
+      return x
+    assert layers is None, (
+        'layer slices run the plain segment forward — build the serving '
+        'model without hop offsets / dense flags')
     assert self.hop_node_offsets[self.num_layers] == x.shape[0], (
         f'layered forward: hop offsets {self.hop_node_offsets} do not match '
         f'the batch node buffer ({x.shape[0]}); build them with '

@@ -1,9 +1,10 @@
 """Forward and evaluation helpers over loader batches.
 
-Counterpart of ``graphlearn_tpu/models/train.py`` for sampled inference:
-``make_forward_fn``, ``make_eval_counts``, ``tree_hop_offsets``,
-``merge_hop_offsets`` and ``batch_to_dict``. The model owns its parameters (an ``nn.Module``), so
-the functions take the batch only. Training comes with a later slice.
+Counterpart of ``graphlearn_tpu/models/train.py`` for inference:
+``make_forward_fn``, ``make_layer_slice_fn``, ``make_eval_counts``,
+``tree_hop_offsets``, ``merge_hop_offsets`` and ``batch_to_dict``. The
+model owns its parameters (an ``nn.Module``), so the functions take the
+batch only. Training comes with a later slice.
 """
 import torch
 
@@ -12,12 +13,28 @@ from ..sampler.neighbor_sampler import (capacity_plan,
 
 
 def make_forward_fn(model):
-  """The forward definition: ``batch dict -> model output``."""
+  """The forward definition: ``batch dict -> model output``. Extra
+  keyword arguments pass through to the model (the layer slice below
+  uses this)."""
 
-  def forward(batch):
-    return model(batch['x'], batch['edge_index'], batch['edge_mask'])
+  def forward(batch, **kwargs):
+    return model(batch['x'], batch['edge_index'], batch['edge_mask'],
+                 **kwargs)
 
   return forward
+
+
+def make_layer_slice_fn(model, lo: int, hi: int):
+  """Layer-slice view of :func:`make_forward_fn`: run only conv layers
+  ``[lo, hi)`` of the same forward (``layers=(lo, hi)`` on the model
+  call). The serving tier's materializer and final-layer refresh are
+  slices of this forward, not re-implementations."""
+  fwd = make_forward_fn(model)
+
+  def slice_fwd(batch):
+    return fwd(batch, layers=(lo, hi))
+
+  return slice_fwd
 
 
 def make_eval_counts(model):

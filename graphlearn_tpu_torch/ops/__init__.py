@@ -1,12 +1,14 @@
 """Tensor ops of the port: sampling, induction, gathers, collation.
 
-The three CUDA kernels (``gather_rows_hbm``, ``sample_hop``,
-``sample_level``) keep launch counters; ``launch_counts`` reads them and
-``reset_launch_counts`` sets them to 0.
+The four CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``,
+``sample_hop``, ``sample_level``) keep launch counters;
+``launch_counts`` reads them and ``reset_launch_counts`` sets them to 0.
 """
 from . import gather, kernels, sample_fused
 from .collate import collate_batch
-from .gather import gather_rows_hbm, gather_rows_plain
+from .gather import (decode_gather_plan, gather_rows_hbm, gather_rows_hbm2,
+                     gather_rows_hbm2_plain, gather_rows_plain,
+                     plan_gather_runs)
 from .induce_merge import (MergeInducerState, induce_next_merge,
                            init_node_merge)
 from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree
@@ -18,11 +20,14 @@ from .unique import FILL, masked_unique
 
 
 def launch_counts() -> dict:
-  return {'gather_rows': gather.launches, 'sample_hop': sample_fused.launches,
+  return {'gather_rows': gather.launches,
+          'gather_runs': gather.runs_launches,
+          'sample_hop': sample_fused.launches,
           'sample_level': sample_fused.level_launches}
 
 
 def reset_launch_counts():
   gather.launches = 0
+  gather.runs_launches = 0
   sample_fused.launches = 0
   sample_fused.level_launches = 0

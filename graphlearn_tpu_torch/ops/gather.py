@@ -1,16 +1,28 @@
-"""Row gather from a device-resident table: the feature lookup.
+"""Row gathers from a device-resident table: the feature and embedding
+lookups.
 
-Counterpart of ``graphlearn_tpu/ops/gather_pallas.py`` v1
-(``gather_rows_hbm``). On a CUDA tensor the wrapper launches the
-``csrc/gather_rows.cu`` kernel (one warp per output row); on a CPU
-tensor it runs the plain version. Both clamp ids to ``[0, N)``.
+Counterpart of ``graphlearn_tpu/ops/gather_pallas.py``, both
+generations:
+
+- v1, ``gather_rows_hbm``: on a CUDA tensor the wrapper launches the
+  ``csrc/gather_rows.cu`` kernel (one warp per output row).
+- v2, ``gather_rows_hbm2``: the same gather after an id sort, driven by
+  a per-slot plan (``plan_gather_runs``) that copies each full
+  ``run_span``-row stretch of consecutive table rows at once and every
+  other slot row by row; on a CUDA tensor the wrapper launches the
+  ``csrc/gather_runs.cu`` kernel, which also writes each row straight
+  back to its caller-order slot (the unsort).
+
+On CPU tensors both wrappers run their plain versions. Both clamp ids to
+``[0, N)``.
 """
 import torch
 
 from . import kernels
 
-# launches of the CUDA kernel (plain-version calls do not count)
+# launches of the CUDA kernels (plain-version calls do not count)
 launches = 0
+runs_launches = 0
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -31,7 +43,7 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor):
   """
   if table.device.type == 'cpu' and ids.device.type == 'cpu':
     return gather_rows_plain(table, ids)
-  _check(table, ids)
+  _check(table, ids, 'gather_rows_hbm')
   global launches
   out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
                     device=table.device)
@@ -47,19 +59,175 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor):
   return out
 
 
-def _check(table, ids):
+# ------------------------------------------------------------------ v2
+
+# plan encoding: bits 30-31 carry the per-slot copy kind, the low 30 bits
+# the clamped table row. Kind 2 occupies the int32 sign bit, so decode
+# masks after the shift (torch's >> on int32 is arithmetic).
+_KIND_SINGLE = 0   # this slot copies its own row
+_KIND_RUN = 1      # this slot starts a full ``run_span``-row copy
+_KIND_COVERED = 2  # covered by a preceding run start: no copy
+_ROW_MASK = (1 << 30) - 1
+
+
+def decode_gather_plan(plan):
+  """(kind, row) from a packed :func:`plan_gather_runs` plan — the
+  sign-bit-safe decode."""
+  return (plan >> 30) & 3, plan & _ROW_MASK
+
+
+def plan_gather_runs(sid: torch.Tensor, n_rows: int, block_rows: int,
+                     run_span: int) -> torch.Tensor:
+  """Per-slot copy plan over a sorted ``[B]`` int32 id vector, in torch
+  ops, bit-exact against the JAX package's plan.
+
+  A slot copies its own row (kind 0), starts one ``run_span``-row copy
+  of itself and the next ``run_span - 1`` slots (kind 1: only when those
+  slots hold strictly consecutive ids, the run stays inside its
+  ``block_rows`` block and inside the table), or is covered by such a
+  start (kind 2). Only full-length runs copy as one; shorter runs
+  decompose into singles. Decode with :func:`decode_gather_plan`.
+
+  The JAX plan finds run starts and lengths with ``cummax``/``cummin``
+  scans; here each maximal +1-step segment (broken at block boundaries)
+  gets an id by ``cumsum`` and its first slot by a ``scatter_reduce``
+  min, from which every slot's sub-run start (every ``run_span`` slots
+  from the segment's first) and verdict follow elementwise — the same
+  plan, without the index-carrying scans, which are slow on the GPU.
+  """
+  b = sid.shape[0]
+  sid = sid.to(torch.int32)
+  if b == 0:
+    return sid.clone()
+  dev = sid.device
+  j = torch.arange(b, dtype=torch.int64, device=dev)
+  # maximal +1-step segments, broken at block boundaries
+  start0 = j % block_rows == 0
+  start0[1:] |= sid[1:] != sid[:-1] + 1
+  seg = torch.cumsum(start0, 0) - 1
+  # first slot of every segment; entry seg+1 is the next segment's first
+  # (b past the last segment)
+  first = torch.full((b + 1,), b, dtype=torch.int64, device=dev)
+  first.scatter_reduce_(0, seg, j, 'amin')
+  # position in the segment's current run_span-slot sub-run
+  r = (j - first[seg]) % run_span
+  # a sub-run is full when all run_span slots lie in its segment and its
+  # rows in the table (consecutive ids: its first row is sid - r)
+  full = ((j - r + run_span <= first[seg + 1]) &
+          (sid - r + run_span <= n_rows))
+  kind = torch.where(full, torch.where(r == 0, _KIND_RUN, _KIND_COVERED),
+                     _KIND_SINGLE).to(torch.int32)
+  return sid | (kind << 30)
+
+
+def _sorted_plan(n: int, ids: torch.Tensor, block_rows: int, run_span: int,
+                 presorted: bool):
+  """(plan, perm, span): clamp, sort (unless presorted), pad to the
+  block multiple with row 0, plan. ``perm`` maps sorted slot -> caller
+  slot (None when presorted)."""
+  if block_rows < 1 or run_span < 1:
+    raise ValueError(f'block_rows and run_span must be >= 1, got '
+                     f'{block_rows}, {run_span}')
+  if n > _ROW_MASK:
+    raise ValueError(f'gather v2 packs rows into 30 bits; the table has '
+                     f'{n} rows')
+  ids = ids.clamp(0, n - 1).to(torch.int32)
+  if presorted:
+    sid, perm = ids, None
+  else:
+    sid, perm = torch.sort(ids, stable=True)
+  b = ids.shape[0]
+  g = min(block_rows, b)
+  span = min(run_span, g)
+  pad = (-b) % g
+  if pad:
+    # pad slots hold row 0 as their own singles; never written out
+    sid = torch.cat([sid, sid.new_zeros(pad)])
+  return plan_gather_runs(sid, n, g, span), perm, span
+
+
+def gather_rows_hbm2_plain(table: torch.Tensor, ids: torch.Tensor,
+                           block_rows: int = 256, run_span: int = 8,
+                           presorted: bool = False):
+  """The same function as :func:`gather_rows_hbm2` in plain torch: sort,
+  plan, one indexed copy for the kind-0 slots and one for every row of
+  every kind-1 run, then the unsort. Equals ``table[clip(ids)]``."""
+  b, f = ids.shape[0], table.shape[1]
+  if b == 0:
+    return table.new_empty((0, f))
+  plan, perm, span = _sorted_plan(table.shape[0], ids, block_rows,
+                                  run_span, presorted)
+  kind, row = decode_gather_plan(plan)
+  out = table.new_empty((plan.shape[0], f))
+  single = torch.nonzero(kind == _KIND_SINGLE).squeeze(1)
+  out[single] = table[row[single].long()]
+  starts = torch.nonzero(kind == _KIND_RUN).squeeze(1)
+  off = torch.arange(span, device=table.device)
+  out[(starts[:, None] + off).reshape(-1)] = \
+      table[(row[starts].long()[:, None] + off).reshape(-1)]
+  out = out[:b]
+  if perm is None:
+    return out
+  res = torch.empty_like(out)
+  res[perm] = out
+  return res
+
+
+def gather_rows_hbm2(table: torch.Tensor, ids: torch.Tensor,
+                     block_rows: int = 256, run_span: int = 8,
+                     presorted: bool = False):
+  """Gather ``table[ids]`` (ids clamped to ``[0, N)``) through the
+  run-segmented plan.
+
+  Args:
+    table: ``[N, F]`` float32 / bfloat16 / float16 / int32, contiguous,
+      N < 2**30; any row width.
+    ids: ``[B]`` int32 or int64 on the table's device.
+    block_rows: plan block (runs never cross a block boundary).
+    run_span: rows per run copy.
+    presorted: the caller's ids are already ascending: skip the sort and
+      the unsort.
+
+  Returns ``[B, F]`` rows in caller order. On CPU tensors this is
+  :func:`gather_rows_hbm2_plain`; a CUDA table launches the kernel or
+  raises.
+  """
+  if table.device.type == 'cpu' and ids.device.type == 'cpu':
+    return gather_rows_hbm2_plain(table, ids, block_rows, run_span,
+                                  presorted)
+  _check(table, ids, 'gather_rows_hbm2')
+  global runs_launches
+  b = ids.shape[0]
+  out = torch.empty((b, table.shape[1]), dtype=table.dtype,
+                    device=table.device)
+  if b == 0:
+    return out
+  plan, perm, span = _sorted_plan(table.shape[0], ids, block_rows,
+                                  run_span, presorted)
+  err = kernels.lib('gather_runs').glt_gather_runs(
+      table.data_ptr(), plan.data_ptr(),
+      None if perm is None else perm.data_ptr(), out.data_ptr(),
+      table.shape[0], b, plan.shape[0],
+      table.shape[1] * table.element_size(), span,
+      table.device.index or 0,
+      torch.cuda.current_stream(table.device).cuda_stream)
+  kernels.check(err, 'gather_runs')
+  runs_launches += 1
+  return out
+
+
+def _check(table, ids, what):
   if table.device.type != 'cuda' or ids.device != table.device:
-    raise ValueError(f'gather_rows_hbm: table on {table.device} and ids on '
+    raise ValueError(f'{what}: table on {table.device} and ids on '
                      f'{ids.device}; the kernel needs both on one CUDA '
                      'device')
   if table.dim() != 2 or table.dtype not in _ROW_DTYPES:
-    raise ValueError(f'gather_rows_hbm: table must be 2-D of '
-                     f'{_ROW_DTYPES}, got {tuple(table.shape)} '
-                     f'{table.dtype}')
+    raise ValueError(f'{what}: table must be 2-D of {_ROW_DTYPES}, got '
+                     f'{tuple(table.shape)} {table.dtype}')
   if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
-    raise ValueError(f'gather_rows_hbm: ids must be 1-D int32/int64, got '
+    raise ValueError(f'{what}: ids must be 1-D int32/int64, got '
                      f'{tuple(ids.shape)} {ids.dtype}')
   if not (table.is_contiguous() and ids.is_contiguous()):
-    raise ValueError('gather_rows_hbm: table and ids must be contiguous')
+    raise ValueError(f'{what}: table and ids must be contiguous')
   if table.shape[0] == 0 and ids.shape[0] > 0:
-    raise ValueError('gather_rows_hbm: gather from an empty table')
+    raise ValueError(f'{what}: gather from an empty table')

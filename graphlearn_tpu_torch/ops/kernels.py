@@ -29,6 +29,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     'gather_rows': ('gather_rows.cu', {
         'glt_gather_rows': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I)}),
+    'gather_runs': ('gather_runs.cu', {
+        'glt_gather_runs': ([_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
+                            _I)}),
     'sample_hop': ('sample_hop.cu', {
         'glt_sample_hop': ([_P, _L, _P, _P, _L, _I, _P], _I)}),
     'sample_level': ('sample_level.cu', {

@@ -1,0 +1,104 @@
+"""The single-replica embedding store the online engine answers from.
+
+Counterpart of ``graphlearn_tpu/serving/store.py`` (``pow2_cap``,
+``EmbeddingStore``): a device-resident ``[N_pad, F]`` table behind one
+``lookup(ids, mask) -> rows`` surface. With ``set_kernel_routing(
+use_pallas_v2=True)`` every lookup goes through the run-segmented
+gather-v2 kernel (``ops.gather_rows_hbm2``) at any row width; without
+routing it is plain indexing, as in the JAX package. The tiered and
+distributed stores come with the storage and distributed slices.
+"""
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.gather import gather_rows_hbm2
+from ..utils import resolve_device
+
+
+def pow2_cap(n: int, floor: int = 8) -> int:
+  """The padded power-of-two bucket capacity for ``n`` items (the
+  refresh compute buckets of ``EmbeddingMaterializer.refresh_rows``)."""
+  return max(floor, 1 << int(n - 1).bit_length()) if n > 1 else floor
+
+
+class EmbeddingStore:
+  """Single-replica device-resident embedding table.
+
+  Args:
+    embeddings: ``[N_pad, F]`` rows, a tensor (its device is the store's)
+      or host rows (placed on ``device``; None means the card).
+    num_nodes: the real node count. Materializer tables carry block
+      padding rows past it, which the engine must never serve; prefer
+      ``EmbeddingMaterializer.embedding_store()``, which passes it.
+    device: where host ``embeddings`` go.
+
+  The store takes ownership of the table: ``update_rows`` writes into it
+  in place.
+  """
+
+  granularity = 1
+
+  # tuned kernel routing: route the bucket gather through the
+  # run-segmented kernel (ops.gather_rows_hbm2) at this grid point
+  use_pallas_v2 = False
+  pallas_v2_block_rows = 256
+  pallas_v2_run_span = 8
+
+  def __init__(self, embeddings, num_nodes: Optional[int] = None,
+               device=None):
+    if isinstance(embeddings, torch.Tensor):
+      self._emb = embeddings.contiguous()
+    else:
+      self._emb = torch.as_tensor(np.ascontiguousarray(embeddings)).to(
+          resolve_device(device))
+    self.device = self._emb.device
+    self.num_nodes = int(num_nodes if num_nodes is not None
+                         else self._emb.shape[0])
+
+  def set_kernel_routing(self, use_pallas_v2: bool = False,
+                         block_rows: int = 256, run_span: int = 8):
+    """Apply a tuned kernel choice to the lookup gather; the buckets and
+    the answers are unchanged (the kernel equals plain indexing)."""
+    self.use_pallas_v2 = bool(use_pallas_v2)
+    self.pallas_v2_block_rows = int(block_rows)
+    self.pallas_v2_run_span = int(run_span)
+
+  @property
+  def feature_dim(self) -> int:
+    return int(self._emb.shape[1])
+
+  @property
+  def table(self) -> torch.Tensor:
+    """The live ``[N_pad, F]`` table (updated in place by refreshes)."""
+    return self._emb
+
+  def lookup(self, ids, mask) -> torch.Tensor:
+    """``[cap]`` padded ids (-1 pads, mask False) -> ``[cap, F]`` device
+    rows, pad slots zeroed."""
+    ids = torch.as_tensor(ids).to(self.device)
+    mask = torch.as_tensor(mask).to(self.device)
+    safe = torch.clamp(ids, min=0)
+    if self.use_pallas_v2:
+      rows = gather_rows_hbm2(self._emb, safe.contiguous(),
+                              block_rows=self.pallas_v2_block_rows,
+                              run_span=self.pallas_v2_run_span)
+    else:
+      rows = self._emb[safe.to(torch.int64)]
+    return rows.masked_fill_(~mask[:, None], 0)
+
+  def fetch(self, rows) -> np.ndarray:
+    """Device rows -> host (the engine's single fetch per batch)."""
+    return rows.cpu().numpy()
+
+  def update_rows(self, ids, rows):
+    """Refresh write-back: ``table[ids] = rows`` in place. Only the real
+    rows are written (the JAX store pads to a power-of-two capacity and
+    drops the pad writes)."""
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    if ids.size == 0:
+      return
+    vals = torch.as_tensor(np.asarray(rows)).to(self.device,
+                                                self._emb.dtype)
+    self._emb[torch.as_tensor(ids).to(self.device)] = vals

@@ -4,10 +4,14 @@ These tests need a CUDA GPU and nvcc; without them they skip. On a
 machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 They cover the edge cases the main-path check in chip_smoke.py does not:
 empty batches, 2- and 1-byte aligned rows, int64 ids, a hub of high
-degree, k above a warp; and for the level kernel an empty frontier, all
+degree, k above a warp; for the level kernel an empty frontier, all
 slots masked, every pick already in the prefix, heavy duplicates,
 truncation (num_new > limit), deg-0 and hub seeds, S far above the TPU
-kernel's 32,768, and two calls giving the same bytes.
+kernel's 32,768, and two calls giving the same bytes; for the gather-v2
+kernel empty ids, B not a multiple of block_rows, a run at the table's
+end, all-equal ids, widths 47/100/128, bf16, int64 ids and presorted ids,
+a routed EmbeddingStore lookup, and a small materialization on the card
+against the CPU.
 """
 import numpy as np
 import pytest
@@ -172,3 +176,98 @@ def test_sample_level_fused_on_card_matches_cpu_route(cuda):
   for a, b in zip(outs['cpu'], outs[str(cuda)]):
     for name in a:
       assert torch.equal(a[name], b[name]), name
+
+
+def _runs_ids(case, n, gen):
+  """Ids for the gather-v2 cases: random ids, a contiguous stretch (full
+  runs) and out-of-range ids on both sides, 1,000 of them (not a
+  multiple of block_rows=256), unless the case says otherwise."""
+  if case == 'empty':
+    return torch.zeros(0, dtype=torch.int32)
+  if case == 'table-end':
+    return torch.arange(n - 300, n + 5, dtype=torch.int32)
+  if case == 'all-equal':
+    return torch.full((777,), 13, dtype=torch.int32)
+  ids = torch.cat([torch.randint(-5, n + 5, (600,), generator=gen),
+                   torch.arange(1000, 1400)])
+  ids = ids[torch.randperm(ids.numel(), generator=gen)]
+  if case == 'presorted':
+    ids = ids.clamp(0, n - 1).sort().values
+  return ids.to(torch.int64 if case == 'int64' else torch.int32)
+
+
+@pytest.mark.parametrize('case,dtype,width,grid', [
+    ('empty', torch.float32, 47, (256, 8)),
+    ('ragged', torch.float32, 47, (256, 8)),
+    ('ragged', torch.float32, 100, (256, 8)),
+    ('ragged', torch.float32, 128, (256, 8)),
+    ('ragged', torch.float32, 47, (16, 4)),
+    ('table-end', torch.float32, 47, (256, 8)),
+    ('all-equal', torch.float32, 47, (256, 8)),
+    ('ragged', torch.bfloat16, 100, (256, 8)),
+    ('int64', torch.float32, 47, (256, 8)),
+    ('presorted', torch.float32, 47, (256, 8)),
+    ('presorted', torch.bfloat16, 128, (16, 4))])
+def test_gather_runs_kernel_matches_plain(cuda, case, dtype, width, grid):
+  gen = torch.Generator().manual_seed(width)
+  n = 5000
+  table = (torch.randn((n, width), generator=gen) * 100).to(dtype).to(cuda)
+  ids = _runs_ids(case, n, gen).to(cuda)
+  br, rs = grid
+  pre = case == 'presorted'
+  before = ops.launch_counts()['gather_runs']
+  got = ops.gather_rows_hbm2(table, ids, br, rs, presorted=pre)
+  torch.cuda.synchronize()
+  assert got.shape == (ids.numel(), width) and got.dtype == dtype
+  assert torch.equal(got, ops.gather_rows_hbm2_plain(table, ids, br, rs,
+                                                     presorted=pre))
+  assert torch.equal(got, ops.gather_rows_plain(table, ids))
+  assert ops.launch_counts()['gather_runs'] == before + (case != 'empty')
+
+
+def test_routed_store_lookup_launches_gather_runs(cuda):
+  """A routed EmbeddingStore.lookup over a [N, 47] f32 table is one
+  gather-v2 launch; pad slots come back zero."""
+  from graphlearn_tpu_torch.serving import EmbeddingStore
+  gen = torch.Generator().manual_seed(1)
+  table = torch.randn((500, 47), generator=gen).to(cuda)
+  store = EmbeddingStore(table, num_nodes=490)
+  store.set_kernel_routing(use_pallas_v2=True, block_rows=256, run_span=8)
+  ids = np.full(64, -1, np.int32)
+  ids[:50] = np.concatenate([np.arange(100, 130), np.arange(400, 420)])
+  mask = ids >= 0
+  before = ops.launch_counts()
+  rows = store.fetch(store.lookup(ids, mask))
+  after = ops.launch_counts()
+  assert after['gather_runs'] == before['gather_runs'] + 1
+  assert after['gather_rows'] == before['gather_rows']
+  want = np.where(mask[:, None], table.cpu().numpy()[np.maximum(ids, 0)], 0)
+  np.testing.assert_array_equal(rows, want)
+
+
+def test_materialize_on_card_matches_cpu(cuda):
+  """A small materialization and refresh on the card against the CPU
+  route (the neighbour gather is the row-gather kernel on the card)."""
+  from graphlearn_tpu_torch.serving import EmbeddingMaterializer
+  rng = np.random.default_rng(4)
+  n = 300
+  ei = rng.integers(0, n, (2, 2400))
+  feats = rng.standard_normal((n, 10)).astype(np.float32)
+  outs = {}
+  for dev in ('cpu', cuda):
+    ds = gtt.data.Dataset(device=dev)
+    ds.init_graph(ei, num_nodes=n)
+    ds.init_node_features(feats)
+    model = gtt.models.GraphSAGE(10, 16, 5, num_layers=3, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    mat = EmbeddingMaterializer(ds, model, block_size=64, chunk_size=2)
+    before = ops.launch_counts()['gather_rows']
+    emb = mat.materialize().cpu()
+    launched = ops.launch_counts()['gather_rows'] - before
+    outs[str(dev)] = (emb, mat.refresh_rows([0, 5, n - 1]), launched)
+  torch.testing.assert_close(outs[str(cuda)][0], outs['cpu'][0],
+                             rtol=1e-4, atol=1e-5)
+  np.testing.assert_allclose(outs[str(cuda)][1], outs['cpu'][1],
+                             rtol=1e-4, atol=1e-5)
+  # one row gather per block and layer: 3 layers x 5 blocks of 64
+  assert outs['cpu'][2] == 0 and outs[str(cuda)][2] == 3 * 5

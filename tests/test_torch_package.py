@@ -2,8 +2,9 @@
 
 (a) No module of graphlearn_tpu_torch imports jax or graphlearn_tpu.
 (b) No entry point runs on the CPU unless asked: without a GPU, building
-    a Dataset, NeighborLoader, NeighborSampler or GraphSAGE (tree or
-    merge forward) with no ``device`` raises.
+    a Dataset, NeighborLoader, NeighborSampler, GraphSAGE (segment, tree
+    or merge forward), EmbeddingStore, EmbeddingMaterializer or
+    ServingEngine with no ``device`` raises.
 (c) On CPU tensors the kernel wrappers take their plain versions and the
     launch counters stay 0.
 """
@@ -90,6 +91,19 @@ def test_entry_points_default_to_the_card(no_gpu):
     gtt.data.Graph(ds.graph.topo)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.data.Feature(np.zeros((3, 2), np.float32))
+  # the serving tier: the store's device is its table's (host rows go to
+  # the card), the materializer's its dataset's, the engine's its store's
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.serving.EmbeddingStore(np.zeros((5, 3), np.float32))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.serving.ServingEngine(
+        gtt.serving.EmbeddingStore(np.zeros((5, 3), np.float32)))
+  model = gtt.models.GraphSAGE(4, 8, 3, num_layers=2, device='cpu')
+  ds.device = None
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.serving.EmbeddingMaterializer(ds, model)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.models.GraphSAGE(4, 8, 3, num_layers=2)
 
 
 def test_cpu_tensors_take_the_plain_path(no_gpu):
@@ -101,8 +115,8 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
   assert len(batches) == 3
   x = batches[0].x
   assert x.device.type == 'cpu' and x.shape == (4 + 12 + 24, 4)
-  assert ops.launch_counts() == {'gather_rows': 0, 'sample_hop': 0,
-                                 'sample_level': 0}
+  assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
+                                 'sample_hop': 0, 'sample_level': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -118,5 +132,5 @@ def test_kernel_wrappers_refuse_mixed_devices():
   with pytest.raises(ValueError, match='CUDA'):
     ops.sample_level(ind, epos, mask, ind[:2], torch.tensor(1, dtype=torch.int32),
                      4, 10)
-  assert ops.launch_counts() == {'gather_rows': 0, 'sample_hop': 0,
-                                 'sample_level': 0}
+  assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
+                                 'sample_hop': 0, 'sample_level': 0}
