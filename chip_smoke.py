@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of graphlearn_tpu_torch: sampled GraphSAGE inference
 on one CUDA GPU, on the tree path and on the merge (exact-dedup) path,
-and GraphSAGE embedding serving (full-graph materializer + engine).
+GraphSAGE embedding serving (full-graph materializer + engine),
+GraphSAGE training on both paths (per-step loop and ScanTrainer), and the
+two probe suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -51,11 +53,31 @@ Phases (any failure exits non-zero, and the result line is not printed):
    engine's caps over the served table and at the JAX probe shape
    (131,072 ids over [1M, 128] f32, presorted chunks and four id
    distributions), with K1 and ``index_select`` on the same ids.
+5. Training, on the same graph and width (``GraphSAGE(100, 256, 47)``,
+   3 layers, Adam at 3e-3, TF32 off), for tree and for merge: 16 steps of
+   the products example's per-step loop (loader -> batch_to_dict ->
+   train_step) over a 16,384-seed pool in order, split into
+   sample+collate and train by CUDA events, with the peak memory of the
+   steps; the last step recomputed on the CPU from the same state and
+   batch (loss within rtol=1e-4, updated parameters within rtol=1e-3,
+   atol=1e-5); one ScanTrainer epoch (chunks of 8) over the same pool from
+   the same start (seed matrix equal to the loop's, losses within
+   rtol=1e-4); then the host syncs per step of both entry points under
+   ``torch.cuda.set_sync_debug_mode('warn')``. The launch counters are
+   set to 0 before the loop and before the epoch and read after each:
+   every step's hops (tree) or levels (merge) and its feature gather must
+   have gone through their kernels. No merge batch may overflow.
+6. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+   ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
+   counters set to 0 before and read after, then the two probe kernels
+   against their plain versions (exact) and a library call at the
+   probes' shapes.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes the
 whole report as JSON; ``--profile`` adds a torch.profiler pass over each
-phase of both slices, one materialization pass and 50 engine batches.
+phase of both slices, one materialization pass, 50 engine batches, and
+a train step and a ScanTrainer epoch of each path.
 ``--rehearse`` runs every phase on the CPU at a tiny size through the
 plain versions (no result line; exit code 3).
 """
@@ -85,6 +107,9 @@ CLIENTS, REQUESTS = 8, 64            # client threads, requests per thread
 RECHECK_ROWS = 512                   # rows recomputed on the CPU per layer
 STALE_ROWS = 16
 PROBE_ROWS, PROBE_CHUNKS = 1_000_000, 1024   # the JAX gather-v2 probe shape
+LR = 3e-3                            # the products example's Adam rate
+TRAIN_STEPS, TRAIN_CHUNK = 16, 8     # per-step loop / ScanTrainer epoch
+SYNC_STEPS = 4                       # loop steps run under sync counting
 
 
 def log(*a):
@@ -572,7 +597,11 @@ def profiled(torch, fn, reps, device, label):
     wall = (time.perf_counter() - t0) * 1e3 / reps
   spans, per_name, launches = [], {}, 0
   for e in prof.events():
-    if e.device_type != DeviceType.CUDA:
+    # user annotations (the optimizer's Optimizer.step#Adam.step) also
+    # appear on the device timeline; they are ranges, not device work
+    if e.device_type != DeviceType.CUDA or \
+        getattr(e, 'is_user_annotation', False) or \
+        e.name.startswith('Optimizer.'):
       continue
     launches += 1
     spans.append((e.time_range.start, e.time_range.end))
@@ -909,6 +938,256 @@ def gather_runs_phase(torch, table, n, device, reps, probe_rows):
   return records
 
 
+def count_syncs(torch, fn):
+  """(fn's result, synchronising CUDA calls made inside it, {message:
+  count}): runs ``fn`` under ``torch.cuda.set_sync_debug_mode('warn')``
+  and counts its warnings (the mode sees the synchronising calls PyTorch
+  makes, not a wait inside a kernel; the mode's own notice that it is a
+  prototype is not a sync)."""
+  import warnings
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+      out = fn()
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+  kinds = {}
+  for w in caught:
+    msg = str(w.message).splitlines()[0][:120]
+    if 'synchroniz' in msg.lower() and 'prototype' not in msg:
+      kinds[msg] = kinds.get(msg, 0) + 1
+  return out, sum(kinds.values()), kinds
+
+
+def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
+                smi, profile):
+  """Training at full width through the port's two entry points: the
+  products example's per-step loop (loader -> batch_to_dict ->
+  train_step) over ``pool`` in order, then one ScanTrainer epoch over the
+  same pool from a copy of the same starting state. Launch counters are
+  set to 0 before each and read after."""
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  loader = make_loader(gtt, ds, pool, device, mode, caps)
+  model, _ = make_model(torch, gtt, loader, device, 0)
+  model.train()
+  start = copy.deepcopy(model.state_dict())
+  state = train.create_train_state(model, lr=LR)
+  step_fn, _ = train.make_train_step(model, CLASSES)
+  rep = {}
+
+  # ---- 1. the per-step loop, timed by CUDA events
+  ops.reset_launch_counts()
+  per_step, losses, seeds, check = [], [], [], None
+  it = iter(loader)
+  for i in range(steps):
+    if cuda and i == 1:
+      torch.cuda.reset_peak_memory_stats()
+    e0 = _event(torch, cuda)
+    batch = next(it)
+    e1 = _event(torch, cuda)
+    d = train.batch_to_dict(batch)
+    if i == steps - 1:     # the step recomputed on the CPU below
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(state.optimizer.state_dict()),
+               {k: (v.cpu() if torch.is_tensor(v) else v)
+                for k, v in d.items()})
+    state, loss, acc = step_fn(state, d)
+    e2 = _event(torch, cuda)
+    if cuda:
+      e2.synchronize()
+    per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
+                         train_ms=_span(e1, e2, cuda)))
+    losses.append(loss)
+    seeds.append(batch.batch)
+  peak = torch.cuda.max_memory_allocated() if cuda else None
+  for _ in it:             # the iterator's end: the overflow guard's check
+    raise AssertionError('the pool holds more batches than steps')
+  counts = ops.launch_counts()
+  losses = torch.stack(losses)
+  assert bool(torch.isfinite(losses).all()), 'non-finite loss'
+  hop = 'sample_level' if mode == 'merge' else 'sample_hop'
+  per = 1 if cuda else 0
+  assert counts[hop] == per * 3 * steps, counts
+  assert counts['gather_rows'] == per * steps, counts
+  assert counts['sample_hop' if mode == 'merge' else 'sample_level'] == 0
+  assert not loader.check_overflow(), 'a merge batch overflowed its caps'
+  steady = per_step[1:] or per_step
+  med = {k: float(np.median([p[k] for p in steady])) for k in steady[0]}
+  rep.update(per_step=per_step, median_step_ms=med, peak_step_bytes=peak,
+             launches=counts, losses=losses.tolist())
+  log(f'train {mode} per-step loop: {steps} steps; launches {counts}; '
+      f'median after the first step (ms): ' +
+      ' '.join(f'{k}={v:.3f}' for k, v in med.items()) +
+      f' total={sum(med.values()):.3f}; max_memory_allocated over steps '
+      f'2-{steps} {peak} B; losses {losses[0]:.4f} -> {losses[-1]:.4f} on '
+      f'{smi}')
+
+  # ---- 2. the last step once more on the CPU, from the same state
+  msd, osd, cbatch = check
+  cmodel, _ = make_model(torch, gtt, loader, 'cpu')
+  cmodel.load_state_dict({k: v.cpu() for k, v in msd.items()})
+  cstate = train.create_train_state(cmodel, lr=LR)
+  cstate.optimizer.load_state_dict(osd)
+  cstep, _ = train.make_train_step(cmodel, CLASSES)
+  cstate, closs, _ = cstep(cstate, cbatch)
+  torch.testing.assert_close(losses[-1].cpu(), closs, rtol=1e-4, atol=0)
+  diffs = []
+  for (name, p), cp in zip(model.named_parameters(), cmodel.parameters()):
+    torch.testing.assert_close(p.detach().cpu(), cp.detach(), rtol=1e-3,
+                               atol=1e-5, msg=lambda m: f'{name}: {m}')
+    diffs.append(float((p.detach().cpu() - cp.detach()).abs().max()))
+  rep['cpu_check'] = dict(loss=float(losses[-1]), cpu_loss=float(closs),
+                          max_abs_param_diff=max(diffs))
+  log(f'train {mode} CPU recompute of step {steps}: loss {float(closs):.6f} '
+      f'vs {float(losses[-1]):.6f}; updated params max abs diff '
+      f'{max(diffs):.3g} (loss rtol 1e-4; params rtol 1e-3, atol 1e-5)')
+
+  # ---- 3. one ScanTrainer epoch over the same pool, same start
+  smodel, _ = make_model(torch, gtt, loader, device)
+  smodel.load_state_dict(start)
+  smodel.train()
+  sloader = make_loader(gtt, ds, pool, device, mode, caps)
+  trainer = gtt.loader.ScanTrainer(sloader, smodel, CLASSES,
+                                   chunk_size=chunk)
+  sstate = train.create_train_state(smodel, lr=LR)
+  ops.reset_launch_counts()
+  a = _event(torch, cuda)
+  sstate, slosses, saccs = trainer.run_epoch(sstate)
+  b = _event(torch, cuda)
+  if cuda:
+    b.synchronize()
+  scounts = ops.launch_counts()
+  assert scounts[hop] == per * 3 * steps and \
+      scounts['gather_rows'] == per * steps, scounts
+  seed_mat, mask = trainer._epoch_seeds(
+      gtt.random.fold_in(trainer._perm_key, 0), steps)
+  assert bool(mask.all()) and torch.equal(seed_mat, torch.stack(seeds)), \
+      'ScanTrainer seed matrix != the per-step loop\'s seeds'
+  assert slosses.shape == (steps,) and bool(torch.isfinite(slosses).all())
+  torch.testing.assert_close(slosses, losses, rtol=1e-4, atol=0)
+  rep['scan'] = dict(
+      ms_per_step=_span(a, b, cuda) / steps, chunk_size=chunk,
+      launches=scounts, losses_equal=bool(torch.equal(slosses, losses)),
+      max_rel_loss_diff=float(((slosses - losses).abs() /
+                               losses.abs()).max()))
+  log(f'train {mode} ScanTrainer: {steps} steps in chunks of {chunk}, '
+      f'{rep["scan"]["ms_per_step"]:.3f} ms/step; launches {scounts}; seed '
+      f'matrix equal to the loop\'s; losses bit-equal '
+      f'{rep["scan"]["losses_equal"]}, max rel diff '
+      f'{rep["scan"]["max_rel_loss_diff"]:.3g} (rtol 1e-4: the card\'s '
+      f'scatter atomics sum in no fixed order)')
+
+  # ---- 4. host syncs per step, on both entry points
+  if cuda:
+    _, scan_syncs, scan_kinds = count_syncs(
+        torch, lambda: trainer.run_epoch(sstate))
+    torch.cuda.synchronize()
+
+    def loop_steps():
+      st = state
+      for _, batch in zip(range(SYNC_STEPS), loader):
+        st, _, _ = step_fn(st, train.batch_to_dict(batch))
+      return st
+
+    _, loop_syncs, loop_kinds = count_syncs(torch, loop_steps)
+    torch.cuda.synchronize()
+    rep['syncs_per_step'] = dict(loop=loop_syncs / SYNC_STEPS,
+                                 scan=scan_syncs / steps,
+                                 loop_kinds=loop_kinds, scan_kinds=scan_kinds)
+    log(f'train {mode} host syncs per step (set_sync_debug_mode): loop '
+        f'{loop_syncs}/{SYNC_STEPS} steps {loop_kinds}, ScanTrainer '
+        f'{scan_syncs}/{steps} steps {scan_kinds}')
+  if profile:
+    batch = train.batch_to_dict(next(iter(loader)))
+    rep['profile'] = dict(
+        step=profiled(torch, lambda: step_fn(state, batch), 3, device,
+                      f'train {mode} step (forward+backward+Adam)'),
+        scan_epoch=profiled(torch, lambda: trainer.run_epoch(sstate), 1,
+                            device, f'train {mode} ScanTrainer epoch'))
+  return rep
+
+
+def probe_phase(torch, device, reps, smi):
+  """Both probe suites at their sizes (their kernels' launch counters set
+  to 0 before and read after), then the two probe kernels against their
+  plain versions and a library call at the probes' shapes."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.benchmarks import common, prof_dedup, prof_mem
+  cuda = device.type == 'cuda'
+  shrink = 1 if cuda else 64
+  ops.reset_launch_counts()
+  rep = dict(prof_mem=prof_mem.run(device, shrink=shrink),
+             prof_dedup=prof_dedup.run(device, shrink=shrink))
+  rep['launches'] = ops.launch_counts()
+  for name in ('prof_mem', 'prof_dedup'):
+    common.print_table(rep[name], f'probe suite {name} on {smi}')
+  if cuda:
+    assert rep['launches']['row_gather_probe'] > 0 and \
+        rep['launches']['smem_take'] > 0, rep['launches']
+  # ---- B6 at prof_mem's probe G shape
+  gen = torch.Generator().manual_seed(6)
+  n = prof_mem.N // shrink
+  feat = torch.randn((n, prof_mem.WIDTH), generator=gen).to(device)
+  ids = torch.randint(0, n, (prof_mem.ROWS // shrink,), generator=gen,
+                      dtype=torch.int32).to(device)
+  ids64 = ids.long()
+  got, ms, call_ms = timed(torch, lambda: ops.row_gather_probe(feat, ids),
+                           reps, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: ops.row_gather_probe_plain(feat, ids), reps, device)
+  _, lib_ms, lib_call_ms = timed(
+      torch, lambda: torch.index_select(feat, 0, ids64), reps, device)
+  _, k1_ms, k1_call_ms = timed(torch, lambda: ops.gather_rows_hbm(feat, ids),
+                               reps, device)
+  exact = bool(torch.equal(got, ref))
+  row = feat.shape[1] * 4
+  uniq = int(torch.unique(ids64).numel())
+  nbytes = ids.numel() * 4 + uniq * row + ids.numel() * row
+  rep['row_gather_probe'] = dict(
+      ids=ids.numel(), table=list(feat.shape), unique_rows=uniq, exact=exact,
+      max_abs_err=float((got - ref).abs().max()), ms=ms, call_ms=call_ms,
+      plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=lib_ms,
+      library_call_ms=lib_call_ms, k1_ms=k1_ms, k1_call_ms=k1_call_ms,
+      bound_ms=bound_ms(nbytes), bytes=nbytes)
+  log(f'kernel row_gather_probe: ids={ids.numel()} table={list(feat.shape)} '
+      f'exact={exact} ms={ms:.4f} plain_ms={plain_ms:.4f} '
+      f'index_select_ms={lib_ms:.4f} k1_ms={k1_ms:.4f} '
+      f'bound_ms={bound_ms(nbytes):.4f}; call ms {call_ms:.4f} '
+      f'{plain_call_ms:.4f} {lib_call_ms:.4f} {k1_call_ms:.4f}')
+  assert exact, 'row_gather_probe: kernel != plain version'
+  # ---- B5 at prof_dedup's probe shape
+  s = prof_dedup.S // shrink // 512 * 512
+  table = torch.randint(0, 2 ** 30, (prof_dedup.TN,), generator=gen,
+                        dtype=torch.int32).to(device)
+  idx = torch.randint(0, prof_dedup.TN, (s // 128, 128), generator=gen,
+                      dtype=torch.int32).to(device)
+  idx64 = idx.long()
+  got, ms, call_ms = timed(torch, lambda: ops.smem_take(table, idx), reps,
+                           device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: ops.smem_take_plain(table, idx), reps, device)
+  lib, lib_ms, lib_call_ms = timed(torch, lambda: torch.take(table, idx64),
+                                   reps, device)
+  exact = bool(torch.equal(got, ref)) and bool(torch.equal(got, lib))
+  nbytes = 2 * s * 4 + table.numel() * 4
+  rep['smem_take'] = dict(
+      ids=s, table=table.numel(), exact=exact,
+      max_abs_err=float((got - ref).abs().max()), ms=ms, call_ms=call_ms,
+      plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=lib_ms,
+      library_call_ms=lib_call_ms, bound_ms=bound_ms(nbytes), bytes=nbytes)
+  log(f'kernel smem_take: ids={list(idx.shape)} table={table.numel()} '
+      f'exact={exact} ms={ms:.4f} plain_ms={plain_ms:.4f} '
+      f'torch_take_ms={lib_ms:.4f} bound_ms={bound_ms(nbytes):.4f}; call ms '
+      f'{call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f}')
+  assert exact, 'smem_take: kernel != plain version'
+  return rep
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--out', default=None, help='also write the report here')
@@ -1004,12 +1283,25 @@ def main(argv=None):
   report['kernels']['gather_runs'] = gather_runs_phase(
       torch, table, n_nodes, device, reps,
       PROBE_ROWS if device.type == 'cuda' else n_nodes)
+  del table
+  cuda = device.type == 'cuda'
+  steps = TRAIN_STEPS if cuda else 4
+  train_pool = np.random.default_rng(4).permutation(n_nodes)[:BATCH * steps]
+  for mode in ('tree', 'merge'):
+    report[f'train_{mode}'] = train_phase(
+        torch, gtt, ds, device, mode, caps, train_pool, steps,
+        TRAIN_CHUNK if cuda else 2, smi, args.profile)
+  report['probes'] = probe_phase(torch, device, reps, smi)
   ktab = report['kernels']
   widest = ktab['sample_level']['levels'][-1]
   serve_cap = ktab['gather_runs'][len(SERVE_BUCKETS) - 1]
-  launches = {k: sum(report[p]['launches'][k]
-                     for p in ('tree', 'merge', 'serving'))
-              for k in report['serving']['launches']}
+  # every path's launches: each path's counters were set to 0 just before
+  # it and read just after (the ScanTrainer epochs count beside the loops)
+  paths = [report[p]['launches'] for p in (
+      'tree', 'merge', 'serving', 'train_tree', 'train_merge', 'probes')]
+  paths += [report[p]['scan']['launches'] for p in ('train_tree',
+                                                     'train_merge')]
+  launches = {k: sum(c[k] for c in paths) for k in paths[0]}
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -1046,7 +1338,16 @@ def main(argv=None):
            ms=serve_cap['ms'], plain_ms=serve_cap['plain_ms'],
            bound_ms=serve_cap['bound_ms'], bound_by='bytes',
            library_ms=serve_cap['library_ms']),
-  ]}
+  ] + [dict(name=name, route='cuda',
+            source=f'graphlearn_tpu_torch/csrc/{name}.cu', replaces=where,
+            launches=launches[name],
+            max_abs_err=report['probes'][name]['max_abs_err'],
+            ms=report['probes'][name]['ms'],
+            plain_ms=report['probes'][name]['plain_ms'],
+            bound_ms=report['probes'][name]['bound_ms'], bound_by='bytes',
+            library_ms=report['probes'][name]['library_ms'])
+       for name, where in (('row_gather_probe', 'benchmarks/prof_mem.py:84'),
+                           ('smem_take', 'benchmarks/prof_dedup.py:99'))]}
   if args.out:
     with open(args.out, 'w') as fh:
       json.dump(dict(report, kernels_line=line), fh, indent=1)

@@ -1,8 +1,12 @@
-"""Carry GraphSAGE weights between the flax parameter tree and torch.
+"""Carry GraphSAGE weights and Adam state between flax/optax and torch.
 
 The flax tree is ``{'params': {'conv{i}': {'lin_self': {'kernel',
 'bias'}, 'lin_nbr': {'kernel'}}}}`` of numpy arrays; a flax ``Dense``
 kernel is ``[in, out]`` and a torch ``Linear`` weight ``[out, in]``.
+optax's ``ScaleByAdamState(count, mu, nu)`` holds the moments as trees
+of the same layout; torch's Adam keeps ``step``, ``exp_avg`` and
+``exp_avg_sq`` per parameter. Both map by the same ``conv{i}.lin_*``
+names.
 """
 import numpy as np
 import torch
@@ -37,3 +41,31 @@ def params_to_flax(state_dict) -> dict:
     else:
       node['bias'] = arr
   return {'params': tree}
+
+
+def adam_state_from_optax(optimizer, model, adam_state):
+  """Load optax's ``ScaleByAdamState(count, mu, nu)`` (numpy leaves, the
+  flax layout) into the torch Adam ``optimizer`` over ``model``'s
+  parameters, so a JAX run resumes in the port mid-training."""
+  count, mu, nu = adam_state
+  mu_sd, nu_sd = params_from_flax(mu), params_from_flax(nu)
+  step = float(np.asarray(count))
+  for name, p in model.named_parameters():
+    optimizer.state[p] = {
+        'step': torch.tensor(step, dtype=torch.float32),
+        'exp_avg': mu_sd[name].to(p.device),
+        'exp_avg_sq': nu_sd[name].to(p.device)}
+
+
+def adam_state_to_optax(optimizer, model):
+  """The inverse: ``(count, mu, nu)`` from the torch Adam ``optimizer``,
+  ``mu`` and ``nu`` as ``{'params': ...}`` numpy trees (wrap them in
+  ``optax.ScaleByAdamState``)."""
+  named = dict(model.named_parameters())
+  states = [optimizer.state[p] for p in named.values()]
+  counts = {int(st['step']) for st in states}
+  if len(counts) != 1:
+    raise ValueError(f'parameters at different Adam steps: {counts}')
+  mu = params_to_flax({n: st['exp_avg'] for n, st in zip(named, states)})
+  nu = params_to_flax({n: st['exp_avg_sq'] for n, st in zip(named, states)})
+  return counts.pop(), mu, nu

@@ -145,7 +145,12 @@ class MergeSAGEConv(nn.Module):
       f = width // k
       assert f <= n, (f, n)
       m = edge_mask[e0:e1].reshape(f, k)
-      mean = _masked_flat_run_mean(x[row[e0:e1].clamp(min=0).long()], m, k)
+      # index_select, not x[idx]: the backward of x[idx] on the card
+      # serialises each repeated source row (the masked slots' row 0 and
+      # the graph's hubs) and cost 23 of a 26 ms train step; index_select
+      # scatters its gradient with atomic adds
+      src = torch.index_select(x, 0, row[e0:e1].clamp(min=0).long())
+      mean = _masked_flat_run_mean(src, m, k)
       # the k-run's target local idx (masked slots carry -1: take max)
       tgt = col[e0:e1].reshape(f, k).max(1).values
       ok = m.any(1) & (tgt >= 0)

@@ -1,15 +1,40 @@
-"""Forward and evaluation helpers over loader batches.
+"""Training, forward and evaluation helpers over loader batches.
 
-Counterpart of ``graphlearn_tpu/models/train.py`` for inference:
-``make_forward_fn``, ``make_layer_slice_fn``, ``make_eval_counts``,
-``tree_hop_offsets``, ``merge_hop_offsets`` and ``batch_to_dict``. The
-model owns its parameters (an ``nn.Module``), so the functions take the
-batch only. Training comes with a later slice.
+Counterpart of ``graphlearn_tpu/models/train.py``: ``TrainState``,
+``create_train_state``, ``make_loss_fn``, ``make_train_step`` (with its
+``eval_step``), ``make_forward_fn``, ``make_layer_slice_fn``,
+``make_eval_counts``, ``tree_hop_offsets``, ``merge_hop_offsets`` and
+``batch_to_dict``. The model owns its parameters (an ``nn.Module``), so
+the functions take the batch only, and the train state holds the
+optimizer and the step count. The optimizer is ``torch.optim.Adam`` with
+optax.adam's hyperparameters (b1 0.9, b2 0.999, eps 1e-8): the same
+update, its bias corrections placed differently (``models.convert``
+carries its moments to and from optax's ``ScaleByAdamState``). The link
+prediction step is not ported.
 """
+from typing import NamedTuple
+
 import torch
 
 from ..sampler.neighbor_sampler import (capacity_plan,
                                         merge_layout_from_caps, tree_layout)
+
+
+class TrainState(NamedTuple):
+  """The optimizer (over the model's parameters) and the number of steps
+  taken. The parameters live in the model; a train step updates them in
+  place and returns the state with the step advanced."""
+  optimizer: torch.optim.Optimizer
+  step: int
+
+
+def create_train_state(model, lr: float = 3e-3, optimizer=None):
+  """``TrainState`` with ``torch.optim.Adam(lr)`` over ``model``'s
+  parameters (optax.adam's defaults), or the given optimizer."""
+  if optimizer is None:
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+  return TrainState(optimizer, 0)
 
 
 def make_forward_fn(model):
@@ -35,6 +60,62 @@ def make_layer_slice_fn(model, lo: int, hi: int):
     return fwd(batch, layers=(lo, hi))
 
   return slice_fwd
+
+
+def make_loss_fn(model, num_classes: int):
+  """Masked seed-slot cross-entropy ``batch -> (loss, acc)`` in float32
+  over the common prefix of the logits and ``y`` (seed slots lead both
+  buffers), each divided by ``max(#seeds, 1)``.
+
+  The JAX loss one-hots ``y``: a label outside ``[0, num_classes)`` (a
+  pad slot's, for one) indexes nothing, its one-hot row is zero and so
+  is its cross-entropy. Here the label is clamped before it indexes the
+  log-probabilities and such a slot's term is zeroed, so no label ever
+  reaches an index out of range (on the card that is a device-side
+  assert, which ends the process)."""
+  forward = make_forward_fn(model)
+
+  def loss_fn(batch):
+    logits = forward(batch).float()
+    n = min(logits.shape[0], batch['y'].shape[0])
+    logits = logits[:n]
+    y = batch['y'][:n].long()
+    seed_mask = (torch.arange(n, device=logits.device)
+                 < batch['num_seed_nodes'])
+    known = (y >= 0) & (y < num_classes)
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(1, y.clamp(0, num_classes - 1)[:, None])[:, 0]
+    ce = torch.where(seed_mask & known, -picked, 0.0)
+    seeds = torch.clamp(seed_mask.sum(), min=1).float()
+    loss = ce.sum() / seeds
+    correct = (logits.argmax(-1) == y) & seed_mask
+    acc = correct.sum().float() / seeds
+    return loss, acc
+
+  return loss_fn
+
+
+def make_train_step(model, num_classes: int):
+  """``(train_step, eval_step)``. ``train_step(state, batch)`` computes
+  the loss, back-propagates it and takes one optimizer step (the model's
+  parameters change in place); it returns ``(state, loss, acc)`` with
+  ``loss`` and ``acc`` as detached 0-d device tensors, so no step reads
+  anything back to the host. ``eval_step(state, batch)`` is the batch
+  accuracy without a gradient."""
+  loss_fn = make_loss_fn(model, num_classes)
+
+  def train_step(state: TrainState, batch):
+    state.optimizer.zero_grad()
+    loss, acc = loss_fn(batch)
+    loss.backward()
+    state.optimizer.step()
+    return state._replace(step=state.step + 1), loss.detach(), acc.detach()
+
+  @torch.no_grad()
+  def eval_step(state: TrainState, batch):
+    return loss_fn(batch)[1]
+
+  return train_step, eval_step
 
 
 def make_eval_counts(model):

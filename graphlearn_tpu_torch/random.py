@@ -13,13 +13,15 @@ since jax 0.5):
   fold_in(key, d)     -> threefry(key, (0, d))          (_threefry_fold_in)
   split(key, n)[i]    -> threefry(key, (hi(i), lo(i)))  (iota_2x32_shape)
   uniform(key, shape) -> mantissa of bits1 ^ bits2 at flat index i
+  permutation(key, n) -> stable sorts of arange(n) by fresh words  (_shuffle)
 
 Torch has no full uint32 arithmetic, so words live in int64 tensors and
 are masked to 32 bits after every add and rotate. Keys are ``[2]`` int64
 tensors holding the two uint32 words; they stay on the CPU (deriving a
-key is a handful of scalar ops), and only ``uniform`` runs on the
-caller's device. This is plain torch, not a kernel: in the JAX package
-the draw also lies outside the Pallas kernels.
+key is a handful of scalar ops), and only ``uniform`` and
+``permutation`` run on the caller's device. This is plain torch, not a
+kernel: in the JAX package the draw also lies outside the Pallas
+kernels.
 """
 import math
 
@@ -97,3 +99,23 @@ def uniform(key, shape, device=None):
   bits = random_bits(key, tuple(shape), device)
   fbits = (bits >> 9) | 0x3F800000
   return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def permutation(key, n: int, device=None):
+  """``jax.random.permutation(key, n)`` for an integer ``n``: a shuffle of
+  ``arange(n)`` (int32) on ``device``, bit-equal to jax's ``_shuffle``.
+
+  Each of ``ceil(3 ln(max(1, n)) / ln(2**32 - 1))`` rounds splits the key
+  (``key, subkey = split(key)``), draws one 32-bit word per element from
+  the subkey and stably sorts the values by those words. The words are
+  uint32 values held in int64, so they sort as unsigned: sorted as int32
+  their high half would turn negative and change the order."""
+  n = int(n)
+  x = torch.arange(n, dtype=torch.int32, device=device)
+  rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+  for _ in range(rounds):
+    key, subkey = split(key)
+    words = random_bits(subkey, (n,), device)
+    order = torch.sort(words, stable=True).indices
+    x = x[order]
+  return x

@@ -11,7 +11,11 @@ kernel's 32,768, and two calls giving the same bytes; for the gather-v2
 kernel empty ids, B not a multiple of block_rows, a run at the table's
 end, all-equal ids, widths 47/100/128, bf16, int64 ids and presorted ids,
 a routed EmbeddingStore lookup, and a small materialization on the card
-against the CPU.
+against the CPU; for the probe kernels the probes' shapes, empty ids,
+int64 ids and odd widths (row gather), and for the take a cluster launch
+at a non-multiple of its tile, odd and tiny tables, the fill and the
+negative ids that wrap, and a table too large for the cluster; and three
+train steps on the card against the CPU, tree and merge.
 """
 import numpy as np
 import pytest
@@ -271,3 +275,104 @@ def test_materialize_on_card_matches_cpu(cuda):
                              rtol=1e-4, atol=1e-5)
   # one row gather per block and layer: 3 layers x 5 blocks of 64
   assert outs['cpu'][2] == 0 and outs[str(cuda)][2] == 3 * 5
+
+
+@pytest.mark.parametrize('dtype,width,n_ids', [
+    (torch.float32, 128, 153_600), (torch.float32, 100, 4099),
+    (torch.bfloat16, 47, 777), (torch.int32, 600, 33), (torch.float32, 8, 0)])
+@pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
+def test_row_gather_probe_kernel_matches_plain(cuda, dtype, width, n_ids,
+                                               id_dtype):
+  gen = torch.Generator().manual_seed(width)
+  n = 5000
+  table = (torch.randn((n, width), generator=gen) * 100).to(dtype).to(cuda)
+  ids = torch.randint(-5, n + 5, (n_ids,), generator=gen).to(id_dtype)
+  ids = ids.to(cuda)
+  before = ops.launch_counts()['row_gather_probe']
+  got = ops.row_gather_probe(table, ids)
+  torch.cuda.synchronize()
+  assert got.shape == (n_ids, width)
+  assert torch.equal(got, ops.row_gather_probe_plain(table, ids))
+  assert torch.equal(got, ops.gather_rows_hbm(table, ids))
+  assert ops.launch_counts()['row_gather_probe'] == before + (n_ids > 0)
+
+
+@pytest.mark.parametrize('tn,shape', [
+    (65_536, (6144, 128)),          # the probe's shape
+    (65_536, (3001,)),              # not a multiple of the cluster's tile
+    (65_535, (999, 7)),             # an odd table: unequal halves
+    (1, (50,)), (116_224, (2 ** 16 + 3,)), (40, (0,))])
+def test_smem_take_kernel_matches_plain(cuda, tn, shape):
+  gen = torch.Generator().manual_seed(tn)
+  table = torch.randint(0, 2 ** 30, (tn,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+  idx = torch.randint(0, tn, shape, generator=gen, dtype=torch.int32)
+  flat = idx.view(-1)
+  if flat.numel():
+    # out of range above and below (fill), and negative ids that wrap
+    flat[::97] = tn
+    flat[1::89] = -tn - 1
+    flat[2::83] = -1
+    flat[3::79] = -tn
+    flat[4::73] = 2 ** 31 - 1
+    flat[5::71] = -2 ** 31
+  idx = idx.to(cuda)
+  before = ops.launch_counts()['smem_take']
+  got = ops.smem_take(table, idx)
+  torch.cuda.synchronize()
+  ref = ops.smem_take_plain(table, idx)
+  assert got.shape == idx.shape and got.dtype == torch.int32
+  assert torch.equal(got, ref)
+  if flat.numel():
+    assert int((got == ops.probes.FILL).sum()) > 0
+  assert ops.launch_counts()['smem_take'] == before + (idx.numel() > 0)
+
+
+def test_smem_take_refuses_a_table_beyond_the_cluster(cuda):
+  table = torch.zeros(ops.probes.SMEM_TAKE_MAX_ROWS + 1, dtype=torch.int32,
+                      device=cuda)
+  with pytest.raises(ValueError, match='cluster holds'):
+    ops.smem_take(table, torch.zeros(4, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_train_step_on_card_matches_cpu(cuda, mode):
+  from graphlearn_tpu_torch.models import train
+  torch.backends.cuda.matmul.allow_tf32 = False
+  rng = np.random.default_rng(11)
+  n, f, c, fanouts, b = 2000, 32, 7, [5, 4, 3], 64
+  ei = np.stack([rng.integers(0, n, 40000), rng.zipf(1.5, 40000) % n])
+  feats = rng.standard_normal((n, f)).astype(np.float32)
+  labels = rng.integers(0, c, n)
+  pool = rng.permutation(n)[:3 * b]
+  caps = None
+  runs = {}
+  for dev in (cuda, torch.device('cpu')):
+    ds = gtt.data.Dataset(device=dev)
+    ds.init_graph(ei, num_nodes=n)
+    ds.init_node_features(feats)
+    ds.init_node_labels(labels)
+    loader = gtt.loader.NeighborLoader(
+        ds, fanouts, pool, batch_size=b, dedup=mode, frontier_caps=caps,
+        device=dev)
+    if mode == 'merge':
+      no, eo = train.merge_hop_offsets(b, fanouts, caps)
+    else:
+      no, eo = train.tree_hop_offsets(b, fanouts)
+    model = gtt.models.GraphSAGE(
+        f, 64, c, num_layers=3, hop_node_offsets=no, hop_edge_offsets=eo,
+        tree_dense=mode == 'tree', merge_dense=mode == 'merge',
+        fanouts=fanouts, device=dev,
+        generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model)
+    step, _ = train.make_train_step(model, c)
+    losses = []
+    for batch in loader:
+      state, loss, _ = step(state, train.batch_to_dict(batch))
+      losses.append(loss.cpu())
+    runs[dev.type] = (torch.stack(losses), model)
+  torch.testing.assert_close(runs['cuda'][0], runs['cpu'][0], rtol=1e-4,
+                             atol=0)
+  for a, b_ in zip(runs['cuda'][1].parameters(), runs['cpu'][1].parameters()):
+    torch.testing.assert_close(a.detach().cpu(), b_.detach(), rtol=1e-3,
+                               atol=1e-5)

@@ -4,7 +4,8 @@
 (b) No entry point runs on the CPU unless asked: without a GPU, building
     a Dataset, NeighborLoader, NeighborSampler, GraphSAGE (segment, tree
     or merge forward), EmbeddingStore, EmbeddingMaterializer or
-    ServingEngine with no ``device`` raises.
+    ServingEngine with no ``device`` raises, and so do the training
+    example and the probe suites.
 (c) On CPU tensors the kernel wrappers take their plain versions and the
     launch counters stay 0.
 """
@@ -104,6 +105,14 @@ def test_entry_points_default_to_the_card(no_gpu):
     gtt.serving.EmbeddingMaterializer(ds, model)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.models.GraphSAGE(4, 8, 3, num_layers=2)
+  # the training example and the probe suites: the card or nothing
+  from graphlearn_tpu_torch.benchmarks import prof_dedup, prof_mem
+  from graphlearn_tpu_torch.examples import train_sage_products
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    train_sage_products.main(['--num-nodes', '100'])
+  for suite in (prof_mem, prof_dedup):
+    with pytest.raises(SystemExit, match='no CUDA device'):
+      suite.main([])
 
 
 def test_cpu_tensors_take_the_plain_path(no_gpu):
@@ -116,7 +125,8 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
   x = batches[0].x
   assert x.device.type == 'cpu' and x.shape == (4 + 12 + 24, 4)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
-                                 'sample_hop': 0, 'sample_level': 0}
+                                 'sample_hop': 0, 'sample_level': 0,
+                                 'row_gather_probe': 0, 'smem_take': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -133,4 +143,5 @@ def test_kernel_wrappers_refuse_mixed_devices():
     ops.sample_level(ind, epos, mask, ind[:2], torch.tensor(1, dtype=torch.int32),
                      4, 10)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
-                                 'sample_hop': 0, 'sample_level': 0}
+                                 'sample_hop': 0, 'sample_level': 0,
+                                 'row_gather_probe': 0, 'smem_take': 0}
