@@ -52,7 +52,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    engine. Then the gather-v2 kernel against its plain version at the
    engine's caps over the served table and at the JAX probe shape
    (131,072 ids over [1M, 128] f32, presorted chunks and four id
-   distributions), with K1 and ``index_select`` on the same ids.
+   distributions), with K1 and ``index_select`` on the same ids, the
+   share of slots that runs copy in the JAX plan and in the kernel's own
+   in-tile plan, and the kernel's plan (read back from the card) equal to
+   ``plan_runs_in_tiles``.
 5. Training, on the same graph and width (``GraphSAGE(100, 256, 47)``,
    3 layers, Adam at 3e-3, TF32 off), for tree and for merge: 16 steps of
    the products example's per-step loop (loader -> batch_to_dict ->
@@ -71,13 +74,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
-   probes' shapes.
+   probes' shapes, and the take at every cluster size beside
+   ``torch.take``.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes the
 whole report as JSON; ``--profile`` adds a torch.profiler pass over each
-phase of both slices, one materialization pass, 50 engine batches, and
-a train step and a ScanTrainer epoch of each path.
+phase of both slices, one materialization pass, 50 engine batches (with
+the device ops per routed batch), gather v2, K1 and ``index_select`` at
+the largest cap and on the probe's random ids, a train step and a
+ScanTrainer epoch of each path, and the take at each cluster size beside
+``torch.take``.
 ``--rehearse`` runs every phase on the CPU at a tiny size through the
 plain versions (no result line; exit code 3).
 """
@@ -857,20 +864,29 @@ def serving_phase(torch, gtt, ds, device, topo, smi, profile):
     with ServingEngine(store, buckets=SERVE_BUCKETS,
                        max_wait_ms=2.0) as eng:
       eng.lookup(reqs[0])
-      rep['profile'] = dict(
-          layer_pass_1=profiled(torch, lambda: run_pass(1, h1), 1, device,
-                                'serving layer pass 1'),
-          engine_50_batches=profiled(
-              torch, lambda: [eng.lookup(r) for r in reqs], 1, device,
-              'serving 50 engine batches'))
+      rep['profile'] = dict(layer_pass_1=profiled(
+          torch, lambda: run_pass(1, h1), 1, device, 'serving layer pass 1'))
+      b0 = metrics.snapshot()['counters']['serving.batches']
+      prof = profiled(torch, lambda: [eng.lookup(r) for r in reqs], 1,
+                      device, 'serving 50 engine lookups (routed store)')
+      nb = metrics.snapshot()['counters']['serving.batches'] - b0
+      prof.update(batches=nb,
+                  device_ops_per_batch=prof['device_ops_per_call'] / nb)
+      rep['profile']['engine_50_batches'] = prof
+      log(f'profile serving engine: {nb} batches, '
+          f'{prof["device_ops_per_batch"]:.1f} device ops per routed batch')
     del h1
   return rep, store.table
 
 
-def gather_runs_phase(torch, table, n, device, reps, probe_rows):
+def gather_runs_phase(torch, table, n, device, reps, probe_rows,
+                      profile=False):
   """The gather-v2 kernel against its plain version (exact, and against
   index_select), with K1 and index_select on the same ids: at the
-  engine's caps over the served table, and at the JAX probe shape."""
+  engine's caps over the served table, and at the JAX probe shape.
+  Returns (records, profiles): with ``profile``, torch.profiler over 10
+  calls of each of the three at the largest cap and on the probe's random
+  ids."""
   from graphlearn_tpu_torch import ops
   from graphlearn_tpu_torch.ops import gather
   rng = np.random.default_rng(3)
@@ -893,9 +909,20 @@ def gather_runs_phase(torch, table, n, device, reps, probe_rows):
       torch.cuda.synchronize()
     exact = bool(torch.equal(got, ref)) and bool(torch.equal(got, lib))
     err = float((got.float() - ref.float()).abs().max())
+    # the share of slots that runs copy: in the JAX plan (over the sorted
+    # ids) and in the kernel's own plan (caller order, inside each tile),
+    # whose torch mirror must equal what the kernel planned
     plan, _, span = gather._sorted_plan(tab.shape[0], ids, 256, 8, presorted)
     kind, _ = ops.decode_gather_plan(plan[:b])
     run_share = float((kind != 0).float().mean())
+    tiles = ops.plan_runs_in_tiles(ids, tab.shape[0], 256, 8)
+    tile_share = float((ops.decode_gather_plan(tiles)[0] != 0).float().mean())
+    if device.type == 'cuda':
+      own = torch.empty_like(tiles)
+      gather._gather_runs_launch(tab, ids, 256, 8, plan_out=own)
+      plan_equal = bool(torch.equal(own, tiles))
+    else:
+      plan_equal = None
     row = tab.shape[1] * tab.element_size()
     uniq = int(torch.unique(clamped).numel())
     # What table[clip(ids)] must move, whatever the design: the ids read
@@ -904,6 +931,7 @@ def gather_runs_phase(torch, table, n, device, reps, probe_rows):
     nbytes = b * ids.element_size() + uniq * row + b * row
     rec = dict(case=name, table=f'{tuple(tab.shape)} {tab.dtype}', ids=b,
                presorted=presorted, unique_rows=uniq, run_share=run_share,
+               tile_run_share=tile_share, kernel_plan_equal=plan_equal,
                exact=exact, max_abs_err=err, ms=ms, call_ms=call_ms,
                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
                library_ms=lib_ms, library_call_ms=lib_call_ms,
@@ -911,16 +939,34 @@ def gather_runs_phase(torch, table, n, device, reps, probe_rows):
                bound_ms=bound_ms(nbytes), bytes=nbytes)
     records.append(rec)
     log(f'kernel gather_runs {name}: ids={b} table={rec["table"]} '
-        f'presorted={presorted} run_share={run_share:.3f} exact={exact} '
+        f'presorted={presorted} run_share jax_plan={run_share:.3f} '
+        f'kernel_tiles={tile_share:.3f} (kernel plan == mirror: '
+        f'{plan_equal}) exact={exact} '
         f'ms={ms:.4f} plain_ms={plain_ms:.4f} index_select_ms={lib_ms:.4f} '
         f'k1_ms={k1_ms:.4f} bound_ms={rec["bound_ms"]:.4f}; call ms '
         f'{call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f} {k1_call_ms:.4f}')
     assert exact, f'gather_runs {name}: kernel != plain version'
+    assert plan_equal is not False, f'gather_runs {name}: kernel plan != mirror'
 
+  def profile_case(name, tab, ids_np):
+    ids = torch.as_tensor(ids_np.astype(np.int32)).to(device)
+    clamped = ids.clamp(0, tab.shape[0] - 1).long()
+    for label, fn in (
+        ('gather_runs', lambda: ops.gather_rows_hbm2(tab, ids, 256, 8)),
+        ('K1 gather_rows', lambda: ops.gather_rows_hbm(tab, ids)),
+        ('index_select', lambda: torch.index_select(tab, 0, clamped))):
+      fn()
+      profiles.append(dict(case=name, call=label, **profiled(
+          torch, lambda: [fn() for _ in range(10)], 1, device,
+          f'gather_runs phase {name}: 10 x {label}')))
+
+  profiles = []
   for cap in SERVE_BUCKETS:
     reqs = serve_requests(rng, n)
     ids = np.concatenate(reqs)[:cap]
     case(f'serve cap {cap}', table, ids)
+  if profile:
+    profile_case(f'serve cap {SERVE_BUCKETS[-1]}', table, ids)
   probe = torch.randn((probe_rows, 128), device=device, generator=(
       torch.Generator(device).manual_seed(5)))
   chunks = min(PROBE_CHUNKS, probe_rows // 128 // 2)
@@ -935,7 +981,9 @@ def gather_runs_phase(torch, table, n, device, reps, probe_rows):
       ('dup', rng.choice(rng.integers(0, probe_rows, b // 16), b)),
       ('runs', np.arange(c0, c0 + b))):
     case(f'probe {name}', probe, dist)
-  return records
+    if profile and name == 'random':
+      profile_case('probe random', probe, dist)
+  return records, profiles
 
 
 def count_syncs(torch, fn):
@@ -1112,10 +1160,12 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   return rep
 
 
-def probe_phase(torch, device, reps, smi):
+def probe_phase(torch, device, reps, smi, profile=False):
   """Both probe suites at their sizes (their kernels' launch counters set
   to 0 before and read after), then the two probe kernels against their
-  plain versions and a library call at the probes' shapes."""
+  plain versions and a library call at the probes' shapes; the take at
+  every cluster size. With ``profile``, torch.profiler over 10 takes at
+  each cluster size and 10 ``torch.take`` calls."""
   from graphlearn_tpu_torch import ops
   from graphlearn_tpu_torch.benchmarks import common, prof_dedup, prof_mem
   cuda = device.type == 'cuda'
@@ -1175,17 +1225,54 @@ def probe_phase(torch, device, reps, smi):
                                    reps, device)
   exact = bool(torch.equal(got, ref)) and bool(torch.equal(got, lib))
   nbytes = 2 * s * 4 + table.numel() * 4
+  # every cluster size, each beside torch.take in turn (kernel, take)
+  clusters = {}
+  for c in ops.probes.SMEM_TAKE_CLUSTERS:
+    cgot, c_ms, c_call_ms = timed(
+        torch, lambda: ops.smem_take(table, idx, cluster=c), reps, device)
+    _, t_ms, t_call_ms = timed(torch, lambda: torch.take(table, idx64), reps,
+                               device)
+    same = bool(torch.equal(cgot, ref))
+    clusters[c] = dict(ms=c_ms, call_ms=c_call_ms, torch_take_ms=t_ms,
+                       torch_take_call_ms=t_call_ms, exact=same,
+                       staged_bytes=_smem_ctas(torch, device, c) *
+                       table.numel() * 4 // c)
+    log(f'kernel smem_take cluster={c}: exact={same} ms={c_ms:.4f} '
+        f'(call {c_call_ms:.4f}) torch_take_ms={t_ms:.4f} (call '
+        f'{t_call_ms:.4f}); table staged over the card '
+        f'{clusters[c]["staged_bytes"]} B on {smi}')
+    assert same, f'smem_take cluster {c}: kernel != plain version'
   rep['smem_take'] = dict(
-      ids=s, table=table.numel(), exact=exact,
-      max_abs_err=float((got - ref).abs().max()), ms=ms, call_ms=call_ms,
-      plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=lib_ms,
-      library_call_ms=lib_call_ms, bound_ms=bound_ms(nbytes), bytes=nbytes)
+      ids=s, table=table.numel(), cluster=ops.probes.SMEM_TAKE_CLUSTER,
+      exact=exact, max_abs_err=float((got - ref).abs().max()), ms=ms,
+      call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+      library_ms=lib_ms, library_call_ms=lib_call_ms,
+      bound_ms=bound_ms(nbytes), bytes=nbytes, clusters=clusters)
   log(f'kernel smem_take: ids={list(idx.shape)} table={table.numel()} '
+      f'cluster={ops.probes.SMEM_TAKE_CLUSTER} '
       f'exact={exact} ms={ms:.4f} plain_ms={plain_ms:.4f} '
       f'torch_take_ms={lib_ms:.4f} bound_ms={bound_ms(nbytes):.4f}; call ms '
       f'{call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f}')
   assert exact, 'smem_take: kernel != plain version'
+  if profile:
+    rep['smem_take']['profiles'] = {
+        label: profiled(torch, lambda: [fn() for _ in range(10)], 1, device,
+                        f'probe phase: 10 x {label}')
+        for label, fn in [
+            (f'smem_take cluster {c}',
+             lambda c=c: ops.smem_take(table, idx, cluster=c))
+            for c in ops.probes.SMEM_TAKE_CLUSTERS] + [
+            ('torch.take', lambda: torch.take(table, idx64))]}
   return rep
+
+
+def _smem_ctas(torch, device, cluster):
+  """CTAs the take launches at the probe's size: one per SM, in whole
+  clusters (the kernel's own rule; the ids fill every cluster)."""
+  if device.type != 'cuda':
+    return 0
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  return sms // cluster * cluster
 
 
 def main(argv=None):
@@ -1280,9 +1367,10 @@ def main(argv=None):
         for mode in ('tree', 'merge')}
   report['serving'], table = serving_phase(torch, gtt, ds, device, topo, smi,
                                            args.profile)
-  report['kernels']['gather_runs'] = gather_runs_phase(
+  runs, report['gather_runs_profiles'] = gather_runs_phase(
       torch, table, n_nodes, device, reps,
-      PROBE_ROWS if device.type == 'cuda' else n_nodes)
+      PROBE_ROWS if device.type == 'cuda' else n_nodes, args.profile)
+  report['kernels']['gather_runs'] = runs
   del table
   cuda = device.type == 'cuda'
   steps = TRAIN_STEPS if cuda else 4
@@ -1291,7 +1379,7 @@ def main(argv=None):
     report[f'train_{mode}'] = train_phase(
         torch, gtt, ds, device, mode, caps, train_pool, steps,
         TRAIN_CHUNK if cuda else 2, smi, args.profile)
-  report['probes'] = probe_phase(torch, device, reps, smi)
+  report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   ktab = report['kernels']
   widest = ktab['sample_level']['levels'][-1]
   serve_cap = ktab['gather_runs'][len(SERVE_BUCKETS) - 1]

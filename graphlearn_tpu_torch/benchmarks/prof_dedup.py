@@ -13,9 +13,10 @@ same questions.
 
 The TPU suite's Pallas probe (a ``jnp.take`` from a 65,536-entry int32
 table held in VMEM, which never lowered there) is the ``smem_take``
-kernel (``csrc/smem_take.cu``: a 2-CTA cluster holds the 256 KB table in
-shared memory), held against its plain version before it is timed and
-set beside ``torch.take``.
+kernel (``csrc/smem_take.cu``: a cluster of ``ops.probes.
+SMEM_TAKE_CLUSTER`` CTAs holds the 256 KB table in shared memory, one
+part each), held against its plain version before it is timed and set
+beside ``torch.take``.
 
 Differences from the TPU suite: eager torch has no dead-code
 elimination, so no probe sums its result; scatters write into their

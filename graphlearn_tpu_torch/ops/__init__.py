@@ -7,9 +7,9 @@ and ``smem_take``) keep launch counters;
 """
 from . import gather, kernels, probes, sample_fused
 from .collate import collate_batch
-from .gather import (decode_gather_plan, gather_rows_hbm, gather_rows_hbm2,
-                     gather_rows_hbm2_plain, gather_rows_plain,
-                     plan_gather_runs)
+from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
+                     gather_rows_hbm2, gather_rows_hbm2_plain,
+                     gather_rows_plain, plan_gather_runs, plan_runs_in_tiles)
 from .induce_merge import (MergeInducerState, induce_next_merge,
                            init_node_merge)
 from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree

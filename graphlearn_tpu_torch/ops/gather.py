@@ -6,12 +6,14 @@ generations:
 
 - v1, ``gather_rows_hbm``: on a CUDA tensor the wrapper launches the
   ``csrc/gather_rows.cu`` kernel (one warp per output row).
-- v2, ``gather_rows_hbm2``: the same gather after an id sort, driven by
-  a per-slot plan (``plan_gather_runs``) that copies each full
-  ``run_span``-row stretch of consecutive table rows at once and every
-  other slot row by row; on a CUDA tensor the wrapper launches the
-  ``csrc/gather_runs.cu`` kernel, which also writes each row straight
-  back to its caller-order slot (the unsort).
+- v2, ``gather_rows_hbm2``: the same gather, each full ``run_span``-row
+  stretch of consecutive table rows copied at once and every other slot
+  row by row. The plain version (the CPU route) follows the JAX design:
+  an id sort, a per-slot plan (``plan_gather_runs``, bit-exact with
+  JAX's) and the unsort. On a CUDA tensor the wrapper makes one launch
+  of ``csrc/gather_runs.cu`` on the caller's ids: no sort, no plan in
+  device memory; the kernel finds runs in caller order inside each
+  ``block_rows`` tile, as ``plan_runs_in_tiles`` does in torch.
 
 On CPU tensors both wrappers run their plain versions. Both clamp ids to
 ``[0, N)``.
@@ -95,14 +97,22 @@ def plan_gather_runs(sid: torch.Tensor, n_rows: int, block_rows: int,
   from the segment's first) and verdict follow elementwise — the same
   plan, without the index-carrying scans, which are slow on the GPU.
   """
-  b = sid.shape[0]
   sid = sid.to(torch.int32)
-  if b == 0:
+  if sid.shape[0] == 0:
     return sid.clone()
+  j = torch.arange(sid.shape[0], dtype=torch.int64, device=sid.device)
+  return _plan_stretches(sid, n_rows, j % block_rows == 0, run_span)
+
+
+def _plan_stretches(sid: torch.Tensor, n_rows: int, start0: torch.Tensor,
+                    run_span: int) -> torch.Tensor:
+  """The packed plan of int32 ids ``sid`` whose stretches may also break
+  where the bool ``start0`` is set (block or tile starts; ``start0[0]``
+  set)."""
+  b = sid.shape[0]
   dev = sid.device
   j = torch.arange(b, dtype=torch.int64, device=dev)
-  # maximal +1-step segments, broken at block boundaries
-  start0 = j % block_rows == 0
+  # maximal +1-step segments, also broken where start0 is set
   start0[1:] |= sid[1:] != sid[:-1] + 1
   seg = torch.cumsum(start0, 0) - 1
   # first slot of every segment; entry seg+1 is the next segment's first
@@ -125,12 +135,7 @@ def _sorted_plan(n: int, ids: torch.Tensor, block_rows: int, run_span: int,
   """(plan, perm, span): clamp, sort (unless presorted), pad to the
   block multiple with row 0, plan. ``perm`` maps sorted slot -> caller
   slot (None when presorted)."""
-  if block_rows < 1 or run_span < 1:
-    raise ValueError(f'block_rows and run_span must be >= 1, got '
-                     f'{block_rows}, {run_span}')
-  if n > _ROW_MASK:
-    raise ValueError(f'gather v2 packs rows into 30 bits; the table has '
-                     f'{n} rows')
+  _check_grid(n, block_rows, run_span)
   ids = ids.clamp(0, n - 1).to(torch.int32)
   if presorted:
     sid, perm = ids, None
@@ -146,26 +151,78 @@ def _sorted_plan(n: int, ids: torch.Tensor, block_rows: int, run_span: int,
   return plan_gather_runs(sid, n, g, span), perm, span
 
 
+def _check_grid(n: int, block_rows: int, run_span: int):
+  if block_rows < 1 or run_span < 1:
+    raise ValueError(f'block_rows and run_span must be >= 1, got '
+                     f'{block_rows}, {run_span}')
+  if n > _ROW_MASK:
+    raise ValueError(f'gather v2 packs rows into 30 bits; the table has '
+                     f'{n} rows')
+
+
+# the kernel plans at most this many slots of a block at once: a longer
+# block is cut into tiles of this length from its start
+GATHER_RUNS_MAX_TILE = 4096
+
+
+def plan_runs_in_tiles(ids: torch.Tensor, n_rows: int, block_rows: int,
+                       run_span: int) -> torch.Tensor:
+  """The gather-v2 kernel's plan, in torch: over the caller-order ``[B]``
+  ids, clamped to ``[0, n_rows)``, without a sort.
+
+  Slots fall into tiles of ``block_rows`` consecutive slots (a block
+  longer than :data:`GATHER_RUNS_MAX_TILE` is cut into tiles of that
+  length from its start). Inside a tile, each maximal stretch of +1-step
+  ids is split into ``run_span``-slot pieces from its first slot; a piece
+  whose ``run_span`` slots all lie in the stretch is one run: its first
+  slot copies the ``run_span`` rows at once (kind 1) and the others are
+  covered (kind 2); every other slot copies its own row (kind 0).
+  Returns the clamped rows with the kind in bits 30-31, packed as
+  :func:`plan_gather_runs` packs them; decode with
+  :func:`decode_gather_plan`. Apply with :func:`apply_gather_plan`.
+  """
+  _check_grid(n_rows, block_rows, run_span)
+  b = ids.shape[0]
+  rows = ids.clamp(0, n_rows - 1).to(torch.int32)
+  if b == 0:
+    return rows
+  j = torch.arange(b, dtype=torch.int64, device=rows.device)
+  start = (j % block_rows) % min(block_rows, GATHER_RUNS_MAX_TILE) == 0
+  return _plan_stretches(rows, n_rows, start, run_span)
+
+
+def apply_gather_plan(table: torch.Tensor, plan: torch.Tensor,
+                      run_span: int) -> torch.Tensor:
+  """Execute a packed caller-order plan in plain torch: every kind-0 slot
+  copies its row, every kind-1 slot copies ``run_span`` consecutive rows
+  into itself and the next ``run_span - 1`` slots, kind-2 slots copy
+  nothing. Slots no copy writes stay zero."""
+  b, f = plan.shape[0], table.shape[1]
+  out = table.new_zeros((b, f))
+  if b == 0:
+    return out
+  kind, row = decode_gather_plan(plan)
+  single = torch.nonzero(kind == _KIND_SINGLE).squeeze(1)
+  out[single] = table[row[single].long()]
+  starts = torch.nonzero(kind == _KIND_RUN).squeeze(1)
+  off = torch.arange(run_span, device=table.device)
+  out[(starts[:, None] + off).reshape(-1)] = \
+      table[(row[starts].long()[:, None] + off).reshape(-1)]
+  return out
+
+
 def gather_rows_hbm2_plain(table: torch.Tensor, ids: torch.Tensor,
                            block_rows: int = 256, run_span: int = 8,
                            presorted: bool = False):
   """The same function as :func:`gather_rows_hbm2` in plain torch: sort,
   plan, one indexed copy for the kind-0 slots and one for every row of
   every kind-1 run, then the unsort. Equals ``table[clip(ids)]``."""
-  b, f = ids.shape[0], table.shape[1]
+  b = ids.shape[0]
   if b == 0:
-    return table.new_empty((0, f))
+    return table.new_empty((0, table.shape[1]))
   plan, perm, span = _sorted_plan(table.shape[0], ids, block_rows,
                                   run_span, presorted)
-  kind, row = decode_gather_plan(plan)
-  out = table.new_empty((plan.shape[0], f))
-  single = torch.nonzero(kind == _KIND_SINGLE).squeeze(1)
-  out[single] = table[row[single].long()]
-  starts = torch.nonzero(kind == _KIND_RUN).squeeze(1)
-  off = torch.arange(span, device=table.device)
-  out[(starts[:, None] + off).reshape(-1)] = \
-      table[(row[starts].long()[:, None] + off).reshape(-1)]
-  out = out[:b]
+  out = apply_gather_plan(table, plan, span)[:b]
   if perm is None:
     return out
   res = torch.empty_like(out)
@@ -176,39 +233,48 @@ def gather_rows_hbm2_plain(table: torch.Tensor, ids: torch.Tensor,
 def gather_rows_hbm2(table: torch.Tensor, ids: torch.Tensor,
                      block_rows: int = 256, run_span: int = 8,
                      presorted: bool = False):
-  """Gather ``table[ids]`` (ids clamped to ``[0, N)``) through the
-  run-segmented plan.
+  """Gather ``table[ids]`` (ids clamped to ``[0, N)``), each full
+  ``run_span``-row stretch of consecutive rows copied at once.
 
   Args:
     table: ``[N, F]`` float32 / bfloat16 / float16 / int32, contiguous,
       N < 2**30; any row width.
     ids: ``[B]`` int32 or int64 on the table's device.
-    block_rows: plan block (runs never cross a block boundary).
+    block_rows: block of slots (runs never cross a block boundary).
     run_span: rows per run copy.
-    presorted: the caller's ids are already ascending: skip the sort and
-      the unsort.
+    presorted: the caller's ids are already ascending. The plain version
+      skips its sort and unsort; the kernel finds runs in caller order
+      anyway, so the flag changes no output.
 
   Returns ``[B, F]`` rows in caller order. On CPU tensors this is
-  :func:`gather_rows_hbm2_plain`; a CUDA table launches the kernel or
-  raises.
+  :func:`gather_rows_hbm2_plain`; a CUDA table makes one launch of the
+  kernel or raises.
   """
   if table.device.type == 'cpu' and ids.device.type == 'cpu':
     return gather_rows_hbm2_plain(table, ids, block_rows, run_span,
                                   presorted)
+  return _gather_runs_launch(table, ids, block_rows, run_span)
+
+
+def _gather_runs_launch(table, ids, block_rows, run_span, plan_out=None):
+  """One launch of ``csrc/gather_runs.cu``; ``plan_out`` (a ``[B]`` int32
+  tensor on the table's device, or None) receives the kernel's own plan,
+  packed as :func:`plan_runs_in_tiles` packs it."""
   _check(table, ids, 'gather_rows_hbm2')
+  _check_grid(table.shape[0], block_rows, run_span)
   global runs_launches
   b = ids.shape[0]
   out = torch.empty((b, table.shape[1]), dtype=table.dtype,
                     device=table.device)
   if b == 0:
     return out
-  plan, perm, span = _sorted_plan(table.shape[0], ids, block_rows,
-                                  run_span, presorted)
+  # a block of b or more slots is one block; a run longer than 2**31 - 1
+  # slots never fits one
   err = kernels.lib('gather_runs').glt_gather_runs(
-      table.data_ptr(), plan.data_ptr(),
-      None if perm is None else perm.data_ptr(), out.data_ptr(),
-      table.shape[0], b, plan.shape[0],
-      table.shape[1] * table.element_size(), span,
+      table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
+      out.data_ptr(), None if plan_out is None else plan_out.data_ptr(),
+      table.shape[0], b, table.shape[1] * table.element_size(),
+      min(block_rows, b), min(run_span, 2 ** 31 - 1),
       table.device.index or 0,
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'gather_runs')

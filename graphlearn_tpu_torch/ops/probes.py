@@ -15,8 +15,8 @@ benchmarks.prof_mem`` / ``prof_dedup``) time:
   table held in on-chip memory, in jnp.take's default fill mode: an id in
   ``[-TN, 0)`` counts from the end, any other id outside ``[0, TN)``
   gives ``INT32_MIN``. On a CUDA tensor the wrapper launches
-  ``csrc/smem_take.cu`` (a 2-CTA cluster, each CTA holding half the
-  table in shared memory).
+  ``csrc/smem_take.cu`` (a thread-block cluster of 2, 4 or 8 CTAs, each
+  holding its part of the table in shared memory).
 
 On CPU tensors both wrappers run their plain versions.
 """
@@ -30,9 +30,13 @@ row_gather_launches = 0
 smem_take_launches = 0
 
 FILL = -2 ** 31
-# a cluster of two CTAs, each with at most 227 KB (232,448 B) of shared
-# memory, holds at most this many int32 table entries
-SMEM_TAKE_MAX_ROWS = 2 * 232_448 // 4
+# the cluster sizes smem_take takes, and the one it launches by default
+SMEM_TAKE_CLUSTERS = (2, 4, 8)
+SMEM_TAKE_CLUSTER = 2
+# a CTA holds at most 227 KB (232,448 B) of shared memory: int32 entries
+# per CTA, and the largest table the default cluster holds
+_SMEM_ROWS_PER_CTA = 232_448 // 4
+SMEM_TAKE_MAX_ROWS = SMEM_TAKE_CLUSTER * _SMEM_ROWS_PER_CTA
 
 
 def row_gather_probe_plain(table: torch.Tensor, ids: torch.Tensor):
@@ -79,16 +83,23 @@ def smem_take_plain(table: torch.Tensor, idx: torch.Tensor):
   return torch.where(ok, got, torch.full_like(got, FILL))
 
 
-def smem_take(table: torch.Tensor, idx: torch.Tensor):
+def smem_take(table: torch.Tensor, idx: torch.Tensor,
+              cluster: int = SMEM_TAKE_CLUSTER):
   """``take(table, idx)`` in fill mode, the table held in the shared
-  memory of a 2-CTA cluster on the card.
+  memory of a thread-block cluster on the card.
 
   Args:
-    table: ``[TN]`` int32, contiguous, ``1 <= TN <= SMEM_TAKE_MAX_ROWS``.
+    table: ``[TN]`` int32, contiguous, ``1 <= TN <= cluster * 58,112``
+      (``SMEM_TAKE_MAX_ROWS`` at the default cluster).
     idx: int32 ids of any shape, contiguous, on the table's device.
+    cluster: CTAs in the cluster that holds the table, one of
+      ``SMEM_TAKE_CLUSTERS``.
 
   Returns an int32 tensor of ``idx``'s shape.
   """
+  if cluster not in SMEM_TAKE_CLUSTERS:
+    raise ValueError(f'smem_take: cluster {cluster} is not one of '
+                     f'{SMEM_TAKE_CLUSTERS}')
   if table.device.type == 'cpu' and idx.device.type == 'cpu':
     return smem_take_plain(table, idx)
   if table.device.type != 'cuda' or idx.device != table.device:
@@ -99,9 +110,10 @@ def smem_take(table: torch.Tensor, idx: torch.Tensor):
       idx.dtype != torch.int32:
     raise ValueError(f'smem_take: needs a 1-D int32 table and int32 ids, '
                      f'got {tuple(table.shape)} {table.dtype}, {idx.dtype}')
-  if not 1 <= table.shape[0] <= SMEM_TAKE_MAX_ROWS:
+  most = cluster * _SMEM_ROWS_PER_CTA
+  if not 1 <= table.shape[0] <= most:
     raise ValueError(f'smem_take: a table of {table.shape[0]} entries; the '
-                     f'cluster holds 1 to {SMEM_TAKE_MAX_ROWS}')
+                     f'cluster holds 1 to {most}')
   if not (table.is_contiguous() and idx.is_contiguous()):
     raise ValueError('smem_take: table and ids must be contiguous')
   global smem_take_launches
@@ -110,7 +122,7 @@ def smem_take(table: torch.Tensor, idx: torch.Tensor):
     return out
   err = kernels.lib('smem_take').glt_smem_take(
       table.data_ptr(), table.shape[0], idx.data_ptr(), out.data_ptr(),
-      idx.numel(), table.device.index or 0,
+      idx.numel(), cluster, table.device.index or 0,
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'smem_take')
   smem_take_launches += 1

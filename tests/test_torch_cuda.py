@@ -8,14 +8,20 @@ degree, k above a warp; for the level kernel an empty frontier, all
 slots masked, every pick already in the prefix, heavy duplicates,
 truncation (num_new > limit), deg-0 and hub seeds, S far above the TPU
 kernel's 32,768, and two calls giving the same bytes; for the gather-v2
-kernel empty ids, B not a multiple of block_rows, a run at the table's
-end, all-equal ids, widths 47/100/128, bf16, int64 ids and presorted ids,
-a routed EmbeddingStore lookup, and a small materialization on the card
-against the CPU; for the probe kernels the probes' shapes, empty ids,
-int64 ids and odd widths (row gather), and for the take a cluster launch
-at a non-multiple of its tile, odd and tiny tables, the fill and the
-negative ids that wrap, and a table too large for the cluster; and three
-train steps on the card against the CPU, tree and merge.
+kernel empty ids, B not a multiple of block_rows, runs of exactly
+run_span, run_span - 1 and 3 * run_span + 1 rows, a run over a tile edge
+and one ending at the table's end, all-equal ids, f32/bf16/int32 at widths
+47/100/128, a table view whose rows are not 16-byte aligned, int64 ids and
+presorted ids, the kernel's own plan against plan_runs_in_tiles, one
+device kernel per call (torch.profiler), a routed EmbeddingStore lookup,
+and a small materialization on the card against the CPU; for the probe
+kernels the probes' shapes, empty ids, int64 ids and odd widths (row
+gather), and for the take, at cluster sizes 2, 4 and 8, a launch at a
+non-multiple of its tile, odd, tiny and largest tables, TN below the
+cluster size, id counts that are not multiples of 4, an id view that is
+not 16-byte aligned, the fill and the negative ids that wrap, and a table
+too large for the cluster; and three train steps on the card against the
+CPU, tree and merge.
 """
 import numpy as np
 import pytest
@@ -182,10 +188,11 @@ def test_sample_level_fused_on_card_matches_cpu_route(cuda):
       assert torch.equal(a[name], b[name]), name
 
 
-def _runs_ids(case, n, gen):
+def _runs_ids(case, n, gen, span=8):
   """Ids for the gather-v2 cases: random ids, a contiguous stretch (full
   runs) and out-of-range ids on both sides, 1,000 of them (not a
-  multiple of block_rows=256), unless the case says otherwise."""
+  multiple of block_rows=256), unless the case says otherwise; the run
+  cases write their stretch at slot 300 of such ids."""
   if case == 'empty':
     return torch.zeros(0, dtype=torch.int32)
   if case == 'table-end':
@@ -197,27 +204,52 @@ def _runs_ids(case, n, gen):
   ids = ids[torch.randperm(ids.numel(), generator=gen)]
   if case == 'presorted':
     ids = ids.clamp(0, n - 1).sort().values
+  stretch = {'run-span': span, 'run-span-minus-1': span - 1,
+             'run-3span-plus-1': 3 * span + 1}.get(case)
+  if stretch is not None:
+    ids[299] = 0
+    ids[300:300 + stretch] = torch.arange(2000, 2000 + stretch)
+    ids[300 + stretch] = 0
+  if case == 'tile-cross':     # over the tile edge at slot 256
+    ids[256 - 20:256 + 20] = torch.arange(3000, 3040)
+  if case == 'run-to-end':     # a run ending on row N - 1, then clamped ids
+    ids[500:540] = torch.arange(n - 32, n + 8)
   return ids.to(torch.int64 if case == 'int64' else torch.int32)
 
 
-@pytest.mark.parametrize('case,dtype,width,grid', [
-    ('empty', torch.float32, 47, (256, 8)),
-    ('ragged', torch.float32, 47, (256, 8)),
-    ('ragged', torch.float32, 100, (256, 8)),
-    ('ragged', torch.float32, 128, (256, 8)),
-    ('ragged', torch.float32, 47, (16, 4)),
-    ('table-end', torch.float32, 47, (256, 8)),
-    ('all-equal', torch.float32, 47, (256, 8)),
-    ('ragged', torch.bfloat16, 100, (256, 8)),
-    ('int64', torch.float32, 47, (256, 8)),
-    ('presorted', torch.float32, 47, (256, 8)),
-    ('presorted', torch.bfloat16, 128, (16, 4))])
-def test_gather_runs_kernel_matches_plain(cuda, case, dtype, width, grid):
+_RUN_CASES = ['empty', 'ragged', 'table-end', 'all-equal', 'int64',
+              'presorted', 'run-span', 'run-span-minus-1', 'run-3span-plus-1',
+              'tile-cross', 'run-to-end']
+_ROW_TYPES = [(torch.float32, 47), (torch.float32, 100),
+              (torch.float32, 128), (torch.bfloat16, 47),
+              (torch.bfloat16, 100), (torch.bfloat16, 128),
+              (torch.int32, 47), (torch.int32, 100), (torch.int32, 128)]
+
+
+@pytest.mark.parametrize('case,dtype,width,grid,view', [
+    (case, dtype, width, (256, 8), 'whole')
+    for case in _RUN_CASES for dtype, width in _ROW_TYPES] + [
+    ('ragged', torch.float32, 47, (16, 4), 'whole'),
+    ('presorted', torch.bfloat16, 128, (16, 4), 'whole'),
+    ('tile-cross', torch.float32, 100, (1024, 8), 'whole'),
+    ('run-3span-plus-1', torch.float32, 47, (1, 8), 'whole'),
+    ('ragged', torch.float32, 47, (256, 1), 'whole'),
+    ('ragged', torch.float32, 47, (256, 8), 'offset'),
+    ('run-3span-plus-1', torch.float32, 47, (256, 8), 'offset'),
+    ('tile-cross', torch.bfloat16, 47, (256, 8), 'offset')])
+def test_gather_runs_kernel_matches_plain(cuda, case, dtype, width, grid,
+                                          view):
+  """The kernel against the plain version and table[clip(ids)], and its
+  own plan (read back through plan_out) against plan_runs_in_tiles. The
+  'offset' view is table[1:] of a contiguous table, whose rows are not
+  16-byte aligned at width 47."""
   gen = torch.Generator().manual_seed(width)
   n = 5000
-  table = (torch.randn((n, width), generator=gen) * 100).to(dtype).to(cuda)
-  ids = _runs_ids(case, n, gen).to(cuda)
+  table = (torch.randn((n + 1, width), generator=gen) * 100).to(dtype)
+  table = table.to(cuda)
+  table = table[1:] if view == 'offset' else table[:n]
   br, rs = grid
+  ids = _runs_ids(case, n, gen, rs).to(cuda)
   pre = case == 'presorted'
   before = ops.launch_counts()['gather_runs']
   got = ops.gather_rows_hbm2(table, ids, br, rs, presorted=pre)
@@ -227,6 +259,36 @@ def test_gather_runs_kernel_matches_plain(cuda, case, dtype, width, grid):
                                                      presorted=pre))
   assert torch.equal(got, ops.gather_rows_plain(table, ids))
   assert ops.launch_counts()['gather_runs'] == before + (case != 'empty')
+  plan = torch.full((ids.numel(),), -1, dtype=torch.int32, device=cuda)
+  again = ops.gather._gather_runs_launch(table, ids, br, rs, plan_out=plan)
+  torch.cuda.synchronize()
+  assert torch.equal(again, got)
+  want = ops.plan_runs_in_tiles(ids.cpu(), n, br, rs)
+  assert torch.equal(plan.cpu(), want)
+  kind = ops.decode_gather_plan(want)[0]
+  if case in ('run-span', 'run-3span-plus-1', 'tile-cross', 'run-to-end',
+              'table-end') and rs > 1 and br > 1:
+    assert bool((kind == 1).any())
+
+
+def test_gather_rows_hbm2_is_one_device_kernel(cuda):
+  """A gather_rows_hbm2 call on a CUDA table runs exactly one device
+  kernel (no sort, no plan ops), as torch.profiler sees the device."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  gen = torch.Generator().manual_seed(3)
+  table = torch.randn((5000, 47), generator=gen).to(cuda)
+  ids = _runs_ids('ragged', 5000, gen).to(cuda)
+  ops.gather_rows_hbm2(table, ids)          # built and loaded before
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    got = ops.gather_rows_hbm2(table, ids)
+    torch.cuda.synchronize()
+  device = [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+  assert len(device) == 1 and 'gather_runs' in device[0], device
+  assert torch.equal(got, ops.gather_rows_plain(table, ids))
 
 
 def test_routed_store_lookup_launches_gather_runs(cuda):
@@ -297,17 +359,24 @@ def test_row_gather_probe_kernel_matches_plain(cuda, dtype, width, n_ids,
   assert ops.launch_counts()['row_gather_probe'] == before + (n_ids > 0)
 
 
-@pytest.mark.parametrize('tn,shape', [
-    (65_536, (6144, 128)),          # the probe's shape
-    (65_536, (3001,)),              # not a multiple of the cluster's tile
-    (65_535, (999, 7)),             # an odd table: unequal halves
-    (1, (50,)), (116_224, (2 ** 16 + 3,)), (40, (0,))])
-def test_smem_take_kernel_matches_plain(cuda, tn, shape):
+@pytest.mark.parametrize('cluster', [2, 4, 8])
+@pytest.mark.parametrize('tn,shape,view', [
+    (65_536, (6144, 128), 'whole'),  # the probe's shape
+    (65_536, (3001,), 'whole'),      # not a multiple of the cluster's tile
+    (65_535, (999, 7), 'whole'),     # an odd table: unequal parts
+    (65_537, (4099,), 'whole'),      # TN not a multiple of any cluster
+    (3, (50,), 'whole'),             # TN below the cluster size
+    (1, (50,), 'whole'), (116_224, (2 ** 16 + 3,), 'whole'),
+    (40, (0,), 'whole'), (40, (3,), 'whole'),
+    (65_536, (6143,), 'offset'),     # ids 4 bytes past a 16-byte boundary
+    (1001, (2,), 'offset')])
+def test_smem_take_kernel_matches_plain(cuda, cluster, tn, shape, view):
   gen = torch.Generator().manual_seed(tn)
   table = torch.randint(0, 2 ** 30, (tn,), generator=gen,
                         dtype=torch.int32).to(cuda)
-  idx = torch.randint(0, tn, shape, generator=gen, dtype=torch.int32)
-  flat = idx.view(-1)
+  numel = int(np.prod(shape))
+  idx = torch.randint(0, tn, (numel + 1,), generator=gen, dtype=torch.int32)
+  flat = idx[1:] if view == 'offset' else idx[:numel]
   if flat.numel():
     # out of range above and below (fill), and negative ids that wrap
     flat[::97] = tn
@@ -317,8 +386,11 @@ def test_smem_take_kernel_matches_plain(cuda, tn, shape):
     flat[4::73] = 2 ** 31 - 1
     flat[5::71] = -2 ** 31
   idx = idx.to(cuda)
+  idx = (idx[1:] if view == 'offset' else idx[:numel]).view(shape)
+  if view == 'offset':
+    assert idx.data_ptr() % 16 != 0 and idx.is_contiguous()
   before = ops.launch_counts()['smem_take']
-  got = ops.smem_take(table, idx)
+  got = ops.smem_take(table, idx, cluster=cluster)
   torch.cuda.synchronize()
   ref = ops.smem_take_plain(table, idx)
   assert got.shape == idx.shape and got.dtype == torch.int32
@@ -326,6 +398,18 @@ def test_smem_take_kernel_matches_plain(cuda, tn, shape):
   if flat.numel():
     assert int((got == ops.probes.FILL).sum()) > 0
   assert ops.launch_counts()['smem_take'] == before + (idx.numel() > 0)
+
+
+def test_smem_take_holds_the_largest_table_of_each_cluster(cuda):
+  for cluster in ops.probes.SMEM_TAKE_CLUSTERS:
+    tn = cluster * 232_448 // 4
+    table = torch.arange(tn, dtype=torch.int32, device=cuda)
+    idx = torch.randint(-tn, tn, (100_003,), dtype=torch.int32, device=cuda)
+    got = ops.smem_take(table, idx, cluster=cluster)
+    assert torch.equal(got, ops.smem_take_plain(table, idx))
+    with pytest.raises(ValueError, match='cluster holds'):
+      ops.smem_take(torch.zeros(tn + 1, dtype=torch.int32, device=cuda), idx,
+                    cluster=cluster)
 
 
 def test_smem_take_refuses_a_table_beyond_the_cluster(cuda):
