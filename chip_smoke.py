@@ -16,10 +16,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the main paths' shapes (exact equality), with the kernel's, the plain
    version's and (where one exists) one library call's median device
    time (and, beside it, the time of a call including its host launch
-   cost), and the bound computed from the inputs. The level kernel runs
-   at the three levels of one full-width merge batch, from the states
-   the sampler produced, and once more at S > 32,768 with hubs,
-   duplicates, all-found and all-masked seeds.
+   cost), and the bound computed from the inputs (bytes over the memory
+   rate, or the in-kernel draw's 32-bit operations over the scalar rate,
+   whichever is larger). The fused hop (one launch: seed rows, threefry
+   draw, pick) runs at hops 0-2 of a products batch, hop 2 with 1% hub
+   seeds whose rows in a fabricated row table point at long segments,
+   against the plain hop on the same device key and beside
+   ``indices[epos]``. The fused level (three launches) runs at the three
+   levels of one full-width merge batch, from the arguments, states and
+   scratch the sampler produced, and once more at S > 32,768 with hubs,
+   duplicates, all-found and all-masked seeds, against the plain level
+   (the draw and the merge inducer).
 3. Slices, at full width (``bench.py``'s recipe: 1M nodes, average
    degree 25, half uniform and half zipf(1.5) targets, [1M, 100] f32
    features, 47 classes; fanouts [15, 10, 5] at batch 1024; GraphSAGE
@@ -29,12 +36,14 @@ Phases (any failure exits non-zero, and the result line is not printed):
      in the loader) under ``overflow_policy='raise'``, the layered
      ``merge_dense`` forward.
    Before each, the launch counters are set to 0, and they are read just
-   after: every hop (tree) or level (merge) must have gone through its
-   kernel and every feature gather through the row-gather kernel. No
-   merge batch may overflow its caps. Outputs must be finite, and the
-   last batch is recomputed on the CPU from the same sampler state
-   (plain versions): ids, masks and features exact, logits within
-   rtol=1e-3, atol=1e-4 (TF32 off; the two devices sum in other orders).
+   after: every hop (tree: one launch) or level (merge: three, plus one
+   per batch) must have gone through its kernel and every feature gather
+   through the row-gather kernel. No merge batch may overflow its caps.
+   Outputs must be finite, and the last batch is recomputed on the CPU
+   from the same sampler state (plain versions): ids, masks and features
+   exact, logits within rtol=1e-3, atol=1e-4 (TF32 off; the two devices
+   sum in other orders). Then torch.profiler over one more sampled batch
+   gives its device ops and busy and wall time.
 4. Serving, on the same graph and width: ``GraphSAGE(100, 256, 47)``,
    3 layers, the plain segment forward, weights from seed 0.
    ``EmbeddingMaterializer(block_size=2048, chunk_size=8).materialize()``
@@ -69,7 +78,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``torch.cuda.set_sync_debug_mode('warn')``. The launch counters are
    set to 0 before the loop and before the epoch and read after each:
    every step's hops (tree) or levels (merge) and its feature gather must
-   have gone through their kernels. No merge batch may overflow.
+   have gone through their kernels. No merge batch may overflow. Then
+   torch.profiler over one more loop step gives its device ops.
 6. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
@@ -99,6 +109,11 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA's H100 SXM data sheet
+H100_OPS_PER_S = 67e12       # float32 outside the tensor cores (data sheet)
+# 32-bit operations of one drawn slot in csrc/csr_pick.cuh: threefry's
+# 20 rounds of add, rotate and xor (60), its key injections (17), and the
+# offset (shift, or, fsub, int2float, fmul, floor, float2int, min: 8)
+DRAW_OPS = 85
 FANOUTS = [15, 10, 5]
 BATCH = 1024
 FEAT_DIM = 100
@@ -117,6 +132,9 @@ PROBE_ROWS, PROBE_CHUNKS = 1_000_000, 1024   # the JAX gather-v2 probe shape
 LR = 3e-3                            # the products example's Adam rate
 TRAIN_STEPS, TRAIN_CHUNK = 16, 8     # per-step loop / ScanTrainer epoch
 SYNC_STEPS = 4                       # loop steps run under sync counting
+# device ops per sampled batch and per scanned train step measured before
+# the sampling kernels drew in-kernel (PERF.md, section 5)
+OPS_BEFORE = dict(tree=690, merge=768, train_tree=860, train_merge=1063)
 
 
 def log(*a):
@@ -147,18 +165,24 @@ def make_graph(num_nodes: int, avg_deg: int, seed: int = 0):
   return np.stack([rows, cols]), feats, labels
 
 
-def timed(torch, fn, reps: int, device):
+def timed(torch, fn, reps: int, device, setup=None):
   """(result, device ms, call ms): medians over ``reps`` calls after one
   warm-up call. The device ms is taken between CUDA events with the call
   queued behind a spin kernel (``torch.cuda._sleep``), so the host's
   launch cost does not show; the call ms is taken between events around
   a call made on an idle card, so it does. On the CPU both are the host
-  clock."""
+  clock. ``setup`` (restoring state a call changes) runs before every
+  call, outside the timed span."""
+  setup = setup or (lambda: None)
+  setup()
   out = fn()
   dev_times, call_times = [], []
   for _ in range(reps):
     if device.type == 'cuda':
       for queued, times in ((True, dev_times), (False, call_times)):
+        setup()
+        if not queued:
+          torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         if queued:
@@ -169,6 +193,7 @@ def timed(torch, fn, reps: int, device):
         b.synchronize()
         times.append(a.elapsed_time(b))
     else:
+      setup()
       t0 = time.perf_counter()
       out = fn()
       dev_times.append((time.perf_counter() - t0) * 1e3)
@@ -176,8 +201,21 @@ def timed(torch, fn, reps: int, device):
   return out, float(np.median(dev_times)), float(np.median(call_times))
 
 
-def bound_ms(nbytes: int) -> float:
-  return nbytes / H100_BYTES_PER_S * 1e3
+def bound_ms(nbytes: int, ops: int = 0) -> float:
+  """The least time for the work: the larger of the bytes over the card's
+  memory rate and the 32-bit operations over its scalar rate."""
+  return max(nbytes / H100_BYTES_PER_S, ops / H100_OPS_PER_S) * 1e3
+
+
+def bound_by(nbytes: int, ops: int = 0) -> str:
+  return 'bytes' if nbytes / H100_BYTES_PER_S >= ops / H100_OPS_PER_S \
+      else 'operations'
+
+
+def draw_ops(deg, seed_mask, k: int) -> int:
+  """32-bit operations of the in-kernel draws this hop runs: one threefry
+  and offset per slot of a valid seed with deg > k (the rest take j)."""
+  return int(((deg > k) & seed_mask).sum()) * k * DRAW_OPS
 
 
 def _event(torch, cuda):
@@ -195,7 +233,6 @@ def _span(a, b, cuda):
 def kernel_phase(torch, gtt, ds, device, gen, reps):
   """Each kernel against its plain version at main-path shapes."""
   from graphlearn_tpu_torch import ops
-  from graphlearn_tpu_torch.ops import sample_fused
   records = {}
   n = ds.graph.num_nodes
   # ---- K1 gather_rows: the collate gather of a products batch
@@ -240,187 +277,292 @@ def kernel_phase(torch, gtt, ds, device, gen, reps):
         f'{plain_call_ms:.4f} {lib_call_ms:.4f}')
     assert exact, f'gather_rows {name}: kernel != plain version'
   records['gather_rows'] = cases
-  # ---- K3 sample_hop: hop 2 of a products batch, plus hubs
-  g = ds.graph
-  b = BATCH * FANOUTS[0] * FANOUTS[1]
-  k = FANOUTS[2]
-  seeds = torch.randint(0, n, (b,), generator=gen).to(torch.int32).to(device)
-  seed_mask = (torch.rand((b,), generator=gen) < 0.97).to(device)
-  row = g.csr_meta[torch.where(seed_mask, seeds, 0).long()]
-  start, deg = row[:, 0].contiguous(), row[:, 1].contiguous()
-  # hub seeds: long segments, whose picks land far apart in indices
-  n_hub = b // 100
-  hub = torch.randperm(b, generator=gen)[:n_hub].to(device)
-  hdeg = torch.randint(HUB_DEG, 8 * HUB_DEG, (n_hub,), generator=gen)
-  hstart = (torch.rand((n_hub,), generator=gen) *
-            (g.num_edges - hdeg)).to(torch.int64)
-  start[hub] = hstart.to(torch.int32).to(device)
-  deg[hub] = hdeg.to(torch.int32).to(device)
-  seed_mask[hub] = True
-  key = gtt.random.fold_in(gtt.random.PRNGKey(0), 1)
-  epos, mask = sample_fused._draw(start, deg, seed_mask, k, key)
-  safe = torch.where(mask, epos, 0).contiguous()
-  safe_long = safe.long()
-  got, ms, call_ms = timed(
-      torch, lambda: ops.sample_hop(g.indices, safe), reps, device)
-  ref, plain_ms, plain_call_ms = timed(
-      torch, lambda: ops.sample_hop_plain(g.indices, safe), reps, device)
-  _, lib_ms, lib_call_ms = timed(
-      torch, lambda: g.indices[safe_long], reps, device)
-  exact = bool(torch.equal(got, ref))
-  err = float((got - ref).abs().max())
-  picks = int(mask.sum())
-  # epos read and picked written once each; every distinct adjacency
-  # element the picks resolve read once (masked slots all read element 0)
-  uniq_e = int(torch.unique(safe).numel())
-  nbytes = b * k * 4 * 2 + uniq_e * 4
-  records['sample_hop'] = [dict(
-      seeds=b, k=k, hubs=n_hub, valid_picks=picks, unique_elements=uniq_e,
-      exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-      library_ms=lib_ms, call_ms=call_ms, plain_call_ms=plain_call_ms,
-      library_call_ms=lib_call_ms, bound_ms=bound_ms(nbytes),
-      bytes=nbytes)]
-  log(f'kernel sample_hop seeds={b} k={k} hubs={n_hub} exact={exact} '
-      f'ms={ms:.4f} plain_ms={plain_ms:.4f} indexing_ms={lib_ms:.4f} '
-      f'bound_ms={bound_ms(nbytes):.4f}; call ms {call_ms:.4f} '
-      f'{plain_call_ms:.4f} {lib_call_ms:.4f}')
-  assert exact, 'sample_hop: kernel != plain version'
-  # hops 0 and 1 of a products batch: exactness at their shapes too
-  for hop in (0, 1):
-    bh, kh = BATCH * int(np.prod(FANOUTS[:hop])), FANOUTS[hop]
-    sh = torch.randint(0, n, (bh,), generator=gen).to(torch.int32)
-    mh = torch.ones(bh, dtype=torch.bool)
-    row = g.csr_meta[sh.long().to(device)]
-    ep, mk = sample_fused._draw(row[:, 0], row[:, 1], mh.to(device), kh, key)
-    sf = torch.where(mk, ep, 0).contiguous()
-    same = torch.equal(ops.sample_hop(g.indices, sf),
-                       ops.sample_hop_plain(g.indices, sf))
-    log(f'kernel sample_hop hop {hop}: seeds={bh} k={kh} exact={same}')
-    assert same, f'sample_hop hop {hop}: kernel != plain version'
+  # ---- K3 the fused hop: hops 0-2 of a products batch, hubs at hop 2
+  records['sample_hop'] = [hop_case(torch, gtt, ds.graph, device, gen, reps,
+                                    hop) for hop in (2, 0, 1)]
   return records
 
 
-def level_bytes(torch, safe, limit, c):
-  """Bytes the level function must move: epos (4 B) and mask (1 B) per
-  candidate, each distinct adjacency element it resolves once (masked
-  slots read element 0), the prefix, num_nodes and num_new, picked and
-  cols_raw (4 B each) per candidate, and the block."""
-  s = safe.numel()
-  uniq_e = int(torch.unique(safe).numel())
-  return s * 4 + s + uniq_e * 4 + c * 4 + 8 + s * 8 + limit * 4
-
-
-def time_level(torch, ops, args, reps, device):
-  """(record, got): the level kernel against its plain version on the
-  same inputs, timed."""
-  got, ms, call_ms = timed(torch, lambda: ops.sample_level(*args), reps,
-                           device)
+def hop_case(torch, gtt, g, device, gen, reps, hop):
+  """The fused hop (one launch) against its plain version on the same
+  device key at hop ``hop`` of a products batch; at hop 2 with 1% hub
+  seeds, whose rows in a fabricated copy of the row table point at long
+  segments. Timed beside ``indices[epos]``, a partial yardstick (no
+  PyTorch call draws and picks)."""
+  from graphlearn_tpu_torch import ops
+  n = g.num_nodes
+  b, k = BATCH * int(np.prod(FANOUTS[:hop])), FANOUTS[hop]
+  seeds = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32)
+  seed_mask = torch.rand((b,), generator=gen) < (0.97 if hop else 1.0)
+  meta = g.csr_meta.clone()
+  n_hub = b // 100 if hop == 2 else 0
+  if n_hub:
+    hub_ids = torch.randperm(n, generator=gen)[:n_hub]
+    hdeg = torch.randint(HUB_DEG, 8 * HUB_DEG, (n_hub,), generator=gen)
+    hstart = (torch.rand((n_hub,), generator=gen) *
+              (g.num_edges - hdeg)).to(torch.int64)
+    meta[hub_ids.to(device)] = torch.stack([hstart, hdeg], 1).to(
+        torch.int32).to(device)
+    at = torch.randperm(b, generator=gen)[:n_hub]
+    seeds[at] = hub_ids.to(torch.int32)
+    seed_mask[at] = True
+  seeds, seed_mask = seeds.to(device), seed_mask.to(device)
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(0), 1),
+                             device)
+  args = (g.indptr, g.indices, None, seeds, seed_mask, k, key)
+  before = ops.launch_counts()['sample_hop']
+  got = ops.sample_hop_fused(*args, meta=meta)
+  per_call = ops.launch_counts()['sample_hop'] - before
+  got, ms, call_ms = timed(
+      torch, lambda: ops.sample_hop_fused(*args, meta=meta), reps, device)
   ref, plain_ms, plain_call_ms = timed(
-      torch, lambda: ops.sample_level_plain(*args), reps, device)
-  _, safe, mask, prefix, num_nodes, limit, _ = args
-  exact = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
-  err = max(float((a - b).abs().max()) if a.numel() else 0.0
-            for a, b in zip(got, ref))
-  nbytes = level_bytes(torch, safe, limit, prefix.shape[0])
-  rec = dict(frontier=safe.shape[0], k=safe.shape[1], candidates=safe.numel(),
-             prefix=prefix.shape[0], num_nodes=int(num_nodes), limit=limit,
-             valid=int(mask.sum()), num_new=int(got[3]), exact=exact,
-             max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-             plain_call_ms=plain_call_ms, library_ms=None,
-             bound_ms=bound_ms(nbytes), bytes=nbytes)
+      torch, lambda: ops.uniform_sample(g.indptr, g.indices, seeds, seed_mask,
+                                        k, key, meta=meta), reps, device)
+  safe_long = ref[1].long()
+  _, lib_ms, lib_call_ms = timed(
+      torch, lambda: g.indices[safe_long], reps, device)
+  exact = all(bool(torch.equal(a, r)) for a, r in zip(got, ref))
+  err = float((got[0] - ref[0]).abs().max())
+  safe = torch.where(seed_mask, seeds, 0)
+  rows = meta[safe.long()]
+  valid = ref[2]
+  # seeds and mask read once, each distinct row and each distinct
+  # adjacency element a valid slot picks read once; nbrs, epos (4 B) and
+  # mask (1 B) written once per slot
+  uniq_rows = int(torch.unique(safe).numel())
+  uniq_e = int(torch.unique(ref[1][valid]).numel())
+  nbytes = b * 5 + uniq_rows * 8 + uniq_e * 4 + b * k * 9
+  ops_n = draw_ops(rows[:, 1], seed_mask, k)
+  rec = dict(hop=hop, seeds=b, k=k, hubs=n_hub, valid_picks=int(valid.sum()),
+             unique_rows=uniq_rows, unique_elements=uniq_e, exact=exact,
+             max_abs_err=err, launches_per_call=per_call, ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             indexing_ms=lib_ms, indexing_call_ms=lib_call_ms,
+             library_ms=None, bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+  log(f'kernel sample_hop (fused) hop {hop}: seeds={b} k={k} hubs={n_hub} '
+      f'exact={exact} launches/call={per_call} ms={ms:.4f} '
+      f'(call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call '
+      f'{plain_call_ms:.4f}) indices[epos]_ms={lib_ms:.4f} bound_ms={rec["bound_ms"]:.4f} ({rec["bound_by"]}: {nbytes} B, '
+      f'{ops_n} ops); no single PyTorch call draws and picks: library_ms null')
+  assert exact, f'sample_hop hop {hop}: kernel != plain version'
+  assert per_call == (1 if device.type == 'cuda' else 0), per_call
+  return rec
+
+
+def level_launch_count(mode: str, batches: int) -> int:
+  """Launches of a path's sampling kernel: one per tree hop; three per
+  merge level plus one per batch."""
+  levels = len(FANOUTS)
+  return batches * (levels if mode == 'tree' else 3 * levels + 1)
+
+
+def time_level(torch, call, reps, device):
+  """(record, outputs): the fused level (three launches on the batch's
+  scratch, restored before each call to its state at the level's start)
+  against its plain version on the same inputs and device key, timed.
+  ``call`` holds the level's arguments as the sampler passed them."""
+  from graphlearn_tpu_torch import ops
+  a = call['args']
+  kw = dict(meta=call['meta'], prefix_cap=call['prefix_cap'],
+            max_new=call['max_new'], final=call['final'])
+  state0 = call['state']
+  work = ops.MergeInducerState(*(t.clone() for t in state0))
+  scratch = call['scratch']
+
+  def restore_kernel():
+    work.nodes.copy_(state0.nodes)
+    if scratch is not None:
+      scratch.buf.copy_(call['scratch_buf'])
+
+  def kernel():
+    return ops.sample_level_fused(*a[:7], work, a[7], **kw, scratch=scratch)
+
+  plain_state = with_sorted_view(torch, ops, state0)
+  state0 = ops.MergeInducerState(state0.nodes, state0.num_nodes,
+                                 *plain_state[2:])
+
+  def restore_plain():
+    for t, t0 in zip(plain_state, state0):
+      t.copy_(t0)
+
+  def plain():
+    return ops.sample_level_fused_plain(*a[:2], *a[3:7], plain_state, a[7],
+                                        **kw)
+
+  restore_kernel()
+  before = ops.launch_counts()['sample_level']
+  kernel()
+  per_call = ops.launch_counts()['sample_level'] - before
+  got, ms, call_ms = timed(torch, kernel, reps, device, restore_kernel)
+  ref, plain_ms, plain_call_ms = timed(torch, plain, reps, device,
+                                       restore_plain)
+  names = ['nodes', 'num_nodes'] + sorted(ref[1]) + ['epos', 'mask']
+  pairs = [(got[0].nodes, ref[0].nodes), (got[0].num_nodes, ref[0].num_nodes)]
+  pairs += [(got[1][n], ref[1][n]) for n in sorted(ref[1])]
+  pairs += [(got[2], ref[2]), (got[3], ref[3])]
+  diff = [n for n, (x, y) in zip(names, pairs) if not torch.equal(x, y)]
+  err = max(float((x.long() - y.long()).abs().max()) if x.numel() else 0.0
+            for x, y in pairs)
+  seeds, seed_mask, k = a[3], a[4], a[5]
+  f = seeds.shape[0]
+  size = f * k
+  cap = state0.nodes.shape[0]
+  c = min(call['prefix_cap'], cap)
+  limit = min(size, cap - c, size if call['max_new'] is None
+              else call['max_new'])
+  safe = torch.where(seed_mask, seeds, 0)
+  rows = call['meta'][safe.long()]
+  valid = ref[3]
+  uniq_rows = int(torch.unique(safe).numel())
+  uniq_e = int(torch.unique(ref[2][valid]).numel())
+  nn = int(state0.num_nodes)
+  # frontier, its mask and locals read once; each distinct row and
+  # adjacency element read once; the buffer's nn ids read once; per
+  # candidate epos, cols, rows, frontier, frontier_idx (4 B each) and
+  # mask, edge_mask, frontier_mask (1 B each) written once; the append
+  # block and the two counts
+  nbytes = f * 9 + uniq_rows * 8 + uniq_e * 4 + nn * 4 + size * 23 + \
+      limit * 4 + 8
+  ops_n = draw_ops(rows[:, 1], seed_mask, k)
+  rec = dict(frontier=f, k=k, candidates=size, prefix=c, num_nodes=nn,
+             limit=limit, valid=int(valid.sum()),
+             num_new=int(got[1]['num_new']), exact=not diff, differ=diff,
+             max_abs_err=err, launches_per_call=per_call, ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             library_ms=None, bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
   return rec, got
 
 
-def level_phase(torch, gtt, loader, device, gen, reps):
-  """The level kernel at the three levels of one full-width merge batch
-  (the sampler's own states, recorded on the way), and at S > 32,768
-  with hubs, duplicates, all-found and all-masked seeds."""
+def with_sorted_view(torch, ops, state):
+  """A copy of ``state`` whose sorted view is rebuilt from its node
+  buffer: the kernel route leaves the view stale, and the plain route
+  merges against it."""
+  nodes = state.nodes
+  big = torch.iinfo(nodes.dtype).max
+  pos = torch.arange(nodes.shape[0], device=nodes.device)
+  key = torch.where((pos < state.num_nodes) & (nodes >= 0), nodes, big)
+  order = torch.argsort(key, stable=True)
+  ids = key[order]
+  loc = torch.where(ids != big, order, -1).to(torch.int32)
+  return ops.MergeInducerState(nodes.clone(), state.num_nodes.clone(), ids,
+                               loc)
+
+
+def record_levels(sampler, seeds, key):
+  """The fused level's arguments at each level of one sampler call, with
+  clones of the state and of the batch's scratch as the level found
+  them."""
   from graphlearn_tpu_torch import ops
-  from graphlearn_tpu_torch.ops import sample_fused
   from graphlearn_tpu_torch.sampler import NodeSamplerInput
-  g = loader.sampler.graph
-  n = g.num_nodes
-  levels = []
+  calls = []
   fused = ops.sample_level_fused
 
   def record(indptr, indices, blocks128, seeds, seed_mask, k, key, state,
-             src_idx, meta=None, *, prefix_cap, max_new=None, final=False):
-    start, deg = sample_fused._seed_rows(indptr, meta, seeds, seed_mask)
-    epos, mask = sample_fused._draw(start, deg, seed_mask, k, key)
-    size, cap = seeds.shape[0] * k, state.nodes.shape[0]
-    c = min(prefix_cap, cap)
-    limit = min(size, cap - c, size if max_new is None else max_new)
-    levels.append((indices, torch.where(mask, epos, 0), mask,
-                   state.nodes[:c].clone(), state.num_nodes.clone(), limit,
-                   n))
+             src_idx, meta=None, *, prefix_cap, max_new=None, final=False,
+             scratch=None):
+    calls.append(dict(
+        args=(indptr, indices, blocks128, seeds.clone(), seed_mask.clone(), k,
+              key.clone(), src_idx.clone()),
+        state=ops.MergeInducerState(*(t.clone() for t in state)), meta=meta,
+        prefix_cap=prefix_cap, max_new=max_new, final=final, scratch=scratch,
+        scratch_buf=None if scratch is None else scratch.buf.clone()))
     return fused(indptr, indices, blocks128, seeds, seed_mask, k, key, state,
                  src_idx, meta, prefix_cap=prefix_cap, max_new=max_new,
-                 final=final)
+                 final=final, scratch=scratch)
 
   ops.sample_level_fused = record
   try:
-    loader.sampler.sample_from_nodes(
-        NodeSamplerInput(loader.input_seeds[:BATCH]), batch_cap=BATCH,
-        key=gtt.random.fold_in(gtt.random.PRNGKey(0), 1))
+    sampler.sample_from_nodes(NodeSamplerInput(seeds), batch_cap=BATCH,
+                              key=key)
   finally:
     ops.sample_level_fused = fused
-  assert len(levels) == len(FANOUTS), len(levels)
+  return calls
+
+
+def level_phase(torch, gtt, loader, device, gen, reps):
+  """The fused level at the three levels of one full-width merge batch
+  (the sampler's own arguments, state and scratch, recorded on the way),
+  and at S > 32,768 with hubs, duplicates, all-found and all-masked
+  seeds and truncation."""
+  from graphlearn_tpu_torch import ops
+  g = loader.sampler.graph
+  n = g.num_nodes
+  cuda = device.type == 'cuda'
+  calls = record_levels(loader.sampler, loader.input_seeds[:BATCH],
+                        gtt.random.fold_in(gtt.random.PRNGKey(0), 1))
+  assert len(calls) == len(FANOUTS), len(calls)
   records = []
-  for i, args in enumerate(levels):
-    rec, _ = time_level(torch, ops, args, reps, device)
+  for i, call in enumerate(calls):
+    rec, _ = time_level(torch, call, reps, device)
     records.append(dict(rec, level=i))
-    log(f'kernel sample_level level {i}: F={rec["frontier"]} k={rec["k"]} '
-        f'S={rec["candidates"]} c={rec["prefix"]} '
+    log(f'kernel sample_level (fused) level {i}: F={rec["frontier"]} '
+        f'k={rec["k"]} S={rec["candidates"]} c={rec["prefix"]} '
         f'num_nodes={rec["num_nodes"]} limit={rec["limit"]} '
-        f'num_new={rec["num_new"]} exact={rec["exact"]} ms={rec["ms"]:.4f} '
-        f'plain_ms={rec["plain_ms"]:.4f} bound_ms={rec["bound_ms"]:.4f} '
-        '(no single PyTorch call computes this function: library_ms null); '
-        f'call ms {rec["call_ms"]:.4f} {rec["plain_call_ms"]:.4f}')
-    assert rec['exact'], f'sample_level level {i}: kernel != plain version'
+        f'num_new={rec["num_new"]} exact={rec["exact"]} '
+        f'launches/call={rec["launches_per_call"]} ms={rec["ms"]:.4f} (call '
+        f'{rec["call_ms"]:.4f}) plain_ms={rec["plain_ms"]:.4f} (call '
+        f'{rec["plain_call_ms"]:.4f}) bound_ms={rec["bound_ms"]:.4f} '
+        f'({rec["bound_by"]}: {rec["bytes"]} B, {rec["ops"]} ops); no single '
+        'PyTorch call computes this function: library_ms null')
+    assert rec['exact'], f'sample_level level {i}: differs in {rec["differ"]}'
+    assert rec['launches_per_call'] == (3 if cuda else 0), rec
   # ---- an extra call: hubs, duplicates, all-found and all-masked seeds
   b, k = 8192, 10
-  seeds = torch.randint(0, n, (b,), generator=gen).to(torch.int32)
+  seeds = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32)
   seed_mask = torch.rand((b,), generator=gen) < 0.95
   seed_mask[:256] = False                      # all-masked seeds
+  seed_mask[256:512] = True
+  meta = g.csr_meta.cpu().clone()
   hub = torch.arange(512, 512 + b // 100)      # long fabricated segments
+  hub_ids = torch.randperm(n, generator=gen)[:hub.numel()].to(torch.int32)
+  seeds[hub] = hub_ids
   seed_mask[hub] = True
-  meta = g.csr_meta.cpu()
-  row = meta[torch.where(seed_mask, seeds, 0).long()]
-  start, deg = row[:, 0].contiguous(), row[:, 1].contiguous()
-  deg[hub] = torch.randint(HUB_DEG, 8 * HUB_DEG, (hub.numel(),),
-                           generator=gen).to(torch.int32)
-  start[hub] = (torch.rand((hub.numel(),), generator=gen) *
-                (g.num_edges - deg[hub])).to(torch.int32)
-  key = gtt.random.fold_in(gtt.random.PRNGKey(0), 2)
-  epos, mask = sample_fused._draw(start.to(device), deg.to(device),
-                                  seed_mask.to(device), k, key)
-  safe = torch.where(mask, epos, 0).contiguous()
-  # seeds 256..511: every neighbour already in the prefix (all found);
+  hdeg = torch.randint(HUB_DEG, 8 * HUB_DEG, (hub.numel(),), generator=gen)
+  meta[hub_ids.long(), 1] = hdeg.to(torch.int32)
+  meta[hub_ids.long(), 0] = (torch.rand((hub.numel(),), generator=gen) *
+                             (g.num_edges - hdeg)).to(torch.int32)
+  # seeds 256..511: every neighbour already in the buffer (all found);
   # the zipf head repeats ids across the other seeds (duplicates)
   ind = g.indices.cpu()
-  found = torch.cat([ind[int(start[j]):int(start[j] + deg[j])]
-                     for j in range(256, 512)])
+  rows = meta[seeds[256:512].long()]
+  found = torch.cat([ind[int(s0):int(s0 + d)] for s0, d in rows.tolist()])
   prefix = torch.unique(torch.cat([
-      found, torch.randint(0, n, (n // 50,), generator=gen).to(
-          torch.int32)])).to(torch.int32)
-  num_nodes = torch.tensor(prefix.numel(), dtype=torch.int32)
-  prefix = torch.cat([prefix, torch.full((4096,), -1, dtype=torch.int32)])
-  args = (g.indices, safe, mask, prefix.to(device), num_nodes.to(device),
-          safe.numel() // 8, n)
-  rec, got = time_level(torch, ops, args, reps, device)
-  cols_raw = got[1].view(b, k)[256:512]
-  all_found = bool(((cols_raw >= 0) & (cols_raw < int(num_nodes)) |
-                    ~mask[256:512]).all())
-  rec.update(hubs=hub.numel(), all_found_seeds_found=all_found,
-             unique_picks=int(torch.unique(got[0][mask.reshape(-1)]).numel()))
-  log(f'kernel sample_level S={rec["candidates"]} (hubs {hub.numel()}, 256 '
-      f'all-masked and 256 all-found seeds): exact={rec["exact"]} '
-      f'num_new={rec["num_new"]} limit={rec["limit"]} '
+      found, torch.randint(0, n, (n // 50,), generator=gen,
+                           dtype=torch.int32)])).to(torch.int32)
+  limit = b * k // 8
+  cap = prefix.numel() + limit
+  state, _, _, _ = ops.init_node_merge(
+      prefix, torch.ones(prefix.numel(), dtype=torch.bool), cap)
+  state = ops.MergeInducerState(*(t.to(device) for t in state))
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(0), 2),
+                             device)
+  scratch = None
+  if cuda:
+    scratch = ops.LevelScratch(n, cap, device).begin(state, prefix.numel())
+  call = dict(args=(g.indptr, g.indices, None, seeds.to(device),
+                    seed_mask.to(device), k, key,
+                    torch.arange(b, dtype=torch.int32, device=device)),
+              state=state, meta=meta.to(device), prefix_cap=prefix.numel(),
+              max_new=limit, final=False, scratch=scratch,
+              scratch_buf=None if scratch is None else scratch.buf.clone())
+  rec, got = time_level(torch, call, reps, device)
+  cols = got[1]['cols'].view(b, k)
+  found_ok = bool(((cols[256:512] >= 0) & (cols[256:512] < prefix.numel()) |
+                   ~got[3][256:512]).all())
+  rec.update(hubs=hub.numel(), all_found_seeds_found=found_ok,
+             unique_picks=int(torch.unique(
+                 g.indices[got[2][got[3]].long()]).numel()))
+  log(f'kernel sample_level (fused) S={rec["candidates"]} (hubs '
+      f'{hub.numel()}, 256 all-masked and 256 all-found seeds): '
+      f'exact={rec["exact"]} num_new={rec["num_new"]} limit={rec["limit"]} '
       f'unique_picks={rec["unique_picks"]} of {rec["valid"]} valid '
-      f'all_found={all_found} ms={rec["ms"]:.4f} '
+      f'all_found={found_ok} launches/call={rec["launches_per_call"]} '
+      f'ms={rec["ms"]:.4f} (call {rec["call_ms"]:.4f}) '
       f'plain_ms={rec["plain_ms"]:.4f} bound_ms={rec["bound_ms"]:.4f}')
-  assert rec['exact'] and all_found and rec['num_new'] > rec['limit']
-  assert bool((got[1].view(b, k)[:256] == -1).all()), 'masked seeds'
+  assert rec['exact'] and found_ok and rec['num_new'] > rec['limit'], rec
+  assert bool((cols[:256] == -1).all()), 'masked seeds'
   return dict(levels=records, edge_case=rec)
 
 
@@ -508,7 +650,8 @@ def slice_phase(torch, gtt, loader, device, gen_seed, num_batches, cpu_ds,
   batches = len(per_batch) + 1
   hop_kernel = 'sample_level' if mode == 'merge' else 'sample_hop'
   other = 'sample_hop' if mode == 'merge' else 'sample_level'
-  assert counts[hop_kernel] == (3 * batches if cuda else 0), counts
+  assert counts[hop_kernel] == (level_launch_count(mode, batches) if cuda
+                                else 0), counts
   assert counts[other] == 0, counts
   assert counts['gather_rows'] >= (batches if cuda else 0), counts
   assert not overflow, 'a merge batch overflowed its calibrated caps'
@@ -523,7 +666,12 @@ def slice_phase(torch, gtt, loader, device, gen_seed, num_batches, cpu_ds,
     assert int(val.min()) >= -1, name
   cross = cross_check(torch, gtt, cpu_ds, check, model, out, batch, logits,
                       mode, loader.sampler.frontier_caps)
-  return per_batch, counts, dict(correct=correct, total=total), cross
+  # device ops of one sampled batch, beside OPS_BEFORE
+  seeds = loader.input_seeds[:BATCH]
+  prof = profiled(torch, lambda: loader.sampler.sample_from_nodes(
+      NodeSamplerInput(seeds), batch_cap=BATCH), 1, device,
+                  f'{mode} sample, one batch (before: {OPS_BEFORE[mode]} ops)')
+  return per_batch, counts, dict(correct=correct, total=total), cross, prof
 
 
 def cross_check(torch, gtt, cpu_ds, check, model, out, batch, logits, mode,
@@ -1060,7 +1208,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   assert bool(torch.isfinite(losses).all()), 'non-finite loss'
   hop = 'sample_level' if mode == 'merge' else 'sample_hop'
   per = 1 if cuda else 0
-  assert counts[hop] == per * 3 * steps, counts
+  assert counts[hop] == per * level_launch_count(mode, steps), counts
   assert counts['gather_rows'] == per * steps, counts
   assert counts['sample_hop' if mode == 'merge' else 'sample_level'] == 0
   assert not loader.check_overflow(), 'a merge batch overflowed its caps'
@@ -1110,7 +1258,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   if cuda:
     b.synchronize()
   scounts = ops.launch_counts()
-  assert scounts[hop] == per * 3 * steps and \
+  assert scounts[hop] == per * level_launch_count(mode, steps) and \
       scounts['gather_rows'] == per * steps, scounts
   seed_mat, mask = trainer._epoch_seeds(
       gtt.random.fold_in(trainer._perm_key, 0), steps)
@@ -1150,6 +1298,14 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
     log(f'train {mode} host syncs per step (set_sync_debug_mode): loop '
         f'{loop_syncs}/{SYNC_STEPS} steps {loop_kinds}, ScanTrainer '
         f'{scan_syncs}/{steps} steps {scan_kinds}')
+  # device ops of one loop step, sample + collate + train, beside
+  # OPS_BEFORE's scanned-epoch step
+  it = iter(loader)
+  step_fn(state, train.batch_to_dict(next(it)))
+  rep['profile_loop_step'] = profiled(
+      torch, lambda: step_fn(state, train.batch_to_dict(next(it))), 1, device,
+      f'train {mode} loop step, sample+collate+train (before: '
+      f'{OPS_BEFORE["train_" + mode]} ops per scanned step)')
   if profile:
     batch = train.batch_to_dict(next(iter(loader)))
     rep['profile'] = dict(
@@ -1348,12 +1504,13 @@ def main(argv=None):
                                                   device, gen, reps)
   for mode, loader in (('tree', make_loader(gtt, ds, pool, device, 'tree')),
                        ('merge', merge_loader)):
-    per_batch, counts, acc, cross = slice_phase(
+    per_batch, counts, acc, cross, prof = slice_phase(
         torch, gtt, loader, device, 0, BATCHES, cpu_ds, mode)
     steady = per_batch[1:] or per_batch
     med = {k: float(np.median([p[k] for p in steady])) for k in steady[0]}
     report[mode] = dict(per_batch=per_batch, launches=counts, eval=acc,
-                        cross=cross, median_batch_ms=med)
+                        cross=cross, median_batch_ms=med,
+                        profile_sample_batch=prof)
     log(f'{mode} slice: {len(per_batch)} batches + 1 via the loader '
         f'iterator; launches {counts}; eval {acc}; cross-check {cross}')
     for i, p in enumerate(per_batch):
@@ -1404,11 +1561,11 @@ def main(argv=None):
            source='graphlearn_tpu_torch/csrc/sample_hop.cu',
            replaces='graphlearn_tpu/ops/sample_fused.py:86',
            launches=launches['sample_hop'],
-           max_abs_err=ktab['sample_hop'][0]['max_abs_err'],
+           max_abs_err=max(c['max_abs_err'] for c in ktab['sample_hop']),
            ms=ktab['sample_hop'][0]['ms'],
            plain_ms=ktab['sample_hop'][0]['plain_ms'],
-           bound_ms=ktab['sample_hop'][0]['bound_ms'], bound_by='bytes',
-           library_ms=ktab['sample_hop'][0]['library_ms']),
+           bound_ms=ktab['sample_hop'][0]['bound_ms'],
+           bound_by=ktab['sample_hop'][0]['bound_by'], library_ms=None),
       dict(name='sample_level', route='cuda',
            source='graphlearn_tpu_torch/csrc/sample_level.cu',
            replaces='graphlearn_tpu/ops/sample_fused.py:269',
@@ -1417,7 +1574,8 @@ def main(argv=None):
                            ktab['sample_level']['levels'] +
                            [ktab['sample_level']['edge_case']]),
            ms=widest['ms'], plain_ms=widest['plain_ms'],
-           bound_ms=widest['bound_ms'], bound_by='bytes', library_ms=None),
+           bound_ms=widest['bound_ms'], bound_by=widest['bound_by'],
+           library_ms=None),
       dict(name='gather_runs', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_runs.cu',
            replaces='graphlearn_tpu/ops/gather_pallas.py:196',

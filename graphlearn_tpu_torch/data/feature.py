@@ -13,6 +13,13 @@ from ..utils import resolve_device
 from .unified_tensor import UnifiedTensor
 
 
+def _fill_value(dtype):
+  """``jnp.take``'s fill for an out-of-range row in its default mode."""
+  if dtype.is_floating_point:
+    return float('nan')
+  return torch.iinfo(dtype).min
+
+
 class Feature:
   """``[N, F]`` feature rows on ``device`` (None means the card).
 
@@ -52,14 +59,23 @@ class Feature:
 
   def __getitem__(self, ids) -> torch.Tensor:
     """Rows for global node ids. FILL (-1) slots read storage row 0,
-    after the id2index remap, as in the JAX package."""
+    after the id2index remap, as in the JAX package. An id past the
+    table (or past ``id2index``) gives the fill row of ``jnp.take``'s
+    default mode: NaN for floats, the dtype's least value for integers."""
     ids = torch.as_tensor(ids, device=self.device).long()
     pad = ids < 0
     idx = torch.clamp(ids, min=0)
+    oob = torch.zeros_like(pad)
     if self._id2index_dev is not None:
-      idx = self._id2index_dev[idx].long()
+      remap = self._id2index_dev
+      oob = idx >= remap.shape[0]
+      idx = remap[torch.clamp(idx, max=remap.shape[0] - 1)].long()
     idx = torch.where(pad, 0, idx)
-    return self._unified[idx]
+    n = self._unified.shape[0]
+    oob = ~pad & (oob | (idx >= n) | (idx < -n))
+    idx = torch.where(idx < 0, idx + n, idx)
+    rows = self._unified[idx]
+    return rows.masked_fill_(oob[:, None], _fill_value(rows.dtype))
 
   def device_table(self):
     """``(feats, id2index)`` on the device, for the fused collate."""

@@ -1,9 +1,11 @@
 """Tensor ops of the port: sampling, induction, gathers, collation.
 
-The six CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``,
-``sample_hop``, ``sample_level`` and the probes' ``row_gather_probe``
-and ``smem_take``) keep launch counters;
-``launch_counts`` reads them and ``reset_launch_counts`` sets them to 0.
+The six CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the
+fused hop ``sample_hop_fused``, the fused level ``sample_level_fused``
+and the probes' ``row_gather_probe`` and ``smem_take``) keep launch
+counters; ``launch_counts`` reads them (``sample_hop`` and
+``sample_level`` name the two sampling kernels) and
+``reset_launch_counts`` sets them to 0.
 """
 from . import gather, kernels, probes, sample_fused
 from .collate import collate_batch
@@ -16,8 +18,8 @@ from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree
 from .neighbor import uniform_sample
 from .probes import (row_gather_probe, row_gather_probe_plain, smem_take,
                      smem_take_plain)
-from .sample_fused import (sample_hop, sample_hop_fused, sample_hop_plain,
-                           sample_level, sample_level_fused,
+from .sample_fused import (LevelScratch, sample_hop_fused,
+                           sample_level_fused, sample_level_fused_plain,
                            sample_level_plain)
 from .unique import FILL, masked_unique
 

@@ -16,10 +16,13 @@ generations:
   ``block_rows`` tile, as ``plan_runs_in_tiles`` does in torch.
 
 On CPU tensors both wrappers run their plain versions. Both clamp ids to
-``[0, N)``.
+``[0, N)``. Each v2 call bumps the reference's counter
+``ops.gather_runs`` when it launches its kernel and
+``ops.gather_fallbacks`` when it does not (CPU tensors, empty ids).
 """
 import torch
 
+from .. import metrics
 from . import kernels
 
 # launches of the CUDA kernels (plain-version calls do not count)
@@ -251,9 +254,12 @@ def gather_rows_hbm2(table: torch.Tensor, ids: torch.Tensor,
   kernel or raises.
   """
   if table.device.type == 'cpu' and ids.device.type == 'cpu':
+    metrics.inc('ops.gather_fallbacks')
     return gather_rows_hbm2_plain(table, ids, block_rows, run_span,
                                   presorted)
-  return _gather_runs_launch(table, ids, block_rows, run_span)
+  out = _gather_runs_launch(table, ids, block_rows, run_span)
+  metrics.inc('ops.gather_runs' if ids.shape[0] else 'ops.gather_fallbacks')
+  return out
 
 
 def _gather_runs_launch(table, ids, block_rows, run_span, plan_out=None):

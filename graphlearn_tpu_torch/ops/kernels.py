@@ -33,15 +33,18 @@ SOURCES = {
         'glt_gather_runs': ([_P, _P, _I, _P, _P, _L, _L, _L, _L, _I, _I,
                              _P], _I)}),
     'sample_hop': ('sample_hop.cu', {
-        'glt_sample_hop': ([_P, _L, _P, _P, _L, _I, _P], _I)}),
+        'glt_sample_hop_fused': ([_P, _P, _P, _L, _P, _L, _P, _L, _I, _P,
+                                  _P, _P, _I, _P], _I)}),
     'row_gather_probe': ('row_gather_probe.cu', {
         'glt_row_gather_probe': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I)}),
     'smem_take': ('smem_take.cu', {
         'glt_smem_take': ([_P, _L, _P, _P, _L, _I, _I, _P], _I)}),
     'sample_level': ('sample_level.cu', {
-        'glt_sample_level_scratch': ([_L, _L], _L),
-        'glt_sample_level': ([_P, _L, _P, _P, _L, _P, _L, _P, _L, _L, _P, _P,
-                              _P, _P, _P, _I, _P], _I)}),
+        'glt_level_scratch_words': ([_L, _L], _L),
+        'glt_level_begin': ([_P, _L, _L, _P, _L, _P, _I, _P], _I),
+        'glt_level_run': ([_P, _L, _L, _P, _P, _P, _L, _P, _L, _P, _L, _I,
+                           _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _P], _I)}),
 }
 
 _libs = {}

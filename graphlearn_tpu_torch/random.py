@@ -17,11 +17,12 @@ since jax 0.5):
 
 Torch has no full uint32 arithmetic, so words live in int64 tensors and
 are masked to 32 bits after every add and rotate. Keys are ``[2]`` int64
-tensors holding the two uint32 words; they stay on the CPU (deriving a
-key is a handful of scalar ops), and only ``uniform`` and
-``permutation`` run on the caller's device. This is plain torch, not a
-kernel: in the JAX package the draw also lies outside the Pallas
-kernels.
+tensors holding the two uint32 words. They are derived on the CPU
+(``fold_in`` and ``split`` are a handful of scalar ops); ``to_device``
+uploads them without a host sync. ``random_bits``, ``uniform`` and
+``permutation`` run on the caller's device and take a key on the CPU or
+on that device. This is the plain version of the draw: the sampling
+kernels (``csrc/csr_pick.cuh``) run the same threefry inside the kernel.
 """
 import math
 
@@ -53,10 +54,28 @@ def threefry2x32(k1: int, k2: int, x0, x1):
 
 
 def _words(key):
-  k = [int(v) for v in torch.as_tensor(key).reshape(-1).tolist()]
-  if len(k) != 2:
-    raise ValueError(f'a threefry key has 2 words, got {len(k)}')
+  """The key's two words: Python ints for a host key, 0-d int64 tensors
+  for a key on a device (read there, without a host sync)."""
+  key = torch.as_tensor(key).reshape(-1)
+  if key.shape[0] != 2:
+    raise ValueError(f'a threefry key has 2 words, got {key.shape[0]}')
+  if key.device.type != 'cpu':
+    key = key.to(torch.int64)
+    return key[0] & _MASK, key[1] & _MASK
+  k = [int(v) for v in key.tolist()]
   return k[0] & _MASK, k[1] & _MASK
+
+
+def to_device(keys, device):
+  """Host keys (``[2]`` or ``[n, 2]`` int64) on ``device``: on a card,
+  one copy from pinned memory that does not block the host."""
+  device = torch.device(device)
+  keys = torch.as_tensor(keys, dtype=torch.int64)
+  if keys.device == device or device.type != 'cuda':
+    return keys.to(device)
+  if keys.device.type == 'cpu':
+    keys = keys.pin_memory()
+  return keys.to(device, non_blocking=True)
 
 
 def PRNGKey(seed: int):

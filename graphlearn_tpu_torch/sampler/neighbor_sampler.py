@@ -6,21 +6,22 @@ into one program (``_fused_homo_fn``); PyTorch runs eagerly, so the same
 program is a Python loop over hops, over static capacities:
 
 - ``dedup='tree'`` (alias 'none'): each hop is the fused CSR hop
-  (``ops.sample_hop_fused``: threefry draw in torch, the adjacency
-  gather in the ``sample_hop`` kernel on the card) followed by the
-  positional tree inducer; hop i's frontier is ``batch_cap *
-  prod(fanouts[:i])`` slots.
+  (``ops.sample_hop_fused``: one launch of the hop kernel on the card,
+  the threefry draw inside it) followed by the positional tree inducer;
+  hop i's frontier is ``batch_cap * prod(fanouts[:i])`` slots.
 - ``dedup='auto'`` (the default, as in the JAX package; aliases 'map',
   'sort', 'merge'): exact dedup. Each level is ``ops.sample_level_fused``
-  (the draw in torch, then picks and relabel map in the ``sample_level``
-  kernel on the card, or the merge inducer on the CPU). ``frontier_caps``
-  clamps the per-hop frontiers (``sampler.calibrate``); a batch whose
-  new nodes exceed a cap is truncated and raises the on-device
-  ``metadata['overflow']`` flag.
+  (on the card three launches of the level kernel, over a scratch the
+  sampler keeps per batch capacity and begins once per batch; on the CPU
+  the draw and the merge inducer). ``frontier_caps`` clamps the per-hop
+  frontiers (``sampler.calibrate``); a batch whose new nodes exceed a cap
+  is truncated and raises the on-device ``metadata['overflow']`` flag.
 
 The PRNG stream is the JAX package's: one key per batch by ``fold_in``
 of a host call counter into the base key, one key per hop by ``split``.
-So the port's batches equal the JAX sampler's, id for id.
+So the port's batches equal the JAX sampler's, id for id. On the card
+the hop keys go up once per batch, as one ``[n_hops, 2]`` tensor that the
+kernels read.
 
 Edge direction: ``row`` is the neighbor (message source) local index and
 ``col`` the seed (target), as in the JAX package.
@@ -31,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import ops
+from .. import metrics, ops
 from .. import random as trandom
 from ..data import Graph
 from .base import NodeSamplerInput, SamplerOutput
@@ -164,6 +165,7 @@ class NeighborSampler:
     self.num_neighbors = list(num_neighbors)
     self._key = trandom.PRNGKey(0 if seed is None else seed)
     self._call_count = 0    # host-side PRNG stream position
+    self._scratch = {}      # node capacity -> the level kernel's scratch
 
   def _dedup_mode(self) -> str:
     """The engine: 'tree' for 'tree'/'none', 'merge' for
@@ -195,6 +197,7 @@ class NeighborSampler:
     guard's 'recompute' policy."""
     clone = copy.copy(self)
     clone.frontier_caps = None
+    clone._scratch = {}
     return clone
 
   def _next_key(self):
@@ -215,6 +218,19 @@ class NeighborSampler:
     if 'base_key' in state:
       self._key = torch.as_tensor(state['base_key'], dtype=torch.int64)
 
+  def _level_scratch(self, state, prefix_len: int):
+    """The level kernel's scratch for this batch's node capacity, begun
+    from the seeds' state (one launch); None on the CPU."""
+    if state.nodes.device.type == 'cpu':
+      return None
+    cap = state.nodes.shape[0]
+    scratch = self._scratch.get(cap)
+    if scratch is None:
+      scratch = ops.LevelScratch(self.graph.num_nodes, cap,
+                                 state.nodes.device)
+      self._scratch[cap] = scratch
+    return scratch.begin(state, prefix_len)
+
   def _sample(self, seeds, seed_mask, key):
     """The multi-hop program (``_fused_homo_fn``)."""
     fanouts = self.num_neighbors
@@ -226,6 +242,7 @@ class NeighborSampler:
       state, frontier, fmask, inv = ops.init_node_merge(
           seeds, seed_mask, capacity=sum(caps))
       node_offs, _ = merge_layout_from_caps(caps, fanouts)
+      scratch = self._level_scratch(state, batch_cap)
     else:
       state, frontier, fmask, inv = ops.init_node_tree(
           seeds, seed_mask, capacity=_tree_node_cap(caps, fanouts))
@@ -238,12 +255,15 @@ class NeighborSampler:
     # nodes than its cap kept (constant False on unclamped plans)
     overflow = torch.zeros((), dtype=torch.bool, device=seeds.device)
     keys = trandom.split(key, len(fanouts))
+    if seeds.device.type == 'cuda':
+      keys = trandom.to_device(keys, seeds.device)
     for i, k in enumerate(fanouts):
       if merge:
         state, out, _, _ = ops.sample_level_fused(
             g.indptr, g.indices, None, frontier, fmask, k, keys[i], state,
             fidx, meta=g.csr_meta, prefix_cap=node_offs[i],
-            max_new=caps[i + 1], final=(i + 1 == len(fanouts)))
+            max_new=caps[i + 1], final=(i + 1 == len(fanouts)),
+            scratch=scratch)
         if caps[i + 1] < caps[i] * k:
           overflow = overflow | (out['num_new'] > caps[i + 1])
       else:
@@ -284,6 +304,10 @@ class NeighborSampler:
     mask = np.arange(cap) < n
     if key is None:
       key = self._next_key()
+    # the reference's kernel-path counters: one per sampler call, the
+    # level kernel under the merge engine, the hop kernel otherwise
+    metrics.inc('ops.fused_level_calls' if self._dedup_mode() == 'merge'
+                else 'ops.fused_hop_calls')
     seeds_d = torch.as_tensor(padded).to(self.device)
     mask_d = torch.as_tensor(mask).to(self.device)
     res = self._sample(seeds_d, mask_d, key)

@@ -76,10 +76,11 @@ class EmbeddingStore:
 
   def lookup(self, ids, mask) -> torch.Tensor:
     """``[cap]`` padded ids (-1 pads, mask False) -> ``[cap, F]`` device
-    rows, pad slots zeroed."""
+    rows, pad slots zeroed. Ids are clamped into the table, as the JAX
+    store's gather clamps them (an id past ``N_pad`` reads the last row)."""
     ids = torch.as_tensor(ids).to(self.device)
     mask = torch.as_tensor(mask).to(self.device)
-    safe = torch.clamp(ids, min=0)
+    safe = torch.clamp(ids, 0, self._emb.shape[0] - 1)
     if self.use_pallas_v2:
       rows = gather_rows_hbm2(self._emb, safe.contiguous(),
                               block_rows=self.pallas_v2_block_rows,

@@ -1,0 +1,85 @@
+"""The reference's kernel-path counters in the port, against the JAX
+package's, on the CPU.
+
+Each case makes the same calls through both packages and compares the
+counter's delta: ``ops.fused_hop_calls`` (one per tree sampler call,
+which the port always routes through its hop kernel's entry point, as the
+JAX sampler does under ``use_fused_hop``), ``ops.fused_level_calls`` (one
+per merge sampler call), and ``ops.gather_runs`` / ``ops.gather_fallbacks``
+(one per gather-v2 call that launches its kernel, or that does not: on the
+CPU no call launches it, so every call counts a fallback in both
+packages). The counts are exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import graphlearn_tpu as glt
+from graphlearn_tpu import metrics as jmetrics
+from graphlearn_tpu import ops as jops
+import graphlearn_tpu_torch as gtt
+from graphlearn_tpu_torch import metrics, ops
+
+
+def _count(registry, name):
+  return registry.snapshot()['counters'].get(name, 0)
+
+
+def _graph(n=120, e=1500, seed=3):
+  rng = np.random.default_rng(seed)
+  return np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]), n, rng
+
+
+def _sampler_calls(dedup):
+  ei, n, rng = _graph()
+  jg = glt.data.Graph(glt.data.Topology(ei, num_nodes=n), 'CPU')
+  tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=n), device='cpu')
+  js = glt.sampler.NeighborSampler(jg, [3, 2], seed=1, dedup=dedup,
+                                   use_fused_hop=True)
+  ts = gtt.sampler.NeighborSampler(tg, [3, 2], seed=1, dedup=dedup,
+                                   device='cpu')
+  batches = [rng.integers(0, n, 8) for _ in range(3)]
+
+  def jax_calls():
+    for seeds in batches:
+      js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds))
+
+  def port_calls():
+    for seeds in batches:
+      ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds))
+
+  return jax_calls, port_calls
+
+
+def _gather_calls():
+  rng = np.random.default_rng(4)
+  table = rng.standard_normal((50, 128)).astype(np.float32)
+  ids = [rng.integers(-3, 55, 40).astype(np.int32),
+         np.zeros(0, np.int32), np.arange(10, 30, dtype=np.int32)]
+
+  def jax_calls():
+    for i in ids:
+      jops.gather_rows_hbm2(jnp.asarray(table), jnp.asarray(i))
+
+  def port_calls():
+    for i in ids:
+      ops.gather_rows_hbm2(torch.as_tensor(table), torch.as_tensor(i))
+
+  return jax_calls, port_calls
+
+
+@pytest.mark.parametrize('name,calls,expect', [
+    ('ops.fused_hop_calls', lambda: _sampler_calls('tree'), 3),
+    ('ops.fused_level_calls', lambda: _sampler_calls('merge'), 3),
+    ('ops.gather_runs', _gather_calls, 0),
+    ('ops.gather_fallbacks', _gather_calls, 3),
+])
+def test_counter_delta_matches_jax(name, calls, expect):
+  jax_calls, port_calls = calls()
+  jreg, treg = jmetrics.default_registry(), metrics.default_registry()
+  j0, t0 = _count(jreg, name), _count(treg, name)
+  jax_calls()
+  port_calls()
+  assert _count(jreg, name) - j0 == expect
+  assert _count(treg, name) - t0 == expect

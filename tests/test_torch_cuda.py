@@ -3,11 +3,16 @@
 These tests need a CUDA GPU and nvcc; without them they skip. On a
 machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 They cover the edge cases the main-path check in chip_smoke.py does not:
-empty batches, 2- and 1-byte aligned rows, int64 ids, a hub of high
-degree, k above a warp; for the level kernel an empty frontier, all
-slots masked, every pick already in the prefix, heavy duplicates,
-truncation (num_new > limit), deg-0 and hub seeds, S far above the TPU
-kernel's 32,768, and two calls giving the same bytes; for the gather-v2
+empty batches, 2- and 1-byte aligned rows, int64 ids; for the fused hop
+a hub of high degree, a deg-0 seed, k above a warp, the row table or
+indptr, a host key against the same key on the device,
+and two calls giving the same bytes; for the fused level an empty
+frontier, all slots masked, every pick already in the buffer, heavy
+duplicates, truncation (num_new > max_new), deg-0 and hub seeds, S far
+above the TPU kernel's 32,768, two calls giving the same bytes, launches
+per level and per batch, a scratch carried across levels under torch's
+sync debug mode, and the sampler's batches on both engines against the
+CPU's; for the gather-v2
 kernel empty ids, B not a multiple of block_rows, runs of exactly
 run_span, run_span - 1 and 3 * run_span + 1 rows, a run over a tile edge
 and one ending at the table's end, all-equal ids, f32/bf16/int32 at widths
@@ -29,7 +34,6 @@ import torch
 
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import ops
-from graphlearn_tpu_torch.ops import sample_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -61,39 +65,60 @@ def test_gather_rows_kernel_matches_plain(cuda, dtype, width, id_dtype):
   assert ops.launch_counts()['gather_rows'] == before + 1
 
 
-@pytest.mark.parametrize('k', [5, 12, 40, 3])
-def test_sample_hop_kernel_matches_plain(cuda, k):
+def _hop_graph(cuda, k):
   rng = np.random.default_rng(k)
   n, e = 300, 20000
-  rows = rng.integers(0, n, e)
+  rows = rng.integers(0, n - 1, e)
   rows[:900] = 3                      # a hub of degree above 900
   ei = np.stack([rows, rng.integers(0, n, e)])
   g = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=n), device=cuda)
-  seeds = torch.as_tensor(rng.integers(0, n, 777).astype(np.int32)).to(cuda)
+  seeds = torch.as_tensor(rng.integers(0, n, 777).astype(np.int32))
   seeds[:4] = 3
-  mask = torch.as_tensor(rng.random(777) < 0.9).to(cuda)
+  seeds[4] = n - 1                    # degree 0
+  mask = torch.as_tensor(rng.random(777) < 0.9)
+  return g, seeds.to(cuda), mask.to(cuda)
+
+
+@pytest.mark.parametrize('k', [5, 12, 40, 3])
+def test_sample_hop_kernel_matches_plain(cuda, k):
+  """The fused hop (one launch) against its plain version on the same
+  device key, with and without the row table; a host key
+  gives the same bytes as the device key, two calls the same bytes, and
+  the CPU's plain hop the same ids."""
+  g, seeds, mask = _hop_graph(cuda, k)
   key = gtt.random.fold_in(gtt.random.PRNGKey(5), k)
-  row = g.csr_meta[torch.where(mask, seeds, 0).long()]
-  start, deg = row[:, 0].contiguous(), row[:, 1].contiguous()
-  epos, m = sample_fused._draw(start, deg, mask, k, key)
-  safe = torch.where(m, epos, 0)
-  empty = ops.sample_hop(g.indices, safe[:0])
-  assert empty.shape == (0, k)
-  got = ops.sample_hop(g.indices, safe)
-  torch.cuda.synchronize()
-  assert torch.equal(got, ops.sample_hop_plain(g.indices, safe))
-  # the fused hop on the card equals the plain hop on the CPU
-  ref = ops.uniform_sample(g.indptr.cpu(), g.indices.cpu(), seeds.cpu(),
-                           mask.cpu(), k, key, meta=g.csr_meta.cpu())
-  out = ops.sample_hop_fused(g.indptr, g.indices, None, seeds, mask, k, key,
+  dkey = gtt.random.to_device(key, cuda)
+  before = ops.launch_counts()['sample_hop']
+  got = ops.sample_hop_fused(g.indptr, g.indices, None, seeds, mask, k, dkey,
                              meta=g.csr_meta)
-  for a, b in zip(ref, out):
-    assert torch.equal(a, b.cpu())
+  torch.cuda.synchronize()
+  assert ops.launch_counts()['sample_hop'] == before + 1
+  ref = ops.uniform_sample(g.indptr, g.indices, seeds, mask, k, dkey,
+                           meta=g.csr_meta)
+  cpu = ops.uniform_sample(g.indptr.cpu(), g.indices.cpu(), seeds.cpu(),
+                           mask.cpu(), k, key, meta=g.csr_meta.cpu())
+  others = (
+      ops.sample_hop_fused(g.indptr, g.indices, None, seeds, mask, k, key,
+                           meta=g.csr_meta),
+      ops.sample_hop_fused(g.indptr, g.indices, None, seeds, mask, k, dkey),
+      ops.sample_hop_fused(g.indptr, g.indices, None, seeds, mask, k, dkey,
+                           meta=g.csr_meta))
+  torch.cuda.synchronize()
+  for i, name in enumerate(('nbrs', 'epos', 'mask')):
+    a = got[i]
+    assert a.dtype == ref[i].dtype and torch.equal(a, ref[i]), name
+    assert torch.equal(a.cpu(), cpu[i]), name
+    for o in others:
+      assert torch.equal(a, o[i]), name
+  empty = ops.sample_hop_fused(g.indptr, g.indices, None, seeds[:0],
+                               mask[:0], k, dkey, meta=g.csr_meta)
+  assert all(t.shape == (0, k) for t in empty)
 
 
 def _level_inputs(cuda, case, seed=0):
-  """A graph with a hub (node 3) and a deg-0 node (n-1), a node-buffer
-  prefix of 700 nodes (600 occupied), and one level's draw."""
+  """A graph with a hub (node 3) and a deg-0 node (n-1); a batch state
+  whose buffer holds a prefix of up to 700 ids (every id of the
+  adjacency for 'found'); one level's frontier."""
   rng = np.random.default_rng(seed)
   n, e = 5000, 200_000
   rows = rng.integers(0, n - 1, e)
@@ -102,55 +127,97 @@ def _level_inputs(cuda, case, seed=0):
   g = gtt.data.Graph(gtt.data.Topology(np.stack([rows, cols]),
                                        num_nodes=n), device=cuda)
   f, k = {'empty': (0, 5), 'wide': (4096, 15)}.get(case, (1500, 10))
-  seeds = torch.as_tensor(rng.integers(0, n, f).astype(np.int32))
-  seeds[:2] = torch.tensor([3, n - 1], dtype=torch.int32)[:f]
-  mask = torch.as_tensor(rng.random(f) < (0.0 if case == 'masked'
-                                          else 0.95))
-  prefix = torch.as_tensor(rng.permutation(n)[:700].astype(np.int32))
-  if case == 'found':
-    # every id of the graph's adjacency is in the occupied prefix
-    prefix = torch.as_tensor(np.concatenate([
-        np.unique(cols).astype(np.int32),
-        np.full(700, -1, np.int32)]))
-  num_nodes = torch.tensor(min(600, prefix.shape[0]) if case != 'found'
-                           else int((prefix >= 0).sum()), dtype=torch.int32)
-  row = g.csr_meta[torch.where(mask, seeds, 0).long().to(cuda)]
-  key = gtt.random.fold_in(gtt.random.PRNGKey(4), seed)
-  epos, m = sample_fused._draw(row[:, 0], row[:, 1], mask.to(cuda), k, key)
-  safe = torch.where(m, epos, 0)
-  return g, safe, m, prefix.to(cuda), num_nodes.to(cuda), n
+  seeds = rng.integers(0, n, f).astype(np.int32)
+  seeds[:2] = [3, n - 1][:f]
+  smask = rng.random(f) < (0.0 if case == 'masked' else 0.95)
+  prefix = (np.unique(cols) if case == 'found' else
+            rng.permutation(n)[:700]).astype(np.int32)
+  pmask = np.arange(prefix.size) < (prefix.size if case == 'found' else 600)
+  cap = prefix.size + 60_000
+  state, _, _, _ = ops.init_node_merge(torch.as_tensor(prefix),
+                                       torch.as_tensor(pmask), cap)
+  state = ops.MergeInducerState(*(t.to(cuda) for t in state))
+  src = torch.arange(f, dtype=torch.int32, device=cuda)
+  return (g, torch.as_tensor(seeds).to(cuda), torch.as_tensor(smask).to(cuda),
+          k, state, src, prefix.size)
+
+
+def _clone(state):
+  return ops.MergeInducerState(*(t.clone() for t in state))
 
 
 @pytest.mark.parametrize('case', ['empty', 'masked', 'found', 'dups',
                                   'wide', 'hubs'])
-@pytest.mark.parametrize('limit', [50_000, 300])
-def test_sample_level_kernel_matches_plain(cuda, case, limit):
-  g, safe, m, prefix, nn, n = _level_inputs(cuda, case)
+@pytest.mark.parametrize('max_new', [None, 300])
+def test_sample_level_kernel_matches_plain(cuda, case, max_new):
+  """The fused level (a fresh scratch: one begin and three launches)
+  against its plain version on the same device key, on every output,
+  the node buffer and the count; two calls give the same bytes."""
+  g, seeds, smask, k, state, src, c = _level_inputs(cuda, case)
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(4), 0),
+                             cuda)
+  kw = dict(meta=g.csr_meta, prefix_cap=c, max_new=max_new)
   before = ops.launch_counts()['sample_level']
-  got = ops.sample_level(g.indices, safe, m, prefix, nn, limit, n)
-  again = ops.sample_level(g.indices, safe, m, prefix, nn, limit, n)
+  runs = [ops.sample_level_fused(g.indptr, g.indices, None, seeds, smask, k,
+                                 key, _clone(state), src, **kw)
+          for _ in range(2)]
   torch.cuda.synchronize()
-  assert ops.launch_counts()['sample_level'] == before + 2
-  ref = ops.sample_level_plain(g.indices, safe, m, prefix, nn, limit, n)
-  for name, a, b, c in zip(('picked', 'cols_raw', 'block', 'num_new'),
-                           got, again, ref):
-    assert torch.equal(a, c), name
-    assert torch.equal(a, b), name          # same bytes on every call
+  assert ops.launch_counts()['sample_level'] == before + 2 * 4
+  ref = ops.sample_level_fused_plain(g.indptr, g.indices, seeds, smask, k,
+                                     key, _clone(state), src, **kw)
+  for st, out, ep, mk in runs:
+    for name in ('nodes', 'num_nodes'):
+      assert torch.equal(getattr(st, name), getattr(ref[0], name)), name
+    for name in ref[1]:
+      assert torch.equal(out[name], ref[1][name]), name
+    assert torch.equal(ep, ref[2]) and torch.equal(mk, ref[3])
+  num_new = int(runs[0][1]['num_new'])
   if case == 'wide':
-    assert safe.numel() > 32768
-  if case == 'masked':
-    assert int(got[3]) == 0 and bool((got[1] == -1).all())
-  if case == 'found':
-    assert int(got[3]) == 0
-  if limit == 300 and case in ('dups', 'wide', 'hubs'):
-    assert int(got[3]) > limit               # truncated
+    assert seeds.numel() * k > 32768
+  if case in ('masked', 'found', 'empty'):
+    assert num_new == 0
+  if max_new and case in ('dups', 'wide', 'hubs'):
+    assert num_new > max_new               # truncated
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_sampler_on_card_matches_cpu(cuda, mode):
+  """Three batches of the sampler on the card (one upload of the hop keys
+  per batch; the merge levels over one scratch, begun once per batch)
+  equal the CPU sampler's, and launch each hop's kernel once (tree) or
+  three times per level plus once per batch (merge)."""
+  rng = np.random.default_rng(2)
+  n = 2000
+  ei = np.stack([rng.integers(0, n, 40_000), rng.integers(0, 600, 40_000)])
+  topo = gtt.data.Topology(ei, num_nodes=n)
+  dedup = 'tree' if mode == 'tree' else 'auto'
+  caps = None if mode == 'tree' else [300, 1200, 2400]
+  samplers = [gtt.sampler.NeighborSampler(
+      gtt.data.Graph(topo, device=dev), [8, 4, 3], device=dev, seed=5,
+      dedup=dedup, frontier_caps=caps) for dev in (cuda, 'cpu')]
+  ops.reset_launch_counts()
+  for _ in range(3):
+    seeds = rng.integers(0, n, 60)
+    a, b = (s.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds),
+                                batch_cap=64) for s in samplers)
+    for name in ('node', 'num_nodes', 'row', 'col', 'edge_mask'):
+      assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    assert [int(x) for x in a.num_sampled_nodes] == \
+        [int(x) for x in b.num_sampled_nodes]
+  counts = ops.launch_counts()
+  if mode == 'tree':
+    assert counts['sample_hop'] == 3 * 3 and counts['sample_level'] == 0
+  else:
+    assert counts['sample_level'] == 3 * (3 * 3 + 1)
+    assert counts['sample_hop'] == 0
 
 
 def test_sample_level_fused_on_card_matches_cpu_route(cuda):
-  """Two merge levels on the card (kernel route) against the CPU route
-  (JAX fallback): nodes, counts and every output equal; the sorted view is
-  not compared (the kernel route leaves it stale, as on the TPU). The
-  card route makes no host sync (torch's sync debug mode raises on one)."""
+  """Two merge levels on the card (kernel route, one scratch begun once)
+  against the CPU route (JAX fallback): nodes, counts and every output
+  equal; the sorted view is not compared (the kernel route leaves it
+  stale, as on the TPU). The card route makes no host sync (torch's sync
+  debug mode raises on one), the host keys' upload included."""
   rng = np.random.default_rng(9)
   n = 3000
   ei = np.stack([rng.integers(0, n, 60_000), rng.integers(0, 900, 60_000)])
@@ -159,7 +226,7 @@ def test_sample_level_fused_on_card_matches_cpu_route(cuda):
   smask = torch.arange(256) < 250
   caps = [256, 1024, 2048]
   outs = {}
-  keys = [gtt.random.fold_in(gtt.random.PRNGKey(1), i) for i in range(2)]
+  keys = gtt.random.split(gtt.random.fold_in(gtt.random.PRNGKey(1), 1), 2)
   for dev in ('cpu', cuda):
     gg = g if dev == cuda else gtt.data.Graph(g.topo, device='cpu')
     s, m = seeds.to(dev), smask.to(dev)
@@ -168,13 +235,18 @@ def test_sample_level_fused_on_card_matches_cpu_route(cuda):
     torch.cuda.set_sync_debug_mode('error' if dev == cuda else 'default')
     try:
       st, fr, fm, _ = ops.init_node_merge(s, m, sum(caps))
+      scratch = None
+      hop_keys = keys
+      if dev == cuda:
+        scratch = ops.LevelScratch(n, sum(caps), dev).begin(st, 256)
+        hop_keys = gtt.random.to_device(keys, dev)
       fidx = torch.arange(256, dtype=torch.int32, device=dev)
       res = []
       for i, k in enumerate((10, 5)):
         st, out, _, _ = ops.sample_level_fused(
-            gg.indptr, gg.indices, None, fr, fm, k, keys[i], st, fidx,
+            gg.indptr, gg.indices, None, fr, fm, k, hop_keys[i], st, fidx,
             meta=meta, prefix_cap=sum(caps[:i + 1]),
-            max_new=caps[i + 1], final=(i == 1))
+            max_new=caps[i + 1], final=(i == 1), scratch=scratch)
         res.append(out)
         fr, fidx, fm = (out[kk][:caps[i + 1]] for kk in
                         ('frontier', 'frontier_idx', 'frontier_mask'))

@@ -25,9 +25,9 @@ from graphlearn_tpu_torch import ops as tops
 from graphlearn_tpu_torch import random as trandom
 from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
-from graphlearn_tpu_torch.ops import sample_fused as tsf
 from graphlearn_tpu_torch.sampler import calibrate as tcal
 
+FILL = tops.FILL
 STATE_FIELDS = ('nodes', 'num_nodes', 'sorted_ids', 'sorted_loc')
 
 
@@ -170,14 +170,104 @@ def test_sample_level_matches_interpret_kernel():
   assert tops.launch_counts()['sample_level'] == 0
 
 
+def _popc(words):
+  """Set bits of each 32-bit word (int64 tensor)."""
+  return ((words[..., None] >> torch.arange(32)) & 1).sum(-1)
+
+
+class _LevelPlan:
+  """A torch emulation of the level kernel's launches
+  (``csrc/sample_level.cu``), step for step: the node-id table carried
+  across the batch's levels (a dense id -> position map here, the same
+  function as the kernel's hash table), the id bitmap that each scan
+  copies and leaves clear, ranks by popcount, and only kept new ids
+  inserted, at ``num_nodes + rank``."""
+
+  def __init__(self, n):
+    self.n = n
+    self.table = torch.full((n,), -1, dtype=torch.int64)
+    self.bitmap = torch.zeros((n + 31) // 32, dtype=torch.int64)
+
+  def begin(self, nodes, num_nodes, prefix_len):
+    self.table.fill_(-1)
+    self.bitmap.zero_()
+    m = min(prefix_len, int(num_nodes))
+    pre = nodes[:m].long()
+    ok = pre >= 0
+    self.table[pre[ok]] = torch.arange(m)[ok]
+
+  def pick(self, picks, valid, src_idx, k):
+    v = picks.long()
+    inside = valid & (v >= 0) & (v < self.n)
+    pos = torch.where(inside, self.table[v.clamp(0, self.n - 1)], -1)
+    found = inside & (pos >= 0)
+    new = inside & ~found
+    hit = torch.zeros(self.bitmap.shape[0] * 32, dtype=torch.int64)
+    hit[v[new]] = 1
+    assert not bool((self.bitmap & _pack(hit)).any()), 'bitmap not clear'
+    self.bitmap |= _pack(hit)
+    b = torch.arange(v.numel()) // max(k, 1)
+    cols = torch.where(found, pos, torch.where(new, -2 - v, -1))
+    rows = torch.where(found, src_idx.long()[b], -1)
+    return cols, rows, found.clone()
+
+  def scan(self, num_nodes, limit):
+    pc = _popc(self.bitmap)
+    self.base = torch.cumsum(pc, 0) - pc
+    self.copy = self.bitmap.clone()
+    self.bitmap.zero_()               # clear for the next level
+    num_new = int(pc.sum())
+    return num_new, int(num_nodes) + min(num_new, limit)
+
+  def resolve(self, cols, rows, emask, src_idx, k, nodes, num_nodes,
+              num_new, limit, insert):
+    size = cols.numel()
+    nn = int(num_nodes)
+    kept = min(num_new, limit)
+    parked = cols <= -2
+    i = torch.nonzero(parked).reshape(-1)
+    v = -2 - cols[i]
+    w = v >> 5
+    r = self.base[w] + _popc(self.copy[w] & ((1 << (v & 31)) - 1))
+    keep = r < limit
+    cols[i] = torch.where(keep, nn + r, -1)
+    rows[i] = torch.where(keep, src_idx.long()[i // k], -1)
+    emask[i] = keep
+    nodes[nn:nn + limit] = FILL
+    nodes[nn + r[keep]] = v[keep].to(nodes.dtype)
+    frontier = torch.full((size,), FILL, dtype=torch.int64)
+    frontier[r[keep]] = v[keep]
+    ar = torch.arange(size)
+    if insert:
+      self.table[v[keep]] = nn + r[keep]
+    return dict(rows=rows, cols=cols, edge_mask=emask, frontier=frontier,
+                frontier_idx=torch.where(ar < kept, nn + ar, -1),
+                frontier_mask=ar < kept, num_new=num_new)
+
+  def level(self, picks, valid, src_idx, k, nodes, num_nodes, limit,
+            final):
+    """pick, scan, resolve: ``(out, num_nodes')``."""
+    cols, rows, emask = self.pick(picks, valid, src_idx, k)
+    num_new, nn2 = self.scan(num_nodes, limit)
+    out = self.resolve(cols, rows, emask, src_idx, k, nodes, num_nodes,
+                       num_new, limit, not final)
+    return out, nn2
+
+
+def _pack(bits):
+  """[32 * W] 0/1 -> [W] 32-bit words (int64)."""
+  return (bits.reshape(-1, 32) << torch.arange(32)).sum(1)
+
+
 @pytest.mark.parametrize('case', ['wide', 'all_found', 'all_masked',
                                   'empty'])
 def test_level_plain_route_matches_merge_inducer(case):
-  """The level kernel's plain version plus the kernel route's epilogue
-  equals the merge inducer (the CPU route) on nodes, counts and every
-  output, at S = 2048 x 20 = 40,960 candidates (above the TPU kernel's
-  32,768) with heavy duplicates, hubs and truncation; and on a level
-  whose picks are all in the prefix, all masked, or empty."""
+  """The level kernel's plan (``_LevelPlan``: pick, scan and resolve over
+  the carried table) equals the merge inducer (the CPU route) on nodes,
+  counts and every output, at S = 2048 x 20 = 40,960 candidates (above
+  the TPU kernel's 32,768) with heavy duplicates, hubs and truncation;
+  and on a level whose picks are all in the prefix, all masked, or
+  empty."""
   rng = np.random.default_rng(11)
   n = 3000
   f, k = (2048, 20) if case != 'empty' else (0, 5)
@@ -205,19 +295,84 @@ def test_level_plain_route_matches_merge_inducer(case):
         _tstate(st0), src, torch.where(_t(mask), _t(nbrs), -1), _t(mask),
         prefix_cap=prefix, max_new=max_new, update_view=False)
     st = _tstate(st0)
-    picked, cols_raw, block, num_new = tops.sample_level(
-        _t(nbrs.reshape(-1)), torch.arange(f * k, dtype=torch.int32)
-        .reshape(f, k), _t(mask), st.nodes[:prefix], st.num_nodes, limit, n)
-    _eq(nbrs.reshape(-1), picked, 'picked')
-    got_st, got = tsf.level_epilogue(st, src, _t(mask), cols_raw, block,
-                                     num_new, prefix)
-    for name in ('nodes', 'num_nodes'):
-      _eq(getattr(ref_st, name), getattr(got_st, name), name)
+    plan = _LevelPlan(n)
+    plan.begin(st.nodes, st.num_nodes, prefix)
+    got, nn2 = plan.level(_t(nbrs.reshape(-1)), _t(mask.reshape(-1)), src,
+                          k, st.nodes, st.num_nodes, limit, final=False)
+    _eq(ref_st.nodes, st.nodes, 'nodes')
+    assert int(ref_st.num_nodes) == nn2
     for name in ref:
-      _eq(ref[name], got[name], name)
+      _eq(ref[name], torch.as_tensor(got[name]), name)
+    assert not bool(plan.bitmap.any())          # the scan cleared it
     if case == 'wide' and max_new:
-      assert int(num_new) > max_new
+      assert got['num_new'] > max_new
   assert tops.launch_counts()['sample_level'] == 0
+
+
+@pytest.mark.parametrize('caps', [[40, 70, 90], [16 * 4, 16 * 12, 16 * 36]])
+def test_level_plan_chain_matches_jax_merge_chain(caps):
+  """Three levels of one merge batch through ``_LevelPlan`` (one begin,
+  the table carried from level to level) equal the JAX sampler's
+  ``uniform_sample`` + ``induce_next_merge`` chain and its batch exactly,
+  with ``max_new`` truncating the levels under tight caps."""
+  ei, rng = _graph(seed=8, n=300, e=5000, hub=9)
+  n, fanouts, b = 300, [4, 3, 3], 16
+  jg = glt.data.Graph(glt.data.Topology(ei, num_nodes=n), 'CPU')
+  tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=n), device='cpu')
+  js = glt.sampler.NeighborSampler(jg, fanouts, seed=3, dedup='merge',
+                                   frontier_caps=caps)
+  seeds = np.concatenate([[9, n - 1, 9], rng.integers(0, n, 10)])
+  padded = np.zeros(b, np.int32)
+  padded[:seeds.size] = seeds
+  smask = np.arange(b) < seeds.size
+  jkey = jax.random.fold_in(jax.random.PRNGKey(3), 1)
+  hop_caps = js.hop_caps(b)
+  node_offs, _ = glt.sampler.neighbor_sampler.merge_layout_from_caps(
+      hop_caps, fanouts)
+  ip, ind = jnp.asarray(jg.indptr), jnp.asarray(jg.indices)
+  jst, jfr, jfm, _ = jops.init_node_merge(jnp.asarray(padded),
+                                          jnp.asarray(smask), sum(hop_caps))
+  tst, tfr, tfm, _ = tops.init_node_merge(_t(padded), _t(smask),
+                                          sum(hop_caps))
+  plan = _LevelPlan(n)
+  plan.begin(tst.nodes, tst.num_nodes, b)
+  jidx = jnp.arange(b, dtype=jnp.int32)
+  tidx = torch.arange(b, dtype=torch.int32)
+  jkeys = jax.random.split(jkey, len(fanouts))
+  tkeys = trandom.split(trandom.fold_in(trandom.PRNGKey(3), 1), len(fanouts))
+  overflowed = False
+  for i, k in enumerate(fanouts):
+    final = i + 1 == len(fanouts)
+    jn, _, jm = jops.uniform_sample(ip, ind, jfr, jfm, k, jkeys[i])
+    tn, _, tm = tops.uniform_sample(tg.indptr, tg.indices, tfr, tfm, k,
+                                    tkeys[i])
+    _eq(jn, tn, 'picks')
+    jst, jout = jops.induce_next_merge(jst, jidx, jn, jm,
+                                       prefix_cap=node_offs[i],
+                                       max_new=hop_caps[i + 1],
+                                       update_view=not final)
+    size, cap = tfr.shape[0] * k, tst.nodes.shape[0]
+    limit = min(size, cap - min(node_offs[i], cap), hop_caps[i + 1])
+    tout, nn2 = plan.level(tn.reshape(-1), tm.reshape(-1), tidx, k,
+                           tst.nodes, tst.num_nodes, limit, final)
+    tst = tops.MergeInducerState(tst.nodes, torch.tensor(nn2, dtype=torch.int32),
+                                 tst.sorted_ids, tst.sorted_loc)
+    for name in jout:
+      _eq(jout[name], torch.as_tensor(tout[name]), f'level {i} {name}')
+    _eq(jst.nodes, tst.nodes, f'level {i} nodes')
+    _eq(jst.num_nodes, tst.num_nodes, f'level {i} num_nodes')
+    overflowed |= tout['num_new'] > hop_caps[i + 1]
+    nxt = hop_caps[i + 1]
+    jfr, jidx, jfm = (jout[x][:nxt] for x in
+                      ('frontier', 'frontier_idx', 'frontier_mask'))
+    tfr = tout['frontier'][:nxt].to(torch.int32)
+    tidx = tout['frontier_idx'][:nxt].to(torch.int32)
+    tfm = tout['frontier_mask'][:nxt]
+  assert overflowed == (caps[0] == 40)     # the tight caps truncate
+  whole = js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds),
+                               batch_cap=b, key=jkey)
+  _eq(whole.node, tst.nodes, 'the JAX batch nodes')
+  _eq(whole.num_nodes, tst.num_nodes, 'the JAX batch num_nodes')
 
 
 def _graph(seed=6, n=200, e=3000, hub=7):

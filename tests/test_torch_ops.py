@@ -154,6 +154,24 @@ def test_feature_lookup_matches_jax():
     _eq(ref, got)
 
 
+@pytest.mark.parametrize('remap', [False, True])
+@pytest.mark.parametrize('dtype', [np.float32, np.int32])
+def test_feature_lookup_out_of_range_matches_jax(remap, dtype):
+  """Feature[ids] with ids past the table (and past id2index), -1 and
+  valid ids: the rows of both packages are equal (the fill row of
+  ``jnp.take``'s default mode for the ids past the table: NaN, or the
+  least int32), and the port raises nothing."""
+  rng = np.random.default_rng(12)
+  feats = (rng.standard_normal((40, 6)) * 50).astype(dtype)
+  id2index = rng.permutation(40).astype(np.int32) if remap else None
+  ids = np.array([40, -1, 7, 1000, 39, -1, 0, 41], np.int32)
+  ref = glt.data.Feature(feats, split_ratio=1.0, id2index=id2index)[ids]
+  got = gtt.data.Feature(feats, device='cpu', id2index=id2index)[ids]
+  _eq(ref, got)
+  assert np.isnan(got[[0, 3, 7]].float().numpy()).all() \
+      if dtype == np.float32 else (got[[0, 3, 7]] == -2 ** 31).all()
+
+
 def test_collate_batch_matches_jax():
   rng = np.random.default_rng(2)
   n, f, cap_n, cap_e = 60, 100, 40, 32

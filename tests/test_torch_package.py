@@ -135,13 +135,18 @@ def test_kernel_wrappers_refuse_mixed_devices():
   with pytest.raises(ValueError, match='CUDA'):
     ops.gather_rows_hbm(table, ids)
   ind = torch.zeros(5, dtype=torch.int32)
-  epos = torch.zeros((2, 2), dtype=torch.int32, device='meta')
+  indptr = torch.tensor([0, 2, 5], dtype=torch.int32)
+  seeds = torch.zeros(2, dtype=torch.int32, device='meta')
+  mask = torch.ones(2, dtype=torch.bool)
+  key = gtt.random.PRNGKey(0)
   with pytest.raises(ValueError, match='CUDA'):
-    ops.sample_hop(ind, epos)
-  mask = torch.ones((2, 2), dtype=torch.bool)
+    ops.sample_hop_fused(indptr, ind, None, seeds, mask, 2, key)
+  state, _, _, _ = ops.init_node_merge(torch.zeros(2, dtype=torch.int32),
+                                       mask, 8)
   with pytest.raises(ValueError, match='CUDA'):
-    ops.sample_level(ind, epos, mask, ind[:2], torch.tensor(1, dtype=torch.int32),
-                     4, 10)
+    ops.sample_level_fused(indptr, ind, None, seeds, mask, 2, key, state,
+                           torch.arange(2, dtype=torch.int32),
+                           prefix_cap=2)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
                                  'row_gather_probe': 0, 'smem_take': 0}

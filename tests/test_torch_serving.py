@@ -261,6 +261,25 @@ def test_store_lookup_routed_and_plain_agree():
                                 np.delete(table, [4, 36], 0))
 
 
+@pytest.mark.parametrize('routed', [False, True])
+def test_store_lookup_out_of_range_matches_jax(routed):
+  """Ids past the padded table, -1 pads and valid ids: the port's store
+  (plain and routed through gather v2) answers the JAX store's rows (an
+  id past the table reads the last row, as the JAX gather clamps it),
+  without raising."""
+  rng = np.random.default_rng(6)
+  table = rng.standard_normal((40, 47)).astype(np.float32)
+  ids = np.array([40, -1, 5, 1000, 39, 0, -1, 41], np.int32)
+  mask = np.array([True, False, True, True, True, True, False, True])
+  jstore = JaxStore(table.copy(), num_nodes=37)
+  store = EmbeddingStore(torch.as_tensor(table.copy()), num_nodes=37)
+  store.set_kernel_routing(use_pallas_v2=routed, block_rows=8, run_span=4)
+  want = jstore.fetch(jstore.lookup(ids, mask))
+  got = store.fetch(store.lookup(ids, mask))
+  np.testing.assert_array_equal(got, want)
+  np.testing.assert_array_equal(got[[0, 3, 7]], table[[39, 39, 39]])
+
+
 # ---------------------------------------------------------------- engine
 
 
