@@ -2,8 +2,8 @@
 """Chip smoke test of graphlearn_tpu_torch: sampled GraphSAGE inference
 on one CUDA GPU, on the tree path and on the merge (exact-dedup) path,
 GraphSAGE embedding serving (full-graph materializer + engine),
-GraphSAGE training on both paths (per-step loop and ScanTrainer), and the
-two probe suites.
+GraphSAGE training on both paths (per-step loop, and ScanTrainer captured
+as CUDA graphs and eager), and the two probe suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -26,7 +26,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    levels of one full-width merge batch, from the arguments, states and
    scratch the sampler produced, and once more at S > 32,768 with hubs,
    duplicates, all-found and all-masked seeds, against the plain level
-   (the draw and the merge inducer).
+   (the draw and the merge inducer). The chunk's hop keys (one launch of
+   the step-keys kernel: 8 steps x 3 hops, counts crossing 2**32) against
+   ``random.step_keys_plain`` on the same device words.
 3. Slices, at full width (``bench.py``'s recipe: 1M nodes, average
    degree 25, half uniform and half zipf(1.5) targets, [1M, 100] f32
    features, 47 classes; fanouts [15, 10, 5] at batch 1024; GraphSAGE
@@ -72,28 +74,44 @@ Phases (any failure exits non-zero, and the result line is not printed):
    sample+collate and train by CUDA events, with the peak memory of the
    steps; the last step recomputed on the CPU from the same state and
    batch (loss within rtol=1e-4, updated parameters within rtol=1e-3,
-   atol=1e-5); one ScanTrainer epoch (chunks of 8) over the same pool from
-   the same start (seed matrix equal to the loop's, losses within
-   rtol=1e-4); then the host syncs per step of both entry points under
-   ``torch.cuda.set_sync_debug_mode('warn')``. The launch counters are
-   set to 0 before the loop and before the epoch and read after each:
-   every step's hops (tree) or levels (merge) and its feature gather must
-   have gone through their kernels. No merge batch may overflow. Then
-   torch.profiler over one more loop step gives its device ops.
+   atol=1e-5); then two ScanTrainers over the same pool from the same
+   start, chunks of 8: captured (the default on a card: an eager warm-up
+   chunk, then one CUDA graph per chunk length, replayed) and eager, two
+   epochs each (the first epoch's seed matrix equal to the loop's and its
+   losses within rtol=1e-4 of the loop's; each epoch's seed matrices equal,
+   losses within rtol=1e-4 and launch counts equal between the two, the
+   eager trainer taking up the captured one's weights and Adam state
+   before the second epoch; the graphs' hop keys exact against
+   ``step_keys_plain``; parameters apart by less than PARAMS_LIMIT, which
+   a control, the eager second epoch without its last step, must exceed), with
+   ms/step, capture ms and peak memory (allocated and reserved); then
+   the host syncs per step of the loop and of both trainers under
+   ``torch.cuda.set_sync_debug_mode('warn')`` (the captured trainer: none,
+   but for the calibrated merge guard's one per epoch), and torch.profiler
+   over one more epoch of each trainer (device ops and busy per step; the
+   port's kernels the profiler saw must equal the launch counters, and
+   are the captured trainer's launches in the result line). The launch
+   counters are set to 0 before the loop and before every epoch and read
+   after each: every step's hops (tree) or levels (merge), its feature
+   gather and every chunk's hop keys must have gone through their kernels.
+   No merge batch may overflow. Then torch.profiler over one more loop
+   step gives its device ops.
 6. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
-   probes' shapes, and the take at every cluster size beside
-   ``torch.take``.
+   probes' shapes (the row gather on both routes: bulk copies on the
+   aligned table, the vector route on a copy 4 bytes off, beside K1 and
+   ``index_select``, with GB/s, rows/s and bulk copies/s), and the take at
+   every cluster size beside ``torch.take``.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes the
 whole report as JSON; ``--profile`` adds a torch.profiler pass over each
 phase of both slices, one materialization pass, 50 engine batches (with
 the device ops per routed batch), gather v2, K1 and ``index_select`` at
-the largest cap and on the probe's random ids, a train step and a
-ScanTrainer epoch of each path, and the take at each cluster size beside
+the largest cap and on the probe's random ids, a train step of each
+path, and the take at each cluster size beside
 ``torch.take``.
 ``--rehearse`` runs every phase on the CPU at a tiny size through the
 plain versions (no result line; exit code 3).
@@ -114,6 +132,7 @@ H100_OPS_PER_S = 67e12       # float32 outside the tensor cores (data sheet)
 # 20 rounds of add, rotate and xor (60), its key injections (17), and the
 # offset (shift, or, fsub, int2float, fmul, floor, float2int, min: 8)
 DRAW_OPS = 85
+THREEFRY_OPS = 77   # one threefry2x32 block: 60 round ops + 17 key injections
 FANOUTS = [15, 10, 5]
 BATCH = 1024
 FEAT_DIM = 100
@@ -132,9 +151,18 @@ PROBE_ROWS, PROBE_CHUNKS = 1_000_000, 1024   # the JAX gather-v2 probe shape
 LR = 3e-3                            # the products example's Adam rate
 TRAIN_STEPS, TRAIN_CHUNK = 16, 8     # per-step loop / ScanTrainer epoch
 SYNC_STEPS = 4                       # loop steps run under sync counting
+# captured vs eager ScanTrainer parameters after one epoch from one start:
+# above the sound readings (up to 2.2e-4 on an H100: the backward's
+# scatter atomics sum in no fixed order, and Adam scales a gradient near
+# 0 up to a step), below the eager epoch without its last step (~LR)
+PARAMS_LIMIT = 1e-3
 # device ops per sampled batch and per scanned train step measured before
 # the sampling kernels drew in-kernel (PERF.md, section 5)
 OPS_BEFORE = dict(tree=690, merge=768, train_tree=860, train_merge=1063)
+# B6's designs before the persistent bulk ring, timed at the probe shape
+# beside it (PERF.md, section 6) and then removed
+B6_REMOVED_DESIGNS_MS = {'one 32-thread CTA per row, 16-byte vectors': 0.0978,
+                         'one CTA per row, one bulk copy in and out': 0.0979}
 
 
 def log(*a):
@@ -280,7 +308,40 @@ def kernel_phase(torch, gtt, ds, device, gen, reps):
   # ---- K3 the fused hop: hops 0-2 of a products batch, hubs at hop 2
   records['sample_hop'] = [hop_case(torch, gtt, ds.graph, device, gen, reps,
                                     hop) for hop in (2, 0, 1)]
+  records['step_keys'] = step_keys_case(torch, gtt, device, reps)
   return records
+
+
+def step_keys_case(torch, gtt, device, reps):
+  """The chunk's hop keys (one launch: K = TRAIN_CHUNK steps x the
+  fanouts' hops) from a device counter, against ``step_keys_plain`` on
+  the same device words, exact; the counts cross 2**32."""
+  from graphlearn_tpu_torch import ops
+  hops = len(FANOUTS)
+  base = gtt.random.to_device(
+      gtt.random.fold_in(gtt.random.PRNGKey(0), 7), device)
+  counter = torch.full((), 2 ** 32 - 3, dtype=torch.int64, device=device)
+  steps = torch.arange(TRAIN_CHUNK, dtype=torch.int64, device=device)
+  got, ms, call_ms = timed(
+      torch, lambda: ops.step_keys(base, counter, TRAIN_CHUNK, hops), reps,
+      device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: gtt.random.step_keys_plain(base, counter + steps, hops),
+      reps, device)
+  exact = bool(torch.equal(got, ref))
+  keys = TRAIN_CHUNK * hops
+  nbytes = 2 * 8 + 8 + keys * 2 * 8
+  ops_n = keys * 2 * THREEFRY_OPS
+  rec = dict(steps=TRAIN_CHUNK, hops=hops, exact=exact,
+             max_abs_err=float((got - ref).abs().max()), ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+  log(f'kernel step_keys: [{TRAIN_CHUNK}, {hops}, 2] keys exact={exact} '
+      f'ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={rec["bound_ms"]:.6f} '
+      f'({rec["bound_by"]}); call ms {call_ms:.4f} {plain_call_ms:.4f}')
+  assert exact, 'step_keys: kernel != plain version'
+  return rec
 
 
 def hop_case(torch, gtt, g, device, gen, reps, hop):
@@ -750,7 +811,7 @@ def profiled(torch, fn, reps, device, label):
       fn()
     sync()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-  spans, per_name, launches = [], {}, 0
+  spans, per_name, counts, launches = [], {}, {}, 0
   for e in prof.events():
     # user annotations (the optimizer's Optimizer.step#Adam.step) also
     # appear on the device timeline; they are ranges, not device work
@@ -762,6 +823,7 @@ def profiled(torch, fn, reps, device, label):
     spans.append((e.time_range.start, e.time_range.end))
     per_name[e.name] = per_name.get(e.name, 0.0) + \
         e.time_range.elapsed_us() / 1e3 / reps
+    counts[e.name] = counts.get(e.name, 0) + 1
   busy, end = 0.0, -1.0
   for a, b in sorted(spans):
     if b > end:
@@ -774,7 +836,24 @@ def profiled(torch, fn, reps, device, label):
       '; '.join(f'{k[:60]}={v:.3f}' for k, v in top))
   return dict(wall_ms=wall, device_busy_ms=busy_ms,
               idle_share=1 - busy_ms / wall if wall else None,
-              device_ops_per_call=launches / reps, top_device_ms=dict(top))
+              device_ops_per_call=launches / reps, top_device_ms=dict(top),
+              kernels=kernel_counts(counts))
+
+
+# launch_counts() name -> the device kernels the profiler shows for it
+PORT_KERNELS = dict(gather_rows=('gather_rows_kernel',),
+                    sample_hop=('hop_slot_kernel',),
+                    sample_level=('begin_kernel', 'pick_kernel',
+                                  'scan_kernel', 'resolve_kernel'),
+                    step_keys=('step_keys_kernel',))
+
+
+def kernel_counts(counts) -> dict:
+  """The profiler's device kernels of the port's training path, counted by
+  ``launch_counts()`` name (the whole window, not per call)."""
+  return {name: sum(c for k, c in counts.items()
+                    if any(f'{f}(' in k or f'{f}<' in k for f in fns))
+          for name, fns in PORT_KERNELS.items()}
 
 
 def recompute_rows(torch, cmodel, layer, x_self, nbr, x_nbr):
@@ -1229,6 +1308,8 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   cmodel.load_state_dict({k: v.cpu() for k, v in msd.items()})
   cstate = train.create_train_state(cmodel, lr=LR)
   cstate.optimizer.load_state_dict(osd)
+  for group in cstate.optimizer.param_groups:   # the card's was capturable
+    group['capturable'] = False
   cstep, _ = train.make_train_step(cmodel, CLASSES)
   cstate, closs, _ = cstep(cstate, cbatch)
   torch.testing.assert_close(losses[-1].cpu(), closs, rtol=1e-4, atol=0)
@@ -1243,46 +1324,153 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
       f'vs {float(losses[-1]):.6f}; updated params max abs diff '
       f'{max(diffs):.3g} (loss rtol 1e-4; params rtol 1e-3, atol 1e-5)')
 
-  # ---- 3. one ScanTrainer epoch over the same pool, same start
-  smodel, _ = make_model(torch, gtt, loader, device)
-  smodel.load_state_dict(start)
-  smodel.train()
-  sloader = make_loader(gtt, ds, pool, device, mode, caps)
-  trainer = gtt.loader.ScanTrainer(sloader, smodel, CLASSES,
-                                   chunk_size=chunk)
-  sstate = train.create_train_state(smodel, lr=LR)
-  ops.reset_launch_counts()
-  a = _event(torch, cuda)
-  sstate, slosses, saccs = trainer.run_epoch(sstate)
-  b = _event(torch, cuda)
-  if cuda:
-    b.synchronize()
-  scounts = ops.launch_counts()
-  assert scounts[hop] == per * level_launch_count(mode, steps) and \
-      scounts['gather_rows'] == per * steps, scounts
-  seed_mat, mask = trainer._epoch_seeds(
-      gtt.random.fold_in(trainer._perm_key, 0), steps)
+  # ---- 3. ScanTrainer over the same pool from the same start: captured
+  # (the default on a card; the eager warm-up chunk, then one CUDA graph
+  # per chunk length) and eager, three epochs each
+  chunks = -(-steps // chunk)
+  trainers = {}
+  # the control (eager, not in ``trainers``): the eager second epoch
+  # without its last step, the reading PARAMS_LIMIT must be below
+  for name, capture in (('scan', None), ('scan_eager', False),
+                        ('control', False)):
+    smodel, _ = make_model(torch, gtt, loader, device)
+    smodel.load_state_dict(start)
+    smodel.train()
+    sloader = make_loader(gtt, ds, pool, device, mode, caps)
+    trainers[name] = [gtt.loader.ScanTrainer(
+        sloader, smodel, CLASSES, chunk_size=chunk, capture=capture),
+        train.create_train_state(smodel, lr=LR)]
+  control = trainers.pop('control')
+  results = {name: {} for name in trainers}
+  for epoch in range(2):
+    if epoch:
+      # the eager trainer takes up the captured one's weights and Adam
+      # state, so both epochs compare one step function from one start:
+      # the backward's scatter atomics sum in no fixed order, and over
+      # epochs two runs drift apart whatever runs them
+      for eager in (trainers['scan_eager'], control):
+        eager[0].model.load_state_dict(trainers['scan'][0].model.state_dict())
+        # (a deep copy: load_state_dict keeps tensors it need not cast, so
+        # the two optimizers would share their moments)
+        eager[1].optimizer.load_state_dict(copy.deepcopy(
+            trainers['scan'][1].optimizer.state_dict()))
+    control[1] = control[0].run_epoch(
+        control[1], max_steps=steps - 1 if epoch else None)[0]
+    for name, tr in trainers.items():
+      trainer, sstate = tr
+      ops.reset_launch_counts()
+      if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+      count0 = trainer._sampler._call_count + 1
+      a = _event(torch, cuda)
+      sstate, slosses, saccs = trainer.run_epoch(sstate)
+      b = _event(torch, cuda)
+      if cuda:
+        b.synchronize()
+      tr[1] = sstate
+      results[name][epoch] = dict(
+          ms_per_step=_span(a, b, cuda) / steps, launches=ops.launch_counts(),
+          losses=slosses, accs=saccs, count0=count0,
+          peak_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+          peak_reserved_bytes=(torch.cuda.max_memory_reserved() if cuda
+                               else None))
+  cap, eag = trainers['scan'][0], trainers['scan_eager'][0]
+  for epoch in range(2):
+    rc, re = results['scan'][epoch], results['scan_eager'][epoch]
+    for r in (rc, re):
+      assert r['launches'][hop] == per * level_launch_count(mode, steps) and \
+          r['launches']['gather_rows'] == per * steps and \
+          r['launches']['step_keys'] == per * chunks, r['launches']
+    assert rc['launches'] == re['launches'], (rc['launches'], re['launches'])
+    assert rc['losses'].shape == (steps,) and \
+        bool(torch.isfinite(rc['losses']).all())
+    rel = float(((rc['losses'] - re['losses']).abs() /
+                 re['losses'].abs()).max())
+    log(f'train {mode} ScanTrainer epoch {epoch + 1}: captured vs eager '
+        f'losses max rel diff {rel:.3g}')
+    torch.testing.assert_close(rc['losses'], re['losses'], rtol=1e-4, atol=0)
+    mats = [t._epoch_seeds(gtt.random.fold_in(t._perm_key, epoch), steps)
+            for t in (cap, eag)]
+    assert torch.equal(mats[0][0], mats[1][0]) and \
+        torch.equal(mats[0][1], mats[1][1]), 'seed matrices differ'
+  # epoch 0: the seed matrix and losses against the per-step loop
+  seed_mat, mask = cap._epoch_seeds(gtt.random.fold_in(cap._perm_key, 0),
+                                    steps)
   assert bool(mask.all()) and torch.equal(seed_mat, torch.stack(seeds)), \
       'ScanTrainer seed matrix != the per-step loop\'s seeds'
-  assert slosses.shape == (steps,) and bool(torch.isfinite(slosses).all())
+  slosses = results['scan'][0]['losses']
   torch.testing.assert_close(slosses, losses, rtol=1e-4, atol=0)
-  rep['scan'] = dict(
-      ms_per_step=_span(a, b, cuda) / steps, chunk_size=chunk,
-      launches=scounts, losses_equal=bool(torch.equal(slosses, losses)),
-      max_rel_loss_diff=float(((slosses - losses).abs() /
-                               losses.abs()).max()))
-  log(f'train {mode} ScanTrainer: {steps} steps in chunks of {chunk}, '
-      f'{rep["scan"]["ms_per_step"]:.3f} ms/step; launches {scounts}; seed '
-      f'matrix equal to the loop\'s; losses bit-equal '
-      f'{rep["scan"]["losses_equal"]}, max rel diff '
-      f'{rep["scan"]["max_rel_loss_diff"]:.3g} (rtol 1e-4: the card\'s '
+  # the graphs' hop keys: the last chunk of each length, exact
+  want = gtt.random.step_keys_plain(
+      cap._sampler._key, results['scan'][1]['count0'] +
+      torch.arange(steps, dtype=torch.int64), len(FANOUTS))
+  for k, g in cap._graphs.items():
+    last = max(s0 for s0 in range(0, steps, chunk)
+               if min(chunk, steps - s0) == k)
+    assert torch.equal(g.keys.cpu(), want[last:last + k]), k
+  # parameters: Adam moves each element by about the rate per step
+  # whatever its gradient's size, so an element whose gradient is summing
+  # noise near 0 may step the other way; a replay that skipped or repeated
+  # a step moves elements by about the rate, as the control shows
+  def params_apart(m1, m2):
+    return max(float((a - b).detach().abs().max())
+               for a, b in zip(m1.parameters(), m2.parameters()))
+
+  params_diff = params_apart(cap.model, eag.model)
+  control_diff = params_apart(control[0].model, eag.model)
+  log(f'train {mode} ScanTrainer params max abs diff: captured vs eager '
+      f'{params_diff:.3g}; control (eager without its last step) vs eager '
+      f'{control_diff:.3g}; limit {PARAMS_LIMIT}')
+  assert control_diff > PARAMS_LIMIT, \
+      f'the control is within the limit: {control_diff}'
+  assert params_diff < PARAMS_LIMIT, \
+      f'captured vs eager params differ by {params_diff}'
+  del control
+
+  for name in trainers:
+    r0, r1 = results[name][0], results[name][1]
+    rep[name] = dict(
+        chunk_size=chunk, ms_per_step=r1['ms_per_step'],
+        first_epoch_ms_per_step=r0['ms_per_step'], launches=r1['launches'],
+        peak_bytes=r1['peak_bytes'],
+        peak_reserved_bytes=r1['peak_reserved_bytes'],
+        losses=r1['losses'].tolist(),
+        capture_ms=trainers[name][0].capture_ms)
+  rep['scan']['losses_equal_eager'] = bool(torch.equal(
+      results['scan'][1]['losses'], results['scan_eager'][1]['losses']))
+  rep['scan']['max_abs_param_diff_eager'] = params_diff
+  rep['scan']['max_abs_param_diff_control'] = control_diff
+  rep['scan']['losses_equal_loop'] = bool(torch.equal(slosses, losses))
+  rep['scan']['max_rel_loss_diff_loop'] = float(
+      ((slosses - losses).abs() / losses.abs()).max())
+  for name in trainers:
+    r = rep[name]
+    kind = 'captured' if trainers[name][0].capture else 'eager'
+    log(f'train {mode} ScanTrainer {kind} ({name}): '
+        f'{steps} steps in chunks of {chunk}: epoch 2 {r["ms_per_step"]:.3f} '
+        f'ms/step (epoch 1 {r["first_epoch_ms_per_step"]:.3f}, with the '
+        f'warm-up and captures); capture ms per chunk length '
+        f'{r["capture_ms"]}; max_memory_allocated {r["peak_bytes"]} B, '
+        f'max_memory_reserved {r["peak_reserved_bytes"]} B; '
+        f'launches {r["launches"]} on {smi}')
+  log(f'train {mode} ScanTrainer: seed matrices and hop keys exact; losses '
+      f'vs eager (each epoch from one start) bit-equal '
+      f'{rep["scan"]["losses_equal_eager"]}, params max abs diff '
+      f'{params_diff:.3g} (limit {PARAMS_LIMIT}; control {control_diff:.3g}); '
+      f'vs the loop bit-equal '
+      f'{rep["scan"]["losses_equal_loop"]}, max rel diff '
+      f'{rep["scan"]["max_rel_loss_diff_loop"]:.3g} (rtol 1e-4: the card\'s '
       f'scatter atomics sum in no fixed order)')
 
-  # ---- 4. host syncs per step, on both entry points
+  # ---- 4. host syncs per step, on every entry point
   if cuda:
-    _, scan_syncs, scan_kinds = count_syncs(
-        torch, lambda: trainer.run_epoch(sstate))
-    torch.cuda.synchronize()
+    syncs = {}
+    for name, tr in trainers.items():
+      (tr[1], _, _), n_sync, kinds = count_syncs(
+          torch, lambda tr=tr: tr[0].run_epoch(tr[1]))
+      torch.cuda.synchronize()
+      syncs[name] = (n_sync, kinds)
 
     def loop_steps():
       st = state
@@ -1292,12 +1480,45 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
 
     _, loop_syncs, loop_kinds = count_syncs(torch, loop_steps)
     torch.cuda.synchronize()
-    rep['syncs_per_step'] = dict(loop=loop_syncs / SYNC_STEPS,
-                                 scan=scan_syncs / steps,
-                                 loop_kinds=loop_kinds, scan_kinds=scan_kinds)
+    rep['syncs_per_step'] = dict(
+        loop=loop_syncs / SYNC_STEPS, scan=syncs['scan'][0] / steps,
+        scan_eager=syncs['scan_eager'][0] / steps, loop_kinds=loop_kinds,
+        scan_kinds=syncs['scan'][1], scan_eager_kinds=syncs['scan_eager'][1])
     log(f'train {mode} host syncs per step (set_sync_debug_mode): loop '
-        f'{loop_syncs}/{SYNC_STEPS} steps {loop_kinds}, ScanTrainer '
-        f'{scan_syncs}/{steps} steps {scan_kinds}')
+        f'{loop_syncs}/{SYNC_STEPS} steps {loop_kinds}, ScanTrainer captured '
+        f'{syncs["scan"][0]}/{steps} steps {syncs["scan"][1]}, eager '
+        f'{syncs["scan_eager"][0]}/{steps} steps {syncs["scan_eager"][1]}')
+    allowed = 1 if loader.sampler.clamped_exact else 0   # the epoch's guard
+    assert syncs['scan'][0] <= allowed, syncs['scan']
+    # device ops per step of a captured epoch, and the port's kernels the
+    # profiler saw against the launch counters
+    for name, tr in trainers.items():
+      ops.reset_launch_counts()
+      prof = profiled(torch, lambda tr=tr: tr.__setitem__(
+          1, tr[0].run_epoch(tr[1])[0]), 1, device,
+          f'train {mode} ScanTrainer epoch ({name})')
+      counted = {k: v for k, v in ops.launch_counts().items()
+                 if k in PORT_KERNELS}
+      prof['per_step'] = dict(device_ops=prof['device_ops_per_call'] / steps,
+                              device_busy_ms=prof['device_busy_ms'] / steps,
+                              wall_ms=prof['wall_ms'] / steps)
+      prof['launch_counters'] = counted
+      rep[name]['profile_epoch'] = prof
+      log(f'train {mode} ScanTrainer ({name}) per step: device ops '
+          f'{prof["per_step"]["device_ops"]:.1f}, busy '
+          f'{prof["per_step"]["device_busy_ms"]:.3f} ms, wall '
+          f'{prof["per_step"]["wall_ms"]:.3f} ms; profiler kernels '
+          f'{prof["kernels"]} vs launch counters {counted}')
+      assert prof['kernels'] == counted and all(
+          prof['kernels'][k] for k in PORT_KERNELS
+          if k != ('sample_level' if mode == 'tree' else 'sample_hop')), \
+          (prof['kernels'], counted)
+      if name == 'scan':
+        # a replay re-adds the counts its capture recorded: the result
+        # line takes the captured epoch's launches as the profiler counted
+        # them on the device
+        rep[name]['launches'] = dict(rep[name]['launches'],
+                                     **prof['kernels'])
   # device ops of one loop step, sample + collate + train, beside
   # OPS_BEFORE's scanned-epoch step
   it = iter(loader)
@@ -1310,9 +1531,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
     batch = train.batch_to_dict(next(iter(loader)))
     rep['profile'] = dict(
         step=profiled(torch, lambda: step_fn(state, batch), 3, device,
-                      f'train {mode} step (forward+backward+Adam)'),
-        scan_epoch=profiled(torch, lambda: trainer.run_epoch(sstate), 1,
-                            device, f'train {mode} ScanTrainer epoch'))
+                      f'train {mode} step (forward+backward+Adam)'))
   return rep
 
 
@@ -1333,39 +1552,71 @@ def probe_phase(torch, device, reps, smi, profile=False):
   for name in ('prof_mem', 'prof_dedup'):
     common.print_table(rep[name], f'probe suite {name} on {smi}')
   if cuda:
-    assert rep['launches']['row_gather_probe'] > 0 and \
+    assert rep['launches']['row_gather_probe_bulk'] > 0 and \
         rep['launches']['smem_take'] > 0, rep['launches']
-  # ---- B6 at prof_mem's probe G shape
+  # ---- B6 at prof_mem's probe G shape: the bulk route, and the vector
+  # route on a copy of the table 4 bytes past a 16-byte boundary
   gen = torch.Generator().manual_seed(6)
   n = prof_mem.N // shrink
   feat = torch.randn((n, prof_mem.WIDTH), generator=gen).to(device)
   ids = torch.randint(0, n, (prof_mem.ROWS // shrink,), generator=gen,
                       dtype=torch.int32).to(device)
   ids64 = ids.long()
+  feat_off = torch.empty(feat.numel() + 1, device=device)[1:].view(
+      feat.shape)
+  feat_off.copy_(feat)
+  routes = (ops.row_gather_route(feat), ops.row_gather_route(feat_off))
+  before = ops.launch_counts()
   got, ms, call_ms = timed(torch, lambda: ops.row_gather_probe(feat, ids),
                            reps, device)
   ref, plain_ms, plain_call_ms = timed(
       torch, lambda: ops.row_gather_probe_plain(feat, ids), reps, device)
+  vgot, vec_ms, vec_call_ms = timed(
+      torch, lambda: ops.row_gather_probe(feat_off, ids), reps, device)
   _, lib_ms, lib_call_ms = timed(
       torch, lambda: torch.index_select(feat, 0, ids64), reps, device)
   _, k1_ms, k1_call_ms = timed(torch, lambda: ops.gather_rows_hbm(feat, ids),
                                reps, device)
-  exact = bool(torch.equal(got, ref))
+  after = ops.launch_counts()
+  exact = bool(torch.equal(got, ref)) and bool(torch.equal(vgot, ref))
   row = feat.shape[1] * 4
   uniq = int(torch.unique(ids64).numel())
   nbytes = ids.numel() * 4 + uniq * row + ids.numel() * row
+  rates = {name: dict(gb_per_s=nbytes / t / 1e6,
+                      m_rows_per_s=ids.numel() / t / 1e3)
+           for name, t in (('bulk', ms), ('vector', vec_ms), ('k1', k1_ms),
+                           ('index_select', lib_ms))}
+  # each row is one bulk copy in and one out
+  copies_per_s = 2 * ids.numel() / ms * 1e3
   rep['row_gather_probe'] = dict(
       ids=ids.numel(), table=list(feat.shape), unique_rows=uniq, exact=exact,
-      max_abs_err=float((got - ref).abs().max()), ms=ms, call_ms=call_ms,
+      routes=dict(aligned=routes[0], offset=routes[1]),
+      route_launches={k: after[k] - before[k] for k in
+                      ('row_gather_probe_bulk', 'row_gather_probe_vector')},
+      max_abs_err=float(max((got - ref).abs().max(), (vgot - ref).abs().max())),
+      ms=ms, call_ms=call_ms, vector_ms=vec_ms, vector_call_ms=vec_call_ms,
       plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=lib_ms,
       library_call_ms=lib_call_ms, k1_ms=k1_ms, k1_call_ms=k1_call_ms,
-      bound_ms=bound_ms(nbytes), bytes=nbytes)
+      bound_ms=bound_ms(nbytes), bytes=nbytes, rates=rates,
+      bulk_copies_per_s=copies_per_s,
+      removed_designs_ms=B6_REMOVED_DESIGNS_MS)
   log(f'kernel row_gather_probe: ids={ids.numel()} table={list(feat.shape)} '
-      f'exact={exact} ms={ms:.4f} plain_ms={plain_ms:.4f} '
+      f'routes {routes} exact={exact} ms={ms:.4f} (bulk) '
+      f'vector_ms={vec_ms:.4f} plain_ms={plain_ms:.4f} '
       f'index_select_ms={lib_ms:.4f} k1_ms={k1_ms:.4f} '
       f'bound_ms={bound_ms(nbytes):.4f}; call ms {call_ms:.4f} '
-      f'{plain_call_ms:.4f} {lib_call_ms:.4f} {k1_call_ms:.4f}')
+      f'{vec_call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f} '
+      f'{k1_call_ms:.4f}; launches per route '
+      f'{rep["row_gather_probe"]["route_launches"]}')
+  log('kernel row_gather_probe rates: ' + '; '.join(
+      f'{k} {v["gb_per_s"]:.1f} GB/s {v["m_rows_per_s"]:.1f} M rows/s'
+      for k, v in rates.items()) +
+      f'; {copies_per_s / 1e9:.3f} G bulk copies/s of {row} B; the designs '
+      f'it replaced, measured on an NVIDIA H100 80GB HBM3 at 700 W before '
+      f'their removal (ms): {B6_REMOVED_DESIGNS_MS}')
   assert exact, 'row_gather_probe: kernel != plain version'
+  if cuda:
+    assert routes == ('bulk', 'vector'), routes
   # ---- B5 at prof_dedup's probe shape
   s = prof_dedup.S // shrink // 512 * 512
   table = torch.randint(0, 2 ** 30, (prof_dedup.TN,), generator=gen,
@@ -1544,9 +1795,12 @@ def main(argv=None):
   # it and read just after (the ScanTrainer epochs count beside the loops)
   paths = [report[p]['launches'] for p in (
       'tree', 'merge', 'serving', 'train_tree', 'train_merge', 'probes')]
-  paths += [report[p]['scan']['launches'] for p in ('train_tree',
-                                                     'train_merge')]
+  paths += [report[p][t]['launches'] for p in ('train_tree', 'train_merge')
+            for t in ('scan', 'scan_eager')]
   launches = {k: sum(c[k] for c in paths) for k in paths[0]}
+  launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
+                                  launches['row_gather_probe_vector'])
+  keys_rec = ktab['step_keys']
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -1576,6 +1830,13 @@ def main(argv=None):
            ms=widest['ms'], plain_ms=widest['plain_ms'],
            bound_ms=widest['bound_ms'], bound_by=widest['bound_by'],
            library_ms=None),
+      dict(name='step_keys', route='cuda',
+           source='graphlearn_tpu_torch/csrc/step_keys.cu',
+           replaces='graphlearn_tpu/loader/scan_epoch.py:249-254',
+           launches=launches['step_keys'],
+           max_abs_err=keys_rec['max_abs_err'], ms=keys_rec['ms'],
+           plain_ms=keys_rec['plain_ms'], bound_ms=keys_rec['bound_ms'],
+           bound_by=keys_rec['bound_by'], library_ms=None),
       dict(name='gather_runs', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_runs.cu',
            replaces='graphlearn_tpu/ops/gather_pallas.py:196',

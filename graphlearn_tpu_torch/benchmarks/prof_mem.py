@@ -7,8 +7,9 @@ sizes, in torch on the card, each timed by CUDA events after warm-up
 elem/s, and for the row and copy probes GB/s (bytes: every input read
 once, every output written once). Probe G, the
 TPU suite's Pallas row gather (one grid step per row), is the
-``row_gather_probe`` kernel (``csrc/row_gather_probe.cu``, one CTA per
-row), held against its plain version before it is timed and set beside
+``row_gather_probe`` kernel (``csrc/row_gather_probe.cu``, each row one
+bulk copy in and one out), held against its plain version before it is
+timed and set beside
 the row-gather kernel ``gather_rows_hbm`` and ``index_select`` on the
 same ids.
 
@@ -95,7 +96,7 @@ def run(device, iters: int = 20, shrink: int = 1):
                     t(lambda: torch.sort(idx, stable=True)), elems=b))
   out.append(record(f'F cumsum {b} int32', t(
       lambda: torch.cumsum(vals, 0, dtype=torch.int32)), elems=b))
-  # G: the TPU suite's Pallas row gather, one CTA per row on the card
+  # G: the TPU suite's Pallas row gather, by bulk copies on the card
   got = ops.row_gather_probe(feat, ridx)
   ref = ops.row_gather_probe_plain(feat, ridx)
   if not torch.equal(got, ref):

@@ -3,9 +3,12 @@
 Counterpart of ``graphlearn_tpu/loader/pipeline.py:FusedEpochTrainer``:
 the scope checks, the device feature and label tables, and the
 sample+collate body an epoch trainer (``loader.ScanTrainer``) runs for
-every step. The JAX package traces that body into its programs; here it
-runs eagerly on the loader's device. ``OverlappedTrainer`` (batch n's
-train step fused with batch n+1's sampling) is not ported.
+every step. The JAX package traces that body into its programs. Here it
+runs on the loader's device with no host step in it: it takes the step's
+hop keys as a device tensor, reads nothing back and allocates only by
+static shapes, so ``ScanTrainer`` can capture it into a CUDA graph (or
+run it eagerly). ``OverlappedTrainer`` (batch n's train step fused with
+batch n+1's sampling) is not ported.
 """
 from typing import Optional
 
@@ -60,14 +63,15 @@ class FusedEpochTrainer:
     self._sample_collate = self._make_sample_collate_body()
 
   def _make_sample_collate_body(self):
-    """``(seeds, seed_mask, key) -> (batch, overflow)``: one batch sampled
-    and collated on the device. The calibrated-caps overflow flag rides
-    outside the batch dict (the train step does not see it)."""
+    """``(seeds, seed_mask, hop_keys) -> (batch, overflow)``: one batch
+    sampled under the ``[n_hops, 2]`` device hop keys and collated on the
+    device. The calibrated-caps overflow flag rides outside the batch
+    dict (the train step does not see it)."""
     sampler, label_cap = self._sampler, self._label_cap
     feats, id2i, labels = self._feats, self._id2i, self._labels
 
-    def _sample_collate(seeds, smask, key):
-      res = sampler._sample(seeds, smask, key)
+    def _sample_collate(seeds, smask, hop_keys):
+      res = sampler._sample(seeds, smask, hop_keys=hop_keys)
       col = ops.collate_batch(res['node'], res['num_nodes'], res['row'],
                               res['col'], feats, id2i, labels, None, None,
                               label_cap=label_cap)

@@ -12,7 +12,10 @@ the same contract:
 - Global step ``g`` samples with ``fold_in(base_key, count0 + g)``,
   ``count0`` being the sampler's call count at epoch start plus one, so a
   shuffle=False epoch replays the per-step loader loop's draws exactly;
-  afterwards the sampler's counter advances by the steps taken.
+  afterwards the sampler's counter advances by the steps taken. As in the
+  JAX chunk, the counts are device values: each chunk derives its
+  ``[K, n_hops, 2]`` hop keys on the device from the base key and a
+  counter holding ``count0 + start`` (``ops.step_keys``, one launch).
 - Losses, accuracies and the calibrated-caps overflow flag stay on the
   device; the flag is applied at epoch end through the loader's guard
   (a ``max_steps`` break leaves it to ``loader.check_overflow()``).
@@ -20,12 +23,35 @@ the same contract:
 - ``_epochs`` (folded into the permutation key) advances only when an
   epoch finishes, so a failed epoch's rerun redraws the same order.
 
-The JAX package runs each K-step chunk as one scanned program. PyTorch
-runs the chunk eagerly, step by step; the chunk is kept as the unit a
-CUDA graph would capture. No step reads anything back on purpose. Not
-ported: spans and flight records, the program observatory, the tuned
-``config=``, the stage/ack hooks and ``start_step`` resume, and
-``DistScanTrainer``.
+The JAX package runs each K-step chunk as one compiled program
+(``lax.scan`` under ``jax.jit``). Its counterpart here is one
+``torch.cuda.CUDAGraph`` per chunk length (the full K and a tail),
+captured once and replayed for every chunk of that length in every
+epoch (``capture=True``, the default on a card). A graph's inputs are
+static buffers (the chunk's ``[K, B]`` seed rows and mask, the base key,
+the counter) that are refilled before each replay; its outputs (``[K]``
+losses and accuracies, the overflow flag) are copied out after. Capture
+needs a warm-up: the first chunk the trainer runs is eager, on the
+capture stream, and makes Adam's state, the level kernel's scratch and
+the libraries' workspaces; no step runs twice. The Adam must be
+capturable (``models.train.create_train_state`` builds it so on a card).
+A graph also freezes the optimizer it captured: its state tensors (the
+moments and step counts), the parameters and each group's
+hyperparameters (a float learning rate is a constant of the graph).
+Every epoch starts by comparing them with those of the state it is
+given; where they differ (another ``TrainState``, an
+``optimizer.load_state_dict``, ``models.convert.adam_state_from_optax``,
+a new rate) the graphs are dropped, the epoch's first chunk runs eagerly
+as a new warm-up and the chunks are captured again. (A rate that changes
+every epoch is cheaper as a tensor: a capturable Adam reads it from the
+device.) A replay adds the launches its graph recorded to
+``ops.launch_counts()``. A capture that fails raises; nothing falls back
+to eager, so a model whose forward cannot be captured (one that reads a
+value back, say) trains on a card with ``capture=False``, which runs
+every chunk eagerly, step by step (the CPU always does). No step reads
+anything back. Not ported: spans and flight
+records, the program observatory, the tuned ``config=``, the stage/ack
+hooks and ``start_step`` resume, and ``DistScanTrainer``.
 
 Usage::
 
@@ -35,14 +61,52 @@ Usage::
     state = models.train.create_train_state(model)
     state, losses, accs = trainer.run_epoch(state)   # on the device
 """
-from typing import Optional
+import contextlib
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import ops
 from .. import random as trandom
 from .node_loader import NodeLoader
 from .pipeline import _RECOMPUTE_MSG, FusedEpochTrainer
+
+
+class _ChunkGraph(NamedTuple):
+  """A captured chunk: its graph, the tensors it writes on every replay
+  (``[k]`` losses and accuracies, the overflow flag, the ``[k, n_hops,
+  2]`` hop keys), the launches it makes and the capture's host ms."""
+  graph: object
+  losses: torch.Tensor
+  accs: torch.Tensor
+  ovf: torch.Tensor
+  keys: torch.Tensor
+  launches: dict
+  capture_ms: float
+
+
+def _replay_signature(model, optimizer) -> tuple:
+  """What a captured chunk freezes of the train state: the optimizer
+  object, the storage of the model's parameters and of each of the
+  optimizer's state tensors, and each group's hyperparameters (a tensor
+  one by its storage). A graph replayed under another signature would
+  train stale tensors or at a stale rate."""
+
+  def frozen(v):
+    if torch.is_tensor(v):
+      return ('tensor', v.data_ptr())
+    return tuple(map(frozen, v)) if isinstance(v, (tuple, list)) else v
+
+  groups = tuple(
+      (tuple(sorted((k, frozen(v)) for k, v in g.items() if k != 'params')),
+       tuple((p.data_ptr(), tuple(sorted(
+           (k, frozen(v)) for k, v in optimizer.state.get(p, {}).items())))
+             for p in g['params']))
+      for g in optimizer.param_groups)
+  return (id(optimizer), tuple(p.data_ptr() for p in model.parameters()),
+          groups)
 
 
 class ScanTrainer(FusedEpochTrainer):
@@ -56,13 +120,24 @@ class ScanTrainer(FusedEpochTrainer):
     chunk_size: K, steps per chunk.
     perm_seed: base seed of the epoch permutation (default: the loader's
       seed).
+    capture: run each chunk length as a captured CUDA graph (default:
+      True on a card; a CPU loader refuses True). ``False`` is for a
+      model that cannot be captured.
   """
 
   _NAME = 'ScanTrainer'
 
   def __init__(self, loader: NodeLoader, model, num_classes: int,
                chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
-               perm_seed: Optional[int] = None):
+               perm_seed: Optional[int] = None,
+               capture: Optional[bool] = None):
+    on_card = loader.device.type == 'cuda'
+    if capture is None:
+      capture = on_card
+    elif capture and not on_card:
+      raise ValueError(f'capture=True needs a loader on a CUDA device, got '
+                       f'{loader.device}: a CUDA graph captures the card\'s '
+                       'launches')
     super().__init__(loader, model, num_classes, seed_labels_only)
     if chunk_size < 1:
       raise ValueError(f'chunk_size must be >= 1, got {chunk_size}')
@@ -76,6 +151,12 @@ class ScanTrainer(FusedEpochTrainer):
     self._perm_key = trandom.fold_in(trandom.PRNGKey(perm_seed), 0xFFFFFFFF)
     self._epochs = 0
     self._seeds_dev = None
+    self.capture = bool(capture)
+    self._n_hops = len(self._sampler.num_neighbors)
+    self._graphs = {}      # chunk length -> _ChunkGraph
+    self._static = None    # the graphs' input buffers, after the warm-up
+    self._signature = None  # _replay_signature of the graphs' state
+    self._stream = None    # the capture stream (also the warm-up's)
 
   def _epoch_seeds(self, key, steps: int):
     """The prologue: ``([steps, B] seed matrix, [steps, B] mask)``."""
@@ -122,6 +203,11 @@ class ScanTrainer(FusedEpochTrainer):
         self.loader._finish_epoch_overflow()
     return state, losses, accs
 
+  @property
+  def capture_ms(self) -> dict:
+    """Host ms each captured chunk length took to capture."""
+    return {k: g.capture_ms for k, g in self._graphs.items()}
+
   def _run_epoch_body(self, state, steps: int, full_steps: int):
     device = self.loader.device
     if self._seeds_dev is None:
@@ -129,27 +215,104 @@ class ScanTrainer(FusedEpochTrainer):
           np.asarray(self.loader.input_seeds, dtype=np.int32)).to(device)
     perm_key = trandom.fold_in(self._perm_key, self._epochs)
     seed_mat, mask_mat = self._epoch_seeds(perm_key, full_steps)
-    base_key = self._sampler._key
+    base_key = trandom.to_device(self._sampler._key, device)
     count0 = self._sampler._call_count + 1
-    ovf = torch.zeros((), dtype=torch.bool, device=device)
+    if self._static is not None and \
+        _replay_signature(self.model, state.optimizer) != self._signature:
+      # the graphs froze another state: warm up again and recapture
+      self._graphs, self._static, self._signature = {}, None, None
     losses, accs = [], []
-    for start in range(0, steps, self.chunk_size):
-      k = min(self.chunk_size, steps - start)
-      state, ovf = self._run_chunk(state, ovf, seed_mat, mask_mat, base_key,
-                                   count0, start, k, losses, accs)
+    with self._capture_stream():
+      ovf = torch.zeros((), dtype=torch.bool, device=device)
+      for start in range(0, steps, self.chunk_size):
+        k = min(self.chunk_size, steps - start)
+        args = (seed_mat[start:start + k], mask_mat[start:start + k],
+                base_key, torch.full((), count0 + start, dtype=torch.int64,
+                                     device=device))
+        # with capture, the first chunk runs eagerly: the warm-up
+        run = self._chunk if self._static is None else self._replay
+        loss, acc, overflow, _ = run(state, *args)
+        if self.capture and self._static is None:
+          seeds, masks, key, counter = args
+          self._static = dict(
+              seeds=seeds.new_zeros((self.chunk_size, seeds.shape[1])),
+              masks=masks.new_zeros((self.chunk_size, masks.shape[1])),
+              base_key=key.clone(), counter=counter.clone())
+          self._signature = _replay_signature(self.model, state.optimizer)
+        ovf = ovf | overflow
+        losses.append(loss)
+        accs.append(acc)
+        state = state._replace(step=state.step + k)
     # keep the host fold_in stream aligned with what the epoch consumed
     self._sampler._call_count += steps
     self._epochs += 1
-    return state, torch.stack(losses), torch.stack(accs), ovf
+    return state, torch.cat(losses), torch.cat(accs), ovf
 
-  def _run_chunk(self, state, ovf, seed_mat, mask_mat, base_key, count0,
-                 start, k, losses, accs):
-    """Steps ``[start, start + k)``: sample, collate and train each."""
-    for g in range(start, start + k):
-      key = trandom.fold_in(base_key, count0 + g)
-      batch, overflow = self._sample_collate(seed_mat[g], mask_mat[g], key)
-      state, loss, acc = self._train_step(state, batch)
+  @contextlib.contextmanager
+  def _capture_stream(self):
+    """With ``capture``: run the epoch on the trainer's own stream (where
+    the warm-up ran and the graphs are captured), ordered after the
+    caller's work and before what the caller does next."""
+    if not self.capture:
+      yield
+      return
+    device = self.loader.device
+    if self._stream is None:
+      self._stream = torch.cuda.Stream(device)
+    caller = torch.cuda.current_stream(device)
+    self._stream.wait_stream(caller)
+    with torch.cuda.stream(self._stream):
+      yield
+    caller.wait_stream(self._stream)
+
+  def _chunk(self, state, seeds, masks, base_key, counter):
+    """Steps of one chunk, eagerly: the hop keys from the counter, then
+    sample, collate and train each step. Returns ``([k] losses, [k]
+    accs, overflow, [k, n_hops, 2] hop keys)``. What a capture
+    records."""
+    k = seeds.shape[0]
+    keys = ops.step_keys(base_key, counter, k, self._n_hops)
+    ovf = torch.zeros((), dtype=torch.bool, device=seeds.device)
+    losses, accs = [], []
+    for j in range(k):
+      batch, overflow = self._sample_collate(seeds[j], masks[j], keys[j])
+      _, loss, acc = self._train_step(state, batch)
       ovf = ovf | overflow
       losses.append(loss)
       accs.append(acc)
-    return state, ovf
+    return torch.stack(losses), torch.stack(accs), ovf, keys
+
+  def _replay(self, state, seeds, masks, base_key, counter):
+    """One chunk as a replay of its length's graph (captured on first
+    use): the chunk's inputs go into the static buffers first, the
+    outputs are copied out after."""
+    k = seeds.shape[0]
+    st = self._static
+    st['seeds'][:k].copy_(seeds)
+    st['masks'][:k].copy_(masks)
+    st['base_key'].copy_(base_key)
+    st['counter'].copy_(counter)
+    g = self._graphs.get(k)
+    if g is None:
+      g = self._graphs[k] = self._capture(state, k)
+    g.graph.replay()
+    ops.add_launch_counts(g.launches)
+    return g.losses.clone(), g.accs.clone(), g.ovf.clone(), g.keys
+
+  def _capture(self, state, k: int) -> _ChunkGraph:
+    """Capture a ``k``-step chunk over the static buffers. The capture
+    launches nothing, so the launches it counted are taken back and
+    added again by every replay."""
+    st = self._static
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=self._stream,
+                          capture_error_mode='thread_local'):
+      out = self._chunk(state, st['seeds'][:k], st['masks'][:k],
+                        st['base_key'], st['counter'])
+    ms = (time.perf_counter() - t0) * 1e3
+    after = ops.launch_counts()
+    launches = {n: after[n] - before[n] for n in after}
+    ops.add_launch_counts({n: -c for n, c in launches.items()})
+    return _ChunkGraph(graph, *out, launches, ms)

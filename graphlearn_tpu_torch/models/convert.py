@@ -50,9 +50,12 @@ def adam_state_from_optax(optimizer, model, adam_state):
   count, mu, nu = adam_state
   mu_sd, nu_sd = params_from_flax(mu), params_from_flax(nu)
   step = float(np.asarray(count))
+  # a capturable Adam keeps its count beside the parameter
+  capturable = optimizer.defaults.get('capturable', False)
   for name, p in model.named_parameters():
     optimizer.state[p] = {
-        'step': torch.tensor(step, dtype=torch.float32),
+        'step': torch.tensor(step, dtype=torch.float32,
+                             device=p.device if capturable else None),
         'exp_avg': mu_sd[name].to(p.device),
         'exp_avg_sq': nu_sd[name].to(p.device)}
 

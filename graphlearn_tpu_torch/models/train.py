@@ -9,8 +9,14 @@ the functions take the batch only, and the train state holds the
 optimizer and the step count. The optimizer is ``torch.optim.Adam`` with
 optax.adam's hyperparameters (b1 0.9, b2 0.999, eps 1e-8): the same
 update, its bias corrections placed differently (``models.convert``
-carries its moments to and from optax's ``ScaleByAdamState``). The link
-prediction step is not ported.
+carries its moments to and from optax's ``ScaleByAdamState``). On a card
+it is built ``capturable``: its step count and bias corrections live in
+device tensors, so a CUDA graph of train steps (``loader.ScanTrainer``)
+replays the update with the count it reached, not the one it captured.
+``train_step`` is capture-safe: ``zero_grad`` drops the gradients (the
+backward writes fresh ones), nothing is read back, and the Python
+``TrainState.step`` is host bookkeeping that a replaying caller advances
+itself. The link prediction step is not ported.
 """
 from typing import NamedTuple
 
@@ -30,10 +36,13 @@ class TrainState(NamedTuple):
 
 def create_train_state(model, lr: float = 3e-3, optimizer=None):
   """``TrainState`` with ``torch.optim.Adam(lr)`` over ``model``'s
-  parameters (optax.adam's defaults), or the given optimizer."""
+  parameters (optax.adam's defaults; capturable when they lie on a card),
+  or the given optimizer."""
   if optimizer is None:
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    params = list(model.parameters())
+    optimizer = torch.optim.Adam(
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        capturable=any(p.device.type == 'cuda' for p in params))
   return TrainState(optimizer, 0)
 
 

@@ -1,13 +1,15 @@
-"""Tensor ops of the port: sampling, induction, gathers, collation.
+"""Tensor ops of the port: sampling, induction, gathers, collation, the
+hop keys of a chunk of steps.
 
-The six CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the
-fused hop ``sample_hop_fused``, the fused level ``sample_level_fused``
-and the probes' ``row_gather_probe`` and ``smem_take``) keep launch
-counters; ``launch_counts`` reads them (``sample_hop`` and
-``sample_level`` name the two sampling kernels) and
-``reset_launch_counts`` sets them to 0.
+The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the fused
+hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
+chunk's ``step_keys`` and the probes' ``row_gather_probe``, one counter
+per route, and ``smem_take``) keep launch counters; ``launch_counts``
+reads them (``sample_hop`` and ``sample_level`` name the two sampling
+kernels), ``reset_launch_counts`` sets them to 0 and
+``add_launch_counts`` adds a recorded set (a CUDA graph's replay).
 """
-from . import gather, kernels, probes, sample_fused
+from . import gather, kernels, keys, probes, sample_fused
 from .collate import collate_batch
 from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
                      gather_rows_hbm2, gather_rows_hbm2_plain,
@@ -15,28 +17,41 @@ from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
 from .induce_merge import (MergeInducerState, induce_next_merge,
                            init_node_merge)
 from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree
+from .keys import step_keys
 from .neighbor import uniform_sample
-from .probes import (row_gather_probe, row_gather_probe_plain, smem_take,
-                     smem_take_plain)
+from .probes import (row_gather_probe, row_gather_probe_plain,
+                     row_gather_route, smem_take, smem_take_plain)
 from .sample_fused import (LevelScratch, sample_hop_fused,
                            sample_level_fused, sample_level_fused_plain,
                            sample_level_plain)
 from .unique import FILL, masked_unique
 
 
+# launch_counts() name -> (module, counter attribute)
+_COUNTERS = {
+    'gather_rows': (gather, 'launches'),
+    'gather_runs': (gather, 'runs_launches'),
+    'sample_hop': (sample_fused, 'launches'),
+    'sample_level': (sample_fused, 'level_launches'),
+    'step_keys': (keys, 'launches'),
+    'row_gather_probe_bulk': (probes, 'row_gather_bulk_launches'),
+    'row_gather_probe_vector': (probes, 'row_gather_vector_launches'),
+    'smem_take': (probes, 'smem_take_launches'),
+}
+
+
 def launch_counts() -> dict:
-  return {'gather_rows': gather.launches,
-          'gather_runs': gather.runs_launches,
-          'sample_hop': sample_fused.launches,
-          'sample_level': sample_fused.level_launches,
-          'row_gather_probe': probes.row_gather_launches,
-          'smem_take': probes.smem_take_launches}
+  return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts():
-  gather.launches = 0
-  gather.runs_launches = 0
-  sample_fused.launches = 0
-  sample_fused.level_launches = 0
-  probes.row_gather_launches = 0
-  probes.smem_take_launches = 0
+  for mod, attr in _COUNTERS.values():
+    setattr(mod, attr, 0)
+
+
+def add_launch_counts(counts: dict):
+  """Add ``counts`` (``launch_counts()`` names) to the counters: the
+  launches a replayed CUDA graph made, as recorded when it was captured."""
+  for name, n in counts.items():
+    mod, attr = _COUNTERS[name]
+    setattr(mod, attr, getattr(mod, attr) + n)

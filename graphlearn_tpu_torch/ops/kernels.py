@@ -36,7 +36,8 @@ SOURCES = {
         'glt_sample_hop_fused': ([_P, _P, _P, _L, _P, _L, _P, _L, _I, _P,
                                   _P, _P, _I, _P], _I)}),
     'row_gather_probe': ('row_gather_probe.cu', {
-        'glt_row_gather_probe': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I)}),
+        'glt_row_gather_probe': ([_P, _P, _I, _P, _L, _L, _L, _I, _I, _P],
+                                 _I)}),
     'smem_take': ('smem_take.cu', {
         'glt_smem_take': ([_P, _L, _P, _P, _L, _I, _I, _P], _I)}),
     'sample_level': ('sample_level.cu', {
@@ -45,6 +46,8 @@ SOURCES = {
         'glt_level_run': ([_P, _L, _L, _P, _P, _P, _L, _P, _L, _P, _L, _I,
                            _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _I, _P], _I)}),
+    'step_keys': ('step_keys.cu', {
+        'glt_step_keys': ([_P, _P, _I, _I, _P, _I, _P], _I)}),
 }
 
 _libs = {}

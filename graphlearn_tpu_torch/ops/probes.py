@@ -1,5 +1,5 @@
-"""The measurement probes' kernels: a row gather with one CTA per row and
-a take from a table held in shared memory.
+"""The measurement probes' kernels: a row gather by bulk copies and a take
+from a table held in shared memory.
 
 Counterparts of the two Pallas probes of the JAX package's benchmark
 suites, which the port's probe suites (``graphlearn_tpu_torch.
@@ -8,9 +8,13 @@ benchmarks.prof_mem`` / ``prof_dedup``) time:
 - ``row_gather_probe``: ``benchmarks/prof_mem.py`` ``pallas_row_gather``
   (one grid step per output row, the row picked by a scalar-prefetched
   index). On a CUDA tensor the wrapper launches
-  ``csrc/row_gather_probe.cu`` (one CTA per output row). The TPU probe
-  leaves an id outside ``[0, N)`` undefined; the port clamps it, as
-  ``gather_rows_hbm`` does.
+  ``csrc/row_gather_probe.cu`` on one of two routes, chosen by shape
+  (``row_gather_route``): the bulk route (persistent CTAs, each row one
+  bulk copy in and one out through a ring in shared memory) when the row
+  bytes and both base pointers are 16-byte aligned, else the vector route
+  (the same persistent CTAs, rows copied by warps). Each route has its
+  launch counter. The TPU probe leaves an id outside ``[0, N)``
+  undefined; the port clamps it, as ``gather_rows_hbm`` does.
 - ``smem_take``: ``benchmarks/prof_dedup.py`` ``pk``, ``jnp.take`` from a
   table held in on-chip memory, in jnp.take's default fill mode: an id in
   ``[-TN, 0)`` counts from the end, any other id outside ``[0, TN)``
@@ -25,8 +29,10 @@ import torch
 from . import kernels
 from .gather import _check, gather_rows_plain
 
-# launches of the CUDA kernels (plain-version calls do not count)
-row_gather_launches = 0
+# launches of the CUDA kernels (plain-version calls do not count), the
+# row gather's per route
+row_gather_bulk_launches = 0
+row_gather_vector_launches = 0
 smem_take_launches = 0
 
 FILL = -2 ** 31
@@ -44,9 +50,18 @@ def row_gather_probe_plain(table: torch.Tensor, ids: torch.Tensor):
   return gather_rows_plain(table, ids)
 
 
+def row_gather_route(table: torch.Tensor, out: torch.Tensor = None) -> str:
+  """The route ``row_gather_probe`` takes for ``table`` (and ``out``):
+  'bulk' when a row's bytes and both base pointers are multiples of 16
+  (what a bulk copy needs), else 'vector'."""
+  row_bytes = table.shape[1] * table.element_size()
+  ptrs = table.data_ptr() | (0 if out is None else out.data_ptr())
+  return 'bulk' if row_bytes % 16 == 0 and ptrs % 16 == 0 else 'vector'
+
+
 def row_gather_probe(table: torch.Tensor, ids: torch.Tensor):
-  """Gather ``table[ids]`` rows (ids clamped to ``[0, N)``), one CTA per
-  output row on the card.
+  """Gather ``table[ids]`` rows (ids clamped to ``[0, N)``); on the card
+  by bulk copies where ``row_gather_route`` allows, else by warps.
 
   Args:
     table: ``[N, F]`` float32 / bfloat16 / float16 / int32, contiguous.
@@ -55,18 +70,23 @@ def row_gather_probe(table: torch.Tensor, ids: torch.Tensor):
   if table.device.type == 'cpu' and ids.device.type == 'cpu':
     return row_gather_probe_plain(table, ids)
   _check(table, ids, 'row_gather_probe')
-  global row_gather_launches
+  global row_gather_bulk_launches, row_gather_vector_launches
   out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
                     device=table.device)
   if ids.shape[0] == 0:
     return out
+  bulk = row_gather_route(table, out) == 'bulk'
   err = kernels.lib('row_gather_probe').glt_row_gather_probe(
       table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
       out.data_ptr(), table.shape[0], ids.shape[0],
-      table.shape[1] * table.element_size(), table.device.index or 0,
+      table.shape[1] * table.element_size(), int(bulk),
+      table.device.index or 0,
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'row_gather_probe')
-  row_gather_launches += 1
+  if bulk:
+    row_gather_bulk_launches += 1
+  else:
+    row_gather_vector_launches += 1
   return out
 
 

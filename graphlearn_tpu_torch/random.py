@@ -16,13 +16,17 @@ since jax 0.5):
   permutation(key, n) -> stable sorts of arange(n) by fresh words  (_shuffle)
 
 Torch has no full uint32 arithmetic, so words live in int64 tensors and
-are masked to 32 bits after every add and rotate. Keys are ``[2]`` int64
-tensors holding the two uint32 words. They are derived on the CPU
-(``fold_in`` and ``split`` are a handful of scalar ops); ``to_device``
-uploads them without a host sync. ``random_bits``, ``uniform`` and
-``permutation`` run on the caller's device and take a key on the CPU or
-on that device. This is the plain version of the draw: the sampling
-kernels (``csrc/csr_pick.cuh``) run the same threefry inside the kernel.
+are masked to 32 bits after every add and rotate. Keys are ``[..., 2]``
+int64 tensors holding the two uint32 words. ``fold_in`` and ``split``
+take a key on the CPU or on a device and a step count as a Python int or
+an int64 tensor, and run where the key or the count lies without reading
+a device value back: ``step_keys_plain`` derives a chunk's hop keys from
+a device counter this way, and ``to_device`` uploads a host key without
+a host sync. ``random_bits``, ``uniform`` and ``permutation`` run on the
+caller's device and take a key on the CPU or on that device. This is the
+plain version of the draw: the sampling kernels (``csrc/csr_pick.cuh``)
+run the same threefry inside the kernel, and ``csrc/step_keys.cu`` the
+fold_in and split of ``step_keys_plain``.
 """
 import math
 
@@ -37,9 +41,10 @@ def _rotl(x, r: int):
   return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(k1: int, k2: int, x0, x1):
+def threefry2x32(k1, k2, x0, x1):
   """Threefry-2x32 (20 rounds) of the count words ``x0``/``x1`` (int64
-  tensors of uint32 values) under the key ``(k1, k2)``; returns the two
+  tensors of uint32 values) under the key ``(k1, k2)`` (ints, or int64
+  tensors that broadcast with the counts); returns the two
   output words. Same round schedule as jax's ``_threefry2x32_lowering``."""
   ks = (k1 & _MASK, k2 & _MASK, (k1 ^ k2 ^ _PARITY) & _MASK)
   x0 = (x0 + ks[0]) & _MASK
@@ -54,16 +59,18 @@ def threefry2x32(k1: int, k2: int, x0, x1):
 
 
 def _words(key):
-  """The key's two words: Python ints for a host key, 0-d int64 tensors
-  for a key on a device (read there, without a host sync)."""
-  key = torch.as_tensor(key).reshape(-1)
-  if key.shape[0] != 2:
-    raise ValueError(f'a threefry key has 2 words, got {key.shape[0]}')
-  if key.device.type != 'cpu':
-    key = key.to(torch.int64)
-    return key[0] & _MASK, key[1] & _MASK
-  k = [int(v) for v in key.tolist()]
-  return k[0] & _MASK, k[1] & _MASK
+  """The key's two words: Python ints for a ``[2]`` host key, int64
+  tensors of the key's leading shape otherwise (read where the key lies,
+  without a host sync)."""
+  key = torch.as_tensor(key)
+  if key.dim() == 0 or key.shape[-1] != 2:
+    raise ValueError(f'a threefry key has 2 words, got shape '
+                     f'{tuple(key.shape)}')
+  if key.device.type == 'cpu' and key.dim() == 1:
+    k = [int(v) for v in key.tolist()]
+    return k[0] & _MASK, k[1] & _MASK
+  key = key.to(torch.int64)
+  return key[..., 0] & _MASK, key[..., 1] & _MASK
 
 
 def to_device(keys, device):
@@ -86,21 +93,44 @@ def PRNGKey(seed: int):
   return torch.tensor([0, seed], dtype=torch.int64)
 
 
-def fold_in(key, data: int):
-  """``jax.random.fold_in(key, data)``."""
+def fold_in(key, data):
+  """``jax.random.fold_in(key, data)``: ``data`` is a Python int or an
+  int64 tensor (0-d or 1-d, taken modulo 2**32 as jax's uint32 cast
+  does); a ``[2]`` key and a ``[K]`` count give ``[K, 2]`` keys, a
+  ``[K, 2]`` key folds each row with its count."""
   k1, k2 = _words(key)
-  x0 = torch.zeros(1, dtype=torch.int64)
-  x1 = torch.tensor([int(data) & _MASK], dtype=torch.int64)
-  y0, y1 = threefry2x32(k1, k2, x0, x1)
-  return torch.cat([y0, y1])
+  if torch.is_tensor(data):
+    x1 = data.to(torch.int64) & _MASK
+  else:
+    dev = k1.device if torch.is_tensor(k1) else None
+    x1 = torch.tensor(int(data) & _MASK, dtype=torch.int64, device=dev)
+  y0, y1 = threefry2x32(k1, k2, torch.zeros_like(x1), x1)
+  return torch.stack([y0, y1], -1)
 
 
 def split(key, num: int = 2):
-  """``jax.random.split(key, num)`` -> ``[num, 2]`` keys."""
+  """``jax.random.split(key, num)``: a ``[2]`` key gives ``[num, 2]``
+  keys, a ``[..., 2]`` batch of keys ``[..., num, 2]``."""
   k1, k2 = _words(key)
-  idx = torch.arange(num, dtype=torch.int64)
+  dev = k1.device if torch.is_tensor(k1) else None
+  if torch.is_tensor(k1):
+    k1, k2 = k1[..., None], k2[..., None]
+  idx = torch.arange(num, dtype=torch.int64, device=dev)
   y0, y1 = threefry2x32(k1, k2, idx >> 32, idx & _MASK)
-  return torch.stack([y0, y1], dim=1)
+  return torch.stack([y0, y1], -1)
+
+
+def step_keys_plain(base_key, counts, n_hops: int):
+  """The hop keys of a chunk of steps: ``[K, n_hops, 2]`` words of
+  ``split(fold_in(base_key, counts[j]), n_hops)``, in torch ops on the
+  counts' device (``counts``: ``[K]`` int64, each taken modulo 2**32, as
+  the JAX chunk's int32 ``count0 + start + iota`` wraps). The plain
+  version of ``csrc/step_keys.cu``."""
+  counts = torch.as_tensor(counts, dtype=torch.int64)
+  base_key = torch.as_tensor(base_key, dtype=torch.int64)
+  if base_key.device != counts.device:
+    base_key = to_device(base_key, counts.device)
+  return split(fold_in(base_key, counts), n_hops)
 
 
 def random_bits(key, shape, device=None):

@@ -19,9 +19,11 @@ program is a Python loop over hops, over static capacities:
 
 The PRNG stream is the JAX package's: one key per batch by ``fold_in``
 of a host call counter into the base key, one key per hop by ``split``.
-So the port's batches equal the JAX sampler's, id for id. On the card
-the hop keys go up once per batch, as one ``[n_hops, 2]`` tensor that the
-kernels read.
+So the port's batches equal the JAX sampler's, id for id. A loader call
+derives its key on the host and uploads the hop keys once per batch, as
+one ``[n_hops, 2]`` tensor that the kernels read; an epoch trainer hands
+``_sample`` hop keys it derived on the device (``ops.step_keys``), the
+same words without a host step.
 
 Edge direction: ``row`` is the neighbor (message source) local index and
 ``col`` the seed (target), as in the JAX package.
@@ -231,8 +233,10 @@ class NeighborSampler:
       self._scratch[cap] = scratch
     return scratch.begin(state, prefix_len)
 
-  def _sample(self, seeds, seed_mask, key):
-    """The multi-hop program (``_fused_homo_fn``)."""
+  def _sample(self, seeds, seed_mask, key=None, hop_keys=None):
+    """The multi-hop program (``_fused_homo_fn``) under the batch key
+    ``key`` (split here into one key per hop) or the ``[n_hops, 2]``
+    ``hop_keys`` already on the seeds' device."""
     fanouts = self.num_neighbors
     batch_cap = seeds.shape[0]
     caps = self.hop_caps(batch_cap)
@@ -254,9 +258,12 @@ class NeighborSampler:
     # on-device truncation flag: True iff a clamped hop found more new
     # nodes than its cap kept (constant False on unclamped plans)
     overflow = torch.zeros((), dtype=torch.bool, device=seeds.device)
-    keys = trandom.split(key, len(fanouts))
-    if seeds.device.type == 'cuda':
-      keys = trandom.to_device(keys, seeds.device)
+    if hop_keys is None:
+      keys = trandom.split(key, len(fanouts))
+      if seeds.device.type == 'cuda':
+        keys = trandom.to_device(keys, seeds.device)
+    else:
+      keys = hop_keys
     for i, k in enumerate(fanouts):
       if merge:
         state, out, _, _ = ops.sample_level_fused(

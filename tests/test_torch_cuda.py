@@ -20,14 +20,18 @@ and one ending at the table's end, all-equal ids, f32/bf16/int32 at widths
 presorted ids, the kernel's own plan against plan_runs_in_tiles, one
 device kernel per call (torch.profiler), a routed EmbeddingStore lookup,
 and a small materialization on the card against the CPU; for the probe
-kernels the probes' shapes, empty ids, int64 ids and odd widths (row
-gather), and for the take, at cluster sizes 2, 4 and 8, a launch at a
+kernels the probes' shapes, empty ids, int64 ids, odd widths and both
+routes (row gather), and for the take, at cluster sizes 2, 4 and 8, a launch at a
 non-multiple of its tile, odd, tiny and largest tables, TN below the
 cluster size, id counts that are not multiples of 4, an id view that is
 not 16-byte aligned, the fill and the negative ids that wrap, and a table
-too large for the cluster; and three train steps on the card against the
-CPU, tree and merge.
+too large for the cluster; three train steps on the card against the
+CPU, tree and merge; the chunk's hop keys against their plain version;
+and the captured ScanTrainer against the eager one, also when it is given
+another Adam state between epochs.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -411,24 +415,206 @@ def test_materialize_on_card_matches_cpu(cuda):
   assert outs['cpu'][2] == 0 and outs[str(cuda)][2] == 3 * 5
 
 
-@pytest.mark.parametrize('dtype,width,n_ids', [
-    (torch.float32, 128, 153_600), (torch.float32, 100, 4099),
-    (torch.bfloat16, 47, 777), (torch.int32, 600, 33), (torch.float32, 8, 0)])
+@pytest.mark.parametrize('dtype,width,n_ids,view', [
+    (torch.float32, 128, 153_600, 'whole'), (torch.float32, 100, 4099, 'whole'),
+    (torch.bfloat16, 47, 777, 'whole'), (torch.int32, 600, 33, 'whole'),
+    (torch.float32, 8, 0, 'whole'), (torch.float32, 1024, 3001, 'whole'),
+    (torch.float32, 128, 5000, 'offset')])
 @pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
 def test_row_gather_probe_kernel_matches_plain(cuda, dtype, width, n_ids,
-                                               id_dtype):
+                                               view, id_dtype):
+  """Both routes of the probe's row gather against the plain version and
+  K1: the bulk route (rows of a multiple of 16 bytes on 16-byte aligned
+  pointers, 1024 f32 being two bulk copies a row) and the vector route
+  (47 bf16 rows, and a table view 4 bytes past a 16-byte boundary); one
+  launch counted on the route the shape picks."""
   gen = torch.Generator().manual_seed(width)
   n = 5000
-  table = (torch.randn((n, width), generator=gen) * 100).to(dtype).to(cuda)
+  table = (torch.randn((n * width + 1,), generator=gen) * 100).to(dtype)
+  table = table.to(cuda)
+  table = (table[1:] if view == 'offset' else table[:n * width]).view(
+      n, width)
+  if view == 'offset':
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
   ids = torch.randint(-5, n + 5, (n_ids,), generator=gen).to(id_dtype)
   ids = ids.to(cuda)
-  before = ops.launch_counts()['row_gather_probe']
+  route = ops.row_gather_route(table)
+  assert route == ('bulk' if (width * table.element_size()) % 16 == 0 and
+                   view == 'whole' else 'vector')
+  before = ops.launch_counts()
   got = ops.row_gather_probe(table, ids)
   torch.cuda.synchronize()
   assert got.shape == (n_ids, width)
   assert torch.equal(got, ops.row_gather_probe_plain(table, ids))
   assert torch.equal(got, ops.gather_rows_hbm(table, ids))
-  assert ops.launch_counts()['row_gather_probe'] == before + (n_ids > 0)
+  after = ops.launch_counts()
+  name = f'row_gather_probe_{route}'
+  other = 'row_gather_probe_vector' if route == 'bulk' else \
+      'row_gather_probe_bulk'
+  assert after[name] == before[name] + (n_ids > 0)
+  assert after[other] == before[other]
+
+
+@pytest.mark.parametrize('n_steps', [1, 3, 8])
+@pytest.mark.parametrize('count', [0, 1, 2 ** 31 - 2, 2 ** 32 - 1,
+                                   2 ** 32 + 5])
+def test_step_keys_kernel_matches_plain(cuda, n_steps, count):
+  """The chunk's hop keys from a device counter: exact against
+  ``random.step_keys_plain`` (counts past 2**31 and 2**32 wrap as the
+  JAX int32 count does); one launch, no host sync."""
+  base = gtt.random.fold_in(gtt.random.PRNGKey(7), 3)
+  dbase = gtt.random.to_device(base, cuda)
+  counter = torch.full((), count, dtype=torch.int64, device=cuda)
+  before = ops.launch_counts()['step_keys']
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    got = ops.step_keys(dbase, counter, n_steps, 3)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  torch.cuda.synchronize()
+  assert ops.launch_counts()['step_keys'] == before + 1
+  want = gtt.random.step_keys_plain(
+      base, count + torch.arange(n_steps, dtype=torch.int64), 3)
+  assert got.shape == (n_steps, 3, 2) and torch.equal(got.cpu(), want)
+  assert torch.equal(got, gtt.random.step_keys_plain(
+      dbase, counter + torch.arange(n_steps, device=cuda), 3))
+
+
+def _scan_pair(cuda, mode, chunk):
+  """Two ScanTrainers from one start, captured and eager, over a small
+  graph: 4 steps of 48 seeds (the last ragged) in chunks of ``chunk``."""
+  from graphlearn_tpu_torch.models import train
+  torch.backends.cuda.matmul.allow_tf32 = False
+  rng = np.random.default_rng(13)
+  n, f, c, fanouts, b = 2000, 16, 5, [5, 4], 48
+  ei = np.stack([rng.integers(0, n, 30000), rng.zipf(1.5, 30000) % n])
+  ds = gtt.data.Dataset(device=cuda)
+  ds.init_graph(ei, num_nodes=n)
+  ds.init_node_features(rng.standard_normal((n, f)).astype(np.float32))
+  ds.init_node_labels(rng.integers(0, c, n))
+  pool = rng.permutation(n)[:3 * b + 20]
+  # unclamped merge: the clamped guard's epoch-end check is a host sync
+  caps = None
+  if mode == 'merge':
+    no, eo = train.merge_hop_offsets(b, fanouts, caps)
+  else:
+    no, eo = train.tree_hop_offsets(b, fanouts)
+  out = []
+  for capture in (True, False):
+    loader = gtt.loader.NeighborLoader(
+        ds, fanouts, pool, batch_size=b, shuffle=True, seed=3,
+        dedup=mode, frontier_caps=caps, device=cuda)
+    model = gtt.models.GraphSAGE(
+        f, 32, c, num_layers=2, hop_node_offsets=no, hop_edge_offsets=eo,
+        tree_dense=mode == 'tree', merge_dense=mode == 'merge',
+        fanouts=fanouts, device=cuda,
+        generator=torch.Generator().manual_seed(0))
+    out.append((gtt.loader.ScanTrainer(loader, model, c, chunk_size=chunk,
+                                       capture=capture),
+                train.create_train_state(model)))
+  return out
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_scan_trainer_captured_matches_eager(cuda, mode):
+  """The captured ScanTrainer (one CUDA graph per chunk length) against
+  the eager one from the same start, over three epochs of 4 steps in
+  chunks of 3 (a tail chunk of 1): the first chunk is the eager warm-up,
+  the tail and the full chunk are captured once each and replayed with
+  new keys; the seed matrices and the graphs' hop keys are exact, losses
+  and parameters within rtol 1e-4 (the backward's scatter atomics sum in
+  no fixed order), the launch counters equal the eager epoch's, and the
+  third epoch (replays only) makes no host sync."""
+  (cap, cstate), (eag, estate) = _scan_pair(cuda, mode, 3)
+  assert cap.capture and not eag.capture
+  assert cstate.optimizer.param_groups[0]['capturable']
+  graphs = None
+  for epoch in range(3):
+    count0 = cap._sampler._call_count + 1
+    counts = {}
+    for name, t, st in (('cap', cap, cstate), ('eag', eag, estate)):
+      ops.reset_launch_counts()
+      if name == 'cap' and epoch == 2:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+      try:
+        st, losses, accs = t.run_epoch(st)
+      finally:
+        torch.cuda.set_sync_debug_mode('default')
+      torch.cuda.synchronize()
+      counts[name] = ops.launch_counts()
+      if name == 'cap':
+        cstate, closs, cacc = st, losses, accs
+      else:
+        estate, eloss, eacc = st, losses, accs
+    seeds = [t._epoch_seeds(gtt.random.fold_in(t._perm_key, epoch), 4)
+             for t in (cap, eag)]
+    assert all(torch.equal(a, b) for a, b in zip(*seeds))
+    assert counts['cap'] == counts['eag']
+    assert counts['cap']['step_keys'] == 2
+    torch.testing.assert_close(closs, eloss, rtol=1e-4, atol=0)
+    torch.testing.assert_close(cacc, eacc, rtol=1e-4, atol=0)
+    assert cstate.step == estate.step == 4 * (epoch + 1)
+    # the graphs' hop keys hold the epoch's last chunk of each length
+    want = gtt.random.step_keys_plain(
+        cap._sampler._key, count0 + torch.arange(4, dtype=torch.int64), 2)
+    if 1 in cap._graphs:
+      assert torch.equal(cap._graphs[1].keys.cpu(), want[3:])
+    if 3 in cap._graphs:
+      assert torch.equal(cap._graphs[3].keys.cpu(), want[:3])
+    assert cap._static['seeds'][:1].equal(seeds[0][0][3:])
+    if epoch == 1:
+      graphs = {k: id(g.graph) for k, g in cap._graphs.items()}
+      assert sorted(graphs) == [1, 3]
+  assert {k: id(g.graph) for k, g in cap._graphs.items()} == graphs
+  assert cap._sampler._call_count == eag._sampler._call_count == 12
+  for a, b in zip(cap.model.parameters(), eag.model.parameters()):
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_scan_trainer_recaptures_for_a_new_state(cuda, mode):
+  """A captured chunk freezes the optimizer's tensors and rate: given
+  another Adam state between epochs (a loaded one at another rate, then
+  a fresh ``TrainState``), the captured trainer drops its graphs, warms
+  up eagerly and captures again, and stays with the eager trainer given
+  the same states (losses within rtol 1e-4, equal launch counts)."""
+  from graphlearn_tpu_torch.models import train
+  (cap, cstate), (eag, estate) = _scan_pair(cuda, mode, 3)
+  cstate, _, _ = cap.run_epoch(cstate)
+  estate, _, _ = eag.run_epoch(estate)
+  eag.model.load_state_dict(cap.model.state_dict())
+  loaded = copy.deepcopy(cstate.optimizer.state_dict())
+  for st in loaded['state'].values():
+    st['exp_avg'].mul_(-0.5)
+  loaded['param_groups'][0]['lr'] = 1e-3
+  for epoch in range(3):
+    graphs = {k: g.graph for k, g in cap._graphs.items()}
+    if epoch == 0:
+      for st in (cstate, estate):
+        st.optimizer.load_state_dict(copy.deepcopy(loaded))
+    elif epoch == 1:
+      cstate = train.create_train_state(cap.model, lr=2e-3)
+      estate = train.create_train_state(eag.model, lr=2e-3)
+    counts = {}
+    ops.reset_launch_counts()
+    cstate, closs, _ = cap.run_epoch(cstate)
+    counts['cap'] = ops.launch_counts()
+    ops.reset_launch_counts()
+    estate, eloss, _ = eag.run_epoch(estate)
+    counts['eag'] = ops.launch_counts()
+    torch.cuda.synchronize()
+    assert counts['cap'] == counts['eag']
+    torch.testing.assert_close(closs, eloss, rtol=1e-4, atol=0)
+    for a, b in zip(cap.model.parameters(), eag.model.parameters()):
+      torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    new = {k: g.graph for k, g in cap._graphs.items()}
+    # a new state: the first chunk is the warm-up, the tail is captured
+    # again; the same state: the tail's graph is replayed
+    assert sorted(graphs) == [1] and \
+        sorted(new) == ([1] if epoch < 2 else [1, 3])
+    assert (new[1] is graphs[1]) == (epoch == 2), epoch
 
 
 @pytest.mark.parametrize('cluster', [2, 4, 8])

@@ -126,7 +126,9 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
   assert x.device.type == 'cpu' and x.shape == (4 + 12 + 24, 4)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
-                                 'row_gather_probe': 0, 'smem_take': 0}
+                                 'step_keys': 0, 'row_gather_probe_bulk': 0,
+                                 'row_gather_probe_vector': 0,
+                                 'smem_take': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -149,4 +151,6 @@ def test_kernel_wrappers_refuse_mixed_devices():
                            prefix_cap=2)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
-                                 'row_gather_probe': 0, 'smem_take': 0}
+                                 'step_keys': 0, 'row_gather_probe_bulk': 0,
+                                 'row_gather_probe_vector': 0,
+                                 'smem_take': 0}

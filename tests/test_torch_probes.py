@@ -131,5 +131,32 @@ def test_probe_suites_rehearse_on_the_cpu(suite):
   kernel = [r for r in recs if 'max_abs_err' in r]
   assert len(kernel) == 1 and kernel[0]['max_abs_err'] == 0
   # CPU tensors take the plain versions: no launch
-  assert ops.launch_counts()['row_gather_probe'] == 0
+  assert ops.launch_counts()['row_gather_probe_bulk'] == 0
+  assert ops.launch_counts()['row_gather_probe_vector'] == 0
   assert ops.launch_counts()['smem_take'] == 0
+
+
+@pytest.mark.parametrize('dtype,width,view,route', [
+    (torch.float32, 128, 'whole', 'bulk'),     # the probe's 512-byte rows
+    (torch.float32, 100, 'whole', 'bulk'),     # 400 B
+    (torch.bfloat16, 47, 'whole', 'vector'),   # 94 B: not a multiple of 16
+    (torch.int32, 600, 'whole', 'bulk'),       # 2400 B
+    (torch.float32, 8, 'whole', 'bulk'),       # 32 B
+    (torch.float32, 128, 'offset', 'vector')])  # base 4 bytes past 16
+def test_row_gather_route_by_shape(dtype, width, view, route):
+  """The route the row gather takes on the card, chosen by shape alone:
+  bulk copies need a row of a multiple of 16 bytes on 16-byte aligned
+  base pointers."""
+  flat = torch.zeros(64 * width + 4, dtype=dtype)
+  step = 4 // flat.element_size()
+  start = (-flat.data_ptr() // flat.element_size()) % (16 // flat.element_size())
+  table = flat[start + (step if view == 'offset' else 0):][:32 * width]
+  table = table.view(32, width)
+  assert (table.data_ptr() % 16 == 0) == (view == 'whole')
+  assert ops.row_gather_route(table) == route
+  out = torch.empty((5, width), dtype=dtype)
+  assert ops.row_gather_route(table, out) == route
+  # the CPU takes the plain version whatever the route
+  ids = torch.tensor([0, 31, 40, -2, 7], dtype=torch.int32)
+  assert torch.equal(ops.row_gather_probe(table, ids),
+                     ops.row_gather_probe_plain(table, ids))

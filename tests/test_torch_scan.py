@@ -183,3 +183,93 @@ def test_scan_trainer_overflow_guard():
 
   with pytest.raises(ValueError, match='recompute'):
     trainer_for(frontier_caps=[1, 1], overflow_policy='recompute')
+
+
+class _HostKeyTrainer(gtt.loader.ScanTrainer):
+  """The chunk with every step's key folded in and split on the host
+  (``fold_in(base_key, count0 + g)`` from a Python int), the per-step
+  path that device keys replace."""
+
+  def _chunk(self, state, seeds, masks, base_key, counter):
+    count = int(counter)
+    losses, accs = [], []
+    ovf = torch.zeros((), dtype=torch.bool)
+    for j in range(seeds.shape[0]):
+      key = gtt.random.fold_in(self._sampler._key, count + j)
+      batch, overflow = self._sample_collate(
+          seeds[j], masks[j], gtt.random.split(key, self._n_hops))
+      _, loss, acc = self._train_step(state, batch)
+      ovf = ovf | overflow
+      losses.append(loss)
+      accs.append(acc)
+    return torch.stack(losses), torch.stack(accs), ovf, None
+
+
+@pytest.mark.parametrize('chunk,max_steps', [
+    (1, None), (3, None), (6, None), (4, None), (4, 5), (3, 2)])
+def test_device_keys_bit_equal_to_host_keys(chunk, max_steps):
+  """The trainer's chunk keys from ``ops.step_keys`` (a counter tensor)
+  against the host path: seed matrices, losses, accuracies and the model
+  bit-equal over two epochs, for chunks of 1 and 3, the whole epoch, a
+  ragged tail (4 + 2) and ``max_steps`` truncation; the sampler's call
+  count advances by the steps taken in both."""
+  runs = []
+  for cls in (gtt.loader.ScanTrainer, _HostKeyTrainer):
+    model = _model()
+    trainer = cls(_port_loader(44, shuffle=True), model, C, chunk_size=chunk)
+    state = ttrain.create_train_state(model)
+    out = []
+    for _ in range(2):
+      count = trainer.loader.sampler._call_count
+      state, losses, accs = trainer.run_epoch(state, max_steps=max_steps)
+      steps = losses.shape[0]
+      assert steps == (6 if max_steps is None else max_steps)
+      assert trainer.loader.sampler._call_count == count + steps
+      out.append((losses, accs, trainer._epoch_seeds(
+          gtt.random.fold_in(trainer._perm_key, trainer._epochs - 1), 6)))
+    assert state.step == 2 * steps
+    runs.append((out, [p.detach().clone() for p in model.parameters()]))
+  (dev_out, dev_params), (host_out, host_params) = runs
+  for (l1, a1, (m1, k1)), (l2, a2, (m2, k2)) in zip(dev_out, host_out):
+    assert torch.equal(l1, l2) and torch.equal(a1, a2)
+    assert torch.equal(m1, m2) and torch.equal(k1, k2)
+  for a, b in zip(dev_params, host_params):
+    assert torch.equal(a, b)
+
+
+def test_capture_needs_a_card():
+  model = _model()
+  with pytest.raises(ValueError, match='CUDA device'):
+    gtt.loader.ScanTrainer(_port_loader(16), model, C, capture=True)
+  trainer = gtt.loader.ScanTrainer(_port_loader(16), model, C)
+  assert not trainer.capture and trainer.capture_ms == {}
+
+
+def test_replay_signature_tracks_what_a_graph_freezes():
+  """What a captured chunk freezes of the train state: unchanged by the
+  steps of an epoch; changed by a loaded Adam state (a deep copy, or
+  optax's through ``convert``), a new rate and another optimizer, each of
+  which makes a captured trainer warm up and capture again."""
+  from graphlearn_tpu_torch.loader.scan_epoch import _replay_signature
+  model = _model()
+  trainer = gtt.loader.ScanTrainer(_port_loader(16), model, C, chunk_size=2)
+  state = ttrain.create_train_state(model)
+  fresh = _replay_signature(model, state.optimizer)
+  state, _, _ = trainer.run_epoch(state)
+  sig = _replay_signature(model, state.optimizer)
+  assert sig != fresh           # the first step made Adam's state
+  state, _, _ = trainer.run_epoch(state)
+  opt = state.optimizer
+  assert _replay_signature(model, opt) == sig
+  opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+  loaded = _replay_signature(model, opt)
+  assert loaded != sig
+  opt.param_groups[0]['lr'] = 1e-3
+  rate = _replay_signature(model, opt)
+  assert rate != loaded
+  convert.adam_state_from_optax(opt, model,
+                                convert.adam_state_to_optax(opt, model))
+  assert _replay_signature(model, opt) != rate
+  other = ttrain.create_train_state(model).optimizer
+  other.load_state_dict(opt.state_dict())
+  assert _replay_signature(model, other) != _replay_signature(model, opt)

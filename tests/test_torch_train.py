@@ -214,3 +214,48 @@ def test_products_example_runs_on_the_cpu():
   assert out['steps_per_epoch'] == 3000 * 8 // 100 // 64
   assert np.isfinite(out['final_train_loss'])
   assert 0.0 <= out['test_acc'] <= 1.0 and out['test_seeds_evaluated'] > 0
+
+
+@pytest.mark.parametrize('foreach', [False, True])
+def test_capturable_adam_matches_optax(monkeypatch, foreach):
+  """The Adam a CUDA graph replays (``capturable=True``: the step count
+  and the bias corrections in tensors beside the parameters), held to
+  optax.adam over 5 steps. Torch runs the capturable update only on an
+  accelerator's tensors, so the test lets it take CPU tensors: the same
+  tensor code as on the card."""
+  from torch.optim import adam as torch_adam
+  devices = torch_adam._get_capturable_supported_devices
+  monkeypatch.setattr(torch_adam, '_get_capturable_supported_devices',
+                      lambda *a, **k: devices(*a, **k) + ['cpu'])
+  jl, tl, jm, tm = _pair('merge')
+  pairs = list(zip(jl, tl))
+  pairs = pairs + pairs[:5 - len(pairs)]
+  jd0 = jtrain.batch_to_dict(pairs[0][0])
+  params = _init(jm, tm, jd0)
+  jstate, tx = jtrain.create_train_state(jm, jax.random.PRNGKey(0), jd0,
+                                         lr=3e-3)
+  jstate = jstate._replace(params=params, opt_state=tx.init(params))
+  jstep, _ = jtrain.make_train_step(jm, tx, C)
+  tstate = ttrain.create_train_state(tm, optimizer=torch.optim.Adam(
+      tm.parameters(), lr=3e-3, betas=(0.9, 0.999), eps=1e-8,
+      capturable=True, foreach=foreach))
+  tstep, _ = ttrain.make_train_step(tm, C)
+  for jb, tb in pairs:
+    jstate, jloss, _ = jstep(jstate, jtrain.batch_to_dict(jb))
+    tstate, tloss, _ = tstep(tstate, ttrain.batch_to_dict(tb))
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+  assert tstate.step == int(jstate.step) == 5
+  _assert_params_close(tm, jstate.params)
+  steps = {float(st['step']) for st in tstate.optimizer.state.values()}
+  assert steps == {5.0}
+  count, mu, _ = convert.adam_state_to_optax(tstate.optimizer, tm)
+  assert count == 5
+  for a, b in zip(jax.tree.leaves(mu),
+                  jax.tree.leaves(jstate.opt_state[0].mu)):
+    np.testing.assert_allclose(a, np.asarray(b), **TOL)
+
+
+def test_create_train_state_is_capturable_only_on_a_card():
+  _, _, _, tm = _pair('tree')
+  assert not ttrain.create_train_state(tm).optimizer.param_groups[0][
+      'capturable']
