@@ -2,8 +2,9 @@
 """Chip smoke test of graphlearn_tpu_torch: sampled GraphSAGE inference
 on one CUDA GPU, on the tree path and on the merge (exact-dedup) path,
 GraphSAGE embedding serving (full-graph materializer + engine),
-GraphSAGE training on both paths (per-step loop, and ScanTrainer captured
-as CUDA graphs and eager), and the two probe suites.
+GraphSAGE training on both paths (per-step loop; ScanTrainer captured as
+CUDA graphs and eager; checkpointed, crashed and resumed; RunTrainer with
+and without an early stop; OverlappedTrainer), and the two probe suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -95,7 +96,39 @@ Phases (any failure exits non-zero, and the result line is not printed):
    after each: every step's hops (tree) or levels (merge), its feature
    gather and every chunk's hop keys must have gone through their kernels.
    No merge batch may overflow. Then torch.profiler over one more loop
-   step gives its device ops.
+   step gives its device ops. Then the rest of the epoch as a program
+   (merge training on the card is chaotic: the backward's scatter atomics
+   sum in no fixed order and Adam turns a flipped gradient sign near 0
+   into a step of the rate, so parameters are compared from one state
+   over a few steps): a captured ScanTrainer A (K = 4) for two epochs
+   without and two with ``ChunkCheckpointer(every=2)`` (ms/step of each,
+   recovery_overhead_pct of the second epoch with it against the second
+   without, snapshot bytes, save and capture ms p50/p99, host syncs per
+   step with it: 0, or the merge guard's 1; save errors and torn skips
+   0); a third trainer from other weights advanced by ``resume_epoch``
+   to A's state after its third epoch (the completed-epoch snapshot),
+   crashed from its stage_hook at chunk 3 of the fourth, and
+   ``resume_epoch`` into a fresh trainer from other weights under
+   torch.profiler (the prefix exact, the replayed losses within rtol 1e-4
+   of A's fourth epoch, the state after the first replayed chunk within
+   PARAMS_LIMIT of the crashed trainer's after the same chunk, the
+   replayed hop keys exact, the profiler's kernels equal to the
+   counters); a captured RunTrainer over 3 epochs at K = 6 (chunks across
+   both epoch boundaries) from A's state after two epochs, held chunk by
+   chunk to a captured ScanTrainer at K = 2 from the same state (the seed
+   matrix equal to its three prologues, losses within rtol 1e-4, the
+   state after each chunk within PARAMS_LIMIT of the reference's, launches
+   per step equal, step keys once per chunk and exact), then a run of
+   replays timed with 0 host syncs (or the guard's 1); an early-stopped
+   RunTrainer (K = 8, patience 1, min_delta 1.0: two epochs run, the
+   third's losses and accuracies 0, the parameters and Adam state taken
+   at step 32 equal to the final ones, ms per step of the active and the
+   stopped chunks by CUDA events); OverlappedTrainer held step by step to
+   the per-step loop from A's state after two epochs (losses within rtol
+   1e-4, the state after each step within PARAMS_LIMIT), then timed beside
+   an unsynchronised loop epoch and profiled over one more epoch (device
+   busy as the union over both streams, the kernels' summed time, their
+   difference the overlap, the streams seen, the idle share).
 6. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
@@ -119,6 +152,7 @@ plain versions (no result line; exit code 3).
 import argparse
 import concurrent.futures
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -151,6 +185,9 @@ PROBE_ROWS, PROBE_CHUNKS = 1_000_000, 1024   # the JAX gather-v2 probe shape
 LR = 3e-3                            # the products example's Adam rate
 TRAIN_STEPS, TRAIN_CHUNK = 16, 8     # per-step loop / ScanTrainer epoch
 SYNC_STEPS = 4                       # loop steps run under sync counting
+CKPT_CHUNK, CKPT_EVERY = 4, 2        # checkpointed ScanTrainer: K, cadence
+RUN_EPOCHS, RUN_CHUNK = 3, 6         # RunTrainer: chunks cross 16 and 32
+STOP_CHUNK = 8                       # the early-stopped RunTrainer's K
 # captured vs eager ScanTrainer parameters after one epoch from one start:
 # above the sound readings (up to 2.2e-4 on an H100: the backward's
 # scatter atomics sum in no fixed order, and Adam scales a gradient near
@@ -812,6 +849,7 @@ def profiled(torch, fn, reps, device, label):
     sync()
     wall = (time.perf_counter() - t0) * 1e3 / reps
   spans, per_name, counts, launches = [], {}, {}, 0
+  total, streams = 0.0, set()
   for e in prof.events():
     # user annotations (the optimizer's Optimizer.step#Adam.step) also
     # appear on the device timeline; they are ranges, not device work
@@ -821,6 +859,8 @@ def profiled(torch, fn, reps, device, label):
       continue
     launches += 1
     spans.append((e.time_range.start, e.time_range.end))
+    total += e.time_range.end - e.time_range.start
+    streams.add(getattr(e, 'device_resource_id', None))
     per_name[e.name] = per_name.get(e.name, 0.0) + \
         e.time_range.elapsed_us() / 1e3 / reps
     counts[e.name] = counts.get(e.name, 0) + 1
@@ -835,6 +875,7 @@ def profiled(torch, fn, reps, device, label):
       f'device_ops/call={launches / reps:.0f} top=' +
       '; '.join(f'{k[:60]}={v:.3f}' for k, v in top))
   return dict(wall_ms=wall, device_busy_ms=busy_ms,
+              device_sum_ms=total / 1e3 / reps, device_streams=len(streams),
               idle_share=1 - busy_ms / wall if wall else None,
               device_ops_per_call=launches / reps, top_device_ms=dict(top),
               kernels=kernel_counts(counts))
@@ -1218,8 +1259,13 @@ def count_syncs(torch, fn):
   count}): runs ``fn`` under ``torch.cuda.set_sync_debug_mode('warn')``
   and counts its warnings (the mode sees the synchronising calls PyTorch
   makes, not a wait inside a kernel; the mode's own notice that it is a
-  prototype is not a sync)."""
+  prototype is not a sync). The cyclic garbage collector is off in the
+  window: a CUDA graph it freed there (a trainer in a reference cycle)
+  would count the synchronising release of its memory pool."""
+  import gc
   import warnings
+  collecting = gc.isenabled()
+  gc.disable()
   with warnings.catch_warnings(record=True) as caught:
     warnings.simplefilter('always')
     torch.cuda.set_sync_debug_mode('warn')
@@ -1227,6 +1273,8 @@ def count_syncs(torch, fn):
       out = fn()
     finally:
       torch.cuda.set_sync_debug_mode(0)
+      if collecting:
+        gc.enable()
   kinds = {}
   for w in caught:
     msg = str(w.message).splitlines()[0][:120]
@@ -1344,6 +1392,12 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   results = {name: {} for name in trainers}
   for epoch in range(2):
     if epoch:
+      # how far the first epoch left the two apart from one start (the
+      # drift of free-running training, reported)
+      first_epoch_drift = max(
+          float((a - b).detach().abs().max()) for a, b in zip(
+              trainers['scan'][0].model.parameters(),
+              trainers['scan_eager'][0].model.parameters()))
       # the eager trainer takes up the captured one's weights and Adam
       # state, so both epochs compare one step function from one start:
       # the backward's scatter atomics sum in no fixed order, and over
@@ -1420,8 +1474,10 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   params_diff = params_apart(cap.model, eag.model)
   control_diff = params_apart(control[0].model, eag.model)
   log(f'train {mode} ScanTrainer params max abs diff: captured vs eager '
-      f'{params_diff:.3g}; control (eager without its last step) vs eager '
-      f'{control_diff:.3g}; limit {PARAMS_LIMIT}')
+      f'{params_diff:.3g} (after the first epoch from the initial weights, '
+      f'before the eager one takes up the captured state: '
+      f'{first_epoch_drift:.3g}, reported); control (eager without its '
+      f'last step) vs eager {control_diff:.3g}; limit {PARAMS_LIMIT}')
   assert control_diff > PARAMS_LIMIT, \
       f'the control is within the limit: {control_diff}'
   assert params_diff < PARAMS_LIMIT, \
@@ -1441,6 +1497,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
       results['scan'][1]['losses'], results['scan_eager'][1]['losses']))
   rep['scan']['max_abs_param_diff_eager'] = params_diff
   rep['scan']['max_abs_param_diff_control'] = control_diff
+  rep['scan']['max_abs_param_diff_eager_first_epoch'] = first_epoch_drift
   rep['scan']['losses_equal_loop'] = bool(torch.equal(slosses, losses))
   rep['scan']['max_rel_loss_diff_loop'] = float(
       ((slosses - losses).abs() / losses.abs()).max())
@@ -1532,6 +1589,450 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
     rep['profile'] = dict(
         step=profiled(torch, lambda: step_fn(state, batch), 3, device,
                       f'train {mode} step (forward+backward+Adam)'))
+  del trainers, cap, eag
+  t0 = time.perf_counter()
+  rep['program'] = program_phase(torch, gtt, ds, device, mode, caps, pool,
+                                 steps, smi, start)
+  rep['program_s'] = time.perf_counter() - t0
+  log(f'train {mode} epoch-as-a-program phase took {rep["program_s"]:.1f} s')
+  return rep
+
+
+def program_phase(torch, gtt, ds, device, mode, caps, pool, steps, smi,
+                  start):
+  """The rest of the epoch as a program, at the training phase's width.
+  Every trainer starts from ``start`` (the loop's weights) with a fresh
+  Adam, or from a warmed state of the first trainer below. Merge training
+  on the card is chaotic (the backward's scatter atomics sum in no fixed
+  order, and Adam turns a flipped sign of a gradient near 0 into a step of
+  the rate), so comparisons of parameters run from a common warmed state
+  over a few steps: a trainer is set to the reference's state at each of
+  its chunk (or step) boundaries and compared at the next.
+
+  (1) A captured ScanTrainer A (K = 4): two epochs without a checkpointer,
+  two with one (every 2 chunks); a third trainer advanced to A's state
+  after its third epoch (through the completed-epoch snapshot) crashes at
+  chunk 3 of the fourth, and a fresh trainer from other weights resumes.
+  (2) RunTrainer (E = 3, K = 6) against a captured ScanTrainer (K = 2)
+  from A's state after two epochs, held to it chunk by chunk; then timed;
+  then an early-stopped run (K = 8, patience 1, min_delta 1.0).
+  (3) OverlappedTrainer against the per-step loop from the same state,
+  held to it step by step; then timed beside an unsynchronised loop
+  epoch, and profiled. Launch counters are set to 0 before each driven
+  run and read after it."""
+  import copy
+  import os
+  import shutil
+
+  from graphlearn_tpu_torch import metrics, ops
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer, snapshot
+  cuda = device.type == 'cuda'
+  per = 1 if cuda else 0
+  hop = 'sample_level' if mode == 'merge' else 'sample_hop'
+  ck_chunk, run_chunk, stop_chunk = (CKPT_CHUNK, RUN_CHUNK, STOP_CHUNK) \
+      if cuda else (1, 3, steps)
+  allowed = 1 if mode == 'merge' and caps else 0   # the guard's one per run
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                      'chip_smoke_ckpt', mode)
+  shutil.rmtree(root, ignore_errors=True)
+  rep = dict(launch_runs=[])   # every driven run's launch counts
+
+  def fresh_model(weights=start, warm=None):
+    """A loader, a model and a train state: from ``weights`` (None: other
+    weights) or the ``(model, optimizer)`` state dicts ``warm``."""
+    loader = make_loader(gtt, ds, pool, device, mode, caps)
+    model, _ = make_model(torch, gtt, loader, device, 99)
+    model.train()
+    state = train.create_train_state(model, lr=LR)
+    if warm is not None:
+      model.load_state_dict(warm[0])
+      state.optimizer.load_state_dict(copy.deepcopy(warm[1]))
+    elif weights is not None:
+      model.load_state_dict(weights)
+    return loader, model, state
+
+  def fresh(cls, weights=start, warm=None, **kw):
+    loader, model, state = fresh_model(weights, warm)
+    return cls(loader, model, CLASSES, **kw), state
+
+  def driven(fn):
+    """(fn's result, device ms or CPU ms, the launch counts of fn); the
+    counts also go to ``rep['launch_runs']``."""
+    ops.reset_launch_counts()
+    if cuda:
+      torch.cuda.synchronize()
+    a = _event(torch, cuda)
+    out = fn()
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+    counts = ops.launch_counts()
+    rep['launch_runs'].append(counts)
+    return out, _span(a, b, cuda), counts
+
+  def tensors(model, optimizer):
+    """What a train step updates in place: parameters, Adam's tensors."""
+    ps = list(model.parameters())
+    return ps + [v for p in ps for v in optimizer.state[p].values()
+                 if torch.is_tensor(v)]
+
+  def snap_of(model, optimizer):
+    return [t.detach().clone() for t in tensors(model, optimizer)]
+
+  @torch.no_grad()
+  def force(model, optimizer, ref):
+    torch._foreach_copy_(tensors(model, optimizer), ref)
+
+  def apart(a, b):
+    return max(float((x - y).detach().abs().max()) for x, y in zip(a, b))
+
+  def max_rel(a, b):
+    return float(((a - b).abs() / b.abs()).max())
+
+  def hist(name):
+    h = metrics.histogram(name)
+    return dict(count=h.count, **h.percentiles())
+
+  def syncs_of(fn):
+    return count_syncs(torch, fn) if cuda else (fn(), 0, {})
+
+  # ---- 1. checkpoint overhead, crash and resume
+  metrics.reset('checkpoint.')
+  metrics.reset('recovery.')
+  ta, sa = fresh(gtt.loader.ScanTrainer, chunk_size=ck_chunk)
+  over_dir = os.path.join(root, 'overhead')
+  epochs, ck, ref = [], None, {}
+  for epoch in range(4):
+    if epoch == 2:
+      # keep every snapshot: the resume below starts from epoch 2's last
+      ck = ChunkCheckpointer(over_dir, every=CKPT_EVERY, keep=10).attach(ta)
+    if epoch < 3:
+      (sa, lo, _), ms, counts = driven(lambda: ta.run_epoch(sa))
+      syncs = None
+    else:   # timed with its host syncs counted, checkpointer attached
+      ((sa, lo, _), syncs, kinds), ms, counts = driven(
+          lambda: syncs_of(lambda: ta.run_epoch(sa)))
+    epochs.append(dict(ms_per_step=ms / steps, launches=counts,
+                       checkpointer=ck is not None, host_syncs=syncs))
+    ref[epoch] = dict(losses=lo, state=snap_of(ta.model, sa.optimizer))
+    if epoch == 1:
+      ref['warm'] = (copy.deepcopy(ta.model.state_dict()),
+                     copy.deepcopy(sa.optimizer.state_dict()))
+  ck.flush()
+  counters = metrics.default_registry().counters()
+  saves = counters.get('checkpoint.saves', 0)
+  assert counters.get('checkpoint.save_errors', 0) == 0, counters
+  assert counters.get('checkpoint.torn_skipped', 0) == 0, counters
+  assert saves == 2 * 2 and not ck.degraded, counters  # 2 boundaries/epoch
+  assert syncs <= allowed, kinds
+  last = ck.latest()
+  assert last.epoch == 3 and last.next_start == steps, last.meta
+  assert all(np.array_equal(last.arrays[f'param:{n}'],
+                            p.detach().cpu().numpy())
+             for n, p in ta.model.named_parameters()), 'final snapshot'
+  ck.close()
+  ck.detach()
+  overhead = 100.0 * (epochs[3]['ms_per_step'] / epochs[1]['ms_per_step']
+                      - 1)
+  rep['checkpoint'] = dict(
+      chunk_size=ck_chunk, every=CKPT_EVERY, epochs=epochs,
+      recovery_overhead_pct=overhead,
+      recovery_overhead_pct_first_epoch=100.0 * (
+          epochs[2]['ms_per_step'] / epochs[1]['ms_per_step'] - 1),
+      snapshot_bytes=counters.get('checkpoint.bytes', 0) / saves,
+      save_ms=hist('checkpoint.save_ms'),
+      capture_ms=hist('checkpoint.capture_ms'),
+      sync_fallback=counters.get('checkpoint.sync_fallback', 0),
+      host_syncs_per_step=syncs / steps, sync_kinds=kinds)
+  r = rep['checkpoint']
+  log(f'train {mode} checkpoint: ScanTrainer K={ck_chunk} ms/step without '
+      f'{epochs[0]["ms_per_step"]:.3f} (warm-up, capture) / '
+      f'{epochs[1]["ms_per_step"]:.3f}, with ChunkCheckpointer(every='
+      f'{CKPT_EVERY}) {epochs[2]["ms_per_step"]:.3f} / '
+      f'{epochs[3]["ms_per_step"]:.3f}: recovery_overhead_pct '
+      f'{overhead:.2f} (first epoch with it '
+      f'{r["recovery_overhead_pct_first_epoch"]:.2f}; the JAX package\'s '
+      f'target < 5); snapshot {r["snapshot_bytes"]:.0f} B, save ms p50 '
+      f'{r["save_ms"]["p50"]:.3f} p99 {r["save_ms"]["p99"]:.3f}, capture '
+      f'ms p50 {r["capture_ms"]["p50"]:.3f} p99 {r["capture_ms"]["p99"]:.3f}'
+      f', sync fallbacks {r["sync_fallback"]}; host syncs with it '
+      f'{syncs}/{steps} steps {kinds} on {smi}')
+
+  # the third trainer: advanced to A's state after its third epoch (A's
+  # completed-epoch snapshot), it runs A's fourth epoch and crashes
+  victim, sv = fresh(gtt.loader.ScanTrainer, weights=None,
+                     chunk_size=ck_chunk)
+  sv, _, _ = ChunkCheckpointer(over_dir).resume_epoch(
+      victim, sv, snapshot=snapshot.load_snapshot(
+          snapshot.snapshot_path(over_dir, 2, steps)))
+  assert victim._epochs == 3 and apart(
+      snap_of(victim.model, sv.optimizer), ref[2]['state']) == 0
+  crash_dir = os.path.join(root, 'crash')
+  ck = ChunkCheckpointer(crash_dir, every=CKPT_EVERY).attach(victim)
+  cut = 2 * ck_chunk
+
+  def killer(c, s0, k):
+    if c == 3:
+      raise RuntimeError('injected crash at chunk 3')
+
+  victim.stage_hook = killer
+  try:
+    victim.run_epoch(sv)
+    raise AssertionError('the injected crash did not fire')
+  except RuntimeError as exc:
+    assert 'injected crash' in str(exc), exc
+  ck.close()
+  ck.detach()
+  snap = ck.latest()
+  assert (snap.epoch, snap.next_start) == (3, cut), snap.meta
+  # the victim's chunk 2 ran from the snapshot's state: the reference for
+  # the resumed trainer's first chunk
+  at_crash = snap_of(victim.model, sv.optimizer)
+  del victim, sv
+  resumed, template = fresh(gtt.loader.ScanTrainer, weights=None,
+                            chunk_size=ck_chunk)
+  params = list(resumed.model.parameters())
+  assert apart(params, ref[3]['state'][:len(params)]) > PARAMS_LIMIT
+  grab = {}
+
+  def ack(c, s0, k):
+    if s0 + k == cut + ck_chunk:
+      grab['state'] = snap_of(resumed.model, resumed._chunk_carry[
+          'state'].optimizer)
+
+  resumed.ack_hook = ack
+  out = {}
+  ops.reset_launch_counts()
+  prof = profiled(torch, lambda: out.update(zip(
+      ('state', 'losses', 'accs'), ChunkCheckpointer(crash_dir).resume_epoch(
+          resumed, template))), 1, device,
+      f'train {mode} resume_epoch (warm-up, capture, replay)')
+  launched = ops.launch_counts()
+  rep['launch_runs'].append(launched)
+  counted = {k: v for k, v in launched.items() if k in PORT_KERNELS}
+  losses = torch.as_tensor(out['losses'])
+  want = ref[3]['losses'].cpu()
+  assert np.array_equal(out['losses'][:cut], snap.arrays['losses']), \
+      'resumed prefix != the snapshot\'s'
+  rel = max_rel(losses[cut:], want[cut:])
+  torch.testing.assert_close(losses[cut:], want[cut:], rtol=1e-4, atol=0)
+  diff = apart(grab['state'], at_crash)
+  assert diff < PARAMS_LIMIT, f'resumed params apart by {diff}'
+  end_diff = apart(snap_of(resumed.model, out['state'].optimizer),
+                   ref[3]['state'])
+  assert out['state'].step == 4 * steps
+  if cuda:
+    keys = gtt.random.step_keys_plain(
+        resumed._sampler._key, 3 * steps + 1 + torch.arange(
+            steps, dtype=torch.int64), len(FANOUTS))
+    last_chunk = steps - ck_chunk
+    assert torch.equal(resumed._graphs[ck_chunk].keys.cpu(),
+                       keys[last_chunk:]), 'replayed hop keys'
+  assert prof['kernels'] == counted, (prof['kernels'], counted)
+  assert counted[hop] == per * level_launch_count(mode, steps - cut) and \
+      counted['gather_rows'] == per * (steps - cut), counted
+  rep['resume'] = dict(next_start=cut, replayed_steps=steps - cut,
+                       max_rel_loss_diff=rel, max_abs_param_diff=diff,
+                       max_abs_param_diff_epoch_end=end_diff,
+                       launches=launched, profile=prof,
+                       capture_ms=resumed.capture_ms)
+  log(f'train {mode} crash at chunk 3 of epoch 4 (a trainer advanced to '
+      f'the epoch-3 snapshot) and resume_epoch in a fresh trainer from '
+      f'other weights: snapshot next_start {cut}, prefix exact, replayed '
+      f'losses max rel diff {rel:.3g} to the uninterrupted epoch (rtol '
+      f'1e-4); parameters and Adam state after the first replayed chunk '
+      f'{diff:.3g} from the crashed trainer\'s after the same chunk (limit '
+      f'{PARAMS_LIMIT}), at the epoch\'s end {end_diff:.3g} from the '
+      f'uninterrupted epoch\'s; hop keys exact; profiler kernels '
+      f'{prof["kernels"]} == counters')
+  del resumed, template
+
+  # ---- 2. RunTrainer against a ScanTrainer from A's state after two
+  # epochs, chunk by chunk
+  total = RUN_EPOCHS * steps
+  chunks = -(-total // run_chunk)
+  bounds = set(range(run_chunk, total + 1, run_chunk)) | {total}
+  # the reference's chunks end at every RunTrainer boundary and epoch end
+  sc, ss = fresh(gtt.loader.ScanTrainer, warm=ref['warm'],
+                 chunk_size=math.gcd(run_chunk, steps))
+  states, at = {0: snap_of(sc.model, ss.optimizer)}, {'base': 0}
+
+  def keep(c, s0, k):
+    g = at['base'] + s0 + k
+    if g in bounds:
+      states[g] = snap_of(sc.model, sc._chunk_carry['state'].optimizer)
+
+  sc.ack_hook = keep
+  slosses, scounts = [], []
+  for e in range(RUN_EPOCHS):
+    at['base'] = e * steps
+    (ss, lo, _), _, counts = driven(lambda: sc.run_epoch(ss))
+    slosses.append(lo)
+    scounts.append(counts)
+  slosses = torch.cat(slosses)
+  mats = [sc._epoch_seeds(gtt.random.fold_in(sc._perm_key, e), steps)
+          for e in range(RUN_EPOCHS)]
+  tr, st = fresh(gtt.loader.RunTrainer, warm=ref['warm'],
+                 chunk_size=run_chunk, epochs=RUN_EPOCHS)
+  tr._seeds_dev = sc._seeds_dev
+  mat, mask = tr._prologue(total)
+  assert torch.equal(mat, torch.cat([m for m, _ in mats])) and \
+      torch.equal(mask, torch.cat([k for _, k in mats])), \
+      'RunTrainer seed matrix != three ScanTrainer prologues'
+  diffs = []
+
+  def set_state(c, s0, k):
+    if s0:
+      force(tr.model, tr._chunk_carry['state'].optimizer, states[s0])
+
+  def check_state(c, s0, k):
+    diffs.append(apart(snap_of(tr.model, tr._chunk_carry['state']
+                               .optimizer), states[s0 + k]))
+
+  tr.stage_hook, tr.ack_hook = set_state, check_state
+  (st, rlosses, _), ms1, counts = driven(lambda: tr.run(st))
+  rel = max_rel(rlosses, slosses)
+  log(f'train {mode} RunTrainer vs a ScanTrainer from one state, chunk by '
+      f'chunk: losses max rel diff {rel:.3g}, parameters and Adam state '
+      f'after each chunk max abs diff {max(diffs):.3g}')
+  torch.testing.assert_close(rlosses, slosses, rtol=1e-4, atol=0)
+  assert max(diffs) < PARAMS_LIMIT, f'RunTrainer state apart by {diffs}'
+  assert len(diffs) == chunks
+  for k in ('gather_rows', hop):
+    assert counts[k] == sum(c[k] for c in scounts), (counts, scounts)
+  assert counts['step_keys'] == per * chunks, counts
+  if cuda:
+    keys = gtt.random.step_keys_plain(
+        tr._sampler._key, 1 + torch.arange(total, dtype=torch.int64),
+        len(FANOUTS))
+    assert torch.equal(tr._graphs[run_chunk].keys.cpu(),
+                       keys[total - run_chunk:]), 'RunTrainer hop keys'
+  report = {k: v.tolist() for k, v in tr.last_run_report.items()}
+  assert report['epochs_run'] == RUN_EPOCHS and not report['stopped']
+  # a run of replays only, timed with its host syncs
+  tr.stage_hook = tr.ack_hook = None
+  ((st, _, _), syncs, kinds), ms2, counts2 = driven(
+      lambda: syncs_of(lambda: tr.run(st)))
+  assert syncs <= allowed, kinds
+  scan_ms = epochs[1]['ms_per_step']
+  rep['run'] = dict(
+      epochs=RUN_EPOCHS, chunk_size=run_chunk, chunks=chunks,
+      first_run_ms_per_step=ms1 / total, ms_per_step=ms2 / total,
+      scan_ms_per_step=scan_ms, max_rel_loss_diff_scan=rel,
+      max_abs_state_diff_scan=max(diffs), launches=counts,
+      launches_second=counts2,
+      host_syncs_per_step=syncs / total,
+      sync_kinds=kinds, report=report, capture_ms=tr.capture_ms)
+  log(f'train {mode} RunTrainer E={RUN_EPOCHS} K={run_chunk} ({chunks} '
+      f'chunks): {ms2 / total:.3f} ms/step (the held run '
+      f'{ms1 / total:.3f}, with the warm-up, the capture and the held '
+      f'state) vs ScanTrainer K={ck_chunk} {scan_ms:.3f}; host syncs '
+      f'{syncs}/{total} steps {kinds}; report {report}; launches {counts} '
+      f'on {smi}')
+  del tr, st, sc, ss, states
+
+  es, se = fresh(gtt.loader.RunTrainer, chunk_size=stop_chunk,
+                 epochs=RUN_EPOCHS, patience=1, min_delta=1.0)
+  grab, marks = {}, {}
+
+  def mark(name):
+    marks[name] = _event(torch, cuda)
+
+  def stage(c, s0, k):
+    if s0 in (steps, 2 * steps):
+      mark(f'begin{s0}')
+
+  def ack2(c, s0, k):
+    if s0 + k in (2 * steps, total):
+      mark(f'end{s0 + k}')
+    if s0 + k == 2 * steps:
+      grab['t'] = [t.clone() for t in es._updated_tensors(
+          es._chunk_carry['state'])]
+
+  es.stage_hook, es.ack_hook = stage, ack2
+  (se, elosses, eaccs), ms, counts = driven(lambda: es.run(se))
+  report = {k: v.tolist() for k, v in es.last_run_report.items()}
+  assert report['epochs_run'] == 2 and report['stopped'], report
+  assert bool((elosses[2 * steps:] == 0).all()) and \
+      bool((eaccs[2 * steps:] == 0).all()) and \
+      bool((elosses[:2 * steps] != 0).all()), elosses
+  now = es._updated_tensors(se)
+  assert len(now) == len(grab['t']) and all(
+      torch.equal(a, b) for a, b in zip(now, grab['t'])), \
+      'a stopped step changed the parameters or Adam\'s state'
+  active_ms = _span(marks[f'begin{steps}'], marks[f'end{2 * steps}'], cuda)
+  stopped_ms = _span(marks[f'begin{2 * steps}'], marks[f'end{total}'], cuda)
+  rep['early_stop'] = dict(
+      chunk_size=stop_chunk, report=report, launches=counts,
+      active_ms_per_step=active_ms / steps,
+      stopped_ms_per_step=stopped_ms / steps, ms_per_step=ms / total)
+  log(f'train {mode} RunTrainer early stop (patience 1, min_delta 1.0, '
+      f'K={stop_chunk}): {report}; steps {2 * steps}-{total - 1} zero, '
+      f'parameters and Adam state at step {2 * steps} equal to the final '
+      f'ones bit for bit; ms per step between CUDA events on the trainer\'s '
+      f'stream: epoch 2 (active) {active_ms / steps:.3f}, epoch 3 (stopped,'
+      f' masked) {stopped_ms / steps:.3f} on {smi}')
+  del es, se, grab
+
+  # ---- 3. OverlappedTrainer against the per-step loop, step by step
+  loop_loader, loop_model, loop_st = fresh_model(warm=ref['warm'])
+  step_fn, _ = train.make_train_step(loop_model, CLASSES)
+  loop_states = [snap_of(loop_model, loop_st.optimizer)]
+  loop_losses = []
+  for batch in loop_loader:
+    loop_st, loss, _ = step_fn(loop_st, train.batch_to_dict(batch))
+    loop_losses.append(loss)
+    loop_states.append(snap_of(loop_model, loop_st.optimizer))
+  ov, so = fresh(gtt.loader.OverlappedTrainer, warm=ref['warm'])
+  inner, diffs = ov._train_step, []
+
+  def held_step(state, batch):
+    force(ov.model, state.optimizer, loop_states[len(diffs)])
+    out = inner(state, batch)
+    diffs.append(apart(snap_of(ov.model, state.optimizer),
+                       loop_states[len(diffs) + 1]))
+    return out
+
+  ov._train_step = held_step
+  (so, olosses), _, counts = driven(lambda: ov.run_epoch(so))
+  ov._train_step = inner
+  olosses, loop_losses = torch.stack(olosses), torch.stack(loop_losses)
+  rel = max_rel(olosses, loop_losses)
+  log(f'train {mode} OverlappedTrainer vs the loop from one state, step by '
+      f'step: losses max rel diff {rel:.3g}, parameters and Adam state '
+      f'after each step max abs diff {max(diffs):.3g}')
+  torch.testing.assert_close(olosses, loop_losses, rtol=1e-4, atol=0)
+  assert max(diffs) < PARAMS_LIMIT and len(diffs) == steps, diffs
+  assert counts['gather_rows'] == per * steps and \
+      counts[hop] == per * level_launch_count(mode, steps), counts
+  (so, _), ms2, _ = driven(lambda: ov.run_epoch(so))
+
+  def loop_epoch():
+    st = loop_st
+    for batch in loop_loader:
+      st, _, _ = step_fn(st, train.batch_to_dict(batch))
+    return st
+
+  _, loop_ms, _ = driven(loop_epoch)
+  prof = profiled(torch, lambda: ov.run_epoch(so), 1, device,
+                  f'train {mode} OverlappedTrainer epoch')
+  overlap = prof['device_sum_ms'] - prof['device_busy_ms']
+  assert prof['device_streams'] >= 2 * per, prof   # the side stream ran
+  rep['overlapped'] = dict(
+      launches=counts, ms_per_step=ms2 / steps,
+      loop_ms_per_step=loop_ms / steps,
+      max_rel_loss_diff_loop=rel, max_abs_state_diff_loop=max(diffs),
+      profile=prof, overlap_ms=overlap)
+  log(f'train {mode} OverlappedTrainer: {ms2 / steps:.3f} ms/step vs the '
+      f'per-step loop {loop_ms / steps:.3f} (one sync per epoch each, same '
+      f'call); profiled '
+      f'epoch: device busy (union over streams) '
+      f'{prof["device_busy_ms"]:.3f} ms, sum of kernel intervals '
+      f'{prof["device_sum_ms"]:.3f} ms, overlap {overlap:.3f} ms, over '
+      f'{prof["device_streams"]} streams, wall {prof["wall_ms"]:.3f} ms, '
+      f'idle share {prof["idle_share"]:.3f} on {smi}')
+  shutil.rmtree(root, ignore_errors=True)
   return rep
 
 
@@ -1690,6 +2191,7 @@ def main(argv=None):
   ap.add_argument('--profile', action='store_true',
                   help='also trace each phase with torch.profiler')
   args = ap.parse_args(argv)
+  t_start = time.perf_counter()
   import torch
   if not args.rehearse and not torch.cuda.is_available():
     print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -1712,6 +2214,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
   log(f'card: {smi}')
   report['card'] = smi
+  report['phase_s'] = {}
+
+  def phase_done(name):
+    report['phase_s'][name] = time.perf_counter() - t_start
+    log(f'phase {name} done at {report["phase_s"][name]:.1f} s')
+
   t0 = time.perf_counter()
   with concurrent.futures.ThreadPoolExecutor(1) as pool:
     build = (pool.submit(kernels.build_all) if not args.rehearse else None)
@@ -1741,6 +2249,7 @@ def main(argv=None):
   ds = dataset(device)
   cpu_ds = dataset(torch.device('cpu'))
   gen = torch.Generator().manual_seed(0)
+  phase_done('setup')
   report['kernels'] = kernel_phase(torch, gtt, ds, device, gen, reps)
   pool = np.random.default_rng(1).permutation(n_nodes)[:BATCH * BATCHES]
   t0 = time.perf_counter()
@@ -1753,6 +2262,7 @@ def main(argv=None):
       f'{gtt.sampler.tree_layout(BATCH, FANOUTS)[0][-1]}')
   report['kernels']['sample_level'] = level_phase(torch, gtt, merge_loader,
                                                   device, gen, reps)
+  phase_done('kernels')
   for mode, loader in (('tree', make_loader(gtt, ds, pool, device, 'tree')),
                        ('merge', merge_loader)):
     per_batch, counts, acc, cross, prof = slice_phase(
@@ -1773,6 +2283,7 @@ def main(argv=None):
     report['profile'] = {
         mode: profile_phases(torch, gtt, ds, device, mode, caps)
         for mode in ('tree', 'merge')}
+  phase_done('slices')
   report['serving'], table = serving_phase(torch, gtt, ds, device, topo, smi,
                                            args.profile)
   runs, report['gather_runs_profiles'] = gather_runs_phase(
@@ -1780,6 +2291,7 @@ def main(argv=None):
       PROBE_ROWS if device.type == 'cuda' else n_nodes, args.profile)
   report['kernels']['gather_runs'] = runs
   del table
+  phase_done('serving')
   cuda = device.type == 'cuda'
   steps = TRAIN_STEPS if cuda else 4
   train_pool = np.random.default_rng(4).permutation(n_nodes)[:BATCH * steps]
@@ -1787,7 +2299,9 @@ def main(argv=None):
     report[f'train_{mode}'] = train_phase(
         torch, gtt, ds, device, mode, caps, train_pool, steps,
         TRAIN_CHUNK if cuda else 2, smi, args.profile)
+    phase_done(f'train_{mode}')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
+  phase_done('probes')
   ktab = report['kernels']
   widest = ktab['sample_level']['levels'][-1]
   serve_cap = ktab['gather_runs'][len(SERVE_BUCKETS) - 1]
@@ -1797,6 +2311,8 @@ def main(argv=None):
       'tree', 'merge', 'serving', 'train_tree', 'train_merge', 'probes')]
   paths += [report[p][t]['launches'] for p in ('train_tree', 'train_merge')
             for t in ('scan', 'scan_eager')]
+  for p in ('train_tree', 'train_merge'):
+    paths += report[p]['program']['launch_runs']
   launches = {k: sum(c[k] for c in paths) for k in paths[0]}
   launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
                                   launches['row_gather_probe_vector'])
@@ -1861,6 +2377,8 @@ def main(argv=None):
   if args.rehearse:
     log('rehearsal finished: no result line')
     return 3
+  log(f'script wall {time.perf_counter() - t_start:.1f} s, the build '
+      'included')
   log(smi)
   log(json.dumps(line))
   log(json.dumps({'ok': True, 'device': {

@@ -1,18 +1,27 @@
-"""Shared plumbing of the fused epoch trainers.
+"""The fused epoch trainers' plumbing, and ``OverlappedTrainer``.
 
-Counterpart of ``graphlearn_tpu/loader/pipeline.py:FusedEpochTrainer``:
-the scope checks, the device feature and label tables, and the
-sample+collate body an epoch trainer (``loader.ScanTrainer``) runs for
-every step. The JAX package traces that body into its programs. Here it
-runs on the loader's device with no host step in it: it takes the step's
-hop keys as a device tensor, reads nothing back and allocates only by
-static shapes, so ``ScanTrainer`` can capture it into a CUDA graph (or
-run it eagerly). ``OverlappedTrainer`` (batch n's train step fused with
-batch n+1's sampling) is not ported.
+Counterpart of ``graphlearn_tpu/loader/pipeline.py``.
+``FusedEpochTrainer`` holds the scope checks, the device feature and
+label tables, and the sample+collate body an epoch trainer
+(``loader.ScanTrainer``, ``loader.RunTrainer``, ``OverlappedTrainer``)
+runs for every step. The JAX package traces that body into its programs.
+Here it runs on the loader's device with no host step in it: it takes
+the step's hop keys as a device tensor, reads nothing back and allocates
+only by static shapes, so ``ScanTrainer`` can capture it into a CUDA
+graph (or run it eagerly).
+
+``OverlappedTrainer`` trains batch n while batch n+1 is sampled and
+collated. JAX puts both in one program and leaves the overlap to XLA;
+here the sampling runs on a second CUDA stream. Not ported: its flight
+records.
 """
 from typing import Optional
 
+import numpy as np
+import torch
+
 from .. import ops
+from .. import random as trandom
 from ..models import train as train_lib
 from .node_loader import NodeLoader
 
@@ -81,3 +90,112 @@ class FusedEpochTrainer:
       return batch, res['overflow']
 
     return _sample_collate
+
+
+class OverlappedTrainer(FusedEpochTrainer):
+  """Trains batch n on the caller's stream while batch n+1 is sampled and
+  collated on a second stream (on a card; the CPU runs them in turn, with
+  the same results).
+
+  Per epoch: the prime batch, then for every further seed batch its
+  sample and collate, then the train step of the batch before it; at the
+  epoch's natural end the last batch trains with a plain step. Each batch
+  takes ``sampler._next_key()``, in the per-step loop's order, so the
+  losses are the loop's. A batch's overflow flag joins the epoch's only
+  when the batch trains: ``max_steps`` drops the pending batch (exactly
+  ``max_steps`` updates) and its flag with it. The flag is checked at
+  the epoch's natural end; ``overflow_policy='recompute'`` is refused.
+
+  On a card, the side stream waits for the caller's stream at the epoch's
+  start and the caller's for it at the end; each batch's tensors are
+  handed over by an event and ``record_stream``. The sampler's scratch is
+  used by sampling alone, all on the side stream, and collate allocates
+  fresh outputs, so batch n+1 writes nothing batch n's step reads. Seeds,
+  masks and hop keys go up from pinned memory without blocking the host.
+  """
+
+  _NAME = 'OverlappedTrainer'
+
+  def __init__(self, loader: NodeLoader, model, num_classes: int,
+               seed_labels_only: Optional[bool] = None):
+    super().__init__(loader, model, num_classes, seed_labels_only)
+    self._n_hops = len(self._sampler.num_neighbors)
+    self._side = None   # the sampling stream, on a card
+
+  def _seed_batches(self):
+    for idx in self.loader._batcher:
+      seeds = self.loader.input_seeds[idx]
+      n = seeds.shape[0]
+      padded = np.zeros((self._batch_size,), np.int32)
+      padded[:n] = seeds
+      yield padded, np.arange(self._batch_size) < n
+
+  def _prefetch(self, padded, mask):
+    """``(batch, overflow flag, ready event)`` of one seed batch under the
+    sampler's next key, sampled and collated on the side stream (the
+    event is None on the CPU)."""
+    device = self.loader.device
+    keys = trandom.split(self._sampler._next_key(), self._n_hops)
+    seeds, smask = torch.from_numpy(padded), torch.from_numpy(mask)
+    if device.type != 'cuda':
+      return (*self._sample_collate(seeds, smask, keys), None)
+    with torch.cuda.stream(self._side):
+      seeds = seeds.pin_memory().to(device, non_blocking=True)
+      smask = smask.pin_memory().to(device, non_blocking=True)
+      batch, pending = self._sample_collate(
+          seeds, smask, trandom.to_device(keys, device))
+      ready = torch.cuda.Event()
+      ready.record(self._side)
+    return batch, pending, ready
+
+  def _train(self, state, batch, pending, ready):
+    """The train step of a prefetched batch, on the caller's stream."""
+    if ready is not None:
+      main = torch.cuda.current_stream(self.loader.device)
+      main.wait_event(ready)
+      for t in (*batch.values(), pending):
+        if torch.is_tensor(t):
+          t.record_stream(main)
+    state, loss, _ = self._train_step(state, batch)
+    return state, loss
+
+  def run_epoch(self, state, max_steps: Optional[int] = None):
+    """One epoch of overlapped steps. Returns ``(state, losses)``,
+    ``losses`` a list of 0-d device tensors (one per step): read them
+    after the epoch."""
+    guarded, recompute = self.loader._overflow_epoch_start()
+    if recompute:
+      raise ValueError(_RECOMPUTE_MSG)
+    device = self.loader.device
+    main = None
+    if device.type == 'cuda':
+      main = torch.cuda.current_stream(device)
+      if self._side is None:
+        self._side = torch.cuda.Stream(device)
+      self._side.wait_stream(main)
+    losses, truncated = [], False
+    ovf = torch.zeros((), dtype=torch.bool, device=device)  # trained ones'
+    batch = pending = ready = None
+    try:
+      for padded, mask in self._seed_batches():
+        nxt = self._prefetch(padded, mask)
+        if batch is not None:
+          state, loss = self._train(state, batch, pending, ready)
+          ovf = ovf | pending
+          losses.append(loss)
+        batch, pending, ready = nxt
+        if max_steps is not None and losses and len(losses) >= max_steps:
+          truncated = True   # the pending batch is dropped, flag and all
+          break
+      if batch is not None and not truncated:
+        state, loss = self._train(state, batch, pending, ready)
+        ovf = ovf | pending
+        losses.append(loss)
+    finally:
+      if main is not None:
+        main.wait_stream(self._side)
+    if guarded:
+      self.loader._ovf_accum = ovf
+      if not truncated:
+        self.loader._finish_epoch_overflow()
+    return state, losses

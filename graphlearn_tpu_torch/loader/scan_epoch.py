@@ -49,9 +49,23 @@ device.) A replay adds the launches its graph recorded to
 to eager, so a model whose forward cannot be captured (one that reads a
 value back, say) trains on a card with ``capture=False``, which runs
 every chunk eagerly, step by step (the CPU always does). No step reads
-anything back. Not ported: spans and flight
-records, the program observatory, the tuned ``config=``, the stage/ack
-hooks and ``start_step`` resume, and ``DistScanTrainer``.
+anything back.
+
+Chunk boundaries carry JAX's hooks: ``stage_hook(c, start, k)`` runs on
+the host before chunk ``c`` is enqueued and ``ack_hook(c, start, k)``
+right after, with ``self._chunk_carry`` (the state, the overflow flag,
+the losses and accuracies so far) valid inside the call. The tensors in
+it are live: the next chunk updates the parameters and Adam's tensors
+in place, so a hook that keeps them copies them, on the current stream
+(the trainer's), before it returns (``recovery.ChunkCheckpointer``
+does). A hook runs between chunks, never inside a capture.
+``run_epoch(start_step=, resume_overflow=)`` resumes an epoch at a chunk
+boundary, and ``_recovery_config`` / ``_recovery_capture`` /
+``_recovery_load`` / ``_recovery_advance`` are the protocol the
+checkpointer drives (JAX's, without the padded-window branches: the
+port has no padded window yet). Not ported: spans and flight records,
+the program observatory, the tuned ``config=``, the fault sites and
+``DistScanTrainer``.
 
 Usage::
 
@@ -62,6 +76,7 @@ Usage::
     state, losses, accs = trainer.run_epoch(state)   # on the device
 """
 import contextlib
+import hashlib
 import time
 from typing import NamedTuple, Optional
 
@@ -72,6 +87,10 @@ from .. import ops
 from .. import random as trandom
 from .node_loader import NodeLoader
 from .pipeline import _RECOMPUTE_MSG, FusedEpochTrainer
+
+# chunk arguments that hold one row per step: their static buffers have
+# ``chunk_size`` rows and a chunk of k steps fills the first k
+_ROWS = ('seeds', 'masks')
 
 
 class _ChunkGraph(NamedTuple):
@@ -109,6 +128,28 @@ def _replay_signature(model, optimizer) -> tuple:
           groups)
 
 
+def _recovery_config_for(trainer) -> dict:
+  """The snapshot-fingerprint config (``recovery/checkpoint.py``): the
+  flight grouping config plus every knob that decides the replayed
+  draws (sampler strategy, dedup, padded window, weighting, caps) and a
+  digest of the seed pool. A copy of
+  ``graphlearn_tpu/loader/scan_epoch.py:_recovery_config_for``: for the
+  same loader configuration both packages fingerprint alike."""
+  s = trainer._sampler
+  cfg = trainer._flight_config()
+  cfg.update(
+      strategy=getattr(s, 'strategy', None),
+      dedup=getattr(s, 'dedup', None),
+      padded_window=getattr(s, 'padded_window', None),
+      weighted=str(getattr(s, 'with_weight', None)),
+      frontier_caps=str(getattr(s, 'frontier_caps', None)),
+      seeds_sha=hashlib.sha1(
+          np.ascontiguousarray(
+              np.asarray(trainer.loader.input_seeds,
+                         np.int64)).tobytes()).hexdigest()[:16])
+  return cfg
+
+
 class ScanTrainer(FusedEpochTrainer):
   """Runs an epoch as ``ceil(steps / chunk_size)`` chunks of steps.
 
@@ -126,6 +167,17 @@ class ScanTrainer(FusedEpochTrainer):
   """
 
   _NAME = 'ScanTrainer'
+
+  # chunk-boundary hooks (``recovery.ChunkCheckpointer`` attaches to
+  # ack_hook): ``stage_hook(c, start, k)`` runs on the host before chunk
+  # c is enqueued, ``ack_hook(c, start, k)`` right after it, with
+  # ``self._chunk_carry`` valid inside the call. Both run on the
+  # trainer's stream between chunks: a hook may enqueue copies there,
+  # and must not synchronise if the epoch is to stay free of host syncs.
+  stage_hook = None
+  ack_hook = None
+  # what one run_epoch call covers, in epochs (RunTrainer: E)
+  _epochs_per_run = 1
 
   def __init__(self, loader: NodeLoader, model, num_classes: int,
                chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
@@ -157,6 +209,7 @@ class ScanTrainer(FusedEpochTrainer):
     self._static = None    # the graphs' input buffers, after the warm-up
     self._signature = None  # _replay_signature of the graphs' state
     self._stream = None    # the capture stream (also the warm-up's)
+    self._steps_dispatched = 0
 
   def _epoch_seeds(self, key, steps: int):
     """The prologue: ``([steps, B] seed matrix, [steps, B] mask)``."""
@@ -174,16 +227,32 @@ class ScanTrainer(FusedEpochTrainer):
     seed_mat = torch.where(mask, seeds[order.long()], 0)
     return seed_mat.reshape(steps, batch), mask.reshape(steps, batch)
 
+  def _prologue(self, full_steps: int):
+    """The seed matrix and mask the epoch's steps take their rows from."""
+    return self._epoch_seeds(trandom.fold_in(self._perm_key, self._epochs),
+                             full_steps)
+
   def _epoch_steps(self) -> int:
     # the batcher's arithmetic: the same step count as the per-step loop
     return len(self.loader._batcher)
 
-  def run_epoch(self, state, max_steps: Optional[int] = None):
+  def run_epoch(self, state, max_steps: Optional[int] = None,
+                start_step: int = 0, resume_overflow: bool = False):
     """One epoch. Returns ``(state, losses, accs)``, losses and accs as
-    ``[steps]`` device tensors: read them once, after the epoch. The
-    model's parameters are updated in place. ``max_steps`` truncates the
-    epoch to that many steps (the seed matrix is still drawn for the
-    whole epoch)."""
+    device tensors: read them once, after the epoch. The model's
+    parameters are updated in place. ``max_steps`` truncates the epoch
+    to that many steps (the seed matrix is still drawn for the whole
+    epoch).
+
+    ``start_step`` (a multiple of ``chunk_size``) resumes this epoch at
+    that chunk boundary: the seed matrix is drawn for the whole epoch
+    and the chunk at ``start`` takes the count ``count0 + start``, so
+    with the sampler's counter, the epoch index and the train state
+    restored the remaining chunks replay the interrupted epoch's
+    (``recovery.ChunkCheckpointer.resume_epoch`` restores all three).
+    ``resume_overflow`` starts the overflow flag at the one the
+    interrupted prefix had. Losses and accs then cover
+    ``[start_step, steps)``."""
     guarded, recompute = self.loader._overflow_epoch_start()
     if recompute:
       raise ValueError(_RECOMPUTE_MSG)
@@ -192,11 +261,23 @@ class ScanTrainer(FusedEpochTrainer):
     truncated = max_steps is not None and max_steps < steps
     if truncated:
       steps = max_steps
+    if start_step:
+      if start_step % self.chunk_size != 0:
+        raise ValueError(f'start_step={start_step} is not a chunk boundary '
+                         f'(chunk_size={self.chunk_size}): resume only at '
+                         'the boundaries checkpoints are taken at')
+      if not 0 <= start_step < steps:
+        raise ValueError(f'start_step={start_step} outside this epoch\'s '
+                         f'{steps} steps')
     if steps <= 0:
       empty = torch.zeros(0, dtype=torch.float32, device=self.loader.device)
       return state, empty, empty
-    state, losses, accs, ovf = self._run_epoch_body(state, steps,
-                                                    full_steps)
+    # the resume point, until a chunk is enqueued: a body that fails
+    # reads as the boundary it reached
+    self._steps_dispatched = start_step
+    state, losses, accs, ovf = self._run_epoch_body(
+        state, steps, full_steps, start_step=start_step,
+        resume_overflow=resume_overflow)
     if guarded:
       self.loader._ovf_accum = ovf
       if not truncated:
@@ -208,13 +289,13 @@ class ScanTrainer(FusedEpochTrainer):
     """Host ms each captured chunk length took to capture."""
     return {k: g.capture_ms for k, g in self._graphs.items()}
 
-  def _run_epoch_body(self, state, steps: int, full_steps: int):
+  def _run_epoch_body(self, state, steps: int, full_steps: int,
+                      start_step: int = 0, resume_overflow: bool = False):
     device = self.loader.device
     if self._seeds_dev is None:
       self._seeds_dev = torch.as_tensor(
           np.asarray(self.loader.input_seeds, dtype=np.int32)).to(device)
-    perm_key = trandom.fold_in(self._perm_key, self._epochs)
-    seed_mat, mask_mat = self._epoch_seeds(perm_key, full_steps)
+    seed_mat, mask_mat = self._prologue(full_steps)
     base_key = trandom.to_device(self._sampler._key, device)
     count0 = self._sampler._call_count + 1
     if self._static is not None and \
@@ -223,30 +304,59 @@ class ScanTrainer(FusedEpochTrainer):
       self._graphs, self._static, self._signature = {}, None, None
     losses, accs = [], []
     with self._capture_stream():
-      ovf = torch.zeros((), dtype=torch.bool, device=device)
-      for start in range(0, steps, self.chunk_size):
+      ovf = torch.full((), bool(resume_overflow), dtype=torch.bool,
+                       device=device)
+      self._begin_run(full_steps)
+      for start in range(start_step, steps, self.chunk_size):
         k = min(self.chunk_size, steps - start)
-        args = (seed_mat[start:start + k], mask_mat[start:start + k],
-                base_key, torch.full((), count0 + start, dtype=torch.int64,
-                                     device=device))
+        c = start // self.chunk_size
+        if self.stage_hook is not None:
+          self.stage_hook(c, start, k)
+        args = self._chunk_args(seed_mat, mask_mat, base_key,
+                                count0 + start, start, k)
         # with capture, the first chunk runs eagerly: the warm-up
         run = self._chunk if self._static is None else self._replay
-        loss, acc, overflow, _ = run(state, *args)
+        loss, acc, overflow, _ = run(state, **args)
         if self.capture and self._static is None:
-          seeds, masks, key, counter = args
-          self._static = dict(
-              seeds=seeds.new_zeros((self.chunk_size, seeds.shape[1])),
-              masks=masks.new_zeros((self.chunk_size, masks.shape[1])),
-              base_key=key.clone(), counter=counter.clone())
+          self._static = {
+              n: (t.new_zeros((self.chunk_size,) + t.shape[1:])
+                  if n in _ROWS else t.clone()) for n, t in args.items()}
           self._signature = _replay_signature(self.model, state.optimizer)
         ovf = ovf | overflow
         losses.append(loss)
         accs.append(acc)
         state = state._replace(step=state.step + k)
-    # keep the host fold_in stream aligned with what the epoch consumed
+        self._steps_dispatched = start + k
+        if self.ack_hook is not None:
+          self._chunk_carry = self._carry(
+              state=state, ovf=ovf, losses=losses, accs=accs, steps=steps,
+              full_steps=full_steps, start_step=start_step)
+          self.ack_hook(c, start, k)
+    self._end_run()
+    # keep the host fold_in stream aligned with what the run consumed
     self._sampler._call_count += steps
-    self._epochs += 1
+    self._epochs += self._epochs_per_run
     return state, torch.cat(losses), torch.cat(accs), ovf
+
+  def _begin_run(self, full_steps: int):
+    """Device state a run carries beyond the train state (none here)."""
+
+  def _end_run(self):
+    """After a run's last chunk (nothing here)."""
+
+  def _carry(self, **carry) -> dict:
+    """The boundary carry an ``ack_hook`` reads."""
+    return carry
+
+  def _chunk_args(self, seed_mat, mask_mat, base_key, count: int,
+                  start: int, k: int) -> dict:
+    """The chunk's inputs (a captured graph's static buffers): its seed
+    rows and mask, the base key, and the counter holding the count of
+    its first step."""
+    return dict(seeds=seed_mat[start:start + k],
+                masks=mask_mat[start:start + k], base_key=base_key,
+                counter=torch.full((), count, dtype=torch.int64,
+                                   device=seed_mat.device))
 
   @contextlib.contextmanager
   def _capture_stream(self):
@@ -261,9 +371,11 @@ class ScanTrainer(FusedEpochTrainer):
       self._stream = torch.cuda.Stream(device)
     caller = torch.cuda.current_stream(device)
     self._stream.wait_stream(caller)
-    with torch.cuda.stream(self._stream):
-      yield
-    caller.wait_stream(self._stream)
+    try:
+      with torch.cuda.stream(self._stream):
+        yield
+    finally:
+      caller.wait_stream(self._stream)
 
   def _chunk(self, state, seeds, masks, base_key, counter):
     """Steps of one chunk, eagerly: the hop keys from the counter, then
@@ -282,16 +394,14 @@ class ScanTrainer(FusedEpochTrainer):
       accs.append(acc)
     return torch.stack(losses), torch.stack(accs), ovf, keys
 
-  def _replay(self, state, seeds, masks, base_key, counter):
+  def _replay(self, state, **args):
     """One chunk as a replay of its length's graph (captured on first
     use): the chunk's inputs go into the static buffers first, the
     outputs are copied out after."""
-    k = seeds.shape[0]
+    k = args['seeds'].shape[0]
     st = self._static
-    st['seeds'][:k].copy_(seeds)
-    st['masks'][:k].copy_(masks)
-    st['base_key'].copy_(base_key)
-    st['counter'].copy_(counter)
+    for n, t in args.items():
+      (st[n][:k] if n in _ROWS else st[n]).copy_(t)
     g = self._graphs.get(k)
     if g is None:
       g = self._graphs[k] = self._capture(state, k)
@@ -303,16 +413,52 @@ class ScanTrainer(FusedEpochTrainer):
     """Capture a ``k``-step chunk over the static buffers. The capture
     launches nothing, so the launches it counted are taken back and
     added again by every replay."""
-    st = self._static
+    args = {n: (t[:k] if n in _ROWS else t) for n, t in self._static.items()}
     before = ops.launch_counts()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=self._stream,
                           capture_error_mode='thread_local'):
-      out = self._chunk(state, st['seeds'][:k], st['masks'][:k],
-                        st['base_key'], st['counter'])
+      out = self._chunk(state, **args)
     ms = (time.perf_counter() - t0) * 1e3
     after = ops.launch_counts()
     launches = {n: after[n] - before[n] for n in after}
     ops.add_launch_counts({n: -c for n, c in launches.items()})
     return _ChunkGraph(graph, *out, launches, ms)
+
+  # ------------------------------------------------- recovery protocol
+  # (recovery/checkpoint.py ChunkCheckpointer)
+
+  def _flight_config(self) -> dict:
+    """The epoch program's static configuration (the JAX trainer's
+    flight-record config, which the recovery fingerprint extends)."""
+    return dict(trainer=self._NAME, batch_size=self._batch_size,
+                chunk_size=self.chunk_size,
+                fanouts=list(self._sampler.num_neighbors),
+                shuffle=self._shuffle, drop_last=self._drop_last,
+                num_classes=self.num_classes,
+                seed=self.loader._batcher.seed)
+
+  def _recovery_config(self) -> dict:
+    return _recovery_config_for(self)
+
+  def _recovery_capture(self, carry):
+    """``(meta, device tensors)`` a boundary snapshot carries beyond the
+    train state: the sampler's stream position (its base key and
+    counter, still at the epoch-start value while the epoch runs)."""
+    del carry
+    return {'sampler': self._sampler.state_dict()}, {}
+
+  def _recovery_load(self, meta, arrays):
+    """Rewind this (fresh) trainer to the snapshot's epoch: the sampler's
+    stream and the epoch index."""
+    del arrays   # the local trainer carries no extra device state
+    self._sampler.load_state_dict(meta['sampler'])
+    self._epochs = int(meta['epoch'])
+
+  def _recovery_advance(self, meta):
+    """A snapshot of a finished epoch resumes past it: the counters land
+    where the epoch's end left them."""
+    self._sampler.load_state_dict(meta['sampler'])
+    self._sampler._call_count += int(meta['steps'])
+    self._epochs = int(meta['epoch']) + self._epochs_per_run

@@ -146,6 +146,10 @@ class NeighborSampler:
       raise _later('with_edge', 'sampling-menu')
     if isinstance(num_neighbors, dict):
       raise _later('per-edge-type fanouts', 'hetero')
+    # the only values the port takes, kept under the JAX sampler's names
+    # (the recovery fingerprint reads them)
+    self.with_weight, self.strategy = with_weight, strategy
+    self.padded_window = padded_window
     self.dedup = dedup
     mode = self._dedup_mode()
     if frontier_caps is not None:

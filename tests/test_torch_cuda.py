@@ -27,10 +27,16 @@ cluster size, id counts that are not multiples of 4, an id view that is
 not 16-byte aligned, the fill and the negative ids that wrap, and a table
 too large for the cluster; three train steps on the card against the
 CPU, tree and merge; the chunk's hop keys against their plain version;
-and the captured ScanTrainer against the eager one, also when it is given
-another Adam state between epochs.
+the captured ScanTrainer against the eager one, also when it is given
+another Adam state between epochs; a captured crash and resume; a
+checkpointed captured epoch with no host sync; the captured RunTrainer
+against the eager one and ScanTrainer epochs, its early stop, and its
+resume inside an epoch; and OverlappedTrainer against the per-step
+loop.
 """
+import contextlib
 import copy
+import gc
 
 import numpy as np
 import pytest
@@ -718,3 +724,265 @@ def test_train_step_on_card_matches_cpu(cuda, mode):
   for a, b_ in zip(runs['cuda'][1].parameters(), runs['cpu'][1].parameters()):
     torch.testing.assert_close(a.detach().cpu(), b_.detach(), rtol=1e-3,
                                atol=1e-5)
+
+
+@contextlib.contextmanager
+def _no_sync_allowed():
+  """``set_sync_debug_mode('error')`` with the cyclic garbage collector
+  off: a CUDA graph it freed in the window (an earlier test's trainer in a
+  reference cycle) would synchronise to release its memory pool."""
+  collecting = gc.isenabled()
+  gc.disable()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    yield
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+    if collecting:
+      gc.enable()
+
+
+class _Small:
+  """A small card training set-up (4 steps of 48 seeds, the last ragged)
+  whose every ``trainer(cls, ...)`` gets a fresh loader and a model from
+  the same weights: the start two trainers are compared from."""
+
+  def __init__(self, cuda, mode, shuffle=True):
+    from graphlearn_tpu_torch.models import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    n, f, self.c, self.fanouts, self.b = 2000, 16, 5, [5, 4], 48
+    ei = np.stack([rng.integers(0, n, 30000), rng.zipf(1.5, 30000) % n])
+    self.ds = gtt.data.Dataset(device=cuda)
+    self.ds.init_graph(ei, num_nodes=n)
+    self.ds.init_node_features(rng.standard_normal((n, f)).astype(
+        np.float32))
+    self.ds.init_node_labels(rng.integers(0, self.c, n))
+    self.pool = rng.permutation(n)[:3 * self.b + 20]
+    self.cuda, self.mode, self.shuffle, self.f = cuda, mode, shuffle, f
+    # unclamped merge: the clamped guard's epoch-end check is a host sync
+    if mode == 'merge':
+      self.offsets = train.merge_hop_offsets(self.b, self.fanouts, None)
+    else:
+      self.offsets = train.tree_hop_offsets(self.b, self.fanouts)
+
+  def loader(self):
+    return gtt.loader.NeighborLoader(
+        self.ds, self.fanouts, self.pool, batch_size=self.b,
+        shuffle=self.shuffle, seed=3, dedup=self.mode, device=self.cuda)
+
+  def model(self, seed=0):
+    no, eo = self.offsets
+    return gtt.models.GraphSAGE(
+        self.f, 32, self.c, num_layers=2, hop_node_offsets=no,
+        hop_edge_offsets=eo, tree_dense=self.mode == 'tree',
+        merge_dense=self.mode == 'merge', fanouts=self.fanouts,
+        device=self.cuda, generator=torch.Generator().manual_seed(seed))
+
+  def trainer(self, cls, seed=0, **kw):
+    from graphlearn_tpu_torch.models import train
+    model = self.model(seed)
+    return cls(self.loader(), model, self.c, **kw), \
+        train.create_train_state(model)
+
+
+def _close_params(m1, m2):
+  for a, b in zip(m1.parameters(), m2.parameters()):
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_captured_crash_resume_matches_uninterrupted(cuda, mode, tmp_path):
+  """A captured ScanTrainer (chunks of 1) crashed at chunk 3 and resumed
+  in a fresh captured trainer from other weights: the snapshot's loss
+  prefix exact, the whole epoch's losses within rtol 1e-4 of the
+  uninterrupted captured epoch and the parameters close; the resumed
+  trainer warms up, captures and replays its rest."""
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer
+  s = _Small(cuda, mode)
+  ref, rstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=1)
+  rstate, rlosses, _ = ref.run_epoch(rstate)
+  victim, vstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=1)
+  ck = ChunkCheckpointer(str(tmp_path), every=2).attach(victim)
+
+  def killer(c, start, k):
+    if c == 3:
+      raise RuntimeError('injected crash')
+
+  victim.stage_hook = killer
+  with pytest.raises(RuntimeError, match='injected'):
+    victim.run_epoch(vstate)
+  ck.close()
+  snap = ck.latest()
+  assert snap.next_start == 2
+  fresh, template = s.trainer(gtt.loader.ScanTrainer, seed=7, chunk_size=1)
+  state, losses, _ = ChunkCheckpointer(str(tmp_path)).resume_epoch(
+      fresh, template)
+  torch.cuda.synchronize()
+  assert fresh.capture and sorted(fresh._graphs) == [1]
+  assert state.step == 4
+  np.testing.assert_array_equal(losses[:2], snap.arrays['losses'])
+  torch.testing.assert_close(torch.as_tensor(losses), rlosses.cpu(),
+                             rtol=1e-4, atol=0)
+  _close_params(fresh.model, ref.model)
+  want = gtt.random.step_keys_plain(fresh._sampler._key,
+                                    torch.arange(1, 5, dtype=torch.int64), 2)
+  assert torch.equal(fresh._graphs[1].keys.cpu(), want[3:])
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_checkpointed_captured_epoch_makes_no_host_sync(cuda, mode,
+                                                        tmp_path):
+  """A captured epoch with a checkpointer at every boundary runs under
+  ``set_sync_debug_mode('error')``: the boundary copies go to pinned
+  memory on the copy stream and the writer waits for them; the final
+  snapshot holds the epoch's end state."""
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer
+  s = _Small(cuda, mode)
+  tr, state = s.trainer(gtt.loader.ScanTrainer, chunk_size=2)
+  ck = ChunkCheckpointer(str(tmp_path), every=1).attach(tr)
+  state, _, _ = tr.run_epoch(state)        # warm-up, capture, first pins
+  torch.cuda.synchronize()
+  with _no_sync_allowed():
+    state, losses, _ = tr.run_epoch(state)
+  ck.flush()
+  snap = ck.latest()
+  assert snap.epoch == 1 and snap.next_start == 4 and not ck.degraded
+  np.testing.assert_array_equal(snap.arrays['losses'], losses.cpu().numpy())
+  for n, p in tr.model.named_parameters():
+    np.testing.assert_array_equal(snap.arrays[f'param:{n}'],
+                                  p.detach().cpu().numpy())
+    np.testing.assert_array_equal(
+        snap.arrays[f'adam:{n}:step'],
+        state.optimizer.state[p]['step'].cpu().numpy())
+  ck.close()
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_run_trainer_captured_matches_eager_and_scan(cuda, mode):
+  """A captured RunTrainer (3 epochs of 4 steps in chunks of 3: chunks
+  across both boundaries) against an eager one and three captured
+  ScanTrainer epochs from the same start: seed rows exact, losses within
+  rtol 1e-4, the parameters close, the launch counts of the captured and
+  the eager run equal, and a second captured run makes no host sync."""
+  s = _Small(cuda, mode)
+  runs = {}
+  for name, capture in (('cap', True), ('eag', False)):
+    tr, state = s.trainer(gtt.loader.RunTrainer, chunk_size=3, epochs=3,
+                          capture=capture)
+    if capture:
+      tr._seeds_dev = torch.as_tensor(s.pool.astype(np.int32), device=cuda)
+      mat, _ = tr._prologue(12)
+    ops.reset_launch_counts()
+    state, losses, _ = tr.run(state)
+    torch.cuda.synchronize()
+    runs[name] = (tr, state, losses, ops.launch_counts())
+  scan, sstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=3)
+  slosses = []
+  for _ in range(3):
+    sstate, lo, _ = scan.run_epoch(sstate)
+    slosses.append(lo)
+  slosses = torch.cat(slosses)
+  cap, cstate, closses, ccounts = runs['cap']
+  assert ccounts == runs['eag'][3] and ccounts['step_keys'] == 4
+  for e in range(3):
+    want, _ = scan._epoch_seeds(gtt.random.fold_in(scan._perm_key, e), 4)
+    assert torch.equal(mat[4 * e:4 * e + 4], want)
+  for other in (runs['eag'][2], slosses):
+    torch.testing.assert_close(closses, other, rtol=1e-4, atol=0)
+  _close_params(cap.model, runs['eag'][0].model)
+  _close_params(cap.model, scan.model)
+  assert int(cap.last_run_report['epochs_run']) == 3
+  torch.cuda.synchronize()
+  with _no_sync_allowed():
+    cap.run(cstate)
+  torch.cuda.synchronize()
+  assert int(cap.last_run_report['epochs_run']) == 3
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_run_trainer_early_stop_captured(cuda, mode):
+  """patience=1, min_delta=10 under capture: the run stops after epoch 2,
+  the stopped tail is zeros, and the parameters and Adam's tensors at the
+  step-8 boundary are the final ones bit for bit."""
+  s = _Small(cuda, mode)
+  tr, state = s.trainer(gtt.loader.RunTrainer, chunk_size=2, epochs=4,
+                        patience=1, min_delta=10.0)
+  at_stop = {}
+
+  def grab(c, start, k):
+    if start + k == 8:
+      st = tr._chunk_carry['state']
+      at_stop['t'] = [t.clone() for t in tr._updated_tensors(st)]
+
+  tr.ack_hook = grab
+  state, losses, accs = tr.run(state)
+  torch.cuda.synchronize()
+  assert tr.capture and sorted(tr._graphs) == [2]
+  assert bool((losses[:8] != 0).all()) and bool((losses[8:] == 0).all())
+  assert bool((accs[8:] == 0).all())
+  rep = tr.last_run_report
+  assert bool(rep['stopped']) and int(rep['epochs_run']) == 2
+  now = tr._updated_tensors(state)
+  assert len(now) == len(at_stop['t'])
+  assert all(torch.equal(a, b) for a, b in zip(now, at_stop['t']))
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_overlapped_trainer_on_card_matches_loop(cuda, mode):
+  """OverlappedTrainer (sampling on a second stream) against the per-step
+  loop from the same start, two epochs: losses within rtol 1e-4, the
+  parameters close, the sampler's counter equal."""
+  from graphlearn_tpu_torch.models import train
+  s = _Small(cuda, mode)
+  loader, model = s.loader(), s.model()
+  state = train.create_train_state(model)
+  step, _ = train.make_train_step(model, s.c)
+  want = []
+  for _ in range(2):
+    for b in loader:
+      state, loss, _ = step(state, train.batch_to_dict(b))
+      want.append(loss)
+  tr, ostate = s.trainer(gtt.loader.OverlappedTrainer)
+  losses = []
+  for _ in range(2):
+    ostate, lo = tr.run_epoch(ostate)
+    losses += lo
+  torch.cuda.synchronize()
+  assert tr._side is not None and ostate.step == 8
+  torch.testing.assert_close(torch.stack(losses), torch.stack(want),
+                             rtol=1e-4, atol=0)
+  _close_params(tr.model, model)
+  assert tr._sampler._call_count == loader.sampler._call_count
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_run_trainer_captured_resume(cuda, mode, tmp_path):
+  """A captured RunTrainer (2 epochs of 4 steps in chunks of 3) with a
+  checkpointer at every chunk; a fresh captured trainer resumes from its
+  step-6 snapshot (inside epoch 2), as after a crash there. The eval carry
+  comes back from the snapshot (its int32, bool and float tensors staged
+  on the card): epoch 1's metric exactly; the replayed steps' losses
+  within rtol 1e-4 of the checkpointed run's own, from the same state."""
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer, snapshot
+  s = _Small(cuda, mode)
+  ref, rstate = s.trainer(gtt.loader.RunTrainer, chunk_size=3, epochs=2)
+  ck = ChunkCheckpointer(str(tmp_path), every=1, keep=5).attach(ref)
+  rstate, rlosses, _ = ref.run(rstate)
+  ck.close()
+  snap = snapshot.load_snapshot(snapshot.snapshot_path(str(tmp_path), 0, 6))
+  assert int(snap.arrays['extra:eval:edone']) == 1
+  assert snap.arrays['extra:eval:correct'].dtype == np.int32
+  fresh, template = s.trainer(gtt.loader.RunTrainer, seed=5, chunk_size=3,
+                              epochs=2)
+  state, losses, _ = ChunkCheckpointer(str(tmp_path)).resume_epoch(
+      fresh, template, snapshot=snap)
+  torch.cuda.synchronize()
+  assert fresh.capture and state.step == 8
+  np.testing.assert_array_equal(losses[:6], snap.arrays['losses'])
+  torch.testing.assert_close(torch.as_tensor(losses), rlosses.cpu(),
+                             rtol=1e-4, atol=0)
+  rep = fresh.last_run_report
+  assert int(rep['epochs_run']) == 2 and not bool(rep['stopped'])
+  assert float(rep['eval_metric'][0]) == float(
+      snap.arrays['extra:eval:metrics'][0])

@@ -53,6 +53,12 @@ def test_port_never_imports_jax():
   expected = [m.name for m in pkgutil.walk_packages(gtt.__path__,
                                                     'graphlearn_tpu_torch.')]
   assert int(proc.stdout.split()[-1]) == len(expected) >= 20
+  # the training slice's modules are among those imported under the block
+  assert {'graphlearn_tpu_torch.recovery',
+          'graphlearn_tpu_torch.recovery.checkpoint',
+          'graphlearn_tpu_torch.recovery.snapshot',
+          'graphlearn_tpu_torch.loader.run_epoch',
+          'graphlearn_tpu_torch.loader.pipeline'} <= set(expected)
 
 
 @pytest.fixture
