@@ -4,7 +4,9 @@ on one CUDA GPU, on the tree path and on the merge (exact-dedup) path,
 GraphSAGE embedding serving (full-graph materializer + engine),
 GraphSAGE training on both paths (per-step loop; ScanTrainer captured as
 CUDA graphs and eager; checkpointed, crashed and resumed; RunTrainer with
-and without an early stop; OverlappedTrainer), and the two probe suites.
+and without an early stop; OverlappedTrainer), the products example's
+other modes (block, padded-window and weighted hops, node_budget, bf16),
+and the two probe suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -29,7 +31,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    duplicates, all-found and all-masked seeds, against the plain level
    (the draw and the merge inducer). The chunk's hop keys (one launch of
    the step-keys kernel: 8 steps x 3 hops, counts crossing 2**32) against
-   ``random.step_keys_plain`` on the same device words.
+   ``random.step_keys_plain`` on the same device words. The draw kernel
+   of the sampling backends (one launch) against ``random.uniform`` on
+   the same device key, bit for bit, at hop 2 ([153600, 5]), hop 1
+   ([15360, 10]) and one word per edge (the padded table's build).
 3. Slices, at full width (``bench.py``'s recipe: 1M nodes, average
    degree 25, half uniform and half zipf(1.5) targets, [1M, 100] f32
    features, 47 classes; fanouts [15, 10, 5] at batch 1024; GraphSAGE
@@ -74,12 +79,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
    train_step) over a 16,384-seed pool in order, split into
    sample+collate and train by CUDA events, with the peak memory of the
    steps; the last step recomputed on the CPU from the same state and
-   batch (loss within rtol=1e-4, updated parameters within rtol=1e-3,
-   atol=1e-5); then two ScanTrainers over the same pool from the same
-   start, chunks of 8: captured (the default on a card: an eager warm-up
-   chunk, then one CUDA graph per chunk length, replayed) and eager, two
-   epochs each (the first epoch's seed matrix equal to the loop's and its
-   losses within rtol=1e-4 of the loop's; each epoch's seed matrices equal,
+   batch (ReLU inputs within rtol=1e-4, atol=1e-5, the CPU following the
+   card's side of 0 at each; loss within rtol=1e-4; gradients within
+   rtol=1e-3 and 1e-4 of each tensor's largest; the CPU's Adam step on
+   the card's gradients within rtol=1e-6, atol=1e-7 of the card's
+   parameters; the parameters of the two full steps recorded); then two
+   ScanTrainers over the same pool from the same start, chunks of 8:
+   captured (the default on a card: an eager warm-up chunk, then one
+   CUDA graph per chunk length, replayed) and eager, two epochs each (the
+   first epoch's seed matrix equal to the loop's and its losses within
+   rtol=1e-4 of the loop's; each epoch's seed matrices equal,
    losses within rtol=1e-4 and launch counts equal between the two, the
    eager trainer taking up the captured one's weights and Adam state
    before the second epoch; the graphs' hop keys exact against
@@ -129,7 +138,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
    an unsynchronised loop epoch and profiled over one more epoch (device
    busy as the union over both streams, the kernels' summed time, their
    difference the overlap, the streams seen, the idle share).
-6. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+6. Modes: the products example's other modes on the same graph and width
+   (its flags --strategy block, --padded-window auto (W = 16), weights
+   made from a seed, --node-budget 100000 on tree (the layered segment
+   forward) and merge, and --bf16-features --bf16-model), each through a
+   captured ScanTrainer (K = 8) and an eager one from the same weights:
+   a warm-up epoch each, then a timed epoch each from the captured one's
+   state (losses within rtol 1e-4, BF16_TOL for bf16; with the launch
+   counters set to 0 before and read after: 2 draw launches per block
+   hop, 1 per padded or weighted hop and 1 per padded-table build, the
+   hop kernel once per uniform tree hop, the level kernel 3 per level +
+   1 per batch, K1 once per step), a profiled third epoch (device busy
+   per step, the profiler's kernels equal to the counters) and one
+   sampled batch recomputed on the CPU from the same sampler state (ids,
+   masks, features exact; logits within rtol 1e-3, atol 1e-4, or
+   BF16_TOL of the largest bf16 logit). The padded mode's reseeded table
+   must differ from the first epoch's and equal a CPU rebuild from the
+   same key. Before it, the padded table's build and the padded hop at
+   hop 2 timed at W = 16, 32 and 64.
+7. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -147,7 +174,12 @@ the largest cap and on the probe's random ids, a train step of each
 path, and the take at each cluster size beside
 ``torch.take``.
 ``--rehearse`` runs every phase on the CPU at a tiny size through the
-plain versions (no result line; exit code 3).
+plain versions (no result line; exit code 3). ``--noise WINDOWS,RUNS``
+measures, instead of the phases, the noise two checks must stand: WINDOWS
+profiled captured tree epochs with no lead and as many with
+PROFILE_LEAD_S (windows whose kernels fall short of the launch counters),
+and RUNS merge loops' last steps against the CPU (no result line; exit
+code 3).
 """
 import argparse
 import concurrent.futures
@@ -193,6 +225,23 @@ STOP_CHUNK = 8                       # the early-stopped RunTrainer's K
 # scatter atomics sum in no fixed order, and Adam scales a gradient near
 # 0 up to a step), below the eager epoch without its last step (~LR)
 PARAMS_LIMIT = 1e-3
+# torch.profiler on an H100 can lose the device records of what runs in
+# its first milliseconds (a ScanTrainer epoch's first copies and step-keys
+# launch: `--noise` counts it), so each profiled window idles this long
+# before its calls
+PROFILE_LEAD_S = 0.05
+# the CPU recompute of the loop's last train step (cpu_step_readings),
+# held in parts: the ReLU inputs within PRE_RTOL / PRE_ATOL; the gradients,
+# the CPU following the card's side of 0 at each ReLU input, within rtol
+# 1e-3 and GRAD_SHARE of each tensor's largest CPU gradient; the CPU's
+# Adam step on the card's own gradients within ADAM_RTOL / ADAM_ATOL of
+# the card's updated parameters. (Adam divides each element's step by its
+# own gradient scale, so an element whose gradients stayed near 0 turns a
+# difference far below GRAD_SHARE into a step of up to LR: the parameters
+# of the two full steps are recorded, not held.)
+PRE_RTOL, PRE_ATOL = 1e-4, 1e-5
+GRAD_SHARE = 1e-4
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 # device ops per sampled batch and per scanned train step measured before
 # the sampling kernels drew in-kernel (PERF.md, section 5)
 OPS_BEFORE = dict(tree=690, merge=768, train_tree=860, train_merge=1063)
@@ -346,7 +395,49 @@ def kernel_phase(torch, gtt, ds, device, gen, reps):
   records['sample_hop'] = [hop_case(torch, gtt, ds.graph, device, gen, reps,
                                     hop) for hop in (2, 0, 1)]
   records['step_keys'] = step_keys_case(torch, gtt, device, reps)
+  # the draw of the padded, block and weighted hops and of the padded
+  # table's build: hop 2, hop 1 and one word per edge
+  records['uniform_draw'] = [
+      draw_case(torch, gtt, device, reps, shape)
+      for shape in ((BATCH * FANOUTS[0] * FANOUTS[1], FANOUTS[2]),
+                    (BATCH * FANOUTS[0], FANOUTS[1]),
+                    (ds.graph.num_edges,))]
   return records
+
+
+def draw_case(torch, gtt, device, reps, shape):
+  """The draw kernel (one launch) against ``random.uniform`` (~190 torch
+  ops) on the same device key, bit for bit; no PyTorch call computes
+  jax.random.uniform's words (``torch.rand`` is Philox): library_ms
+  null."""
+  from graphlearn_tpu_torch import ops
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(2), 9),
+                             device)
+  before = ops.launch_counts()['uniform_draw']
+  got = ops.draw.uniform(key, shape, device)
+  per_call = ops.launch_counts()['uniform_draw'] - before
+  got, ms, call_ms = timed(torch, lambda: ops.draw.uniform(key, shape,
+                                                           device),
+                           reps, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: gtt.random.uniform(key, shape, device), reps, device)
+  exact = bool(torch.equal(got, ref))
+  n = int(np.prod(shape))
+  nbytes, ops_n = 16 + 4 * n, DRAW_OPS * n
+  rec = dict(shape=list(shape), words=n, exact=exact,
+             max_abs_err=float((got - ref).abs().max()),
+             launches_per_call=per_call, ms=ms, call_ms=call_ms,
+             plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=None,
+             bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+  log(f'kernel uniform_draw {list(shape)}: exact={exact} launches/call='
+      f'{per_call} ms={ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} '
+      f'(call {plain_call_ms:.4f}) bound_ms={rec["bound_ms"]:.4f} '
+      f'({rec["bound_by"]}: {nbytes} B, {ops_n} ops); library_ms null '
+      '(torch.rand is Philox, not the same function)')
+  assert exact, f'uniform_draw {shape}: kernel != plain version'
+  assert per_call == (1 if device.type == 'cuda' else 0), per_call
+  return rec
 
 
 def step_keys_case(torch, gtt, device, reps):
@@ -831,11 +922,12 @@ def profile_phases(torch, gtt, ds, device, mode, caps, reps: int = 3):
   return result
 
 
-def profiled(torch, fn, reps, device, label):
+def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S):
   """torch.profiler over ``reps`` calls of ``fn`` (warmed up by the
   caller): wall ms per call (host clock, synchronised), device-busy ms
   per call (the union of the kernel and copy intervals the profiler saw),
-  device ops per call and the top device consumers."""
+  device ops per call and the top device consumers. The calls start
+  ``lead_s`` after the profiler does (see PROFILE_LEAD_S)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   cuda = device.type == 'cuda'
@@ -843,6 +935,7 @@ def profiled(torch, fn, reps, device, label):
   acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
   sync()
   with profile(activities=acts) as prof:
+    time.sleep(lead_s if cuda else 0)
     t0 = time.perf_counter()
     for _ in range(reps):
       fn()
@@ -886,7 +979,8 @@ PORT_KERNELS = dict(gather_rows=('gather_rows_kernel',),
                     sample_hop=('hop_slot_kernel',),
                     sample_level=('begin_kernel', 'pick_kernel',
                                   'scan_kernel', 'resolve_kernel'),
-                    step_keys=('step_keys_kernel',))
+                    step_keys=('step_keys_kernel',),
+                    uniform_draw=('uniform_draw_kernel',))
 
 
 def kernel_counts(counts) -> dict:
@@ -1283,6 +1377,116 @@ def count_syncs(torch, fn):
   return out, sum(kinds.values()), kinds
 
 
+def relu_input_hooks(model, fn) -> list:
+  """Forward hooks on ``model``'s conv layers whose outputs go through a
+  ReLU (all but the last): each calls ``fn(layer, output)``, and a
+  returned tensor replaces the output. Returns the hook handles."""
+  return [getattr(model, f'conv{l}').register_forward_hook(
+      lambda m, i, o, l=l: fn(l, o)) for l in range(model.num_layers - 1)]
+
+
+def cpu_step_readings(torch, gtt, loader, model, check, loss) -> dict:
+  """The card's train step ``check = (params, Adam state, batch, card
+  gradients, card ReLU inputs)`` against the CPU's, which follows the
+  card's side of 0 at every ReLU input (the two devices round in other
+  orders, so an input within rounding of 0 can fall on opposite sides,
+  and that one unit then moves a whole seed's share of the gradients):
+  the ReLU inputs (largest abs difference, the layers outside
+  PRE_RTOL / PRE_ATOL, the inputs on opposite sides and the largest of
+  them), the loss, the gradients (largest abs difference as a share of
+  each tensor's largest CPU gradient, the tensors outside rtol 1e-3 and
+  GRAD_SHARE), the CPU's Adam step on the card's gradients against the
+  card's updated ``model`` (largest abs difference, the tensors outside
+  ADAM_RTOL / ADAM_ATOL), and, recorded only, the CPU's plain step (its
+  own side of 0 everywhere): its gradients' largest share and its
+  updated parameters against the card's (largest abs difference)."""
+  import copy
+
+  from graphlearn_tpu_torch.models import train
+  msd, osd, cbatch, grads, pre = check
+
+  def cpu_state():
+    cmodel, _ = make_model(torch, gtt, loader, 'cpu')
+    cmodel.train()
+    cmodel.load_state_dict({k: v.cpu() for k, v in msd.items()})
+    cstate = train.create_train_state(cmodel, lr=LR)
+    # a copy: on the CPU the optimizer would step osd's own tensors
+    cstate.optimizer.load_state_dict(copy.deepcopy(osd))
+    for group in cstate.optimizer.param_groups:  # the card's was capturable
+      group['capturable'] = False
+    return cmodel, cstate
+
+  cpu_pre = {}
+  tiny = torch.finfo(torch.float32).tiny
+
+  def card_side(layer, z):
+    # the value z + (t - z), gradient 1: t = z where the devices agree;
+    # else t on the card's side, |z| (> 0: z + 2|z| = |z| exactly, where
+    # a t near 0 would cancel to 0) or -1 (ReLU 0, gradient 0)
+    cpu_pre[layer] = zd = z.detach().clone()
+    return z + (torch.where(pre[layer] > 0, zd.abs().clamp(min=tiny),
+                            zd.new_tensor(-1.0)) - zd)
+
+  cmodel, cstate = cpu_state()
+  hooks = relu_input_hooks(cmodel, card_side)
+  cstep, _ = train.make_train_step(cmodel, CLASSES)
+  cstate, closs, _ = cstep(cstate, cbatch)
+  for h in hooks:
+    h.remove()
+  pmodel, pstate = cpu_state()
+  train.make_train_step(pmodel, CLASSES)[0](pstate, cbatch)
+  amodel, astate = cpu_state()
+  for p, g in zip(amodel.parameters(), grads):
+    p.grad = g.clone()
+  astate.optimizer.step()
+  out = dict(loss=float(loss), cpu_loss=float(closs), pre_diff=0.0,
+             pre_fail=[], opposite=0, opposite_max_abs=0.0, grad_share=0.0,
+             grad_fail=[], adam_diff=0.0, adam_fail=[],
+             plain_grad_share=0.0, max_abs_param_diff=0.0)
+  for layer, z in enumerate(pre):
+    cz = cpu_pre[layer]
+    out['pre_diff'] = max(out['pre_diff'], float((z - cz).abs().max()))
+    if not torch.allclose(z, cz, rtol=PRE_RTOL, atol=PRE_ATOL):
+      out['pre_fail'].append(layer)
+    opp = (z > 0) != (cz > 0)
+    out['opposite'] += int(opp.sum())
+    if opp.any():
+      out['opposite_max_abs'] = max(out['opposite_max_abs'], float(
+          torch.maximum(z[opp].abs(), cz[opp].abs()).max()))
+  names = [n for n, _ in model.named_parameters()]
+  for name, p, g, cp, ap, pp in zip(
+      names, model.parameters(), grads, cmodel.parameters(),
+      amodel.parameters(), pmodel.parameters()):
+    cg, p = cp.grad, p.detach().cpu()
+    scale = float(cg.abs().max())
+    out['grad_share'] = max(out['grad_share'], float(
+        (g - cg).abs().max()) / scale if scale else 0.0)
+    out['plain_grad_share'] = max(out['plain_grad_share'], float(
+        (g - pp.grad).abs().max()) / scale if scale else 0.0)
+    if not torch.allclose(g, cg, rtol=1e-3, atol=GRAD_SHARE * scale):
+      out['grad_fail'].append(name)
+    out['adam_diff'] = max(out['adam_diff'],
+                           float((p - ap.detach()).abs().max()))
+    if not torch.allclose(p, ap.detach(), rtol=ADAM_RTOL, atol=ADAM_ATOL):
+      out['adam_fail'].append(name)
+    out['max_abs_param_diff'] = max(out['max_abs_param_diff'], float(
+        (p - pp.detach()).abs().max()))
+  return out
+
+
+def cpu_step_check(torch, gtt, loader, model, check, loss) -> dict:
+  """:func:`cpu_step_readings`, held: the ReLU inputs within their
+  tolerance, the loss within rtol 1e-4, no tensor outside its gradient or
+  Adam tolerance."""
+  c = cpu_step_readings(torch, gtt, loader, model, check, loss)
+  assert not c['pre_fail'], ('ReLU inputs differ from the CPU\'s', c)
+  torch.testing.assert_close(torch.tensor(c['loss']),
+                             torch.tensor(c['cpu_loss']), rtol=1e-4, atol=0)
+  assert not c['grad_fail'], ('gradients differ from the CPU\'s', c)
+  assert not c['adam_fail'], ('the Adam step differs from the CPU\'s', c)
+  return c
+
+
 def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
                 smi, profile):
   """Training at full width through the port's two entry points: the
@@ -1319,10 +1523,18 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
                copy.deepcopy(state.optimizer.state_dict()),
                {k: (v.cpu() if torch.is_tensor(v) else v)
                 for k, v in d.items()})
+      pre = []
+      hooks = relu_input_hooks(
+          model, lambda layer, z: pre.append(z.detach().clone()))
     state, loss, acc = step_fn(state, d)
     e2 = _event(torch, cuda)
     if cuda:
       e2.synchronize()
+    if i == steps - 1:
+      for h in hooks:
+        h.remove()
+      check += ([p.grad.detach().cpu() for p in model.parameters()],
+                [z.cpu() for z in pre])
     per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
                          train_ms=_span(e1, e2, cuda)))
     losses.append(loss)
@@ -1351,26 +1563,19 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
       f'{smi}')
 
   # ---- 2. the last step once more on the CPU, from the same state
-  msd, osd, cbatch = check
-  cmodel, _ = make_model(torch, gtt, loader, 'cpu')
-  cmodel.load_state_dict({k: v.cpu() for k, v in msd.items()})
-  cstate = train.create_train_state(cmodel, lr=LR)
-  cstate.optimizer.load_state_dict(osd)
-  for group in cstate.optimizer.param_groups:   # the card's was capturable
-    group['capturable'] = False
-  cstep, _ = train.make_train_step(cmodel, CLASSES)
-  cstate, closs, _ = cstep(cstate, cbatch)
-  torch.testing.assert_close(losses[-1].cpu(), closs, rtol=1e-4, atol=0)
-  diffs = []
-  for (name, p), cp in zip(model.named_parameters(), cmodel.parameters()):
-    torch.testing.assert_close(p.detach().cpu(), cp.detach(), rtol=1e-3,
-                               atol=1e-5, msg=lambda m: f'{name}: {m}')
-    diffs.append(float((p.detach().cpu() - cp.detach()).abs().max()))
-  rep['cpu_check'] = dict(loss=float(losses[-1]), cpu_loss=float(closs),
-                          max_abs_param_diff=max(diffs))
-  log(f'train {mode} CPU recompute of step {steps}: loss {float(closs):.6f} '
-      f'vs {float(losses[-1]):.6f}; updated params max abs diff '
-      f'{max(diffs):.3g} (loss rtol 1e-4; params rtol 1e-3, atol 1e-5)')
+  rep['cpu_check'] = cpu_step_check(torch, gtt, loader, model, check,
+                                    losses[-1])
+  c = rep['cpu_check']
+  log(f'train {mode} CPU recompute of step {steps}: ReLU inputs max abs '
+      f'diff {c["pre_diff"]:.3g} (rtol {PRE_RTOL}, atol {PRE_ATOL}), '
+      f'{c["opposite"]} on opposite sides of 0 (largest '
+      f'{c["opposite_max_abs"]:.3g}); loss {c["cpu_loss"]:.6f} '
+      f'vs {c["loss"]:.6f} (rtol 1e-4); gradients max abs diff '
+      f'{c["grad_share"]:.3g} of the tensor\'s largest (limit {GRAD_SHARE}); '
+      f'CPU Adam on the card\'s gradients vs the card {c["adam_diff"]:.3g} '
+      f'(rtol {ADAM_RTOL}, atol {ADAM_ATOL}); the CPU\'s plain step '
+      f'(recorded): gradients {c["plain_grad_share"]:.3g} of the largest, '
+      f'updated params max abs diff {c["max_abs_param_diff"]:.3g}')
 
   # ---- 3. ScanTrainer over the same pool from the same start: captured
   # (the default on a card; the eager warm-up chunk, then one CUDA graph
@@ -1568,7 +1773,8 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
           f'{prof["kernels"]} vs launch counters {counted}')
       assert prof['kernels'] == counted and all(
           prof['kernels'][k] for k in PORT_KERNELS
-          if k != ('sample_level' if mode == 'tree' else 'sample_hop')), \
+          if k not in ('uniform_draw', 'sample_level' if mode == 'tree'
+                       else 'sample_hop')), \
           (prof['kernels'], counted)
       if name == 'scan':
         # a replay re-adds the counts its capture recorded: the result
@@ -2036,6 +2242,397 @@ def program_phase(torch, gtt, ds, device, mode, caps, pool, steps, smi,
   return rep
 
 
+# the products example's other modes (its flags beyond --dedup and
+# --calibrate), each through a captured ScanTrainer and a sampled batch:
+# name -> (loader keywords, bf16 table and model, uniform_draw launches per
+# hop). The hops of block (two draws from a split key), padded and
+# weighted sampling draw through csrc/uniform_draw.cu; node_budget's and
+# bf16's uniform hops take the hop (tree) or level (merge) kernel.
+MODE_BUDGET = 100_000
+MODES = {
+    'block': (dict(dedup='tree', strategy='block'), False, 2),
+    'padded': (dict(dedup='tree', padded_window='auto'), False, 1),
+    'weighted': (dict(dedup='tree', with_weight=True), False, 1),
+    'budget_tree': (dict(dedup='tree', node_budget=MODE_BUDGET), False, 0),
+    'budget_merge': (dict(dedup='auto', node_budget=MODE_BUDGET), False, 0),
+    'bf16': (dict(dedup='tree'), True, 0),
+}
+MODE_STEPS, MODE_CHUNK = 16, 8
+PADDED_WINDOWS = (16, 32, 64)    # the padded hop timed at each, once
+# bf16 keeps 8 significant bits, and the card and the CPU sum a product or
+# a mean in other orders, each rounding to bf16 after every layer: bf16
+# logits are held to this share of the largest logit, bf16 losses to this
+# relative difference (the CPU tests measure 0-0.5% against flax)
+BF16_TOL = 3e-2
+
+
+def mode_model(torch, gtt, kw, bf16, device, seed=None):
+  """The products example's model for a mode (its ``build_model``): tree
+  batches the layered tree-dense forward, or the layered segment forward
+  under a node budget; merge batches ``merge_dense``; bf16 compute under
+  ``--bf16-model``. Weights from ``seed`` (None: for load_state_dict)."""
+  from graphlearn_tpu_torch.examples.train_sage_products import build_model
+  args = argparse.Namespace(
+      batch_size=BATCH, fanout=FANOUTS, hidden=HIDDEN, dedup=kw['dedup'],
+      strategy=kw.get('strategy', 'random'),
+      padded_window=kw.get('padded_window'),
+      node_budget=kw.get('node_budget'), bf16_model=bf16)
+  gen = None if seed is None else torch.Generator().manual_seed(seed)
+  return build_model(gtt, args, FEAT_DIM, CLASSES, None, device, gen)
+
+
+def mode_launches(name, batches, hops, chunks=0, reseeds=0) -> dict:
+  """The launches a mode's path makes over ``batches`` sampled batches:
+  its draws, its uniform hops' hop or level kernel, one feature gather a
+  batch, the trainer's step keys, and one draw per padded-table build."""
+  kw, _, draws = MODES[name]
+  uniform = draws == 0
+  merge = kw['dedup'] != 'tree'
+  return dict(
+      uniform_draw=batches * hops * draws + reseeds,
+      sample_hop=batches * hops if uniform and not merge else 0,
+      sample_level=batches * (3 * hops + 1) if uniform and merge else 0,
+      gather_rows=batches, step_keys=chunks)
+
+
+def padded_window_times(torch, gtt, g, device, gen, reps):
+  """The padded table's build (one draw, two stable sorts, a scatter) and
+  the padded hop at hop 2 of a products batch (153,600 seeds x 5), at each
+  of PADDED_WINDOWS, once each on this card."""
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  n = g.num_nodes
+  b, k = BATCH * FANOUTS[0] * FANOUTS[1], FANOUTS[2]
+  seeds = torch.randint(0, n, (b,), generator=gen,
+                        dtype=torch.int32).to(device)
+  mask = (torch.rand((b,), generator=gen) < 0.97).to(device)
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(0), 3),
+                             device)
+  out = []
+  for w in PADDED_WINDOWS:
+    if cuda:
+      torch.cuda.synchronize()
+    a = _event(torch, cuda)
+    tab, deg, _ = ops.build_padded_adjacency_device(g.indptr, g.indices, w,
+                                                    key)
+    z = _event(torch, cuda)
+    if cuda:
+      z.synchronize()
+    build_ms = _span(a, z, cuda)
+    _, ms, call_ms = timed(
+        torch, lambda: ops.uniform_sample_padded(tab, deg, seeds, mask, k,
+                                                 key), reps, device)
+    stats = gtt.ops.padded_table_stats(g.topo.indptr, w)
+    rec = dict(window=w, build_ms=build_ms, hop2_ms=ms, hop2_call_ms=call_ms,
+               edge_recall=stats['edge_recall'],
+               node_recall=stats['node_recall'],
+               table_bytes=int(tab.numel() * 4))
+    out.append(rec)
+    log(f'padded window W={w}: table build {build_ms:.3f} ms '
+        f'({rec["table_bytes"]} B), padded hop at hop 2 ({b} seeds x {k}) '
+        f'{ms:.4f} ms device (call {call_ms:.4f}); edge recall '
+        f'{stats["edge_recall"]:.4f}, node recall {stats["node_recall"]:.4f}')
+    del tab, deg
+  return out
+
+
+def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi):
+  """The products example's other modes at full width, each: a captured
+  ScanTrainer (K = ``chunk``) and an eager one from the same weights, one
+  warm-up epoch each, then, from the captured trainer's state, one timed
+  epoch each (losses within rtol 1e-4, or BF16_TOL for bf16; the launch
+  counters set to 0 before and read after: each hop through its draw,
+  hop or level kernel, each feature gather through K1); then one sampled
+  batch on the card,
+  recomputed on the CPU from the same sampler state (ids, masks and
+  features exact; logits within rtol 1e-3, atol 1e-4, or BF16_TOL of the
+  largest logit), before a profiled third epoch of the captured trainer
+  (device busy per step; the profiler's kernels equal to the counters).
+  The padded mode also checks its reseeded table: not the first epoch's,
+  and equal to a CPU rebuild from the same key."""
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.sampler import NodeSamplerInput
+  cuda = device.type == 'cuda'
+  per = 1 if cuda else 0
+  hops = len(FANOUTS)
+  chunks = -(-steps // chunk)
+  rep = {}
+  for name, (kw, bf16, _) in MODES.items():
+    t0 = time.perf_counter()
+    ds, cpu_ds = dss[bf16], cpu_dss[bf16]
+    padded = 'padded_window' in kw
+
+    def loader(d=ds, dev=device, p=pool):
+      return gtt.loader.NeighborLoader(d, FANOUTS, p, batch_size=BATCH,
+                                       shuffle=False, seed=0, device=dev,
+                                       **kw)
+
+    cmodel = mode_model(torch, gtt, kw, bf16, device, 0)
+    emodel = mode_model(torch, gtt, kw, bf16, device)
+    emodel.load_state_dict(cmodel.state_dict())
+    cap = gtt.loader.ScanTrainer(loader(), cmodel, CLASSES, chunk_size=chunk)
+    eag = gtt.loader.ScanTrainer(loader(), emodel, CLASSES, chunk_size=chunk,
+                                 capture=False)
+    cstate = train.create_train_state(cmodel, lr=LR)
+    estate = train.create_train_state(emodel, lr=LR)
+    a = _event(torch, cuda)
+    cstate = cap.run_epoch(cstate)[0]
+    z = _event(torch, cuda)
+    estate = eag.run_epoch(estate)[0]
+    if cuda:
+      torch.cuda.synchronize()
+    warm_ms = _span(a, z, cuda) / steps
+    sampler = cap._sampler
+    first_tab = sampler._padded_arrays()['tab'].clone() if padded else None
+    # the eager trainer takes up the captured one's state: one step
+    # function from one start (merge training on the card is chaotic)
+    emodel.load_state_dict(cmodel.state_dict())
+    estate.optimizer.load_state_dict(copy.deepcopy(
+        cstate.optimizer.state_dict()))
+    timed_epochs = {}
+    for kind, tr in (('captured', cap), ('eager', eag)):
+      st = cstate if kind == 'captured' else estate
+      ops.reset_launch_counts()
+      if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+      a = _event(torch, cuda)
+      st, losses, _ = tr.run_epoch(st)
+      z = _event(torch, cuda)
+      if cuda:
+        z.synchronize()
+      timed_epochs[kind] = dict(
+          ms_per_step=_span(a, z, cuda) / steps, losses=losses,
+          launches=ops.launch_counts(),
+          peak_bytes=torch.cuda.max_memory_allocated() if cuda else None)
+      if kind == 'captured':
+        cstate = st
+      else:
+        estate = st
+    cap_ep, eag_ep = timed_epochs['captured'], timed_epochs['eager']
+    want = mode_launches(name, steps, hops, chunks, int(padded))
+    for ep in (cap_ep, eag_ep):
+      got = {k: ep['launches'][k] for k in want}
+      assert got == {k: per * v for k, v in want.items()}, (name, got, want)
+    assert bool(torch.isfinite(cap_ep['losses']).all()), name
+    rtol = BF16_TOL if bf16 else 1e-4
+    torch.testing.assert_close(cap_ep['losses'], eag_ep['losses'], rtol=rtol,
+                               atol=0)
+    loss_rel = float(((cap_ep['losses'] - eag_ep['losses']).abs() /
+                      eag_ep['losses'].abs()).max())
+    table = None
+    if padded:
+      tab = sampler._padded_arrays()['tab']
+      assert sampler._padded_seed == 1 and cap.loader._epochs_started == 2
+      assert not torch.equal(tab, first_tab), 'the reseed kept the table'
+      assert torch.equal(tab, eag._sampler._padded_arrays()['tab'])
+      t1 = time.perf_counter()
+      cg = cpu_ds.graph
+      cpu_tab, cpu_deg, _ = gtt.ops.build_padded_adjacency_device(
+          cg.indptr, cg.indices, sampler.padded_window,
+          gtt.random.PRNGKey(sampler._padded_seed))
+      assert torch.equal(tab.cpu(), cpu_tab), 'card table != CPU rebuild'
+      table = dict(window=sampler.padded_window, seed=sampler._padded_seed,
+                   changed_rows=int((tab != first_tab).any(1).sum()),
+                   cpu_rebuild_s=time.perf_counter() - t1)
+      log(f'modes {name}: reseeded table (seed {table["seed"]}, W='
+          f'{table["window"]}) differs from the first in '
+          f'{table["changed_rows"]} rows and equals the CPU rebuild from the '
+          f'same key ({table["cpu_rebuild_s"]:.1f} s on the CPU)')
+    # one sampled batch through the entry points, recomputed on the CPU
+    cmodel.eval()
+    seeds = pool[:BATCH]
+    state = sampler.state_dict()
+    ops.reset_launch_counts()
+    e0 = _event(torch, cuda)
+    out = sampler.sample_from_nodes(NodeSamplerInput(seeds), batch_cap=BATCH)
+    batch = cap.loader._collate_fn(out)
+    with torch.no_grad():
+      logits = train.make_forward_fn(cmodel)(train.batch_to_dict(batch))
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    inf_counts = ops.launch_counts()
+    want_inf = mode_launches(name, 1, hops)
+    assert {k: inf_counts[k] for k in want_inf} == \
+        {k: per * v for k, v in want_inf.items()}, (name, inf_counts)
+    assert bool(torch.isfinite(logits.float()).all()), name
+    assert logits.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    cl = loader(cpu_ds, 'cpu', seeds)
+    cl.sampler.load_state_dict(state)
+    if padded:
+      cl.sampler._padded_seed = sampler._padded_seed
+      cl.sampler._padded = dict(tab=cpu_tab, deg=cpu_deg)
+    cout = cl.sampler.sample_from_nodes(NodeSamplerInput(seeds),
+                                        batch_cap=BATCH)
+    cbatch = cl._collate_fn(cout)
+    cm = mode_model(torch, gtt, kw, bf16, 'cpu')
+    cm.load_state_dict({k: v.cpu() for k, v in cmodel.state_dict().items()})
+    cm.eval()
+    with torch.no_grad():
+      clog = train.make_forward_fn(cm)(train.batch_to_dict(cbatch))
+    for field in ('node', 'num_nodes', 'row', 'col', 'edge_mask'):
+      assert torch.equal(getattr(out, field).cpu(), getattr(cout, field)), \
+          (name, field)
+    assert torch.equal(out.metadata['overflow'].cpu(),
+                       cout.metadata['overflow'])
+    assert torch.equal(batch.x.cpu(), cbatch.x), (name, 'x')
+    assert torch.equal(batch.y.cpu(), cbatch.y), (name, 'y')
+    glog = logits.float().cpu()
+    clog = clog.float()
+    if bf16:
+      torch.testing.assert_close(glog, clog, rtol=0,
+                                 atol=BF16_TOL * float(clog.abs().max()))
+    else:
+      torch.testing.assert_close(glog, clog, rtol=1e-3, atol=1e-4)
+    # a profiled third epoch (after the batch: it reseeds a padded table):
+    # device busy per step, the profiler's kernels against the counters
+    cmodel.train()
+    ops.reset_launch_counts()
+    holder = [cstate]
+    prof = profiled(torch, lambda: holder.__setitem__(
+        0, cap.run_epoch(holder[0])[0]), 1, device,
+        f'modes {name} ScanTrainer epoch (captured)')
+    cstate = holder[0]
+    counted = {k: v for k, v in ops.launch_counts().items()
+               if k in PORT_KERNELS}
+    assert prof['kernels'] == counted, (name, prof['kernels'], counted)
+    rec = dict(
+        loader=kw, bf16=bf16, steps=steps, chunk_size=chunk,
+        ms_per_step_captured=cap_ep['ms_per_step'],
+        ms_per_step_eager=eag_ep['ms_per_step'],
+        warmup_epoch_ms_per_step=warm_ms, capture_ms=cap.capture_ms,
+        device_busy_ms_per_step=prof['device_busy_ms'] / steps,
+        device_ops_per_step=prof['device_ops_per_call'] / steps,
+        profiled_wall_ms_per_step=prof['wall_ms'] / steps,
+        peak_bytes_captured=cap_ep['peak_bytes'],
+        peak_bytes_eager=eag_ep['peak_bytes'],
+        launches=cap_ep['launches'], launches_eager=eag_ep['launches'],
+        inference_launches=inf_counts,
+        inference_ms=_span(e0, e1, cuda),
+        max_rel_loss_diff_eager=loss_rel,
+        losses=cap_ep['losses'].tolist(),
+        overflow=bool(out.metadata['overflow']),
+        num_sampled_nodes=[int(c) for c in cout.num_sampled_nodes],
+        max_abs_logit_diff=float((glog - clog).abs().max()),
+        top_device_ms=prof['top_device_ms'], padded_table=table,
+        phase_s=time.perf_counter() - t0)
+    rep[name] = rec
+    log(f'modes {name}: captured {rec["ms_per_step_captured"]:.3f} ms/step, '
+        f'eager {rec["ms_per_step_eager"]:.3f} (warm-up epoch '
+        f'{warm_ms:.3f}); device busy {rec["device_busy_ms_per_step"]:.3f} '
+        f'ms/step in {rec["device_ops_per_step"]:.1f} ops; peak '
+        f'{rec["peak_bytes_captured"]} B captured, {rec["peak_bytes_eager"]} '
+        f'B eager; losses {rec["losses"][0]:.4f} -> {rec["losses"][-1]:.4f}, '
+        f'vs eager max rel {loss_rel:.3g} (rtol {rtol}); launches '
+        f'{ {k: cap_ep["launches"][k] for k in want} }; batch: nodes '
+        f'{rec["num_sampled_nodes"]} overflow {rec["overflow"]}, logits vs '
+        f'CPU max abs {rec["max_abs_logit_diff"]:.3g}; {rec["phase_s"]:.1f} s '
+        f'on {smi}')
+    del cap, eag, cmodel, emodel, cstate, estate, out, batch, logits
+    if cuda:
+      torch.cuda.empty_cache()
+  return rep
+
+
+def noise_phase(torch, gtt, ds, device, n_nodes, windows, runs) -> dict:
+  """The noise two checks must stand (``--noise``): ``windows``
+  torch.profiler windows over a captured tree ScanTrainer epoch with no
+  lead and as many with PROFILE_LEAD_S, counting the windows whose
+  kernels fall short of the launch counters and those with fewer device
+  ops than the most any window saw; then ``runs`` merge per-step loops
+  from one start (the backward's scatter atomics sum in no fixed order,
+  so each run's last state differs), each last step's
+  :func:`cpu_step_readings`."""
+  import collections
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  pool = np.random.default_rng(4).permutation(n_nodes)[:BATCH * TRAIN_STEPS]
+  loader = make_loader(gtt, ds, pool, device, 'tree')
+  model, _ = make_model(torch, gtt, loader, device, 0)
+  model.train()
+  trainer = gtt.loader.ScanTrainer(loader, model, CLASSES,
+                                   chunk_size=TRAIN_CHUNK)
+  holder = [train.create_train_state(model, lr=LR)]
+
+  def epoch():
+    holder[0] = trainer.run_epoch(holder[0])[0]
+
+  epoch()
+  epoch()
+  rep = {}
+  for lead in (0.0, PROFILE_LEAD_S):
+    short, n_ops = 0, []
+    for _ in range(windows):
+      ops.reset_launch_counts()
+      prof = profiled(torch, epoch, 1, device, f'noise lead {lead}', lead)
+      counted = {k: v for k, v in ops.launch_counts().items()
+                 if k in PORT_KERNELS}
+      short += prof['kernels'] != counted
+      n_ops.append(prof['device_ops_per_call'])
+    rep[f'profiler_lead_{lead}'] = dict(
+        windows=windows, kernels_short=short,
+        fewer_ops=sum(n < max(n_ops, default=0) for n in n_ops),
+        device_ops=dict(collections.Counter(n_ops)))
+    log(f'noise: profiler lead {lead} s: {windows} windows, kernels short '
+        f'of the counters in {short}, fewer device ops than the most in '
+        f'{rep[f"profiler_lead_{lead}"]["fewer_ops"]}')
+  del trainer, model, holder
+  merge = make_loader(gtt, ds, pool, device, 'merge')
+  rep['merge_step'] = []
+  for r in range(runs):
+    model, _ = make_model(torch, gtt, merge, device, 0)
+    model.train()
+    state = train.create_train_state(model, lr=LR)
+    step_fn, _ = train.make_train_step(model, CLASSES)
+    it = iter(merge)
+    for i in range(TRAIN_STEPS):
+      d = train.batch_to_dict(next(it))
+      if i == TRAIN_STEPS - 1:
+        check = (copy.deepcopy(model.state_dict()),
+                 copy.deepcopy(state.optimizer.state_dict()),
+                 {k: (v.cpu() if torch.is_tensor(v) else v)
+                  for k, v in d.items()})
+        pre = []
+        hooks = relu_input_hooks(
+            model, lambda layer, z: pre.append(z.detach().clone()))
+      state, loss, _ = step_fn(state, d)
+    for h in hooks:
+      h.remove()
+    for _ in it:
+      raise AssertionError('the pool holds more batches than steps')
+    check += ([p.grad.detach().cpu() for p in model.parameters()],
+              [z.cpu() for z in pre])
+    c = cpu_step_readings(torch, gtt, merge, model, check, loss)
+    rep['merge_step'].append(c)
+    log(f'noise: merge run {r}: ReLU inputs {c["pre_diff"]:.3g} apart, '
+        f'{c["opposite"]} on opposite sides (largest '
+        f'{c["opposite_max_abs"]:.3g}); gradients {c["grad_share"]:.3g} of the '
+        f'largest (outside: {c["grad_fail"]}); Adam on the card\'s '
+        f'gradients {c["adam_diff"]:.3g} (outside: {c["adam_fail"]}); '
+        f'the CPU\'s plain step: gradients {c["plain_grad_share"]:.3g} of '
+        f'the largest, params {c["max_abs_param_diff"]:.3g} apart')
+  steps = rep['merge_step']
+  if steps:
+    outside = sum(bool(c['pre_fail'] or c['grad_fail'] or c['adam_fail'])
+                  for c in steps)
+    log('noise: merge runs: largest readings ' + ', '.join(
+        f'{k} {max(c[k] for c in steps):.3g}' for k in (
+            'pre_diff', 'grad_share', 'adam_diff', 'plain_grad_share',
+            'max_abs_param_diff')) +
+        f'; runs with inputs on opposite sides '
+        f'{sum(c["opposite"] > 0 for c in steps)}, outside a tolerance '
+        f'{outside}, plain params beyond 1e-5 '
+        f'{sum(c["max_abs_param_diff"] > 1e-5 for c in steps)} of '
+        f'{len(steps)}')
+  return rep
+
+
 def probe_phase(torch, device, reps, smi, profile=False):
   """Both probe suites at their sizes (their kernels' launch counters set
   to 0 before and read after), then the two probe kernels against their
@@ -2188,6 +2785,9 @@ def main(argv=None):
   ap.add_argument('--out', default=None, help='also write the report here')
   ap.add_argument('--rehearse', action='store_true',
                   help='CPU, tiny size, plain versions; no result line')
+  ap.add_argument('--noise', default=None, metavar='WINDOWS,RUNS',
+                  help='measure the profiler windows and the merge step '
+                  'noise instead of the phases; no result line')
   ap.add_argument('--profile', action='store_true',
                   help='also trace each phase with torch.profiler')
   args = ap.parse_args(argv)
@@ -2224,7 +2824,10 @@ def main(argv=None):
   with concurrent.futures.ThreadPoolExecutor(1) as pool:
     build = (pool.submit(kernels.build_all) if not args.rehearse else None)
     ei, feats, labels = make_graph(n_nodes, 25)
-    topo = gtt.data.Topology(ei, num_nodes=n_nodes)
+    # dyadic edge weights from a seed, for the weighted mode
+    weights = (np.random.default_rng(7).integers(1, 9, ei.shape[1]) /
+               4).astype(np.float32)
+    topo = gtt.data.Topology(ei, num_nodes=n_nodes, edge_weights=weights)
     t_graph = time.perf_counter() - t0
     built = build.result() if build is not None else {}
   report['build_s'] = built
@@ -2239,10 +2842,10 @@ def main(argv=None):
         seen.add(line)
         log(f'  ptxas {name}: {line}')
 
-  def dataset(dev):
+  def dataset(dev, graph=None, dtype=None):
     ds = gtt.data.Dataset(device=dev)
-    ds.graph = gtt.data.Graph(topo, dev)
-    ds.init_node_features(feats)
+    ds.graph = gtt.data.Graph(topo, dev) if graph is None else graph
+    ds.init_node_features(feats, dtype=dtype)
     ds.init_node_labels(labels)
     return ds
 
@@ -2250,6 +2853,15 @@ def main(argv=None):
   cpu_ds = dataset(torch.device('cpu'))
   gen = torch.Generator().manual_seed(0)
   phase_done('setup')
+  if args.noise:
+    windows, runs = (int(v) for v in args.noise.split(','))
+    report['noise'] = noise_phase(torch, gtt, ds, device, n_nodes, windows,
+                                  runs)
+    if args.out:
+      with open(args.out, 'w') as fh:
+        json.dump(report, fh, indent=1)
+    log('noise measured: no result line')
+    return 3
   report['kernels'] = kernel_phase(torch, gtt, ds, device, gen, reps)
   pool = np.random.default_rng(1).permutation(n_nodes)[:BATCH * BATCHES]
   t0 = time.perf_counter()
@@ -2300,6 +2912,19 @@ def main(argv=None):
         torch, gtt, ds, device, mode, caps, train_pool, steps,
         TRAIN_CHUNK if cuda else 2, smi, args.profile)
     phase_done(f'train_{mode}')
+  mode_steps = MODE_STEPS if cuda else 4
+  mode_pool = np.random.default_rng(6).permutation(n_nodes)[
+      :BATCH * mode_steps]
+  report['padded_windows'] = padded_window_times(torch, gtt, ds.graph,
+                                                 device, gen, reps)
+  cpu = torch.device('cpu')
+  report['modes'] = modes_phase(
+      torch, gtt, {False: ds, True: dataset(device, ds.graph, torch.bfloat16)},
+      {False: cpu_ds, True: dataset(cpu, cpu_ds.graph, torch.bfloat16)},
+      device, mode_pool, mode_steps, MODE_CHUNK if cuda else 2, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('modes')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   phase_done('probes')
   ktab = report['kernels']
@@ -2313,10 +2938,14 @@ def main(argv=None):
             for t in ('scan', 'scan_eager')]
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
+  for rec in report['modes'].values():
+    paths += [rec['launches'], rec['launches_eager'],
+              rec['inference_launches']]
   launches = {k: sum(c[k] for c in paths) for k in paths[0]}
   launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
                                   launches['row_gather_probe_vector'])
   keys_rec = ktab['step_keys']
+  draw_rec = ktab['uniform_draw'][0]
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -2353,6 +2982,14 @@ def main(argv=None):
            max_abs_err=keys_rec['max_abs_err'], ms=keys_rec['ms'],
            plain_ms=keys_rec['plain_ms'], bound_ms=keys_rec['bound_ms'],
            bound_by=keys_rec['bound_by'], library_ms=None),
+      dict(name='uniform_draw', route='cuda',
+           source='graphlearn_tpu_torch/csrc/uniform_draw.cu',
+           replaces='graphlearn_tpu/ops/neighbor.py:282',
+           launches=launches['uniform_draw'],
+           max_abs_err=max(r['max_abs_err'] for r in ktab['uniform_draw']),
+           ms=draw_rec['ms'], plain_ms=draw_rec['plain_ms'],
+           bound_ms=draw_rec['bound_ms'], bound_by=draw_rec['bound_by'],
+           library_ms=None),
       dict(name='gather_runs', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_runs.cu',
            replaces='graphlearn_tpu/ops/gather_pallas.py:196',

@@ -23,8 +23,9 @@ class Dataset:
     self.node_labels = node_labels
     self.edge_dir = edge_dir
 
-  def init_graph(self, edge_index=None, num_nodes=None):
-    """Build the device Graph from ``[2, E]`` COO."""
+  def init_graph(self, edge_index=None, num_nodes=None, edge_weights=None):
+    """Build the device Graph from ``[2, E]`` COO (and optional ``[E]``
+    edge weights, for weighted sampling)."""
     if edge_index is None:
       return self
     if isinstance(edge_index, dict):
@@ -32,7 +33,7 @@ class Dataset:
                                 'slice of the port')
     topo = Topology(edge_index,
                     layout='CSR' if self.edge_dir == 'out' else 'CSC',
-                    num_nodes=num_nodes)
+                    num_nodes=num_nodes, edge_weights=edge_weights)
     self.graph = Graph(topo, self.device)
     return self
 

@@ -21,10 +21,13 @@ class Topology:
     edge_index: ``[2, E]`` COO (row, col).
     layout: storage layout, 'CSR' (grouped by src) or 'CSC' (by dst).
     num_nodes: optional node count.
+    edge_weights: optional ``[E]`` float weights in COO order, kept on
+      the host in the CSR's edge order (weighted sampling builds its row
+      CDF from them).
   """
 
   def __init__(self, edge_index, layout: str = 'CSR',
-               num_nodes: Optional[int] = None):
+               num_nodes: Optional[int] = None, edge_weights=None):
     if layout not in ('CSR', 'CSC'):
       raise ValueError(f'storage layout must be CSR or CSC, got {layout!r}')
     row = np.asarray(edge_index[0]).reshape(-1)
@@ -33,6 +36,13 @@ class Topology:
       num_nodes = int(max(row.max(initial=-1), col.max(initial=-1))) + 1
     key, other = (row, col) if layout == 'CSR' else (col, row)
     indptr, indices = coo_to_csr(key, other, num_nodes)
+    self.edge_weights = None
+    if edge_weights is not None:
+      w = np.asarray(edge_weights).reshape(-1)
+      if w.shape[0] != row.shape[0]:
+        raise ValueError(f'{w.shape[0]} edge weights for {row.shape[0]} '
+                         'edges')
+      self.edge_weights = w[np.argsort(key, kind='stable')]
     self.layout = layout
     self.indptr = indptr
     self.indices = indices.astype(np.int32)
@@ -72,6 +82,11 @@ class Graph:
   @property
   def num_nodes(self) -> int:
     return self.topo.num_nodes
+
+  @property
+  def edge_weights(self):
+    """The host ``[E]`` edge weights in CSR order, or None."""
+    return self.topo.edge_weights
 
   @property
   def num_edges(self) -> int:

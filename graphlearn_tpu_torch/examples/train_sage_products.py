@@ -10,10 +10,18 @@ feature signal, in-degrees from the products power-law fit), with its
 own numpy copy of the generator.
 
 - ``--dedup tree`` (default): tree batches, the layered ``tree_dense``
-  forward.
+  forward (the layered segment forward under ``--node-budget``, whose
+  truncated blocks the dense reshape cannot take).
 - ``--calibrate``: exact dedup (the merge engine) under calibrated
   frontier caps and the loader's overflow guard, the layered
   ``merge_dense`` forward.
+- ``--strategy block``: block (cluster) sampling over aligned 16-wide CSR
+  blocks; ``--padded-window W``: hops from a ``[N, W]`` padded table,
+  reseeded each epoch; ``--node-budget B``: every hop frontier clamped to
+  B nodes; ``--bf16-features``: a bfloat16 feature table;
+  ``--bf16-model``: bfloat16 compute in the convs (parameters, optimizer
+  and loss stay float32). The JAX example's flags, with its meanings and
+  defaults.
 
 Each epoch is the per-step loop ``loader -> batch_to_dict ->
 train_step``; losses stay on the device until the end, then a capped
@@ -135,6 +143,40 @@ def make_synthetic(num_nodes, avg_deg, num_classes, feat_dim, p_intra,
           num_classes)
 
 
+def make_loader(gtt, ds, args, seeds, shuffle, seed, cal_caps, device):
+  """The example's loader over ``seeds`` with the flags' sampling modes."""
+  return gtt.loader.NeighborLoader(
+      ds, args.fanout, seeds, batch_size=args.batch_size, shuffle=shuffle,
+      drop_last=shuffle, seed=seed, dedup=args.dedup, strategy=args.strategy,
+      node_budget=args.node_budget, padded_window=args.padded_window,
+      frontier_caps=cal_caps, device=device)
+
+
+def build_model(gtt, args, feat_dim, ncls, cal_caps, device, generator):
+  """GraphSAGE as the JAX example builds it
+  (``examples/train_sage_ogbn_products.py:283-313``): tree batches take
+  the layered forward over ``tree_hop_offsets`` (the dense reshape
+  without a node budget, the segment convs under one); exact-dedup
+  batches the layered ``merge_dense`` forward over ``merge_hop_offsets``;
+  ``--bf16-model`` runs the convs in bfloat16."""
+  import torch
+
+  from graphlearn_tpu_torch.models import train as train_lib
+  mdtype = torch.bfloat16 if args.bf16_model else None
+  if args.dedup == 'tree':
+    no, eo = train_lib.tree_hop_offsets(args.batch_size, args.fanout,
+                                        args.node_budget)
+    dense = dict(tree_dense=args.node_budget is None)
+  else:
+    no, eo = train_lib.merge_hop_offsets(args.batch_size, args.fanout,
+                                         args.node_budget, cal_caps)
+    dense = dict(merge_dense=True)
+  return gtt.models.GraphSAGE(
+      feat_dim, args.hidden, ncls, num_layers=len(args.fanout),
+      hop_node_offsets=no, hop_edge_offsets=eo, fanouts=args.fanout,
+      device=device, generator=generator, dtype=mdtype, **dense)
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--data-dir', default=os.environ.get('OGBN_DATA', ''))
@@ -162,6 +204,22 @@ def main(argv=None):
   ap.add_argument('--calibrate', action='store_true',
                   help='exact dedup under calibrated frontier caps and the '
                        "loader's overflow guard (implies --dedup map)")
+  ap.add_argument('--bf16-features', action='store_true',
+                  help='store the feature table in bfloat16')
+  ap.add_argument('--bf16-model', action='store_true',
+                  help='bfloat16 compute in the convs; parameters, '
+                       'optimizer and loss stay float32')
+  ap.add_argument('--padded-window', type=int, default=None,
+                  help='sample from a dense [N, W] padded adjacency (rows '
+                       'with deg > W sample a W-subset, reseeded each '
+                       'epoch)')
+  ap.add_argument('--node-budget', type=int, default=None,
+                  help='clamp every hop frontier to this many nodes '
+                       '(truncates expansion beyond the budget)')
+  ap.add_argument('--strategy', default='random',
+                  choices=['random', 'block'],
+                  help="'block': cluster sampling over aligned 16-wide CSR "
+                       'blocks (exact uniform marginals)')
   ap.add_argument('--device', default=None,
                   help="torch device (default: the card; 'cpu' to run on "
                        'the CPU)')
@@ -191,7 +249,8 @@ def main(argv=None):
   t0 = time.time()
   ds = gtt.data.Dataset(device=device)
   ds.init_graph(ei, num_nodes=feat.shape[0])
-  ds.init_node_features(feat)
+  ds.init_node_features(
+      feat, dtype=torch.bfloat16 if args.bf16_features else None)
   ds.init_node_labels(label)
   print(f'# dataset built on {device} in {time.time() - t0:.1f}s', flush=True)
 
@@ -208,25 +267,12 @@ def main(argv=None):
     print(f'# calibrated frontier caps {cal_caps} in '
           f'{time.time() - t0:.1f}s', flush=True)
 
-  def make_loader(seeds, shuffle, seed):
-    return gtt.loader.NeighborLoader(
-        ds, args.fanout, seeds, batch_size=args.batch_size, shuffle=shuffle,
-        drop_last=shuffle, seed=seed, dedup=args.dedup,
-        frontier_caps=cal_caps, device=device)
-
-  loader = make_loader(train_idx, True, args.seed)
-  test_loader = make_loader(test_idx, False, args.seed + 1)
-  tree = args.dedup == 'tree'
-  if tree:
-    no, eo = train_lib.tree_hop_offsets(args.batch_size, args.fanout)
-  else:
-    no, eo = train_lib.merge_hop_offsets(args.batch_size, args.fanout,
-                                         cal_caps)
-  model = gtt.models.GraphSAGE(
-      feat.shape[1], args.hidden, ncls, num_layers=len(args.fanout),
-      hop_node_offsets=no, hop_edge_offsets=eo, tree_dense=tree,
-      merge_dense=not tree, fanouts=args.fanout, device=device,
-      generator=torch.Generator().manual_seed(args.seed))
+  loader = make_loader(gtt, ds, args, train_idx, True, args.seed, cal_caps,
+                       device)
+  test_loader = make_loader(gtt, ds, args, test_idx, False, args.seed + 1,
+                            cal_caps, device)
+  model = build_model(gtt, args, feat.shape[1], ncls, cal_caps, device,
+                      torch.Generator().manual_seed(args.seed))
   state = train_lib.create_train_state(model, lr=args.lr)
   train_step, _ = train_lib.make_train_step(model, ncls)
   eval_counts = train_lib.make_eval_counts(model)
@@ -275,6 +321,9 @@ def main(argv=None):
       'source': src, 'device': (torch.cuda.get_device_name(device) if cuda
                                 else 'cpu'),
       'dedup': args.dedup, 'frontier_caps': cal_caps,
+      'strategy': args.strategy, 'padded_window': args.padded_window,
+      'node_budget': args.node_budget, 'bf16_features': args.bf16_features,
+      'bf16_model': args.bf16_model,
       'epochs': args.epochs, 'steps_per_epoch': len(loader),
       'epoch_time_s': round(float(np.mean(epoch_times)), 3),
       'epoch_times': [round(t, 3) for t in epoch_times],

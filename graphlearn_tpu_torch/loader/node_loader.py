@@ -5,8 +5,9 @@ is the JAX package's numpy batcher, so the shuffled seed order is the
 same in both packages for the same seed. ``NodeLoader`` samples and
 collates each batch, under the calibrated-caps overflow guard
 (``OverflowGuardMixin``) when the sampler runs the merge engine with
-``frontier_caps``. The JAX loader's flight recorder and metrics are not
-ported.
+``frontier_caps``. Under a padded-window sampler every epoch after the
+first starts with a reseed of the padded table (``_begin_epoch``). The
+JAX loader's flight recorder and metrics are not ported.
 """
 from typing import Optional
 import warnings
@@ -201,13 +202,27 @@ class NodeLoader(OverflowGuardMixin):
     self.input_seeds = np.asarray(self.input_seeds).reshape(-1)
     self.batch_size = batch_size
     self._init_overflow_policy(overflow_policy)
+    self._epochs_started = 0     # epochs begun (the padded reseed's count)
     self._batcher = SeedBatcher(len(self.input_seeds), batch_size, shuffle,
                                 drop_last, seed)
 
   def __len__(self):
     return len(self._batcher)
 
+  def _begin_epoch(self):
+    """The per-epoch padded-table reseed (``graphlearn_tpu/loader/
+    node_loader.py:_begin_epoch``): none on the first epoch, one
+    ``refresh_padded_table()`` on every later one, so rows with deg >
+    window expose a fresh random window-subset each epoch. A no-op for
+    other samplers. The one counter lives here, so every epoch loop
+    (``__iter__``, ``ScanTrainer``, ``OverlappedTrainer``) shares it."""
+    if getattr(self.sampler, 'padded_window', None) is not None:
+      if self._epochs_started > 0:
+        self.sampler.refresh_padded_table()
+      self._epochs_started += 1
+
   def __iter__(self):
+    self._begin_epoch()
     guarded, recompute = self._overflow_epoch_start()
     for idx in self._batcher:
       inp = NodeSamplerInput(self.input_seeds[idx], self.input_type)

@@ -166,6 +166,10 @@ class OverlappedTrainer(FusedEpochTrainer):
     guarded, recompute = self.loader._overflow_epoch_start()
     if recompute:
       raise ValueError(_RECOMPUTE_MSG)
+    # the batches bypass NodeLoader.__iter__, so the padded-table reseed
+    # is driven here, on the caller's stream, before the side stream
+    # waits for it (after the refusal: a refused epoch reseeds nothing)
+    self.loader._begin_epoch()
     device = self.loader.device
     main = None
     if device.type == 'cuda':

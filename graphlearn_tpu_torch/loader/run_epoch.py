@@ -42,8 +42,9 @@ counts them too (Adam's own step tensor counts the updates made).
 ``stage_hook`` / ``ack_hook`` and the recovery protocol are
 ``ScanTrainer``'s; a snapshot adds the eval carry as ``eval:*`` arrays, so
 ``recovery.ChunkCheckpointer`` attaches unchanged and a crash resumes at
-the last chunk boundary of the right epoch. JAX's refusal of
-padded-window sampling is not needed: the port has no padded window yet.
+the last chunk boundary of the right epoch. Padded-window sampling is
+refused, as in JAX: its table is reseeded between epochs, and a run's
+chunks cross epoch boundaries (run a ``ScanTrainer`` per epoch there).
 
 Usage::
 
@@ -105,6 +106,13 @@ class RunTrainer(ScanTrainer):
     if patience is not None and not track_eval:
       raise ValueError('patience requires track_eval=True: the early-stop '
                        'flag is a function of the eval metric')
+    if getattr(self._sampler, 'padded_window', None) is not None:
+      raise ValueError(
+          f'{self._NAME} cannot fold padded-window sampling into one run: '
+          'the padded table is reseeded between epochs '
+          '(NodeLoader._begin_epoch) and a run\'s chunks cross epoch '
+          'boundaries. Run a ScanTrainer per epoch there, or drop '
+          'padded_window')
     self.epochs = int(epochs)
     self.patience = None if patience is None else int(patience)
     self.min_delta = float(min_delta)

@@ -62,8 +62,16 @@ does). A hook runs between chunks, never inside a capture.
 ``run_epoch(start_step=, resume_overflow=)`` resumes an epoch at a chunk
 boundary, and ``_recovery_config`` / ``_recovery_capture`` /
 ``_recovery_load`` / ``_recovery_advance`` are the protocol the
-checkpointer drives (JAX's, without the padded-window branches: the
-port has no padded window yet). Not ported: spans and flight records,
+checkpointer drives (JAX's, with its padded-window branches: a snapshot
+carries the padded table's seed and the loader's epoch count, and a
+resumed epoch rebuilds the interrupted epoch's table).
+
+Padded-window sampling: every epoch starts with the loader's
+``_begin_epoch`` (no reseed on the first, one ``refresh_padded_table()``
+on each later one), as in JAX. JAX re-fetches the table for each epoch's
+program; a CUDA graph keeps the addresses it captured, so the sampler
+rebuilds the table into the same tensors and every replay samples the
+epoch's table. Not ported: spans and flight records,
 the program observatory, the tuned ``config=``, the fault sites and
 ``DistScanTrainer``.
 
@@ -256,6 +264,7 @@ class ScanTrainer(FusedEpochTrainer):
     guarded, recompute = self.loader._overflow_epoch_start()
     if recompute:
       raise ValueError(_RECOMPUTE_MSG)
+    self.loader._begin_epoch()
     full_steps = self._epoch_steps()
     steps = full_steps
     truncated = max_steps is not None and max_steps < steps
@@ -445,20 +454,41 @@ class ScanTrainer(FusedEpochTrainer):
   def _recovery_capture(self, carry):
     """``(meta, device tensors)`` a boundary snapshot carries beyond the
     train state: the sampler's stream position (its base key and
-    counter, still at the epoch-start value while the epoch runs)."""
+    counter, still at the epoch-start value while the epoch runs) and,
+    under padded-window sampling, the padded table's seed and the
+    loader's count of epochs begun."""
     del carry
-    return {'sampler': self._sampler.state_dict()}, {}
+    meta = {'sampler': self._sampler.state_dict()}
+    if getattr(self._sampler, 'padded_window', None) is not None:
+      meta['padded'] = {'seed': int(self._sampler._padded_seed),
+                        'epochs_started': int(self.loader._epochs_started)}
+    return meta, {}
 
   def _recovery_load(self, meta, arrays):
     """Rewind this (fresh) trainer to the snapshot's epoch: the sampler's
-    stream and the epoch index."""
+    stream, the epoch index and, under padded-window sampling, the
+    padded counters, set so that ``run_epoch``'s own ``_begin_epoch``
+    lands the table on the interrupted epoch's seed (no reseed for a
+    first epoch, one otherwise)."""
     del arrays   # the local trainer carries no extra device state
     self._sampler.load_state_dict(meta['sampler'])
     self._epochs = int(meta['epoch'])
+    pad = meta.get('padded')
+    if pad:
+      es = int(pad['epochs_started'])
+      first = es <= 1
+      self.loader._epochs_started = 0 if first else es - 1
+      self._sampler._reseed_padded(int(pad['seed']) - (0 if first else 1))
 
   def _recovery_advance(self, meta):
     """A snapshot of a finished epoch resumes past it: the counters land
-    where the epoch's end left them."""
+    where the epoch's end left them, the padded counters at the values
+    taken during that epoch (the next ``_begin_epoch`` reseeds onto the
+    following epoch's table)."""
     self._sampler.load_state_dict(meta['sampler'])
     self._sampler._call_count += int(meta['steps'])
     self._epochs = int(meta['epoch']) + self._epochs_per_run
+    pad = meta.get('padded')
+    if pad:
+      self.loader._epochs_started = int(pad['epochs_started'])
+      self._sampler._reseed_padded(int(pad['seed']))

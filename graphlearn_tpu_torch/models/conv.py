@@ -5,9 +5,31 @@ the ``segment_*_agg`` aggregators and ``SAGEConv``). ``edge_index`` is
 ``[2, E]`` with ``row`` the message source and ``col`` the target; -1
 pads. Aggregation scatters into ``n + 1`` segments and drops the last,
 where every invalid edge goes.
+
+``dtype`` (e.g. ``torch.bfloat16``) is the compute dtype, as flax's
+``dtype=``: the input is cast to it, the aggregation runs in it, and the
+weights and bias are cast to it for the product (``dense``), while the
+parameters stay float32 (``nn.Linear`` master weights), so autograd
+returns float32 gradients and Adam runs in float32.
 """
 import torch
 from torch import nn
+
+
+def dense(lin: nn.Linear, x, dtype=None):
+  """flax ``nn.Dense(dtype=dtype)`` over ``lin``'s float32 parameters:
+  the product in ``dtype`` (the weight cast to it), then the bias added
+  in ``dtype``. ``dtype=None`` computes in the promoted type of the input
+  and the parameters, as flax does (a bfloat16 feature table under a
+  float32 model: float32)."""
+  if dtype is None:
+    dtype = torch.promote_types(x.dtype, lin.weight.dtype)
+    if x.dtype == dtype == lin.weight.dtype:
+      return lin(x)
+  y = torch.matmul(x.to(dtype), lin.weight.to(dtype).t())
+  if lin.bias is not None:
+    y = y + lin.bias.to(dtype)
+  return y
 
 
 def _masked_targets(col, edge_mask, num_nodes: int):
@@ -63,19 +85,23 @@ class SAGEConv(nn.Module):
   """
 
   def __init__(self, in_dim: int, out_dim: int, aggr: str = 'mean',
-               use_bias: bool = True):
+               use_bias: bool = True, dtype=None):
     super().__init__()
     if aggr not in _AGGS:
       raise ValueError(f'aggr must be one of {sorted(_AGGS)}, got {aggr!r}')
     self.aggr = aggr
+    self.dtype = dtype
     self.lin_self = nn.Linear(in_dim, out_dim, bias=use_bias)
     self.lin_nbr = nn.Linear(in_dim, out_dim, bias=False)
 
   def forward(self, x, edge_index, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
     n = x.shape[0]
     row, col = edge_index[0], edge_index[1]
     src = x[torch.clamp(row, min=0).to(torch.int64)]
     src.masked_fill_((row < 0)[:, None], 0)
     agg = _AGGS[self.aggr](src, col, edge_mask, n)
     del src
-    return self.lin_self(x) + self.lin_nbr(agg)
+    return dense(self.lin_self, x, self.dtype) + \
+        dense(self.lin_nbr, agg, self.dtype)

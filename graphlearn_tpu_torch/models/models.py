@@ -4,8 +4,10 @@ Counterpart of ``graphlearn_tpu/models/models.py``: ``_tree_blocks``,
 ``_masked_run_mean`` / ``_masked_flat_run_mean`` (the 'reshape'
 implementation), ``TreeSAGEConv``, ``MergeSAGEConv`` and ``GraphSAGE``
 either without hop offsets (the segment forward over ``SAGEConv``, with
-the ``layers=(lo, hi)`` slice the serving tier runs) or with hop offsets
-and ``tree_dense=True`` or ``merge_dense=True``.
+the ``layers=(lo, hi)`` slice the serving tier runs) or with hop offsets:
+the layered segment forward (no dense flag: ``SAGEConv`` over each
+layer's node and edge prefix, what node_budget-truncated tree batches
+take), or ``tree_dense=True`` or ``merge_dense=True``.
 
 - In a tree batch the children of slot ``s`` of depth block ``d`` are
   the contiguous slots ``[o_d + s*k_d, o_d + (s+1)*k_d)``, so mean
@@ -16,7 +18,9 @@ and ``tree_dense=True`` or ``merge_dense=True``.
   reshape-mean and one dense block write per hop.
 
 Parameter names follow the flax modules (``conv{i}``, ``lin_self``,
-``lin_nbr``) so ``models.convert`` maps one onto the other.
+``lin_nbr``) so ``models.convert`` maps one onto the other. ``dtype`` is
+the compute dtype of every conv, as flax's (``conv.dense``): inputs,
+aggregation, products and the logits in it, the parameters float32.
 """
 from typing import Optional, Sequence
 
@@ -24,7 +28,7 @@ import torch
 from torch import nn
 
 from ..utils import resolve_device
-from .conv import SAGEConv
+from .conv import SAGEConv, dense
 
 
 def _tree_blocks(node_offsets, fanouts, n_rows):
@@ -70,15 +74,18 @@ class TreeSAGEConv(nn.Module):
 
   def __init__(self, in_dim: int, out_dim: int, node_offsets: Sequence[int],
                fanouts: Sequence[int], use_bias: bool = True,
-               out_rows: Optional[int] = None):
+               out_rows: Optional[int] = None, dtype=None):
     super().__init__()
     self.node_offsets = tuple(node_offsets)
     self.fanouts = tuple(fanouts)
     self.out_rows = out_rows
+    self.dtype = dtype
     self.lin_self = nn.Linear(in_dim, out_dim, bias=use_bias)
     self.lin_nbr = nn.Linear(in_dim, out_dim, bias=False)
 
   def forward(self, x, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
     blocks, eo = _tree_blocks(self.node_offsets, self.fanouts, x.shape[0])
     no = self.node_offsets
     r = x.shape[0] if self.out_rows is None else int(self.out_rows)
@@ -99,7 +106,8 @@ class TreeSAGEConv(nn.Module):
     assert agg.shape[0] == r, (
         f'out_rows={r} must align with the tree block structure '
         f'{no} (got coverage {agg.shape[0]})')
-    return self.lin_self(x[:r]) + self.lin_nbr(agg)
+    return dense(self.lin_self, x[:r], self.dtype) + \
+        dense(self.lin_nbr, agg, self.dtype)
 
 
 class MergeSAGEConv(nn.Module):
@@ -122,15 +130,18 @@ class MergeSAGEConv(nn.Module):
 
   def __init__(self, in_dim: int, out_dim: int, edge_offsets: Sequence[int],
                fanouts: Sequence[int], use_bias: bool = True,
-               out_rows: Optional[int] = None):
+               out_rows: Optional[int] = None, dtype=None):
     super().__init__()
     self.edge_offsets = tuple(edge_offsets)
     self.fanouts = tuple(fanouts)
     self.out_rows = out_rows
+    self.dtype = dtype
     self.lin_self = nn.Linear(in_dim, out_dim, bias=use_bias)
     self.lin_nbr = nn.Linear(in_dim, out_dim, bias=False)
 
   def forward(self, x, edge_index, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
     n = x.shape[0] if self.out_rows is None else int(self.out_rows)
     row, col = edge_index[0], edge_index[1]
     acc = x.new_zeros((n, x.shape[-1]))
@@ -162,7 +173,8 @@ class MergeSAGEConv(nn.Module):
       acc.index_copy_(0, start + ar.to(torch.int64),
                       torch.where(ok[:, None], mean, 0.0))
       e0 = e1
-    return self.lin_self(x[:n]) + self.lin_nbr(acc)
+    return dense(self.lin_self, x[:n], self.dtype) + \
+        dense(self.lin_nbr, acc, self.dtype)
 
 
 class GraphSAGE(nn.Module):
@@ -175,66 +187,69 @@ class GraphSAGE(nn.Module):
   ``l`` processes only the node/edge prefix its depth needs
   (``hop_node_offsets`` / ``hop_edge_offsets``, from
   ``models.train.tree_hop_offsets`` for tree batches or
-  ``merge_hop_offsets`` for merge batches), and intermediate layers
-  produce only the next layer's rows. ``tree_dense=True`` aggregates
-  with ``TreeSAGEConv``, ``merge_dense=True`` with ``MergeSAGEConv``
-  (mutually exclusive). ReLU follows every layer but the last.
-  ``device=None`` means the card. Weights are drawn on the CPU from
-  ``generator`` (nn.Linear's default distribution) and then moved, so a
-  seed gives the same model on every device.
-
-  The layered segment forward (hop offsets without a dense flag) is not
-  ported yet.
+  ``merge_hop_offsets`` for merge batches, with the loader's
+  ``node_budget``): with neither dense flag each layer is a ``SAGEConv``
+  over ``x[:n_in]`` and the edge prefix ``[:e_used]`` (the layered
+  segment forward; any ``aggr``); ``tree_dense=True`` aggregates with
+  ``TreeSAGEConv`` (un-truncated tree batches only), ``merge_dense=True``
+  with ``MergeSAGEConv`` (mutually exclusive; both mean-only), and the
+  intermediate dense layers produce only the next layer's rows. ReLU
+  follows every layer but the last. ``dtype`` is the convs' compute dtype
+  (``conv.dense``; the logits come out in it, the parameters stay
+  float32). ``device=None`` means the card. Weights are drawn on the CPU
+  from ``generator`` (nn.Linear's default distribution) and then moved,
+  so a seed gives the same model on every device.
   """
 
   def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                num_layers: int = 3, hop_node_offsets=None,
                hop_edge_offsets=None, tree_dense: bool = False,
                merge_dense: bool = False, fanouts=None, aggr: str = 'mean',
-               device=None, generator: Optional[torch.Generator] = None):
+               device=None, generator: Optional[torch.Generator] = None,
+               dtype=None):
     super().__init__()
     device = resolve_device(device)
-    self.segment = (hop_node_offsets is None and not tree_dense and
-                    not merge_dense)
-    self.merge_dense = merge_dense
+    layered = hop_node_offsets is not None
+    self.segment = not layered
+    self.tree_dense, self.merge_dense = tree_dense, merge_dense
     self.num_layers = num_layers
     self.out_dim = out_dim
-    if self.segment:
-      self.hop_node_offsets = self.hop_edge_offsets = self.fanouts = None
-      for i in range(num_layers):
-        dim_in = in_dim if i == 0 else hidden_dim
-        dim = out_dim if i == num_layers - 1 else hidden_dim
-        self.add_module(f'conv{i}', SAGEConv(dim_in, dim, aggr=aggr))
-      self.reset_parameters(generator)
-      self.to(device)
-      return
-    if tree_dense == merge_dense or hop_node_offsets is None or \
-        aggr != 'mean':
-      raise NotImplementedError(
-          'GraphSAGE: the port has the segment forward (no hop offsets, '
-          'no dense flag) and the layered tree_dense and merge_dense mean '
-          'forwards (one of them, with hop offsets and fanouts); the '
-          'layered segment forward comes later')
-    assert fanouts is not None, (
-        'the dense forwards require the loader fanouts')
-    assert len(hop_node_offsets) >= num_layers + 1 and \
-        len(hop_edge_offsets) >= num_layers
-    self.hop_node_offsets = tuple(hop_node_offsets)
-    self.hop_edge_offsets = tuple(hop_edge_offsets)
-    self.fanouts = tuple(fanouts)
+    self.dtype = dtype
+    if tree_dense or merge_dense:
+      if not layered or tree_dense == merge_dense:
+        raise ValueError('tree_dense / merge_dense need hop offsets and '
+                         'exclude each other')
+      if aggr != 'mean':
+        raise ValueError('the dense forwards implement mean aggregation')
+      assert fanouts is not None, (
+          'the dense forwards require the loader fanouts (they guard '
+          'against a node_budget-truncated layout)')
+    if layered:
+      assert hop_edge_offsets is not None and \
+          len(hop_node_offsets) >= num_layers + 1 and \
+          len(hop_edge_offsets) >= num_layers
+      self.hop_node_offsets = tuple(hop_node_offsets)
+      self.hop_edge_offsets = tuple(hop_edge_offsets)
+    else:
+      self.hop_node_offsets = self.hop_edge_offsets = None
+    self.fanouts = None if fanouts is None else tuple(fanouts)
     for i in range(num_layers):
       dim_in = in_dim if i == 0 else hidden_dim
       dim = out_dim if i == num_layers - 1 else hidden_dim
-      hops_used = num_layers - i
-      out_rows = (self.hop_node_offsets[hops_used - 1]
-                  if i < num_layers - 1 else None)
-      if merge_dense:
-        conv = MergeSAGEConv(dim_in, dim, self.hop_edge_offsets[:hops_used],
-                             self.fanouts[:hops_used], out_rows=out_rows)
+      if not (tree_dense or merge_dense):
+        conv = SAGEConv(dim_in, dim, aggr=aggr, dtype=dtype)
       else:
-        conv = TreeSAGEConv(dim_in, dim,
-                            self.hop_node_offsets[:hops_used + 1],
-                            self.fanouts[:hops_used], out_rows=out_rows)
+        hops_used = num_layers - i
+        out_rows = (self.hop_node_offsets[hops_used - 1]
+                    if i < num_layers - 1 else None)
+        if merge_dense:
+          conv = MergeSAGEConv(
+              dim_in, dim, self.hop_edge_offsets[:hops_used],
+              self.fanouts[:hops_used], out_rows=out_rows, dtype=dtype)
+        else:
+          conv = TreeSAGEConv(
+              dim_in, dim, self.hop_node_offsets[:hops_used + 1],
+              self.fanouts[:hops_used], out_rows=out_rows, dtype=dtype)
       self.add_module(f'conv{i}', conv)
     self.reset_parameters(generator)
     self.to(device)
@@ -269,19 +284,22 @@ class GraphSAGE(nn.Module):
     assert layers is None, (
         'layer slices run the plain segment forward — build the serving '
         'model without hop offsets / dense flags')
+    # a mismatched batch (another batch_size, fanouts or node_budget, or
+    # the other engine's layout) would slice the wrong rows silently
     assert self.hop_node_offsets[self.num_layers] == x.shape[0], (
         f'layered forward: hop offsets {self.hop_node_offsets} do not match '
-        f'the batch node buffer ({x.shape[0]}); build them with '
-        'models.train.tree_hop_offsets (tree batches) or merge_hop_offsets '
-        '(merge batches) from the loader\'s batch_size and fanouts')
+        f'the batch node buffer ({x.shape[0]}); build them from the same '
+        'batch_size/fanouts/node_budget as the loader: '
+        'models.train.tree_hop_offsets for tree batches, merge_hop_offsets '
+        'for exact-dedup batches')
     for i, conv in enumerate(self.convs()):
       hops_used = self.num_layers - i
       n_in = self.hop_node_offsets[hops_used]
       e_used = self.hop_edge_offsets[hops_used - 1]
-      if self.merge_dense:
-        x = conv(x[:n_in], edge_index[:, :e_used], edge_mask[:e_used])
-      else:
+      if self.tree_dense:
         x = conv(x[:n_in], edge_mask[:e_used])
+      else:
+        x = conv(x[:n_in], edge_index[:, :e_used], edge_mask[:e_used])
       if i < self.num_layers - 1:
         x = torch.relu(x)
     return x

@@ -145,18 +145,20 @@ def make_eval_counts(model):
   return eval_counts
 
 
-def tree_hop_offsets(batch_cap: int, fanouts):
+def tree_hop_offsets(batch_cap: int, fanouts, node_budget=None):
   """(hop_node_offsets, hop_edge_offsets) for the layered forward over
-  tree batches: the sampler's own layout plan."""
-  return tree_layout(batch_cap, list(fanouts))
+  tree batches: the sampler's own layout plan (``node_budget`` as the
+  loader's)."""
+  return tree_layout(batch_cap, list(fanouts), node_budget)
 
 
-def merge_hop_offsets(batch_cap: int, fanouts, frontier_caps=None):
+def merge_hop_offsets(batch_cap: int, fanouts, node_budget=None,
+                      frontier_caps=None):
   """(hop_node_offsets, hop_edge_offsets) for the layered forward over
   merge (exact-dedup) batches: the sampler's own capacity plan and merge
   layout (prefix widths = cumulative clamped frontier caps, edge blocks
   ``caps[i] * k`` wide)."""
-  caps = capacity_plan(batch_cap, list(fanouts), frontier_caps)
+  caps = capacity_plan(batch_cap, list(fanouts), node_budget, frontier_caps)
   return merge_layout_from_caps(caps, list(fanouts))
 
 

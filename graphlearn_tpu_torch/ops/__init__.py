@@ -3,13 +3,14 @@ hop keys of a chunk of steps.
 
 The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the fused
 hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
-chunk's ``step_keys`` and the probes' ``row_gather_probe``, one counter
-per route, and ``smem_take``) keep launch counters; ``launch_counts``
+chunk's ``step_keys``, the sampling backends' draw ``draw.uniform`` and
+the probes' ``row_gather_probe``, one counter per route, and
+``smem_take``) keep launch counters; ``launch_counts``
 reads them (``sample_hop`` and ``sample_level`` name the two sampling
 kernels), ``reset_launch_counts`` sets them to 0 and
 ``add_launch_counts`` adds a recorded set (a CUDA graph's replay).
 """
-from . import gather, kernels, keys, probes, sample_fused
+from . import draw, gather, kernels, keys, probes, sample_fused
 from .collate import collate_batch
 from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
                      gather_rows_hbm2, gather_rows_hbm2_plain,
@@ -18,7 +19,11 @@ from .induce_merge import (MergeInducerState, induce_next_merge,
                            init_node_merge)
 from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree
 from .keys import step_keys
-from .neighbor import uniform_sample
+from .neighbor import (BLOCK, build_padded_adjacency,
+                       build_padded_adjacency_device, build_row_cumsum,
+                       choose_padded_window, padded_table_stats,
+                       uniform_sample, uniform_sample_block,
+                       uniform_sample_padded, weighted_sample)
 from .probes import (row_gather_probe, row_gather_probe_plain,
                      row_gather_route, smem_take, smem_take_plain)
 from .sample_fused import (LevelScratch, sample_hop_fused,
@@ -34,6 +39,7 @@ _COUNTERS = {
     'sample_hop': (sample_fused, 'launches'),
     'sample_level': (sample_fused, 'level_launches'),
     'step_keys': (keys, 'launches'),
+    'uniform_draw': (draw, 'launches'),
     'row_gather_probe_bulk': (probes, 'row_gather_bulk_launches'),
     'row_gather_probe_vector': (probes, 'row_gather_vector_launches'),
     'smem_take': (probes, 'smem_take_launches'),

@@ -165,11 +165,13 @@ def induce_next_merge(state: MergeInducerState, src_idx, nbrs, nbr_mask,
 
   # -- sort #2: candidate locals back to flat order (a scatter to the
   # unique flat positions) ------------------------------------------------
+  # (each candidate position appears once; state entries go to a spare
+  # last slot, so the scatter needs no boolean index and no host sync)
   cand = valid & ~is_state
-  is_cand = ~is_state
-  cols = torch.empty((size,), dtype=torch.int32, device=dev)
-  cols[(pay_s[is_cand] - _MARK).long()] = torch.where(
-      cand, local_all, -1)[is_cand]
+  at = torch.where(is_state, size, pay_s - _MARK).long()
+  cols = torch.empty((size + 1,), dtype=torch.int32, device=dev)
+  cols.scatter_(0, at, torch.where(cand, local_all, -1))
+  cols = cols[:size]
   # edges to overflow-truncated winners (local idx past the stored
   # region) are masked out; a no-op on unclamped plans
   emask = flat_mask & (cols >= 0) & (cols < num_nodes + num_kept)
@@ -177,9 +179,11 @@ def induce_next_merge(state: MergeInducerState, src_idx, nbrs, nbr_mask,
   rows = torch.where(emask, repeat_each(src_idx, k), -1)
 
   # -- sort #3: winners -> the append block (a scatter to their ranks) --
-  block = torch.full((limit,), FILL, dtype=state.nodes.dtype, device=dev)
   kept = winner & (rank < limit)
-  block[rank[kept].long()] = keys_s[kept]
+  block = torch.full((limit + 1,), FILL, dtype=state.nodes.dtype, device=dev)
+  block.scatter_(0, torch.where(kept, rank, limit).long(),
+                 torch.where(kept, keys_s, FILL))
+  block = block[:limit]
   nodes = append_block(state.nodes, block, num_nodes)
   frontier, frontier_idx, fin = merge_frontier(block, size, num_nodes,
                                                num_kept)

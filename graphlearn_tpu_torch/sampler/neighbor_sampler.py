@@ -1,21 +1,42 @@
-"""Multi-hop neighbor sampler, homogeneous: the tree and merge engines.
+"""Multi-hop neighbor sampler, homogeneous: the tree and merge engines
+over the JAX package's four sampling backends.
 
-Counterpart of ``graphlearn_tpu/sampler/neighbor_sampler.py`` for
-uniform sampling. The JAX package compiles the whole multi-hop sample
-into one program (``_fused_homo_fn``); PyTorch runs eagerly, so the same
-program is a Python loop over hops, over static capacities:
+Counterpart of ``graphlearn_tpu/sampler/neighbor_sampler.py``. The JAX
+package compiles the whole multi-hop sample into one program
+(``_fused_homo_fn``); PyTorch runs eagerly, so the same program is a
+Python loop over hops, over static capacities. Each hop is routed as
+``_fused_homo_fn`` routes it:
 
-- ``dedup='tree'`` (alias 'none'): each hop is the fused CSR hop
-  (``ops.sample_hop_fused``: one launch of the hop kernel on the card,
-  the threefry draw inside it) followed by the positional tree inducer;
-  hop i's frontier is ``batch_cap * prod(fanouts[:i])`` slots.
-- ``dedup='auto'`` (the default, as in the JAX package; aliases 'map',
-  'sort', 'merge'): exact dedup. Each level is ``ops.sample_level_fused``
-  (on the card three launches of the level kernel, over a scratch the
-  sampler keeps per batch capacity and begins once per batch; on the CPU
-  the draw and the merge inducer). ``frontier_caps`` clamps the per-hop
-  frontiers (``sampler.calibrate``); a batch whose new nodes exceed a cap
-  is truncated and raises the on-device ``metadata['overflow']`` flag.
+- ``padded_window`` (an int or 'auto'): ``ops.uniform_sample_padded`` over
+  a ``[N, W]`` table of each row's shuffled first W neighbours, built on
+  the device (``ops.build_padded_adjacency_device``) from the key of
+  ``_padded_seed`` when first needed; the loaders reseed it between
+  epochs (``refresh_padded_table``), in place.
+- ``strategy='block'``: ``ops.uniform_sample_block`` over the
+  FILL-padded ``[E/16, 16]`` view of the indices.
+- ``with_weight=True`` (on a graph with edge weights):
+  ``ops.weighted_sample`` over the exact row CDF
+  (``ops.build_row_cumsum``, built on the host once).
+- otherwise uniform: the tree engine takes the fused hop
+  (``ops.sample_hop_fused``: one launch of the hop kernel on the card),
+  the merge engine the fused level (``ops.sample_level_fused``: three
+  launches of the level kernel over a scratch the sampler keeps per node
+  capacity, begun once per batch).
+
+The padded, block and weighted hops draw through ``ops.draw.uniform``
+(one launch on the card) and are followed by the engine's own inducer:
+``induce_next_tree`` or ``induce_next_merge``, as in JAX, which never
+routes them through its level kernel.
+
+- ``dedup='tree'`` (alias 'none'): the positional tree inducer; hop i's
+  frontier is ``caps[i] = min(caps[i-1] * k, node_budget)`` slots.
+- ``dedup='auto'`` (the default; aliases 'map', 'sort', 'merge'): exact
+  dedup. ``frontier_caps`` clamps the per-hop frontiers
+  (``sampler.calibrate``) and ``node_budget`` every one of them; a batch
+  whose new nodes exceed a clamped cap is truncated and raises the
+  on-device ``metadata['overflow']`` flag. Only ``frontier_caps`` make
+  the loaders' overflow guard watch the flag (``clamped_exact``):
+  ``node_budget`` truncation is the caller's stated trade, as in JAX.
 
 The PRNG stream is the JAX package's: one key per batch by ``fold_in``
 of a host call counter into the base key, one key per hop by ``split``.
@@ -37,6 +58,7 @@ import torch
 from .. import metrics, ops
 from .. import random as trandom
 from ..data import Graph
+from ..ops.unique import FILL
 from .base import NodeSamplerInput, SamplerOutput
 
 
@@ -44,14 +66,16 @@ def _round_up(n: int, multiple: int = 8) -> int:
   return max(multiple, ((n + multiple - 1) // multiple) * multiple)
 
 
-def capacity_plan(batch_cap: int, fanouts, frontier_caps=None):
+def capacity_plan(batch_cap: int, fanouts, node_budget=None,
+                  frontier_caps=None):
   """Per-hop frontier capacities ``[b, c1, ...]``: ``c_{i+1} = c_i * k_i``
-  clamped by ``frontier_caps[i]`` (the calibrated post-dedup caps of
-  ``sampler.calibrate``). The JAX package's node_budget clamp comes with
-  the sampling-menu slice."""
+  clamped by ``node_budget`` and by ``frontier_caps[i]`` (the calibrated
+  post-dedup caps of ``sampler.calibrate``)."""
   caps = [batch_cap]
   for i, k in enumerate(fanouts):
     nxt = caps[-1] * k
+    if node_budget is not None:
+      nxt = min(nxt, node_budget)
     if frontier_caps is not None and i < len(frontier_caps) and \
         frontier_caps[i] is not None:
       nxt = min(nxt, frontier_caps[i])
@@ -89,10 +113,11 @@ def merge_layout_from_caps(caps, fanouts):
   return tuple(node_offs), tuple(edge_offs)
 
 
-def tree_layout(batch_cap: int, fanouts):
+def tree_layout(batch_cap: int, fanouts, node_budget=None):
   """(hop_node_offsets, hop_edge_offsets): the one layout plan shared by
   the sampler's buffers and the layered model forward."""
-  return tree_layout_from_caps(capacity_plan(batch_cap, fanouts), fanouts)
+  return tree_layout_from_caps(capacity_plan(batch_cap, fanouts,
+                                             node_budget), fanouts)
 
 
 def _tree_node_cap(caps, fanouts) -> int:
@@ -103,8 +128,8 @@ def _tree_node_cap(caps, fanouts) -> int:
 def _later(what: str, slice_name: str):
   return NotImplementedError(
       f'{what} is not ported yet: it comes with the {slice_name} slice '
-      '(the port samples homogeneous graphs uniformly, with the tree and '
-      'merge engines)')
+      '(the port samples homogeneous graphs, with the tree and merge '
+      'engines)')
 
 
 class NeighborSampler:
@@ -114,16 +139,22 @@ class NeighborSampler:
     graph: a homogeneous ``Graph``.
     num_neighbors: per-hop fanouts.
     device: torch device (None means the card); must be the graph's.
+    with_weight: edge-weight-biased sampling (on a graph built with
+      ``edge_weights``; without them the hops are uniform, as in JAX).
+    strategy: 'random' (uniform) or 'block' (cluster sampling over
+      aligned 16-wide CSR blocks; fanouts up to 16).
     seed: PRNG seed (None = 0).
+    node_budget: clamp on every hop's frontier capacity.
     dedup: 'auto' (default; also 'map', 'sort', 'merge') runs the merge
       exact-dedup engine, 'tree' (or its alias 'none') the positional
       tree engine. The legacy 'map_table' / 'sort_legacy' engines come
       with the sampling-menu slice.
+    padded_window: sample from a ``[N, W]`` padded table (an int W, or
+      'auto': ``ops.choose_padded_window``); uniform sampling only.
     frontier_caps: per-hop post-dedup frontier caps (a list, e.g. from
       ``sampler.calibrate.estimate_frontier_caps``); exact-dedup only.
 
-  The options of the JAX sampler that other slices port raise
-  ``NotImplementedError``.
+  ``with_edge`` and heterogeneous graphs raise ``NotImplementedError``.
   """
 
   def __init__(self, graph: Graph, num_neighbors=None, device=None,
@@ -134,44 +165,66 @@ class NeighborSampler:
     from ..utils import resolve_device
     if isinstance(graph, dict):
       raise _later('heterogeneous sampling', 'hetero')
-    if with_weight:
-      raise _later('weighted sampling', 'sampling-menu')
-    if strategy != 'random':
-      raise _later(f'strategy={strategy!r}', 'sampling-menu')
-    if padded_window is not None:
-      raise _later('padded_window', 'sampling-menu')
-    if node_budget is not None:
-      raise _later('node_budget', 'sampling-menu')
     if with_edge:
       raise _later('with_edge', 'sampling-menu')
     if isinstance(num_neighbors, dict):
       raise _later('per-edge-type fanouts', 'hetero')
-    # the only values the port takes, kept under the JAX sampler's names
-    # (the recovery fingerprint reads them)
-    self.with_weight, self.strategy = with_weight, strategy
-    self.padded_window = padded_window
     self.dedup = dedup
     mode = self._dedup_mode()
     if frontier_caps is not None:
       if mode == 'tree':
         # tree frontiers are un-deduped (positional): clamping them with
-        # post-dedup caps would silently truncate most samples
+        # post-dedup caps would silently truncate most samples; budget
+        # truncation on tree batches is node_budget's job
         raise ValueError('frontier_caps requires an exact-dedup mode '
-                         '(auto/map/sort/merge), not the tree engine')
+                         "(map/sort/merge); use node_budget with "
+                         "dedup='tree'")
       if isinstance(frontier_caps, dict):
         raise ValueError('dict-form frontier_caps is hetero-only; pass '
                          'a per-hop list on homogeneous graphs')
       frontier_caps = tuple(frontier_caps)
     self.frontier_caps = frontier_caps
+    fo = list(num_neighbors) if num_neighbors is not None else []
+    # the JAX sampler's validation, in its order and words
+    if padded_window == 'auto':
+      if not fo:
+        raise ValueError("padded_window='auto' needs a fanout list")
+      padded_window = ops.choose_padded_window(fo)
+    if strategy == 'block':
+      if with_weight:
+        raise ValueError('block sampling does not support weights')
+      if padded_window is not None:
+        raise ValueError("strategy='block' and padded_window are "
+                         'mutually exclusive sampling backends')
+      if fo and max(fo) > ops.BLOCK:
+        raise ValueError(f'block sampling caps fanouts at {ops.BLOCK}')
+    if padded_window is not None:
+      if with_weight:
+        raise ValueError('padded_window does not support weighted '
+                         'sampling')
+      if fo and padded_window < max(fo):
+        raise ValueError(
+            f'padded_window={padded_window} < max fanout {max(fo)}: '
+            'rows with degree > window would silently under-sample '
+            '(the table caps per-row candidates at the window)')
+    self.with_weight, self.strategy = with_weight, strategy
+    self.padded_window = padded_window
+    self.node_budget = node_budget
     self.device = resolve_device(device)
     if graph.device != self.device:
       raise ValueError(f'graph lives on {graph.device}, sampler asked for '
                        f'{self.device}')
     self.graph = graph
-    self.num_neighbors = list(num_neighbors)
+    self.num_neighbors = fo
     self._key = trandom.PRNGKey(0 if seed is None else seed)
     self._call_count = 0    # host-side PRNG stream position
+    self._padded_seed = 0 if seed is None else seed
     self._scratch = {}      # node capacity -> the level kernel's scratch
+    # the backends' device arrays, built at first use: the padded table
+    # (reseeded in place), the block view, the row CDF
+    self._padded = None
+    self._blocks = None
+    self._cumsum = None
 
   def _dedup_mode(self) -> str:
     """The engine: 'tree' for 'tree'/'none', 'merge' for
@@ -184,11 +237,25 @@ class NeighborSampler:
       raise _later(f'dedup={self.dedup!r}', 'sampling-menu')
     raise ValueError(f'unknown dedup mode {self.dedup!r}')
 
+  @property
+  def weighted(self) -> bool:
+    """Weighted hops: ``with_weight`` on a graph that has edge weights."""
+    return self.with_weight and self.graph.edge_weights is not None
+
+  def _backend(self) -> str:
+    """The hop op: 'padded', 'block', 'weighted' or 'fused' (the hop or
+    level kernel)."""
+    if self.padded_window is not None:
+      return 'padded'
+    if self.strategy == 'block':
+      return 'block'
+    return 'weighted' if self.weighted else 'fused'
+
   def hop_caps(self, batch_cap: int):
     """The resolved per-hop frontier capacities: a batch truncated under
     calibrated caps has ``num_sampled_nodes[i+1] > hop_caps[i+1]``."""
-    return capacity_plan(batch_cap, self.num_neighbors,
-                         frontier_caps=self.frontier_caps)
+    return capacity_plan(batch_cap, self.num_neighbors, self.node_budget,
+                         self.frontier_caps)
 
   @property
   def clamped_exact(self) -> bool:
@@ -198,9 +265,9 @@ class NeighborSampler:
     return self.frontier_caps is not None and self._dedup_mode() == 'merge'
 
   def uncapped_clone(self) -> 'NeighborSampler':
-    """A sampler sharing this one's graph and PRNG base, without
-    frontier_caps: the full-capacity replay target of the overflow
-    guard's 'recompute' policy."""
+    """A sampler sharing this one's graph, PRNG base and backend arrays,
+    without frontier_caps: the full-capacity replay target of the
+    overflow guard's 'recompute' policy."""
     clone = copy.copy(self)
     clone.frontier_caps = None
     clone._scratch = {}
@@ -224,6 +291,65 @@ class NeighborSampler:
     if 'base_key' in state:
       self._key = torch.as_tensor(state['base_key'], dtype=torch.int64)
 
+  # ------------------------------------------------------ backend arrays
+
+  def _build_padded(self):
+    g = self.graph
+    tab, deg, _ = ops.build_padded_adjacency_device(
+        g.indptr, g.indices, self.padded_window,
+        trandom.PRNGKey(self._padded_seed))
+    return dict(tab=tab, deg=deg)
+
+  def _padded_arrays(self):
+    """The ``[N, W]`` padded table and its ``[N]`` degrees, built on the
+    device from ``PRNGKey(_padded_seed)`` at first use (JAX builds it
+    lazily too). A reseed writes into these tensors, so a captured CUDA
+    graph that read them samples the new table."""
+    if self._padded is None:
+      self._padded = self._build_padded()
+    return self._padded
+
+  def _reseed_padded(self, seed: int):
+    """Set the padded table's seed; a built table is rebuilt from it in
+    place (JAX drops its cached table and rebuilds lazily: the same
+    table, but a captured graph keeps the old one's address)."""
+    self._padded_seed = int(seed)
+    if self._padded is not None:
+      new = self._build_padded()
+      for name, t in self._padded.items():
+        t.copy_(new[name])
+
+  def refresh_padded_table(self, seed: Optional[int] = None):
+    """A fresh shuffle of the padded table, so rows with deg > window
+    sample a new random window-subset: the loaders call it between
+    epochs."""
+    if self.padded_window is None:
+      return
+    self._reseed_padded(self._padded_seed + 1 if seed is None else seed)
+
+  def _block_arrays(self):
+    """(FILL-padded ``[ceil(E/16), 16]`` view of the indices, ``[N, 2]``
+    (start, degree) table), built on the device at first use."""
+    if self._blocks is None:
+      ind = self.graph.indices
+      pad = (-ind.shape[0]) % ops.BLOCK
+      if pad:
+        ind = torch.cat([ind, ind.new_full((pad,), FILL)])
+      self._blocks = (ind.reshape(-1, ops.BLOCK), self.graph.csr_meta)
+    return self._blocks
+
+  def _cumsum_for(self):
+    """The exact float32 row CDF of the edge weights (built on the host
+    once, ``ops.build_row_cumsum``), on the sampler's device."""
+    if self._cumsum is None:
+      g = self.graph
+      if g.edge_weights is None:
+        raise ValueError('with_weight=True requires edge_weights')
+      self._cumsum = torch.as_tensor(
+          ops.build_row_cumsum(g.topo.indptr, g.edge_weights)).to(
+              self.device)
+    return self._cumsum
+
   def _level_scratch(self, state, prefix_len: int):
     """The level kernel's scratch for this batch's node capacity, begun
     from the seeds' state (one launch); None on the CPU."""
@@ -237,6 +363,28 @@ class NeighborSampler:
       self._scratch[cap] = scratch
     return scratch.begin(state, prefix_len)
 
+  # ---------------------------------------------------------------- hops
+
+  def _hop(self, backend, frontier, fmask, k, key):
+    """``(nbrs, mask)`` of one padded, block, weighted or tree hop."""
+    g = self.graph
+    if backend == 'padded':
+      pa = self._padded_arrays()
+      nbrs, _, m = ops.uniform_sample_padded(pa['tab'], pa['deg'], frontier,
+                                             fmask, k, key)
+    elif backend == 'block':
+      blocks, meta = self._block_arrays()
+      nbrs, _, m = ops.uniform_sample_block(meta, blocks, g.num_edges,
+                                            frontier, fmask, k, key)
+    elif backend == 'weighted':
+      nbrs, _, m = ops.weighted_sample(g.indptr, g.indices,
+                                       self._cumsum_for(), frontier, fmask,
+                                       k, key)
+    else:
+      nbrs, _, m = ops.sample_hop_fused(g.indptr, g.indices, None, frontier,
+                                        fmask, k, key, meta=g.csr_meta)
+    return nbrs, m
+
   def _sample(self, seeds, seed_mask, key=None, hop_keys=None):
     """The multi-hop program (``_fused_homo_fn``) under the batch key
     ``key`` (split here into one key per hop) or the ``[n_hops, 2]``
@@ -246,11 +394,13 @@ class NeighborSampler:
     caps = self.hop_caps(batch_cap)
     g = self.graph
     merge = self._dedup_mode() == 'merge'
+    backend = self._backend()
+    level = merge and backend == 'fused'    # the fused level kernel
     if merge:
       state, frontier, fmask, inv = ops.init_node_merge(
           seeds, seed_mask, capacity=sum(caps))
       node_offs, _ = merge_layout_from_caps(caps, fanouts)
-      scratch = self._level_scratch(state, batch_cap)
+      scratch = self._level_scratch(state, batch_cap) if level else None
     else:
       state, frontier, fmask, inv = ops.init_node_tree(
           seeds, seed_mask, capacity=_tree_node_cap(caps, fanouts))
@@ -259,8 +409,8 @@ class NeighborSampler:
     rows, cols, emasks = [], [], []
     nodes_per_hop = [state.num_nodes]
     edges_per_hop = []
-    # on-device truncation flag: True iff a clamped hop found more new
-    # nodes than its cap kept (constant False on unclamped plans)
+    # on-device truncation flag: True iff a clamped merge hop found more
+    # new nodes than its cap kept (constant False on unclamped plans)
     overflow = torch.zeros((), dtype=torch.bool, device=seeds.device)
     if hop_keys is None:
       keys = trandom.split(key, len(fanouts))
@@ -269,20 +419,23 @@ class NeighborSampler:
     else:
       keys = hop_keys
     for i, k in enumerate(fanouts):
-      if merge:
+      final = i + 1 == len(fanouts)
+      if level:
         state, out, _, _ = ops.sample_level_fused(
             g.indptr, g.indices, None, frontier, fmask, k, keys[i], state,
             fidx, meta=g.csr_meta, prefix_cap=node_offs[i],
-            max_new=caps[i + 1], final=(i + 1 == len(fanouts)),
-            scratch=scratch)
-        if caps[i + 1] < caps[i] * k:
-          overflow = overflow | (out['num_new'] > caps[i + 1])
+            max_new=caps[i + 1], final=final, scratch=scratch)
       else:
-        nbrs, _, m = ops.sample_hop_fused(
-            g.indptr, g.indices, None, frontier, fmask, k, keys[i],
-            meta=g.csr_meta)
-        state, out = ops.induce_next_tree(state, fidx, nbrs, m,
-                                          node_offs[i])
+        nbrs, m = self._hop(backend, frontier, fmask, k, keys[i])
+        if merge:
+          state, out = ops.induce_next_merge(
+              state, fidx, nbrs, m, prefix_cap=node_offs[i],
+              max_new=caps[i + 1], update_view=not final)
+        else:
+          state, out = ops.induce_next_tree(state, fidx, nbrs, m,
+                                            node_offs[i])
+      if merge and caps[i + 1] < caps[i] * k:
+        overflow = overflow | (out['num_new'] > caps[i + 1])
       rows.append(out['cols'])     # message direction: neighbor -> seed
       cols.append(out['rows'])
       emasks.append(out['edge_mask'])
@@ -315,10 +468,11 @@ class NeighborSampler:
     mask = np.arange(cap) < n
     if key is None:
       key = self._next_key()
-    # the reference's kernel-path counters: one per sampler call, the
-    # level kernel under the merge engine, the hop kernel otherwise
-    metrics.inc('ops.fused_level_calls' if self._dedup_mode() == 'merge'
-                else 'ops.fused_hop_calls')
+    # the reference's kernel-path counters: one per sampler call routed
+    # through the level kernel (merge) or the hop kernel (tree)
+    if self._backend() == 'fused':
+      metrics.inc('ops.fused_level_calls' if self._dedup_mode() == 'merge'
+                  else 'ops.fused_hop_calls')
     seeds_d = torch.as_tensor(padded).to(self.device)
     mask_d = torch.as_tensor(mask).to(self.device)
     res = self._sample(seeds_d, mask_d, key)

@@ -83,3 +83,31 @@ def test_counter_delta_matches_jax(name, calls, expect):
   port_calls()
   assert _count(jreg, name) - j0 == expect
   assert _count(treg, name) - t0 == expect
+
+
+@pytest.mark.parametrize('kw', [dict(strategy='block'),
+                                dict(padded_window=8),
+                                dict(with_weight=True)])
+@pytest.mark.parametrize('dedup', ['tree', 'merge'])
+def test_other_backends_count_no_kernel_calls(kw, dedup):
+  """The padded, block and weighted hops never route through the hop or
+  level kernel, in either package (JAX refuses ``use_fused_hop`` with
+  them): neither kernel-path counter moves."""
+  ei, n, rng = _graph()
+  w = (rng.integers(1, 8, ei.shape[1]) / 2).astype(np.float32)
+  jg = glt.data.Graph(glt.data.Topology(ei, edge_weights=w, num_nodes=n),
+                      'CPU')
+  tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=n, edge_weights=w),
+                      device='cpu')
+  js = glt.sampler.NeighborSampler(jg, [3, 2], seed=1, dedup=dedup, **kw)
+  ts = gtt.sampler.NeighborSampler(tg, [3, 2], seed=1, dedup=dedup,
+                                   device='cpu', **kw)
+  jreg, treg = jmetrics.default_registry(), metrics.default_registry()
+  names = ('ops.fused_hop_calls', 'ops.fused_level_calls')
+  before = [(_count(jreg, c), _count(treg, c)) for c in names]
+  for _ in range(2):
+    seeds = rng.integers(0, n, 8)
+    js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds))
+    ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds))
+  after = [(_count(jreg, c), _count(treg, c)) for c in names]
+  assert after == before

@@ -31,8 +31,13 @@ the captured ScanTrainer against the eager one, also when it is given
 another Adam state between epochs; a captured crash and resume; a
 checkpointed captured epoch with no host sync; the captured RunTrainer
 against the eager one and ScanTrainer epochs, its early stop, and its
-resume inside an epoch; and OverlappedTrainer against the per-step
-loop.
+resume inside an epoch; OverlappedTrainer against the per-step
+loop; the uniform draw kernel against ``random.uniform`` (device, host
+and split keys); the block, padded, weighted and node_budget batches on
+both engines against the CPU's, with the draw, hop and level launches
+they make; the captured ScanTrainer on a reseeded padded table; a
+padded-window crash and resume; and bf16 train steps on both engines
+against the CPU.
 """
 import contextlib
 import copy
@@ -503,7 +508,7 @@ def _scan_pair(cuda, mode, chunk):
   # unclamped merge: the clamped guard's epoch-end check is a host sync
   caps = None
   if mode == 'merge':
-    no, eo = train.merge_hop_offsets(b, fanouts, caps)
+    no, eo = train.merge_hop_offsets(b, fanouts, frontier_caps=caps)
   else:
     no, eo = train.tree_hop_offsets(b, fanouts)
   out = []
@@ -704,7 +709,7 @@ def test_train_step_on_card_matches_cpu(cuda, mode):
         ds, fanouts, pool, batch_size=b, dedup=mode, frontier_caps=caps,
         device=dev)
     if mode == 'merge':
-      no, eo = train.merge_hop_offsets(b, fanouts, caps)
+      no, eo = train.merge_hop_offsets(b, fanouts, frontier_caps=caps)
     else:
       no, eo = train.tree_hop_offsets(b, fanouts)
     model = gtt.models.GraphSAGE(
@@ -762,7 +767,7 @@ class _Small:
     self.cuda, self.mode, self.shuffle, self.f = cuda, mode, shuffle, f
     # unclamped merge: the clamped guard's epoch-end check is a host sync
     if mode == 'merge':
-      self.offsets = train.merge_hop_offsets(self.b, self.fanouts, None)
+      self.offsets = train.merge_hop_offsets(self.b, self.fanouts)
     else:
       self.offsets = train.tree_hop_offsets(self.b, self.fanouts)
 
@@ -986,3 +991,196 @@ def test_run_trainer_captured_resume(cuda, mode, tmp_path):
   assert int(rep['epochs_run']) == 2 and not bool(rep['stopped'])
   assert float(rep['eval_metric'][0]) == float(
       snap.arrays['extra:eval:metrics'][0])
+
+
+# ------------------------------------ the draw kernel and the other modes
+
+
+@pytest.mark.parametrize('shape', [(0,), (1,), (7, 3), (153600, 5),
+                                   (15360, 10), (2 ** 20 + 3,)])
+def test_uniform_draw_kernel_matches_plain(cuda, shape):
+  """One launch, bit-equal to ``random.uniform`` on the same key: a device
+  key, the same key from the host, and a row of a device ``split``."""
+  key = gtt.random.fold_in(gtt.random.PRNGKey(4), 2 ** 32 - 1)
+  dkey = gtt.random.to_device(key, cuda)
+  row = gtt.random.split(dkey, 3)[1]
+  before = ops.launch_counts()['uniform_draw']
+  for k in (dkey, key, row):
+    got = ops.draw.uniform(k, shape, device=cuda)
+    ref = gtt.random.uniform(k.to(cuda), shape, cuda)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert torch.equal(got, ref)
+  n = int(np.prod(shape))
+  assert ops.launch_counts()['uniform_draw'] == before + 3 * (n > 0)
+
+
+def _mode_graph(cuda_or_cpu, weights=True):
+  rng = np.random.default_rng(17)
+  n = 3000
+  ei = np.stack([rng.integers(0, n, 60000), rng.zipf(1.5, 60000) % n])
+  ei[0, :900] = 5                    # a hub row above every window
+  w = rng.integers(1, 16, ei.shape[1]).astype(np.float32) / 4
+  ds = gtt.data.Dataset(device=cuda_or_cpu)
+  ds.init_graph(ei, num_nodes=n, edge_weights=w if weights else None)
+  return ds, n
+
+
+_CARD_MODES = {
+    'block': (dict(strategy='block'), 2),
+    'padded': (dict(padded_window='auto'), 1),
+    'weighted': (dict(with_weight=True), 1),
+    'budget': (dict(node_budget=500), 0),
+}
+
+
+@pytest.mark.parametrize('dedup', ['tree', 'merge'])
+@pytest.mark.parametrize('mode', sorted(_CARD_MODES))
+def test_mode_batches_on_card_match_cpu(cuda, mode, dedup):
+  """Three batches of each mode on the card equal the CPU's field for
+  field; the padded, block and weighted hops draw through the kernel
+  (2 launches a block hop, 1 otherwise), the uniform ones through the hop
+  or level kernel."""
+  kw, draws = _CARD_MODES[mode]
+  fanouts = [10, 5, 3]
+  outs = {}
+  for dev in (cuda, torch.device('cpu')):
+    ds, n = _mode_graph(dev)
+    s = gtt.sampler.NeighborSampler(ds.graph, fanouts, device=dev, seed=5,
+                                    dedup=dedup, **kw)
+    if dev.type == 'cuda':
+      if s.padded_window is not None:
+        s._padded_arrays()        # the table's build draws once
+      ops.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    outs[dev.type] = [s.sample_from_nodes(gtt.sampler.NodeSamplerInput(
+        np.concatenate([[5, n - 1], rng.integers(0, n, 60)])), batch_cap=64)
+        for _ in range(3)]
+    if dev.type == 'cuda':
+      counts = ops.launch_counts()
+  for a, b in zip(outs['cuda'], outs['cpu']):
+    for name in ('node', 'num_nodes', 'row', 'col', 'edge_mask'):
+      assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    assert torch.equal(a.metadata['overflow'].cpu(), b.metadata['overflow'])
+  assert counts['uniform_draw'] == 3 * len(fanouts) * draws
+  uniform = mode == 'budget'
+  if dedup == 'tree':
+    assert counts['sample_hop'] == (3 * len(fanouts) if uniform else 0)
+    assert counts['sample_level'] == 0
+  else:
+    assert counts['sample_level'] == (3 * (3 * len(fanouts) + 1) if uniform
+                                      else 0)
+    assert counts['sample_hop'] == 0
+
+
+class _SmallPadded(_Small):
+  """``_Small`` on the padded-window sampler (tree engine, W = 8)."""
+
+  def loader(self):
+    return gtt.loader.NeighborLoader(
+        self.ds, self.fanouts, self.pool, batch_size=self.b,
+        shuffle=self.shuffle, seed=3, dedup='tree', padded_window=8,
+        device=self.cuda)
+
+
+def test_captured_scan_trainer_samples_the_reseeded_table(cuda):
+  """A captured padded-window ScanTrainer over three epochs against an
+  eager one from the same weights: the reseed writes into the captured
+  table, so every replayed epoch's losses stay within rtol 1e-4 of the
+  eager epoch's (a replay on last epoch's table would part at once), and
+  each epoch's table differs from the one before."""
+  s = _SmallPadded(cuda, 'tree')
+  cap, cstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=2)
+  eag, estate = s.trainer(gtt.loader.ScanTrainer, chunk_size=2,
+                          capture=False)
+  tabs = []
+  for _ in range(3):
+    cstate, closs, _ = cap.run_epoch(cstate)
+    estate, eloss, _ = eag.run_epoch(estate)
+    torch.testing.assert_close(closs, eloss, rtol=1e-4, atol=0)
+    tab = cap._sampler._padded_arrays()['tab']
+    assert torch.equal(tab, eag._sampler._padded_arrays()['tab'])
+    tabs.append(tab.clone())
+  assert cap._graphs and cap._sampler._padded_seed == 5
+  assert not torch.equal(tabs[0], tabs[1])
+  assert not torch.equal(tabs[1], tabs[2])
+
+
+def test_padded_captured_crash_resume_replays_the_table(cuda, tmp_path):
+  """A captured padded-window ScanTrainer crashed in its second epoch
+  (on the reseeded table) and resumed in a fresh captured trainer: the
+  resumed epoch's losses within rtol 1e-4 of the uninterrupted epoch's,
+  on the same table."""
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer
+  s = _SmallPadded(cuda, 'tree')
+  ref, rstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=1)
+  victim, vstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=1)
+  for tr, st in ((ref, rstate), (victim, vstate)):
+    tr.run_epoch(st)
+  rstate, rlosses, _ = ref.run_epoch(rstate)
+  ck = ChunkCheckpointer(str(tmp_path), every=1).attach(victim)
+
+  def killer(c, start, k):
+    if c == 2:
+      raise RuntimeError('injected crash')
+
+  victim.stage_hook = killer
+  with pytest.raises(RuntimeError, match='injected'):
+    victim.run_epoch(vstate)
+  ck.close()
+  assert ck.latest().meta['padded'] == {'seed': 4, 'epochs_started': 2}
+  fresh, template = s.trainer(gtt.loader.ScanTrainer, seed=7, chunk_size=1)
+  state, losses, _ = ChunkCheckpointer(str(tmp_path)).resume_epoch(
+      fresh, template)
+  torch.testing.assert_close(torch.as_tensor(losses), rlosses.cpu(),
+                             rtol=1e-4, atol=0)
+  assert torch.equal(fresh._sampler._padded_arrays()['tab'],
+                     ref._sampler._padded_arrays()['tab'])
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_bf16_train_steps_on_card_match_cpu(cuda, mode):
+  """Three bf16 train steps (a bf16 feature table and bf16 compute, as
+  the example's --bf16-features --bf16-model) on the card against the
+  CPU from the same weights: losses within 3e-2 relative (bf16 keeps 8
+  significant bits and the two devices sum in other orders; the merge
+  backward's bf16 index_add_ adds in no fixed order), parameters and
+  Adam's moments float32 on the card."""
+  from graphlearn_tpu_torch.models import train
+  rng = np.random.default_rng(12)
+  n, f, c, fanouts, b = 2000, 32, 7, [5, 4, 3], 64
+  ei = np.stack([rng.integers(0, n, 40000), rng.zipf(1.5, 40000) % n])
+  feats = rng.standard_normal((n, f)).astype(np.float32)
+  labels = rng.integers(0, c, n)
+  pool = rng.permutation(n)[:3 * b]
+  runs = {}
+  for dev in (cuda, torch.device('cpu')):
+    ds = gtt.data.Dataset(device=dev)
+    ds.init_graph(ei, num_nodes=n)
+    ds.init_node_features(feats, dtype=torch.bfloat16)
+    ds.init_node_labels(labels)
+    loader = gtt.loader.NeighborLoader(ds, fanouts, pool, batch_size=b,
+                                       dedup=mode, device=dev)
+    if mode == 'merge':
+      no, eo = train.merge_hop_offsets(b, fanouts)
+    else:
+      no, eo = train.tree_hop_offsets(b, fanouts)
+    model = gtt.models.GraphSAGE(
+        f, 64, c, num_layers=3, hop_node_offsets=no, hop_edge_offsets=eo,
+        tree_dense=mode == 'tree', merge_dense=mode == 'merge',
+        fanouts=fanouts, device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model)
+    step, _ = train.make_train_step(model, c)
+    losses = []
+    for batch in loader:
+      assert batch.x.dtype == torch.bfloat16
+      state, loss, _ = step(state, train.batch_to_dict(batch))
+      losses.append(loss.cpu())
+    runs[dev.type] = (torch.stack(losses), model, state)
+  torch.testing.assert_close(runs['cuda'][0], runs['cpu'][0], rtol=3e-2,
+                             atol=0)
+  model, state = runs['cuda'][1], runs['cuda'][2]
+  for p in model.parameters():
+    assert p.dtype == torch.float32
+    assert state.optimizer.state[p]['exp_avg'].dtype == torch.float32

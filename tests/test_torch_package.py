@@ -134,7 +134,7 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
                                  'sample_hop': 0, 'sample_level': 0,
                                  'step_keys': 0, 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
-                                 'smem_take': 0}
+                                 'smem_take': 0, 'uniform_draw': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -155,8 +155,10 @@ def test_kernel_wrappers_refuse_mixed_devices():
     ops.sample_level_fused(indptr, ind, None, seeds, mask, 2, key, state,
                            torch.arange(2, dtype=torch.int32),
                            prefix_cap=2)
+  with pytest.raises(ValueError, match='no kernel'):
+    ops.draw.uniform(key, (3, 2), device='meta')
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
                                  'step_keys': 0, 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
-                                 'smem_take': 0}
+                                 'smem_take': 0, 'uniform_draw': 0}

@@ -179,3 +179,22 @@ def test_recompute_refused():
   tr.loader.overflow_policy = 'recompute'
   with pytest.raises(ValueError, match='recompute'):
     tr.run_epoch(ttrain.create_train_state(tr.model))
+
+
+def test_overlapped_reseeds_the_padded_window_as_the_loop_does():
+  """Under padded-window sampling each later epoch starts on a reseeded
+  table (``_begin_epoch``): two overlapped epochs equal two loop epochs
+  bit for bit, table seed included."""
+  kw = dict(padded_window=4, dedup='tree', shuffle=True)
+  loader, model, _, want = _loop(2, **kw)
+  tr = gtt.loader.OverlappedTrainer(_loader(**kw), _model(), C)
+  state = ttrain.create_train_state(tr.model)
+  got = []
+  for _ in range(2):
+    state, losses = tr.run_epoch(state)
+    got += losses
+  assert torch.equal(torch.stack(got), want)
+  for a, b in zip(_params(tr.model), _params(model)):
+    assert torch.equal(a, b)
+  assert tr.loader._epochs_started == loader._epochs_started == 2
+  assert tr._sampler._padded_seed == loader.sampler._padded_seed == 1

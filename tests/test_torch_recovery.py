@@ -403,7 +403,8 @@ def _jax_trainer(chunk=K, **kw):
 
 
 @pytest.mark.parametrize('kw', [dict(), dict(shuffle=False, drop_last=True),
-                                dict(dedup='tree')])
+                                dict(dedup='tree'),
+                                dict(dedup='tree', padded_window=4)])
 def test_recovery_config_fingerprint_matches_jax(kw):
   """For the same loader configuration both packages' recovery configs,
   and so their fingerprints, are equal."""
@@ -449,3 +450,96 @@ def test_crash_resume_agrees_with_jax(tmp_path):
                                **TOL)
   assert fresh._sampler._call_count == jfresh._sampler._call_count
   assert fresh._epochs == jfresh._epochs
+
+
+# ------------------------------------------- padded-window recovery branches
+
+PADDED = dict(padded_window=4, dedup='tree')
+
+
+@pytest.fixture(scope='module')
+def padded_ref():
+  """Two uninterrupted padded-window epochs (the second on a reseeded
+  table), with each epoch's table."""
+  trainer, state = _trainer(**PADDED)
+  out = {}
+  for e in range(2):
+    state, losses, accs = trainer.run_epoch(state)
+    out[e] = dict(losses=losses.numpy(), accs=accs.numpy(),
+                  params=_params(trainer.model),
+                  tab=trainer._sampler._padded_arrays()['tab'].clone(),
+                  seed=trainer._sampler._padded_seed)
+  return out
+
+
+def test_padded_capture_meta_matches_jax():
+  """A boundary snapshot's padded counters: the table's seed and the
+  loader's epochs begun, as the JAX trainer records them."""
+  jt = _jax_trainer(**PADDED)[0]
+  pt = gtt.loader.ScanTrainer(_loader(**PADDED), _model(), C, chunk_size=K)
+  for _ in range(2):
+    jt.loader._begin_epoch()
+    pt.loader._begin_epoch()
+    jmeta, _ = jt._recovery_capture(None)
+    tmeta, _ = pt._recovery_capture(None)
+    assert tmeta['padded'] == jmeta['padded']
+  assert tmeta['padded'] == {'seed': 1, 'epochs_started': 2}
+
+
+@pytest.mark.parametrize('crash_epoch', [0, 1])
+def test_padded_crash_resume_rebuilds_the_epochs_table(padded_ref, tmp_path,
+                                                       crash_epoch):
+  """A padded-window epoch killed at chunk 1 (in the first epoch, or in
+  the second, after a reseed) resumes in a fresh trainer on the same
+  table: its losses, accuracies and parameters are the uninterrupted
+  run's bit for bit, and so is the next epoch's table."""
+  want = padded_ref[crash_epoch]
+  victim, state = _trainer(**PADDED)
+  for _ in range(crash_epoch):
+    state, _, _ = victim.run_epoch(state)
+  ck = ChunkCheckpointer(str(tmp_path), every=1).attach(victim)
+  _crash_at(victim, 1)
+  with pytest.raises(RuntimeError, match='injected'):
+    victim.run_epoch(state)
+  ck.close()
+  assert ck.latest().meta['padded'] == {'seed': want['seed'],
+                                        'epochs_started': crash_epoch + 1}
+  fresh, template = _trainer(model_seed=5, **PADDED)
+  fresh._sampler._padded_arrays()      # a table built before the resume
+  state, losses, accs = ChunkCheckpointer(str(tmp_path)).resume_epoch(
+      fresh, template)
+  np.testing.assert_array_equal(losses, want['losses'])
+  np.testing.assert_array_equal(accs, want['accs'])
+  _assert_params_equal(_params(fresh.model), want['params'])
+  assert fresh._sampler._padded_seed == want['seed']
+  assert torch.equal(fresh._sampler._padded_arrays()['tab'], want['tab'])
+  if crash_epoch == 0:
+    state, losses2, _ = fresh.run_epoch(state)
+    np.testing.assert_array_equal(losses2.numpy(), padded_ref[1]['losses'])
+    assert torch.equal(fresh._sampler._padded_arrays()['tab'],
+                       padded_ref[1]['tab'])
+
+
+def test_padded_completed_epoch_snapshot_advances(padded_ref, tmp_path):
+  """A finished padded epoch's snapshot resumes past it: the next
+  run_epoch reseeds onto the second epoch's table and replays the
+  uninterrupted second epoch bit for bit."""
+  tr, state = _trainer(**PADDED)
+  ck = ChunkCheckpointer(str(tmp_path), every=3).attach(tr)
+  tr.run_epoch(state)
+  ck.close()
+  fresh, template = _trainer(model_seed=7, **PADDED)
+  state, losses, _ = ChunkCheckpointer(str(tmp_path)).resume_epoch(
+      fresh, template)
+  np.testing.assert_array_equal(losses, padded_ref[0]['losses'])
+  assert fresh.loader._epochs_started == 1
+  state, losses2, _ = fresh.run_epoch(state)
+  np.testing.assert_array_equal(losses2.numpy(), padded_ref[1]['losses'])
+  assert torch.equal(fresh._sampler._padded_arrays()['tab'],
+                     padded_ref[1]['tab'])
+
+
+def test_run_trainer_refuses_the_padded_window():
+  with pytest.raises(ValueError, match='padded-window'):
+    gtt.loader.RunTrainer(_loader(**PADDED), _model(), C, chunk_size=K,
+                          epochs=2)

@@ -67,8 +67,9 @@ def test_sampler_refuses_later_slices():
   rng = np.random.default_rng(0)
   ei = rng.integers(0, 10, (2, 40))
   tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=10), device='cpu')
-  for kwargs in (dict(dedup='map_table'), dict(with_weight=True),
-                 dict(node_budget=5), dict(strategy='block'),
-                 dict(padded_window=8), dict(with_edge=True)):
+  # weights, node_budget, block and the padded window are ported
+  # (tests/test_torch_sampler_modes.py)
+  for kwargs in (dict(dedup='map_table'), dict(dedup='sort_legacy'),
+                 dict(with_edge=True)):
     with pytest.raises(NotImplementedError):
       gtt.sampler.NeighborSampler(tg, [2], device='cpu', **kwargs)

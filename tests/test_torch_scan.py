@@ -273,3 +273,33 @@ def test_replay_signature_tracks_what_a_graph_freezes():
   other = ttrain.create_train_state(model).optimizer
   other.load_state_dict(opt.state_dict())
   assert _replay_signature(model, other) != _replay_signature(model, opt)
+
+
+@pytest.mark.parametrize('kw', [dict(padded_window=4, dedup='tree'),
+                                dict(strategy='block', dedup='merge'),
+                                dict(node_budget=20, dedup='tree')])
+def test_mode_scan_trainer_matches_jax(kw):
+  """ScanTrainer epochs in the other sampling modes against the JAX
+  ScanTrainer's, two shuffled epochs from the same weights: losses,
+  accuracies and parameters within atol 1e-5, rtol 1e-4. Under the
+  padded window the second epoch of both samples a reseeded table."""
+  jtrainer, jstate = _jax_trainer(44, 4, shuffle=True, **kw)
+  model = _model()
+  model.load_state_dict(convert.params_from_flax(
+      jax.tree.map(np.asarray, jstate.params)))
+  trainer = gtt.loader.ScanTrainer(_port_loader(44, shuffle=True, **kw),
+                                   model, C, chunk_size=4)
+  state = ttrain.create_train_state(model)
+  for _ in range(2):
+    jstate, jlosses, jaccs = jtrainer.run_epoch(jstate)
+    state, losses, accs = trainer.run_epoch(state)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses), **TOL)
+    np.testing.assert_allclose(accs.numpy(), np.asarray(jaccs), **TOL)
+  want = convert.params_from_flax(jax.tree.map(np.asarray, jstate.params))
+  for name, t in model.state_dict().items():
+    np.testing.assert_allclose(t.numpy(), want[name].numpy(), err_msg=name,
+                               **TOL)
+  assert trainer._sampler._call_count == jtrainer._sampler._call_count
+  if 'padded_window' in kw:
+    assert trainer._sampler._padded_seed == jtrainer._sampler._padded_seed \
+        == 1

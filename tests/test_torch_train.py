@@ -92,7 +92,7 @@ def _pair(mode, seeds=None):
   else:
     if mode == 'merge':
       no, eo = jtrain.merge_hop_offsets(BATCH, FANOUTS, frontier_caps=caps)
-      assert (no, eo) == ttrain.merge_hop_offsets(BATCH, FANOUTS, caps)
+      assert (no, eo) == ttrain.merge_hop_offsets(BATCH, FANOUTS, frontier_caps=caps)
     else:
       no, eo = jtrain.tree_hop_offsets(BATCH, FANOUTS)
     kw = dict(hop_node_offsets=no, hop_edge_offsets=eo, fanouts=FANOUTS,
