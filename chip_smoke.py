@@ -6,7 +6,9 @@ GraphSAGE training on both paths (per-step loop; ScanTrainer captured as
 CUDA graphs and eager; checkpointed, crashed and resumed; RunTrainer with
 and without an early stop; OverlappedTrainer), the products example's
 other modes (block, padded-window and weighted hops, node_budget, bf16),
-and the two probe suites.
+link prediction (the unsupervised example's LinkNeighborLoader and link
+train step), induced subgraphs, the legacy dedup engines, and the two
+probe suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -34,7 +36,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``random.step_keys_plain`` on the same device words. The draw kernel
    of the sampling backends (one launch) against ``random.uniform`` on
    the same device key, bit for bit, at hop 2 ([153600, 5]), hop 1
-   ([15360, 10]) and one word per edge (the padded table's build).
+   ([15360, 10]) and one word per edge (the padded table's build). The
+   negative sampling kernel (one launch: the key's four subkeys, two
+   randint draws per candidate with JAX's uint32 wraps, the search of
+   the row-sorted CSR) against its plain version on the same device key,
+   exact (rows, cols, valid and the taken negatives), at a link batch's
+   2,560 candidates and at 163,840, over the 1M-node span.
 3. Slices, at full width (``bench.py``'s recipe: 1M nodes, average
    degree 25, half uniform and half zipf(1.5) targets, [1M, 100] f32
    features, 47 classes; fanouts [15, 10, 5] at batch 1024; GraphSAGE
@@ -91,9 +98,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
    rtol=1e-4 of the loop's; each epoch's seed matrices equal,
    losses within rtol=1e-4 and launch counts equal between the two, the
    eager trainer taking up the captured one's weights and Adam state
-   before the second epoch; the graphs' hop keys exact against
-   ``step_keys_plain``; parameters apart by less than PARAMS_LIMIT, which
-   a control, the eager second epoch without its last step, must exceed), with
+   before the second epoch and at each of its chunk starts; the graphs'
+   hop keys exact against ``step_keys_plain``; parameters and Adam state
+   after each chunk of the second epoch apart by less than PARAMS_LIMIT,
+   which a control, the eager second epoch without its last step, must
+   exceed), with
    ms/step, capture ms and peak memory (allocated and reserved); then
    the host syncs per step of the loop and of both trainers under
    ``torch.cuda.set_sync_debug_mode('warn')`` (the captured trainer: none,
@@ -156,7 +165,34 @@ Phases (any failure exits non-zero, and the result line is not printed):
    must differ from the first epoch's and equal a CPU rebuild from the
    same key. Before it, the padded table's build and the padded hop at
    hop 2 timed at W = 16, 32 and 64.
-7. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+7. Link prediction, the unsupervised example's width
+   (``examples/graph_sage_unsup.py:84-96``) on the same graph and
+   features: ``LinkNeighborLoader([10, 5], pool,
+   neg_sampling=NegativeSampling('binary', 1), batch_size=512,
+   shuffle=True, drop_last=True)`` over a seeded 8,192-edge pool of the
+   graph's own edges, ``GraphSAGE(100, 128, 128)``, 2 layers, the plain
+   segment forward, Adam 3e-3, the link train step, 16 loop steps (one
+   epoch) under the merge engine, the tree engine and calibrated caps
+   (``frontier_caps='auto'`` at the link seed width). Launch counters set
+   to 0 before each run and read after: one negative-sampling launch, the
+   hops (K3) or levels (K4) and one K1 gather per step. Every batch's
+   ``node[edge_label_index]`` equals its positive and negative pairs,
+   every negative is absent from the graph and every positive present
+   (host check against the CSR), no batch overflows, and the last step is
+   recomputed on the CPU from the same state and batch (as the training
+   phase's). Reported: ms/step split into sample+collate and train by
+   CUDA events, peak memory, host syncs per step of 4 more loop steps,
+   and one more step under torch.profiler (device busy and ops, the
+   port's kernels equal to the counters).
+8. Induced subgraphs: ``SubGraphLoader([10, 5], batch_size=256,
+   with_edge=True)`` on the same graph with a seeded ``[25M, 4]`` f32
+   edge-feature table, two exact and two bucketed batches: nodes, edges,
+   edge mask, edge ids, edge features, features and mapping equal to a
+   CPU loader's from the same stream, every kept edge the COO edge its id
+   names; ms per batch. Then one products-width batch ([15, 10, 5] at
+   1024) of each legacy engine (``map_table``, ``sort_legacy``; K3, K1),
+   equal to a CPU recompute.
+9. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -247,6 +283,18 @@ ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 OPS_BEFORE = dict(tree=690, merge=768, train_tree=860, train_merge=1063)
 # B6's designs before the persistent bulk ring, timed at the probe shape
 # beside it (PERF.md, section 6) and then removed
+# the link phase: the JAX unsupervised example's width
+# (examples/graph_sage_unsup.py:84-96) on this script's graph
+LINK_FANOUTS, LINK_BATCH, LINK_HIDDEN = [10, 5], 512, 128
+LINK_STEPS = 16                      # one epoch of the seed-edge pool
+NEG_TRIALS = 5                       # random_negative_sample's default
+# the negative kernel's 32-bit operations: four threefry blocks and two
+# uint32 reductions (3 remainders, a product and a sum each) per
+# candidate, and a compare, a select and the index arithmetic (~6) per
+# search round
+NEG_OPS, NEG_ROUND_OPS = 4 * THREEFRY_OPS + 10, 6
+SUB_BATCH = 256                      # the subgraph phase's seeds a batch
+EDGE_FEAT_DIM = 4                    # its edge-feature table's width
 B6_REMOVED_DESIGNS_MS = {'one 32-thread CTA per row, 16-byte vectors': 0.0978,
                          'one CTA per row, one bulk copy in and out': 0.0979}
 
@@ -402,7 +450,79 @@ def kernel_phase(torch, gtt, ds, device, gen, reps):
       for shape in ((BATCH * FANOUTS[0] * FANOUTS[1], FANOUTS[2]),
                     (BATCH * FANOUTS[0], FANOUTS[1]),
                     (ds.graph.num_edges,))]
+  # negative sampling's draw and CSR test: a link batch of the
+  # unsupervised example (512 negatives) and 64 times that
+  records['negative_sample'] = [
+      negative_case(torch, gtt, ds.graph, device, reps, num)
+      for num in (LINK_BATCH, 64 * LINK_BATCH)]
   return records
+
+
+def negative_case(torch, gtt, g, device, reps, num):
+  """The negative kernel (one launch: the draw and the CSR test of
+  ``num * NEG_TRIALS`` candidates) against its plain version (randint's
+  uint32 emulation and the 32-round search, ~950 torch ops) on the same
+  device key and the card's row-sorted indices, exact; then the whole of
+  ``random_negative_sample`` (the kernel and the stable partition)
+  against its plain version. The span is the graph's node count (past
+  65,536: randint's wrap is live). No PyTorch call computes the function:
+  library_ms null."""
+  from graphlearn_tpu_torch import ops
+  n = g.num_nodes
+  total = num * NEG_TRIALS
+  sorted_idx = ops.sort_csr_rows(g.indptr, g.indices)
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(3), num),
+                             device)
+  before = ops.launch_counts()['negative_sample']
+  got = ops.random_negative_sample(g.indptr, sorted_idx, n, n, num, key,
+                                   padding=True)
+  per_call = ops.launch_counts()['negative_sample'] - before
+  want = ops.random_negative_sample_plain(g.indptr, sorted_idx, n, n, num,
+                                          key, padding=True)
+  cand, ms, call_ms = timed(torch, lambda: ops.negative.negative_candidates(
+      g.indptr, sorted_idx, n, n, total, key), reps, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: ops.negative.negative_candidates_plain(
+          g.indptr, sorted_idx, n, n, total, key), reps, device)
+  _, full_ms, full_call_ms = timed(torch, lambda: ops.random_negative_sample(
+      g.indptr, sorted_idx, n, n, num, key, padding=True), reps, device)
+  _, full_plain_ms, full_plain_call_ms = timed(
+      torch, lambda: ops.random_negative_sample_plain(
+          g.indptr, sorted_idx, n, n, num, key, padding=True), reps, device)
+  exact = all(bool(torch.equal(a, b)) for a, b in zip(cand + got,
+                                                       ref + want))
+  err = max(float((a.long() - b.long()).abs().max()) for a, b in
+            zip(cand + got, ref + want))
+  # the search rounds this data needs: the bit length of each drawn
+  # row's degree (the loop stops at lo >= hi)
+  indptr = g.topo.indptr
+  rows = cand[0].cpu().numpy().astype(np.int64)
+  deg = (indptr[rows + 1] - indptr[rows]).astype(np.float64)
+  rounds = int(np.where(deg > 0, np.floor(np.log2(np.maximum(deg, 1))) + 1,
+                        0).sum())
+  nbytes = 16 + total * (2 * 4 + 4 + 9) + rounds * 4
+  ops_n = total * NEG_OPS + rounds * NEG_ROUND_OPS
+  valid = int(cand[2].sum())
+  rec = dict(num_samples=num, candidates=total, span=n, exact=exact,
+             max_abs_err=err, valid_candidates=valid,
+             search_rounds=rounds, launches_per_call=per_call, ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             full_ms=full_ms, full_call_ms=full_call_ms,
+             full_plain_ms=full_plain_ms,
+             full_plain_call_ms=full_plain_call_ms, library_ms=None,
+             bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+  log(f'kernel negative_sample {total} candidates (span {n}): exact={exact} '
+      f'valid={valid} launches/call={per_call} ms={ms:.4f} (call '
+      f'{call_ms:.4f}) plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) '
+      f'bound_ms={rec["bound_ms"]:.6f} ({rec["bound_by"]}: {nbytes} B, '
+      f'{ops_n} ops, {rounds} search rounds); with the partition: '
+      f'ms={full_ms:.4f} (call {full_call_ms:.4f}) plain_ms='
+      f'{full_plain_ms:.4f} (call {full_plain_call_ms:.4f}); library_ms '
+      'null (no PyTorch call draws jax.random.randint\'s words)')
+  assert exact, f'negative_sample {total}: kernel != plain version'
+  assert per_call == (1 if device.type == 'cuda' else 0), per_call
+  return rec
 
 
 def draw_case(torch, gtt, device, reps, shape):
@@ -922,28 +1042,44 @@ def profile_phases(torch, gtt, ds, device, mode, caps, reps: int = 3):
   return result
 
 
-def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S):
+def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
+             warmup=None):
   """torch.profiler over ``reps`` calls of ``fn`` (warmed up by the
   caller): wall ms per call (host clock, synchronised), device-busy ms
   per call (the union of the kernel and copy intervals the profiler saw),
   device ops per call and the top device consumers. The calls start
-  ``lead_s`` after the profiler does (see PROFILE_LEAD_S)."""
+  ``lead_s`` after the profiler does (see PROFILE_LEAD_S). ``warmup``:
+  a call made in the profiler's warm-up cycle (tracing on, its records
+  dropped; ``torch.profiler.schedule``), which takes the window's first
+  device records where they get lost (see PROFILE_LEAD_S), before the
+  recorded calls."""
   from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
+  from torch.profiler import ProfilerActivity, profile, schedule
   cuda = device.type == 'cuda'
   sync = torch.cuda.synchronize if cuda else (lambda: None)
   acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+  ready = []
+  kw = {} if warmup is None else dict(
+      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+      on_trace_ready=lambda p: ready.append(p.events()))
   sync()
-  with profile(activities=acts) as prof:
+  with profile(activities=acts, **kw) as prof:
+    if warmup is not None:
+      warmup()
+      sync()
     time.sleep(lead_s if cuda else 0)
+    if warmup is not None:
+      prof.step()                # the warm-up cycle ends: recording starts
     t0 = time.perf_counter()
     for _ in range(reps):
       fn()
     sync()
     wall = (time.perf_counter() - t0) * 1e3 / reps
+    if warmup is not None:
+      prof.step()
   spans, per_name, counts, launches = [], {}, {}, 0
   total, streams = 0.0, set()
-  for e in prof.events():
+  for e in (prof.events() if warmup is None else ready[-1]):
     # user annotations (the optimizer's Optimizer.step#Adam.step) also
     # appear on the device timeline; they are ranges, not device work
     if e.device_type != DeviceType.CUDA or \
@@ -980,7 +1116,8 @@ PORT_KERNELS = dict(gather_rows=('gather_rows_kernel',),
                     sample_level=('begin_kernel', 'pick_kernel',
                                   'scan_kernel', 'resolve_kernel'),
                     step_keys=('step_keys_kernel',),
-                    uniform_draw=('uniform_draw_kernel',))
+                    uniform_draw=('uniform_draw_kernel',),
+                    negative_sample=('negative_sample_kernel',))
 
 
 def kernel_counts(counts) -> dict:
@@ -1385,7 +1522,8 @@ def relu_input_hooks(model, fn) -> list:
       lambda m, i, o, l=l: fn(l, o)) for l in range(model.num_layers - 1)]
 
 
-def cpu_step_readings(torch, gtt, loader, model, check, loss) -> dict:
+def cpu_step_readings(torch, gtt, loader, model, check, loss,
+                      cpu_model=None, make_step=None) -> dict:
   """The card's train step ``check = (params, Adam state, batch, card
   gradients, card ReLU inputs)`` against the CPU's, which follows the
   card's side of 0 at every ReLU input (the two devices round in other
@@ -1399,14 +1537,19 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss) -> dict:
   card's updated ``model`` (largest abs difference, the tensors outside
   ADAM_RTOL / ADAM_ATOL), and, recorded only, the CPU's plain step (its
   own side of 0 everywhere): its gradients' largest share and its
-  updated parameters against the card's (largest abs difference)."""
+  updated parameters against the card's (largest abs difference).
+  ``cpu_model()`` builds the CPU model (default: ``make_model``'s for
+  ``loader``) and ``make_step(model)`` its train step (default: the node
+  classification step)."""
   import copy
 
   from graphlearn_tpu_torch.models import train
   msd, osd, cbatch, grads, pre = check
+  cpu_model = cpu_model or (lambda: make_model(torch, gtt, loader, 'cpu')[0])
+  make_step = make_step or (lambda m: train.make_train_step(m, CLASSES))
 
   def cpu_state():
-    cmodel, _ = make_model(torch, gtt, loader, 'cpu')
+    cmodel = cpu_model()
     cmodel.train()
     cmodel.load_state_dict({k: v.cpu() for k, v in msd.items()})
     cstate = train.create_train_state(cmodel, lr=LR)
@@ -1429,12 +1572,12 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss) -> dict:
 
   cmodel, cstate = cpu_state()
   hooks = relu_input_hooks(cmodel, card_side)
-  cstep, _ = train.make_train_step(cmodel, CLASSES)
+  cstep, _ = make_step(cmodel)
   cstate, closs, _ = cstep(cstate, cbatch)
   for h in hooks:
     h.remove()
   pmodel, pstate = cpu_state()
-  train.make_train_step(pmodel, CLASSES)[0](pstate, cbatch)
+  make_step(pmodel)[0](pstate, cbatch)
   amodel, astate = cpu_state()
   for p, g in zip(amodel.parameters(), grads):
     p.grad = g.clone()
@@ -1474,11 +1617,11 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss) -> dict:
   return out
 
 
-def cpu_step_check(torch, gtt, loader, model, check, loss) -> dict:
-  """:func:`cpu_step_readings`, held: the ReLU inputs within their
-  tolerance, the loss within rtol 1e-4, no tensor outside its gradient or
-  Adam tolerance."""
-  c = cpu_step_readings(torch, gtt, loader, model, check, loss)
+def cpu_step_check(torch, gtt, loader, model, check, loss, **kw) -> dict:
+  """:func:`cpu_step_readings` (``kw``: its model and step), held: the
+  ReLU inputs within their tolerance, the loss within rtol 1e-4, no
+  tensor outside its gradient or Adam tolerance."""
+  c = cpu_step_readings(torch, gtt, loader, model, check, loss, **kw)
   assert not c['pre_fail'], ('ReLU inputs differ from the CPU\'s', c)
   torch.testing.assert_close(torch.tensor(c['loss']),
                              torch.tensor(c['cpu_loss']), rtol=1e-4, atol=0)
@@ -1595,6 +1738,37 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
         train.create_train_state(smodel, lr=LR)]
   control = trainers.pop('control')
   results = {name: {} for name in trainers}
+
+  # the second epoch is held chunk by chunk: the captured trainer keeps
+  # its state (parameters, Adam's tensors) after each chunk, the eager one
+  # takes it up at each chunk start and is compared at the chunk's end.
+  # Over a free-running epoch merge training parts by more than
+  # PARAMS_LIMIT now and then (the backward's atomics sum in no fixed
+  # order and Adam turns a gradient's sign near 0 into a step of the
+  # rate: 1.78e-3 in one run of 16 steps), a chunk rarely does; a skipped
+  # or repeated step still shows (the control)
+  def chunk_state(trainer):
+    opt = trainer._chunk_carry['state'].optimizer
+    ps = list(trainer.model.parameters())
+    return ps + [v for p in ps for v in opt.state[p].values()
+                 if torch.is_tensor(v)]
+
+  held, chunk_diffs = {}, []
+
+  def keep(c, s0, k):
+    held[s0 + k] = [t.detach().clone() for t in chunk_state(trainers[
+        'scan'][0])]
+
+  @torch.no_grad()
+  def take_up(c, s0, k):
+    if s0:
+      torch._foreach_copy_(chunk_state(trainers['scan_eager'][0]), held[s0])
+
+  def compare(c, s0, k):
+    chunk_diffs.append(max(
+        float((a.detach() - b).abs().max()) for a, b in zip(
+            chunk_state(trainers['scan_eager'][0]), held[s0 + k])))
+
   for epoch in range(2):
     if epoch:
       # how far the first epoch left the two apart from one start (the
@@ -1613,6 +1787,9 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
         # the two optimizers would share their moments)
         eager[1].optimizer.load_state_dict(copy.deepcopy(
             trainers['scan'][1].optimizer.state_dict()))
+      trainers['scan'][0].ack_hook = keep
+      trainers['scan_eager'][0].stage_hook = take_up
+      trainers['scan_eager'][0].ack_hook = compare
     control[1] = control[0].run_epoch(
         control[1], max_steps=steps - 1 if epoch else None)[0]
     for name, tr in trainers.items():
@@ -1676,11 +1853,15 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
     return max(float((a - b).detach().abs().max())
                for a, b in zip(m1.parameters(), m2.parameters()))
 
-  params_diff = params_apart(cap.model, eag.model)
+  cap.ack_hook = eag.stage_hook = eag.ack_hook = None
+  assert len(chunk_diffs) == chunks, chunk_diffs
+  params_diff = max(chunk_diffs)
   control_diff = params_apart(control[0].model, eag.model)
   log(f'train {mode} ScanTrainer params max abs diff: captured vs eager '
-      f'{params_diff:.3g} (after the first epoch from the initial weights, '
-      f'before the eager one takes up the captured state: '
+      f'{params_diff:.3g} (parameters and Adam state after each chunk of '
+      f'the second epoch, the eager trainer at the captured one\'s state at '
+      f'each chunk start: {[float(f"{d:.3g}") for d in chunk_diffs]}; '
+      f'after the first epoch from the initial weights: '
       f'{first_epoch_drift:.3g}, reported); control (eager without its '
       f'last step) vs eager {control_diff:.3g}; limit {PARAMS_LIMIT}')
   assert control_diff > PARAMS_LIMIT, \
@@ -1773,8 +1954,8 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
           f'{prof["kernels"]} vs launch counters {counted}')
       assert prof['kernels'] == counted and all(
           prof['kernels'][k] for k in PORT_KERNELS
-          if k not in ('uniform_draw', 'sample_level' if mode == 'tree'
-                       else 'sample_hop')), \
+          if k not in ('uniform_draw', 'negative_sample',
+                       'sample_level' if mode == 'tree' else 'sample_hop')), \
           (prof['kernels'], counted)
       if name == 'scan':
         # a replay re-adds the counts its capture recorded: the result
@@ -2633,6 +2814,281 @@ def noise_phase(torch, gtt, ds, device, n_nodes, windows, runs) -> dict:
   return rep
 
 
+def link_pairs_in_graph(topo, rows, cols) -> np.ndarray:
+  """Host check against the CSR: is (rows[i], cols[i]) an edge?"""
+  indptr, indices = topo.indptr, topo.indices
+  return np.array([bool((indices[indptr[r]:indptr[r + 1]] == c).any())
+                   for r, c in zip(rows.tolist(), cols.tolist())])
+
+
+def link_run(torch, gtt, ds, device, pool, steps, name, kw, smi):
+  """One run of the link path at the unsupervised example's width:
+  ``LinkNeighborLoader`` (binary negatives) -> ``link_batch_to_dict`` ->
+  the link train step with Adam, the per-step loop over one epoch of
+  ``pool``, launch counters set to 0 before and read after."""
+  import copy
+  import gc
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  cuda = device.type == 'cuda'
+  b = LINK_BATCH
+
+  def loader_on(d, dset):
+    return gtt.loader.LinkNeighborLoader(
+        dset, LINK_FANOUTS, pool, neg_sampling=NegativeSampling('binary', 1),
+        batch_size=b, shuffle=True, drop_last=True, seed=0, device=d, **kw)
+
+  def model_on(d):
+    return gtt.models.GraphSAGE(
+        FEAT_DIM, LINK_HIDDEN, LINK_HIDDEN, num_layers=len(LINK_FANOUTS),
+        device=d, generator=torch.Generator().manual_seed(0))
+
+  loader = loader_on(device, ds)
+  model = model_on(device)
+  model.train()
+  state = train.create_train_state(model, lr=LR)
+  step_fn, _ = train.make_link_train_step(model)
+  ops.reset_launch_counts()
+  per_step, losses, pairs_ok, negs, poss, check = [], [], [], [], [], None
+  it = iter(loader)
+  for i in range(steps):
+    if cuda and i == 1:
+      torch.cuda.reset_peak_memory_stats()
+    e0 = _event(torch, cuda)
+    batch = next(it)
+    e1 = _event(torch, cuda)
+    d = train.link_batch_to_dict(batch)
+    if i == steps - 1:     # the step recomputed on the CPU below
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(state.optimizer.state_dict()),
+               {k: v.cpu() for k, v in d.items()})
+      pre = []
+      hooks = relu_input_hooks(
+          model, lambda layer, z: pre.append(z.detach().clone()))
+    state, loss, _ = step_fn(state, d)
+    e2 = _event(torch, cuda)
+    if cuda:
+      e2.synchronize()
+    if i == steps - 1:
+      for h in hooks:
+        h.remove()
+      check += ([p.grad.detach().cpu() for p in model.parameters()],
+                [z.cpu() for z in pre])
+    per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
+                         train_ms=_span(e1, e2, cuda)))
+    losses.append(loss)
+    # the seed union leads with the positives' and the negatives' ends
+    seeds = batch.batch
+    src = torch.cat([seeds[:b], seeds[2 * b:3 * b]])
+    dst = torch.cat([seeds[b:2 * b], seeds[3 * b:4 * b]])
+    eli = batch.metadata['edge_label_index'].long()
+    pairs_ok.append(torch.equal(batch.node[eli[0]], src) and
+                    torch.equal(batch.node[eli[1]], dst))
+    poss.append(seeds[:2 * b])
+    negs.append(seeds[2 * b:4 * b])
+  peak = torch.cuda.max_memory_allocated() if cuda else None
+  for _ in it:             # the iterator's end: the overflow guard's check
+    raise AssertionError('the pool holds more batches than steps')
+  counts = ops.launch_counts()
+  per = 1 if cuda else 0
+  merge = loader.sampler._dedup_mode() == 'merge'
+  hops = len(LINK_FANOUTS)
+  assert counts['negative_sample'] == per * steps, counts
+  assert counts['gather_rows'] == per * steps, counts
+  if merge:
+    assert counts['sample_level'] == per * steps * (3 * hops + 1), counts
+    assert counts['sample_hop'] == 0, counts
+  else:
+    assert counts['sample_hop'] == per * steps * hops, counts
+    assert counts['sample_level'] == 0, counts
+  assert not loader.check_overflow(), 'a link batch overflowed its caps'
+  assert all(pairs_ok), 'node[edge_label_index] is not the batch\'s pairs'
+  losses = torch.stack(losses)
+  assert bool(torch.isfinite(losses).all()), 'non-finite link loss'
+  # every negative is absent from the graph, every positive present
+  topo = ds.graph.topo
+  neg = torch.stack(negs).cpu().numpy().reshape(steps, 2, b)
+  pos = torch.stack(poss).cpu().numpy().reshape(steps, 2, b)
+  neg_edges = int(link_pairs_in_graph(topo, neg[:, 0].ravel(),
+                                      neg[:, 1].ravel()).sum())
+  pos_edges = int(link_pairs_in_graph(topo, pos[:, 0].ravel(),
+                                      pos[:, 1].ravel()).sum())
+  assert neg_edges == 0, f'{neg_edges} negatives are edges of the graph'
+  assert pos_edges == steps * b, pos_edges
+  steady = per_step[1:] or per_step
+  med = {k: float(np.median([p[k] for p in steady])) for k in steady[0]}
+  rep = dict(per_step=per_step, median_step_ms=med, peak_step_bytes=peak,
+             launches=counts, losses=losses.tolist(),
+             frontier_caps=(list(loader.sampler.frontier_caps)
+                            if loader.sampler.frontier_caps else None),
+             negatives_checked=steps * b)
+  log(f'link {name}: {steps} steps; launches {counts}; median after the '
+      'first step (ms): ' + ' '.join(f'{k}={v:.3f}' for k, v in med.items())
+      + f' total={sum(med.values()):.3f}; max_memory_allocated over steps '
+      f'2-{steps} {peak} B; losses {losses[0]:.4f} -> {losses[-1]:.4f}; '
+      f'{steps * b} negatives none an edge; caps {rep["frontier_caps"]} on '
+      f'{smi}')
+  # the last step once more on the CPU, from the same state and batch
+  c = rep['cpu_check'] = cpu_step_check(
+      torch, gtt, loader, model, check, losses[-1],
+      cpu_model=lambda: model_on('cpu'),
+      make_step=train.make_link_train_step)
+  log(f'link {name} CPU recompute of step {steps}: ReLU inputs max abs '
+      f'diff {c["pre_diff"]:.3g}, {c["opposite"]} on opposite sides of 0; '
+      f'loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; gradients '
+      f'{c["grad_share"]:.3g} of the largest; CPU Adam on the card\'s '
+      f'gradients {c["adam_diff"]:.3g}')
+  if cuda:
+    # host syncs of the loop (loader -> link step), a new epoch's first
+    # SYNC_STEPS steps (H5)
+    it = iter(loader)
+
+    def loop():
+      for _ in range(SYNC_STEPS):
+        step_fn(state, train.link_batch_to_dict(next(it)))
+
+    _, syncs, kinds = count_syncs(torch, loop)
+    rep['host_syncs_per_step'] = syncs / SYNC_STEPS
+    rep['host_sync_kinds'] = kinds
+    log(f'link {name}: {syncs / SYNC_STEPS:.2f} host syncs per loop step '
+        f'{kinds}')
+    # one more step under torch.profiler: device ops and busy, and the
+    # port's kernels it saw against the counters (the cyclic collector
+    # run first, so no earlier trainer's CUDA graph is freed in the window;
+    # late in this script a window without a warm-up cycle lost the link
+    # step's first 5 device records, the negative kernel among them, in 2
+    # of 2 runs, where a process running the link phase alone lost none)
+    gc.collect()
+
+    def loop_step():
+      step_fn(state, train.link_batch_to_dict(next(it)))
+
+    # a step in the profiler's warm-up cycle, then the counters from 0
+    prof = profiled(torch, loop_step, 1, device, f'link {name} loop step',
+                    warmup=lambda: (loop_step(), ops.reset_launch_counts()))
+    counted = {k: v for k, v in ops.launch_counts().items()
+               if k in PORT_KERNELS}
+    assert prof['kernels'] == counted, (prof['kernels'], counted)
+    assert counted['negative_sample'] == 1, counted
+    prof['launch_counters'] = counted
+    rep['profile_step'] = prof
+  return rep
+
+
+def link_phase(torch, gtt, ds, device, smi):
+  """The link path (negatives in one kernel launch a batch, K3 or K4,
+  K1) under the merge engine, the tree engine and calibrated caps, over
+  a seeded pool of the graph's own edges."""
+  cuda = device.type == 'cuda'
+  steps = LINK_STEPS if cuda else 4
+  topo = ds.graph.topo
+  src = np.repeat(np.arange(topo.num_nodes), np.diff(topo.indptr))
+  pick = np.random.default_rng(8).choice(topo.num_edges, LINK_BATCH * steps,
+                                         replace=False)
+  pool = np.stack([src[pick], topo.indices[pick]])
+  runs = {}
+  for name, kw in (('merge', dict(dedup='auto')),
+                   ('tree', dict(dedup='tree')),
+                   ('merge_caps', dict(dedup='auto', frontier_caps='auto'))):
+    runs[name] = link_run(torch, gtt, ds, device, pool, steps, name, kw, smi)
+    if cuda:
+      torch.cuda.empty_cache()
+  return runs
+
+
+def subgraph_phase(torch, gtt, ds, cpu_ds, ei, device, smi):
+  """``SubGraphLoader([10, 5], batch_size=256, with_edge=True)`` over the
+  graph with an edge-feature table: two exact and two bucketed batches,
+  each equal to a CPU loader's from the same sampler stream, every kept
+  edge the COO edge ``ei[:, id]`` its id names."""
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  topo = ds.graph.topo
+  seeds = np.random.default_rng(9).permutation(topo.num_nodes)[
+      :2 * SUB_BATCH]
+  rep = {}
+  for bucketed in (False, True):
+    loaders = [gtt.loader.SubGraphLoader(
+        d, LINK_FANOUTS, seeds, batch_size=SUB_BATCH, with_edge=True, seed=0,
+        bucketed=bucketed, device=dev)
+        for d, dev in ((ds, device), (cpu_ds, torch.device('cpu')))]
+    ops.reset_launch_counts()
+    it, times, batches = iter(loaders[0]), [], []
+    for _ in range(2):
+      e0 = _event(torch, cuda)
+      batches.append(next(it))
+      e1 = _event(torch, cuda)
+      if cuda:
+        e1.synchronize()
+      times.append(_span(e0, e1, cuda))
+    counts = ops.launch_counts()
+    per = 1 if cuda else 0
+    assert counts['sample_level'] == per * 2 * (3 * len(LINK_FANOUTS) + 1)
+    assert counts['gather_rows'] == per * 2, counts
+    kept = 0
+    for gb, cb in zip(batches, loaders[1]):
+      for f in ('node', 'num_nodes', 'edge_index', 'edge_mask', 'edge_ids',
+                'edge_attr', 'x', 'batch'):
+        assert torch.equal(getattr(gb, f).cpu(), getattr(cb, f)), f
+      for k, v in cb.metadata.items():
+        assert torch.equal(gb.metadata[k].cpu(), v), k
+      em = cb.edge_mask.numpy()
+      eid = cb.edge_ids.numpy()[em]
+      node = cb.node.numpy()
+      assert (ei[0][eid] == node[cb.edge_index[0].numpy()[em]]).all()
+      assert (ei[1][eid] == node[cb.edge_index[1].numpy()[em]]).all()
+      assert (cb.metadata['mapping'].numpy() >= 0).all()
+      kept += int(em.sum())
+    name = 'bucketed' if bucketed else 'exact'
+    dropped = (int(batches[-1].metadata['num_dropped_rows'])
+               if bucketed else None)
+    rep[name] = dict(ms_per_batch=times, launches=counts, edges_kept=kept,
+                     edge_slots=int(batches[0].edge_mask.shape[0]),
+                     num_dropped_rows=dropped)
+    log(f'subgraph {name}: ms per batch {[round(t, 3) for t in times]}; '
+        f'{kept} edges kept in 2 batches of '
+        f'{rep[name]["edge_slots"]} slots, equal to the CPU\'s; dropped '
+        f'rows {dropped}; launches {counts} on {smi}')
+    if cuda:
+      torch.cuda.empty_cache()
+  return rep
+
+
+def legacy_phase(torch, gtt, ds, cpu_ds, device, pool, smi):
+  """One products-width batch of each legacy exact engine (hops through
+  K3, the gather through K1), ids equal to a CPU recompute."""
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  rep = {}
+  for mode in ('map_table', 'sort_legacy'):
+    outs = []
+    for d, dev in ((ds, device), (cpu_ds, torch.device('cpu'))):
+      loader = gtt.loader.NeighborLoader(d, FANOUTS, pool[:BATCH],
+                                         batch_size=BATCH, seed=0,
+                                         dedup=mode, device=dev)
+      ops.reset_launch_counts()
+      e0 = _event(torch, cuda)
+      outs.append(next(iter(loader)))
+      e1 = _event(torch, cuda)
+      if dev == device:            # the card's batch (the first)
+        if cuda:
+          e1.synchronize()
+        ms, counts = _span(e0, e1, cuda), ops.launch_counts()
+    per = 1 if cuda else 0
+    assert counts['sample_hop'] == per * len(FANOUTS), counts
+    assert counts['gather_rows'] == per and counts['sample_level'] == 0
+    g, c = outs
+    for f in ('node', 'num_nodes', 'edge_index', 'edge_mask', 'x', 'y'):
+      assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), (mode, f)
+    rep[mode] = dict(ms=ms, launches=counts, num_nodes=int(c.num_nodes))
+    log(f'legacy {mode}: one batch of {BATCH} seeds {FANOUTS} in '
+        f'{ms:.3f} ms, {int(c.num_nodes)} nodes, equal to the CPU\'s; '
+        f'launches {counts} on {smi}')
+  return rep
+
+
 def probe_phase(torch, device, reps, smi, profile=False):
   """Both probe suites at their sizes (their kernels' launch counters set
   to 0 before and read after), then the two probe kernels against their
@@ -2925,6 +3381,22 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('modes')
+  report['link'] = link_phase(torch, gtt, ds, device, smi)
+  phase_done('link')
+  efeat = np.random.default_rng(10).standard_normal(
+      (topo.num_edges, EDGE_FEAT_DIM), dtype=np.float32)
+  edge_dss = [gtt.data.Dataset(graph=d.graph, node_features=d.node_features,
+                               node_labels=d.node_labels, device=d.device
+                               ).init_edge_features(efeat)
+              for d in (ds, cpu_ds)]
+  del efeat
+  report['subgraph'] = subgraph_phase(torch, gtt, *edge_dss, ei, device,
+                                      smi)
+  del edge_dss
+  report['legacy'] = legacy_phase(torch, gtt, ds, cpu_ds, device, pool, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('menu')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   phase_done('probes')
   ktab = report['kernels']
@@ -2941,11 +3413,14 @@ def main(argv=None):
   for rec in report['modes'].values():
     paths += [rec['launches'], rec['launches_eager'],
               rec['inference_launches']]
+  paths += [report[p][r]['launches'] for p in ('link', 'subgraph', 'legacy')
+            for r in report[p]]
   launches = {k: sum(c[k] for c in paths) for k in paths[0]}
   launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
                                   launches['row_gather_probe_vector'])
   keys_rec = ktab['step_keys']
   draw_rec = ktab['uniform_draw'][0]
+  neg_rec = ktab['negative_sample'][0]
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -2989,6 +3464,15 @@ def main(argv=None):
            max_abs_err=max(r['max_abs_err'] for r in ktab['uniform_draw']),
            ms=draw_rec['ms'], plain_ms=draw_rec['plain_ms'],
            bound_ms=draw_rec['bound_ms'], bound_by=draw_rec['bound_by'],
+           library_ms=None),
+      dict(name='negative_sample', route='cuda',
+           source='graphlearn_tpu_torch/csrc/negative_sample.cu',
+           replaces='graphlearn_tpu/ops/negative.py:33',
+           launches=launches['negative_sample'],
+           max_abs_err=max(r['max_abs_err']
+                           for r in ktab['negative_sample']),
+           ms=neg_rec['ms'], plain_ms=neg_rec['plain_ms'],
+           bound_ms=neg_rec['bound_ms'], bound_by=neg_rec['bound_by'],
            library_ms=None),
       dict(name='gather_runs', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_runs.cu',

@@ -4,7 +4,8 @@ Counterpart of ``graphlearn_tpu/data/graph.py``. ``Topology`` builds the
 CSR (or CSC) on the host with numpy, in the same edge order as the JAX
 package. ``Graph`` places ``indptr``/``indices`` on a torch device as
 int32 tensors, plus the packed ``[N, 2]`` (start, degree) row table the
-uniform hop reads (``csr_meta``; ``neighbor_sampler.py:_csr_meta``).
+uniform hop reads (``csr_meta``; ``neighbor_sampler.py:_csr_meta``) and,
+at first use, the int64 edge ids (``with_edge`` sampling).
 """
 from typing import Optional
 
@@ -24,10 +25,15 @@ class Topology:
     edge_weights: optional ``[E]`` float weights in COO order, kept on
       the host in the CSR's edge order (weighted sampling builds its row
       CDF from them).
+    edge_ids: optional ``[E]`` global edge ids in COO order (default:
+      the COO position), kept as int64 in the CSR's edge order: the
+      stable sort by key of ``graphlearn_tpu/utils/topo.py:43-45``, so
+      edges with equal keys keep their input order.
   """
 
   def __init__(self, edge_index, layout: str = 'CSR',
-               num_nodes: Optional[int] = None, edge_weights=None):
+               num_nodes: Optional[int] = None, edge_weights=None,
+               edge_ids=None):
     if layout not in ('CSR', 'CSC'):
       raise ValueError(f'storage layout must be CSR or CSC, got {layout!r}')
     row = np.asarray(edge_index[0]).reshape(-1)
@@ -35,14 +41,19 @@ class Topology:
     if num_nodes is None:
       num_nodes = int(max(row.max(initial=-1), col.max(initial=-1))) + 1
     key, other = (row, col) if layout == 'CSR' else (col, row)
-    indptr, indices = coo_to_csr(key, other, num_nodes)
-    self.edge_weights = None
-    if edge_weights is not None:
-      w = np.asarray(edge_weights).reshape(-1)
-      if w.shape[0] != row.shape[0]:
-        raise ValueError(f'{w.shape[0]} edge weights for {row.shape[0]} '
+    indptr, indices, order = coo_to_csr(key, other, num_nodes)
+
+    def per_edge(vals, what):
+      vals = np.asarray(vals).reshape(-1)
+      if vals.shape[0] != row.shape[0]:
+        raise ValueError(f'{vals.shape[0]} {what} for {row.shape[0]} '
                          'edges')
-      self.edge_weights = w[np.argsort(key, kind='stable')]
+      return vals[order]
+
+    self.edge_weights = (None if edge_weights is None
+                         else per_edge(edge_weights, 'edge weights'))
+    self.edge_ids = (order.astype(np.int64) if edge_ids is None
+                     else per_edge(edge_ids, 'edge ids').astype(np.int64))
     self.layout = layout
     self.indptr = indptr
     self.indices = indices.astype(np.int32)
@@ -51,6 +62,15 @@ class Topology:
   @property
   def num_edges(self) -> int:
     return int(self.indices.shape[0])
+
+  @property
+  def degrees(self) -> np.ndarray:
+    return np.diff(self.indptr)
+
+  @property
+  def max_degree(self) -> int:
+    d = self.degrees
+    return int(d.max()) if d.size else 0
 
 
 class Graph:
@@ -69,6 +89,7 @@ class Graph:
         self.device)
     self.indices = torch.as_tensor(topo.indices).to(self.device)
     self._csr_meta = None
+    self._edge_ids = None
 
   @property
   def csr_meta(self) -> torch.Tensor:
@@ -78,6 +99,14 @@ class Graph:
       ptr = self.indptr
       self._csr_meta = torch.stack([ptr[:-1], ptr[1:] - ptr[:-1]], dim=1)
     return self._csr_meta
+
+  @property
+  def edge_ids(self):
+    """``[E]`` int64 edge ids in CSR order on the graph's device (uploaded
+    at first use), or None for a topology without them."""
+    if self._edge_ids is None and self.topo.edge_ids is not None:
+      self._edge_ids = torch.as_tensor(self.topo.edge_ids).to(self.device)
+    return self._edge_ids
 
   @property
   def num_nodes(self) -> int:

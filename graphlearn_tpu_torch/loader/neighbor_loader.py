@@ -41,7 +41,7 @@ class NeighborLoader(NodeLoader):
         data.graph, num_neighbors, device=device, with_edge=with_edge,
         with_weight=with_weight, strategy=strategy, seed=seed,
         node_budget=node_budget, dedup=dedup, padded_window=padded_window,
-        frontier_caps=frontier_caps)
+        frontier_caps=frontier_caps, edge_dir=data.edge_dir)
     super().__init__(data, sampler, input_nodes, batch_size, shuffle,
                      drop_last, device, seed,
                      seed_labels_only=seed_labels_only,

@@ -3,11 +3,14 @@
 Counterpart of ``graphlearn_tpu/loader/node_loader.py``. ``SeedBatcher``
 is the JAX package's numpy batcher, so the shuffled seed order is the
 same in both packages for the same seed. ``NodeLoader`` samples and
-collates each batch, under the calibrated-caps overflow guard
+collates each batch (node features and labels, and the edge features of
+``with_edge`` batches), under the calibrated-caps overflow guard
 (``OverflowGuardMixin``) when the sampler runs the merge engine with
 ``frontier_caps``. Under a padded-window sampler every epoch after the
-first starts with a reseed of the padded table (``_begin_epoch``). The
-JAX loader's flight recorder and metrics are not ported.
+first starts with a reseed of the padded table (``_begin_epoch``).
+``state_dict`` / ``load_state_dict`` resume mid-epoch (the batcher and
+the sampler's stream). The JAX loader's flight recorder and metrics are
+not ported.
 """
 from typing import Optional
 import warnings
@@ -178,23 +181,26 @@ class NodeLoader(OverflowGuardMixin):
   """Sample-and-collate loader over seed nodes.
 
   ``device=None`` means the card; it must be the dataset's device.
-  ``seed_labels_only`` gathers labels for the seed block only.
+  ``seed_labels_only`` gathers labels for the seed block only;
+  ``collect_features=False`` gathers no node features.
   ``overflow_policy`` is the calibrated-caps guard's
   (``OverflowGuardMixin``).
   """
+
+  seed_labels_only = False
+  collect_features = True
 
   def __init__(self, data: Dataset, node_sampler, input_nodes,
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, device=None,
                seed: Optional[int] = None, seed_labels_only: bool = False,
-               overflow_policy: str = 'raise'):
-    self.device = resolve_device(device)
-    if data.device != self.device:
-      raise ValueError(f'dataset lives on {data.device}, loader asked for '
-                       f'{self.device}')
+               overflow_policy: str = 'raise',
+               collect_features: bool = True):
+    self._check_device(data, device)
     self.data = data
     self.sampler = node_sampler
     self.seed_labels_only = seed_labels_only
+    self.collect_features = collect_features
     if isinstance(input_nodes, tuple):
       self.input_type, self.input_seeds = input_nodes
     else:
@@ -206,8 +212,26 @@ class NodeLoader(OverflowGuardMixin):
     self._batcher = SeedBatcher(len(self.input_seeds), batch_size, shuffle,
                                 drop_last, seed)
 
+  def _check_device(self, data: Dataset, device):
+    self.device = resolve_device(device)
+    if data.device != self.device:
+      raise ValueError(f'dataset lives on {data.device}, loader asked for '
+                       f'{self.device}')
+
   def __len__(self):
     return len(self._batcher)
+
+  def state_dict(self):
+    """Mid-epoch resume state: the seed batcher's (the shuffle stream and
+    the batches consumed) and the sampler's PRNG stream position."""
+    state = self._batcher.state_dict()
+    state['sampler'] = self.sampler.state_dict()
+    return state
+
+  def load_state_dict(self, state):
+    self._batcher.load_state_dict(state)
+    if 'sampler' in state:
+      self.sampler.load_state_dict(state['sampler'])
 
   def _begin_epoch(self):
     """The per-epoch padded-table reseed (``graphlearn_tpu/loader/
@@ -243,12 +267,16 @@ class NodeLoader(OverflowGuardMixin):
       self._finish_epoch_overflow()
 
   def _collate_fn(self, out):
-    feats = id2i = None
-    if self.data.node_features is not None:
+    feats = id2i = efeats = None
+    if self.collect_features and self.data.node_features is not None:
       feats, id2i = self.data.node_features.device_table()
+    edge_features = getattr(self.data, 'edge_features', None)
+    if out.edge is not None and edge_features is not None:
+      efeats = edge_features.device_table()[0]
     res = ops.collate_batch(out.node, out.num_nodes, out.row, out.col,
-                            feats, id2i, self.data.node_labels, None, None,
+                            feats, id2i, self.data.node_labels, efeats,
+                            out.edge,
                             label_cap=(self.batch_size
                                        if self.seed_labels_only else None))
-    return to_data(out, res['x'], res['y'], node_mask=res['node_mask'],
-                   edge_index=res['edge_index'])
+    return to_data(out, res['x'], res['y'], res['edge_attr'],
+                   node_mask=res['node_mask'], edge_index=res['edge_index'])

@@ -23,7 +23,9 @@ import torch
 from .. import ops
 from .. import random as trandom
 from ..models import train as train_lib
+from .link_loader import LinkLoader
 from .node_loader import NodeLoader
+from .subgraph_loader import SubGraphLoader
 
 _RECOMPUTE_MSG = (
     "overflow_policy='recompute' needs a device->host sync per batch, "
@@ -47,6 +49,13 @@ class FusedEpochTrainer:
     sampler = loader.sampler
     if getattr(sampler, 'is_hetero', False):
       raise ValueError(f'{self._NAME} is homogeneous-only')
+    if isinstance(loader, (LinkLoader, SubGraphLoader)):
+      # link and subgraph batches carry what the node classification
+      # step does not read (edge_label metadata, mappings): they train
+      # in the per-step loop, as in JAX
+      raise ValueError(f'{self._NAME} covers supervised node '
+                       f'classification; {type(loader).__name__} batches '
+                       'train in the per-step loop')
     if getattr(sampler, 'with_edge', False):
       raise ValueError('with_edge batches are not supported in the fused '
                        'epoch trainers')

@@ -21,6 +21,8 @@ class Data:
   edge_index: ``[2, cap_e]`` local (row = message source, col = target).
   edge_mask: ``[cap_e]`` validity.
   x / y: features ``[cap_n, F]`` / labels.
+  edge_ids / edge_attr: global edge ids ``[cap_e]`` (``with_edge``) and
+    their feature rows.
   batch: ``[B]`` padded seed ids; batch_size: number of real seeds.
   """
   node: Any
@@ -30,6 +32,8 @@ class Data:
   edge_mask: Any = None
   x: Any = None
   y: Any = None
+  edge_ids: Any = None
+  edge_attr: Any = None
   batch: Any = None
   batch_size: Optional[int] = None
   num_sampled_nodes: Any = None
@@ -44,7 +48,7 @@ class Data:
 
 
 def to_data(out: SamplerOutput, node_feats=None, node_labels=None,
-            node_mask=None, edge_index=None) -> Data:
+            edge_feats=None, node_mask=None, edge_index=None) -> Data:
   """SamplerOutput -> Data, padding kept. ``node_mask`` / ``edge_index``
   may come precomputed from ``ops.collate_batch``."""
   node = out.node
@@ -56,6 +60,7 @@ def to_data(out: SamplerOutput, node_feats=None, node_labels=None,
   return Data(
       node=node, num_nodes=out.num_nodes, node_mask=node_mask,
       edge_index=edge_index, edge_mask=out.edge_mask, x=node_feats,
-      y=node_labels, batch=out.batch, batch_size=out.batch_size,
+      y=node_labels, edge_ids=out.edge, edge_attr=edge_feats,
+      batch=out.batch, batch_size=out.batch_size,
       num_sampled_nodes=out.num_sampled_nodes,
       num_sampled_edges=out.num_sampled_edges, metadata=dict(out.metadata))

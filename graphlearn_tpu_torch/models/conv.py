@@ -78,10 +78,12 @@ _AGGS = {'mean': segment_mean_agg, 'sum': segment_sum_agg,
 class SAGEConv(nn.Module):
   """GraphSAGE conv: ``lin_self(x_v) + lin_nbr(agg_{u->v} x_u)``.
 
-  Messages are gathered as ``x[max(row, 0)]`` and the slots with
-  ``row < 0`` zeroed in place, so the ``[E, F]`` message tensor is the
-  only edge-sized float buffer (at full-graph scale it dominates device
-  memory).
+  Messages are gathered as ``x[max(row, 0)]`` (``index_select``: its
+  backward is one ``index_add_``, where advanced indexing's serialises
+  the duplicates of a hub row, ~55 ms of a link train step on the card)
+  and the slots with ``row < 0`` zeroed in place, so the ``[E, F]``
+  message tensor is the only edge-sized float buffer (at full-graph scale
+  it dominates device memory).
   """
 
   def __init__(self, in_dim: int, out_dim: int, aggr: str = 'mean',
@@ -99,7 +101,7 @@ class SAGEConv(nn.Module):
       x = x.to(self.dtype)
     n = x.shape[0]
     row, col = edge_index[0], edge_index[1]
-    src = x[torch.clamp(row, min=0).to(torch.int64)]
+    src = x.index_select(0, torch.clamp(row, min=0).to(torch.int64))
     src.masked_fill_((row < 0)[:, None], 0)
     agg = _AGGS[self.aggr](src, col, edge_mask, n)
     del src

@@ -16,7 +16,9 @@ replays the update with the count it reached, not the one it captured.
 ``train_step`` is capture-safe: ``zero_grad`` drops the gradients (the
 backward writes fresh ones), nothing is read back, and the Python
 ``TrainState.step`` is host bookkeeping that a replaying caller advances
-itself. The link prediction step is not ported.
+itself. ``make_link_train_step`` is the link prediction step
+(``link_batch_to_dict`` its batch dict): dot-product scores of the
+``edge_label_index`` pairs under sigmoid binary cross-entropy.
 """
 from typing import NamedTuple
 
@@ -111,7 +113,11 @@ def make_train_step(model, num_classes: int):
   ``loss`` and ``acc`` as detached 0-d device tensors, so no step reads
   anything back to the host. ``eval_step(state, batch)`` is the batch
   accuracy without a gradient."""
-  loss_fn = make_loss_fn(model, num_classes)
+  return _steps(make_loss_fn(model, num_classes))
+
+
+def _steps(loss_fn):
+  """``(train_step, eval_step)`` over ``loss_fn: batch -> (loss, acc)``."""
 
   def train_step(state: TrainState, batch):
     state.optimizer.zero_grad()
@@ -125,6 +131,41 @@ def make_train_step(model, num_classes: int):
     return loss_fn(batch)[1]
 
   return train_step, eval_step
+
+
+def make_link_loss_fn(model):
+  """``batch -> (loss, acc)`` of link prediction
+  (``graphlearn_tpu/models/train.py:make_link_train_step``): the score of
+  a pair is the dot product of its endpoints' outputs (float32), the loss
+  optax's ``sigmoid_binary_cross_entropy`` against ``edge_label`` (1 for
+  positives, 0 for sampled negatives), and the accuracy the share of
+  pairs whose score's sign matches the label; pairs with a -1 index are
+  excluded, and both are divided by ``max(#valid pairs, 1)``."""
+  forward = make_forward_fn(model)
+
+  def loss_fn(batch):
+    h = forward(batch).float()
+    eli = batch['edge_label_index']
+    lab = batch['edge_label'].float()
+    valid = (eli[0] >= 0) & (eli[1] >= 0)
+    # index_select: its backward is one index_add_, not a serial scatter
+    src = h.index_select(0, eli[0].clamp(min=0).long())
+    dst = h.index_select(0, eli[1].clamp(min=0).long())
+    score = (src * dst).sum(-1)
+    bce = -lab * torch.nn.functional.logsigmoid(score) - \
+        (1.0 - lab) * torch.nn.functional.logsigmoid(-score)
+    pairs = torch.clamp(valid.sum(), min=1).float()
+    loss = torch.where(valid, bce, 0.0).sum() / pairs
+    hit = ((score > 0) == (lab > 0.5)) & valid
+    return loss, hit.sum().float() / pairs
+
+  return loss_fn
+
+
+def make_link_train_step(model):
+  """``(train_step, eval_step)`` of link prediction, with the contract of
+  :func:`make_train_step` (``eval_step`` gives the accuracy)."""
+  return _steps(make_link_loss_fn(model))
 
 
 def make_eval_counts(model):
@@ -160,6 +201,14 @@ def merge_hop_offsets(batch_cap: int, fanouts, node_budget=None,
   ``caps[i] * k`` wide)."""
   caps = capacity_plan(batch_cap, list(fanouts), node_budget, frontier_caps)
   return merge_layout_from_caps(caps, list(fanouts))
+
+
+def link_batch_to_dict(batch):
+  """A link loader's ``loader.Data`` -> the link step's dict."""
+  return dict(x=batch.x, edge_index=batch.edge_index,
+              edge_mask=batch.edge_mask,
+              edge_label_index=batch.metadata['edge_label_index'],
+              edge_label=batch.metadata['edge_label'])
 
 
 def batch_to_dict(batch):

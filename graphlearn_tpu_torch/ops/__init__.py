@@ -3,32 +3,40 @@ hop keys of a chunk of steps.
 
 The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the fused
 hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
-chunk's ``step_keys``, the sampling backends' draw ``draw.uniform`` and
-the probes' ``row_gather_probe``, one counter per route, and
+chunk's ``step_keys``, the sampling backends' draw ``draw.uniform``, the
+negative sampler's draw and test ``random_negative_sample`` and the
+probes' ``row_gather_probe``, one counter per route, and
 ``smem_take``) keep launch counters; ``launch_counts``
 reads them (``sample_hop`` and ``sample_level`` name the two sampling
 kernels), ``reset_launch_counts`` sets them to 0 and
 ``add_launch_counts`` adds a recorded set (a CUDA graph's replay).
 """
-from . import draw, gather, kernels, keys, probes, sample_fused
+from . import draw, gather, kernels, keys, negative, probes, sample_fused
 from .collate import collate_batch
 from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
                      gather_rows_hbm2, gather_rows_hbm2_plain,
                      gather_rows_plain, plan_gather_runs, plan_runs_in_tiles)
+from .induce import InducerState, induce_next, init_empty, init_node
+from .induce_map import MapInducerState, induce_next_map, init_node_map
 from .induce_merge import (MergeInducerState, induce_next_merge,
-                           init_node_merge)
+                           init_empty_merge, init_node_merge)
 from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree
 from .keys import step_keys
 from .neighbor import (BLOCK, build_padded_adjacency,
                        build_padded_adjacency_device, build_row_cumsum,
-                       choose_padded_window, padded_table_stats,
+                       choose_padded_window, edge_in_csr,
+                       padded_table_stats,
                        uniform_sample, uniform_sample_block,
                        uniform_sample_padded, weighted_sample)
+from .negative import (random_negative_sample,
+                       random_negative_sample_plain, sort_csr_rows,
+                       sort_csr_segments)
 from .probes import (row_gather_probe, row_gather_probe_plain,
                      row_gather_route, smem_take, smem_take_plain)
 from .sample_fused import (LevelScratch, sample_hop_fused,
                            sample_level_fused, sample_level_fused_plain,
                            sample_level_plain)
+from .subgraph import node_subgraph, node_subgraph_bucketed
 from .unique import FILL, masked_unique
 
 
@@ -40,6 +48,7 @@ _COUNTERS = {
     'sample_level': (sample_fused, 'level_launches'),
     'step_keys': (keys, 'launches'),
     'uniform_draw': (draw, 'launches'),
+    'negative_sample': (negative, 'launches'),
     'row_gather_probe_bulk': (probes, 'row_gather_bulk_launches'),
     'row_gather_probe_vector': (probes, 'row_gather_vector_launches'),
     'smem_take': (probes, 'smem_take_launches'),

@@ -69,6 +69,17 @@ def init_node_merge(seeds: torch.Tensor, seed_mask: torch.Tensor,
   return state, uniq, torch.arange(b, device=dev) < count, inverse
 
 
+def init_empty_merge(capacity: int, dtype=torch.int32, device=None):
+  """A merge-inducer state with no nodes yet (the hetero engines' lazy
+  per-type states)."""
+  big = torch.iinfo(dtype).max
+  return MergeInducerState(
+      torch.full((capacity,), FILL, dtype=dtype, device=device),
+      torch.zeros((), dtype=torch.int32, device=device),
+      torch.full((capacity,), big, dtype=dtype, device=device),
+      torch.full((capacity,), -1, dtype=torch.int32, device=device))
+
+
 def repeat_each(src_idx, k: int):
   """``repeat(src_idx, k)`` as int32, by a broadcast (a static shape: no
   host sync on the card)."""

@@ -12,6 +12,8 @@ order; deg > K draws K with replacement).
   ``choose_padded_window``, ``padded_table_stats``) and block sampling
   (``uniform_sample_block``) are the JAX package's XLA-only backends: torch
   ops around one float32 draw per hop (``ops.draw.uniform``).
+- ``edge_in_csr`` is the membership test of negative sampling, the plain
+  version of the search in ``csrc/negative_sample.cu``.
 """
 import numpy as np
 import torch
@@ -364,3 +366,25 @@ def uniform_sample_block(csr_meta, indices_blocks, num_edges: int, seeds,
   epos = torch.minimum(epos, torch.full((), num_edges - 1, dtype=epos.dtype,
                                         device=dev))
   return torch.where(mask, picked, FILL), epos, mask
+
+
+def edge_in_csr(indptr, indices, rows, cols):
+  """Is ``(rows[i], cols[i])`` an edge? (``graphlearn_tpu/ops/
+  neighbor.py:edge_in_csr``). ``indices`` must be sorted within each row
+  segment (``ops.sort_csr_segments``): a lower-bound binary search of 32
+  rounds, the probe index clipped into the indices, and the row pointer
+  reads clamped into ``indptr`` as XLA's gather clamps them."""
+  last = indptr.shape[0] - 1
+  r = _long(rows)
+  start = _long(indptr[r.clamp(0, last)])
+  end = _long(indptr[(r + 1).clamp(0, last)])
+  n_e = indices.shape[0]
+  if n_e == 0:
+    return torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+  lo, hi = start, end
+  for _ in range(32):
+    mid = (lo + hi) // 2
+    right = indices[mid.clamp(0, n_e - 1)] < cols
+    lo = torch.where(right, mid + 1, lo)
+    hi = torch.where(right, hi, mid)
+  return (lo < end) & (indices[lo.clamp(0, n_e - 1)] == cols)

@@ -13,6 +13,7 @@ since jax 0.5):
   fold_in(key, d)     -> threefry(key, (0, d))          (_threefry_fold_in)
   split(key, n)[i]    -> threefry(key, (hi(i), lo(i)))  (iota_2x32_shape)
   uniform(key, shape) -> mantissa of bits1 ^ bits2 at flat index i
+  randint(key, shape, lo, hi) -> two words per value, reduced in uint32
   permutation(key, n) -> stable sorts of arange(n) by fresh words  (_shuffle)
 
 Torch has no full uint32 arithmetic, so words live in int64 tensors and
@@ -148,6 +149,34 @@ def uniform(key, shape, device=None):
   bits = random_bits(key, tuple(shape), device)
   fbits = (bits >> 9) | 0x3F800000
   return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def randint(key, shape, minval: int, maxval: int, device=None):
+  """``jax.random.randint(key, shape, minval, maxval)`` for int32, bit for
+  bit, on ``device`` (the key on the CPU or on that device).
+
+  JAX splits the key in two (``higher``, ``lower``), draws one 32-bit
+  word per value from each and reduces them to ``[minval, maxval)`` in
+  uint32 arithmetic: ``multiplier = (2**16 % span)**2 % span`` and
+  ``((hi % span) * multiplier + lo % span) % span``, where every product
+  and sum wraps mod 2**32. From span 65,536 on ``2**16 % span`` squared
+  wraps to 0 and the value is ``lo % span``: int64 arithmetic without the
+  wrap would agree with JAX on no larger span. So every uint32 step here
+  is masked to 32 bits."""
+  shape = tuple(int(s) for s in shape)
+  lo_v = min(max(int(minval), _I32_MIN), _I32_MAX)
+  hi_v = min(max(int(maxval), _I32_MIN), _I32_MAX)
+  span = (hi_v - lo_v) & _MASK if hi_v > lo_v else 1
+  mult = ((2 ** 16 % span) ** 2 & _MASK) % span   # 0 from span 65,537
+  k_hi, k_lo = split(key)
+  higher = random_bits(k_hi, shape, device)
+  lower = random_bits(k_lo, shape, device)
+  off = (((higher % span) * mult & _MASK) + lower % span) & _MASK
+  val = (lo_v + off % span) & _MASK      # the int32 add wraps
+  return (((val + 2 ** 31) & _MASK) - 2 ** 31).to(torch.int32)
 
 
 def permutation(key, n: int, device=None):

@@ -1,14 +1,34 @@
 """Sampler input/output containers.
 
 Counterpart of ``graphlearn_tpu/sampler/base.py`` (``NodeSamplerInput``,
+``EdgeSamplerInput``, ``NegativeSampling``, ``NeighborOutput``,
 ``SamplerOutput``). Outputs are fixed-shape and mask-padded: ``node`` /
 ``row`` / ``col`` are padded to static capacities, validity rides in
 ``edge_mask`` and the 0-d ``num_nodes`` tensor.
 """
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+
+from ..typing import EdgeType
+
+
+class CastMixin:
+  """``cls.cast(x)``: None stays None, an instance is returned as it is,
+  a tuple or list is unpacked, a dict is passed by keyword."""
+
+  @classmethod
+  def cast(cls, *args, **kwargs):
+    if len(args) == 1 and not kwargs:
+      elem = args[0]
+      if elem is None or isinstance(elem, cls):
+        return elem
+      if isinstance(elem, (tuple, list)):
+        return cls(*elem)
+      if isinstance(elem, dict):
+        return cls(**elem)
+    return cls(*args, **kwargs)
 
 
 @dataclass
@@ -19,6 +39,65 @@ class NodeSamplerInput:
 
   def __len__(self):
     return int(np.asarray(self.node).shape[0])
+
+
+@dataclass
+class NegativeSampling(CastMixin):
+  """Negative sampling: ``mode`` 'binary' (negatives are extra supervision
+  pairs labelled 0) or 'triplet' (``amount`` dst candidates per positive
+  for a margin loss); ``amount`` negatives per positive."""
+  mode: str = 'binary'
+  amount: Union[int, float] = 1
+
+  def __post_init__(self):
+    if self.mode not in ('binary', 'triplet'):
+      raise ValueError(f'unknown negative sampling mode {self.mode!r}')
+    if self.amount <= 0:
+      raise ValueError('negative sampling amount must be positive')
+
+  def is_binary(self) -> bool:
+    return self.mode == 'binary'
+
+  def is_triplet(self) -> bool:
+    return self.mode == 'triplet'
+
+  def num_negatives(self, num_pos: int) -> int:
+    return int(np.ceil(self.amount * num_pos))
+
+
+@dataclass
+class EdgeSamplerInput(CastMixin):
+  """Seed edges for link sampling: ``row`` / ``col`` host arrays, optional
+  labels, the edge type (heterogeneous graphs) and the negative
+  sampling."""
+  row: np.ndarray
+  col: np.ndarray
+  label: Optional[np.ndarray] = None
+  input_type: Optional[EdgeType] = None
+  neg_sampling: Optional[NegativeSampling] = None
+
+  def __len__(self):
+    return int(np.asarray(self.row).shape[0])
+
+  def __getitem__(self, index) -> 'EdgeSamplerInput':
+    return EdgeSamplerInput(
+        np.asarray(self.row)[index], np.asarray(self.col)[index],
+        np.asarray(self.label)[index] if self.label is not None else None,
+        self.input_type, self.neg_sampling)
+
+
+@dataclass
+class NeighborOutput:
+  """One hop's dense result: ``nbrs [B, K]`` (FILL-padded), ``mask`` and,
+  with ``with_edge``, the global edge ids ``edges [B, K]`` (-1 where
+  masked)."""
+  nbrs: Any
+  mask: Any
+  edges: Optional[Any] = None
+
+  @property
+  def nbrs_num(self):
+    return self.mask.sum(1)
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Frontier-capacity calibration for exact-dedup sampling.
 
 The port's own numpy copy of ``graphlearn_tpu/sampler/calibrate.py``
-(``_sim_expand``, ``estimate_frontier_caps``, ``check_no_overflow``).
+(``_sim_expand``, ``estimate_frontier_caps``, ``link_seed_width``,
+``check_no_overflow``).
 Static shapes size every exact-dedup buffer for the worst case
 (``caps[i+1] = caps[i] * k``), while real deduped frontiers run several
 times smaller; ``estimate_frontier_caps`` simulates the sampler's per-hop
@@ -90,6 +91,17 @@ def estimate_frontier_caps(graph, fanouts: Sequence[int], batch_size: int,
       if frontier.size == 0:
         break
   return [_round_up(int(m * slack), multiple) for m in maxima]
+
+
+def link_seed_width(batch_size: int, neg_sampling=None) -> int:
+  """The seed width of one link batch: src and dst of each positive, and
+  the negatives' endpoints sampled beside them (binary: both, triplet:
+  the dst candidate). The width to calibrate a link loader's caps at."""
+  if neg_sampling is None:
+    return 2 * batch_size
+  num_neg = neg_sampling.num_negatives(batch_size)
+  return 2 * batch_size + \
+      (2 * num_neg if neg_sampling.is_binary() else num_neg)
 
 
 def check_no_overflow(sampler, out, batch_cap: Optional[int] = None):

@@ -30,6 +30,10 @@ routes them through its level kernel.
 
 - ``dedup='tree'`` (alias 'none'): the positional tree inducer; hop i's
   frontier is ``caps[i] = min(caps[i-1] * k, node_budget)`` slots.
+- ``dedup='map_table'`` / ``'sort_legacy'``: the legacy exact engines
+  (``ops.induce_map``'s direct-address table, ``ops.induce``'s
+  searchsorted view), kept for parity and bisection as in JAX; their
+  uniform hops take the fused hop (the hop kernel on the card).
 - ``dedup='auto'`` (the default; aliases 'map', 'sort', 'merge'): exact
   dedup. ``frontier_caps`` clamps the per-hop frontiers
   (``sampler.calibrate``) and ``node_budget`` every one of them; a batch
@@ -47,7 +51,15 @@ one ``[n_hops, 2]`` tensor that the kernels read; an epoch trainer hands
 same words without a host step.
 
 Edge direction: ``row`` is the neighbor (message source) local index and
-``col`` the seed (target), as in the JAX package.
+``col`` the seed (target), as in the JAX package. ``with_edge`` adds each
+sampled edge's global id (the graph's ``edge_ids`` at the hop's edge
+position, -1 where masked) as ``SamplerOutput.edge``.
+
+Beside ``sample_from_nodes``: ``sample_from_edges`` (link sampling: the
+negatives drawn on the device by ``ops.random_negative_sample``, one
+launch on the card, and the seed union sampled without a host round
+trip), ``subgraph`` (the induced subgraph of a sampled node set,
+``ops.node_subgraph``), ``sample_pyg_v1`` and ``sample_one_hop``.
 """
 import copy
 from typing import Optional
@@ -59,7 +71,8 @@ from .. import metrics, ops
 from .. import random as trandom
 from ..data import Graph
 from ..ops.unique import FILL
-from .base import NodeSamplerInput, SamplerOutput
+from .base import (EdgeSamplerInput, NeighborOutput, NodeSamplerInput,
+                   SamplerOutput)
 
 
 def _round_up(n: int, multiple: int = 8) -> int:
@@ -128,8 +141,55 @@ def _tree_node_cap(caps, fanouts) -> int:
 def _later(what: str, slice_name: str):
   return NotImplementedError(
       f'{what} is not ported yet: it comes with the {slice_name} slice '
-      '(the port samples homogeneous graphs, with the tree and merge '
-      'engines)')
+      '(the port samples homogeneous graphs)')
+
+
+def _inducer_for(mode: str, num_graph_nodes: int = 0):
+  """``(init(seeds, mask, capacity), induce(state, fidx, nbrs, m, offset,
+  compact, final, max_new))`` of a dedup engine: one dispatch for the
+  sampler's per-backend hops (``graphlearn_tpu/sampler/
+  neighbor_sampler.py:_inducer_for``). ``offset`` is the tree's slot base
+  or the merge engine's prefix cap; ``compact`` the map engine's
+  compaction; ``final`` marks the last hop (the merge engine skips its
+  view rebuild)."""
+  if mode == 'merge':
+    return ops.init_node_merge, \
+        lambda st, fi, nb, m, off, compact, final, max_new: \
+        ops.induce_next_merge(st, fi, nb, m, prefix_cap=off,
+                              max_new=max_new, update_view=not final)
+  if mode == 'map_table':
+    return (lambda s, m, capacity: ops.init_node_map(
+        s, m, capacity, num_graph_nodes)), \
+        lambda st, fi, nb, m, off, compact, final, max_new: \
+        ops.induce_next_map(st, fi, nb, m, compact_frontier=compact)
+  if mode == 'sort_legacy':
+    return ops.init_node, \
+        lambda st, fi, nb, m, off, compact, final, max_new: \
+        ops.induce_next(st, fi, nb, m)
+  assert mode == 'tree', f'unknown dedup mode {mode!r}'
+  return ops.init_node_tree, \
+      lambda st, fi, nb, m, off, compact, final, max_new: \
+      ops.induce_next_tree(st, fi, nb, m, off)
+
+
+def _upload(arr, dtype, device):
+  """A host array on ``device``: on a card, one copy from pinned memory
+  that does not block the host."""
+  t = torch.as_tensor(np.ascontiguousarray(arr)).to(dtype)
+  if device.type != 'cuda':
+    return t.to(device)
+  return t.pin_memory().to(device, non_blocking=True)
+
+
+def _jax_dtype(arr: np.ndarray):
+  """The dtype ``jnp.asarray`` gives a host array (64-bit values become
+  32-bit: the JAX package runs without x64)."""
+  arr = np.asarray(arr)
+  if arr.dtype == np.int64:
+    return torch.int32
+  if arr.dtype == np.float64:
+    return torch.float32
+  return torch.from_numpy(arr[:0].copy()).dtype
 
 
 class NeighborSampler:
@@ -147,29 +207,32 @@ class NeighborSampler:
     node_budget: clamp on every hop's frontier capacity.
     dedup: 'auto' (default; also 'map', 'sort', 'merge') runs the merge
       exact-dedup engine, 'tree' (or its alias 'none') the positional
-      tree engine. The legacy 'map_table' / 'sort_legacy' engines come
-      with the sampling-menu slice.
+      tree engine, 'map_table' / 'sort_legacy' the legacy exact engines.
     padded_window: sample from a ``[N, W]`` padded table (an int W, or
       'auto': ``ops.choose_padded_window``); uniform sampling only.
     frontier_caps: per-hop post-dedup frontier caps (a list, e.g. from
-      ``sampler.calibrate.estimate_frontier_caps``); exact-dedup only.
+      ``sampler.calibrate.estimate_frontier_caps``); the merge engine
+      only.
+    with_edge: also emit each sampled edge's global id.
+    edge_dir: 'out' (the graph is a CSR of out-edges) or 'in' (a CSC):
+      link sampling flips its negatives to (src, dst) under 'in'.
 
-  ``with_edge`` and heterogeneous graphs raise ``NotImplementedError``.
+  Heterogeneous graphs raise ``NotImplementedError``.
   """
 
   def __init__(self, graph: Graph, num_neighbors=None, device=None,
                with_edge: bool = False, with_weight: bool = False,
                strategy: str = 'random', seed: Optional[int] = None,
                node_budget=None, dedup: str = 'auto', padded_window=None,
-               frontier_caps=None):
+               frontier_caps=None, edge_dir: str = 'out'):
     from ..utils import resolve_device
     if isinstance(graph, dict):
       raise _later('heterogeneous sampling', 'hetero')
-    if with_edge:
-      raise _later('with_edge', 'sampling-menu')
     if isinstance(num_neighbors, dict):
       raise _later('per-edge-type fanouts', 'hetero')
     self.dedup = dedup
+    self.with_edge = with_edge
+    self.edge_dir = edge_dir
     mode = self._dedup_mode()
     if frontier_caps is not None:
       if mode == 'tree':
@@ -179,6 +242,12 @@ class NeighborSampler:
         raise ValueError('frontier_caps requires an exact-dedup mode '
                          "(map/sort/merge); use node_budget with "
                          "dedup='tree'")
+      if mode in ('map_table', 'sort_legacy'):
+        # no clean-truncation contract and no overflow flag: clamping
+        # them would bring back the silent bias the merge guard prevents
+        raise ValueError(f'frontier_caps is not supported with the legacy '
+                         f'{dedup!r} engine (no overflow detection); use '
+                         "dedup='merge'")
       if isinstance(frontier_caps, dict):
         raise ValueError('dict-form frontier_caps is hetero-only; pass '
                          'a per-hop list on homogeneous graphs')
@@ -221,20 +290,23 @@ class NeighborSampler:
     self._padded_seed = 0 if seed is None else seed
     self._scratch = {}      # node capacity -> the level kernel's scratch
     # the backends' device arrays, built at first use: the padded table
-    # (reseeded in place), the block view, the row CDF
+    # (reseeded in place), the block view, the row CDF, and the row-sorted
+    # indices of negative sampling
     self._padded = None
     self._blocks = None
     self._cumsum = None
+    self._neg_indices = None
 
   def _dedup_mode(self) -> str:
     """The engine: 'tree' for 'tree'/'none', 'merge' for
-    'map'/'sort'/'merge'/'auto' (as in the JAX package)."""
+    'map'/'sort'/'merge'/'auto', and the legacy 'map_table' /
+    'sort_legacy' by name (as in the JAX package)."""
     if self.dedup in ('tree', 'none'):
       return 'tree'
+    if self.dedup in ('map_table', 'sort_legacy'):
+      return self.dedup
     if self.dedup in ('map', 'sort', 'merge', 'auto'):
       return 'merge'
-    if self.dedup in ('map_table', 'sort_legacy'):
-      raise _later(f'dedup={self.dedup!r}', 'sampling-menu')
     raise ValueError(f'unknown dedup mode {self.dedup!r}')
 
   @property
@@ -295,16 +367,20 @@ class NeighborSampler:
 
   def _build_padded(self):
     g = self.graph
-    tab, deg, _ = ops.build_padded_adjacency_device(
+    tab, deg, eptab = ops.build_padded_adjacency_device(
         g.indptr, g.indices, self.padded_window,
-        trandom.PRNGKey(self._padded_seed))
-    return dict(tab=tab, deg=deg)
+        trandom.PRNGKey(self._padded_seed), edge_pos=self.with_edge)
+    arrays = dict(tab=tab, deg=deg)
+    if eptab is not None:     # with_edge: each slot's edge position
+      arrays['eptab'] = eptab
+    return arrays
 
   def _padded_arrays(self):
-    """The ``[N, W]`` padded table and its ``[N]`` degrees, built on the
-    device from ``PRNGKey(_padded_seed)`` at first use (JAX builds it
-    lazily too). A reseed writes into these tensors, so a captured CUDA
-    graph that read them samples the new table."""
+    """The ``[N, W]`` padded table and its ``[N]`` degrees (and with
+    ``with_edge`` the ``[N, W]`` edge positions), built on the device from
+    ``PRNGKey(_padded_seed)`` at first use (JAX builds it lazily too). A
+    reseed writes into these tensors, so a captured CUDA graph that read
+    them samples the new table."""
     if self._padded is None:
       self._padded = self._build_padded()
     return self._padded
@@ -366,24 +442,51 @@ class NeighborSampler:
   # ---------------------------------------------------------------- hops
 
   def _hop(self, backend, frontier, fmask, k, key):
-    """``(nbrs, mask)`` of one padded, block, weighted or tree hop."""
+    """``(nbrs, epos, mask)`` of one padded, block, weighted or fused
+    hop."""
     g = self.graph
     if backend == 'padded':
       pa = self._padded_arrays()
-      nbrs, _, m = ops.uniform_sample_padded(pa['tab'], pa['deg'], frontier,
-                                             fmask, k, key)
-    elif backend == 'block':
+      return ops.uniform_sample_padded(pa['tab'], pa['deg'], frontier,
+                                       fmask, k, key,
+                                       epos_table=pa.get('eptab'))
+    if backend == 'block':
       blocks, meta = self._block_arrays()
-      nbrs, _, m = ops.uniform_sample_block(meta, blocks, g.num_edges,
-                                            frontier, fmask, k, key)
-    elif backend == 'weighted':
-      nbrs, _, m = ops.weighted_sample(g.indptr, g.indices,
-                                       self._cumsum_for(), frontier, fmask,
-                                       k, key)
-    else:
-      nbrs, _, m = ops.sample_hop_fused(g.indptr, g.indices, None, frontier,
-                                        fmask, k, key, meta=g.csr_meta)
-    return nbrs, m
+      return ops.uniform_sample_block(meta, blocks, g.num_edges, frontier,
+                                      fmask, k, key)
+    if backend == 'weighted':
+      return ops.weighted_sample(g.indptr, g.indices, self._cumsum_for(),
+                                 frontier, fmask, k, key)
+    return ops.sample_hop_fused(g.indptr, g.indices, None, frontier, fmask,
+                                k, key, meta=g.csr_meta)
+
+  def _edge_ids(self, epos, emask):
+    """Global edge ids of flat edge positions: the graph's ``edge_ids`` at
+    ``epos`` (``epos`` itself without them), -1 where ``emask`` is
+    False."""
+    flat = epos.reshape(-1).to(torch.int64)
+    eids = self.graph.edge_ids
+    if eids is not None:
+      if eids.shape[0] == 0:
+        return torch.full_like(flat, -1)
+      flat = eids[flat.clamp(0, eids.shape[0] - 1)]
+    return torch.where(emask.reshape(-1), flat, -1)
+
+  def sample_one_hop(self, srcs, src_mask, k: int, key=None) -> \
+      NeighborOutput:
+    """One fanout hop: ``[B]`` seeds -> dense ``[B, k]`` neighbours and
+    mask, with their edge ids under ``with_edge``; weighted, block or
+    uniform (the hop kernel on the card), as JAX's ``sample_one_hop``."""
+    if key is None:
+      key = self._next_key()
+    srcs = torch.as_tensor(srcs).to(self.device, torch.int32)
+    src_mask = torch.as_tensor(src_mask).to(self.device, torch.bool)
+    backend = ('weighted' if self.weighted else
+               'block' if self.strategy == 'block' else 'fused')
+    nbrs, epos, mask = self._hop(backend, srcs, src_mask, k, key)
+    edges = (self._edge_ids(epos, mask).reshape(mask.shape)
+             if self.with_edge else None)
+    return NeighborOutput(nbrs=nbrs, mask=mask, edges=edges)
 
   def _sample(self, seeds, seed_mask, key=None, hop_keys=None):
     """The multi-hop program (``_fused_homo_fn``) under the batch key
@@ -393,20 +496,22 @@ class NeighborSampler:
     batch_cap = seeds.shape[0]
     caps = self.hop_caps(batch_cap)
     g = self.graph
-    merge = self._dedup_mode() == 'merge'
+    mode = self._dedup_mode()
+    merge = mode == 'merge'
     backend = self._backend()
     level = merge and backend == 'fused'    # the fused level kernel
-    if merge:
-      state, frontier, fmask, inv = ops.init_node_merge(
-          seeds, seed_mask, capacity=sum(caps))
-      node_offs, _ = merge_layout_from_caps(caps, fanouts)
-      scratch = self._level_scratch(state, batch_cap) if level else None
-    else:
-      state, frontier, fmask, inv = ops.init_node_tree(
+    init_fn, induce_fn = _inducer_for(mode, g.num_nodes)
+    if mode == 'tree':
+      state, frontier, fmask, inv = init_fn(
           seeds, seed_mask, capacity=_tree_node_cap(caps, fanouts))
       node_offs, _ = tree_layout_from_caps(caps, fanouts)
+    else:
+      state, frontier, fmask, inv = init_fn(seeds, seed_mask,
+                                            capacity=sum(caps))
+      node_offs, _ = merge_layout_from_caps(caps, fanouts)
+    scratch = self._level_scratch(state, batch_cap) if level else None
     fidx = torch.arange(batch_cap, dtype=torch.int32, device=seeds.device)
-    rows, cols, emasks = [], [], []
+    rows, cols, emasks, edges = [], [], [], []
     nodes_per_hop = [state.num_nodes]
     edges_per_hop = []
     # on-device truncation flag: True iff a clamped merge hop found more
@@ -421,24 +526,24 @@ class NeighborSampler:
     for i, k in enumerate(fanouts):
       final = i + 1 == len(fanouts)
       if level:
-        state, out, _, _ = ops.sample_level_fused(
+        state, out, epos, _ = ops.sample_level_fused(
             g.indptr, g.indices, None, frontier, fmask, k, keys[i], state,
             fidx, meta=g.csr_meta, prefix_cap=node_offs[i],
             max_new=caps[i + 1], final=final, scratch=scratch)
       else:
-        nbrs, m = self._hop(backend, frontier, fmask, k, keys[i])
-        if merge:
-          state, out = ops.induce_next_merge(
-              state, fidx, nbrs, m, prefix_cap=node_offs[i],
-              max_new=caps[i + 1], update_view=not final)
-        else:
-          state, out = ops.induce_next_tree(state, fidx, nbrs, m,
-                                            node_offs[i])
+        nbrs, epos, m = self._hop(backend, frontier, fmask, k, keys[i])
+        # the map engine emits its frontier positionally when nothing
+        # truncates it (JAX's compaction switch)
+        state, out = induce_fn(state, fidx, nbrs, m, node_offs[i],
+                               caps[i + 1] < caps[i] * k, final,
+                               caps[i + 1])
       if merge and caps[i + 1] < caps[i] * k:
         overflow = overflow | (out['num_new'] > caps[i + 1])
       rows.append(out['cols'])     # message direction: neighbor -> seed
       cols.append(out['rows'])
       emasks.append(out['edge_mask'])
+      if self.with_edge:
+        edges.append(self._edge_ids(epos, out['edge_mask']))
       nodes_per_hop.append(out['num_new'])
       edges_per_hop.append(out['edge_mask'].sum().to(torch.int32))
       nxt = caps[i + 1]
@@ -447,9 +552,19 @@ class NeighborSampler:
       fmask = out['frontier_mask'][:nxt]
     return dict(node=state.nodes, num_nodes=state.num_nodes,
                 row=torch.cat(rows), col=torch.cat(cols),
+                edge=torch.cat(edges) if self.with_edge else None,
                 edge_mask=torch.cat(emasks), num_sampled_nodes=nodes_per_hop,
                 num_sampled_edges=edges_per_hop, seed_inverse=inv,
                 overflow=overflow)
+
+  def _sample_seeds(self, seeds, seed_mask, key):
+    """:meth:`_sample` of a sampler call, with the reference's
+    kernel-path counter: one per call routed through the level kernel
+    (merge) or the hop kernel (the other engines)."""
+    if self._backend() == 'fused':
+      metrics.inc('ops.fused_level_calls' if self._dedup_mode() == 'merge'
+                  else 'ops.fused_hop_calls')
+    return self._sample(seeds, seed_mask, key)
 
   def sample_from_nodes(self, inputs: NodeSamplerInput,
                         batch_cap: Optional[int] = None,
@@ -468,20 +583,183 @@ class NeighborSampler:
     mask = np.arange(cap) < n
     if key is None:
       key = self._next_key()
-    # the reference's kernel-path counters: one per sampler call routed
-    # through the level kernel (merge) or the hop kernel (tree)
-    if self._backend() == 'fused':
-      metrics.inc('ops.fused_level_calls' if self._dedup_mode() == 'merge'
-                  else 'ops.fused_hop_calls')
     seeds_d = torch.as_tensor(padded).to(self.device)
     mask_d = torch.as_tensor(mask).to(self.device)
-    res = self._sample(seeds_d, mask_d, key)
+    res = self._sample_seeds(seeds_d, mask_d, key)
     return SamplerOutput(
         node=res['node'], num_nodes=res['num_nodes'], row=res['row'],
-        col=res['col'], edge=None, edge_mask=res['edge_mask'],
+        col=res['col'], edge=res['edge'], edge_mask=res['edge_mask'],
         batch=seeds_d, batch_size=n,
         num_sampled_nodes=res['num_sampled_nodes'],
         num_sampled_edges=res['num_sampled_edges'],
         input_type=inputs.input_type,
         metadata={'seed_inverse': res['seed_inverse'], 'seed_mask': mask,
                   'overflow': res['overflow']})
+
+  # ---------------------------------------------------------------- link
+
+  def _neg_sorted(self):
+    """The CSR's indices sorted within each row, on the device
+    (``ops.sort_csr_rows``): negative sampling's membership view, built
+    once per sampler (the graph is static)."""
+    if self._neg_indices is None:
+      self._neg_indices = ops.sort_csr_rows(self.graph.indptr,
+                                            self.graph.indices)
+    return self._neg_indices
+
+  def sample_from_edges(self, inputs: EdgeSamplerInput,
+                        key=None) -> SamplerOutput:
+    """Link sampling: negatives, the seed union, node sampling and the
+    supervision metadata (``graphlearn_tpu/sampler/neighbor_sampler.py:
+    sample_from_edges``).
+
+    One key (``key``, or the next of the sampler's stream) splits into
+    ``kneg``, which draws the negatives (``ops.random_negative_sample``,
+    padding on: one launch on the card), and ``knode``, which samples the
+    union of the positives' endpoints and the negatives (seeds padded to
+    the union's length rounded up to 8). JAX fetches the negatives to the
+    host to build the union; here it is built on the device, with the
+    same values and no host round trip. The overflow guard replays a
+    truncated batch at full capacities with the same ``key``.
+
+    Metadata (local indices through ``seed_inverse``): binary and none,
+    ``edge_label_index [2, b + num_neg]`` and ``edge_label`` (the input
+    labels or ones, then zeros); triplet, ``src_index``,
+    ``dst_pos_index`` and ``dst_neg_index``."""
+    if inputs.input_type is not None:
+      raise _later('typed link sampling', 'hetero')
+    if key is None:
+      key = self._next_key()
+    kneg, knode = trandom.split(key)
+    rows = np.asarray(inputs.row).reshape(-1)
+    cols = np.asarray(inputs.col).reshape(-1)
+    b = rows.shape[0]
+    neg = inputs.neg_sampling
+    g = self.graph
+    dev = self.device
+    parts = [_upload(np.concatenate([rows, cols]), torch.int32, dev)]
+    num_neg = 0
+    if neg is not None:
+      num_neg = neg.num_negatives(b)
+      nr, nc, _ = ops.random_negative_sample(
+          g.indptr, self._neg_sorted(), g.num_nodes, g.num_nodes, num_neg,
+          kneg, padding=True)
+      if self.edge_dir == 'in':
+        # a CSC stores (dst, src): emit (src, dst) pairs
+        nr, nc = nc, nr
+      parts += [nr, nc] if neg.is_binary() else [nc]
+    n = 2 * b + (0 if neg is None else
+                 (2 if neg.is_binary() else 1) * num_neg)
+    cap = _round_up(n)
+    parts.append(torch.zeros(cap - n, dtype=torch.int32, device=dev))
+    seeds = torch.cat(parts)
+    mask = np.arange(cap) < n
+    mask_d = torch.arange(cap, device=dev) < n
+    res = self._sample_seeds(seeds, mask_d, knode)
+    inv = res['seed_inverse']
+    if inputs.label is not None:
+      label = _upload(inputs.label, _jax_dtype(inputs.label), dev)
+    else:
+      label = torch.ones(b, dtype=torch.int32, device=dev)
+    if neg is None:
+      md = dict(edge_label_index=torch.stack([inv[:b], inv[b:2 * b]]),
+                edge_label=label)
+    elif neg.is_binary():
+      md = dict(
+          edge_label_index=torch.stack([
+              torch.cat([inv[:b], inv[2 * b:2 * b + num_neg]]),
+              torch.cat([inv[b:2 * b],
+                         inv[2 * b + num_neg:2 * b + 2 * num_neg]])]),
+          edge_label=torch.cat([label, torch.zeros(num_neg,
+                                                   dtype=label.dtype,
+                                                   device=dev)]))
+    else:
+      md = dict(src_index=inv[:b], dst_pos_index=inv[b:2 * b],
+                dst_neg_index=inv[2 * b:2 * b + num_neg])
+    return SamplerOutput(
+        node=res['node'], num_nodes=res['num_nodes'], row=res['row'],
+        col=res['col'], edge=res['edge'], edge_mask=res['edge_mask'],
+        batch=seeds, batch_size=b,
+        num_sampled_nodes=res['num_sampled_nodes'],
+        num_sampled_edges=res['num_sampled_edges'],
+        input_type=inputs.input_type,
+        metadata={'seed_inverse': inv, 'seed_mask': mask,
+                  'overflow': res['overflow'], **md})
+
+  def sample_pyg_v1(self, seeds, batch_cap: Optional[int] = None):
+    """PyG-v1 style sampling: ``(batch_size, n_id, adjs)``, ``adjs`` the
+    per-hop ``(edge_index [2, caps[i] * k], edge_mask, e_id, size)`` in
+    reverse hop order (deepest first), padded."""
+    seeds = np.asarray(seeds).reshape(-1)
+    out = self.sample_from_nodes(NodeSamplerInput(seeds),
+                                 batch_cap=batch_cap)
+    fanouts = list(self.num_neighbors)
+    caps = self.hop_caps(out.batch.shape[0])
+    adjs = []
+    offset = 0
+    nodes_so_far = caps[0]
+    for i, k in enumerate(fanouts):
+      seg = slice(offset, offset + caps[i] * k)
+      eid = out.edge[seg] if out.edge is not None else None
+      nodes_so_far += caps[i + 1]
+      adjs.append((torch.stack([out.row[seg], out.col[seg]]),
+                   out.edge_mask[seg], eid, (nodes_so_far, caps[i])))
+      offset = seg.stop
+    return out.batch_size, out.node, list(reversed(adjs))
+
+  # ------------------------------------------------------------ subgraph
+
+  def subgraph(self, inputs: NodeSamplerInput,
+               max_degree: Optional[int] = None, bucketed: bool = False,
+               cap_large: Optional[int] = None) -> SamplerOutput:
+    """The k-hop induced subgraph: the seeds expanded by the fanouts
+    (``sample_from_nodes``), then every edge among the collected nodes
+    (``ops.node_subgraph``: rows scanned to ``max_degree``, default the
+    graph's largest degree: exact). ``bucketed=True`` scans most rows to
+    the graph's ~p90 degree and up to ``cap_large`` (default a node
+    capacity's eighth, at least 8) high-degree rows to the largest; the
+    high-degree rows beyond the cap lose their edges, counted in
+    ``metadata['num_dropped_rows']``. ``metadata['mapping']`` is each
+    seed's position in ``node`` (-1 if absent)."""
+    g = self.graph
+    nodes_out = self.sample_from_nodes(inputs)
+    node_buf = nodes_out.node
+    nmask = torch.arange(node_buf.shape[0], device=node_buf.device) < \
+        nodes_out.num_nodes
+    if bucketed:
+      deg_small, dmax = self._degree_buckets()
+      sub = ops.node_subgraph_bucketed(
+          g.indptr, g.indices, node_buf, nmask, deg_small=deg_small,
+          cap_large=cap_large or max(8, node_buf.shape[0] // 8),
+          max_degree=max_degree or dmax)
+    else:
+      sub = ops.node_subgraph(g.indptr, g.indices, node_buf, nmask,
+                              max_degree=max_degree or g.topo.max_degree)
+    eids = (self._edge_ids(sub['epos'], sub['edge_mask'])
+            if self.with_edge else None)
+    seeds = torch.as_tensor(np.asarray(inputs.node).reshape(-1)).to(
+        self.device, torch.int32)
+    nodes = sub['nodes']
+    skeys = torch.where(
+        torch.arange(nodes.shape[0], device=nodes.device) < sub['num_nodes'],
+        nodes, torch.iinfo(torch.int32).max)
+    pos = torch.searchsorted(skeys, seeds).clamp(0, skeys.shape[0] - 1)
+    md = {'mapping': torch.where(skeys[pos] == seeds, pos, -1)}
+    if 'num_dropped_rows' in sub:
+      md['num_dropped_rows'] = sub['num_dropped_rows']
+    return SamplerOutput(
+        node=nodes, num_nodes=sub['num_nodes'], row=sub['rows'],
+        col=sub['cols'], edge=eids, edge_mask=sub['edge_mask'],
+        batch=seeds, batch_size=int(seeds.shape[0]),
+        input_type=inputs.input_type, metadata=md)
+
+  def _degree_buckets(self):
+    """(the p90 degree rounded up to a multiple of 8, at least 8 and at
+    most the largest; the largest degree): the bucket plan of
+    ``ops.node_subgraph_bucketed``."""
+    if not hasattr(self, '_deg_buckets'):
+      deg = self.graph.topo.degrees
+      dmax = max(1, int(deg.max())) if deg.size else 1
+      p90 = int(np.quantile(deg, 0.9)) if deg.size else 1
+      self._deg_buckets = (min(dmax, max(8, -(-p90 // 8) * 8)), dmax)
+    return self._deg_buckets

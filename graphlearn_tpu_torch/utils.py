@@ -30,12 +30,13 @@ def ind2ptr(rows: np.ndarray, num_rows: int) -> np.ndarray:
 
 def coo_to_csr(row: np.ndarray, col: np.ndarray,
                num_nodes: Optional[int] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
-  """COO -> (indptr, indices); edges keep their input order within a
-  row (stable sort)."""
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+  """COO -> (indptr, indices, order); edges keep their input order within
+  a row (stable sort), and ``order[p]`` is the COO position of CSR edge
+  ``p`` (what the JAX package's edge ids and weights follow)."""
   row = np.asarray(row)
   col = np.asarray(col)
   if num_nodes is None:
     num_nodes = int(max(row.max(initial=-1), col.max(initial=-1))) + 1
   order = np.argsort(row, kind='stable')
-  return ind2ptr(row[order], num_nodes), col[order]
+  return ind2ptr(row[order], num_nodes), col[order], order

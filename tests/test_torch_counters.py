@@ -5,10 +5,14 @@ Each case makes the same calls through both packages and compares the
 counter's delta: ``ops.fused_hop_calls`` (one per tree sampler call,
 which the port always routes through its hop kernel's entry point, as the
 JAX sampler does under ``use_fused_hop``), ``ops.fused_level_calls`` (one
-per merge sampler call), and ``ops.gather_runs`` / ``ops.gather_fallbacks``
+per merge sampler call; the legacy ``map_table`` / ``sort_legacy``
+engines count hop calls, and a link batch counts one call of its
+engine), and ``ops.gather_runs`` / ``ops.gather_fallbacks``
 (one per gather-v2 call that launches its kernel, or that does not: on the
 CPU no call launches it, so every call counts a fallback in both
-packages). The counts are exact.
+packages). The counts are exact. The port's own launch counter of the
+negative sampling kernel stays 0 on the CPU, where the plain version
+runs.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +56,29 @@ def _sampler_calls(dedup):
   return jax_calls, port_calls
 
 
+def _link_calls(dedup):
+  ei, n, rng = _graph()
+  jg = glt.data.Graph(glt.data.Topology(ei, num_nodes=n), 'CPU')
+  tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=n), device='cpu')
+  js = glt.sampler.NeighborSampler(jg, [3, 2], seed=1, dedup=dedup,
+                                   use_fused_hop=True)
+  ts = gtt.sampler.NeighborSampler(tg, [3, 2], seed=1, dedup=dedup,
+                                   device='cpu')
+  picks = [rng.integers(0, ei.shape[1], 6) for _ in range(3)]
+
+  def jax_calls():
+    for p in picks:
+      js.sample_from_edges(glt.sampler.EdgeSamplerInput(
+          ei[0][p], ei[1][p], neg_sampling=glt.sampler.NegativeSampling()))
+
+  def port_calls():
+    for p in picks:
+      ts.sample_from_edges(gtt.sampler.EdgeSamplerInput(
+          ei[0][p], ei[1][p], neg_sampling=gtt.sampler.NegativeSampling()))
+
+  return jax_calls, port_calls
+
+
 def _gather_calls():
   rng = np.random.default_rng(4)
   table = rng.standard_normal((50, 128)).astype(np.float32)
@@ -72,6 +99,10 @@ def _gather_calls():
 @pytest.mark.parametrize('name,calls,expect', [
     ('ops.fused_hop_calls', lambda: _sampler_calls('tree'), 3),
     ('ops.fused_level_calls', lambda: _sampler_calls('merge'), 3),
+    ('ops.fused_hop_calls', lambda: _sampler_calls('map_table'), 3),
+    ('ops.fused_hop_calls', lambda: _sampler_calls('sort_legacy'), 3),
+    ('ops.fused_level_calls', lambda: _link_calls('merge'), 3),
+    ('ops.fused_hop_calls', lambda: _link_calls('tree'), 3),
     ('ops.gather_runs', _gather_calls, 0),
     ('ops.gather_fallbacks', _gather_calls, 3),
 ])
@@ -111,3 +142,22 @@ def test_other_backends_count_no_kernel_calls(kw, dedup):
     ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds))
   after = [(_count(jreg, c), _count(treg, c)) for c in names]
   assert after == before
+
+
+def test_negative_sample_launch_counter_stays_0_on_the_cpu():
+  """The kernel's launch counter moves only where the kernel launches:
+  CPU tensors take the plain version, so three link batches and a
+  direct call leave it at 0."""
+  ops.reset_launch_counts()
+  _, port_calls = _link_calls('merge')
+  port_calls()
+  ei, n, _ = _graph()
+  topo = gtt.data.Topology(ei, num_nodes=n)
+  sorted_idx, _ = ops.sort_csr_segments(topo.indptr, topo.indices)
+  ops.random_negative_sample(
+      torch.as_tensor(topo.indptr.astype(np.int32)),
+      torch.as_tensor(sorted_idx.astype(np.int32)), n, n, 8,
+      gtt.random.PRNGKey(0))
+  counts = ops.launch_counts()
+  assert counts['negative_sample'] == 0
+  assert all(v == 0 for v in counts.values()), counts

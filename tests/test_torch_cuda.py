@@ -36,8 +36,13 @@ loop; the uniform draw kernel against ``random.uniform`` (device, host
 and split keys); the block, padded, weighted and node_budget batches on
 both engines against the CPU's, with the draw, hop and level launches
 they make; the captured ScanTrainer on a reseeded padded table; a
-padded-window crash and resume; and bf16 train steps on both engines
-against the CPU.
+padded-window crash and resume; bf16 train steps on both engines
+against the CPU; the negative sampling kernel against its plain version
+across span 65,536 (dense, empty and no-sample cases, host and device
+keys, spans past the CSR's rows); link batches on the four engines
+against the CPU's with their launches, a link batch with no host sync,
+two link train steps against the CPU; and subgraph batches, exact and
+bucketed, against the CPU's.
 """
 import contextlib
 import copy
@@ -1184,3 +1189,180 @@ def test_bf16_train_steps_on_card_match_cpu(cuda, mode):
   for p in model.parameters():
     assert p.dtype == torch.float32
     assert state.optimizer.state[p]['exp_avg'].dtype == torch.float32
+
+
+# ------------------------------------------------ the sampling-menu slice
+
+
+def _neg_csr(cuda, n, e, seed=0, dense_rows=0):
+  rng = np.random.default_rng(seed)
+  rows = rng.integers(0, n, e)
+  cols = rng.zipf(1.5, e) % n
+  if dense_rows:
+    rows = np.concatenate([rows] + [np.full(n, r) for r in range(dense_rows)])
+    cols = np.concatenate([cols] + [np.arange(n)] * dense_rows)
+  topo = gtt.data.Topology(np.stack([rows, cols]), num_nodes=n)
+  sorted_idx, _ = ops.sort_csr_segments(topo.indptr, topo.indices)
+  indptr = torch.as_tensor(topo.indptr.astype(np.int32))
+  idx = torch.as_tensor(sorted_idx.astype(np.int32))
+  return indptr, idx, indptr.to(cuda), idx.to(cuda)
+
+
+@pytest.mark.parametrize('n,e,dense,num,trials', [
+    (60_000, 200_000, 0, 512, 5), (65_537, 200_000, 0, 512, 5),
+    (1_000_003, 3_000_000, 0, 2048, 5), (12, 10, 9, 40, 2),
+    (300, 0, 0, 64, 3), (7, 30, 0, 0, 5)])
+@pytest.mark.parametrize('padding', [False, True])
+def test_negative_sample_kernel_matches_plain(cuda, n, e, dense, num, trials,
+                                              padding):
+  """The kernel's candidates and the taken negatives equal the plain
+  version's on the same device key, across the span 65,536 where randint
+  starts to wrap, on a dense graph (a shortfall), an empty one and for no
+  samples; one launch a call (none for an empty call); a host key and the
+  same key on the device agree."""
+  cptr, cidx, gptr, gidx = _neg_csr(cuda, n, e, dense_rows=dense)
+  key = gtt.random.fold_in(gtt.random.PRNGKey(3), 11)
+  dkey = gtt.random.to_device(key, cuda)
+  before = ops.launch_counts()['negative_sample']
+  got = ops.random_negative_sample(gptr, gidx, n, n, num, dkey,
+                                   trials=trials, padding=padding)
+  assert ops.launch_counts()['negative_sample'] == before + (num > 0)
+  cand = ops.negative.negative_candidates(gptr, gidx, n, n, num * trials,
+                                          dkey)
+  plain = ops.negative.negative_candidates_plain(gptr, gidx, n, n,
+                                                 num * trials, dkey)
+  cpu = ops.negative.negative_candidates_plain(cptr, cidx, n, n,
+                                               num * trials, key)
+  for a, b, c in zip(cand, plain, cpu):
+    assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+  want = ops.random_negative_sample_plain(cptr, cidx, n, n, num, key,
+                                          trials=trials, padding=padding)
+  for a, b in zip(got, want):
+    assert torch.equal(a.cpu(), b)
+  host = ops.random_negative_sample(gptr, gidx, n, n, num, key,
+                                    trials=trials, padding=padding)
+  for a, b in zip(got, host):
+    assert torch.equal(a, b)
+
+
+def test_negative_sample_kernel_spans_past_the_rows(cuda):
+  """num_src above the CSR's rows (the typed case's key side): row reads
+  clamp into indptr as XLA's gather does; num_dst of 1."""
+  cptr, cidx, gptr, gidx = _neg_csr(cuda, 100, 800)
+  key = gtt.random.PRNGKey(9)
+  for src, dst in ((150, 100), (100, 1), (1, 100)):
+    got = ops.negative.negative_candidates(gptr, gidx, src, dst, 5000, key)
+    want = ops.negative.negative_candidates_plain(cptr, cidx, src, dst,
+                                                  5000, key)
+    for a, b in zip(got, want):
+      assert torch.equal(a.cpu(), b)
+
+
+def _link_dataset(dev, n=3000, e=40000, feat=8):
+  rng = np.random.default_rng(21)
+  ei = np.stack([rng.integers(0, n, e), rng.zipf(1.5, e) % n])
+  ds = gtt.data.Dataset(device=dev)
+  ds.init_graph(ei, num_nodes=n)
+  ds.init_node_features(rng.standard_normal((n, feat)).astype(np.float32))
+  ds.init_edge_features(rng.standard_normal((e, 2)).astype(np.float32))
+  return ds, ei
+
+
+@pytest.mark.parametrize('dedup', ['auto', 'tree', 'map_table',
+                                   'sort_legacy'])
+@pytest.mark.parametrize('neg', ['binary', 'triplet'])
+def test_link_batches_on_card_match_cpu(cuda, dedup, neg):
+  """Three link batches on the card equal the CPU's, field and metadata;
+  one negative-sampling launch a batch, each hop through the hop kernel
+  (legacy and tree engines) or each level through the level kernel."""
+  fanouts = [5, 3]
+  outs = {}
+  for dev in (cuda, torch.device('cpu')):
+    ds, ei = _link_dataset(dev)
+    loader = gtt.loader.LinkNeighborLoader(
+        ds, fanouts, ei[:, :96], neg_sampling=gtt.sampler.NegativeSampling(
+            neg, 1), batch_size=32, shuffle=True, seed=4, dedup=dedup,
+        with_edge=True, device=dev)
+    ops.reset_launch_counts()
+    outs[dev.type] = list(loader)
+    if dev.type == 'cuda':
+      counts = ops.launch_counts()
+  for a, b in zip(outs['cuda'], outs['cpu']):
+    for name in ('node', 'num_nodes', 'edge_index', 'edge_mask', 'x',
+                 'edge_ids', 'edge_attr'):
+      assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    for k, v in b.metadata.items():
+      if torch.is_tensor(v):
+        assert torch.equal(a.metadata[k].cpu(), v), k
+  assert counts['negative_sample'] == 3
+  assert counts['gather_rows'] == 3
+  if dedup == 'auto':
+    assert counts['sample_level'] == 3 * (3 * len(fanouts) + 1)
+    assert counts['sample_hop'] == 0
+  else:
+    assert counts['sample_hop'] == 3 * len(fanouts)
+    assert counts['sample_level'] == 0
+
+
+@pytest.mark.parametrize('dedup', ['auto', 'tree'])
+def test_link_sampling_makes_no_host_sync(cuda, dedup):
+  """The negatives, the seed union on the device and the node sampling of
+  a link batch run under ``set_sync_debug_mode('error')``."""
+  ds, ei = _link_dataset(cuda)
+  s = gtt.sampler.NeighborSampler(ds.graph, [5, 3], device=cuda, seed=2,
+                                  dedup=dedup, with_edge=True)
+  inp = gtt.sampler.EdgeSamplerInput(
+      ei[0][:64], ei[1][:64], neg_sampling=gtt.sampler.NegativeSampling())
+  s.sample_from_edges(inp)                     # builds the sorted view
+  torch.cuda.synchronize()
+  with _no_sync_allowed():
+    out = s.sample_from_edges(inp)
+  torch.cuda.synchronize()
+  assert out.metadata['edge_label_index'].shape == (2, 128)
+
+
+def test_link_train_step_on_card_matches_cpu(cuda):
+  from graphlearn_tpu_torch.models import train
+  torch.backends.cuda.matmul.allow_tf32 = False
+  batches, models = {}, {}
+  for dev in (cuda, torch.device('cpu')):
+    ds, ei = _link_dataset(dev)
+    loader = gtt.loader.LinkNeighborLoader(
+        ds, [5, 3], ei[:, :96], neg_sampling=gtt.sampler.NegativeSampling(),
+        batch_size=32, seed=4, device=dev)
+    model = gtt.models.GraphSAGE(8, 16, 16, num_layers=2, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model)
+    step, _ = train.make_link_train_step(model)
+    losses = [step(state, train.link_batch_to_dict(b))[1]
+              for b in list(loader)[:2]]
+    batches[dev.type], models[dev.type] = losses, model
+  for a, b in zip(batches['cuda'], batches['cpu']):
+    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+  for a, b in zip(models['cuda'].parameters(), models['cpu'].parameters()):
+    torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('bucketed', [False, True])
+def test_subgraph_batches_on_card_match_cpu(cuda, bucketed):
+  outs = {}
+  for dev in (cuda, torch.device('cpu')):
+    ds, _ = _link_dataset(dev)
+    loader = gtt.loader.SubGraphLoader(
+        ds, [4, 2], np.arange(0, 3000, 37), batch_size=16, with_edge=True,
+        seed=1, bucketed=bucketed, device=dev)
+    ops.reset_launch_counts()
+    outs[dev.type] = list(loader)
+    if dev.type == 'cuda':
+      counts = ops.launch_counts()
+  for a, b in zip(outs['cuda'], outs['cpu']):
+    for name in ('node', 'num_nodes', 'edge_index', 'edge_mask', 'x',
+                 'edge_ids', 'edge_attr', 'batch'):
+      assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    for k, v in b.metadata.items():
+      if torch.is_tensor(v):
+        assert torch.equal(a.metadata[k].cpu(), v), k
+  n = len(outs['cuda'])
+  assert counts['sample_level'] == n * (3 * 2 + 1)
+  assert counts['gather_rows'] == n

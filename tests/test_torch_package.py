@@ -8,6 +8,8 @@
     example and the probe suites.
 (c) On CPU tensors the kernel wrappers take their plain versions and the
     launch counters stay 0.
+(d) Every kernel source under csrc/ has a SOURCES entry, and the link
+    slice's kernel (negative_sample.cu) has its plain version.
 """
 import pkgutil
 import subprocess
@@ -59,6 +61,16 @@ def test_port_never_imports_jax():
           'graphlearn_tpu_torch.recovery.snapshot',
           'graphlearn_tpu_torch.loader.run_epoch',
           'graphlearn_tpu_torch.loader.pipeline'} <= set(expected)
+  # the sampling-menu slice's modules too
+  assert {'graphlearn_tpu_torch.ops.negative',
+          'graphlearn_tpu_torch.ops.induce',
+          'graphlearn_tpu_torch.ops.induce_map',
+          'graphlearn_tpu_torch.ops.subgraph',
+          'graphlearn_tpu_torch.sampler.negative_sampler',
+          'graphlearn_tpu_torch.loader.link_loader',
+          'graphlearn_tpu_torch.loader.link_neighbor_loader',
+          'graphlearn_tpu_torch.loader.subgraph_loader',
+          'graphlearn_tpu_torch.examples.graph_sage_unsup'} <= set(expected)
 
 
 @pytest.fixture
@@ -86,6 +98,14 @@ def test_entry_points_default_to_the_card(no_gpu):
                               dedup='auto', frontier_caps='auto')
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.sampler.NeighborSampler(ds.graph, [2])
+  ei = np.zeros((2, 4), np.int64)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.loader.LinkNeighborLoader(ds, [2], ei, batch_size=2)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.loader.LinkNeighborLoader(ds, [2], ei, batch_size=2,
+                                  frontier_caps='auto')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.loader.SubGraphLoader(ds, [2], np.arange(4), batch_size=2)
   no, eo = gtt.sampler.tree_layout(4, [2])
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.models.GraphSAGE(4, 8, 3, num_layers=1, hop_node_offsets=no,
@@ -113,9 +133,12 @@ def test_entry_points_default_to_the_card(no_gpu):
     gtt.models.GraphSAGE(4, 8, 3, num_layers=2)
   # the training example and the probe suites: the card or nothing
   from graphlearn_tpu_torch.benchmarks import prof_dedup, prof_mem
-  from graphlearn_tpu_torch.examples import train_sage_products
+  from graphlearn_tpu_torch.examples import (graph_sage_unsup,
+                                             train_sage_products)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     train_sage_products.main(['--num-nodes', '100'])
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    graph_sage_unsup.main(['--num-nodes', '100'])
   for suite in (prof_mem, prof_dedup):
     with pytest.raises(SystemExit, match='no CUDA device'):
       suite.main([])
@@ -134,7 +157,8 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
                                  'sample_hop': 0, 'sample_level': 0,
                                  'step_keys': 0, 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
-                                 'smem_take': 0, 'uniform_draw': 0}
+                                 'smem_take': 0, 'uniform_draw': 0,
+                                 'negative_sample': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -157,8 +181,23 @@ def test_kernel_wrappers_refuse_mixed_devices():
                            prefix_cap=2)
   with pytest.raises(ValueError, match='no kernel'):
     ops.draw.uniform(key, (3, 2), device='meta')
+  with pytest.raises(ValueError, match='CUDA'):
+    ops.random_negative_sample(indptr, ind.to('meta'), 2, 2, 4, key)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
                                  'step_keys': 0, 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
-                                 'smem_take': 0, 'uniform_draw': 0}
+                                 'smem_take': 0, 'uniform_draw': 0,
+                                 'negative_sample': 0}
+
+
+def test_every_kernel_source_is_built_and_has_a_plain_version():
+  from graphlearn_tpu_torch.ops import kernels, negative
+  sources = {src for src, _ in kernels.SOURCES.values()}
+  assert sources == {p.name for p in kernels.CSRC.glob('*.cu')}
+  assert kernels.SOURCES['negative_sample'][0] == 'negative_sample.cu'
+  assert 'glt_negative_sample' in kernels.SOURCES['negative_sample'][1]
+  assert callable(negative.random_negative_sample_plain)
+  assert callable(negative.negative_candidates_plain)
+  text = (kernels.CSRC / 'negative_sample.cu').read_text()
+  assert '#include "csr_pick.cuh"' in text   # the shared threefry

@@ -64,12 +64,29 @@ def test_tree_sampler_stream_matches_jax(fanouts, window):
 
 
 def test_sampler_refuses_later_slices():
+  """Heterogeneous sampling is still a later slice; ``with_edge`` and the
+  legacy ``map_table`` / ``sort_legacy`` engines, refused before the
+  sampling-menu slice, now run and equal the JAX sampler's batches
+  (edge ids included)."""
   rng = np.random.default_rng(0)
   ei = rng.integers(0, 10, (2, 40))
   tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=10), device='cpu')
-  # weights, node_budget, block and the padded window are ported
-  # (tests/test_torch_sampler_modes.py)
+  jg = glt.data.Graph(glt.data.Topology(ei, num_nodes=10), 'CPU')
+  with pytest.raises(NotImplementedError):
+    gtt.sampler.NeighborSampler({('a', 'r', 'b'): tg}, [2], device='cpu')
+  with pytest.raises(NotImplementedError):
+    gtt.sampler.NeighborSampler(tg, {('a', 'r', 'b'): [2]}, device='cpu')
   for kwargs in (dict(dedup='map_table'), dict(dedup='sort_legacy'),
                  dict(with_edge=True)):
-    with pytest.raises(NotImplementedError):
-      gtt.sampler.NeighborSampler(tg, [2], device='cpu', **kwargs)
+    ts = gtt.sampler.NeighborSampler(tg, [2, 2], device='cpu', seed=3,
+                                     **kwargs)
+    js = glt.sampler.NeighborSampler(jg, [2, 2], seed=3, **kwargs)
+    for seeds in (np.array([0, 9, 9, 4]), np.arange(10)):
+      a = js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds))
+      b = ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds))
+      fa, fb = _fields(a), _tfields(b)
+      for name in fa:
+        np.testing.assert_array_equal(fa[name], fb[name], err_msg=name)
+      assert (a.edge is None) == (b.edge is None)
+      if b.edge is not None:
+        np.testing.assert_array_equal(b.edge.numpy(), np.asarray(a.edge))

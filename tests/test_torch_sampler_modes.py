@@ -1,7 +1,9 @@
 """The port's NeighborSampler against the JAX sampler in the products
 example's other modes, on the CPU: block, padded window ('auto' and
 explicit, before and after a reseed), weighted, and node_budget, each
-under the tree and the merge engine.
+under the tree and the merge engine; and ``with_edge`` on every backend
+under the four engines (tree, merge, map_table, sort_legacy), with the
+loaders' edge features.
 
 Same graph, seed and call counter: every batch's node buffer, row, col,
 edge mask, counts and overflow flag are equal, and so are the host call
@@ -170,3 +172,74 @@ def test_sampler_validation_errors_match_jax(case):
   with pytest.raises(ValueError) as terr:
     gtt.sampler.NeighborSampler(tg, fanouts, device='cpu', **kw)
   assert str(terr.value) == str(jerr.value)
+
+
+# ----------------------------------------------------- with_edge, engines
+
+BACKENDS = {'fused': {}, 'block': dict(strategy='block'),
+            'padded': dict(padded_window=16), 'weighted': dict(with_weight=True)}
+
+
+@pytest.mark.parametrize('dedup', ['tree', 'merge', 'map_table',
+                                   'sort_legacy'])
+@pytest.mark.parametrize('backend', sorted(BACKENDS))
+def test_with_edge_on_every_backend_matches_jax(backend, dedup):
+  """``with_edge`` batches of every hop backend under every engine: the
+  JAX sampler's fields and edge ids (the fused backend is the hop kernel's
+  and the level kernel's plain paths here), and the ids decode to the
+  sampled (seed, neighbour) pairs of the input COO."""
+  jg, tg, rng, n = _graphs(e=900)
+  kw = BACKENDS[backend]
+  js = glt.sampler.NeighborSampler(jg, [5, 3], seed=3, dedup=dedup,
+                                   with_edge=True, **kw)
+  ts = gtt.sampler.NeighborSampler(tg, [5, 3], seed=3, dedup=dedup,
+                                   with_edge=True, device='cpu', **kw)
+  rows, cols = jg.topo.to_coo()
+  coo_rows = np.empty_like(rows)
+  coo_cols = np.empty_like(cols)
+  coo_rows[jg.topo.edge_ids], coo_cols[jg.topo.edge_ids] = rows, cols
+  for step in range(2):
+    seeds = np.concatenate([[7, n - 1, 0], rng.integers(0, n, 11)])
+    a = js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds))
+    b = ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds))
+    fa, fb = _fields(a, False), _fields(b, True)
+    for name in fa:
+      np.testing.assert_array_equal(fa[name], fb[name], err_msg=name)
+    np.testing.assert_array_equal(b.edge.numpy(), np.asarray(a.edge))
+    em = b.edge_mask.numpy()
+    assert (b.edge.numpy()[~em] == -1).all()
+    node = b.node.numpy()
+    e = b.edge.numpy()[em]
+    np.testing.assert_array_equal(coo_rows[e], node[b.col.numpy()[em]])
+    np.testing.assert_array_equal(coo_cols[e], node[b.row.numpy()[em]])
+
+
+@pytest.mark.parametrize('dedup', ['tree', 'merge', 'map_table',
+                                   'sort_legacy'])
+def test_loader_edge_attr_matches_jax(dedup):
+  """A ``with_edge`` loader over a dataset with edge features and given
+  edge ids: ``edge_ids`` and ``edge_attr`` as the JAX loader's, on a CSC
+  graph with repeated (row, col) pairs."""
+  rng = np.random.default_rng(9)
+  n, e = 50, 500
+  ei = rng.integers(0, n, (2, e))
+  ei[:, 100:150] = ei[:, :50]
+  eids = rng.permutation(e)
+  efeat = rng.standard_normal((e, 3)).astype(np.float32)
+  jds = glt.data.Dataset(edge_dir='in')
+  jds.init_graph(ei, edge_ids=eids, num_nodes=n, graph_mode='CPU')
+  jds.init_edge_features(efeat)
+  tds = gtt.data.Dataset(edge_dir='in', device='cpu')
+  tds.init_graph(ei, edge_ids=eids, num_nodes=n)
+  tds.init_edge_features(efeat)
+  np.testing.assert_array_equal(tds.graph.edge_ids.numpy(),
+                                jds.graph.topo.edge_ids)
+  jl = glt.loader.NeighborLoader(jds, [4, 2], np.arange(30), batch_size=8,
+                                 with_edge=True, dedup=dedup, seed=2)
+  tl = gtt.loader.NeighborLoader(tds, [4, 2], np.arange(30), batch_size=8,
+                                 with_edge=True, dedup=dedup, seed=2,
+                                 device='cpu')
+  for a, b in zip(jl, tl):
+    for f in ('node', 'edge_index', 'edge_mask', 'edge_ids', 'edge_attr'):
+      np.testing.assert_array_equal(getattr(b, f).numpy(),
+                                    np.asarray(getattr(a, f)), err_msg=f)
