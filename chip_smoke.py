@@ -7,8 +7,9 @@ CUDA graphs and eager; checkpointed, crashed and resumed; RunTrainer with
 and without an early stop; OverlappedTrainer), the products example's
 other modes (block, padded-window and weighted hops, node_budget, bf16),
 link prediction (the unsupervised example's LinkNeighborLoader and link
-train step), induced subgraphs, the legacy dedup engines, and the two
-probe suites.
+train step), induced subgraphs, the legacy dedup engines, the hot/cold
+feature store (the papers-scale and table examples), and the two probe
+suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -192,7 +193,28 @@ Phases (any failure exits non-zero, and the result line is not printed):
    names; ms per batch. Then one products-width batch ([15, 10, 5] at
    1024) of each legacy engine (``map_table``, ``sort_legacy``; K3, K1),
    equal to a CPU recompute.
-9. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+9. The hot/cold feature store. The card's pinned host-to-device rate
+   (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
+   from HBM, the cold rows read over UVA from the mapped host tail) on
+   the storage rows of one [15, 10, 5] x 1024 tree batch over the
+   script's table reordered by in-degree (``sort_by_in_degree``), at
+   split 0.25 and with every row on the host, against its plain version,
+   the JAX store's design built in torch on the card (ids to the host,
+   the cold rows gathered there, a pinned copy, ``index_copy_``), bit
+   for bit; the cold share, and the bound: the larger of the HBM bytes
+   over 3.35 TB/s and the distinct cold rows' bytes over the measured
+   pinned rate. Then the papers-scale example's hot/cold mode
+   (``examples/train_sage_papers_scale.py``, cut to 2M nodes with
+   ``--hot-gb 0.4``: split ~0.42; block sampling [5, 5] at 256, 8 steps
+   after the warm-up step): ms/step split into sample+collate and train,
+   one hot/cold launch a step and no row-gather launch, the hot hit
+   rate, 0 host syncs in the lookup (``count_syncs``), the peak memory,
+   the last step recomputed on the CPU. Then ``train_from_tables.py`` at
+   its size (20,000 nodes, three edge tables, every feature row on the
+   host): one epoch, every batch's ``x`` equal to the table's rows, one
+   hot/cold and two hop launches a step; and the store rebuilt in this
+   process from its IPC handle, exact.
+10. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -1070,6 +1092,10 @@ def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
     time.sleep(lead_s if cuda else 0)
     if warmup is not None:
       prof.step()                # the warm-up cycle ends: recording starts
+      # the same lead again after the switch: a link step's window late
+      # in the script lost its first device records (the negative kernel
+      # among them) with the lead before the switch only
+      time.sleep(lead_s if cuda else 0)
     t0 = time.perf_counter()
     for _ in range(reps):
       fn()
@@ -3089,6 +3115,312 @@ def legacy_phase(torch, gtt, ds, cpu_ds, device, pool, smi):
   return rep
 
 
+# ---- the hot/cold feature store
+HC_SPLIT = 0.25                      # the kernel case's device share
+PINNED_BYTES = 256 << 20             # the pinned host-to-device copy
+# the papers-scale example cut from its 10M nodes (4.77 GB of features,
+# a 2 GB hot budget) to fit the script's time: the host build (draws,
+# sorts) grows with N; --hot-gb scaled with it keeps split ~0.42 < 1
+PAPERS_NODES, PAPERS_HOT_GB = 2_000_000, 0.4
+
+
+def pinned_rate(torch, device):
+  """The card's pinned host-to-device copy rate (bytes/s) over
+  PINNED_BYTES, median of 5 copies between CUDA events."""
+  src = torch.empty(PINNED_BYTES // 4, dtype=torch.float32).pin_memory()
+  dst = torch.empty_like(src, device=device)
+  dst.copy_(src, non_blocking=True)
+  times = []
+  for _ in range(5):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    dst.copy_(src, non_blocking=True)
+    b.record()
+    b.synchronize()
+    times.append(a.elapsed_time(b))
+  return PINNED_BYTES / (float(np.median(times)) * 1e-3)
+
+
+def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
+                         reps, rate, smi):
+  """The hot/cold kernel on the storage rows ``rows`` of one tree batch
+  over the reordered ``[1M, 100]`` table at ``split``, against its plain
+  version (the JAX store's design on the card: ids to the host, the cold
+  rows gathered there, a pinned copy, ``index_copy_``), exact; the bound
+  the larger of the HBM bytes (ids, distinct hot rows, output) over
+  3.35 TB/s and the distinct cold rows' bytes over the measured pinned
+  rate. No PyTorch call reads mapped host memory: library_ms null."""
+  import gc
+
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  store = gtt.data.Feature(re, split, id2index=id2index, device=device)
+  store.lazy_init()
+  ut = store.unified
+  hot, cold = ut._hot(), ut.host_part
+  h, n = hot.shape[0], ut.size
+  t0 = time.perf_counter()
+  got, ms, call_ms = timed(
+      torch, lambda: ops.gather_rows_unified(hot, cold, rows), reps, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: ops.gather_rows_unified_plain(hot, cold, rows)[0],
+      reps, device)
+  if cuda:
+    torch.cuda.synchronize()
+  exact = bool(torch.equal(got, ref))
+  err = float((got.float() - ref.float()).abs().max())
+  uniq = torch.unique(rows.clamp(0, n - 1))
+  n_cold_u = int((uniq >= h).sum())
+  row = hot.shape[1] * hot.element_size()
+  hbm = rows.numel() * rows.element_size() + (uniq.numel() - n_cold_u) * \
+      row + rows.numel() * row
+  pcie = n_cold_u * row
+  bound = max(hbm / H100_BYTES_PER_S, pcie / rate) * 1e3
+  cold_share = float((rows >= h).float().mean())
+  rec = dict(split=split, hot_rows=h, ids=rows.numel(),
+             cold_share=cold_share, distinct_cold_rows=n_cold_u,
+             exact=exact, max_abs_err=err, ms=ms, call_ms=call_ms,
+             plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             jax_design_ms=plain_call_ms, bound_ms=bound, bound_by='bytes',
+             hbm_bytes=hbm, cold_bytes=pcie, library_ms=None,
+             read_only_mapping=(gtt.ops.mapped.lookup(cold).read_only
+                                if cuda and cold is not None else None),
+             case_s=time.perf_counter() - t0)
+  log(f'kernel gather_unified split={split} (H={h} of {n}): ids='
+      f'{rows.numel()} cold share {cold_share:.4f} ({n_cold_u} distinct '
+      f'cold rows, {pcie / 1e6:.1f} MB) exact={exact} ms={ms:.4f} call_ms='
+      f'{call_ms:.4f}; plain (the JAX design: sync, host gather, pinned '
+      f'copy, index_copy_) ms={plain_ms:.4f} call_ms={plain_call_ms:.4f}; '
+      f'bound_ms={bound:.4f} (HBM {hbm / 1e6:.1f} MB, PCIe at '
+      f'{rate / 1e9:.2f} GB/s); read-only mapping '
+      f'{rec["read_only_mapping"]} on {smi}')
+  assert exact, f'gather_unified split={split}: kernel != plain version'
+  del store, ut, hot, cold, got, ref
+  gc.collect()
+  return rec
+
+
+def tree_batch_rows(torch, gtt, ds, id2index, pool, device):
+  """The storage rows of one [15, 10, 5] x 1024 tree batch's node slots
+  (FILL pads read row 0, as ``Feature`` maps them)."""
+  loader = make_loader(gtt, ds, pool, device, 'tree')
+  node = loader.sampler.sample_from_nodes(
+      gtt.sampler.NodeSamplerInput(pool[:BATCH]), batch_cap=BATCH).node
+  i2i = torch.as_tensor(id2index).to(device)
+  return torch.where(node < 0, 0, i2i[node.clamp(min=0).long()]).contiguous()
+
+
+def papers_path(torch, gtt, device, smi, rate):
+  """The papers-scale example's hot/cold mode through the port's entry
+  points (``Dataset.init_node_features(sort_func=sort_by_in_degree,
+  split_ratio=split)``, the block ``NeighborLoader``, collate, the
+  per-step train step, Adam): the warm-up step, then the timed steps
+  split into sample+collate and train by CUDA events, the launch counters
+  set to 0 before them and read after (one hot/cold launch a step, no
+  row-gather launch), the hot hit rate, 0 host syncs in the lookup, the
+  peak memory, and the last step recomputed on the CPU."""
+  import copy
+  import gc
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.examples import train_sage_papers_scale as papers
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  argv = (['--num-nodes', str(PAPERS_NODES), '--hot-gb', str(PAPERS_HOT_GB)]
+          if cuda else ['--num-nodes', '20000', '--hot-gb', '0.004',
+                        '--steps', '3', '--batch-size', '32'])
+  args = papers.parser().parse_args(argv + ['--device', device.type])
+  ds, loader, info = papers.build(args, device)
+  log(f'papers: {info["num_nodes"]} nodes, {info["feat_gb"]:.3f} GB of '
+      f'features, split {info["split_ratio"]:.4f} ({info["hot_rows"]} hot '
+      f'rows), host build {info["build_s"]:.1f} s')
+  model = papers.build_model(args, args.feat_dim, device,
+                             torch.Generator().manual_seed(0))
+  model.train()
+  state = train.create_train_state(model, lr=args.lr)
+  step_fn, _ = train.make_train_step(model, papers.NUM_CLASSES)
+  it = iter(loader)
+  state, loss0, _ = step_fn(state, train.batch_to_dict(next(it)))
+  steps = args.steps
+  if cuda:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+  ops.reset_launch_counts()
+  per_step, losses, nodes, check = [], [], [], None
+  for i in range(steps):
+    e0 = _event(torch, cuda)
+    batch = next(it)
+    e1 = _event(torch, cuda)
+    d = train.batch_to_dict(batch)
+    if i == steps - 1:
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(state.optimizer.state_dict()),
+               {k: (v.cpu() if torch.is_tensor(v) else v)
+                for k, v in d.items()})
+      pre = []
+      hooks = relu_input_hooks(
+          model, lambda layer, z: pre.append(z.detach().clone()))
+    state, loss, _ = step_fn(state, d)
+    e2 = _event(torch, cuda)
+    if cuda:
+      e2.synchronize()
+    if i == steps - 1:
+      for h in hooks:
+        h.remove()
+      check += ([p.grad.detach().cpu() for p in model.parameters()],
+                [z.cpu() for z in pre])
+    per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
+                         train_ms=_span(e1, e2, cuda)))
+    losses.append(loss)
+    nodes.append(batch.node)
+  counts = ops.launch_counts()
+  peak = torch.cuda.max_memory_allocated() if cuda else None
+  per = 1 if cuda else 0
+  assert counts['gather_unified'] == per * steps, counts
+  assert counts['gather_rows'] == 0, counts
+  losses = torch.stack(losses)
+  assert bool(torch.isfinite(losses).all()), 'non-finite loss'
+  hit = papers.hit_rate(nodes, ds.node_features.id2index, info['hot_rows'])
+  rec = dict(info, steps=steps, per_step=per_step, launches=counts,
+             peak_step_bytes=peak, hot_hit_rate=hit,
+             first_loss=float(loss0), losses=losses.tolist())
+  steady = per_step[1:] or per_step
+  rec['median_step_ms'] = {k: float(np.median([p[k] for p in steady]))
+                           for k in steady[0]}
+  # the last step once more on the CPU, from the same state and batch
+  # (before any further step moves the card's parameters)
+  c = rec['cpu_check'] = cpu_step_check(
+      torch, gtt, loader, model, check, losses[-1],
+      cpu_model=lambda: papers.build_model(args, args.feat_dim, 'cpu',
+                                           torch.Generator()),
+      make_step=lambda m: train.make_train_step(m, papers.NUM_CLASSES))
+  log(f'papers CPU recompute of step {steps}: loss {c["cpu_loss"]:.6f} vs '
+      f'{c["loss"]:.6f}; gradients {c["grad_share"]:.3g} of the largest; '
+      f'CPU Adam on the card\'s gradients {c["adam_diff"]:.3g}')
+  # the kernel at this path's shape (the last batch's storage rows)
+  # against its plain version, exact, and both timed
+  feat = ds.node_features
+  i2i = torch.as_tensor(feat.id2index).to(device)
+  node = nodes[-1]
+  rows = torch.where(node < 0, 0, i2i[node.clamp(min=0).long()]).contiguous()
+  ut = feat.unified
+  got, ms, call_ms = timed(
+      torch, lambda: ops.gather_rows_unified(ut._hot(), ut.host_part, rows),
+      REPS if cuda else 2, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: ops.gather_rows_unified_plain(ut._hot(), ut.host_part,
+                                                   rows)[0],
+      REPS if cuda else 2, device)
+  assert torch.equal(got, ref), 'gather_unified != plain at the path shape'
+  rec['lookup'] = dict(ids=rows.numel(), ms=ms, call_ms=call_ms,
+                       plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                       cold_share=float((rows >= ut._hot().shape[0]).float()
+                                        .mean()), exact=True)
+  log(f'papers lookup of one batch ({rows.numel()} rows, cold share '
+      f'{rec["lookup"]["cold_share"]:.4f}): kernel ms={ms:.4f} call_ms='
+      f'{call_ms:.4f}, plain (the JAX design) call_ms={plain_call_ms:.4f}, '
+      'exact')
+  if cuda:
+    # the lookup of one more batch's nodes under sync counting: 0
+    ds.node_features[node]
+    torch.cuda.synchronize()
+    _, syncs, kinds = count_syncs(torch, lambda: ds.node_features[node])
+    assert syncs == 0, ('the hot/cold lookup synchronised', kinds)
+    _, step_syncs, step_kinds = count_syncs(
+        torch, lambda: step_fn(state, train.batch_to_dict(next(it))))
+    rec.update(lookup_host_syncs=syncs, step_host_syncs=step_syncs,
+               step_sync_kinds=step_kinds)
+  med = rec['median_step_ms']
+  log(f'papers path: {steps} steps; launches {counts}; median after the '
+      'first step (ms): ' + ' '.join(f'{k}={v:.3f}' for k, v in med.items())
+      + f' total={sum(med.values()):.3f}; hot hit rate {hit:.4f}; peak '
+      f'{peak} B; host syncs in the lookup {rec.get("lookup_host_syncs")}, '
+      f'in a whole step {rec.get("step_host_syncs")} '
+      f'{rec.get("step_sync_kinds")}; losses {float(loss0):.4f} -> '
+      f'{losses[-1]:.4f} on {smi}')
+  del ds, loader, it, model, state
+  gc.collect()
+  return rec
+
+
+def tables_path(torch, gtt, device, smi):
+  """``examples/train_from_tables.py`` at its size on the card: the
+  tables read by ``TableDataset`` (every feature row on the host), one
+  epoch of the per-step loop; each batch's ``x`` equal to the table's
+  rows, the launch counters set to 0 before the epoch and read after
+  (one hot/cold launch and two hop launches a step). Then the store
+  rebuilt in this process from its IPC handle, exact."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.examples import train_from_tables as tables
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  ds, n, ncls, load_s = tables.load(device)
+  feat = ds.node_features
+  assert feat.device_table() is None and feat.unified.device_part is None
+  table = feat.unified.host_part.to(device)
+  loader = tables.make_loader(ds, n, device)
+  model = tables.build_model(table.shape[1], ncls, device,
+                             torch.Generator().manual_seed(0))
+  model.train()
+  state = train.create_train_state(model, lr=3e-3)
+  step_fn, _ = train.make_train_step(model, ncls)
+  ops.reset_launch_counts()
+  e0 = _event(torch, cuda)
+  losses, equal = [], []
+  for b in loader:
+    state, loss, _ = step_fn(state, train.batch_to_dict(b))
+    losses.append(loss)
+    equal.append(torch.equal(b.x, table[b.node.clamp(min=0).long()]))
+  e1 = _event(torch, cuda)
+  if cuda:
+    e1.synchronize()
+  counts = ops.launch_counts()
+  steps = len(losses)
+  per = 1 if cuda else 0
+  assert all(equal), 'a batch\'s x differs from the table\'s rows'
+  assert counts['gather_unified'] == per * steps, counts
+  assert counts['sample_hop'] == per * steps * len(tables.FANOUTS), counts
+  assert counts['gather_rows'] == 0, counts
+  losses = torch.stack(losses)
+  assert bool(torch.isfinite(losses).all()), 'non-finite loss'
+  ids = torch.arange(n, device=device)
+  clone = gtt.data.Feature.from_ipc_handle(feat.share_ipc())
+  ipc_exact = bool(torch.equal(clone[ids], table))
+  assert ipc_exact, 'the store rebuilt from its IPC handle differs'
+  rec = dict(num_nodes=n, load_s=load_s, steps=steps, launches=counts,
+             epoch_ms=_span(e0, e1, cuda),
+             ms_per_step=_span(e0, e1, cuda) / steps,
+             losses=losses.tolist(), ipc_exact=ipc_exact)
+  log(f'tables path: {n} nodes read in {load_s:.2f} s; one epoch of '
+      f'{steps} steps in {rec["epoch_ms"]:.1f} ms ({rec["ms_per_step"]:.3f} '
+      f'ms/step); every x equal to the table; launches {counts}; losses '
+      f'{losses[0]:.4f} -> {losses[-1]:.4f}; IPC round trip exact on {smi}')
+  return rec
+
+
+def hot_cold_phase(torch, gtt, ds, topo, feats, pool, device, reps, smi):
+  """The hot/cold store: the kernel against its plain version at a
+  products tree batch (split 0.25 and all on the host), then the
+  papers-scale and tables paths."""
+  cuda = device.type == 'cuda'
+  rep = {}
+  rate = pinned_rate(torch, device) if cuda else 1.0
+  rep['pinned_h2d_bytes_per_s'] = rate if cuda else None
+  if cuda:
+    log(f'pinned host-to-device copy of {PINNED_BYTES >> 20} MB: '
+        f'{rate / 1e9:.2f} GB/s on {smi}')
+  re, id2index = gtt.data.sort_by_in_degree(feats, HC_SPLIT, topo)
+  rows = tree_batch_rows(torch, gtt, ds, id2index, pool, device)
+  rep['kernel'] = [hot_cold_kernel_case(torch, gtt, re, id2index, rows,
+                                        split, device, reps, rate, smi)
+                   for split in (HC_SPLIT, 0.0)]
+  del re, rows
+  rep['papers'] = papers_path(torch, gtt, device, smi, rate)
+  rep['tables'] = tables_path(torch, gtt, device, smi)
+  return rep
+
+
 def probe_phase(torch, device, reps, smi, profile=False):
   """Both probe suites at their sizes (their kernels' launch counters set
   to 0 before and read after), then the two probe kernels against their
@@ -3300,7 +3632,7 @@ def main(argv=None):
 
   def dataset(dev, graph=None, dtype=None):
     ds = gtt.data.Dataset(device=dev)
-    ds.graph = gtt.data.Graph(topo, dev) if graph is None else graph
+    ds.graph = gtt.data.Graph(topo, device=dev) if graph is None else graph
     ds.init_node_features(feats, dtype=dtype)
     ds.init_node_labels(labels)
     return ds
@@ -3397,6 +3729,12 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('menu')
+  report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
+                                      device, reps, smi)
+  report['kernels']['gather_unified'] = report['hot_cold']['kernel']
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('hot_cold')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   phase_done('probes')
   ktab = report['kernels']
@@ -3415,12 +3753,14 @@ def main(argv=None):
               rec['inference_launches']]
   paths += [report[p][r]['launches'] for p in ('link', 'subgraph', 'legacy')
             for r in report[p]]
+  paths += [report['hot_cold'][p]['launches'] for p in ('papers', 'tables')]
   launches = {k: sum(c[k] for c in paths) for k in paths[0]}
   launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
                                   launches['row_gather_probe_vector'])
   keys_rec = ktab['step_keys']
   draw_rec = ktab['uniform_draw'][0]
   neg_rec = ktab['negative_sample'][0]
+  hc_rec = ktab['gather_unified'][0]
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -3473,6 +3813,15 @@ def main(argv=None):
                            for r in ktab['negative_sample']),
            ms=neg_rec['ms'], plain_ms=neg_rec['plain_ms'],
            bound_ms=neg_rec['bound_ms'], bound_by=neg_rec['bound_by'],
+           library_ms=None),
+      dict(name='gather_unified', route='cuda',
+           source='graphlearn_tpu_torch/csrc/gather_unified.cu',
+           replaces='graphlearn_tpu/data/unified_tensor.py:131',
+           launches=launches['gather_unified'],
+           max_abs_err=max(r['max_abs_err']
+                           for r in ktab['gather_unified']),
+           ms=hc_rec['ms'], plain_ms=hc_rec['plain_ms'],
+           bound_ms=hc_rec['bound_ms'], bound_by=hc_rec['bound_by'],
            library_ms=None),
       dict(name='gather_runs', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_runs.cu',

@@ -1,54 +1,170 @@
-"""Device-resident feature table: the all-hot part of UnifiedTensor.
+"""Unified feature table: hot rows on the device, cold rows in host memory.
 
-Counterpart of ``graphlearn_tpu/data/unified_tensor.py`` for tables that
-live wholly on the device. Row lookups clamp ids to ``[0, N)`` and go
-through the row-gather kernel on a CUDA table, or through the
-run-segmented gather-v2 kernel when ``use_pallas_v2`` is set (off by
-default, as in the JAX package; ``Feature.set_kernel_routing`` sets it).
-The host/cold split (rows read over UVA from pinned host memory, the
-reference's own design) is a later slice.
+Counterpart of ``graphlearn_tpu/data/unified_tensor.py``. A virtual
+``[N, F]`` table is a device part (rows ``[0, H)``) and a host part (rows
+``[H, N)``). Lookups clamp ids to ``[0, N)``.
+
+- A table with no host part goes through the row-gather kernel on a
+  card, or through the run-segmented gather-v2 kernel when
+  ``use_pallas_v2`` is set (off by default, as in the JAX package;
+  ``Feature.set_kernel_routing`` sets it).
+- With a host part, on a card, the host part lives on pages of its own,
+  page-locked and mapped for the card (``ops.mapped``), and a lookup is
+  one launch of the hot/cold kernel (``ops.gather_rows_unified``), which
+  reads the cold rows over UVA: no host sync. This is the reference's own
+  design (its ``unified_tensor.cu``); the JAX store departs from it only
+  because a TPU cannot read host memory.
+- On the CPU a lookup is the JAX store's mixed gather, the kernel's
+  plain version (``ops.gather_rows_unified_plain``), and sets
+  ``_last_cold_cap`` as JAX does.
 """
+import weakref
+from typing import Optional
+
 import numpy as np
 import torch
 
+from .. import ops
+from ..ops import mapped
 from ..ops.gather import gather_rows_hbm, gather_rows_hbm2
+from ..utils import resolve_device
+
+
+def _as_rows(rows, dtype) -> torch.Tensor:
+  t = torch.as_tensor(np.ascontiguousarray(rows)) if isinstance(
+      rows, np.ndarray) else torch.as_tensor(rows)
+  return t if dtype is None else t.to(dtype)
 
 
 class UnifiedTensor:
-  """A ``[N, F]`` table on ``device``."""
+  """A virtual ``[N, F]`` table: device part ``[0, H)`` on ``device``,
+  host part ``[H, N)`` in host memory."""
 
-  # opt-in routing through the run-segmented gather (ops.gather_rows_hbm2)
-  # at its grid point; the names are the JAX package's
+  # opt-in routing of the all-device lookup through the run-segmented
+  # gather (ops.gather_rows_hbm2) at its grid point; the names are the
+  # JAX package's
   use_pallas_v2 = False
   pallas_v2_block_rows = 256
   pallas_v2_run_span = 8
 
-  def __init__(self, device: torch.device, dtype=None):
+  def __init__(self, device=None, dtype=None):
     self.device = device
     self.dtype = dtype
-    self._device_part = None
+    self._device_part = None   # [H, F] on the device
+    self._host_part = None     # [N - H, F] CPU, mapped on a card
+    self._device_rows = 0
+    self._host_rows_n = 0
+    self._last_cold_cap = None
+    self._release = None       # unmaps the host part (a finalizer)
 
-  def init_from(self, device_rows: np.ndarray):
-    t = torch.as_tensor(np.ascontiguousarray(device_rows))
-    if self.dtype is not None:
-      t = t.to(self.dtype)
-    self._device_part = t.to(self.device).contiguous()
+  def init_from(self, device_rows: Optional[np.ndarray],
+                host_rows: Optional[np.ndarray]):
+    """Build from a hot (device) block and a cold (host) block (numpy or
+    CPU tensors; either may be None or empty)."""
+    device = resolve_device(self.device)
+    if device.type == 'cuda' and device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    self.device = device
+    if device_rows is not None and np.prod(np.shape(device_rows)):
+      t = _as_rows(device_rows, self.dtype)
+      self._device_part = t.to(device).contiguous()
+      self._device_rows = int(t.shape[0])
+    if host_rows is not None and np.prod(np.shape(host_rows)):
+      t = _as_rows(host_rows, self.dtype)
+      if device.type == 'cuda':
+        pinned = mapped.empty(t.shape, t.dtype)
+        pinned.copy_(t)
+        self._adopt_host(pinned)
+      else:
+        self._host_part = t.contiguous()
+      self._host_rows_n = int(t.shape[0])
     return self
 
+  def _adopt_host(self, tensor: torch.Tensor):
+    """Map ``tensor`` (contiguous CPU rows on pages of their own) for the
+    card as the host part; the mapping is released with this object."""
+    mapped.register(tensor, self.device)
+    if self._release is not None:
+      self._release()
+    self._host_part = tensor
+    self._release = weakref.finalize(self, mapped.release, tensor)
+
   @property
-  def device_part(self) -> torch.Tensor:
+  def device_part(self):
     return self._device_part
 
   @property
+  def host_part(self):
+    return self._host_part
+
+  @property
+  def host_rows(self) -> int:
+    return self._host_rows_n
+
+  @property
   def shape(self):
-    return tuple(self._device_part.shape)
+    n = self._device_rows + self._host_rows_n
+    f = (self._device_part.shape[1] if self._device_part is not None
+         else self._host_part.shape[1])
+    return (n, f)
+
+  @property
+  def size(self) -> int:
+    return self.shape[0]
+
+  def _hot(self) -> torch.Tensor:
+    if self._device_part is not None:
+      return self._device_part
+    return torch.empty((0, self._host_part.shape[1]),
+                       dtype=self._host_part.dtype, device=self.device)
 
   def __getitem__(self, ids) -> torch.Tensor:
     ids = torch.as_tensor(ids, device=self.device)
     if ids.dtype not in (torch.int32, torch.int64):
       ids = ids.to(torch.int64)
-    if self.use_pallas_v2:
-      return gather_rows_hbm2(self._device_part, ids.contiguous(),
-                              block_rows=self.pallas_v2_block_rows,
-                              run_span=self.pallas_v2_run_span)
-    return gather_rows_hbm(self._device_part, ids.contiguous())
+    ids = ids.contiguous()
+    if self._host_rows_n == 0:
+      if self.use_pallas_v2:
+        return gather_rows_hbm2(self._device_part, ids,
+                                block_rows=self.pallas_v2_block_rows,
+                                run_span=self.pallas_v2_run_span)
+      return gather_rows_hbm(self._device_part, ids)
+    if self.device.type == 'cpu':
+      rows, cap = ops.gather_rows_unified_plain(self._hot(), self._host_part,
+                                                ids)
+      if self._device_part is not None:
+        self._last_cold_cap = cap
+      return rows
+    return ops.gather_rows_unified(self._hot(), self._host_part, ids)
+
+  def share_ipc(self):
+    """``(device part, host part, device)`` for another process. Sent
+    through ``torch.multiprocessing``, the device part travels as a CUDA
+    IPC handle and the host part in shared memory (moved there here,
+    once, and mapped again), where the receiver maps it for its card
+    (:meth:`from_ipc_handle`). In the same process the parts are the
+    same tensors."""
+    host = self._host_part
+    if host is not None and not host.is_shared():
+      if self.device.type == 'cuda':
+        shared = torch.empty_like(host).share_memory_()
+        shared.copy_(host)
+        self._adopt_host(shared)
+      else:
+        host.share_memory_()
+    return self._device_part, self._host_part, self.device
+
+  @classmethod
+  def from_ipc_handle(cls, handle):
+    device_part, host_part, device = handle
+    ut = cls(resolve_device(device), device_part.dtype
+             if device_part is not None else host_part.dtype)
+    ut._device_part = device_part
+    ut._device_rows = 0 if device_part is None else int(device_part.shape[0])
+    if host_part is not None:
+      if ut.device.type == 'cuda':
+        ut._adopt_host(host_part)
+      else:
+        ut._host_part = host_part
+      ut._host_rows_n = int(host_part.shape[0])
+    return ut

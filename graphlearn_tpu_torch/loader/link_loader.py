@@ -17,23 +17,25 @@ import numpy as np
 from ..data import Dataset
 from ..sampler import EdgeSamplerInput, NegativeSampling
 from ..typing import split_edge_type_seeds
-from .node_loader import NodeLoader, SeedBatcher
+from .node_loader import NodeLoader, SeedBatcher, loader_device
 
 
 class LinkLoader(NodeLoader):
   """Sample-and-collate loader over seed edges ``edge_label_index``
   (``[2, E]``; a typed ``(edge_type, [2, E])`` pair is refused until the
-  hetero slice). ``device=None`` means the card."""
+  hetero slice). ``to_device`` (or its alias ``device=``; None means the
+  card) must hold the dataset."""
 
   def __init__(self, data: Dataset, link_sampler, edge_label_index,
                edge_label=None,
                neg_sampling: Optional[NegativeSampling] = None,
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, with_edge: bool = False,
-               collect_features: bool = True, device=None,
-               seed: Optional[int] = None, overflow_policy: str = 'raise'):
+               collect_features: bool = True, to_device=None,
+               seed: Optional[int] = None, overflow_policy: str = 'raise',
+               device=None):
     del with_edge   # carried by the sampler
-    self._check_device(data, device)
+    self._check_device(data, loader_device(to_device, device))
     self.edge_type, edge_label_index = \
         split_edge_type_seeds(edge_label_index)
     if self.edge_type is not None:

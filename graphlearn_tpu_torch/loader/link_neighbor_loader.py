@@ -15,12 +15,13 @@ from ..data import Dataset
 from ..sampler import NegativeSampling, NeighborSampler
 from ..sampler.calibrate import estimate_frontier_caps, link_seed_width
 from ..typing import split_edge_type_seeds
-from ..utils import resolve_device
 from .link_loader import LinkLoader
+from .node_loader import loader_device
 
 
 class LinkNeighborLoader(LinkLoader):
-  """``device=None`` means the card (it must hold the dataset)."""
+  """``to_device`` (or its alias ``device=``; None means the card) must
+  hold the dataset."""
 
   def __init__(self, data: Dataset, num_neighbors, edge_label_index,
                edge_label=None,
@@ -28,11 +29,11 @@ class LinkNeighborLoader(LinkLoader):
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, with_edge: bool = False,
                with_weight: bool = False, strategy: str = 'random',
-               collect_features: bool = True, device=None,
+               collect_features: bool = True, to_device=None,
                seed: Optional[int] = None, node_budget=None,
                dedup: str = 'auto', frontier_caps=None,
-               overflow_policy: str = 'raise'):
-    device = resolve_device(device)
+               overflow_policy: str = 'raise', device=None):
+    device = loader_device(to_device, device)
     if isinstance(frontier_caps, str):
       if frontier_caps != 'auto':
         raise ValueError(f'frontier_caps={frontier_caps!r}: pass a list '

@@ -12,22 +12,23 @@ from typing import Optional
 from ..data import Dataset
 from ..sampler import NeighborSampler
 from ..sampler.calibrate import estimate_frontier_caps
-from ..utils import resolve_device
-from .node_loader import NodeLoader
+from .node_loader import NodeLoader, loader_device
 
 
 class NeighborLoader(NodeLoader):
-  """``device=None`` means the card (it must hold the dataset)."""
+  """``to_device`` (or its alias ``device=``; None means the card) must
+  hold the dataset."""
 
   def __init__(self, data: Dataset, num_neighbors, input_nodes,
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, with_edge: bool = False,
                with_weight: bool = False, strategy: str = 'random',
-               device=None, seed: Optional[int] = None, node_budget=None,
+               collect_features: bool = True, to_device=None,
+               seed: Optional[int] = None, node_budget=None,
                dedup: str = 'auto', padded_window=None,
                seed_labels_only: bool = False, frontier_caps=None,
-               overflow_policy: str = 'raise'):
-    device = resolve_device(device)
+               overflow_policy: str = 'raise', device=None):
+    device = loader_device(to_device, device)
     if isinstance(frontier_caps, str):
       if frontier_caps != 'auto':
         raise ValueError(f'frontier_caps={frontier_caps!r}: pass a list '
@@ -43,6 +44,6 @@ class NeighborLoader(NodeLoader):
         node_budget=node_budget, dedup=dedup, padded_window=padded_window,
         frontier_caps=frontier_caps, edge_dir=data.edge_dir)
     super().__init__(data, sampler, input_nodes, batch_size, shuffle,
-                     drop_last, device, seed,
+                     drop_last, with_edge, collect_features, device, seed,
                      seed_labels_only=seed_labels_only,
                      overflow_policy=overflow_policy)

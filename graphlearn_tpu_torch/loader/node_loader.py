@@ -16,6 +16,7 @@ from typing import Optional
 import warnings
 
 import numpy as np
+import torch
 
 from .. import ops
 from ..data import Dataset
@@ -177,10 +178,21 @@ class OverflowGuardMixin:
         raise RuntimeError(msg)
 
 
+def loader_device(to_device, device):
+  """The loader's device from JAX's ``to_device`` or the port's
+  ``device=`` alias (None means the card)."""
+  if to_device is not None and device is not None and \
+      torch.device(to_device) != torch.device(device):
+    raise ValueError(f'to_device={to_device!r} and device={device!r} '
+                     'disagree')
+  return resolve_device(device if to_device is None else to_device)
+
+
 class NodeLoader(OverflowGuardMixin):
   """Sample-and-collate loader over seed nodes.
 
-  ``device=None`` means the card; it must be the dataset's device.
+  ``to_device`` (or its alias ``device=``; None means the card) must be
+  the dataset's device. ``with_edge`` is carried by the sampler.
   ``seed_labels_only`` gathers labels for the seed block only;
   ``collect_features=False`` gathers no node features.
   ``overflow_policy`` is the calibrated-caps guard's
@@ -192,11 +204,12 @@ class NodeLoader(OverflowGuardMixin):
 
   def __init__(self, data: Dataset, node_sampler, input_nodes,
                batch_size: int = 1, shuffle: bool = False,
-               drop_last: bool = False, device=None,
+               drop_last: bool = False, with_edge: bool = False,
+               collect_features: bool = True, to_device=None,
                seed: Optional[int] = None, seed_labels_only: bool = False,
-               overflow_policy: str = 'raise',
-               collect_features: bool = True):
-    self._check_device(data, device)
+               overflow_policy: str = 'raise', device=None):
+    del with_edge   # carried by the sampler
+    self._check_device(data, loader_device(to_device, device))
     self.data = data
     self.sampler = node_sampler
     self.seed_labels_only = seed_labels_only
@@ -212,8 +225,8 @@ class NodeLoader(OverflowGuardMixin):
     self._batcher = SeedBatcher(len(self.input_seeds), batch_size, shuffle,
                                 drop_last, seed)
 
-  def _check_device(self, data: Dataset, device):
-    self.device = resolve_device(device)
+  def _check_device(self, data: Dataset, device: torch.device):
+    self.device = device
     if data.device != self.device:
       raise ValueError(f'dataset lives on {data.device}, loader asked for '
                        f'{self.device}')
@@ -267,16 +280,26 @@ class NodeLoader(OverflowGuardMixin):
       self._finish_epoch_overflow()
 
   def _collate_fn(self, out):
+    """The fused collate over device-resident tables; a store with a host
+    part (no ``device_table()``) is read through its own lookup, the
+    hot/cold gather, as in the JAX loader."""
     feats = id2i = efeats = None
-    if self.collect_features and self.data.node_features is not None:
-      feats, id2i = self.data.node_features.device_table()
-    edge_features = getattr(self.data, 'edge_features', None)
-    if out.edge is not None and edge_features is not None:
-      efeats = edge_features.device_table()[0]
+    nfeat = self.data.node_features if self.collect_features else None
+    ndt = nfeat.device_table() if nfeat is not None else None
+    if ndt is not None:
+      feats, id2i = ndt
+    efeat = (getattr(self.data, 'edge_features', None)
+             if out.edge is not None else None)
+    edt = efeat.device_table() if efeat is not None else None
+    if edt is not None:
+      efeats = edt[0]
     res = ops.collate_batch(out.node, out.num_nodes, out.row, out.col,
                             feats, id2i, self.data.node_labels, efeats,
                             out.edge,
                             label_cap=(self.batch_size
                                        if self.seed_labels_only else None))
-    return to_data(out, res['x'], res['y'], res['edge_attr'],
+    x = res['x'] if ndt is not None or nfeat is None else nfeat[out.node]
+    ef = (res['edge_attr'] if edt is not None or efeat is None
+          else efeat[out.edge])
+    return to_data(out, x, res['y'], ef,
                    node_mask=res['node_mask'], edge_index=res['edge_index'])

@@ -38,8 +38,9 @@ class FusedEpochTrainer:
   """Scope validation, device tables and the sample+collate body.
 
   Requirements: a homogeneous ``NodeLoader`` over a device-resident
-  feature table with node labels, no edge features (supervised node
-  classification, the JAX trainers' scope).
+  feature table (no host part: ``Feature.device_table()`` is not None)
+  with node labels, no edge features (supervised node classification,
+  the JAX trainers' scope).
   """
 
   _NAME = 'FusedEpochTrainer'
@@ -70,10 +71,16 @@ class FusedEpochTrainer:
     if seed_labels_only is None:
       seed_labels_only = loader.seed_labels_only
     self._label_cap = self._batch_size if seed_labels_only else None
-    if loader.data.node_features is None:
-      raise ValueError(f'{self._NAME} needs a device-resident feature '
-                       'table')
-    self._feats, self._id2i = loader.data.node_features.device_table()
+    dt = (loader.data.node_features.device_table()
+          if loader.data.node_features is not None else None)
+    if dt is None:
+      # a store with a host part is never read inside a captured chunk:
+      # its hot/cold epoch is the tiered trainer's (ROADMAP item 4b)
+      raise ValueError(f'{self._NAME} needs a device-resident '
+                       'feature table (Feature on HBM), or the tiered '
+                       'trainer (storage.TieredScanTrainer) for an '
+                       'out-of-core TieredFeature')
+    self._feats, self._id2i = dt
     self._labels = loader.data.node_labels
     if self._labels is None:
       raise ValueError(f'{self._NAME} needs node labels')

@@ -9,27 +9,26 @@ from typing import Optional
 
 from ..data import Dataset
 from ..sampler import NeighborSampler, NodeSamplerInput
-from ..utils import resolve_device
-from .node_loader import NodeLoader
+from .node_loader import NodeLoader, loader_device
 
 
 class SubGraphLoader(NodeLoader):
-  """``device=None`` means the card (it must hold the dataset)."""
+  """``to_device`` (or its alias ``device=``; None means the card) must
+  hold the dataset."""
 
   def __init__(self, data: Dataset, num_neighbors, input_nodes,
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, with_edge: bool = False,
-               collect_features: bool = True, device=None,
+               collect_features: bool = True, to_device=None,
                seed: Optional[int] = None,
                max_degree: Optional[int] = None, bucketed: bool = False,
-               cap_large: Optional[int] = None):
-    device = resolve_device(device)
+               cap_large: Optional[int] = None, device=None):
+    device = loader_device(to_device, device)
     sampler = NeighborSampler(data.graph, num_neighbors, device=device,
                               with_edge=with_edge, seed=seed,
                               edge_dir=data.edge_dir)
     super().__init__(data, sampler, input_nodes, batch_size, shuffle,
-                     drop_last, device, seed,
-                     collect_features=collect_features)
+                     drop_last, with_edge, collect_features, device, seed)
     self.max_degree = max_degree
     self.bucketed = bucketed
     self.cap_large = cap_large

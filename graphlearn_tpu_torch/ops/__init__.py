@@ -1,7 +1,8 @@
 """Tensor ops of the port: sampling, induction, gathers, collation, the
 hop keys of a chunk of steps.
 
-The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the fused
+The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the hot/cold
+``gather_rows_unified``, the fused
 hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
 chunk's ``step_keys``, the sampling backends' draw ``draw.uniform``, the
 negative sampler's draw and test ``random_negative_sample`` and the
@@ -11,11 +12,14 @@ reads them (``sample_hop`` and ``sample_level`` name the two sampling
 kernels), ``reset_launch_counts`` sets them to 0 and
 ``add_launch_counts`` adds a recorded set (a CUDA graph's replay).
 """
-from . import draw, gather, kernels, keys, negative, probes, sample_fused
+from . import (draw, gather, kernels, keys, mapped, negative, probes,
+               sample_fused)
 from .collate import collate_batch
 from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
                      gather_rows_hbm2, gather_rows_hbm2_plain,
-                     gather_rows_plain, plan_gather_runs, plan_runs_in_tiles)
+                     gather_rows_plain, gather_rows_unified,
+                     gather_rows_unified_plain, plan_gather_runs,
+                     plan_runs_in_tiles)
 from .induce import InducerState, induce_next, init_empty, init_node
 from .induce_map import MapInducerState, induce_next_map, init_node_map
 from .induce_merge import (MergeInducerState, induce_next_merge,
@@ -44,6 +48,7 @@ from .unique import FILL, masked_unique
 _COUNTERS = {
     'gather_rows': (gather, 'launches'),
     'gather_runs': (gather, 'runs_launches'),
+    'gather_unified': (gather, 'unified_launches'),
     'sample_hop': (sample_fused, 'launches'),
     'sample_level': (sample_fused, 'level_launches'),
     'step_keys': (keys, 'launches'),

@@ -16,18 +16,27 @@ generations:
   ``block_rows`` tile, as ``plan_runs_in_tiles`` does in torch.
 
 On CPU tensors both wrappers run their plain versions. Both clamp ids to
-``[0, N)``. Each v2 call bumps the reference's counter
+``[0, N)``.
+
+The hot/cold gather, ``gather_rows_unified``: rows ``[0, H)`` of a table
+on the card and rows ``[H, N)`` in host memory. On a card the wrapper
+makes one launch of ``csrc/gather_unified.cu``, which reads the cold rows
+over UVA from the mapped host tail (``ops.mapped``); the plain version
+is the JAX store's mixed gather (ids to the host, the cold rows gathered
+there and shipped padded to a power of two, scattered into the hot
+gather's output). Each v2 call bumps the reference's counter
 ``ops.gather_runs`` when it launches its kernel and
 ``ops.gather_fallbacks`` when it does not (CPU tensors, empty ids).
 """
 import torch
 
 from .. import metrics
-from . import kernels
+from . import kernels, mapped
 
 # launches of the CUDA kernels (plain-version calls do not count)
 launches = 0
 runs_launches = 0
+unified_launches = 0
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -61,6 +70,97 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor):
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'gather_rows')
   launches += 1
+  return out
+
+
+# ---------------------------------------------------------- hot / cold
+
+
+def next_pow2(n: int) -> int:
+  return 1 << max(0, (n - 1).bit_length())
+
+
+def gather_rows_unified_plain(hot: torch.Tensor, cold: torch.Tensor,
+                              ids: torch.Tensor):
+  """``(rows, cold_cap)``: :func:`gather_rows_unified` by the JAX store's
+  mixed gather (``graphlearn_tpu/data/unified_tensor.py:131-183``) on any
+  device: the clamped ids read on the host (on a card, a device-to-host
+  sync), the hot rows gathered from ``hot`` on its device, the cold rows
+  gathered on the host from ``cold`` and padded with zero rows to
+  ``cold_cap = min(B, max(1, next_pow2(n_cold)))`` rows, shipped in one
+  copy (pinned, on a card) and scattered into place. With no hot rows
+  (``H = 0``) the host rows are shipped whole and ``cold_cap`` is None,
+  as in JAX."""
+  n_hot = hot.shape[0]
+  n = n_hot + cold.shape[0]
+  r_dev = ids.clamp(0, n - 1).long()
+  r = r_dev.cpu()
+  device = hot.device
+
+  def ship(block):
+    if device.type == 'cuda':
+      block = block.pin_memory()
+    return block.to(device, non_blocking=True)
+
+  if n_hot == 0:
+    return ship(cold.index_select(0, r)), None
+  b = r.shape[0]
+  is_hot = r < n_hot
+  cold_pos = torch.nonzero(~is_hot).squeeze(1)
+  n_cold = int(cold_pos.shape[0])
+  cold_cap = min(b, max(1, next_pow2(n_cold)))
+  block = cold.new_zeros((cold_cap, cold.shape[1]))
+  block[:n_cold] = cold.index_select(0, r[cold_pos] - n_hot)
+  out = hot.index_select(0, torch.where(is_hot.to(device), r_dev, 0))
+  block = ship(block)
+  out.index_copy_(0, cold_pos.to(device), block[:n_cold])
+  return out, cold_cap
+
+
+def gather_rows_unified(hot: torch.Tensor, cold: torch.Tensor,
+                        ids: torch.Tensor):
+  """Rows of the virtual table ``cat([hot, cold])`` at ``ids`` clamped to
+  ``[0, N)``, ``N = H + cold rows``.
+
+  Args:
+    hot: ``[H, F]`` rows on the card (``H`` may be 0), contiguous.
+    cold: ``[N - H, F]`` contiguous CPU rows of ``hot``'s dtype (may be
+      empty); on a card they must be mapped (``ops.mapped.register``).
+    ids: ``[B]`` int32 or int64 on ``hot``'s device.
+
+  Returns ``[B, F]`` on ``hot``'s device. On CPU tensors this is
+  :func:`gather_rows_unified_plain`; on a card it is one launch of the
+  kernel (no host sync) or raises.
+  """
+  if hot.device.type == 'cpu' and ids.device.type == 'cpu':
+    return gather_rows_unified_plain(hot, cold, ids)[0]
+  _check(hot, ids, 'gather_rows_unified', allow_empty=True)
+  n_cold = cold.shape[0]
+  if (cold.device.type != 'cpu' or cold.dim() != 2 or
+      cold.dtype != hot.dtype or cold.shape[1] != hot.shape[1] or
+      not cold.is_contiguous()):
+    raise ValueError('gather_rows_unified: cold must be contiguous CPU '
+                     f'rows of [*, {hot.shape[1]}] {hot.dtype}, got '
+                     f'{tuple(cold.shape)} {cold.dtype} on {cold.device}')
+  n = hot.shape[0] + n_cold
+  if n == 0 and ids.shape[0] > 0:
+    raise ValueError('gather_rows_unified: gather from an empty table')
+  global unified_launches
+  out = torch.empty((ids.shape[0], hot.shape[1]), dtype=hot.dtype,
+                    device=hot.device)
+  if ids.shape[0] == 0:
+    return out
+  stream = torch.cuda.current_stream(hot.device)
+  cold_ptr = mapped.device_pointer(cold) if n_cold else None
+  err = kernels.lib('gather_unified').glt_gather_unified(
+      hot.data_ptr() if hot.shape[0] else None, cold_ptr, ids.data_ptr(),
+      int(ids.dtype == torch.int64), out.data_ptr(), hot.shape[0], n,
+      ids.shape[0], hot.shape[1] * hot.element_size(),
+      hot.device.index or 0, stream.cuda_stream)
+  kernels.check(err, 'gather_unified')
+  if n_cold:
+    mapped.mark_used(cold, stream)
+  unified_launches += 1
   return out
 
 
@@ -288,7 +388,7 @@ def _gather_runs_launch(table, ids, block_rows, run_span, plan_out=None):
   return out
 
 
-def _check(table, ids, what):
+def _check(table, ids, what, allow_empty=False):
   if table.device.type != 'cuda' or ids.device != table.device:
     raise ValueError(f'{what}: table on {table.device} and ids on '
                      f'{ids.device}; the kernel needs both on one CUDA '
@@ -301,5 +401,5 @@ def _check(table, ids, what):
                      f'{tuple(ids.shape)} {ids.dtype}')
   if not (table.is_contiguous() and ids.is_contiguous()):
     raise ValueError(f'{what}: table and ids must be contiguous')
-  if table.shape[0] == 0 and ids.shape[0] > 0:
+  if table.shape[0] == 0 and ids.shape[0] > 0 and not allow_empty:
     raise ValueError(f'{what}: gather from an empty table')

@@ -50,6 +50,11 @@ SOURCES = {
         'glt_step_keys': ([_P, _P, _I, _I, _P, _I, _P], _I)}),
     'uniform_draw': ('uniform_draw.cu', {
         'glt_uniform_draw': ([_P, _L, _P, _I, _P], _I)}),
+    'gather_unified': ('gather_unified.cu', {
+        'glt_gather_unified': ([_P, _P, _P, _I, _P, _L, _L, _L, _L, _I, _P],
+                               _I),
+        'glt_host_register': ([_P, _L, _I, _P, _P], _I),
+        'glt_host_unregister': ([_P, _I], _I)}),
     'negative_sample': ('negative_sample.cu', {
         'glt_negative_sample': ([_P, _P, _L, _P, _L, _L, _L, _L, _P, _P, _P,
                                  _I, _P], _I)}),

@@ -10,6 +10,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from ..typing import EdgeType
 
@@ -123,3 +124,33 @@ class SamplerOutput:
   num_sampled_edges: Optional[List[Any]] = None
   input_type: Optional[str] = None
   metadata: Dict[str, Any] = field(default_factory=dict)
+  device: Any = None
+
+  def trim(self) -> 'SamplerOutput':
+    """Exact-size numpy arrays at the host boundary (the padding
+    dropped; local indices stay valid because padding occupies the
+    tail), as ``graphlearn_tpu/sampler/base.py:SamplerOutput.trim``."""
+    def host(v):
+      return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    node = host(self.node)
+    n = int(self.num_nodes) if self.num_nodes is not None else node.shape[0]
+    out = SamplerOutput(node=node[:n], num_nodes=n,
+                        input_type=self.input_type,
+                        batch_size=self.batch_size, metadata=self.metadata)
+    if self.row is not None:
+      row, col = host(self.row), host(self.col)
+      mask = host(self.edge_mask) if self.edge_mask is not None else \
+          (row >= 0)
+      mask = mask & (row >= 0) & (col >= 0)
+      out.row, out.col = row[mask], col[mask]
+      if self.edge is not None:
+        out.edge = host(self.edge)[mask]
+      out.edge_mask = None
+    if self.batch is not None:
+      out.batch = host(self.batch)
+    if self.num_sampled_nodes is not None:
+      out.num_sampled_nodes = [int(x) for x in self.num_sampled_nodes]
+    if self.num_sampled_edges is not None:
+      out.num_sampled_edges = [int(x) for x in self.num_sampled_edges]
+    return out

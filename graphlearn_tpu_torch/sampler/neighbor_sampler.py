@@ -198,7 +198,8 @@ class NeighborSampler:
   Args:
     graph: a homogeneous ``Graph``.
     num_neighbors: per-hop fanouts.
-    device: torch device (None means the card); must be the graph's.
+    device: torch device (None means the card); must be the graph's,
+      unless the graph is a 'CPU'-mode one, which is copied there.
     with_weight: edge-weight-biased sampling (on a graph built with
       ``edge_weights``; without them the hops are uniform, as in JAX).
     strategy: 'random' (uniform) or 'block' (cluster sampling over
@@ -280,6 +281,8 @@ class NeighborSampler:
     self.padded_window = padded_window
     self.node_budget = node_budget
     self.device = resolve_device(device)
+    if graph.mode == 'CPU':
+      graph = graph.on(self.device)
     if graph.device != self.device:
       raise ValueError(f'graph lives on {graph.device}, sampler asked for '
                        f'{self.device}')

@@ -22,6 +22,12 @@ def resolve_device(device=None) -> torch.device:
   return torch.device(device)
 
 
+def ptr2ind(indptr: np.ndarray) -> np.ndarray:
+  """Expand a CSR row pointer into per-edge row ids."""
+  n = indptr.shape[0] - 1
+  return np.repeat(np.arange(n, dtype=indptr.dtype), np.diff(indptr))
+
+
 def ind2ptr(rows: np.ndarray, num_rows: int) -> np.ndarray:
   """CSR row pointer from *sorted* per-edge row ids."""
   counts = np.bincount(rows, minlength=num_rows)

@@ -41,8 +41,14 @@ against the CPU; the negative sampling kernel against its plain version
 across span 65,536 (dense, empty and no-sample cases, host and device
 keys, spans past the CSR's rows); link batches on the four engines
 against the CPU's with their launches, a link batch with no host sync,
-two link train steps against the CPU; and subgraph batches, exact and
-bucketed, against the CPU's.
+two link train steps against the CPU; subgraph batches, exact and
+bucketed, against the CPU's; and the hot/cold gather against its plain
+version bit for bit (H = 0, a mixed split, H = N; row widths down to 2
+bytes; f32, bf16, f16, int32; int32 and int64 ids), unmapped rows
+refused, a mapped tail freed after its last launch and mapped again, a
+hot/cold ``Feature`` on the card against the CPU's with no host sync in
+the lookup, the in-process IPC round trip, the spawned two-worker
+``feature_mp`` run and hot/cold loader batches against the CPU's.
 """
 import contextlib
 import copy
@@ -1366,3 +1372,176 @@ def test_subgraph_batches_on_card_match_cpu(cuda, bucketed):
   n = len(outs['cuda'])
   assert counts['sample_level'] == n * (3 * 2 + 1)
   assert counts['gather_rows'] == n
+
+
+# ---------------------------------------------------- the hot/cold gather
+
+
+def _unified_case(cuda, n, width, dtype, hot, seed=0):
+  """(hot rows on the card, mapped cold rows, the whole table on the CPU)."""
+  from graphlearn_tpu_torch.ops import mapped
+  gen = torch.Generator().manual_seed(seed)
+  table = (torch.randn((n, width), generator=gen) * 100).to(dtype)
+  cold = mapped.empty((n - hot, width), dtype)
+  cold.copy_(table[hot:])
+  if n - hot:
+    mapped.register(cold, cuda)
+  return table[:hot].contiguous().to(cuda), cold, table
+
+
+@pytest.mark.parametrize('dtype,width', [
+    (torch.float32, 100), (torch.float32, 128), (torch.bfloat16, 100),
+    (torch.float16, 3), (torch.int32, 7), (torch.bfloat16, 1)])
+@pytest.mark.parametrize('split', ['all_host', 'mixed', 'all_hot'])
+@pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
+def test_gather_unified_kernel_matches_plain(cuda, dtype, width, split,
+                                             id_dtype):
+  """The hot/cold kernel against its plain version (the JAX store's
+  mixed gather on the card), bit for bit: H = 0, a mixed split and H = N,
+  row widths down to 2 bytes, ids clamped at both ends."""
+  from graphlearn_tpu_torch.ops import mapped
+  n = 1000
+  hot_rows = dict(all_host=0, mixed=371, all_hot=n)[split]
+  hot, cold, table = _unified_case(cuda, n, width, dtype, hot_rows, width)
+  gen = torch.Generator().manual_seed(3)
+  ids = torch.randint(-5, n + 5, (4099,), generator=gen).to(id_dtype)
+  ids = ids.to(cuda)
+  before = ops.launch_counts()['gather_unified']
+  got = ops.gather_rows_unified(hot, cold, ids)
+  torch.cuda.synchronize()
+  plain, _ = ops.gather_rows_unified_plain(hot, cold, ids)
+  assert torch.equal(got, plain)
+  assert torch.equal(got.cpu(), table[ids.cpu().clamp(0, n - 1).long()])
+  assert ops.launch_counts()['gather_unified'] == before + 1
+  assert ops.gather_rows_unified(hot, cold, ids[:0]).shape == (0, width)
+  assert ops.launch_counts()['gather_unified'] == before + 1
+  if n - hot_rows:
+    mapped.release(cold)
+    assert not mapped.is_mapped(cold)
+
+
+def test_gather_unified_refuses_unmapped_rows(cuda):
+  hot = torch.zeros((4, 8), device=cuda)
+  cold = torch.zeros((4, 8))
+  with pytest.raises(ValueError, match='not mapped'):
+    ops.gather_rows_unified(hot, cold, torch.zeros(2, dtype=torch.int32,
+                                                   device=cuda))
+
+
+def test_mapped_tail_freed_and_registered_again(cuda):
+  """A store's mapped tail is released (after its last launch) when the
+  store goes, and a new store maps a tail again; the same tensor mapped
+  twice counts a reference."""
+  from graphlearn_tpu_torch.ops import mapped
+  feat = np.random.default_rng(0).standard_normal((5000, 64)).astype(
+      np.float32)
+  ids = torch.randint(0, 5000, (20000,), device=cuda)
+  for _ in range(3):
+    ut = gtt.data.UnifiedTensor(cuda).init_from(feat[:1000], feat[1000:])
+    tail = ut.host_part
+    assert mapped.is_mapped(tail) and mapped.lookup(tail).nbytes == \
+        4000 * 64 * 4
+    got = ut[ids]              # queued; the release below waits for it
+    del ut
+    gc.collect()
+    assert not mapped.is_mapped(tail)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.from_numpy(feat)[ids.cpu()])
+  cold = mapped.empty((10, 4), torch.float32)
+  mapped.register(cold, cuda)
+  mapped.register(cold, cuda)
+  mapped.release(cold)
+  assert mapped.is_mapped(cold)
+  mapped.release(cold)
+  assert not mapped.is_mapped(cold)
+  view = mapped.empty((10, 4), torch.float32)
+  mapped.register(view, cuda)
+  with pytest.raises(ValueError, match='overlaps'):
+    mapped.register(view[2:], cuda)
+  assert mapped.device_pointer(view[2:]) == \
+      mapped.device_pointer(view) + 2 * 4 * 4
+  mapped.release(view)
+
+
+@pytest.mark.parametrize('split_ratio', [0.0, 0.3, 1.0])
+def test_feature_on_card_matches_cpu_without_host_sync(cuda, split_ratio):
+  """A hot/cold ``Feature`` on the card (FILL pads, ids past the table,
+  a degree reorder, bf16) equals the CPU store's rows, with no host sync
+  in the lookup; ``device_table()`` is None with a host part."""
+  rng = np.random.default_rng(1)
+  n = 3000
+  feat = rng.standard_normal((n, 100)).astype(np.float32)
+  ei = np.stack([rng.integers(0, n, 9000), rng.zipf(1.5, 9000) % n])
+  re, id2index = gtt.data.sort_by_in_degree(
+      feat, split_ratio, gtt.data.Topology(ei, num_nodes=n))
+  ids = rng.integers(0, n, 5000)
+  ids[::11] = -1
+  ids[3::97] = n + 4
+  for dtype in (None, torch.bfloat16):
+    stores = {d: gtt.data.Feature(re, split_ratio, id2index=id2index,
+                                  device=d, dtype=dtype)
+              for d in (cuda, torch.device('cpu'))}
+    card = stores[cuda]
+    card.lazy_init()
+    assert (card.device_table() is None) == (split_ratio < 1.0)
+    ids_dev = torch.as_tensor(ids, device=cuda)
+    card[ids_dev]
+    torch.cuda.synchronize()
+    with _no_sync_allowed():
+      got = card[ids_dev]
+    torch.cuda.synchronize()
+    want = stores[torch.device('cpu')][ids]
+    assert torch.equal(got.cpu().isnan(), want.isnan())
+    assert torch.equal(got.cpu().nan_to_num(), want.nan_to_num())
+
+
+def test_feature_ipc_in_process_on_card(cuda):
+  feat = np.random.default_rng(2).standard_normal((400, 16)).astype(
+      np.float32)
+  store = gtt.data.Feature(feat, split_ratio=0.25, device=cuda)
+  clone = gtt.data.Feature.from_ipc_handle(store.share_ipc())
+  ids = torch.arange(400, device=cuda)
+  assert torch.equal(clone[ids], store[ids])
+  assert torch.equal(clone[ids].cpu(), torch.from_numpy(feat))
+  assert store.unified.host_part.is_shared()
+  del clone
+  gc.collect()
+  assert torch.equal(store[ids].cpu(), torch.from_numpy(feat))
+
+
+def test_feature_mp_two_workers_on_card(cuda):
+  """The spawned ``feature_mp`` run: the device prefix as a CUDA IPC
+  handle, the host tail in shared memory mapped again in each worker;
+  every worker's rows exact."""
+  from graphlearn_tpu_torch.examples import feature_mp
+  assert feature_mp.run(cuda, timeout=300) == [(0, 'ok'), (1, 'ok')]
+
+
+@pytest.mark.parametrize('dedup', ['tree', 'auto'])
+def test_hot_cold_loader_on_card_matches_cpu(cuda, dedup):
+  """NeighborLoader batches over a hot/cold store: the same batches as
+  the CPU's, one hot/cold launch and no row-gather launch a batch."""
+  rng = np.random.default_rng(3)
+  n = 2000
+  ei = np.stack([rng.integers(0, n, 12000), rng.integers(0, n, 12000)])
+  feat = rng.standard_normal((n, 24)).astype(np.float32)
+  labels = rng.integers(0, 3, n)
+  outs = {}
+  for dev in (cuda, torch.device('cpu')):
+    ds = gtt.data.Dataset(device=dev)
+    ds.init_graph(ei, num_nodes=n)
+    ds.init_node_features(feat, sort_func=gtt.data.sort_by_in_degree,
+                          split_ratio=0.4)
+    ds.init_node_labels(labels)
+    loader = gtt.loader.NeighborLoader(ds, [5, 3], np.arange(0, n, 7),
+                                       batch_size=64, seed=2, dedup=dedup,
+                                       device=dev)
+    ops.reset_launch_counts()
+    outs[dev.type] = list(loader)
+    if dev.type == 'cuda':
+      counts = ops.launch_counts()
+  for a, b in zip(outs['cuda'], outs['cpu']):
+    for name in ('node', 'x', 'y', 'edge_index'):
+      assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+  assert counts['gather_unified'] == len(outs['cuda'])
+  assert counts['gather_rows'] == 0

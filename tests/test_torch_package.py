@@ -158,7 +158,7 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
                                  'step_keys': 0, 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
                                  'smem_take': 0, 'uniform_draw': 0,
-                                 'negative_sample': 0}
+                                 'negative_sample': 0, 'gather_unified': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -188,7 +188,7 @@ def test_kernel_wrappers_refuse_mixed_devices():
                                  'step_keys': 0, 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
                                  'smem_take': 0, 'uniform_draw': 0,
-                                 'negative_sample': 0}
+                                 'negative_sample': 0, 'gather_unified': 0}
 
 
 def test_every_kernel_source_is_built_and_has_a_plain_version():

@@ -1,0 +1,285 @@
+"""The port's public calls against the JAX package's.
+
+``inspect.signature`` of every public class and function of
+``graphlearn_tpu.data``, of the homogeneous loaders and of
+``SamplerOutput`` against the port's: the same parameter names, in the
+same order, of the same kinds, with the same defaults (annotations are
+not compared). The port's deliberate differences are listed by name
+below (``ROADMAP.md``, "Deliberate divergences"); any other difference
+fails. Then JAX's calls run on the port: ``Topology`` from CSR and CSC
+input, ``degree`` / ``to_coo`` / ``to_csc``, every graph mode,
+``Dataset.init_graph`` with JAX's positional order, the ``Dataset``
+accessors, the loaders' ``to_device`` and ``collect_features`` and
+``SamplerOutput.trim``, each equal to JAX's.
+"""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import graphlearn_tpu as glt
+import graphlearn_tpu_torch as gtt
+
+CPU = 'cpu'
+
+# (qualified name, parameter) -> why the port differs
+EXTRA_PARAMS = {
+    # every tensor of a port Dataset is placed at init, on this device
+    # (None means the card); JAX places lazily on its default device
+    ('Dataset', 'device'): 'the port places the dataset at init',
+    # the port's spelling of JAX's to_device, kept as a keyword alias
+    ('NodeLoader', 'device'): 'device= alias of to_device',
+    ('NeighborLoader', 'device'): 'device= alias of to_device',
+    ('LinkLoader', 'device'): 'device= alias of to_device',
+    ('LinkNeighborLoader', 'device'): 'device= alias of to_device',
+    ('SubGraphLoader', 'device'): 'device= alias of to_device',
+}
+MISSING_PARAMS = {
+    # kernels route by device in the port (ROADMAP, deliberate divergences)
+    ('NeighborLoader', 'use_fused_hop'): 'kernels route by device',
+    ('NeighborLoader', 'fused_hop_window'): 'kernels route by device',
+}
+MISSING_MEMBERS = {
+    # a group of more than one device is refused until the distributed
+    # slice (ROADMAP queue A item 7)
+    ('DeviceGroup', 'sharding'): 'multi-device groups: item 7',
+    # placed at init: instance attributes, not lazy properties
+    ('Graph', 'indptr'): 'an instance attribute in the port',
+    ('Graph', 'indices'): 'an instance attribute in the port',
+    ('Graph', 'lazy_init'): 'the port places the CSR at init',
+    # on a card the all-device lookup is always the row-gather kernel;
+    # JAX opts into its Pallas kernel with this flag
+    ('UnifiedTensor', 'use_pallas'): 'the kernel routes by device',
+}
+
+
+def _params(fn):
+  return [(p.name, p.kind, p.default)
+          for p in inspect.signature(fn).parameters.values()]
+
+
+def _same_default(a, b):
+  if a is inspect.Parameter.empty or b is inspect.Parameter.empty:
+    return a is b
+  if isinstance(a, type) or isinstance(b, type):
+    return a is b
+  return type(a) is type(b) and a == b
+
+
+def assert_same_signature(qual, jfn, tfn):
+  jp = [p for p in _params(jfn) if (qual, p[0]) not in MISSING_PARAMS]
+  tp = [p for p in _params(tfn) if (qual, p[0]) not in EXTRA_PARAMS]
+  assert [p[0] for p in tp] == [p[0] for p in jp], qual
+  for (name, jkind, jdef), (_, tkind, tdef) in zip(jp, tp):
+    assert jkind == tkind, (qual, name)
+    assert _same_default(jdef, tdef), (qual, name, jdef, tdef)
+  for (q, name) in EXTRA_PARAMS:
+    if q == qual:
+      tall = [p[0] for p in _params(tfn)]
+      assert tall[-1] == name, (qual, 'an extra parameter goes last')
+
+
+def _public(mod):
+  return sorted(n for n in getattr(mod, '__all__', dir(mod))
+                if not n.startswith('_'))
+
+
+def _compare_class(name, jcls, tcls):
+  assert_same_signature(name, jcls.__init__, tcls.__init__)
+  for member, v in vars(jcls).items():
+    if member.startswith('_'):
+      continue
+    if (name, member) in MISSING_MEMBERS:
+      assert not hasattr(tcls, member) or member in ('indptr', 'indices')
+      continue
+    assert hasattr(tcls, member), f'{name}.{member} is missing'
+    if isinstance(v, (staticmethod, classmethod)):
+      v = v.__func__
+    if inspect.isfunction(v):
+      tv = inspect.getattr_static(tcls, member)
+      if isinstance(tv, (staticmethod, classmethod)):
+        tv = tv.__func__
+      assert_same_signature(f'{name}.{member}', v, tv)
+
+
+DATA_NAMES = _public(glt.data)
+
+
+@pytest.mark.parametrize('name', DATA_NAMES)
+def test_data_package_signatures(name):
+  j = getattr(glt.data, name)
+  assert hasattr(gtt.data, name), f'graphlearn_tpu_torch.data.{name}'
+  t = getattr(gtt.data, name)
+  if inspect.ismodule(j):
+    for fn in _public(j):
+      jf = getattr(j, fn)
+      if inspect.isfunction(jf) and jf.__module__ == j.__name__:
+        assert_same_signature(f'{name}.{fn}', jf, getattr(t, fn))
+  elif inspect.isclass(j):
+    _compare_class(name, j, t)
+  else:
+    assert_same_signature(name, j, t)
+
+
+LOADERS = ['NodeLoader', 'NeighborLoader', 'LinkLoader',
+           'LinkNeighborLoader', 'SubGraphLoader']
+
+
+@pytest.mark.parametrize('name', LOADERS)
+def test_loader_signatures(name):
+  _compare_class(name, getattr(glt.loader, name), getattr(gtt.loader, name))
+
+
+def test_sampler_output_signature():
+  _compare_class('SamplerOutput', glt.sampler.SamplerOutput,
+                 gtt.sampler.SamplerOutput)
+
+
+def test_every_named_difference_is_live():
+  """A listed difference that no longer differs is struck from the list."""
+  for (qual, param) in EXTRA_PARAMS:
+    cls = getattr(gtt.data, qual, None) or getattr(gtt.loader, qual)
+    assert param in inspect.signature(cls.__init__).parameters
+  for (qual, param) in MISSING_PARAMS:
+    assert param not in inspect.signature(
+        getattr(gtt.loader, qual).__init__).parameters
+    assert param in inspect.signature(
+        getattr(glt.loader, qual).__init__).parameters
+
+
+# ----------------------------------------------- JAX's calls on the port
+
+
+def _coo(n=30, e=90, seed=0):
+  rng = np.random.default_rng(seed)
+  return np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]), n
+
+
+@pytest.mark.parametrize('layout', ['CSR', 'CSC'])
+@pytest.mark.parametrize('input_layout', ['COO', 'CSR', 'CSC'])
+def test_topology_inputs_and_conversions(input_layout, layout):
+  ei, n = _coo()
+  eids = np.arange(100, 100 + ei.shape[1])
+  w = np.random.default_rng(1).random(ei.shape[1]).astype(np.float32)
+  if input_layout == 'COO':
+    src = ei
+  else:
+    base = glt.data.Topology(ei, layout=input_layout, num_nodes=n)
+    src = (base.indptr, base.indices)
+    eids, w = base.edge_ids, base.edge_weights
+  j = glt.data.Topology(src, eids, w, input_layout, layout, n)
+  t = gtt.data.Topology(src, eids, w, input_layout, layout, n)
+  for a in ('indptr', 'indices', 'edge_ids', 'edge_weights'):
+    if getattr(j, a) is None:
+      assert getattr(t, a) is None
+    else:
+      np.testing.assert_array_equal(getattr(t, a), getattr(j, a))
+  assert t.num_nodes == j.num_nodes and t.num_edges == j.num_edges
+  ids = np.array([0, 3, n - 1])
+  np.testing.assert_array_equal(t.degree(ids), j.degree(ids))
+  for a, b in zip(t.to_coo(), j.to_coo()):
+    np.testing.assert_array_equal(a, b)
+  for a, b in zip(t.to_csc(), j.to_csc()):
+    if b is None:
+      assert a is None
+    else:
+      np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('mode', ['HBM', 'CUDA', 'DMA', 'DEVICE',
+                                  'ZERO_COPY', 'CPU', 'cpu'])
+def test_graph_modes(mode):
+  ei, n = _coo()
+  topo = gtt.data.Topology(ei, num_nodes=n)
+  g = gtt.data.Graph(topo, mode, CPU)
+  assert g.mode == ('CPU' if mode.upper() == 'CPU' else 'HBM')
+  assert g.device == torch.device(CPU) and g.layout == 'CSR'
+  np.testing.assert_array_equal(g.degree([1, 2]), topo.degree([1, 2]))
+  assert g.share_ipc() == (topo, g.mode)
+  with pytest.raises(ValueError, match='graph mode'):
+    gtt.data.Graph(topo, 'NVME', CPU)
+
+
+def test_cpu_mode_keeps_the_graph_on_the_host_and_samples_like_jax():
+  """``graph_mode='CPU'`` on a dataset whose device is another: the CSR
+  stays on the host (``Graph.device`` is the CPU) and a sampler copies it
+  to its own device (``Graph.on``); the batches equal JAX's."""
+  ei, n = _coo()
+  feat = np.arange(n, dtype=np.float32)[:, None].repeat(3, 1)
+  jds = glt.data.Dataset()
+  jds.init_graph(ei, None, None, 'COO', 'CPU', None, n)
+  jds.init_node_features(feat)
+  ds = gtt.data.Dataset(device=CPU)
+  ds.init_graph(ei, None, None, 'COO', 'CPU', None, n)
+  ds.init_node_features(feat)
+  assert ds.graph.mode == 'CPU' and ds.graph.indptr.device.type == 'cpu'
+  meta = torch.device('meta')
+  moved = ds.graph.on(meta)
+  assert moved.mode == 'HBM' and moved.indices.device == meta
+  assert moved.topo is ds.graph.topo and ds.graph.on(CPU) is ds.graph
+  jb = list(glt.loader.NeighborLoader(jds, [2, 2], np.arange(8),
+                                      batch_size=4, dedup='tree'))
+  tb = list(gtt.loader.NeighborLoader(ds, [2, 2], np.arange(8), 4,
+                                      False, False, False, False, 'random',
+                                      True, CPU, dedup='tree'))
+  for a, b in zip(jb, tb):
+    np.testing.assert_array_equal(b.node.numpy(), np.asarray(a.node))
+    np.testing.assert_array_equal(b.x.numpy(), np.asarray(a.x))
+
+
+def test_dataset_init_graph_in_jax_order():
+  ei, n = _coo()
+  eids = np.arange(ei.shape[1])[::-1].copy()
+  w = np.ones(ei.shape[1], np.float32)
+  jds = glt.data.Dataset(edge_dir='in')
+  jds.init_graph(ei, eids, w, 'COO', 'HBM', None, n)
+  ds = gtt.data.Dataset(edge_dir='in', device=CPU)
+  ds.init_graph(ei, eids, w, 'COO', 'HBM', None, n)
+  jg, tg = jds.get_graph(), ds.get_graph()
+  assert tg.layout == jg.layout == 'CSC'
+  np.testing.assert_array_equal(tg.topo.edge_ids, jg.topo.edge_ids)
+  np.testing.assert_array_equal(tg.indices.numpy(), np.asarray(jg.indices))
+  assert ds.get_edge_feature() is None and ds.is_hetero is False
+
+
+def test_loaders_take_to_device_and_the_alias():
+  ei, n = _coo()
+  ds = gtt.data.Dataset(device=CPU)
+  ds.init_graph(ei, num_nodes=n)
+  ds.init_node_features(np.ones((n, 2), np.float32))
+  a = gtt.loader.NeighborLoader(ds, [2], np.arange(4), batch_size=2,
+                                to_device=CPU, dedup='tree')
+  b = gtt.loader.NeighborLoader(ds, [2], np.arange(4), batch_size=2,
+                                device=CPU, dedup='tree')
+  assert a.device == b.device == torch.device(CPU)
+  with pytest.raises(ValueError, match='disagree'):
+    gtt.loader.NeighborLoader(ds, [2], np.arange(4), to_device=CPU,
+                              device='meta')
+  # collect_features=False gathers no node features, as in JAX
+  c = gtt.loader.NeighborLoader(ds, [2], np.arange(4), batch_size=2,
+                                collect_features=False, device=CPU)
+  assert next(iter(c)).x is None
+
+
+@pytest.mark.parametrize('dedup', ['tree', 'auto'])
+def test_sampler_output_trim_matches_jax(dedup):
+  ei, n = _coo(40, 160, 3)
+  jds = glt.data.Dataset()
+  jds.init_graph(ei, graph_mode='CPU', num_nodes=n)
+  ds = gtt.data.Dataset(device=CPU)
+  ds.init_graph(ei, num_nodes=n)
+  js = glt.sampler.NeighborSampler(jds.graph, [3, 2], dedup=dedup, seed=4,
+                                   with_edge=True)
+  ts = gtt.sampler.NeighborSampler(ds.graph, [3, 2], device=CPU,
+                                   dedup=dedup, seed=4, with_edge=True)
+  seeds = np.array([0, 5, 9, 33])
+  a = js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds)).trim()
+  b = ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds)).trim()
+  for f in ('node', 'row', 'col', 'edge', 'batch'):
+    x, y = getattr(a, f), getattr(b, f)
+    assert isinstance(y, np.ndarray), f
+    np.testing.assert_array_equal(y, x, err_msg=f)
+  assert b.num_nodes == a.num_nodes and b.edge_mask is None
+  assert b.num_sampled_nodes == a.num_sampled_nodes
+  assert b.num_sampled_edges == a.num_sampled_edges
