@@ -8,8 +8,9 @@ and without an early stop; OverlappedTrainer), the products example's
 other modes (block, padded-window and weighted hops, node_budget, bf16),
 link prediction (the unsupervised example's LinkNeighborLoader and link
 train step), induced subgraphs, the legacy dedup engines, the hot/cold
-feature store (the papers-scale and table examples), and the two probe
-suites.
+feature store (the papers-scale and table examples), the out-of-core
+tiered store (TieredScanTrainer, the papers example's three-tier mode,
+the spilled serving stores), and the two probe suites.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -214,7 +215,38 @@ Phases (any failure exits non-zero, and the result line is not printed):
    host): one epoch, every batch's ``x`` equal to the table's rows, one
    hot/cold and two hop launches a step; and the store rebuilt in this
    process from its IPC handle, exact.
-10. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+10. The tiered store: the script's table sorted by in-degree in a
+   ``storage.TieredFeature`` (hot 0.25 on the card, warm 0.25 mapped on
+   the host, the rest as npy chunks in a temporary directory, removed at
+   the end), training ``GraphSAGE(100, 256, 47)`` (Adam 3e-3) over a
+   16,384-seed pool, 16 steps in chunks of 8, in a captured
+   ``TieredScanTrainer`` and in the all-device captured ``ScanTrainer``
+   from the same weights, held by C5's rule (the tiered trainer takes up
+   the reference's parameters and Adam state at each chunk start and is
+   compared at the chunk's end: within PARAMS_LIMIT; losses within rtol
+   1e-4; merge's first epoch, a cold start, reported, not held). Tree:
+   two healthy epochs, one whose staging worker raises (degraded, its
+   prefetch_miss > 0, held all the same), every step's ``x`` of the last
+   healthy and the degraded epoch bit-equal to the all-device gather
+   (each chunk's slab staged again), a timed epoch of each (ms/step,
+   their ratio, the prologue's ms, per chunk the planned, disk rows and
+   slab bytes, the worker's stage ms, the wait at ``take``, the slab's
+   copy and the chunk's device ms; launches: one K1 a step, the hops of
+   the chunks and of the plan's replay, one step-keys launch a chunk and
+   one for the plan), a sync-counted epoch (1 host sync: the plan fetch)
+   and a profiled epoch (the profiler's kernels equal to the counters).
+   Merge (calibrated caps): two epochs, ``x`` bit-equal. Then the papers
+   example's three-tier mode through ``run_tiered`` (``--spill-dir``,
+   2M nodes, ``--hot-gb 0.4 --warm-gb 0.2``, 32 steps in chunks of 8):
+   its JSON fields, per-chunk staging, and its last chunk run again
+   eagerly from the state at its start, the last step recomputed on the
+   CPU. Then the serving phase's model materialized with
+   ``spill_dir``, ``tiered_embedding_store`` and both restarted stores
+   (``warm_embedding_store``, tiered and whole) against
+   ``embedding_store()`` on the serving mix's buckets: equal rows, lookup
+   ms p50 and p99, host syncs per lookup (0 for the tiered stores) and
+   one hot/cold launch per tiered lookup.
+11. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -3421,6 +3453,526 @@ def hot_cold_phase(torch, gtt, ds, topo, feats, pool, device, reps, smi):
   return rep
 
 
+# the tiered phase: the products table in three tiers (device, mapped
+# host RAM, disk), 16 steps in chunks of 8, epochs held by C5's rule to
+# the all-device ScanTrainer from one start
+TIER_HOT, TIER_WARM = 0.25, 0.25
+TIER_STEPS, TIER_CHUNK = 16, 8
+# the papers example's three-tier mode at PAPERS_NODES: the shares of its
+# 10M default (2 GB hot, 1 GB warm of 4.77 GB: 42%, 21%, 37% on disk)
+PAPERS_WARM_GB, PAPERS_TIER_STEPS, PAPERS_TIER_CHUNK = 0.2, 32, 8
+SERVE_TIER_SYNC_LOOKUPS = 16         # lookups run under sync counting
+
+
+def buckets_of(ids):
+  """One serving request's engine buckets: pieces of at most the largest
+  bucket, each padded (-1) to the smallest bucket that holds it."""
+  out = []
+  for s in range(0, len(ids), SERVE_BUCKETS[-1]):
+    piece = ids[s:s + SERVE_BUCKETS[-1]]
+    cap = min(b for b in SERVE_BUCKETS if b >= len(piece))
+    padded = np.full((cap,), -1, np.int64)
+    padded[:len(piece)] = piece
+    out.append((padded, padded >= 0))
+  return out
+
+
+def load_chunk_slab(torch, tr, c):
+  """Chunk ``c`` of ``tr``'s last plan staged again (the worker's
+  gather, synchronously) into the trainer's static slab."""
+  from graphlearn_tpu_torch.storage import pad_slab
+  rows_abs = tr.last_plan.chunk_rows[c]
+  ids, rows = pad_slab(rows_abs.astype(np.int32),
+                       tr._store.stage_gather(rows_abs))
+  tr._slab_ids.fill_(np.iinfo(np.int32).max)
+  tr._slab_ids[:ids.shape[0]].copy_(torch.from_numpy(ids))
+  tr._slab_rows[:rows.shape[0]].copy_(torch.from_numpy(rows))
+
+
+def chunk_x_equal(torch, gtt, tr, ref, steps, chunk) -> list:
+  """Each step of the last epoch's chunk ``chunk``: the tiered body's
+  ``x`` (the chunk's slab loaded again) bit-equal to the all-device
+  body's, from the same seed rows and hop keys."""
+  load_chunk_slab(torch, tr, chunk)
+  epoch = tr._epochs - 1
+  seeds, mask = tr._epoch_seeds(gtt.random.fold_in(tr._perm_key, epoch),
+                                steps)
+  count0 = tr._sampler._call_count - steps + 1
+  keys = gtt.random.step_keys_plain(
+      tr._sampler._key, count0 + torch.arange(steps, dtype=torch.int64),
+      len(tr._sampler.num_neighbors)).to(seeds.device)
+  out = []
+  for s in range(chunk * tr.chunk_size,
+                 min((chunk + 1) * tr.chunk_size, steps)):
+    a = tr._sample_collate(seeds[s], mask[s], keys[s])[0]['x']
+    b = ref._sample_collate(seeds[s], mask[s], keys[s])[0]['x']
+    out.append(bool(torch.equal(a, b)))
+  return out
+
+
+def tiered_pair(torch, gtt, ds, tds, pool, device, mode, caps, chunk):
+  """``{'ref': [ScanTrainer over ds, state], 'tiered':
+  [TieredScanTrainer over tds, state]}`` from the same weights, chunks of
+  ``chunk``."""
+  from graphlearn_tpu_torch.models import train
+  out = {}
+  for name, d, cls in (('ref', ds, gtt.loader.ScanTrainer),
+                       ('tiered', tds, gtt.storage.TieredScanTrainer)):
+    loader = make_loader(gtt, d, pool, device, mode, caps)
+    model, _ = make_model(torch, gtt, loader, device, 0)
+    model.train()
+    out[name] = [cls(loader, model, CLASSES, chunk_size=chunk),
+                 train.create_train_state(model, lr=LR)]
+  return out
+
+
+def hold_hooks(torch, pair, steps):
+  """C5's rule as hooks: the reference keeps its parameters and Adam
+  state after every chunk (by global step), the tiered trainer takes
+  them up at each chunk start and is compared at the chunk's end (max
+  abs difference, appended to the returned list)."""
+  ref, tr = pair['ref'], pair['tiered']
+  held, diffs = {}, []
+
+  def tensors(p):
+    opt = p[1].optimizer
+    ps = list(p[0].model.parameters())
+    return ps + [v for q in ps for v in opt.state.get(q, {}).values()
+                 if torch.is_tensor(v)]
+
+  def at(p, s):
+    return p[0]._epochs * steps + s
+
+  def keep(c, s0, k):
+    held[at(ref, s0 + k)] = [t.detach().clone() for t in tensors(ref)]
+
+  @torch.no_grad()
+  def take_up(c, s0, k):
+    g = at(tr, s0)
+    if g in held:
+      torch._foreach_copy_(tensors(tr), held[g])
+
+  def compare(c, s0, k):
+    diffs.append(max(float((a.detach() - b).abs().max())
+                     for a, b in zip(tensors(tr), held[at(tr, s0 + k)])))
+
+  return keep, take_up, compare, diffs
+
+
+def tiered_training(torch, gtt, ds, tds, pool, device, mode, caps, smi,
+                    steps, chunk, epochs):
+  """``epochs`` held epochs of the tiered and the all-device trainer
+  (C5's rule); for tree also a degraded epoch (held), a timed epoch of
+  each, a sync-counted and a profiled tiered epoch. The launch counters
+  are set to 0 before each tiered epoch and read after it."""
+  from graphlearn_tpu_torch import metrics, ops
+  cuda = device.type == 'cuda'
+  pair = tiered_pair(torch, gtt, ds, tds, pool, device, mode, caps, chunk)
+  ref, tr = pair['ref'][0], pair['tiered'][0]
+  keep, take_up, compare, diffs = hold_hooks(torch, pair, steps)
+  rep = dict(mode=mode, epochs=[])
+
+  def misses():
+    return metrics.default_registry().counters().get(
+        'storage.prefetch_miss', 0)
+
+  def held_epoch(label, fault=None, hold=True):
+    ref.ack_hook, tr.stage_hook, tr.ack_hook = keep, take_up, compare
+    n0, m0 = len(diffs), misses()
+    pair['ref'][1], rloss, _ = ref.run_epoch(pair['ref'][1])
+    if fault is not None:
+      tr._stager._stage_fault = fault
+    ops.reset_launch_counts()
+    try:
+      pair['tiered'][1], tloss, _ = tr.run_epoch(pair['tiered'][1])
+    finally:
+      tr._stager._stage_fault = lambda: None
+    launches = ops.launch_counts()
+    ref.ack_hook = tr.stage_hook = tr.ack_hook = None
+    if cuda:
+      torch.cuda.synchronize()
+    rel = float(((tloss - rloss).abs() / rloss.abs()).max())
+    rec = dict(label=label, losses=tloss.tolist(), ref_losses=rloss.tolist(),
+               losses_equal=bool(torch.equal(tloss, rloss)),
+               max_rel_loss_diff=rel, chunk_param_diffs=diffs[n0:],
+               degraded=tr._stager.degraded, prefetch_miss=misses() - m0,
+               plan=tr.last_plan.stats(), prologue_ms=tr.prologue_ms,
+               launches=launches)
+    log(f'tiered {mode} {label} epoch: losses vs all-device bit-equal '
+        f'{rec["losses_equal"]}, max rel diff {rel:.3g} (rtol 1e-4); '
+        f'params and Adam state after each chunk (taken up at its start) '
+        f'max abs diff {max(rec["chunk_param_diffs"]):.3g} (limit '
+        f'{PARAMS_LIMIT}{"" if hold else ", not held: a cold start"}); '
+        f'degraded {rec["degraded"]}, prefetch_miss {rec["prefetch_miss"]}; '
+        f'plan {rec["plan"]}; prologue {tr.prologue_ms:.1f} ms')
+    torch.testing.assert_close(tloss, rloss, rtol=1e-4, atol=0)
+    assert not hold or max(rec['chunk_param_diffs']) < PARAMS_LIMIT, rec
+    assert bool(torch.isfinite(tloss).all()), 'non-finite loss'
+    rep['epochs'].append(rec)
+    return rec
+
+  for e in range(epochs):
+    # merge training is chaotic from a cold start (Adam's first steps move
+    # every element by about the rate, whatever its gradient's size): its
+    # first epoch's state is reported, and the second, which starts from
+    # the reference's state, is held
+    rec = held_epoch(f'healthy {e + 1}', hold=mode == 'tree' or e > 0)
+    assert not rec['degraded'] and rec['prefetch_miss'] == 0, rec
+  # every step of both chunks of the last epoch: x bit-equal
+  rep['x_equal'] = [chunk_x_equal(torch, gtt, tr, ref, steps, c)
+                    for c in range(tr.last_plan.num_chunks)]
+  assert all(all(c) for c in rep['x_equal']), rep['x_equal']
+  rep['graphs'] = sorted(tr._graphs)
+  rep['capture_ms'] = tr.capture_ms
+  rep['slab_bytes'] = tr.slab_bytes
+  rep['ring_bytes'] = tr.ring_bytes
+  per = 1 if cuda else 0
+  chunks = tr.last_plan.num_chunks
+  hop = 'sample_level' if mode == 'merge' else 'sample_hop'
+  for rec in rep['epochs']:
+    counts = rec['launches']
+    assert counts['gather_rows'] == per * steps, counts
+    assert counts[hop] == per * 2 * level_launch_count(mode, steps), counts
+    assert counts['step_keys'] == per * (chunks + 1), counts
+  if mode != 'tree':
+    rep['launches'] = rep['epochs'][-1]['launches']
+    log(f'tiered {mode}: every step\'s x of both chunks bit-equal to the '
+        f'all-device gather; graphs {rep["graphs"]} on {smi}')
+    tr.close()
+    return rep
+
+  def boom():
+    raise RuntimeError('injected staging fault')
+
+  rec = held_epoch('degraded', fault=boom)
+  assert rec['degraded'] and rec['prefetch_miss'] > 0, rec
+  rep['x_equal_degraded'] = chunk_x_equal(torch, gtt, tr, ref, steps,
+                                          tr.last_plan.num_chunks - 1)
+  assert all(rep['x_equal_degraded']), rep['x_equal_degraded']
+  # the timed epoch of each, no hooks; the tiered one's launches
+  timed = {}
+  for name in ('ref', 'tiered'):
+    p = pair[name]
+    if cuda:
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    m0 = misses()
+    a = _event(torch, cuda)
+    p[1], losses, _ = p[0].run_epoch(p[1])
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+    timed[name] = dict(ms_per_step=_span(a, b, cuda) / steps,
+                       launches=ops.launch_counts(),
+                       peak_bytes=(torch.cuda.max_memory_allocated()
+                                   if cuda else None),
+                       prefetch_miss=misses() - m0)
+  rep['timed'] = timed
+  counts = rep['launches'] = timed['tiered']['launches']
+  assert counts['gather_rows'] == per * steps, counts
+  assert counts['sample_hop'] == per * 2 * steps * len(FANOUTS), counts
+  assert counts['step_keys'] == per * (chunks + 1), counts
+  assert timed['tiered']['prefetch_miss'] == 0, timed
+  rep['chunks'] = tr.chunk_timings()
+  rep['prologue_ms'] = tr.prologue_ms
+  rep['ratio'] = timed['tiered']['ms_per_step'] / timed['ref']['ms_per_step']
+  row = FEAT_DIM * 4
+  for c in rep['chunks']:
+    c['disk_mb_per_s'] = (c['disk_rows'] * row / 1e6 /
+                          (c['stage_ms'] / 1e3) if c['stage_ms'] else None)
+    c['staged_mb_per_s'] = (c['rows'] * row / 1e6 / (c['stage_ms'] / 1e3)
+                            if c['stage_ms'] else None)
+  log(f'tiered tree timed epoch: {timed["tiered"]["ms_per_step"]:.3f} ms/step '
+      f'(all-device captured {timed["ref"]["ms_per_step"]:.3f}, ratio '
+      f'{rep["ratio"]:.2f}); prologue {tr.prologue_ms:.1f} ms; launches '
+      f'{counts}; peak allocated {timed["tiered"]["peak_bytes"]} B (all-'
+      f'device {timed["ref"]["peak_bytes"]} B); graphs {rep["graphs"]} '
+      f'capture ms {rep["capture_ms"]}; static slab {rep["slab_bytes"]} B, '
+      f'pinned ring {rep["ring_bytes"]} B on {smi}')
+  for c in rep['chunks']:
+    log(f'  chunk {c["chunk"]}: rows {c["rows"]} (disk {c["disk_rows"]}), '
+        f'slab {c["slab_bytes"]} B; stage {c["stage_ms"]} ms '
+        f'({c["staged_mb_per_s"]} MB/s staged, {c["disk_mb_per_s"]} MB/s '
+        f'of disk rows), wait at take {c["wait_ms"]:.3f} ms, copy '
+        f'{c["copy_ms"]} ms, device {c["device_ms"]} ms')
+  if cuda:
+    _, syncs, kinds = count_syncs(
+        torch, lambda: pair['tiered'].__setitem__(
+            1, tr.run_epoch(pair['tiered'][1])[0]))
+    torch.cuda.synchronize()
+    rep['syncs_per_epoch'], rep['sync_kinds'] = syncs, kinds
+    log(f'tiered tree host syncs in one epoch: {syncs} {kinds} (the plan '
+        'fetch; 0 per step)')
+    assert syncs == 1, kinds
+    ops.reset_launch_counts()
+    prof = profiled(torch, lambda: pair['tiered'].__setitem__(
+        1, tr.run_epoch(pair['tiered'][1])[0]), 1, device,
+        'tiered tree epoch (captured)')
+    counted = {k: v for k, v in ops.launch_counts().items()
+               if k in PORT_KERNELS}
+    prof['launch_counters'] = counted
+    rep['profile_epoch'] = prof
+    log(f'tiered tree profiled epoch: profiler kernels {prof["kernels"]} vs '
+        f'launch counters {counted}')
+    assert prof['kernels'] == counted, (prof['kernels'], counted)
+  tr.close()
+  return rep
+
+
+def papers_tiered_path(torch, gtt, device, smi, spill_dir):
+  """The papers example's three-tier mode through its entry point
+  (``run_tiered``; ``--spill-dir``), its JSON fields; then its last step
+  recomputed: the state at the last chunk's start (kept by an ack hook)
+  restored, the chunk's steps run eagerly on the card from the same
+  batches (the last chunk's slab is still in the static buffers), its
+  last loss held to the epoch's, and that last step recomputed on the
+  CPU."""
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.examples import train_sage_papers_scale as papers
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  argv = (['--num-nodes', str(PAPERS_NODES), '--hot-gb', str(PAPERS_HOT_GB),
+           '--warm-gb', str(PAPERS_WARM_GB), '--steps',
+           str(PAPERS_TIER_STEPS), '--chunk-size', str(PAPERS_TIER_CHUNK)]
+          if cuda else ['--num-nodes', '20000', '--hot-gb', '0.004',
+                        '--warm-gb', '0.002', '--steps', '6',
+                        '--batch-size', '32', '--chunk-size', '2'])
+  args = papers.parser().parse_args(
+      argv + ['--device', device.type, '--spill-dir', spill_dir])
+  got = {}
+
+  def on_trainer(tr):
+    got['trainer'] = tr
+    last = (args.steps - 1) // tr.chunk_size * tr.chunk_size
+
+    def keep(c, s0, k):
+      if s0 + k == last:
+        st = tr._chunk_carry['state']
+        got['start'] = (copy.deepcopy(tr.model.state_dict()),
+                        copy.deepcopy(st.optimizer.state_dict()),
+                        st.optimizer, last)
+
+    tr.ack_hook = keep
+
+  t0 = time.perf_counter()
+  ops.reset_launch_counts()
+  result, losses = papers.run_tiered(args, on_trainer=on_trainer)
+  counts = ops.launch_counts()
+  rep = dict(result=result, losses=losses, launches=counts,
+             path_s=time.perf_counter() - t0)
+  tr = got['trainer']
+  steps = len(losses)
+  assert steps == args.steps and np.isfinite(losses).all(), losses
+  per = 1 if cuda else 0
+  chunks = tr.last_plan.num_chunks
+  # the reactive template batch: one hot/cold launch and its hops
+  assert counts['gather_unified'] == per, counts
+  assert counts['gather_rows'] == per * steps, counts
+  assert counts['step_keys'] == per * (chunks + 1), counts
+  assert counts['sample_hop'] == per * (2 * steps + 1) * len(args.fanout), \
+      counts
+  # the template batch's reactive disk reads count in prefetch_miss; the
+  # epoch itself staged every planned row
+  assert not tr._stager.degraded, result
+  rep['chunks'] = tr.chunk_timings()
+  rep['graphs'] = sorted(tr._graphs)
+  rep['prologue_ms'] = tr.prologue_ms
+  # the last chunk again, eagerly, from its start
+  msd, osd, opt, last = got['start']
+  model = tr.model
+  model.load_state_dict(msd)
+  opt.load_state_dict(osd)
+  state = train.TrainState(opt, last)
+  seeds, mask = tr._epoch_seeds(gtt.random.fold_in(tr._perm_key, 0),
+                                tr._epoch_steps())
+  count0 = tr._sampler._call_count - steps + 1
+  keys = gtt.random.step_keys_plain(
+      tr._sampler._key, count0 + torch.arange(steps, dtype=torch.int64),
+      len(args.fanout)).to(device)
+  for s in range(last, steps):
+    batch = tr._sample_collate(seeds[s], mask[s], keys[s])[0]
+    if s == steps - 1:
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(opt.state_dict()),
+               {k: (v.cpu() if torch.is_tensor(v) else v)
+                for k, v in batch.items()})
+      pre = []
+      hooks = relu_input_hooks(
+          model, lambda layer, z: pre.append(z.detach().clone()))
+    state, loss, _ = tr._train_step(state, batch)
+  for h in hooks:
+    h.remove()
+  check += ([p.grad.detach().cpu() for p in model.parameters()],
+            [z.cpu() for z in pre])
+  rep['eager_last_loss'] = float(loss)
+  torch.testing.assert_close(torch.tensor(float(loss)),
+                             torch.tensor(losses[-1]), rtol=1e-4, atol=0)
+  c = rep['cpu_check'] = cpu_step_check(
+      torch, gtt, tr.loader, model, check, loss,
+      cpu_model=lambda: gtt.models.GraphSAGE(
+          args.feat_dim, papers.HIDDEN, papers.NUM_CLASSES,
+          num_layers=len(args.fanout), device='cpu'),
+      make_step=lambda m: train.make_train_step(m, papers.NUM_CLASSES))
+  log(f'papers three-tier: {json.dumps(result)}')
+  log(f'papers three-tier: {steps} steps in {result["epoch_wall_s"]:.3f} s '
+      f'({result["ms_per_step"]:.3f} ms/step, the prologue '
+      f'{tr.prologue_ms:.1f} ms included), prefetch hit rate '
+      f'{result["prefetch_hit_rate"]}; graphs {rep["graphs"]}; the last '
+      f'chunk again eagerly: last loss {rep["eager_last_loss"]:.6f} vs '
+      f'{losses[-1]:.6f}; CPU recompute of the last step: loss '
+      f'{c["cpu_loss"]:.6f}, gradients {c["grad_share"]:.3g} of the '
+      f'largest, Adam {c["adam_diff"]:.3g} on {smi}')
+  for ch in rep['chunks']:
+    log(f'  chunk {ch["chunk"]}: rows {ch["rows"]} (disk {ch["disk_rows"]}), '
+        f'stage {ch["stage_ms"]} ms, wait {ch["wait_ms"]:.3f} ms, copy '
+        f'{ch["copy_ms"]} ms, device {ch["device_ms"]} ms')
+  return rep
+
+
+def tiered_serving(torch, gtt, ds, device, topo, smi, spill_dir):
+  """The serving phase's model and graph materialized with a spill; the
+  tiered store and both restarted stores against ``embedding_store()``
+  on the serving mix's ids, bucket by bucket: equal rows, lookup ms
+  (host clock, to the fetched rows) p50 and p99, host syncs per lookup
+  and one hot/cold launch per tiered lookup."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.serving import (EmbeddingMaterializer,
+                                            warm_embedding_store)
+  cuda = device.type == 'cuda'
+  n = topo.num_nodes
+  model = gtt.models.GraphSAGE(
+      FEAT_DIM, HIDDEN, CLASSES, num_layers=len(FANOUTS), device=device,
+      generator=torch.Generator().manual_seed(0)).eval()
+  t0 = time.perf_counter()
+  mat = EmbeddingMaterializer(ds, model, block_size=SERVE_BLOCK,
+                              chunk_size=SERVE_CHUNK, spill_dir=spill_dir)
+  mat.materialize()
+  rep = dict(materialize_spill_s=time.perf_counter() - t0,
+             spilled=sorted(mat.spilled))
+  assert rep['spilled'] == [str(i) for i in range(len(FANOUTS))], rep
+  base = mat.embedding_store()
+  hot, warm = int(n * TIER_HOT), int(n * TIER_WARM)
+  stores = dict(
+      tiered=mat.tiered_embedding_store(hot_rows=hot, warm_rows=warm),
+      restart_tiered=warm_embedding_store(spill_dir, n, hot_rows=hot,
+                                          warm_rows=warm, device=device),
+      restart=warm_embedding_store(spill_dir, n, device=device))
+  lookups = [b for c in range(CLIENTS)
+             for ids in serve_requests(np.random.default_rng(100 + c), n)
+             for b in buckets_of(ids)]
+  want = [base.fetch(base.lookup(np.maximum(ids, 0), mask))
+          for ids, mask in lookups]
+  for name, store in stores.items():
+    for ids, mask in lookups[:4]:        # warm-up
+      store.fetch(store.lookup(ids, mask))
+    ops.reset_launch_counts()
+    ms, equal = [], 0
+    for (ids, mask), w in zip(lookups, want):
+      t = time.perf_counter()
+      rows = store.fetch(store.lookup(ids, mask))
+      ms.append((time.perf_counter() - t) * 1e3)
+      equal += bool(np.array_equal(rows, w))
+    counts = ops.launch_counts()
+    rec = dict(lookups=len(lookups), equal=equal, launches=counts,
+               ms_p50=float(np.percentile(ms, 50)),
+               ms_p99=float(np.percentile(ms, 99)))
+    if cuda:
+      def run(store=store):
+        return [store.lookup(ids, mask)
+                for ids, mask in lookups[:SERVE_TIER_SYNC_LOOKUPS]]
+      _, syncs, kinds = count_syncs(torch, run)
+      torch.cuda.synchronize()
+      rec.update(syncs_per_lookup=syncs / SERVE_TIER_SYNC_LOOKUPS,
+                 sync_kinds=kinds)
+    rep[name] = rec
+    log(f'tiered serving {name}: {equal}/{len(lookups)} lookups equal to '
+        f'embedding_store()\'s; lookup+fetch ms p50 {rec["ms_p50"]:.3f} p99 '
+        f'{rec["ms_p99"]:.3f}; host syncs per lookup '
+        f'{rec.get("syncs_per_lookup")}; launches {counts} on {smi}')
+    assert equal == len(lookups), (name, equal)
+    if name != 'restart':
+      assert counts['gather_unified'] == (1 if cuda else 0) * len(lookups)
+      assert rec.get('syncs_per_lookup', 0) == 0, rec
+  ms = []
+  for ids, mask in lookups:
+    t = time.perf_counter()
+    base.fetch(base.lookup(np.maximum(ids, 0), mask))
+    ms.append((time.perf_counter() - t) * 1e3)
+  rep['embedding_store'] = dict(ms_p50=float(np.percentile(ms, 50)),
+                                ms_p99=float(np.percentile(ms, 99)))
+  log(f'tiered serving: embedding_store() lookup+fetch ms p50 '
+      f'{rep["embedding_store"]["ms_p50"]:.3f} p99 '
+      f'{rep["embedding_store"]["ms_p99"]:.3f}; materialize with the spill '
+      f'{rep["materialize_spill_s"]:.1f} s')
+  return rep
+
+
+def tiered_phase(torch, gtt, ds, topo, feats, device, caps, smi):
+  """The out-of-core store: the products table in three tiers under the
+  tree (held epochs, degraded, timed, sync-counted, profiled) and merge
+  (a free epoch, then a held one) tiered trainers against the
+  all-device ScanTrainer;
+  the papers example's three-tier mode; the spilled serving stores. Disk
+  tiers are written under one temporary directory, removed at the end
+  (the page cache is not controlled: the tiers were written by this
+  process just before they are read)."""
+  import gc
+  import shutil
+  import tempfile
+  cuda = device.type == 'cuda'
+  n = topo.num_nodes
+  tmp = tempfile.mkdtemp(prefix='gtt_tiered_')
+  rep = {}
+  try:
+    t0 = time.perf_counter()
+    re, id2index = gtt.data.sort_by_in_degree(feats, TIER_HOT, topo)
+    hot, warm = int(n * TIER_HOT), int(n * TIER_WARM)
+    store = gtt.storage.TieredFeature(re, hot_rows=hot, warm_rows=warm,
+                                      id2index=id2index,
+                                      spill_dir=f'{tmp}/products',
+                                      device=device)
+    del re
+    tds = gtt.data.Dataset(graph=ds.graph, node_features=store,
+                           node_labels=ds.node_labels, device=device)
+    rep['store'] = dict(tiers=store.tier_occupancy(),
+                        build_s=time.perf_counter() - t0,
+                        hot_bytes=hot * FEAT_DIM * 4,
+                        warm_bytes=warm * FEAT_DIM * 4,
+                        disk_bytes=store.disk_rows * FEAT_DIM * 4)
+    log(f'tiered store: {rep["store"]["tiers"]} rows ({hot * FEAT_DIM * 4} '
+        f'B on the card, {warm * FEAT_DIM * 4} B mapped, '
+        f'{store.disk_rows * FEAT_DIM * 4} B of npy chunks) built in '
+        f'{rep["store"]["build_s"]:.1f} s')
+    steps = TIER_STEPS if cuda else 4
+    chunk = TIER_CHUNK if cuda else 2
+    pool = np.random.default_rng(11).permutation(n)[:BATCH * steps]
+    for mode, epochs in (('tree', 2), ('merge', 2)):
+      t0 = time.perf_counter()
+      rep[mode] = tiered_training(torch, gtt, ds, tds, pool, device, mode,
+                                  caps, smi, steps, chunk, epochs)
+      rep[mode]['phase_s'] = time.perf_counter() - t0
+      gc.collect()
+    del tds, store
+    gc.collect()
+    t0 = time.perf_counter()
+    rep['papers'] = papers_tiered_path(torch, gtt, device, smi,
+                                       f'{tmp}/papers')
+    rep['papers']['phase_s'] = time.perf_counter() - t0
+    gc.collect()
+    if cuda:
+      torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep['serving'] = tiered_serving(torch, gtt, ds, device, topo, smi,
+                                    f'{tmp}/serving')
+    rep['serving']['phase_s'] = time.perf_counter() - t0
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  return rep
+
+
 def probe_phase(torch, device, reps, smi, profile=False):
   """Both probe suites at their sizes (their kernels' launch counters set
   to 0 before and read after), then the two probe kernels against their
@@ -3735,6 +4287,14 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('hot_cold')
+  t0 = time.perf_counter()
+  report['tiered'] = tiered_phase(torch, gtt, ds, topo, feats, device, caps,
+                                  smi)
+  report['tiered']['phase_s'] = time.perf_counter() - t0
+  log(f'tiered phase wall {report["tiered"]["phase_s"]:.1f} s')
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('tiered')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   phase_done('probes')
   ktab = report['kernels']
@@ -3754,6 +4314,10 @@ def main(argv=None):
   paths += [report[p][r]['launches'] for p in ('link', 'subgraph', 'legacy')
             for r in report[p]]
   paths += [report['hot_cold'][p]['launches'] for p in ('papers', 'tables')]
+  paths += [report['tiered'][p]['launches'] for p in ('tree', 'merge',
+                                                       'papers')]
+  paths += [report['tiered']['serving'][s]['launches']
+            for s in ('tiered', 'restart_tiered', 'restart')]
   launches = {k: sum(c[k] for c in paths) for k in paths[0]}
   launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
                                   launches['row_gather_probe_vector'])

@@ -3,16 +3,18 @@
 It runs the JAX package's sampled GraphSAGE pipeline (``NeighborLoader``
 -> ``NeighborSampler`` -> ``collate_batch`` -> layered ``GraphSAGE``), its
 training entry points (``models.train``; ``loader.ScanTrainer``,
-``RunTrainer`` and ``OverlappedTrainer``; ``recovery.ChunkCheckpointer``)
-and its embedding-serving tier (``serving``: full-graph materializer,
-``EmbeddingStore``, ``ServingEngine``) on an NVIDIA GPU, with the TPU
-kernels of those paths rewritten by hand in CUDA (``csrc/``). The JAX
+``RunTrainer`` and ``OverlappedTrainer``; ``recovery.ChunkCheckpointer``),
+its embedding-serving tier (``serving``: full-graph materializer,
+``EmbeddingStore``, ``ServingEngine``) and its out-of-core feature store
+(``storage``: ``TieredFeature``, ``TieredScanTrainer``) on an NVIDIA GPU,
+with the TPU kernels of those paths rewritten by hand in CUDA
+(``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry
 stream give the same ids, masks and counts. This package imports torch
 and numpy, never jax. Entry points run on the card
 (``device=None``) unless the caller passes ``device='cpu'``.
 """
 from . import (data, loader, metrics, models, ops, random, recovery, sampler,
-               serving, typing, utils)
+               serving, storage, typing, utils)
 
 __version__ = '0.1.0'

@@ -13,11 +13,21 @@ fanouts [5, 5], batch 256, the layered segment forward, Adam at 3e-3;
 the hot hit rate counts real lookups only (FILL pads read storage row 0,
 always hot, and are left out).
 
-The three-tier mode (``--spill-dir``: a disk tier under a tiered scanned
-trainer) comes with the port's ``storage`` layer and raises here.
+The three-tier mode (``--spill-dir DIR``), as the JAX example's
+``main_tiered``: the features span the device (``--hot-gb``), host RAM
+(``--warm-gb``) and memory-mapped chunk files under DIR (the rest), in a
+``storage.TieredFeature`` sorted hot-first; one reactive tiered batch
+(the JAX example's template batch), then one epoch of
+``storage.TieredScanTrainer`` (``--chunk-size`` K; its chunks captured
+as CUDA graphs on the card) truncated to ``--steps`` steps over the tree
+engine's random hops. The prologue plans the epoch's exact disk miss set
+and a staging worker feeds each chunk ahead of the device. Its JSON line
+carries the JAX example's keys (``tiers``, ``staged_rows``,
+``prefetch_miss``, ``prefetch_hit_rate``, ``plan``, ``epoch_wall_s``).
 
 Run on the card:  python -m graphlearn_tpu_torch.examples.train_sage_papers_scale
 On the CPU:       ... --device cpu --num-nodes 20000 --hot-gb 0.004
+Three tiers:      ... --spill-dir DIR [--warm-gb 1.0 --chunk-size 8]
 """
 import argparse
 import json
@@ -52,11 +62,6 @@ def build(args, device):
   tail), as the JAX example builds them; ``info`` holds the split, the
   hot row count and the host build time."""
   import graphlearn_tpu_torch as gtt
-  if args.spill_dir is not None:
-    raise NotImplementedError(
-        'the three-tier mode (--spill-dir: a disk tier under '
-        'TieredScanTrainer) comes with the port\'s storage layer '
-        '(ROADMAP queue A item 4b)')
   t0 = time.perf_counter()
   rng = np.random.default_rng(0)
   n = args.num_nodes
@@ -105,13 +110,115 @@ def hit_rate(node_sets, id2index, hot: int) -> float:
   return hits / max(total, 1)
 
 
+def build_tiered(args, device):
+  """``(dataset, loader, info)`` of the three-tier mode, as the JAX
+  example's ``main_tiered`` builds them: the same synthetic, its rows
+  sorted hot-first by in-degree into a ``TieredFeature`` whose cold tail
+  is spilled under ``--spill-dir``, and the tree loader (default hops)
+  over 1% of the nodes."""
+  import graphlearn_tpu_torch as gtt
+  t0 = time.perf_counter()
+  rng = np.random.default_rng(0)
+  n = args.num_nodes
+  rows, cols, feat, label = make_graph(n, args.avg_deg, args.feat_dim, rng)
+  feat_gb = feat.nbytes / (1 << 30)
+  row_gb = args.feat_dim * 4 / (1 << 30)
+  hot = min(n, int(args.hot_gb / row_gb))
+  warm = min(n - hot, int(args.warm_gb / row_gb))
+  if hot + warm >= n:
+    raise ValueError('pick --num-nodes/--hot-gb/--warm-gb so the disk tier '
+                     'is non-empty')
+  ds = gtt.data.Dataset(device=device)
+  ds.init_graph(np.stack([rows, cols]), num_nodes=n, graph_mode='HBM')
+  reordered, id2idx = gtt.data.sort_by_in_degree(feat, hot / n,
+                                                 ds.graph.topo)
+  del feat
+  ds.node_features = gtt.storage.TieredFeature(
+      reordered, hot_rows=hot, warm_rows=warm, id2index=id2idx,
+      spill_dir=args.spill_dir, device=device)
+  del reordered
+  ds.init_node_labels(label)
+  loader = gtt.loader.NeighborLoader(
+      ds, args.fanout, rng.integers(0, n, n // 100),
+      batch_size=args.batch_size, shuffle=True, drop_last=True, seed=0,
+      dedup='tree', to_device=device)
+  info = dict(num_nodes=n, feat_gb=feat_gb, build_s=time.perf_counter() - t0)
+  return ds, loader, info
+
+
+def run_tiered(args, params=None, on_trainer=None):
+  """The three-tier mode: one reactive batch (the JAX example's template
+  batch), then one ``TieredScanTrainer`` epoch of at most ``--steps``
+  steps. Returns ``(result, losses)``. ``on_trainer(trainer)`` is called
+  before the epoch (to attach hooks, a checkpointer)."""
+  import torch
+
+  import graphlearn_tpu_torch as gtt
+  from graphlearn_tpu_torch import metrics
+  from graphlearn_tpu_torch.models import convert
+  from graphlearn_tpu_torch.models import train as train_lib
+  from graphlearn_tpu_torch.utils import resolve_device
+  device = resolve_device(args.device)
+  cuda = device.type == 'cuda'
+  c0 = metrics.default_registry().counters('storage.')
+  ds, loader, info = build_tiered(args, device)
+  occ = ds.node_features.tier_occupancy()
+  print(f'# features {info["feat_gb"]:.1f} GB -> tiers hot={occ["hot"]} '
+        f'warm={occ["warm"]} disk={occ["disk"]} rows; built in '
+        f'{info["build_s"]:.1f}s', flush=True)
+  # the model: hidden 64, 16 classes, one layer per hop, the segment
+  # forward (the JAX example's GraphSAGE without hop offsets)
+  model = gtt.models.GraphSAGE(
+      args.feat_dim, HIDDEN, NUM_CLASSES, num_layers=len(args.fanout),
+      device=device, generator=torch.Generator().manual_seed(args.seed))
+  if params is not None:
+    model.load_state_dict(convert.params_from_flax(params))
+  model.train()
+  next(iter(loader))   # one reactive tiered batch, as JAX's template
+  state = train_lib.create_train_state(model, lr=args.lr)
+  trainer = gtt.storage.TieredScanTrainer(loader, model, NUM_CLASSES,
+                                          chunk_size=args.chunk_size)
+  if on_trainer is not None:
+    on_trainer(trainer)
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  sync()
+  t0 = time.perf_counter()
+  try:
+    state, losses, _ = trainer.run_epoch(state, max_steps=args.steps)
+    sync()
+    dt = time.perf_counter() - t0
+  finally:
+    trainer.close()
+  c1 = metrics.default_registry().counters('storage.')
+  staged = c1.get('storage.staged_rows', 0) - c0.get('storage.staged_rows', 0)
+  missed = (c1.get('storage.prefetch_miss', 0) -
+            c0.get('storage.prefetch_miss', 0))
+  losses = losses.cpu().tolist()
+  result = {
+      'device': torch.cuda.get_device_name(device) if cuda else 'cpu',
+      'num_nodes': info['num_nodes'], 'feat_gb': round(info['feat_gb'], 2),
+      'tiers': occ, 'steps': len(losses),
+      'final_loss': round(losses[-1], 4), 'epoch_wall_s': round(dt, 3),
+      'ms_per_step': round(dt * 1e3 / max(len(losses), 1), 3),
+      'staged_rows': int(staged), 'prefetch_miss': int(missed),
+      'prefetch_hit_rate': round(staged / max(staged + missed, 1), 4),
+      'plan': trainer.last_plan.stats(),
+      'timing': 'wall, host clock around the epoch ending in a '
+                'device synchronize (the plan prologue included)',
+  }
+  return result, losses
+
+
 def run(args, params=None):
   """Train as the JAX example does: the loader's first batch takes one
   (warm-up) step, then ``--steps`` timed steps. Returns ``(result,
   losses)`` with every step's loss (the warm-up's first) as floats.
   ``params``: flax parameters to start from (numpy leaves; default:
-  torch's initialisation from ``--seed``)."""
+  torch's initialisation from ``--seed``). With ``--spill-dir`` this is
+  the three-tier mode (:func:`run_tiered`)."""
   import torch
+  if args.spill_dir is not None:
+    return run_tiered(args, params)
 
   from graphlearn_tpu_torch.models import convert
   from graphlearn_tpu_torch.models import train as train_lib
@@ -166,7 +273,14 @@ def parser():
   ap.add_argument('--batch-size', type=int, default=256)
   ap.add_argument('--fanout', type=int, nargs='+', default=[5, 5])
   ap.add_argument('--spill-dir', default=None,
-                  help='three-tier mode: not ported yet (raises)')
+                  help='three-tier mode: spill the cold tail to '
+                       'memory-mapped chunk files here and run one scanned '
+                       'epoch over a TieredFeature (TieredScanTrainer)')
+  ap.add_argument('--warm-gb', type=float, default=1.0,
+                  help='host-RAM budget for the warm tier (three-tier mode '
+                       'only)')
+  ap.add_argument('--chunk-size', type=int, default=8,
+                  help='scan chunk K (three-tier mode only)')
   ap.add_argument('--lr', type=float, default=3e-3)
   ap.add_argument('--seed', type=int, default=0,
                   help='seed of the initial weights')

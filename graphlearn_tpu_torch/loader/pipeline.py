@@ -71,21 +71,27 @@ class FusedEpochTrainer:
     if seed_labels_only is None:
       seed_labels_only = loader.seed_labels_only
     self._label_cap = self._batch_size if seed_labels_only else None
-    dt = (loader.data.node_features.device_table()
-          if loader.data.node_features is not None else None)
-    if dt is None:
-      # a store with a host part is never read inside a captured chunk:
-      # its hot/cold epoch is the tiered trainer's (ROADMAP item 4b)
-      raise ValueError(f'{self._NAME} needs a device-resident '
-                       'feature table (Feature on HBM), or the tiered '
-                       'trainer (storage.TieredScanTrainer) for an '
-                       'out-of-core TieredFeature')
-    self._feats, self._id2i = dt
+    self._feats, self._id2i = self._resolve_feature_tables(loader)
     self._labels = loader.data.node_labels
     if self._labels is None:
       raise ValueError(f'{self._NAME} needs node labels')
     self._train_step, _ = train_lib.make_train_step(model, num_classes)
     self._sample_collate = self._make_sample_collate_body()
+
+  def _resolve_feature_tables(self, loader):
+    """``(feats, id2index)``: the device tables the sample+collate body
+    gathers from. Here an all-device table; the tiered trainer
+    (``storage.TieredScanTrainer``) supplies a ``TieredFeature``'s hot
+    prefix and gathers the rest from its staged slabs."""
+    dt = (loader.data.node_features.device_table()
+          if loader.data.node_features is not None else None)
+    if dt is None:
+      # a store with a host part is not read inside a captured chunk
+      raise ValueError(f'{self._NAME} needs a device-resident '
+                       'feature table (Feature on HBM), or the tiered '
+                       'trainer (storage.TieredScanTrainer) for an '
+                       'out-of-core TieredFeature')
+    return dt
 
   def _make_sample_collate_body(self):
     """``(seeds, seed_mask, hop_keys) -> (batch, overflow)``: one batch

@@ -326,6 +326,7 @@ class ScanTrainer(FusedEpochTrainer):
         # with capture, the first chunk runs eagerly: the warm-up
         run = self._chunk if self._static is None else self._replay
         loss, acc, overflow, _ = run(state, **args)
+        self._chunk_enqueued(c)
         if self.capture and self._static is None:
           self._static = {
               n: (t.new_zeros((self.chunk_size,) + t.shape[1:])
@@ -352,6 +353,10 @@ class ScanTrainer(FusedEpochTrainer):
 
   def _end_run(self):
     """After a run's last chunk (nothing here)."""
+
+  def _chunk_enqueued(self, c: int):
+    """Right after chunk ``c`` is enqueued (nothing here; the tiered
+    trainer releases the chunk's staged slab)."""
 
   def _carry(self, **carry) -> dict:
     """The boundary carry an ``ack_hook`` reads."""

@@ -8,15 +8,21 @@ single-replica.
   over an :class:`EmbeddingStore`, with final-layer refresh of stale
   nodes and ``serving.*`` metrics. With ``set_kernel_routing(
   use_pallas_v2=True)`` the store's lookup is the gather-v2 kernel.
+- Beyond the device: ``EmbeddingMaterializer(spill_dir=)`` writes each
+  layer pass to a disk tier, :class:`TieredEmbeddingStore` serves the
+  spilled table from a ``storage.TieredFeature`` and
+  :func:`warm_embedding_store` reopens it after a restart.
 
 Both halves run the model through ``models.train.make_layer_slice_fn``,
 slices of the same forward as sampled inference.
 """
 from .engine import DEFAULT_BUCKETS, ServingEngine
-from .materialize import EmbeddingMaterializer, padded_neighbors
-from .store import EmbeddingStore
+from .materialize import (EmbeddingMaterializer, padded_neighbors,
+                          warm_embedding_store)
+from .store import EmbeddingStore, TieredEmbeddingStore
 
 __all__ = [
     'DEFAULT_BUCKETS', 'EmbeddingMaterializer', 'EmbeddingStore',
-    'ServingEngine', 'padded_neighbors',
+    'ServingEngine', 'TieredEmbeddingStore', 'padded_neighbors',
+    'warm_embedding_store',
 ]

@@ -22,9 +22,19 @@ multi-hop forward per request.
   ``models.train.make_layer_slice_fn`` — a slice of the model's own
   segment forward — so served and trained models cannot drift.
 
-The heterogeneous passes, the spill to disk tiers, and the tiered,
-distributed and warm-start stores come with later slices.
+- **Spill to disk.** With ``spill_dir`` every completed layer pass also
+  lands on disk as a memory-mapped ``storage.DiskTier`` (``pass_<layer>``,
+  the JAX package's layout), a durable copy of the store version: the
+  final table serves beyond the device through
+  :meth:`EmbeddingMaterializer.tiered_embedding_store`, and after a
+  restart :func:`warm_embedding_store` reopens it without
+  rematerializing.
+
+The heterogeneous passes and the distributed store come with later
+slices.
 """
+import os
+import re
 from typing import Optional
 
 import numpy as np
@@ -34,7 +44,7 @@ from ..models import train as train_lib
 from ..models.models import GraphSAGE
 from ..ops.gather import gather_rows_hbm
 from ..utils import resolve_device
-from .store import EmbeddingStore, pow2_cap
+from .store import EmbeddingStore, TieredEmbeddingStore, pow2_cap
 
 
 def padded_neighbors(topo, neighbor_cap: Optional[int] = None):
@@ -82,13 +92,16 @@ class EmbeddingMaterializer:
     chunk_size: K, blocks per chunk.
     neighbor_cap: optional per-node neighbour truncation (approximate
       serving; None = exact full-neighbour width).
+    spill_dir: optional directory every completed layer pass is written
+      to as a disk tier (``spilled`` maps the pass label to its tier).
 
   ``materialize()`` returns the final-layer table; the penultimate store
   stays on the instance for :meth:`refresh_rows`.
   """
 
   def __init__(self, dataset, model, *, block_size: int = 128,
-               chunk_size: int = 8, neighbor_cap: Optional[int] = None):
+               chunk_size: int = 8, neighbor_cap: Optional[int] = None,
+               spill_dir: Optional[str] = None):
     if block_size < 1 or chunk_size < 1:
       raise ValueError('block_size and chunk_size must be >= 1')
     if not isinstance(model, GraphSAGE) or not model.segment:
@@ -110,6 +123,8 @@ class EmbeddingMaterializer:
     self.block_size = int(block_size)
     self.chunk_size = int(chunk_size)
     self.neighbor_cap = neighbor_cap
+    self.spill_dir = spill_dir
+    self.spilled = {}     # pass label -> storage.DiskTier
     self.num_layers = int(model.num_layers)
     self._embeddings = None
     self._penultimate = None
@@ -192,8 +207,17 @@ class EmbeddingMaterializer:
       if layer == self.num_layers - 1:
         self._penultimate = prev
       prev = self._layer_pass(layer, prev)
+      if self.spill_dir is not None:
+        self._spill_pass(str(layer), prev)
     self._embeddings = prev
     return prev
+
+  def _spill_pass(self, label: str, out: torch.Tensor):
+    """Write a completed pass's output store to its disk tier."""
+    from ..storage.disk import spill_array
+    safe = label.replace('/', '_').replace(' ', '_')
+    self.spilled[label] = spill_array(
+        os.path.join(self.spill_dir, f'pass_{safe}'), out.cpu().numpy())
 
   @property
   def embeddings(self) -> torch.Tensor:
@@ -206,6 +230,25 @@ class EmbeddingMaterializer:
     real node count, so block padding stays behind the engine's id
     validation. The store writes refreshes into this same table."""
     return EmbeddingStore(self.embeddings, num_nodes=self.num_nodes)
+
+  def tiered_embedding_store(self, hot_rows: int = 0, warm_rows: int = 0,
+                             **kwargs) -> TieredEmbeddingStore:
+    """The spilled final-layer table as a ``TieredEmbeddingStore``:
+    ``hot_rows`` on the device, ``warm_rows`` in host RAM, the rest served
+    from the memory-mapped spill (needs ``spill_dir``). ``kwargs`` go to
+    ``storage.TieredFeature`` (its device defaults to the
+    materializer's)."""
+    from ..storage.tiered import TieredFeature
+    if self.spill_dir is None:
+      raise ValueError('tiered_embedding_store needs '
+                       'EmbeddingMaterializer(..., spill_dir=...)')
+    if self._embeddings is None:
+      raise RuntimeError('call materialize() first')
+    kwargs.setdefault('device', self.device)
+    tier = self.spilled[str(self.num_layers - 1)]
+    tf = TieredFeature(tier, hot_rows=hot_rows, warm_rows=warm_rows,
+                       **kwargs)
+    return TieredEmbeddingStore(tf, num_nodes=self.num_nodes)
 
   # ------------------------------------------------------------ refresh
 
@@ -235,3 +278,49 @@ class EmbeddingMaterializer:
     slice_fn = train_lib.make_layer_slice_fn(self.model, last, last + 1)
     h = slice_fn(dict(x=x, edge_index=self._refresh_ei[cap], edge_mask=em))
     return h[:ids.size].cpu().numpy()
+
+
+def warm_embedding_store(spill_dir: str, num_nodes: int, *,
+                         hot_rows: Optional[int] = None,
+                         warm_rows: int = 0,
+                         pass_label: Optional[str] = None, device=None):
+  """The serving restart path: a store rebuilt from the spilled
+  final-layer tier on disk, without rematerializing.
+
+  Args:
+    spill_dir: the materializer's spill directory (either package's).
+    num_nodes: the real node count (the spilled table carries block-pad
+      rows, which must stay behind the engine's id validation).
+    hot_rows: None loads the whole table to the device (an
+      ``EmbeddingStore``); otherwise a ``TieredEmbeddingStore`` with this
+      hot prefix and ``warm_rows`` in host RAM.
+    pass_label: the spilled pass to serve (default: the highest-numbered
+      ``pass_<n>``, the final layer).
+    device: the store's device (None means the card).
+  """
+  from ..storage.disk import DiskTier
+  from ..storage.tiered import TieredFeature
+  if pass_label is None:
+    passes = sorted(
+        int(m.group(1)) for m in
+        (re.match(r'^pass_(\d+)$', d) for d in os.listdir(spill_dir)) if m)
+    if not passes:
+      spilled = sorted(d for d in os.listdir(spill_dir)
+                       if d.startswith('pass_'))
+      raise FileNotFoundError(
+          f'no numeric pass_<n> tier under {spill_dir!r} '
+          f'(found: {spilled or "nothing"}): the materializer ran without '
+          'spill_dir, or the spill holds per-type labels; pass the '
+          'pass_label of the store to serve')
+    pass_label = str(passes[-1])
+  safe = str(pass_label).replace('/', '_').replace(' ', '_')
+  tier = DiskTier(os.path.join(spill_dir, f'pass_{safe}'))
+  if num_nodes > tier.shape[0]:
+    raise ValueError(f'num_nodes={num_nodes} exceeds the spilled table '
+                     f'height {tier.shape[0]}')
+  if hot_rows is None:
+    table = tier.gather(np.arange(tier.shape[0], dtype=np.int64))
+    return EmbeddingStore(table, num_nodes=num_nodes, device=device)
+  tf = TieredFeature(tier, hot_rows=hot_rows, warm_rows=warm_rows,
+                     device=device)
+  return TieredEmbeddingStore(tf, num_nodes=num_nodes)

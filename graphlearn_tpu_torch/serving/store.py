@@ -5,8 +5,10 @@ Counterpart of ``graphlearn_tpu/serving/store.py`` (``pow2_cap``,
 ``lookup(ids, mask) -> rows`` surface. With ``set_kernel_routing(
 use_pallas_v2=True)`` every lookup goes through the run-segmented
 gather-v2 kernel (``ops.gather_rows_hbm2``) at any row width; without
-routing it is plain indexing, as in the JAX package. The tiered and
-distributed stores come with the storage and distributed slices.
+routing it is plain indexing, as in the JAX package.
+``TieredEmbeddingStore`` serves a table beyond the device from a
+``storage.TieredFeature``. The distributed store comes with the
+distributed slice.
 """
 from typing import Optional
 
@@ -103,3 +105,49 @@ class EmbeddingStore:
     vals = torch.as_tensor(np.asarray(rows)).to(self.device,
                                                 self._emb.dtype)
     self._emb[torch.as_tensor(ids).to(self.device)] = vals
+
+
+class TieredEmbeddingStore:
+  """Embedding store beyond the device: the materialized table lives in a
+  ``storage.TieredFeature`` (device hot prefix, host RAM, disk), so a
+  table larger than device memory still serves. Hot and warm rows come
+  from one launch of the hot/cold kernel on a card; disk rows are read on
+  the host and shipped in one pinned copy. The engine's ids arrive on the
+  host, so a lookup makes no host sync. Pair it with
+  ``EmbeddingMaterializer(..., spill_dir=...)`` and
+  ``tiered_embedding_store(...)``.
+
+  Immutable, as in JAX: stale rows are refreshed by materializing again
+  and rotating the spill, not by in-place writes (the hot tier is on the
+  device, the rest on the host, and a write-through across tiers would
+  race the staging).
+  """
+
+  granularity = 1
+
+  def __init__(self, tiered_feature, num_nodes: Optional[int] = None):
+    self.tf = tiered_feature
+    self.num_nodes = int(num_nodes if num_nodes is not None
+                         else tiered_feature.size)
+    self.device = tiered_feature.device
+
+  @property
+  def feature_dim(self) -> int:
+    return int(self.tf.shape[1])
+
+  def lookup(self, ids, mask) -> torch.Tensor:
+    """``[cap]`` padded host ids (-1 pads, mask False) -> ``[cap, F]``
+    device rows, pad slots zeroed, as ``EmbeddingStore.lookup``."""
+    rows = self.tf[np.asarray(ids)]
+    mask = torch.as_tensor(np.asarray(mask, bool))
+    if rows.device.type == 'cuda':
+      mask = mask.pin_memory().to(rows.device, non_blocking=True)
+    return rows.masked_fill_(~mask[:, None], 0)
+
+  def fetch(self, rows) -> np.ndarray:
+    return rows.cpu().numpy()
+
+  def update_rows(self, ids, rows):
+    raise NotImplementedError(
+        'TieredEmbeddingStore rows are immutable: materialize again with '
+        'EmbeddingMaterializer(..., spill_dir=...) and rotate the spill')

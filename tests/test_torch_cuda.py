@@ -48,11 +48,19 @@ bytes; f32, bf16, f16, int32; int32 and int64 ids), unmapped rows
 refused, a mapped tail freed after its last launch and mapped again, a
 hot/cold ``Feature`` on the card against the CPU's with no host sync in
 the lookup, the in-process IPC round trip, the spawned two-worker
-``feature_mp`` run and hot/cold loader batches against the CPU's.
+``feature_mp`` run and hot/cold loader batches against the CPU's; and
+the tiered store: a captured ``TieredScanTrainer`` over a ring of two
+slots against the eager one and the all-device ``ScanTrainer`` (plans
+exact, the last chunk's ``x`` bit-equal, losses exact on tree), one host
+sync a tiered epoch (the plan fetch), a staging slot not refilled before
+its copy's event, and the reactive tiered lookup against the CPU's (one
+sync for device ids with a disk tier, none for host ids, the warm
+block's mapping released after its last launch).
 """
 import contextlib
 import copy
 import gc
+import time
 
 import numpy as np
 import pytest
@@ -1545,3 +1553,218 @@ def test_hot_cold_loader_on_card_matches_cpu(cuda, dedup):
       assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
   assert counts['gather_unified'] == len(outs['cuda'])
   assert counts['gather_rows'] == 0
+
+
+# ------------------------------------------------------- the tiered store
+
+
+def _tiered_ds(s, spill_dir, hot=500, warm=500):
+  """``_Small``'s dataset with its features in a TieredFeature: ``hot``
+  rows on the card, ``warm`` mapped on the host, the rest on disk."""
+  feat = s.ds.node_features.feature_array
+  return gtt.data.Dataset(
+      graph=s.ds.graph, node_labels=s.ds.node_labels, device=s.cuda,
+      node_features=gtt.storage.TieredFeature(
+          feat, hot_rows=hot, warm_rows=warm, spill_dir=str(spill_dir),
+          device=s.cuda))
+
+
+class _SmallTiered(_Small):
+  """``_Small`` whose loaders read a TieredFeature (500 hot, 500 warm and
+  1,000 disk rows of 2,000)."""
+
+  def __init__(self, cuda, mode, spill_dir, shuffle=True):
+    super().__init__(cuda, mode, shuffle)
+    self.all_device = self.ds
+    self.ds = _tiered_ds(self, spill_dir)
+
+
+def _last_chunk_x(tr, steps, epoch):
+  """Each step's ``x`` of the epoch's last chunk (k = 1), rebuilt with
+  the trainer's own body (the tiered one reads the slab the chunk left
+  in its static buffers)."""
+  seeds, mask = tr._epoch_seeds(gtt.random.fold_in(tr._perm_key, epoch),
+                                steps)
+  count0 = tr._sampler._call_count - steps + 1
+  keys = gtt.random.step_keys_plain(
+      tr._sampler._key, count0 + torch.arange(steps, dtype=torch.int64),
+      len(tr._sampler.num_neighbors)).to(tr.loader.device)
+  batch, _ = tr._sample_collate(seeds[-1], mask[-1], keys[-1])
+  return batch['x']
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_tiered_captured_epoch_matches_eager_and_all_device(cuda, mode,
+                                                            tmp_path):
+  """A captured TieredScanTrainer (chunks of 1, a ring of two slots, so
+  every slot is refilled after its ack) against the eager tiered one and
+  the captured all-device ScanTrainer from one start, over two epochs:
+  the plans exact between captured and eager, the last chunk's ``x``
+  bit-equal to the all-device gather, losses exact (tree) or within
+  rtol 1e-4 (merge: the backward's atomics), one step-keys launch a
+  chunk plus the plan's, no degraded staging."""
+  s = _SmallTiered(cuda, mode, tmp_path / 'sp')
+  cap, cstate = s.trainer(gtt.storage.TieredScanTrainer, chunk_size=1,
+                          max_ahead=1)
+  eag, estate = s.trainer(gtt.storage.TieredScanTrainer, chunk_size=1,
+                          max_ahead=1, capture=False)
+  tiered_ds, s.ds = s.ds, s.all_device
+  ref, rstate = s.trainer(gtt.loader.ScanTrainer, chunk_size=1)
+  s.ds = tiered_ds
+  assert cap.capture and not eag.capture and ref.capture
+  for epoch in range(2):
+    ops.reset_launch_counts()
+    cstate, closs, _ = cap.run_epoch(cstate)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    estate, eloss, _ = eag.run_epoch(estate)
+    rstate, rloss, _ = ref.run_epoch(rstate)
+    torch.cuda.synchronize()
+    for a, b in zip(cap.last_plan.chunk_rows, eag.last_plan.chunk_rows):
+      np.testing.assert_array_equal(a, b)
+    assert cap.last_plan.num_chunks == 4
+    assert counts['step_keys'] == 4 + 1      # the chunks' and the plan's
+    assert not cap._stager.degraded and not eag._stager.degraded
+    assert cap._stager.refills and all(d for _, d in cap._stager.refills)
+    if mode == 'tree':
+      assert torch.equal(closs, rloss)
+    torch.testing.assert_close(closs, rloss, rtol=1e-4, atol=0)
+    torch.testing.assert_close(closs, eloss, rtol=1e-4, atol=0)
+    assert torch.equal(_last_chunk_x(cap, 4, epoch),
+                       _last_chunk_x(ref, 4, epoch))
+  assert sorted(cap._graphs) == [1] and cap.slab_bytes > 0
+  timings = cap.chunk_timings()
+  assert len(timings) == 4 and all(t['device_ms'] > 0 for t in timings)
+  _close_params(cap.model, ref.model)
+  for tr in (cap, eag):
+    tr.close()
+
+
+def test_tiered_epoch_syncs_once_for_its_plan(cuda, tmp_path):
+  """A replayed tiered epoch makes one host sync, the plan fetch: under
+  ``set_sync_debug_mode('warn')`` it is the only one counted, and with
+  the fetch let through the whole epoch runs under 'error'."""
+  import warnings
+  s = _SmallTiered(cuda, 'tree', tmp_path / 'sp')
+  tr, state = s.trainer(gtt.storage.TieredScanTrainer, chunk_size=2)
+  state, _, _ = tr.run_epoch(state)        # warm-up and captures
+  torch.cuda.synchronize()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+      state, _, _ = tr.run_epoch(state)
+    finally:
+      torch.cuda.set_sync_debug_mode('default')
+  syncs = [w for w in caught if 'synchroniz' in str(w.message).lower()
+           and 'prototype' not in str(w.message)]
+  assert len(syncs) == 1, [str(w.message) for w in syncs]
+  fetch = tr._fetch_plan_rows
+
+  def fetch_allowed(rows):
+    torch.cuda.set_sync_debug_mode('default')
+    try:
+      return fetch(rows)
+    finally:
+      torch.cuda.set_sync_debug_mode('error')
+
+  tr._fetch_plan_rows = fetch_allowed
+  torch.cuda.synchronize()
+  with _no_sync_allowed():
+    state, losses, _ = tr.run_epoch(state)
+  torch.cuda.synchronize()
+  assert bool(torch.isfinite(losses).all()) and state.step == 12
+  tr.close()
+
+
+def test_staging_slot_waits_for_its_copy_event(cuda, tmp_path):
+  """H7a on the card: a slab copied to the device behind a long kernel
+  and acked with the copy's event; the chunk that shares its slot is not
+  staged until the event has completed, and the device copy holds the
+  first slab's bytes, not the refill's."""
+  feat = np.random.default_rng(5).standard_normal((64, 4)).astype(
+      np.float32)
+  tf = gtt.storage.TieredFeature(feat, hot_rows=8, warm_rows=8,
+                                 spill_dir=str(tmp_path / 'sp'), device=cuda)
+  plan = [np.arange(16, 24), np.arange(24, 32), np.arange(40, 48)]
+  stager = gtt.storage.ChunkStager(tf, max_ahead=1, timeout_s=30.0)
+  stager.begin_epoch(plan)
+  ids0, rows0 = stager.take(0)
+  assert rows0.is_pinned() and ids0.is_pinned()
+  dst = torch.empty(rows0.shape, device=cuda)
+  torch.cuda._sleep(2_000_000_000)           # ~1 s of spin ahead of it
+  dst.copy_(rows0, non_blocking=True)
+  ev = torch.cuda.Event()
+  ev.record()
+  stager.ack(0, ev)
+  stager.take(1)                             # submits chunk 2 (slot 0)
+  time.sleep(0.2)
+  assert not ev.query() and 2 not in stager.stage_done_t
+  ids2, rows2 = stager.take(2)               # staged once the event is done
+  assert ev.query() and not stager.degraded
+  assert ids2.data_ptr() == ids0.data_ptr()
+  torch.cuda.synchronize()
+  assert torch.equal(dst.cpu(), torch.from_numpy(feat[16:24]))
+  assert torch.equal(rows2, torch.from_numpy(feat[40:48]))
+  stager.close()
+
+
+def test_tiered_feature_on_card_matches_cpu(cuda, tmp_path):
+  """The reactive lookup on the card (FILL pads, a degree reorder, ids
+  past the table): equal to the CPU store's rows; device ids cost one
+  host sync with a disk tier, host ids none, one hot/cold launch a
+  lookup; the warm block's mapping is released after its last launch."""
+  import warnings
+  from graphlearn_tpu_torch.ops import mapped
+  rng = np.random.default_rng(4)
+  n = 3000
+  feat = rng.standard_normal((n, 100)).astype(np.float32)
+  ei = np.stack([rng.integers(0, n, 9000), rng.zipf(1.5, 9000) % n])
+  re, id2index = gtt.data.sort_by_in_degree(
+      feat, 0.2, gtt.data.Topology(ei, num_nodes=n))
+  ids = rng.integers(0, n, 5000)
+  ids[::11] = -1
+  ids[3::97] = n + 4
+  for hot, warm in ((600, 900), (0, 900), (600, 0), (0, 0), (n, 0)):
+    stores = {d: gtt.storage.TieredFeature(
+        re, hot_rows=hot, warm_rows=warm, id2index=id2index,
+        spill_dir=str(tmp_path / f'{d}{hot}_{warm}'), device=d)
+              for d in ('cuda', 'cpu')}
+    card = stores['cuda']
+    card.lazy_init()                         # placing the tiers syncs
+    want = stores['cpu'][ids]
+    ids_dev = torch.as_tensor(ids, device=cuda)
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      torch.cuda.set_sync_debug_mode('warn')
+      try:
+        got = card[ids_dev]
+      finally:
+        torch.cuda.set_sync_debug_mode('default')
+    syncs = [w for w in caught if 'synchroniz' in str(w.message).lower()
+             and 'prototype' not in str(w.message)]
+    assert len(syncs) == int(card.disk_rows > 0)
+    assert card.host_syncs == int(card.disk_rows > 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().isnan(), want.isnan())
+    assert torch.equal(got.cpu().nan_to_num(), want.nan_to_num())
+    valid = ids[(ids >= 0) & (ids < n)]
+    with _no_sync_allowed():
+      got = card[valid]                      # host ids: no sync
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.from_numpy(feat[valid]))
+    assert ops.launch_counts()['gather_unified'] == \
+        (2 if hot + warm else 0)
+  store = gtt.storage.TieredFeature(re, hot_rows=600, warm_rows=900,
+                                    spill_dir=str(tmp_path / 'rel'),
+                                    device=cuda)
+  store.lazy_init()
+  warm_t = store.unified.host_part
+  assert mapped.is_mapped(warm_t)
+  got = store[np.arange(n)]                  # queued; release waits for it
+  del store
+  gc.collect()
+  assert not mapped.is_mapped(warm_t)
+  torch.cuda.synchronize()
+  assert torch.equal(got.cpu(), torch.from_numpy(re))

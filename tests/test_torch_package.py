@@ -3,8 +3,8 @@
 (a) No module of graphlearn_tpu_torch imports jax or graphlearn_tpu.
 (b) No entry point runs on the CPU unless asked: without a GPU, building
     a Dataset, NeighborLoader, NeighborSampler, GraphSAGE (segment, tree
-    or merge forward), EmbeddingStore, EmbeddingMaterializer or
-    ServingEngine with no ``device`` raises, and so do the training
+    or merge forward), Feature, TieredFeature, EmbeddingStore,
+    EmbeddingMaterializer or ServingEngine with no ``device`` raises, and so do the training
     example and the probe suites.
 (c) On CPU tensors the kernel wrappers take their plain versions and the
     launch counters stay 0.
@@ -71,6 +71,13 @@ def test_port_never_imports_jax():
           'graphlearn_tpu_torch.loader.link_neighbor_loader',
           'graphlearn_tpu_torch.loader.subgraph_loader',
           'graphlearn_tpu_torch.examples.graph_sage_unsup'} <= set(expected)
+  # the storage slice's modules too
+  assert {'graphlearn_tpu_torch.storage',
+          'graphlearn_tpu_torch.storage.disk',
+          'graphlearn_tpu_torch.storage.staging',
+          'graphlearn_tpu_torch.storage.planner',
+          'graphlearn_tpu_torch.storage.tiered',
+          'graphlearn_tpu_torch.storage.scan'} <= set(expected)
 
 
 @pytest.fixture
@@ -118,6 +125,8 @@ def test_entry_points_default_to_the_card(no_gpu):
     gtt.data.Graph(ds.graph.topo)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.data.Feature(np.zeros((3, 2), np.float32))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    gtt.storage.TieredFeature(np.zeros((3, 2), np.float32), hot_rows=1)
   # the serving tier: the store's device is its table's (host rows go to
   # the card), the materializer's its dataset's, the engine's its store's
   with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,8 +1,11 @@
 """The port's public calls against the JAX package's.
 
 ``inspect.signature`` of every public class and function of
-``graphlearn_tpu.data``, of the homogeneous loaders and of
-``SamplerOutput`` against the port's: the same parameter names, in the
+``graphlearn_tpu.data``, of the homogeneous loaders, of ``SamplerOutput``,
+of the single-device ``graphlearn_tpu.storage`` API and of the serving
+stack's spill (``EmbeddingMaterializer(spill_dir=)``,
+``tiered_embedding_store``, ``TieredEmbeddingStore``,
+``warm_embedding_store``) against the port's: the same parameter names, in the
 same order, of the same kinds, with the same defaults (annotations are
 not compared). The port's deliberate differences are listed by name
 below (``ROADMAP.md``, "Deliberate divergences"); any other difference
@@ -34,11 +37,29 @@ EXTRA_PARAMS = {
     ('LinkLoader', 'device'): 'device= alias of to_device',
     ('LinkNeighborLoader', 'device'): 'device= alias of to_device',
     ('SubGraphLoader', 'device'): 'device= alias of to_device',
+    # a CUDA graph per chunk length, as the port's ScanTrainer
+    ('TieredScanTrainer', 'capture'): 'captured chunks (ScanTrainer)',
+    # the slot of a slab is handed back once its copy's event completed
+    ('ChunkStager.ack', 'event'): 'the slab copy\'s CUDA event',
+    # entry points run on the card unless the caller asks for the CPU
+    ('warm_embedding_store', 'device'): 'the store\'s device',
 }
 MISSING_PARAMS = {
     # kernels route by device in the port (ROADMAP, deliberate divergences)
     ('NeighborLoader', 'use_fused_hop'): 'kernels route by device',
     ('NeighborLoader', 'fused_hop_window'): 'kernels route by device',
+    # the optimizer lives in the port's TrainState, not beside the model
+    ('TieredScanTrainer', 'tx'): 'Adam is in TrainState',
+    # tuned configs come with tune/ (ROADMAP queue A item 8)
+    ('TieredScanTrainer', 'config'): 'tune/: item 8',
+    # the port's models own their weights
+    ('EmbeddingMaterializer', 'params'): 'the model owns its weights',
+}
+# (qualified name, parameter) -> why the default differs
+OTHER_DEFAULTS = {
+    # JAX resolves None to its chunk default; the port's ScanTrainer
+    # spells it out
+    ('TieredScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
 }
 MISSING_MEMBERS = {
     # a group of more than one device is refused until the distributed
@@ -73,6 +94,9 @@ def assert_same_signature(qual, jfn, tfn):
   assert [p[0] for p in tp] == [p[0] for p in jp], qual
   for (name, jkind, jdef), (_, tkind, tdef) in zip(jp, tp):
     assert jkind == tkind, (qual, name)
+    if (qual, name) in OTHER_DEFAULTS:
+      assert not _same_default(jdef, tdef), (qual, name)
+      continue
     assert _same_default(jdef, tdef), (qual, name, jdef, tdef)
   for (q, name) in EXTRA_PARAMS:
     if q == qual:
@@ -122,6 +146,52 @@ def test_data_package_signatures(name):
     assert_same_signature(name, j, t)
 
 
+# the distributed half of storage comes with the distributed slice
+STORAGE_LATER = ('TieredDistFeature', 'spill_partitions', 'DistChunkStager',
+                 'TieredDistScanTrainer')
+# planner's distributed exchange plan, likewise
+PLANNER_LATER = ('ExchangePlan', 'plan_exchange')
+STORAGE_NAMES = [n for n in _public(glt.storage) if n not in STORAGE_LATER]
+
+
+@pytest.mark.parametrize('name', STORAGE_NAMES)
+def test_storage_package_signatures(name):
+  j = getattr(glt.storage, name)
+  assert hasattr(gtt.storage, name), f'graphlearn_tpu_torch.storage.{name}'
+  t = getattr(gtt.storage, name)
+  if inspect.ismodule(j):
+    for fn in _public(j):
+      if fn in PLANNER_LATER:
+        assert not hasattr(t, fn)
+        continue
+      jf = getattr(j, fn)
+      if inspect.isfunction(jf) and jf.__module__ == j.__name__:
+        assert_same_signature(f'{name}.{fn}', jf, getattr(t, fn))
+      elif inspect.isclass(jf) and jf.__module__ == j.__name__:
+        _compare_class(fn, jf, getattr(t, fn))
+  elif inspect.isclass(j):
+    _compare_class(name, j, t)
+  else:
+    assert_same_signature(name, j, t)
+  assert sorted(_public(gtt.storage)) == STORAGE_NAMES
+
+
+def test_serving_spill_signatures():
+  from graphlearn_tpu.serving import materialize as jmat
+  from graphlearn_tpu.serving import store as jstore
+  assert_same_signature('EmbeddingMaterializer',
+                        jmat.EmbeddingMaterializer.__init__,
+                        gtt.serving.EmbeddingMaterializer.__init__)
+  assert_same_signature(
+      'EmbeddingMaterializer.tiered_embedding_store',
+      jmat.EmbeddingMaterializer.tiered_embedding_store,
+      gtt.serving.EmbeddingMaterializer.tiered_embedding_store)
+  assert_same_signature('warm_embedding_store', jmat.warm_embedding_store,
+                        gtt.serving.warm_embedding_store)
+  _compare_class('TieredEmbeddingStore', jstore.TieredEmbeddingStore,
+                 gtt.serving.TieredEmbeddingStore)
+
+
 LOADERS = ['NodeLoader', 'NeighborLoader', 'LinkLoader',
            'LinkNeighborLoader', 'SubGraphLoader']
 
@@ -138,14 +208,24 @@ def test_sampler_output_signature():
 
 def test_every_named_difference_is_live():
   """A listed difference that no longer differs is struck from the list."""
+  def port_fn(qual, pkg=gtt):
+    head, _, member = qual.partition('.')
+    for mod in (pkg.data, pkg.loader, pkg.storage, pkg.serving):
+      obj = getattr(mod, head, None)
+      if obj is not None:
+        obj = getattr(obj, member) if member else obj
+        return obj.__init__ if inspect.isclass(obj) else obj
+    raise AssertionError(qual)
+
   for (qual, param) in EXTRA_PARAMS:
-    cls = getattr(gtt.data, qual, None) or getattr(gtt.loader, qual)
-    assert param in inspect.signature(cls.__init__).parameters
+    assert param in inspect.signature(port_fn(qual)).parameters
+    assert param not in inspect.signature(port_fn(qual, glt)).parameters
   for (qual, param) in MISSING_PARAMS:
-    assert param not in inspect.signature(
-        getattr(gtt.loader, qual).__init__).parameters
-    assert param in inspect.signature(
-        getattr(glt.loader, qual).__init__).parameters
+    assert param not in inspect.signature(port_fn(qual)).parameters
+    assert param in inspect.signature(port_fn(qual, glt)).parameters
+  for (qual, param) in OTHER_DEFAULTS:
+    assert inspect.signature(port_fn(qual)).parameters[param].default != \
+        inspect.signature(port_fn(qual, glt)).parameters[param].default
 
 
 # ----------------------------------------------- JAX's calls on the port

@@ -11,6 +11,7 @@ package's, on the CPU.
   is, its initial parameters and per-step losses recorded, and the port's
   example from those parameters (``models.convert``): the same losses
   within rtol 1e-4 over the steps compared.
+- the papers example's ``--spill-dir`` three-tier mode runs on the CPU.
 - ``examples/feature_mp.py`` on the CPU: two spawned workers rebuild the
   store from its IPC handle and read exact rows.
 """
@@ -171,10 +172,22 @@ def test_papers_scale_losses_track_the_jax_example(monkeypatch,
   np.testing.assert_allclose(losses, rec['losses'], rtol=1e-4, atol=0)
 
 
-def test_papers_scale_spill_dir_is_not_ported(tmp_path):
-  args = papers.parser().parse_args(['--spill-dir', str(tmp_path),
-                                     '--device', 'cpu'])
-  with pytest.raises(NotImplementedError, match='item 4b'):
+def test_papers_scale_spill_dir_is_not_ported(tmp_path, one_torch_thread):
+  """``--spill-dir`` was refused until the storage slice; it now runs the
+  three-tier mode (its JAX parity: tests/test_torch_storage_scan.py), and
+  refuses a split that leaves the disk tier empty."""
+  argv = ['--num-nodes', '4000', '--feat-dim', '8', '--hot-gb', '0.00005',
+          '--warm-gb', '0.00003', '--steps', '3', '--batch-size', '8',
+          '--chunk-size', '2', '--device', 'cpu']
+  args = papers.parser().parse_args(argv + ['--spill-dir', str(tmp_path)])
+  result, losses = papers.run(args)
+  assert result['steps'] == len(losses) == 3
+  assert result['tiers']['disk'] > 0 and result['plan']['chunks'] == 2
+  assert np.isfinite(losses).all()
+  args = papers.parser().parse_args(
+      argv[:-2] + ['--warm-gb', '1', '--spill-dir', str(tmp_path / 'b'),
+                   '--device', 'cpu'])
+  with pytest.raises(ValueError, match='disk tier'):
     papers.run(args)
 
 
