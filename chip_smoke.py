@@ -7,7 +7,8 @@ CUDA graphs and eager; checkpointed, crashed and resumed; RunTrainer with
 and without an early stop; OverlappedTrainer), the products example's
 other modes (block, padded-window and weighted hops, node_budget, bf16),
 link prediction (the unsupervised example's LinkNeighborLoader and link
-train step), induced subgraphs, the legacy dedup engines, the hot/cold
+train step), induced subgraphs, the legacy dedup engines, typed
+sampling and the IGBH RGNN (inference and training), the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
 the spilled serving stores), and the two probe suites.
@@ -194,7 +195,37 @@ Phases (any failure exits non-zero, and the result line is not printed):
    names; ms per batch. Then one products-width batch ([15, 10, 5] at
    1024) of each legacy engine (``map_table``, ``sort_legacy``; K3, K1),
    equal to a CPU recompute.
-9. The hot/cold feature store. The card's pinned host-to-device rate
+9. The typed path, at the IGBH example's width
+   (``examples/igbh/train_rgnn.py``: its IGBH-shaped synthetic of
+   100,000 papers and 50,000 authors with 64-wide f32 features, built by
+   the port's ``train_rgnn.make_igbh_like``; cites [10, 5], writes
+   [5, 3], rev_writes [3, 2] at batch 512, edge_dir 'out'; caps from
+   ``estimate_hetero_frontier_caps`` over the example's 10,000 train
+   seeds). Typed tree and calibrated merge batches of the example's
+   loader (a warm-up batch, then 4 timed by CUDA events; the launch
+   counters set to 0 before and read after: K3 once per (hop, edge
+   type) plan item, K1 once per featured type; the last batch equal to
+   the CPU's from the same sampler state, ids, masks, counts, features
+   and labels bit for bit; one more batch under torch.profiler, its
+   kernels equal to the counters; the epoch drained, 0 truncated
+   batches); one block (tree) and one weighted (merge) typed batch on a
+   copy of the graph with dyadic edge weights, equal to the CPU's, the
+   draw kernel 2 / 1 times a plan item. ``RGNN`` rsage and rgat (4
+   heads, hidden 128, 2 layers, 16 classes) from one set of weights in
+   the segment, hierarchical and tree-dense forwards over the tree
+   batches and the segment and merge-dense forwards over the merge
+   batches: forward ms per batch, logits finite and within rtol 1e-3,
+   atol 1e-4 of the CPU's (TF32 off), the dense forwards' seed logits
+   within the same of the segment forward's and the hierarchical ones
+   within rtol 1e-5, atol 1e-6 of the full forward's. Training, the
+   example's loop with Adam at 3e-3: 16 steps each of rsage tree-dense,
+   rgat tree-dense and rgat merge-dense (ms/step split into
+   sample+collate and train, peak memory, launches per step as planned;
+   the last step recomputed on the CPU from the card's state before it,
+   as the training phase's; host syncs per step of 4 more steps; one
+   more step under torch.profiler: device ops, busy and idle share, its
+   kernels equal to the counters). The phase's wall time is printed.
+10. The hot/cold feature store. The card's pinned host-to-device rate
    (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
    from HBM, the cold rows read over UVA from the mapped host tail) on
    the storage rows of one [15, 10, 5] x 1024 tree batch over the
@@ -215,7 +246,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    host): one epoch, every batch's ``x`` equal to the table's rows, one
    hot/cold and two hop launches a step; and the store rebuilt in this
    process from its IPC handle, exact.
-10. The tiered store: the script's table sorted by in-degree in a
+11. The tiered store: the script's table sorted by in-degree in a
    ``storage.TieredFeature`` (hot 0.25 on the card, warm 0.25 mapped on
    the host, the rest as npy chunks in a temporary directory, removed at
    the end), training ``GraphSAGE(100, 256, 47)`` (Adam 3e-3) over a
@@ -246,7 +277,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``embedding_store()`` on the serving mix's buckets: equal rows, lookup
    ms p50 and p99, host syncs per lookup (0 for the tiered stores) and
    one hot/cold launch per tiered lookup.
-11. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+12. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -320,6 +351,9 @@ PARAMS_LIMIT = 1e-3
 # launch: `--noise` counts it), so each profiled window idles this long
 # before its calls
 PROFILE_LEAD_S = 0.05
+# ``(label, wall seconds)`` of every profiled window's warm-up call: what
+# the warm-up cycles cost the script
+PROFILE_WARMUPS_S = []
 # the CPU recompute of the loop's last train step (cpu_step_readings),
 # held in parts: the ReLU inputs within PRE_RTOL / PRE_ATOL; the gradients,
 # the CPU following the card's side of 0 at each ReLU input, within rtol
@@ -1119,8 +1153,10 @@ def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
   sync()
   with profile(activities=acts, **kw) as prof:
     if warmup is not None:
+      tw = time.perf_counter()
       warmup()
       sync()
+      PROFILE_WARMUPS_S.append((label, time.perf_counter() - tw))
     time.sleep(lead_s if cuda else 0)
     if warmup is not None:
       prof.step()                # the warm-up cycle ends: recording starts
@@ -1575,7 +1611,23 @@ def count_syncs(torch, fn):
 def relu_input_hooks(model, fn) -> list:
   """Forward hooks on ``model``'s conv layers whose outputs go through a
   ReLU (all but the last): each calls ``fn(layer, output)``, and a
-  returned tensor replaces the output. Returns the hook handles."""
+  returned tensor replaces the output. A typed model's layers
+  (``hetero{l}``) give a dict by node type: ``fn`` sees each type's
+  tensor in turn (types sorted, layers in order), ``layer`` counting
+  them. Returns the hook handles."""
+  if not hasattr(model, 'conv0'):
+    seen = [0]
+
+    def typed(o):
+      out = {}
+      for t in sorted(o):
+        r = fn(seen[0], o[t])
+        seen[0] += 1
+        out[t] = o[t] if r is None else r
+      return out
+
+    return [getattr(model, f'hetero{l}').register_forward_hook(
+        lambda m, i, o: typed(o)) for l in range(model.num_layers - 1)]
   return [getattr(model, f'conv{l}').register_forward_hook(
       lambda m, i, o, l=l: fn(l, o)) for l in range(model.num_layers - 1)]
 
@@ -1638,7 +1690,7 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss,
   make_step(pmodel)[0](pstate, cbatch)
   amodel, astate = cpu_state()
   for p, g in zip(amodel.parameters(), grads):
-    p.grad = g.clone()
+    p.grad = None if g is None else g.clone()
   astate.optimizer.step()
   out = dict(loss=float(loss), cpu_loss=float(closs), pre_diff=0.0,
              pre_fail=[], opposite=0, opposite_max_abs=0.0, grad_share=0.0,
@@ -1658,6 +1710,13 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss,
   for name, p, g, cp, ap, pp in zip(
       names, model.parameters(), grads, cmodel.parameters(),
       amodel.parameters(), pmodel.parameters()):
+    if g is None:
+      # a parameter whose output the loss never reads (a typed model's
+      # conv of a type the head does not read): no gradient on either
+      # device, and no Adam step
+      assert cp.grad is None and pp.grad is None, name
+      assert torch.equal(p.detach().cpu(), ap.detach()), name
+      continue
     cg, p = cp.grad, p.detach().cpu()
     scale = float(cg.abs().max())
     out['grad_share'] = max(out['grad_share'], float(
@@ -1994,10 +2053,14 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
     # device ops per step of a captured epoch, and the port's kernels the
     # profiler saw against the launch counters
     for name, tr in trainers.items():
-      ops.reset_launch_counts()
-      prof = profiled(torch, lambda tr=tr: tr.__setitem__(
-          1, tr[0].run_epoch(tr[1])[0]), 1, device,
-          f'train {mode} ScanTrainer epoch ({name})')
+      def epoch(tr=tr):
+        tr[1] = tr[0].run_epoch(tr[1])[0]
+
+      # an epoch in the profiler's warm-up cycle, then the counters from
+      # 0: a window without one can lose its first device records (C6)
+      prof = profiled(torch, epoch, 1, device,
+                      f'train {mode} ScanTrainer epoch ({name})',
+                      warmup=lambda: (epoch(), ops.reset_launch_counts()))
       counted = {k: v for k, v in ops.launch_counts().items()
                  if k in PORT_KERNELS}
       prof['per_step'] = dict(device_ops=prof['device_ops_per_call'] / steps,
@@ -2730,11 +2793,16 @@ def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi):
     # a profiled third epoch (after the batch: it reseeds a padded table):
     # device busy per step, the profiler's kernels against the counters
     cmodel.train()
-    ops.reset_launch_counts()
     holder = [cstate]
-    prof = profiled(torch, lambda: holder.__setitem__(
-        0, cap.run_epoch(holder[0])[0]), 1, device,
-        f'modes {name} ScanTrainer epoch (captured)')
+
+    def epoch():
+      holder[0] = cap.run_epoch(holder[0])[0]
+
+    # an epoch in the profiler's warm-up cycle, then the counters from 0
+    # (C6)
+    prof = profiled(torch, epoch, 1, device,
+                    f'modes {name} ScanTrainer epoch (captured)',
+                    warmup=lambda: (epoch(), ops.reset_launch_counts()))
     cstate = holder[0]
     counted = {k: v for k, v in ops.launch_counts().items()
                if k in PORT_KERNELS}
@@ -3144,6 +3212,477 @@ def legacy_phase(torch, gtt, ds, cpu_ds, device, pool, smi):
     log(f'legacy {mode}: one batch of {BATCH} seeds {FANOUTS} in '
         f'{ms:.3f} ms, {int(c.num_nodes)} nodes, equal to the CPU\'s; '
         f'launches {counts} on {smi}')
+  return rep
+
+
+# ---- typed sampling and the IGBH RGNN
+HET_PAPER, HET_AUTHOR = 100_000, 50_000   # the IGBH example's synthetic
+HET_BATCH = 512                           # its batch
+HET_HIDDEN = 128                          # its RGNN width
+HET_STEPS = 16                            # train steps per run
+HET_BATCHES = 4                           # timed inference batches a loader
+HET_SEED_FRACTION = 0.1                   # the example's train seeds
+
+
+def hetero_fields(torch, out) -> dict:
+  """The comparable fields of a typed batch (``HeteroData`` or
+  ``HeteroSamplerOutput``), on the CPU: node ids, counts, edge index,
+  edge mask and, where the batch has them, features and labels."""
+  f = {}
+  for t in out.node:
+    f[f'node/{t}'] = out.node[t]
+    f[f'num_nodes/{t}'] = out.num_nodes[t]
+    f[f'num_sampled_nodes/{t}'] = torch.stack(
+        [torch.as_tensor(c).to(out.node[t].device)
+         for c in out.num_sampled_nodes[t]])
+  ei = getattr(out, 'edge_index', None)
+  for et in out.edge_mask:
+    f[f'edge_index/{et}'] = (ei[et] if ei is not None else
+                             torch.stack([out.row[et], out.col[et]]))
+    f[f'edge_mask/{et}'] = out.edge_mask[et]
+    f[f'num_sampled_edges/{et}'] = torch.stack(
+        [torch.as_tensor(c) for c in out.num_sampled_edges[et]])
+  for name in ('x', 'y'):
+    for t, v in (getattr(out, name, None) or {}).items():
+      f[f'{name}/{t}'] = v
+  return {k: v.cpu() for k, v in f.items()}
+
+
+def assert_hetero_equal(torch, got, want, what):
+  """Two typed batches equal in every field, bit for bit."""
+  fg, fw = hetero_fields(torch, got), hetero_fields(torch, want)
+  assert sorted(fg) == sorted(fw), (what, sorted(fg), sorted(fw))
+  for k in fw:
+    assert torch.equal(fg[k], fw[k]), (what, k)
+
+
+def to_cpu(torch, v):
+  """A batch dict (typed: nested dicts of tensors) on the CPU."""
+  if isinstance(v, dict):
+    return {k: to_cpu(torch, x) for k, x in v.items()}
+  return v.cpu() if torch.is_tensor(v) else v
+
+
+def hetero_data(torch, gtt, ex, n_paper, n_author):
+  """``(dataset(device), weighted_graphs(device))``: the IGBH example's
+  synthetic (``train_rgnn.make_igbh_like``, seed 0) as a typed dataset
+  on a device, through ``Dataset.init_graph``'s dict form, and the same
+  three edge types with dyadic edge weights from a seed (the weighted
+  hops), through its ``edge_weights`` dict."""
+  rng = np.random.default_rng(0)
+  cites, writes, feats, label = ex.make_igbh_like(n_paper, n_author,
+                                                  ex.NUM_CLASSES, rng)
+  edges = {ex.CITES: cites, ex.WRITES: writes,
+           ex.REV_WRITES: writes[::-1].copy()}
+  nodes = {ex.CITES: n_paper, ex.WRITES: n_author, ex.REV_WRITES: n_paper}
+  wrng = np.random.default_rng(9)
+  weights = {et: (wrng.integers(1, 9, ei.shape[1]) / 4).astype(np.float32)
+             for et, ei in edges.items()}
+
+  def dataset(dev):
+    ds = gtt.data.Dataset(edge_dir='out', device=dev)
+    ds.init_graph(edges, num_nodes=nodes)
+    ds.init_node_features(feats)
+    ds.init_node_labels({'paper': label})
+    return ds
+
+  def weighted_graphs(dev):
+    return gtt.data.Dataset(edge_dir='out', device=dev).init_graph(
+        edges, edge_weights=weights, num_nodes=nodes).graph
+
+  return dataset, weighted_graphs
+
+
+def hetero_loader(gtt, ex, ds, pool, device, kind, caps, b):
+  """The example's typed loader (shuffled, drop_last, seed 0): tree, or
+  merge under the calibrated caps with the overflow guard raising."""
+  kw = (dict(dedup='tree') if kind == 'tree' else
+        dict(dedup='merge', frontier_caps=caps, overflow_policy='raise'))
+  return gtt.loader.NeighborLoader(ds, ex.FANOUTS, ('paper', pool),
+                                   batch_size=b, shuffle=True,
+                                   drop_last=True, seed=0, device=device,
+                                   **kw)
+
+
+def hetero_items(gtt, ex, b, caps=None) -> int:
+  """The (hop, edge type) items of the typed plan: one hop each."""
+  _, hop_caps, _ = gtt.sampler.hetero_capacity_plan(
+      list(ex.FANOUTS), lambda et: ex.FANOUTS[et], {'paper': b}, 'out',
+      etype_caps=caps)
+  return sum(len(per_et) for per_et in hop_caps)
+
+
+def hetero_batches(torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b,
+                   nb, smi):
+  """``nb`` typed batches of the example's loader after a warm-up one,
+  sample + collate timed by CUDA events, with the launch counters set to
+  0 before and read after (the hop kernel once per plan item, the row
+  gather once per featured type); the last batch equal to the CPU's from
+  the same sampler state, bit for bit; one more batch under
+  torch.profiler (its kernels equal to the counters); the rest of the
+  epoch drained, no batch truncated (merge)."""
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  loader = hetero_loader(gtt, ex, ds, pool, device, kind, caps, b)
+  cpu_loader = hetero_loader(gtt, ex, cpu_ds, pool, torch.device('cpu'),
+                             kind, caps, b)
+  items = hetero_items(gtt, ex, b, caps if kind == 'merge' else None)
+  it = iter(loader)
+  next(it)                      # the first use of the graphs and tables
+  ops.reset_launch_counts()
+  per, batches, flags = [], [], []
+  for i in range(nb):
+    if i == nb - 1:
+      state = loader.sampler.state_dict()
+    e0 = _event(torch, cuda)
+    batch = next(it)
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    per.append(_span(e0, e1, cuda))
+    batches.append(batch)
+    flags.append(batch.metadata['overflow'])
+  counts = ops.launch_counts()
+  per_l = 1 if cuda else 0
+  assert counts['sample_hop'] == per_l * nb * items, (kind, counts)
+  assert counts['gather_rows'] == per_l * nb * 2, (kind, counts)
+  assert counts['sample_level'] == counts['uniform_draw'] == 0, counts
+  # the last batch on the CPU, from the same sampler state and seeds
+  cpu_loader.sampler.load_state_dict(state)
+  seeds = batches[-1].batch['paper'].cpu().numpy()
+  want = cpu_loader._collate_fn(cpu_loader.sampler.sample_from_nodes(
+      gtt.sampler.NodeSamplerInput(seeds, 'paper'), batch_cap=b))
+  assert_hetero_equal(torch, batches[-1], want, f'{kind} batch')
+  rec = dict(sample_collate_ms=per, launches=counts, items=items,
+             nodes={t: int(n) for t, n in want.num_nodes.items()},
+             node_caps={t: int(v.shape[0]) for t, v in want.node.items()},
+             edges={str(et): int(m.sum())
+                    for et, m in want.edge_mask.items()})
+  if cuda:
+    prof = profiled(torch, lambda: next(it), 1, device,
+                    f'hetero {kind} batch',
+                    warmup=lambda: (next(it), ops.reset_launch_counts()))
+    counted = {k: v for k, v in ops.launch_counts().items()
+               if k in PORT_KERNELS}
+    assert prof['kernels'] == counted, (prof['kernels'], counted)
+    rec['profile_batch'] = prof
+  for batch in it:              # the epoch's end: the overflow guard's check
+    flags.append(batch.metadata['overflow'])
+  rec['truncated_batches'] = int(torch.stack(flags).sum())
+  assert rec['truncated_batches'] == 0, rec['truncated_batches']
+  med = float(np.median(per))
+  log(f'hetero {kind}: {nb} batches of {b} paper seeds, sample+collate '
+      f'median {med:.3f} ms; {items} hop items a batch; launches {counts}; '
+      f'nodes {rec["nodes"]} of {rec["node_caps"]}; edges {rec["edges"]}; '
+      f'{rec["truncated_batches"]} truncated; the last batch equal to the '
+      f'CPU\'s on {smi}')
+  return rec, batches
+
+
+def hetero_menu_batches(torch, gtt, ex, wgraphs, pool, device, b, smi):
+  """One block (tree) and one weighted (merge) typed batch on a copy of
+  the graph with edge weights, each equal to the same batch sampled on
+  the CPU from the same stream position, with the draw kernel launched
+  twice (block) or once (weighted) per plan item and no hop kernel."""
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  items = hetero_items(gtt, ex, b)
+  inp = gtt.sampler.NodeSamplerInput(pool[:b], 'paper')
+  rep = {}
+  for name, kw, draws in (('block', dict(strategy='block', dedup='tree'), 2),
+                          ('weighted', dict(with_weight=True,
+                                            dedup='merge'), 1)):
+    card, host = (gtt.sampler.NeighborSampler(
+        wgraphs(d), ex.FANOUTS, seed=2, device=d, edge_dir='out', **kw)
+        for d in (device, cpu))
+    card.sample_from_nodes(inp, batch_cap=b)    # builds the view / CDF
+    host.load_state_dict(card.state_dict())
+    ops.reset_launch_counts()
+    e0 = _event(torch, cuda)
+    out = card.sample_from_nodes(inp, batch_cap=b)
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    counts = ops.launch_counts()
+    per = 1 if cuda else 0
+    assert counts['uniform_draw'] == per * draws * items, (name, counts)
+    assert counts['sample_hop'] == counts['sample_level'] == 0, counts
+    assert_hetero_equal(torch, out, host.sample_from_nodes(inp, batch_cap=b),
+                        f'{name} batch')
+    rep[name] = dict(ms=_span(e0, e1, cuda), launches=counts,
+                     nodes={t: int(n) for t, n in out.num_nodes.items()})
+    log(f'hetero {name}: one typed batch in {rep[name]["ms"]:.3f} ms, '
+        f'nodes {rep[name]["nodes"]}, equal to the CPU\'s; launches '
+        f'{counts} on {smi}')
+  return rep
+
+
+def hetero_dense_weights(seg_sd, dense):
+  """The segment RGNN's weights in ``dense``'s names: each stored edge
+  type's ``{lin_self,lin_nbr,lin,att_src,att_dst}_{ename}`` is the conv
+  of its message-direction type (``hetero{i}.convs.{reversed}``)."""
+  from graphlearn_tpu_torch.typing import (as_str, reverse_edge_type,
+                                           to_edge_type)
+  sd = {}
+  for name in dense.state_dict():
+    head, _, rest = name.partition('.')
+    if not head.startswith('hetero'):
+      sd[name] = seg_sd[name]
+      continue
+    pname, _, leaf = rest.partition('.')
+    for kind in ('lin_self', 'lin_nbr', 'att_src', 'att_dst', 'lin'):
+      if pname.startswith(kind + '_'):
+        msg = as_str(reverse_edge_type(to_edge_type(pname[len(kind) + 1:])))
+        sd[name] = seg_sd['.'.join(
+            [head, 'convs', msg, kind] + ([leaf] if leaf else []))]
+        break
+  return sd
+
+
+def hetero_inference(torch, gtt, ex, batches, caps, device, b, smi):
+  """``RGNN`` rsage and rgat (4 heads) from one set of weights: the
+  tree-dense, hierarchical and segment forwards over the tree batches, the
+  segment and merge-dense forwards over the calibrated merge batches.
+  Forward ms per batch by CUDA events; finite logits of the expected
+  shape; the last batch's logits within rtol 1e-3, atol 1e-4 of the CPU's
+  (TF32 off); the dense forwards' seed logits within the same of the
+  segment forward's and the hierarchical ones within rtol 1e-5, atol 1e-6
+  of the full forward's (``tests/test_models.py:424``)."""
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  rep = {}
+  depth1 = gtt.sampler.hetero_tree_layout(
+      {'paper': b}, tuple(ex.FANOUTS), ex.FANOUTS)[0]['paper'][1]
+  runs = (('tree', 'segment'), ('tree', 'hierarchical'),
+          ('tree', 'tree_dense'), ('merge', 'segment'),
+          ('merge', 'merge_dense'))
+  for conv in ('rsage', 'rgat'):
+    seg_sd = ex.build_model(conv, b, HET_HIDDEN, cpu, mode='segment',
+                            generator=torch.Generator().manual_seed(0)
+                            ).state_dict()
+    logits = {}
+    for kind, mode in runs:
+      models = {}
+      for d in (device, cpu):
+        m = ex.build_model(conv, b, HET_HIDDEN, d, mode=mode,
+                           etype_caps=caps if kind == 'merge' else None)
+        m.load_state_dict(seg_sd if mode in ('segment', 'hierarchical')
+                          else hetero_dense_weights(seg_sd, m))
+        m.eval()
+        models[d.type] = m
+      ms, outs = [], []
+      with torch.no_grad():
+        for batch in batches[kind]:
+          e0 = _event(torch, cuda)
+          out = models[device.type](batch.x, batch.edge_index,
+                                    batch.edge_mask)
+          e1 = _event(torch, cuda)
+          if cuda:
+            e1.synchronize()
+          ms.append(_span(e0, e1, cuda))
+          outs.append(out)
+        last = batches[kind][-1]
+        want = models['cpu'](*(to_cpu(torch, v) for v in (
+            last.x, last.edge_index, last.edge_mask)))
+      # the segment forward gives every paper slot, the hierarchical one
+      # the slots of depth <= 1 (its last layer's input), the dense ones
+      # the seed block
+      rows = (last.x['paper'].shape[0] if mode == 'segment' else
+              depth1 if mode == 'hierarchical' else b)
+      for out in outs:
+        assert out.shape == (rows, ex.NUM_CLASSES), (mode, out.shape)
+        assert bool(torch.isfinite(out).all()), (conv, kind, mode)
+      got = outs[-1].cpu()
+      diff = float((got - want).abs().max())
+      torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+      logits[kind, mode] = got[:b]
+      rep[f'{conv}/{kind}/{mode}'] = dict(
+          forward_ms=ms, median_forward_ms=float(np.median(ms)),
+          cpu_max_abs_diff=diff)
+      log(f'hetero {conv} {mode} on {kind} batches: forward median '
+          f'{np.median(ms):.3f} ms/batch, logits [{rows}, '
+          f'{ex.NUM_CLASSES}] within {diff:.3g} of the CPU\'s on {smi}')
+    for kind, mode in runs:
+      ref = logits[kind, 'segment']
+      if mode == 'hierarchical':
+        torch.testing.assert_close(logits[kind, mode], ref, rtol=1e-5,
+                                   atol=1e-6)
+      elif mode != 'segment':
+        torch.testing.assert_close(logits[kind, mode], ref, rtol=1e-3,
+                                   atol=1e-4)
+  return rep
+
+
+def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
+                 steps, smi):
+  """The example's loop (loader -> batch_to_dict -> train_step, Adam at
+  3e-3) for ``steps`` steps of ``conv`` ('rsage' / 'rgat') in the
+  tree-dense (tree batches) or merge-dense (calibrated merge batches)
+  forward: ms/step split into sample+collate and train by CUDA events,
+  peak memory, launches (the hop kernel once per plan item, the row
+  gather once per featured type), the last step recomputed on the CPU
+  from the card's state before it (``cpu_step_check``: the merge path's
+  scatter atomics sum in no fixed order, so it is held from that common
+  state, C5's rule), host syncs per step of SYNC_STEPS more steps, and
+  one more step under torch.profiler (device ops, busy and idle share;
+  its kernels equal to the counters)."""
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  mode = 'tree_dense' if kind == 'tree' else 'merge_dense'
+  mcaps = caps if kind == 'merge' else None
+  loader = hetero_loader(gtt, ex, ds, pool, device, kind, caps, b)
+  items = hetero_items(gtt, ex, b, mcaps)
+
+  def model_on(d):
+    return ex.build_model(conv, b, HET_HIDDEN, d, mode=mode,
+                          etype_caps=mcaps,
+                          generator=torch.Generator().manual_seed(0))
+
+  model = model_on(device)
+  model.train()
+  state = train.create_train_state(model, lr=LR)
+  step_fn, _ = train.make_train_step(model, ex.NUM_CLASSES)
+  ops.reset_launch_counts()
+  per_step, losses, check, held = [], [], None, None
+  it = iter(loader)
+  for i in range(steps):
+    if cuda and i == 1:
+      torch.cuda.reset_peak_memory_stats()
+      held = torch.cuda.memory_allocated()
+    e0 = _event(torch, cuda)
+    batch = next(it)
+    e1 = _event(torch, cuda)
+    d = train.batch_to_dict(batch)
+    if i == steps - 1:       # the step recomputed on the CPU below
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(state.optimizer.state_dict()), to_cpu(torch, d))
+      pre = []
+      hooks = relu_input_hooks(
+          model, lambda layer, z: pre.append(z.detach().clone()))
+    state, loss, _ = step_fn(state, d)
+    e2 = _event(torch, cuda)
+    if cuda:
+      e2.synchronize()
+    if i == steps - 1:
+      for h in hooks:
+        h.remove()
+      check += ([None if p.grad is None else p.grad.detach().cpu()
+                 for p in model.parameters()], [z.cpu() for z in pre])
+    per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
+                         train_ms=_span(e1, e2, cuda)))
+    losses.append(loss)
+  peak = torch.cuda.max_memory_allocated() if cuda else None
+  counts = ops.launch_counts()
+  per = 1 if cuda else 0
+  assert counts['sample_hop'] == per * steps * items, counts
+  assert counts['gather_rows'] == per * steps * 2, counts
+  assert counts['sample_level'] == counts['uniform_draw'] == 0, counts
+  assert not loader.check_overflow(), 'a typed batch overflowed its caps'
+  losses = torch.stack(losses)
+  assert bool(torch.isfinite(losses).all()), 'non-finite typed loss'
+  steady = per_step[1:] or per_step
+  med = {k: float(np.median([p[k] for p in steady])) for k in steady[0]}
+  # the run's own peak: over what the process held when step 2 began
+  # (the script's earlier phases keep their graph and tables)
+  own = None if peak is None else peak - held
+  rep = dict(per_step=per_step, median_step_ms=med, peak_step_bytes=peak,
+             peak_over_held_bytes=own, launches=counts,
+             losses=losses.tolist(), items=items)
+  log(f'hetero train {conv} {mode}: {steps} steps; launches {counts}; '
+      'median after the first step (ms): ' +
+      ' '.join(f'{k}={v:.3f}' for k, v in med.items()) +
+      f' total={sum(med.values()):.3f}; max_memory_allocated over steps '
+      f'2-{steps} {peak} B ({own} B over the {held} B held before); '
+      f'losses {losses[0]:.4f} -> {losses[-1]:.4f} on {smi}')
+  c = rep['cpu_check'] = cpu_step_check(
+      torch, gtt, loader, model, check, losses[-1],
+      cpu_model=lambda: model_on(torch.device('cpu')),
+      make_step=lambda m: train.make_train_step(m, ex.NUM_CLASSES))
+  log(f'hetero train {conv} {mode} CPU recompute of step {steps}: ReLU '
+      f'inputs max abs diff {c["pre_diff"]:.3g}, {c["opposite"]} on '
+      f'opposite sides of 0; loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; '
+      f'gradients {c["grad_share"]:.3g} of the largest; CPU Adam on the '
+      f'card\'s gradients {c["adam_diff"]:.3g}')
+  if cuda:
+    it = iter(loader)
+
+    def loop():
+      for _ in range(SYNC_STEPS):
+        step_fn(state, train.batch_to_dict(next(it)))
+
+    _, syncs, kinds = count_syncs(torch, loop)
+    rep['host_syncs_per_step'] = syncs / SYNC_STEPS
+    rep['host_sync_kinds'] = kinds
+
+    def loop_step():
+      step_fn(state, train.batch_to_dict(next(it)))
+
+    prof = profiled(torch, loop_step, 1, device,
+                    f'hetero train {conv} {mode} step',
+                    warmup=lambda: (loop_step(), ops.reset_launch_counts()))
+    counted = {k: v for k, v in ops.launch_counts().items()
+               if k in PORT_KERNELS}
+    assert prof['kernels'] == counted, (prof['kernels'], counted)
+    prof['launch_counters'] = counted
+    rep['profile_step'] = prof
+    log(f'hetero train {conv} {mode}: {syncs / SYNC_STEPS:.2f} host syncs '
+        f'per step {kinds}; a profiled step: {prof["device_ops_per_call"]:.0f}'
+        f' device ops, busy {prof["device_busy_ms"]:.3f} of '
+        f'{prof["wall_ms"]:.3f} ms (idle share {prof["idle_share"]:.3f})')
+  return rep
+
+
+def hetero_phase(torch, gtt, device, smi):
+  """The typed path at the IGBH example's width (100,000 papers, 50,000
+  authors, 64-wide f32 features; cites [10, 5], writes [5, 3],
+  rev_writes [3, 2] at batch 512, edge_dir 'out'): tree and calibrated
+  merge batches, a block and a weighted batch, RGNN inference in five
+  forwards for rsage and rgat (4 heads), and three training runs."""
+  from graphlearn_tpu_torch.examples import train_rgnn as ex
+  cuda = device.type == 'cuda'
+  t0 = time.perf_counter()
+  if cuda:
+    n_paper, n_author, b, nb, steps = (HET_PAPER, HET_AUTHOR, HET_BATCH,
+                                       HET_BATCHES, HET_STEPS)
+  else:
+    n_paper, n_author, b, nb, steps = 5_000, 2_500, 64, 2, 4
+  dataset, wgraphs = hetero_data(torch, gtt, ex, n_paper, n_author)
+  ds, cpu_ds = dataset(device), dataset(torch.device('cpu'))
+  pool = np.arange(int(n_paper * HET_SEED_FRACTION))
+  caps = gtt.sampler.estimate_hetero_frontier_caps(
+      ds.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  _, _, full = gtt.sampler.hetero_capacity_plan(
+      list(ex.FANOUTS), lambda et: ex.FANOUTS[et], {'paper': b}, 'out')
+  _, _, cal = gtt.sampler.hetero_capacity_plan(
+      list(ex.FANOUTS), lambda et: ex.FANOUTS[et], {'paper': b}, 'out',
+      etype_caps=caps)
+  rep = dict(sizes=dict(paper=n_paper, author=n_author, batch=b),
+             caps={str(et): v for et, v in caps.items()},
+             node_caps=dict(tree=full, merge=cal),
+             setup_s=time.perf_counter() - t0)
+  log(f'hetero: IGBH-shaped graph ({n_paper} papers, {n_author} authors) '
+      f'built in {rep["setup_s"]:.1f} s; calibrated caps {rep["caps"]}; '
+      f'node buffers tree {full}, merge {cal}')
+  batches = {}
+  for kind in ('tree', 'merge'):
+    rep[kind], batches[kind] = hetero_batches(
+        torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b, nb, smi)
+  rep['menu'] = hetero_menu_batches(torch, gtt, ex, wgraphs, pool, device,
+                                    b, smi)
+  rep['inference'] = hetero_inference(torch, gtt, ex, batches, caps, device,
+                                      b, smi)
+  del batches
+  for kind, conv in (('tree', 'rsage'), ('tree', 'rgat'), ('merge', 'rgat')):
+    rep[f'train_{conv}_{kind}'] = hetero_train(
+        torch, gtt, ex, ds, pool, device, kind, conv, caps, b, steps, smi)
+    if cuda:
+      torch.cuda.empty_cache()
+  rep['phase_s'] = time.perf_counter() - t0
+  log(f'hetero phase wall {rep["phase_s"]:.1f} s on {smi}')
   return rep
 
 
@@ -3705,10 +4244,15 @@ def tiered_training(torch, gtt, ds, tds, pool, device, mode, caps, smi,
     log(f'tiered tree host syncs in one epoch: {syncs} {kinds} (the plan '
         'fetch; 0 per step)')
     assert syncs == 1, kinds
-    ops.reset_launch_counts()
-    prof = profiled(torch, lambda: pair['tiered'].__setitem__(
-        1, tr.run_epoch(pair['tiered'][1])[0]), 1, device,
-        'tiered tree epoch (captured)')
+
+    def epoch():
+      pair['tiered'][1] = tr.run_epoch(pair['tiered'][1])[0]
+
+    # an epoch in the profiler's warm-up cycle, then the counters from 0:
+    # this window, late in the script, lost its first step-keys record
+    # without one (C6)
+    prof = profiled(torch, epoch, 1, device, 'tiered tree epoch (captured)',
+                    warmup=lambda: (epoch(), ops.reset_launch_counts()))
     counted = {k: v for k, v in ops.launch_counts().items()
                if k in PORT_KERNELS}
     prof['launch_counters'] = counted
@@ -4281,6 +4825,10 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('menu')
+  report['hetero'] = hetero_phase(torch, gtt, device, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('hetero')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -4313,6 +4861,11 @@ def main(argv=None):
               rec['inference_launches']]
   paths += [report[p][r]['launches'] for p in ('link', 'subgraph', 'legacy')
             for r in report[p]]
+  het = report['hetero']
+  paths += [het[p]['launches'] for p in (
+      'tree', 'merge', 'train_rsage_tree', 'train_rgat_tree',
+      'train_rgat_merge')]
+  paths += [r['launches'] for r in het['menu'].values()]
   paths += [report['hot_cold'][p]['launches'] for p in ('papers', 'tables')]
   paths += [report['tiered'][p]['launches'] for p in ('tree', 'merge',
                                                        'papers')]
@@ -4405,6 +4958,7 @@ def main(argv=None):
             library_ms=report['probes'][name]['library_ms'])
        for name, where in (('row_gather_probe', 'benchmarks/prof_mem.py:84'),
                            ('smem_take', 'benchmarks/prof_dedup.py:99'))]}
+  report['profile_warmups_s'] = PROFILE_WARMUPS_S
   if args.out:
     with open(args.out, 'w') as fh:
       json.dump(dict(report, kernels_line=line), fh, indent=1)
@@ -4412,7 +4966,8 @@ def main(argv=None):
     log('rehearsal finished: no result line')
     return 3
   log(f'script wall {time.perf_counter() - t_start:.1f} s, the build '
-      'included')
+      f'included; {len(PROFILE_WARMUPS_S)} profiled windows\' warm-up '
+      f'calls {sum(t for _, t in PROFILE_WARMUPS_S):.2f} s of it')
   log(smi)
   log(json.dumps(line))
   log(json.dumps({'ok': True, 'device': {

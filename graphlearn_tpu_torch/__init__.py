@@ -6,7 +6,9 @@ training entry points (``models.train``; ``loader.ScanTrainer``,
 ``RunTrainer`` and ``OverlappedTrainer``; ``recovery.ChunkCheckpointer``),
 its embedding-serving tier (``serving``: full-graph materializer,
 ``EmbeddingStore``, ``ServingEngine``) and its out-of-core feature store
-(``storage``: ``TieredFeature``, ``TieredScanTrainer``) on an NVIDIA GPU,
+(``storage``: ``TieredFeature``, ``TieredScanTrainer``) and its typed
+(heterogeneous) path (dict datasets, the typed sampler, ``HeteroData``,
+``RGNN``) on an NVIDIA GPU,
 with the TPU kernels of those paths rewritten by hand in CUDA
 (``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry

@@ -1,4 +1,5 @@
-"""Dataset: graph + node and edge features + labels, homogeneous.
+"""Dataset: graph(s) + node and edge features + labels, homogeneous or
+heterogeneous.
 
 Counterpart of ``graphlearn_tpu/data/dataset.py:Dataset``. ``edge_dir``
 picks CSR (out-edges) or CSC (in-edges) storage. Node features may be
@@ -7,20 +8,19 @@ between the device and the host (``split_ratio``), with the ``id2index``
 map threaded into the ``Feature`` store. The dataset's ``device`` (None
 means the card) is every part's device unless a call names another.
 Edge features are keyed by edge id (the graph's ``edge_ids``: the input
-position unless given).
+position unless given). A heterogeneous dataset holds dicts: graphs and
+edge features keyed by ``EdgeType``, features, labels and node counts by
+``NodeType``, one ``Feature`` (with its own hot/cold split) per type.
 """
+from typing import Optional
+
 import numpy as np
 import torch
 
+from ..typing import EdgeType, NodeType
 from ..utils import resolve_device
 from .feature import Feature
 from .graph import Graph, Topology
-
-
-def _homogeneous(data, what):
-  if isinstance(data, dict):
-    raise NotImplementedError(f'heterogeneous {what} come in a later '
-                              'slice of the port')
 
 
 class Dataset:
@@ -47,11 +47,24 @@ class Dataset:
     ``graph_mode`` as ``Graph``'s; ``device`` defaults to the dataset's."""
     if edge_index is None:
       return self
-    _homogeneous(edge_index, 'graphs')
-    topo = Topology(edge_index, edge_ids, edge_weights, input_layout=layout,
-                    layout='CSR' if self.edge_dir == 'out' else 'CSC',
-                    num_nodes=num_nodes)
-    self.graph = Graph(topo, graph_mode, self._device(device))
+    store_layout = 'CSR' if self.edge_dir == 'out' else 'CSC'
+    dev = self._device(device)
+
+    def build(ei, eids, ew, n):
+      topo = Topology(ei, eids, ew, input_layout=layout, layout=store_layout,
+                      num_nodes=n)
+      return Graph(topo, graph_mode, dev)
+
+    if isinstance(edge_index, dict):
+      self.graph = {}
+      for etype, ei in edge_index.items():
+        eids = edge_ids.get(etype) if isinstance(edge_ids, dict) else None
+        ew = (edge_weights.get(etype)
+              if isinstance(edge_weights, dict) else None)
+        n = num_nodes.get(etype) if isinstance(num_nodes, dict) else num_nodes
+        self.graph[etype] = build(ei, eids, ew, n)
+    else:
+      self.graph = build(edge_index, edge_ids, edge_weights, num_nodes)
     return self
 
   def init_node_features(self, node_feature_data=None, id2idx=None,
@@ -65,14 +78,24 @@ class Dataset:
     the JAX package), the rest in host memory."""
     if node_feature_data is None:
       return self
-    _homogeneous(node_feature_data, 'features')
-    feat = np.asarray(node_feature_data)
-    topo = self.graph.topo if isinstance(self.graph, Graph) else None
-    if sort_func is not None and id2idx is None and topo is not None:
-      feat, id2idx = sort_func(feat, split_ratio, topo)
-    self.node_features = Feature(feat, split_ratio, device_group_list,
-                                 self._device(device), with_device, id2idx,
-                                 dtype)
+    dev = self._device(device)
+
+    def build(feat, topo, i2i):
+      feat = np.asarray(feat)
+      if sort_func is not None and i2i is None and topo is not None:
+        feat, i2i = sort_func(feat, split_ratio, topo)
+      return Feature(feat, split_ratio, device_group_list, dev, with_device,
+                     i2i, dtype)
+
+    if isinstance(node_feature_data, dict):
+      self.node_features = {}
+      for ntype, feat in node_feature_data.items():
+        i2i = id2idx.get(ntype) if isinstance(id2idx, dict) else None
+        self.node_features[ntype] = build(
+            feat, self._topo_for_node_type(ntype), i2i)
+    else:
+      topo = self.graph.topo if isinstance(self.graph, Graph) else None
+      self.node_features = build(node_feature_data, topo, id2idx)
     return self
 
   def init_edge_features(self, edge_feature_data=None, split_ratio=1.0,
@@ -82,39 +105,80 @@ class Dataset:
     hotness reorder)."""
     if edge_feature_data is None:
       return self
-    _homogeneous(edge_feature_data, 'edge features')
-    self.edge_features = Feature(np.asarray(edge_feature_data), split_ratio,
-                                 device_group_list, self._device(device),
-                                 with_device, None, dtype)
+    dev = self._device(device)
+
+    def build(f):
+      return Feature(np.asarray(f), split_ratio, device_group_list, dev,
+                     with_device, None, dtype)
+
+    if isinstance(edge_feature_data, dict):
+      self.edge_features = {etype: build(f)
+                            for etype, f in edge_feature_data.items()}
+    else:
+      self.edge_features = build(edge_feature_data)
     return self
 
   def init_node_labels(self, node_label_data=None):
+    def build(y):
+      return torch.as_tensor(np.asarray(y)).to(self.device)
+
     if node_label_data is not None:
-      self.node_labels = torch.as_tensor(np.asarray(node_label_data)).to(
-          self.device)
+      if isinstance(node_label_data, dict):
+        self.node_labels = {k: build(v) for k, v in node_label_data.items()}
+      else:
+        self.node_labels = build(node_label_data)
     return self
 
-  def get_graph(self, etype=None):
+  def get_graph(self, etype: Optional[EdgeType] = None):
+    if isinstance(self.graph, dict):
+      return self.graph.get(etype) if etype is not None else None
     return self.graph
 
-  def get_node_feature(self, ntype=None):
+  def get_node_feature(self, ntype: Optional[NodeType] = None):
+    if isinstance(self.node_features, dict):
+      return self.node_features.get(ntype) if ntype is not None else None
     return self.node_features
 
-  def get_edge_feature(self, etype=None):
+  def get_edge_feature(self, etype: Optional[EdgeType] = None):
+    if isinstance(self.edge_features, dict):
+      return self.edge_features.get(etype) if etype is not None else None
     return self.edge_features
 
-  def get_node_label(self, ntype=None):
+  def get_node_label(self, ntype: Optional[NodeType] = None):
+    if isinstance(self.node_labels, dict):
+      return self.node_labels.get(ntype) if ntype is not None else None
     return self.node_labels
 
   def get_node_types(self):
+    if isinstance(self.graph, dict):
+      ntypes = []
+      for (src, _, dst) in self.graph.keys():
+        for t in (src, dst):
+          if t not in ntypes:
+            ntypes.append(t)
+      return ntypes
     return None
 
   def get_edge_types(self):
+    if isinstance(self.graph, dict):
+      return list(self.graph.keys())
     return None
 
   @property
   def is_hetero(self) -> bool:
-    return False
+    return isinstance(self.graph, dict)
+
+  def _topo_for_node_type(self, ntype: NodeType):
+    """The topology whose key axis is this node type, for in-degree
+    hotness: the CSR of an edge type with src ``ntype`` under
+    ``edge_dir='out'``, the CSC of one with dst ``ntype`` under 'in'."""
+    if not isinstance(self.graph, dict):
+      return None
+    for (src, _, dst), g in self.graph.items():
+      key_type = src if self.edge_dir == 'out' else dst
+      if key_type == ntype:
+        return g.topo
+    return None
 
   def share_ipc(self):
     """The dataset itself, as in the JAX package: sent through

@@ -6,4 +6,4 @@ from .pipeline import FusedEpochTrainer, OverlappedTrainer
 from .run_epoch import RunTrainer
 from .scan_epoch import ScanTrainer
 from .subgraph_loader import SubGraphLoader
-from .transform import Data, to_data
+from .transform import Data, HeteroData, to_data, to_hetero_data

@@ -5,7 +5,11 @@ Counterpart of ``graphlearn_tpu/loader/neighbor_loader.py``: builds a
 with it. ``dedup='auto'`` (the default, as in the JAX package) runs the
 merge exact-dedup engine, ``dedup='tree'`` the tree engine;
 ``frontier_caps='auto'`` calibrates the merge engine's caps against this
-loader's own seed pool and batch size (``sampler.calibrate``).
+loader's own seed pool and batch size (``sampler.calibrate``). On a
+heterogeneous dataset the seeds are typed (``('paper', ids)``), the
+fanouts a list or a per-edge-type dict, and calibrated caps the
+``{edge_type: [per-hop caps]}`` dict of
+``calibrate.estimate_hetero_frontier_caps``.
 """
 from typing import Optional
 
@@ -33,6 +37,11 @@ class NeighborLoader(NodeLoader):
       if frontier_caps != 'auto':
         raise ValueError(f'frontier_caps={frontier_caps!r}: pass a list '
                          "of per-hop caps or 'auto'")
+      if isinstance(data.graph, dict):
+        raise ValueError(
+            "frontier_caps='auto' is homogeneous-only; on hetero "
+            'datasets pass the {edge_type: [per-hop caps]} dict from '
+            'calibrate.estimate_hetero_frontier_caps')
       pool = (input_nodes[1] if isinstance(input_nodes, tuple)
               else input_nodes)
       frontier_caps = estimate_frontier_caps(

@@ -22,7 +22,7 @@ from .. import ops
 from ..data import Dataset
 from ..sampler import NodeSamplerInput
 from ..utils import resolve_device
-from .transform import to_data
+from .transform import to_data, to_hetero_data
 
 
 class SeedBatcher:
@@ -120,6 +120,14 @@ class OverflowGuardMixin:
     if policy not in self._OVERFLOW_POLICIES:
       raise ValueError(f'overflow_policy {policy!r} not in '
                        f'{self._OVERFLOW_POLICIES}')
+    if policy == 'recompute' and \
+        getattr(getattr(self, 'sampler', None), 'is_hetero', False):
+      # typed batches draw their (hop, edge type) keys from the sampler's
+      # own stream: no per-batch key exists to replay a truncated draw
+      raise ValueError(
+          "overflow_policy='recompute' is homogeneous-only (hetero "
+          'batches have no replayable per-batch key); use '
+          "'raise'/'warn', or recalibrate with more slack")
     self.overflow_policy = policy
     self.overflow_recomputes = 0   # full-capacity replays ('recompute')
     self._ovf_accum = None         # on-device accumulated flag
@@ -283,6 +291,8 @@ class NodeLoader(OverflowGuardMixin):
     """The fused collate over device-resident tables; a store with a host
     part (no ``device_table()``) is read through its own lookup, the
     hot/cold gather, as in the JAX loader."""
+    if getattr(self.sampler, 'is_hetero', False):
+      return self._hetero_collate(out)
     feats = id2i = efeats = None
     nfeat = self.data.node_features if self.collect_features else None
     ndt = nfeat.device_table() if nfeat is not None else None
@@ -303,3 +313,36 @@ class NodeLoader(OverflowGuardMixin):
           else efeat[out.edge])
     return to_data(out, x, res['y'], ef,
                    node_mask=res['node_mask'], edge_index=res['edge_index'])
+
+  def _hetero_collate(self, out):
+    """Typed collate: per featured node type one row gather of its buffer
+    (``ops.gather_rows``: one launch of the row-gather kernel on the
+    card) or, for a store with a host part, the store's own hot/cold
+    lookup; labels per labelled type, by the engine's rounded seed cap
+    for the input type only under ``seed_labels_only`` (seeds lead its
+    buffer; other types carry no seed block)."""
+    x = y = None
+    if self.collect_features and self.data.node_features is not None:
+      x = {}
+      for t, buf in out.node.items():
+        store = self.data.get_node_feature(t)
+        if store is None:
+          continue
+        dt = store.device_table()
+        x[t] = (ops.gather_rows(dt[0], dt[1], buf) if dt is not None
+                else store[buf])
+    if self.data.node_labels is not None:
+      y = {}
+      for t, buf in out.node.items():
+        labels = self.data.get_node_label(t)
+        if labels is None:
+          continue
+        if self.seed_labels_only:
+          if t != out.input_type:
+            continue
+          cap = (out.batch[t].shape[0]
+                 if out.batch is not None and t in out.batch
+                 else self.batch_size)
+          buf = buf[:cap]
+        y[t] = labels[torch.clamp(buf, min=0).long()]
+    return to_hetero_data(out, x, y)

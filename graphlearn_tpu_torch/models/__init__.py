@@ -1,3 +1,4 @@
 from . import conv, convert, train
-from .conv import SAGEConv
-from .models import GraphSAGE, MergeSAGEConv, TreeSAGEConv
+from .conv import GATConv, SAGEConv
+from .models import (RGNN, GraphSAGE, HeteroConv, MergeSAGEConv,
+                     TreeHeteroConv, TreeSAGEConv)

@@ -1,9 +1,9 @@
 """Masked message passing over padded COO batches: the segment forward.
 
 Counterpart of ``graphlearn_tpu/models/conv.py`` (``_masked_targets``,
-the ``segment_*_agg`` aggregators and ``SAGEConv``). ``edge_index`` is
-``[2, E]`` with ``row`` the message source and ``col`` the target; -1
-pads. Aggregation scatters into ``n + 1`` segments and drops the last,
+the ``segment_*_agg`` aggregators, ``SAGEConv`` and ``GATConv``).
+``edge_index`` is ``[2, E]`` with ``row`` the message source and ``col``
+the target; -1 pads. Aggregation scatters into ``n + 1`` segments and drops the last,
 where every invalid edge goes.
 
 ``dtype`` (e.g. ``torch.bfloat16``) is the compute dtype, as flax's
@@ -13,6 +13,7 @@ parameters stay float32 (``nn.Linear`` master weights), so autograd
 returns float32 gradients and Adam runs in float32.
 """
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -107,3 +108,70 @@ class SAGEConv(nn.Module):
     del src
     return dense(self.lin_self, x, self.dtype) + \
         dense(self.lin_nbr, agg, self.dtype)
+
+
+def segment_softmax_max(e, tgt, num_segments: int):
+  """Per-segment max of ``[E, H]`` logits (``segment_max``), an empty
+  segment's -inf and any non-finite max set to 0: the shift of a
+  segment softmax. The gradient flows through it as through JAX's
+  ``segment_max`` (to the maximal logits; the ``where`` stops it at an
+  empty segment's -inf)."""
+  mx = torch.full((num_segments, e.shape[1]), float('-inf'),
+                  dtype=e.dtype, device=e.device)
+  mx = mx.scatter_reduce(0, tgt[:, None].expand_as(e), e, 'amax')
+  return torch.where(torch.isfinite(mx), mx, 0.0)
+
+
+class GATConv(nn.Module):
+  """Graph attention conv: multi-head, a masked segment softmax per
+  target (``graphlearn_tpu/models/conv.py:GATConv``).
+
+  ``lin`` projects to ``heads * out_dim`` (no bias); ``att_src`` /
+  ``att_dst`` (``[heads, out_dim]``) score an edge as
+  ``leaky_relu(<w_src, att_src> + <w_dst, att_dst>)`` in float32, the
+  softmax shifted by each target's true max (an empty target: 0).
+  Messages ``w_src * attn`` are summed per target; ``concat`` joins the
+  heads, else they are averaged."""
+
+  def __init__(self, in_dim: int, out_dim: int, heads: int = 1,
+               negative_slope: float = 0.2, concat: bool = True,
+               dtype=None):
+    super().__init__()
+    self.out_dim, self.heads = out_dim, heads
+    self.negative_slope = negative_slope
+    self.concat = concat
+    self.dtype = dtype
+    self.lin = nn.Linear(in_dim, heads * out_dim, bias=False)
+    self.att_src = nn.Parameter(torch.empty(heads, out_dim))
+    self.att_dst = nn.Parameter(torch.empty(heads, out_dim))
+    nn.init.xavier_uniform_(self.att_src)
+    nn.init.xavier_uniform_(self.att_dst)
+
+  def forward(self, x, edge_index, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
+    n = x.shape[0]
+    heads, hd = self.heads, self.out_dim
+    row, col = edge_index[0], edge_index[1]
+    safe_row = torch.clamp(row, min=0).to(torch.int64)
+    safe_col = torch.clamp(col, min=0).to(torch.int64)
+    w = dense(self.lin, x, self.dtype).reshape(n, heads, hd)
+    # attention logits and softmax in float32; messages in w's dtype
+    wf = w.float()
+    alpha_src = (wf * self.att_src[None]).sum(-1)     # [N, H]
+    alpha_dst = (wf * self.att_dst[None]).sum(-1)
+    e = alpha_src.index_select(0, safe_row) + \
+        alpha_dst.index_select(0, safe_col)
+    e = F.leaky_relu(e, self.negative_slope)
+    tgt = _masked_targets(col, edge_mask, n)
+    e = torch.exp(e - segment_softmax_max(e, tgt, n + 1)[tgt])
+    e = torch.where(edge_mask[:, None], e, 0.0)
+    denom = e.new_zeros((n + 1, heads)).index_add_(0, tgt, e)
+    attn = (e / torch.clamp(denom[tgt], min=1e-9)).to(w.dtype)
+    msgs = w.index_select(0, safe_row) * attn[:, :, None]    # [E, H, D]
+    msgs = torch.where(edge_mask[:, None, None], msgs,
+                       torch.zeros((), dtype=w.dtype, device=w.device))
+    out = msgs.new_zeros((n + 1, heads, hd)).index_add_(0, tgt, msgs)[:n]
+    if self.concat:
+      return out.reshape(n, heads * hd)
+    return out.mean(1)

@@ -1,45 +1,84 @@
-"""Carry GraphSAGE weights and Adam state between flax/optax and torch.
+"""Carry model weights and Adam state between flax/optax and torch.
 
-The flax tree is ``{'params': {'conv{i}': {'lin_self': {'kernel',
-'bias'}, 'lin_nbr': {'kernel'}}}}`` of numpy arrays; a flax ``Dense``
+A flax tree is ``{'params': {...}}`` of numpy arrays; a flax ``Dense``
 kernel is ``[in, out]`` and a torch ``Linear`` weight ``[out, in]``.
 optax's ``ScaleByAdamState(count, mu, nu)`` holds the moments as trees
 of the same layout; torch's Adam keeps ``step``, ``exp_avg`` and
-``exp_avg_sq`` per parameter. Both map by the same ``conv{i}.lin_*``
-names.
+``exp_avg_sq`` per parameter.
+
+A torch parameter ``a.b.weight`` is the flax leaf ``a/b/kernel``
+(transposed), ``a.b.bias`` is ``a/b/bias`` and any other leaf (an
+attention vector) keeps its name. A model may rename its module path
+(``model.flax_scope``): ``RGNN``'s segment convs, ``hetero{i}.convs.
+{etype}``, are flax's auto-named ``SAGEConv_k`` / ``GATConv_k`` at the
+top level. Without a model every leaf is carried with its module path
+as it stands (GraphSAGE's ``conv{i}/lin_*``). Flax creates a parameter
+only when its module runs, so a torch parameter with no flax leaf (a
+conv no batch type reaches) is left out of the mapping both ways.
 """
 import numpy as np
 import torch
 
 
-def params_from_flax(params) -> dict:
-  """Flax GraphSAGE params (numpy leaves) -> a torch ``state_dict``."""
+def _flax_path(model, name):
+  """``(flax path tuple, transposed)`` of the torch parameter ``name``:
+  the one naming rule, read both ways."""
+  *mods, leaf = name.split('.')
+  scope = getattr(model, 'flax_scope', None)
+  if scope is not None:
+    mods = scope(mods)
+  return tuple(mods) + ('kernel' if leaf == 'weight' else leaf,), \
+      leaf == 'weight'
+
+
+def _torch_names(tree, prefix=()):
+  """The torch names of a flax tree's leaves, with no module renamed:
+  the inverse of ``_flax_path`` without a model."""
+  for key, sub in tree.items():
+    if isinstance(sub, dict):
+      yield from _torch_names(sub, prefix + (key,))
+    else:
+      yield '.'.join(prefix + ('weight' if key == 'kernel' else key,))
+
+
+def _leaf(tree, path):
+  for p in path:
+    if not isinstance(tree, dict) or p not in tree:
+      return None
+    tree = tree[p]
+  return tree
+
+
+def params_from_flax(params, model=None) -> dict:
+  """Flax params (numpy leaves) -> a torch ``state_dict`` of ``model``
+  (default: every leaf of the tree, module paths kept)."""
   tree = params.get('params', params)
+  names = (_torch_names(tree) if model is None else
+           (n for n, _ in model.named_parameters()))
   sd = {}
-  for conv, layers in tree.items():
-    for lin, leaves in layers.items():
-      for leaf, arr in leaves.items():
-        t = torch.as_tensor(np.array(arr, dtype=np.float32))
-        if leaf == 'kernel':
-          sd[f'{conv}.{lin}.weight'] = t.t().contiguous()
-        elif leaf == 'bias':
-          sd[f'{conv}.{lin}.bias'] = t
-        else:
-          raise ValueError(f'unexpected flax leaf {conv}/{lin}/{leaf}')
+  for name in names:
+    path, transposed = _flax_path(model, name)
+    arr = _leaf(tree, path)
+    if arr is not None:
+      sd[name] = _to_torch(arr, transposed)
   return sd
 
 
-def params_to_flax(state_dict) -> dict:
+def _to_torch(arr, transposed):
+  t = torch.as_tensor(np.array(arr, dtype=np.float32))
+  return t.t().contiguous() if transposed else t
+
+
+def params_to_flax(state_dict, model=None) -> dict:
   """The inverse: a torch ``state_dict`` -> ``{'params': ...}`` numpy."""
   tree = {}
   for name, t in state_dict.items():
-    conv, lin, leaf = name.split('.')
+    path, transposed = _flax_path(model, name)
     arr = t.detach().cpu().numpy()
-    node = tree.setdefault(conv, {}).setdefault(lin, {})
-    if leaf == 'weight':
-      node['kernel'] = np.ascontiguousarray(arr.T)
-    else:
-      node['bias'] = arr
+    node = tree
+    for p in path[:-1]:
+      node = node.setdefault(p, {})
+    node[path[-1]] = np.ascontiguousarray(arr.T) if transposed else arr
   return {'params': tree}
 
 
@@ -48,11 +87,14 @@ def adam_state_from_optax(optimizer, model, adam_state):
   flax layout) into the torch Adam ``optimizer`` over ``model``'s
   parameters, so a JAX run resumes in the port mid-training."""
   count, mu, nu = adam_state
-  mu_sd, nu_sd = params_from_flax(mu), params_from_flax(nu)
+  mu_sd = params_from_flax(mu, model)
+  nu_sd = params_from_flax(nu, model)
   step = float(np.asarray(count))
   # a capturable Adam keeps its count beside the parameter
   capturable = optimizer.defaults.get('capturable', False)
   for name, p in model.named_parameters():
+    if name not in mu_sd:
+      continue
     optimizer.state[p] = {
         'step': torch.tensor(step, dtype=torch.float32,
                              device=p.device if capturable else None),
@@ -63,12 +105,21 @@ def adam_state_from_optax(optimizer, model, adam_state):
 def adam_state_to_optax(optimizer, model):
   """The inverse: ``(count, mu, nu)`` from the torch Adam ``optimizer``,
   ``mu`` and ``nu`` as ``{'params': ...}`` numpy trees (wrap them in
-  ``optax.ScaleByAdamState``)."""
-  named = dict(model.named_parameters())
+  ``optax.ScaleByAdamState``). optax steps every parameter, torch only
+  those with a gradient: a parameter whose output no loss reads (a typed
+  conv of a type the head never reads) stays behind, with zero moments,
+  which is optax's state for it too. Parameters without Adam state are
+  left out."""
+  named = {n: p for n, p in model.named_parameters()
+           if optimizer.state.get(p)}
   states = [optimizer.state[p] for p in named.values()]
-  counts = {int(st['step']) for st in states}
-  if len(counts) != 1:
-    raise ValueError(f'parameters at different Adam steps: {counts}')
-  mu = params_to_flax({n: st['exp_avg'] for n, st in zip(named, states)})
-  nu = params_to_flax({n: st['exp_avg_sq'] for n, st in zip(named, states)})
-  return counts.pop(), mu, nu
+  count = max(int(st['step']) for st in states)
+  behind = [n for n, st in zip(named, states) if int(st['step']) != count
+            and (bool(st['exp_avg'].any()) or bool(st['exp_avg_sq'].any()))]
+  if behind:
+    raise ValueError(f'parameters at different Adam steps: {behind}')
+  mu = params_to_flax({n: st['exp_avg'] for n, st in zip(named, states)},
+                      model)
+  nu = params_to_flax({n: st['exp_avg_sq'] for n, st in zip(named, states)},
+                      model)
+  return count, mu, nu

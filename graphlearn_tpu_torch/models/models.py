@@ -1,4 +1,5 @@
-"""GraphSAGE: the plain segment forward and the layered, dense forwards.
+"""GraphSAGE and the typed RGNN: the plain segment forwards and the
+layered, dense forwards.
 
 Counterpart of ``graphlearn_tpu/models/models.py``: ``_tree_blocks``,
 ``_masked_run_mean`` / ``_masked_flat_run_mean`` (the 'reshape'
@@ -17,18 +18,32 @@ take), or ``tree_dense=True`` or ``merge_dense=True``.
   node buffer, so mean aggregation is one source-row gather, a masked
   reshape-mean and one dense block write per hop.
 
+The typed side (``check_hetero_offsets``, ``hetero_trim``,
+``_masked_run_softmax``, ``walk_hetero_records``, ``resolve_hetero_parts``,
+``HeteroConv``, ``TreeHeteroConv`` and ``RGNN``) follows the JAX
+package's: per-edge-type convs summed per target node type, over the
+whole typed batch (the segment forward), each layer's typed prefixes
+(hop offsets: the hierarchical forward), or the typed tree and
+calibrated merge layouts as dense k-run aggregations
+(``tree_dense`` / ``merge_dense``). Edge-type keyed modules are keyed by
+the type's string form (``typing.as_str``): ``nn.ModuleDict`` takes
+string keys only.
+
 Parameter names follow the flax modules (``conv{i}``, ``lin_self``,
-``lin_nbr``) so ``models.convert`` maps one onto the other. ``dtype`` is
+``lin_nbr``; ``embed_{t}``, ``hetero{i}``, ``lin_out``) so
+``models.convert`` maps one onto the other. ``dtype`` is
 the compute dtype of every conv, as flax's (``conv.dense``): inputs,
 aggregation, products and the logits in it, the parameters float32.
 """
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..typing import as_str
 from ..utils import resolve_device
-from .conv import SAGEConv, dense
+from .conv import GATConv, SAGEConv, dense
 
 
 def _tree_blocks(node_offsets, fanouts, n_rows):
@@ -62,6 +77,29 @@ def _masked_flat_run_mean(x, mask, k: int):
   """Masked mean over k-runs of a flat ``[f*k, F]`` block."""
   f = mask.shape[0]
   return _masked_run_mean(x.reshape(f, k, -1), mask)
+
+
+def _masked_run_softmax(e, mask, out_dtype, negative_slope):
+  """Masked attention softmax over axis 1 of ``[runs, k, H]`` logits (the
+  JAX package's default 'reshape' layout): leaky_relu, masked slots to
+  -inf, the true per-run max subtracted (an all-masked run: 0), exp, the
+  denominator floored at 1e-9. The gradient flows through the max as
+  through JAX's; the ``where`` stops it at an all-masked run's -inf."""
+  e = F.leaky_relu(e, negative_slope)
+  e = torch.where(mask[..., None], e, float('-inf'))
+  mx = e.amax(1, keepdim=True)
+  e = e - torch.where(torch.isfinite(mx), mx, 0.0)
+  ex = torch.where(mask[..., None], torch.exp(e), 0.0)
+  denom = torch.clamp(ex.sum(1, keepdim=True), min=1e-9)
+  return (ex / denom).to(out_dtype)
+
+
+def _dynamic_rows(n: int, base, f: int):
+  """The ``f`` row indices of ``lax.dynamic_slice_in_dim(a, base, f)``
+  over an ``n``-row array: the start (a 0-d device tensor, never read on
+  the host) clamped to ``[0, n - f]`` as XLA clamps it."""
+  start = torch.clamp(base, 0, max(n - f, 0)).to(torch.int64)
+  return start + torch.arange(f, dtype=torch.int64, device=base.device)
 
 
 class TreeSAGEConv(nn.Module):
@@ -303,3 +341,520 @@ class GraphSAGE(nn.Module):
       if i < self.num_layers - 1:
         x = torch.relu(x)
     return x
+
+
+# ------------------------------------------------------------------ typed
+
+
+def check_hetero_offsets(x_dict, edge_index_dict, hop_node_offsets,
+                         hop_edge_offsets, num_layers):
+  """Layout validation of the hierarchical typed forwards: a mismatched
+  layout would slice the wrong blocks silently."""
+  for t, x in x_dict.items():
+    assert t in hop_node_offsets, (
+        f'hierarchical forward: batch has node type {t!r} but '
+        f'hop_node_offsets only covers {list(hop_node_offsets)}')
+    assert len(hop_node_offsets[t]) >= num_layers + 1, (
+        f'hierarchical forward: hop_node_offsets for {t!r} has '
+        f'{len(hop_node_offsets[t])} entries, need num_layers+1='
+        f'{num_layers + 1} — layout fanouts must cover every layer')
+    assert hop_node_offsets[t][-1] == x.shape[0], (
+        f'hierarchical forward: node offsets for {t!r} '
+        f'({hop_node_offsets[t]}) do not match the batch buffer '
+        f'({x.shape[0]}); build them with sampler.hetero_tree_layout '
+        'from the SAME seed caps/fanouts as the tree-mode loader')
+  for et in edge_index_dict:
+    assert tuple(et) in hop_edge_offsets, (
+        f'hierarchical forward: batch has edge type {tuple(et)!r} but '
+        f'hop_edge_offsets only covers {list(hop_edge_offsets)} — '
+        'check the edge_dir orientation the layout was built with '
+        '(batches key edges by the message-flow/reversed type)')
+    assert len(hop_edge_offsets[tuple(et)]) >= num_layers, (
+        f'hierarchical forward: hop_edge_offsets for {tuple(et)!r} must '
+        f'cover {num_layers} hops')
+
+
+def hetero_trim(x_dict, edge_index_dict, edge_mask_dict, hop_node_offsets,
+                hop_edge_offsets, hops_used):
+  """The typed node and edge prefixes layer ``hops_used`` needs."""
+  x_in = {t: x[:hop_node_offsets[t][hops_used]] for t, x in x_dict.items()}
+  ei = {et: v[:, :hop_edge_offsets[tuple(et)][hops_used - 1]]
+        for et, v in edge_index_dict.items()}
+  em = {et: v[:hop_edge_offsets[tuple(et)][hops_used - 1]]
+        for et, v in edge_mask_dict.items()}
+  return x_in, ei, em
+
+
+def walk_hetero_records(recs, edge_mask_dict, r_out, per_record):
+  """The parent-coverage walk over one edge type's typed tree records:
+  per hop record its ``[f, k]`` edge-mask block and ``per_record(r, m)``
+  (``[f, ...]`` values), with ``('gap', n)`` placeholders where the key
+  type's parent axis has no record (an edge type inactive at a hop),
+  filled with zeros by ``resolve_hetero_parts``."""
+  parts, covered = [], 0
+  for r in recs:
+    if r['parent_base'] >= r_out:
+      break
+    f, k = r['fcap'], r['k']
+    m = edge_mask_dict[r['out_et']][r['edge_base']:r['edge_base'] + f * k]
+    m = m.reshape(f, k)
+    if r['parent_base'] > covered:
+      parts.append(('gap', r['parent_base'] - covered))
+      covered = r['parent_base']
+    assert r['parent_base'] == covered, (
+        f'hetero tree records for {recs[0]["et"]} overlap parents '
+        f'({r["parent_base"]} vs {covered}); build them with '
+        'sampler.hetero_tree_blocks from the SAME seed caps/fanouts '
+        'as the loader')
+    parts.append(per_record(r, m))
+    covered += f
+  if covered < r_out:
+    parts.append(('gap', r_out - covered))
+  return parts
+
+
+def resolve_hetero_parts(parts, feat_shape, dtype, device=None):
+  """``('gap', n)`` placeholders as zeros ``[n, *feat_shape]``, the parts
+  concatenated along the parent axis (an empty walk: ``[0, ...]``)."""
+  if not parts:
+    return torch.zeros((0,) + tuple(feat_shape), dtype=dtype, device=device)
+  parts = [torch.zeros((p[1],) + tuple(feat_shape), dtype=dtype,
+                       device=device)
+           if isinstance(p, tuple) else p for p in parts]
+  return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+class HeteroConv(nn.Module):
+  """Per-edge-type convs summed into per-node-type outputs (an RGNN
+  layer). ``convs`` maps an edge type (message direction ``(src, rel,
+  dst)``) to its conv; it is kept in a ``ModuleDict`` under the type's
+  string form. Each conv sees ``cat([x_dst, x_src])`` with the sources'
+  rows shifted by ``n_dst`` and its output sliced to the ``n_dst``
+  targets, as in the JAX layer."""
+
+  def __init__(self, convs):
+    super().__init__()
+    self.etypes = [tuple(et) for et in convs]
+    self.convs = nn.ModuleDict({as_str(et): c for et, c in convs.items()})
+
+  def forward(self, x_dict, edge_index_dict, edge_mask_dict):
+    out: Dict[str, torch.Tensor] = {}
+    for et in self.etypes:
+      src_t, _, dst_t = et
+      if et not in edge_index_dict or src_t not in x_dict or \
+          dst_t not in x_dict:
+        continue
+      ei = edge_index_dict[et]
+      n_dst = x_dict[dst_t].shape[0]
+      x_cat = torch.cat([x_dict[dst_t], x_dict[src_t]])
+      row = torch.where(ei[0] >= 0, ei[0] + n_dst, -1)
+      h = self.convs[as_str(et)](x_cat, torch.stack([row, ei[1]]),
+                                 edge_mask_dict[et])[:n_dst]
+      out[dst_t] = out[dst_t] + h if dst_t in out else h
+    return out
+
+
+def _dense_etypes(records, in_types):
+  """The stored edge types a ``TreeHeteroConv`` over ``records`` gives
+  output for, when its input holds the node types ``in_types``: those
+  with a record whose key and result types are both in the input (a
+  leaf-only type drops out after the first layer), sorted. Their key
+  types are the layer's output types."""
+  return sorted({r['et'] for recs in records for r in recs
+                 if r['res_t'] in in_types and r['key_t'] in in_types})
+
+
+class TreeHeteroConv(nn.Module):
+  """One typed layer over typed tree batches with dense k-run
+  aggregation (``graphlearn_tpu/models/models.py:TreeHeteroConv``).
+
+  The typed tree layout (``sampler.hetero_tree_blocks``) puts each
+  (hop, edge type)'s children in a contiguous block of the result type's
+  buffer, their parents in the key type's frontier block and the edges in
+  the emitted type's hop segment, so aggregation per edge type is a
+  slice, a reshape and a masked mean (``conv='sage'``) or a masked run
+  softmax (``conv='gat'``), summed per target type: ``HeteroConv`` over
+  per-edge-type ``SAGEConv`` / ``GATConv`` on the same batch.
+
+  ``mode='merge'``: the same over calibrated exact-dedup batches
+  (``hetero_tree_blocks(etype_caps=...)``): children are gathered
+  through the edge rows and each record's run block is added at the
+  base ``min(tgt - j)`` over its valid runs, computed on the device.
+
+  Parameters per stored edge type ``ename = '__'.join(et)``:
+  ``lin_self_{ename}`` / ``lin_nbr_{ename}`` (sage) or ``lin_{ename}``,
+  ``att_src_{ename}``, ``att_dst_{ename}`` (gat), for the edge types
+  ``_dense_etypes(records, in_types)`` names (flax never creates the
+  others). ``out_rows``: per-type output widths (the next layer's
+  prefixes).
+  """
+
+  def __init__(self, in_dim: int, out_dim: int, records, in_types,
+               conv: str = 'sage', heads: int = 1,
+               negative_slope: float = 0.2, concat: bool = True,
+               dtype=None, out_rows=None, mode: str = 'tree'):
+    super().__init__()
+    assert mode in ('tree', 'merge') and conv in ('sage', 'gat')
+    self.out_dim, self.records = out_dim, tuple(records)
+    self.conv, self.heads = conv, heads
+    self.negative_slope, self.concat = negative_slope, concat
+    self.dtype, self.out_rows, self.mode = dtype, out_rows, mode
+    self.etypes = _dense_etypes(self.records, set(in_types))
+    for et in self.etypes:
+      ename = '__'.join(et)
+      if conv == 'sage':
+        self.add_module(f'lin_self_{ename}', nn.Linear(in_dim, out_dim))
+        self.add_module(f'lin_nbr_{ename}',
+                        nn.Linear(in_dim, out_dim, bias=False))
+      else:
+        self.add_module(f'lin_{ename}',
+                        nn.Linear(in_dim, heads * out_dim, bias=False))
+        for side in ('src', 'dst'):
+          p = nn.Parameter(torch.empty(heads, out_dim))
+          nn.init.xavier_uniform_(p)
+          self.register_parameter(f'att_{side}_{ename}', p)
+
+  @property
+  def out_types(self):
+    return {self._recs_of(et)[0]['key_t'] for et in self.etypes}
+
+  def _recs_of(self, et):
+    return [r for recs in self.records for r in recs if r['et'] == et]
+
+  def forward(self, x_dict, edge_mask_dict, edge_index_dict=None):
+    if self.mode == 'merge':
+      assert edge_index_dict is not None, (
+          "TreeHeteroConv(mode='merge') gathers children through the "
+          'edge rows — pass edge_index_dict')
+    if self.dtype is not None:
+      x_dict = {t: x.to(self.dtype) for t, x in x_dict.items()}
+    rows = {t: (x.shape[0] if self.out_rows is None
+                else min(int(self.out_rows[t]), x.shape[0]))
+            for t, x in x_dict.items()}
+    out = {}
+    for et in self.etypes:
+      recs = [r for r in self._recs_of(et)
+              if r['res_t'] in x_dict and r['key_t'] in x_dict]
+      if not recs:
+        continue
+      if self.mode == 'merge':
+        fn = self._gat_et_merge if self.conv == 'gat' else \
+            self._sage_et_merge
+        t, val = fn(et, recs, x_dict, edge_mask_dict, rows,
+                    edge_index_dict)
+      else:
+        fn = self._gat_et if self.conv == 'gat' else self._sage_et
+        t, val = fn(et, recs, x_dict, edge_mask_dict, rows)
+      out[t] = out[t] + val if t in out else val
+    return out
+
+  # ------------------------------------------------------------ shared
+
+  def _sage_out(self, ename, key_t, x_key, n_rows, agg):
+    """The SAGE tail of both modes: the self projection of the output
+    prefix plus the neighbour projection of the aggregate."""
+    return key_t, dense(getattr(self, f'lin_self_{ename}'), x_key[:n_rows],
+                        self.dtype) + \
+        dense(getattr(self, f'lin_nbr_{ename}'), agg, self.dtype)
+
+  def _gat_setup(self, ename, key_t, res_ts, x_dict):
+    """The GAT preamble of both modes: one projection per participating
+    type and separate src / dst alpha maps (a self-relation reads both
+    for one type), alphas in float32."""
+    heads, hd = self.heads, self.out_dim
+    a_src = getattr(self, f'att_src_{ename}')
+    a_dst = getattr(self, f'att_dst_{ename}')
+    lin = getattr(self, f'lin_{ename}')
+    w = {t: dense(lin, x_dict[t], self.dtype) for t in res_ts | {key_t}}
+    alpha_src = {t: (w[t].float().reshape(-1, heads, hd) * a_src).sum(-1)
+                 for t in res_ts}
+    alpha_dst_key = (w[key_t].float().reshape(-1, heads, hd) *
+                     a_dst).sum(-1)
+    return w, alpha_src, alpha_dst_key
+
+  def _run_messages(self, wch, e, m, f, k):
+    """``[f, heads * hd]``: the attention-weighted sum of each run's
+    ``k`` child projections."""
+    heads, hd = self.heads, self.out_dim
+    attn = _masked_run_softmax(e, m, wch.dtype, self.negative_slope)
+    msgs = wch.reshape(f, k, heads, hd)
+    return (msgs * attn[..., None]).sum(1).reshape(f, heads * hd)
+
+  def _heads_out(self, acc, n_rows):
+    if not self.concat:
+      acc = acc.reshape(n_rows, self.heads, self.out_dim).mean(1)
+    return acc
+
+  # --------------------------------------------------------- tree mode
+
+  def _sage_et(self, et, recs, x_dict, edge_mask_dict, rows):
+    ename = '__'.join(et)
+    key_t = recs[0]['key_t']
+
+    def per_record(r, m):
+      ch = x_dict[r['res_t']][r['child_base']:
+                              r['child_base'] + r['fcap'] * r['k']]
+      return _masked_flat_run_mean(ch, m, r['k'])
+
+    parts = walk_hetero_records(recs, edge_mask_dict, rows[key_t],
+                                per_record)
+    x_key = x_dict[key_t]
+    agg = resolve_hetero_parts(parts, (x_key.shape[-1],), x_key.dtype,
+                               x_key.device)
+    return self._sage_out(ename, key_t, x_key, rows[key_t], agg)
+
+  def _gat_et(self, et, recs, x_dict, edge_mask_dict, rows):
+    ename = '__'.join(et)
+    key_t, res_ts = recs[0]['key_t'], {r['res_t'] for r in recs}
+    heads, hd = self.heads, self.out_dim
+    w, alpha_src, alpha_dst_key = self._gat_setup(ename, key_t, res_ts,
+                                                  x_dict)
+
+    def per_record(r, m):
+      f, k, cb, pb = r['fcap'], r['k'], r['child_base'], r['parent_base']
+      wch = w[r['res_t']][cb:cb + f * k]
+      e = alpha_src[r['res_t']][cb:cb + f * k].reshape(f, k, heads) + \
+          alpha_dst_key[pb:pb + f][:, None, :]
+      return self._run_messages(wch, e, m, f, k)
+
+    parts = walk_hetero_records(recs, edge_mask_dict, rows[key_t],
+                                per_record)
+    outv = resolve_hetero_parts(parts, (heads * hd,), w[key_t].dtype,
+                                w[key_t].device)
+    return key_t, self._heads_out(outv, rows[key_t])
+
+  # -------------------------------------------------------- merge mode
+
+  @staticmethod
+  def _run_layout(r, edge_mask_dict, edge_index_dict, n_out):
+    """(mask ``[f, k]``, child rows ``[f*k]``, run-target base (0-d),
+    run ok ``[f]``) of record ``r``'s edge segment; the base is
+    ``min(tgt - j)`` over valid runs (``n_out`` without one), on the
+    device."""
+    f, k = r['fcap'], r['k']
+    lo, hi = r['edge_base'], r['edge_base'] + f * k
+    ei = edge_index_dict[r['out_et']]
+    m = edge_mask_dict[r['out_et']][lo:hi].reshape(f, k)
+    src = torch.clamp(ei[0, lo:hi], min=0).to(torch.int64)
+    tgt = ei[1, lo:hi].reshape(f, k).amax(1)
+    ok = m.any(1) & (tgt >= 0)
+    ar = torch.arange(f, dtype=tgt.dtype, device=tgt.device)
+    base = torch.where(ok, tgt - ar, n_out).amin().to(torch.int32)
+    return m, src, base, ok
+
+  @staticmethod
+  def _acc_add(acc, vals, base):
+    """``acc[base:base+f] += vals`` at the clamped dynamic start
+    (records of one target type within a hop overlap: an add, not a
+    write)."""
+    return acc.index_add(0, _dynamic_rows(acc.shape[0], base,
+                                          vals.shape[0]), vals)
+
+  def _sage_et_merge(self, et, recs, x_dict, edge_mask_dict, rows,
+                     edge_index_dict):
+    ename = '__'.join(et)
+    key_t = recs[0]['key_t']
+    n_out = rows[key_t]
+    x_key = x_dict[key_t]
+    agg = x_key.new_zeros((n_out, x_key.shape[-1]))
+    for r in recs:
+      if r['parent_base'] >= n_out:
+        break
+      m, src, base, ok = self._run_layout(r, edge_mask_dict,
+                                          edge_index_dict, n_out)
+      mean = _masked_flat_run_mean(x_dict[r['res_t']].index_select(0, src),
+                                   m, r['k'])
+      agg = self._acc_add(agg, torch.where(ok[:, None], mean, 0.0), base)
+    return self._sage_out(ename, key_t, x_key, n_out, agg)
+
+  def _gat_et_merge(self, et, recs, x_dict, edge_mask_dict, rows,
+                    edge_index_dict):
+    ename = '__'.join(et)
+    key_t, res_ts = recs[0]['key_t'], {r['res_t'] for r in recs}
+    heads, hd = self.heads, self.out_dim
+    w, alpha_src, alpha_dst_key = self._gat_setup(ename, key_t, res_ts,
+                                                  x_dict)
+    n_out = rows[key_t]
+    acc = w[key_t].new_zeros((n_out, heads * hd))
+    for r in recs:
+      if r['parent_base'] >= n_out:
+        break
+      f, k = r['fcap'], r['k']
+      m, src, base, ok = self._run_layout(r, edge_mask_dict,
+                                          edge_index_dict, n_out)
+      wch = w[r['res_t']].index_select(0, src)
+      a_ch = alpha_src[r['res_t']].index_select(0, src)
+      # parents are arithmetic from the base (the engine compacts the
+      # frontier), so one clamped slice reads the run alphas
+      a_par = alpha_dst_key.index_select(
+          0, _dynamic_rows(alpha_dst_key.shape[0], base, f))
+      e = a_ch.reshape(f, k, heads) + a_par[:, None, :]
+      vals = self._run_messages(wch, e, m, f, k)
+      acc = self._acc_add(acc, torch.where(ok[:, None], vals, 0.0), base)
+    return key_t, self._heads_out(acc, n_out)
+
+
+class RGNN(nn.Module):
+  """Typed GNN: a per-node-type input projection (``embed_{t}``), then
+  ``num_layers`` typed layers with ReLU between, then ``lin_out`` on
+  ``out_ntype`` (``graphlearn_tpu/models/models.py:RGNN``; the reference
+  IGBH RGNN with 'sage' or 'gat' convs).
+
+  Args:
+    etypes: message-direction edge types (the batch's keys; for
+      ``edge_dir='out'`` the reversed stored types).
+    in_dims: ``{node type: feature width}`` of the batch's featured
+      types (torch needs each ``embed_{t}``'s width up front).
+    hidden_dim / out_dim / num_layers / conv / heads / out_ntype: as in
+      JAX; a GAT layer of width ``dim`` runs ``heads`` heads of
+      ``dim // heads``, concatenated.
+    hop_node_offsets / hop_edge_offsets: the typed layout
+      (``sampler.hetero_tree_layout`` or ``hetero_tree_blocks``, with the
+      loader's seed caps and fanouts): the hierarchical forward, each
+      layer over the typed prefixes its depth needs.
+    tree_dense / merge_dense: ``TreeHeteroConv`` layers in 'tree' or
+      'merge' mode over ``tree_records`` (``hetero_tree_blocks``, with
+      ``etype_caps`` = the loader's caps for merge); both need the
+      offsets.
+    dtype: compute dtype (the parameters stay float32).
+    device: None means the card. Weights are drawn on the CPU from
+      ``generator`` and then moved.
+
+  ``forward(x_dict, edge_index_dict, edge_mask_dict, layers=None,
+  embed=True, head=None)``: ``layers=(lo, hi)`` runs conv layers
+  ``[lo, hi)`` of the segment forward, ``embed`` gates the input
+  projections, ``head`` the final ``lin_out`` (None: when
+  ``out_ntype`` is set). Returns ``out_ntype``'s logits or the typed
+  dict.
+  """
+
+  def __init__(self, etypes, in_dims, hidden_dim: int, out_dim: int,
+               num_layers: int = 2, conv: str = 'sage', heads: int = 1,
+               out_ntype=None, dtype=None, hop_node_offsets=None,
+               hop_edge_offsets=None, tree_dense: bool = False,
+               tree_records=None, merge_dense: bool = False, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    device = resolve_device(device)
+    assert conv in ('sage', 'gat'), conv
+    assert not (tree_dense and merge_dense)
+    self.etypes = [tuple(et) for et in etypes]
+    self.num_layers, self.conv, self.heads = num_layers, conv, heads
+    self.out_ntype, self.dtype = out_ntype, dtype
+    self.hidden_dim, self.out_dim = hidden_dim, out_dim
+    self.tree_dense, self.merge_dense = tree_dense, merge_dense
+    self.hop_node_offsets = hop_node_offsets
+    self.hop_edge_offsets = (None if hop_edge_offsets is None else
+                             {tuple(k): v
+                              for k, v in hop_edge_offsets.items()})
+    if tree_dense or merge_dense:
+      assert hop_node_offsets is not None and tree_records is not None, (
+          'RGNN dense paths require hop offsets + tree_records '
+          '(sampler.hetero_tree_blocks)')
+    self.tree_records = tree_records
+    for t, f in in_dims.items():
+      self.add_module(f'embed_{t}', nn.Linear(f, hidden_dim))
+    lin_out = out_ntype is not None
+    types = set(in_dims)
+    for i in range(num_layers):
+      last = i == num_layers - 1
+      dim = hidden_dim if (lin_out or not last) else out_dim
+      if conv == 'gat':
+        assert dim % heads == 0, (
+            f'GAT layer width {dim} must be divisible by '
+            f'heads={heads} (reference parity: per-head dim = '
+            'width // heads)')
+        conv_dim = dim // heads
+      else:
+        conv_dim = dim
+      if tree_dense or merge_dense:
+        hops_used = num_layers - i
+        # output widths: the next layer's typed prefixes
+        layer = TreeHeteroConv(
+            hidden_dim, conv_dim, tree_records[:hops_used], types,
+            conv=conv, heads=heads, concat=True, dtype=dtype,
+            out_rows={t: o[hops_used - 1]
+                      for t, o in hop_node_offsets.items()},
+            mode='merge' if merge_dense else 'tree')
+        types = layer.out_types
+      else:
+        layer = HeteroConv({
+            et: SAGEConv(hidden_dim, conv_dim, dtype=dtype)
+            if conv == 'sage' else
+            GATConv(hidden_dim, conv_dim, heads=heads, concat=True,
+                    dtype=dtype)
+            for et in self.etypes})
+      self.add_module(f'hetero{i}', layer)
+    if lin_out:
+      self.lin_out = nn.Linear(hidden_dim, out_dim)
+    self.reset_parameters(generator)
+    self.to(device)
+
+  @torch.no_grad()
+  def reset_parameters(self, generator: Optional[torch.Generator] = None):
+    """nn.Linear's default init (uniform in +-1/sqrt(fan_in)) for the
+    projections, Glorot uniform for the attention vectors, drawn from
+    ``generator`` on the CPU."""
+    for name, p in self.named_parameters():
+      leaf = name.rsplit('.', 1)[-1]
+      if leaf.startswith('att_'):
+        bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+      else:
+        fan_in = p.shape[-1] if p.dim() == 2 else \
+            self.get_submodule(name.rsplit('.', 1)[0]).in_features
+        bound = 1.0 / fan_in ** 0.5
+      p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                            generator=generator))
+
+  def flax_scope(self, mods):
+    """The flax module path of a torch module path (``models.convert``):
+    layer ``i``'s segment conv of the ``j``-th edge type is flax's
+    auto-named ``SAGEConv_{i*E + j}`` / ``GATConv_{i*E + j}`` (named in
+    construction order, layers a slice skips included)."""
+    if len(mods) >= 3 and mods[0].startswith('hetero') and \
+        mods[1] == 'convs':
+      i = int(mods[0][len('hetero'):])
+      j = [as_str(et) for et in self.etypes].index(mods[2])
+      cls = 'SAGEConv' if self.conv == 'sage' else 'GATConv'
+      return [f'{cls}_{i * len(self.etypes) + j}'] + list(mods[3:])
+    return list(mods)
+
+  def forward(self, x_dict, edge_index_dict, edge_mask_dict, layers=None,
+              embed: bool = True, head=None):
+    hier = self.hop_node_offsets is not None
+    dense_mode = self.tree_dense or self.merge_dense
+    if layers is not None:
+      assert not hier and not dense_mode, (
+          'layer slices run the plain segment forward — build the '
+          'serving model without hop offsets / dense flags')
+      assert 0 <= layers[0] <= layers[1] <= self.num_layers
+    if hier:
+      check_hetero_offsets(x_dict, edge_index_dict, self.hop_node_offsets,
+                           self.hop_edge_offsets, self.num_layers)
+    if embed:
+      x_dict = {t: dense(getattr(self, f'embed_{t}'), x, self.dtype)
+                for t, x in x_dict.items()}
+    for i in range(self.num_layers):
+      last = i == self.num_layers - 1
+      if layers is not None and not (layers[0] <= i < layers[1]):
+        continue
+      if hier:
+        hops_used = self.num_layers - i
+        x_in, ei, em = hetero_trim(x_dict, edge_index_dict, edge_mask_dict,
+                                   self.hop_node_offsets,
+                                   self.hop_edge_offsets, hops_used)
+      else:
+        x_in, ei, em = x_dict, edge_index_dict, edge_mask_dict
+      layer = getattr(self, f'hetero{i}')
+      if dense_mode:
+        x_dict = layer(x_in, em, ei if self.merge_dense else None)
+      else:
+        x_dict = layer(x_in, ei, em)
+      if not last:
+        x_dict = {t: torch.relu(v) for t, v in x_dict.items()}
+    if head is None:
+      head = self.out_ntype is not None
+    if head:
+      assert self.out_ntype is not None, 'head=True requires out_ntype'
+      return dense(self.lin_out, x_dict[self.out_ntype], self.dtype)
+    return x_dict

@@ -4,7 +4,8 @@ Counterpart of ``graphlearn_tpu/models/train.py``: ``TrainState``,
 ``create_train_state``, ``make_loss_fn``, ``make_train_step`` (with its
 ``eval_step``), ``make_forward_fn``, ``make_layer_slice_fn``,
 ``make_eval_counts``, ``tree_hop_offsets``, ``merge_hop_offsets`` and
-``batch_to_dict``. The model owns its parameters (an ``nn.Module``), so
+``batch_to_dict`` (homogeneous and typed batches: a typed model returns
+the seed type's logits, so the loss and the steps serve both). The model owns its parameters (an ``nn.Module``), so
 the functions take the batch only, and the train state holds the
 optimizer and the step count. The optimizer is ``torch.optim.Adam`` with
 optax.adam's hyperparameters (b1 0.9, b2 0.999, eps 1e-8): the same
@@ -211,8 +212,20 @@ def link_batch_to_dict(batch):
               edge_label=batch.metadata['edge_label'])
 
 
-def batch_to_dict(batch):
-  """``loader.Data`` -> the flat dict the forward consumes."""
+def batch_to_dict(batch, ntype=None):
+  """``loader.Data`` -> the flat dict the forward consumes. A typed
+  ``loader.HeteroData`` keeps its per-type ``x`` / ``edge_index`` /
+  ``edge_mask`` dicts (the typed model's inputs) and gives the seed
+  type's labels and seed count (``ntype``, default: the batch's seed
+  type), so the loss reads the seed type's logits, whose leading rows
+  are the seeds in every typed forward (the hierarchical one emits only
+  that prefix)."""
+  if isinstance(batch.node, dict):
+    if ntype is None:
+      (ntype,) = batch.batch
+    return dict(x=batch.x, edge_index=batch.edge_index,
+                edge_mask=batch.edge_mask, y=batch.y[ntype],
+                num_seed_nodes=batch.num_sampled_nodes[ntype][0])
   num_seed = (batch.num_sampled_nodes[0]
               if batch.num_sampled_nodes is not None else batch.batch_size)
   return dict(x=batch.x, edge_index=batch.edge_index,

@@ -14,7 +14,7 @@ kernels), ``reset_launch_counts`` sets them to 0 and
 """
 from . import (draw, gather, kernels, keys, mapped, negative, probes,
                sample_fused)
-from .collate import collate_batch
+from .collate import collate_batch, gather_rows
 from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
                      gather_rows_hbm2, gather_rows_hbm2_plain,
                      gather_rows_plain, gather_rows_unified,
@@ -24,7 +24,8 @@ from .induce import InducerState, induce_next, init_empty, init_node
 from .induce_map import MapInducerState, induce_next_map, init_node_map
 from .induce_merge import (MergeInducerState, induce_next_merge,
                            init_empty_merge, init_node_merge)
-from .induce_tree import TreeInducerState, induce_next_tree, init_node_tree
+from .induce_tree import (TreeInducerState, induce_next_tree,
+                          init_empty_tree, init_node_tree)
 from .keys import step_keys
 from .neighbor import (BLOCK, build_padded_adjacency,
                        build_padded_adjacency_device, build_row_cumsum,

@@ -1,8 +1,9 @@
 """Batch collation: node mask, edge index, feature and label gathers.
 
-Counterpart of ``graphlearn_tpu/ops/collate.py:collate_batch``. The
-feature gather goes through ``ops.gather_rows_hbm`` (the CUDA row-gather
-kernel on the card); labels and edge features are plain torch gathers.
+Counterpart of ``graphlearn_tpu/ops/collate.py`` (``collate_batch``, and
+``gather_rows``, the typed collate's per-node-type gather). The feature
+gathers go through ``ops.gather_rows_hbm`` (the CUDA row-gather kernel on
+the card); labels and edge features are plain torch gathers.
 """
 import torch
 
@@ -45,3 +46,13 @@ def collate_batch(node, num_nodes, row, col, feats, id2index, labels,
   else:
     out['edge_attr'] = None
   return out
+
+
+def gather_rows(table, id2index, ids):
+  """``table[id2index[max(ids, 0)]]`` (``id2index`` None: the identity):
+  one node type's feature rows, through ``gather_rows_hbm`` (one launch
+  of the row-gather kernel on the card)."""
+  safe = torch.clamp(ids, min=0)
+  if id2index is not None:
+    safe = id2index[safe.long()]
+  return gather_rows_hbm(table, safe)

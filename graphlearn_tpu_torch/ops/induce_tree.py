@@ -33,6 +33,14 @@ def init_node_tree(seeds, seed_mask, capacity: int):
   return TreeInducerState(nodes, count), masked, seed_mask, inverse
 
 
+def init_empty_tree(capacity: int, dtype=torch.int32, device=None):
+  """A tree state with no nodes yet (typed batches: a node type first
+  reached mid-hop)."""
+  return TreeInducerState(
+      torch.full((capacity,), FILL, dtype=dtype, device=device),
+      torch.zeros((), dtype=torch.int32, device=device))
+
+
 def induce_next_tree(state: TreeInducerState, src_idx, nbrs, nbr_mask,
                      offset: int):
   """Absorb one hop: the hop block occupies slots

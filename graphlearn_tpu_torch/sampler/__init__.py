@@ -1,7 +1,10 @@
 from . import calibrate
-from .base import (EdgeSamplerInput, NegativeSampling, NeighborOutput,
-                   NodeSamplerInput, SamplerOutput)
+from .base import (EdgeSamplerInput, HeteroSamplerOutput, NegativeSampling,
+                   NeighborOutput, NodeSamplerInput, SamplerOutput)
+from .calibrate import (estimate_hetero_frontier_caps,
+                        normalize_hetero_frontier_caps)
 from .negative_sampler import RandomNegativeSampler
 from .neighbor_sampler import (NeighborSampler, capacity_plan,
-                               merge_layout_from_caps, tree_layout,
-                               tree_layout_from_caps)
+                               hetero_capacity_plan, hetero_tree_blocks,
+                               hetero_tree_layout, merge_layout_from_caps,
+                               tree_layout, tree_layout_from_caps)

@@ -2,9 +2,10 @@
 
 Counterpart of ``graphlearn_tpu/sampler/base.py`` (``NodeSamplerInput``,
 ``EdgeSamplerInput``, ``NegativeSampling``, ``NeighborOutput``,
-``SamplerOutput``). Outputs are fixed-shape and mask-padded: ``node`` /
-``row`` / ``col`` are padded to static capacities, validity rides in
-``edge_mask`` and the 0-d ``num_nodes`` tensor.
+``SamplerOutput``, ``HeteroSamplerOutput``). Outputs are fixed-shape and
+mask-padded: ``node`` / ``row`` / ``col`` are padded to static
+capacities, validity rides in ``edge_mask`` and the 0-d ``num_nodes``
+tensor.
 """
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
@@ -12,7 +13,11 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..typing import EdgeType
+from ..typing import EdgeType, NodeType
+
+
+def _host(v):
+  return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
 class CastMixin:
@@ -130,9 +135,7 @@ class SamplerOutput:
     """Exact-size numpy arrays at the host boundary (the padding
     dropped; local indices stay valid because padding occupies the
     tail), as ``graphlearn_tpu/sampler/base.py:SamplerOutput.trim``."""
-    def host(v):
-      return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-
+    host = _host
     node = host(self.node)
     n = int(self.num_nodes) if self.num_nodes is not None else node.shape[0]
     out = SamplerOutput(node=node[:n], num_nodes=n,
@@ -153,4 +156,55 @@ class SamplerOutput:
       out.num_sampled_nodes = [int(x) for x in self.num_sampled_nodes]
     if self.num_sampled_edges is not None:
       out.num_sampled_edges = [int(x) for x in self.num_sampled_edges]
+    return out
+
+
+@dataclass
+class HeteroSamplerOutput(CastMixin):
+  """Typed multi-hop sample: per-node-type node buffers (``node``,
+  ``num_nodes``, ``num_sampled_nodes`` keyed by ``NodeType``) and
+  per-edge-type relabelled COO (``row``, ``col``, ``edge``, ``edge_mask``,
+  ``num_sampled_edges`` keyed by the emitted ``EdgeType``), padded as
+  ``SamplerOutput``'s."""
+  node: Dict[NodeType, Any]
+  num_nodes: Dict[NodeType, Any] = None
+  row: Dict[EdgeType, Any] = None
+  col: Dict[EdgeType, Any] = None
+  edge: Optional[Dict[EdgeType, Any]] = None
+  edge_mask: Dict[EdgeType, Any] = None
+  batch: Optional[Dict[NodeType, Any]] = None
+  batch_size: Optional[int] = None
+  num_sampled_nodes: Optional[Dict[NodeType, List[Any]]] = None
+  num_sampled_edges: Optional[Dict[EdgeType, List[Any]]] = None
+  input_type: Optional[Union[NodeType, EdgeType]] = None
+  metadata: Dict[str, Any] = field(default_factory=dict)
+  device: Any = None
+
+  def trim(self) -> 'HeteroSamplerOutput':
+    """Exact-size numpy arrays per type, the padding dropped (as
+    ``graphlearn_tpu/sampler/base.py:HeteroSamplerOutput.trim``)."""
+    node, num_nodes = {}, {}
+    for t, buf in self.node.items():
+      buf = _host(buf)
+      n = (int(self.num_nodes[t]) if self.num_nodes is not None
+           else buf.shape[0])
+      node[t], num_nodes[t] = buf[:n], n
+    out = HeteroSamplerOutput(node=node, num_nodes=num_nodes,
+                              input_type=self.input_type,
+                              batch_size=self.batch_size,
+                              metadata=self.metadata)
+    if self.row is not None:
+      out.row, out.col, out.edge = {}, {}, ({} if self.edge else None)
+      for et, row in self.row.items():
+        row = _host(row)
+        col = _host(self.col[et])
+        mask = (_host(self.edge_mask[et]) if self.edge_mask is not None
+                else np.ones_like(row, bool))
+        mask = mask & (row >= 0) & (col >= 0)
+        out.row[et], out.col[et] = row[mask], col[mask]
+        if self.edge is not None and self.edge.get(et) is not None:
+          out.edge[et] = _host(self.edge[et])[mask]
+      out.edge_mask = None
+    if self.batch is not None:
+      out.batch = {t: _host(v) for t, v in self.batch.items()}
     return out

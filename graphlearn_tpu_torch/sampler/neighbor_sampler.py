@@ -1,5 +1,5 @@
-"""Multi-hop neighbor sampler, homogeneous: the tree and merge engines
-over the JAX package's four sampling backends.
+"""Multi-hop neighbor sampler, homogeneous and typed: the tree and merge
+engines over the JAX package's four sampling backends.
 
 Counterpart of ``graphlearn_tpu/sampler/neighbor_sampler.py``. The JAX
 package compiles the whole multi-hop sample into one program
@@ -55,6 +55,17 @@ Edge direction: ``row`` is the neighbor (message source) local index and
 sampled edge's global id (the graph's ``edge_ids`` at the hop's edge
 position, -1 where masked) as ``SamplerOutput.edge``.
 
+Typed graphs (a dict of ``Graph`` by ``EdgeType``, fanouts a list or a
+per-edge-type dict) run the typed engine (``_hetero_sample_from_nodes``):
+one hop per ``(hop, edge type)`` item of ``hetero_capacity_plan`` (sorted
+edge types within a hop), each with one key of the sampler's own stream
+in that order, as JAX's ``sample_one_hop`` draws them; uniform hops take
+the fused hop (the hop kernel on the card), block and weighted hops the
+draw kernel. The merge engine never runs its fused level on typed graphs,
+as in JAX. With ``edge_dir='out'`` an edge type ``(u, r, v)`` expands a
+``u`` frontier into ``v`` neighbours and is emitted under
+``reverse_edge_type`` (row = the ``v`` neighbour, col = the ``u`` seed).
+
 Beside ``sample_from_nodes``: ``sample_from_edges`` (link sampling: the
 negatives drawn on the device by ``ops.random_negative_sample``, one
 launch on the card, and the seed union sampled without a host round
@@ -62,7 +73,7 @@ trip), ``subgraph`` (the induced subgraph of a sampled node set,
 ``ops.node_subgraph``), ``sample_pyg_v1`` and ``sample_one_hop``.
 """
 import copy
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -71,8 +82,10 @@ from .. import metrics, ops
 from .. import random as trandom
 from ..data import Graph
 from ..ops.unique import FILL
-from .base import (EdgeSamplerInput, NeighborOutput, NodeSamplerInput,
-                   SamplerOutput)
+from ..typing import EdgeType, NodeType, reverse_edge_type
+from .base import (EdgeSamplerInput, HeteroSamplerOutput, NeighborOutput,
+                   NodeSamplerInput, SamplerOutput)
+from .calibrate import clamp_etype_cap, normalize_hetero_frontier_caps
 
 
 def _round_up(n: int, multiple: int = 8) -> int:
@@ -138,37 +151,219 @@ def _tree_node_cap(caps, fanouts) -> int:
   return tree_layout_from_caps(caps, fanouts)[0][-1]
 
 
+def _final_touch_map(items, edge_dir):
+  """{result node type -> index of its last induce within a hop's
+  ``(edge_type, caps)`` items}: the typed engine passes ``final=True``
+  there on the last hop, so the merge engine skips its sorted-view
+  rebuild (only nodes / num_nodes are read afterwards)."""
+  last = {}
+  for j, (et, _) in enumerate(items):
+    last[et[2] if edge_dir == 'out' else et[0]] = j
+  return last
+
+
+def hetero_capacity_plan(etypes, fanouts_of, seed_caps, edge_dir,
+                         etype_caps=None):
+  """Static typed buffer plan shared by the typed engine and the
+  hierarchical model layout (``graphlearn_tpu/sampler/neighbor_sampler.py:
+  hetero_capacity_plan``).
+
+  Returns ``(ntypes, hop_caps, node_caps)``: ``hop_caps[h]`` maps each
+  edge type active at hop ``h`` to ``(source-frontier capacity, fanout,
+  new-node cap)``; ``node_caps[t]`` is node type ``t``'s total buffer
+  size.
+
+  ``etype_caps`` (``{etype: [per-hop caps]}``,
+  calibrate.estimate_hetero_frontier_caps) clamps the NEW unique nodes
+  each (hop, etype) may contribute — without it the plan compounds
+  worst case across etypes every hop (new-node cap == fcap * k) and a
+  reference-shaped 3-hop config statically exceeds the graph itself.
+  Calibrated plans stay exact while no batch overflows a cap (the typed
+  engine raises the on-device overflow flag when one does).
+  """
+  # canonical intra-hop order: every consumer of this plan (the typed
+  # engine's hop loop, hetero_tree_layout, hetero_tree_blocks) takes its
+  # (hop, etype) order from hop_caps's dict order, so building it sorted
+  # makes the positional layout independent of the caller's etype order
+  etypes = sorted(tuple(et) for et in etypes)
+  num_hops = max(len(fanouts_of(et)) for et in etypes)
+  ntypes = set()
+  for (u, _, v) in etypes:
+    ntypes.update((u, v))
+  frontier_cap = {t: seed_caps.get(t, 0) for t in ntypes}
+  node_caps = dict(frontier_cap)
+  hop_caps = []
+  for hop in range(num_hops):
+    adds = {t: 0 for t in ntypes}
+    per_et = {}
+    for et in etypes:
+      fo = fanouts_of(et)
+      if hop >= len(fo):
+        continue
+      k = fo[hop]
+      key_t = et[0] if edge_dir == 'out' else et[2]
+      res_t = et[2] if edge_dir == 'out' else et[0]
+      fcap = frontier_cap.get(key_t, 0)
+      if fcap == 0 or k == 0:
+        continue
+      cap = clamp_etype_cap(etype_caps, et, hop, fcap * k)
+      per_et[et] = (fcap, k, cap)
+      adds[res_t] += cap
+    hop_caps.append(per_et)
+    for t in ntypes:
+      frontier_cap[t] = adds[t]
+      node_caps[t] += adds[t]
+  return ntypes, hop_caps, node_caps
+
+
+def hetero_tree_layout(seed_caps: Dict[NodeType, int], etypes,
+                       num_neighbors, edge_dir: str = 'out',
+                       etype_caps=None):
+  """(hop_node_offsets, hop_edge_offsets) of the hetero tree-mode
+  positional layout — the typed counterpart of ``tree_layout`` consumed
+  by the hierarchical (trim-per-layer) hetero model forward.
+
+  ``seed_caps`` must match the engine's seed buffer sizes: for
+  single-type seeds that is the loader's ``batch_size`` (its
+  ``batch_cap``); multi-type seeds round up to 8.
+
+  Returns ``({ntype: (o_0, ..., o_H)}, {out_etype: (e_1, ..., e_H)})``
+  where ``o_h`` is the node-buffer prefix holding every node of depth
+  <= h and ``e_h`` the edge-buffer prefix holding hops 1..h; output edge
+  types are reversed from the stored etypes when ``edge_dir='out'``
+  (the engine emits message-flow orientation).
+
+  ``etype_caps`` (calibrate.estimate_hetero_frontier_caps) gives the
+  CALIBRATED layout: node prefixes grow by each (hop, etype)'s clamped
+  new-node cap while edge segments keep their ``fcap * k`` emission
+  width — matching the clamped typed engine exactly (fcap itself
+  shrinks because the previous hop's frontier was clamped).
+  """
+  etypes = [tuple(et) for et in etypes]
+  fanouts_of = ((lambda et: list(num_neighbors[et]))
+                if isinstance(num_neighbors, dict)
+                else (lambda et: list(num_neighbors)))
+  ntypes, hop_caps, _ = hetero_capacity_plan(etypes, fanouts_of,
+                                             seed_caps, edge_dir,
+                                             etype_caps=etype_caps)
+  node_offs = {t: [seed_caps.get(t, 0)] for t in ntypes}
+  out_ets = [reverse_edge_type(et) if edge_dir == 'out' else et
+             for et in etypes]
+  edge_tot = {et: 0 for et in out_ets}
+  edge_offs = {et: [] for et in out_ets}
+  for per_et in hop_caps:
+    adds = {t: 0 for t in ntypes}
+    seg = {et: 0 for et in out_ets}
+    for et, (fcap, k, cap) in per_et.items():
+      res_t = et[2] if edge_dir == 'out' else et[0]
+      out_et = reverse_edge_type(et) if edge_dir == 'out' else et
+      adds[res_t] += cap          # == fcap * k on unclamped plans
+      seg[out_et] += fcap * k     # emission width is never clamped
+    for t in ntypes:
+      node_offs[t].append(node_offs[t][-1] + adds[t])
+    for et in out_ets:
+      edge_tot[et] += seg[et]
+      edge_offs[et].append(edge_tot[et])
+  return ({t: tuple(v) for t, v in node_offs.items()},
+          {et: tuple(v) for et, v in edge_offs.items()})
+
+
+def hetero_tree_blocks(seed_caps: Dict[NodeType, int], etypes,
+                       num_neighbors, edge_dir: str = 'out',
+                       etype_caps=None):
+  """Per-(hop, edge-type) dense-aggregation records for typed tree
+  batches — the typed counterpart of the homo dense-run layout
+  (models.TreeSAGEConv): within hop ``h``, each edge type's children
+  occupy a CONTIGUOUS ``fcap*k`` block of the result type's buffer (the
+  engine appends per (hop, etype) in ``hop_caps`` order), their
+  targets are the key type's contiguous frontier block, and the edge
+  block is the out-etype's hop-``h`` segment. Consumed by
+  ``models.TreeHeteroConv``.
+
+  Returns ``(records, node_offs, edge_offs)`` with ``records[h]`` a
+  tuple of dicts ``{et, out_et, key_t, res_t, fcap, k, cap, child_base,
+  parent_base, edge_base}`` and node_offs/edge_offs the
+  hetero_tree_layout offsets (returned so one call serves both the
+  records and the hierarchical model layout — paired calls with
+  diverging arguments would silently mis-base the layout).
+
+  With ``etype_caps`` (the calibrated merge layout), ``cap`` is the
+  clamped new-node cap and ``child_base`` is NOT meaningful — clamped
+  merge states pack kept nodes by dynamic valid counts, so the dense
+  merge conv gathers children through the edge rows instead of a
+  positional slice (models.TreeHeteroConv mode='merge').
+  """
+  etypes = [tuple(et) for et in etypes]
+  fanouts_of = ((lambda et: list(num_neighbors[et]))
+                if isinstance(num_neighbors, dict)
+                else (lambda et: list(num_neighbors)))
+  ntypes, hop_caps, _ = hetero_capacity_plan(etypes, fanouts_of,
+                                             seed_caps, edge_dir,
+                                             etype_caps=etype_caps)
+  node_offs, edge_offs = hetero_tree_layout(seed_caps, etypes,
+                                            num_neighbors, edge_dir,
+                                            etype_caps=etype_caps)
+  records = []
+  for h, per_et in enumerate(hop_caps):
+    recs = []
+    child_off = {t: node_offs[t][h] for t in ntypes}   # hop-h block start
+    for et, (fcap, k, cap) in per_et.items():
+      key_t = et[0] if edge_dir == 'out' else et[2]
+      res_t = et[2] if edge_dir == 'out' else et[0]
+      out_et = reverse_edge_type(et) if edge_dir == 'out' else et
+      recs.append(dict(
+          et=et, out_et=out_et, key_t=key_t, res_t=res_t, fcap=fcap,
+          k=k, cap=cap, child_base=child_off[res_t],
+          parent_base=0 if h == 0 else node_offs[key_t][h - 1],
+          edge_base=(0 if h == 0 else edge_offs[out_et][h - 1])))
+      child_off[res_t] += cap
+    records.append(tuple(recs))
+  return tuple(records), node_offs, edge_offs
+
+
 def _later(what: str, slice_name: str):
   return NotImplementedError(
       f'{what} is not ported yet: it comes with the {slice_name} slice '
-      '(the port samples homogeneous graphs)')
+      'of the port')
 
 
 def _inducer_for(mode: str, num_graph_nodes: int = 0):
-  """``(init(seeds, mask, capacity), induce(state, fidx, nbrs, m, offset,
-  compact, final, max_new))`` of a dedup engine: one dispatch for the
-  sampler's per-backend hops (``graphlearn_tpu/sampler/
-  neighbor_sampler.py:_inducer_for``). ``offset`` is the tree's slot base
-  or the merge engine's prefix cap; ``compact`` the map engine's
-  compaction; ``final`` marks the last hop (the merge engine skips its
-  view rebuild)."""
+  """``(init(seeds, mask, capacity), init_empty(capacity, device=),
+  induce(state, fidx, nbrs, m, offset, compact=True, final=False,
+  max_new=None))`` of a dedup engine: one dispatch for the homogeneous
+  and typed engines (``graphlearn_tpu/sampler/neighbor_sampler.py:
+  _inducer_for``). ``offset`` is the tree's slot base or the merge
+  engine's prefix cap; ``compact`` the map engine's compaction; ``final``
+  marks the last hop induced on a state (the merge engine skips its view
+  rebuild). ``init_empty`` starts the typed engine's states of node types
+  first reached mid-hop."""
   if mode == 'merge':
-    return ops.init_node_merge, \
-        lambda st, fi, nb, m, off, compact, final, max_new: \
+    return ops.init_node_merge, ops.init_empty_merge, \
+        lambda st, fi, nb, m, off, compact=True, final=False, \
+        max_new=None: \
         ops.induce_next_merge(st, fi, nb, m, prefix_cap=off,
                               max_new=max_new, update_view=not final)
   if mode == 'map_table':
+    def _no_empty_map(capacity, device=None):
+      raise NotImplementedError(
+          'map-table lazy (empty) inducer states are not implemented — '
+          'the hetero engines use merge/tree modes; add an '
+          'ops.init_empty_map before wiring map_table into a typed path')
+
     return (lambda s, m, capacity: ops.init_node_map(
-        s, m, capacity, num_graph_nodes)), \
-        lambda st, fi, nb, m, off, compact, final, max_new: \
+        s, m, capacity, num_graph_nodes)), _no_empty_map, \
+        lambda st, fi, nb, m, off, compact=True, final=False, \
+        max_new=None: \
         ops.induce_next_map(st, fi, nb, m, compact_frontier=compact)
   if mode == 'sort_legacy':
-    return ops.init_node, \
-        lambda st, fi, nb, m, off, compact, final, max_new: \
+    return ops.init_node, ops.init_empty, \
+        lambda st, fi, nb, m, off, compact=True, final=False, \
+        max_new=None: \
         ops.induce_next(st, fi, nb, m)
   assert mode == 'tree', f'unknown dedup mode {mode!r}'
-  return ops.init_node_tree, \
-      lambda st, fi, nb, m, off, compact, final, max_new: \
+  return ops.init_node_tree, ops.init_empty_tree, \
+      lambda st, fi, nb, m, off, compact=True, final=False, \
+      max_new=None: \
       ops.induce_next_tree(st, fi, nb, m, off)
 
 
@@ -196,8 +391,9 @@ class NeighborSampler:
   """Fanout neighbor sampling over a device CSR.
 
   Args:
-    graph: a homogeneous ``Graph``.
-    num_neighbors: per-hop fanouts.
+    graph: a ``Graph``, or a dict of them by ``EdgeType`` (typed).
+    num_neighbors: per-hop fanouts: a list, or on a typed graph a dict of
+      lists by edge type.
     device: torch device (None means the card); must be the graph's,
       unless the graph is a 'CPU'-mode one, which is copied there.
     with_weight: edge-weight-biased sampling (on a graph built with
@@ -205,32 +401,33 @@ class NeighborSampler:
     strategy: 'random' (uniform) or 'block' (cluster sampling over
       aligned 16-wide CSR blocks; fanouts up to 16).
     seed: PRNG seed (None = 0).
-    node_budget: clamp on every hop's frontier capacity.
+    node_budget: clamp on every hop's frontier capacity (homogeneous).
     dedup: 'auto' (default; also 'map', 'sort', 'merge') runs the merge
       exact-dedup engine, 'tree' (or its alias 'none') the positional
       tree engine, 'map_table' / 'sort_legacy' the legacy exact engines.
     padded_window: sample from a ``[N, W]`` padded table (an int W, or
-      'auto': ``ops.choose_padded_window``); uniform sampling only.
-    frontier_caps: per-hop post-dedup frontier caps (a list, e.g. from
-      ``sampler.calibrate.estimate_frontier_caps``); the merge engine
-      only.
+      'auto': ``ops.choose_padded_window``); homogeneous uniform
+      sampling only.
+    frontier_caps: calibrated caps for the merge engine only: per-hop
+      post-dedup frontier caps (a list, e.g. from
+      ``sampler.calibrate.estimate_frontier_caps``), or on a typed graph
+      per-(hop, edge type) new-node caps (``{edge_type: [per-hop caps]}``
+      from ``estimate_hetero_frontier_caps``).
     with_edge: also emit each sampled edge's global id.
     edge_dir: 'out' (the graph is a CSR of out-edges) or 'in' (a CSC):
-      link sampling flips its negatives to (src, dst) under 'in'.
-
-  Heterogeneous graphs raise ``NotImplementedError``.
+      link sampling flips its negatives to (src, dst) under 'in'; the
+      typed engine keys each edge type by its src ('out') or dst ('in').
   """
 
-  def __init__(self, graph: Graph, num_neighbors=None, device=None,
+  def __init__(self, graph, num_neighbors=None, device=None,
                with_edge: bool = False, with_weight: bool = False,
                strategy: str = 'random', seed: Optional[int] = None,
                node_budget=None, dedup: str = 'auto', padded_window=None,
                frontier_caps=None, edge_dir: str = 'out'):
     from ..utils import resolve_device
-    if isinstance(graph, dict):
-      raise _later('heterogeneous sampling', 'hetero')
-    if isinstance(num_neighbors, dict):
-      raise _later('per-edge-type fanouts', 'hetero')
+    hetero = isinstance(graph, dict)
+    if isinstance(num_neighbors, dict) and not hetero:
+      raise ValueError('per-edge-type fanouts need a typed (dict) graph')
     self.dedup = dedup
     self.with_edge = with_edge
     self.edge_dir = edge_dir
@@ -249,12 +446,16 @@ class NeighborSampler:
         raise ValueError(f'frontier_caps is not supported with the legacy '
                          f'{dedup!r} engine (no overflow detection); use '
                          "dedup='merge'")
-      if isinstance(frontier_caps, dict):
+      if hetero:
+        frontier_caps = normalize_hetero_frontier_caps(frontier_caps, graph)
+      elif isinstance(frontier_caps, dict):
         raise ValueError('dict-form frontier_caps is hetero-only; pass '
                          'a per-hop list on homogeneous graphs')
-      frontier_caps = tuple(frontier_caps)
+      else:
+        frontier_caps = tuple(frontier_caps)
     self.frontier_caps = frontier_caps
-    fo = list(num_neighbors) if num_neighbors is not None else []
+    fo = (list(num_neighbors) if num_neighbors is not None and
+          not isinstance(num_neighbors, dict) else [])
     # the JAX sampler's validation, in its order and words
     if padded_window == 'auto':
       if not fo:
@@ -272,6 +473,9 @@ class NeighborSampler:
       if with_weight:
         raise ValueError('padded_window does not support weighted '
                          'sampling')
+      if hetero:
+        raise ValueError('padded_window is homogeneous-only (the typed '
+                         'engine samples the CSR directly)')
       if fo and padded_window < max(fo):
         raise ValueError(
             f'padded_window={padded_window} < max fanout {max(fo)}: '
@@ -281,24 +485,43 @@ class NeighborSampler:
     self.padded_window = padded_window
     self.node_budget = node_budget
     self.device = resolve_device(device)
-    if graph.mode == 'CPU':
-      graph = graph.on(self.device)
-    if graph.device != self.device:
-      raise ValueError(f'graph lives on {graph.device}, sampler asked for '
-                       f'{self.device}')
-    self.graph = graph
-    self.num_neighbors = fo
+    if hetero:
+      self.graph = {tuple(et): self._placed(g) for et, g in graph.items()}
+      self.num_neighbors = (
+          {tuple(et): list(v) for et, v in num_neighbors.items()}
+          if isinstance(num_neighbors, dict) else fo)
+    else:
+      self.graph = self._placed(graph)
+      self.num_neighbors = fo
     self._key = trandom.PRNGKey(0 if seed is None else seed)
     self._call_count = 0    # host-side PRNG stream position
     self._padded_seed = 0 if seed is None else seed
     self._scratch = {}      # node capacity -> the level kernel's scratch
     # the backends' device arrays, built at first use: the padded table
-    # (reseeded in place), the block view, the row CDF, and the row-sorted
-    # indices of negative sampling
+    # (reseeded in place), and per edge type (None: the homogeneous
+    # graph) the block view and the row CDF; the row-sorted indices of
+    # negative sampling
     self._padded = None
-    self._blocks = None
-    self._cumsum = None
+    self._blocks = {}
+    self._cumsum = {}
     self._neg_indices = None
+
+  def _placed(self, graph: Graph) -> Graph:
+    """``graph`` on the sampler's device: a 'CPU'-mode graph is copied
+    there, any other must already lie there."""
+    if graph.mode == 'CPU':
+      graph = graph.on(self.device)
+    if graph.device != self.device:
+      raise ValueError(f'graph lives on {graph.device}, sampler asked for '
+                       f'{self.device}')
+    return graph
+
+  @property
+  def is_hetero(self) -> bool:
+    return isinstance(self.graph, dict)
+
+  def _get_graph(self, etype: Optional[EdgeType] = None) -> Graph:
+    return self.graph[etype] if self.is_hetero else self.graph
 
   def _dedup_mode(self) -> str:
     """The engine: 'tree' for 'tree'/'none', 'merge' for
@@ -315,7 +538,11 @@ class NeighborSampler:
   @property
   def weighted(self) -> bool:
     """Weighted hops: ``with_weight`` on a graph that has edge weights."""
-    return self.with_weight and self.graph.edge_weights is not None
+    return self._weighted()
+
+  def _weighted(self, etype=None) -> bool:
+    return self.with_weight and \
+        self._get_graph(etype).edge_weights is not None
 
   def _backend(self) -> str:
     """The hop op: 'padded', 'block', 'weighted' or 'fused' (the hop or
@@ -329,6 +556,9 @@ class NeighborSampler:
   def hop_caps(self, batch_cap: int):
     """The resolved per-hop frontier capacities: a batch truncated under
     calibrated caps has ``num_sampled_nodes[i+1] > hop_caps[i+1]``."""
+    if self.is_hetero:
+      raise ValueError('hop_caps is homogeneous-only (the typed engine '
+                       'plans capacities per edge type)')
     return capacity_plan(batch_cap, self.num_neighbors, self.node_budget,
                          self.frontier_caps)
 
@@ -406,28 +636,31 @@ class NeighborSampler:
       return
     self._reseed_padded(self._padded_seed + 1 if seed is None else seed)
 
-  def _block_arrays(self):
+  def _block_arrays(self, etype=None):
     """(FILL-padded ``[ceil(E/16), 16]`` view of the indices, ``[N, 2]``
-    (start, degree) table), built on the device at first use."""
-    if self._blocks is None:
-      ind = self.graph.indices
+    (start, degree) table) of the graph of ``etype``, built on the device
+    at first use."""
+    if etype not in self._blocks:
+      g = self._get_graph(etype)
+      ind = g.indices
       pad = (-ind.shape[0]) % ops.BLOCK
       if pad:
         ind = torch.cat([ind, ind.new_full((pad,), FILL)])
-      self._blocks = (ind.reshape(-1, ops.BLOCK), self.graph.csr_meta)
-    return self._blocks
+      self._blocks[etype] = (ind.reshape(-1, ops.BLOCK), g.csr_meta)
+    return self._blocks[etype]
 
-  def _cumsum_for(self):
-    """The exact float32 row CDF of the edge weights (built on the host
-    once, ``ops.build_row_cumsum``), on the sampler's device."""
-    if self._cumsum is None:
-      g = self.graph
+  def _cumsum_for(self, etype=None):
+    """The exact float32 row CDF of the edge weights of the graph of
+    ``etype`` (built on the host once, ``ops.build_row_cumsum``), on the
+    sampler's device."""
+    if etype not in self._cumsum:
+      g = self._get_graph(etype)
       if g.edge_weights is None:
         raise ValueError('with_weight=True requires edge_weights')
-      self._cumsum = torch.as_tensor(
+      self._cumsum[etype] = torch.as_tensor(
           ops.build_row_cumsum(g.topo.indptr, g.edge_weights)).to(
               self.device)
-    return self._cumsum
+    return self._cumsum[etype]
 
   def _level_scratch(self, state, prefix_len: int):
     """The level kernel's scratch for this batch's node capacity, begun
@@ -444,50 +677,58 @@ class NeighborSampler:
 
   # ---------------------------------------------------------------- hops
 
-  def _hop(self, backend, frontier, fmask, k, key):
+  def _hop(self, backend, frontier, fmask, k, key, etype=None):
     """``(nbrs, epos, mask)`` of one padded, block, weighted or fused
-    hop."""
-    g = self.graph
+    hop over the graph of ``etype``."""
+    g = self._get_graph(etype)
     if backend == 'padded':
       pa = self._padded_arrays()
       return ops.uniform_sample_padded(pa['tab'], pa['deg'], frontier,
                                        fmask, k, key,
                                        epos_table=pa.get('eptab'))
     if backend == 'block':
-      blocks, meta = self._block_arrays()
+      blocks, meta = self._block_arrays(etype)
       return ops.uniform_sample_block(meta, blocks, g.num_edges, frontier,
                                       fmask, k, key)
     if backend == 'weighted':
-      return ops.weighted_sample(g.indptr, g.indices, self._cumsum_for(),
-                                 frontier, fmask, k, key)
+      return ops.weighted_sample(g.indptr, g.indices,
+                                 self._cumsum_for(etype), frontier, fmask,
+                                 k, key)
     return ops.sample_hop_fused(g.indptr, g.indices, None, frontier, fmask,
                                 k, key, meta=g.csr_meta)
 
-  def _edge_ids(self, epos, emask):
-    """Global edge ids of flat edge positions: the graph's ``edge_ids`` at
-    ``epos`` (``epos`` itself without them), -1 where ``emask`` is
-    False."""
+  def _edge_ids(self, epos, emask, etype=None):
+    """Global edge ids of flat edge positions: the ``edge_ids`` of the
+    graph of ``etype`` at ``epos`` (``epos`` itself without them), -1
+    where ``emask`` is False."""
     flat = epos.reshape(-1).to(torch.int64)
-    eids = self.graph.edge_ids
+    eids = self._get_graph(etype).edge_ids
     if eids is not None:
       if eids.shape[0] == 0:
         return torch.full_like(flat, -1)
       flat = eids[flat.clamp(0, eids.shape[0] - 1)]
     return torch.where(emask.reshape(-1), flat, -1)
 
-  def sample_one_hop(self, srcs, src_mask, k: int, key=None) -> \
-      NeighborOutput:
-    """One fanout hop: ``[B]`` seeds -> dense ``[B, k]`` neighbours and
-    mask, with their edge ids under ``with_edge``; weighted, block or
-    uniform (the hop kernel on the card), as JAX's ``sample_one_hop``."""
+  def _one_hop_backend(self, etype=None) -> str:
+    """``sample_one_hop``'s route: 'weighted', 'block' or 'fused'."""
+    return ('weighted' if self._weighted(etype) else
+            'block' if self.strategy == 'block' else 'fused')
+
+  def sample_one_hop(self, srcs, src_mask, k: int, key=None,
+                     etype: Optional[EdgeType] = None) -> NeighborOutput:
+    """One fanout hop over the graph (of ``etype`` on a typed graph):
+    ``[B]`` seeds -> dense ``[B, k]`` neighbours and mask, with their edge
+    ids under ``with_edge``; weighted or block (the draw kernel on the
+    card) or uniform (the hop kernel on the card), as JAX's
+    ``sample_one_hop``. ``key`` defaults to the next of the sampler's
+    stream."""
     if key is None:
       key = self._next_key()
     srcs = torch.as_tensor(srcs).to(self.device, torch.int32)
     src_mask = torch.as_tensor(src_mask).to(self.device, torch.bool)
-    backend = ('weighted' if self.weighted else
-               'block' if self.strategy == 'block' else 'fused')
-    nbrs, epos, mask = self._hop(backend, srcs, src_mask, k, key)
-    edges = (self._edge_ids(epos, mask).reshape(mask.shape)
+    nbrs, epos, mask = self._hop(self._one_hop_backend(etype), srcs,
+                                 src_mask, k, key, etype)
+    edges = (self._edge_ids(epos, mask, etype).reshape(mask.shape)
              if self.with_edge else None)
     return NeighborOutput(nbrs=nbrs, mask=mask, edges=edges)
 
@@ -503,7 +744,7 @@ class NeighborSampler:
     merge = mode == 'merge'
     backend = self._backend()
     level = merge and backend == 'fused'    # the fused level kernel
-    init_fn, induce_fn = _inducer_for(mode, g.num_nodes)
+    init_fn, _, induce_fn = _inducer_for(mode, g.num_nodes)
     if mode == 'tree':
       state, frontier, fmask, inv = init_fn(
           seeds, seed_mask, capacity=_tree_node_cap(caps, fanouts))
@@ -577,7 +818,17 @@ class NeighborSampler:
 
     ``key``: explicit per-batch key (default: the next key of the
     sampler's own fold_in stream). The overflow guard replays a
-    truncated batch at full capacities with the same key."""
+    truncated batch at full capacities with the same key. Typed graphs
+    draw from the sampler's stream only (``HeteroSamplerOutput``)."""
+    if self.is_hetero:
+      if key is not None:
+        # typed batches draw one key per (hop, edge type) from the
+        # sampler's own stream; ignoring an explicit key would let the
+        # exact-replay contract degrade unnoticed
+        raise NotImplementedError(
+            'explicit key is homogeneous-only; hetero sampling uses the '
+            "sampler's internal PRNG stream")
+      return self._hetero_sample_from_nodes(inputs, batch_cap)
     seeds = np.asarray(inputs.node).reshape(-1)
     n = seeds.shape[0]
     cap = batch_cap or _round_up(n)
@@ -598,6 +849,167 @@ class NeighborSampler:
         input_type=inputs.input_type,
         metadata={'seed_inverse': res['seed_inverse'], 'seed_mask': mask,
                   'overflow': res['overflow']})
+
+  # ----------------------------------------------------------- typed path
+
+  def _etype_fanouts(self, etype: EdgeType):
+    nn = self.num_neighbors
+    return list(nn[etype]) if isinstance(nn, dict) else list(nn)
+
+  def _hetero_sample_from_nodes(self, inputs, batch_cap=None):
+    """The typed engine (``graphlearn_tpu/sampler/neighbor_sampler.py:
+    _hetero_sample_from_nodes``): per node type one inducer state, per
+    ``(hop, edge type)`` item of ``hetero_capacity_plan`` one hop and one
+    induce into the result type's state.
+
+    ``edge_dir='out'``: edge type ``(u, r, v)`` stores u's out-edges;
+    the hop expands the u frontier into v neighbours, emitted under
+    ``reverse_edge_type`` ``(v, rev_r, u)`` with row = the v neighbour
+    and col = the u seed. ``edge_dir='in'``: the CSC by dst expands the
+    v frontier into u in-neighbours, emitted under the edge type itself
+    (row = u, col = v).
+
+    The batch's keys are the next ``len(items)`` keys of the sampler's
+    stream (``fold_in`` of the call counter), drawn on the host and, on
+    a card, uploaded as one tensor: the same words as one
+    ``sample_one_hop`` call per item. Dict ``inputs`` (``{ntype:
+    seeds}``) seed several types at once, each padded to a multiple of
+    8. Seeds go up from pinned memory without a host sync."""
+    dev = self.device
+    if isinstance(inputs, dict):
+      seeds_dict = {t: np.asarray(v).reshape(-1) for t, v in inputs.items()}
+      ntype = next(iter(seeds_dict))
+    else:
+      ntype = inputs.input_type
+      assert ntype is not None, 'hetero sampling requires input_type'
+      seeds_dict = {ntype: np.asarray(inputs.node).reshape(-1)}
+    caps_in, padded_d, smask_d = {}, {}, {}
+    for t, sd in seeds_dict.items():
+      n_t = sd.shape[0]
+      c = (batch_cap if batch_cap and len(seeds_dict) == 1
+           else _round_up(n_t))
+      caps_in[t] = c
+      buf = np.zeros((c,), np.int32)
+      buf[:n_t] = sd
+      padded_d[t] = buf
+      smask_d[t] = np.arange(c) < n_t
+    n = seeds_dict[ntype].shape[0]
+    smask = smask_d[ntype]
+    mode = self._dedup_mode()
+    if mode == 'map_table':
+      raise ValueError("dedup='map_table' is homogeneous-only (no lazy "
+                       "empty inducer state); use 'map'/'sort'/'merge' "
+                       'or tree for hetero graphs')
+    clamped = self.frontier_caps is not None
+    ntypes, hop_caps, node_caps = hetero_capacity_plan(
+        list(self.graph.keys()), self._etype_fanouts, caps_in,
+        self.edge_dir, etype_caps=self.frontier_caps if clamped else None)
+    num_hops = len(hop_caps)
+    init_seed, init_empty, induce = _inducer_for(mode)
+
+    n_items = sum(len(per_et) for per_et in hop_caps)
+    counts = torch.arange(self._call_count + 1,
+                          self._call_count + n_items + 1, dtype=torch.int64)
+    self._call_count += n_items
+    keys = trandom.fold_in(self._key, counts)
+    if dev.type == 'cuda':
+      keys = trandom.to_device(keys, dev)
+
+    states, frontier, inv_d = {}, {}, {}
+    rows: Dict[EdgeType, list] = {}
+    cols: Dict[EdgeType, list] = {}
+    edges: Dict[EdgeType, list] = {}
+    emasks: Dict[EdgeType, list] = {}
+    nodes_per_hop: Dict[NodeType, list] = {t: [] for t in ntypes}
+    edges_per_hop: Dict[EdgeType, list] = {}
+    offsets = {t: caps_in.get(t, 0) for t in ntypes}
+    batch_d = {}
+    for t in seeds_dict:
+      batch_d[t] = _upload(padded_d[t], torch.int32, dev)
+      st, uniq, umask, inv_t = init_seed(
+          batch_d[t], _upload(smask_d[t], torch.bool, dev),
+          capacity=node_caps[t])
+      states[t] = st
+      frontier[t] = (uniq, torch.arange(caps_in[t], dtype=torch.int32,
+                                        device=dev), umask)
+      inv_d[t] = inv_t
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for t in ntypes:
+      nodes_per_hop[t].append(states[t].num_nodes if t in states else zero)
+
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    j_all = 0
+    for hop in range(num_hops):
+      new_parts: Dict[NodeType, list] = {t: [] for t in ntypes}
+      items = list(hop_caps[hop].items())
+      last_touch = (_final_touch_map(items, self.edge_dir)
+                    if hop + 1 == num_hops else {})
+      for j, (et, (fcap, k, ecap)) in enumerate(items):
+        key_t = et[0] if self.edge_dir == 'out' else et[2]
+        res_t = et[2] if self.edge_dir == 'out' else et[0]
+        out_et = reverse_edge_type(et) if self.edge_dir == 'out' else et
+        f, fidx, fmask = (v[:fcap] for v in frontier[key_t])
+        nbrs, epos, m = self._hop(self._one_hop_backend(et), f, fmask, k,
+                                  keys[j_all], et)
+        j_all += 1
+        if res_t not in states:
+          states[res_t] = init_empty(node_caps[res_t], device=dev)
+        states[res_t], iout = induce(states[res_t], fidx, nbrs, m,
+                                     offsets[res_t],
+                                     final=last_touch.get(res_t) == j,
+                                     max_new=ecap if clamped else None)
+        # the occupancy bound advances by the clamped contribution (the
+        # full fcap * k width on unclamped plans)
+        offsets[res_t] += ecap
+        rows.setdefault(out_et, []).append(iout['cols'])
+        cols.setdefault(out_et, []).append(iout['rows'])
+        emasks.setdefault(out_et, []).append(iout['edge_mask'])
+        if self.with_edge:
+          edges.setdefault(out_et, []).append(self._edge_ids(epos, m, et))
+        edges_per_hop.setdefault(out_et, []).append(
+            iout['edge_mask'].sum().to(torch.int32))
+        if clamped and ecap < fcap * k:
+          overflow = overflow | (iout['num_new'] > ecap)
+        new_parts[res_t].append((iout['frontier'][:ecap],
+                                 iout['frontier_idx'][:ecap],
+                                 iout['frontier_mask'][:ecap]))
+      # each type's next frontier: its parts of this hop, in item order
+      for t in ntypes:
+        parts = new_parts[t]
+        if not parts:
+          frontier[t] = (
+              torch.zeros((0,), dtype=torch.int32, device=dev),
+              torch.zeros((0,), dtype=torch.int32, device=dev),
+              torch.zeros((0,), dtype=torch.bool, device=dev))
+          nodes_per_hop[t].append(zero)
+          continue
+        fr = torch.cat([p[0] for p in parts])
+        fi = torch.cat([p[1] for p in parts])
+        fm = torch.cat([p[2] for p in parts])
+        if mode == 'merge' and len(parts) > 1:
+          # cross-part compaction: a part may end in invalid slots; a
+          # stable valid-first sort restores the arithmetic frontier_idx
+          # prefix the dense typed aggregation relies on
+          # (models.TreeHeteroConv mode='merge' takes run bases as
+          # min(tgt - j))
+          order = torch.argsort((~fm).to(torch.int32), stable=True)
+          fr, fi, fm = fr[order], fi[order], fm[order]
+        frontier[t] = (fr, fi, fm)
+        nodes_per_hop[t].append(fm.sum().to(torch.int32))
+
+    return HeteroSamplerOutput(
+        node={t: st.nodes for t, st in states.items()},
+        num_nodes={t: st.num_nodes for t, st in states.items()},
+        row={et: torch.cat(v) for et, v in rows.items()},
+        col={et: torch.cat(v) for et, v in cols.items()},
+        edge=({et: torch.cat(v) for et, v in edges.items()}
+              if self.with_edge else None),
+        edge_mask={et: torch.cat(v) for et, v in emasks.items()},
+        batch=batch_d, batch_size=n,
+        num_sampled_nodes=nodes_per_hop, num_sampled_edges=edges_per_hop,
+        input_type=ntype,
+        metadata={'seed_inverse': inv_d[ntype], 'seed_inverse_dict': inv_d,
+                  'seed_mask': smask, 'overflow': overflow})
 
   # ---------------------------------------------------------------- link
 
@@ -629,8 +1041,8 @@ class NeighborSampler:
     ``edge_label_index [2, b + num_neg]`` and ``edge_label`` (the input
     labels or ones, then zeros); triplet, ``src_index``,
     ``dst_pos_index`` and ``dst_neg_index``."""
-    if inputs.input_type is not None:
-      raise _later('typed link sampling', 'hetero')
+    if inputs.input_type is not None or self.is_hetero:
+      raise _later('typed link sampling', 'typed link')
     if key is None:
       key = self._next_key()
     kneg, knode = trandom.split(key)
@@ -693,6 +1105,8 @@ class NeighborSampler:
     """PyG-v1 style sampling: ``(batch_size, n_id, adjs)``, ``adjs`` the
     per-hop ``(edge_index [2, caps[i] * k], edge_mask, e_id, size)`` in
     reverse hop order (deepest first), padded."""
+    if self.is_hetero:
+      raise ValueError('sample_pyg_v1 is homogeneous-only')
     seeds = np.asarray(seeds).reshape(-1)
     out = self.sample_from_nodes(NodeSamplerInput(seeds),
                                  batch_cap=batch_cap)
@@ -724,6 +1138,8 @@ class NeighborSampler:
     high-degree rows beyond the cap lose their edges, counted in
     ``metadata['num_dropped_rows']``. ``metadata['mapping']`` is each
     seed's position in ``node`` (-1 if absent)."""
+    if self.is_hetero:
+      raise ValueError('subgraph is homogeneous-only')
     g = self.graph
     nodes_out = self.sample_from_nodes(inputs)
     node_buf = nodes_out.node

@@ -1,12 +1,37 @@
-"""Type aliases and the typed seed-edge convention shared by the port (the
-part of ``graphlearn_tpu/typing.py`` the homogeneous slices need)."""
-from typing import Tuple
+"""Type aliases, the canonical string forms of node and edge types and the
+typed seed-edge convention shared by the port (the part of
+``graphlearn_tpu/typing.py`` the sampling and model paths need)."""
+from typing import Dict, List, Tuple, Union
 
 # A node type in a heterogeneous graph, e.g. 'paper'.
 NodeType = str
 
 # An edge type triplet (src_node_type, relation, dst_node_type).
 EdgeType = Tuple[str, str, str]
+
+# Prefix marking the reverse direction of an edge type.
+REVERSE_PREFIX = 'rev_'
+
+# String join token for edge types.
+EDGE_TYPE_STR_SPLIT = '__'
+
+NumNeighbors = Union[List[int], Dict[EdgeType, List[int]]]
+
+
+def as_str(type_: Union[NodeType, EdgeType]) -> str:
+  """Canonical string form of a node or edge type."""
+  if isinstance(type_, NodeType):
+    return type_
+  if isinstance(type_, (list, tuple)) and len(type_) == 3:
+    return EDGE_TYPE_STR_SPLIT.join(type_)
+  return ''
+
+
+def to_edge_type(type_str: str) -> EdgeType:
+  parts = type_str.split(EDGE_TYPE_STR_SPLIT)
+  if len(parts) != 3:
+    raise ValueError(f'invalid edge type string: {type_str!r}')
+  return tuple(parts)
 
 
 def split_edge_type_seeds(edge_label_index):
@@ -21,3 +46,14 @@ def split_edge_type_seeds(edge_label_index):
       all(isinstance(s, str) for s in edge_label_index[0]):
     return tuple(edge_label_index[0]), edge_label_index[1]
   return None, edge_label_index
+
+
+def reverse_edge_type(etype: EdgeType) -> EdgeType:
+  """Reverse of an edge type: flips endpoints and toggles the 'rev_' prefix."""
+  src, rel, dst = etype
+  if src != dst:
+    if rel.startswith(REVERSE_PREFIX):
+      rel = rel[len(REVERSE_PREFIX):]
+    else:
+      rel = REVERSE_PREFIX + rel
+  return (dst, rel, src)

@@ -55,7 +55,12 @@ exact, the last chunk's ``x`` bit-equal, losses exact on tree), one host
 sync a tiered epoch (the plan fetch), a staging slot not refilled before
 its copy's event, and the reactive tiered lookup against the CPU's (one
 sync for device ids with a disk tier, none for host ids, the warm
-block's mapping released after its last launch).
+block's mapping released after its last launch); and the typed path:
+tree and calibrated merge batches of the IGBH example's loader against
+the CPU's with K3 once per plan item and K1 once per featured type,
+block and weighted typed batches with their draw launches, no host sync
+in typed sampling and collate, and rgat tree-dense train steps against
+the CPU (chip_smoke.py's typed-phase helpers at a small size).
 """
 import contextlib
 import copy
@@ -1768,3 +1773,87 @@ def test_tiered_feature_on_card_matches_cpu(cuda, tmp_path):
   assert not mapped.is_mapped(warm_t)
   torch.cuda.synchronize()
   assert torch.equal(got.cpu(), torch.from_numpy(re))
+
+
+# ------------------------------------------------------------------ typed
+
+
+def _chip_smoke():
+  """chip_smoke.py's typed-phase helpers, loaded from the checkout root."""
+  import importlib.util
+  import pathlib
+  path = pathlib.Path(__file__).resolve().parents[1] / 'chip_smoke.py'
+  spec = importlib.util.spec_from_file_location('chip_smoke_typed', path)
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+def _typed_setup(b=64):
+  """A small IGBH-shaped graph (the example's generator) on the card and
+  the CPU, its seed pool and calibrated caps."""
+  from graphlearn_tpu_torch.examples import train_rgnn as ex
+  cs = _chip_smoke()
+  dataset, wgraphs = cs.hetero_data(torch, gtt, ex, 3000, 1500)
+  ds = dataset(torch.device('cuda'))
+  pool = np.arange(600)
+  caps = gtt.sampler.estimate_hetero_frontier_caps(
+      ds.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  return cs, ex, dataset, wgraphs, ds, pool, caps
+
+
+@pytest.mark.parametrize('kind', ['tree', 'merge'])
+def test_typed_batches_on_card_match_cpu(cuda, kind):
+  """Typed tree and calibrated merge batches of the example's loader on
+  the card: the hop kernel once per plan item and the row gather once
+  per featured type (counters and profiler), the last batch equal to the
+  CPU's from the same sampler state, no batch truncated; block and
+  weighted typed batches equal to the CPU's, the draw kernel 2 / 1 times
+  an item."""
+  cs, ex, dataset, wgraphs, ds, pool, caps = _typed_setup()
+  rec, batches = cs.hetero_batches(torch, gtt, ex, ds,
+                                   dataset(torch.device('cpu')), pool, cuda,
+                                   kind, caps, 64, 3, 'test')
+  assert rec['items'] == 5 and len(batches) == 3
+  assert rec['launches']['sample_hop'] == 15
+  assert rec['launches']['gather_rows'] == 6
+  if kind == 'merge':
+    menu = cs.hetero_menu_batches(torch, gtt, ex, wgraphs, pool, cuda, 64,
+                                  'test')
+    assert menu['block']['launches']['uniform_draw'] == 10
+    assert menu['weighted']['launches']['uniform_draw'] == 5
+
+
+@pytest.mark.parametrize('kind', ['tree', 'merge'])
+def test_typed_sampling_and_collate_make_no_host_sync(cuda, kind):
+  """A typed batch (unclamped tree or merge) is sampled and collated
+  without a host sync: seeds and keys go up from pinned memory, the hops
+  and the gathers only queue work."""
+  cs, ex, dataset, _, ds, pool, _ = _typed_setup()
+  loader = gtt.loader.NeighborLoader(ds, ex.FANOUTS, ('paper', pool),
+                                     batch_size=64, dedup=kind,
+                                     device=cuda)
+  it = iter(loader)
+  next(it)                                 # first use: the tables
+  inp = gtt.sampler.NodeSamplerInput(pool[:64], 'paper')
+  with _no_sync_allowed():
+    out = loader.sampler.sample_from_nodes(inp, batch_cap=64)
+    batch = loader._collate_fn(out)
+  torch.cuda.synchronize()
+  assert set(batch.x) == {'paper', 'author'}
+  assert bool(torch.isfinite(batch.x['paper']).all())
+
+
+def test_typed_rgat_tree_dense_train_step_on_card_matches_cpu(cuda):
+  """Three rgat (4 heads) tree-dense train steps of the example's loop on
+  the card, the last recomputed on the CPU from the card's state before
+  it within the cpu_step_check tolerances; launches per step as planned,
+  0 host syncs a step, the profiler's kernels equal to the counters."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs, ex, _, _, ds, pool, caps = _typed_setup()
+  rep = cs.hetero_train(torch, gtt, ex, ds, pool, cuda, 'tree', 'rgat',
+                        caps, 64, 3, 'test')
+  assert rep['launches']['sample_hop'] == 15
+  assert rep['launches']['gather_rows'] == 6
+  assert rep['host_syncs_per_step'] == 0
+  assert not rep['cpu_check']['grad_fail']

@@ -64,18 +64,27 @@ def test_tree_sampler_stream_matches_jax(fanouts, window):
 
 
 def test_sampler_refuses_later_slices():
-  """Heterogeneous sampling is still a later slice; ``with_edge`` and the
-  legacy ``map_table`` / ``sort_legacy`` engines, refused before the
-  sampling-menu slice, now run and equal the JAX sampler's batches
-  (edge ids included)."""
+  """Typed link sampling is still a later slice; typed graphs and
+  per-edge-type fanouts, refused before the typed slice, now sample and
+  equal the JAX sampler's batches, as do ``with_edge`` and the legacy
+  ``map_table`` / ``sort_legacy`` engines (edge ids included)."""
   rng = np.random.default_rng(0)
   ei = rng.integers(0, 10, (2, 40))
   tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=10), device='cpu')
   jg = glt.data.Graph(glt.data.Topology(ei, num_nodes=10), 'CPU')
-  with pytest.raises(NotImplementedError):
-    gtt.sampler.NeighborSampler({('a', 'r', 'b'): tg}, [2], device='cpu')
-  with pytest.raises(NotImplementedError):
-    gtt.sampler.NeighborSampler(tg, {('a', 'r', 'b'): [2]}, device='cpu')
+  et = ('a', 'r', 'b')
+  from test_torch_hetero_sampler import assert_batches_equal
+  for fanouts in ([2], {et: [2]}):
+    ts = gtt.sampler.NeighborSampler({et: tg}, fanouts, device='cpu',
+                                     seed=3)
+    js = glt.sampler.NeighborSampler({et: jg}, fanouts, seed=3)
+    for seeds in (np.array([0, 9, 9, 4]), np.arange(10)):
+      assert_batches_equal(
+          js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds, 'a')),
+          ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds, 'a')))
+  with pytest.raises(NotImplementedError, match='typed link'):
+    ts.sample_from_edges(gtt.sampler.EdgeSamplerInput(
+        np.arange(3), np.arange(3), input_type=et))
   for kwargs in (dict(dedup='map_table'), dict(dedup='sort_legacy'),
                  dict(with_edge=True)):
     ts = gtt.sampler.NeighborSampler(tg, [2, 2], device='cpu', seed=3,

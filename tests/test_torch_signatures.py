@@ -1,7 +1,11 @@
 """The port's public calls against the JAX package's.
 
 ``inspect.signature`` of every public class and function of
-``graphlearn_tpu.data``, of the homogeneous loaders, of ``SamplerOutput``,
+``graphlearn_tpu.data``, of the loaders, of ``SamplerOutput``, of the
+typed names (the ``typing`` helpers, ``HeteroSamplerOutput``,
+``HeteroData``, ``to_hetero_data``, the typed plan, layout, block and
+calibration functions, and the typed models ``GATConv``, ``HeteroConv``,
+``TreeHeteroConv`` and ``RGNN``, flax's ``parent`` / ``name`` aside),
 of the single-device ``graphlearn_tpu.storage`` API and of the serving
 stack's spill (``EmbeddingMaterializer(spill_dir=)``,
 ``tiered_embedding_store``, ``TieredEmbeddingStore``,
@@ -206,6 +210,83 @@ def test_sampler_output_signature():
                  gtt.sampler.SamplerOutput)
 
 
+TYPED_FUNCTIONS = [
+    ('typing', 'as_str'), ('typing', 'to_edge_type'),
+    ('typing', 'reverse_edge_type'), ('typing', 'split_edge_type_seeds'),
+    ('loader', 'to_hetero_data'),
+    ('sampler', 'hetero_tree_layout'), ('sampler', 'hetero_tree_blocks'),
+    ('sampler', 'estimate_hetero_frontier_caps'),
+    ('sampler.neighbor_sampler', 'hetero_capacity_plan'),
+    ('sampler.neighbor_sampler', '_final_touch_map'),
+    ('sampler.calibrate', 'normalize_hetero_frontier_caps'),
+    ('sampler.calibrate', 'clamp_etype_cap'),
+]
+
+
+def _attr(pkg, dotted):
+  for part in dotted.split('.'):
+    pkg = getattr(pkg, part)
+  return pkg
+
+
+@pytest.mark.parametrize('mod,name', TYPED_FUNCTIONS)
+def test_typed_function_signatures(mod, name):
+  assert_same_signature(name, getattr(_attr(glt, mod), name),
+                        getattr(_attr(gtt, mod), name))
+
+
+@pytest.mark.parametrize('mod,name', [('sampler', 'HeteroSamplerOutput'),
+                                      ('loader', 'HeteroData')])
+def test_typed_container_signatures(mod, name):
+  _compare_class(name, getattr(_attr(glt, mod), name),
+                 getattr(_attr(gtt, mod), name))
+
+
+# (model, parameter) -> why the port's torch module differs from the flax
+# one: torch builds its weights at construction, so it needs their input
+# widths (and the types a dense layer's input holds) up front, and it
+# places and draws them (device, generator); dropout is the module's
+# train() mode, not a call argument
+MODEL_EXTRA = {
+    ('GATConv', 'in_dim'): 'torch builds the weights at init',
+    ('TreeHeteroConv', 'in_dim'): 'torch builds the weights at init',
+    ('TreeHeteroConv', 'in_types'): 'the layer\'s input types, at init',
+    ('RGNN', 'in_dims'): 'torch builds the embeddings at init',
+    ('RGNN', 'device'): 'entry points run on the card',
+    ('RGNN', 'generator'): 'the seed of the initial weights',
+}
+MODEL_MISSING = {
+    ('RGNN.__call__', 'train'): 'nn.Module.train() mode',
+}
+TYPED_MODELS = ['GATConv', 'HeteroConv', 'TreeHeteroConv', 'RGNN']
+
+
+def _model_fn(pkg, name, member):
+  cls = getattr(pkg.models, name)
+  if pkg is gtt:
+    return getattr(cls, '__init__' if member == '__init__' else 'forward')
+  return getattr(cls, member)
+
+
+def _model_params(qual, fn, drop):
+  return [p for p in _params(fn) if p[0] not in ('self', 'parent', 'name')
+          and (qual, p[0]) not in drop]
+
+
+@pytest.mark.parametrize('name', TYPED_MODELS)
+def test_typed_model_signatures(name):
+  """Each typed model's constructor and call (torch's ``forward``)
+  against the flax module's fields and ``__call__``: the same names in
+  the same order with the same defaults, the listed differences aside."""
+  for member in ('__init__', '__call__'):
+    qual = name if member == '__init__' else f'{name}.__call__'
+    jp = _model_params(qual, _model_fn(glt, name, member), MODEL_MISSING)
+    tp = _model_params(qual, _model_fn(gtt, name, member), MODEL_EXTRA)
+    assert [p[0] for p in tp] == [p[0] for p in jp], qual
+    for (pname, _, jdef), (_, _, tdef) in zip(jp, tp):
+      assert _same_default(jdef, tdef), (qual, pname, jdef, tdef)
+
+
 def test_every_named_difference_is_live():
   """A listed difference that no longer differs is struck from the list."""
   def port_fn(qual, pkg=gtt):
@@ -226,6 +307,17 @@ def test_every_named_difference_is_live():
   for (qual, param) in OTHER_DEFAULTS:
     assert inspect.signature(port_fn(qual)).parameters[param].default != \
         inspect.signature(port_fn(qual, glt)).parameters[param].default
+  for (qual, param) in MODEL_EXTRA:
+    assert param in inspect.signature(_model_fn(gtt, qual, '__init__')
+                                      ).parameters
+    assert param not in inspect.signature(_model_fn(glt, qual, '__init__')
+                                          ).parameters
+  for (qual, param) in MODEL_MISSING:
+    name = qual.split('.')[0]
+    assert param not in inspect.signature(_model_fn(gtt, name, '__call__')
+                                          ).parameters
+    assert param in inspect.signature(_model_fn(glt, name, '__call__')
+                                      ).parameters
 
 
 # ----------------------------------------------- JAX's calls on the port
