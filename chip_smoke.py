@@ -8,7 +8,9 @@ and without an early stop; OverlappedTrainer), the products example's
 other modes (block, padded-window and weighted hops, node_budget, bf16),
 link prediction (the unsupervised example's LinkNeighborLoader and link
 train step), induced subgraphs, the legacy dedup engines, typed
-sampling and the IGBH RGNN (inference and training), the hot/cold
+sampling and the IGBH RGNN (inference and training), HGT, the
+homogeneous GAT (forwards, training, a captured epoch, serving) and the
+SEAL DGCNN, the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
 the spilled serving stores), and the two probe suites.
@@ -108,8 +110,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    exceed), with
    ms/step, capture ms and peak memory (allocated and reserved); then
    the host syncs per step of the loop and of both trainers under
-   ``torch.cuda.set_sync_debug_mode('warn')`` (the captured trainer: none,
-   but for the calibrated merge guard's one per epoch), and torch.profiler
+   ``torch.cuda.set_sync_debug_mode('warn')`` (the loop: none; the
+   captured trainer: none, but for the calibrated merge guard's one per
+   epoch), and torch.profiler
    over one more epoch of each trainer (device ops and busy per step; the
    port's kernels the profiler saw must equal the launch counters, and
    are the captured trainer's launches in the result line). The launch
@@ -225,7 +228,41 @@ Phases (any failure exits non-zero, and the result line is not printed):
    as the training phase's; host syncs per step of 4 more steps; one
    more step under torch.profiler: device ops, busy and idle share, its
    kernels equal to the counters). The phase's wall time is printed.
-10. The hot/cold feature store. The card's pinned host-to-device rate
+10. Models: the rest of the model zoo on its paths. (a) HGT at the MAG
+   example's width (``examples/hetero/train_hgt_mag.py``: its MAG-shaped
+   synthetic of 60,000 papers and 7 edge types, built by the port's
+   ``train_hgt_mag.build_dataset``; [10, 10] at batch 512, hidden 64, 4
+   heads, 2 layers): typed tree and calibrated merge batches as in phase
+   9 (K3 once per plan item, K1 once per featured type, bit-equal to the
+   CPU's, the profiler's kernels equal to the counters), the segment,
+   hierarchical, tree-dense and merge-dense forwards from one set of
+   weights (each within rtol 1e-3, atol 1e-4 of the CPU's, TF32 off; the
+   dense ones' seed logits within the same of the segment forward's, the
+   hierarchical ones within rtol 1e-4, atol 1e-5 of the full forward's),
+   and 16 tree-dense and 16 merge-dense train steps (``loop_train``: the
+   last step held by ``cpu_step_check`` from the card's state before it,
+   0 host syncs a step, a profiled step). (b) The homogeneous GAT at
+   ``benchmarks/prof_gat_merge.py:3,28``'s configuration on the script's
+   graph (``GAT(100, 128, 47)``, 3 layers of 2 heads, f32, [15, 10, 5] at
+   1024): tree-dense on tree batches (K3 3 and K1 1 a batch) and
+   merge-dense on calibrated merge batches (K4 10 a batch), each against
+   the segment forward and a CPU recompute (rtol 1e-3, atol 1e-4); 16
+   loop steps of each, the last held as in (a), with 0 host syncs a step; two
+   captured ScanTrainer epochs of the tree-dense GAT (K = 4) equal to
+   two eager ones (losses within rtol 1e-4, parameters within
+   PARAMS_LIMIT, launches equal; the second epochs timed, with 0 host
+   syncs a step). (c) GAT serving:
+   the serving phase's materializer with a segment ``GAT(100, 128, 47)``
+   of 2 layers of 2 heads, each layer pass's 512 rows recomputed on the
+   CPU, then 64 engine lookups through the gather-v2 route, equal to the
+   table, one K2 launch per engine batch. (d) SEAL at the example's
+   defaults (``examples/seal_link_pred.py``): the train links' enclosing
+   subgraphs extracted on the card (K4 per subgraph; the first 16 equal to
+   a CPU sampler's), 4 DGCNN train steps each recomputed on the CPU from
+   the card's state before it (the CPU following the card's sort order,
+   max pool choices and ReLU sides), and a forward against the CPU's. The
+   phase's wall time is printed.
+11. The hot/cold feature store. The card's pinned host-to-device rate
    (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
    from HBM, the cold rows read over UVA from the mapped host tail) on
    the storage rows of one [15, 10, 5] x 1024 tree batch over the
@@ -246,7 +283,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    host): one epoch, every batch's ``x`` equal to the table's rows, one
    hot/cold and two hop launches a step; and the store rebuilt in this
    process from its IPC handle, exact.
-11. The tiered store: the script's table sorted by in-degree in a
+12. The tiered store: the script's table sorted by in-degree in a
    ``storage.TieredFeature`` (hot 0.25 on the card, warm 0.25 mapped on
    the host, the rest as npy chunks in a temporary directory, removed at
    the end), training ``GraphSAGE(100, 256, 47)`` (Adam 3e-3) over a
@@ -277,7 +314,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``embedding_store()`` on the serving mix's buckets: equal rows, lookup
    ms p50 and p99, host syncs per lookup (0 for the tiered stores) and
    one hot/cold launch per tiered lookup.
-12. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+13. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -1236,6 +1273,34 @@ def recompute_rows(torch, cmodel, layer, x_self, nbr, x_nbr):
         edge_mask=(nbr >= 0).reshape(-1)))[:b]
 
 
+def materialize_recorded(torch, mat, check_t):
+  """``(table, passes)``: ``mat.materialize()`` with each layer pass
+  timed by CUDA events, and per pass the ``check_t`` rows' own input,
+  padded neighbour ids, neighbour input rows and output, on the CPU (for
+  ``recompute_rows``)."""
+  cuda = mat.device.type == 'cuda'
+  run_pass, passes = mat._layer_pass, []
+
+  def timed_pass(layer, prev):
+    a = _event(torch, cuda)
+    out = run_pass(layer, prev)
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+    nbr = mat._nbr[check_t]
+    passes.append(dict(
+        layer=layer, ms=_span(a, b, cuda), x_self=prev[check_t].cpu(),
+        nbr=nbr.cpu(), x_nbr=prev[nbr.clamp(min=0).long()].cpu(),
+        out=out[check_t].cpu()))
+    return out
+
+  mat._layer_pass = timed_pass
+  try:
+    return mat.materialize(), passes
+  finally:
+    del mat._layer_pass
+
+
 def serve_requests(rng, n):
   """One client's requests, a synthetic smoke mix (no trace behind it):
   lengths uniform in 1-300 (over 256 they split across the largest
@@ -1286,23 +1351,7 @@ def serving_phase(torch, gtt, ds, device, topo, smi, profile):
   sync()
   rep['materializer_setup_s'] = time.perf_counter() - t0
   run_pass = mat._layer_pass
-  passes = []
-
-  def timed_pass(layer, prev):
-    a = _event(torch, cuda)
-    out = run_pass(layer, prev)
-    b = _event(torch, cuda)
-    sync()
-    nbr = mat._nbr[check_t]
-    passes.append(dict(
-        layer=layer, ms=_span(a, b, cuda), x_self=prev[check_t].cpu(),
-        nbr=nbr.cpu(), x_nbr=prev[nbr.clamp(min=0).long()].cpu(),
-        out=out[check_t].cpu()))
-    return out
-
-  mat._layer_pass = timed_pass
-  emb = mat.materialize()
-  del mat._layer_pass
+  emb, passes = materialize_recorded(torch, mat, check_t)
   w, n_pad = mat._w, mat.n_pad
   rep['W'], rep['n_pad'] = w, n_pad
   rep['pass_ms'] = [p['ms'] for p in passes]
@@ -1614,7 +1663,24 @@ def relu_input_hooks(model, fn) -> list:
   returned tensor replaces the output. A typed model's layers
   (``hetero{l}``) give a dict by node type: ``fn`` sees each type's
   tensor in turn (types sorted, layers in order), ``layer`` counting
-  them. Returns the hook handles."""
+  them. HGT's ReLU inputs are its input projections (``lin_{t}``), the
+  SEAL DGCNN's its ``conv1``, ``conv2`` and ``mlp1``, ``layer`` counting
+  the calls; GAT has none (its ELU is smooth at 0). Returns the hook
+  handles."""
+  kind = type(model).__name__
+  if kind in ('HGT', 'DGCNN', 'GAT'):
+    seen = [0]
+
+    def counted(o):
+      r = fn(seen[0], o)
+      seen[0] += 1
+      return r
+
+    mods = ([m for n, m in model.named_children() if n.startswith('lin_')]
+            if kind == 'HGT' else
+            [model.conv1, model.conv2, model.mlp1] if kind == 'DGCNN' else [])
+    return [m.register_forward_hook(lambda m_, i, o: counted(o))
+            for m in mods]
   if not hasattr(model, 'conv0'):
     seen = [0]
 
@@ -2050,6 +2116,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
         f'{syncs["scan_eager"][0]}/{steps} steps {syncs["scan_eager"][1]}')
     allowed = 1 if loader.sampler.clamped_exact else 0   # the epoch's guard
     assert syncs['scan'][0] <= allowed, syncs['scan']
+    assert loop_syncs == 0, loop_kinds
     # device ops per step of a captured epoch, and the port's kernels the
     # profiler saw against the launch counters
     for name, tr in trainers.items():
@@ -3345,7 +3412,8 @@ def hetero_batches(torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b,
   counts = ops.launch_counts()
   per_l = 1 if cuda else 0
   assert counts['sample_hop'] == per_l * nb * items, (kind, counts)
-  assert counts['gather_rows'] == per_l * nb * 2, (kind, counts)
+  assert counts['gather_rows'] == per_l * nb * len(ds.node_features), (
+      kind, counts)
   assert counts['sample_level'] == counts['uniform_draw'] == 0, counts
   # the last batch on the CPU, from the same sampler state and seeds
   cpu_loader.sampler.load_state_dict(state)
@@ -3514,38 +3582,28 @@ def hetero_inference(torch, gtt, ex, batches, caps, device, b, smi):
   return rep
 
 
-def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
-                 steps, smi):
-  """The example's loop (loader -> batch_to_dict -> train_step, Adam at
-  3e-3) for ``steps`` steps of ``conv`` ('rsage' / 'rgat') in the
-  tree-dense (tree batches) or merge-dense (calibrated merge batches)
-  forward: ms/step split into sample+collate and train by CUDA events,
-  peak memory, launches (the hop kernel once per plan item, the row
-  gather once per featured type), the last step recomputed on the CPU
-  from the card's state before it (``cpu_step_check``: the merge path's
-  scatter atomics sum in no fixed order, so it is held from that common
-  state, C5's rule), host syncs per step of SYNC_STEPS more steps, and
-  one more step under torch.profiler (device ops, busy and idle share;
-  its kernels equal to the counters)."""
+def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
+               smi, label):
+  """The examples' loop (loader -> batch_to_dict -> train_step, Adam at
+  3e-3) for ``steps`` steps of the model ``model_on(device)`` builds
+  (weights from a fixed seed): ms/step split into sample+collate and
+  train by CUDA events, peak memory, the launch counters (set to 0
+  before) equal to ``expect``, no batch over its caps, the last step
+  recomputed on the CPU from the card's state before it
+  (``cpu_step_check``: a merge path's scatter atomics sum in no fixed
+  order, so it is held from that common state, C5's rule), host syncs per
+  step of SYNC_STEPS more steps (they must be 0), and one
+  more step under torch.profiler (device ops, busy and idle share; its
+  kernels equal to the counters)."""
   import copy
 
   from graphlearn_tpu_torch import ops
   from graphlearn_tpu_torch.models import train
-  cuda = device.type == 'cuda'
-  mode = 'tree_dense' if kind == 'tree' else 'merge_dense'
-  mcaps = caps if kind == 'merge' else None
-  loader = hetero_loader(gtt, ex, ds, pool, device, kind, caps, b)
-  items = hetero_items(gtt, ex, b, mcaps)
-
-  def model_on(d):
-    return ex.build_model(conv, b, HET_HIDDEN, d, mode=mode,
-                          etype_caps=mcaps,
-                          generator=torch.Generator().manual_seed(0))
-
-  model = model_on(device)
+  cuda = loader.device.type == 'cuda'
+  model = model_on(loader.device)
   model.train()
   state = train.create_train_state(model, lr=LR)
-  step_fn, _ = train.make_train_step(model, ex.NUM_CLASSES)
+  step_fn, _ = train.make_train_step(model, num_classes)
   ops.reset_launch_counts()
   per_step, losses, check, held = [], [], None, None
   it = iter(loader)
@@ -3577,13 +3635,11 @@ def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
     losses.append(loss)
   peak = torch.cuda.max_memory_allocated() if cuda else None
   counts = ops.launch_counts()
-  per = 1 if cuda else 0
-  assert counts['sample_hop'] == per * steps * items, counts
-  assert counts['gather_rows'] == per * steps * 2, counts
-  assert counts['sample_level'] == counts['uniform_draw'] == 0, counts
-  assert not loader.check_overflow(), 'a typed batch overflowed its caps'
+  for k, v in expect.items():
+    assert counts[k] == v, (label, k, counts, expect)
+  assert not loader.check_overflow(), f'{label}: a batch overflowed its caps'
   losses = torch.stack(losses)
-  assert bool(torch.isfinite(losses).all()), 'non-finite typed loss'
+  assert bool(torch.isfinite(losses).all()), f'{label}: non-finite loss'
   steady = per_step[1:] or per_step
   med = {k: float(np.median([p[k] for p in steady])) for k in steady[0]}
   # the run's own peak: over what the process held when step 2 began
@@ -3591,8 +3647,8 @@ def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
   own = None if peak is None else peak - held
   rep = dict(per_step=per_step, median_step_ms=med, peak_step_bytes=peak,
              peak_over_held_bytes=own, launches=counts,
-             losses=losses.tolist(), items=items)
-  log(f'hetero train {conv} {mode}: {steps} steps; launches {counts}; '
+             losses=losses.tolist())
+  log(f'{label}: {steps} steps; launches {counts}; '
       'median after the first step (ms): ' +
       ' '.join(f'{k}={v:.3f}' for k, v in med.items()) +
       f' total={sum(med.values()):.3f}; max_memory_allocated over steps '
@@ -3601,8 +3657,8 @@ def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
   c = rep['cpu_check'] = cpu_step_check(
       torch, gtt, loader, model, check, losses[-1],
       cpu_model=lambda: model_on(torch.device('cpu')),
-      make_step=lambda m: train.make_train_step(m, ex.NUM_CLASSES))
-  log(f'hetero train {conv} {mode} CPU recompute of step {steps}: ReLU '
+      make_step=lambda m: train.make_train_step(m, num_classes))
+  log(f'{label} CPU recompute of step {steps}: ReLU '
       f'inputs max abs diff {c["pre_diff"]:.3g}, {c["opposite"]} on '
       f'opposite sides of 0; loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; '
       f'gradients {c["grad_share"]:.3g} of the largest; CPU Adam on the '
@@ -3617,22 +3673,47 @@ def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
     _, syncs, kinds = count_syncs(torch, loop)
     rep['host_syncs_per_step'] = syncs / SYNC_STEPS
     rep['host_sync_kinds'] = kinds
+    assert syncs == 0, (label, kinds)
 
     def loop_step():
       step_fn(state, train.batch_to_dict(next(it)))
 
-    prof = profiled(torch, loop_step, 1, device,
-                    f'hetero train {conv} {mode} step',
+    prof = profiled(torch, loop_step, 1, loader.device, f'{label} step',
                     warmup=lambda: (loop_step(), ops.reset_launch_counts()))
     counted = {k: v for k, v in ops.launch_counts().items()
                if k in PORT_KERNELS}
     assert prof['kernels'] == counted, (prof['kernels'], counted)
     prof['launch_counters'] = counted
     rep['profile_step'] = prof
-    log(f'hetero train {conv} {mode}: {syncs / SYNC_STEPS:.2f} host syncs '
-        f'per step {kinds}; a profiled step: {prof["device_ops_per_call"]:.0f}'
-        f' device ops, busy {prof["device_busy_ms"]:.3f} of '
-        f'{prof["wall_ms"]:.3f} ms (idle share {prof["idle_share"]:.3f})')
+    log(f'{label}: {syncs / SYNC_STEPS:.2f} host syncs per step {kinds}; '
+        f'a profiled step: {prof["device_ops_per_call"]:.0f} device ops, '
+        f'busy {prof["device_busy_ms"]:.3f} of {prof["wall_ms"]:.3f} ms '
+        f'(idle share {prof["idle_share"]:.3f})')
+  return rep
+
+
+def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
+                 steps, smi, hidden=HET_HIDDEN):
+  """The example's loop (``loop_train``) for ``steps`` steps of ``conv``
+  ('rsage' / 'rgat', or the example's own model) in the tree-dense (tree
+  batches) or merge-dense (calibrated merge batches) forward: the hop
+  kernel once per plan item, the row gather once per featured type."""
+  mode = 'tree_dense' if kind == 'tree' else 'merge_dense'
+  mcaps = caps if kind == 'merge' else None
+  loader = hetero_loader(gtt, ex, ds, pool, device, kind, caps, b)
+  items = hetero_items(gtt, ex, b, mcaps)
+  per = 1 if device.type == 'cuda' else 0
+  expect = dict(sample_hop=per * steps * items,
+                gather_rows=per * steps * len(ds.node_features),
+                sample_level=0, uniform_draw=0)
+
+  def model_on(d):
+    return ex.build_model(conv, b, hidden, d, mode=mode, etype_caps=mcaps,
+                          generator=torch.Generator().manual_seed(0))
+
+  rep = loop_train(torch, gtt, loader, model_on, ex.NUM_CLASSES, steps,
+                   expect, smi, f'hetero train {conv} {mode}')
+  rep['items'] = items
   return rep
 
 
@@ -3683,6 +3764,565 @@ def hetero_phase(torch, gtt, device, smi):
       torch.cuda.empty_cache()
   rep['phase_s'] = time.perf_counter() - t0
   log(f'hetero phase wall {rep["phase_s"]:.1f} s on {smi}')
+  return rep
+
+
+# ---- the models phase: HGT, the homogeneous GAT family, SEAL
+# HGT at examples/hetero/train_hgt_mag.py's defaults (its MAG-shaped
+# synthetic: 60,000 papers, 7 edge types, [10, 10] at batch 512, hidden
+# 64, 4 heads, 2 layers, 8 classes)
+MAG_PAPER, MAG_BATCH, MAG_HIDDEN, MAG_HEADS = 60_000, 512, 64, 4
+MAG_BATCHES = 3                    # timed typed batches a loader
+MAG_STEPS = 16                     # train steps per run
+# GAT at benchmarks/prof_gat_merge.py:3,28's configuration on the
+# script's graph: [15, 10, 5] at 1024, hidden 128, 2 heads, 3 layers
+# (float32 here, the prof's bf16 aside)
+GAT_HIDDEN, GAT_HEADS = 128, 2
+GAT_STEPS, GAT_CHUNK = 16, 4       # loop steps; the ScanTrainer's K
+GAT_SERVE_LAYERS = 2               # the served GAT's depth
+GAT_LOOKUPS = 64                   # engine requests of the GAT store
+SEAL_STEPS = 4                     # DGCNN train steps held on the CPU
+
+
+def mag_example(gtt, n_paper, heads):
+  """``(ex, dataset(device))``: the HGT example as the typed helpers
+  take an example (``FANOUTS``, ``NUM_CLASSES``, ``build_model``), and
+  its MAG-shaped graph on a device (``train_hgt_mag.build_dataset``)."""
+  import types
+
+  from graphlearn_tpu_torch.examples import train_hgt_mag as mag
+
+  def build_model(conv, b, hidden, d, mode='tree_dense', etype_caps=None,
+                  generator=None):
+    del conv    # the example's one model
+    return mag.build_model(b, hidden, heads, d, mode=mode,
+                           etype_caps=etype_caps, generator=generator)
+
+  ex = types.SimpleNamespace(FANOUTS=mag.FANOUTS,
+                             NUM_CLASSES=mag.NUM_CLASSES,
+                             build_model=build_model)
+  return ex, lambda d: mag.build_dataset(n_paper, d)
+
+
+def hgt_inference(torch, gtt, ex, batches, caps, device, b, hidden, smi):
+  """``HGT`` from one set of weights in its four forwards: segment,
+  hierarchical and tree-dense over the tree batches, segment and
+  merge-dense over the calibrated merge batches. Forward ms per batch by
+  CUDA events; finite logits of the expected shape; the last batch's
+  within rtol 1e-3, atol 1e-4 of the CPU's (TF32 off); the dense
+  forwards' seed logits within the same of the segment forward's and the
+  hierarchical ones within rtol 1e-4, atol 1e-5 of the full forward's."""
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  sd = ex.build_model('hgt', b, hidden, cpu, mode='segment',
+                      generator=torch.Generator().manual_seed(0)
+                      ).state_dict()
+  depth1 = gtt.sampler.hetero_tree_layout(
+      {'paper': b}, tuple(ex.FANOUTS), ex.FANOUTS)[0]['paper'][1]
+  rep, logits = {}, {}
+  for kind, mode in (('tree', 'segment'), ('tree', 'hierarchical'),
+                     ('tree', 'tree_dense'), ('merge', 'segment'),
+                     ('merge', 'merge_dense')):
+    models = {}
+    for d in (device, cpu):
+      m = ex.build_model('hgt', b, hidden, d, mode=mode,
+                         etype_caps=caps if kind == 'merge' else None)
+      m.load_state_dict(sd)
+      models[d.type] = m.eval()
+    ms, outs = [], []
+    with torch.no_grad():
+      for batch in batches[kind]:
+        e0 = _event(torch, cuda)
+        out = models[device.type](batch.x, batch.edge_index,
+                                  batch.edge_mask)
+        e1 = _event(torch, cuda)
+        if cuda:
+          e1.synchronize()
+        ms.append(_span(e0, e1, cuda))
+        outs.append(out)
+      last = batches[kind][-1]
+      want = models['cpu'](*(to_cpu(torch, v) for v in (
+          last.x, last.edge_index, last.edge_mask)))
+    rows = (last.x['paper'].shape[0] if mode == 'segment' else
+            depth1 if mode == 'hierarchical' else b)
+    for out in outs:
+      assert out.shape == (rows, ex.NUM_CLASSES), (mode, out.shape)
+      assert bool(torch.isfinite(out).all()), (kind, mode)
+    got = outs[-1].cpu()
+    diff = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    logits[kind, mode] = got[:b]
+    rep[f'{kind}/{mode}'] = dict(forward_ms=ms,
+                                 median_forward_ms=float(np.median(ms)),
+                                 cpu_max_abs_diff=diff)
+    log(f'models hgt {mode} on {kind} batches: forward median '
+        f'{np.median(ms):.3f} ms/batch, logits [{rows}, '
+        f'{ex.NUM_CLASSES}] within {diff:.3g} of the CPU\'s on {smi}')
+  for (kind, mode), v in logits.items():
+    ref = logits[kind, 'segment']
+    if mode == 'hierarchical':
+      torch.testing.assert_close(v, ref, rtol=1e-4, atol=1e-5)
+    elif mode != 'segment':
+      torch.testing.assert_close(v, ref, rtol=1e-3, atol=1e-4)
+  return rep
+
+
+def hgt_part(torch, gtt, device, smi):
+  """(a): HGT at the MAG example's width: typed tree and calibrated merge
+  batches, the four forwards, tree-dense and merge-dense training."""
+  cuda = device.type == 'cuda'
+  n_paper, b, hidden, heads, nb, steps = (
+      (MAG_PAPER, MAG_BATCH, MAG_HIDDEN, MAG_HEADS, MAG_BATCHES, MAG_STEPS)
+      if cuda else (3_000, 32, 16, 2, 2, 4))
+  t0 = time.perf_counter()
+  ex, dataset = mag_example(gtt, n_paper, heads)
+  ds, cpu_ds = dataset(device), dataset(torch.device('cpu'))
+  pool = np.arange(int(n_paper * 0.2))        # the example's train seeds
+  caps = gtt.sampler.estimate_hetero_frontier_caps(
+      ds.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  rep = dict(sizes=dict(paper=n_paper, batch=b, hidden=hidden, heads=heads),
+             caps={str(et): v for et, v in caps.items()},
+             setup_s=time.perf_counter() - t0)
+  log(f'models hgt: MAG-shaped graph ({n_paper} papers, '
+      f'{len(ex.FANOUTS)} edge types) built in {rep["setup_s"]:.1f} s; '
+      f'calibrated caps {rep["caps"]}')
+  batches = {}
+  for kind in ('tree', 'merge'):
+    rep[kind], batches[kind] = hetero_batches(
+        torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b, nb, smi)
+  rep['inference'] = hgt_inference(torch, gtt, ex, batches, caps, device, b,
+                                   hidden, smi)
+  del batches
+  for kind in ('tree', 'merge'):
+    rep[f'train_{kind}'] = hetero_train(
+        torch, gtt, ex, ds, pool, device, kind, 'hgt', caps, b, steps, smi,
+        hidden=hidden)
+    if cuda:
+      torch.cuda.empty_cache()
+  return rep
+
+
+def gat_model(torch, gtt, device, kind=None, caps=None, gen_seed=None):
+  """``GAT(100, 128, 47)``, 3 layers of 2 heads: tree-dense over the tree
+  layout (``kind='tree'``), merge-dense over the calibrated merge layout
+  (``'merge'``, the loader's ``caps``) or the segment forward (None);
+  weights from ``gen_seed``."""
+  from graphlearn_tpu_torch.models import train
+  kw = {}
+  if kind == 'tree':
+    no, eo = train.tree_hop_offsets(BATCH, FANOUTS)
+    kw = dict(hop_node_offsets=no, hop_edge_offsets=eo, tree_dense=True,
+              fanouts=FANOUTS)
+  elif kind == 'merge':
+    no, eo = train.merge_hop_offsets(BATCH, FANOUTS, frontier_caps=caps)
+    kw = dict(hop_node_offsets=no, hop_edge_offsets=eo, merge_dense=True,
+              fanouts=FANOUTS)
+  gen = None if gen_seed is None else torch.Generator().manual_seed(gen_seed)
+  return gtt.models.GAT(FEAT_DIM, GAT_HIDDEN, CLASSES,
+                        num_layers=len(FANOUTS), heads=GAT_HEADS,
+                        device=device, generator=gen, **kw)
+
+
+def gat_launches(kind, steps, cuda) -> dict:
+  """The launches ``steps`` tree or merge batches of the script's loader
+  make: K3 once per hop or K4 three per level and one per batch, K1 once
+  per batch."""
+  per = 1 if cuda else 0
+  lev = level_launch_count(kind, steps)
+  return dict(sample_hop=per * lev if kind == 'tree' else 0,
+              sample_level=per * lev if kind == 'merge' else 0,
+              gather_rows=per * steps, uniform_draw=0)
+
+
+def gat_forwards(torch, gtt, ds, pool, device, caps, smi):
+  """The tree-dense GAT on tree batches and the merge-dense one on
+  calibrated merge batches: two batches each after a warm-up one (the
+  launches as planned), forward ms (after an untimed forward of each
+  model), the seed logits against the segment
+  forward's with the same weights and the last batch's logits against a
+  CPU recompute (rtol 1e-3, atol 1e-4)."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  rep = {}
+  for kind in ('tree', 'merge'):
+    loader = make_loader(gtt, ds, pool, device, kind, caps)
+    it = iter(loader)
+    next(it)
+    ops.reset_launch_counts()
+    batches = [next(it) for _ in range(2)]
+    counts = ops.launch_counts()
+    for k, v in gat_launches(kind, 2, cuda).items():
+      assert counts[k] == v, (kind, k, counts)
+    dense = gat_model(torch, gtt, device, kind, caps, 0).eval()
+    seg = gat_model(torch, gtt, device).eval()
+    seg.load_state_dict(dense.state_dict())
+    cdense = gat_model(torch, gtt, cpu, kind, caps).eval()
+    cdense.load_state_dict({k: v.cpu() for k, v in dense.state_dict().items()})
+    ms = {'dense': [], 'segment': []}
+    with torch.no_grad():
+      d = train.batch_to_dict(batches[0])
+      for m in (dense, seg):         # first use of the shapes: untimed
+        m(d['x'], d['edge_index'], d['edge_mask'])
+      for batch in batches:
+        d = train.batch_to_dict(batch)
+        for name, m in (('dense', dense), ('segment', seg)):
+          e0 = _event(torch, cuda)
+          out = m(d['x'], d['edge_index'], d['edge_mask'])
+          e1 = _event(torch, cuda)
+          if cuda:
+            e1.synchronize()
+          ms[name].append(_span(e0, e1, cuda))
+          # the layered forwards' last layer runs over the depth <= 1
+          # prefix, the segment forward over every slot
+          rows = (d['x'].shape[0] if name == 'segment' else
+                  m.hop_node_offsets[1])
+          assert out.shape == (rows, CLASSES), (name, out.shape)
+          assert bool(torch.isfinite(out).all()), (kind, name)
+          if name == 'dense':
+            got = out
+      nseed = int(d['num_seed_nodes'])
+      seg_diff = float((got[:nseed] - out[:nseed]).abs().max())
+      torch.testing.assert_close(got[:nseed], out[:nseed], rtol=1e-3,
+                                 atol=1e-4)
+      want = cdense(*(to_cpu(torch, d[k])
+                      for k in ('x', 'edge_index', 'edge_mask')))
+    cpu_diff = float((got.cpu() - want).abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
+    rep[kind] = dict(launches=counts, forward_ms=ms, node_slots=int(
+        d['x'].shape[0]), seed_diff_vs_segment=seg_diff,
+        cpu_max_abs_diff=cpu_diff)
+    log(f'models gat {kind}: 2 batches, launches {counts}; {kind}-dense '
+        f'forward median {np.median(ms["dense"]):.3f} ms, segment '
+        f'{np.median(ms["segment"]):.3f} ms over {d["x"].shape[0]} node '
+        f'slots; seed logits within {seg_diff:.3g} of the segment '
+        f'forward\'s, logits within {cpu_diff:.3g} of the CPU\'s on {smi}')
+  return rep
+
+
+def gat_scan(torch, gtt, ds, pool, device, chunk, smi):
+  """Two ScanTrainer epochs of the tree-dense GAT captured (CUDA graphs:
+  in the first an eager warm-up chunk, then the chunk captured and
+  replayed; the second all replays) and two eager from the same weights:
+  per epoch the launches equal (K3 3 a step), the losses within rtol
+  1e-4, the parameters within PARAMS_LIMIT; the second epochs timed and
+  sync-counted (0 host syncs a step, both)."""
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  model = gat_model(torch, gtt, device, 'tree', gen_seed=0)
+  runs = {}
+  for name, m, capture in (('captured', model, None),
+                           ('eager', copy.deepcopy(model), False)):
+    tr = gtt.loader.ScanTrainer(make_loader(gtt, ds, pool, device, 'tree'),
+                                m, CLASSES, chunk_size=chunk,
+                                capture=capture)
+    state = train.create_train_state(m, lr=LR)
+    epochs = []
+    for epoch in range(2):
+      ops.reset_launch_counts()
+      e0 = _event(torch, cuda)
+      if cuda and epoch:
+        (state, losses, _), syncs, kinds = count_syncs(
+            torch, lambda: tr.run_epoch(state))
+      else:
+        (state, losses, _), syncs, kinds = tr.run_epoch(state), 0, {}
+      e1 = _event(torch, cuda)
+      if cuda:
+        e1.synchronize()
+      epochs.append(dict(
+          losses=losses.cpu(), launches=ops.launch_counts(), syncs=syncs,
+          kinds=kinds, params=[p.detach().clone() for p in m.parameters()],
+          ms_per_step=_span(e0, e1, cuda) / losses.shape[0]))
+    runs[name] = epochs
+  diffs = []
+  for c, e in zip(runs['captured'], runs['eager']):
+    assert c['launches'] == e['launches'], (c['launches'], e['launches'])
+    steps = c['losses'].shape[0]
+    assert c['launches']['sample_hop'] == (3 if cuda else 0) * steps, \
+        c['launches']
+    assert c['syncs'] == e['syncs'] == 0, (c['kinds'], e['kinds'])
+    torch.testing.assert_close(c['losses'], e['losses'], rtol=1e-4, atol=0)
+    diffs.append(max(float((a - b).abs().max())
+                     for a, b in zip(c['params'], e['params'])))
+    assert diffs[-1] < PARAMS_LIMIT, diffs
+  c, e = runs['captured'], runs['eager']
+  rep = dict(steps=steps, chunk=chunk, launches=c[1]['launches'],
+             launches_first=c[0]['launches'],
+             captured_ms_per_step=[r['ms_per_step'] for r in c],
+             eager_ms_per_step=[r['ms_per_step'] for r in e],
+             host_syncs_per_step=c[1]['syncs'] / steps,
+             max_abs_param_diff=diffs, losses=c[1]['losses'].tolist())
+  log(f'models gat ScanTrainer (tree-dense, K={chunk}): 2 epochs of '
+      f'{steps} steps, captured {c[0]["ms_per_step"]:.3f} (warm-up and '
+      f'capture) / {c[1]["ms_per_step"]:.3f} ms/step, eager '
+      f'{e[0]["ms_per_step"]:.3f} / {e[1]["ms_per_step"]:.3f}; 0 host syncs '
+      f'a step in the second epochs; launches equal {c[1]["launches"]}; '
+      f'parameters within {diffs} on {smi}')
+  return rep
+
+
+def gat_serving(torch, gtt, ds, device, topo, smi):
+  """(c): the serving phase's materializer with a segment ``GAT(100, 128,
+  47)`` of GAT_SERVE_LAYERS layers of 2 heads: ms per layer pass, each
+  pass's RECHECK_ROWS rows recomputed on the CPU from the card's own
+  input store, then the store routed through gather v2 behind the engine:
+  GAT_LOOKUPS requests equal to the table, one K2 launch per engine
+  batch. The launch counters are set to 0 before the materializer."""
+  from graphlearn_tpu_torch import metrics, ops
+  from graphlearn_tpu_torch.serving import (EmbeddingMaterializer,
+                                            ServingEngine)
+  cuda = device.type == 'cuda'
+  n = topo.num_nodes
+  model = gtt.models.GAT(FEAT_DIM, GAT_HIDDEN, CLASSES,
+                         num_layers=GAT_SERVE_LAYERS, heads=GAT_HEADS,
+                         device=device,
+                         generator=torch.Generator().manual_seed(0)).eval()
+  cmodel = gtt.models.GAT(FEAT_DIM, GAT_HIDDEN, CLASSES,
+                          num_layers=GAT_SERVE_LAYERS, heads=GAT_HEADS,
+                          device='cpu').eval()
+  cmodel.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+  deg = np.diff(topo.indptr)
+  rng = np.random.default_rng(12)
+  check = np.concatenate([[0, n - 1, int(deg.argmax())], rng.choice(
+      np.arange(1, n - 1), RECHECK_ROWS - 3, replace=False)])
+  check_t = torch.as_tensor(check).to(device)
+  ops.reset_launch_counts()
+  mat = EmbeddingMaterializer(ds, model, block_size=SERVE_BLOCK,
+                              chunk_size=SERVE_CHUNK)
+  _, passes = materialize_recorded(torch, mat, check_t)
+  diffs = []
+  for p in passes:
+    ref = recompute_rows(torch, cmodel, p['layer'], p['x_self'], p['nbr'],
+                         p['x_nbr'])
+    torch.testing.assert_close(p['out'], ref, rtol=1e-3, atol=1e-4)
+    diffs.append(float((p['out'] - ref).abs().max()))
+  store = mat.embedding_store()
+  store.set_kernel_routing(use_pallas_v2=True, block_rows=256, run_span=8)
+  table = store.table[:n].cpu().numpy()
+  reqs = serve_requests(np.random.default_rng(300), n)[:GAT_LOOKUPS]
+  metrics.reset('serving')
+  bad = 0
+  with ServingEngine(store, buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                     refresh_fn=mat.refresh_rows) as engine:
+    for ids in reqs:
+      bad += not np.array_equal(engine.lookup(ids, timeout=120), table[ids])
+  batches = metrics.snapshot()['counters']['serving.batches']
+  counts = ops.launch_counts()
+  per = 1 if cuda else 0
+  assert bad == 0, f'{bad} GAT responses differ from the table'
+  assert counts['gather_runs'] == per * batches, (counts, batches)
+  assert counts['gather_rows'] >= per * len(passes) * (mat.n_pad //
+                                                       SERVE_BLOCK), counts
+  assert counts['sample_hop'] == counts['sample_level'] == 0, counts
+  rep = dict(pass_ms=[p['ms'] for p in passes], recheck_max_abs_diff=diffs,
+             W=mat._w, lookups=len(reqs), batches=batches, launches=counts)
+  log(f'models gat serving: GAT({FEAT_DIM}, {GAT_HIDDEN}, {CLASSES}) '
+      f'{GAT_SERVE_LAYERS} layers x {GAT_HEADS} heads materialized (W='
+      f'{mat._w}), ms per layer pass ' +
+      ' '.join(f'{p["ms"]:.2f}' for p in passes) + f'; {RECHECK_ROWS} rows '
+      'a pass within ' + ' '.join(f'{d:.3g}' for d in diffs) + ' of the '
+      f'CPU; {len(reqs)} engine lookups equal to the table in {batches} '
+      f'batches; launches {counts} on {smi}')
+  return rep
+
+
+def seal_pins(torch, model, rec=None):
+  """The DGCNN's two data-dependent choices (the sort order and the max
+  pool's argmax), recorded (``rec`` None: returns the list they are
+  appended to, one dict per forward) or imposed from ``rec`` (another
+  device's): the CPU then follows the card at every choice it made
+  between values within rounding, as it follows its side of 0 at every
+  ReLU. Imposed, the card's order is checked to sort the CPU's keys
+  and its pooled choices to be maxima of the CPU's inputs (each within
+  1e-5), and the CPU's own order is counted where it differs."""
+  seen = []
+  own_sort = model.sort_order
+
+  def sort_order(h, nmask):
+    order = own_sort(h, nmask)
+    if rec is None:
+      seen.append(dict(order=order.detach()))
+      return order
+    card = rec['order'].to(h.device)
+    key = torch.where(nmask, h[..., -1], float('-inf')).detach()
+    ks = key.gather(1, card)
+    assert bool((ks[:, :-1] >= ks[:, 1:] - 1e-5).all()), 'card sort order'
+    rest = key.scatter(1, card, float('-inf')).amax(1)
+    assert bool((ks[:, -1] >= rest - 1e-5).all()), 'card top-k'
+    seen.append(dict(order_differs=int((order != card).any(1).sum())))
+    return card
+
+  def pool_hook(m, inp, out):
+    x = inp[0]
+    if rec is None:
+      seen[-1]['pool'] = torch.nn.functional.max_pool1d(
+          x, 2, 2, return_indices=True)[1].detach()
+      return None
+    idx = rec['pool'].to(x.device)
+    picked = x.flatten(2).gather(2, idx)
+    own = torch.nn.functional.max_pool1d(x, 2, 2)
+    assert bool((picked >= own - 1e-5).all()), 'card max-pool choice'
+    return picked
+
+  model.sort_order = sort_order
+  model.pool.register_forward_hook(pool_hook)
+  return seen
+
+
+def seal_part(torch, gtt, device, smi):
+  """(d): the SEAL example at its defaults: the enclosing subgraphs of
+  its train links extracted on the card (K4 per subgraph; the first 16
+  equal to a CPU sampler's from the same stream), the DGCNN's SEAL_STEPS
+  train steps, each recomputed on the CPU from the card's state before it
+  (``cpu_step_check``, the CPU following the card's sort order and max
+  pool choices), and one forward on the next batch against the CPU's."""
+  import copy
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.examples import seal_link_pred as seal
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  args = seal.parser().parse_args(
+      ['--device', device.type] + ([] if cuda else [
+          '--num-nodes', '300', '--num-links', '48', '--batch-size', '16']))
+  graph_ei, pos, neg, _, _ = seal.make_graph(args)
+
+  def sampler(d):
+    return gtt.sampler.NeighborSampler(
+        gtt.data.Graph(gtt.data.Topology(graph_ei,
+                                         num_nodes=args.num_nodes),
+                       mode='CPU', device=d), args.fanout, seed=0, device=d)
+
+  card = sampler(device)
+  ops.reset_launch_counts()
+  t0 = time.perf_counter()
+  tr = [np.concatenate(p) for p in zip(seal.extract(card, pos, 1, args),
+                                       seal.extract(card, neg, 0, args))]
+  extract_s = time.perf_counter() - t0
+  counts = ops.launch_counts()
+  calls = pos.shape[1] + neg.shape[1]
+  per = 1 if cuda else 0
+  assert counts['sample_level'] == per * calls * (3 * len(args.fanout) + 1), \
+      counts
+  assert counts['sample_hop'] == 0, counts
+  host = seal.extract(sampler(cpu), pos[:, :16], 1, args)
+  for a, b in zip(host, tr):
+    assert np.array_equal(a, b[:16]), 'a subgraph differs from the CPU\'s'
+  order = np.random.default_rng(1).permutation(len(tr[4]))
+  bs = args.batch_size
+  batches = [{k: torch.as_tensor(v[order[i * bs:(i + 1) * bs]]).to(device)
+              for k, v in zip(('z', 'ei', 'em', 'nm', 'y'), tr)}
+             for i in range(SEAL_STEPS + 1)]
+
+  def model_on(d):
+    return seal.DGCNN(k=args.sortpool_k, device=d,
+                      generator=torch.Generator().manual_seed(0))
+
+  model = model_on(device)
+  model.train()
+  state = train.create_train_state(model, lr=1e-3)
+  step = seal.make_step(model, state.optimizer)
+  recs = seal_pins(torch, model)
+  checks, step_ms = [], []
+  for i, b in enumerate(batches[:SEAL_STEPS]):
+    check = (copy.deepcopy(model.state_dict()),
+             copy.deepcopy(state.optimizer.state_dict()), to_cpu(torch, b))
+    pre = []
+    hooks = relu_input_hooks(model,
+                             lambda layer, z: pre.append(z.detach().clone()))
+    e0 = _event(torch, cuda)
+    loss = step(b)
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    step_ms.append(_span(e0, e1, cuda))
+    for h in hooks:
+      h.remove()
+    check += ([p.grad.detach().cpu() for p in model.parameters()],
+              [z.cpu() for z in pre])
+    rec = {k: v.cpu() for k, v in recs[-1].items()}
+    differs = []
+
+    def cpu_model(rec=rec, differs=differs):
+      m = model_on(cpu)
+      differs.append(seal_pins(torch, m, rec))
+      return m
+
+    def make_step(m):
+      def st(s, bb):
+        return s, seal.make_step(m, s.optimizer)(bb), None
+      return st, None
+
+    c = cpu_step_check(torch, gtt, None, model, check, loss,
+                       cpu_model=cpu_model, make_step=make_step)
+    c['cpu_sort_differs'] = sum(s.get('order_differs', 0)
+                                for seen in differs for s in seen)
+    checks.append(c)
+  model.eval()
+  last = batches[SEAL_STEPS]
+  with torch.no_grad():
+    got = model(last['z'], last['ei'], last['em'], last['nm']).cpu()
+    cm = model_on(cpu).eval()
+    cm.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pinned = seal_pins(torch, cm, {k: v.cpu() for k, v in recs[-1].items()})
+    want = cm(*(last[k].cpu() for k in ('z', 'ei', 'em', 'nm')))
+  assert got.shape == (bs,) and bool(torch.isfinite(got).all())
+  fwd_diff = float((got - want).abs().max())
+  torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+  rep = dict(links=calls, extract_s=extract_s, launches=counts,
+             step_ms=step_ms, losses=[c['loss'] for c in checks],
+             cpu_checks=[{k: c[k] for k in (
+                 'pre_diff', 'opposite', 'grad_share', 'adam_diff',
+                 'cpu_loss', 'cpu_sort_differs')} for c in checks],
+             forward_max_abs_diff=fwd_diff,
+             forward_cpu_sort_differs=pinned[-1]['order_differs'])
+  log(f'models seal: {calls} enclosing subgraphs extracted on the card in '
+      f'{extract_s:.2f} s (launches {counts}; the first 16 equal to the '
+      f'CPU\'s); {SEAL_STEPS} DGCNN steps '
+      + ' '.join(f'{m:.3f}' for m in step_ms) + ' ms, losses '
+      + ' '.join(f'{c["loss"]:.4f}' for c in checks) + ', each recomputed '
+      'on the CPU (gradients within '
+      + ' '.join(f'{c["grad_share"]:.3g}' for c in checks)
+      + ' of the largest); a forward within '
+      f'{fwd_diff:.3g} of the CPU\'s on {smi}')
+  return rep
+
+
+def models_phase(torch, gtt, ds, topo, device, caps, smi):
+  """HGT at the MAG example's width (a), the homogeneous GAT at
+  prof_gat_merge's configuration (b), GAT serving (c) and SEAL (d)."""
+  cuda = device.type == 'cuda'
+  t0 = time.perf_counter()
+  rep = {'hgt': hgt_part(torch, gtt, device, smi)}
+  if cuda:
+    torch.cuda.empty_cache()
+  steps = GAT_STEPS if cuda else 4
+  pool = np.random.default_rng(11).permutation(topo.num_nodes)[
+      :BATCH * steps]
+  gat = rep['gat'] = gat_forwards(torch, gtt, ds, pool, device, caps, smi)
+  for kind in ('tree', 'merge'):
+    gat[f'train_{kind}'] = loop_train(
+        torch, gtt, make_loader(gtt, ds, pool, device, kind, caps),
+        lambda d, kind=kind: gat_model(torch, gtt, d, kind, caps, 0),
+        CLASSES, steps, gat_launches(kind, steps, cuda), smi,
+        f'models gat train {kind}-dense')
+    if cuda:
+      torch.cuda.empty_cache()
+  gat['scan'] = gat_scan(torch, gtt, ds, pool, device,
+                         GAT_CHUNK if cuda else 2, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  rep['gat_serving'] = gat_serving(torch, gtt, ds, device, topo, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  rep['seal'] = seal_part(torch, gtt, device, smi)
+  rep['phase_s'] = time.perf_counter() - t0
+  log(f'models phase wall {rep["phase_s"]:.1f} s on {smi}')
   return rep
 
 
@@ -4829,6 +5469,10 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('hetero')
+  report['models'] = models_phase(torch, gtt, ds, topo, device, caps, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('models')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -4866,6 +5510,12 @@ def main(argv=None):
       'tree', 'merge', 'train_rsage_tree', 'train_rgat_tree',
       'train_rgat_merge')]
   paths += [r['launches'] for r in het['menu'].values()]
+  mod = report['models']
+  paths += [mod['hgt'][p]['launches'] for p in (
+      'tree', 'merge', 'train_tree', 'train_merge')]
+  paths += [mod['gat'][p]['launches'] for p in (
+      'tree', 'merge', 'train_tree', 'train_merge', 'scan')]
+  paths += [mod[p]['launches'] for p in ('gat_serving', 'seal')]
   paths += [report['hot_cold'][p]['launches'] for p in ('papers', 'tables')]
   paths += [report['tiered'][p]['launches'] for p in ('tree', 'merge',
                                                        'papers')]

@@ -164,7 +164,9 @@ class ScanTrainer(FusedEpochTrainer):
   Args:
     loader: a homogeneous ``NeighborLoader`` with device-resident
       features and labels.
-    model: the layered ``GraphSAGE`` matching the loader's layout.
+    model: any homogeneous model of the port over the loader's batches
+      (a layered ``GraphSAGE`` or ``GAT`` matching the loader's layout,
+      or a segment one), as JAX's takes any model.
     num_classes: label classes of the loss.
     chunk_size: K, steps per chunk.
     perm_seed: base seed of the epoch permutation (default: the loader's

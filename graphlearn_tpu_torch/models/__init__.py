@@ -1,4 +1,6 @@
-from . import conv, convert, train
-from .conv import GATConv, SAGEConv
-from .models import (RGNN, GraphSAGE, HeteroConv, MergeSAGEConv,
-                     TreeHeteroConv, TreeSAGEConv)
+from . import conv, convert, hgt, train
+from .conv import GATConv, GCNConv, SAGEConv
+from .hgt import HGT, HGTConv
+from .models import (GAT, GCN, RGNN, GraphSAGE, HeteroConv, MergeGATConv,
+                     MergeSAGEConv, TreeGATConv, TreeHeteroConv,
+                     TreeSAGEConv, run_impl_decision)

@@ -1,7 +1,8 @@
 """Masked message passing over padded COO batches: the segment forward.
 
 Counterpart of ``graphlearn_tpu/models/conv.py`` (``_masked_targets``,
-the ``segment_*_agg`` aggregators, ``SAGEConv`` and ``GATConv``).
+the ``segment_*_agg`` aggregators, ``SAGEConv``, ``GCNConv`` and
+``GATConv``).
 ``edge_index`` is ``[2, E]`` with ``row`` the message source and ``col``
 the target; -1 pads. Aggregation scatters into ``n + 1`` segments and drops the last,
 where every invalid edge goes.
@@ -108,6 +109,50 @@ class SAGEConv(nn.Module):
     del src
     return dense(self.lin_self, x, self.dtype) + \
         dense(self.lin_nbr, agg, self.dtype)
+
+
+class GCNConv(nn.Module):
+  """GCN conv: symmetric degree normalisation with implicit self loops
+  (``graphlearn_tpu/models/conv.py:GCNConv``).
+
+  The degrees count the valid edges in float32 whatever the compute
+  dtype, ``deg_in`` over the targets and ``deg_out`` over the sources,
+  each plus 1 (the self loop). An edge's message is ``h_src`` scaled by
+  ``1 / sqrt(deg_out[src] * deg_in[dst])``; the self loop adds
+  ``h / deg_in``. ``lin`` is flax's auto-named ``Dense_0``
+  (``flax_names``, read by ``models.convert``)."""
+
+  flax_names = {'lin': 'Dense_0'}
+
+  def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+               dtype=None):
+    super().__init__()
+    self.dtype = dtype
+    self.lin = nn.Linear(in_dim, out_dim, bias=use_bias)
+
+  def forward(self, x, edge_index, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
+    n = x.shape[0]
+    row, col = edge_index[0], edge_index[1]
+    tgt = _masked_targets(col, edge_mask, n)
+    srcseg = _masked_targets(row, edge_mask, n)
+    ones = torch.ones(tgt.shape[0], dtype=torch.float32, device=x.device)
+    deg_in = torch.zeros(n + 1, dtype=torch.float32, device=x.device
+                         ).index_add_(0, tgt, ones)[:n] + 1.0
+    deg_out = torch.zeros(n + 1, dtype=torch.float32, device=x.device
+                          ).index_add_(0, srcseg, ones)[:n] + 1.0
+    h = dense(self.lin, x, self.dtype)
+    safe_row = torch.clamp(row, min=0).to(torch.int64)
+    safe_col = torch.clamp(col, min=0).to(torch.int64)
+    inv_src = (1.0 / torch.sqrt(deg_out)).index_select(0, safe_row)
+    inv_dst = (1.0 / torch.sqrt(deg_in)).index_select(0, safe_col)
+    norm = (inv_src * inv_dst).to(h.dtype)
+    msgs = h.index_select(0, safe_row) * norm[:, None]
+    msgs = torch.where(edge_mask[:, None], msgs,
+                       torch.zeros((), dtype=h.dtype, device=h.device))
+    agg = msgs.new_zeros((n + 1, h.shape[1])).index_add_(0, tgt, msgs)[:n]
+    return agg + h * (1.0 / deg_in[:, None]).to(h.dtype)
 
 
 def segment_softmax_max(e, tgt, num_segments: int):

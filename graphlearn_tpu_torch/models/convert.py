@@ -6,29 +6,46 @@ optax's ``ScaleByAdamState(count, mu, nu)`` holds the moments as trees
 of the same layout; torch's Adam keeps ``step``, ``exp_avg`` and
 ``exp_avg_sq`` per parameter.
 
-A torch parameter ``a.b.weight`` is the flax leaf ``a/b/kernel``
-(transposed), ``a.b.bias`` is ``a/b/bias`` and any other leaf (an
-attention vector) keeps its name. A model may rename its module path
+A torch parameter ``a.b.weight`` is the flax leaf ``a/b/kernel`` with
+its axes reversed (a ``Linear`` weight ``[out, in]`` is a ``Dense``
+kernel ``[in, out]``, a ``Conv1d`` weight ``[out, in, k]`` a ``Conv``
+kernel ``[k, in, out]``), an ``nn.Embedding`` weight is ``a/b/embedding``
+as it stands, ``a.b.bias`` is ``a/b/bias`` and any other leaf (an
+attention vector, a relation matrix, a prior) keeps its name and layout.
+A module may rename its children (``flax_names``: ``GCNConv``'s ``lin``
+is flax's auto-named ``Dense_0``), and a model its module path
 (``model.flax_scope``): ``RGNN``'s segment convs, ``hetero{i}.convs.
 {etype}``, are flax's auto-named ``SAGEConv_k`` / ``GATConv_k`` at the
 top level. Without a model every leaf is carried with its module path
 as it stands (GraphSAGE's ``conv{i}/lin_*``). Flax creates a parameter
 only when its module runs, so a torch parameter with no flax leaf (a
 conv no batch type reaches) is left out of the mapping both ways.
+HGT's key biases get an exact 0 gradient in the port (``hgt._keys``), so
+their Adam moments stay 0 where optax's hold rounding noise.
 """
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flax_path(model, name):
   """``(flax path tuple, transposed)`` of the torch parameter ``name``:
   the one naming rule, read both ways."""
   *mods, leaf = name.split('.')
+  transposed = leaf == 'weight'
+  flax_leaf = 'kernel' if transposed else leaf
+  if model is not None:
+    renamed, owner = [], model
+    for m in mods:
+      renamed.append(getattr(owner, 'flax_names', {}).get(m, m))
+      owner = owner.get_submodule(m)
+    if transposed and isinstance(owner, nn.Embedding):
+      flax_leaf, transposed = 'embedding', False
+    mods = renamed
   scope = getattr(model, 'flax_scope', None)
   if scope is not None:
     mods = scope(mods)
-  return tuple(mods) + ('kernel' if leaf == 'weight' else leaf,), \
-      leaf == 'weight'
+  return tuple(mods) + (flax_leaf,), transposed
 
 
 def _torch_names(tree, prefix=()):
@@ -66,7 +83,8 @@ def params_from_flax(params, model=None) -> dict:
 
 def _to_torch(arr, transposed):
   t = torch.as_tensor(np.array(arr, dtype=np.float32))
-  return t.t().contiguous() if transposed else t
+  return t.permute(*reversed(range(t.dim()))).contiguous() if transposed \
+      else t
 
 
 def params_to_flax(state_dict, model=None) -> dict:

@@ -1,9 +1,12 @@
-"""GraphSAGE and the typed RGNN: the plain segment forwards and the
-layered, dense forwards.
+"""GraphSAGE, GCN, GAT and the typed RGNN: the plain segment forwards
+and the layered, dense forwards.
 
 Counterpart of ``graphlearn_tpu/models/models.py``: ``_tree_blocks``,
-``_masked_run_mean`` / ``_masked_flat_run_mean`` (the 'reshape'
-implementation), ``TreeSAGEConv``, ``MergeSAGEConv`` and ``GraphSAGE``
+``_masked_run_mean`` / ``_masked_flat_run_mean`` and
+``_masked_run_softmax`` in the ``RUN_MEAN_IMPL`` / ``RUN_SOFTMAX_IMPL``
+layout (``run_impl_decision``), ``TreeSAGEConv``, ``MergeSAGEConv``,
+``TreeGATConv``, ``MergeGATConv``, ``GCN``, ``GAT`` (its segment,
+layered, tree-dense and merge-dense forwards) and ``GraphSAGE``
 either without hop offsets (the segment forward over ``SAGEConv``, with
 the ``layers=(lo, hi)`` slice the serving tier runs) or with hop offsets:
 the layered segment forward (no dense flag: ``SAGEConv`` over each
@@ -35,6 +38,7 @@ Parameter names follow the flax modules (``conv{i}``, ``lin_self``,
 the compute dtype of every conv, as flax's (``conv.dense``): inputs,
 aggregation, products and the logits in it, the parameters float32.
 """
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -43,7 +47,7 @@ from torch import nn
 
 from ..typing import as_str
 from ..utils import resolve_device
-from .conv import GATConv, SAGEConv, dense
+from .conv import GATConv, GCNConv, SAGEConv, dense
 
 
 def _tree_blocks(node_offsets, fanouts, n_rows):
@@ -73,18 +77,82 @@ def _masked_run_mean(vals, mask):
   return s * inv[:, None]
 
 
+def _impl_from_env(var: str, default: str, allowed) -> str:
+  """A run-layout choice read from the environment (``var`` unset or
+  empty: ``default``); a value outside ``allowed`` raises."""
+  v = os.environ.get(var, '').strip()
+  if not v:
+    return default
+  if v not in allowed:
+    raise ValueError(f'{var}={v!r}: expected one of {sorted(allowed)}')
+  return v
+
+
+def run_impl_decision(reshape_ms, window_ms, rel_margin: float = 0.03):
+  """The rule that picks a run layout from an A/B timing: 'window' wins
+  only by more than ``rel_margin`` (a tie keeps 'reshape'). Returns
+  ``(decision, evidence)``; a missing leg gives ``(None, reason)``."""
+  if reshape_ms is None or window_ms is None:
+    return None, 'undecided: missing ' + (
+        'both legs' if reshape_ms is None and window_ms is None else
+        ('reshape leg' if reshape_ms is None else 'window leg'))
+  if window_ms < reshape_ms * (1.0 - rel_margin):
+    return 'window', (f'window {window_ms:.3f} ms beats reshape '
+                      f'{reshape_ms:.3f} ms by >{rel_margin:.0%}')
+  return 'reshape', (f'reshape {reshape_ms:.3f} ms holds (window '
+                     f'{window_ms:.3f} ms, margin {rel_margin:.0%})')
+
+
+# The layout of the dense convs' k-run reductions (the JAX package's
+# GLT_RUN_MEAN_IMPL / GLT_RUN_SOFTMAX_IMPL). 'reshape' (the default)
+# reduces over axis 1 of a [runs, k, F] view; 'window' keeps the flat
+# [runs*k, F] layout and reduces each run of k rows with
+# torch.segment_reduce (lax.reduce_window's row windows), broadcasting
+# back with repeat_interleave. The two give the same numbers; on the card
+# a view costs nothing, so 'reshape' stays the default.
+RUN_MEAN_IMPL = _impl_from_env('GLT_RUN_MEAN_IMPL', 'reshape',
+                               ('reshape', 'window'))
+RUN_SOFTMAX_IMPL = _impl_from_env('GLT_RUN_SOFTMAX_IMPL', 'reshape',
+                                  ('reshape', 'window'))
+
+
+def _run_reduce(x, k: int, reduce: str):
+  """``reduce`` ('max' or 'sum') over each run of ``k`` rows of a flat
+  ``[f*k, C]`` tensor: ``[f, C]``."""
+  lengths = torch.full((x.shape[0] // k,), k, dtype=torch.int64,
+                       device=x.device)
+  return torch.segment_reduce(x, reduce, lengths=lengths, axis=0)
+
+
 def _masked_flat_run_mean(x, mask, k: int):
-  """Masked mean over k-runs of a flat ``[f*k, F]`` block."""
+  """Masked mean over k-runs of a flat ``[f*k, F]`` block, in the
+  RUN_MEAN_IMPL layout."""
   f = mask.shape[0]
+  if RUN_MEAN_IMPL == 'window':
+    xz = torch.where(mask.reshape(-1)[:, None], x,
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    inv = (1.0 / torch.clamp(mask.sum(1), min=1)).to(x.dtype)
+    return _run_reduce(xz, k, 'sum') * inv[:, None]
   return _masked_run_mean(x.reshape(f, k, -1), mask)
 
 
 def _masked_run_softmax(e, mask, out_dtype, negative_slope):
-  """Masked attention softmax over axis 1 of ``[runs, k, H]`` logits (the
-  JAX package's default 'reshape' layout): leaky_relu, masked slots to
-  -inf, the true per-run max subtracted (an all-masked run: 0), exp, the
-  denominator floored at 1e-9. The gradient flows through the max as
+  """Masked attention softmax over axis 1 of ``[runs, k, H]`` logits:
+  leaky_relu, masked slots to -inf, the true per-run max subtracted (an
+  all-masked run: 0), exp, the denominator floored at 1e-9, in the
+  RUN_SOFTMAX_IMPL layout. The gradient flows through the max as
   through JAX's; the ``where`` stops it at an all-masked run's -inf."""
+  if RUN_SOFTMAX_IMPL == 'window':
+    f, k, h = e.shape
+    ef = F.leaky_relu(e.reshape(f * k, h), negative_slope)
+    mf = mask.reshape(f * k)[:, None]
+    ef = torch.where(mf, ef, float('-inf'))
+    mx = _run_reduce(ef, k, 'max')
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    ex = torch.where(mf, torch.exp(ef - mx.repeat_interleave(k, 0)), 0.0)
+    denom = torch.clamp(_run_reduce(ex, k, 'sum'), min=1e-9)
+    return (ex / denom.repeat_interleave(k, 0)).reshape(f, k, h).to(
+        out_dtype)
   e = F.leaky_relu(e, negative_slope)
   e = torch.where(mask[..., None], e, float('-inf'))
   mx = e.amax(1, keepdim=True)
@@ -92,6 +160,34 @@ def _masked_run_softmax(e, mask, out_dtype, negative_slope):
   ex = torch.where(mask[..., None], torch.exp(e), 0.0)
   denom = torch.clamp(ex.sum(1, keepdim=True), min=1e-9)
   return (ex / denom).to(out_dtype)
+
+
+@torch.no_grad()
+def draw_parameters(module, generator: Optional[torch.Generator] = None):
+  """The port's initial weights, drawn on the CPU from ``generator`` in
+  ``named_parameters`` order: a layer's weight and bias uniform in
+  +-1/sqrt(fan_in) (nn.Linear's default), an embedding table standard
+  normal, a ``pri_*`` / ``skip_*`` scalar 1 (flax's ones), and any other
+  tensor (an attention vector or relation matrix) Glorot uniform with
+  flax's fans (leading axes are its receptive field)."""
+  for name, p in module.named_parameters():
+    owner_name, _, leaf = name.rpartition('.')
+    owner = module.get_submodule(owner_name)
+    if leaf.startswith(('pri_', 'skip_')):
+      p.fill_(1.0)
+      continue
+    if isinstance(owner, nn.Embedding):
+      p.copy_(torch.empty(p.shape).normal_(generator=generator))
+      continue
+    if leaf in ('weight', 'bias'):
+      bound = 1.0 / owner.weight[0].numel() ** 0.5
+    else:
+      rf = 1
+      for s in p.shape[:-2]:
+        rf *= s
+      bound = (6.0 / ((p.shape[-2] + p.shape[-1]) * rf)) ** 0.5
+    p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                          generator=generator))
 
 
 def _dynamic_rows(n: int, base, f: int):
@@ -215,6 +311,119 @@ class MergeSAGEConv(nn.Module):
         dense(self.lin_nbr, acc, self.dtype)
 
 
+class TreeGATConv(GATConv):
+  """GATConv over tree-positional batches: a dense softmax per parent
+  (``graphlearn_tpu/models/models.py:TreeGATConv``).
+
+  In a tree batch every target's in-edges are its contiguous child block,
+  so the segment softmax over in-edges is a masked softmax over the
+  ``[parents, k]`` reshape: no gathers, no scatters. Every input row gets
+  an output row (the deepest block's are zero). A ``GATConv`` (its
+  parameters ``lin``, ``att_src``, ``att_dst``) with another forward.
+  Valid only for un-truncated layouts (no node_budget).
+  """
+
+  def __init__(self, in_dim: int, out_dim: int, node_offsets: Sequence[int],
+               fanouts: Sequence[int], heads: int = 1,
+               negative_slope: float = 0.2, concat: bool = True,
+               dtype=None):
+    super().__init__(in_dim, out_dim, heads, negative_slope, concat, dtype)
+    self.node_offsets = tuple(node_offsets)
+    self.fanouts = tuple(fanouts)
+
+  def forward(self, x, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
+    no = self.node_offsets
+    blocks, eo = _tree_blocks(no, self.fanouts, x.shape[0])
+    n, heads, hd = x.shape[0], self.heads, self.out_dim
+    w = dense(self.lin, x, self.dtype).reshape(n, heads, hd)
+    wf = w.float()
+    alpha_src = (wf * self.att_src[None]).sum(-1)       # [n, H]
+    alpha_dst = (wf * self.att_dst[None]).sum(-1)
+    outs = []
+    for d in range(len(blocks) - 1):   # parents block d <- children d+1
+      b, k = blocks[d], self.fanouts[d]
+      lo = 0 if d == 0 else no[d - 1]
+      ch = slice(no[d], no[d] + blocks[d + 1])
+      e = alpha_src[ch].reshape(b, k, heads) + alpha_dst[lo:lo + b][:, None]
+      m = edge_mask[eo[d]:eo[d + 1]].reshape(b, k)
+      attn = _masked_run_softmax(e, m, w.dtype, self.negative_slope)
+      msgs = w[ch].reshape(b, k, heads, hd)
+      outs.append((msgs * attn[..., None]).sum(1))      # [b, H, D]
+    outs.append(w.new_zeros((blocks[-1], heads, hd)))
+    out = torch.cat(outs)
+    if self.concat:
+      return out.reshape(n, heads * hd)
+    return out.mean(1)
+
+
+class MergeGATConv(GATConv):
+  """GATConv over merge-layout batches: a dense softmax per target over
+  its k-run (``graphlearn_tpu/models/models.py:MergeGATConv``).
+
+  Dedup expands every node at most once, so a target's in-edges are its
+  contiguous k-run in the hop that expanded it: per hop, one row gather
+  ``w[src]`` of the flat ``[n, heads*D]`` projection, the source alphas
+  from the gathered rows and the target alphas from the buffer, a masked
+  run softmax, and one dense block WRITE at the hop's base ``min(tgt -
+  j)`` over its valid runs (``lax.dynamic_update_slice``: the start
+  clamped to ``[0, n - f]``, hops in order, so a later hop overwrites the
+  zero rows an earlier one wrote past its runs). It writes, where the
+  typed merge convs add. The base stays on the device. A ``GATConv``
+  with another forward.
+  """
+
+  def __init__(self, in_dim: int, out_dim: int, edge_offsets: Sequence[int],
+               fanouts: Sequence[int], heads: int = 1,
+               negative_slope: float = 0.2, concat: bool = True,
+               dtype=None):
+    super().__init__(in_dim, out_dim, heads, negative_slope, concat, dtype)
+    self.edge_offsets = tuple(edge_offsets)
+    self.fanouts = tuple(fanouts)
+
+  def forward(self, x, edge_index, edge_mask):
+    if self.dtype is not None:
+      x = x.to(self.dtype)
+    n, heads, hd = x.shape[0], self.heads, self.out_dim
+    w = dense(self.lin, x, self.dtype)                  # [n, H*D], flat
+    alpha_dst = (w.float().reshape(n, heads, hd) * self.att_dst).sum(-1)
+    row, col = edge_index[0], edge_index[1]
+    acc = w.new_zeros((n, heads * hd))
+    e0 = 0
+    for i, e1 in enumerate(self.edge_offsets):
+      k = self.fanouts[i]
+      width = e1 - e0
+      assert width % k == 0, (
+          f'hop {i} edge block {width} not a multiple of fanout {k}; '
+          'build edge_offsets with models.train.merge_hop_offsets')
+      f = width // k
+      assert f <= n, (f, n)
+      src = row[e0:e1].clamp(min=0).to(torch.int64)
+      tgt = col[e0:e1].reshape(f, k).amax(1)
+      m = edge_mask[e0:e1].reshape(f, k)
+      msgs4 = w.index_select(0, src).reshape(f, k, heads, hd)
+      e = (msgs4.float() * self.att_src).sum(-1) + \
+          alpha_dst.index_select(0, tgt.clamp(min=0).to(torch.int64)
+                                 )[:, None]
+      attn = _masked_run_softmax(e, m, w.dtype, self.negative_slope)
+      outv = (msgs4 * attn[..., None]).sum(1)           # [f, H, D]
+      ok = m.any(1) & (tgt >= 0)
+      # the block base from tgt[j] - j: a zero-degree frontier node's run
+      # is all masked and reads tgt -1, so min(valid tgt) alone would
+      # misplace a block such runs lead
+      ar = torch.arange(f, dtype=tgt.dtype, device=x.device)
+      base = torch.where(ok, tgt - ar, n).amin()
+      start = torch.clamp(base, 0, n - f).to(torch.int64)
+      acc.index_copy_(0, start + ar.to(torch.int64),
+                      torch.where(ok[:, None], outv.reshape(f, heads * hd),
+                                  0.0))
+      e0 = e1
+    if self.concat:
+      return acc
+    return acc.reshape(n, heads, hd).mean(1)
+
+
 class GraphSAGE(nn.Module):
   """Multi-layer GraphSAGE.
 
@@ -295,18 +504,10 @@ class GraphSAGE(nn.Module):
   def convs(self):
     return [getattr(self, f'conv{i}') for i in range(self.num_layers)]
 
-  @torch.no_grad()
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     """nn.Linear's default init (uniform in +-1/sqrt(fan_in)), drawn from
-    ``generator`` on the CPU."""
-    for p_name, p in self.named_parameters():
-      fan_in = p.shape[-1] if p.dim() == 2 else None
-      if fan_in is None:   # bias: its layer's fan_in
-        layer = self.get_submodule(p_name.rsplit('.', 1)[0])
-        fan_in = layer.in_features
-      bound = 1.0 / fan_in ** 0.5
-      p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                            generator=generator))
+    ``generator`` on the CPU (``draw_parameters``)."""
+    draw_parameters(self, generator)
 
   def forward(self, x, edge_index, edge_mask, layers=None):
     if self.segment:
@@ -340,6 +541,139 @@ class GraphSAGE(nn.Module):
         x = conv(x[:n_in], edge_index[:, :e_used], edge_mask[:e_used])
       if i < self.num_layers - 1:
         x = torch.relu(x)
+    return x
+
+
+class GCN(nn.Module):
+  """Multi-layer GCN (``graphlearn_tpu/models/models.py:GCN``): every
+  layer a ``GCNConv`` over the whole ``edge_index``, ReLU (and dropout,
+  in ``train()`` mode) between. ``forward(..., layers=(lo, hi))`` runs
+  only conv layers ``[lo, hi)``. ``device=None`` means the card; weights
+  are drawn on the CPU from ``generator`` (``draw_parameters``)."""
+
+  def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+               num_layers: int = 2, dropout: float = 0.0, dtype=None,
+               device=None, generator: Optional[torch.Generator] = None):
+    super().__init__()
+    device = resolve_device(device)
+    self.num_layers, self.dropout, self.dtype = num_layers, dropout, dtype
+    self.out_dim = out_dim
+    self.segment = True
+    for i in range(num_layers):
+      dim_in = in_dim if i == 0 else hidden_dim
+      dim = out_dim if i == num_layers - 1 else hidden_dim
+      self.add_module(f'conv{i}', GCNConv(dim_in, dim, dtype=dtype))
+    draw_parameters(self, generator)
+    self.to(device)
+
+  def forward(self, x, edge_index, edge_mask, layers=None):
+    lo, hi = (0, self.num_layers) if layers is None else layers
+    assert 0 <= lo <= hi <= self.num_layers, (layers, self.num_layers)
+    for i in range(lo, hi):
+      x = getattr(self, f'conv{i}')(x, edge_index, edge_mask)
+      if i < self.num_layers - 1:
+        x = torch.relu(x)
+        if self.dropout > 0:
+          x = F.dropout(x, self.dropout, self.training)
+    return x
+
+
+class GAT(nn.Module):
+  """Multi-head GAT stack (``graphlearn_tpu/models/models.py:GAT``).
+
+  Layer ``i`` is a GAT conv of width ``hidden_dim`` per head with
+  ``heads`` heads concatenated (so a hidden layer's input is
+  ``heads * hidden_dim`` wide), the last of width ``out_dim`` with one
+  head, not concatenated; ELU (and dropout, in ``train()`` mode) between.
+  Without hop offsets it is the segment forward (``GATConv`` over the
+  whole ``edge_index``; ``layers=(lo, hi)`` runs conv layers ``[lo, hi)``,
+  the serving tier's slice). With hop offsets each layer runs over the
+  node and edge prefix its depth needs: ``GATConv`` (the layered segment
+  forward), ``TreeGATConv`` (``tree_dense``, un-truncated tree batches)
+  or ``MergeGATConv`` (``merge_dense``, merge batches); the dense ones
+  need the loader's ``fanouts``. ``device=None`` means the card; weights
+  are drawn on the CPU from ``generator`` (``draw_parameters``).
+  """
+
+  def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+               num_layers: int = 2, heads: int = 4, dropout: float = 0.0,
+               dtype=None, hop_node_offsets=None, hop_edge_offsets=None,
+               tree_dense: bool = False, merge_dense: bool = False,
+               fanouts=None, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    device = resolve_device(device)
+    layered = hop_node_offsets is not None
+    if tree_dense:
+      assert layered and fanouts is not None, (
+          'tree_dense GAT requires hop offsets + the true fanouts')
+    if merge_dense:
+      assert layered and not tree_dense and fanouts is not None, (
+          'merge_dense GAT requires merge hop offsets + fanouts and is '
+          'mutually exclusive with tree_dense')
+    if layered:
+      assert hop_edge_offsets is not None and \
+          len(hop_node_offsets) >= num_layers + 1 and \
+          len(hop_edge_offsets) >= num_layers
+    self.segment = not layered
+    self.tree_dense, self.merge_dense = tree_dense, merge_dense
+    self.num_layers, self.heads, self.dropout = num_layers, heads, dropout
+    self.out_dim, self.dtype = out_dim, dtype
+    self.hop_node_offsets = None if not layered else tuple(hop_node_offsets)
+    self.hop_edge_offsets = None if not layered else tuple(hop_edge_offsets)
+    self.fanouts = None if fanouts is None else tuple(fanouts)
+    for i in range(num_layers):
+      last = i == num_layers - 1
+      dim = out_dim if last else hidden_dim
+      h = 1 if last else heads
+      dim_in = in_dim if i == 0 else heads * hidden_dim
+      kw = dict(heads=h, concat=not last, dtype=dtype)
+      hops_used = num_layers - i
+      if tree_dense:
+        conv = TreeGATConv(dim_in, dim,
+                           self.hop_node_offsets[:hops_used + 1],
+                           self.fanouts[:hops_used], **kw)
+      elif merge_dense:
+        conv = MergeGATConv(dim_in, dim, self.hop_edge_offsets[:hops_used],
+                            self.fanouts[:hops_used], **kw)
+      else:
+        conv = GATConv(dim_in, dim, **kw)
+      self.add_module(f'conv{i}', conv)
+    draw_parameters(self, generator)
+    self.to(device)
+
+  def forward(self, x, edge_index, edge_mask, layers=None):
+    layered = not self.segment
+    if layers is not None:
+      assert not layered, (
+          'layer slices run the plain segment forward — build the '
+          'serving model without hop offsets / dense flags')
+      assert 0 <= layers[0] <= layers[1] <= self.num_layers
+    if layered:
+      assert self.hop_node_offsets[self.num_layers] == x.shape[0], (
+          f'layered GAT: hop offsets {self.hop_node_offsets} do not '
+          f'match the batch node buffer ({x.shape[0]}); build them from '
+          'the SAME batch_size/fanouts as the loader — '
+          'models.train.tree_hop_offsets for tree batches, '
+          'merge_hop_offsets for exact-dedup batches')
+    for i in range(self.num_layers):
+      if layers is not None and not (layers[0] <= i < layers[1]):
+        continue
+      conv = getattr(self, f'conv{i}')
+      if layered:
+        hops_used = self.num_layers - i
+        n_in = self.hop_node_offsets[hops_used]
+        e_used = self.hop_edge_offsets[hops_used - 1]
+        if self.tree_dense:
+          x = conv(x[:n_in], edge_mask[:e_used])
+        else:
+          x = conv(x[:n_in], edge_index[:, :e_used], edge_mask[:e_used])
+      else:
+        x = conv(x, edge_index, edge_mask)
+      if i < self.num_layers - 1:
+        x = F.elu(x)
+        if self.dropout > 0:
+          x = F.dropout(x, self.dropout, self.training)
     return x
 
 
@@ -790,21 +1124,11 @@ class RGNN(nn.Module):
     self.reset_parameters(generator)
     self.to(device)
 
-  @torch.no_grad()
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     """nn.Linear's default init (uniform in +-1/sqrt(fan_in)) for the
     projections, Glorot uniform for the attention vectors, drawn from
-    ``generator`` on the CPU."""
-    for name, p in self.named_parameters():
-      leaf = name.rsplit('.', 1)[-1]
-      if leaf.startswith('att_'):
-        bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
-      else:
-        fan_in = p.shape[-1] if p.dim() == 2 else \
-            self.get_submodule(name.rsplit('.', 1)[0]).in_features
-        bound = 1.0 / fan_in ** 0.5
-      p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                            generator=generator))
+    ``generator`` on the CPU (``draw_parameters``)."""
+    draw_parameters(self, generator)
 
   def flax_scope(self, mods):
     """The flax module path of a torch module path (``models.convert``):

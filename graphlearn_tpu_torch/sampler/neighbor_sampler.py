@@ -837,8 +837,8 @@ class NeighborSampler:
     mask = np.arange(cap) < n
     if key is None:
       key = self._next_key()
-    seeds_d = torch.as_tensor(padded).to(self.device)
-    mask_d = torch.as_tensor(mask).to(self.device)
+    seeds_d = _upload(padded, torch.int32, self.device)
+    mask_d = _upload(mask, torch.bool, self.device)
     res = self._sample_seeds(seeds_d, mask_d, key)
     return SamplerOutput(
         node=res['node'], num_nodes=res['num_nodes'], row=res['row'],

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..models import train as train_lib
-from ..models.models import GraphSAGE
+from ..models.models import GAT, GCN, GraphSAGE
 from ..ops.gather import gather_rows_hbm
 from ..utils import resolve_device
 from .store import EmbeddingStore, TieredEmbeddingStore, pow2_cap
@@ -85,9 +85,11 @@ class EmbeddingMaterializer:
   Args:
     dataset: the homogeneous ``data.Dataset`` to materialize over; its
       device is the materializer's.
-    model: the port's ``GraphSAGE`` built without hop offsets or dense
-      flags (the segment forward), on the dataset's device. It owns its
-      weights.
+    model: the port's ``GraphSAGE`` or ``GAT`` built without hop offsets
+      or dense flags (the segment forward), on the dataset's device. It
+      owns its weights. ``GCN`` is refused: its degree norm is a function
+      of the edge_index the conv sees, which block subgraphs cannot
+      reproduce.
     block_size: B, rows per block.
     chunk_size: K, blocks per chunk.
     neighbor_cap: optional per-node neighbour truncation (approximate
@@ -104,12 +106,21 @@ class EmbeddingMaterializer:
                spill_dir: Optional[str] = None):
     if block_size < 1 or chunk_size < 1:
       raise ValueError('block_size and chunk_size must be >= 1')
-    if not isinstance(model, GraphSAGE) or not model.segment:
+    if isinstance(model, GCN):
+      # GCNConv normalises by the degrees of the edge_index it is given;
+      # in a block subgraph every neighbour slot has local out-degree 1,
+      # so the norm would part from the full-graph forward's
+      raise ValueError(
+          'GCN materialization is unsupported: GCNConv normalizes by '
+          'degrees of the edge_index it sees, which a block subgraph '
+          'cannot reproduce — serve GraphSAGE/GAT (homo) or RGNN '
+          '(hetero) models')
+    if not isinstance(model, (GraphSAGE, GAT)) or not model.segment:
       raise ValueError(
           f'{type(model).__name__} materialization is unsupported: the '
-          'port materializes GraphSAGE built without hop offsets / dense '
-          'flags (the plain segment forward; its layer slices are what '
-          'the blocks run)')
+          'port materializes GraphSAGE or GAT built without hop offsets / '
+          'dense flags (the plain segment forward; its layer slices are '
+          'what the blocks run)')
     if dataset.node_features is None:
       raise ValueError('materialization needs node features')
     # the indexed form ('cuda' -> 'cuda:0'), comparable with a tensor's

@@ -12,7 +12,7 @@ duplicates, truncation (num_new > max_new), deg-0 and hub seeds, S far
 above the TPU kernel's 32,768, two calls giving the same bytes, launches
 per level and per batch, a scratch carried across levels under torch's
 sync debug mode, and the sampler's batches on both engines against the
-CPU's; for the gather-v2
+CPU's, made with no host sync; for the gather-v2
 kernel empty ids, B not a multiple of block_rows, runs of exactly
 run_span, run_span - 1 and 3 * run_span + 1 rows, a run over a tile edge
 and one ending at the table's end, all-equal ids, f32/bf16/int32 at widths
@@ -60,7 +60,10 @@ tree and calibrated merge batches of the IGBH example's loader against
 the CPU's with K3 once per plan item and K1 once per featured type,
 block and weighted typed batches with their draw launches, no host sync
 in typed sampling and collate, and rgat tree-dense train steps against
-the CPU (chip_smoke.py's typed-phase helpers at a small size).
+the CPU (chip_smoke.py's typed-phase helpers at a small size); and the
+models: HGT's four forwards and the dense GAT's against the CPU, and no
+host sync in a typed HGT step (chip_smoke.py's models-phase helpers at a
+small size).
 """
 import contextlib
 import copy
@@ -224,7 +227,9 @@ def test_sampler_on_card_matches_cpu(cuda, mode):
   """Three batches of the sampler on the card (one upload of the hop keys
   per batch; the merge levels over one scratch, begun once per batch)
   equal the CPU sampler's, and launch each hop's kernel once (tree) or
-  three times per level plus once per batch (merge)."""
+  three times per level plus once per batch (merge). After the first
+  (which builds the kernels), a batch from host seeds makes no host
+  sync: its seeds and mask go up from pinned memory."""
   rng = np.random.default_rng(2)
   n = 2000
   ei = np.stack([rng.integers(0, n, 40_000), rng.integers(0, 600, 40_000)])
@@ -235,10 +240,12 @@ def test_sampler_on_card_matches_cpu(cuda, mode):
       gtt.data.Graph(topo, device=dev), [8, 4, 3], device=dev, seed=5,
       dedup=dedup, frontier_caps=caps) for dev in (cuda, 'cpu')]
   ops.reset_launch_counts()
-  for _ in range(3):
-    seeds = rng.integers(0, n, 60)
-    a, b = (s.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds),
-                                batch_cap=64) for s in samplers)
+  for i in range(3):
+    inp = gtt.sampler.NodeSamplerInput(rng.integers(0, n, 60))
+    torch.cuda.synchronize()
+    with _no_sync_allowed() if i else contextlib.nullcontext():
+      a = samplers[0].sample_from_nodes(inp, batch_cap=64)
+    b = samplers[1].sample_from_nodes(inp, batch_cap=64)
     for name in ('node', 'num_nodes', 'row', 'col', 'edge_mask'):
       assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
     assert [int(x) for x in a.num_sampled_nodes] == \
@@ -1857,3 +1864,73 @@ def test_typed_rgat_tree_dense_train_step_on_card_matches_cpu(cuda):
   assert rep['launches']['gather_rows'] == 6
   assert rep['host_syncs_per_step'] == 0
   assert not rep['cpu_check']['grad_fail']
+
+
+# ------------------------------------------------------------------ models
+
+
+def _mag_setup(b=32):
+  """The HGT example's MAG-shaped graph at 3,000 papers on the card and
+  the CPU, its seed pool and calibrated caps (chip_smoke.py's helpers)."""
+  cs = _chip_smoke()
+  ex, dataset = cs.mag_example(gtt, 3000, 2)
+  ds = dataset(torch.device('cuda'))
+  pool = np.arange(600)
+  caps = gtt.sampler.estimate_hetero_frontier_caps(
+      ds.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  return cs, ex, dataset, ds, pool, caps
+
+
+def test_hgt_forwards_on_card_match_cpu(cuda):
+  """HGT (hidden 16, 2 heads) in its segment, hierarchical, tree-dense and
+  merge-dense forwards on typed batches of the example's loader: logits
+  within rtol 1e-3, atol 1e-4 of the CPU's, the forwards' seed logits in
+  agreement; the batches bit-equal to the CPU's, K3 once per plan item
+  and K1 once per featured type."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs, ex, dataset, ds, pool, caps = _mag_setup()
+  cpu_ds = dataset(torch.device('cpu'))
+  batches = {}
+  for kind in ('tree', 'merge'):
+    rec, batches[kind] = cs.hetero_batches(torch, gtt, ex, ds, cpu_ds, pool,
+                                           cuda, kind, caps, 32, 2, 'test')
+    assert rec['launches']['gather_rows'] == 2 * 4
+  rep = cs.hgt_inference(torch, gtt, ex, batches, caps, cuda, 32, 16, 'test')
+  assert set(rep) == {'tree/segment', 'tree/hierarchical', 'tree/tree_dense',
+                      'merge/segment', 'merge/merge_dense'}
+
+
+@pytest.mark.parametrize('kind', ['tree', 'merge'])
+def test_hgt_typed_step_makes_no_host_sync(cuda, kind):
+  """Three HGT train steps of the example's loop on the card (tree-dense
+  and merge-dense): 0 host syncs a step, the last step recomputed on the
+  CPU within the cpu_step_check tolerances, the profiler's kernels equal
+  to the counters."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs, ex, _, ds, pool, caps = _mag_setup()
+  rep = cs.hetero_train(torch, gtt, ex, ds, pool, cuda, kind, 'hgt', caps,
+                        32, 3, 'test', hidden=16)
+  assert rep['host_syncs_per_step'] == 0
+  assert rep['launches']['gather_rows'] == 3 * 4
+
+
+def test_gat_forwards_on_card_match_cpu(cuda):
+  """The tree-dense and merge-dense GAT (3 layers of 2 heads) on tree and
+  calibrated merge batches of a 20,000-node graph at batch 64: against
+  the segment forward and the CPU (rtol 1e-3, atol 1e-4); K3 3 and K1 1 a
+  tree batch, K4 10 a merge batch."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs = _chip_smoke()
+  cs.BATCH = 64
+  ei, feats, labels = cs.make_graph(20000, 25)
+  topo = gtt.data.Topology(ei, num_nodes=20000)
+  ds = gtt.data.Dataset(device=cuda)
+  ds.graph = gtt.data.Graph(topo, device=cuda)
+  ds.init_node_features(feats)
+  ds.init_node_labels(labels)
+  pool = np.random.default_rng(1).permutation(20000)[:64 * 4]
+  caps = list(cs.make_loader(gtt, ds, pool, cuda,
+                             'merge').sampler.frontier_caps)
+  rep = cs.gat_forwards(torch, gtt, ds, pool, cuda, caps, 'test')
+  assert rep['tree']['launches']['sample_hop'] == 6
+  assert rep['merge']['launches']['sample_level'] == 20

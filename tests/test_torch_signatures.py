@@ -4,8 +4,10 @@
 ``graphlearn_tpu.data``, of the loaders, of ``SamplerOutput``, of the
 typed names (the ``typing`` helpers, ``HeteroSamplerOutput``,
 ``HeteroData``, ``to_hetero_data``, the typed plan, layout, block and
-calibration functions, and the typed models ``GATConv``, ``HeteroConv``,
-``TreeHeteroConv`` and ``RGNN``, flax's ``parent`` / ``name`` aside),
+calibration functions, the typed models ``GATConv``, ``HeteroConv``,
+``TreeHeteroConv``, ``RGNN``, ``HGTConv`` and ``HGT``, and the
+homogeneous ``GCNConv``, ``TreeGATConv``, ``MergeGATConv``, ``GCN`` and
+``GAT``, flax's ``parent`` / ``name`` aside, and ``run_impl_decision``),
 of the single-device ``graphlearn_tpu.storage`` API and of the serving
 stack's spill (``EmbeddingMaterializer(spill_dir=)``,
 ``tiered_embedding_store``, ``TieredEmbeddingStore``,
@@ -254,11 +256,30 @@ MODEL_EXTRA = {
     ('RGNN', 'in_dims'): 'torch builds the embeddings at init',
     ('RGNN', 'device'): 'entry points run on the card',
     ('RGNN', 'generator'): 'the seed of the initial weights',
+    ('GCNConv', 'in_dim'): 'torch builds the weights at init',
+    ('TreeGATConv', 'in_dim'): 'torch builds the weights at init',
+    ('MergeGATConv', 'in_dim'): 'torch builds the weights at init',
+    ('GCN', 'in_dim'): 'torch builds the weights at init',
+    ('GCN', 'device'): 'entry points run on the card',
+    ('GCN', 'generator'): 'the seed of the initial weights',
+    ('GAT', 'in_dim'): 'torch builds the weights at init',
+    ('GAT', 'device'): 'entry points run on the card',
+    ('GAT', 'generator'): 'the seed of the initial weights',
+    # HGT keeps JAX's in_dims (same place, same default) but requires it
+    ('HGT', 'device'): 'entry points run on the card',
+    ('HGT', 'generator'): 'the seed of the initial weights',
 }
 MODEL_MISSING = {
     ('RGNN.__call__', 'train'): 'nn.Module.train() mode',
+    # dropout > 0 draws from torch's stream in train() mode (JAX: flax's
+    # 'dropout' rng with train=True)
+    ('GCN.__call__', 'train'): 'nn.Module.train() mode',
+    ('GAT.__call__', 'train'): 'nn.Module.train() mode',
+    ('HGT.__call__', 'train'): 'nn.Module.train() mode',
 }
-TYPED_MODELS = ['GATConv', 'HeteroConv', 'TreeHeteroConv', 'RGNN']
+TYPED_MODELS = ['GATConv', 'HeteroConv', 'TreeHeteroConv', 'RGNN',
+                'HGTConv', 'HGT', 'GCNConv', 'TreeGATConv', 'MergeGATConv',
+                'GCN', 'GAT']
 
 
 def _model_fn(pkg, name, member):
@@ -271,6 +292,12 @@ def _model_fn(pkg, name, member):
 def _model_params(qual, fn, drop):
   return [p for p in _params(fn) if p[0] not in ('self', 'parent', 'name')
           and (qual, p[0]) not in drop]
+
+
+def test_run_impl_decision_signature():
+  assert_same_signature('run_impl_decision',
+                        glt.models.models.run_impl_decision,
+                        gtt.models.run_impl_decision)
 
 
 @pytest.mark.parametrize('name', TYPED_MODELS)
