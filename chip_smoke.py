@@ -10,7 +10,9 @@ link prediction (the unsupervised example's LinkNeighborLoader and link
 train step), induced subgraphs, the legacy dedup engines, typed
 sampling and the IGBH RGNN (inference and training), HGT, the
 homogeneous GAT (forwards, training, a captured epoch, serving) and the
-SEAL DGCNN, the hot/cold
+SEAL DGCNN, typed link prediction (the bipartite two-tower example),
+typed RGNN serving and the tiered typed loader, partitioning with
+sample_prob, the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
 the spilled serving stores), and the two probe suites.
@@ -262,7 +264,28 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the card's state before it (the CPU following the card's sort order,
    max pool choices and ReLU sides), and a forward against the CPU's. The
    phase's wall time is printed.
-11. The hot/cold feature store. The card's pinned host-to-device rate
+11. Typed link prediction and typed serving. (a) The bipartite example
+   (``examples/hetero/bipartite_sage_unsup.py``) at its defaults: 32
+   steps of its loop (typed link batches of 512 clicks and 512 binary
+   negatives, the two-tower model, Adam at 1e-3), launches per step (the
+   negative kernel once, K3 once per plan item, no K1), the last step
+   recomputed on the CPU, 0 host syncs a step, a profiled step. (b) At
+   the IGBH width: one typed link batch each of binary tree (cites),
+   triplet and calibrated binary merge (writes), bit-equal to the CPU's
+   with its metadata, 0 host syncs. (c) The RGNN served, rsage and 4-head
+   rgat: every materialization pass timed with its K1 launches, its rows
+   at 4,096 ids a type recomputed by the CPU materializer, the typed
+   refresh of 256 papers against the table, a poisoned row served fresh
+   through ``mark_stale`` and 64 lookups with p50 / p99. (d) The tiered
+   typed loader (per-type TieredFeature, hot 0.25, warm 0.25, disk 0.50):
+   tree batches bit-equal to the all-device loader's, hot/cold launches
+   and host syncs a batch.
+12. Partition: ``sample_prob`` on the card over the script's graph
+   ([15, 10, 5], 1,024 seeds) against the CPU, a FrequencyPartitioner of
+   it (2 parts from two seed pools' card probabilities, cache 0.1) and a
+   random partition of the IGBH graph, each read back exactly from a
+   temporary directory removed afterwards, with the seconds of each.
+13. The hot/cold feature store. The card's pinned host-to-device rate
    (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
    from HBM, the cold rows read over UVA from the mapped host tail) on
    the storage rows of one [15, 10, 5] x 1024 tree batch over the
@@ -283,7 +306,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    host): one epoch, every batch's ``x`` equal to the table's rows, one
    hot/cold and two hop launches a step; and the store rebuilt in this
    process from its IPC handle, exact.
-12. The tiered store: the script's table sorted by in-degree in a
+14. The tiered store: the script's table sorted by in-degree in a
    ``storage.TieredFeature`` (hot 0.25 on the card, warm 0.25 mapped on
    the host, the rest as npy chunks in a temporary directory, removed at
    the end), training ``GraphSAGE(100, 256, 47)`` (Adam 3e-3) over a
@@ -314,7 +337,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``embedding_store()`` on the serving mix's buckets: equal rows, lookup
    ms p50 and p99, host syncs per lookup (0 for the tiered stores) and
    one hot/cold launch per tiered lookup.
-13. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
+15. Probes: both suites (``graphlearn_tpu_torch.benchmarks.prof_mem`` and
    ``prof_dedup``) at the JAX suites' sizes, with their kernels' launch
    counters set to 0 before and read after, then the two probe kernels
    against their plain versions (exact) and a library call at the
@@ -343,6 +366,7 @@ import argparse
 import concurrent.futures
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -391,6 +415,10 @@ PROFILE_LEAD_S = 0.05
 # ``(label, wall seconds)`` of every profiled window's warm-up call: what
 # the warm-up cycles cost the script
 PROFILE_WARMUPS_S = []
+# the profiled windows recorded again because their trace held no device
+# event (``profiled``), and how many times a window may be
+PROFILE_EMPTY_WINDOWS = []
+PROFILE_EMPTY_RETRIES = 2
 # the CPU recompute of the loop's last train step (cpu_step_readings),
 # held in parts: the ReLU inputs within PRE_RTOL / PRE_ATOL; the gradients,
 # the CPU following the card's side of 0 at each ReLU input, within rtol
@@ -1183,40 +1211,58 @@ def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
   cuda = device.type == 'cuda'
   sync = torch.cuda.synchronize if cuda else (lambda: None)
   acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-  ready = []
-  kw = {} if warmup is None else dict(
-      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-      on_trace_ready=lambda p: ready.append(p.events()))
-  sync()
-  with profile(activities=acts, **kw) as prof:
-    if warmup is not None:
-      tw = time.perf_counter()
-      warmup()
-      sync()
-      PROFILE_WARMUPS_S.append((label, time.perf_counter() - tw))
-    time.sleep(lead_s if cuda else 0)
-    if warmup is not None:
-      prof.step()                # the warm-up cycle ends: recording starts
-      # the same lead again after the switch: a link step's window late
-      # in the script lost its first device records (the negative kernel
-      # among them) with the lead before the switch only
-      time.sleep(lead_s if cuda else 0)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-      fn()
-    sync()
-    wall = (time.perf_counter() - t0) * 1e3 / reps
-    if warmup is not None:
-      prof.step()
-  spans, per_name, counts, launches = [], {}, {}, 0
-  total, streams = 0.0, set()
-  for e in (prof.events() if warmup is None else ready[-1]):
+
+  def device_events(events):
     # user annotations (the optimizer's Optimizer.step#Adam.step) also
     # appear on the device timeline; they are ranges, not device work
-    if e.device_type != DeviceType.CUDA or \
-        getattr(e, 'is_user_annotation', False) or \
-        e.name.startswith('Optimizer.'):
-      continue
+    return [e for e in events if e.device_type == DeviceType.CUDA and
+            not getattr(e, 'is_user_annotation', False) and
+            not e.name.startswith('Optimizer.')]
+
+  def record():
+    ready = []
+    kw = {} if warmup is None else dict(
+        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+        on_trace_ready=lambda p: ready.append(p.events()))
+    sync()
+    with profile(activities=acts, **kw) as prof:
+      if warmup is not None:
+        tw = time.perf_counter()
+        warmup()
+        sync()
+        PROFILE_WARMUPS_S.append((label, time.perf_counter() - tw))
+      time.sleep(lead_s if cuda else 0)
+      if warmup is not None:
+        prof.step()              # the warm-up cycle ends: recording starts
+        # the same lead again after the switch: a link step's window late
+        # in the script lost its first device records (the negative
+        # kernel among them) with the lead before the switch only
+        time.sleep(lead_s if cuda else 0)
+      t0 = time.perf_counter()
+      for _ in range(reps):
+        fn()
+      sync()
+      wall = (time.perf_counter() - t0) * 1e3 / reps
+      if warmup is not None:
+        prof.step()
+    return (prof.events() if warmup is None else ready[-1]), wall
+
+  events, wall = record()
+  # a window with a warm-up whose trace holds no device event at all: the
+  # profiler lost the whole window (once in a proof run, a GAT train
+  # step's: 0 device ops in 43 ms of wall), not a path that ran no
+  # kernel; it is recorded again, warm-up included (at most twice), and
+  # every check on the recorded window stands as before
+  for _ in range(PROFILE_EMPTY_RETRIES):
+    if not cuda or warmup is None or device_events(events):
+      break
+    PROFILE_EMPTY_WINDOWS.append(label)
+    log(f'profile {label}: the trace holds no device event; recording the '
+        'window again')
+    events, wall = record()
+  spans, per_name, counts, launches = [], {}, {}, 0
+  total, streams = 0.0, set()
+  for e in device_events(events):
     launches += 1
     spans.append((e.time_range.start, e.time_range.end))
     total += e.time_range.end - e.time_range.start
@@ -3583,10 +3629,11 @@ def hetero_inference(torch, gtt, ex, batches, caps, device, b, smi):
 
 
 def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
-               smi, label):
+               smi, label, make_step=None, to_dict=None, lr=LR):
   """The examples' loop (loader -> batch_to_dict -> train_step, Adam at
-  3e-3) for ``steps`` steps of the model ``model_on(device)`` builds
-  (weights from a fixed seed): ms/step split into sample+collate and
+  ``lr``; ``make_step(model)`` / ``to_dict(batch)`` another example's
+  step and batch dict) for ``steps`` steps of the model
+  ``model_on(device)`` builds (weights from a fixed seed): ms/step split into sample+collate and
   train by CUDA events, peak memory, the launch counters (set to 0
   before) equal to ``expect``, no batch over its caps, the last step
   recomputed on the CPU from the card's state before it
@@ -3600,10 +3647,12 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
   from graphlearn_tpu_torch import ops
   from graphlearn_tpu_torch.models import train
   cuda = loader.device.type == 'cuda'
+  make_step = make_step or (lambda m: train.make_train_step(m, num_classes))
+  to_dict = to_dict or train.batch_to_dict
   model = model_on(loader.device)
   model.train()
-  state = train.create_train_state(model, lr=LR)
-  step_fn, _ = train.make_train_step(model, num_classes)
+  state = train.create_train_state(model, lr=lr)
+  step_fn, _ = make_step(model)
   ops.reset_launch_counts()
   per_step, losses, check, held = [], [], None, None
   it = iter(loader)
@@ -3614,7 +3663,7 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
     e0 = _event(torch, cuda)
     batch = next(it)
     e1 = _event(torch, cuda)
-    d = train.batch_to_dict(batch)
+    d = to_dict(batch)
     if i == steps - 1:       # the step recomputed on the CPU below
       check = (copy.deepcopy(model.state_dict()),
                copy.deepcopy(state.optimizer.state_dict()), to_cpu(torch, d))
@@ -3657,7 +3706,7 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
   c = rep['cpu_check'] = cpu_step_check(
       torch, gtt, loader, model, check, losses[-1],
       cpu_model=lambda: model_on(torch.device('cpu')),
-      make_step=lambda m: train.make_train_step(m, num_classes))
+      make_step=make_step)
   log(f'{label} CPU recompute of step {steps}: ReLU '
       f'inputs max abs diff {c["pre_diff"]:.3g}, {c["opposite"]} on '
       f'opposite sides of 0; loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; '
@@ -3668,7 +3717,7 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
 
     def loop():
       for _ in range(SYNC_STEPS):
-        step_fn(state, train.batch_to_dict(next(it)))
+        step_fn(state, to_dict(next(it)))
 
     _, syncs, kinds = count_syncs(torch, loop)
     rep['host_syncs_per_step'] = syncs / SYNC_STEPS
@@ -3676,7 +3725,7 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
     assert syncs == 0, (label, kinds)
 
     def loop_step():
-      step_fn(state, train.batch_to_dict(next(it)))
+      step_fn(state, to_dict(next(it)))
 
     prof = profiled(torch, loop_step, 1, loader.device, f'{label} step',
                     warmup=lambda: (loop_step(), ops.reset_launch_counts()))
@@ -4323,6 +4372,548 @@ def models_phase(torch, gtt, ds, topo, device, caps, smi):
   rep['seal'] = seal_part(torch, gtt, device, smi)
   rep['phase_s'] = time.perf_counter() - t0
   log(f'models phase wall {rep["phase_s"]:.1f} s on {smi}')
+  return rep
+
+
+# ---- typed link prediction, typed serving, the hetero tiered loader
+# the bipartite example's defaults (examples/hetero/bipartite_sage_unsup.py:
+# 20,000 users, 5,000 items, 8 groups, 12 clicks a user; u2i/i2u [8, 4],
+# i2i [4, 2] at batch 512; binary 1:1; hidden 64; Adam 1e-3)
+BIP_USERS, BIP_ITEMS, BIP_HIDDEN, BIP_BATCH, BIP_LR = 20_000, 5_000, 64, \
+    512, 1e-3
+BIP_STEPS = 32                      # loop steps, the last held on the CPU
+TLINK_BATCH = 512                   # seed edges of the IGBH typed batches
+TSERVE_BLOCK, TSERVE_CHUNK = 512, 8  # the typed materializer's B and K
+TSERVE_CHECK = 4096                 # rows per type recomputed on the CPU
+TSERVE_REFRESH = 256                # ids of the typed refresh check
+TIER_HOT, TIER_WARM = 0.25, 0.25    # the tiered loader's split (disk 0.5)
+TIER_BATCHES = 4                    # typed tree batches of the tiered loader
+# partition: sample_prob over the script's graph at its fanouts from 1,024
+# seeds; FrequencyPartitioner over 2 parts from two seed pools' card
+# probabilities, caching a tenth of the nodes
+PART_SEEDS, PART_CACHE = 1024, 0.1
+
+
+def link_md(torch, out) -> dict:
+  """A typed link batch's supervision metadata, on the CPU."""
+  keys = ('edge_label_index', 'edge_label', 'src_index', 'dst_pos_index',
+          'dst_neg_index')
+  return {k: out.metadata[k].cpu() for k in keys if k in out.metadata}
+
+
+def typed_link_batches(torch, gtt, ex, ds, cpu_ds, device, smi):
+  """One typed link batch each of binary tree (cites seeds: one node
+  type), triplet tree and calibrated binary merge (writes seeds:
+  author -> paper) on the IGBH-width dataset with features: sampled and
+  collated on the card with the launch counters from 0 (the negative
+  kernel once, the hop kernel once per plan item, the row gather once
+  per featured type), equal to the CPU's from the same sampler state bit
+  for bit, metadata included; host syncs of the card's batch counted
+  (they must be 0)."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.sampler import EdgeSamplerInput, NegativeSampling
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  b = TLINK_BATCH
+  rng = np.random.default_rng(13)
+  rep = {}
+  for name, et, neg, dedup in (
+      ('binary_tree', ex.CITES, NegativeSampling('binary', 1), 'tree'),
+      ('triplet_tree', ex.WRITES, NegativeSampling('triplet', 2), 'tree'),
+      ('binary_merge', ex.WRITES, NegativeSampling('binary', 1), 'merge')):
+    ei = ds.graph[et].topo
+    src = np.repeat(np.arange(ei.indptr.shape[0] - 1), np.diff(ei.indptr))
+    pick = rng.choice(ei.num_edges, b, replace=False)
+    rows, cols = src[pick], ei.indices[pick]
+    kw = dict(dedup=dedup)
+    if dedup == 'merge':
+      nsrc = b + neg.num_negatives(b)
+      # probes from each type's whole id range (the negatives are
+      # uniform), with room for the positives' denser ends
+      kw['frontier_caps'] = gtt.sampler.estimate_hetero_frontier_caps(
+          ds.graph, ex.FANOUTS, {et[0]: nsrc, et[2]: nsrc}, slack=2.0)
+    loaders = [gtt.loader.LinkNeighborLoader(
+        d, ex.FANOUTS, (et, np.stack([rows, cols])), neg_sampling=neg,
+        batch_size=b, seed=3, device=d.device, **kw) for d in (ds, cpu_ds)]
+    card, host = (ld.sampler for ld in loaders)
+    inp = EdgeSamplerInput(rows, cols, None, et, neg)
+    loaders[0]._collate_fn(card.sample_from_edges(inp))   # the tables
+    host.load_state_dict(card.state_dict())
+    ops.reset_launch_counts()
+    e0 = _event(torch, cuda)
+    out, syncs, kinds = (count_syncs(torch, lambda: loaders[0]._collate_fn(
+        card.sample_from_edges(inp))) if cuda else
+        (loaders[0]._collate_fn(card.sample_from_edges(inp)), 0, {}))
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    counts = ops.launch_counts()
+    want = loaders[1]._collate_fn(host.sample_from_edges(inp))
+    assert card._call_count == host._call_count
+    assert_hetero_equal(torch, out, want, f'typed link {name}')
+    got_md, want_md = link_md(torch, out), link_md(torch, want)
+    assert sorted(got_md) == sorted(want_md), name
+    for k in want_md:
+      assert torch.equal(got_md[k], want_md[k]), (name, k)
+    _, hop_caps, _ = gtt.sampler.hetero_capacity_plan(
+        list(ex.FANOUTS), lambda e: ex.FANOUTS[e],
+        {t: v.shape[0] for t, v in out.batch.items()}, 'out',
+        etype_caps=kw.get('frontier_caps'))
+    items = sum(len(per_et) for per_et in hop_caps)
+    per = 1 if cuda else 0
+    assert counts['negative_sample'] == per, counts
+    assert counts['sample_hop'] == per * items, (counts, items)
+    assert counts['gather_rows'] == per * len(ds.node_features), counts
+    assert counts['sample_level'] == counts['uniform_draw'] == 0, counts
+    assert syncs == 0, (name, kinds)
+    assert not bool(out.metadata['overflow']), name
+    rep[name] = dict(ms=_span(e0, e1, cuda), launches=counts, items=items,
+                     host_syncs=syncs,
+                     nodes={t: int(n) for t, n in want.num_nodes.items()})
+    log(f'typed link {name}: {b} {et} seed edges, one batch sampled and '
+        f'collated in {rep[name]["ms"]:.3f} ms with {syncs} host syncs, '
+        f'{items} hop items, nodes {rep[name]["nodes"]}; equal to the '
+        f'CPU\'s bit for bit; launches {counts} on {smi}')
+  return rep
+
+
+def bipartite_train(torch, gtt, device, smi):
+  """The bipartite example's loop at its defaults (``loop_train`` with
+  its step and batch dict): BIP_STEPS steps of the two-tower model over
+  the typed link loader, the last recomputed on the CPU (cpu_step_check),
+  0 host syncs a step, launches per batch (the negative kernel once, the
+  hop kernel once per plan item, no row gather: the towers read ids)."""
+  from graphlearn_tpu_torch.examples import bipartite_sage_unsup as ex
+  t0 = time.perf_counter()
+  cuda = device.type == 'cuda'
+  users, items, steps = ((BIP_USERS, BIP_ITEMS, BIP_STEPS) if cuda else
+                         (2000, 500, 4))
+  edges, num_nodes, train_e, test_e, i2i = ex.make_data(users, items)
+  ds = gtt.data.Dataset(edge_dir='out', device=device)
+  ds.init_graph(edges, num_nodes=num_nodes)
+  loader, _ = ex.loaders(ds, train_e, test_e, BIP_BATCH, device)
+  setup = time.perf_counter() - t0
+  _, hop_caps, _ = gtt.sampler.hetero_capacity_plan(
+      list(ex.FANOUTS), lambda e: ex.FANOUTS[e],
+      {'user': 2 * BIP_BATCH, 'item': 2 * BIP_BATCH}, 'out')
+  n_items = sum(len(per_et) for per_et in hop_caps)
+  per = 1 if cuda else 0
+  expect = dict(sample_hop=per * steps * n_items,
+                negative_sample=per * steps, gather_rows=0, sample_level=0,
+                uniform_draw=0)
+
+  def model_on(d):
+    return ex.build_model(users, items, BIP_HIDDEN, d,
+                          generator=torch.Generator().manual_seed(0))
+
+  rep = loop_train(torch, gtt, loader, model_on, None, steps, expect, smi,
+                   'bipartite two-tower link train', make_step=ex.make_step,
+                   to_dict=ex.batch_dict, lr=BIP_LR)
+  rep.update(items=n_items, setup_s=setup, i2i_edges=int(i2i.shape[1]),
+             train_edges=int(train_e.shape[1]))
+  log(f'bipartite: {users} users, {items} items, {train_e.shape[1]} '
+      f'training clicks, {i2i.shape[1]} item co-clicks built in '
+      f'{setup:.1f} s; {n_items} hop items a batch on {smi}')
+  return rep
+
+
+def hetero_materialize_recorded(torch, mat):
+  """``(table, passes)``: ``mat.materialize()`` with each pass timed by
+  CUDA events, its label, its blocks, its row-gather launches and its
+  output store."""
+  from graphlearn_tpu_torch import ops
+  cuda = mat.device.type == 'cuda'
+  run_pass, spill, passes = mat._pass, mat._spill_pass, []
+
+  def timed_pass(n_pad, block_fn):
+    k1 = ops.launch_counts()['gather_rows']
+    a = _event(torch, cuda)
+    out = run_pass(n_pad, block_fn)
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+    passes.append(dict(ms=_span(a, b, cuda), blocks=n_pad // mat.block_size,
+                       gather_rows=ops.launch_counts()['gather_rows'] - k1,
+                       out=out))
+    return out
+
+  def labelled(label, out):
+    passes[-1]['label'] = label
+    spill(label, out)
+
+  mat._pass, mat._spill_pass = timed_pass, labelled
+  try:
+    return mat.materialize(), passes
+  finally:
+    del mat._pass, mat._spill_pass
+
+
+def hetero_recheck(torch, gtt, mat, cmat, passes, rng):
+  """Each pass's rows at a seeded sample of TSERVE_CHECK ids per type,
+  recomputed by the CPU materializer ``cmat`` (the same model's weights)
+  from the card's own input stores: the embed slice on ``x0``, the conv
+  layer's block over the store set before it (its live edge types), the
+  head on the last layer's store. Returns the largest abs difference per
+  pass (each held within rtol 1e-3, atol 1e-4)."""
+  from graphlearn_tpu_torch.models import train
+  model, L = cmat.model, cmat.num_layers
+  ids = {t: torch.as_tensor(np.sort(rng.choice(
+      n, min(TSERVE_CHECK, n), replace=False)).astype(np.int32))
+      for t, n in cmat.num_nodes.items()}
+  outs = {tuple(p['label'].split('/')): p['out'] for p in passes}
+  inputs = {}
+
+  def stores_before(layer):
+    """The card's store set a conv layer (``L``: the head) reads, on the
+    CPU: the embed passes' outputs, or the layer before's."""
+    if layer not in inputs:
+      key = 'embed' if layer == 0 else str(layer - 1)
+      inputs[layer] = {t: v.cpu() for (k, t), v in outs.items() if k == key}
+    return inputs[layer]
+
+  diffs = {}
+  with torch.no_grad():
+    for p in passes:
+      kind, t = p['label'].split('/')
+      if kind in ('embed', 'head'):
+        src = (mat._x0[t] if kind == 'embed' else outs[(str(L - 1), t)])
+        fn = train.make_layer_slice_fn(
+            model, *((0, 0) if kind == 'embed' else (L, L)),
+            embed=kind == 'embed', head=kind == 'head')
+        ref = fn(dict(x={t: src[ids[t].to(src.device).long()].cpu()},
+                      edge_index={}, edge_mask={}))
+        ref = ref[t] if isinstance(ref, dict) else ref
+      else:
+        layer = int(kind)
+        cur = stores_before(layer)
+        live = cmat._hetero_live_for(t, cur)
+        fn = train.make_layer_slice_fn(model, layer, layer + 1, embed=False,
+                                       head=False)
+        nbrs = {et: cmat._nbr[et][ids[t].long()] for et in live}
+        ref = fn(cmat._hetero_block(cur, t, live, ids[t], nbrs))[t][
+            :ids[t].shape[0]]
+      got = p['out'][ids[t].to(p['out'].device).long()].cpu()
+      torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4)
+      diffs[p['label']] = float((got - ref).abs().max())
+  return diffs
+
+
+def typed_serving(torch, gtt, ex, ds, cpu_ds, device, smi):
+  """The RGNN served at the IGBH example's width, rsage and 4-head rgat
+  (weights from a seed): the typed materializer with each pass timed and
+  its row gathers counted, every pass's rows at TSERVE_CHECK ids a type
+  within rtol 1e-3 / atol 1e-4 of the CPU materializer's, the typed
+  refresh of TSERVE_REFRESH papers equal to the materialized rows, and
+  the head's table behind the engine (gather v2): a poisoned row served
+  fresh through ``mark_stale``, GAT_LOOKUPS requests equal to the table
+  with their p50 / p99."""
+  from graphlearn_tpu_torch import metrics, ops
+  from graphlearn_tpu_torch.serving import (EmbeddingMaterializer,
+                                            EmbeddingStore, ServingEngine)
+  cuda = device.type == 'cuda'
+  cpu = torch.device('cpu')
+  rep = {}
+  n = cpu_ds.node_features['paper'].size
+  for conv in ('rsage', 'rgat'):
+    model = ex.build_model(conv, 1, HET_HIDDEN, device, mode='segment',
+                           generator=torch.Generator().manual_seed(0))
+    cmodel = ex.build_model(conv, 1, HET_HIDDEN, cpu, mode='segment')
+    cmodel.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    model.eval()
+    cmodel.eval()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mat = EmbeddingMaterializer(ds, model, block_size=TSERVE_BLOCK,
+                                chunk_size=TSERVE_CHUNK)
+    setup = time.perf_counter() - t0
+    table, passes = hetero_materialize_recorded(torch, mat)
+    cmat = EmbeddingMaterializer(cpu_ds, cmodel, block_size=TSERVE_BLOCK,
+                                 chunk_size=TSERVE_CHUNK)
+    diffs = hetero_recheck(torch, gtt, mat, cmat, passes,
+                           np.random.default_rng(14))
+    per = 1 if cuda else 0
+    for p in passes:
+      kind, t = p['label'].split('/')
+      if kind in ('embed', 'head'):
+        assert p['gather_rows'] == 0, p['label']
+      else:     # one row gather per result type a block
+        live = mat._hetero_live_for(t, {r: None for r in mat._x0})
+        res = {mat._res_t[et] for et in live} | {t}
+        assert p['gather_rows'] == per * p['blocks'] * len(res), (
+            p['label'], p['gather_rows'], p['blocks'], res)
+    assert bool(torch.isfinite(table).all()) and table.shape[1] == \
+        ex.NUM_CLASSES
+    # the typed refresh against the materialized rows
+    rids = np.sort(np.random.default_rng(15).choice(n, TSERVE_REFRESH,
+                                                    replace=False))
+    e0 = _event(torch, cuda)
+    fresh = mat.refresh_rows(rids, ntype='paper')
+    e1 = _event(torch, cuda)
+    refresh_ms = _span(e0, e1, cuda)
+    want = table[torch.as_tensor(rids).to(device)].cpu()
+    torch.testing.assert_close(torch.as_tensor(fresh), want, rtol=1e-3,
+                               atol=1e-4)
+    refresh_diff = float((torch.as_tensor(fresh) - want).abs().max())
+    # the engine over the head's table: a poisoned row served fresh
+    store = EmbeddingStore(table, num_nodes=n)
+    store.set_kernel_routing(use_pallas_v2=True, block_rows=256, run_span=8)
+    host_table = store.table[:n].cpu().numpy()
+    poisoned = int(rids[0])
+    reqs = serve_requests(np.random.default_rng(16), n)[:GAT_LOOKUPS]
+    metrics.reset('serving')
+    lat, bad = [], 0
+    with ServingEngine(store, buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                       refresh_fn=lambda i: mat.refresh_rows(
+                           i, ntype='paper')) as engine:
+      engine.lookup(reqs[0], timeout=120)                # the first use
+      store.update_rows(np.array([poisoned]),
+                        np.full((1, ex.NUM_CLASSES), 1e9, np.float32))
+      engine.mark_stale([poisoned])
+      served = engine.lookup(np.array([poisoned, 0]), timeout=120)
+      assert engine.stale_count() == 0
+      for ids in reqs:
+        t1 = time.perf_counter()
+        got = engine.lookup(ids, timeout=120)
+        lat.append((time.perf_counter() - t1) * 1e3)
+        bad += not np.allclose(got, host_table[ids], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(served, host_table[[poisoned, 0]], rtol=1e-3,
+                               atol=1e-4)
+    assert bad == 0, f'{bad} typed responses differ from the table'
+    batches = metrics.snapshot()['counters']['serving.batches']
+    counts = ops.launch_counts()
+    assert counts['gather_runs'] >= per * len(reqs), counts
+    assert counts['sample_hop'] == counts['sample_level'] == 0, counts
+    rep[conv] = dict(
+        setup_s=setup, W={str(et): w for et, w in mat._w.items()},
+        passes=[{k: v for k, v in p.items() if k != 'out'} for p in passes],
+        recheck_max_abs_diff=diffs, refresh_ms=refresh_ms,
+        refresh_max_abs_diff=refresh_diff, launches=counts,
+        lookups=len(reqs), batches=batches,
+        lookup_p50_ms=float(np.percentile(lat, 50)),
+        lookup_p99_ms=float(np.percentile(lat, 99)))
+    log(f'typed serving {conv}: RGNN({HET_HIDDEN}, {ex.NUM_CLASSES}) over '
+        f'{n} papers, W {rep[conv]["W"]}, block {TSERVE_BLOCK}; ms per pass '
+        + ' '.join(f'{p["label"]}={p["ms"]:.2f}({p["gather_rows"]} K1)'
+                   for p in passes) +
+        f'; {TSERVE_CHECK} rows a type within '
+        f'{max(diffs.values()):.3g} of the CPU materializer; refresh of '
+        f'{TSERVE_REFRESH} papers {refresh_ms:.3f} ms within '
+        f'{refresh_diff:.3g}; poisoned row served fresh; {len(reqs)} '
+        f'lookups p50 {rep[conv]["lookup_p50_ms"]:.3f} p99 '
+        f'{rep[conv]["lookup_p99_ms"]:.3f} ms in {batches} batches; '
+        f'launches {counts} on {smi}')
+    del mat, cmat, passes, table, store
+    if cuda:
+      torch.cuda.empty_cache()
+  return rep
+
+
+def tiered_typed_loader(torch, gtt, ex, ds, device, spill_dir, smi):
+  """The hetero tiered loader: the IGBH-width graph with per-type
+  ``TieredFeature`` stores (TIER_HOT of the rows on the card, TIER_WARM
+  in pinned host memory, the rest on disk), its typed tree batches equal
+  to the all-device loader's bit for bit; the hot/cold kernel's launches
+  and the host syncs per batch."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.storage import TieredFeature
+  cuda = device.type == 'cuda'
+  tds = gtt.data.Dataset(graph=ds.graph, node_labels=ds.node_labels,
+                         edge_dir='out', device=device)
+  tds.node_features = {}
+  for t, f in ds.node_features.items():
+    rows = f.cpu_get(np.arange(f.size))
+    tds.node_features[t] = TieredFeature(
+        rows, hot_rows=int(TIER_HOT * f.size),
+        warm_rows=int(TIER_WARM * f.size),
+        spill_dir=os.path.join(spill_dir, f'tier_{t}'), device=device)
+  pool = np.arange(int(ds.node_features['paper'].size * HET_SEED_FRACTION))
+  b = HET_BATCH if cuda else 64
+  loaders = [gtt.loader.NeighborLoader(d, ex.FANOUTS, ('paper', pool),
+                                       batch_size=b, shuffle=True, seed=0,
+                                       dedup='tree', device=device)
+             for d in (ds, tds)]
+  its = [iter(ld) for ld in loaders]
+  for it in its:
+    next(it)                          # the first use of the tables
+  wants = [next(its[0]) for _ in range(TIER_BATCHES)]
+  ops.reset_launch_counts()           # the tiered loader's batches only
+  ms, syncs = [], 0
+  for want in wants:
+    e0 = _event(torch, cuda)
+    got, s, _ = (count_syncs(torch, lambda: next(its[1])) if cuda else
+                 (next(its[1]), 0, {}))
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    ms.append(_span(e0, e1, cuda))
+    syncs += s
+    assert_hetero_equal(torch, got, want, 'tiered typed batch')
+  counts = ops.launch_counts()
+  per = 1 if cuda else 0
+  assert counts['gather_unified'] == per * TIER_BATCHES * len(
+      tds.node_features), counts
+  rep = dict(batch_ms=ms, launches=counts,
+             host_syncs_per_batch=syncs / TIER_BATCHES,
+             split=dict(hot=TIER_HOT, warm=TIER_WARM,
+                        disk=1 - TIER_HOT - TIER_WARM))
+  log(f'tiered typed loader: {TIER_BATCHES} tree batches of {b} papers over '
+      f'per-type TieredFeature (hot {TIER_HOT}, warm {TIER_WARM}), each '
+      f'equal to the all-device loader\'s; sample+collate median '
+      f'{np.median(ms):.3f} ms, {syncs / TIER_BATCHES:.2f} host syncs a '
+      f'batch; launches {counts} on {smi}')
+  return rep
+
+
+def typed_link_phase(torch, gtt, device, smi):
+  """Typed link prediction (the bipartite example's loop; typed link
+  batches on the IGBH-width dataset), typed (RGNN) serving and the hetero
+  tiered loader."""
+  import shutil
+  import tempfile
+
+  from graphlearn_tpu_torch.examples import train_rgnn as ex
+  cuda = device.type == 'cuda'
+  t0 = time.perf_counter()
+  rep = {'bipartite': bipartite_train(torch, gtt, device, smi)}
+  if cuda:
+    torch.cuda.empty_cache()
+  n_paper, n_author = (HET_PAPER, HET_AUTHOR) if cuda else (5_000, 2_500)
+  dataset, _ = hetero_data(torch, gtt, ex, n_paper, n_author)
+  ds, cpu_ds = dataset(device), dataset(torch.device('cpu'))
+  rep['link_batches'] = typed_link_batches(torch, gtt, ex, ds, cpu_ds,
+                                           device, smi)
+  rep['serving'] = typed_serving(torch, gtt, ex, ds, cpu_ds, device, smi)
+  tmp = tempfile.mkdtemp(prefix='gtt_typed_tier_')
+  try:
+    rep['tiered_loader'] = tiered_typed_loader(torch, gtt, ex, ds, device,
+                                               tmp, smi)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  rep['phase_s'] = time.perf_counter() - t0
+  log(f'typed link phase wall {rep["phase_s"]:.1f} s on {smi}')
+  return rep
+
+
+# ---- partition
+
+
+def partition_round_trip(torch, pkg, root, num_parts, edges, feats,
+                         hetero) -> int:
+  """Every edge (by its id, with both ends) and every feature row of the
+  partition directory ``root``, loaded part by part, equal to the inputs;
+  returns the edges seen."""
+  seen = 0
+  ets = list(edges) if hetero else [None]
+  for p in range(num_parts):
+    _, graph, nfeat, _, node_pb, edge_pb = pkg.load_partition(root, p)
+    for et in ets:
+      g = graph[et] if hetero else graph
+      ei = edges[et] if hetero else edges
+      pb = edge_pb[et] if hetero else edge_pb
+      assert np.array_equal(g.edge_index[0], ei[0][g.eids]), (p, et)
+      assert np.array_equal(g.edge_index[1], ei[1][g.eids]), (p, et)
+      assert (pb[g.eids] == p).all(), (p, et)
+      seen += g.eids.shape[0]
+    for t in (feats if hetero else [None]):
+      f = nfeat[t] if hetero else nfeat
+      want = feats[t] if hetero else feats
+      assert np.array_equal(f.feats, want[f.ids]), (p, t)
+      own = node_pb[t] if hetero else node_pb
+      assert (own[f.ids] == p).all(), (p, t)
+      if f.cache_ids is not None:
+        assert np.array_equal(f.cache_feats, want[f.cache_ids]), (p, t)
+        assert (own[f.cache_ids] != p).all(), (p, t)
+  total = sum(e.shape[1] for e in edges.values()) if hetero else \
+      edges.shape[1]
+  assert seen == total, (seen, total)
+  return seen
+
+
+def partition_phase(torch, gtt, ds, cpu_ds, ei, feats, device, smi):
+  """``sample_prob`` on the card over the script's graph ([15, 10, 5],
+  PART_SEEDS seeds) within rtol 1e-5 / atol 1e-6 of the CPU's; a
+  FrequencyPartitioner of that graph (2 parts from two seed pools' card
+  probabilities, cache ratio PART_CACHE) and a hetero RandomPartitioner of
+  the IGBH-width graph, written to a temporary directory that is removed
+  afterwards, each read back by load_partition edge for edge and row for
+  row; seconds for each."""
+  import shutil
+  import tempfile
+
+  from graphlearn_tpu_torch import partition
+  from graphlearn_tpu_torch.examples import train_rgnn as ex
+  cuda = device.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  t_phase = time.perf_counter()
+  n = ds.graph.num_nodes
+  rng = np.random.default_rng(17)
+  seeds = rng.choice(n, PART_SEEDS, replace=False)
+  card = gtt.sampler.NeighborSampler(ds.graph, FANOUTS, device=device)
+  host = gtt.sampler.NeighborSampler(cpu_ds.graph, FANOUTS,
+                                     device=torch.device('cpu'))
+  card.sample_prob(seeds[:8])                      # the first use
+  sync()
+  e0 = _event(torch, cuda)
+  prob = card.sample_prob(seeds)
+  e1 = _event(torch, cuda)
+  sync()
+  prob_ms = _span(e0, e1, cuda)
+  t0 = time.perf_counter()
+  want = host.sample_prob(seeds)
+  cpu_s = time.perf_counter() - t0
+  got = prob.cpu()
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+  diff = float((got - want).abs().max())
+  touched = int((got > 0).sum())
+  rep = dict(sample_prob_ms=prob_ms, sample_prob_cpu_s=cpu_s,
+             sample_prob_max_abs_diff=diff, touched=touched)
+  if cuda:     # where its device time goes (plain torch: no port kernel)
+    rep['sample_prob_profile'] = profiled(
+        torch, lambda: card.sample_prob(seeds), 1, device,
+        'partition sample_prob', warmup=lambda: card.sample_prob(seeds))
+  log(f'partition sample_prob: {PART_SEEDS} seeds over {n} nodes, '
+      f'{FANOUTS}: {prob_ms:.3f} ms on {device} ({cpu_s:.2f} s on the CPU), '
+      f'{touched} nodes touched, within {diff:.3g} of the CPU on {smi}')
+  tmp = tempfile.mkdtemp(prefix='gtt_partition_')
+  try:
+    pools = np.array_split(rng.permutation(n)[:2 * PART_SEEDS], 2)
+    probs = [card.sample_prob(p).cpu().numpy() for p in pools]
+    root = os.path.join(tmp, 'freq')
+    t0 = time.perf_counter()
+    partition.FrequencyPartitioner(root, 2, n, ei, probs=probs,
+                                   node_feat=feats,
+                                   cache_ratio=PART_CACHE).partition()
+    rep['frequency_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep['frequency_edges'] = partition_round_trip(torch, partition, root, 2,
+                                                  ei, feats, False)
+    rep['frequency_check_s'] = time.perf_counter() - t0
+    shutil.rmtree(root)
+    cites, writes, hfeats, _ = ex.make_igbh_like(
+        HET_PAPER if cuda else 5_000, HET_AUTHOR if cuda else 2_500,
+        ex.NUM_CLASSES, np.random.default_rng(0))
+    edges = {ex.CITES: cites, ex.WRITES: writes,
+             ex.REV_WRITES: writes[::-1].copy()}
+    sizes = {t: v.shape[0] for t, v in hfeats.items()}
+    root = os.path.join(tmp, 'hetero')
+    t0 = time.perf_counter()
+    partition.RandomPartitioner(root, 2, sizes, edges, node_feat=hfeats,
+                                seed=0).partition()
+    rep['hetero_random_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep['hetero_edges'] = partition_round_trip(torch, partition, root, 2,
+                                               edges, hfeats, True)
+    rep['hetero_check_s'] = time.perf_counter() - t0
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  assert not os.path.exists(tmp)
+  rep['phase_s'] = time.perf_counter() - t_phase
+  log(f'partition: FrequencyPartitioner of {n} nodes / {ei.shape[1]} edges '
+      f'into 2 parts (cache {PART_CACHE}) in {rep["frequency_s"]:.2f} s, '
+      f'read back exactly in {rep["frequency_check_s"]:.2f} s; hetero '
+      f'RandomPartitioner of the IGBH-width graph in '
+      f'{rep["hetero_random_s"]:.2f} s, read back exactly in '
+      f'{rep["hetero_check_s"]:.2f} s; phase {rep["phase_s"]:.1f} s on {smi}')
   return rep
 
 
@@ -5473,6 +6064,13 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('models')
+  report['typed_link'] = typed_link_phase(torch, gtt, device, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('typed_link')
+  report['partition'] = partition_phase(torch, gtt, ds, cpu_ds, ei, feats,
+                                        device, smi)
+  phase_done('partition')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -5516,6 +6114,10 @@ def main(argv=None):
   paths += [mod['gat'][p]['launches'] for p in (
       'tree', 'merge', 'train_tree', 'train_merge', 'scan')]
   paths += [mod[p]['launches'] for p in ('gat_serving', 'seal')]
+  tl = report['typed_link']
+  paths += [tl['bipartite']['launches'], tl['tiered_loader']['launches']]
+  paths += [r['launches'] for r in tl['link_batches'].values()]
+  paths += [r['launches'] for r in tl['serving'].values()]
   paths += [report['hot_cold'][p]['launches'] for p in ('papers', 'tables')]
   paths += [report['tiered'][p]['launches'] for p in ('tree', 'merge',
                                                        'papers')]
@@ -5609,6 +6211,7 @@ def main(argv=None):
        for name, where in (('row_gather_probe', 'benchmarks/prof_mem.py:84'),
                            ('smem_take', 'benchmarks/prof_dedup.py:99'))]}
   report['profile_warmups_s'] = PROFILE_WARMUPS_S
+  report['profile_empty_windows'] = PROFILE_EMPTY_WINDOWS
   if args.out:
     with open(args.out, 'w') as fh:
       json.dump(dict(report, kernels_line=line), fh, indent=1)
@@ -5617,7 +6220,8 @@ def main(argv=None):
     return 3
   log(f'script wall {time.perf_counter() - t_start:.1f} s, the build '
       f'included; {len(PROFILE_WARMUPS_S)} profiled windows\' warm-up '
-      f'calls {sum(t for _, t in PROFILE_WARMUPS_S):.2f} s of it')
+      f'calls {sum(t for _, t in PROFILE_WARMUPS_S):.2f} s of it; '
+      f'windows recorded again for an empty trace: {PROFILE_EMPTY_WINDOWS}')
   log(smi)
   log(json.dumps(line))
   log(json.dumps({'ok': True, 'device': {

@@ -6,9 +6,10 @@ training entry points (``models.train``; ``loader.ScanTrainer``,
 ``RunTrainer`` and ``OverlappedTrainer``; ``recovery.ChunkCheckpointer``),
 its embedding-serving tier (``serving``: full-graph materializer,
 ``EmbeddingStore``, ``ServingEngine``) and its out-of-core feature store
-(``storage``: ``TieredFeature``, ``TieredScanTrainer``) and its typed
-(heterogeneous) path (dict datasets, the typed sampler, ``HeteroData``,
-``RGNN``) on an NVIDIA GPU,
+(``storage``: ``TieredFeature``, ``TieredScanTrainer``), its typed
+(heterogeneous) path (dict datasets, the typed sampler and typed link
+sampling, ``HeteroData``, ``RGNN``, the typed materializer) and its
+partitioners (``partition``) on an NVIDIA GPU,
 with the TPU kernels of those paths rewritten by hand in CUDA
 (``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry
@@ -16,7 +17,7 @@ stream give the same ids, masks and counts. This package imports torch
 and numpy, never jax. Entry points run on the card
 (``device=None``) unless the caller passes ``device='cpu'``.
 """
-from . import (data, loader, metrics, models, ops, random, recovery, sampler,
-               serving, storage, typing, utils)
+from . import (data, loader, metrics, models, ops, partition, random,
+               recovery, sampler, serving, storage, typing, utils)
 
 __version__ = '0.1.0'

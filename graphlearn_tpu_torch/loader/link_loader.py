@@ -4,9 +4,13 @@ Counterpart of ``graphlearn_tpu/loader/link_loader.py``: batches of seed
 edges go through link sampling (negatives, the endpoints' node
 expansion) and the node loader's collate; the batch metadata carries
 ``edge_label_index`` / ``edge_label`` (binary, or no negatives) or
-``src_index`` / ``dst_pos_index`` / ``dst_neg_index`` (triplet). The
-calibrated-caps overflow guard and the mid-epoch resume are the node
-loader's. Link batches train in the per-step loop
+``src_index`` / ``dst_pos_index`` / ``dst_neg_index`` (triplet). Typed
+seed edges ``(edge_type, [2, E])`` over a typed dataset collate into
+``HeteroData`` (per featured type one row gather), the metadata indexing
+each type's node buffer. The calibrated-caps overflow guard and the
+mid-epoch resume are the node loader's; ``overflow_policy='recompute'``
+is refused on a typed graph, as in JAX (its batches have no replayable
+key). Link batches train in the per-step loop
 (``models.train.make_link_train_step``): the epoch trainers take node
 loaders only, as in JAX.
 """
@@ -22,9 +26,9 @@ from .node_loader import NodeLoader, SeedBatcher, loader_device
 
 class LinkLoader(NodeLoader):
   """Sample-and-collate loader over seed edges ``edge_label_index``
-  (``[2, E]``; a typed ``(edge_type, [2, E])`` pair is refused until the
-  hetero slice). ``to_device`` (or its alias ``device=``; None means the
-  card) must hold the dataset."""
+  (``[2, E]``, or a typed ``(edge_type, [2, E])`` pair). ``to_device``
+  (or its alias ``device=``; None means the card) must hold the
+  dataset."""
 
   def __init__(self, data: Dataset, link_sampler, edge_label_index,
                edge_label=None,
@@ -38,9 +42,6 @@ class LinkLoader(NodeLoader):
     self._check_device(data, loader_device(to_device, device))
     self.edge_type, edge_label_index = \
         split_edge_type_seeds(edge_label_index)
-    if self.edge_type is not None:
-      raise NotImplementedError('typed seed edges come with the hetero '
-                                'slice of the port')
     eli = np.asarray(edge_label_index)
     self.rows, self.cols = eli[0].reshape(-1), eli[1].reshape(-1)
     self.edge_label = (np.asarray(edge_label).reshape(-1)

@@ -1,7 +1,9 @@
 """LinkNeighborLoader: the fanout link loader.
 
 Counterpart of ``graphlearn_tpu/loader/link_neighbor_loader.py``: a
-``NeighborSampler`` over the dataset's graph driving ``LinkLoader``.
+``NeighborSampler`` over the dataset's graph driving ``LinkLoader``; on a
+typed dataset the fanouts may be a dict by edge type and the seed edges
+an ``(edge_type, [2, E])`` pair.
 ``frontier_caps='auto'`` calibrates the merge engine's caps at the link
 batch's seed width (``calibrate.link_seed_width``: both endpoints of
 each positive and the negatives' seeds), probing from the positives'

@@ -61,15 +61,16 @@ def make_forward_fn(model):
   return forward
 
 
-def make_layer_slice_fn(model, lo: int, hi: int):
+def make_layer_slice_fn(model, lo: int, hi: int, **fixed):
   """Layer-slice view of :func:`make_forward_fn`: run only conv layers
   ``[lo, hi)`` of the same forward (``layers=(lo, hi)`` on the model
-  call). The serving tier's materializer and final-layer refresh are
+  call). ``fixed`` forwards extra call keywords (RGNN's ``embed`` /
+  ``head``). The serving tier's materializer and final-layer refresh are
   slices of this forward, not re-implementations."""
   fwd = make_forward_fn(model)
 
   def slice_fwd(batch):
-    return fwd(batch, layers=(lo, hi))
+    return fwd(batch, layers=(lo, hi), **fixed)
 
   return slice_fwd
 

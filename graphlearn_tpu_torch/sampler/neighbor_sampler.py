@@ -321,12 +321,6 @@ def hetero_tree_blocks(seed_caps: Dict[NodeType, int], etypes,
   return tuple(records), node_offs, edge_offs
 
 
-def _later(what: str, slice_name: str):
-  return NotImplementedError(
-      f'{what} is not ported yet: it comes with the {slice_name} slice '
-      'of the port')
-
-
 def _inducer_for(mode: str, num_graph_nodes: int = 0):
   """``(init(seeds, mask, capacity), init_empty(capacity, device=),
   induce(state, fidx, nbrs, m, offset, compact=True, final=False,
@@ -499,12 +493,13 @@ class NeighborSampler:
     self._scratch = {}      # node capacity -> the level kernel's scratch
     # the backends' device arrays, built at first use: the padded table
     # (reseeded in place), and per edge type (None: the homogeneous
-    # graph) the block view and the row CDF; the row-sorted indices of
-    # negative sampling
+    # graph) the block view, the row CDF and the row-sorted indices of
+    # negative sampling (with a typed link batch's id ranges)
     self._padded = None
     self._blocks = {}
     self._cumsum = {}
-    self._neg_indices = None
+    self._neg_indices = {}
+    self._neg_ranges = {}
 
   def _placed(self, graph: Graph) -> Graph:
     """``graph`` on the sampler's device: a 'CPU'-mode graph is copied
@@ -873,26 +868,37 @@ class NeighborSampler:
     stream (``fold_in`` of the call counter), drawn on the host and, on
     a card, uploaded as one tensor: the same words as one
     ``sample_one_hop`` call per item. Dict ``inputs`` (``{ntype:
-    seeds}``) seed several types at once, each padded to a multiple of
-    8. Seeds go up from pinned memory without a host sync."""
+    seeds}``: host arrays, or tensors already on the sampler's device,
+    as the typed link path gives) seed several types at once, each
+    padded to a multiple of 8. Host seeds go up from pinned memory
+    without a host sync."""
     dev = self.device
     if isinstance(inputs, dict):
-      seeds_dict = {t: np.asarray(v).reshape(-1) for t, v in inputs.items()}
+      seeds_dict = {t: (v.reshape(-1) if torch.is_tensor(v)
+                        else np.asarray(v).reshape(-1))
+                    for t, v in inputs.items()}
       ntype = next(iter(seeds_dict))
     else:
       ntype = inputs.input_type
       assert ntype is not None, 'hetero sampling requires input_type'
       seeds_dict = {ntype: np.asarray(inputs.node).reshape(-1)}
-    caps_in, padded_d, smask_d = {}, {}, {}
+    caps_in, batch_d, smask_d, dmask_d = {}, {}, {}, {}
     for t, sd in seeds_dict.items():
       n_t = sd.shape[0]
       c = (batch_cap if batch_cap and len(seeds_dict) == 1
            else _round_up(n_t))
       caps_in[t] = c
-      buf = np.zeros((c,), np.int32)
-      buf[:n_t] = sd
-      padded_d[t] = buf
       smask_d[t] = np.arange(c) < n_t
+      if torch.is_tensor(sd):
+        # device seeds (the link path's union): padded on the device
+        batch_d[t] = torch.cat([sd.to(dev, torch.int32), torch.zeros(
+            c - n_t, dtype=torch.int32, device=dev)])
+        dmask_d[t] = torch.arange(c, device=dev) < n_t
+      else:
+        buf = np.zeros((c,), np.int32)
+        buf[:n_t] = sd
+        batch_d[t] = _upload(buf, torch.int32, dev)
+        dmask_d[t] = _upload(smask_d[t], torch.bool, dev)
     n = seeds_dict[ntype].shape[0]
     smask = smask_d[ntype]
     mode = self._dedup_mode()
@@ -923,12 +929,9 @@ class NeighborSampler:
     nodes_per_hop: Dict[NodeType, list] = {t: [] for t in ntypes}
     edges_per_hop: Dict[EdgeType, list] = {}
     offsets = {t: caps_in.get(t, 0) for t in ntypes}
-    batch_d = {}
     for t in seeds_dict:
-      batch_d[t] = _upload(padded_d[t], torch.int32, dev)
-      st, uniq, umask, inv_t = init_seed(
-          batch_d[t], _upload(smask_d[t], torch.bool, dev),
-          capacity=node_caps[t])
+      st, uniq, umask, inv_t = init_seed(batch_d[t], dmask_d[t],
+                                         capacity=node_caps[t])
       states[t] = st
       frontier[t] = (uniq, torch.arange(caps_in[t], dtype=torch.int32,
                                         device=dev), umask)
@@ -1013,17 +1016,29 @@ class NeighborSampler:
 
   # ---------------------------------------------------------------- link
 
-  def _neg_sorted(self):
-    """The CSR's indices sorted within each row, on the device
-    (``ops.sort_csr_rows``): negative sampling's membership view, built
-    once per sampler (the graph is static)."""
-    if self._neg_indices is None:
-      self._neg_indices = ops.sort_csr_rows(self.graph.indptr,
-                                            self.graph.indices)
-    return self._neg_indices
+  def _neg_sorted(self, etype: Optional[EdgeType] = None):
+    """The CSR's indices (of ``etype`` on a typed graph) sorted within
+    each row, on the device (``ops.sort_csr_rows``): negative sampling's
+    membership view, built once per edge type (the graph is static)."""
+    if etype not in self._neg_indices:
+      g = self._get_graph(etype)
+      self._neg_indices[etype] = ops.sort_csr_rows(g.indptr, g.indices)
+    return self._neg_indices[etype]
 
-  def sample_from_edges(self, inputs: EdgeSamplerInput,
-                        key=None) -> SamplerOutput:
+  def _neg_range(self, etype: EdgeType):
+    """``(num_key, num_other)`` of a typed link batch's negatives, as
+    JAX's ``_hetero_sample_from_edges`` takes them: the CSR's row count
+    and the largest neighbour id plus one (not the other type's node
+    count). Read once from the host topology: JAX reads the indices
+    every batch, which on a card would be a host sync."""
+    if etype not in self._neg_ranges:
+      topo = self._get_graph(etype).topo
+      self._neg_ranges[etype] = (int(topo.indptr.shape[0]) - 1,
+                                 int(np.asarray(topo.indices).max()) + 1)
+    return self._neg_ranges[etype]
+
+  def sample_from_edges(self, inputs: EdgeSamplerInput, key=None,
+                        **kwargs):
     """Link sampling: negatives, the seed union, node sampling and the
     supervision metadata (``graphlearn_tpu/sampler/neighbor_sampler.py:
     sample_from_edges``).
@@ -1040,9 +1055,18 @@ class NeighborSampler:
     Metadata (local indices through ``seed_inverse``): binary and none,
     ``edge_label_index [2, b + num_neg]`` and ``edge_label`` (the input
     labels or ones, then zeros); triplet, ``src_index``,
-    ``dst_pos_index`` and ``dst_neg_index``."""
-    if inputs.input_type is not None or self.is_hetero:
-      raise _later('typed link sampling', 'typed link')
+    ``dst_pos_index`` and ``dst_neg_index``.
+
+    Typed graphs take typed seed edges (``inputs.input_type`` the edge
+    type) through :meth:`_hetero_sample_from_edges` (``kwargs``: its
+    ``num_dst_nodes``); an explicit ``key`` is refused there, as in
+    JAX."""
+    if self.is_hetero:
+      if key is not None:
+        raise NotImplementedError(
+            'explicit key is homogeneous-only; hetero sampling uses the '
+            "sampler's internal PRNG stream")
+      return self._hetero_sample_from_edges(inputs, **kwargs)
     if key is None:
       key = self._next_key()
     kneg, knode = trandom.split(key)
@@ -1100,6 +1124,83 @@ class NeighborSampler:
         input_type=inputs.input_type,
         metadata={'seed_inverse': inv, 'seed_mask': mask,
                   'overflow': res['overflow'], **md})
+
+  def _hetero_sample_from_edges(self, inputs: EdgeSamplerInput,
+                                num_dst_nodes: Optional[int] = None,
+                                **kwargs):
+    """Typed link sampling (``graphlearn_tpu/sampler/neighbor_sampler.py:
+    _hetero_sample_from_edges``): seed edges of ``inputs.input_type``
+    ``(src_t, rel, dst_t)``; the negatives drawn against that edge
+    type's CSR (one launch on the card) with the next key of the
+    sampler's stream, then the typed engine's keys; each side's seeds
+    go into its node type's frontier (one concatenated seed set when
+    ``src_t == dst_t``) and the metadata indexes each type's node
+    buffer.
+
+    The negatives' ranges are the CSR's row count and, on the other
+    side, ``num_dst_nodes`` or the largest neighbour id plus one, as in
+    JAX (:meth:`_neg_range`); under ``edge_dir='in'`` the negatives'
+    rows and columns swap. The seed union stays on the device: a typed
+    link batch makes no host sync."""
+    del kwargs
+    etype = inputs.input_type
+    assert etype is not None, 'hetero link sampling requires input_type'
+    etype = tuple(etype)
+    src_t, _, dst_t = etype
+    dev = self.device
+    rows = np.asarray(inputs.row).reshape(-1)
+    cols = np.asarray(inputs.col).reshape(-1)
+    b = rows.shape[0]
+    neg = inputs.neg_sampling
+    g = self._get_graph(etype)
+    rows_d = _upload(rows, torch.int32, dev)
+    cols_d = _upload(cols, torch.int32, dev)
+    num_neg = 0
+    if neg is not None:
+      num_neg = neg.num_negatives(b)
+      num_key, num_other = self._neg_range(etype)
+      nr, nc, _ = ops.random_negative_sample(
+          g.indptr, self._neg_sorted(etype), num_key,
+          num_dst_nodes or num_other, num_neg, self._next_key(),
+          padding=True)
+      if self.edge_dir == 'in':
+        nr, nc = nc, nr
+    if neg is None:
+      src_seeds, dst_seeds = rows_d, cols_d
+    elif neg.is_binary():
+      src_seeds = torch.cat([rows_d, nr])
+      dst_seeds = torch.cat([cols_d, nc])
+    else:   # triplet: the negatives are dst candidates
+      src_seeds, dst_seeds = rows_d, torch.cat([cols_d, nc])
+    n_src = src_seeds.shape[0]
+    if src_t == dst_t:
+      seeds = {src_t: torch.cat([src_seeds, dst_seeds])}
+    else:
+      seeds = {src_t: src_seeds, dst_t: dst_seeds}
+    out = self._hetero_sample_from_nodes(seeds)
+    inv_d = out.metadata['seed_inverse_dict']
+    inv_src = inv_d[src_t][:n_src]
+    off = n_src if src_t == dst_t else 0
+    inv_dst = inv_d[dst_t][off:off + dst_seeds.shape[0]]
+    if inputs.label is not None:
+      label = _upload(inputs.label, _jax_dtype(inputs.label), dev)
+    else:
+      label = torch.ones(b, dtype=torch.int32, device=dev)
+    if neg is None:
+      md = dict(edge_label_index=torch.stack([inv_src[:b], inv_dst[:b]]),
+                edge_label=label)
+    elif neg.is_binary():
+      md = dict(edge_label_index=torch.stack([inv_src[:b + num_neg],
+                                              inv_dst[:b + num_neg]]),
+                edge_label=torch.cat([label, torch.zeros(
+                    num_neg, dtype=label.dtype, device=dev)]))
+    else:
+      md = dict(src_index=inv_src[:b], dst_pos_index=inv_dst[:b],
+                dst_neg_index=inv_dst[b:b + num_neg])
+    out.metadata.update(md)
+    out.input_type = etype
+    out.batch_size = b
+    return out
 
   def sample_pyg_v1(self, seeds, batch_cap: Optional[int] = None):
     """PyG-v1 style sampling: ``(batch_size, n_id, adjs)``, ``adjs`` the
@@ -1182,3 +1283,38 @@ class NeighborSampler:
       p90 = int(np.quantile(deg, 0.9)) if deg.size else 1
       self._deg_buckets = (min(dmax, max(8, -(-p90 // 8) * 8)), dmax)
     return self._deg_buckets
+
+  # ----------------------------------------------- pre-sampling probability
+
+  @torch.no_grad()
+  def sample_prob(self, seeds, num_nodes: Optional[int] = None):
+    """Per-node probability of being touched by a multi-hop sample from
+    ``seeds`` (``graphlearn_tpu/sampler/neighbor_sampler.py:sample_prob``;
+    ``FrequencyPartitioner``'s input): the exact dense propagation, per
+    hop ``p_v += sum_{u->v} p_u * min(1, k / deg(u))`` over the CSR by
+    ``index_add_`` on the sampler's device, clipped to [0, 1]. Returns a
+    ``[num_nodes]`` float32 tensor there (default length: the graph's
+    node count). On a card the sums add in no fixed order, so they agree
+    with the CPU's within float32 rounding, not bit for bit."""
+    if self.is_hetero:
+      raise ValueError('sample_prob is homogeneous-only')
+    g = self.graph
+    dev = self.device
+    n = num_nodes or g.num_nodes
+    counts = (g.indptr[1:] - g.indptr[:-1]).to(torch.int64)
+    deg = counts.to(torch.float32)
+    edge_src = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=dev), counts,
+        output_size=g.num_edges)
+    dst = g.indices.to(torch.int64)
+    prob = torch.zeros(n, dtype=torch.float32, device=dev)
+    prob[torch.as_tensor(np.asarray(seeds)).to(dev, torch.int64)] = 1.0
+    total = prob
+    for k in self.num_neighbors:
+      rate = torch.clamp(k / torch.clamp(deg, min=1.0), max=1.0)
+      contrib = (prob * rate)[edge_src]
+      nxt = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
+          0, dst, contrib)
+      prob = torch.clamp(nxt, 0.0, 1.0)
+      total = torch.clamp(total + prob, 0.0, 1.0)
+    return total

@@ -54,8 +54,10 @@ class ServingEngine:
       ``granularity``); the closed shape set.
     max_wait_ms: admission window past the first queued request.
     refresh_fn: ``ids -> [n, F] rows`` final-layer recompute
-      (``EmbeddingMaterializer.refresh_rows``) for stale nodes; needs a
-      store with ``update_rows``.
+      (``EmbeddingMaterializer.refresh_rows``; for a typed materializer
+      ``lambda ids: mat.refresh_rows(ids, ntype='paper')``, the store
+      holding that type's table) for stale nodes; needs a store with
+      ``update_rows``.
   """
 
   def __init__(self, store, buckets: Optional[Sequence[int]] = None,

@@ -1,7 +1,10 @@
-"""Type aliases, the canonical string forms of node and edge types and the
-typed seed-edge convention shared by the port (the part of
-``graphlearn_tpu/typing.py`` the sampling and model paths need)."""
-from typing import Dict, List, Tuple, Union
+"""Type aliases, the canonical string forms of node and edge types, the
+typed seed-edge convention and the partition containers shared by the
+port (the part of ``graphlearn_tpu/typing.py`` the sampling, model and
+partition paths need)."""
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
 
 # A node type in a heterogeneous graph, e.g. 'paper'.
 NodeType = str
@@ -16,6 +19,31 @@ REVERSE_PREFIX = 'rev_'
 EDGE_TYPE_STR_SPLIT = '__'
 
 NumNeighbors = Union[List[int], Dict[EdgeType, List[int]]]
+
+# A partition book: global id -> owning partition (a host int array).
+PartitionBook = np.ndarray
+HeteroNodePartitionDict = Dict[NodeType, PartitionBook]
+HeteroEdgePartitionDict = Dict[EdgeType, PartitionBook]
+
+
+class GraphPartitionData(NamedTuple):
+  """The edges of one graph partition, in global ids."""
+  edge_index: np.ndarray          # [2, E_local] (row, col)
+  eids: np.ndarray                # [E_local] global edge ids
+  weights: Optional[np.ndarray] = None  # [E_local] edge weights
+
+
+class FeaturePartitionData(NamedTuple):
+  """The feature rows of one partition and its hot cache."""
+  feats: Optional[np.ndarray]        # [n_local, F]
+  ids: Optional[np.ndarray]          # [n_local] global ids
+  cache_feats: Optional[np.ndarray]  # [n_cache, F] hot-cache rows
+  cache_ids: Optional[np.ndarray]    # [n_cache] global ids of cached rows
+
+
+HeteroGraphPartitionDict = Dict[EdgeType, GraphPartitionData]
+HeteroFeaturePartitionDict = Dict[Union[NodeType, EdgeType],
+                                  FeaturePartitionData]
 
 
 def as_str(type_: Union[NodeType, EdgeType]) -> str:

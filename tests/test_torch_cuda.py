@@ -63,7 +63,10 @@ in typed sampling and collate, and rgat tree-dense train steps against
 the CPU (chip_smoke.py's typed-phase helpers at a small size); and the
 models: HGT's four forwards and the dense GAT's against the CPU, and no
 host sync in a typed HGT step (chip_smoke.py's models-phase helpers at a
-small size).
+small size); and typed link batches (binary and triplet tree, calibrated
+binary merge) against the CPU's with no host sync, the typed
+materializer's passes and refresh against the CPU's, and ``sample_prob``
+against the CPU's.
 """
 import contextlib
 import copy
@@ -1934,3 +1937,100 @@ def test_gat_forwards_on_card_match_cpu(cuda):
   rep = cs.gat_forwards(torch, gtt, ds, pool, cuda, caps, 'test')
   assert rep['tree']['launches']['sample_hop'] == 6
   assert rep['merge']['launches']['sample_level'] == 20
+
+
+# ------------------------------------------ typed link, typed serving, prob
+
+
+@pytest.mark.parametrize('neg,dedup', [('binary', 'tree'), ('triplet', 'tree'),
+                                       ('binary', 'merge')])
+def test_typed_link_batch_on_card_matches_cpu_without_host_sync(cuda, neg,
+                                                                dedup):
+  """A typed link batch of writes edges (author -> paper) on the card:
+  sampled and collated under ``set_sync_debug_mode('error')``, equal to
+  the CPU's from the same sampler state (nodes, edges, features,
+  metadata), with the negative kernel once, K3 once per plan item and K1
+  once per featured type."""
+  from graphlearn_tpu_torch.sampler import EdgeSamplerInput, NegativeSampling
+  cs, ex, dataset, _, ds, _, _ = _typed_setup()
+  cpu_ds = dataset(torch.device('cpu'))
+  topo = ds.graph[ex.WRITES].topo
+  src = np.repeat(np.arange(topo.indptr.shape[0] - 1), np.diff(topo.indptr))
+  pick = np.random.default_rng(0).choice(topo.num_edges, 64, replace=False)
+  rows, cols = src[pick], topo.indices[pick]
+  ns = NegativeSampling(neg, 1 if neg == 'binary' else 2)
+  kw = dict(dedup=dedup)
+  if dedup == 'merge':
+    kw['frontier_caps'] = gtt.sampler.estimate_hetero_frontier_caps(
+        ds.graph, ex.FANOUTS, {'author': 128, 'paper': 128}, slack=2.0)
+  loaders = [gtt.loader.LinkNeighborLoader(
+      d, ex.FANOUTS, (ex.WRITES, np.stack([rows, cols])), neg_sampling=ns,
+      batch_size=64, seed=3, device=d.device, **kw) for d in (ds, cpu_ds)]
+  card, host = (ld.sampler for ld in loaders)
+  inp = EdgeSamplerInput(rows, cols, None, ex.WRITES, ns)
+  loaders[0]._collate_fn(card.sample_from_edges(inp))   # first use
+  host.load_state_dict(card.state_dict())
+  ops.reset_launch_counts()
+  with _no_sync_allowed():
+    out = loaders[0]._collate_fn(card.sample_from_edges(inp))
+  torch.cuda.synchronize()
+  counts = ops.launch_counts()
+  want = loaders[1]._collate_fn(host.sample_from_edges(inp))
+  cs.assert_hetero_equal(torch, out, want, 'typed link batch')
+  got_md, want_md = cs.link_md(torch, out), cs.link_md(torch, want)
+  assert sorted(got_md) == sorted(want_md)
+  for k in want_md:
+    assert torch.equal(got_md[k], want_md[k]), k
+  assert counts['negative_sample'] == 1
+  assert counts['gather_rows'] == 2
+  assert counts['sample_hop'] >= 5 and counts['sample_level'] == 0
+
+
+@pytest.mark.parametrize('conv', ['rsage', 'rgat'])
+def test_hetero_materializer_on_card_matches_cpu(cuda, conv):
+  """The typed materializer on the card against the CPU's from the same
+  weights: every pass's rows (chip_smoke's recheck at 512 ids a type)
+  and the final table within rtol 1e-3 / atol 1e-4, two row gathers a
+  conv block, and the typed refresh of 64 papers equal to the table."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs, ex, dataset, _, ds, _, _ = _typed_setup()
+  cpu = torch.device('cpu')
+  cpu_ds = dataset(cpu)
+  model = ex.build_model(conv, 1, 32, cuda, mode='segment',
+                         generator=torch.Generator().manual_seed(0)).eval()
+  cmodel = ex.build_model(conv, 1, 32, cpu, mode='segment').eval()
+  cmodel.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+  mat = gtt.serving.EmbeddingMaterializer(ds, model, block_size=256)
+  cmat = gtt.serving.EmbeddingMaterializer(cpu_ds, cmodel, block_size=256)
+  table, passes = cs.hetero_materialize_recorded(torch, mat)
+  want = cmat.materialize()
+  torch.testing.assert_close(table.cpu(), want, rtol=1e-3, atol=1e-4)
+  cs.TSERVE_CHECK = 512
+  diffs = cs.hetero_recheck(torch, gtt, mat, cmat, passes,
+                            np.random.default_rng(1))
+  assert len(diffs) == 7
+  for p in passes:
+    if p['label'][0].isdigit():
+      assert p['gather_rows'] == 2 * p['blocks'], p['label']
+  ids = np.arange(0, 3000, 47)
+  torch.testing.assert_close(
+      torch.as_tensor(mat.refresh_rows(ids, ntype='paper')),
+      table[torch.as_tensor(ids).to(cuda)].cpu(), rtol=1e-3, atol=1e-4)
+
+
+def test_sample_prob_on_card_matches_cpu(cuda):
+  """``sample_prob`` on the card over a 20,000-node graph at [15, 10, 5]:
+  within rtol 1e-5 / atol 1e-6 of the CPU's (float32 atomics add in no
+  fixed order)."""
+  cs = _chip_smoke()
+  ei, _, _ = cs.make_graph(20000, 25)
+  topo = gtt.data.Topology(ei, num_nodes=20000)
+  seeds = np.random.default_rng(2).choice(20000, 256, replace=False)
+  got = gtt.sampler.NeighborSampler(
+      gtt.data.Graph(topo, device=cuda), [15, 10, 5],
+      device=cuda).sample_prob(seeds)
+  want = gtt.sampler.NeighborSampler(
+      gtt.data.Graph(topo, device='cpu'), [15, 10, 5],
+      device='cpu').sample_prob(seeds)
+  assert got.device.type == 'cuda'
+  torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)

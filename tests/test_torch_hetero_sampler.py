@@ -340,7 +340,7 @@ def test_hetero_refusals_in_jax_words():
   """The typed engine refuses what JAX's refuses, in its words: an
   explicit key, map_table, padded_window, list caps on a typed graph,
   dict caps on a homogeneous one, an unknown caps edge type, caps under
-  tree; typed link sampling is a later slice of the port."""
+  tree, an explicit key for typed link sampling."""
   edges, num_nodes, _ = typed_edges()
   _, tg = both_graphs(edges, num_nodes)
   homo = gtt.data.Graph(gtt.data.Topology(edges[CITES], num_nodes=120),
@@ -369,6 +369,7 @@ def test_hetero_refusals_in_jax_words():
                                 frontier_caps={CITES: [4]})
   with pytest.raises(ValueError, match='homogeneous-only'):
     s.hop_caps(8)
-  with pytest.raises(NotImplementedError, match='typed link'):
+  with pytest.raises(NotImplementedError, match='homogeneous-only'):
     s.sample_from_edges(gtt.sampler.EdgeSamplerInput(
-        np.arange(3), np.arange(3), input_type=CITES))
+        np.arange(3), np.arange(3), input_type=CITES),
+        key=gtt.random.PRNGKey(0))

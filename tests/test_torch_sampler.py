@@ -64,10 +64,10 @@ def test_tree_sampler_stream_matches_jax(fanouts, window):
 
 
 def test_sampler_refuses_later_slices():
-  """Typed link sampling is still a later slice; typed graphs and
-  per-edge-type fanouts, refused before the typed slice, now sample and
-  equal the JAX sampler's batches, as do ``with_edge`` and the legacy
-  ``map_table`` / ``sort_legacy`` engines (edge ids included)."""
+  """Typed graphs, per-edge-type fanouts and typed link sampling, refused
+  before their slices, now sample and equal the JAX sampler's batches,
+  as do ``with_edge`` and the legacy ``map_table`` / ``sort_legacy``
+  engines (edge ids included)."""
   rng = np.random.default_rng(0)
   ei = rng.integers(0, 10, (2, 40))
   tg = gtt.data.Graph(gtt.data.Topology(ei, num_nodes=10), device='cpu')
@@ -82,9 +82,14 @@ def test_sampler_refuses_later_slices():
       assert_batches_equal(
           js.sample_from_nodes(glt.sampler.NodeSamplerInput(seeds, 'a')),
           ts.sample_from_nodes(gtt.sampler.NodeSamplerInput(seeds, 'a')))
-  with pytest.raises(NotImplementedError, match='typed link'):
-    ts.sample_from_edges(gtt.sampler.EdgeSamplerInput(
-        np.arange(3), np.arange(3), input_type=et))
+  # typed link sampling, the last of these slices, equals JAX's too
+  link = dict(input_type=et)
+  assert_batches_equal(
+      js.sample_from_edges(glt.sampler.EdgeSamplerInput(
+          np.arange(3), np.arange(3), **link)),
+      ts.sample_from_edges(gtt.sampler.EdgeSamplerInput(
+          np.arange(3), np.arange(3), **link)))
+  assert ts._call_count == js._call_count
   for kwargs in (dict(dedup='map_table'), dict(dedup='sort_legacy'),
                  dict(with_edge=True)):
     ts = gtt.sampler.NeighborSampler(tg, [2, 2], device='cpu', seed=3,

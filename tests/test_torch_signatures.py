@@ -8,10 +8,15 @@ calibration functions, the typed models ``GATConv``, ``HeteroConv``,
 ``TreeHeteroConv``, ``RGNN``, ``HGTConv`` and ``HGT``, and the
 homogeneous ``GCNConv``, ``TreeGATConv``, ``MergeGATConv``, ``GCN`` and
 ``GAT``, flax's ``parent`` / ``name`` aside, and ``run_impl_decision``),
-of the single-device ``graphlearn_tpu.storage`` API and of the serving
+of the single-device ``graphlearn_tpu.storage`` API, of the serving
 stack's spill (``EmbeddingMaterializer(spill_dir=)``,
 ``tiered_embedding_store``, ``TieredEmbeddingStore``,
-``warm_embedding_store``) against the port's: the same parameter names, in the
+``warm_embedding_store``) and typed refresh (``refresh_rows(ids,
+ntype=)``, ``make_layer_slice_fn(..., **fixed)``), of the link sampling
+entry points (``sample_from_edges``, the typed
+``_hetero_sample_from_edges``, ``sample_prob``) and of ``partition``
+(its classes, functions and the partition containers) against the
+port's: the same parameter names, in the
 same order, of the same kinds, with the same defaults (annotations are
 not compared). The port's deliberate differences are listed by name
 below (``ROADMAP.md``, "Deliberate divergences"); any other difference
@@ -205,6 +210,59 @@ LOADERS = ['NodeLoader', 'NeighborLoader', 'LinkLoader',
 @pytest.mark.parametrize('name', LOADERS)
 def test_loader_signatures(name):
   _compare_class(name, getattr(glt.loader, name), getattr(gtt.loader, name))
+
+
+@pytest.mark.parametrize('member', ['sample_from_edges',
+                                    '_hetero_sample_from_edges',
+                                    '_neg_sorted', 'sample_prob'])
+def test_link_sampling_signatures(member):
+  """The typed link sampling entry points and ``sample_prob``."""
+  assert_same_signature(f'NeighborSampler.{member}',
+                        getattr(glt.sampler.NeighborSampler, member),
+                        getattr(gtt.sampler.NeighborSampler, member))
+
+
+PARTITION_NAMES = ['PartitionerBase', 'RandomPartitioner',
+                   'FrequencyPartitioner', 'load_partition',
+                   'cat_feature_cache']
+
+
+@pytest.mark.parametrize('name', PARTITION_NAMES)
+def test_partition_signatures(name):
+  """``partition``'s public classes (their methods too) and functions."""
+  assert _public(gtt.partition) == _public(glt.partition) == sorted(
+      PARTITION_NAMES + ['base', 'frequency_partitioner',
+                         'random_partitioner'])
+  j, t = getattr(glt.partition, name), getattr(gtt.partition, name)
+  if inspect.isclass(j):
+    _compare_class(name, j, t)
+  else:
+    assert_same_signature(name, j, t)
+
+
+@pytest.mark.parametrize('name', ['GraphPartitionData',
+                                  'FeaturePartitionData'])
+def test_partition_container_signatures(name):
+  j, t = getattr(glt.typing, name), getattr(gtt.typing, name)
+  assert t._fields == j._fields and t._field_defaults == j._field_defaults
+
+
+def test_serving_slice_and_refresh_signatures():
+  """``make_layer_slice_fn(model, lo, hi, **fixed)`` and the typed
+  ``refresh_rows(ids, ntype=None)``."""
+  from graphlearn_tpu.models import train as jtrain
+  from graphlearn_tpu.serving import materialize as jmat
+  assert_same_signature('make_layer_slice_fn', jtrain.make_layer_slice_fn,
+                        gtt.models.train.make_layer_slice_fn)
+  assert_same_signature('EmbeddingMaterializer.refresh_rows',
+                        jmat.EmbeddingMaterializer.refresh_rows,
+                        gtt.serving.EmbeddingMaterializer.refresh_rows)
+  for member in ('embedding_store', '_hetero_layout', '_hetero_live_for'):
+    jp = [p[0] for p in _params(getattr(jmat.EmbeddingMaterializer,
+                                        member))]
+    tp = [p[0] for p in _params(getattr(gtt.serving.EmbeddingMaterializer,
+                                        member))]
+    assert tp[:len(jp)] == jp, member
 
 
 def test_sampler_output_signature():

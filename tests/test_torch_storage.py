@@ -229,6 +229,65 @@ def test_tiered_store_through_the_loader_matches_the_all_ram_store(tmp_path):
     np.testing.assert_array_equal(b.x.numpy(), np.asarray(c.x))
 
 
+@pytest.mark.parametrize('dedup', ['tree', 'merge'])
+def test_tiered_feature_hetero_loader_matches_jax(tmp_path, dedup):
+  """tests/test_storage.py:test_tiered_feature_hetero_loader_parity on the
+  port: per-type TieredFeature stores (hot, warm and disk rows) in a
+  typed dataset, collated through the typed loader's store lookup; the
+  batches equal the all-RAM Feature loader's and JAX's tiered loader's,
+  on a user/item graph and on a larger paper/author one."""
+  from test_torch_hetero_sampler import typed_edges
+  ub = ('user', 'buys', 'item')
+  bu = ('item', 'rev_buys', 'user')
+  small = ({ub: np.array([[0, 1, 2, 3], [0, 0, 1, 1]]),
+            bu: np.array([[0, 0, 1, 1], [0, 1, 2, 3]])},
+           {ub: 4, bu: 2}, {'user': 4, 'item': 2},
+           {ub: [2], bu: [2]}, ('user', np.arange(4)), 2,
+           dict(hot_rows=1, warm_rows=1))
+  edges, nodes, _ = typed_edges(with_tags=False)
+  large = (edges, nodes, {'paper': 120, 'author': 70},
+           {et: [3, 2] for et in edges}, ('paper', np.arange(0, 120, 3)),
+           8, dict(hot_rows=30, warm_rows=30))
+  rng = np.random.default_rng(3)
+  for case, (ei, num_nodes, sizes, fan, seeds, b, split) in enumerate(
+      (small, large)):
+    nfeat = {t: rng.standard_normal((n, 5)).astype(np.float32)
+             for t, n in sizes.items()}
+
+    def port(tiered):
+      ds = gtt.data.Dataset(edge_dir='out', device=CPU)
+      ds.init_graph(ei, num_nodes=num_nodes)
+      if tiered:
+        ds.node_features = {
+            t: tstorage.TieredFeature(
+                v, spill_dir=str(tmp_path / f't{case}_{t}'), device=CPU,
+                **split)
+            for t, v in nfeat.items()}
+      else:
+        ds.init_node_features({t: v.copy() for t, v in nfeat.items()})
+      return gtt.loader.NeighborLoader(ds, fan, seeds, batch_size=b,
+                                       seed=0, dedup=dedup, device=CPU)
+
+    jds = glt.data.Dataset(edge_dir='out')
+    jds.init_graph(ei, graph_mode='CPU', num_nodes=num_nodes)
+    jds.node_features = {
+        t: jstorage.TieredFeature(v, spill_dir=str(tmp_path / f'j{case}_{t}'),
+                                  **split)
+        for t, v in nfeat.items()}
+    jl = glt.loader.NeighborLoader(jds, fan, seeds, batch_size=b, seed=0,
+                                   dedup=dedup)
+    n = 0
+    for a, t, j in zip(port(False), port(True), jl):
+      assert sorted(t.x) == sorted(a.x) == sorted(j.x)
+      for k in a.x:
+        np.testing.assert_array_equal(t.x[k].numpy(), a.x[k].numpy())
+        np.testing.assert_array_equal(t.x[k].numpy(), np.asarray(j.x[k]))
+        np.testing.assert_array_equal(t.node[k].numpy(),
+                                      np.asarray(j.node[k]))
+      n += 1
+    assert n == len(seeds[1]) // b
+
+
 # ---------------------------------------------------------------- stager
 
 
