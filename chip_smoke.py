@@ -12,7 +12,8 @@ sampling and the IGBH RGNN (inference and training), HGT, the
 homogeneous GAT (forwards, training, a captured epoch, serving) and the
 SEAL DGCNN, typed link prediction (the bipartite two-tower example),
 typed RGNN serving and the tiered typed loader, partitioning with
-sample_prob, the hot/cold
+sample_prob, the partitioned (distributed) sampling path over 4 shards
+on the one card, the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
 the spilled serving stores), and the two probe suites.
@@ -285,6 +286,21 @@ Phases (any failure exits non-zero, and the result line is not printed):
    it (2 parts from two seed pools' card probabilities, cache 0.1) and a
    random partition of the IGBH graph, each read back exactly from a
    temporary directory removed afterwards, with the seconds of each.
+   Then the partitioned path (the ``dist`` phase): the script's graph
+   split into 4 shards by RandomPartitioner's rule and stacked on the
+   card (a one-process ``ShardMesh``; features with a 10% hot cache by
+   in-degree); a ``DistNeighborLoader`` at [15, 10, 5] and 1,024 seeds a
+   shard, dedup tree and sort, each at bucket_frac 2.0 and None: 3
+   batches timed (K3 4 x 3 and K1 12 a batch asserted: the launch
+   counters set to 0 before and read after), the first held against the
+   CPU sampler on the same partitions and keys (ids, masks, counts and
+   edges exact; ``x`` and ``y`` the rows and labels of its ids), one
+   more under sync counting (exactly the counted verdict reads: one per
+   exchange whose fractional capacity is below its full width, none at
+   None), the exchanges' device ms and one profiled batch; 3
+   data-parallel steps of ``examples/dist_train_sage_supervised.py``
+   (hidden 256, 3 layers) with the last recomputed on the CPU; and a
+   world-size-1 NCCL process group's batch against the one-process mesh.
 13. The hot/cold feature store. The card's pinned host-to-device rate
    (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
    from HBM, the cold rows read over UVA from the mapped host tail) on
@@ -359,8 +375,9 @@ plain versions (no result line; exit code 3). ``--noise WINDOWS,RUNS``
 measures, instead of the phases, the noise two checks must stand: WINDOWS
 profiled captured tree epochs with no lead and as many with
 PROFILE_LEAD_S (windows whose kernels fall short of the launch counters),
-and RUNS merge loops' last steps against the CPU (no result line; exit
-code 3).
+and RUNS merge loops' last steps against the CPU, the homogeneous
+GraphSAGE's, then the typed RGAT's (``--noise WINDOWS,RUNS,TYPED``: TYPED
+of those; no result line; exit code 3).
 """
 import argparse
 import concurrent.futures
@@ -420,8 +437,9 @@ PROFILE_WARMUPS_S = []
 PROFILE_EMPTY_WINDOWS = []
 PROFILE_EMPTY_RETRIES = 2
 # the CPU recompute of the loop's last train step (cpu_step_readings),
-# held in parts: the ReLU inputs within PRE_RTOL / PRE_ATOL; the gradients,
-# the CPU following the card's side of 0 at each ReLU input, within rtol
+# held in parts: the ReLU and leaky_relu inputs within PRE_RTOL /
+# PRE_ATOL; the gradients, the CPU following the card's side of 0 at each
+# of those inputs, within rtol
 # 1e-3 and GRAD_SHARE of each tensor's largest CPU gradient; the CPU's
 # Adam step on the card's own gradients within ADAM_RTOL / ADAM_ATOL of
 # the card's updated parameters. (Adam divides each element's step by its
@@ -430,6 +448,9 @@ PROFILE_EMPTY_RETRIES = 2
 # of the two full steps are recorded, not held.)
 PRE_RTOL, PRE_ATOL = 1e-4, 1e-5
 GRAD_SHARE = 1e-4
+# the band |z| < LEAKY_NEAR0 that estimates the leaky_relu inputs' density
+# at 0 (cpu_step_readings' leaky_expected_flips)
+LEAKY_NEAR0 = 1e-4
 ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 # device ops per sampled batch and per scanned train step measured before
 # the sampling kernels drew in-kernel (PERF.md, section 5)
@@ -1703,7 +1724,44 @@ def count_syncs(torch, fn):
   return out, sum(kinds.values()), kinds
 
 
+class LeakyReluInputs:
+  """The handle that stands for a hook on every leaky_relu input (the
+  attention logits of the GAT convs, plain and typed): until
+  :meth:`remove`, each ``torch.nn.functional.leaky_relu`` call first
+  calls ``fn(('leaky', i), input)``, ``i`` counting the calls, and takes
+  a returned tensor as its input."""
+
+  def __init__(self, fn):
+    import torch.nn.functional as F
+    self.functional, self.plain = F, F.leaky_relu
+    seen, plain = [0], self.plain
+
+    def leaky_relu(input, negative_slope=0.01, inplace=False):
+      r = fn(('leaky', seen[0]), input)
+      seen[0] += 1
+      return plain(input if r is None else r, negative_slope, inplace)
+
+    F.leaky_relu = leaky_relu
+
+  def remove(self):
+    self.functional.leaky_relu = self.plain
+
+
 def relu_input_hooks(model, fn) -> list:
+  """Hooks on the inputs of ``model``'s kinks at 0: :func:`relu_hooks`
+  (its ReLU inputs, ``fn(layer, z)``) and :class:`LeakyReluInputs` (its
+  leaky_relu inputs, ``fn(('leaky', i), z)``); a returned tensor replaces
+  the input. Returns the hook handles."""
+  return relu_hooks(model, fn) + [LeakyReluInputs(fn)]
+
+
+def recorder(pre: dict):
+  """A :func:`relu_input_hooks` ``fn`` that keeps a copy of each input in
+  ``pre`` under its key."""
+  return lambda key, z: pre.__setitem__(key, z.detach().clone())
+
+
+def relu_hooks(model, fn) -> list:
   """Forward hooks on ``model``'s conv layers whose outputs go through a
   ReLU (all but the last): each calls ``fn(layer, output)``, and a
   returned tensor replaces the output. A typed model's layers
@@ -1711,10 +1769,14 @@ def relu_input_hooks(model, fn) -> list:
   tensor in turn (types sorted, layers in order), ``layer`` counting
   them. HGT's ReLU inputs are its input projections (``lin_{t}``), the
   SEAL DGCNN's its ``conv1``, ``conv2`` and ``mlp1``, ``layer`` counting
-  the calls; GAT has none (its ELU is smooth at 0). Returns the hook
-  handles."""
+  the calls; GAT has none (its ELU is smooth at 0; its attention's
+  leaky_relu is :class:`LeakyReluInputs`'). Returns the hook handles."""
   kind = type(model).__name__
-  if kind in ('HGT', 'DGCNN', 'GAT'):
+  if getattr(model, 'relu_hooks_by_call', False):
+    # several forwards a step (the distributed example's shards): layer
+    # counts the hook calls, across the forwards
+    kind = 'by_call'
+  if kind in ('HGT', 'DGCNN', 'GAT', 'by_call'):
     seen = [0]
 
     def counted(o):
@@ -1724,7 +1786,9 @@ def relu_input_hooks(model, fn) -> list:
 
     mods = ([m for n, m in model.named_children() if n.startswith('lin_')]
             if kind == 'HGT' else
-            [model.conv1, model.conv2, model.mlp1] if kind == 'DGCNN' else [])
+            [model.conv1, model.conv2, model.mlp1] if kind == 'DGCNN' else
+            [getattr(model, f'conv{l}') for l in range(model.num_layers - 1)]
+            if kind == 'by_call' else [])
     return [m.register_forward_hook(lambda m_, i, o: counted(o))
             for m in mods]
   if not hasattr(model, 'conv0'):
@@ -1747,13 +1811,15 @@ def relu_input_hooks(model, fn) -> list:
 def cpu_step_readings(torch, gtt, loader, model, check, loss,
                       cpu_model=None, make_step=None) -> dict:
   """The card's train step ``check = (params, Adam state, batch, card
-  gradients, card ReLU inputs)`` against the CPU's, which follows the
-  card's side of 0 at every ReLU input (the two devices round in other
-  orders, so an input within rounding of 0 can fall on opposite sides,
-  and that one unit then moves a whole seed's share of the gradients):
-  the ReLU inputs (largest abs difference, the layers outside
-  PRE_RTOL / PRE_ATOL, the inputs on opposite sides and the largest of
-  them), the loss, the gradients (largest abs difference as a share of
+  gradients, card ReLU and leaky_relu inputs by relu_input_hooks' key)``
+  against the CPU's, which follows the card's side of 0 at every ReLU
+  and leaky_relu input (the two devices round in other orders, so an
+  input within rounding of 0 can fall on opposite sides, and that one
+  unit then moves a whole seed's share of the gradients: a leaky_relu's
+  slope is 1 on one side, 0.2 on the other): the inputs (largest abs
+  difference, the keys outside PRE_RTOL / PRE_ATOL, the ReLU and the
+  leaky_relu inputs on opposite sides and the largest of them), the
+  loss, the gradients (largest abs difference as a share of
   each tensor's largest CPU gradient, the tensors outside rtol 1e-3 and
   GRAD_SHARE), the CPU's Adam step on the card's gradients against the
   card's updated ``model`` (largest abs difference, the tensors outside
@@ -1784,13 +1850,16 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss,
   cpu_pre = {}
   tiny = torch.finfo(torch.float32).tiny
 
-  def card_side(layer, z):
+  def card_side(key, z):
     # the value z + (t - z), gradient 1: t = z where the devices agree;
     # else t on the card's side, |z| (> 0: z + 2|z| = |z| exactly, where
-    # a t near 0 would cancel to 0) or -1 (ReLU 0, gradient 0)
-    cpu_pre[layer] = zd = z.detach().clone()
-    return z + (torch.where(pre[layer] > 0, zd.abs().clamp(min=tiny),
-                            zd.new_tensor(-1.0)) - zd)
+    # a t near 0 would cancel to 0) or, below, -1 at a ReLU (ReLU 0,
+    # gradient 0) and -|z| at a leaky_relu (z - 2z = -z exactly, a value
+    # within rounding of the card's)
+    cpu_pre[key] = zd = z.detach().clone()
+    below = (-zd.abs() if isinstance(key, tuple) else zd.new_tensor(-1.0))
+    return z + (torch.where(pre[key] > 0, zd.abs().clamp(min=tiny), below)
+                - zd)
 
   cmodel, cstate = cpu_state()
   hooks = relu_input_hooks(cmodel, card_side)
@@ -1805,19 +1874,35 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss,
     p.grad = None if g is None else g.clone()
   astate.optimizer.step()
   out = dict(loss=float(loss), cpu_loss=float(closs), pre_diff=0.0,
-             pre_fail=[], opposite=0, opposite_max_abs=0.0, grad_share=0.0,
-             grad_fail=[], adam_diff=0.0, adam_fail=[],
+             pre_fail=[], opposite=0, leaky_opposite=0, opposite_max_abs=0.0,
+             leaky_inputs=0, leaky_zero=0, leaky_near0=0, leaky_gap=0.0,
+             grad_share=0.0, grad_fail=[], adam_diff=0.0, adam_fail=[],
              plain_grad_share=0.0, max_abs_param_diff=0.0)
-  for layer, z in enumerate(pre):
-    cz = cpu_pre[layer]
+  assert pre.keys() == cpu_pre.keys(), (list(pre), list(cpu_pre))
+  for key, z in pre.items():
+    cz = cpu_pre[key]
+    assert z.shape == cz.shape, (key, z.shape, cz.shape)
+    if isinstance(key, tuple):
+      out['leaky_inputs'] += z.numel()
+      # 0 on both devices (a zero row's logit) cannot flip
+      both0 = (z == 0) & (cz == 0)
+      out['leaky_zero'] += int(both0.sum())
+      out['leaky_near0'] += int(((z.abs() < LEAKY_NEAR0) & ~both0).sum())
+      out['leaky_gap'] += float((z - cz).abs().double().sum())
     out['pre_diff'] = max(out['pre_diff'], float((z - cz).abs().max()))
     if not torch.allclose(z, cz, rtol=PRE_RTOL, atol=PRE_ATOL):
-      out['pre_fail'].append(layer)
+      out['pre_fail'].append(key)
     opp = (z > 0) != (cz > 0)
-    out['opposite'] += int(opp.sum())
+    out['leaky_opposite' if isinstance(key, tuple) else 'opposite'] += int(
+        opp.sum())
     if opp.any():
       out['opposite_max_abs'] = max(out['opposite_max_abs'], float(
           torch.maximum(z[opp].abs(), cz[opp].abs()).max()))
+  # a logit flips where |z| is below its card-CPU gap: expected flips =
+  # the density of |z| at 0 (count per unit) times the mean gap
+  out['leaky_gap'] /= max(out['leaky_inputs'], 1)
+  out['leaky_expected_flips'] = (out['leaky_near0'] / (2 * LEAKY_NEAR0) *
+                                 out['leaky_gap'])
   names = [n for n, _ in model.named_parameters()]
   for name, p, g, cp, ap, pp in zip(
       names, model.parameters(), grads, cmodel.parameters(),
@@ -1848,10 +1933,11 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss,
 
 def cpu_step_check(torch, gtt, loader, model, check, loss, **kw) -> dict:
   """:func:`cpu_step_readings` (``kw``: its model and step), held: the
-  ReLU inputs within their tolerance, the loss within rtol 1e-4, no
+  ReLU and leaky_relu inputs within their tolerance, the loss within rtol 1e-4, no
   tensor outside its gradient or Adam tolerance."""
   c = cpu_step_readings(torch, gtt, loader, model, check, loss, **kw)
-  assert not c['pre_fail'], ('ReLU inputs differ from the CPU\'s', c)
+  assert not c['pre_fail'], ('ReLU or leaky_relu inputs differ from the '
+                             'CPU\'s', c)
   torch.testing.assert_close(torch.tensor(c['loss']),
                              torch.tensor(c['cpu_loss']), rtol=1e-4, atol=0)
   assert not c['grad_fail'], ('gradients differ from the CPU\'s', c)
@@ -1895,9 +1981,8 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
                copy.deepcopy(state.optimizer.state_dict()),
                {k: (v.cpu() if torch.is_tensor(v) else v)
                 for k, v in d.items()})
-      pre = []
-      hooks = relu_input_hooks(
-          model, lambda layer, z: pre.append(z.detach().clone()))
+      pre = {}
+      hooks = relu_input_hooks(model, recorder(pre))
     state, loss, acc = step_fn(state, d)
     e2 = _event(torch, cuda)
     if cuda:
@@ -1906,7 +1991,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
       for h in hooks:
         h.remove()
       check += ([p.grad.detach().cpu() for p in model.parameters()],
-                [z.cpu() for z in pre])
+                {k: z.cpu() for k, z in pre.items()})
     per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
                          train_ms=_span(e1, e2, cuda)))
     losses.append(loss)
@@ -1940,7 +2025,8 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
   c = rep['cpu_check']
   log(f'train {mode} CPU recompute of step {steps}: ReLU inputs max abs '
       f'diff {c["pre_diff"]:.3g} (rtol {PRE_RTOL}, atol {PRE_ATOL}), '
-      f'{c["opposite"]} on opposite sides of 0 (largest '
+      f'{c["opposite"]} on opposite sides of 0 (leaky_relu inputs '
+      f'{c["leaky_opposite"]}; largest '
       f'{c["opposite_max_abs"]:.3g}); loss {c["cpu_loss"]:.6f} '
       f'vs {c["loss"]:.6f} (rtol 1e-4); gradients max abs diff '
       f'{c["grad_share"]:.3g} of the tensor\'s largest (limit {GRAD_SHARE}); '
@@ -3018,20 +3104,20 @@ def noise_phase(torch, gtt, ds, device, n_nodes, windows, runs) -> dict:
                  copy.deepcopy(state.optimizer.state_dict()),
                  {k: (v.cpu() if torch.is_tensor(v) else v)
                   for k, v in d.items()})
-        pre = []
-        hooks = relu_input_hooks(
-            model, lambda layer, z: pre.append(z.detach().clone()))
+        pre = {}
+        hooks = relu_input_hooks(model, recorder(pre))
       state, loss, _ = step_fn(state, d)
     for h in hooks:
       h.remove()
     for _ in it:
       raise AssertionError('the pool holds more batches than steps')
     check += ([p.grad.detach().cpu() for p in model.parameters()],
-              [z.cpu() for z in pre])
+              {k: z.cpu() for k, z in pre.items()})
     c = cpu_step_readings(torch, gtt, merge, model, check, loss)
     rep['merge_step'].append(c)
     log(f'noise: merge run {r}: ReLU inputs {c["pre_diff"]:.3g} apart, '
-        f'{c["opposite"]} on opposite sides (largest '
+        f'{c["opposite"]} on opposite sides (leaky_relu inputs '
+        f'{c["leaky_opposite"]}; largest '
         f'{c["opposite_max_abs"]:.3g}); gradients {c["grad_share"]:.3g} of the '
         f'largest (outside: {c["grad_fail"]}); Adam on the card\'s '
         f'gradients {c["adam_diff"]:.3g} (outside: {c["adam_fail"]}); '
@@ -3103,9 +3189,8 @@ def link_run(torch, gtt, ds, device, pool, steps, name, kw, smi):
       check = (copy.deepcopy(model.state_dict()),
                copy.deepcopy(state.optimizer.state_dict()),
                {k: v.cpu() for k, v in d.items()})
-      pre = []
-      hooks = relu_input_hooks(
-          model, lambda layer, z: pre.append(z.detach().clone()))
+      pre = {}
+      hooks = relu_input_hooks(model, recorder(pre))
     state, loss, _ = step_fn(state, d)
     e2 = _event(torch, cuda)
     if cuda:
@@ -3114,7 +3199,7 @@ def link_run(torch, gtt, ds, device, pool, steps, name, kw, smi):
       for h in hooks:
         h.remove()
       check += ([p.grad.detach().cpu() for p in model.parameters()],
-                [z.cpu() for z in pre])
+                {k: z.cpu() for k, z in pre.items()})
     per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
                          train_ms=_span(e1, e2, cuda)))
     losses.append(loss)
@@ -3175,7 +3260,8 @@ def link_run(torch, gtt, ds, device, pool, steps, name, kw, smi):
       cpu_model=lambda: model_on('cpu'),
       make_step=train.make_link_train_step)
   log(f'link {name} CPU recompute of step {steps}: ReLU inputs max abs '
-      f'diff {c["pre_diff"]:.3g}, {c["opposite"]} on opposite sides of 0; '
+      f'diff {c["pre_diff"]:.3g}, {c["opposite"]} on opposite sides of 0 '
+      f'(leaky_relu inputs {c["leaky_opposite"]}); '
       f'loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; gradients '
       f'{c["grad_share"]:.3g} of the largest; CPU Adam on the card\'s '
       f'gradients {c["adam_diff"]:.3g}')
@@ -3629,7 +3715,7 @@ def hetero_inference(torch, gtt, ex, batches, caps, device, b, smi):
 
 
 def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
-               smi, label, make_step=None, to_dict=None, lr=LR):
+               smi, label, make_step=None, to_dict=None, lr=LR, hold=True):
   """The examples' loop (loader -> batch_to_dict -> train_step, Adam at
   ``lr``; ``make_step(model)`` / ``to_dict(batch)`` another example's
   step and batch dict) for ``steps`` steps of the model
@@ -3638,7 +3724,8 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
   before) equal to ``expect``, no batch over its caps, the last step
   recomputed on the CPU from the card's state before it
   (``cpu_step_check``: a merge path's scatter atomics sum in no fixed
-  order, so it is held from that common state, C5's rule), host syncs per
+  order, so it is held from that common state, C5's rule; with ``hold``
+  false only read, ``cpu_step_readings``), host syncs per
   step of SYNC_STEPS more steps (they must be 0), and one
   more step under torch.profiler (device ops, busy and idle share; its
   kernels equal to the counters)."""
@@ -3667,9 +3754,8 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
     if i == steps - 1:       # the step recomputed on the CPU below
       check = (copy.deepcopy(model.state_dict()),
                copy.deepcopy(state.optimizer.state_dict()), to_cpu(torch, d))
-      pre = []
-      hooks = relu_input_hooks(
-          model, lambda layer, z: pre.append(z.detach().clone()))
+      pre = {}
+      hooks = relu_input_hooks(model, recorder(pre))
     state, loss, _ = step_fn(state, d)
     e2 = _event(torch, cuda)
     if cuda:
@@ -3678,7 +3764,8 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
       for h in hooks:
         h.remove()
       check += ([None if p.grad is None else p.grad.detach().cpu()
-                 for p in model.parameters()], [z.cpu() for z in pre])
+                 for p in model.parameters()],
+                {k: z.cpu() for k, z in pre.items()})
     per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
                          train_ms=_span(e1, e2, cuda)))
     losses.append(loss)
@@ -3703,13 +3790,13 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
       f' total={sum(med.values()):.3f}; max_memory_allocated over steps '
       f'2-{steps} {peak} B ({own} B over the {held} B held before); '
       f'losses {losses[0]:.4f} -> {losses[-1]:.4f} on {smi}')
-  c = rep['cpu_check'] = cpu_step_check(
+  c = rep['cpu_check'] = (cpu_step_check if hold else cpu_step_readings)(
       torch, gtt, loader, model, check, losses[-1],
       cpu_model=lambda: model_on(torch.device('cpu')),
       make_step=make_step)
   log(f'{label} CPU recompute of step {steps}: ReLU '
       f'inputs max abs diff {c["pre_diff"]:.3g}, {c["opposite"]} on '
-      f'opposite sides of 0; loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; '
+      f'opposite sides of 0 (leaky_relu inputs {c["leaky_opposite"]}); loss {c["cpu_loss"]:.6f} vs {c["loss"]:.6f}; '
       f'gradients {c["grad_share"]:.3g} of the largest; CPU Adam on the '
       f'card\'s gradients {c["adam_diff"]:.3g}')
   if cuda:
@@ -3742,9 +3829,10 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
 
 
 def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
-                 steps, smi, hidden=HET_HIDDEN):
-  """The example's loop (``loop_train``) for ``steps`` steps of ``conv``
-  ('rsage' / 'rgat', or the example's own model) in the tree-dense (tree
+                 steps, smi, hidden=HET_HIDDEN, hold=True):
+  """The example's loop (``loop_train``, ``hold`` its) for ``steps`` steps
+  of ``conv`` ('rsage' / 'rgat', or the example's own model) in the
+  tree-dense (tree
   batches) or merge-dense (calibrated merge batches) forward: the hop
   kernel once per plan item, the row gather once per featured type."""
   mode = 'tree_dense' if kind == 'tree' else 'merge_dense'
@@ -3761,8 +3849,73 @@ def hetero_train(torch, gtt, ex, ds, pool, device, kind, conv, caps, b,
                           generator=torch.Generator().manual_seed(0))
 
   rep = loop_train(torch, gtt, loader, model_on, ex.NUM_CLASSES, steps,
-                   expect, smi, f'hetero train {conv} {mode}')
+                   expect, smi, f'hetero train {conv} {mode}', hold=hold)
   rep['items'] = items
+  return rep
+
+
+def hetero_sizes(cuda):
+  """The typed path's papers, authors, batch, timed batches a loader and
+  train steps: the IGBH example's on the card, a few thousand nodes on
+  the CPU."""
+  if cuda:
+    return HET_PAPER, HET_AUTHOR, HET_BATCH, HET_BATCHES, HET_STEPS
+  return 5_000, 2_500, 64, 2, 4
+
+
+def hetero_pool_caps(gtt, ex, ds, n_paper, b):
+  """The example's train seeds and its calibrated merge caps."""
+  pool = np.arange(int(n_paper * HET_SEED_FRACTION))
+  caps = gtt.sampler.estimate_hetero_frontier_caps(
+      ds.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  return pool, caps
+
+
+def hetero_noise(torch, gtt, device, runs, smi) -> dict:
+  """``runs`` runs of the hetero phase's merge-dense RGAT training from
+  one start (``--noise``: the merge backward's scatter atomics sum in no
+  fixed order, so each run's last step differs), each last step's
+  :func:`cpu_step_readings`, read and not held: the attention logits
+  (leaky_relu inputs) on the other side of 0 on the CPU, and the
+  gradients with the CPU on the card's side (``grad_share``) and on its
+  own (``plain_grad_share``)."""
+  from graphlearn_tpu_torch.examples import train_rgnn as ex
+  n_paper, n_author, b, _, steps = hetero_sizes(device.type == 'cuda')
+  dataset, _ = hetero_data(torch, gtt, ex, n_paper, n_author)
+  ds = dataset(device)
+  pool, caps = hetero_pool_caps(gtt, ex, ds, n_paper, b)
+  reads = []
+  for r in range(runs):
+    reads.append(hetero_train(torch, gtt, ex, ds, pool, device, 'merge',
+                              'rgat', caps, b, steps, smi,
+                              hold=False)['cpu_check'])
+  flipped = [c for c in reads if c['leaky_opposite']]
+  rest = [c for c in reads if not c['leaky_opposite']]
+
+  def most(cs, k):
+    return max((c[k] for c in cs), default=None)
+
+  rep = dict(runs=reads, with_leaky_flips=len(flipped),
+             expected_flips=sum(c['leaky_expected_flips'] for c in reads),
+             outside=sum(bool(c['grad_fail']) for c in reads),
+             plain_outside=sum(c['plain_grad_share'] > GRAD_SHARE
+                               for c in reads),
+             flipped_plain_grad_share=most(flipped, 'plain_grad_share'),
+             flipped_grad_share=most(flipped, 'grad_share'),
+             rest_plain_grad_share=most(rest, 'plain_grad_share'),
+             rest_grad_share=most(rest, 'grad_share'))
+  c = reads[-1] if reads else {}
+  log(f'noise: hetero rgat merge runs: {len(flipped)} of {runs} with '
+      f'leaky_relu inputs on opposite sides ({rep["expected_flips"]} '
+      f'expected: a step\'s {c.get("leaky_inputs")} inputs, '
+      f'{c.get("leaky_zero")} 0 on both, {c.get("leaky_near0")} more within '
+      f'{LEAKY_NEAR0} of 0, a mean card-CPU gap {c.get("leaky_gap")}); '
+      f'gradients, CPU on the card\'s '
+      f'side / on its own, largest share: those runs '
+      f'{rep["flipped_grad_share"]} / {rep["flipped_plain_grad_share"]}, '
+      f'the rest {rep["rest_grad_share"]} / {rep["rest_plain_grad_share"]}; '
+      f'outside GRAD_SHARE {rep["outside"]} / {rep["plain_outside"]} on '
+      f'{smi}')
   return rep
 
 
@@ -3775,16 +3928,10 @@ def hetero_phase(torch, gtt, device, smi):
   from graphlearn_tpu_torch.examples import train_rgnn as ex
   cuda = device.type == 'cuda'
   t0 = time.perf_counter()
-  if cuda:
-    n_paper, n_author, b, nb, steps = (HET_PAPER, HET_AUTHOR, HET_BATCH,
-                                       HET_BATCHES, HET_STEPS)
-  else:
-    n_paper, n_author, b, nb, steps = 5_000, 2_500, 64, 2, 4
+  n_paper, n_author, b, nb, steps = hetero_sizes(cuda)
   dataset, wgraphs = hetero_data(torch, gtt, ex, n_paper, n_author)
   ds, cpu_ds = dataset(device), dataset(torch.device('cpu'))
-  pool = np.arange(int(n_paper * HET_SEED_FRACTION))
-  caps = gtt.sampler.estimate_hetero_frontier_caps(
-      ds.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  pool, caps = hetero_pool_caps(gtt, ex, ds, n_paper, b)
   _, _, full = gtt.sampler.hetero_capacity_plan(
       list(ex.FANOUTS), lambda et: ex.FANOUTS[et], {'paper': b}, 'out')
   _, _, cal = gtt.sampler.hetero_capacity_plan(
@@ -4281,9 +4428,8 @@ def seal_part(torch, gtt, device, smi):
   for i, b in enumerate(batches[:SEAL_STEPS]):
     check = (copy.deepcopy(model.state_dict()),
              copy.deepcopy(state.optimizer.state_dict()), to_cpu(torch, b))
-    pre = []
-    hooks = relu_input_hooks(model,
-                             lambda layer, z: pre.append(z.detach().clone()))
+    pre = {}
+    hooks = relu_input_hooks(model, recorder(pre))
     e0 = _event(torch, cuda)
     loss = step(b)
     e1 = _event(torch, cuda)
@@ -4293,7 +4439,7 @@ def seal_part(torch, gtt, device, smi):
     for h in hooks:
       h.remove()
     check += ([p.grad.detach().cpu() for p in model.parameters()],
-              [z.cpu() for z in pre])
+              {k: z.cpu() for k, z in pre.items()})
     rec = {k: v.cpu() for k, v in recs[-1].items()}
     differs = []
 
@@ -4326,8 +4472,8 @@ def seal_part(torch, gtt, device, smi):
   rep = dict(links=calls, extract_s=extract_s, launches=counts,
              step_ms=step_ms, losses=[c['loss'] for c in checks],
              cpu_checks=[{k: c[k] for k in (
-                 'pre_diff', 'opposite', 'grad_share', 'adam_diff',
-                 'cpu_loss', 'cpu_sort_differs')} for c in checks],
+                 'pre_diff', 'opposite', 'leaky_opposite', 'grad_share',
+                 'adam_diff', 'cpu_loss', 'cpu_sort_differs')} for c in checks],
              forward_max_abs_diff=fwd_diff,
              forward_cpu_sort_differs=pinned[-1]['order_differs'])
   log(f'models seal: {calls} enclosing subgraphs extracted on the card in '
@@ -4917,6 +5063,335 @@ def partition_phase(torch, gtt, ds, cpu_ds, ei, feats, device, smi):
   return rep
 
 
+# ---- the partitioned (distributed) sampling path
+DIST_PARTS = 4                       # shards stacked on the one card
+DIST_BATCHES = 3                     # timed loader batches per mode
+DIST_MODES = (('tree', 2.0), ('tree', None), ('sort', 2.0), ('sort', None))
+DIST_CACHE = 0.1                     # the features' hot-cache share
+DIST_STEPS = 3                       # the example's data-parallel steps
+
+
+def dist_book(n: int, parts: int, seed: int = 0) -> np.ndarray:
+  """RandomPartitioner's node book: a seeded shuffle dealt in equal
+  contiguous shares."""
+  perm = np.random.default_rng(seed).permutation(n)
+  pb = np.empty(n, dtype=np.int32)
+  share = (n + parts - 1) // parts
+  for p in range(parts):
+    pb[perm[p * share:(p + 1) * share]] = p
+  return pb
+
+
+def dist_expected_syncs(gtt, sampler, feature, b: int, frac) -> int:
+  """The verdict reads of one loader batch: one per exchange whose
+  fractional capacity is below its full width (the hops, the feature
+  lookup over the node buffer and the label lookup, all at ``frac``)."""
+  from graphlearn_tpu_torch import distributed as gdist
+  p = sampler.mesh.num_partitions
+  caps = sampler.hop_caps(b)
+  n = sum(gtt.ops.exchange_capacity(caps[i], p, frac) < caps[i]
+          for i in range(len(FANOUTS)))
+  width = sampler._node_cap(caps)
+  hit = feature.cache_rows / feature.feature_pb.shape[0]
+  n += gdist.miss_capacity(width, p, frac, hit) < width
+  n += gdist.miss_capacity(width, p, frac) < width
+  return int(n)
+
+
+def dist_batch_check(torch, host, inp, keys, batch, feats_t, labels_t):
+  """One card batch against the CPU sampler's on the same seeds and
+  keys: every shard's ids, masks, counts and edges exact, and ``x`` /
+  ``y`` exactly the feature rows and labels of its ids (zeros at empty
+  slots)."""
+  out = host.sample_from_nodes(inp, keys=keys)
+  for f, got in (('node', batch.node), ('num_nodes', batch.num_nodes),
+                 ('row', batch.edge_index[:, 0]),
+                 ('col', batch.edge_index[:, 1]),
+                 ('edge_mask', batch.edge_mask),
+                 ('num_sampled_nodes', batch.num_sampled_nodes),
+                 ('num_sampled_edges', batch.num_sampled_edges)):
+    assert torch.equal(got.cpu(), getattr(out, f)), f'dist {f} differs'
+  node = batch.node
+  valid = node >= 0
+  safe = node.clamp(min=0).long()
+  want_x = torch.where(valid[..., None], feats_t[safe], 0)
+  assert torch.equal(batch.x, want_x), 'dist features differ'
+  want_y = torch.where(valid, labels_t[safe], 0)
+  assert torch.equal(batch.y, want_y.to(batch.y.dtype)), 'dist labels differ'
+  return int(valid.sum())
+
+
+def dist_exchange_ms(torch, mesh, fn, device):
+  """The device ms of one call's exchanges: the ``[L, P, cap, ...]``
+  shapes ``mesh.all_to_all`` saw in ``fn()``, each transpose timed alone
+  (``timed``: queued behind a spin, median of 5)."""
+  seen = []
+  orig = mesh.all_to_all
+
+  def record(x):
+    seen.append((tuple(x.shape), x.dtype))
+    return orig(x)
+  mesh.all_to_all = record
+  try:
+    fn()
+  finally:
+    mesh.all_to_all = orig
+  total = 0.0
+  for shape, dtype in seen:
+    x = torch.zeros(shape, dtype=dtype, device=device)
+    total += timed(torch, lambda: orig(x), 5, device)[1]
+    del x
+  return total, len(seen)
+
+
+def to_cpu_data(torch, batch):
+  import dataclasses
+  return dataclasses.replace(batch, **{
+      f.name: getattr(batch, f.name).cpu()
+      for f in dataclasses.fields(batch)
+      if torch.is_tensor(getattr(batch, f.name))})
+
+
+def dist_train(torch, gtt, ds, pool, b, device, cuda, smi):
+  """DIST_STEPS data-parallel steps of the example (GraphSAGE hidden
+  HIDDEN, len(FANOUTS) layers) on tree batches; the last one recomputed
+  on the CPU from the card's state (``cpu_step_check``: the four shard
+  forwards' ReLU inputs, the loss, the gradients and the Adam step)."""
+  import copy
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  from graphlearn_tpu_torch.models import create_train_state
+  mesh = ds.node_features.mesh
+  loader = gdist.DistNeighborLoader(ds, FANOUTS, pool, batch_size=b,
+                                    shuffle=True, seed=1, mesh=mesh,
+                                    dedup='tree')
+
+  def model_on(d):
+    m = ex.make_model(FEAT_DIM, HIDDEN, CLASSES, FANOUTS, b, d,
+                      torch.Generator().manual_seed(0))
+    m.relu_hooks_by_call = True      # four shard forwards a step
+    return m
+  model = model_on(device)
+  state = create_train_state(model, lr=LR)
+  losses, step_ms, check = [], [], None
+  it = iter(loader)
+  for s in range(DIST_STEPS):
+    batch = next(it)
+    last = s + 1 == DIST_STEPS
+    pre, hooks = {}, []
+    if last:
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(state.optimizer.state_dict()),
+               to_cpu_data(torch, batch))
+      hooks = relu_input_hooks(model, recorder(pre))
+    e0 = _event(torch, cuda)
+    loss, acc = ex.dp_step(model, state.optimizer, batch, mesh, CLASSES)
+    e1 = _event(torch, cuda)
+    if cuda:
+      e1.synchronize()
+    step_ms.append(_span(e0, e1, cuda))
+    losses.append(float(loss))
+    for h in hooks:
+      h.remove()
+  assert all(np.isfinite(losses)), losses
+  check += ([p.grad.detach().cpu() for p in model.parameters()],
+            {k: z.cpu() for k, z in pre.items()})
+  cpu_mesh = gdist.ShardMesh(mesh.num_partitions, 'cpu')
+
+  def make_step(m):
+    def st(s, bb):
+      loss, acc = ex.dp_step(m, s.optimizer, bb, cpu_mesh, CLASSES)
+      return s, loss, acc
+    return st, None
+  c = cpu_step_check(torch, gtt, None, model, check, losses[-1],
+                     cpu_model=lambda: model_on(torch.device('cpu')),
+                     make_step=make_step)
+  log(f'dist train: {DIST_STEPS} data-parallel steps of the example '
+      f'(GraphSAGE {FEAT_DIM}-{HIDDEN}-{CLASSES}, {len(FANOUTS)} layers, '
+      f'{mesh.num_partitions} shards of {b} seeds): ' +
+      ' '.join(f'{m:.2f}' for m in step_ms) + ' ms, losses ' +
+      ' '.join(f'{v:.4f}' for v in losses) + '; the last recomputed on the '
+      f'CPU (gradients within {c["grad_share"]:.3g} of the largest, Adam '
+      f'within {c["adam_diff"]:.3g}) on {smi}')
+  return dict(step_ms=step_ms, losses=losses, cpu_check={
+      k: c[k] for k in ('pre_diff', 'opposite', 'leaky_opposite',
+                        'grad_share', 'adam_diff', 'cpu_loss')})
+
+
+def dist_nccl(torch, gtt, parts, feats, n, device, smi):
+  """One ``init_multihost`` process group of world size 1 (NCCL on the
+  card, gloo on the CPU) samples one tree batch of partition 0's graph
+  with edge ids and features: equal to the one-process ``ShardMesh`` at
+  P = 1."""
+  import torch.distributed as dist
+
+  from graphlearn_tpu_torch import distributed as gdist
+  pb = np.zeros(n, dtype=np.int32)
+  dg = gdist.DistGraph(1, 0, parts[:1], pb)
+  own = np.unique(parts[0].edge_index[0])
+  seeds = own[np.random.default_rng(3).permutation(own.shape[0])[:BATCH]]
+  ids = np.arange(n, dtype=np.int64)
+
+  def batch(mesh):
+    s = gdist.DistNeighborSampler(dg, FANOUTS, mesh, seed=0, dedup='tree',
+                                  with_edge=True)
+    f = gdist.DistFeature(1, [(ids, feats)], pb, mesh)
+    out = s.sample_from_nodes(seeds[None])
+    return out, f.get(out.node)
+  t0 = time.perf_counter()
+  port = gtt.utils.get_free_port()
+  ctx = gdist.init_multihost(f'localhost:{port}', 1, 0, device=device)
+  try:
+    backend = dist.get_backend()
+    got, gx = batch(ctx.mesh)
+    want, wx = batch(gdist.ShardMesh(1, device))
+    for f in ('node', 'num_nodes', 'row', 'col', 'edge_mask', 'edge',
+              'num_sampled_nodes', 'num_sampled_edges'):
+      assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(gx, wx)
+  finally:
+    dist.destroy_process_group()
+  secs = time.perf_counter() - t0
+  log(f'dist {backend}: a world-size-1 process group sampled one tree batch '
+      f'({BATCH} seeds, {FANOUTS}) with edge ids and features, equal to the '
+      f'one-process mesh; {secs:.1f} s on {smi}')
+  return dict(backend=backend, seconds=secs,
+              nodes=int(got.num_nodes.sum()))
+
+
+def dist_phase(torch, gtt, ei, feats, labels, device, smi):
+  """The partitioned path at P = DIST_PARTS on the card: the script's
+  graph split by RandomPartitioner's rule (edges by source), stacked on
+  one device as a ``DistDataset`` (features with a DIST_CACHE hot cache
+  by in-degree); per mode of DIST_MODES a ``DistNeighborLoader`` at
+  FANOUTS and BATCH seeds per shard: DIST_BATCHES batches timed (the
+  launch counters set to 0 before and read after: K3 P x hops a batch,
+  K1 3P: the cache, the local rows, the labels), the first held exactly
+  against the CPU sampler on the same partitions and keys; one batch
+  more under sync counting (the verdict reads, and nothing else, as
+  ``dist_expected_syncs`` says); one profiled; the exchanges' device ms.
+  Then the example's data-parallel steps and the NCCL single-rank
+  group."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  from graphlearn_tpu_torch.sampler import NodeSamplerInput
+  cuda = device.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  t_phase = time.perf_counter()
+  n = feats.shape[0]
+  nparts = DIST_PARTS
+  b = BATCH if cuda else 64
+  t0 = time.perf_counter()
+  pb = dist_book(n, nparts)
+  parts, fparts = ex.partition_in_memory(ei, feats, pb, nparts)
+  card_mesh = gdist.ShardMesh(nparts, device)
+  cpu_mesh = gdist.ShardMesh(nparts, 'cpu')
+  dg = gdist.DistGraph(nparts, 0, parts, pb)
+  hot = np.bincount(ei[1], minlength=n)
+  ds = gdist.DistDataset(nparts, 0, dg, gdist.DistFeature(
+      nparts, fparts, pb, card_mesh, split_ratio=DIST_CACHE, hotness=hot),
+      node_labels=labels)
+  feats_t = torch.as_tensor(feats).to(device)
+  labels_t = torch.as_tensor(labels).to(device)
+  dev = ds.node_features.device_arrays()
+  sync()
+  build_s = time.perf_counter() - t0
+  # blocks: a first use, the timed batches, one under sync counting;
+  # the exchange and profile loader takes at most 7 (retries included)
+  pool = np.random.default_rng(11).permutation(n)[
+      :nparts * b * max(DIST_BATCHES + 2, 7)]
+  hops = len(FANOUTS)
+  rep = dict(parts=nparts, batch=b, build_s=build_s, modes={})
+  for dedup, frac in DIST_MODES:
+    name = f'{dedup}/{frac}'
+    loader = gdist.DistNeighborLoader(ds, FANOUTS, pool, batch_size=b,
+                                      seed=0, mesh=card_mesh, dedup=dedup,
+                                      bucket_frac=frac)
+    host = gdist.DistNeighborSampler(dg, FANOUTS, cpu_mesh, seed=0,
+                                     dedup=dedup, bucket_frac=frac)
+    ds.node_features.bucket_frac = frac     # the features' exchange too
+    blocks = list(loader._index_blocks())
+    it = iter(loader)
+    next(it)                                       # the first use
+    sync()
+    ops.reset_launch_counts()
+    gdist.reset_verdict_syncs()
+    ms, wall, batches = [], [], []
+    for _ in range(DIST_BATCHES):
+      t0 = time.perf_counter()
+      e0 = _event(torch, cuda)
+      batches.append(next(it))
+      e1 = _event(torch, cuda)
+      sync()
+      wall.append((time.perf_counter() - t0) * 1e3)
+      ms.append(_span(e0, e1, cuda))
+    counts = ops.launch_counts()
+    verdicts = gdist.verdict_syncs() / DIST_BATCHES
+    per = 1 if cuda else 0
+    assert counts['sample_hop'] == per * nparts * hops * DIST_BATCHES, counts
+    assert counts['gather_rows'] == per * 3 * nparts * DIST_BATCHES, counts
+    # the first timed batch, every shard, against the CPU sampler (the
+    # plain versions) on the same seeds and keys
+    t0 = time.perf_counter()
+    idx, _ = blocks[1]
+    seen = dist_batch_check(
+        torch, host, NodeSamplerInput(loader.input_seeds[idx]),
+        loader.sampler._keys_for(2), batches[0], feats_t, labels_t)
+    check_s = time.perf_counter() - t0
+    del batches
+    expect = dist_expected_syncs(gtt, loader.sampler, ds.node_features, b,
+                                 frac)
+    assert verdicts == expect, (verdicts, expect)
+    if cuda:
+      gdist.reset_verdict_syncs()
+      _, syncs, kinds = count_syncs(torch, lambda: next(it))
+      assert syncs == gdist.verdict_syncs() == expect, (syncs, kinds, expect)
+    else:
+      syncs, kinds = None, {}
+    extra = iter(gdist.DistNeighborLoader(
+        ds, FANOUTS, pool, batch_size=b, seed=5, mesh=card_mesh,
+        dedup=dedup, bucket_frac=frac))
+    exch_ms, exch_n = dist_exchange_ms(torch, card_mesh, lambda: next(extra),
+                                       device)
+    prof = profiled(torch, lambda: next(extra), 1, device, f'dist {name}',
+                    warmup=lambda: next(extra)) if cuda else None
+    busy = prof['device_busy_ms'] if prof else None
+    rep['modes'][name] = dict(
+        launches=counts, ms=ms, wall_ms=wall, median_ms=float(np.median(ms)),
+        verdict_syncs_per_batch=verdicts, host_syncs=syncs,
+        sync_kinds=kinds, checked_slots=seen, cpu_check_s=check_s,
+        exchange_ms=exch_ms, exchanges=exch_n,
+        exchange_share=(exch_ms / busy if busy else None), profile=prof,
+        k3_per_batch=counts['sample_hop'] / DIST_BATCHES,
+        k1_per_batch=counts['gather_rows'] / DIST_BATCHES)
+    log(f'dist {name}: P={nparts} x {b} seeds {FANOUTS}: '
+        + ' '.join(f'{m:.2f}' for m in ms) + f' ms a stacked batch (host '
+        + ' '.join(f'{w:.1f}' for w in wall) + ' ms); K3 '
+        f'{counts["sample_hop"] / DIST_BATCHES:.0f} and K1 '
+        f'{counts["gather_rows"] / DIST_BATCHES:.0f} a batch; host syncs '
+        f'{syncs} (verdicts {verdicts:.0f}, expected {expect}); exchanges '
+        f'{exch_ms:.3f} ms over {exch_n} transposes' +
+        (f' = {exch_ms / busy:.1%} of {busy:.3f} busy ms, idle '
+         f'{prof["idle_share"]:.1%}' if busy else '') +
+        f'; the first exact against the CPU ({seen} slots, '
+        f'{check_s:.1f} s) on {smi}')
+  del feats_t, labels_t, dev
+  if cuda:
+    torch.cuda.empty_cache()
+  rep['train'] = dist_train(torch, gtt, ds, pool, b, device, cuda, smi)
+  del ds
+  if cuda:
+    torch.cuda.empty_cache()
+  rep['nccl'] = dist_nccl(torch, gtt, parts, feats, n, device, smi)
+  rep['launches'] = {k: sum(m['launches'][k] for m in rep['modes'].values())
+                     for k in rep['modes'][f'tree/2.0']['launches']}
+  rep['phase_s'] = time.perf_counter() - t_phase
+  log(f'dist phase {rep["phase_s"]:.1f} s (build {build_s:.1f} s) on {smi}')
+  return rep
+
+
 # ---- the hot/cold feature store
 HC_SPLIT = 0.25                      # the kernel case's device share
 PINNED_BYTES = 256 << 20             # the pinned host-to-device copy
@@ -5060,9 +5535,8 @@ def papers_path(torch, gtt, device, smi, rate):
                copy.deepcopy(state.optimizer.state_dict()),
                {k: (v.cpu() if torch.is_tensor(v) else v)
                 for k, v in d.items()})
-      pre = []
-      hooks = relu_input_hooks(
-          model, lambda layer, z: pre.append(z.detach().clone()))
+      pre = {}
+      hooks = relu_input_hooks(model, recorder(pre))
     state, loss, _ = step_fn(state, d)
     e2 = _event(torch, cuda)
     if cuda:
@@ -5071,7 +5545,7 @@ def papers_path(torch, gtt, device, smi, rate):
       for h in hooks:
         h.remove()
       check += ([p.grad.detach().cpu() for p in model.parameters()],
-                [z.cpu() for z in pre])
+                {k: z.cpu() for k, z in pre.items()})
     per_step.append(dict(sample_collate_ms=_span(e0, e1, cuda),
                          train_ms=_span(e1, e2, cuda)))
     losses.append(loss)
@@ -5574,14 +6048,13 @@ def papers_tiered_path(torch, gtt, device, smi, spill_dir):
                copy.deepcopy(opt.state_dict()),
                {k: (v.cpu() if torch.is_tensor(v) else v)
                 for k, v in batch.items()})
-      pre = []
-      hooks = relu_input_hooks(
-          model, lambda layer, z: pre.append(z.detach().clone()))
+      pre = {}
+      hooks = relu_input_hooks(model, recorder(pre))
     state, loss, _ = tr._train_step(state, batch)
   for h in hooks:
     h.remove()
   check += ([p.grad.detach().cpu() for p in model.parameters()],
-            [z.cpu() for z in pre])
+            {k: z.cpu() for k, z in pre.items()})
   rep['eager_last_loss'] = float(loss)
   torch.testing.assert_close(torch.tensor(float(loss)),
                              torch.tensor(losses[-1]), rtol=1e-4, atol=0)
@@ -5900,9 +6373,10 @@ def main(argv=None):
   ap.add_argument('--out', default=None, help='also write the report here')
   ap.add_argument('--rehearse', action='store_true',
                   help='CPU, tiny size, plain versions; no result line')
-  ap.add_argument('--noise', default=None, metavar='WINDOWS,RUNS',
+  ap.add_argument('--noise', default=None, metavar='WINDOWS,RUNS[,TYPED]',
                   help='measure the profiler windows and the merge step '
-                  'noise instead of the phases; no result line')
+                  'noise (TYPED typed RGAT runs, default RUNS) instead of '
+                  'the phases; no result line')
   ap.add_argument('--profile', action='store_true',
                   help='also trace each phase with torch.profiler')
   args = ap.parse_args(argv)
@@ -5969,9 +6443,11 @@ def main(argv=None):
   gen = torch.Generator().manual_seed(0)
   phase_done('setup')
   if args.noise:
-    windows, runs = (int(v) for v in args.noise.split(','))
+    windows, runs, *typed = (int(v) for v in args.noise.split(','))
     report['noise'] = noise_phase(torch, gtt, ds, device, n_nodes, windows,
                                   runs)
+    report['noise']['hetero_rgat'] = hetero_noise(
+        torch, gtt, device, typed[0] if typed else runs, smi)
     if args.out:
       with open(args.out, 'w') as fh:
         json.dump(report, fh, indent=1)
@@ -6071,6 +6547,10 @@ def main(argv=None):
   report['partition'] = partition_phase(torch, gtt, ds, cpu_ds, ei, feats,
                                         device, smi)
   phase_done('partition')
+  report['dist'] = dist_phase(torch, gtt, ei, feats, labels, device, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('dist')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -6096,6 +6576,7 @@ def main(argv=None):
       'tree', 'merge', 'serving', 'train_tree', 'train_merge', 'probes')]
   paths += [report[p][t]['launches'] for p in ('train_tree', 'train_merge')
             for t in ('scan', 'scan_eager')]
+  paths += [m['launches'] for m in report['dist']['modes'].values()]
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
   for rec in report['modes'].values():

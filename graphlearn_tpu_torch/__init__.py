@@ -9,7 +9,9 @@ its embedding-serving tier (``serving``: full-graph materializer,
 (``storage``: ``TieredFeature``, ``TieredScanTrainer``), its typed
 (heterogeneous) path (dict datasets, the typed sampler and typed link
 sampling, ``HeteroData``, ``RGNN``, the typed materializer) and its
-partitioners (``partition``) on an NVIDIA GPU,
+partitioners (``partition``) and its partitioned sampling path
+(``distributed``: sharded graph, features, sampler and loader) on an
+NVIDIA GPU,
 with the TPU kernels of those paths rewritten by hand in CUDA
 (``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry
@@ -17,7 +19,9 @@ stream give the same ids, masks and counts. This package imports torch
 and numpy, never jax. Entry points run on the card
 (``device=None``) unless the caller passes ``device='cpu'``.
 """
-from . import (data, loader, metrics, models, ops, partition, random,
-               recovery, sampler, serving, storage, typing, utils)
+from . import (data, distributed, loader, metrics, models, ops, partition,
+               random, recovery, sampler, serving, storage, typing, utils)
+
+from .loader import OverlappedTrainer, RunTrainer, ScanTrainer
 
 __version__ = '0.1.0'

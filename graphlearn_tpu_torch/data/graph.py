@@ -21,6 +21,8 @@ import torch
 
 from ..utils import coo_to_csr, ptr2ind, resolve_device
 
+Layout = str  # 'COO' | 'CSR' | 'CSC'
+
 _DEVICE_MODES = ('HBM', 'CUDA', 'DMA', 'DEVICE', 'ZERO_COPY')
 
 
@@ -60,7 +62,7 @@ class Topology:
     if num_nodes is None:
       num_nodes = int(max(row.max(initial=-1), col.max(initial=-1))) + 1
     key, other = (row, col) if layout == 'CSR' else (col, row)
-    indptr, indices, order = coo_to_csr(key, other, num_nodes)
+    indptr, indices, order, _ = coo_to_csr(key, other, num_nodes)
 
     def per_edge(vals, what):
       vals = np.asarray(vals).reshape(-1)
@@ -110,7 +112,7 @@ class Topology:
     """``(indptr, indices, edge_ids, edge_weights)`` of the transposed
     grouping."""
     key = ptr2ind(self.indptr)
-    indptr, indices, order = coo_to_csr(self.indices, key,
+    indptr, indices, order, _ = coo_to_csr(self.indices, key,
                                         self.indptr.shape[0] - 1)
     weights = (None if self.edge_weights is None
                else self.edge_weights[order])

@@ -1,0 +1,189 @@
+"""Distributed supervised GraphSAGE over P graph shards, on the port.
+
+Counterpart of ``examples/distributed/dist_train_sage_supervised.py``:
+the JAX example's community graph, draw for draw (``make_graph``: labels
+are communities, 85% of the edges stay inside one), partitioned into P
+shards by ``node_pb`` (``v % P`` there and by default here;
+``partition_in_memory`` takes any book, e.g. ``RandomPartitioner``'s),
+then a tree-mode ``DistNeighborLoader`` and a data-parallel GraphSAGE
+step: each shard computes its own loss on its own batch, the gradients
+are averaged over the shards (JAX: ``lax.pmean`` over ``'g'``), and one
+Adam step follows. On a one-process mesh that is the gradient of the
+mean loss; under a process group (``init_multihost``) each rank's
+gradient is summed by ``all_reduce`` after the backward of its loss over
+P. One JSON line: the first and final loss, the final train accuracy and
+the mean epoch time.
+
+Run on the card:   python -m graphlearn_tpu_torch.examples.dist_train_sage_supervised
+On the CPU:        ... --device cpu --num-nodes 4000 --num-partitions 4
+"""
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+NUM_CLASSES = 16
+FEAT_DIM = 64
+
+
+def make_graph(n: int, avg_deg: int, ncls: int, rng, feat_dim=FEAT_DIM):
+  """The JAX example's community graph: ``(edge_index [2, n * avg_deg]
+  int32, feats [n, feat_dim] float32, labels [n] int32)``."""
+  comm = rng.integers(0, ncls, n).astype(np.int32)
+  order = np.argsort(comm, kind='stable').astype(np.int32)
+  counts = np.bincount(comm, minlength=ncls)
+  offsets = np.zeros(ncls + 1, np.int64)
+  np.cumsum(counts, out=offsets[1:])
+  e = n * avg_deg
+  rows = rng.integers(0, n, e).astype(np.int32)
+  intra = rng.random(e) < 0.85
+  cols = np.empty(e, np.int32)
+  rc = comm[rows[intra]]
+  u = rng.random(intra.sum())
+  cols[intra] = order[offsets[rc] + (u * counts[rc]).astype(np.int64)]
+  cols[~intra] = rng.integers(0, n, (~intra).sum())
+  feat = rng.standard_normal((n, feat_dim)).astype(np.float32)
+  return np.stack([rows, cols]), feat, comm
+
+
+def partition_in_memory(edge_index, feats, node_pb, num_parts: int):
+  """``(parts, feat_parts)``: each partition's edges (by source, with
+  their global ids) and its owned ids' feature rows, as the
+  partitioners write them."""
+  from graphlearn_tpu_torch.typing import GraphPartitionData
+  rows, cols = edge_index
+  eids = np.arange(rows.shape[0])
+  epb = node_pb[rows]
+  parts, feat_parts = [], []
+  for p in range(num_parts):
+    m = epb == p
+    parts.append(GraphPartitionData(edge_index=np.stack([rows[m], cols[m]]),
+                                    eids=eids[m]))
+    ids = np.nonzero(node_pb == p)[0]
+    feat_parts.append((ids.astype(np.int64), feats[ids]))
+  return parts, feat_parts
+
+
+def build_dataset(edge_index, feats, labels, node_pb, mesh, **feature_kw):
+  """A ``DistDataset`` of the in-memory partitions on ``mesh``."""
+  from graphlearn_tpu_torch import distributed as gdist
+  nparts = mesh.num_partitions
+  parts, feat_parts = partition_in_memory(edge_index, feats, node_pb,
+                                          nparts)
+  dg = gdist.DistGraph(nparts, 0, parts, node_pb)
+  df = gdist.DistFeature(nparts, feat_parts, node_pb, mesh, **feature_kw)
+  return gdist.DistDataset(nparts, 0, dg, df,
+                           node_labels=np.asarray(labels, np.int64))
+
+
+def make_model(in_dim: int, hidden: int, ncls: int, fanouts, batch_size,
+               device, generator=None):
+  """The tree-dense layered GraphSAGE of the example's batches."""
+  from graphlearn_tpu_torch.models import GraphSAGE, tree_hop_offsets
+  no, eo = tree_hop_offsets(batch_size, fanouts)
+  return GraphSAGE(in_dim, hidden, ncls, num_layers=len(fanouts),
+                   hop_node_offsets=no, hop_edge_offsets=eo,
+                   tree_dense=True, fanouts=tuple(fanouts), device=device,
+                   generator=generator)
+
+
+def shard_loss(model, x, edge_index, edge_mask, y, nseed, ncls: int):
+  """One shard's masked seed cross-entropy and accuracy (the JAX
+  example's ``loss_fn``)."""
+  logits = model(x, edge_index, edge_mask).float()
+  n = min(logits.shape[0], y.shape[0])      # the layered seed prefix
+  logits, y = logits[:n], y[:n].long()
+  seed_mask = torch.arange(n, device=logits.device) < nseed
+  ce = -torch.log_softmax(logits, -1).gather(
+      1, y.clamp(0, ncls - 1)[:, None])[:, 0]
+  seeds = torch.clamp(seed_mask.sum(), min=1).float()
+  loss = torch.where(seed_mask, ce, 0.0).sum() / seeds
+  acc = ((logits.argmax(-1) == y) & seed_mask).sum().float() / seeds
+  return loss, acc
+
+
+def dp_step(model, optimizer, batch, mesh, ncls: int = NUM_CLASSES):
+  """One data-parallel step over the batch's local shards: the backward
+  of the shards' losses over P, the gradients summed over the process
+  group (if any), one optimizer step. Returns the mean loss and accuracy
+  over all P shards (0-d tensors)."""
+  nparts = mesh.num_partitions
+  optimizer.zero_grad()
+  nseed = batch.num_sampled_nodes[:, 0]
+  losses, accs = [], []
+  for l in range(batch.node.shape[0]):
+    loss, acc = shard_loss(model, batch.x[l], batch.edge_index[l],
+                           batch.edge_mask[l], batch.y[l], nseed[l], ncls)
+    losses.append(loss)
+    accs.append(acc)
+  total = torch.stack(losses).sum() / nparts
+  total.backward()
+  stats = torch.stack([total.detach(), torch.stack(accs).sum() / nparts])
+  if mesh.group is not None:
+    import torch.distributed as dist
+    for p in model.parameters():
+      if p.grad is not None:
+        dist.all_reduce(p.grad, group=mesh.group)
+    dist.all_reduce(stats, group=mesh.group)
+  optimizer.step()
+  return stats[0], stats[1]
+
+
+def main(argv=None):
+  ap = argparse.ArgumentParser()
+  ap.add_argument('--epochs', type=int, default=2)
+  ap.add_argument('--num-nodes', type=int, default=20_000)
+  ap.add_argument('--avg-deg', type=int, default=12)
+  ap.add_argument('--batch-size', type=int, default=128)
+  ap.add_argument('--fanout', type=int, nargs='+', default=[10, 5])
+  ap.add_argument('--hidden', type=int, default=128)
+  ap.add_argument('--lr', type=float, default=3e-3)
+  ap.add_argument('--num-partitions', type=int, default=4)
+  ap.add_argument('--device', default=None,
+                  help="torch device (default: the card); 'cpu' to run on "
+                  'the CPU')
+  args = ap.parse_args(argv)
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.models import create_train_state
+
+  ctx = gdist.init_worker_group(num_partitions=args.num_partitions,
+                                devices=args.device)
+  mesh = ctx.mesh
+  nparts = ctx.num_partitions
+  rng = np.random.default_rng(0)
+  ei, feat, labels = make_graph(args.num_nodes, args.avg_deg, NUM_CLASSES,
+                                rng)
+  node_pb = (np.arange(args.num_nodes) % nparts).astype(np.int32)
+  ds = build_dataset(ei, feat, labels, node_pb, mesh)
+  loader = gdist.DistNeighborLoader(
+      ds, list(args.fanout), np.arange(args.num_nodes),
+      batch_size=args.batch_size, shuffle=True, drop_last=True, seed=0,
+      mesh=mesh, dedup='tree')
+  model = make_model(FEAT_DIM, args.hidden, NUM_CLASSES, args.fanout,
+                     args.batch_size, mesh.device,
+                     torch.Generator().manual_seed(0))
+  state = create_train_state(model, lr=args.lr)
+  losses, accs, epoch_times = [], [], []
+  for _ in range(args.epochs):
+    t0 = time.perf_counter()
+    for batch in loader:
+      loss, acc = dp_step(model, state.optimizer, batch, mesh)
+      losses.append(loss)
+      accs.append(acc)
+    if mesh.device.type == 'cuda':
+      torch.cuda.synchronize(mesh.device)
+    epoch_times.append(time.perf_counter() - t0)
+  print(json.dumps({
+      'mesh_size': nparts,
+      'first_loss': round(float(losses[0]), 4),
+      'final_loss': round(float(losses[-1]), 4),
+      'final_train_acc': round(float(accs[-1]), 4),
+      'epoch_time_s': round(float(np.mean(epoch_times)), 3),
+  }), flush=True)
+
+
+if __name__ == '__main__':
+  main()

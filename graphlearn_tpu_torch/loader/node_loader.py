@@ -149,12 +149,13 @@ class OverflowGuardMixin:
     flag = out.metadata.get('overflow')
     if flag is None:
       return
+    flag = flag.any()        # a distributed batch's flag is one per shard
     self._ovf_accum = (flag if self._ovf_accum is None
                        else self._ovf_accum | flag)
 
   def _batch_overflowed(self, out) -> bool:
     flag = out.metadata.get('overflow')
-    return flag is not None and bool(flag)
+    return flag is not None and bool(flag.any())
 
   def _replay_sampler(self):
     if self._full_sampler is None:

@@ -1,5 +1,6 @@
-"""Tensor ops of the port: sampling, induction, gathers, collation, the
-hop keys of a chunk of steps.
+"""Tensor ops of the port: sampling (with the partition-local hops of the
+distributed engine), induction, gathers, collation, the exchange's
+routing (``route``) and stitching, the hop keys of a chunk of steps.
 
 The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the hot/cold
 ``gather_rows_unified``, the fused
@@ -14,7 +15,8 @@ kernels), ``reset_launch_counts`` sets them to 0 and
 """
 from . import (draw, gather, kernels, keys, mapped, negative, probes,
                sample_fused)
-from .collate import collate_batch, gather_rows
+from .collate import (collate_batch, gather_rows, stack2, stack2_batched,
+                      valid_mask)
 from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
                      gather_rows_hbm2, gather_rows_hbm2_plain,
                      gather_rows_plain, gather_rows_unified,
@@ -32,17 +34,21 @@ from .neighbor import (BLOCK, build_padded_adjacency,
                        choose_padded_window, edge_in_csr,
                        padded_table_stats,
                        uniform_sample, uniform_sample_block,
-                       uniform_sample_padded, weighted_sample)
+                       uniform_sample_local, uniform_sample_padded,
+                       weighted_sample, weighted_sample_local)
 from .negative import (random_negative_sample,
                        random_negative_sample_plain, sort_csr_rows,
                        sort_csr_segments)
 from .probes import (row_gather_probe, row_gather_probe_plain,
                      row_gather_route, smem_take, smem_take_plain)
+from .route import (exchange_capacity, gather_from_buckets, round8,
+                    route_slots, scatter_to_buckets)
 from .sample_fused import (LevelScratch, sample_hop_fused,
                            sample_level_fused, sample_level_fused_plain,
                            sample_level_plain)
+from .stitch import stitch_rows
 from .subgraph import node_subgraph, node_subgraph_bucketed
-from .unique import FILL, masked_unique
+from .unique import FILL, masked_unique, searchsorted_membership
 
 
 # launch_counts() name -> (module, counter attribute)

@@ -1,7 +1,8 @@
 """Batch collation: node mask, edge index, feature and label gathers.
 
-Counterpart of ``graphlearn_tpu/ops/collate.py`` (``collate_batch``, and
-``gather_rows``, the typed collate's per-node-type gather). The feature
+Counterpart of ``graphlearn_tpu/ops/collate.py`` (``collate_batch``,
+``gather_rows``, the typed collate's per-node-type gather, and the small
+``valid_mask``, ``stack2`` and ``stack2_batched``). The feature
 gathers go through ``ops.gather_rows_hbm`` (the CUDA row-gather kernel on
 the card); labels and edge features are plain torch gathers.
 """
@@ -56,3 +57,19 @@ def gather_rows(table, id2index, ids):
   if id2index is not None:
     safe = id2index[safe.long()]
   return gather_rows_hbm(table, safe)
+
+
+def valid_mask(node, num_nodes):
+  """``arange(len(node)) < num_nodes``."""
+  return torch.arange(node.shape[0], device=node.device) < num_nodes
+
+
+def stack2(a, b):
+  """The 2-row stack of an ``edge_index``."""
+  return torch.stack([a, b])
+
+
+def stack2_batched(a, b):
+  """``[P, E]`` x 2 -> ``[P, 2, E]`` (a distributed batch's
+  ``edge_index``)."""
+  return torch.stack([a, b], dim=1)

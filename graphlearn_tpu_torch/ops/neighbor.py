@@ -14,6 +14,9 @@ order; deg > K draws K with replacement).
   ops around one float32 draw per hop (``ops.draw.uniform``).
 - ``edge_in_csr`` is the membership test of negative sampling, the plain
   version of the search in ``csrc/negative_sample.cu``.
+- ``uniform_sample_local`` / ``weighted_sample_local`` sample a
+  partition's local CSR (the distributed engine's hop): a binary search
+  for the row, then the fused hop or the weighted path.
 """
 import numpy as np
 import torch
@@ -69,6 +72,51 @@ def uniform_sample(indptr, indices, seeds, seed_mask, k: int, key,
   epos, mask = _draw(start, deg, seed_mask, k, key)
   safe_epos = torch.where(mask, epos, 0)
   return torch.where(mask, pick(indices, safe_epos), FILL), safe_epos, mask
+
+
+
+def _local_rows(row_ids, seeds, seed_mask):
+  """``(pos [B] int32, found [B])``: each seed's row in a shard's local
+  CSR by a left binary search over its ascending, INT32_MAX-padded
+  ``row_ids`` (``jnp.searchsorted``'s side); a seed the shard does not
+  own, or a masked one, is not found."""
+  seeds = seeds.to(row_ids.dtype)
+  pos = torch.clamp(torch.searchsorted(row_ids, seeds), 0,
+                    row_ids.shape[0] - 1)
+  found = (row_ids[pos] == seeds) & seed_mask
+  return pos.to(torch.int32), found
+
+
+def uniform_sample_local(row_ids, indptr_loc, indices, seeds, seed_mask,
+                         k: int, key):
+  """Uniform fanout sampling over a partition-local CSR
+  (``graphlearn_tpu/ops/neighbor.py:uniform_sample_local``).
+
+  A shard stores its owned rows only: ``row_ids`` lists their global ids
+  ascending (INT32_MAX-padded) and ``indptr_loc`` their local offsets.
+  The row is found by a binary search; then the hop is
+  ``sample_hop_fused`` on the local CSR at that row with the mask
+  ``found`` (one launch of the hop kernel on a card, ``uniform_sample``
+  on the CPU): JAX's draw, offsets and masked positions exactly. Seeds
+  the shard does not own come back masked. Same output contract as
+  :func:`uniform_sample`.
+  """
+  from .sample_fused import sample_hop_fused
+  pos, found = _local_rows(row_ids, seeds, seed_mask)
+  return sample_hop_fused(indptr_loc, indices, None, pos, found, k, key)
+
+
+def weighted_sample_local(row_ids, indptr_loc, indices, row_cumsum, seeds,
+                          seed_mask, k: int, key):
+  """Edge-weight-biased fanout sampling over a partition-local CSR
+  (``graphlearn_tpu/ops/neighbor.py:weighted_sample_local``): the row
+  lookup of :func:`uniform_sample_local`, then :func:`weighted_sample`
+  over the shard's row CDF (``build_row_cumsum`` of the local CSR); its
+  draw is one launch of the draw kernel on a card. Same output contract
+  as :func:`uniform_sample_local`."""
+  pos, found = _local_rows(row_ids, seeds, seed_mask)
+  return weighted_sample(indptr_loc, indices, row_cumsum, pos, found, k,
+                         key)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Padding sentinel and masked, fixed-shape unique.
 
-Counterpart of ``graphlearn_tpu/ops/unique.py``: ``FILL`` and
+Counterpart of ``graphlearn_tpu/ops/unique.py``: ``FILL``,
 ``masked_unique`` (sort-based, static output size), which the merge
-inducer uses to dedup a batch's seeds.
+inducer uses to dedup a batch's seeds, and ``searchsorted_membership``.
 """
 import torch
 
@@ -39,3 +39,12 @@ def masked_unique(ids: torch.Tensor, mask: torch.Tensor, size: int):
   inverse[order] = uidx
   inverse = torch.where(mask, inverse, -1)
   return uniq, count, inverse
+
+
+def searchsorted_membership(sorted_vals: torch.Tensor, queries: torch.Tensor):
+  """Membership of ``queries`` in ascending ``sorted_vals`` (which may end
+  in int-max padding): ``(found, pos)``, ``pos`` clamped into
+  ``sorted_vals`` (the left insertion point, as ``jnp.searchsorted``)."""
+  pos = torch.searchsorted(sorted_vals, queries)
+  pos = torch.clamp(pos, 0, sorted_vals.shape[0] - 1)
+  return sorted_vals[pos] == queries, pos

@@ -31,32 +31,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.checkpoint import _dejsonify, _jsonify
+
 MAGIC = b'GLTCKPT1'
 _NAME_RE = re.compile(r'^ckpt-(\d+)-(\d+)\.glt$')
-
-
-def _jsonify(obj):
-  """numpy scalars and arrays inside a meta dict -> JSON-able (the copy
-  of ``graphlearn_tpu/utils/checkpoint.py:_jsonify``)."""
-  if isinstance(obj, dict):
-    return {k: _jsonify(v) for k, v in obj.items()}
-  if isinstance(obj, (list, tuple)):
-    return [_jsonify(v) for v in obj]
-  if isinstance(obj, np.ndarray):
-    return {'__ndarray__': obj.tolist(), 'dtype': str(obj.dtype)}
-  if isinstance(obj, np.generic):
-    return obj.item()
-  return obj
-
-
-def _dejsonify(obj):
-  if isinstance(obj, dict):
-    if '__ndarray__' in obj:
-      return np.asarray(obj['__ndarray__'], dtype=obj['dtype'])
-    return {k: _dejsonify(v) for k, v in obj.items()}
-  if isinstance(obj, list):
-    return [_dejsonify(v) for v in obj]
-  return obj
 
 
 class TornSnapshotError(RuntimeError):

@@ -1,7 +1,8 @@
 from . import calibrate
-from .base import (EdgeSamplerInput, HeteroSamplerOutput, NegativeSampling,
+from .base import (BaseSampler, EdgeSamplerInput, HeteroSamplerOutput, NegativeSampling,
                    NeighborOutput, NodeSamplerInput, SamplerOutput)
-from .calibrate import (estimate_hetero_frontier_caps,
+from .calibrate import (check_no_overflow, estimate_frontier_caps,
+                        estimate_hetero_frontier_caps, link_seed_width,
                         normalize_hetero_frontier_caps)
 from .negative_sampler import RandomNegativeSampler
 from .neighbor_sampler import (NeighborSampler, capacity_plan,

@@ -14,27 +14,11 @@ import numpy as np
 import torch
 
 from ..typing import EdgeType, NodeType
+from ..utils.mixin import CastMixin
 
 
 def _host(v):
   return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-
-
-class CastMixin:
-  """``cls.cast(x)``: None stays None, an instance is returned as it is,
-  a tuple or list is unpacked, a dict is passed by keyword."""
-
-  @classmethod
-  def cast(cls, *args, **kwargs):
-    if len(args) == 1 and not kwargs:
-      elem = args[0]
-      if elem is None or isinstance(elem, cls):
-        return elem
-      if isinstance(elem, (tuple, list)):
-        return cls(*elem)
-      if isinstance(elem, dict):
-        return cls(**elem)
-    return cls(*args, **kwargs)
 
 
 @dataclass
@@ -208,3 +192,30 @@ class HeteroSamplerOutput(CastMixin):
     if self.batch is not None:
       out.batch = {t: _host(v) for t, v in self.batch.items()}
     return out
+
+
+class BaseSampler:
+  """Abstract sampler (``graphlearn_tpu/sampler/base.py:BaseSampler``):
+  the sampling entry points, and the checkpoint hooks the loaders
+  delegate to. The default is stateless, and refuses to restore another
+  sampler's state."""
+
+  def sample_from_nodes(self, inputs: NodeSamplerInput, **kwargs):
+    raise NotImplementedError
+
+  def sample_from_edges(self, inputs: EdgeSamplerInput, **kwargs):
+    raise NotImplementedError
+
+  def subgraph(self, inputs: NodeSamplerInput, **kwargs):
+    raise NotImplementedError
+
+  def state_dict(self):
+    """PRNG/iteration state for checkpoint-resume. Default: stateless."""
+    return {}
+
+  def load_state_dict(self, state):
+    if state:
+      raise ValueError(
+          f'{type(self).__name__} has no state to restore, but the '
+          f'checkpoint carries sampler state {sorted(state)}: it was '
+          'written by a different sampler type; resuming would diverge')

@@ -18,6 +18,9 @@ REVERSE_PREFIX = 'rev_'
 # String join token for edge types.
 EDGE_TYPE_STR_SPLIT = '__'
 
+# Seeds: bare ids, or (type, ids) on a typed graph.
+InputNodes = Union[np.ndarray, Tuple[NodeType, np.ndarray]]
+InputEdges = Union[np.ndarray, Tuple[EdgeType, np.ndarray]]
 NumNeighbors = Union[List[int], Dict[EdgeType, List[int]]]
 
 # A partition book: global id -> owning partition (a host int array).

@@ -66,7 +66,9 @@ host sync in a typed HGT step (chip_smoke.py's models-phase helpers at a
 small size); and typed link batches (binary and triplet tree, calibrated
 binary merge) against the CPU's with no host sync, the typed
 materializer's passes and refresh against the CPU's, and ``sample_prob``
-against the CPU's.
+against the CPU's; and the distributed loader over four shards on one
+card against the CPU's, with K3 P x hops and K1 3P a batch and the host
+syncs exactly its counted verdict reads.
 """
 import contextlib
 import copy
@@ -2034,3 +2036,54 @@ def test_sample_prob_on_card_matches_cpu(cuda):
       device='cpu').sample_prob(seeds)
   assert got.device.type == 'cuda'
   torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize('dedup,frac', [('tree', None), ('sort', 2.0)])
+def test_dist_batches_on_card_match_cpu(cuda, dedup, frac):
+  """The distributed loader over P = 4 shards of a 20,000-node graph on
+  one card (chip_smoke.py's dist-phase helpers at a small size): every
+  shard's batch equal to the CPU sampler's on the same seeds and keys,
+  ``x`` and ``y`` the rows and labels of its ids; K3 P x hops and K1 3P a
+  batch; the host syncs exactly the counted verdict reads (none at
+  ``bucket_frac=None``)."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  from graphlearn_tpu_torch.sampler import NodeSamplerInput
+  cs = _chip_smoke()
+  n, p, b = 20000, 4, 128
+  ei, feats, labels = cs.make_graph(n, 25)
+  pb = cs.dist_book(n, p)
+  parts, fparts = ex.partition_in_memory(ei, feats, pb, p)
+  dg = gdist.DistGraph(p, 0, parts, pb)
+  mesh = gdist.ShardMesh(p, cuda)
+  ds = gdist.DistDataset(p, 0, dg, gdist.DistFeature(
+      p, fparts, pb, mesh, split_ratio=0.1,
+      hotness=np.bincount(ei[1], minlength=n), bucket_frac=frac),
+      node_labels=labels)
+  pool = np.random.default_rng(1).permutation(n)[:p * b * 3]
+  loader = gdist.DistNeighborLoader(ds, cs.FANOUTS, pool, batch_size=b,
+                                    seed=0, mesh=mesh, dedup=dedup,
+                                    bucket_frac=frac)
+  host = gdist.DistNeighborSampler(dg, cs.FANOUTS,
+                                   gdist.ShardMesh(p, 'cpu'), seed=0,
+                                   dedup=dedup, bucket_frac=frac)
+  blocks = list(loader._index_blocks())
+  it = iter(loader)
+  next(it)
+  torch.cuda.synchronize()
+  ops.reset_launch_counts()
+  gdist.reset_verdict_syncs()
+  batch, syncs, kinds = cs.count_syncs(torch, lambda: next(it))
+  counts = ops.launch_counts()
+  assert counts['sample_hop'] == p * len(cs.FANOUTS)
+  assert counts['gather_rows'] == 3 * p
+  expect = cs.dist_expected_syncs(gtt, loader.sampler, ds.node_features, b,
+                                  frac)
+  assert syncs == gdist.verdict_syncs() == expect, kinds
+  if frac is None:
+    assert syncs == 0
+  cs.dist_batch_check(torch, host,
+                      NodeSamplerInput(loader.input_seeds[blocks[1][0]]),
+                      loader.sampler._keys_for(2), batch,
+                      torch.as_tensor(feats).to(cuda),
+                      torch.as_tensor(labels).to(cuda))

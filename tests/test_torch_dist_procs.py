@@ -1,0 +1,170 @@
+"""The process-group mesh: two gloo processes, one shard each.
+
+``distributed.init_multihost`` on the CPU (gloo) with two processes
+spawned once for the module, each on a rendezvous port from
+``utils.get_free_port``. Each rank holds one shard of the P = 2 ring of
+``tests/test_distributed.py``; its ``DistFeature.get`` and its
+``sample_from_nodes`` batches (tree and merge, ``bucket_frac`` 2.0 and
+None, with edge ids) equal, exactly, the one-process ``ShardMesh``
+result for that shard, and one data-parallel step of the example (the
+gradients summed by ``all_reduce``) leaves the same parameters and loss
+as the one-process step. The one-process side is held against JAX's
+shard_map programs in ``tests/test_torch_distributed.py``.
+"""
+import multiprocessing as mp
+import os
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+import graphlearn_tpu_torch as gtt
+from graphlearn_tpu_torch import distributed as gdist
+from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+from graphlearn_tpu_torch.typing import GraphPartitionData
+
+N = 40
+P = 2
+MODES = [('tree', 2.0), ('tree', None), ('merge', 2.0), ('merge', None)]
+FIELDS = ('node', 'num_nodes', 'row', 'col', 'edge_mask', 'edge',
+          'num_sampled_nodes', 'num_sampled_edges', 'overflow')
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def ring(num_parts=P):
+  rows = np.concatenate([np.arange(N), np.arange(N)])
+  cols = np.concatenate([(np.arange(N) + 1) % N, (np.arange(N) + 2) % N])
+  eids = np.arange(2 * N)
+  node_pb = (np.arange(N) % num_parts).astype(np.int32)
+  edge_pb = node_pb[rows]
+  parts, feats = [], []
+  for p in range(num_parts):
+    m = edge_pb == p
+    parts.append(GraphPartitionData(edge_index=np.stack([rows[m], cols[m]]),
+                                    eids=eids[m]))
+    ids = np.nonzero(node_pb == p)[0]
+    feats.append((ids.astype(np.int64),
+                  ids[:, None].astype(np.float32) * np.ones((1, 4),
+                                                            np.float32)))
+  return parts, feats, node_pb, edge_pb
+
+
+def _ids():
+  return np.random.default_rng(5).integers(-1, N, (P, 12)).astype(np.int32)
+
+
+def _seeds():
+  return np.random.default_rng(6).permutation(N)[:P * 4].reshape(P, 4)
+
+
+def run_all(mesh):
+  """Every result this file compares, on ``mesh``: a dict of CPU
+  tensors (each ``[L, ...]``)."""
+  parts, feats, node_pb, edge_pb = ring()
+  out = {}
+  df = gdist.DistFeature(P, feats, node_pb, mesh, bucket_frac=1.0)
+  out['feat'] = df.get(_ids())
+  out['feat_stats'] = torch.as_tensor(
+      [df.stats()[k] for k in ('hits', 'misses', 'unique_misses',
+                               'overflow')])
+  dg = gdist.DistGraph(P, 0, parts, node_pb, edge_pb)
+  for dedup, frac in MODES:
+    s = gdist.DistNeighborSampler(dg, [2, 2], mesh, with_edge=True, seed=1,
+                                  dedup=dedup, bucket_frac=frac)
+    for it in range(2):
+      o = s.sample_from_nodes(_seeds())
+      for f in FIELDS:
+        v = getattr(o, f, None)
+        out[f'{dedup}/{frac}/{it}/{f}'] = (o.metadata['overflow']
+                                           if f == 'overflow' else v)
+  # one data-parallel step of the example on a community graph
+  rng = np.random.default_rng(0)
+  ei, x, labels = ex.make_graph(400, 6, ex.NUM_CLASSES, rng, feat_dim=8)
+  pb = (np.arange(400) % P).astype(np.int32)
+  ds = ex.build_dataset(ei, x, labels, pb, mesh)
+  loader = gdist.DistNeighborLoader(ds, [3, 2], np.arange(400),
+                                    batch_size=8, shuffle=True, seed=0,
+                                    mesh=mesh, dedup='tree')
+  model = ex.make_model(8, 16, ex.NUM_CLASSES, [3, 2], 8, mesh.device,
+                        torch.Generator().manual_seed(0))
+  state = gtt.models.create_train_state(model, lr=3e-3)
+  batch = next(iter(loader))
+  out['x'] = batch.x
+  loss, acc = ex.dp_step(model, state.optimizer, batch, mesh)
+  out['loss'] = loss.detach()
+  out['acc'] = acc.detach()
+  for name, p in model.state_dict().items():
+    out[f'param/{name}'] = p.detach().clone()
+  return {k: v.cpu() for k, v in out.items() if v is not None}
+
+
+def _rank_main(rank, port, outdir):
+  import torch.distributed as dist
+  torch.set_num_threads(1)
+  ctx = gdist.init_multihost(f'localhost:{port}', P, rank, device='cpu')
+  try:
+    res = run_all(ctx.mesh)
+    torch.save(res, os.path.join(outdir, f'rank{rank}.pt'))
+  finally:
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope='module')
+def ranks():
+  """Each rank's results from one spawn of two gloo processes."""
+  port = gtt.utils.get_free_port()
+  with tempfile.TemporaryDirectory() as outdir:
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=_rank_main, args=(r, port, outdir))
+             for r in range(P)]
+    for proc in procs:
+      proc.start()
+    for proc in procs:
+      proc.join(120)
+    for proc in procs:
+      if proc.is_alive():
+        proc.kill()
+    assert all(proc.exitcode == 0 for proc in procs), \
+        [proc.exitcode for proc in procs]
+    return [torch.load(os.path.join(outdir, f'rank{r}.pt'))
+            for r in range(P)]
+
+
+@pytest.fixture(scope='module')
+def whole():
+  return run_all(gdist.ShardMesh(P, 'cpu'))
+
+
+def test_process_mesh_holds_one_shard_per_rank(ranks):
+  for r, res in enumerate(ranks):
+    assert res['feat'].shape[0] == 1
+    assert res['tree/2.0/0/node'].shape[0] == 1
+
+
+def test_feature_get_per_rank_equals_one_process(ranks, whole):
+  for r, res in enumerate(ranks):
+    assert torch.equal(res['feat'][0], whole['feat'][r])
+  # the counters are each process's own shard rows: their sum is the
+  # one-process total
+  assert torch.equal(ranks[0]['feat_stats'] + ranks[1]['feat_stats'],
+                     whole['feat_stats'])
+
+
+@pytest.mark.parametrize('dedup,frac', MODES)
+def test_sample_per_rank_equals_one_process(ranks, whole, dedup, frac):
+  for r, res in enumerate(ranks):
+    for it in range(2):
+      for f in FIELDS:
+        key = f'{dedup}/{frac}/{it}/{f}'
+        assert torch.equal(res[key][0], whole[key][r]), key
+
+
+def test_dp_step_all_reduce_equals_one_process(ranks, whole):
+  for r, res in enumerate(ranks):
+    assert torch.equal(res['x'][0], whole['x'][r])
+    torch.testing.assert_close(res['loss'], whole['loss'], **TOL)
+    torch.testing.assert_close(res['acc'], whole['acc'], **TOL)
+    for k, v in whole.items():
+      if k.startswith('param/'):
+        torch.testing.assert_close(res[k], v, **TOL, msg=k)

@@ -54,6 +54,9 @@ EXTRA_PARAMS = {
     ('ChunkStager.ack', 'event'): 'the slab copy\'s CUDA event',
     # entry points run on the card unless the caller asks for the CPU
     ('warm_embedding_store', 'device'): 'the store\'s device',
+    # the process's own device (NCCL on a card, gloo on the CPU); JAX
+    # takes the process's devices from its runtime
+    ('init_multihost', 'device'): 'this process\'s torch device',
 }
 MISSING_PARAMS = {
     # kernels route by device in the port (ROADMAP, deliberate divergences)
@@ -68,6 +71,8 @@ MISSING_PARAMS = {
 }
 # (qualified name, parameter) -> why the default differs
 OTHER_DEFAULTS = {
+    # the same member, of the port's own DistRole enum
+    ('DistContext', 'role'): 'DistRole.WORKER of the port\'s enum',
     # JAX resolves None to its chunk default; the port's ScanTrainer
     # spells it out
     ('TieredScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
@@ -83,6 +88,9 @@ MISSING_MEMBERS = {
     # on a card the all-device lookup is always the row-gather kernel;
     # JAX opts into its Pallas kernel with this flag
     ('UnifiedTensor', 'use_pallas'): 'the kernel routes by device',
+    # the counters are drained into the trace registry by the tracing
+    # slice (queue A item 8); until then stats() and reset_stats()
+    ('DistFeature', 'publish_stats'): 'trace counters: item 8',
 }
 
 
@@ -376,7 +384,8 @@ def test_every_named_difference_is_live():
   """A listed difference that no longer differs is struck from the list."""
   def port_fn(qual, pkg=gtt):
     head, _, member = qual.partition('.')
-    for mod in (pkg.data, pkg.loader, pkg.storage, pkg.serving):
+    for mod in (pkg.data, pkg.loader, pkg.storage, pkg.serving,
+                pkg.distributed):
       obj = getattr(mod, head, None)
       if obj is not None:
         obj = getattr(obj, member) if member else obj
@@ -403,6 +412,57 @@ def test_every_named_difference_is_live():
                                           ).parameters
     assert param in inspect.signature(_model_fn(glt, name, '__call__')
                                       ).parameters
+
+
+# Deliberate differences of the distributed path that a signature does
+# not show: ``init_worker_group(devices=)`` takes a torch device (the one
+# device of every shard; JAX: a device list), ``mesh=`` everywhere is a
+# ``ShardMesh`` (JAX: a ``jax.sharding.Mesh``), ``mesh_shape`` (the 2-axis
+# mesh) is refused until the next slice, ``DistFeature(dtype=,
+# wire_dtype=)`` take torch dtypes (or names) and ``cpu_get`` returns a CPU
+# tensor.
+DIST_CLASSES = ['DistContext', 'DistGraph', 'DistHeteroGraph', 'DistFeature',
+                'DistNeighborSampler', 'DistDataset', 'DistLoader',
+                'DistNeighborLoader']
+DIST_FUNCTIONS = [
+    ('distributed', 'init_worker_group'), ('distributed', 'init_multihost'),
+    ('distributed', 'get_context'), ('distributed', 'build_local_csr'),
+    ('distributed.dist_feature', 'miss_capacity'),
+    ('distributed.dist_feature', 'feature_exchange_mb'),
+    ('ops', 'round8'), ('ops', 'exchange_capacity'), ('ops', 'route_slots'),
+    ('ops', 'scatter_to_buckets'), ('ops', 'gather_from_buckets'),
+    ('ops', 'stitch_rows'), ('ops', 'uniform_sample_local'),
+    ('ops', 'weighted_sample_local'), ('ops', 'stack2'),
+    ('ops', 'stack2_batched'), ('ops', 'valid_mask'),
+    ('ops', 'searchsorted_membership'),
+    ('utils', 'coo_to_csr'), ('utils', 'coo_to_csc'), ('utils', 'csr_to_coo'),
+    ('utils', 'csr_to_csc'), ('utils', 'ptr2ind'), ('utils', 'ind2ptr'),
+    ('utils', 'count_dict'), ('utils', 'merge_dict'),
+    ('utils', 'get_free_port'), ('utils', 'load_module'),
+    ('utils', 'convert_to_array'), ('utils', 'id2idx'),
+    ('utils', 'squeeze_dict'), ('utils', 'parse_size'),
+    ('utils', 'format_size'), ('utils', 'python_exit_status'),
+]
+
+
+@pytest.mark.parametrize('name', DIST_CLASSES)
+def test_distributed_class_signatures(name):
+  """The distributed path's classes, their public methods too."""
+  _compare_class(name, getattr(glt.distributed, name),
+                 getattr(gtt.distributed, name))
+
+
+@pytest.mark.parametrize('mod,name', DIST_FUNCTIONS)
+def test_distributed_ops_and_utils_signatures(mod, name):
+  assert_same_signature(name, getattr(_attr(glt, mod), name),
+                        getattr(_attr(gtt, mod), name))
+
+
+@pytest.mark.parametrize('name', ['CheckpointManager', 'BaseSampler'])
+def test_checkpoint_manager_and_base_sampler_signatures(name):
+  mod = 'utils' if name == 'CheckpointManager' else 'sampler'
+  _compare_class(name, getattr(getattr(glt, mod), name),
+                 getattr(getattr(gtt, mod), name))
 
 
 # ----------------------------------------------- JAX's calls on the port
