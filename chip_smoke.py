@@ -1314,15 +1314,29 @@ PORT_KERNELS = dict(gather_rows=('gather_rows_kernel',),
                     sample_level=('begin_kernel', 'pick_kernel',
                                   'scan_kernel', 'resolve_kernel'),
                     step_keys=('step_keys_kernel',),
+                    dist_step_keys=('dist_step_keys_kernel',),
                     uniform_draw=('uniform_draw_kernel',),
                     negative_sample=('negative_sample_kernel',))
+
+
+def _names_kernel(device_name: str, fn: str) -> bool:
+  """True when the profiler's ``device_name`` is kernel ``fn`` (its name
+  whole: ``dist_step_keys_kernel`` is not ``step_keys_kernel``)."""
+  for tail in ('(', '<'):
+    at = device_name.find(fn + tail)
+    while at >= 0:
+      if at == 0 or not (device_name[at - 1].isalnum() or
+                         device_name[at - 1] == '_'):
+        return True
+      at = device_name.find(fn + tail, at + 1)
+  return False
 
 
 def kernel_counts(counts) -> dict:
   """The profiler's device kernels of the port's training path, counted by
   ``launch_counts()`` name (the whole window, not per call)."""
   return {name: sum(c for k, c in counts.items()
-                    if any(f'{f}(' in k or f'{f}<' in k for f in fns))
+                    if any(_names_kernel(k, f) for f in fns))
           for name, fns in PORT_KERNELS.items()}
 
 
@@ -2274,7 +2288,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
           f'{prof["kernels"]} vs launch counters {counted}')
       assert prof['kernels'] == counted and all(
           prof['kernels'][k] for k in PORT_KERNELS
-          if k not in ('uniform_draw', 'negative_sample',
+          if k not in ('uniform_draw', 'negative_sample', 'dist_step_keys',
                        'sample_level' if mode == 'tree' else 'sample_hop')), \
           (prof['kernels'], counted)
       if name == 'scan':
@@ -5260,7 +5274,7 @@ def dist_nccl(torch, gtt, parts, feats, n, device, smi):
               nodes=int(got.num_nodes.sum()))
 
 
-def dist_phase(torch, gtt, ei, feats, labels, device, smi):
+def dist_phase(torch, gtt, ei, feats, labels, device, smi, keep=None):
   """The partitioned path at P = DIST_PARTS on the card: the script's
   graph split by RandomPartitioner's rule (edges by source), stacked on
   one device as a ``DistDataset`` (features with a DIST_CACHE hot cache
@@ -5272,7 +5286,8 @@ def dist_phase(torch, gtt, ei, feats, labels, device, smi):
   more under sync counting (the verdict reads, and nothing else, as
   ``dist_expected_syncs`` says); one profiled; the exchanges' device ms.
   Then the example's data-parallel steps and the NCCL single-rank
-  group."""
+  group. ``keep`` (a dict) receives the host partitions for the
+  dist_scan phase."""
   from graphlearn_tpu_torch import distributed as gdist
   from graphlearn_tpu_torch import ops
   from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
@@ -5290,6 +5305,8 @@ def dist_phase(torch, gtt, ei, feats, labels, device, smi):
   cpu_mesh = gdist.ShardMesh(nparts, 'cpu')
   dg = gdist.DistGraph(nparts, 0, parts, pb)
   hot = np.bincount(ei[1], minlength=n)
+  if keep is not None:
+    keep.update(parts=parts, fparts=fparts, pb=pb, hot=hot)
   ds = gdist.DistDataset(nparts, 0, dg, gdist.DistFeature(
       nparts, fparts, pb, card_mesh, split_ratio=DIST_CACHE, hotness=hot),
       node_labels=labels)
@@ -5389,6 +5406,649 @@ def dist_phase(torch, gtt, ei, feats, labels, device, smi):
                      for k in rep['modes'][f'tree/2.0']['launches']}
   rep['phase_s'] = time.perf_counter() - t_phase
   log(f'dist phase {rep["phase_s"]:.1f} s (build {build_s:.1f} s) on {smi}')
+  return rep
+
+
+# ---- the scanned distributed epoch (DistScanTrainer, FailoverRunner)
+DSCAN_STEPS = 12                     # steps an epoch (P x BATCH seeds each)
+DSCAN_CHUNK = 4                      # K
+DSCAN_CRASH_CHUNK = 2                # the checkpointed epoch dies here
+DSCAN_DEAD_RANK = 2                  # the failover's dead shard
+DSCAN_DEAD_CHUNK = 1                 # ... read dead at this boundary
+DSCAN_HOT_SHARE = 25                 # % of a partition on the card, tiered
+
+
+def dist_keys_case(torch, gtt, device, reps, k, nparts, hops):
+  """The distributed chunk's keys (one launch: K steps x P shards x the
+  hops) from a device counter, against ``dist_step_keys_plain`` on the
+  same device words, exact; the counts cross 2**32."""
+  from graphlearn_tpu_torch import ops
+  base = gtt.random.to_device(
+      gtt.random.fold_in(gtt.random.PRNGKey(0), 9), device)
+  counter = torch.full((), 2 ** 32 - 2, dtype=torch.int64, device=device)
+  steps = torch.arange(k, dtype=torch.int64, device=device)
+  got, ms, call_ms = timed(
+      torch, lambda: ops.dist_step_keys(base, counter, k, nparts, hops),
+      reps, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: gtt.random.dist_step_keys_plain(
+          base, counter + steps, nparts, hops), reps, device)
+  exact = bool(torch.equal(got, ref))
+  keys = k * nparts * hops
+  nbytes = 2 * 8 + 8 + keys * 2 * 8
+  ops_n = keys * 3 * THREEFRY_OPS
+  rec = dict(steps=k, parts=nparts, hops=hops, exact=exact,
+             max_abs_err=float((got - ref).abs().max()), ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+  log(f'kernel dist_step_keys: [{k}, {nparts}, {hops}, 2] keys exact={exact} '
+      f'ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={rec["bound_ms"]:.6f} '
+      f'({rec["bound_by"]}); call ms {call_ms:.4f} {plain_call_ms:.4f}')
+  assert exact, 'dist_step_keys: kernel != plain version'
+  return rec
+
+
+def dscan_epoch(torch, trainer, state, cuda, **kw):
+  """One ``run_epoch`` with the launch counters set to 0 before it and
+  read after: ``(state, losses, accs, ms, launches)``."""
+  from graphlearn_tpu_torch import ops
+  if cuda:
+    torch.cuda.synchronize()
+  ops.reset_launch_counts()
+  a = _event(torch, cuda)
+  state, losses, accs = trainer.run_epoch(state, **kw)
+  b = _event(torch, cuda)
+  if cuda:
+    b.synchronize()
+  return state, losses, accs, _span(a, b, cuda), ops.launch_counts()
+
+
+def dscan_state(trainer):
+  """The tensors a chunk updates in place: the parameters and Adam's."""
+  import torch
+  opt = trainer._chunk_carry['state'].optimizer
+  ps = list(trainer.model.parameters())
+  return ps + [v for p in ps for v in opt.state[p].values()
+               if torch.is_tensor(v)]
+
+
+def dscan_last_step(torch, trainer, step_index, mesh_cpu):
+  """Wraps ``trainer._dp_step`` so that its ``step_index``-th call of the
+  next epoch records what ``cpu_step_check`` needs: the state before the
+  step, the CPU shard batches, the card's gradients and ReLU inputs."""
+  import copy
+
+  from graphlearn_tpu_torch.loader.pipeline import data_parallel_step
+  from graphlearn_tpu_torch.models import train
+  calls, out = [0], {}
+  inner = trainer._dp_step
+
+  def step(state, shards):
+    if calls[0] != step_index:
+      calls[0] += 1
+      return inner(state, shards)
+    calls[0] += 1
+    pre = {}
+    out['check'] = (copy.deepcopy(trainer.model.state_dict()),
+                    copy.deepcopy(state.optimizer.state_dict()),
+                    [{k: v.cpu() for k, v in sh.items()} for sh in shards])
+    hooks = relu_input_hooks(trainer.model, recorder(pre))
+    res = inner(state, shards)
+    for h in hooks:
+      h.remove()
+    out['loss'] = res[1]
+    out['check'] += ([p.grad.detach().cpu() for p in
+                      trainer.model.parameters()],
+                     {k: z.cpu() for k, z in pre.items()})
+    return res
+
+  trainer._dp_step = step
+
+  def make_step(m):
+    loss_fn = train.make_loss_fn(m, CLASSES)
+
+    def st(s, shards):
+      loss, acc = data_parallel_step(s.optimizer, loss_fn, shards, mesh_cpu)
+      return s, loss, acc
+    return st, None
+  return out, make_step
+
+
+def dscan_release(torch, cuda, *trainers) -> dict:
+  """Drop the trainers' captured chunks and the gradients a capture
+  allocated in their graphs' pools, so the pools go back to the card;
+  the card's allocated and reserved GB after."""
+  import gc
+  for t in trainers:
+    if hasattr(t, '_drop_graphs'):
+      t._drop_graphs()
+    else:
+      t.model.zero_grad(set_to_none=True)
+  gc.collect()
+  if not cuda:
+    return {}
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  return dict(allocated_gb=torch.cuda.memory_allocated() / 2 ** 30,
+              reserved_gb=torch.cuda.memory_reserved() / 2 ** 30)
+
+
+def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
+  """The scanned distributed epoch on the dist phase's graph and shards
+  (P = DIST_PARTS on the card, FANOUTS at BATCH seeds a shard, a
+  DIST_CACHE hot cache, every exchange full width: ``bucket_frac=None``),
+  DSCAN_STEPS steps an epoch in chunks of DSCAN_CHUNK. Tree (the example's
+  GraphSAGE, hidden HIDDEN): a captured ``DistScanTrainer``, an eager one
+  and the per-step loop (``run_epoch_steps``) from one start, equal within
+  rtol 1e-4 (the eager chunk's first batch exact against the loader's),
+  the eager epoch's last step recomputed on the CPU; launches (K3 P x hops
+  and K1 3P a step, one ``dist_step_keys`` a chunk), host syncs of a
+  captured epoch (0), the profiler's kernels against the counters. Sort
+  (the merge-dense GraphSAGE): captured against eager chunk by chunk from
+  a common state. Then a checkpointed captured epoch crashed and resumed,
+  and a failover of rank DSCAN_DEAD_RANK at chunk DSCAN_DEAD_CHUNK to
+  P - 1 shards on the card, every seed trained once."""
+  import copy
+  import shutil
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  from graphlearn_tpu_torch.models import create_train_state
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer, FailoverRunner
+  cuda = device.type == 'cuda'
+  t_phase = time.perf_counter()
+  n = feats.shape[0]
+  nparts = DIST_PARTS
+  b = BATCH if cuda else 64
+  steps = DSCAN_STEPS if cuda else 4
+  chunk = DSCAN_CHUNK if cuda else 2
+  chunks = -(-steps // chunk)
+  hops = len(FANOUTS)
+  per = 1 if cuda else 0
+  t0 = time.perf_counter()
+  if built:
+    parts, fparts, pb, hot = (built[k] for k in ('parts', 'fparts', 'pb',
+                                                 'hot'))
+  else:
+    pb = dist_book(n, nparts)
+    parts, fparts = ex.partition_in_memory(ei, feats, pb, nparts)
+    hot = np.bincount(ei[1], minlength=n)
+
+  def dataset(p, p_parts, p_fparts, p_pb):
+    mesh = gdist.ShardMesh(p, device)
+    return gdist.DistDataset(p, 0, gdist.DistGraph(p, 0, p_parts, p_pb),
+                             gdist.DistFeature(
+                                 p, p_fparts, p_pb, mesh,
+                                 split_ratio=DIST_CACHE, hotness=hot,
+                                 bucket_frac=None),
+                             node_labels=labels)
+  ds = dataset(nparts, parts, fparts, pb)
+  store = ds.node_features
+  build_s = time.perf_counter() - t0
+  pool = np.random.default_rng(12).permutation(n)[:nparts * b * steps]
+
+  def loader(dedup='tree', seeds=pool, shuffle=False, data=ds,
+             drop_last=True):
+    return gdist.DistNeighborLoader(
+        data, FANOUTS, seeds, batch_size=b, shuffle=shuffle,
+        drop_last=drop_last, seed=0, mesh=data.node_features.mesh,
+        dedup=dedup, bucket_frac=None)
+
+  def model_on(d, dedup='tree'):
+    gen = torch.Generator().manual_seed(0)
+    if dedup == 'tree':
+      m = ex.make_model(FEAT_DIM, HIDDEN, CLASSES, FANOUTS, b, d, gen)
+    else:   # the layered merge forward over the merge layout
+      no, eo = gtt.models.merge_hop_offsets(b, FANOUTS)
+      m = gtt.models.GraphSAGE(FEAT_DIM, HIDDEN, CLASSES,
+                               num_layers=len(FANOUTS), hop_node_offsets=no,
+                               hop_edge_offsets=eo, merge_dense=True,
+                               fanouts=FANOUTS, device=d, generator=gen)
+    m.relu_hooks_by_call = True      # P shard forwards a step
+    return m
+
+  def trainer(dedup='tree', capture=None, model=None, **kw):
+    m = model if model is not None else model_on(device, dedup)
+    return gtt.loader.DistScanTrainer(loader(dedup, **kw), m, CLASSES,
+                                      chunk_size=chunk, capture=capture)
+
+  rep = dict(parts=nparts, batch=b, steps=steps, chunk=chunk,
+             build_s=build_s, launch_runs=[])
+  rep['kernel'] = dist_keys_case(torch, gtt, device, REPS if cuda else 2,
+                                 chunk, nparts, hops)
+  want_launch = dict(sample_hop=per * nparts * hops * steps,
+                     gather_rows=per * 3 * nparts * steps,
+                     dist_step_keys=per * chunks)
+
+  def held(counts, what, replay=False):
+    # a tiered epoch's prologue replays the sampler over every step under
+    # one more key launch: K3 twice, dist_step_keys once more
+    want = dict(want_launch)
+    if replay:
+      want['sample_hop'] *= 2
+      want['dist_step_keys'] += per
+    for k, v in want.items():
+      assert counts[k] == v, (what, k, counts)
+    rep['launch_runs'].append(counts)
+
+  # ---- 1. tree: captured, eager and the per-step loop from one start
+  start = model_on(device).state_dict()
+  cap = trainer()
+  eag = trainer(capture=False)
+  loop = gtt.loader.DistFusedEpochTrainer(loader(), model_on(device),
+                                          CLASSES)
+  for t in (cap, eag, loop):
+    t.model.load_state_dict(start)
+  assert cap.capture == cuda and not eag.capture
+  states = {id(t): create_train_state(t.model, lr=LR)
+            for t in (cap, eag, loop)}
+  # the eager chunk's first batch, exact against the loader's
+  first = {}
+  inner = eag._sample_collate
+
+  def keep_first(seeds, smask, keys):
+    out = inner(seeds, smask, keys)
+    if not first:
+      first['batch'] = out[0]
+    return out
+  eag._sample_collate = keep_first
+  mesh_cpu = gdist.ShardMesh(nparts, 'cpu')
+  last, make_step = dscan_last_step(torch, eag, steps - 1, mesh_cpu)
+  res = {}
+  for name, t in (('captured', cap), ('eager', eag)):
+    store.reset_stats()
+    st, losses, accs, ms, counts = dscan_epoch(torch, t, states[id(t)], cuda)
+    states[id(t)] = st
+    held(counts, f'tree {name} epoch 1')
+    res[name] = dict(losses=losses, stats=store.stats(), ms1=ms,
+                     capture_ms=t.capture_ms)
+  eag._sample_collate = inner
+  del eag._dp_step
+  store.reset_stats()
+  if cuda:
+    torch.cuda.synchronize()
+  a = _event(torch, cuda)
+  states[id(loop)], llosses = loop.run_epoch_steps(states[id(loop)])
+  bev = _event(torch, cuda)
+  if cuda:
+    bev.synchronize()
+  res['loop'] = dict(losses=torch.stack(llosses), stats=store.stats(),
+                     ms1=_span(a, bev, cuda))
+  want = next(iter(loader()))
+  fb = first['batch']
+  for f in ('edge_index', 'edge_mask', 'x', 'y'):
+    assert torch.equal(fb[f], getattr(want, f)), f'dist_scan first {f}'
+  assert torch.equal(fb['num_seed_nodes'], want.num_sampled_nodes[:, 0])
+  del first, want, fb
+  for name in ('eager', 'loop'):
+    torch.testing.assert_close(res['captured']['losses'],
+                               res[name]['losses'], rtol=1e-4, atol=0)
+    assert res[name]['stats'] == res['captured']['stats'], name
+  equal = {name: bool(torch.equal(res['captured']['losses'],
+                                  res[name]['losses']))
+           for name in ('eager', 'loop')}
+  # the graphs' keys: the epoch's last chunk of each length, exact
+  keys_want = gtt.random.dist_step_keys_plain(
+      cap._sampler._key, 1 + torch.arange(steps, dtype=torch.int64), nparts,
+      hops)
+  for k, g in cap._graphs.items():
+    s0 = max(s for s in range(0, steps, chunk) if min(chunk, steps - s) == k)
+    assert torch.equal(g.keys.cpu(), keys_want[s0:s0 + k]), k
+  c = cpu_step_check(torch, gtt, None, eag.model, last['check'],
+                     last['loss'], cpu_model=lambda: model_on('cpu'),
+                     make_step=make_step)
+  rep['cpu_check'] = {k: c[k] for k in ('pre_diff', 'opposite',
+                                        'grad_share', 'adam_diff',
+                                        'cpu_loss', 'loss')}
+  log(f'dist_scan tree epoch 1: captured vs eager vs the per-step loop '
+      f'losses within rtol 1e-4 (bit-equal eager {equal["eager"]}, loop '
+      f'{equal["loop"]}), feature counters equal '
+      f'{res["captured"]["stats"]}; the eager chunk\'s first batch exact; '
+      f'the last step on the CPU: gradients within {c["grad_share"]:.3g} '
+      f'of the largest, Adam {c["adam_diff"]:.3g}')
+  # the timed epoch (replays only), then host syncs and the profile
+  timing = {}
+  for name, t in (('captured', cap), ('eager', eag)):
+    st, _, _, ms, counts = dscan_epoch(torch, t, states[id(t)], cuda)
+    states[id(t)] = st
+    held(counts, f'tree {name} epoch 2')
+    timing[name] = ms / steps
+  st, ll = loop.run_epoch_steps(states[id(loop)])
+  a = _event(torch, cuda)
+  st, ll = loop.run_epoch_steps(st)
+  bev = _event(torch, cuda)
+  if cuda:
+    bev.synchronize()
+  states[id(loop)] = st
+  timing['loop'] = _span(a, bev, cuda) / steps
+  epoch = cap_epoch = None
+  rep['tree'] = dict(
+      ms_per_step=timing, first_epoch_ms=({k: res[k]['ms1'] for k in res}),
+      capture_ms=cap.capture_ms, losses_bit_equal=equal,
+      losses=res['captured']['losses'].tolist(),
+      feature_stats=res['captured']['stats'])
+  if cuda:
+    def cap_epoch():
+      states[id(cap)] = cap.run_epoch(states[id(cap)])[0]
+    _, n_sync, kinds = count_syncs(torch, cap_epoch)
+    torch.cuda.synchronize()
+    rep['tree']['host_syncs_per_step'] = n_sync / steps
+    assert n_sync == 0, kinds
+    for name, t in (('captured', cap), ('eager', eag)):
+      def epoch(t=t):
+        states[id(t)] = t.run_epoch(states[id(t)])[0]
+      prof = profiled(torch, epoch, 1, device, f'dist_scan tree epoch '
+                      f'({name})', warmup=lambda: (epoch(),
+                                                   ops.reset_launch_counts()))
+      counted = {k: v for k, v in ops.launch_counts().items()
+                 if k in PORT_KERNELS}
+      assert prof['kernels'] == counted, (name, prof['kernels'], counted)
+      rep['tree'][f'profile_{name}'] = dict(
+          idle_share=prof['idle_share'],
+          busy_ms_per_step=prof['device_busy_ms'] / steps,
+          wall_ms_per_step=prof['wall_ms'] / steps,
+          device_ops_per_step=prof['device_ops_per_call'] / steps,
+          top5=dict(list(prof['top_device_ms'].items())[:5]),
+          kernels=prof['kernels'])
+  log(f'dist_scan tree: {steps} steps of P={nparts} x {b} seeds in chunks '
+      f'of {chunk}: captured {timing["captured"]:.2f} ms/step, eager '
+      f'{timing["eager"]:.2f}, the per-step loop {timing["loop"]:.2f}; '
+      f'capture ms {cap.capture_ms}; ' + (
+          f'host syncs a captured step {rep["tree"]["host_syncs_per_step"]}; '
+          f'idle share captured '
+          f'{rep["tree"]["profile_captured"]["idle_share"]:.1%}, eager '
+          f'{rep["tree"]["profile_eager"]["idle_share"]:.1%}; top 5 ops of '
+          f'a captured epoch (ms): ' + '; '.join(
+              f'{k[:50]}={v:.2f}' for k, v in
+              rep['tree']['profile_captured']['top5'].items()) if cuda
+          else '') + f' on {smi}')
+  if cuda:
+    rep['tree']['peak_allocated_gb'] = (torch.cuda.max_memory_allocated() /
+                                        2 ** 30)
+  rep['tree']['after_release'] = dscan_release(torch, cuda, cap, eag, loop)
+  log(f'dist_scan tree: peak allocated {rep["tree"].get("peak_allocated_gb")} '
+      f'GB; after release {rep["tree"]["after_release"]}')
+  del cap, eag, loop, states, epoch, cap_epoch
+
+  # ---- 2. sort: captured against eager, chunk by chunk from one state.
+  # A full-width sort step keeps tens of GB for its backward (P forwards
+  # before one backward), so the captured trainer's graph goes before the
+  # eager trainer runs: the captured epoch 2 keeps its state after each
+  # chunk, then the eager one takes it up at each chunk start
+  if cuda:
+    torch.cuda.reset_peak_memory_stats()
+  scap = trainer('sort')
+  sst = create_train_state(scap.model, lr=LR)
+  sst, _, _, _, counts = dscan_epoch(torch, scap, sst, cuda)
+  held(counts, 'sort captured epoch 1')
+  s1 = (copy.deepcopy(scap.model.state_dict()),
+        copy.deepcopy(sst.optimizer.state_dict()))
+  kept, diffs, loss_runs, sort_ms = {}, [], {}, {}
+
+  def keep(c, s0, k):
+    kept[s0 + k] = [x.detach().clone() for x in dscan_state(scap)]
+  scap.ack_hook = keep
+  sst, losses, _, ms, counts = dscan_epoch(torch, scap, sst, cuda)
+  held(counts, 'sort captured epoch 2')
+  sort_ms['captured'], loss_runs['captured'] = ms / steps, losses
+  sort_capture_ms = scap.capture_ms
+  sort_peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+  dscan_release(torch, cuda, scap)
+  del scap, sst
+  seag = trainer('sort', capture=False)
+  est = create_train_state(seag.model, lr=LR)
+  est, _, _, _, counts = dscan_epoch(torch, seag, est, cuda)
+  held(counts, 'sort eager epoch 1')
+  seag.model.load_state_dict(s1[0])
+  est.optimizer.load_state_dict(copy.deepcopy(s1[1]))
+  for group in est.optimizer.param_groups:
+    group['capturable'] = cuda
+
+  @torch.no_grad()
+  def take_up(c, s0, k):
+    if s0:
+      torch._foreach_copy_(dscan_state(seag), kept[s0])
+
+  def compare(c, s0, k):
+    diffs.append(max(float((x.detach() - y).abs().max())
+                     for x, y in zip(dscan_state(seag), kept[s0 + k])))
+  seag.stage_hook, seag.ack_hook = take_up, compare
+  est, losses, _, ms, counts = dscan_epoch(torch, seag, est, cuda)
+  held(counts, 'sort eager epoch 2')
+  sort_ms['eager'], loss_runs['eager'] = ms / steps, losses
+  assert len(diffs) == chunks, diffs
+  assert max(diffs) < PARAMS_LIMIT, diffs
+  rel = float(((loss_runs['captured'] - loss_runs['eager']).abs() /
+               loss_runs['eager'].abs()).max())
+  rep['sort'] = dict(ms_per_step=sort_ms, chunk_param_diffs=diffs,
+                     max_rel_loss_diff=rel, capture_ms=sort_capture_ms,
+                     peak_allocated_gb=sort_peak)
+  log(f'dist_scan sort: captured {sort_ms["captured"]:.2f} ms/step, eager '
+      f'{sort_ms["eager"]:.2f} (peak allocated {sort_peak} GB, capture ms '
+      f'{sort_capture_ms}); held chunk by chunk from the captured '
+      f'state: params and Adam within {max(diffs):.3g} (limit '
+      f'{PARAMS_LIMIT}), losses max rel diff {rel:.3g} on {smi}')
+  rep['sort']['after_release'] = dscan_release(torch, cuda, seag)
+  del seag, est, kept
+
+  # ---- 3. a checkpointed captured epoch, crashed and resumed
+  ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                       'dist_scan_ckpt')
+  shutil.rmtree(ckdir, ignore_errors=True)
+  ref_t = trainer()
+  ref_t.model.load_state_dict(start)
+  store.reset_stats()
+  rs, rlosses, _, _, counts = dscan_epoch(
+      torch, ref_t, create_train_state(ref_t.model, lr=LR), cuda)
+  held(counts, 'checkpoint reference')
+  rstats = store.stats()
+  dscan_release(torch, cuda, ref_t)
+  victim = trainer()
+  victim.model.load_state_dict(start)
+  # every 2 chunks on the card (a snapshot after chunk 1, the crash at 2);
+  # a rehearsal's epoch of 2 chunks takes every chunk
+  every = 2 if chunks > 2 else 1
+  ck = ChunkCheckpointer(ckdir, every=every).attach(victim)
+  crash_chunk = min(DSCAN_CRASH_CHUNK, chunks - 1)
+
+  def crash(c, s0, k):
+    if c == crash_chunk:
+      raise RuntimeError('dist_scan: the injected crash')
+  victim.stage_hook = crash
+  store.reset_stats()
+  try:
+    victim.run_epoch(create_train_state(victim.model, lr=LR))
+    raise AssertionError('the checkpointed epoch did not crash')
+  except RuntimeError as e:
+    assert 'injected crash' in str(e), e
+  ck.close()
+  dscan_release(torch, cuda, victim)
+  del victim
+  fresh = trainer()
+  t0 = time.perf_counter()
+  fst, flosses, _ = ChunkCheckpointer(ckdir).resume_epoch(
+      fresh, create_train_state(fresh.model, lr=LR))
+  resume_s = time.perf_counter() - t0
+  torch.testing.assert_close(torch.as_tensor(flosses), rlosses.cpu(),
+                             rtol=1e-4, atol=0)
+  pdiff = max(float((x - y).detach().abs().max()) for x, y in
+              zip(fresh.model.parameters(), ref_t.model.parameters()))
+  assert pdiff < PARAMS_LIMIT, pdiff
+  assert store.stats() == rstats, (store.stats(), rstats)
+  rep['checkpoint'] = dict(
+      every=every, crash_chunk=crash_chunk, resume_s=resume_s,
+      losses_bit_equal=bool(np.array_equal(flosses, rlosses.cpu().numpy())),
+      max_abs_param_diff=pdiff, feature_stats=rstats)
+  log(f'dist_scan checkpoint: ChunkCheckpointer(every={every}), crash at '
+      f'chunk {crash_chunk}, resumed in a fresh captured trainer in '
+      f'{resume_s:.2f} s: losses bit-equal '
+      f'{rep["checkpoint"]["losses_bit_equal"]}, params within {pdiff:.3g}, '
+      f'feature counters exact on {smi}')
+  shutil.rmtree(ckdir, ignore_errors=True)
+  rep['checkpoint']['after_release'] = dscan_release(torch, cuda, ref_t,
+                                                     fresh)
+  del ref_t, fresh
+
+  # ---- 4. the tiered distributed epoch: a quarter of each partition on
+  # the card, the rest spilled under build/ and staged per chunk; equal to
+  # the all-device epoch
+  spill = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                       'dist_scan_spill')
+  shutil.rmtree(spill, ignore_errors=True)
+  t0 = time.perf_counter()
+  tstore = gtt.storage.TieredDistFeature(
+      nparts, fparts, pb, mesh=store.mesh, spill_dir=spill,
+      hot_prefix_rows=-(-store.n_max * DSCAN_HOT_SHARE // 100),
+      split_ratio=DIST_CACHE, hotness=hot, bucket_frac=None)
+  spill_s = time.perf_counter() - t0
+  tds = gdist.DistDataset(nparts, 0, ds.graph, tstore, node_labels=labels)
+  tiered = gtt.storage.TieredDistScanTrainer(loader(data=tds), model_on(
+      device), CLASSES, chunk_size=chunk)
+  hbm = trainer()
+  for t in (tiered, hbm):
+    t.model.load_state_dict(start)
+  tst = {id(t): create_train_state(t.model, lr=LR) for t in (tiered, hbm)}
+  tiered_rep = {}
+  for epoch in range(2):
+    out = {}
+    for name, t in (('tiered', tiered), ('hbm', hbm)):
+      t._feat.reset_stats()
+      tst[id(t)], losses, _, ms, counts = dscan_epoch(torch, t, tst[id(t)],
+                                                      cuda)
+      held(counts, f'{name} epoch {epoch + 1}', replay=name == 'tiered')
+      out[name] = dict(losses=losses, ms=ms, stats=t._feat.stats())
+    assert torch.equal(out['tiered']['losses'], out['hbm']['losses']), \
+        f'tiered epoch {epoch + 1} != the all-device epoch'
+    assert all(torch.equal(x, y) for x, y in zip(
+        tiered.model.parameters(), hbm.model.parameters())), epoch
+    assert out['tiered']['stats'] == out['hbm']['stats']
+    tiered_rep[epoch] = {k: v['ms'] / steps for k, v in out.items()}
+  timings = tiered.chunk_timings()
+  plan = tiered.last_plan.stats()
+  rep['tiered'] = dict(
+      hot_prefix_rows=tstore.hot_prefix_rows, n_max=tstore.n_max,
+      spill_s=spill_s, tier_bytes=tstore.tier_bytes(), plan=plan,
+      prologue_ms=tiered.prologue_ms, slab_bytes=tiered.slab_bytes,
+      ring_bytes=tiered._stager.ring_bytes,
+      ms_per_step={e: r for e, r in tiered_rep.items()},
+      chunks=[{k: r[k] for k in ('chunk', 'rows', 'cap', 'stage_ms',
+                                 'wait_ms', 'copy_ms', 'device_ms')}
+              for r in timings])
+  log(f'dist_scan tiered: hot prefix {tstore.hot_prefix_rows} of '
+      f'{tstore.n_max} rows a partition ({DSCAN_HOT_SHARE}%), spilled in '
+      f'{spill_s:.1f} s; two captured epochs bit-equal to the all-device '
+      f'epochs (losses, parameters, counters); epoch 2 '
+      f'{tiered_rep[1]["tiered"]:.2f} ms/step against '
+      f'{tiered_rep[1]["hbm"]:.2f}; prologue {tiered.prologue_ms:.0f} ms; '
+      f'plan {plan}; per chunk (rows, stage ms, wait ms, copy ms, device '
+      f'ms): ' + '; '.join(
+          f'{r["rows"]} {r["stage_ms"] or 0:.0f} {r["wait_ms"] or 0:.0f} '
+          f'{r["copy_ms"] or 0:.1f} {r["device_ms"] or 0:.0f}'
+          for r in timings) + f' on {smi}')
+  tiered.close()
+  dscan_release(torch, cuda, tiered, hbm)
+  del tiered, hbm, tst, tds, tstore
+  shutil.rmtree(spill, ignore_errors=True)
+
+  # ---- 5. the sharded serving store: the feature table served through
+  # DistEmbeddingStore behind the engine, held against the table
+  from graphlearn_tpu_torch.serving import DistEmbeddingStore, ServingEngine
+  estore = DistEmbeddingStore.build(feats, store.mesh, split_ratio=DIST_CACHE,
+                                    hotness=hot, bucket_frac=None)
+  rng = np.random.default_rng(21)
+  ops.reset_launch_counts()
+  engine = ServingEngine(estore, buckets=(256, 1024), max_wait_ms=1.0)
+  lookups, served = 0, 0
+  with engine:
+    for size in (1, 37, 256, 1000, 1024) * 4:
+      ids = rng.integers(0, n, size)
+      got = engine.lookup(ids)
+      assert np.array_equal(got, feats[ids]), 'DistEmbeddingStore rows'
+      lookups += 1
+      served += size
+  scounts = ops.launch_counts()
+  t0 = time.perf_counter()
+  ids = rng.integers(0, n, 1024)
+  rows_ms = timed(torch, lambda: estore.lookup(ids, np.ones(1024, bool)),
+                  REPS if cuda else 2, device)[1]
+  rep['dist_store'] = dict(lookups=lookups, ids=served,
+                           gather_rows=scounts['gather_rows'],
+                           stats=estore.publish_stats(),
+                           lookup_ms_1024=rows_ms)
+  log(f'dist_scan serving: DistEmbeddingStore over {nparts} shards, '
+      f'{lookups} engine lookups ({served} ids) equal to the table; K1 '
+      f'{scounts["gather_rows"]} launches; one 1,024-id lookup '
+      f'{rows_ms:.3f} ms (device, queued) on {smi}')
+  rep['launch_runs'].append(scounts)
+  del estore, engine
+
+  # ---- 6. failover: rank DSCAN_DEAD_RANK dies at a boundary; the rest
+  # of the epoch re-sliced over P - 1 shards on the same card
+  class Liveness:
+    calls = 0
+
+    def dead_ranks(self):
+      # poll 0 is the epoch's start, poll c + 1 chunk c's boundary
+      self.calls += 1
+      return ({DSCAN_DEAD_RANK: 'probe timeout'}
+              if self.calls > DSCAN_DEAD_CHUNK + 1 else {})
+
+  model = model_on(device)
+  first_t = trainer(model=model, shuffle=True)
+  consumed = {}
+
+  def rebuild(remaining, survivors):
+    t0 = time.perf_counter()
+    pb2 = dist_book(n, survivors, seed=1)
+    p2, f2 = ex.partition_in_memory(ei, feats, pb2, survivors)
+    ds2 = dataset(survivors, p2, f2, pb2)
+    consumed['rebuild_s'] = time.perf_counter() - t0
+    consumed['remaining'] = remaining
+    consumed['trainer'] = gtt.loader.DistScanTrainer(
+        loader(seeds=remaining, data=ds2, drop_last=False), model, CLASSES,
+        chunk_size=chunk)
+    return consumed['trainer']
+  seed_mat, mask_mat = first_t._seed_fn(
+      first_t._seeds_dev if first_t._seeds_dev is not None else
+      torch.as_tensor(pool.astype(np.int32)).to(device),
+      gtt.random.fold_in(first_t._perm_key, 0), steps)
+  runner = FailoverRunner(first_t, rebuild, liveness=Liveness())
+  t0 = time.perf_counter()
+  _, flosses, _, report = runner.run_epoch(create_train_state(model, lr=LR))
+  fo_s = time.perf_counter() - t0
+  (fo,) = report['failovers']
+  seg0, seg1 = report['segments']
+  assert fo['rank'] == DSCAN_DEAD_RANK and fo['survivors'] == nparts - 1
+  assert fo['rolled_back_chunk'] == DSCAN_DEAD_CHUNK
+  done = seed_mat.transpose(0, 1)[:seg0['steps']]
+  done = done[mask_mat.transpose(0, 1)[:seg0['steps']]].cpu().numpy()
+  rem = consumed['remaining']
+  trained = np.concatenate([done, rem])
+  assert trained.shape[0] == pool.shape[0] and np.array_equal(
+      np.sort(trained), np.sort(pool)), 'a seed trained twice or never'
+  assert seg0['steps'] * nparts * b + rem.shape[0] == pool.shape[0]
+  assert seg1['steps'] == -(-rem.shape[0] // ((nparts - 1) * b))
+  assert np.isfinite(flosses).all() and flosses.shape[0] == \
+      seg0['steps'] + seg1['steps']
+  rep['failover'] = dict(report=report, seconds=fo_s,
+                         rebuild_s=consumed['rebuild_s'],
+                         seeds=int(trained.shape[0]))
+  log(f'dist_scan failover: rank {DSCAN_DEAD_RANK} dead at chunk '
+      f'{fo["detected_chunk"]}, rolled back to chunk '
+      f'{fo["rolled_back_chunk"]}; {seg0["steps"]} steps on {nparts} shards '
+      f'+ {seg1["steps"]} on {nparts - 1} (re-partitioned in '
+      f'{consumed["rebuild_s"]:.1f} s): {trained.shape[0]} seeds, each '
+      f'trained once; {fo_s:.1f} s on {smi}')
+  rep['failover']['after_release'] = dscan_release(
+      torch, cuda, first_t, consumed.pop('trainer'))
+  del first_t, runner, ds, store
+  rep['launches'] = {k: sum(c[k] for c in rep['launch_runs'])
+                     for k in rep['launch_runs'][0]}
+  rep['phase_s'] = time.perf_counter() - t_phase
+  log(f'dist_scan phase {rep["phase_s"]:.1f} s (build {build_s:.1f} s) on '
+      f'{smi}')
   return rep
 
 
@@ -6547,10 +7207,18 @@ def main(argv=None):
   report['partition'] = partition_phase(torch, gtt, ds, cpu_ds, ei, feats,
                                         device, smi)
   phase_done('partition')
-  report['dist'] = dist_phase(torch, gtt, ei, feats, labels, device, smi)
+  dist_parts = {}
+  report['dist'] = dist_phase(torch, gtt, ei, feats, labels, device, smi,
+                              keep=dist_parts)
   if cuda:
     torch.cuda.empty_cache()
   phase_done('dist')
+  report['dist_scan'] = dist_scan_phase(torch, gtt, ei, feats, labels, device,
+                                        smi, built=dist_parts)
+  del dist_parts
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('dist_scan')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -6577,6 +7245,7 @@ def main(argv=None):
   paths += [report[p][t]['launches'] for p in ('train_tree', 'train_merge')
             for t in ('scan', 'scan_eager')]
   paths += [m['launches'] for m in report['dist']['modes'].values()]
+  paths += report['dist_scan']['launch_runs']
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
   for rec in report['modes'].values():
@@ -6608,6 +7277,7 @@ def main(argv=None):
   launches['row_gather_probe'] = (launches['row_gather_probe_bulk'] +
                                   launches['row_gather_probe_vector'])
   keys_rec = ktab['step_keys']
+  dkeys_rec = report['dist_scan']['kernel']
   draw_rec = ktab['uniform_draw'][0]
   neg_rec = ktab['negative_sample'][0]
   hc_rec = ktab['gather_unified'][0]
@@ -6647,6 +7317,13 @@ def main(argv=None):
            max_abs_err=keys_rec['max_abs_err'], ms=keys_rec['ms'],
            plain_ms=keys_rec['plain_ms'], bound_ms=keys_rec['bound_ms'],
            bound_by=keys_rec['bound_by'], library_ms=None),
+      dict(name='dist_step_keys', route='cuda',
+           source='graphlearn_tpu_torch/csrc/step_keys.cu',
+           replaces='graphlearn_tpu/loader/scan_epoch.py:700-706',
+           launches=launches['dist_step_keys'],
+           max_abs_err=dkeys_rec['max_abs_err'], ms=dkeys_rec['ms'],
+           plain_ms=dkeys_rec['plain_ms'], bound_ms=dkeys_rec['bound_ms'],
+           bound_by=dkeys_rec['bound_by'], library_ms=None),
       dict(name='uniform_draw', route='cuda',
            source='graphlearn_tpu_torch/csrc/uniform_draw.cu',
            replaces='graphlearn_tpu/ops/neighbor.py:282',

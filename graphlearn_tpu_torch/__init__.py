@@ -9,9 +9,10 @@ its embedding-serving tier (``serving``: full-graph materializer,
 (``storage``: ``TieredFeature``, ``TieredScanTrainer``), its typed
 (heterogeneous) path (dict datasets, the typed sampler and typed link
 sampling, ``HeteroData``, ``RGNN``, the typed materializer) and its
-partitioners (``partition``) and its partitioned sampling path
-(``distributed``: sharded graph, features, sampler and loader) on an
-NVIDIA GPU,
+partitioners (``partition``) and its partitioned sampling and training
+path (``distributed``: sharded graph, features, sampler and loader;
+``loader.DistScanTrainer``, ``recovery.FailoverRunner``, the tiered
+distributed store and the sharded serving stores) on an NVIDIA GPU,
 with the TPU kernels of those paths rewritten by hand in CUDA
 (``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry

@@ -24,8 +24,17 @@
 // is one launch; what it removes is the host's fold_in, split and key
 // upload of every step.
 //
-// Design: one thread per (step, hop) key, 128 threads a block: one block
-// for any chunk with K * n_hops <= 128.
+// The distributed chunk (graphlearn_tpu/loader/scan_epoch.py, lines
+// 692-706 of DistScanTrainer's chunk) draws per scanned step and shard
+// keys = split(fold_in(base_key, count), P)[shard], and the shard's hop
+// loop splits that key once per hop (distributed/dist_neighbor_sampler.py
+// _homo_hop_loop). glt_dist_step_keys writes the whole chunk's keys at
+// once: out[j, p, h] = split(split(fold_in(base_key, c + j), P)[p],
+// n_hops)[h], three threefry blocks per key. At K = 4, P = 4 and 3 hops
+// that is 48 keys: 1,152 bytes and ~11,000 operations, again one launch.
+//
+// Design: one thread per (step, hop) key, or per (step, shard, hop) key,
+// 128 threads a block: one block for any chunk of at most 128 keys.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +65,32 @@ __global__ void step_keys_kernel(const long long* __restrict__ base_key,
   out[2 * i + 1] = static_cast<long long>(y1);
 }
 
+__global__ void dist_step_keys_kernel(const long long* __restrict__ base_key,
+                                      const long long* __restrict__ counter,
+                                      int n_steps, int n_parts, int n_hops,
+                                      long long* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_steps * n_parts * n_hops) return;
+  const int j = i / (n_parts * n_hops);
+  const int r = i - j * (n_parts * n_hops);
+  const int p = r / n_hops;
+  const int h = r - p * n_hops;
+  uint32_t x0 = 0;
+  uint32_t x1 = static_cast<uint32_t>(
+      static_cast<unsigned long long>(counter[0]) +
+      static_cast<unsigned long long>(j));
+  glt::threefry2x32(static_cast<uint32_t>(base_key[0]),
+                    static_cast<uint32_t>(base_key[1]), x0, x1);
+  uint32_t s0 = 0;
+  uint32_t s1 = static_cast<uint32_t>(p);
+  glt::threefry2x32(x0, x1, s0, s1);
+  uint32_t y0 = 0;
+  uint32_t y1 = static_cast<uint32_t>(h);
+  glt::threefry2x32(s0, s1, y0, y1);
+  out[2 * i] = static_cast<long long>(y0);
+  out[2 * i + 1] = static_cast<long long>(y1);
+}
+
 }  // namespace
 
 // base_key: [2] int64 words; counter: [1] int64, the count of step 0; out:
@@ -77,6 +112,30 @@ extern "C" int glt_step_keys(const void* base_key, const void* counter,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(base_key),
       static_cast<const long long*>(counter), n_steps, n_hops,
+      static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The distributed chunk's keys. base_key: [2] int64 words; counter: [1]
+// int64, the count of step 0; out: [n_steps, n_parts, n_hops, 2] int64.
+// Launches on `stream` and returns cudaGetLastError() of the launch (0 when
+// there is no key to write).
+extern "C" int glt_dist_step_keys(const void* base_key, const void* counter,
+                                  int n_steps, int n_parts, int n_hops,
+                                  void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_steps < 0 || n_parts < 0 || n_hops < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n = static_cast<long long>(n_steps) * n_parts * n_hops;
+  if (n == 0) return 0;
+  if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  dist_step_keys_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(base_key),
+      static_cast<const long long*>(counter), n_steps, n_parts, n_hops,
       static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }

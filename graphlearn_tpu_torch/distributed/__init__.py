@@ -5,9 +5,12 @@ Counterpart of ``graphlearn_tpu/distributed``'s homogeneous node path:
 ``init_multihost`` (one shard per process of a ``torch.distributed``
 group), ``ShardMesh``, ``DistGraph`` / ``DistHeteroGraph``,
 ``DistFeature``, ``DistNeighborSampler``, ``DistDataset``, ``DistLoader``
-and ``DistNeighborLoader``. The dist link, subgraph and typed samplers
-and loaders, the multiprocess and remote loaders, the servers and the
-distributed trainers come with later slices.
+and ``DistNeighborLoader``. The distributed trainers over these are
+``loader.DistFusedEpochTrainer`` / ``loader.DistScanTrainer`` (failover:
+``recovery.FailoverRunner``; out of core: ``storage.TieredDistFeature``
+and ``storage.TieredDistScanTrainer``). The dist link, subgraph and typed
+samplers and loaders, the multiprocess and remote loaders and the
+servers come with later slices.
 """
 from .dist_context import (DistContext, DistRole, ShardMesh, get_context,
                            init_multihost, init_worker_group,

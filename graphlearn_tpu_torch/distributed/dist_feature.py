@@ -27,8 +27,10 @@ the fallback under ``lax.cond`` without leaving the device; here the
 exchange's shape depends on it, so each lookup whose fractional capacity
 is below the full width reads the summed overflow on the host once
 (counted by ``dist_context.verdict_syncs``); ``bucket_frac=None`` reads
-nothing. The slab-backed lookup (``slab=True``) comes with the
-distributed scanned store, ``publish_stats`` with the tracing slice.
+nothing. The slab-backed owner lookup (JAX's ``_shard_body(slab=True)``:
+rows from a hot prefix or a staged slab) serves
+``storage.TieredDistFeature``; ``publish_stats`` comes with the tracing
+slice.
 """
 from typing import Optional
 
@@ -210,11 +212,27 @@ class DistFeature:
     self._stats = None
 
   # ------------------------------------------------------------ lookup
-  def _lookup_local(self, feat_ids, feats, flat):
-    """Rows for a flat request vector over one shard's sorted owned ids:
-    K1 at the clamped binary-search position, zeros where absent."""
-    found, pos = ops.searchsorted_membership(feat_ids, flat)
-    rows = ops.gather_rows_hbm(feats, pos.to(torch.int32))
+  def _lookup_local(self, d, l: int, flat):
+    """Rows for a flat request vector over local shard ``l``'s sorted
+    owned ids: K1 at the clamped binary-search position, zeros where
+    absent. Slab-backed tables (``d`` holding ``hot`` / ``slab_pos`` /
+    ``slab_rows``: JAX's ``_shard_body(slab=True)``) take the row from
+    the hot prefix (K1, position < H) or from the staged slab (a
+    binary search of its sorted positions; INT32_MAX pads never match)."""
+    found, pos = ops.searchsorted_membership(d['feat_ids'][l], flat)
+    if 'hot' not in d:
+      rows = ops.gather_rows_hbm(d['feats'][l], pos.to(torch.int32))
+      return torch.where(found[:, None], rows, 0)
+    hot, slab_pos, slab_rows = (d['hot'][l], d['slab_pos'][l],
+                                d['slab_rows'][l])
+    hp = hot.shape[0]
+    hot_rows = ops.gather_rows_hbm(hot, pos.clamp(max=hp - 1).to(
+        torch.int32))
+    p32 = pos.to(torch.int32)
+    sp = torch.searchsorted(slab_pos, p32).clamp_(0, slab_pos.shape[0] - 1)
+    in_slab = slab_pos[sp] == p32
+    rows = torch.where((pos < hp)[:, None], hot_rows,
+                       torch.where(in_slab[:, None], slab_rows[sp], 0))
     return torch.where(found[:, None], rows, 0)
 
   def _exchange(self, d, req, rmask):
@@ -243,8 +261,7 @@ class DistFeature:
         for l in range(nloc)])
     recv = mesh.all_to_all(send)                       # [L, P, cap]
     rows = torch.stack([
-        self._lookup_local(d['feat_ids'][l], d['feats'][l],
-                           recv[l].reshape(-1)).to(wdtype)
+        self._lookup_local(d, l, recv[l].reshape(-1)).to(wdtype)
         .reshape(nparts, cap, fdim) for l in range(nloc)])
     resp = mesh.all_to_all(rows)                       # [L, P, cap, F]
     back = torch.stack([
@@ -257,7 +274,6 @@ class DistFeature:
     shards; all P on a one-process mesh) -> ``[L, B, F]``. No host read
     but the counted verdict of a fractional exchange."""
     mesh = self.mesh
-    d = self.device_arrays()
     ids = torch.as_tensor(ids).to(mesh.device, torch.int32)
     ids = mesh.local_rows(ids)
     assert ids.dim() == 2
@@ -266,6 +282,25 @@ class DistFeature:
     else:
       mask = mesh.local_rows(torch.as_tensor(mask).to(mesh.device,
                                                       torch.bool))
+    out, batch_stats = self._lookup(ids, mask,
+                                    tables=self._step_tables(ids, mask))
+    self._stats = self._stats_dev() + batch_stats
+    return out
+
+  def _step_tables(self, ids, mask):
+    """The tables a per-step ``get`` reads (None: :meth:`device_arrays`;
+    the oversubscribed ``storage.TieredDistFeature`` pages its step's
+    slab in here)."""
+    return None
+
+  def _lookup(self, ids, mask, tables=None):
+    """The lookup of ``[L, B]`` local request blocks on the mesh's device
+    (JAX's ``_shard_body``): ``([L, B, F] rows, [L, 4] int32 counters of
+    this lookup)``. It leaves the store's accumulators alone, so an
+    epoch trainer can carry them in its own buffer. ``tables``: the
+    device tables (default :meth:`device_arrays`; a slab-backed set for
+    the oversubscribed store, see :meth:`_lookup_local`)."""
+    d = self.device_arrays() if tables is None else tables
     nloc, b = ids.shape
     fdim, fdtype = self.feature_dim, self.storage_dtype
     h = self.cache_rows
@@ -310,9 +345,8 @@ class DistFeature:
       batch_stats.append(torch.stack([
           hits[l].sum(), misses[l].sum(), ucnts[l].to(torch.int64),
           ovf[l].to(torch.int64)]))
-    self._stats = self._stats_dev() + torch.stack(batch_stats).to(
-        torch.int32)
-    return torch.stack(outs).reshape(nloc, b, fdim)
+    return (torch.stack(outs).reshape(nloc, b, fdim),
+            torch.stack(batch_stats).to(torch.int32))
 
   def cpu_get(self, ids) -> torch.Tensor:
     """Host-side exact gather (a CPU tensor of the storage dtype)."""

@@ -129,19 +129,22 @@ def _exchange_hop(mesh: ShardMesh, garr, pb, frontier, fmask, k, keys,
 
 def _homo_hop_loop(mesh: ShardMesh, gdev, pb, seeds, smask, keys, fanouts,
                    caps, node_cap: int, with_edge: bool, weighted: bool,
-                   dedup: str = 'merge', bucket_frac=2.0):
+                   dedup: str = 'merge', bucket_frac=2.0, hop_keys=None):
   """The multi-hop engine over the ``[L, b]`` seed blocks and ``[L, 2]``
   host keys: dedup the seeds, expand hop by hop through
   :func:`_exchange_hop` and the inducer. Returns the per-shard result
-  dict, each value stacked ``[L, ...]``."""
+  dict, each value stacked ``[L, ...]``. ``hop_keys``: the ``[L, hops,
+  2]`` keys already split, on the seeds' device (a chunk trainer's,
+  drawn by ``ops.dist_step_keys``); ``keys`` is then unused."""
   from ..sampler.neighbor_sampler import (_inducer_for,
                                           merge_layout_from_caps,
                                           tree_layout_from_caps)
   nloc, b = seeds.shape
   dev = seeds.device
-  hop_keys = trandom.split(keys, max(1, len(fanouts)))   # [L, hops, 2]
-  if dev.type == 'cuda':
-    hop_keys = trandom.to_device(hop_keys, dev)
+  if hop_keys is None:
+    hop_keys = trandom.split(keys, max(1, len(fanouts)))   # [L, hops, 2]
+    if dev.type == 'cuda':
+      hop_keys = trandom.to_device(hop_keys, dev)
   init_seed, _, induce = _inducer_for(dedup)
   states, fronts, fmasks, invs = [], [], [], []
   for l in range(nloc):

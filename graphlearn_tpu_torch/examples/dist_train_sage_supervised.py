@@ -6,9 +6,9 @@ are communities, 85% of the edges stay inside one), partitioned into P
 shards by ``node_pb`` (``v % P`` there and by default here;
 ``partition_in_memory`` takes any book, e.g. ``RandomPartitioner``'s),
 then a tree-mode ``DistNeighborLoader`` and a data-parallel GraphSAGE
-step: each shard computes its own loss on its own batch, the gradients
-are averaged over the shards (JAX: ``lax.pmean`` over ``'g'``), and one
-Adam step follows. On a one-process mesh that is the gradient of the
+step (the package's ``DistFusedEpochTrainer`` step): each shard computes
+its own loss on its own batch, the gradients are averaged over the
+shards (JAX: ``lax.pmean`` over ``'g'``), and one Adam step follows. On a one-process mesh that is the gradient of the
 mean loss; under a process group (``init_multihost``) each rank's
 gradient is summed by ``all_reduce`` after the backward of its loss over
 P. One JSON line: the first and final loss, the final train accuracy and
@@ -89,46 +89,21 @@ def make_model(in_dim: int, hidden: int, ncls: int, fanouts, batch_size,
                    generator=generator)
 
 
-def shard_loss(model, x, edge_index, edge_mask, y, nseed, ncls: int):
-  """One shard's masked seed cross-entropy and accuracy (the JAX
-  example's ``loss_fn``)."""
-  logits = model(x, edge_index, edge_mask).float()
-  n = min(logits.shape[0], y.shape[0])      # the layered seed prefix
-  logits, y = logits[:n], y[:n].long()
-  seed_mask = torch.arange(n, device=logits.device) < nseed
-  ce = -torch.log_softmax(logits, -1).gather(
-      1, y.clamp(0, ncls - 1)[:, None])[:, 0]
-  seeds = torch.clamp(seed_mask.sum(), min=1).float()
-  loss = torch.where(seed_mask, ce, 0.0).sum() / seeds
-  acc = ((logits.argmax(-1) == y) & seed_mask).sum().float() / seeds
-  return loss, acc
-
-
 def dp_step(model, optimizer, batch, mesh, ncls: int = NUM_CLASSES):
-  """One data-parallel step over the batch's local shards: the backward
-  of the shards' losses over P, the gradients summed over the process
-  group (if any), one optimizer step. Returns the mean loss and accuracy
-  over all P shards (0-d tensors)."""
-  nparts = mesh.num_partitions
-  optimizer.zero_grad()
-  nseed = batch.num_sampled_nodes[:, 0]
-  losses, accs = [], []
-  for l in range(batch.node.shape[0]):
-    loss, acc = shard_loss(model, batch.x[l], batch.edge_index[l],
-                           batch.edge_mask[l], batch.y[l], nseed[l], ncls)
-    losses.append(loss)
-    accs.append(acc)
-  total = torch.stack(losses).sum() / nparts
-  total.backward()
-  stats = torch.stack([total.detach(), torch.stack(accs).sum() / nparts])
-  if mesh.group is not None:
-    import torch.distributed as dist
-    for p in model.parameters():
-      if p.grad is not None:
-        dist.all_reduce(p.grad, group=mesh.group)
-    dist.all_reduce(stats, group=mesh.group)
-  optimizer.step()
-  return stats[0], stats[1]
+  """One data-parallel step over the batch's local shards
+  (``loader.pipeline.data_parallel_step``, the step of
+  ``DistFusedEpochTrainer``): each shard's masked seed cross-entropy
+  (the JAX example's ``loss_fn``), the backward of their sum over P, the
+  gradients summed over the process group (if any), one optimizer step.
+  Returns the mean loss and accuracy over all P shards (0-d tensors)."""
+  from graphlearn_tpu_torch.loader.pipeline import (data_parallel_step,
+                                                    shard_batches)
+  from graphlearn_tpu_torch.models.train import make_loss_fn
+  stacked = dict(x=batch.x, edge_index=batch.edge_index,
+                 edge_mask=batch.edge_mask, y=batch.y,
+                 num_seed_nodes=batch.num_sampled_nodes[:, 0])
+  return data_parallel_step(optimizer, make_loss_fn(model, ncls),
+                            shard_batches(stacked), mesh)
 
 
 def main(argv=None):

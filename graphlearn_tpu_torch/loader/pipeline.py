@@ -14,6 +14,14 @@ graph (or run it eagerly).
 collated. JAX puts both in one program and leaves the overlap to XLA;
 here the sampling runs on a second CUDA stream. Not ported: its flight
 records.
+
+``DistFusedEpochTrainer`` is the distributed counterpart of
+``FusedEpochTrainer`` (``graphlearn_tpu/loader/pipeline.py:267``): the
+scope checks, the data-parallel step (:func:`data_parallel_step`: every
+shard's loss, the gradients, loss and accuracy averaged over all P
+shards, one optimizer step) and the per-shard sample-and-collate body
+that ``loader.DistScanTrainer`` runs for every step, with the per-step
+reference loop ``run_epoch_steps``.
 """
 from typing import Optional
 
@@ -112,6 +120,183 @@ class FusedEpochTrainer:
       return batch, res['overflow']
 
     return _sample_collate
+
+
+_DIST_REMOTE_MSG = (
+    'scanned/fused distributed epochs are COLLOCATED-MESH only: pass a '
+    'DistNeighborLoader over the training mesh (the multiprocess and '
+    'remote loaders and RemoteScanTrainer come with a later slice, '
+    'ROADMAP queue A item 7)')
+_TYPED_LATER = ('typed (heterogeneous) distributed loaders: the typed dist '
+                "engine (JAX's _hetero_engine) comes with a later "
+                'distributed slice (ROADMAP queue A item 7)')
+
+
+def data_parallel_step(optimizer, loss_fn, shards, mesh):
+  """One data-parallel optimizer step over this process's shard batches
+  (JAX: per-shard gradients, ``lax.pmean`` over every mesh axis, one
+  optax update): the backward of the local shards' losses summed over
+  P (the gradient of the mean loss on a one-process mesh), the
+  gradients summed over the process group (if any), one optimizer step.
+  ``shards``: one batch dict per local shard; ``loss_fn(batch) -> (loss,
+  acc)``. Returns the mean loss and accuracy over all P shards (0-d
+  tensors, nothing read back)."""
+  nparts = mesh.num_partitions
+  optimizer.zero_grad()
+  losses, accs = [], []
+  for batch in shards:
+    loss, acc = loss_fn(batch)
+    losses.append(loss)
+    accs.append(acc)
+  total = torch.stack(losses).sum() / nparts
+  total.backward()
+  stats = torch.stack([total.detach(), torch.stack(accs).sum() / nparts])
+  if mesh.group is not None:
+    import torch.distributed as dist
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    for p in params:
+      if p.grad is not None:
+        dist.all_reduce(p.grad, group=mesh.group)
+    dist.all_reduce(stats, group=mesh.group)
+  optimizer.step()
+  return stats[0], stats[1]
+
+
+def shard_batches(batch: dict):
+  """A stacked ``[L, ...]`` batch dict -> one batch dict per local
+  shard (``num_seed_nodes`` is ``[L]``)."""
+  return [{k: v[l] for k, v in batch.items()}
+          for l in range(batch['x'].shape[0])]
+
+
+class DistFusedEpochTrainer:
+  """Scope validation, the data-parallel step and the per-shard
+  sample+collate body of the distributed epoch trainers.
+
+  Scope: a collocated homogeneous ``DistNeighborLoader`` with feature
+  collection, a ``DistFeature`` store and node labels (supervised node
+  classification on the mesh). ``overflow_policy='recompute'``,
+  ``with_edge`` and edge features are refused, as in JAX; a typed
+  loader is refused until the typed dist engine is ported.
+  """
+
+  _NAME = 'DistFusedEpochTrainer'
+
+  def __init__(self, loader, model, num_classes: int,
+               seed_labels_only: Optional[bool] = None):
+    from ..distributed.dist_loader import DistLoader
+    if not isinstance(loader, DistLoader):
+      raise ValueError(f'{self._NAME}: {type(loader).__name__} is not a '
+                       f'collocated DistLoader. {_DIST_REMOTE_MSG}')
+    if loader.overflow_policy == 'recompute':
+      raise ValueError(_RECOMPUTE_MSG)
+    sampler = loader.sampler
+    if sampler.is_hetero or loader.input_type is not None:
+      raise ValueError(f'{self._NAME}: {_TYPED_LATER}')
+    if sampler.with_edge:
+      raise ValueError('with_edge batches are not supported in the '
+                       'fused distributed epoch programs')
+    if getattr(loader.data, 'edge_features', None):
+      raise ValueError(f'{self._NAME} does not collate edge features; '
+                       'use the per-step loader loop')
+    if not loader.collect_features or sampler.dist_feature is None:
+      raise ValueError(f'{self._NAME} needs collect_features=True and a '
+                       'DistFeature store (the fused program inlines the '
+                       'cached miss-only lookup)')
+    if loader.data.node_labels is None:
+      raise ValueError(f'{self._NAME} needs node labels')
+    self.loader = loader
+    self.model = model
+    self.num_classes = num_classes
+    self._sampler = sampler
+    self.is_hetero = False
+    self.mesh = sampler.mesh
+    self._nparts = loader.num_partitions
+    self._batch_size = loader.batch_size    # per shard
+    if seed_labels_only is None:
+      seed_labels_only = loader.seed_labels_only
+    self._label_cap = self._batch_size if seed_labels_only else None
+    self._label_store = sampler._label_dist(loader.data.node_labels)
+    self._feat = sampler.dist_feature
+    self._loss_fn = train_lib.make_loss_fn(model, num_classes)
+    self._train_state_cls = train_lib.TrainState
+
+  def _dp_step(self, state, shards):
+    """The data-parallel update over per-shard batch dicts. Returns
+    ``(state, loss, acc)``, the step count advanced."""
+    loss, acc = data_parallel_step(state.optimizer, self._loss_fn, shards,
+                                   self.mesh)
+    return state._replace(step=state.step + 1), loss, acc
+
+  def _make_sample_collate(self):
+    """``(seeds [L, B], smask [L, B], hop_keys [L, hops, 2]) -> (batch,
+    overflow, stats)``: the local shards' sample under device hop keys,
+    then the cached feature lookup and the label gather, with no host
+    read at ``bucket_frac=None``. ``batch`` holds ``[L, ...]`` tensors,
+    ``overflow`` is the mesh-summed calibrated-caps flag (0-d),
+    ``stats`` the feature store's ``[L, 4]`` counters of this lookup
+    (JAX threads them through its scan carry)."""
+    from ..distributed.dist_neighbor_sampler import _homo_hop_loop
+    sampler, mesh = self._sampler, self.mesh
+    b, label_cap = self._batch_size, self._label_cap
+    fanouts = tuple(sampler.num_neighbors)
+    caps = sampler._capacities(b)
+    node_cap = sampler._node_cap(caps)
+    gdev = sampler._dev
+    weighted = sampler._weighted_for()
+    feat, labels = self._feat, self._label_store
+    tables = self._feature_tables
+
+    def sample(seeds, smask, hop_keys):
+      return _homo_hop_loop(mesh, gdev, gdev['node_pb'], seeds, smask,
+                            None, fanouts, caps, node_cap, False, weighted,
+                            dedup=sampler.dedup,
+                            bucket_frac=sampler.bucket_frac,
+                            hop_keys=hop_keys)
+
+    self._sample = sample
+
+    def body(seeds, smask, hop_keys):
+      res = sample(seeds, smask, hop_keys)
+      ids = res['node']
+      x, stats = feat._lookup(ids, ids >= 0, tables=tables())
+      lab_ids = ids[:, :label_cap] if label_cap is not None else ids
+      y, _ = labels._lookup(lab_ids, lab_ids >= 0)
+      batch = dict(x=x, edge_index=torch.stack([res['row'], res['col']], 1),
+                   edge_mask=res['edge_mask'], y=y[..., 0],
+                   num_seed_nodes=res['num_sampled_nodes'][:, 0])
+      return batch, res['overflow'].any(), stats
+
+    return body
+
+  def _feature_tables(self):
+    """The device tables the feature lookup reads (None: the store's own
+    ``device_arrays``; the tiered trainer's hot prefix and static slab)."""
+    return None
+
+  # ------------------------------------------------- per-step reference
+
+  def train_step(self, state, batch):
+    """One data-parallel optimizer update from a collocated dist batch
+    (the loader's stacked ``Data``). Returns ``(state, loss, acc)``,
+    loss and acc as 0-d device tensors (the mean over all P shards)."""
+    stacked = dict(x=batch.x, edge_index=batch.edge_index,
+                   edge_mask=batch.edge_mask, y=batch.y,
+                   num_seed_nodes=batch.num_sampled_nodes[:, 0])
+    return self._dp_step(state, shard_batches(stacked))
+
+  def run_epoch_steps(self, state, max_steps: Optional[int] = None):
+    """The per-step reference epoch: iterate the collocated loader and
+    apply the data-parallel step per batch, the loop a shuffle=False
+    scanned epoch replays. Returns ``(state, losses)``, ``losses`` a
+    list of 0-d device tensors."""
+    losses = []
+    for batch in self.loader:
+      state, loss, _ = self.train_step(state, batch)
+      losses.append(loss)
+      if max_steps is not None and len(losses) >= max_steps:
+        break
+    return state, losses
 
 
 class OverlappedTrainer(FusedEpochTrainer):

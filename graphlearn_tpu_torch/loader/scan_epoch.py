@@ -72,8 +72,25 @@ on each later one), as in JAX. JAX re-fetches the table for each epoch's
 program; a CUDA graph keeps the addresses it captured, so the sampler
 rebuilds the table into the same tensors and every replay samples the
 epoch's table. Not ported: spans and flight records,
-the program observatory, the tuned ``config=``, the fault sites and
-``DistScanTrainer``.
+the program observatory, the tuned ``config=`` and the fault sites.
+
+``DistScanTrainer`` (``graphlearn_tpu/loader/scan_epoch.py:536``) runs
+the same frame over a collocated ``DistNeighborLoader``: the prologue
+draws the ``[P, steps, B]`` seed and mask matrices on the device (JAX's
+permutation, a cyclic ragged tail), and a chunk takes, per step and
+shard, its seed row, its hop keys (``ops.dist_step_keys``: all of the
+chunk's ``split(fold_in(base, count), P)[shard]`` keys split per hop in
+one launch), the distributed hop loop, the cached feature lookup (its
+``[L, 4]`` counters accumulate in a static buffer that is the store's
+own accumulator while the epoch runs), the label gather and the
+data-parallel step. One CUDA graph per chunk length, as here. The
+fractional exchange width is chosen by a host read
+(``distributed.verdict_syncs``), which a graph cannot make: with
+``capture=True`` (the default on a card) every exchange must be full
+width (``bucket_frac=None`` on the loader and its ``DistFeature``), or
+the trainer refuses; ``capture=False`` runs the chunks eagerly with the
+per-step loop's counted verdicts. A process-group mesh (one shard per
+rank) runs eagerly only: the chunk's collectives are not captured.
 
 Usage::
 
@@ -94,7 +111,8 @@ import torch
 from .. import ops
 from .. import random as trandom
 from .node_loader import NodeLoader
-from .pipeline import _RECOMPUTE_MSG, FusedEpochTrainer
+from .pipeline import (_RECOMPUTE_MSG, DistFusedEpochTrainer,
+                       FusedEpochTrainer, shard_batches)
 
 # chunk arguments that hold one row per step: their static buffers have
 # ``chunk_size`` rows and a chunk of k steps fills the first k
@@ -201,20 +219,29 @@ class ScanTrainer(FusedEpochTrainer):
                        f'{loader.device}: a CUDA graph captures the card\'s '
                        'launches')
     super().__init__(loader, model, num_classes, seed_labels_only)
+    b = loader._batcher
+    self._init_frame(loader.device, chunk_size, b.shuffle, b.drop_last,
+                     b.seed if perm_seed is None else perm_seed, capture,
+                     len(self._sampler.num_neighbors))
+
+  def _init_frame(self, device, chunk_size: int, shuffle: bool,
+                  drop_last: bool, perm_seed, capture: bool, n_hops: int):
+    """The epoch frame's state: the chunking, the permutation stream and
+    the captured graphs."""
     if chunk_size < 1:
       raise ValueError(f'chunk_size must be >= 1, got {chunk_size}')
     self.chunk_size = int(chunk_size)
-    self._shuffle = loader._batcher.shuffle
-    self._drop_last = loader._batcher.drop_last
-    if perm_seed is None:
-      perm_seed = loader._batcher.seed or 0
+    self._shuffle = shuffle
+    self._drop_last = drop_last
     # the permutation stream is tagged off fold_in(2**32 - 1), where no
     # host step counter lands, so epoch e never reuses step e's words
-    self._perm_key = trandom.fold_in(trandom.PRNGKey(perm_seed), 0xFFFFFFFF)
+    self._perm_key = trandom.fold_in(trandom.PRNGKey(perm_seed or 0),
+                                     0xFFFFFFFF)
     self._epochs = 0
     self._seeds_dev = None
     self.capture = bool(capture)
-    self._n_hops = len(self._sampler.num_neighbors)
+    self._device = device
+    self._n_hops = n_hops
     self._graphs = {}      # chunk length -> _ChunkGraph
     self._static = None    # the graphs' input buffers, after the warm-up
     self._signature = None  # _replay_signature of the graphs' state
@@ -246,6 +273,10 @@ class ScanTrainer(FusedEpochTrainer):
     # the batcher's arithmetic: the same step count as the per-step loop
     return len(self.loader._batcher)
 
+  def _begin_epoch(self):
+    """The loader's per-epoch start (the padded table's reseed)."""
+    self.loader._begin_epoch()
+
   def run_epoch(self, state, max_steps: Optional[int] = None,
                 start_step: int = 0, resume_overflow: bool = False):
     """One epoch. Returns ``(state, losses, accs)``, losses and accs as
@@ -266,7 +297,7 @@ class ScanTrainer(FusedEpochTrainer):
     guarded, recompute = self.loader._overflow_epoch_start()
     if recompute:
       raise ValueError(_RECOMPUTE_MSG)
-    self.loader._begin_epoch()
+    self._begin_epoch()
     full_steps = self._epoch_steps()
     steps = full_steps
     truncated = max_steps is not None and max_steps < steps
@@ -281,7 +312,7 @@ class ScanTrainer(FusedEpochTrainer):
         raise ValueError(f'start_step={start_step} outside this epoch\'s '
                          f'{steps} steps')
     if steps <= 0:
-      empty = torch.zeros(0, dtype=torch.float32, device=self.loader.device)
+      empty = torch.zeros(0, dtype=torch.float32, device=self._device)
       return state, empty, empty
     # the resume point, until a chunk is enqueued: a body that fails
     # reads as the boundary it reached
@@ -302,7 +333,7 @@ class ScanTrainer(FusedEpochTrainer):
 
   def _run_epoch_body(self, state, steps: int, full_steps: int,
                       start_step: int = 0, resume_overflow: bool = False):
-    device = self.loader.device
+    device = self._device
     if self._seeds_dev is None:
       self._seeds_dev = torch.as_tensor(
           np.asarray(self.loader.input_seeds, dtype=np.int32)).to(device)
@@ -382,7 +413,7 @@ class ScanTrainer(FusedEpochTrainer):
     if not self.capture:
       yield
       return
-    device = self.loader.device
+    device = self._device
     if self._stream is None:
       self._stream = torch.cuda.Stream(device)
     caller = torch.cuda.current_stream(device)
@@ -499,3 +530,192 @@ class ScanTrainer(FusedEpochTrainer):
     if pad:
       self.loader._epochs_started = int(pad['epochs_started'])
       self._sampler._reseed_padded(int(pad['seed']))
+
+
+class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
+  """Runs a distributed epoch as ``ceil(steps / chunk_size)`` chunks of
+  data-parallel steps over the mesh's shards.
+
+  Args:
+    loader: a collocated homogeneous ``DistNeighborLoader`` with a
+      ``DistFeature`` store and node labels.
+    model: the model of one shard's batch (each shard runs it on its own
+      batch; the gradients are averaged over the shards).
+    num_classes: label classes of the loss.
+    chunk_size: K, steps per chunk.
+    perm_seed: base seed of the epoch permutation (default: the loader's
+      seed). ``shuffle=False`` replays the loader's order (arange, a
+      cyclic ragged tail) and its keys, so such an epoch equals
+      ``run_epoch_steps``.
+    capture: one CUDA graph per chunk length (default: True on a card).
+      Needs full-width exchanges (``bucket_frac=None``) and a
+      one-process mesh; refused otherwise, never switched off silently.
+  """
+
+  _NAME = 'DistScanTrainer'
+
+  def __init__(self, loader, model, num_classes: int,
+               chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
+               perm_seed: Optional[int] = None,
+               capture: Optional[bool] = None):
+    DistFusedEpochTrainer.__init__(self, loader, model, num_classes,
+                                   seed_labels_only)
+    device = self.mesh.device
+    on_card = device.type == 'cuda'
+    if capture is None:
+      capture = on_card
+    if capture:
+      fractional = [what for what, frac in (
+          ('sampler', self._sampler.bucket_frac),
+          ('feature store', self._feat.bucket_frac),
+          ('label store', self._label_store.bucket_frac)) if frac is not None]
+      if fractional:
+        raise ValueError(
+            f'capture=True with a fractional exchange ({", ".join(fractional)}'
+            '): its width is picked by a host read of the overflow verdict, '
+            'which a CUDA graph cannot make. Build the loader and its '
+            'DistFeature with bucket_frac=None (full-width exchanges), or '
+            'pass capture=False to run the chunks eagerly')
+      if self.mesh.group is not None:
+        raise ValueError(
+            'capture=True on a process-group mesh: the chunk\'s '
+            'collectives (all_to_all_single, all_reduce) are not captured '
+            'into a CUDA graph; run it with capture=False')
+      if not on_card:
+        raise ValueError(f'capture=True needs a mesh on a CUDA device, got '
+                         f'{device}: a CUDA graph captures the card\'s '
+                         'launches')
+    self._init_frame(device, chunk_size, loader.shuffle, loader.drop_last,
+                     loader.seed if perm_seed is None else perm_seed,
+                     capture, max(1, len(self._sampler.num_neighbors)))
+    self._stats_buf = None  # the feature store's [L, 4] counters, static
+    self._sample_collate = self._make_sample_collate()
+
+  # ------------------------------------------------------------ prologue
+
+  def _seed_fn(self, seeds, key, steps: int):
+    """The epoch's ``([P, steps, B] seeds, [P, steps, B] mask)`` (JAX's
+    ``_build_seed_fn``): the permutation's prefix, or for a ragged tail
+    the order padded by cycling it, the pad slots masked invalid."""
+    n = seeds.shape[0]
+    nparts, batch = self._nparts, self._batch_size
+    dev = seeds.device
+    order = (trandom.permutation(key, n, dev) if self._shuffle
+             else torch.arange(n, dtype=torch.int32, device=dev))
+    total = steps * nparts * batch
+    if total <= n:
+      ext = order[:total]
+      maskf = torch.ones(total, dtype=torch.bool, device=dev)
+    else:
+      pad = order[torch.arange(total - n, device=dev) % n]
+      ext = torch.cat([order, pad])
+      maskf = torch.arange(total, device=dev) < n
+    seed_mat = seeds[ext.long()].reshape(steps, nparts, batch)
+    mask_mat = maskf.reshape(steps, nparts, batch)
+    return seed_mat.transpose(0, 1), mask_mat.transpose(0, 1)
+
+  def _epoch_seeds(self, key, steps: int):
+    """Step-major ``[steps, P, B]`` rows for the chunks to slice."""
+    seed_mat, mask_mat = self._seed_fn(self._seeds_dev, key, steps)
+    return (seed_mat.transpose(0, 1).contiguous(),
+            mask_mat.transpose(0, 1).contiguous())
+
+  def _epoch_steps(self) -> int:
+    return len(self.loader)
+
+  def _begin_epoch(self):
+    """No padded table on the distributed path."""
+
+  # --------------------------------------------------------------- chunk
+
+  def _run_epoch_body(self, state, steps: int, full_steps: int,
+                      start_step: int = 0, resume_overflow: bool = False):
+    try:
+      return super()._run_epoch_body(state, steps, full_steps,
+                                     start_step=start_step,
+                                     resume_overflow=resume_overflow)
+    except BaseException:
+      # a failed epoch drops its partial counts, as JAX does (its chunk
+      # had donated them): a resume restores the boundary's from the
+      # snapshot
+      self._feat.reset_stats()
+      raise
+
+  def _begin_run(self, full_steps: int):
+    """The static counter buffer becomes the store's accumulator for the
+    run, starting from the counts the store holds."""
+    st = self._feat._stats_dev()
+    if self._stats_buf is None:
+      self._stats_buf = torch.zeros_like(st)
+    if st is not self._stats_buf:
+      self._stats_buf.copy_(st)
+    self._feat._stats = self._stats_buf
+
+  def _carry(self, **carry) -> dict:
+    carry['stats'] = self._stats_buf
+    return carry
+
+  def _chunk(self, state, seeds, masks, base_key, counter):
+    """The chunk's steps, eagerly (what a capture records): the keys of
+    every step and shard in one launch, then per step the local shards'
+    sample and collate, the counters into the static buffer and the
+    data-parallel step."""
+    k = seeds.shape[0]
+    mesh = self.mesh
+    keys = ops.dist_step_keys(base_key, counter, k, self._nparts,
+                              self._n_hops)
+    ovf = torch.zeros((), dtype=torch.bool, device=seeds.device)
+    losses, accs = [], []
+    for j in range(k):
+      batch, overflow, stats = self._sample_collate(
+          mesh.local_rows(seeds[j]), mesh.local_rows(masks[j]),
+          mesh.local_rows(keys[j]))
+      self._stats_buf.add_(stats)
+      _, loss, acc = self._dp_step(state, shard_batches(batch))
+      ovf = ovf | overflow
+      losses.append(loss)
+      accs.append(acc)
+    return torch.stack(losses), torch.stack(accs), ovf, keys
+
+  def _drop_graphs(self):
+    """Forget the captured chunks (a failover's replaced trainer): the
+    graphs, their static buffers and the gradients their capture
+    allocated in the graphs' memory pool, which then goes back to the
+    card."""
+    self._graphs, self._static, self._signature = {}, None, None
+    self.model.zero_grad(set_to_none=True)
+    if self._device.type == 'cuda':
+      import gc
+      gc.collect()
+      torch.cuda.empty_cache()
+
+  # ------------------------------------------------- recovery protocol
+
+  def _flight_config(self) -> dict:
+    return dict(trainer=self._NAME, batch_size=self._batch_size,
+                chunk_size=self.chunk_size,
+                fanouts=list(self._sampler.num_neighbors),
+                shuffle=self._shuffle, num_partitions=self._nparts,
+                hetero=False, num_classes=self.num_classes,
+                seed=self.loader.seed)
+
+  def _recovery_capture(self, carry):
+    """Beyond the train state: the sampler's stream position and the
+    feature store's ``[L, 4]`` counters, so a resumed epoch's counters
+    are exact, not just its losses."""
+    return ({'sampler': self._sampler.state_dict()},
+            {'stats:': carry['stats']})
+
+  def _recovery_load(self, meta, arrays):
+    self._sampler.load_state_dict(meta['sampler'])
+    self._epochs = int(meta['epoch'])
+    if 'stats:' in arrays:
+      self._feat._stats = torch.as_tensor(
+          np.asarray(arrays['stats:'], np.int32)).to(self._device)
+
+  def _recovery_advance(self, meta):
+    """A finished epoch's snapshot: the stream goes past it; its
+    counters are not restored (they were counted before the crash)."""
+    self._sampler.load_state_dict(meta['sampler'])
+    self._sampler._call_count += int(meta['steps'])
+    self._epochs = int(meta['epoch']) + self._epochs_per_run

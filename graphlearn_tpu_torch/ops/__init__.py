@@ -5,7 +5,8 @@ routing (``route``) and stitching, the hop keys of a chunk of steps.
 The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the hot/cold
 ``gather_rows_unified``, the fused
 hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
-chunk's ``step_keys``, the sampling backends' draw ``draw.uniform``, the
+chunk's ``step_keys`` and the distributed chunk's
+``dist_step_keys``, the sampling backends' draw ``draw.uniform``, the
 negative sampler's draw and test ``random_negative_sample`` and the
 probes' ``row_gather_probe``, one counter per route, and
 ``smem_take``) keep launch counters; ``launch_counts``
@@ -28,7 +29,7 @@ from .induce_merge import (MergeInducerState, induce_next_merge,
                            init_empty_merge, init_node_merge)
 from .induce_tree import (TreeInducerState, induce_next_tree,
                           init_empty_tree, init_node_tree)
-from .keys import step_keys
+from .keys import dist_step_keys, step_keys
 from .neighbor import (BLOCK, build_padded_adjacency,
                        build_padded_adjacency_device, build_row_cumsum,
                        choose_padded_window, edge_in_csr,
@@ -59,6 +60,7 @@ _COUNTERS = {
     'sample_hop': (sample_fused, 'launches'),
     'sample_level': (sample_fused, 'level_launches'),
     'step_keys': (keys, 'launches'),
+    'dist_step_keys': (keys, 'dist_launches'),
     'uniform_draw': (draw, 'launches'),
     'negative_sample': (negative, 'launches'),
     'row_gather_probe_bulk': (probes, 'row_gather_bulk_launches'),

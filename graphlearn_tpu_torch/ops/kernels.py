@@ -47,7 +47,8 @@ SOURCES = {
                            _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _I, _P], _I)}),
     'step_keys': ('step_keys.cu', {
-        'glt_step_keys': ([_P, _P, _I, _I, _P, _I, _P], _I)}),
+        'glt_step_keys': ([_P, _P, _I, _I, _P, _I, _P], _I),
+        'glt_dist_step_keys': ([_P, _P, _I, _I, _I, _P, _I, _P], _I)}),
     'uniform_draw': ('uniform_draw.cu', {
         'glt_uniform_draw': ([_P, _L, _P, _I, _P], _I)}),
     'gather_unified': ('gather_unified.cu', {

@@ -27,7 +27,7 @@ a host sync. ``random_bits``, ``uniform`` and ``permutation`` run on the
 caller's device and take a key on the CPU or on that device. This is the
 plain version of the draw: the sampling kernels (``csrc/csr_pick.cuh``)
 run the same threefry inside the kernel, and ``csrc/step_keys.cu`` the
-fold_in and split of ``step_keys_plain``.
+fold_in and split of ``step_keys_plain`` and ``dist_step_keys_plain``.
 """
 import math
 
@@ -132,6 +132,20 @@ def step_keys_plain(base_key, counts, n_hops: int):
   if base_key.device != counts.device:
     base_key = to_device(base_key, counts.device)
   return split(fold_in(base_key, counts), n_hops)
+
+
+def dist_step_keys_plain(base_key, counts, n_parts: int, n_hops: int):
+  """The keys of a distributed chunk: ``[K, n_parts, n_hops, 2]`` words of
+  ``split(split(fold_in(base_key, counts[j]), n_parts)[p], n_hops)[h]``
+  (JAX's dist chunk draws ``split(fold_in(base_key, count), P)[shard]``
+  per step and the shard's hop loop splits it per hop), in torch ops on
+  the counts' device. The plain version of ``csrc/step_keys.cu``'s
+  ``glt_dist_step_keys``."""
+  counts = torch.as_tensor(counts, dtype=torch.int64)
+  base_key = torch.as_tensor(base_key, dtype=torch.int64)
+  if base_key.device != counts.device:
+    base_key = to_device(base_key, counts.device)
+  return split(split(fold_in(base_key, counts), n_parts), n_hops)
 
 
 def random_bits(key, shape, device=None):

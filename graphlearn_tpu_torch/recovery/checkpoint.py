@@ -2,9 +2,9 @@
 and the mid-epoch resume that replays the rest of the epoch.
 
 Counterpart of ``graphlearn_tpu/recovery/checkpoint.py``. Every draw of a
-``ScanTrainer`` / ``RunTrainer`` epoch is addressed by a counter, so a
-snapshot at a chunk boundary needs only the train state, the losses so
-far and a few counters: :meth:`ChunkCheckpointer.resume_epoch` replays
+``ScanTrainer`` / ``RunTrainer`` / ``DistScanTrainer`` epoch is addressed
+by a counter, so a snapshot at a chunk boundary needs only the train
+state, the losses so far and a few counters: :meth:`ChunkCheckpointer.resume_epoch` replays
 the remaining chunks from them, bit-identically where the device sums in
 a fixed order (the CPU) and within the card's atomics elsewhere.
 

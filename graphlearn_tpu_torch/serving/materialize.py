@@ -42,7 +42,8 @@ multi-hop forward per request.
   ntype=)`` reruns the last conv layer (and the head for the output
   type) for a bucket of one type's ids.
 
-The distributed store comes with a later slice.
+``dist_embedding_store(mesh)`` serves the final table sharded over a
+``distributed.ShardMesh`` (``store.DistEmbeddingStore``).
 """
 import os
 import re
@@ -470,6 +471,22 @@ class EmbeddingMaterializer:
     tf = TieredFeature(tier, hot_rows=hot_rows, warm_rows=warm_rows,
                        **kwargs)
     return TieredEmbeddingStore(tf, num_nodes=self.num_nodes)
+
+  def dist_embedding_store(self, mesh, **kwargs):
+    """The materialized table as a sharded ``DistEmbeddingStore`` over
+    ``mesh``, with the real node count passed (block-pad rows must not
+    become servable ids). ``kwargs`` go to ``DistEmbeddingStore.build``
+    (split_ratio / cache_rows / hotness / wire_dtype / bucket_frac)."""
+    from .store import DistEmbeddingStore
+    if self.is_hetero:
+      raise ValueError('hetero materialization produces per-type '
+                       'stores — build the one you serve explicitly '
+                       'with DistEmbeddingStore.build(table, mesh, '
+                       'num_nodes=N_type, ...)')
+    if self._embeddings is None:
+      raise RuntimeError('call materialize() first')
+    return DistEmbeddingStore.build(self._embeddings, mesh,
+                                    num_nodes=self.num_nodes, **kwargs)
 
   # ------------------------------------------------------------ refresh
 

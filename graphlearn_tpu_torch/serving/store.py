@@ -7,8 +7,9 @@ use_pallas_v2=True)`` every lookup goes through the run-segmented
 gather-v2 kernel (``ops.gather_rows_hbm2``) at any row width; without
 routing it is plain indexing, as in the JAX package.
 ``TieredEmbeddingStore`` serves a table beyond the device from a
-``storage.TieredFeature``. The distributed store comes with the
-distributed slice.
+``storage.TieredFeature``. ``DistEmbeddingStore`` serves a table sharded
+over a ``distributed.ShardMesh`` through ``DistFeature``'s cached
+miss-only lookup.
 """
 from typing import Optional
 
@@ -151,3 +152,87 @@ class TieredEmbeddingStore:
     raise NotImplementedError(
         'TieredEmbeddingStore rows are immutable: materialize again with '
         'EmbeddingMaterializer(..., spill_dir=...) and rotate the spill')
+
+
+class DistEmbeddingStore:
+  """Sharded embedding store over a mesh: a ``DistFeature`` whose rows are
+  the materialized embeddings. Its hot cache is the ``DistFeature``'s
+  replicated hot split (``split_ratio`` / ``cache_rows`` + ``hotness``),
+  and every lookup is its cached miss-only exchange (K1 for the cache and
+  the owners' rows on a card). Bucket capacities must be multiples of the
+  partition count (``granularity``): the engine spreads each padded bucket
+  ``[cap] -> [P, cap/P]``, so the lookup load-balances over the shards.
+  """
+
+  def __init__(self, dist_feature):
+    self.df = dist_feature
+    self.granularity = int(dist_feature.num_partitions)
+    self.num_nodes = int(dist_feature.feature_pb.shape[0])
+
+  @classmethod
+  def build(cls, embeddings, mesh, *, split_ratio: float = 0.0,
+            cache_rows: Optional[int] = None, hotness=None,
+            wire_dtype=None, bucket_frac=2.0,
+            num_nodes: Optional[int] = None):
+    """Partition a materialized ``[N(_pad), F]`` table into a
+    ``DistFeature`` over ``mesh`` (contiguous row blocks). Pass
+    ``num_nodes`` for materializer tables: it trims the block-padding
+    rows, which would otherwise be servable ids (prefer
+    ``EmbeddingMaterializer.dist_embedding_store``)."""
+    from ..distributed.dist_feature import DistFeature
+    emb = embeddings
+    if isinstance(emb, torch.Tensor):
+      emb = emb.detach().cpu()
+    emb = np.asarray(emb)
+    if num_nodes is not None:
+      emb = emb[:num_nodes]
+    n = emb.shape[0]
+    p = int(mesh.num_partitions)
+    pb = np.minimum((np.arange(n, dtype=np.int64) * p) // max(n, 1),
+                    p - 1).astype(np.int32)
+    parts = []
+    for i in range(p):
+      ids = np.where(pb == i)[0].astype(np.int64)
+      if ids.size == 0:   # more shards than rows: keep a dummy row
+        ids = np.zeros((1,), np.int64)
+      parts.append((ids, emb[ids]))
+    df = DistFeature(p, parts, pb, mesh=mesh, split_ratio=split_ratio,
+                     cache_rows=cache_rows, hotness=hotness,
+                     wire_dtype=wire_dtype, bucket_frac=bucket_frac)
+    return cls(df)
+
+  @property
+  def feature_dim(self) -> int:
+    return int(self.df.feature_dim)
+
+  def lookup(self, ids, mask):
+    """``[cap]`` padded ids -> ``[L, cap/P, F]`` sharded device rows
+    (reshaped back to ``[cap, F]`` by :meth:`fetch`)."""
+    ids = torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids)
+                          else ids).to(torch.int32)
+    mask = torch.as_tensor(np.asarray(mask, bool) if not
+                           torch.is_tensor(mask) else mask)
+    cap = int(ids.shape[0])
+    p = self.granularity
+    assert cap % p == 0, (
+        f'bucket capacity {cap} must be a multiple of the partition '
+        f'count {p} (engine bucket calibration)')
+    return self.df.get(ids.reshape(p, cap // p), mask.reshape(p, cap // p))
+
+  def fetch(self, rows) -> np.ndarray:
+    out = rows.cpu().numpy()
+    return out.reshape(-1, out.shape[-1])
+
+  def publish_stats(self):
+    """The hot-embedding cache's hit / miss counters since the last call
+    (one device read), then cleared. The trace counters they are
+    published to in JAX come with the tracing slice."""
+    s = self.df.stats()
+    self.df.reset_stats()
+    return s
+
+  def update_rows(self, ids, rows):
+    raise NotImplementedError(
+        'DistEmbeddingStore rows are immutable: stale nodes are refreshed '
+        'on the materializing replica and the sharded store is rebuilt on '
+        'rotation or failover')

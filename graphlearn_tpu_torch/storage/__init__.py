@@ -17,17 +17,21 @@ that feeds the scanned epoch.
 * ``TieredScanTrainer``: the scanned epoch over a ``TieredFeature``, its
   chunks captured as CUDA graphs on a card.
 
-The distributed half (``TieredDistFeature``, ``spill_partitions``,
-``DistChunkStager``, ``TieredDistScanTrainer``) comes with the
-distributed slice.
+* ``TieredDistFeature`` / ``spill_partitions``: the sharded store with
+  per-partition disk tiers (the demand-paged per-step ``get``), and
+  ``DistChunkStager`` / ``TieredDistScanTrainer``: the scanned
+  distributed epoch over each shard's hot prefix and staged slabs.
 """
 from . import planner
 from .disk import DiskTier, spill_array
+from .dist import TieredDistFeature, spill_partitions
+from .dist_scan import DistChunkStager, TieredDistScanTrainer
 from .scan import TieredScanTrainer, tiered_gather
 from .staging import ChunkStager, pad_slab, pow2_slab_cap
 from .tiered import TieredFeature
 
 __all__ = [
-    'DiskTier', 'spill_array', 'TieredScanTrainer', 'tiered_gather',
+    'DiskTier', 'spill_array', 'TieredDistFeature', 'spill_partitions',
+    'DistChunkStager', 'TieredDistScanTrainer', 'TieredScanTrainer', 'tiered_gather',
     'ChunkStager', 'pad_slab', 'pow2_slab_cap', 'TieredFeature', 'planner',
 ]

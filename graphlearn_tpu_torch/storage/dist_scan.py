@@ -1,0 +1,330 @@
+"""TieredDistScanTrainer: device oversubscription through the shard
+exchange.
+
+Counterpart of ``graphlearn_tpu/storage/dist_scan.py`` (homogeneous).
+``loader.DistScanTrainer`` keeps every shard's whole feature partition on
+the device, since any shard may ask it for any of its rows. This trainer
+runs the same epoch over a ``storage.TieredDistFeature`` of which the
+device holds only each partition's hot prefix (positions ``[0, H)`` of its
+sorted table, ``dist_scan_tables``) and a static slab of staged rows;
+the rest stays in the store's disk tiers. Losses and parameters equal
+the all-device trainer's:
+
+* **The plan prologue.** Before the first chunk the distributed sampler
+  is replayed on ids only over every step, eagerly, on the trainer's
+  stream, under the chunks' own keys (``ops.dist_step_keys`` from
+  ``count0``). The ``[steps, P, node_cap]`` node ids come to the host in
+  one copy (the epoch's one host sync) and ``planner.plan_exchange``
+  turns them into the exact per-chunk miss-exchange program: which
+  positions of each shard's table the shards will ask it for, beyond
+  the replicated hot cache and the hot prefix.
+* **Chunk-boundary staging.** While chunk ``c`` trains, a
+  ``DistChunkStager`` worker gathers chunk ``c+1``'s planned positions
+  from the tiers into a pinned ``[P, cap]`` / ``[P, cap, F]`` ring slab
+  (pow2 ``cap``: the chunk's largest per-shard count). At the boundary
+  the dispatch thread copies it into the trainer's static device slab on
+  the trainer's stream without blocking the host, records an event after
+  the copy and acks the chunk with it: the worker refills that ring slot
+  only once the event has completed.
+* **The slab-backed owner lookup.** The chunk's feature lookup is
+  ``DistFeature._lookup`` over the hot prefix and the static slab: an
+  owner resolves a request's position as before and takes its row from
+  the hot prefix (K1) or the slab. Under the exact plan every staged
+  row equals the all-device row.
+* **Slab shapes under CUDA graphs.** JAX compiles one program per
+  (chunk length, pow2 slab cap); here the static slab is one ``[P,
+  cap]`` buffer pair at the plan's largest cap (INT32_MAX past a chunk's
+  own), and one graph per chunk length. An epoch whose plan needs a
+  larger cap reallocates the slab and drops the graphs in its prologue.
+* **Degradation, never corruption.** A failed or slow worker degrades to
+  a synchronous gather of the same planned positions
+  (``storage.prefetch_miss``).
+
+Scope: a one-process mesh (the prologue and the stager read every
+shard's rows on one host), homogeneous; the typed variant waits for the
+typed dist engine. Labels stay a full (small) ``DistFeature``. Not
+ported: the spans, the tuned ``config=`` and the ``storage.dist_stage``
+fault site (``DistChunkStager._stage_fault`` is its no-op seam).
+"""
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import metrics
+from .. import ops
+from ..loader.scan_epoch import DistScanTrainer
+from ..sampler.capacity import CapacityPlanError
+from . import planner
+from .dist import TieredDistFeature
+from .staging import INT32_MAX, ChunkStager, _Slot, pow2_slab_cap
+
+
+class DistChunkStager(ChunkStager):
+  """``ChunkStager`` whose plan rows are encoded ``p * n_max + position``
+  addresses (``planner.ExchangePlan``) and whose slabs come back in the
+  ``[P, cap]`` per-shard layout the chunk's lookup reads. Pad slots carry
+  INT32_MAX positions (a binary search never matches them); per-shard
+  position lists stay sorted because the encoded plan is."""
+
+  def _ring_cap(self, chunk_rows) -> int:
+    """The plan's largest per-shard pow2 count (``ExchangePlan``'s)."""
+    store = self.store
+    caps = [1]
+    for enc in chunk_rows:
+      if enc.size:
+        per = np.bincount(np.asarray(enc) // store.n_max,
+                          minlength=store.num_partitions)
+        caps.append(pow2_slab_cap(int(per.max())))
+    return max(caps)
+
+  def _new_slot(self, cap: int) -> _Slot:
+    # cap rows a shard, flat, so each chunk's [P, cap] view is contiguous
+    return _Slot(self.store.num_partitions * cap, self.store.feature_dim,
+                 self._row_dtype(), self._pin)
+
+  def _gather_to(self, enc: np.ndarray, alloc):
+    """Gather the planned positions of ``enc`` into ``[P, cap]`` ids and
+    ``[P, cap, F]`` rows from ``alloc(cap)`` (pads: INT32_MAX, zeros)."""
+    store = self.store
+    enc = np.asarray(enc, np.int64)
+    owners = enc // store.n_max
+    pos = enc % store.n_max
+    counts = np.bincount(owners, minlength=store.num_partitions)
+    ids, rows = alloc(pow2_slab_cap(int(counts.max()) if enc.size else 1))
+    ids_np, rows_np = ids.numpy(), rows.numpy()
+    ids_np.fill(INT32_MAX)
+    rows_np.fill(0)
+    for p in range(store.num_partitions):
+      kp = int(counts[p])
+      if kp:
+        m = owners == p
+        ids_np[p, :kp] = pos[m].astype(np.int32)
+        rows_np[p, :kp] = store.gather_positions(p, pos[m])
+    metrics.inc('storage.dist_staged_rows', int(enc.shape[0]))
+    return ids, rows
+
+  def _gather_into(self, enc: np.ndarray, slot: _Slot):
+    nparts, f = self.store.num_partitions, self.store.feature_dim
+    return self._gather_to(enc, lambda cap: (
+        slot.ids[:nparts * cap].view(nparts, cap),
+        slot.rows[:nparts * cap].view(nparts, cap, f)))
+
+  def _gather(self, enc: np.ndarray):
+    """The degraded path's synchronous gather: a fresh slab (pinned on a
+    card), the same bytes as the worker's."""
+    nparts, f = self.store.num_partitions, self.store.feature_dim
+    return self._gather_to(enc, lambda cap: (
+        torch.empty((nparts, cap), dtype=torch.int32, pin_memory=self._pin),
+        torch.empty((nparts, cap, f), dtype=self._row_dtype(),
+                    pin_memory=self._pin)))
+
+
+class TieredDistScanTrainer(DistScanTrainer):
+  """``DistScanTrainer`` over a ``TieredDistFeature`` whose device holds
+  only each shard's hot prefix and the staged slab (module docstring).
+
+  Args (beyond ``DistScanTrainer``'s):
+    max_ahead: staged chunks in flight (2 = double buffer).
+    stage_timeout_s: how long a chunk boundary waits for its slab before
+      degrading to a synchronous gather.
+
+  After an epoch: ``last_plan`` (its ``planner.ExchangePlan``),
+  ``prologue_ms`` and :meth:`chunk_timings`.
+  """
+
+  _NAME = 'TieredDistScanTrainer'
+
+  def __init__(self, loader, model, num_classes: int,
+               chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
+               perm_seed: Optional[int] = None, max_ahead: int = 2,
+               stage_timeout_s: float = 30.0,
+               capture: Optional[bool] = None):
+    sampler = getattr(loader, 'sampler', None)
+    store = getattr(sampler, 'dist_feature', None)
+    if isinstance(store, dict):
+      raise ValueError(f'{self._NAME}: per-type stores come with the typed '
+                       'dist engine (ROADMAP queue A item 7)')
+    if not isinstance(store, TieredDistFeature):
+      raise CapacityPlanError(
+          self._NAME,
+          'the feature store carries no slab capacities (a '
+          f'{type(store).__name__}, not a TieredDistFeature)',
+          hint='build the store as storage.TieredDistFeature('
+               'hot_prefix_rows >= 1) so the exchange planner can close '
+               'its slab shapes; all-device DistFeature partitions keep '
+               'loader.DistScanTrainer')
+    if store.hot_prefix_rows < 1:
+      raise CapacityPlanError(
+          self._NAME, 'the store declares no hot prefix (hot_prefix_rows '
+          '< 1)', hint='the chunk clamps pad positions into the hot '
+          'prefix: pass hot_prefix_rows >= 1 at store construction')
+    if store.mesh.group is not None:
+      raise ValueError(f'{self._NAME} plans and stages every shard on one '
+                       'host: a one-process mesh only')
+    self._store = store
+    self._slab_pos = None     # the static device slab, [L, cap]
+    self._slab_rows = None
+    super().__init__(loader, model, num_classes, chunk_size,
+                     seed_labels_only, perm_seed, capture)
+    self._stager = DistChunkStager(store, max_ahead=max_ahead,
+                                   timeout_s=stage_timeout_s)
+    self.last_plan = None
+    self.prologue_ms = None
+    self._epoch_span = (0, 0)
+    self._chunk_log = []
+
+  def _feature_tables(self):
+    """The hot prefix and the static slab, read at call time (a capture
+    records their addresses)."""
+    return dict(self._store.dist_scan_tables(), slab_pos=self._slab_pos,
+                slab_rows=self._slab_rows)
+
+  # ------------------------------------------------------------ prologue
+
+  def _run_epoch_body(self, state, steps: int, full_steps: int,
+                      start_step: int = 0, resume_overflow: bool = False):
+    self._epoch_span = (steps, start_step)
+    self._chunk_log = []
+    return super()._run_epoch_body(state, steps, full_steps, start_step,
+                                   resume_overflow)
+
+  def _prologue(self, full_steps: int):
+    """The seed matrices, then the epoch's exchange plan: the id-only
+    replay of the sampler over its steps, one fetch of the node ids, the
+    per-chunk miss sets, the static slab sized for them and the stager
+    primed at the resume chunk."""
+    seed_mat, mask_mat = super()._prologue(full_steps)
+    steps, start_step = self._epoch_span
+    t0 = time.perf_counter()
+    with self._capture_stream():
+      rows_mat = self._plan_rows(seed_mat[:steps], mask_mat[:steps])
+      rows_host = rows_mat.cpu().numpy()      # the epoch's one host sync
+      del rows_mat
+      store = self._store
+      plan = planner.plan_exchange(
+          rows_host.transpose(1, 0, 2), self.chunk_size, store.feature_pb,
+          store.feat_ids, store.hot_prefix_rows, cache_ids=store.cache_ids)
+      self._size_slab(max(plan.slab_caps()))
+    self.last_plan = plan
+    self._stager.begin_epoch(plan.chunk_rows,
+                             start_chunk=start_step // self.chunk_size)
+    self.prologue_ms = (time.perf_counter() - t0) * 1e3
+    return seed_mat, mask_mat
+
+  def _plan_rows(self, seed_mat, mask_mat):
+    """``[steps, P, node_cap]`` node ids of every step, sampled under the
+    chunks' own keys."""
+    device = seed_mat.device
+    steps = seed_mat.shape[0]
+    base_key = torch.as_tensor(self._sampler._key).to(device)
+    counter = torch.full((), self._sampler._call_count + 1,
+                         dtype=torch.int64, device=device)
+    keys = ops.dist_step_keys(base_key, counter, steps, self._nparts,
+                              self._n_hops)
+    mesh = self.mesh
+    return torch.stack([
+        self._sample(mesh.local_rows(seed_mat[g]),
+                     mesh.local_rows(mask_mat[g]),
+                     mesh.local_rows(keys[g]))['node']
+        for g in range(steps)])
+
+  def _size_slab(self, cap: int):
+    """Hold a static slab of at least ``cap`` positions a shard; a larger
+    one is a new allocation, so the graphs over the old one go."""
+    if self._slab_pos is not None and self._slab_pos.shape[1] >= cap:
+      return
+    store, mesh = self._store, self.mesh
+    self._graphs = {}
+    self._slab_pos = torch.full((mesh.num_local, cap), INT32_MAX,
+                                dtype=torch.int32, device=mesh.device)
+    self._slab_rows = torch.zeros((mesh.num_local, cap, store.feature_dim),
+                                  dtype=store.storage_dtype,
+                                  device=mesh.device)
+
+  @property
+  def slab_bytes(self) -> int:
+    if self._slab_pos is None:
+      return 0
+    return sum(t.numel() * t.element_size()
+               for t in (self._slab_pos, self._slab_rows))
+
+  # --------------------------------------------------------------- chunk
+
+  def _chunk_args(self, seed_mat, mask_mat, base_key, count: int,
+                  start: int, k: int) -> dict:
+    args = super()._chunk_args(seed_mat, mask_mat, base_key, count, start,
+                               k)
+    self._load_slab(start // self.chunk_size)
+    return args
+
+  def _event(self):
+    if self._device.type != 'cuda':
+      return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+  def _load_slab(self, c: int):
+    """Chunk ``c``'s slab into the static device slab, on the current
+    stream (the trainer's), without blocking the host."""
+    ids, rows = self._stager.take(c)
+    cap = ids.shape[1]
+    start = self._event()
+    self._slab_pos[:, :cap].copy_(ids, non_blocking=True)
+    if cap < self._slab_pos.shape[1]:
+      self._slab_pos[:, cap:].fill_(INT32_MAX)
+    self._slab_rows[:, :cap].copy_(rows, non_blocking=True)
+    copied = self._event()
+    n = int(self.last_plan.chunk_rows[c].shape[0])
+    self._chunk_log.append(dict(
+        chunk=c, rows=n, cap=int(cap),
+        slab_bytes=rows.numel() * rows.element_size() + ids.numel() * 4,
+        events=[start, copied]))
+
+  def _chunk_enqueued(self, c: int):
+    rec = self._chunk_log[-1]
+    rec['events'].append(self._event())
+    # the ring slot is refilled only once the slab's copy has completed
+    self._stager.ack(c, rec['events'][1])
+
+  def chunk_timings(self) -> list:
+    """Per chunk of the last epoch: planned rows, slab cap and bytes, the
+    worker's stage ms, the dispatch thread's wait at ``take`` (ms) and,
+    on a card, the slab's host-to-device copy and the chunk's device ms
+    (CUDA events; reading them waits for the epoch's end)."""
+    out = []
+    for rec in self._chunk_log:
+      c = rec['chunk']
+      r = {k: v for k, v in rec.items() if k != 'events'}
+      r['stage_ms'] = self._stager.stage_ms.get(c)
+      r['wait_ms'] = self._stager.wait_ms.get(c)
+      start, copied, done = rec['events']
+      if done is not None:
+        done.synchronize()
+        r['copy_ms'] = start.elapsed_time(copied)
+        r['device_ms'] = copied.elapsed_time(done)
+      else:
+        r['copy_ms'] = r['device_ms'] = None
+      out.append(r)
+    return out
+
+  # ------------------------------------------------- recovery protocol
+
+  def _flight_config(self) -> dict:
+    cfg = super()._flight_config()
+    cfg.update(hot_prefix_rows=self._store.hot_prefix_rows,
+               n_max=self._store.n_max)
+    return cfg
+
+  def _recovery_capture(self, carry):
+    """``DistScanTrainer``'s capture plus the staging ring's watermarks
+    (diagnostic: a resume plans and stages again)."""
+    meta, dev = super()._recovery_capture(carry)
+    meta['staging'] = self._stager.watermarks()
+    return meta, dev
+
+  def close(self):
+    """Stop the staging worker thread."""
+    self._stager.close()

@@ -1,7 +1,8 @@
 """Epoch prefetch planner: the scanned epoch's miss set, known up front.
 
-Counterpart of ``graphlearn_tpu/storage/planner.py`` (homogeneous; the
-distributed ``ExchangePlan`` comes with the distributed slice). The
+Counterpart of ``graphlearn_tpu/storage/planner.py``, with the
+distributed ``ExchangePlan`` (:func:`plan_exchange`: host numpy, the
+same code). The
 scanned epoch draws its seed permutation at the prologue and the sampler
 derives every step's key from the ``fold_in`` counter stream, so the
 epoch's whole feature access set is a pure function of (seeds, perm key,
@@ -79,6 +80,93 @@ def plan_from_rows(rows_mat: np.ndarray, chunk_size: int, hot_rows: int,
     block = rows_mat[start:start + chunk_size].reshape(-1)
     uniq = np.unique(block)
     plan.chunk_rows.append(uniq[uniq >= hot_rows].astype(np.int64))
+  return plan
+
+
+@dataclass
+class ExchangePlan:
+  """Per-chunk miss-exchange program for one scanned distributed epoch
+  (``storage/dist_scan.py``): which positions of each shard's sorted row
+  table its peers (or the shard itself) will request during each chunk,
+  beyond the replicated hot cache and the per-partition HBM hot prefix.
+
+  ``chunk_rows[c]`` holds ENCODED sorted staging rows
+  ``p * n_max + position`` — the flat address space the dist stager
+  decodes back into per-shard slabs. The unit is the POSITION in the
+  owning partition's sorted id table (what ``_shard_body`` resolves
+  requests to in-program), so "planned" and "served" can never disagree
+  on routing."""
+  chunk_size: int
+  n_max: int
+  hot_prefix_rows: int
+  num_partitions: int
+  chunk_rows: List[np.ndarray] = field(default_factory=list)
+
+  @property
+  def num_chunks(self) -> int:
+    return len(self.chunk_rows)
+
+  def slab_caps(self) -> List[int]:
+    """Per-chunk pow2 PER-SHARD slab capacities (the closed staging
+    shape set the chunk programs compile against): the max per-shard
+    staged count of the chunk, padded to a power of two."""
+    caps = []
+    for enc in self.chunk_rows:
+      if enc.size:
+        per = np.bincount(enc // self.n_max,
+                          minlength=self.num_partitions)
+        caps.append(pow2_slab_cap(int(per.max())))
+      else:
+        caps.append(1)
+    return caps
+
+  def stats(self) -> dict:
+    rows = [int(r.shape[0]) for r in self.chunk_rows]
+    return dict(chunks=self.num_chunks, planned_rows=int(sum(rows)),
+                max_chunk_rows=int(max(rows)) if rows else 0,
+                slab_caps=sorted(set(self.slab_caps())))
+
+
+def plan_exchange(rows_mat: np.ndarray, chunk_size: int,
+                  feature_pb: np.ndarray, feat_ids: np.ndarray,
+                  hot_prefix_rows: int,
+                  cache_ids: Optional[np.ndarray] = None) -> ExchangePlan:
+  """The exact miss-exchange program from the prologue's replayed
+  [P, steps, node_cap] node-id matrix (FILL pads < 0).
+
+  Mirrors the in-program lookup exactly: ids hitting the REPLICATED hot
+  cache never enter the exchange (the cache split happens before the
+  all_to_all), every other requested id routes to its owning partition
+  (``feature_pb``) and resolves to a position in that partition's
+  sorted id table; positions below the HBM ``hot_prefix_rows`` are
+  device-resident and drop out, the rest dedup per chunk into the
+  encoded staging list."""
+  rows_mat = np.asarray(rows_mat)
+  nparts, steps = rows_mat.shape[0], rows_mat.shape[1]
+  n_max = feat_ids.shape[1]
+  plan = ExchangePlan(chunk_size=int(chunk_size), n_max=int(n_max),
+                      hot_prefix_rows=int(hot_prefix_rows),
+                      num_partitions=int(nparts))
+  feature_pb = np.asarray(feature_pb)
+  for start in range(0, steps, chunk_size):
+    blk = rows_mat[:, start:start + chunk_size].reshape(-1)
+    blk = np.unique(blk[blk >= 0]).astype(np.int64)
+    if cache_ids is not None and cache_ids.size:
+      cpos = np.clip(np.searchsorted(cache_ids, blk), 0,
+                     cache_ids.shape[0] - 1)
+      blk = blk[cache_ids[cpos] != blk]
+    owners = feature_pb[blk]
+    enc = []
+    for p in range(nparts):
+      ids_p = blk[owners == p]
+      pos = np.clip(np.searchsorted(feat_ids[p], ids_p), 0, n_max - 1)
+      found = feat_ids[p][pos] == ids_p
+      stage = pos[found & (pos >= hot_prefix_rows)].astype(np.int64)
+      if stage.size:
+        enc.append(p * n_max + stage)
+    plan.chunk_rows.append(
+        np.sort(np.concatenate(enc)) if enc else
+        np.zeros((0,), np.int64))
   return plan
 
 

@@ -81,9 +81,10 @@ class _Slot:
   """A ring slot: host buffers (pinned on a card) the worker writes a
   chunk's slab into, and the event after which the last chunk's copy
   out of it has completed."""
-  __slots__ = ('ids', 'rows', 'chunk', 'release')
+  __slots__ = ('ids', 'rows', 'chunk', 'release', 'cap')
 
   def __init__(self, cap: int, dim: int, dtype, pin: bool):
+    self.cap = cap
     self.ids = torch.empty((cap,), dtype=torch.int32, pin_memory=pin)
     self.rows = torch.empty((cap, dim), dtype=dtype, pin_memory=pin)
     self.chunk = None      # chunk whose slab the slot holds (None: free)
@@ -151,7 +152,7 @@ class ChunkStager:
     if not 0 <= start_chunk <= len(chunk_rows):
       raise ValueError(f'start_chunk={start_chunk} outside the '
                        f'{len(chunk_rows)}-chunk plan')
-    cap = max([pow2_slab_cap(int(r.shape[0])) for r in chunk_rows] or [1])
+    cap = self._ring_cap(chunk_rows)
     with self._lock:
       self._plan = list(chunk_rows)
       self._slabs = {}
@@ -161,12 +162,11 @@ class ChunkStager:
       self.stage_done_t, self.ack_t = {}, {}
       self.stage_ms, self.wait_ms = {}, {}
       self.refills = []
-      if not self._slots or self._slots[0].ids.shape[0] < cap:
+      if not self._slots or self._slots[0].cap < cap:
         # the old slots stay alive while the worker or a copy holds them
         # (a pinned block is reused only after its copies' events)
-        self._slots = [
-            _Slot(cap, self.store.shape[1], self._row_dtype(), self._pin)
-            for _ in range(self.max_ahead + 1)]
+        self._slots = [self._new_slot(cap)
+                       for _ in range(self.max_ahead + 1)]
       else:
         for s in self._slots:
           s.chunk = None     # an earlier epoch's chunks are all acked
@@ -176,6 +176,14 @@ class ChunkStager:
 
   def _row_dtype(self):
     return torch.from_numpy(np.zeros((0,), self.store._np_dtype)).dtype
+
+  def _ring_cap(self, chunk_rows) -> int:
+    """The slab capacity the ring's slots are sized for: the plan's
+    largest pow2 chunk."""
+    return max([pow2_slab_cap(int(r.shape[0])) for r in chunk_rows] or [1])
+
+  def _new_slot(self, cap: int) -> '_Slot':
+    return _Slot(cap, self.store.shape[1], self._row_dtype(), self._pin)
 
   @property
   def ring_bytes(self) -> int:

@@ -2087,3 +2087,158 @@ def test_dist_batches_on_card_match_cpu(cuda, dedup, frac):
                       loader.sampler._keys_for(2), batch,
                       torch.as_tensor(feats).to(cuda),
                       torch.as_tensor(labels).to(cuda))
+
+
+@pytest.mark.parametrize('n_steps,n_parts,count', [(1, 4, 0), (4, 4, 7),
+                                                   (3, 2, 2 ** 32 - 2),
+                                                   (16, 8, 2 ** 31 - 5)])
+def test_dist_step_keys_kernel_matches_plain(cuda, n_steps, n_parts, count):
+  """The distributed chunk's keys from a device counter: exact against
+  ``random.dist_step_keys_plain`` on the same device words (counts past
+  2**31 and 2**32 wrap); one launch, no host sync."""
+  base = gtt.random.fold_in(gtt.random.PRNGKey(5), 1)
+  dbase = gtt.random.to_device(base, cuda)
+  counter = torch.full((), count, dtype=torch.int64, device=cuda)
+  before = ops.launch_counts()['dist_step_keys']
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    got = ops.dist_step_keys(dbase, counter, n_steps, n_parts, 3)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  torch.cuda.synchronize()
+  assert ops.launch_counts()['dist_step_keys'] == before + 1
+  want = gtt.random.dist_step_keys_plain(
+      base, count + torch.arange(n_steps, dtype=torch.int64), n_parts, 3)
+  assert got.shape == (n_steps, n_parts, 3, 2)
+  assert torch.equal(got.cpu(), want)
+
+
+def _dist_scan_pair(cuda, frac=None):
+  """Two DistScanTrainers from one start over P = 4 shards of a 4,000-node
+  graph on the card, captured and eager: 5 steps of 4 x 32 seeds (the
+  last ragged) in chunks of 2, tree batches."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs = _chip_smoke()
+  n, p, b = 4000, 4, 32
+  ei, feats, labels = cs.make_graph(n, 10)
+  pb = cs.dist_book(n, p)
+  parts, fparts = ex.partition_in_memory(ei, feats, pb, p)
+  pool = np.random.default_rng(2).permutation(n)[:4 * p * b + 40]
+  out = []
+  for capture in (True, False):
+    mesh = gdist.ShardMesh(p, cuda)
+    ds = gdist.DistDataset(p, 0, gdist.DistGraph(p, 0, parts, pb),
+                           gdist.DistFeature(p, fparts, pb, mesh,
+                                             split_ratio=0.1,
+                                             bucket_frac=frac),
+                           node_labels=labels)
+    loader = gdist.DistNeighborLoader(ds, [5, 3], pool, batch_size=b,
+                                      shuffle=True, drop_last=False, seed=0,
+                                      mesh=mesh, dedup='tree',
+                                      bucket_frac=frac)
+    model = ex.make_model(cs.FEAT_DIM, 32, cs.CLASSES, [5, 3], b, cuda,
+                          torch.Generator().manual_seed(0))
+    out.append((gtt.loader.DistScanTrainer(loader, model, cs.CLASSES,
+                                           chunk_size=2, capture=capture),
+                gtt.models.create_train_state(model)))
+  return out
+
+
+def test_dist_scan_trainer_captured_matches_eager(cuda):
+  """The captured DistScanTrainer against the eager one from one start,
+  three epochs of 5 steps in chunks of 2 (a tail chunk of 1): losses and
+  parameters within rtol 1e-4, launch counters equal (K3 P x hops and K1
+  3P a step, one dist_step_keys a chunk), the feature counters exact, the
+  graphs' keys the plain keys of the epoch's last chunks, and the third
+  epoch (replays only) under ``set_sync_debug_mode('error')``."""
+  (cap, cstate), (eag, estate) = _dist_scan_pair(cuda)
+  assert cap.capture and not eag.capture
+  for epoch in range(3):
+    count0 = cap._sampler._call_count + 1
+    counts = {}
+    for name, t, st in (('cap', cap, cstate), ('eag', eag, estate)):
+      ops.reset_launch_counts()
+      if name == 'cap' and epoch == 2:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+      try:
+        st, losses, _ = t.run_epoch(st)
+      finally:
+        torch.cuda.set_sync_debug_mode('default')
+      torch.cuda.synchronize()
+      counts[name] = ops.launch_counts()
+      if name == 'cap':
+        cstate, closs = st, losses
+      else:
+        estate, eloss = st, losses
+    assert counts['cap'] == counts['eag']
+    assert counts['cap']['sample_hop'] == 4 * 2 * 5
+    assert counts['cap']['gather_rows'] == 3 * 4 * 5
+    assert counts['cap']['dist_step_keys'] == 3
+    torch.testing.assert_close(closs, eloss, rtol=1e-4, atol=0)
+    assert cap._feat.stats() == eag._feat.stats()
+    want = gtt.random.dist_step_keys_plain(
+        cap._sampler._key, count0 + torch.arange(5, dtype=torch.int64), 4, 2)
+    if 1 in cap._graphs:
+      assert torch.equal(cap._graphs[1].keys.cpu(), want[4:])
+    if 2 in cap._graphs:
+      assert torch.equal(cap._graphs[2].keys.cpu(), want[2:4])
+  assert sorted(cap._graphs) == [1, 2]
+  for a, b in zip(cap.model.parameters(), eag.model.parameters()):
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_dist_scan_trainer_refuses_capture_with_a_fractional_exchange(cuda):
+  (t, _), _ = _dist_scan_pair(cuda, frac=None)
+  loader = t.loader
+  loader.sampler.bucket_frac = 2.0
+  with pytest.raises(ValueError, match='bucket_frac=None'):
+    gtt.loader.DistScanTrainer(loader, t.model, 3, chunk_size=2)
+  eager = gtt.loader.DistScanTrainer(loader, t.model, 3, chunk_size=2,
+                                     capture=False)
+  assert not eager.capture
+
+
+def test_dist_staging_slot_waits_for_its_copy_event(cuda, tmp_path):
+  """H7a for the distributed stager on the card: a ``[P, cap]`` slab
+  copied to the device behind a long kernel and acked with the copy's
+  event; the chunk sharing its ring slot is not staged until the event
+  has completed, and the device copy holds the first slab's bytes."""
+  from graphlearn_tpu_torch import distributed as gdist
+  p, n = 2, 64
+  feat = np.random.default_rng(5).standard_normal((n, 4)).astype(np.float32)
+  pb = (np.arange(n) % p).astype(np.int32)
+  parts = [(np.nonzero(pb == i)[0], feat[pb == i]) for i in range(p)]
+  store = gtt.storage.TieredDistFeature(
+      p, parts, pb, mesh=gdist.ShardMesh(p, cuda),
+      spill_dir=str(tmp_path / 'sp'), hot_prefix_rows=4)
+  n_max = store.n_max
+  enc = [np.array([4, 5, n_max + 6, n_max + 7]),
+         np.array([8, n_max + 9]), np.array([10, 11, n_max + 12])]
+  stager = gtt.storage.DistChunkStager(store, max_ahead=1, timeout_s=30.0)
+  stager.begin_epoch(enc)
+  ids0, rows0 = stager.take(0)
+  assert rows0.is_pinned() and ids0.is_pinned()
+  assert ids0.shape == (p, 2) and rows0.shape == (p, 2, 4)
+  want0 = rows0.clone()
+  dst = torch.empty(rows0.shape, device=cuda)
+  torch.cuda._sleep(2_000_000_000)           # ~1 s of spin ahead of it
+  dst.copy_(rows0, non_blocking=True)
+  ev = torch.cuda.Event()
+  ev.record()
+  stager.ack(0, ev)
+  stager.take(1)                             # submits chunk 2 (slot 0)
+  time.sleep(0.2)
+  assert not ev.query() and 2 not in stager.stage_done_t
+  ids2, rows2 = stager.take(2)               # staged once the event is done
+  assert ev.query() and not stager.degraded
+  assert ids2.data_ptr() == ids0.data_ptr()
+  torch.cuda.synchronize()
+  assert torch.equal(dst.cpu(), want0)
+  assert torch.equal(want0[0], torch.from_numpy(
+      store.cpu_get(store.feat_ids[0, [4, 5]]).numpy()))
+  assert ids2[0].tolist() == [10, 11] and ids2[1].tolist()[0] == 12
+  stager.close()

@@ -8,8 +8,10 @@ spawned once for the module, each on a rendezvous port from
 None, with edge ids) equal, exactly, the one-process ``ShardMesh``
 result for that shard, and one data-parallel step of the example (the
 gradients summed by ``all_reduce``) leaves the same parameters and loss
-as the one-process step. The one-process side is held against JAX's
-shard_map programs in ``tests/test_torch_distributed.py``.
+as the one-process step, and an eager ``DistScanTrainer`` epoch equals
+the one-process epoch (``capture=True`` is refused on a group). The
+one-process side is held against JAX's shard_map programs in
+``tests/test_torch_distributed.py`` and ``tests/test_torch_dist_scan.py``.
 """
 import multiprocessing as mp
 import os
@@ -96,7 +98,39 @@ def run_all(mesh):
   out['acc'] = acc.detach()
   for name, p in model.state_dict().items():
     out[f'param/{name}'] = p.detach().clone()
+  out.update(scan_epoch(mesh, parts, feats, node_pb, edge_pb))
   return {k: v.cpu() for k, v in out.items() if v is not None}
+
+
+def scan_epoch(mesh, parts, feats, node_pb, edge_pb):
+  """An eager ``DistScanTrainer`` epoch over the ring (5 steps, chunks of
+  2, the last step ragged): its losses and parameters; under a process
+  group, whether ``capture=True`` is refused for the group."""
+  out = {}
+  df = gdist.DistFeature(P, feats, node_pb, mesh, split_ratio=0.25,
+                         bucket_frac=None)
+  ds = gdist.DistDataset(P, 0, gdist.DistGraph(P, 0, parts, node_pb,
+                                               edge_pb), df,
+                         node_labels=np.arange(N) % 3)
+  loader = gdist.DistNeighborLoader(ds, [2, 2], np.arange(18), batch_size=2,
+                                    shuffle=True, drop_last=False, seed=0,
+                                    mesh=mesh, bucket_frac=None)
+  model = gtt.models.GraphSAGE(4, 8, 3, num_layers=2, device='cpu',
+                               generator=torch.Generator().manual_seed(0))
+  if mesh.group is not None:
+    try:
+      gtt.loader.DistScanTrainer(loader, model, 3, chunk_size=2,
+                                 capture=True)
+      out['group_refused'] = torch.tensor(False)
+    except ValueError as e:
+      out['group_refused'] = torch.tensor('process-group' in str(e))
+  trainer = gtt.loader.DistScanTrainer(loader, model, 3, chunk_size=2)
+  state = gtt.models.create_train_state(model, lr=1e-2)
+  state, losses, _ = trainer.run_epoch(state)
+  out['scan/losses'] = losses
+  for name, p in model.state_dict().items():
+    out[f'scan/param/{name}'] = p.detach().clone()
+  return out
 
 
 def _rank_main(rank, port, outdir):
@@ -167,4 +201,18 @@ def test_dp_step_all_reduce_equals_one_process(ranks, whole):
     torch.testing.assert_close(res['acc'], whole['acc'], **TOL)
     for k, v in whole.items():
       if k.startswith('param/'):
+        torch.testing.assert_close(res[k], v, **TOL, msg=k)
+
+
+def test_scanned_epoch_on_the_group_equals_one_process(ranks, whole):
+  """One shard per rank, the gradients summed by ``all_reduce``: the
+  eager scanned epoch equals the one-process mesh's; ``capture=True`` is
+  refused on a group (its collectives are not captured)."""
+  assert whole['scan/losses'].shape == (5,)
+  for res in ranks:
+    assert bool(res['group_refused'])
+    torch.testing.assert_close(res['scan/losses'], whole['scan/losses'],
+                               **TOL)
+    for k, v in whole.items():
+      if k.startswith('scan/param/'):
         torch.testing.assert_close(res[k], v, **TOL, msg=k)

@@ -29,12 +29,10 @@ TRACING = 'the JAX tracing hooks: queue A item 8 (metrics, trace, strict)'
 JAX_ONLY = 'JAX-only: compilation cache, jax device placement, shard_map'
 DIST_NEXT = ('the dist link, subgraph and typed samplers and loaders: the '
              'next distributed slice (ROADMAP queue A item 7)')
-TRAINERS = ('the distributed trainers and failover, with CapacityPlan: '
-            'ROADMAP queue A item 7')
+REMOTE_SCAN = ('the chunk-staged remote scan (block producers, '
+               'RemoteScanTrainer): ROADMAP queue A item 7')
 REMOTE = ('the multiprocess and remote sampling producers, servers, '
           'clients and channels: ROADMAP queue A item 7')
-DIST_STORE = ('the distributed scanned store and serving tier: ROADMAP '
-              'queue A item 7')
 TUNE = 'tune/: ROADMAP queue A item 8'
 
 ABSENT = {
@@ -51,18 +49,6 @@ ABSENT = {
     ('ops.negative', 'random_negative_sample_local'): DIST_NEXT,
     ('ops', 'node_subgraph_local'): DIST_NEXT,
     ('ops.subgraph', 'node_subgraph_local'): DIST_NEXT,
-    ('loader', 'DistScanTrainer'): TRAINERS,
-    ('loader', 'DistFusedEpochTrainer'): TRAINERS,
-    ('loader.scan_epoch', 'DistScanTrainer'): TRAINERS,
-    ('loader.pipeline', 'DistFusedEpochTrainer'): TRAINERS,
-    ('recovery', 'FailoverRunner'): TRAINERS,
-    ('recovery', 'ShardDeadError'): TRAINERS,
-    ('recovery', 'remaining_seeds'): TRAINERS,
-    ('sampler', 'CapacityPlan'): TRAINERS,
-    ('sampler', 'CapacityPlanError'): TRAINERS,
-    ('sampler', 'DEFAULT_ETYPE'): TRAINERS,
-    ('sampler', 'DEFAULT_NTYPE'): TRAINERS,
-    ('sampler', 'ack_edge_ids'): TRAINERS,
     ('sampler', 'RemoteNodePathSamplerInput'): REMOTE,
     ('sampler', 'RemoteSamplerInput'): REMOTE,
     ('sampler', 'SamplingConfig'): REMOTE,
@@ -71,22 +57,12 @@ ABSENT = {
     ('sampler.base', 'RemoteSamplerInput'): REMOTE,
     ('sampler.base', 'SamplingConfig'): REMOTE,
     ('sampler.base', 'SamplingType'): REMOTE,
-    ('serving', 'DistEmbeddingStore'): DIST_STORE,
-    ('serving.store', 'DistEmbeddingStore'): DIST_STORE,
     ('metrics', 'flight'): TRACING,
     ('metrics', 'programs'): TRACING,
     ('metrics', 'spans'): TRACING,
     ('sampler.neighbor_sampler', 'ops_ptr2ind'): (
         "a host copy of ptr2ind inside JAX's sampler; the port calls "
         'utils.ptr2ind'),
-    ('serving', 'RotatingShardedStore'): DIST_STORE,
-    ('serving', 'RotationScheduler'): DIST_STORE,
-    ('storage', 'DistChunkStager'): DIST_STORE,
-    ('storage', 'TieredDistFeature'): DIST_STORE,
-    ('storage', 'TieredDistScanTrainer'): DIST_STORE,
-    ('storage', 'spill_partitions'): DIST_STORE,
-    ('storage.planner', 'ExchangePlan'): DIST_STORE,
-    ('storage.planner', 'plan_exchange'): DIST_STORE,
 }
 for _n in ('ProgramRegistry', 'RetraceBudgetExceeded',
            'default_program_registry', 'instrument', 'retrace_budget',
@@ -129,7 +105,7 @@ for _n in ('CollocatedDistSamplingWorkerOptions',
   ABSENT[('distributed', _n)] = REMOTE
 for _n in ('BlockSampleProducer', 'block_mb_per_chunk',
            'stack_block_frames', 'RemoteBlockStager', 'RemoteScanTrainer'):
-  ABSENT[('distributed', _n)] = TRAINERS
+  ABSENT[('distributed', _n)] = REMOTE_SCAN
 
 
 def _jax_file(name):
@@ -195,7 +171,9 @@ def test_compared_set_covers_the_new_namespaces():
                'distributed.dist_neighbor_sampler',
                'distributed.dist_dataset', 'distributed.dist_loader',
                'utils', 'utils.checkpoint', 'utils.common', 'utils.topo',
-               'ops.route', 'ops.stitch'):
+               'ops.route', 'ops.stitch', 'sampler.capacity',
+               'recovery.failover', 'loader.scan_epoch',
+               'loader.pipeline'):
     assert name in MODULES, name
 
 

@@ -164,7 +164,8 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
   assert x.device.type == 'cpu' and x.shape == (4 + 12 + 24, 4)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
-                                 'step_keys': 0, 'row_gather_probe_bulk': 0,
+                                 'step_keys': 0, 'dist_step_keys': 0,
+                                 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
                                  'smem_take': 0, 'uniform_draw': 0,
                                  'negative_sample': 0, 'gather_unified': 0}
@@ -192,9 +193,13 @@ def test_kernel_wrappers_refuse_mixed_devices():
     ops.draw.uniform(key, (3, 2), device='meta')
   with pytest.raises(ValueError, match='CUDA'):
     ops.random_negative_sample(indptr, ind.to('meta'), 2, 2, 4, key)
+  with pytest.raises(ValueError, match='CUDA'):
+    ops.dist_step_keys(key, torch.zeros((), dtype=torch.int64,
+                                        device='meta'), 2, 4, 3)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
-                                 'step_keys': 0, 'row_gather_probe_bulk': 0,
+                                 'step_keys': 0, 'dist_step_keys': 0,
+                                 'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
                                  'smem_take': 0, 'uniform_draw': 0,
                                  'negative_sample': 0, 'gather_unified': 0}

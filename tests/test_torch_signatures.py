@@ -8,7 +8,9 @@ calibration functions, the typed models ``GATConv``, ``HeteroConv``,
 ``TreeHeteroConv``, ``RGNN``, ``HGTConv`` and ``HGT``, and the
 homogeneous ``GCNConv``, ``TreeGATConv``, ``MergeGATConv``, ``GCN`` and
 ``GAT``, flax's ``parent`` / ``name`` aside, and ``run_impl_decision``),
-of the single-device ``graphlearn_tpu.storage`` API, of the serving
+of the ``graphlearn_tpu.storage`` API (single-device and distributed),
+of the distributed trainers, failover, ``CapacityPlan`` and the sharded
+serving stores, of the serving
 stack's spill (``EmbeddingMaterializer(spill_dir=)``,
 ``tiered_embedding_store``, ``TieredEmbeddingStore``,
 ``warm_embedding_store``) and typed refresh (``refresh_rows(ids,
@@ -57,6 +59,10 @@ EXTRA_PARAMS = {
     # the process's own device (NCCL on a card, gloo on the CPU); JAX
     # takes the process's devices from its runtime
     ('init_multihost', 'device'): 'this process\'s torch device',
+    # a CUDA graph per chunk length, as the port's ScanTrainer
+    ('DistScanTrainer', 'capture'): 'captured chunks (ScanTrainer)',
+    ('TieredDistScanTrainer', 'capture'): 'captured chunks (ScanTrainer)',
+    ('RotatingShardedStore', 'device'): 'where lookups return their rows',
 }
 MISSING_PARAMS = {
     # kernels route by device in the port (ROADMAP, deliberate divergences)
@@ -68,6 +74,11 @@ MISSING_PARAMS = {
     ('TieredScanTrainer', 'config'): 'tune/: item 8',
     # the port's models own their weights
     ('EmbeddingMaterializer', 'params'): 'the model owns its weights',
+    ('DistFusedEpochTrainer', 'tx'): 'Adam is in TrainState',
+    ('DistScanTrainer', 'tx'): 'Adam is in TrainState',
+    ('DistScanTrainer', 'config'): 'tune/: item 8',
+    ('TieredDistScanTrainer', 'tx'): 'Adam is in TrainState',
+    ('TieredDistScanTrainer', 'config'): 'tune/: item 8',
 }
 # (qualified name, parameter) -> why the default differs
 OTHER_DEFAULTS = {
@@ -76,6 +87,8 @@ OTHER_DEFAULTS = {
     # JAX resolves None to its chunk default; the port's ScanTrainer
     # spells it out
     ('TieredScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
+    ('DistScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
+    ('TieredDistScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
 }
 MISSING_MEMBERS = {
     # a group of more than one device is refused until the distributed
@@ -165,12 +178,7 @@ def test_data_package_signatures(name):
     assert_same_signature(name, j, t)
 
 
-# the distributed half of storage comes with the distributed slice
-STORAGE_LATER = ('TieredDistFeature', 'spill_partitions', 'DistChunkStager',
-                 'TieredDistScanTrainer')
-# planner's distributed exchange plan, likewise
-PLANNER_LATER = ('ExchangePlan', 'plan_exchange')
-STORAGE_NAMES = [n for n in _public(glt.storage) if n not in STORAGE_LATER]
+STORAGE_NAMES = _public(glt.storage)
 
 
 @pytest.mark.parametrize('name', STORAGE_NAMES)
@@ -180,9 +188,6 @@ def test_storage_package_signatures(name):
   t = getattr(gtt.storage, name)
   if inspect.ismodule(j):
     for fn in _public(j):
-      if fn in PLANNER_LATER:
-        assert not hasattr(t, fn)
-        continue
       jf = getattr(j, fn)
       if inspect.isfunction(jf) and jf.__module__ == j.__name__:
         assert_same_signature(f'{name}.{fn}', jf, getattr(t, fn))
@@ -193,6 +198,14 @@ def test_storage_package_signatures(name):
   else:
     assert_same_signature(name, j, t)
   assert sorted(_public(gtt.storage)) == STORAGE_NAMES
+
+
+def test_serving_dist_store_signatures():
+  from graphlearn_tpu.serving import materialize as jmat
+  assert_same_signature(
+      'EmbeddingMaterializer.dist_embedding_store',
+      jmat.EmbeddingMaterializer.dist_embedding_store,
+      gtt.serving.EmbeddingMaterializer.dist_embedding_store)
 
 
 def test_serving_spill_signatures():
@@ -600,3 +613,24 @@ def test_sampler_output_trim_matches_jax(dedup):
   assert b.num_nodes == a.num_nodes and b.edge_mask is None
   assert b.num_sampled_nodes == a.num_sampled_nodes
   assert b.num_sampled_edges == a.num_sampled_edges
+
+
+DIST_TRAINING = [
+    ('loader', 'DistFusedEpochTrainer'), ('loader', 'DistScanTrainer'),
+    ('recovery', 'FailoverRunner'), ('recovery', 'ShardDeadError'),
+    ('recovery', 'remaining_seeds'), ('sampler', 'CapacityPlan'),
+    ('sampler', 'CapacityPlanError'), ('sampler', 'ack_edge_ids'),
+    ('serving', 'DistEmbeddingStore'), ('serving', 'RotatingShardedStore'),
+    ('serving', 'RotationScheduler'),
+]
+
+
+@pytest.mark.parametrize('mod,name', DIST_TRAINING)
+def test_distributed_training_signatures(mod, name):
+  """The distributed trainers, their failover, ``CapacityPlan`` and the
+  sharded serving stores (classes with their public methods)."""
+  j, t = getattr(_attr(glt, mod), name), getattr(_attr(gtt, mod), name)
+  if inspect.isclass(j):
+    _compare_class(name, j, t)
+  else:
+    assert_same_signature(name, j, t)
