@@ -1316,7 +1316,8 @@ PORT_KERNELS = dict(gather_rows=('gather_rows_kernel',),
                     step_keys=('step_keys_kernel',),
                     dist_step_keys=('dist_step_keys_kernel',),
                     uniform_draw=('uniform_draw_kernel',),
-                    negative_sample=('negative_sample_kernel',))
+                    negative_sample=('negative_sample_kernel',),
+                    negative_sample_local=('negative_sample_local_kernel',))
 
 
 def _names_kernel(device_name: str, fn: str) -> bool:
@@ -1903,7 +1904,8 @@ def cpu_step_readings(torch, gtt, loader, model, check, loss,
       out['leaky_zero'] += int(both0.sum())
       out['leaky_near0'] += int(((z.abs() < LEAKY_NEAR0) & ~both0).sum())
       out['leaky_gap'] += float((z - cz).abs().double().sum())
-    out['pre_diff'] = max(out['pre_diff'], float((z - cz).abs().max()))
+    if z.numel():     # an empty input (a hierarchical layer's empty part)
+      out['pre_diff'] = max(out['pre_diff'], float((z - cz).abs().max()))
     if not torch.allclose(z, cz, rtol=PRE_RTOL, atol=PRE_ATOL):
       out['pre_fail'].append(key)
     opp = (z > 0) != (cz > 0)
@@ -2289,6 +2291,7 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
       assert prof['kernels'] == counted and all(
           prof['kernels'][k] for k in PORT_KERNELS
           if k not in ('uniform_draw', 'negative_sample', 'dist_step_keys',
+                       'negative_sample_local',
                        'sample_level' if mode == 'tree' else 'sample_hop')), \
           (prof['kernels'], counted)
       if name == 'scan':
@@ -6052,6 +6055,779 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
   return rep
 
 
+# ---- the rest of the distributed core: link, subgraph, typed, 2-axis
+DMORE_BATCHES = 2                    # timed link / typed batches a mode
+DMORE_STEPS = 3                      # data-parallel link / typed steps
+DMORE_SCAN_STEPS = 8                 # the typed scanned epoch's steps
+DMORE_SCAN_CHUNK = 4                 # ... in chunks of K
+DMORE_MESH = (2, 2)                  # the 2-axis layout of the P shards
+
+
+def negative_local_case(torch, gtt, garr, sorted_loc, num_dst, num, device,
+                        reps):
+  """The negative kernel's shard-local entry (one launch: the owned-row
+  count, the draw and the CSR test of ``num * NEG_TRIALS`` candidates of
+  shard 0) against its plain version on the same device key, exact, and
+  the whole of ``random_negative_sample_local`` (the kernel and the
+  partition) against its plain version. No PyTorch call computes the
+  function: library_ms null."""
+  from graphlearn_tpu_torch import ops
+  rid, ptr, srt = garr['row_ids'][0], garr['indptr'][0], sorted_loc[0]
+  total = num * NEG_TRIALS
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(4), num),
+                             device)
+  before = ops.launch_counts()['negative_sample_local']
+  got = ops.random_negative_sample_local(rid, ptr, srt, num_dst, num, key,
+                                         strict=True)
+  per_call = ops.launch_counts()['negative_sample_local'] - before
+  want = ops.random_negative_sample_local_plain(rid, ptr, srt, num_dst, num,
+                                                key, strict=True)
+  cand, ms, call_ms = timed(torch, lambda: ops.negative.local_candidates(
+      rid, ptr, srt, num_dst, total, key), reps, device)
+  ref, plain_ms, plain_call_ms = timed(
+      torch, lambda: ops.negative.local_candidates_plain(
+          rid, ptr, srt, num_dst, total, key), reps, device)
+  _, full_ms, _ = timed(torch, lambda: ops.random_negative_sample_local(
+      rid, ptr, srt, num_dst, num, key, strict=True), reps, device)
+  _, full_plain_ms, _ = timed(
+      torch, lambda: ops.random_negative_sample_local_plain(
+          rid, ptr, srt, num_dst, num, key, strict=True), reps, device)
+  exact = all(bool(torch.equal(a, b)) for a, b in zip(cand + got,
+                                                       ref + want))
+  err = max(float((a.long() - b.long()).abs().max()) for a, b in
+            zip(cand + got, ref + want))
+  # the search rounds of this data: each drawn row's degree's bit length,
+  # and every block's search of the owned count
+  ptr_h = ptr.cpu().numpy().astype(np.int64)
+  rows = cand[0].cpu().numpy().astype(np.int64)
+  deg = (ptr_h[rows + 1] - ptr_h[rows]).astype(np.float64)
+  rounds = int(np.where(deg > 0, np.floor(np.log2(np.maximum(deg, 1))) + 1,
+                        0).sum())
+  blocks = min(-(-total // 256), 132 * 16)
+  count_rounds = blocks * int(np.ceil(np.log2(max(rid.shape[0], 2))))
+  nbytes = 16 + 4 + total * (2 * 4 + 4 + 9) + (rounds + count_rounds) * 4
+  ops_n = total * (NEG_OPS + 1) + (rounds + count_rounds) * NEG_ROUND_OPS
+  owned = int(cand[3])
+  rec = dict(num_samples=num, candidates=total, owned_rows=owned,
+             span=num_dst, exact=exact, max_abs_err=err,
+             valid=int(got[2].sum()), launches_per_call=per_call, ms=ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             full_ms=full_ms, full_plain_ms=full_plain_ms, library_ms=None,
+             bound_ms=bound_ms(nbytes, ops_n),
+             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+  log(f'kernel negative_sample_local {total} candidates of shard 0 '
+      f'({owned} owned rows, span {num_dst}): exact={exact} strict-valid='
+      f'{rec["valid"]} launches/call={per_call} ms={ms:.4f} (call '
+      f'{call_ms:.4f}) plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) '
+      f'bound_ms={rec["bound_ms"]:.6f} ({rec["bound_by"]}); with the '
+      f'partition ms={full_ms:.4f} plain_ms={full_plain_ms:.4f}; library_ms '
+      'null')
+  assert exact, 'negative_sample_local: kernel != plain version'
+  assert per_call == (1 if device.type == 'cuda' else 0), per_call
+  return rec
+
+
+def dmore_counted(torch, cuda, fn, n):
+  """``n`` calls of ``fn`` with the launch counters set to 0 before and
+  read after: ``(results, device ms each, host ms each, counts)``."""
+  from graphlearn_tpu_torch import ops
+  if cuda:
+    torch.cuda.synchronize()
+  ops.reset_launch_counts()
+  out, ms, wall = [], [], []
+  for _ in range(n):
+    t0 = time.perf_counter()
+    a = _event(torch, cuda)
+    out.append(fn())
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+    wall.append((time.perf_counter() - t0) * 1e3)
+    ms.append(_span(a, b, cuda))
+  return out, ms, wall, ops.launch_counts()
+
+
+def dmore_profile(torch, fn, device, label):
+  """One call of ``fn`` under torch.profiler (after one in its warm-up
+  cycle, the counters set to 0 between): idle share, busy ms, the five
+  largest device ops; its kernels equal to the counters."""
+  from graphlearn_tpu_torch import ops
+  prof = profiled(torch, fn, 1, device, label,
+                  warmup=lambda: (fn(), ops.reset_launch_counts()))
+  counted = {k: v for k, v in ops.launch_counts().items()
+             if k in PORT_KERNELS}
+  assert prof['kernels'] == counted, (label, prof['kernels'], counted)
+  return dict(idle_share=prof['idle_share'], busy_ms=prof['device_busy_ms'],
+              wall_ms=prof['wall_ms'], device_ops=prof['device_ops_per_call'],
+              top5=dict(list(prof['top_device_ms'].items())[:5]),
+              kernels=counted)
+
+
+def dmore_link_check(torch, host, loader, idx, mask, count, batch, feats_t,
+                     mode):
+  """One card link batch against the CPU sampler's on the same seed
+  edges and keys: every shard's ids, edges, masks, counts and the link
+  metadata exact, ``x`` the feature rows of its ids."""
+  from graphlearn_tpu_torch.sampler import EdgeSamplerInput
+  out = host.sample_from_edges(
+      EdgeSamplerInput(loader.seed_rows[idx], loader.seed_cols[idx],
+                       neg_sampling=loader.neg_sampling),
+      seed_mask=mask, keys=loader.sampler._keys_for(count))
+  for f, got in (('node', batch.node), ('num_nodes', batch.num_nodes),
+                 ('row', batch.edge_index[:, 0]),
+                 ('col', batch.edge_index[:, 1]),
+                 ('edge_mask', batch.edge_mask),
+                 ('num_sampled_nodes', batch.num_sampled_nodes),
+                 ('num_sampled_edges', batch.num_sampled_edges)):
+    assert torch.equal(got.cpu(), getattr(out, f)), f'link {mode} {f}'
+  for k in ('edge_label_index', 'edge_label', 'src_index', 'dst_pos_index',
+            'dst_neg_index', 'seed_mask', 'overflow'):
+    if k in out.metadata:
+      assert torch.equal(batch.metadata[k].cpu(), out.metadata[k]), \
+          f'link {mode} {k}'
+  valid = batch.node >= 0
+  want = torch.where(valid[..., None], feats_t[batch.node.clamp(min=0).long()],
+                     0)
+  assert torch.equal(batch.x, want), f'link {mode} features'
+  return int(valid.sum())
+
+
+def dmore_link(torch, gtt, dg, cpu_dg, store, topo, feats_t, device, smi,
+               rep):
+  """Link: ``DistLinkNeighborLoader`` batches (binary and triplet, tree,
+  full-width exchanges, ``neg_strict``) at the link phase's width, each
+  timed batch exact against the CPU sampler; every valid binary negative
+  a non-edge of the graph; the local negative kernel once per shard a
+  batch; no host sync in a batch; then DIST_STEPS data-parallel link
+  steps of the example (``dist_sage_unsup``), the last recomputed on the
+  CPU."""
+  import copy
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_sage_unsup as ex
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  cuda = device.type == 'cuda'
+  per = 1 if cuda else 0
+  mesh = store.mesh
+  nparts = mesh.num_partitions
+  b = LINK_BATCH if cuda else 32
+  hops = len(LINK_FANOUTS)
+  src = np.repeat(np.arange(topo.num_nodes), np.diff(topo.indptr))
+  pick = np.random.default_rng(31).choice(
+      topo.num_edges, nparts * b * (DMORE_BATCHES + 4 + DMORE_STEPS),
+      replace=False)
+  pool = np.stack([src[pick], topo.indices[pick]])
+  ds = gdist.DistDataset(nparts, 0, dg, store)
+  cpu_mesh = gdist.ShardMesh(nparts, 'cpu')
+  out = {}
+  for mode in ('binary', 'triplet'):
+    loader = gdist.DistLinkNeighborLoader(
+        ds, LINK_FANOUTS, pool, batch_size=b, seed=0, mesh=mesh,
+        neg_sampling=NegativeSampling(mode, 1), dedup='tree',
+        bucket_frac=None, neg_strict=True)
+    host = gdist.DistNeighborSampler(cpu_dg, LINK_FANOUTS, cpu_mesh, seed=0,
+                                     dedup='tree', bucket_frac=None,
+                                     neg_strict=True)
+    blocks = list(loader._index_blocks())
+    it = iter(loader)
+    next(it)                                       # the first use
+    gdist.reset_verdict_syncs()
+    batches, ms, wall, counts = dmore_counted(torch, cuda, lambda: next(it),
+                                              DMORE_BATCHES)
+    want = dict(negative_sample_local=per * nparts * DMORE_BATCHES,
+                sample_hop=per * nparts * hops * DMORE_BATCHES,
+                gather_rows=per * 2 * nparts * DMORE_BATCHES,
+                negative_sample=0, sample_level=0)
+    for k, v in want.items():
+      assert counts[k] == v, (mode, k, counts)
+    assert gdist.verdict_syncs() == 0
+    t0 = time.perf_counter()
+    seen = 0
+    for j, batch in enumerate(batches):
+      idx, mask = blocks[1 + j]
+      seen += dmore_link_check(torch, host, loader, idx, mask, 2 + j, batch,
+                               feats_t, mode)
+    check_s = time.perf_counter() - t0
+    neg_pairs = pos_pairs = 0
+    if mode == 'binary':
+      for batch in batches:
+        node = batch.node.cpu()
+        eli = batch.metadata['edge_label_index'].cpu().long()
+        ok = (eli >= 0).all(1)                     # [L, 2b] valid pairs
+        u = node.gather(1, eli[:, 0].clamp(min=0))
+        v = node.gather(1, eli[:, 1].clamp(min=0))
+        neg = ok[:, b:]
+        is_edge = link_pairs_in_graph(topo, u[:, b:][neg].numpy(),
+                                      v[:, b:][neg].numpy())
+        assert not is_edge.any(), f'{int(is_edge.sum())} negatives are edges'
+        neg_pairs += int(neg.sum())
+        pos = link_pairs_in_graph(topo, u[:, :b].reshape(-1).numpy(),
+                                  v[:, :b].reshape(-1).numpy())
+        assert pos.all(), 'a positive is not an edge'
+        pos_pairs += pos.shape[0]
+    syncs = kinds = prof = None
+    if cuda:
+      _, syncs, kinds = count_syncs(torch, lambda: next(it))
+      assert syncs == 0, (mode, kinds)
+      prof = dmore_profile(torch, lambda: next(it), device, f'dist link '
+                           f'{mode} batch')
+      assert prof['kernels']['negative_sample_local'] == nparts, prof
+    out[mode] = dict(ms=ms, wall_ms=wall, launches=counts, checked_slots=seen,
+                     cpu_check_s=check_s, valid_negatives=neg_pairs,
+                     positives=pos_pairs, host_syncs=syncs, sync_kinds=kinds,
+                     profile=prof)
+    rep['launch_runs'].append(counts)
+    log(f'dist_more link {mode}: P={nparts} x {b} positives {LINK_FANOUTS}: '
+        + ' '.join(f'{m:.2f}' for m in ms) + ' ms a stacked batch (host '
+        + ' '.join(f'{w:.1f}' for w in wall) + ' ms); launches a batch: '
+        f'negative_sample_local {counts["negative_sample_local"] / DMORE_BATCHES:.0f}'
+        f' (want {nparts * per}), K3 {counts["sample_hop"] / DMORE_BATCHES:.0f}'
+        f' (want {nparts * hops * per}), K1 '
+        f'{counts["gather_rows"] / DMORE_BATCHES:.0f} (want {2 * nparts * per})'
+        f'; host syncs {syncs}; exact against the CPU ({seen} slots, '
+        f'{check_s:.1f} s)' + (f'; {neg_pairs} valid negatives, none an '
+                               f'edge, {pos_pairs} positives all edges'
+                               if mode == 'binary' else '') + (
+            f'; idle {prof["idle_share"]:.1%} of a batch, top 5 (ms): ' +
+            '; '.join(f'{k[:40]}={v:.3f}' for k, v in prof['top5'].items())
+            if prof else '') + f' on {smi}')
+    if mode == 'binary':
+      rep['kernel'] = negative_local_case(
+          torch, gtt, loader.sampler._dev, loader.sampler._sorted_loc_dev(),
+          dg.num_nodes, b, device, REPS if cuda else 2)
+  # the example's data-parallel link steps
+  loader = gdist.DistLinkNeighborLoader(
+      ds, LINK_FANOUTS, pool, batch_size=b, shuffle=True, seed=2, mesh=mesh,
+      neg_sampling=NegativeSampling('binary', 1), bucket_frac=None,
+      neg_strict=True)
+
+  def model_on(d):
+    m = gtt.models.GraphSAGE(FEAT_DIM, LINK_HIDDEN, LINK_HIDDEN,
+                             num_layers=hops, device=d,
+                             generator=torch.Generator().manual_seed(0))
+    m.relu_hooks_by_call = True     # P shard forwards a step
+    return m
+  model = model_on(device)
+  state = gtt.models.create_train_state(model, lr=LR)
+  step = ex.make_step(model, mesh)
+  it = iter(loader)
+  losses, step_ms, check = [], [], None
+  for s in range(DMORE_STEPS):
+    batch = next(it)
+    last = s + 1 == DMORE_STEPS
+    pre, hooks = {}, []
+    if last:
+      check = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(state.optimizer.state_dict()),
+               to_cpu(torch, ex.fields(batch)))
+      hooks = relu_input_hooks(model, recorder(pre))
+    a = _event(torch, cuda)
+    state, loss, _ = step(state, batch)
+    bev = _event(torch, cuda)
+    if cuda:
+      bev.synchronize()
+    step_ms.append(_span(a, bev, cuda))
+    losses.append(float(loss))
+    for h in hooks:
+      h.remove()
+  assert all(np.isfinite(losses)), losses
+  check += ([p.grad.detach().cpu() for p in model.parameters()],
+            {k: z.cpu() for k, z in pre.items()})
+
+  def make_step(m):
+    from graphlearn_tpu_torch.loader.pipeline import (data_parallel_step,
+                                                      shard_batches)
+    loss_fn = ex.loss_fn_for(m)
+
+    def st(s, d):
+      loss, acc = data_parallel_step(s.optimizer, loss_fn, shard_batches(d),
+                                     cpu_mesh)
+      return s, loss, acc
+    return st, None
+  c = cpu_step_check(torch, gtt, None, model, check, losses[-1],
+                     cpu_model=lambda: model_on(torch.device('cpu')),
+                     make_step=make_step)
+  out['train'] = dict(step_ms=step_ms, losses=losses, cpu_check={
+      k: c[k] for k in ('pre_diff', 'opposite', 'grad_share', 'adam_diff',
+                        'cpu_loss')})
+  log(f'dist_more link train: {DMORE_STEPS} data-parallel steps of the '
+      f'example (GraphSAGE {FEAT_DIM}-{LINK_HIDDEN}-{LINK_HIDDEN}, BCE on '
+      f'binary link batches): ' + ' '.join(f'{m:.2f}' for m in step_ms) +
+      ' ms, losses ' + ' '.join(f'{v:.4f}' for v in losses) + '; the last '
+      f'recomputed on the CPU (gradients within {c["grad_share"]:.3g} of the '
+      f'largest, Adam {c["adam_diff"]:.3g}) on {smi}')
+  return out
+
+
+def dmore_subgraph(torch, gtt, dg, cpu_dg, store, feats_t, device, smi, rep):
+  """One ``DistSubGraphLoader`` batch (SUB_BATCH seeds a shard, edge ids,
+  the graph's max degree read once on the host) exact against the CPU
+  sampler's, ``x`` the feature rows, with the bytes the one-card mesh
+  holds for the gathered sets' extraction."""
+  from graphlearn_tpu_torch import distributed as gdist
+  cuda = device.type == 'cuda'
+  mesh = store.mesh
+  nparts = mesh.num_partitions
+  b = SUB_BATCH if cuda else 32
+  ds = gdist.DistDataset(nparts, 0, dg, store)
+  pool = np.random.default_rng(33).permutation(dg.num_nodes)[:nparts * b * 2]
+  loader = gdist.DistSubGraphLoader(ds, None, pool, batch_size=b, seed=0,
+                                    mesh=mesh, with_edge=True,
+                                    bucket_frac=None)
+  max_deg = loader.sampler._global_max_degree()
+  # the [P, P, b * max_degree] extraction: rows, cols (int32), mask,
+  # epos and edge ids (int64)
+  reckoned = nparts * nparts * b * max_deg * (4 + 4 + 1 + 8 + 8)
+  host = gdist.DistNeighborSampler(cpu_dg, None, gdist.ShardMesh(nparts, 'cpu'),
+                                   seed=0, with_edge=True)
+  idx, mask = next(loader._index_blocks())
+  (batch,), ms, wall, counts = dmore_counted(
+      torch, cuda, lambda: next(iter(loader)), 1)
+  t0 = time.perf_counter()
+  want = host.subgraph(loader.input_seeds[idx], seed_mask=mask)
+  for f, got in (('node', batch.node), ('num_nodes', batch.num_nodes),
+                 ('row', batch.edge_index[:, 0]),
+                 ('col', batch.edge_index[:, 1]),
+                 ('edge_mask', batch.edge_mask), ('edge', batch.edge_ids)):
+    assert torch.equal(got.cpu(), getattr(want, f)), f'subgraph {f}'
+  assert torch.equal(batch.metadata['mapping'].cpu(),
+                     want.metadata['mapping']), 'subgraph mapping'
+  valid = batch.node >= 0
+  assert torch.equal(batch.x, torch.where(
+      valid[..., None], feats_t[batch.node.clamp(min=0).long()], 0))
+  check_s = time.perf_counter() - t0
+  edges = int(batch.edge_mask.sum())
+  rep['launch_runs'].append(counts)
+  log(f'dist_more subgraph: P={nparts} x {b} seeds, max degree {max_deg} '
+      f'(read once on the host): {ms[0]:.2f} ms (host {wall[0]:.1f} ms), '
+      f'{edges} induced edges; extraction buffers {reckoned / 2 ** 20:.0f} '
+      f'MiB reckoned; K1 {counts["gather_rows"]}; exact against the CPU '
+      f'({check_s:.1f} s) on {smi}')
+  return dict(ms=ms[0], wall_ms=wall[0], launches=counts, max_degree=max_deg,
+              reckoned_bytes=reckoned, edges=edges, cpu_check_s=check_s)
+
+
+def dmore_typed_check(torch, host, loader, block, count, batch, cpu_ds,
+                      what):
+  """A typed card batch against the CPU sampler's at the same stream
+  position (a typed batch takes the stream's next keys): every shard's
+  ids, counts, edges and masks exact, ``x`` each type's feature rows and
+  ``y`` the seed type's labels (zeros at empty slots). Returns the
+  checked node slots."""
+  from graphlearn_tpu_torch.sampler import NodeSamplerInput
+  idx, mask = block
+  host._call_count = count - 1
+  want = host.sample_from_nodes(NodeSamplerInput(loader.input_seeds[idx],
+                                                 loader.input_type),
+                                seed_mask=mask)
+  assert sorted(batch.node) == sorted(want.node), what
+  assert sorted(batch.edge_index) == sorted(want.row), what
+  for t in want.node:
+    for f in ('node', 'num_nodes', 'num_sampled_nodes'):
+      assert torch.equal(getattr(batch, f)[t].cpu(), getattr(want, f)[t]), \
+          (what, f, t)
+  for et in want.row:
+    ei = batch.edge_index[et].cpu()
+    for f, got in (('row', ei[:, 0]), ('col', ei[:, 1]),
+                   ('edge_mask', batch.edge_mask[et].cpu()),
+                   ('num_sampled_edges',
+                    batch.num_sampled_edges[et].cpu())):
+      assert torch.equal(got, getattr(want, f)[et]), (what, f, et)
+  assert torch.equal(batch.metadata['overflow'].cpu(),
+                     want.metadata['overflow']), (what, 'overflow')
+  seen = 0
+  for t, x in batch.x.items():
+    node = batch.node[t].cpu()
+    valid = node >= 0
+    rows = cpu_ds.node_features[t].cpu_get(
+        node.clamp(min=0).reshape(-1).numpy()).reshape(*node.shape, -1)
+    assert torch.equal(x.cpu(), torch.where(valid[..., None], rows, 0)), \
+        (what, 'x', t)
+    seen += int(valid.sum())
+  node = batch.node['paper'][:, :batch.y['paper'].shape[1]].cpu()
+  lab = torch.as_tensor(np.asarray(cpu_ds.node_labels['paper']))
+  want_y = torch.where(node >= 0, lab[node.clamp(min=0).long()], 0)
+  assert torch.equal(batch.y['paper'].cpu(), want_y.to(batch.y['paper'].dtype)
+                     ), (what, 'y')
+  return seen
+
+
+def dmore_typed(torch, gtt, device, smi, rep):
+  """Typed: the IGBH example's graph (HET_PAPER papers, HET_AUTHOR
+  authors) cut into P shards by ``% P`` (the JAX example's rule), a store
+  per type with a DIST_CACHE cache, full-width exchanges; tree and
+  calibrated merge batches (the hetero phase's fanouts, HET_BATCH seeds a
+  shard) exact against the CPU's; rsage and 4-head rgat data-parallel
+  steps, the last recomputed on the CPU; a captured typed
+  ``DistScanTrainer`` tree epoch (the example's tree-dense rsage) against
+  the eager one and the per-step loop, no host sync in a captured epoch;
+  a typed tiered epoch (DSCAN_HOT_SHARE% of each type's rows on the
+  card) bit-equal to the all-device one."""
+  import copy
+  import shutil
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_rgnn as dex
+  from graphlearn_tpu_torch.examples import train_rgnn as ex
+  cuda = device.type == 'cuda'
+  per = 1 if cuda else 0
+  nparts = DIST_PARTS
+  n_paper, n_author, b, _, _ = hetero_sizes(cuda)
+  t0 = time.perf_counter()
+  kw = dict(split_ratio=DIST_CACHE, bucket_frac=None)
+  mesh = gdist.ShardMesh(nparts, device)
+  cpu_mesh = gdist.ShardMesh(nparts, 'cpu')
+  ds, _ = dex.build_dataset(n_paper, n_author, mesh,
+                            np.random.default_rng(0), **kw)
+  cds, _ = dex.build_dataset(n_paper, n_author, cpu_mesh,
+                             np.random.default_rng(0), **kw)
+  local = hetero_data(torch, gtt, ex, n_paper, n_author)[0](
+      torch.device('cpu'))
+  steps = DMORE_SCAN_STEPS if cuda else 4
+  chunk = DMORE_SCAN_CHUNK if cuda else 2
+  pool = np.arange(nparts * b * max(steps, DMORE_BATCHES + 4))
+  caps = gtt.sampler.estimate_hetero_frontier_caps(
+      local.graph, ex.FANOUTS, {'paper': b}, input_nodes={'paper': pool})
+  del local
+  setup_s = time.perf_counter() - t0
+  out = dict(setup_s=setup_s, caps={str(k): v for k, v in caps.items()})
+  feat_types = 2
+  k1 = nparts * (2 * feat_types + 1)     # the caches, the rows, the labels
+  for kind in ('tree', 'merge'):
+    lkw = (dict(dedup='tree') if kind == 'tree' else
+           dict(dedup='merge', frontier_caps=caps, overflow_policy='raise'))
+    loader = gdist.DistNeighborLoader(ds, ex.FANOUTS, ('paper', pool),
+                                      batch_size=b, seed=0, mesh=mesh,
+                                      bucket_frac=None, **lkw)
+    host = gdist.DistNeighborSampler(
+        cds.graph, ex.FANOUTS, cpu_mesh, seed=0, bucket_frac=None,
+        **{k: v for k, v in lkw.items() if k != 'overflow_policy'})
+    items = sum(len(h) for h in loader.sampler._hetero_plan({'paper': b})[1])
+    blocks = list(loader._index_blocks())
+    it = iter(loader)
+    next(it)
+    batches, ms, wall, counts = dmore_counted(torch, cuda, lambda: next(it),
+                                              DMORE_BATCHES)
+    assert counts['sample_hop'] == per * nparts * items * DMORE_BATCHES, \
+        (kind, counts)
+    assert counts['gather_rows'] == per * k1 * DMORE_BATCHES, (kind, counts)
+    t1 = time.perf_counter()
+    seen = sum(dmore_typed_check(torch, host, loader, blocks[1 + j], 2 + j,
+                                 batch, cds, f'dist typed {kind} {j}')
+               for j, batch in enumerate(batches))
+    check_s = time.perf_counter() - t1
+    syncs = prof = None
+    if cuda:
+      _, syncs, kinds = count_syncs(torch, lambda: next(it))
+      assert syncs == 0, (kind, kinds)
+      prof = dmore_profile(torch, lambda: next(it), device,
+                           f'dist typed {kind} batch')
+    for _ in it:
+      pass                                  # the overflow guard's check
+    out[kind] = dict(ms=ms, wall_ms=wall, launches=counts, items=items,
+                     checked_slots=seen, cpu_check_s=check_s,
+                     host_syncs=syncs, profile=prof)
+    rep['launch_runs'].append(counts)
+    log(f'dist_more typed {kind}: P={nparts} x {b} papers: ' +
+        ' '.join(f'{m:.2f}' for m in ms) + ' ms a stacked batch (host ' +
+        ' '.join(f'{w:.1f}' for w in wall) + ' ms); K3 '
+        f'{counts["sample_hop"] / DMORE_BATCHES:.0f} (want '
+        f'{per * nparts * items}), K1 {counts["gather_rows"] / DMORE_BATCHES:.0f}'
+        f' (want {per * k1}); host syncs {syncs}; exact against the CPU '
+        f'({seen} slots, {check_s:.1f} s)' + (
+            f'; idle {prof["idle_share"]:.1%}, top 5 (ms): ' +
+            '; '.join(f'{k[:40]}={v:.3f}' for k, v in prof['top5'].items())
+            if prof else '') + f' on {smi}')
+
+  def loader_tree(data, seeds=pool, shuffle=True):
+    return gdist.DistNeighborLoader(data, ex.FANOUTS, ('paper', seeds),
+                                    batch_size=b, shuffle=shuffle, seed=1,
+                                    mesh=data.node_features['paper'].mesh,
+                                    dedup='tree', bucket_frac=None)
+
+  def model_on(d, conv='sage'):
+    return dex.build_model(b, HET_HIDDEN, d, torch.Generator().manual_seed(0),
+                           conv=conv, heads=4 if conv == 'gat' else 1,
+                           fanouts=ex.FANOUTS)
+  # ---- rsage and 4-head rgat data-parallel steps
+  for conv in ('sage', 'gat'):
+    model = model_on(device, conv)
+    state = gtt.models.create_train_state(model, lr=LR)
+    step = dex.make_step(model, mesh)
+    it = iter(loader_tree(ds))
+    losses, step_ms, check = [], [], None
+    for s in range(DMORE_STEPS):
+      batch = next(it)
+      pre, hooks = {}, []
+      if s + 1 == DMORE_STEPS:
+        check = (copy.deepcopy(model.state_dict()),
+                 copy.deepcopy(state.optimizer.state_dict()),
+                 to_cpu(torch, dex.fields(batch)))
+        hooks = relu_input_hooks(model, recorder(pre))
+      a = _event(torch, cuda)
+      state, loss, _ = step(state, batch)
+      bev = _event(torch, cuda)
+      if cuda:
+        bev.synchronize()
+      step_ms.append(_span(a, bev, cuda))
+      losses.append(float(loss))
+      for h in hooks:
+        h.remove()
+    assert all(np.isfinite(losses)), losses
+    check += ([None if p.grad is None else p.grad.detach().cpu()
+               for p in model.parameters()],
+              {k: z.cpu() for k, z in pre.items()})
+
+    def make_step(m):
+      from graphlearn_tpu_torch.loader.pipeline import (data_parallel_step,
+                                                        shard_batches)
+      from graphlearn_tpu_torch.models.train import make_loss_fn
+      loss_fn = make_loss_fn(m, ex.NUM_CLASSES)
+
+      def st(s, d):
+        loss, acc = data_parallel_step(s.optimizer, loss_fn,
+                                       shard_batches(d), cpu_mesh)
+        return s, loss, acc
+      return st, None
+    c = cpu_step_check(torch, gtt, None, model, check, losses[-1],
+                       cpu_model=lambda conv=conv: model_on(
+                           torch.device('cpu'), conv),
+                       make_step=make_step)
+    name = 'rgat' if conv == 'gat' else 'rsage'
+    out[f'train_{name}'] = dict(step_ms=step_ms, losses=losses, cpu_check={
+        k: c[k] for k in ('pre_diff', 'opposite', 'leaky_opposite',
+                          'grad_share', 'adam_diff', 'cpu_loss')})
+    log(f'dist_more typed train {name}: {DMORE_STEPS} data-parallel steps '
+        f'(hidden {HET_HIDDEN}): ' + ' '.join(f'{m:.2f}' for m in step_ms) +
+        ' ms, losses ' + ' '.join(f'{v:.4f}' for v in losses) + '; the last '
+        f'recomputed on the CPU (gradients within {c["grad_share"]:.3g} of '
+        f'the largest, Adam {c["adam_diff"]:.3g}, leaky_relu inputs on '
+        f'opposite sides {c["leaky_opposite"]}) on {smi}')
+    del model, state, step, it
+  # ---- the captured typed DistScanTrainer
+  scan_pool = np.arange(nparts * b * steps)
+  n_keys = loader.sampler._hetero_key_count()
+  items = out['tree']['items']
+  chunks = -(-steps // chunk)
+  want_launch = dict(sample_hop=per * nparts * items * steps,
+                     gather_rows=per * k1 * steps,
+                     dist_step_keys=per * chunks)
+  # the scanned and tiered epochs train the example's tree-dense rsage
+  # (dense k-runs, no atomics: captured, eager, loop and tiered epochs
+  # can agree bit for bit)
+  def dense_on(d):
+    return ex.build_model('rsage', b, HET_HIDDEN, d, mode='tree_dense',
+                          generator=torch.Generator().manual_seed(0))
+  start = dense_on(device).state_dict()
+
+  def trainer(capture=None, data=ds, cls=None):
+    m = dense_on(device)
+    m.load_state_dict(start)
+    cls = cls or gtt.loader.DistScanTrainer
+    return cls(loader_tree(data, scan_pool, shuffle=False), m,
+               ex.NUM_CLASSES, chunk_size=chunk, capture=capture)
+  cap, eag = trainer(), trainer(capture=False)
+  loop = gtt.loader.DistFusedEpochTrainer(loader_tree(ds, scan_pool, False),
+                                          dense_on(device), ex.NUM_CLASSES)
+  loop.model.load_state_dict(start)
+  assert cap.capture == cuda and cap._n_hops == n_keys
+  runs = {}
+  for name, t in (('captured', cap), ('eager', eag)):
+    st = gtt.models.create_train_state(t.model, lr=LR)
+    for epoch in range(2):
+      st, losses, _, ms, counts = dscan_epoch(torch, t, st, cuda)
+      for k, v in want_launch.items():
+        assert counts[k] == v, (name, k, counts)
+      rep['launch_runs'].append(counts)
+      runs.setdefault(name, []).append((losses, ms / steps))
+    runs[name + '_state'] = st
+  lst = gtt.models.create_train_state(loop.model, lr=LR)
+  lst, l1 = loop.run_epoch_steps(lst)
+  a = _event(torch, cuda)
+  lst, l2 = loop.run_epoch_steps(lst)
+  bev = _event(torch, cuda)
+  if cuda:
+    bev.synchronize()
+  runs['loop'] = [(torch.stack(l1), None),
+                  (torch.stack(l2), _span(a, bev, cuda) / steps)]
+  equal = {}
+  for name in ('eager', 'loop'):
+    for e in range(2):
+      torch.testing.assert_close(runs['captured'][e][0], runs[name][e][0],
+                                 rtol=1e-4, atol=0)
+    equal[name] = all(bool(torch.equal(runs['captured'][e][0],
+                                       runs[name][e][0])) for e in range(2))
+  syncs = cprof = None
+  if cuda:
+    def cap_epoch():
+      runs['captured_state'] = cap.run_epoch(runs['captured_state'])[0]
+    _, syncs, kinds = count_syncs(torch, cap_epoch)
+    assert syncs == 0, kinds
+    cprof = dmore_profile(torch, cap_epoch, device,
+                          'dist_more typed captured epoch')
+  ms_step = {k: runs[k][1][1] for k in ('captured', 'eager', 'loop')}
+  out['scan'] = dict(steps=steps, chunk=chunk, keys_per_shard=n_keys,
+                     ms_per_step=ms_step, losses_bit_equal=equal,
+                     host_syncs_per_step=(syncs / steps if cuda else None),
+                     capture_ms=cap.capture_ms, profile=cprof,
+                     losses=runs['captured'][1][0].tolist())
+  log(f'dist_more typed scan: {steps} steps of P={nparts} x {b} papers in '
+      f'chunks of {chunk}, {n_keys} keys a shard a step: captured '
+      f'{ms_step["captured"]:.2f} ms/step, eager {ms_step["eager"]:.2f}, '
+      f'the per-step loop {ms_step["loop"]:.2f}; losses within rtol 1e-4 '
+      f'(bit-equal {equal}); host syncs a captured epoch {syncs}' + (
+          f'; idle {cprof["idle_share"]:.1%}, top 5 (ms): ' +
+          '; '.join(f'{k[:40]}={v:.3f}' for k, v in cprof['top5'].items())
+          if cprof else '') + f' on {smi}')
+  dscan_release(torch, cuda, cap, eag, loop)
+  del cap, eag, loop, runs
+  # ---- the typed tiered epoch against the all-device one
+  spill = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                       'dist_more_spill')
+  shutil.rmtree(spill, ignore_errors=True)
+  stores = {}
+  for t, store in ds.node_features.items():
+    ids = [store.feat_ids[p][store.feat_ids[p] != np.iinfo(np.int32).max]
+           for p in range(nparts)]
+    blocks = [(i, store.cpu_get(i).numpy()) for i in ids]
+    stores[t] = gtt.storage.TieredDistFeature(
+        nparts, blocks, store.feature_pb, mesh=mesh,
+        spill_dir=os.path.join(spill, t),
+        hot_prefix_rows=-(-store.n_max * DSCAN_HOT_SHARE // 100), **kw)
+  tds = gdist.DistDataset(nparts, 0, ds.graph, stores,
+                          node_labels=ds.node_labels)
+  tiered = trainer(data=tds, cls=gtt.storage.TieredDistScanTrainer)
+  hbm = trainer()
+  tres = {}
+  for name, t in (('tiered', tiered), ('hbm', hbm)):
+    st = gtt.models.create_train_state(t.model, lr=LR)
+    for s in t._stores().values():
+      s.reset_stats()
+    st, losses, _, ms, counts = dscan_epoch(torch, t, st, cuda)
+    want = dict(want_launch)
+    if name == 'tiered':    # the prologue's id-only replay
+      want['sample_hop'] *= 2
+      want['dist_step_keys'] += per
+    for k, v in want.items():
+      assert counts[k] == v, (name, k, counts)
+    rep['launch_runs'].append(counts)
+    tres[name] = dict(losses=losses, ms=ms / steps,
+                      stats={k: s.stats() for k, s in t._stores().items()})
+  assert torch.equal(tres['tiered']['losses'], tres['hbm']['losses']), \
+      'typed tiered epoch != the all-device epoch'
+  assert all(torch.equal(x, y) for x, y in zip(tiered.model.parameters(),
+                                               hbm.model.parameters()))
+  assert tres['tiered']['stats'] == tres['hbm']['stats']
+  plans = {t: p.stats() for t, p in tiered.last_plan.items()}
+  out['tiered'] = dict(ms_per_step={k: v['ms'] for k, v in tres.items()},
+                       plans=plans, prologue_ms=tiered.prologue_ms,
+                       slab_bytes=tiered.slab_bytes,
+                       hot_prefix_rows={t: s.hot_prefix_rows
+                                        for t, s in stores.items()})
+  log(f'dist_more typed tiered: {DSCAN_HOT_SHARE}% of each type\'s rows on '
+      f'the card, the rest staged per chunk: an epoch bit-equal to the '
+      f'all-device one (losses, parameters, counters); '
+      f'{tres["tiered"]["ms"]:.2f} ms/step against {tres["hbm"]["ms"]:.2f}; '
+      f'prologue {tiered.prologue_ms:.0f} ms; plans {plans} on {smi}')
+  tiered.close()
+  dscan_release(torch, cuda, tiered, hbm)
+  shutil.rmtree(spill, ignore_errors=True)
+  return out
+
+
+def dmore_hier(torch, gtt, dg, fparts, pb, hot, feats_t, device, smi, rep):
+  """The 2-axis mesh: the dist phase's P shards laid out as DMORE_MESH
+  (slice, chip); one tree batch at FANOUTS of BATCH seeds a shard through
+  the hierarchical exchanges (fractional stage 2, ``bucket_frac`` 2.0)
+  and its features, exact against the CPU's on the same layout and keys,
+  with the counted verdict reads."""
+  from graphlearn_tpu_torch import distributed as gdist
+  cuda = device.type == 'cuda'
+  nparts = DIST_PARTS
+  b = BATCH if cuda else 64
+  mesh = gdist.ShardMesh(nparts, device, shape=DMORE_MESH)
+  cmesh = gdist.ShardMesh(nparts, 'cpu', shape=DMORE_MESH)
+  sampler = gdist.DistNeighborSampler(dg, FANOUTS, mesh, seed=4, dedup='tree')
+  host = gdist.DistNeighborSampler(dg, FANOUTS, cmesh, seed=4, dedup='tree')
+  store = gdist.DistFeature(nparts, fparts, pb, mesh, split_ratio=DIST_CACHE,
+                            hotness=hot)
+  seeds = np.random.default_rng(41).permutation(pb.shape[0])[:nparts * b]
+  seeds = seeds.reshape(nparts, b)
+  keys = sampler._next_keys()
+  sampler.sample_from_nodes(seeds, keys=keys)        # the first use
+  gdist.reset_verdict_syncs()
+
+  def batch():
+    o = sampler.sample_from_nodes(seeds, keys=keys)
+    return o, store.get(o.node)
+  ((got, x),), ms, wall, counts = dmore_counted(torch, cuda, batch, 1)
+  verdicts = gdist.verdict_syncs()
+  t0 = time.perf_counter()
+  want = host.sample_from_nodes(seeds, keys=keys)
+  for f in ('node', 'num_nodes', 'row', 'col', 'edge_mask',
+            'num_sampled_nodes', 'num_sampled_edges'):
+    assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), \
+        f'2-axis {f}'
+  valid = got.node >= 0
+  assert torch.equal(x, torch.where(valid[..., None],
+                                    feats_t[got.node.clamp(min=0).long()], 0))
+  check_s = time.perf_counter() - t0
+  rep['launch_runs'].append(counts)
+  log(f'dist_more 2-axis {DMORE_MESH}: one tree batch of P={nparts} x {b} '
+      f'seeds {FANOUTS} and its features through the hierarchical exchanges: '
+      f'{ms[0]:.2f} ms (host {wall[0]:.1f} ms); K3 {counts["sample_hop"]}, '
+      f'K1 {counts["gather_rows"]}; verdict reads {verdicts}; exact against '
+      f'the CPU\'s ({check_s:.1f} s) on {smi}')
+  return dict(shape=DMORE_MESH, ms=ms[0], wall_ms=wall[0], launches=counts,
+              verdict_syncs=verdicts, cpu_check_s=check_s)
+
+
+def dist_more_phase(torch, gtt, ei, feats, topo, device, smi, built=None):
+  """The rest of the distributed core on the card, over the dist phase's
+  P = DIST_PARTS shards of the script's graph and the IGBH example's
+  typed graph: link batches and link steps, a subgraph batch, the typed
+  engine's batches, steps, captured and tiered epochs, and a 2-axis
+  batch (``dmore_link``, ``dmore_subgraph``, ``dmore_typed``,
+  ``dmore_hier``). Every launch run's counters go into ``launch_runs``."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  cuda = device.type == 'cuda'
+  t_phase = time.perf_counter()
+  n = feats.shape[0]
+  nparts = DIST_PARTS
+  t0 = time.perf_counter()
+  if built:
+    parts, fparts, pb, hot = (built[k] for k in ('parts', 'fparts', 'pb',
+                                                 'hot'))
+  else:
+    pb = dist_book(n, nparts)
+    parts, fparts = ex.partition_in_memory(ei, feats, pb, nparts)
+    hot = np.bincount(ei[1], minlength=n)
+  mesh = gdist.ShardMesh(nparts, device)
+  dg = gdist.DistGraph(nparts, 0, parts, pb)
+  store = gdist.DistFeature(nparts, fparts, pb, mesh, split_ratio=DIST_CACHE,
+                            hotness=hot, bucket_frac=None)
+  feats_t = torch.as_tensor(feats).to(device)
+  build_s = time.perf_counter() - t0
+  rep = dict(parts=nparts, build_s=build_s, launch_runs=[])
+  rep['link'] = dmore_link(torch, gtt, dg, dg, store, topo, feats_t, device,
+                           smi, rep)
+  rep['subgraph'] = dmore_subgraph(torch, gtt, dg, dg, store, feats_t,
+                                   device, smi, rep)
+  rep['hier'] = dmore_hier(torch, gtt, dg, fparts, pb, hot, feats_t,
+                           device, smi, rep)
+  del store, feats_t
+  if cuda:
+    torch.cuda.empty_cache()
+  rep['typed'] = dmore_typed(torch, gtt, device, smi, rep)
+  rep['launches'] = {k: sum(c[k] for c in rep['launch_runs'])
+                     for k in rep['launch_runs'][0]}
+  rep['phase_s'] = time.perf_counter() - t_phase
+  log(f'dist_more phase {rep["phase_s"]:.1f} s (build {build_s:.1f} s); '
+      f'launches {rep["launches"]} on {smi}')
+  return rep
+
+
 # ---- the hot/cold feature store
 HC_SPLIT = 0.25                      # the kernel case's device share
 PINNED_BYTES = 256 << 20             # the pinned host-to-device copy
@@ -7215,10 +7991,15 @@ def main(argv=None):
   phase_done('dist')
   report['dist_scan'] = dist_scan_phase(torch, gtt, ei, feats, labels, device,
                                         smi, built=dist_parts)
-  del dist_parts
   if cuda:
     torch.cuda.empty_cache()
   phase_done('dist_scan')
+  report['dist_more'] = dist_more_phase(torch, gtt, ei, feats, topo, device,
+                                        smi, built=dist_parts)
+  del dist_parts
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('dist_more')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -7246,6 +8027,7 @@ def main(argv=None):
             for t in ('scan', 'scan_eager')]
   paths += [m['launches'] for m in report['dist']['modes'].values()]
   paths += report['dist_scan']['launch_runs']
+  paths += report['dist_more']['launch_runs']
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
   for rec in report['modes'].values():
@@ -7280,6 +8062,7 @@ def main(argv=None):
   dkeys_rec = report['dist_scan']['kernel']
   draw_rec = ktab['uniform_draw'][0]
   neg_rec = ktab['negative_sample'][0]
+  nloc_rec = report['dist_more']['kernel']
   hc_rec = ktab['gather_unified'][0]
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
@@ -7341,6 +8124,13 @@ def main(argv=None):
            ms=neg_rec['ms'], plain_ms=neg_rec['plain_ms'],
            bound_ms=neg_rec['bound_ms'], bound_by=neg_rec['bound_by'],
            library_ms=None),
+      dict(name='negative_sample_local', route='cuda',
+           source='graphlearn_tpu_torch/csrc/negative_sample.cu',
+           replaces='graphlearn_tpu/ops/negative.py:68',
+           launches=launches['negative_sample_local'],
+           max_abs_err=nloc_rec['max_abs_err'], ms=nloc_rec['ms'],
+           plain_ms=nloc_rec['plain_ms'], bound_ms=nloc_rec['bound_ms'],
+           bound_by=nloc_rec['bound_by'], library_ms=None),
       dict(name='gather_unified', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_unified.cu',
            replaces='graphlearn_tpu/data/unified_tensor.py:131',

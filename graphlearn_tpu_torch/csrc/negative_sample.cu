@@ -36,6 +36,19 @@
 //
 // Design: one thread per candidate, 256 threads a block, a grid-stride
 // loop over at most 132 * 16 blocks.
+//
+// The second entry, glt_negative_sample_local, is the shard-local draw of
+// the distributed engine (graphlearn_tpu/ops/negative.py:68,
+// random_negative_sample_local): the row is a LOCAL row index,
+// randint(kr, 0, 2**30) % max(num_rows, 1), where num_rows is the count
+// of the shard's row_ids that are not INT32_MAX padding. JAX computes that
+// count on the device; here each block's first thread counts it with a
+// lower-bound search for INT32_MAX over the ascending, INT32_MAX-padded
+// row_ids (the DistGraph layout), so the link batch reads nothing back
+// on the host. Block 0 writes the count out for the caller's validity
+// mask. The span 2**30 makes randint's multiplier (2**16 % span)**2 wrap
+// to 0 in uint32, as in JAX. The column draw and the membership test are
+// the first entry's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -125,6 +138,74 @@ __global__ void negative_sample_kernel(
   }
 }
 
+__global__ void negative_sample_local_kernel(
+    const long long* __restrict__ key, const int* __restrict__ row_ids,
+    long long n_row_ids, const int* __restrict__ indptr, long long n_ptr,
+    const int* __restrict__ indices, long long n_edges, uint32_t span_c,
+    long long total, int* __restrict__ rows, int* __restrict__ cols,
+    uint8_t* __restrict__ valid, int* __restrict__ count_out) {
+  __shared__ uint32_t sub[8];
+  __shared__ uint32_t num_rows;
+  if (threadIdx.x == 0) {
+    const uint32_t k0 = static_cast<uint32_t>(key[0]);
+    const uint32_t k1 = static_cast<uint32_t>(key[1]);
+    uint32_t kr[2], kc[2];
+    split_key(k0, k1, 0, kr);
+    split_key(k0, k1, 1, kc);
+    split_key(kr[0], kr[1], 0, sub);
+    split_key(kr[0], kr[1], 1, sub + 2);
+    split_key(kc[0], kc[1], 0, sub + 4);
+    split_key(kc[0], kc[1], 1, sub + 6);
+    // rows owned: the first INT32_MAX pad of the ascending row ids
+    long long lo = 0, hi = n_row_ids;
+    while (lo < hi) {
+      const long long mid = (lo + hi) / 2;
+      if (row_ids[mid] < 0x7FFFFFFF) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (blockIdx.x == 0) *count_out = static_cast<int>(lo);
+    num_rows = lo > 0 ? static_cast<uint32_t>(lo) : 1u;
+  }
+  __syncthreads();
+  const uint32_t span_r = 1u << 30;
+  const uint32_t mult_r = (65536u % span_r) * (65536u % span_r) % span_r;
+  const uint32_t mult_c = (65536u % span_c) * (65536u % span_c) % span_c;
+  const uint32_t nr = num_rows;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += stride) {
+    const int r = static_cast<int>(
+        reduce(word(sub, i), word(sub + 2, i), span_r, mult_r) % nr);
+    const int c = static_cast<int>(
+        reduce(word(sub + 4, i), word(sub + 6, i), span_c, mult_c));
+    const long long a = r < n_ptr ? r : n_ptr - 1;
+    const long long b = r + 1 < n_ptr ? r + 1 : n_ptr - 1;
+    const long long end = indptr[b];
+    long long lo = indptr[a], hi = end;
+    bool edge = false;
+    if (n_edges > 0) {
+      for (int round = 0; round < 32 && lo < hi; ++round) {
+        const long long mid = (lo + hi) / 2;
+        const long long at = mid < 0 ? 0 : (mid >= n_edges ? n_edges - 1 : mid);
+        if (indices[at] < c) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      const long long at = lo < 0 ? 0 : (lo >= n_edges ? n_edges - 1 : lo);
+      edge = lo < end && indices[at] == c;
+    }
+    rows[i] = r;
+    cols[i] = c;
+    valid[i] = edge ? 0 : 1;
+  }
+}
+
 }  // namespace
 
 // key: [2] int64 words on the device; indptr: [n_ptr] int32; indices:
@@ -153,5 +234,37 @@ extern "C" int glt_negative_sample(const void* key, const void* indptr,
       static_cast<uint32_t>(span_r), static_cast<uint32_t>(span_c), total,
       static_cast<int*>(rows), static_cast<int*>(cols),
       static_cast<uint8_t*>(valid));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard-local entry. row_ids: [n_row_ids] int32, ascending with
+// INT32_MAX padding at the end; indptr: [n_ptr] int32 local offsets;
+// indices: [n_edges] int32, sorted within each row; span_c: the randint
+// span of cols (>= 1); rows: [total] int32 LOCAL row indices; cols:
+// [total] int32; valid: [total] bool (not an edge); count_out: [1] int32,
+// the rows the shard owns. Launches on `stream` and returns
+// cudaGetLastError() of the launch. With total == 0 it still launches
+// one block, so count_out is always written.
+extern "C" int glt_negative_sample_local(
+    const void* key, const void* row_ids, long long n_row_ids,
+    const void* indptr, long long n_ptr, const void* indices,
+    long long n_edges, long long span_c, long long total, void* rows,
+    void* cols, void* valid, void* count_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (total < 0 || n_row_ids < 0 || n_ptr < 1 || n_edges < 0 ||
+      span_c < 1 || span_c > 0xFFFFFFFFll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  negative_sample_local_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(key), static_cast<const int*>(row_ids),
+      n_row_ids, static_cast<const int*>(indptr), n_ptr,
+      static_cast<const int*>(indices), n_edges,
+      static_cast<uint32_t>(span_c), total, static_cast<int*>(rows),
+      static_cast<int*>(cols), static_cast<uint8_t*>(valid),
+      static_cast<int*>(count_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,8 +19,15 @@ over the leading shard axis:
   CPU).
 
 The per-shard code of the feature store and the sampler runs over the
-local shards of either mesh unchanged. The 2-axis ``mesh_shape`` layout
-(the hierarchical exchange) comes with the next slice.
+local shards of either mesh unchanged.
+
+``mesh_shape=(S, C)`` lays the P = S * C shards out as S slices of C
+chips (partition ``s * C + c``, JAX's row-major ``('slice', 'chip')``
+mesh), and ``all_to_all(x, axis='chip' | 'slice')`` exchanges along one
+axis: within a slice, or within a chip column. One process transposes
+the ``[S, C, ...]`` view; a process group runs ``all_to_all_single`` in
+one subgroup per slice and one per chip column. The samplers and the
+feature store then take the hierarchical two-stage exchange.
 
 Where JAX picks a fractional exchange's width under ``lax.cond`` with no
 host round trip, the port reads the overflow verdict on the host once
@@ -53,23 +60,43 @@ def reset_verdict_syncs():
   _verdict_syncs = 0
 
 
-def _hier_later(mesh_shape):
-  if mesh_shape is not None:
-    raise NotImplementedError(
-        f'mesh_shape={mesh_shape!r}: the 2-axis (slice, chip) mesh and its '
-        'hierarchical exchange come with the next distributed slice; use '
-        'the flat mesh (mesh_shape=None)')
+def _check_shape(mesh_shape, nparts: int):
+  """``(S, C)`` of a 2-axis layout, or None for the flat mesh."""
+  if mesh_shape is None:
+    return None
+  s, c = (int(v) for v in mesh_shape)
+  if s * c != nparts:
+    raise ValueError(f'mesh_shape {tuple(mesh_shape)} != num_partitions '
+                     f'{nparts}')
+  return s, c
+
+
+def _a2a_single(send, group):
+  """``all_to_all_single`` of a ``[G, ...]`` send buffer (bools as
+  bytes)."""
+  import torch.distributed as dist
+  send = send.contiguous()
+  as_bool = send.dtype == torch.bool
+  if as_bool:
+    send = send.to(torch.uint8)
+  out = torch.empty_like(send)
+  dist.all_to_all_single(out, send, group=group)
+  return out.to(torch.bool) if as_bool else out
 
 
 class ShardMesh:
   """``num_partitions`` graph shards on ``device``: all of them in this
   process, or (under a ``torch.distributed`` process group of
-  ``num_partitions`` ranks) the one of this rank."""
+  ``num_partitions`` ranks) the one of this rank. ``shape=(S, C)`` lays
+  them out as S slices of C chips (the 2-axis mesh)."""
 
-  def __init__(self, num_partitions: int, device=None, group=None):
+  def __init__(self, num_partitions: int, device=None, group=None,
+               shape=None):
     self.num_partitions = int(num_partitions)
     self.device = resolve_device(device)
     self.group = group
+    self.shape = _check_shape(shape, self.num_partitions)
+    self._axis_groups = {}
     if group is None:
       self.local_shards = list(range(self.num_partitions))
     else:
@@ -79,6 +106,30 @@ class ShardMesh:
         raise ValueError(f'a process group of {world} ranks holds one '
                          f'shard each, not {self.num_partitions}')
       self.local_shards = [dist.get_rank(group)]
+      if self.shape is not None:
+        self._axis_groups = self._new_axis_groups()
+
+  def _new_axis_groups(self) -> dict:
+    """This rank's subgroup of each axis: its slice's ranks ('chip') and
+    its chip column's ('slice'). Every rank creates every subgroup, in
+    one order, as ``new_group`` requires."""
+    import torch.distributed as dist
+    s_sz, c_sz = self.shape
+    me = self.local_shards[0]
+    out = {}
+    for s in range(s_sz):
+      g = dist.new_group([s * c_sz + c for c in range(c_sz)])
+      if me // c_sz == s:
+        out['chip'] = g
+    for c in range(c_sz):
+      g = dist.new_group([s * c_sz + c for s in range(s_sz)])
+      if me % c_sz == c:
+        out['slice'] = g
+    return out
+
+  @property
+  def axis_names(self):
+    return ('g',) if self.shape is None else ('slice', 'chip')
 
   @property
   def num_local(self) -> int:
@@ -95,18 +146,44 @@ class ShardMesh:
                        'local)')
     return x[self.local_shards]
 
-  def all_to_all(self, x):
-    """``[L, P, cap, ...]`` buckets by (source, destination) ->
-    ``[L, P, cap, ...]`` by (destination, source)."""
+  def all_to_all(self, x, axis=None):
+    """``[L, G, cap, ...]`` buckets by (source, destination) -> ``[L, G,
+    cap, ...]`` by (destination, source), over all P shards (``axis``
+    None, G = P), or on a 2-axis mesh along ``axis``: 'chip' (G = C, the
+    shards of one slice) or 'slice' (G = S, the shards of one chip
+    column)."""
+    if axis is None:
+      if self.group is None:
+        return x.transpose(0, 1).contiguous()
+      return _a2a_single(x[0], self.group)[None]
+    s_sz, c_sz = self.shape
+    if self.group is not None:
+      return _a2a_single(x[0], self._axis_groups[axis])[None]
+    rest = x.shape[2:]
+    if axis == 'chip':       # [S, C_src, C_dst, ...] -> [S, C_dst, C_src]
+      v = x.reshape(s_sz, c_sz, c_sz, *rest).transpose(1, 2)
+      return v.reshape(self.num_partitions, c_sz, *rest).contiguous()
+    assert axis == 'slice', axis
+    # [S_src, C, S_dst, ...] -> [S_dst, C, S_src, ...]
+    v = x.reshape(s_sz, c_sz, s_sz, *rest).transpose(0, 2)
+    return v.reshape(self.num_partitions, s_sz, *rest).contiguous()
+
+  def all_gather(self, x):
+    """``[L, ...]`` per-shard values -> ``[L, P, ...]``: every shard gets
+    all P (one process: the ``[P, ...]`` stack broadcast to each shard;
+    a group: ``all_gather_into_tensor``)."""
     if self.group is None:
-      return x.transpose(0, 1).contiguous()
+      return x.unsqueeze(0).expand(x.shape[0], *x.shape)
     import torch.distributed as dist
     send = x[0].contiguous()
     as_bool = send.dtype == torch.bool
     if as_bool:
       send = send.to(torch.uint8)
-    out = torch.empty_like(send)
-    dist.all_to_all_single(out, send, group=self.group)
+    # a flat buffer of P blocks (gloo checks the blocks against the input)
+    out = torch.empty(self.num_partitions * send.numel(), dtype=send.dtype,
+                      device=send.device)
+    dist.all_gather_into_tensor(out, send.reshape(-1), group=self.group)
+    out = out.reshape(self.num_partitions, *send.shape)
     if as_bool:
       out = out.to(torch.bool)
     return out[None]
@@ -169,9 +246,9 @@ def init_worker_group(world_size: int = 1, rank: int = 0,
                       devices=None, mesh_shape=None):
   """The worker context with a one-process :class:`ShardMesh`: every
   partition in this process on ``devices`` (a torch device; None means
-  the card). ``num_partitions`` defaults to 1."""
+  the card). ``num_partitions`` defaults to 1. ``mesh_shape=(S, C)``
+  builds the 2-axis (slice, chip) layout (S * C == num_partitions)."""
   global _dist_context
-  _hier_later(mesh_shape)
   if isinstance(devices, (list, tuple)):
     if len(devices) != 1:
       raise NotImplementedError(
@@ -179,7 +256,7 @@ def init_worker_group(world_size: int = 1, rank: int = 0,
           'device group of several cards comes with a later slice')
     devices = devices[0]
   nparts = int(num_partitions or 1)
-  mesh = ShardMesh(nparts, devices)
+  mesh = ShardMesh(nparts, devices, shape=mesh_shape)
   _dist_context = DistContext(world_size, rank, DistRole.WORKER,
                               group_name, nparts, mesh)
   return _dist_context
@@ -201,10 +278,11 @@ def init_multihost(coordinator_address: Optional[str] = None,
   / ``RANK``). ``device`` is this process's device (None: the card of
   index ``process_id`` modulo the visible cards); the backend is NCCL on
   a card and gloo on the CPU. ``num_partitions`` must equal the world
-  size."""
+  size. ``mesh_shape=(S, C)`` lays the ranks out as S slices of C
+  (subgroups per slice and per chip column); 'per_process' is JAX's one
+  slice per process, here ``(world, 1)``."""
   global _dist_context
   import torch.distributed as dist
-  _hier_later(mesh_shape)
   if device is None:
     resolve_device(None)
     idx = (process_id or 0) % torch.cuda.device_count()
@@ -225,7 +303,9 @@ def init_multihost(coordinator_address: Optional[str] = None,
                           init_method=init, **kw)
   world = dist.get_world_size()
   nparts = int(num_partitions or world)
-  mesh = ShardMesh(nparts, device, group=dist.group.WORLD)
+  if mesh_shape == 'per_process':
+    mesh_shape = (world, nparts // world)
+  mesh = ShardMesh(nparts, device, group=dist.group.WORLD, shape=mesh_shape)
   _dist_context = DistContext(world, dist.get_rank(), DistRole.WORKER,
                               group_name, nparts, mesh)
   return _dist_context

@@ -2,20 +2,23 @@
 mesh.
 
 Counterpart of ``graphlearn_tpu/distributed/dist_dataset.py``, for the
-homogeneous layout that ``partition.RandomPartitioner`` /
+homogeneous and the typed layouts that ``partition.RandomPartitioner`` /
 ``FrequencyPartitioner`` write. ``load()`` reads every partition of a
-directory and stacks them into ``DistGraph`` / ``DistFeature``; a
-partition's feature cache is merged by ``cat_feature_cache``. The typed
-layout and the disk-tiered feature store (``feature_spill_dir``) come
-with later slices.
+directory and stacks them into ``DistGraph`` / ``DistFeature`` (typed:
+``DistHeteroGraph`` and a ``{ntype: DistFeature}`` / ``{etype:
+DistFeature}`` dict, each type's hot cache ranked by its own hotness); a
+partition's feature cache is merged by ``cat_feature_cache``.
+``feature_spill_dir`` builds the node feature stores as
+``storage.TieredDistFeature`` over disk tiers under that directory.
 """
+import os
 from typing import Optional
 
 import numpy as np
 
 from ..partition import cat_feature_cache, load_partition
 from .dist_feature import DistFeature
-from .dist_graph import DistGraph
+from .dist_graph import DistGraph, DistHeteroGraph
 
 
 class DistDataset:
@@ -41,22 +44,18 @@ class DistDataset:
            cache_rows=None, hotness='in_degree', wire_dtype=None,
            bucket_frac=2.0, feature_spill_dir=None):
     """Load every partition of ``root_dir`` onto ``mesh`` (default: the
-    context's).
+    context's), homogeneous or typed.
 
     ``split_ratio`` / ``cache_rows`` cache that share (or count) of the
     globally hottest feature rows on every shard, ranked by ``hotness``:
-    'in_degree' (edge destinations counted over the loaded partitions),
-    explicit ``[N]`` scores, or None (the lowest ids). ``wire_dtype`` /
-    ``bucket_frac`` tune the miss exchange (``DistFeature``)."""
-    if feature_spill_dir is not None:
-      raise NotImplementedError(
-          'feature_spill_dir (the disk-tiered distributed store) comes '
-          'with the distributed scanned store, a later slice')
+    'in_degree' (edge destinations counted over the loaded partitions,
+    per node type on a typed graph), explicit ``[N]`` scores (a ``{ntype:
+    scores}`` dict on a typed graph), or None (the lowest ids).
+    ``wire_dtype`` / ``bucket_frac`` tune the miss exchange
+    (``DistFeature``). ``feature_spill_dir`` builds the node feature
+    stores as ``storage.TieredDistFeature``: the partitions' rows spill to
+    disk tiers under that directory (``node`` / ``node_<ntype>``)."""
     num_parts, g0, nf0, ef0, node_pb, edge_pb = load_partition(root_dir, 0)
-    if isinstance(g0, dict):
-      raise NotImplementedError(
-          'the typed partition layout (DistHeteroGraph datasets) comes '
-          'with the next distributed slice')
     if mesh is None:
       from .dist_context import get_context
       ctx = get_context()
@@ -71,49 +70,96 @@ class DistDataset:
     self.edge_dir = edge_dir
     with_cache = split_ratio > 0 or cache_rows is not None
 
-    def _hotness(num_nodes):
+    def _in_degree(num_nodes, ntype=None):
+      deg = np.zeros((num_nodes,), np.int64)
+      for g in parts:
+        ets = ([et for et in g if et[2] == ntype] if isinstance(g, dict)
+               else [None])
+        for et in ets:
+          cols = (g[et] if et is not None else g).edge_index[1]
+          np.add.at(deg, np.clip(cols, 0, num_nodes - 1), 1)
+      return deg
+
+    def _hotness(num_nodes, ntype=None):
       if not with_cache:
         return None
       if isinstance(hotness, str):
         assert hotness == 'in_degree', hotness
-        deg = np.zeros((num_nodes,), np.int64)
-        for g in parts:
-          np.add.at(deg, np.clip(g.edge_index[1], 0, num_nodes - 1), 1)
-        return deg
+        return _in_degree(num_nodes, ntype)
+      if isinstance(hotness, dict):
+        return hotness.get(ntype) if hotness else None
       return hotness
 
     feat_kw = dict(mesh=mesh, dtype=feature_dtype, wire_dtype=wire_dtype,
                    bucket_frac=bucket_frac)
-    self.graph = DistGraph(num_parts, 0, parts, node_pb, edge_pb, edge_dir)
-    if nf0 is not None:
-      feat_pb = node_pb.astype(np.int32).copy()
+    cache_kw = dict(split_ratio=split_ratio, cache_rows=cache_rows)
+
+    def _node_store_cls(subdir):
+      """The node store's class and extra arguments: a ``DistFeature``,
+      or the disk-backed ``TieredDistFeature`` under a spill dir."""
+      if feature_spill_dir is None:
+        return DistFeature, {}
+      from ..storage.dist import TieredDistFeature
+      return TieredDistFeature, {
+          'spill_dir': os.path.join(feature_spill_dir, subdir)}
+
+    def _blocks(nfs, feat_pb):
       blocks = []
-      for p, nf in enumerate(nfeats):
+      for p, nf in enumerate(nfs):
         if feature_with_cache and nf.cache_feats is not None:
           feats, ids, feat_pb = cat_feature_cache(p, nf, feat_pb)
         else:
           feats, ids = nf.feats, nf.ids
         blocks.append((ids, feats))
-      self.node_feat_pb = feat_pb
-      # lookups route by the graph's node_pb (each id's canonical
-      # owner); the feature book with cache entries is kept for host-side
-      # locality decisions
-      self.node_features = DistFeature(
-          num_parts, blocks, node_pb, hotness=_hotness(node_pb.shape[0]),
-          split_ratio=split_ratio, cache_rows=cache_rows, **feat_kw)
-    if ef0 is not None:
-      self.edge_features = DistFeature(
-          num_parts, [(ef.ids, ef.feats) for ef in efeats], edge_pb,
-          **feat_kw)
+      return blocks, feat_pb
+
+    if isinstance(g0, dict):
+      self.graph = DistHeteroGraph(num_parts, 0, parts, node_pb,
+                                   edge_pb or None, edge_dir)
+      if nf0:
+        self.node_features, self.node_feat_pb = {}, {}
+        for nt in nf0:
+          blocks, self.node_feat_pb[nt] = _blocks(
+              [nf[nt] for nf in nfeats], node_pb[nt].astype(np.int32).copy())
+          cls, extra = _node_store_cls(f'node_{nt}')
+          self.node_features[nt] = cls(
+              num_parts, blocks, node_pb[nt],
+              hotness=_hotness(node_pb[nt].shape[0], nt), **cache_kw,
+              **feat_kw, **extra)
+      if ef0:
+        self.edge_features = {
+            et: DistFeature(num_parts,
+                            [(ef[et].ids, ef[et].feats) for ef in efeats],
+                            edge_pb[et], **feat_kw)
+            for et in ef0}
+    else:
+      self.graph = DistGraph(num_parts, 0, parts, node_pb, edge_pb,
+                             edge_dir)
+      if nf0 is not None:
+        blocks, self.node_feat_pb = _blocks(
+            nfeats, node_pb.astype(np.int32).copy())
+        # lookups route by the graph's node_pb (each id's canonical
+        # owner); the feature book with cache entries is kept for
+        # host-side locality decisions
+        cls, extra = _node_store_cls('node')
+        self.node_features = cls(
+            num_parts, blocks, node_pb, hotness=_hotness(node_pb.shape[0]),
+            **cache_kw, **feat_kw, **extra)
+      if ef0 is not None:
+        self.edge_features = DistFeature(
+            num_parts, [(ef.ids, ef.feats) for ef in efeats], edge_pb,
+            **feat_kw)
     if node_labels is not None:
-      self.node_labels = np.asarray(node_labels)
+      self.node_labels = (node_labels if isinstance(node_labels, dict)
+                          else np.asarray(node_labels))
     return self
 
   def feature_stores(self):
-    """Every ``DistFeature`` this dataset owns (node and edge)."""
+    """Every ``DistFeature`` this dataset owns (node and edge, over the
+    per-type dicts of a typed dataset)."""
     for store in (self.node_features, self.edge_features):
       if store is not None:
-        yield store
+        yield from (store.values() if isinstance(store, dict) else [store])
 
   @property
   def node_pb(self):

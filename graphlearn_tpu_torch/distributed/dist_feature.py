@@ -16,8 +16,9 @@ runs, per shard:
      ``[P, cap]`` buckets (``ops.route_slots``), ``cap`` being
      ``bucket_frac`` times the mean miss load
      (``ops.exchange_capacity``), or the full width when any shard's
-     buckets would overflow (loss-free on every input). The owner reads
-     its rows with K1 at the clamped binary-search position in its sorted
+     buckets would overflow (loss-free on every input); on a 2-axis mesh
+     the two-stage exchange (``_exchange_hier``). The owner reads its
+     rows with K1 at the clamped binary-search position in its sorted
      ids (zeros where not found) and sends them back, in ``wire_dtype``
      when one is given.
 
@@ -235,10 +236,76 @@ class DistFeature:
                        torch.where(in_slab[:, None], slab_rows[sp], 0))
     return torch.where(found[:, None], rows, 0)
 
-  def _exchange(self, d, req, rmask):
-    """The bucketed miss exchange of ``[L, b]`` requests: rows ``[L, b,
-    F]`` in request order (storage dtype) and ``[L]`` overflow counts."""
+  def _exchange_hier(self, d, req, rmask):
+    """The two-stage miss exchange of a 2-axis ``(S, C)`` mesh (JAX's
+    ``exchange_hier``): full width along 'chip' to the owner's chip
+    column, ``[S, cap2]`` buckets along 'slice' to the owner (``cap2``
+    sized on the mean valid miss load over S, with ``bucket_frac``
+    slack), the rows back through both transposes. A fractional ``cap2``
+    reads the mesh-summed overflow on the host (a counted verdict) and an
+    overflowing lookup takes the flat full-width exchange. Returns the
+    rows and the ``[L]`` stage-2 overflow counts."""
     mesh = self.mesh
+    s_sz, c_sz = mesh.shape
+    nparts = self.num_partitions
+    nloc, b = req.shape
+    fdim = self.feature_dim
+    wdtype = self.wire_dtype or self.storage_dtype
+    dest = torch.where(rmask, d['feature_pb'][req.clamp(min=0).long()],
+                       nparts)
+    c_dst = torch.where(rmask, dest % c_sz, c_sz)
+    r1 = [ops.route_slots(c_dst[l], rmask[l], capacity=b)
+          for l in range(nloc)]
+    slot1 = torch.stack([r[0] for r in r1])
+    ok1 = torch.stack([r[1] for r in r1])
+    send1 = torch.stack([
+        ops.scatter_to_buckets(req[l], c_dst[l], slot1[l], ok1[l], c_sz, b)
+        for l in range(nloc)])
+    mid = mesh.all_to_all(send1, 'chip').reshape(nloc, -1)   # [L, C * b]
+    mid_mask = mid >= 0
+    mdest = torch.where(mid_mask,
+                        d['feature_pb'][mid.clamp(min=0).long()] // c_sz,
+                        s_sz)
+    r2 = [ops.route_slots(mdest[l], mid_mask[l], capacity=c_sz * b)
+          for l in range(nloc)]
+    slot2 = torch.stack([r[0] for r in r2])
+    ok2f = torch.stack([r[1] for r in r2])
+    cap2 = (c_sz * b if self.bucket_frac is None or s_sz <= 1 else
+            min(c_sz * b, miss_capacity(b, s_sz, self.bucket_frac,
+                                        self._cache_frac)))
+    if cap2 >= c_sz * b:
+      ovf = torch.zeros((nloc,), dtype=torch.int32, device=req.device)
+    else:
+      ovf = (mid_mask & (slot2 >= cap2)).sum(1).to(torch.int32)
+      count_verdict_sync()
+      if int(mesh.psum(ovf)[0]) != 0:
+        return self._exchange(d, req, rmask, full=True)[0], ovf
+    ok2 = ok2f & (slot2 < cap2)
+    send2 = torch.stack([
+        ops.scatter_to_buckets(mid[l], mdest[l], slot2[l], ok2[l], s_sz,
+                               cap2) for l in range(nloc)])
+    req2 = mesh.all_to_all(send2, 'slice')                   # [L, S, cap2]
+    rows = torch.stack([
+        self._lookup_local(d, l, req2[l].reshape(-1)).to(wdtype)
+        .reshape(s_sz, cap2, fdim) for l in range(nloc)])
+    r = mesh.all_to_all(rows, 'slice')
+    b2 = torch.stack([ops.gather_from_buckets(r[l], mdest[l], slot2[l],
+                                              ok2[l], fill=0)
+                      for l in range(nloc)])
+    r = mesh.all_to_all(b2.reshape(nloc, c_sz, b, fdim), 'chip')
+    back = torch.stack([ops.gather_from_buckets(r[l], c_dst[l], slot1[l],
+                                                ok1[l], fill=0)
+                        for l in range(nloc)]).to(self.storage_dtype)
+    return back, ovf
+
+  def _exchange(self, d, req, rmask, full: bool = False):
+    """The bucketed miss exchange of ``[L, b]`` requests: rows ``[L, b,
+    F]`` in request order (storage dtype) and ``[L]`` overflow counts
+    (on a 2-axis mesh :meth:`_exchange_hier`; ``full``: the flat
+    full-width exchange, its fallback)."""
+    mesh = self.mesh
+    if mesh.shape is not None and not full:
+      return self._exchange_hier(d, req, rmask)
     nparts = self.num_partitions
     nloc, b = req.shape
     fdim = self.feature_dim
@@ -249,7 +316,8 @@ class DistFeature:
               for l in range(nloc)]
     slot = torch.stack([r[0] for r in routes])
     ok = torch.stack([r[1] for r in routes])
-    cap_small = miss_capacity(b, nparts, self.bucket_frac, self._cache_frac)
+    cap_small = (b if full else
+                 miss_capacity(b, nparts, self.bucket_frac, self._cache_frac))
     if cap_small >= b:
       ovf = torch.zeros((nloc,), dtype=torch.int32, device=req.device)
     else:

@@ -14,8 +14,8 @@ the leading axis is partition p's local CSR (host numpy):
 row is found inside a shard by a binary search on ``row_ids``
 (``ops.uniform_sample_local``); rows of other shards are reached by
 routing seed ids through the exchange (``DistNeighborSampler``).
-``DistHeteroGraph`` is one ``DistGraph`` per edge type; its sampler comes
-with the next slice.
+``DistHeteroGraph`` is one ``DistGraph`` per edge type (sampled by the
+typed engine, ``DistNeighborSampler._hetero_engine``).
 """
 from typing import Dict, Optional
 

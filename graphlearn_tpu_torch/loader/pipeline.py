@@ -21,7 +21,8 @@ scope checks, the data-parallel step (:func:`data_parallel_step`: every
 shard's loss, the gradients, loss and accuracy averaged over all P
 shards, one optimizer step) and the per-shard sample-and-collate body
 that ``loader.DistScanTrainer`` runs for every step, with the per-step
-reference loop ``run_epoch_steps``.
+reference loop ``run_epoch_steps``; on a typed loader the body runs the
+typed engine and one cached lookup per sampled, featured node type.
 """
 from typing import Optional
 
@@ -127,9 +128,6 @@ _DIST_REMOTE_MSG = (
     'DistNeighborLoader over the training mesh (the multiprocess and '
     'remote loaders and RemoteScanTrainer come with a later slice, '
     'ROADMAP queue A item 7)')
-_TYPED_LATER = ('typed (heterogeneous) distributed loaders: the typed dist '
-                "engine (JAX's _hetero_engine) comes with a later "
-                'distributed slice (ROADMAP queue A item 7)')
 
 
 def data_parallel_step(optimizer, loss_fn, shards, mesh):
@@ -163,36 +161,49 @@ def data_parallel_step(optimizer, loss_fn, shards, mesh):
 
 
 def shard_batches(batch: dict):
-  """A stacked ``[L, ...]`` batch dict -> one batch dict per local
-  shard (``num_seed_nodes`` is ``[L]``)."""
-  return [{k: v[l] for k, v in batch.items()}
-          for l in range(batch['x'].shape[0])]
+  """A stacked ``[L, ...]`` batch dict (typed values: per-type dicts of
+  ``[L, ...]``) -> one batch dict per local shard (``num_seed_nodes`` is
+  ``[L]``)."""
+  def pick(v, l):
+    return {k: t[l] for k, t in v.items()} if isinstance(v, dict) else v[l]
+  nloc = next(v.shape[0] for v in batch.values() if torch.is_tensor(v))
+  return [{k: pick(v, l) for k, v in batch.items()} for l in range(nloc)]
 
 
 class DistFusedEpochTrainer:
   """Scope validation, the data-parallel step and the per-shard
   sample+collate body of the distributed epoch trainers.
 
-  Scope: a collocated homogeneous ``DistNeighborLoader`` with feature
-  collection, a ``DistFeature`` store and node labels (supervised node
-  classification on the mesh). ``overflow_policy='recompute'``,
-  ``with_edge`` and edge features are refused, as in JAX; a typed
-  loader is refused until the typed dist engine is ported.
+  Scope: a collocated homogeneous or typed ``DistNeighborLoader`` with
+  feature collection, a ``DistFeature`` store (per node type on a typed
+  loader) and node labels (of the seed type; supervised node
+  classification on the mesh). Link and subgraph loaders,
+  ``overflow_policy='recompute'``, ``with_edge`` and edge features are
+  refused, as in JAX.
   """
 
   _NAME = 'DistFusedEpochTrainer'
 
   def __init__(self, loader, model, num_classes: int,
                seed_labels_only: Optional[bool] = None):
-    from ..distributed.dist_loader import DistLoader
+    from ..distributed.dist_loader import (DistLinkNeighborLoader,
+                                           DistLoader, DistSubGraphLoader)
     if not isinstance(loader, DistLoader):
       raise ValueError(f'{self._NAME}: {type(loader).__name__} is not a '
                        f'collocated DistLoader. {_DIST_REMOTE_MSG}')
+    if isinstance(loader, DistLinkNeighborLoader):
+      raise ValueError(
+          f'{self._NAME} covers supervised NODE classification; link '
+          'loaders keep the per-step loop: link batches train on '
+          'edge_label metadata the fused chunk does not collate')
+    if isinstance(loader, DistSubGraphLoader):
+      raise ValueError(
+          f'{self._NAME} covers supervised NODE classification; '
+          'subgraph loaders yield induced subgraphs with no train-step '
+          'contract to fuse into a chunk: iterate them per step')
     if loader.overflow_policy == 'recompute':
       raise ValueError(_RECOMPUTE_MSG)
     sampler = loader.sampler
-    if sampler.is_hetero or loader.input_type is not None:
-      raise ValueError(f'{self._NAME}: {_TYPED_LATER}')
     if sampler.with_edge:
       raise ValueError('with_edge batches are not supported in the '
                        'fused distributed epoch programs')
@@ -209,15 +220,28 @@ class DistFusedEpochTrainer:
     self.model = model
     self.num_classes = num_classes
     self._sampler = sampler
-    self.is_hetero = False
+    self.is_hetero = sampler.is_hetero
     self.mesh = sampler.mesh
     self._nparts = loader.num_partitions
     self._batch_size = loader.batch_size    # per shard
     if seed_labels_only is None:
       seed_labels_only = loader.seed_labels_only
     self._label_cap = self._batch_size if seed_labels_only else None
-    self._label_store = sampler._label_dist(loader.data.node_labels)
-    self._feat = sampler.dist_feature
+    if self.is_hetero:
+      self._input_type = loader.input_type
+      assert self._input_type is not None, \
+          'hetero distributed training requires typed seeds'
+      labels = loader.data.node_labels
+      if not isinstance(labels, dict) or self._input_type not in labels:
+        raise ValueError(f'{self._NAME} needs labels for the seed type '
+                         f'{self._input_type!r}')
+      self._label_store = sampler._label_dist(labels[self._input_type],
+                                              self._input_type)
+      self._feat = dict(sampler.dist_feature)
+    else:
+      self._input_type = None
+      self._label_store = sampler._label_dist(loader.data.node_labels)
+      self._feat = sampler.dist_feature
     self._loss_fn = train_lib.make_loss_fn(model, num_classes)
     self._train_state_cls = train_lib.TrainState
 
@@ -235,7 +259,10 @@ class DistFusedEpochTrainer:
     read at ``bucket_frac=None``. ``batch`` holds ``[L, ...]`` tensors,
     ``overflow`` is the mesh-summed calibrated-caps flag (0-d),
     ``stats`` the feature store's ``[L, 4]`` counters of this lookup
-    (JAX threads them through its scan carry)."""
+    (JAX threads them through its scan carry; a ``{ntype: [L, 4]}`` dict
+    on a typed loader)."""
+    if self.is_hetero:
+      return self._make_hetero_sample_collate()
     from ..distributed.dist_neighbor_sampler import _homo_hop_loop
     sampler, mesh = self._sampler, self.mesh
     b, label_cap = self._batch_size, self._label_cap
@@ -269,9 +296,51 @@ class DistFusedEpochTrainer:
 
     return body
 
-  def _feature_tables(self):
-    """The device tables the feature lookup reads (None: the store's own
-    ``device_arrays``; the tiered trainer's hot prefix and static slab)."""
+  def _make_hetero_sample_collate(self):
+    """The typed body (JAX's ``_make_hetero_sample_collate``): the typed
+    engine under the ``[L, keys, 2]`` device keys, one cached lookup per
+    sampled, featured node type (``self._feat_types``, each with its
+    ``[L, 4]`` counters) and the seed type's labels."""
+    sampler = self._sampler
+    t_in, label_cap = self._input_type, self._label_cap
+    plan = sampler._hetero_plan({t_in: self._batch_size})
+    node_caps = plan[2]
+    feat_types = [t for t in sampler.graph.ntypes
+                  if node_caps.get(t, 0) > 0 and t in self._feat]
+    self._feat_types = feat_types
+    gdev = sampler._dev
+    feats, labels = self._feat, self._label_store
+    tables = self._feature_tables
+
+    def sample(seeds, smask, hop_keys):
+      res, _ = sampler._hetero_engine(gdev, gdev['#pb'],
+                                      {t_in: (seeds, smask)}, hop_keys, plan)
+      return res
+
+    self._sample = sample
+
+    def body(seeds, smask, hop_keys):
+      res = sample(seeds, smask, hop_keys)
+      x, stats = {}, {}
+      for t in feat_types:
+        ids = res['node'][t]
+        x[t], stats[t] = feats[t]._lookup(ids, ids >= 0, tables=tables(t))
+      ids = res['node'][t_in]
+      lab_ids = ids[:, :label_cap] if label_cap is not None else ids
+      y, _ = labels._lookup(lab_ids, lab_ids >= 0)
+      ei = {et: torch.stack([res['row'][et], res['col'][et]], 1)
+            for et in res['row']}
+      batch = dict(x=x, edge_index=ei, edge_mask=res['edge_mask'],
+                   y=y[..., 0],
+                   num_seed_nodes=res['num_sampled_nodes'][t_in][:, 0])
+      return batch, res['overflow'].any(), stats
+
+    return body
+
+  def _feature_tables(self, ntype=None):
+    """The device tables the feature lookup (of ``ntype`` on a typed
+    loader) reads (None: the store's own ``device_arrays``; the tiered
+    trainer's hot prefix and static slab)."""
     return None
 
   # ------------------------------------------------- per-step reference
@@ -280,9 +349,13 @@ class DistFusedEpochTrainer:
     """One data-parallel optimizer update from a collocated dist batch
     (the loader's stacked ``Data``). Returns ``(state, loss, acc)``,
     loss and acc as 0-d device tensors (the mean over all P shards)."""
+    if self.is_hetero:
+      y = batch.y[self._input_type]
+      nseed = batch.num_sampled_nodes[self._input_type][:, 0]
+    else:
+      y, nseed = batch.y, batch.num_sampled_nodes[:, 0]
     stacked = dict(x=batch.x, edge_index=batch.edge_index,
-                   edge_mask=batch.edge_mask, y=batch.y,
-                   num_seed_nodes=batch.num_sampled_nodes[:, 0])
+                   edge_mask=batch.edge_mask, y=y, num_seed_nodes=nseed)
     return self._dp_step(state, shard_batches(stacked))
 
   def run_epoch_steps(self, state, max_steps: Optional[int] = None):

@@ -537,8 +537,10 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
   data-parallel steps over the mesh's shards.
 
   Args:
-    loader: a collocated homogeneous ``DistNeighborLoader`` with a
-      ``DistFeature`` store and node labels.
+    loader: a collocated ``DistNeighborLoader`` with a ``DistFeature``
+      store and node labels; on a typed loader (``('ntype', ids)``
+      seeds) a store per node type, labels of the seed type, and one
+      ``[L, 4]`` counter buffer per sampled, featured type.
     model: the model of one shard's batch (each shard runs it on its own
       batch; the gradients are averaged over the shards).
     num_classes: label classes of the loss.
@@ -565,10 +567,13 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
     if capture is None:
       capture = on_card
     if capture:
+      stores = ([(f'feature store {t!r}', f) for t, f in self._feat.items()]
+                if self.is_hetero else [('feature store', self._feat)])
       fractional = [what for what, frac in (
-          ('sampler', self._sampler.bucket_frac),
-          ('feature store', self._feat.bucket_frac),
-          ('label store', self._label_store.bucket_frac)) if frac is not None]
+          [('sampler', self._sampler.bucket_frac)] +
+          [(what, f.bucket_frac) for what, f in stores] +
+          [('label store', self._label_store.bucket_frac)])
+          if frac is not None]
       if fractional:
         raise ValueError(
             f'capture=True with a fractional exchange ({", ".join(fractional)}'
@@ -585,11 +590,24 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
         raise ValueError(f'capture=True needs a mesh on a CUDA device, got '
                          f'{device}: a CUDA graph captures the card\'s '
                          'launches')
+    # a typed shard key splits into hops * |edge types| keys (JAX's
+    # _hetero_engine); ops.dist_step_keys draws them with that count
+    n_keys = (self._sampler._hetero_key_count() if self.is_hetero
+              else max(1, len(self._sampler.num_neighbors)))
     self._init_frame(device, chunk_size, loader.shuffle, loader.drop_last,
                      loader.seed if perm_seed is None else perm_seed,
-                     capture, max(1, len(self._sampler.num_neighbors)))
-    self._stats_buf = None  # the feature store's [L, 4] counters, static
+                     capture, n_keys)
+    # the stores' static [L, 4] counter buffers, by node type (None for
+    # the homogeneous store)
+    self._stats_buf = None
     self._sample_collate = self._make_sample_collate()
+
+  def _stores(self) -> dict:
+    """``{ntype or None: the feature store whose counters the chunk
+    carries}``."""
+    if self.is_hetero:
+      return {t: self._feat[t] for t in self._feat_types}
+    return {None: self._feat}
 
   # ------------------------------------------------------------ prologue
 
@@ -638,21 +656,26 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
       # a failed epoch drops its partial counts, as JAX does (its chunk
       # had donated them): a resume restores the boundary's from the
       # snapshot
-      self._feat.reset_stats()
+      for store in self._stores().values():
+        store.reset_stats()
       raise
 
   def _begin_run(self, full_steps: int):
-    """The static counter buffer becomes the store's accumulator for the
-    run, starting from the counts the store holds."""
-    st = self._feat._stats_dev()
+    """The static counter buffers become the stores' accumulators for
+    the run, starting from the counts the stores hold."""
     if self._stats_buf is None:
-      self._stats_buf = torch.zeros_like(st)
-    if st is not self._stats_buf:
-      self._stats_buf.copy_(st)
-    self._feat._stats = self._stats_buf
+      self._stats_buf = {t: torch.zeros_like(f._stats_dev())
+                         for t, f in self._stores().items()}
+    for t, store in self._stores().items():
+      st = store._stats_dev()
+      buf = self._stats_buf[t]
+      if st is not buf:
+        buf.copy_(st)
+      store._stats = buf
 
   def _carry(self, **carry) -> dict:
-    carry['stats'] = self._stats_buf
+    carry['stats'] = (dict(self._stats_buf) if self.is_hetero
+                      else self._stats_buf[None])
     return carry
 
   def _chunk(self, state, seeds, masks, base_key, counter):
@@ -670,7 +693,11 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
       batch, overflow, stats = self._sample_collate(
           mesh.local_rows(seeds[j]), mesh.local_rows(masks[j]),
           mesh.local_rows(keys[j]))
-      self._stats_buf.add_(stats)
+      if self.is_hetero:
+        for t, row in stats.items():
+          self._stats_buf[t].add_(row)
+      else:
+        self._stats_buf[None].add_(stats)
       _, loss, acc = self._dp_step(state, shard_batches(batch))
       ovf = ovf | overflow
       losses.append(loss)
@@ -696,22 +723,29 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
                 chunk_size=self.chunk_size,
                 fanouts=list(self._sampler.num_neighbors),
                 shuffle=self._shuffle, num_partitions=self._nparts,
-                hetero=False, num_classes=self.num_classes,
+                hetero=self.is_hetero, num_classes=self.num_classes,
                 seed=self.loader.seed)
 
   def _recovery_capture(self, carry):
     """Beyond the train state: the sampler's stream position and the
-    feature store's ``[L, 4]`` counters, so a resumed epoch's counters
-    are exact, not just its losses."""
-    return ({'sampler': self._sampler.state_dict()},
-            {'stats:': carry['stats']})
+    feature stores' ``[L, 4]`` counters (``stats:`` or ``stats:<ntype>``
+    per typed store), so a resumed epoch's counters are exact, not just
+    its losses."""
+    stats = carry['stats']
+    if self.is_hetero:
+      dev = {f'stats:{t}': stats[t] for t in self._feat_types}
+    else:
+      dev = {'stats:': stats}
+    return {'sampler': self._sampler.state_dict()}, dev
 
   def _recovery_load(self, meta, arrays):
     self._sampler.load_state_dict(meta['sampler'])
     self._epochs = int(meta['epoch'])
-    if 'stats:' in arrays:
-      self._feat._stats = torch.as_tensor(
-          np.asarray(arrays['stats:'], np.int32)).to(self._device)
+    for t, store in self._stores().items():
+      key = 'stats:' if t is None else f'stats:{t}'
+      if key in arrays:
+        store._stats = torch.as_tensor(
+            np.asarray(arrays[key], np.int32)).to(self._device)
 
   def _recovery_advance(self, meta):
     """A finished epoch's snapshot: the stream goes past it; its

@@ -7,7 +7,8 @@ The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the hot/cold
 hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
 chunk's ``step_keys`` and the distributed chunk's
 ``dist_step_keys``, the sampling backends' draw ``draw.uniform``, the
-negative sampler's draw and test ``random_negative_sample`` and the
+negative sampler's draw and test ``random_negative_sample`` (and its
+shard-local entry ``random_negative_sample_local``) and the
 probes' ``row_gather_probe``, one counter per route, and
 ``smem_take``) keep launch counters; ``launch_counts``
 reads them (``sample_hop`` and ``sample_level`` name the two sampling
@@ -38,6 +39,8 @@ from .neighbor import (BLOCK, build_padded_adjacency,
                        uniform_sample_local, uniform_sample_padded,
                        weighted_sample, weighted_sample_local)
 from .negative import (random_negative_sample,
+                       random_negative_sample_local,
+                       random_negative_sample_local_plain,
                        random_negative_sample_plain, sort_csr_rows,
                        sort_csr_segments)
 from .probes import (row_gather_probe, row_gather_probe_plain,
@@ -48,7 +51,8 @@ from .sample_fused import (LevelScratch, sample_hop_fused,
                            sample_level_fused, sample_level_fused_plain,
                            sample_level_plain)
 from .stitch import stitch_rows
-from .subgraph import node_subgraph, node_subgraph_bucketed
+from .subgraph import (node_subgraph, node_subgraph_bucketed,
+                       node_subgraph_local)
 from .unique import FILL, masked_unique, searchsorted_membership
 
 
@@ -63,6 +67,7 @@ _COUNTERS = {
     'dist_step_keys': (keys, 'dist_launches'),
     'uniform_draw': (draw, 'launches'),
     'negative_sample': (negative, 'launches'),
+    'negative_sample_local': (negative, 'local_launches'),
     'row_gather_probe_bulk': (probes, 'row_gather_bulk_launches'),
     'row_gather_probe_vector': (probes, 'row_gather_vector_launches'),
     'smem_take': (probes, 'smem_take_launches'),

@@ -58,7 +58,9 @@ SOURCES = {
         'glt_host_unregister': ([_P, _I], _I)}),
     'negative_sample': ('negative_sample.cu', {
         'glt_negative_sample': ([_P, _P, _L, _P, _L, _L, _L, _L, _P, _P, _P,
-                                 _I, _P], _I)}),
+                                 _I, _P], _I),
+        'glt_negative_sample_local': ([_P, _P, _L, _P, _L, _P, _L, _L, _L,
+                                       _P, _P, _P, _P, _I, _P], _I)}),
 }
 
 _libs = {}

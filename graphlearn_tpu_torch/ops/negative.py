@@ -11,8 +11,11 @@ On CUDA tensors the draw and the membership test are one launch of
 torch (a cumsum scatter). On CPU tensors the plain version runs:
 ``random.randint`` (the uint32 emulation), ``ops.edge_in_csr`` and the
 same partition. Nothing falls back: a failed build or launch raises.
-``random_negative_sample_local`` (the distributed engine's) comes with
-the distributed slice.
+
+``random_negative_sample_local`` is the distributed engine's shard-local
+draw: on CUDA tensors one launch of the kernel's second entry, which
+also counts the shard's owned rows itself (JAX's device value
+``num_rows``), so a distributed link batch makes no host sync.
 """
 import numpy as np
 import torch
@@ -23,6 +26,10 @@ from .neighbor import edge_in_csr
 
 # launches of the CUDA kernel (plain-version calls do not count)
 launches = 0
+# launches of its shard-local entry
+local_launches = 0
+
+INT32_MAX = 2 ** 31 - 1
 
 
 def sort_csr_segments(indptr: np.ndarray, indices: np.ndarray):
@@ -161,3 +168,111 @@ def random_negative_sample(indptr, sorted_indices, num_src: int,
   cand = negative_candidates(indptr, sorted_indices, num_src, num_dst,
                              num_samples * trials, key)
   return take_negatives(*cand, num_samples, padding)
+
+
+def local_candidates_plain(row_ids, indptr_loc, sorted_indices, num_dst: int,
+                           total: int, key):
+  """``(local rows, cols, not an edge, rows owned)`` of ``total``
+  shard-local candidates in plain torch on the CSR's device: ``kr, kc =
+  split(key)``, the row ``randint(kr, 0, 2**30) % max(owned, 1)`` (a
+  local row index), the column ``randint(kc, 0, num_dst)`` and the
+  membership test against the local CSR. ``owned`` is the count of
+  ``row_ids`` that are not INT32_MAX padding (a 0-d int32 tensor)."""
+  dev = sorted_indices.device
+  owned = (row_ids != INT32_MAX).sum().to(torch.int32)
+  kr, kc = trandom.split(torch.as_tensor(key))
+  u = (trandom.randint(kr, (total,), 0, 2 ** 30, dev).to(torch.int64)
+       % owned.clamp(min=1).to(torch.int64)).to(torch.int32)
+  cols = trandom.randint(kc, (total,), 0, num_dst, dev)
+  return u, cols, ~edge_in_csr(indptr_loc, sorted_indices, u, cols), owned
+
+
+def local_candidates(row_ids, indptr_loc, sorted_indices, num_dst: int,
+                     total: int, key):
+  """:func:`local_candidates_plain`'s outputs from one launch of the
+  kernel's shard-local entry on CUDA tensors (the owned-row count read
+  on the device, no host sync), or from the plain version on CPU
+  tensors."""
+  global local_launches
+  dev = sorted_indices.device
+  if all(t.device.type == 'cpu' for t in (row_ids, indptr_loc,
+                                          sorted_indices)):
+    return local_candidates_plain(row_ids, indptr_loc, sorted_indices,
+                                  num_dst, total, key)
+  for name, t in (('row_ids', row_ids), ('indptr', indptr_loc),
+                  ('sorted_indices', sorted_indices)):
+    if t.device != dev or dev.type != 'cuda':
+      raise ValueError('random_negative_sample_local: row_ids, indptr and '
+                       'sorted_indices must lie on one CUDA device')
+    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+      raise ValueError(f'random_negative_sample_local: {name} must be a '
+                       f'contiguous 1-d int32 tensor, got '
+                       f'{tuple(t.shape)} {t.dtype}')
+  key = torch.as_tensor(key)
+  if key.device != dev:
+    key = trandom.to_device(key, dev)
+  if key.dtype != torch.int64 or key.shape != (2,) or \
+      not key.is_contiguous():
+    raise ValueError(f'random_negative_sample_local: needs a contiguous '
+                     f'[2] int64 key, got {tuple(key.shape)} {key.dtype}')
+  u = torch.empty(total, dtype=torch.int32, device=dev)
+  cols = torch.empty(total, dtype=torch.int32, device=dev)
+  valid = torch.empty(total, dtype=torch.bool, device=dev)
+  owned = torch.empty((), dtype=torch.int32, device=dev)
+  err = kernels.lib('negative_sample').glt_negative_sample_local(
+      key.data_ptr(), row_ids.data_ptr(), row_ids.shape[0],
+      indptr_loc.data_ptr(), indptr_loc.shape[0], sorted_indices.data_ptr(),
+      sorted_indices.shape[0], _span(0, int(num_dst)), total, u.data_ptr(),
+      cols.data_ptr(), valid.data_ptr(), owned.data_ptr(), dev.index or 0,
+      torch.cuda.current_stream(dev).cuda_stream)
+  kernels.check(err, 'negative_sample_local')
+  local_launches += 1
+  return u, cols, valid, owned
+
+
+def _finish_local(row_ids, cand, num_samples: int, strict: bool):
+  """JAX's tail of ``random_negative_sample_local``: the first
+  ``num_samples`` of the stable non-edge-first partition, valid where the
+  shard owns rows (and, ``strict``, where the pair is no edge), mapped to
+  global sources; -1 in invalid slots."""
+  u, cols, notedge, owned = cand
+  lu, lc, ok = take_negatives(u, cols, notedge, num_samples)
+  valid = (owned > 0).expand(num_samples)
+  if strict:
+    valid = valid & ok
+  src = torch.where(valid, row_ids[lu.long()].to(torch.int32), -1)
+  return src, torch.where(valid, lc, -1), valid
+
+
+def random_negative_sample_local_plain(row_ids, indptr_loc, sorted_indices,
+                                       num_dst: int, num_samples: int, key,
+                                       trials: int = 5,
+                                       strict: bool = False):
+  """:func:`random_negative_sample_local` in plain torch on any device."""
+  cand = local_candidates_plain(row_ids, indptr_loc, sorted_indices,
+                                num_dst, num_samples * trials, key)
+  return _finish_local(row_ids, cand, num_samples, strict)
+
+
+def random_negative_sample_local(row_ids, indptr_loc, sorted_indices,
+                                 num_dst: int, num_samples: int, key,
+                                 trials: int = 5, strict: bool = False):
+  """Shard-local negative sampling of the distributed engine
+  (``graphlearn_tpu/ops/negative.py:random_negative_sample_local``).
+
+  The shard draws source rows from its own local CSR (``row_ids`` its
+  ascending owned global ids, INT32_MAX-padded; ``indptr_loc`` /
+  ``sorted_indices`` the local CSR with row-sorted indices) and columns
+  in ``[0, num_dst)``; a candidate that is an edge of the local CSR is
+  rejected. A row's out-edges all live on its owner, so the local test
+  is complete for these sources. ``strict=False`` always emits
+  ``num_samples`` pairs (a candidate that stayed an edge may slip
+  through); ``strict=True`` marks such slots invalid. On a shard that
+  owns no row every slot is invalid and its ids are -1.
+
+  Returns ``(src [num_samples] global, dst [num_samples], valid
+  [num_samples])``, equal to JAX's. On CUDA tensors: one kernel launch
+  and the partition, no host sync."""
+  cand = local_candidates(row_ids, indptr_loc, sorted_indices, num_dst,
+                          num_samples * trials, key)
+  return _finish_local(row_ids, cand, num_samples, strict)

@@ -5,8 +5,8 @@ Counterpart of ``graphlearn_tpu/ops/subgraph.py`` (``node_subgraph``,
 edge whose endpoints are both in it, relabeled to local indices. Rows are
 scanned up to a static ``max_degree`` (or two degree buckets), and
 membership is a ``searchsorted`` over the deduped node set, with no draw
-and no host sync. ``node_subgraph_local`` comes with the distributed
-slice.
+and no host sync. ``node_subgraph_local`` is the distributed engine's
+extraction over a partition-local CSR.
 """
 import torch
 
@@ -94,3 +94,40 @@ def node_subgraph_bucketed(indptr, indices, srcs, src_mask, deg_small: int,
               cols=torch.cat([c1, c2]), epos=torch.cat([e1, e2]),
               edge_mask=torch.cat([m1, m2]),
               num_dropped_rows=torch.clamp(num_large - cap_large, min=0))
+
+
+def node_subgraph_local(row_ids, indptr_loc, indices, node_keys,
+                        max_degree: int):
+  """Induced-subgraph extraction over a partition-local CSR
+  (``graphlearn_tpu/ops/subgraph.py:node_subgraph_local``).
+
+  ``node_keys`` is the ascending node set, padding int-max. The shard
+  finds the set's nodes it owns (a binary search of ``row_ids``), scans
+  each owned row to ``max_degree`` and keeps the edges whose other end is
+  in the set, relabeled to positions in ``node_keys``. Returns a dict of
+  ``[B * max_degree]`` ``rows`` / ``cols`` (-1 where invalid), ``epos``
+  (local CSR positions, 0 where invalid) and ``edge_mask``."""
+  b = node_keys.shape[0]
+  dev = node_keys.device
+  big = torch.iinfo(node_keys.dtype).max
+  node_valid = node_keys != big
+  rpos = torch.searchsorted(row_ids, node_keys).clamp(0, row_ids.shape[0] - 1)
+  owned = node_valid & (row_ids[rpos] == node_keys)
+  start = torch.where(owned, indptr_loc[rpos], 0).to(torch.int64)
+  deg = torch.where(owned, indptr_loc[rpos + 1] - indptr_loc[rpos],
+                    0).to(torch.int64)
+  off = torch.arange(max_degree, dtype=torch.int64, device=dev)[None, :]
+  in_row = off < deg[:, None]
+  epos = torch.where(in_row, start[:, None] + off, 0)
+  if indices.shape[0]:
+    nbr = torch.where(in_row, indices[epos], big)
+  else:
+    nbr = torch.full(epos.shape, big, dtype=node_keys.dtype, device=dev)
+  pos = torch.searchsorted(node_keys, nbr.contiguous()).clamp(0, b - 1)
+  member = in_row & (node_keys[pos] == nbr)
+  rows = torch.where(member, torch.arange(b, dtype=torch.int32,
+                                          device=dev)[:, None], -1)
+  cols = torch.where(member, pos.to(torch.int32), -1)
+  return dict(rows=rows.reshape(-1), cols=cols.reshape(-1),
+              epos=torch.where(member, epos, 0).reshape(-1),
+              edge_mask=member.reshape(-1))

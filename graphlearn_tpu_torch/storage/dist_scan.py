@@ -1,7 +1,7 @@
 """TieredDistScanTrainer: device oversubscription through the shard
 exchange.
 
-Counterpart of ``graphlearn_tpu/storage/dist_scan.py`` (homogeneous).
+Counterpart of ``graphlearn_tpu/storage/dist_scan.py``, homogeneous and typed.
 ``loader.DistScanTrainer`` keeps every shard's whole feature partition on
 the device, since any shard may ask it for any of its rows. This trainer
 runs the same epoch over a ``storage.TieredDistFeature`` of which the
@@ -40,9 +40,13 @@ the all-device trainer's:
   a synchronous gather of the same planned positions
   (``storage.prefetch_miss``).
 
+* **Typed loaders.** ``{ntype: TieredDistFeature}`` stores: one plan,
+  stager and static slab per sampled, featured node type, each type's
+  lookup over its own hot prefix and slab; the prologue's replayed node
+  ids of every type come to the host in one copy.
+
 Scope: a one-process mesh (the prologue and the stager read every
-shard's rows on one host), homogeneous; the typed variant waits for the
-typed dist engine. Labels stay a full (small) ``DistFeature``. Not
+shard's rows on one host). Labels stay a full (small) ``DistFeature``. Not
 ported: the spans, the tuned ``config=`` and the ``storage.dist_stage``
 fault site (``DistChunkStager._stage_fault`` is its no-op seam).
 """
@@ -123,15 +127,17 @@ class DistChunkStager(ChunkStager):
 
 class TieredDistScanTrainer(DistScanTrainer):
   """``DistScanTrainer`` over a ``TieredDistFeature`` whose device holds
-  only each shard's hot prefix and the staged slab (module docstring).
+  only each shard's hot prefix and the staged slab (module docstring); a
+  typed loader takes a ``{ntype: TieredDistFeature}`` store dict.
 
   Args (beyond ``DistScanTrainer``'s):
     max_ahead: staged chunks in flight (2 = double buffer).
     stage_timeout_s: how long a chunk boundary waits for its slab before
       degrading to a synchronous gather.
 
-  After an epoch: ``last_plan`` (its ``planner.ExchangePlan``),
-  ``prologue_ms`` and :meth:`chunk_timings`.
+  After an epoch: ``last_plan`` (its ``planner.ExchangePlan``; typed: a
+  ``{ntype: ExchangePlan}`` dict), ``prologue_ms`` and
+  :meth:`chunk_timings`.
   """
 
   _NAME = 'TieredDistScanTrainer'
@@ -143,43 +149,48 @@ class TieredDistScanTrainer(DistScanTrainer):
                capture: Optional[bool] = None):
     sampler = getattr(loader, 'sampler', None)
     store = getattr(sampler, 'dist_feature', None)
-    if isinstance(store, dict):
-      raise ValueError(f'{self._NAME}: per-type stores come with the typed '
-                       'dist engine (ROADMAP queue A item 7)')
-    if not isinstance(store, TieredDistFeature):
-      raise CapacityPlanError(
-          self._NAME,
-          'the feature store carries no slab capacities (a '
-          f'{type(store).__name__}, not a TieredDistFeature)',
-          hint='build the store as storage.TieredDistFeature('
-               'hot_prefix_rows >= 1) so the exchange planner can close '
-               'its slab shapes; all-device DistFeature partitions keep '
-               'loader.DistScanTrainer')
-    if store.hot_prefix_rows < 1:
-      raise CapacityPlanError(
-          self._NAME, 'the store declares no hot prefix (hot_prefix_rows '
-          '< 1)', hint='the chunk clamps pad positions into the hot '
-          'prefix: pass hot_prefix_rows >= 1 at store construction')
-    if store.mesh.group is not None:
-      raise ValueError(f'{self._NAME} plans and stages every shard on one '
-                       'host: a one-process mesh only')
+    stores = store if isinstance(store, dict) else {None: store}
+    for t, st in stores.items():
+      what = '' if t is None else f' for ntype {t!r}'
+      if not isinstance(st, TieredDistFeature):
+        raise CapacityPlanError(
+            self._NAME,
+            f'the feature store{what} carries no slab capacities (a '
+            f'{type(st).__name__}, not a TieredDistFeature)',
+            hint='build the store as storage.TieredDistFeature('
+                 'hot_prefix_rows >= 1) so the exchange planner can close '
+                 'its slab shapes; all-device DistFeature partitions keep '
+                 'loader.DistScanTrainer')
+      if st.hot_prefix_rows < 1:
+        raise CapacityPlanError(
+            self._NAME, f'the store{what} declares no hot prefix '
+            '(hot_prefix_rows < 1)', hint='the chunk clamps pad positions '
+            'into the hot prefix: pass hot_prefix_rows >= 1 at store '
+            'construction')
+      if st.mesh.group is not None:
+        raise ValueError(f'{self._NAME} plans and stages every shard on '
+                         'one host: a one-process mesh only')
     self._store = store
-    self._slab_pos = None     # the static device slab, [L, cap]
-    self._slab_rows = None
+    self._slab_pos = {}     # the static device slabs, [L, cap] per type
+    self._slab_rows = {}
     super().__init__(loader, model, num_classes, chunk_size,
                      seed_labels_only, perm_seed, capture)
-    self._stager = DistChunkStager(store, max_ahead=max_ahead,
-                                   timeout_s=stage_timeout_s)
+    self._tiered = self._stores()
+    self._stagers = {t: DistChunkStager(st, max_ahead=max_ahead,
+                                        timeout_s=stage_timeout_s)
+                     for t, st in self._tiered.items()}
+    self._stager = self._stagers.get(None)
     self.last_plan = None
     self.prologue_ms = None
     self._epoch_span = (0, 0)
     self._chunk_log = []
 
-  def _feature_tables(self):
-    """The hot prefix and the static slab, read at call time (a capture
-    records their addresses)."""
-    return dict(self._store.dist_scan_tables(), slab_pos=self._slab_pos,
-                slab_rows=self._slab_rows)
+  def _feature_tables(self, ntype=None):
+    """The hot prefix and the static slab (of ``ntype``), read at call
+    time (a capture records their addresses)."""
+    store = self._store[ntype] if ntype is not None else self._store
+    return dict(store.dist_scan_tables(), slab_pos=self._slab_pos[ntype],
+                slab_rows=self._slab_rows[ntype])
 
   # ------------------------------------------------------------ prologue
 
@@ -191,31 +202,43 @@ class TieredDistScanTrainer(DistScanTrainer):
                                    resume_overflow)
 
   def _prologue(self, full_steps: int):
-    """The seed matrices, then the epoch's exchange plan: the id-only
-    replay of the sampler over its steps, one fetch of the node ids, the
-    per-chunk miss sets, the static slab sized for them and the stager
-    primed at the resume chunk."""
+    """The seed matrices, then the epoch's exchange plans: the id-only
+    replay of the sampler over its steps, one fetch of the node ids (of
+    every featured type), the per-chunk miss sets, the static slabs
+    sized for them and the stagers primed at the resume chunk."""
     seed_mat, mask_mat = super()._prologue(full_steps)
     steps, start_step = self._epoch_span
     t0 = time.perf_counter()
     with self._capture_stream():
-      rows_mat = self._plan_rows(seed_mat[:steps], mask_mat[:steps])
-      rows_host = rows_mat.cpu().numpy()      # the epoch's one host sync
-      del rows_mat
-      store = self._store
-      plan = planner.plan_exchange(
-          rows_host.transpose(1, 0, 2), self.chunk_size, store.feature_pb,
-          store.feat_ids, store.hot_prefix_rows, cache_ids=store.cache_ids)
-      self._size_slab(max(plan.slab_caps()))
-    self.last_plan = plan
-    self._stager.begin_epoch(plan.chunk_rows,
-                             start_chunk=start_step // self.chunk_size)
+      rows = self._plan_rows(seed_mat[:steps], mask_mat[:steps])
+      if not self.is_hetero:
+        rows = {None: rows}
+      types = list(self._tiered)
+      widths = [rows[t].shape[-1] for t in types]
+      # the epoch's one host sync
+      flat = torch.cat([rows[t] for t in types], -1).cpu().numpy()
+      del rows
+      plans, off = {}, 0
+      for t, w in zip(types, widths):
+        store = self._tiered[t]
+        plans[t] = planner.plan_exchange(
+            flat[..., off:off + w].transpose(1, 0, 2), self.chunk_size,
+            store.feature_pb, store.feat_ids, store.hot_prefix_rows,
+            cache_ids=store.cache_ids)
+        off += w
+        self._size_slab(t, max(plans[t].slab_caps()))
+    self.last_plan = plans if self.is_hetero else plans[None]
+    for t, plan in plans.items():
+      self._stagers[t].begin_epoch(plan.chunk_rows,
+                                   start_chunk=start_step // self.chunk_size)
+    self._plans = plans
     self.prologue_ms = (time.perf_counter() - t0) * 1e3
     return seed_mat, mask_mat
 
   def _plan_rows(self, seed_mat, mask_mat):
-    """``[steps, P, node_cap]`` node ids of every step, sampled under the
-    chunks' own keys."""
+    """``[steps, L, node_cap]`` node ids of every step (typed: a ``{ntype:
+    ...}`` dict of the featured types), sampled under the chunks' own
+    keys."""
     device = seed_mat.device
     steps = seed_mat.shape[0]
     base_key = torch.as_tensor(self._sampler._key).to(device)
@@ -224,31 +247,33 @@ class TieredDistScanTrainer(DistScanTrainer):
     keys = ops.dist_step_keys(base_key, counter, steps, self._nparts,
                               self._n_hops)
     mesh = self.mesh
-    return torch.stack([
-        self._sample(mesh.local_rows(seed_mat[g]),
-                     mesh.local_rows(mask_mat[g]),
-                     mesh.local_rows(keys[g]))['node']
-        for g in range(steps)])
+    nodes = [self._sample(mesh.local_rows(seed_mat[g]),
+                          mesh.local_rows(mask_mat[g]),
+                          mesh.local_rows(keys[g]))['node']
+             for g in range(steps)]
+    if not self.is_hetero:
+      return torch.stack(nodes)
+    return {t: torch.stack([n[t] for n in nodes]) for t in self._tiered}
 
-  def _size_slab(self, cap: int):
+  def _size_slab(self, ntype, cap: int):
     """Hold a static slab of at least ``cap`` positions a shard; a larger
     one is a new allocation, so the graphs over the old one go."""
-    if self._slab_pos is not None and self._slab_pos.shape[1] >= cap:
+    old = self._slab_pos.get(ntype)
+    if old is not None and old.shape[1] >= cap:
       return
-    store, mesh = self._store, self.mesh
+    store, mesh = self._tiered[ntype], self.mesh
     self._graphs = {}
-    self._slab_pos = torch.full((mesh.num_local, cap), INT32_MAX,
-                                dtype=torch.int32, device=mesh.device)
-    self._slab_rows = torch.zeros((mesh.num_local, cap, store.feature_dim),
-                                  dtype=store.storage_dtype,
-                                  device=mesh.device)
+    self._slab_pos[ntype] = torch.full((mesh.num_local, cap), INT32_MAX,
+                                       dtype=torch.int32, device=mesh.device)
+    self._slab_rows[ntype] = torch.zeros(
+        (mesh.num_local, cap, store.feature_dim),
+        dtype=store.storage_dtype, device=mesh.device)
 
   @property
   def slab_bytes(self) -> int:
-    if self._slab_pos is None:
-      return 0
     return sum(t.numel() * t.element_size()
-               for t in (self._slab_pos, self._slab_rows))
+               for d in (self._slab_pos, self._slab_rows)
+               for t in d.values())
 
   # --------------------------------------------------------------- chunk
 
@@ -256,7 +281,8 @@ class TieredDistScanTrainer(DistScanTrainer):
                   start: int, k: int) -> dict:
     args = super()._chunk_args(seed_mat, mask_mat, base_key, count, start,
                                k)
-    self._load_slab(start // self.chunk_size)
+    for t in self._tiered:
+      self._load_slab(t, start // self.chunk_size)
     return args
 
   def _event(self):
@@ -266,40 +292,45 @@ class TieredDistScanTrainer(DistScanTrainer):
     ev.record()
     return ev
 
-  def _load_slab(self, c: int):
-    """Chunk ``c``'s slab into the static device slab, on the current
-    stream (the trainer's), without blocking the host."""
-    ids, rows = self._stager.take(c)
+  def _load_slab(self, ntype, c: int):
+    """Chunk ``c``'s slab (of ``ntype``) into the static device slab, on
+    the current stream (the trainer's), without blocking the host."""
+    ids, rows = self._stagers[ntype].take(c)
     cap = ids.shape[1]
+    pos, dst = self._slab_pos[ntype], self._slab_rows[ntype]
     start = self._event()
-    self._slab_pos[:, :cap].copy_(ids, non_blocking=True)
-    if cap < self._slab_pos.shape[1]:
-      self._slab_pos[:, cap:].fill_(INT32_MAX)
-    self._slab_rows[:, :cap].copy_(rows, non_blocking=True)
+    pos[:, :cap].copy_(ids, non_blocking=True)
+    if cap < pos.shape[1]:
+      pos[:, cap:].fill_(INT32_MAX)
+    dst[:, :cap].copy_(rows, non_blocking=True)
     copied = self._event()
-    n = int(self.last_plan.chunk_rows[c].shape[0])
-    self._chunk_log.append(dict(
-        chunk=c, rows=n, cap=int(cap),
-        slab_bytes=rows.numel() * rows.element_size() + ids.numel() * 4,
-        events=[start, copied]))
+    n = int(self._plans[ntype].chunk_rows[c].shape[0])
+    rec = dict(chunk=c, rows=n, cap=int(cap),
+               slab_bytes=rows.numel() * rows.element_size() + ids.numel() * 4,
+               events=[start, copied])
+    if ntype is not None:
+      rec['ntype'] = ntype
+    self._chunk_log.append(rec)
 
   def _chunk_enqueued(self, c: int):
-    rec = self._chunk_log[-1]
-    rec['events'].append(self._event())
-    # the ring slot is refilled only once the slab's copy has completed
-    self._stager.ack(c, rec['events'][1])
+    for rec in self._chunk_log[-len(self._tiered):]:
+      rec['events'].append(self._event())
+      # the ring slot is refilled only once the slab's copy has completed
+      self._stagers[rec.get('ntype')].ack(c, rec['events'][1])
 
   def chunk_timings(self) -> list:
-    """Per chunk of the last epoch: planned rows, slab cap and bytes, the
-    worker's stage ms, the dispatch thread's wait at ``take`` (ms) and,
-    on a card, the slab's host-to-device copy and the chunk's device ms
-    (CUDA events; reading them waits for the epoch's end)."""
+    """Per chunk (and per node type on a typed loader) of the last epoch:
+    planned rows, slab cap and bytes, the worker's stage ms, the dispatch
+    thread's wait at ``take`` (ms) and, on a card, the slab's
+    host-to-device copy and the chunk's device ms (CUDA events; reading
+    them waits for the epoch's end)."""
     out = []
     for rec in self._chunk_log:
       c = rec['chunk']
+      stager = self._stagers[rec.get('ntype')]
       r = {k: v for k, v in rec.items() if k != 'events'}
-      r['stage_ms'] = self._stager.stage_ms.get(c)
-      r['wait_ms'] = self._stager.wait_ms.get(c)
+      r['stage_ms'] = stager.stage_ms.get(c)
+      r['wait_ms'] = stager.wait_ms.get(c)
       start, copied, done = rec['events']
       if done is not None:
         done.synchronize()
@@ -314,17 +345,25 @@ class TieredDistScanTrainer(DistScanTrainer):
 
   def _flight_config(self) -> dict:
     cfg = super()._flight_config()
-    cfg.update(hot_prefix_rows=self._store.hot_prefix_rows,
-               n_max=self._store.n_max)
+    if self.is_hetero:
+      cfg.update(hot_prefix_rows={t: s.hot_prefix_rows
+                                  for t, s in self._tiered.items()},
+                 n_max={t: s.n_max for t, s in self._tiered.items()})
+    else:
+      cfg.update(hot_prefix_rows=self._store.hot_prefix_rows,
+                 n_max=self._store.n_max)
     return cfg
 
   def _recovery_capture(self, carry):
-    """``DistScanTrainer``'s capture plus the staging ring's watermarks
+    """``DistScanTrainer``'s capture plus the staging rings' watermarks
     (diagnostic: a resume plans and stages again)."""
     meta, dev = super()._recovery_capture(carry)
-    meta['staging'] = self._stager.watermarks()
+    meta['staging'] = (
+        {t: st.watermarks() for t, st in self._stagers.items()}
+        if self.is_hetero else self._stager.watermarks())
     return meta, dev
 
   def close(self):
-    """Stop the staging worker thread."""
-    self._stager.close()
+    """Stop the staging worker threads."""
+    for stager in self._stagers.values():
+      stager.close()

@@ -68,7 +68,11 @@ binary merge) against the CPU's with no host sync, the typed
 materializer's passes and refresh against the CPU's, and ``sample_prob``
 against the CPU's; and the distributed loader over four shards on one
 card against the CPU's, with K3 P x hops and K1 3P a batch and the host
-syncs exactly its counted verdict reads.
+syncs exactly its counted verdict reads; the negative kernel's shard-local
+entry against its plain version (owned-row counts past 65,536, an empty
+shard, strict and not, host and device keys) with no host sync; a
+distributed link batch with no host sync, equal to the CPU's; and a
+captured typed ``DistScanTrainer`` against the eager one.
 """
 import contextlib
 import copy
@@ -2242,3 +2246,183 @@ def test_dist_staging_slot_waits_for_its_copy_event(cuda, tmp_path):
       store.cpu_get(store.feat_ids[0, [4, 5]]).numpy()))
   assert ids2[0].tolist() == [10, 11] and ids2[1].tolist()[0] == 12
   stager.close()
+
+
+def _local_shard(n_owned, e, pad, seed=0):
+  """A shard's local CSR: ``n_owned`` ascending global row ids (every
+  third id) padded with INT32_MAX to ``n_owned + pad`` rows, ``e`` edges
+  with zipf columns, row-sorted indices (-1 padded by 3)."""
+  rng = np.random.default_rng(seed)
+  rows = np.sort(rng.integers(0, max(n_owned, 1), e)) if n_owned else \
+      np.zeros(0, np.int64)
+  cols = rng.zipf(1.5, rows.shape[0]) % (3 * max(n_owned, 1) + 7)
+  rid = np.full(n_owned + pad, np.iinfo(np.int32).max, np.int32)
+  rid[:n_owned] = np.arange(n_owned) * 3
+  ptr = np.zeros(n_owned + pad + 1, np.int32)
+  np.cumsum(np.bincount(rows, minlength=n_owned + pad), out=ptr[1:])
+  order = np.lexsort((cols, rows))
+  idx = np.full(rows.shape[0] + 3, -1, np.int32)
+  idx[:rows.shape[0]] = cols[order]
+  return [torch.as_tensor(a) for a in (rid, ptr, idx)]
+
+
+@pytest.mark.parametrize('n_owned,e,pad,num,num_dst', [
+    (70_000, 300_000, 5, 512, 1_000_003), (65_537, 100_000, 0, 300, 9),
+    (12, 60, 3, 64, 40), (0, 0, 6, 32, 100), (5, 0, 2, 16, 1)])
+@pytest.mark.parametrize('strict', [False, True])
+def test_negative_sample_local_kernel_matches_plain(cuda, n_owned, e, pad,
+                                                    num, num_dst, strict):
+  """The negative kernel's shard-local entry: the owned-row count it
+  reads on the device, its candidates (randint over span 2**30 reduced
+  by the count, past 65,536 owned rows) and the taken negatives equal
+  the plain version's on the same key, on a shard that owns no row
+  (every slot invalid, ids -1) and one with no edge; one launch a call,
+  no host sync; a host key and the same key on the device agree."""
+  rid, ptr, idx = _local_shard(n_owned, e, pad)
+  grid, gptr, gidx = (t.to(cuda) for t in (rid, ptr, idx))
+  key = gtt.random.fold_in(gtt.random.PRNGKey(5), n_owned)
+  dkey = gtt.random.to_device(key, cuda)
+  before = ops.launch_counts()['negative_sample_local']
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    got = ops.random_negative_sample_local(grid, gptr, gidx, num_dst, num,
+                                           dkey, strict=strict)
+    cand = ops.negative.local_candidates(grid, gptr, gidx, num_dst, num * 5,
+                                         dkey)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  assert ops.launch_counts()['negative_sample_local'] == before + 2
+  plain = ops.negative.local_candidates_plain(grid, gptr, gidx, num_dst,
+                                              num * 5, dkey)
+  cpu = ops.negative.local_candidates_plain(rid, ptr, idx, num_dst, num * 5,
+                                            key)
+  for a, b, c in zip(cand, plain, cpu):
+    assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+  assert int(cand[3]) == n_owned
+  want = ops.random_negative_sample_local_plain(rid, ptr, idx, num_dst, num,
+                                                key, strict=strict)
+  for a, b in zip(got, want):
+    assert torch.equal(a.cpu(), b)
+  if n_owned == 0:
+    assert not got[2].any() and bool((got[0] == -1).all())
+  host = ops.random_negative_sample_local(grid, gptr, gidx, num_dst, num,
+                                          key, strict=strict)
+  for a, b in zip(got, host):
+    assert torch.equal(a, b)
+
+
+def test_dist_link_batch_on_card_has_no_host_sync(cuda):
+  """A distributed link batch (binary, ``neg_strict``, full-width
+  exchanges) over P = 4 shards of a 20,000-node graph on one card, made
+  under ``set_sync_debug_mode('error')`` (chip_smoke.py's dist_more
+  helpers at a small size): equal to the CPU sampler's on the same seed
+  edges and keys, with the local negative kernel once per shard."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  cs = _chip_smoke()
+  n, p, b = 20000, 4, 64
+  ei, feats, _ = cs.make_graph(n, 25)
+  pb = cs.dist_book(n, p)
+  parts, fparts = ex.partition_in_memory(ei, feats, pb, p)
+  dg = gdist.DistGraph(p, 0, parts, pb)
+  mesh = gdist.ShardMesh(p, cuda)
+  ds = gdist.DistDataset(p, 0, dg, gdist.DistFeature(
+      p, fparts, pb, mesh, split_ratio=0.1, bucket_frac=None))
+  pick = np.random.default_rng(3).choice(ei.shape[1], p * b * 3,
+                                         replace=False)
+  loader = gdist.DistLinkNeighborLoader(
+      ds, [10, 5], ei[:, pick], batch_size=b, seed=0, mesh=mesh,
+      neg_sampling=NegativeSampling('binary', 1), dedup='tree',
+      bucket_frac=None, neg_strict=True)
+  host = gdist.DistNeighborSampler(dg, [10, 5], gdist.ShardMesh(p, 'cpu'),
+                                   seed=0, dedup='tree', bucket_frac=None,
+                                   neg_strict=True)
+  blocks = list(loader._index_blocks())
+  it = iter(loader)
+  next(it)
+  torch.cuda.synchronize()
+  ops.reset_launch_counts()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    batch = next(it)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  counts = ops.launch_counts()
+  assert counts['negative_sample_local'] == p
+  assert counts['sample_hop'] == 2 * p and counts['gather_rows'] == 2 * p
+  idx, mask = blocks[1]
+  cs.dmore_link_check(torch, host, loader, idx, mask, 2, batch,
+                      torch.as_tensor(feats).to(cuda), 'binary')
+
+
+def test_typed_dist_scan_captured_matches_eager(cuda):
+  """A captured typed ``DistScanTrainer`` (the two-type ring of the JAX
+  tests at P = 2 on one card, RGNN, 4 steps in chunks of 2) against the
+  eager one from one start: losses and parameters within rtol 1e-4, the
+  launch counters equal (K3 once per plan item a step and shard, one
+  dist_step_keys a chunk), the per-type feature counters exact, the
+  second epoch (replays only) under ``set_sync_debug_mode('error')``."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.typing import GraphPartitionData
+  n, p = 40, 2
+  et1, et2 = ('u', 'to', 'v'), ('v', 'back', 'u')
+  ui = np.arange(n)
+  e1 = np.stack([np.concatenate([ui, ui]),
+                 np.concatenate([ui, (ui + 1) % n])])
+  e2 = np.stack([ui, (ui + 2) % n])
+  pb = {'u': (ui % p).astype(np.int32), 'v': ((ui + 1) % p).astype(np.int32)}
+  parts = [{et1: GraphPartitionData(edge_index=e1[:, pb['u'][e1[0]] == q],
+                                    eids=np.nonzero(pb['u'][e1[0]] == q)[0]),
+            et2: GraphPartitionData(edge_index=e2[:, pb['v'][e2[0]] == q],
+                                    eids=np.nonzero(pb['v'][e2[0]] == q)[0])}
+           for q in range(p)]
+  fan = {et1: [2, 2], et2: [1, 1]}
+  msg = (gtt.typing.reverse_edge_type(et1), gtt.typing.reverse_edge_type(et2))
+  runs = []
+  for capture in (True, False):
+    mesh = gdist.ShardMesh(p, cuda)
+    feats = {t: gdist.DistFeature(
+        p, [(np.nonzero(pb[t] == q)[0],
+             np.nonzero(pb[t] == q)[0][:, None].astype(np.float32) *
+             np.ones((1, 4), np.float32)) for q in range(p)], pb[t], mesh,
+        split_ratio=0.25, bucket_frac=None) for t in ('u', 'v')}
+    ds = gdist.DistDataset(p, 0, gdist.DistHeteroGraph(p, 0, parts, pb),
+                           feats, node_labels={'u': ui % 3, 'v': ui % 3})
+    loader = gdist.DistNeighborLoader(ds, fan, ('u', np.arange(16)),
+                                      batch_size=2, seed=0, mesh=mesh,
+                                      bucket_frac=None)
+    model = gtt.models.RGNN(msg, {'u': 4, 'v': 4}, 8, 3, out_ntype='u',
+                            device=cuda,
+                            generator=torch.Generator().manual_seed(0))
+    t = gtt.loader.DistScanTrainer(loader, model, 3, chunk_size=2,
+                                   capture=capture)
+    assert t.capture == capture
+    runs.append([t, gtt.models.create_train_state(model)])
+  items = sum(len(h) for h in runs[0][0]._sampler._hetero_plan({'u': 2})[1])
+  for epoch in range(2):
+    out = []
+    for i, (t, st) in enumerate(runs):
+      for s in t._feat.values():
+        s.reset_stats()
+      ops.reset_launch_counts()
+      torch.cuda.synchronize()
+      if i == 0 and epoch == 1:
+        torch.cuda.set_sync_debug_mode('error')
+      try:
+        st, losses, _ = t.run_epoch(st)
+      finally:
+        torch.cuda.set_sync_debug_mode('default')
+      torch.cuda.synchronize()
+      runs[i][1] = st
+      out.append((losses, ops.launch_counts(),
+                  {k: s.stats() for k, s in t._feat.items()}))
+    assert out[0][1] == out[1][1]
+    assert out[0][1]['sample_hop'] == 4 * p * items
+    assert out[0][1]['dist_step_keys'] == 2
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=0)
+    assert out[0][2] == out[1][2]
+  for a, b in zip(runs[0][0].model.parameters(),
+                  runs[1][0].model.parameters()):
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

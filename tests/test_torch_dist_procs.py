@@ -9,9 +9,15 @@ None, with edge ids) equal, exactly, the one-process ``ShardMesh``
 result for that shard, and one data-parallel step of the example (the
 gradients summed by ``all_reduce``) leaves the same parameters and loss
 as the one-process step, and an eager ``DistScanTrainer`` epoch equals
-the one-process epoch (``capture=True`` is refused on a group). The
-one-process side is held against JAX's shard_map programs in
-``tests/test_torch_distributed.py`` and ``tests/test_torch_dist_scan.py``.
+the one-process epoch (``capture=True`` is refused on a group). So do
+a link batch (shard-local negatives), a typed batch of the two-type
+ring, a subgraph batch (the ``all_gather`` of the node keys) and node
+batches on the 2-axis layouts (2, 1) and (1, 2) (subgroups per slice and
+per chip column). The one-process side is held against JAX's shard_map
+programs in ``tests/test_torch_distributed.py``,
+``tests/test_torch_dist_scan.py``, ``tests/test_torch_dist_link.py``,
+``tests/test_torch_dist_hetero.py``, ``tests/test_torch_dist_subgraph.py``
+and ``tests/test_torch_dist_hier.py``.
 """
 import multiprocessing as mp
 import os
@@ -99,7 +105,65 @@ def run_all(mesh):
   for name, p in model.state_dict().items():
     out[f'param/{name}'] = p.detach().clone()
   out.update(scan_epoch(mesh, parts, feats, node_pb, edge_pb))
+  out.update(more_paths(mesh, parts, node_pb, edge_pb))
   return {k: v.cpu() for k, v in out.items() if v is not None}
+
+
+def hetero_ring():
+  """The two-type ring of ``tests/test_distributed.py``."""
+  et1, et2 = ('u', 'to', 'v'), ('v', 'back', 'u')
+  ui = np.arange(N)
+  e1 = np.stack([np.concatenate([ui, ui]),
+                 np.concatenate([ui, (ui + 1) % N])])
+  e2 = np.stack([ui, (ui + 2) % N])
+  pb = {'u': (ui % P).astype(np.int32), 'v': ((ui + 1) % P).astype(np.int32)}
+  parts = []
+  for p in range(P):
+    m1, m2 = pb['u'][e1[0]] == p, pb['v'][e2[0]] == p
+    parts.append({et1: GraphPartitionData(edge_index=e1[:, m1],
+                                          eids=np.nonzero(m1)[0]),
+                  et2: GraphPartitionData(edge_index=e2[:, m2],
+                                          eids=np.nonzero(m2)[0])})
+  return parts, pb, {et1: [2, 1], et2: [1, 1]}
+
+
+def more_paths(mesh, parts, node_pb, edge_pb):
+  """A link, a typed, a subgraph and two 2-axis node batches."""
+  from graphlearn_tpu_torch.sampler import EdgeSamplerInput, NegativeSampling
+  out = {}
+  dg = gdist.DistGraph(P, 0, parts, node_pb, edge_pb)
+  rows = (np.arange(8) * 3 % N).reshape(P, 4)
+  for mode in ('binary', 'triplet'):
+    s = gdist.DistNeighborSampler(dg, [2, 2], mesh, seed=3, bucket_frac=None,
+                                  neg_strict=True)
+    o = s.sample_from_edges(EdgeSamplerInput(
+        rows, (rows + 1) % N, neg_sampling=NegativeSampling(mode, 2)))
+    for f in ('node', 'row', 'col', 'edge_mask'):
+      out[f'link/{mode}/{f}'] = getattr(o, f)
+    for k in ('edge_label_index', 'dst_neg_index', 'seed_mask'):
+      if k in o.metadata:
+        out[f'link/{mode}/{k}'] = o.metadata[k]
+  hparts, hpb, fan = hetero_ring()
+  hg = gdist.DistHeteroGraph(P, 0, hparts, hpb)
+  for dedup in ('tree', 'merge'):
+    s = gdist.DistNeighborSampler(hg, fan, mesh, seed=4, dedup=dedup,
+                                  with_edge=True)
+    o = s.sample_from_nodes(('u', _seeds()))
+    for f in ('node', 'row', 'col', 'edge_mask', 'edge'):
+      for k, v in getattr(o, f).items():
+        out[f'typed/{dedup}/{f}/{k}'] = v
+  s = gdist.DistNeighborSampler(dg, [2], mesh, seed=5, with_edge=True)
+  o = s.subgraph(_seeds())
+  for f in ('node', 'row', 'col', 'edge_mask', 'edge'):
+    out[f'sub/{f}'] = getattr(o, f)
+  out['sub/mapping'] = o.metadata['mapping']
+  for shape in ((2, 1), (1, 2)):
+    hmesh = gdist.ShardMesh(P, mesh.device, group=mesh.group, shape=shape)
+    s = gdist.DistNeighborSampler(dg, [2, 2], hmesh, seed=6, bucket_frac=0.5)
+    o = s.sample_from_nodes(_seeds())
+    for f in ('node', 'row', 'col', 'edge_mask'):
+      out[f'hier/{shape}/{f}'] = getattr(o, f)
+  return out
 
 
 def scan_epoch(mesh, parts, feats, node_pb, edge_pb):
@@ -216,3 +280,15 @@ def test_scanned_epoch_on_the_group_equals_one_process(ranks, whole):
     for k, v in whole.items():
       if k.startswith('scan/param/'):
         torch.testing.assert_close(res[k], v, **TOL, msg=k)
+
+
+def test_link_typed_subgraph_and_hier_per_rank_equal_one_process(ranks,
+                                                                 whole):
+  keys = [k for k in whole if k.split('/')[0] in ('link', 'typed', 'sub',
+                                                  'hier')]
+  assert any(k.startswith('typed/merge/') for k in keys)
+  assert any(k.startswith('hier/(1, 2)/') for k in keys)
+  for r, res in enumerate(ranks):
+    assert set(keys) <= set(res)
+    for k in keys:
+      assert torch.equal(res[k][0], whole[k][r]), k

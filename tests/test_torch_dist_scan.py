@@ -356,10 +356,22 @@ def test_refusals_name_their_reason():
   unlabeled.data.node_labels = None
   with pytest.raises(ValueError, match='node labels'):
     gtt.loader.DistScanTrainer(unlabeled, model, 3)
-  typed = port_loader(2, np.arange(16))
-  typed.sampler.is_hetero = True
-  with pytest.raises(ValueError, match='typed dist engine'):
-    gtt.loader.DistScanTrainer(typed, model, 3)
+  # link and subgraph loaders keep the per-step loop, as in JAX
+  parts, feats, node_pb, edge_pb = ring(2, TPart)
+  mesh = gdist.ShardMesh(2, 'cpu')
+  ds = gdist.DistDataset(2, 0, gdist.DistGraph(2, 0, parts, node_pb,
+                                               edge_pb),
+                         gdist.DistFeature(2, feats, node_pb, mesh),
+                         node_labels=np.arange(N) % 3)
+  link = gdist.DistLinkNeighborLoader(
+      ds, [2], np.stack([np.arange(8), (np.arange(8) + 1) % N]),
+      batch_size=2, mesh=mesh)
+  with pytest.raises(ValueError, match='NODE'):
+    gtt.loader.DistScanTrainer(link, model, 3)
+  sub = gdist.DistSubGraphLoader(ds, None, np.arange(8), batch_size=2,
+                                 mesh=mesh)
+  with pytest.raises(ValueError, match='NODE'):
+    gtt.loader.DistFusedEpochTrainer(sub, model, 3)
 
 
 def test_capture_needs_full_width_exchanges_and_a_card():

@@ -174,9 +174,17 @@ def test_dist_hetero_graph_equals_jax():
                                     getattr(tg.sub[et], f))
   dev = tg.device_arrays(tmesh(2))
   assert set(dev['#pb']) == {'a', 'b'}
-  with pytest.raises(NotImplementedError, match='next distributed slice'):
-    gdist.DistNeighborSampler(tg, [2], tmesh(2)).sample_from_nodes(
-        ('a', np.zeros((2, 4), np.int32)))
+  # the typed engine over these graphs samples JAX's batch
+  seeds = ('a', np.arange(8, dtype=np.int32).reshape(2, 4))
+  jo = glt.distributed.DistNeighborSampler(jg, [2], jmesh(2),
+                                           seed=1).sample_from_nodes(seeds)
+  to = gdist.DistNeighborSampler(tg, [2], tmesh(2),
+                                 seed=1).sample_from_nodes(seeds)
+  for f in FIELDS:
+    a, b = getattr(jo, f), getattr(to, f)
+    assert set(a) == set(b), f
+    for k in a:
+      np.testing.assert_array_equal(np.asarray(a[k]), _np(b[k]))
 
 
 # ---------------------------------------------------------------- feature
@@ -344,15 +352,20 @@ def test_explicit_keys_replay_and_state_round_trip():
 
 
 def test_sampler_refusals_name_the_next_slice():
+  """What the distributed sampler still refuses, as JAX does: a typed
+  subgraph (the reference has none), dict-form caps on a homogeneous
+  graph, 'auto' caps, and caps on the positional tree engine."""
+  from test_torch_dist_link import hetero_graphs, hetero_ring
+  raw, pb, (et1, _) = hetero_ring(2)
+  _, thg = hetero_graphs(raw, pb)
+  with pytest.raises(NotImplementedError, match='reference parity'):
+    gdist.DistNeighborSampler(thg, {et1: [1]}, tmesh(2)).subgraph(
+        np.zeros((2, 4), np.int32))
   _, tg = graphs(ring(2))
-  ts = gdist.DistNeighborSampler(tg, [2], tmesh(2))
-  for call in (lambda: ts.sample_from_edges(None),
-               lambda: ts.subgraph(np.zeros((2, 4), np.int32))):
-    with pytest.raises(NotImplementedError, match='next distributed slice'):
-      call()
-  with pytest.raises(NotImplementedError, match='next distributed slice'):
-    gdist.init_worker_group(num_partitions=4, devices='cpu',
-                            mesh_shape=(2, 2))
+  with pytest.raises(ValueError, match='hetero-only'):
+    gdist.DistNeighborSampler(tg, [2], tmesh(2), frontier_caps={et1: [4]})
+  with pytest.raises(ValueError, match='explicit caps'):
+    gdist.DistNeighborSampler(tg, [2], tmesh(2), frontier_caps='auto')
   with pytest.raises(ValueError, match='frontier_caps requires'):
     gdist.DistNeighborSampler(tg, [2], tmesh(2), dedup='tree',
                               frontier_caps=[4])
@@ -440,9 +453,16 @@ def test_dist_dataset_load_from_the_ports_partition_dir(tmp_path):
     # epoch's end (publish_stats, the tracing slice); the port's keep them
     st = tds.node_features.stats()
     assert st['lookups'] == st['hits'] + st['misses'] > 0
-  with pytest.raises(NotImplementedError, match='feature_spill_dir'):
-    gdist.DistDataset().load(str(tmp_path), mesh=tmesh(2),
-                             feature_spill_dir=str(tmp_path / 'spill'))
+  # feature_spill_dir: the node store spills to disk tiers and serves
+  # the same rows (TieredDistFeature)
+  spilled = gdist.DistDataset().load(str(tmp_path), mesh=tmesh(2),
+                                     node_labels=labels,
+                                     feature_spill_dir=str(tmp_path / 'sp'))
+  assert isinstance(spilled.node_features, gtt.storage.TieredDistFeature)
+  assert (tmp_path / 'sp' / 'node').is_dir()
+  ids = torch.as_tensor(np.arange(16, dtype=np.int32).reshape(2, 8))
+  assert torch.equal(spilled.node_features.get(ids),
+                     tds.node_features.get(ids))
 
 
 def test_dist_loader_overflow_policies():

@@ -27,8 +27,6 @@ BLOCKS128 = ('blocks128 is refused: the port reads the flat indices, so '
              "the TPU's 128-lane layout has no counterpart")
 TRACING = 'the JAX tracing hooks: queue A item 8 (metrics, trace, strict)'
 JAX_ONLY = 'JAX-only: compilation cache, jax device placement, shard_map'
-DIST_NEXT = ('the dist link, subgraph and typed samplers and loaders: the '
-             'next distributed slice (ROADMAP queue A item 7)')
 REMOTE_SCAN = ('the chunk-staged remote scan (block producers, '
                'RemoteScanTrainer): ROADMAP queue A item 7')
 REMOTE = ('the multiprocess and remote sampling producers, servers, '
@@ -45,10 +43,6 @@ ABSENT = {
     ('ops.sample_fused', 'LANES'): BLOCKS128,
     ('ops.sample_fused', 'LEVEL_MAX_CANDIDATES'): BLOCKS128,
     ('ops.sample_fused', 'build_indices128'): BLOCKS128,
-    ('ops', 'random_negative_sample_local'): DIST_NEXT,
-    ('ops.negative', 'random_negative_sample_local'): DIST_NEXT,
-    ('ops', 'node_subgraph_local'): DIST_NEXT,
-    ('ops.subgraph', 'node_subgraph_local'): DIST_NEXT,
     ('sampler', 'RemoteNodePathSamplerInput'): REMOTE,
     ('sampler', 'RemoteSamplerInput'): REMOTE,
     ('sampler', 'SamplingConfig'): REMOTE,
@@ -79,11 +73,11 @@ for _n in ('FaultError', 'fault_point', 'strict_enabled', 'strict_guards',
 for _n in ('shard_map', 'enable_compilation_cache', 'ensure_device',
            'get_available_device', 'global_device_put'):
   ABSENT[('utils', _n)] = JAX_ONLY
-for _n in ('DistLinkNeighborLoader', 'DistSubGraphLoader',
-           'DistRandomPartitioner', 'shared_node_pb', 'DistTableDataset'):
-  ABSENT[('distributed', _n)] = DIST_NEXT
-for _n in ('DistLinkNeighborLoader', 'DistSubGraphLoader'):
-  ABSENT[('distributed.dist_loader', _n)] = DIST_NEXT
+# both need the RPC layer (rpc.Barrier / RpcServer)
+for _n in ('DistRandomPartitioner', 'DistTableDataset'):
+  ABSENT[('distributed', _n)] = REMOTE
+ABSENT[('distributed.dist_random_partitioner', 'DistRandomPartitioner')] = \
+    REMOTE
 for _n in ('MpDistNeighborLoader', 'MpDistLinkNeighborLoader',
            'RemoteDistNeighborLoader', 'RemoteDistLinkNeighborLoader'):
   ABSENT[('distributed', _n)] = REMOTE
@@ -170,6 +164,7 @@ def test_compared_set_covers_the_new_namespaces():
                'distributed.dist_graph', 'distributed.dist_feature',
                'distributed.dist_neighbor_sampler',
                'distributed.dist_dataset', 'distributed.dist_loader',
+               'distributed.dist_random_partitioner',
                'utils', 'utils.checkpoint', 'utils.common', 'utils.topo',
                'ops.route', 'ops.stitch', 'sampler.capacity',
                'recovery.failover', 'loader.scan_epoch',

@@ -168,7 +168,9 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
                                  'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
                                  'smem_take': 0, 'uniform_draw': 0,
-                                 'negative_sample': 0, 'gather_unified': 0}
+                                 'negative_sample': 0,
+                                 'negative_sample_local': 0,
+                                 'gather_unified': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -196,13 +198,18 @@ def test_kernel_wrappers_refuse_mixed_devices():
   with pytest.raises(ValueError, match='CUDA'):
     ops.dist_step_keys(key, torch.zeros((), dtype=torch.int64,
                                         device='meta'), 2, 4, 3)
+  with pytest.raises(ValueError, match='CUDA'):
+    ops.random_negative_sample_local(torch.zeros(2, dtype=torch.int32),
+                                     indptr, ind.to('meta'), 4, 2, key)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
                                  'step_keys': 0, 'dist_step_keys': 0,
                                  'row_gather_probe_bulk': 0,
                                  'row_gather_probe_vector': 0,
                                  'smem_take': 0, 'uniform_draw': 0,
-                                 'negative_sample': 0, 'gather_unified': 0}
+                                 'negative_sample': 0,
+                                 'negative_sample_local': 0,
+                                 'gather_unified': 0}
 
 
 def test_every_kernel_source_is_built_and_has_a_plain_version():

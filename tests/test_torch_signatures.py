@@ -430,16 +430,18 @@ def test_every_named_difference_is_live():
 # Deliberate differences of the distributed path that a signature does
 # not show: ``init_worker_group(devices=)`` takes a torch device (the one
 # device of every shard; JAX: a device list), ``mesh=`` everywhere is a
-# ``ShardMesh`` (JAX: a ``jax.sharding.Mesh``), ``mesh_shape`` (the 2-axis
-# mesh) is refused until the next slice, ``DistFeature(dtype=,
-# wire_dtype=)`` take torch dtypes (or names) and ``cpu_get`` returns a CPU
-# tensor.
+# ``ShardMesh`` (JAX: a ``jax.sharding.Mesh``; ``mesh_shape=(S, C)`` gives
+# a ``ShardMesh`` of that ``shape``, JAX's ('slice', 'chip') mesh),
+# ``DistFeature(dtype=, wire_dtype=)`` take torch dtypes (or names) and
+# ``cpu_get`` returns a CPU tensor.
 DIST_CLASSES = ['DistContext', 'DistGraph', 'DistHeteroGraph', 'DistFeature',
                 'DistNeighborSampler', 'DistDataset', 'DistLoader',
-                'DistNeighborLoader']
+                'DistNeighborLoader', 'DistLinkNeighborLoader',
+                'DistSubGraphLoader']
 DIST_FUNCTIONS = [
     ('distributed', 'init_worker_group'), ('distributed', 'init_multihost'),
     ('distributed', 'get_context'), ('distributed', 'build_local_csr'),
+    ('distributed', 'shared_node_pb'),
     ('distributed.dist_feature', 'miss_capacity'),
     ('distributed.dist_feature', 'feature_exchange_mb'),
     ('ops', 'round8'), ('ops', 'exchange_capacity'), ('ops', 'route_slots'),
@@ -448,6 +450,7 @@ DIST_FUNCTIONS = [
     ('ops', 'weighted_sample_local'), ('ops', 'stack2'),
     ('ops', 'stack2_batched'), ('ops', 'valid_mask'),
     ('ops', 'searchsorted_membership'),
+    ('ops', 'random_negative_sample_local'), ('ops', 'node_subgraph_local'),
     ('utils', 'coo_to_csr'), ('utils', 'coo_to_csc'), ('utils', 'csr_to_coo'),
     ('utils', 'csr_to_csc'), ('utils', 'ptr2ind'), ('utils', 'ind2ptr'),
     ('utils', 'count_dict'), ('utils', 'merge_dict'),
