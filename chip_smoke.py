@@ -13,7 +13,9 @@ homogeneous GAT (forwards, training, a captured epoch, serving) and the
 SEAL DGCNN, typed link prediction (the bipartite two-tower example),
 typed RGNN serving and the tiered typed loader, partitioning with
 sample_prob, the partitioned (distributed) sampling path over 4 shards
-on the one card, the hot/cold
+on the one card, the multiprocess and server-client sampling stack
+(sampling workers on the card, a server child and this process its
+client), the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
 the spilled serving stores), and the two probe suites.
@@ -301,6 +303,29 @@ Phases (any failure exits non-zero, and the result line is not printed):
    data-parallel steps of ``examples/dist_train_sage_supervised.py``
    (hidden 256, 3 layers) with the last recomputed on the CPU; and a
    world-size-1 NCCL process group's batch against the one-process mesh.
+   Then the distributed trainers (``dist_scan``) and the rest of the
+   distributed core (``dist_more``), and the remote stack (``remote``):
+   ``MpDistNeighborLoader`` with 2 workers sampling on the card over the
+   script's graph ([15, 10, 5] at 1,024, merge uncalibrated; the ring
+   sized to two messages reckoned from the CPU's batch) and 4 products
+   steps (``GraphSAGE(100, 256, 47)``, merge-dense); the typed mp loader
+   at ``train_hgt_mag_mp``'s defaults (60k papers, [10, 10] at 512) and
+   3 HGT steps (64 hidden, 4 heads); a ``DistServer`` in a spawned child
+   holding the dataset on the card (2 workers a producer, a serving
+   engine over a seeded [1M, 64] table routed through gather v2) with
+   this process its client over loopback: a ``RemoteDistNeighborLoader``
+   (seed 1: worker seeds past 2**32) for 4 products steps, 2 of them
+   profiled, and 4 ``serve`` RPCs. Each worker's first batch exact
+   against the CPU sampler at its worker seed (ids, masks, edges, ``x``,
+   ``y``); the workers' launches (K4 10 and K1 1 a homogeneous batch, K3
+   per plan item and K1 per featured type a typed one), read from their
+   metric snapshots, and K2 once per ``serve``, read from the server's
+   counters before and after; the served rows equal to the table; ms a
+   batch by stage (worker sample+gather, device->host, ring write, ring
+   read, the server's fetch, the client's fetch RPC, the loopback wire
+   of one message, deserialize, upload, train), the message bytes, the
+   client's idle share and largest device ops; after shutdown no ring
+   open or alive (``shmctl``) and no child process.
 13. The hot/cold feature store. The card's pinned host-to-device rate
    (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
    from HBM, the cold rows read over UVA from the mapped host tail) on
@@ -2360,7 +2385,7 @@ def program_phase(torch, gtt, ds, device, mode, caps, pool, steps, smi,
   root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                       'chip_smoke_ckpt', mode)
   shutil.rmtree(root, ignore_errors=True)
-  rep = dict(launch_runs=[])   # every driven run's launch counts
+  rep = dict(launch_runs=[], rings=[])   # every driven run's launch counts
 
   def fresh_model(weights=start, warm=None):
     """A loader, a model and a train state: from ``weights`` (None: other
@@ -6828,6 +6853,619 @@ def dist_more_phase(torch, gtt, ei, feats, topo, device, smi, built=None):
   return rep
 
 
+# ---- the multiprocess and server-client stack (the remote phase)
+REMOTE_STEPS = 4                     # products steps of the mp and remote loops
+REMOTE_WORKERS = 2                   # sampling workers of each producer
+REMOTE_SERVES = (16, 64, 200, 256)   # ids of the four serve RPCs
+REMOTE_TABLE_DIM = 64                # the served table's width
+MAG_MP_STEPS = 3                     # HGT steps of the typed mp loop
+MAG_MP_PAPERS = 60_000               # train_hgt_mag_mp's defaults
+MAG_MP_BATCH = 512
+READY_S = 600                        # the server child's start-up budget
+
+
+def rings_alive(shmids) -> list:
+  """The SysV segments among ``shmids`` that still exist (``shmctl``
+  IPC_STAT answers). A ring is marked for removal when it is made, so it
+  is gone once its last process detached."""
+  import ctypes
+  libc = ctypes.CDLL(None, use_errno=True)
+  buf = ctypes.create_string_buffer(512)   # struct shmid_ds fits
+  return [i for i in shmids
+          if libc.shmctl(ctypes.c_int(i), ctypes.c_int(2), buf) == 0]
+
+
+def serve_table(torch, n: int):
+  """The served table: [n, REMOTE_TABLE_DIM] float32 from seed 5 (drawn on
+  the CPU, so the client rebuilds it)."""
+  return torch.randn(n, REMOTE_TABLE_DIM,
+                     generator=torch.Generator().manual_seed(5))
+
+
+def remote_server_main(topo, feats, labels, q, device_name):
+  """The server child: the script's dataset on the card, an
+  ``init_server`` endpoint, and a serving engine over ``serve_table``
+  (routed through gather v2) registered for the ``serve`` RPC; it serves
+  until the client calls ``exit``."""
+  import traceback
+
+  import torch
+
+  import graphlearn_tpu_torch as gtt
+  from graphlearn_tpu_torch.distributed import dist_server
+  rings = []
+
+  class RecordedRing(dist_server.ShmChannel):
+    """The server's producer rings, their shmids kept for the client's
+    check that none outlives the server."""
+
+    def __init__(self, *a, **kw):
+      super().__init__(*a, **kw)
+      rings.append(self.shmid)
+
+  dist_server.ShmChannel = RecordedRing
+  try:
+    device = torch.device(device_name)
+    ds = gtt.data.Dataset(device=device)
+    ds.graph = gtt.data.Graph(topo, device=device)
+    ds.init_node_features(feats)
+    ds.init_node_labels(labels)
+    del feats
+    store = gtt.serving.EmbeddingStore(serve_table(torch, topo.num_nodes)
+                                       .to(device))
+    store.set_kernel_routing(use_pallas_v2=True, block_rows=256,
+                             run_span=8)
+    engine = gtt.serving.ServingEngine(store, buckets=SERVE_BUCKETS).start()
+    host, port = gtt.distributed.init_server(1, 1, 0, ds)
+    gtt.distributed.get_server().register_serving_engine(engine)
+    q.put(('ready', host, port, os.getpid()))
+    gtt.distributed.wait_and_shutdown_server()
+    engine.stop()
+    q.put(('done', rings, None, None))
+  except BaseException:
+    q.put(('error', traceback.format_exc(), None, None))
+    raise
+
+
+def remote_blocks(pool, workers, batch):
+  """Each worker's seed blocks of a shuffle-off producer over ``pool``:
+  the static ``np.array_split`` share in order, ``batch`` at a time."""
+  shares = np.array_split(pool, workers)
+  return [[s[i:i + batch] for i in range(0, s.shape[0], batch)]
+          for s in shares]
+
+
+def remote_key(blocks, ids):
+  for w, bl in enumerate(blocks):
+    for j, b in enumerate(bl):
+      if b.shape[0] and b[0] == ids[0]:
+        return w, j
+  raise AssertionError(f'seed {ids[0]} in no worker block')
+
+
+def remote_cpu_batch(gtt, cpu_ds, worker_seed, call_index, block):
+  """The CPU sampler's batch at a worker's seed and call index, with the
+  CPU store's features and labels: what the card worker must have
+  sent."""
+  from graphlearn_tpu_torch.distributed.dist_sampling_producer import \
+      _batch_message
+  s = gtt.sampler.NeighborSampler(cpu_ds.graph, FANOUTS, device='cpu',
+                                  seed=worker_seed)
+  s._call_count = call_index
+  out = s.sample_from_nodes(gtt.sampler.NodeSamplerInput(block),
+                            batch_cap=BATCH)
+  x, y = _batch_message(cpu_ds, out, True, False)
+  return out, x, y
+
+
+def remote_check(torch, b, out, x, y, what):
+  """A card batch exact against the CPU's: ids, counts, masks, edges,
+  features and labels."""
+  fields = dict(node=(b.node, out.node),
+                edge_index=(b.edge_index, torch.stack([out.row, out.col])),
+                edge_mask=(b.edge_mask, out.edge_mask), x=(b.x, x),
+                y=(b.y, y), batch=(b.batch, out.batch))
+  for name, (got, want) in fields.items():
+    if not torch.equal(got.cpu(), want.cpu()):
+      raise AssertionError(f'{what}: {name} differs from the CPU sampler')
+  if b.num_nodes != int(out.num_nodes):
+    raise AssertionError(f'{what}: num_nodes differs from the CPU sampler')
+  return True
+
+
+def wait_workers(snap_fn, workers, what, timeout=120):
+  """A producer's merged worker snapshot once all ``workers`` published
+  it (at their epoch's end)."""
+  deadline = time.monotonic() + timeout
+  while time.monotonic() < deadline:
+    snap = snap_fn()
+    if snap is not None and snap.get('workers') == list(range(workers)):
+      return snap
+    time.sleep(0.05)
+  raise AssertionError(f'{what}: the workers\' metric snapshots never '
+                       'arrived')
+
+
+def hist_mean(snap, name):
+  h = snap['histograms'].get(name)
+  return h['sum'] / h['count'] if h and h['count'] else None
+
+
+def stage_means(snap) -> dict:
+  """Per-batch means (ms) of the workers' stages, and the message
+  bytes."""
+  return dict(sample_gather_ms=hist_mean(snap, 'producer.sample_gather_ms'),
+              d2h_ms=hist_mean(snap, 'producer.d2h_ms'),
+              ring_write_ms=hist_mean(snap, 'producer.send_ms'),
+              worker_batch_ms=hist_mean(snap, 'producer.sample_ms'),
+              message_bytes=snap['gauges'].get('producer.message_bytes'))
+
+
+def expect_launches(counts, want, what):
+  for k, v in want.items():
+    if counts[k] != v:
+      raise AssertionError(f'{what}: {k} launched {counts[k]} times, '
+                           f'expected {v} ({counts})')
+
+
+class StageTimer:
+  """Host-clock totals of wrapped calls (the consumer's ring read, its
+  uploads, the client's fetch RPCs): synchronised after each call on a
+  card, so a device copy is inside its own stage."""
+
+  def __init__(self, torch, cuda):
+    self.sync = torch.cuda.synchronize if cuda else (lambda: None)
+    self.ms, self.calls = {}, {}
+    self._lock = threading.Lock()
+
+  def wrap(self, name, fn, sync=False):
+    def timed_fn(*a, **kw):
+      t0 = time.perf_counter()
+      out = fn(*a, **kw)
+      if sync:
+        self.sync()
+      dt = (time.perf_counter() - t0) * 1e3
+      with self._lock:
+        self.ms[name] = self.ms.get(name, 0.0) + dt
+        self.calls[name] = self.calls.get(name, 0) + 1
+      return out
+    return timed_fn
+
+  def mean(self, name):
+    return self.ms[name] / self.calls[name] if self.calls.get(name) else None
+
+
+def remote_train_loop(torch, gtt, loader, model, steps, device, timer, smi,
+                      label, profile_steps=0):
+  """``steps`` products steps over ``loader`` (one epoch of exactly that
+  many batches): ms a step split into the wait for the batch and the
+  train step; ``profile_steps`` of them under torch.profiler."""
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  state = train.create_train_state(model, lr=LR)
+  train_step, _ = train.make_train_step(model, CLASSES)
+  it = iter(loader)
+  batches, losses, wait_ms, train_ms = [], [], [], []
+
+  def step():
+    t0 = time.perf_counter()
+    b = next(it)
+    t1 = time.perf_counter()
+    nonlocal state
+    state, loss, _ = train_step(state, train.batch_to_dict(b))
+    sync()
+    t2 = time.perf_counter()
+    batches.append(b)
+    losses.append(loss)
+    wait_ms.append((t1 - t0) * 1e3)
+    train_ms.append((t2 - t1) * 1e3)
+
+  for _ in range(steps - profile_steps):
+    step()
+  prof = (profiled(torch, step, profile_steps, device, label)
+          if profile_steps else None)
+  for _ in it:
+    raise AssertionError(f'{label}: the epoch has more than {steps} '
+                         'batches')
+  losses = [float(v) for v in losses]
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f'{label}: non-finite loss {losses}')
+  log(f'{label}: {steps} steps, losses {[round(v, 4) for v in losses]}, '
+      f'ms/step wait {np.median(wait_ms):.1f} train '
+      f'{np.median(train_ms):.1f} on {smi}')
+  return batches, dict(losses=losses, wait_ms=wait_ms, train_ms=train_ms,
+                       profile=prof)
+
+
+def remote_mp(torch, gtt, ds, cpu_ds, device, smi, rep):
+  """``MpDistNeighborLoader`` with two card workers over the script's
+  graph at the products width, and four products steps."""
+  from graphlearn_tpu_torch.channel import serialize_message
+  from graphlearn_tpu_torch.distributed import message
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  n = ds.graph.num_nodes
+  pool = np.random.default_rng(11).permutation(n)[:BATCH * REMOTE_STEPS]
+  blocks = remote_blocks(pool, REMOTE_WORKERS, BATCH)
+  # the ring holds two messages: their size from the CPU's batch of the
+  # first block (the padded shapes do not depend on the ids)
+  t0 = time.perf_counter()
+  ref = {(0, 0): remote_cpu_batch(gtt, cpu_ds, 0, 0, blocks[0][0]),
+         (1, 0): remote_cpu_batch(gtt, cpu_ds, 1, 0, blocks[1][0])}
+  cpu_s = time.perf_counter() - t0
+  msg_bytes = len(serialize_message(message.output_to_message(
+      *ref[(0, 0)])))
+  channel_size = 2 * msg_bytes + (1 << 20)
+  log(f'remote mp: message {msg_bytes / 2**20:.1f} MiB, ring '
+      f'{channel_size / 2**20:.1f} MiB; CPU reference batches '
+      f'{cpu_s:.1f} s')
+  no, eo = train.merge_hop_offsets(BATCH, FANOUTS)
+  model = gtt.models.GraphSAGE(
+      FEAT_DIM, HIDDEN, CLASSES, num_layers=len(FANOUTS),
+      hop_node_offsets=no, hop_edge_offsets=eo, merge_dense=True,
+      fanouts=FANOUTS, device=device,
+      generator=torch.Generator().manual_seed(3))
+  timer = StageTimer(torch, cuda)
+  t0 = time.perf_counter()
+  loader = gtt.distributed.MpDistNeighborLoader(
+      ds, FANOUTS, pool, batch_size=BATCH, num_workers=REMOTE_WORKERS,
+      channel_size=channel_size, seed=0)
+  pids = [p.pid for p in loader.producer._procs]
+  rep['rings'].append(loader.channel.shmid)
+  try:
+    spawn_s = time.perf_counter() - t0
+    loader.channel.recv = timer.wrap('ring_read', loader.channel.recv)
+    real_m2d = message.message_to_data
+    message.message_to_data = timer.wrap('upload', real_m2d, sync=True)
+    try:
+      batches, loop = remote_train_loop(
+          torch, gtt, loader, model, REMOTE_STEPS, device, timer, smi,
+          'remote mp')
+    finally:
+      message.message_to_data = real_m2d
+    snap = wait_workers(loader.worker_metrics, REMOTE_WORKERS, 'remote mp')
+  finally:
+    loader.shutdown()
+  checked = {}
+  for b in batches:
+    key = remote_key(blocks, b.batch.cpu().numpy()[:b.batch_size])
+    if key in ref:
+      checked[key] = remote_check(torch, b, *ref[key], f'remote mp {key}')
+  if len(checked) != len(ref):
+    raise AssertionError(f'remote mp: checked {sorted(checked)} of '
+                         f'{sorted(ref)}')
+  counts = snap['launches']
+  rep['launch_runs'].append(counts)
+  if cuda:
+    expect_launches(counts, dict(
+        sample_level=level_launch_count('merge', REMOTE_STEPS),
+        gather_rows=REMOTE_STEPS, sample_hop=0), 'remote mp workers')
+  stages = stage_means(snap)
+  stages.update(ring_read_ms=timer.mean('ring_read'),
+                upload_ms=timer.mean('upload'),
+                train_ms=float(np.median(loop['train_ms'])),
+                wait_ms=float(np.median(loop['wait_ms'])))
+  log(f'remote mp: ms a batch ' + ' '.join(
+      f'{k}={v:.2f}' for k, v in stages.items()
+      if k != 'message_bytes' and v is not None) +
+      f' message_bytes={stages["message_bytes"]:.0f}; workers\' launches '
+      f'{counts}; spawn {spawn_s:.1f} s; exact batches {sorted(checked)} '
+      f'on {smi}')
+  return dict(stages=stages, launches=counts, checked=sorted(checked),
+              channel_size=channel_size, spawn_s=spawn_s, worker_pids=pids,
+              losses=loop['losses'])
+
+
+def remote_typed(torch, gtt, device, smi, rep):
+  """``train_hgt_mag_mp``'s configuration at its defaults: two card
+  workers run the typed engine (K3 per plan item, K1 per featured type),
+  three HGT steps (merge-dense), the first batch of each worker exact
+  against the CPU."""
+  from graphlearn_tpu_torch.channel import serialize_message
+  from graphlearn_tpu_torch.distributed import message
+  from graphlearn_tpu_torch.distributed.dist_sampling_producer import \
+      _batch_message
+  from graphlearn_tpu_torch.examples import train_hgt_mag as mag
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  n_paper = MAG_MP_PAPERS if cuda else 6_000
+  b = MAG_MP_BATCH if cuda else 64
+  t0 = time.perf_counter()
+  ds = mag.build_dataset(n_paper, device)
+  cpu_ds = mag.build_dataset(n_paper, torch.device('cpu'))
+  build_s = time.perf_counter() - t0
+  # the example's train seeds, cut to one epoch of MAG_MP_STEPS + 1
+  # batches (the last is drawn, not trained on)
+  n_tr = int(n_paper * 0.2)
+  pool = np.arange(n_tr)[:b * (MAG_MP_STEPS + 1)]
+  shares = np.array_split(pool, REMOTE_WORKERS)
+  rng = np.random.default_rng(0)       # the producer's, seed 0
+  orders = [rng.permutation(s.shape[0]) for s in shares]
+  firsts = [s[o][:b] for s, o in zip(shares, orders)]
+  ref, items = {}, None
+  for w, blk in enumerate(firsts):
+    s = gtt.sampler.NeighborSampler(cpu_ds.graph, mag.FANOUTS, device='cpu',
+                                    seed=w)
+    out = s.sample_from_nodes(gtt.sampler.NodeSamplerInput(blk, 'paper'),
+                              batch_cap=b)
+    items = s._call_count          # one key per (hop, edge type) item
+    ref[w] = (out, *_batch_message(cpu_ds, out, True, True))
+  msg_bytes = len(serialize_message(message.hetero_output_to_message(
+      *ref[0])))
+  channel_size = 2 * msg_bytes + (1 << 20)
+  model = mag.build_model(b, 64, 4, device, mode='merge_dense',
+                          generator=torch.Generator().manual_seed(0))
+  state = train.create_train_state(model, lr=3e-3)
+  train_step, _ = train.make_train_step(model, mag.NUM_CLASSES)
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  loader = gtt.distributed.MpDistNeighborLoader(
+      ds, mag.FANOUTS, ('paper', pool), batch_size=b, shuffle=True,
+      drop_last=True, num_workers=REMOTE_WORKERS, seed=0,
+      channel_size=channel_size)
+  pids = [p.pid for p in loader.producer._procs]
+  rep['rings'].append(loader.channel.shmid)
+  try:
+    got, losses, step_ms = [], [], []
+    for batch in loader:
+      got.append(batch)
+      if len(losses) < MAG_MP_STEPS:
+        t1 = time.perf_counter()
+        state, loss, _ = train_step(state, train.batch_to_dict(batch))
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+    snap = wait_workers(loader.worker_metrics, REMOTE_WORKERS,
+                        'remote typed')
+  finally:
+    loader.shutdown()
+  if len(got) != MAG_MP_STEPS + 1 or not all(np.isfinite(losses)):
+    raise AssertionError(f'remote typed: {len(got)} batches, losses '
+                         f'{losses}')
+  checked = []
+  for batch in got:
+    ids = batch.batch['paper'].cpu().numpy()[:batch.batch_size]
+    for w, blk in enumerate(firsts):
+      if np.array_equal(ids, blk):
+        out, x_d, y_d = ref[w]
+        for t, v in out.node.items():
+          if not (torch.equal(batch.node[t].cpu(), v) and
+                  torch.equal(batch.x[t].cpu(), x_d[t])):
+            raise AssertionError(f'remote typed worker {w}: {t} differs')
+        for et in out.row:
+          if not (torch.equal(batch.edge_index[et].cpu(),
+                              torch.stack([out.row[et], out.col[et]])) and
+                  torch.equal(batch.edge_mask[et].cpu(), out.edge_mask[et])):
+            raise AssertionError(f'remote typed worker {w}: {et} differs')
+        if not torch.equal(batch.y['paper'].cpu(), y_d['paper']):
+          raise AssertionError(f'remote typed worker {w}: y differs')
+        checked.append(w)
+  if sorted(checked) != list(range(REMOTE_WORKERS)):
+    raise AssertionError(f'remote typed: checked workers {checked}')
+  counts = snap['launches']
+  rep['launch_runs'].append(counts)
+  n_batches = len(got)
+  n_types = len(ref[0][1])
+  if cuda:
+    expect_launches(counts, dict(sample_hop=n_batches * items,
+                                 gather_rows=n_batches * n_types,
+                                 sample_level=0), 'remote typed workers')
+  stages = stage_means(snap)
+  stages['train_ms'] = float(np.median(step_ms))
+  log(f'remote typed (HGT mp, {n_paper} papers, batch {b}): losses '
+      f'{[round(v, 4) for v in losses]}; ms a batch ' + ' '.join(
+          f'{k}={v:.2f}' for k, v in stages.items()
+          if k != 'message_bytes' and v is not None) +
+      f' message_bytes={stages["message_bytes"]:.0f}; {items} plan items; '
+      f'workers\' launches {counts}; build {build_s:.1f} s on {smi}')
+  return dict(stages=stages, launches=counts, losses=losses,
+              plan_items=items, checked=sorted(checked), worker_pids=pids,
+              channel_size=channel_size)
+
+
+def remote_server_client(torch, gtt, topo, feats, labels, cpu_ds, device,
+                         smi, rep):
+  """A ``DistServer`` in a child process holds the script's dataset on
+  the card (two workers a producer); this process is the client over
+  loopback: ``RemoteDistNeighborLoader`` for four products steps (the
+  workers' batches exact against the CPU at the server-folded seeds),
+  then four ``serve`` RPCs against the registered engine (gather v2)."""
+  import multiprocessing as mp
+  import pickle
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.distributed import message
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  n = topo.num_nodes
+  ctx = mp.get_context('spawn')
+  q = ctx.Queue()
+  t0 = time.perf_counter()
+  server = ctx.Process(target=remote_server_main,
+                       args=(topo, feats, labels, q, str(device)))
+  server.start()
+  out = dict(server_pid=server.pid)
+  try:
+    kind, host, port, spid = q.get(timeout=READY_S)
+    if kind != 'ready':
+      raise RuntimeError(f'remote server failed to start:\n{host}')
+    out['server_start_s'] = time.perf_counter() - t0
+    gdist.init_client(1, 1, 0, [(host, port)])
+    seed = 1            # folded: (1 * 7919 + 0) * 1000003 + rank > 2**32
+    pool = np.random.default_rng(12).permutation(n)[:BATCH * REMOTE_STEPS]
+    blocks = remote_blocks(pool, REMOTE_WORKERS, BATCH)
+    wseed = [(seed * 7919 + 0) * 1000003 + w for w in range(REMOTE_WORKERS)]
+    ref = {(w, 0): remote_cpu_batch(gtt, cpu_ds, wseed[w], 0, blocks[w][0])
+           for w in range(REMOTE_WORKERS)}
+    msg = message.output_to_message(*ref[(0, 0)])
+    from graphlearn_tpu_torch.channel import serialize_message
+    msg_bytes = len(serialize_message(msg))
+    frame = pickle.dumps({'ok': True, 'result': (msg, False)}, protocol=5)
+    t1 = time.perf_counter()
+    pickle.loads(frame)
+    out['deserialize_ms'] = (time.perf_counter() - t1) * 1e3
+    del frame
+    # the wire alone: one message-sized fetch answered by an RpcServer of
+    # this process over loopback (pickling, TCP, the frame read and the
+    # unpickling), the median of three
+    echo = gdist.RpcServer()
+    echo.register('fetch', lambda: (msg, False))
+    cli = gdist.RpcClient()
+    cli.add_target(0, echo.host, echo.port)
+    try:
+      rtt = []
+      for _ in range(3):
+        t1 = time.perf_counter()
+        cli.request_sync(0, 'fetch', timeout=120)
+        rtt.append((time.perf_counter() - t1) * 1e3)
+    finally:
+      cli.close()
+      echo.shutdown()
+    out['loopback_rpc_ms'] = float(np.median(rtt))
+    del msg
+    opts = gdist.RemoteDistSamplingWorkerOptions(
+        server_rank=0, num_workers=REMOTE_WORKERS, prefetch_size=2,
+        buffer_size=2 * msg_bytes + (1 << 20))
+    timer = StageTimer(torch, cuda)
+    no, eo = train.merge_hop_offsets(BATCH, FANOUTS)
+    model = gtt.models.GraphSAGE(
+        FEAT_DIM, HIDDEN, CLASSES, num_layers=len(FANOUTS),
+        hop_node_offsets=no, hop_edge_offsets=eo, merge_dense=True,
+        fanouts=FANOUTS, device=device,
+        generator=torch.Generator().manual_seed(4))
+    loader = gdist.RemoteDistNeighborLoader(
+        FANOUTS, pool, batch_size=BATCH, worker_options=opts, seed=seed,
+        device=device)
+    try:
+      loader.channel._request_fn = timer.wrap('fetch_rpc',
+                                              loader.channel._request_fn)
+      real_m2d = message.message_to_data
+      message.message_to_data = timer.wrap('upload', real_m2d, sync=True)
+      try:
+        batches, loop = remote_train_loop(
+            torch, gtt, loader, model, REMOTE_STEPS, device, timer, smi,
+            'remote server-client', profile_steps=2)
+      finally:
+        message.message_to_data = real_m2d
+      (pid,) = loader.producer_ids
+      snap = wait_workers(
+          lambda: gdist.request_server(0, 'get_metrics', idempotent=True)
+          ['producers'].get(pid), REMOTE_WORKERS, 'remote server-client')
+    finally:
+      loader.shutdown()
+    checked = {}
+    for b in batches:
+      key = remote_key(blocks, b.batch.cpu().numpy()[:b.batch_size])
+      if key in ref:
+        checked[key] = remote_check(torch, b, *ref[key],
+                                    f'remote server-client {key}')
+    if len(checked) != len(ref):
+      raise AssertionError(f'remote server-client: checked '
+                           f'{sorted(checked)} of {sorted(ref)}')
+    counts = snap['launches']
+    rep['launch_runs'].append(counts)
+    if cuda:
+      expect_launches(counts, dict(
+          sample_level=level_launch_count('merge', REMOTE_STEPS),
+          gather_rows=REMOTE_STEPS, sample_hop=0),
+          'remote server workers')
+    # the serve RPCs: the server's counters read before and after
+    table = serve_table(torch, n)
+    before = gdist.request_server(0, 'get_metrics',
+                                  idempotent=True)['server']['launches']
+    rng = np.random.default_rng(13)
+    serve_ms = []
+    for k in REMOTE_SERVES:
+      ids = rng.integers(0, n, k)
+      t1 = time.perf_counter()
+      rows = gdist.request_server(0, 'serve', ids, idempotent=True)
+      serve_ms.append((time.perf_counter() - t1) * 1e3)
+      if not np.array_equal(rows, table[ids].numpy()):
+        raise AssertionError(f'serve of {k} ids: rows differ from the '
+                             'table')
+    srv = gdist.request_server(0, 'get_metrics', idempotent=True)['server']
+    serve_counts = {k: srv['launches'][k] - before[k] for k in before}
+    rep['launch_runs'].append(serve_counts)
+    if cuda:
+      expect_launches(serve_counts, dict(gather_runs=len(REMOTE_SERVES),
+                                         gather_rows=0), 'serve RPCs')
+    stages = stage_means(snap)
+    stages.update(
+        # the server's fetch: its ring read, the wait for the worker's
+        # message included
+        server_fetch_ms=hist_mean(srv, 'server.fetch_ms'),
+        # the client's fetch round trips (two in flight)
+        fetch_rpc_ms=timer.mean('fetch_rpc'),
+        wire_ms=out['loopback_rpc_ms'] - out['deserialize_ms'],
+        deserialize_ms=out['deserialize_ms'],
+        upload_ms=timer.mean('upload'),
+        train_ms=float(np.median(loop['train_ms'])),
+        wait_ms=float(np.median(loop['wait_ms'])))
+    gdist.shutdown_client()
+    kind, server_rings, _, _ = q.get(timeout=120)
+    server.join(timeout=120)
+    rep['rings'] += list(server_rings or ())
+    if kind != 'done' or server.exitcode != 0:
+      raise AssertionError(f'remote server ended {kind}, exit '
+                           f'{server.exitcode}')
+    prof = loop['profile']
+    log(f'remote server-client: ms a batch ' + ' '.join(
+        f'{k}={v:.2f}' for k, v in stages.items()
+        if k != 'message_bytes' and v is not None) +
+        f' message_bytes={stages["message_bytes"]:.0f}; workers\' launches '
+        f'{counts}; serve launches {serve_counts}, serve ms '
+        f'{[round(v, 2) for v in serve_ms]}; client idle share '
+        f'{prof["idle_share"] if prof else None}; exact batches '
+        f'{sorted(checked)} on {smi}')
+    out.update(stages=stages, launches=counts, serve_launches=serve_counts,
+               serve_ms=serve_ms, checked=sorted(checked),
+               losses=loop['losses'], profile=prof,
+               top5_device_ms=(dict(sorted(
+                   prof['top_device_ms'].items(),
+                   key=lambda kv: -kv[1])[:5]) if prof else None))
+    return out
+  finally:
+    if gdist.dist_client.get_client() is not None:
+      gdist.dist_client._client.close()
+      gdist.dist_client._client = None
+    if server.is_alive():
+      server.terminate()
+      server.join(30)
+
+
+def remote_phase(torch, gtt, ds, cpu_ds, topo, feats, labels, device, smi):
+  """The multiprocess and server-client stack on the card: the mp
+  loader's products steps, the typed mp loader's HGT steps, and a server
+  child's remote loader and serve RPCs. Afterwards no ring and no child
+  process is left."""
+  import multiprocessing as mp
+
+  from graphlearn_tpu_torch.channel import live_channel_count
+  t_phase = time.perf_counter()
+  rings = live_channel_count()
+  rep = dict(launch_runs=[], rings=[])
+  rep['mp'] = remote_mp(torch, gtt, ds, cpu_ds, device, smi, rep)
+  rep['typed'] = remote_typed(torch, gtt, device, smi, rep)
+  if device.type == 'cuda':
+    torch.cuda.empty_cache()
+  rep['server_client'] = remote_server_client(
+      torch, gtt, topo, feats, labels, cpu_ds, device, smi, rep)
+  left = dict(rings_open=live_channel_count() - rings,
+              rings_made=len(rep['rings']),
+              rings_alive=rings_alive(rep['rings']),
+              children=[p.pid for p in mp.active_children()])
+  if left['rings_open'] or left['rings_alive'] or left['children'] or \
+      left['rings_made'] < 3:
+    raise AssertionError(f'remote phase left behind {left}')
+  rep['left'] = left
+  rep['launches'] = {k: sum(c[k] for c in rep['launch_runs'])
+                     for k in rep['launch_runs'][0]}
+  rep['phase_s'] = time.perf_counter() - t_phase
+  log(f'remote phase {rep["phase_s"]:.1f} s; launches {rep["launches"]}; '
+      f'left behind {left} on {smi}')
+  return rep
+
+
 # ---- the hot/cold feature store
 HC_SPLIT = 0.25                      # the kernel case's device share
 PINNED_BYTES = 256 << 20             # the pinned host-to-device copy
@@ -8000,6 +8638,11 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('dist_more')
+  report['remote'] = remote_phase(torch, gtt, ds, cpu_ds, topo, feats,
+                                  labels, device, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('remote')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -8028,6 +8671,9 @@ def main(argv=None):
   paths += [m['launches'] for m in report['dist']['modes'].values()]
   paths += report['dist_scan']['launch_runs']
   paths += report['dist_more']['launch_runs']
+  # the remote phase's runs: its workers' (in their own processes, read
+  # from their metric snapshots) and the server's serve RPCs'
+  paths += report['remote']['launch_runs']
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
   for rec in report['modes'].values():

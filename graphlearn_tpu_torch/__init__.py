@@ -12,7 +12,8 @@ sampling, ``HeteroData``, ``RGNN``, the typed materializer) and its
 partitioners (``partition``) and its partitioned sampling and training
 path (``distributed``: sharded graph, features, sampler and loader;
 ``loader.DistScanTrainer``, ``recovery.FailoverRunner``, the tiered
-distributed store and the sharded serving stores) on an NVIDIA GPU,
+distributed store and the sharded serving stores; the multiprocess and
+server-client sampling stack over ``channel``) on an NVIDIA GPU,
 with the TPU kernels of those paths rewritten by hand in CUDA
 (``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry
@@ -20,8 +21,9 @@ stream give the same ids, masks and counts. This package imports torch
 and numpy, never jax. Entry points run on the card
 (``device=None``) unless the caller passes ``device='cpu'``.
 """
-from . import (data, distributed, loader, metrics, models, ops, partition,
-               random, recovery, sampler, serving, storage, typing, utils)
+from . import (channel, data, distributed, loader, metrics, models, ops,
+               partition, random, recovery, sampler, serving, storage,
+               typing, utils)
 
 from .loader import OverlappedTrainer, RunTrainer, ScanTrainer
 

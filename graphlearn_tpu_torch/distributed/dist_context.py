@@ -309,3 +309,23 @@ def init_multihost(coordinator_address: Optional[str] = None,
   _dist_context = DistContext(world, dist.get_rank(), DistRole.WORKER,
                               group_name, nparts, mesh)
   return _dist_context
+
+
+def _set_server_context(num_servers, num_clients, server_rank,
+                        group_name='server', num_partitions=1, mesh=None):
+  """This process is sampling server ``server_rank`` of
+  ``num_servers``."""
+  global _dist_context
+  _dist_context = DistContext(num_servers, server_rank, DistRole.SERVER,
+                              group_name, num_partitions, mesh)
+  return _dist_context
+
+
+def _set_client_context(num_servers, num_clients, client_rank,
+                        group_name='client'):
+  """This process is training client ``client_rank`` of
+  ``num_clients``."""
+  global _dist_context
+  _dist_context = DistContext(num_clients, client_rank, DistRole.CLIENT,
+                              group_name)
+  return _dist_context

@@ -101,6 +101,7 @@ Usage::
     state, losses, accs = trainer.run_epoch(state)   # on the device
 """
 import contextlib
+import gc
 import hashlib
 import time
 from typing import NamedTuple, Optional
@@ -464,9 +465,19 @@ class ScanTrainer(FusedEpochTrainer):
     before = ops.launch_counts()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=self._stream,
-                          capture_error_mode='thread_local'):
-      out = self._chunk(state, **args)
+    # the collector must not run inside the capture: a dropped trainer's
+    # graph freed there (its reset) invalidates the capture, so garbage
+    # goes first and the collector waits until the capture ended
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+      with torch.cuda.graph(graph, stream=self._stream,
+                            capture_error_mode='thread_local'):
+        out = self._chunk(state, **args)
+    finally:
+      if collecting:
+        gc.enable()
     ms = (time.perf_counter() - t0) * 1e3
     after = ops.launch_counts()
     launches = {n: after[n] - before[n] for n in after}

@@ -9,7 +9,7 @@ package's, so this module implements the subset the main path uses with
 the counter layout of ``jax_threefry_partitionable=True`` (the default
 since jax 0.5):
 
-  PRNGKey(seed)       -> [0, seed]                     (threefry_seed)
+  PRNGKey(seed)       -> [0, seed mod 2**32]           (threefry_seed)
   fold_in(key, d)     -> threefry(key, (0, d))          (_threefry_fold_in)
   split(key, n)[i]    -> threefry(key, (hi(i), lo(i)))  (iota_2x32_shape)
   uniform(key, shape) -> mantissa of bits1 ^ bits2 at flat index i
@@ -87,11 +87,14 @@ def to_device(keys, device):
 
 
 def PRNGKey(seed: int):
-  """``jax.random.PRNGKey(seed)`` for a seed that fits 32 bits."""
+  """``jax.random.PRNGKey(seed)`` as JAX computes it without 64-bit mode
+  (the JAX package's setting): an int64 seed is cast to int32, so the
+  key is ``[0, seed mod 2**32]``. Folded seeds outgrow 32 bits (the
+  remote loaders' ``seed * 7919 + i``, then ``* 1000003 + rank``)."""
   seed = int(seed)
-  if not 0 <= seed <= _MASK:
-    raise ValueError(f'seed {seed} outside [0, 2**32)')
-  return torch.tensor([0, seed], dtype=torch.int64)
+  if not -2 ** 63 <= seed < 2 ** 63:
+    raise ValueError(f'seed {seed} outside the int64 range')
+  return torch.tensor([0, seed & _MASK], dtype=torch.int64)
 
 
 def fold_in(key, data):

@@ -23,10 +23,10 @@ the unit of loss on a shard death is at most one chunk.
   snapshot into the new trainer's model and optimizer and runs on. Every
   seed of the epoch trains exactly once.
 
-``metrics.inc('recovery.rollbacks')`` counts the rollbacks. Not ported:
-the ``loader.failover`` span and the ``recovery.roll_back`` fault site
-(the tooling slice); :meth:`FailoverRunner._roll_back_fault` is the
-no-op seam where the site goes.
+``metrics.inc('recovery.rollbacks')`` counts the rollbacks, and every
+rollback passes the ``recovery.roll_back`` fault site
+(:meth:`FailoverRunner._roll_back_fault`). Not ported: the
+``loader.failover`` span (the tooling slice).
 """
 import logging
 from typing import Any, Callable, List, Optional
@@ -35,6 +35,7 @@ import numpy as np
 
 from .. import metrics
 from .. import random as trandom
+from ..utils.faults import fault_point
 from .checkpoint import ChunkCheckpointer, _load_train_state
 
 logger = logging.getLogger('graphlearn_tpu_torch.recovery')
@@ -114,8 +115,8 @@ class FailoverRunner:
     self.max_failovers = int(max_failovers)
 
   def _roll_back_fault(self):
-    """The ``recovery.roll_back`` fault seam: a no-op until the fault
-    registry is ported."""
+    """The ``recovery.roll_back`` fault site, passed once per rollback."""
+    fault_point('recovery.roll_back')
 
   def _install_liveness_hook(self, trainer):
     prev = trainer.stage_hook

@@ -1,6 +1,8 @@
 from . import calibrate
-from .base import (BaseSampler, EdgeSamplerInput, HeteroSamplerOutput, NegativeSampling,
-                   NeighborOutput, NodeSamplerInput, SamplerOutput)
+from .base import (BaseSampler, EdgeSamplerInput, HeteroSamplerOutput,
+                   NegativeSampling, NeighborOutput, NodeSamplerInput,
+                   RemoteNodePathSamplerInput, RemoteSamplerInput,
+                   SamplerOutput, SamplingConfig, SamplingType)
 from .capacity import (DEFAULT_ETYPE, DEFAULT_NTYPE, CapacityPlan,
                        CapacityPlanError, ack_edge_ids)
 from .calibrate import (check_no_overflow, estimate_frontier_caps,

@@ -2,11 +2,14 @@
 
 Counterpart of ``graphlearn_tpu/sampler/base.py`` (``NodeSamplerInput``,
 ``EdgeSamplerInput``, ``NegativeSampling``, ``NeighborOutput``,
-``SamplerOutput``, ``HeteroSamplerOutput``). Outputs are fixed-shape and
+``SamplerOutput``, ``HeteroSamplerOutput``, and the producers'
+``SamplingType``, ``SamplingConfig``, ``RemoteSamplerInput`` and
+``RemoteNodePathSamplerInput``). Outputs are fixed-shape and
 mask-padded: ``node`` / ``row`` / ``col`` are padded to static
 capacities, validity rides in ``edge_mask`` and the 0-d ``num_nodes``
 tensor.
 """
+import enum
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
@@ -19,6 +22,30 @@ from ..utils.mixin import CastMixin
 
 def _host(v):
   return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+class SamplingType(enum.Enum):
+  """What a producer samples from its seeds (JAX's enum)."""
+  NODE = 0
+  LINK = 1
+  SUBGRAPH = 2
+  RANDOM_WALK = 3
+
+
+@dataclass
+class SamplingConfig:
+  """The options a sampling producer's workers run with."""
+  sampling_type: SamplingType
+  num_neighbors: Optional[Union[List[int], Dict[EdgeType, List[int]]]]
+  batch_size: int
+  shuffle: bool = False
+  drop_last: bool = False
+  with_edge: bool = False
+  collect_features: bool = False
+  with_neg: bool = False
+  with_weight: bool = False
+  edge_dir: str = 'out'
+  seed: Optional[int] = None
 
 
 @dataclass
@@ -192,6 +219,25 @@ class HeteroSamplerOutput(CastMixin):
     if self.batch is not None:
       out.batch = {t: _host(v) for t, v in self.batch.items()}
     return out
+
+
+class RemoteSamplerInput(CastMixin):
+  """A seed source that lives on the sampling server."""
+
+  def to_input(self):
+    raise NotImplementedError
+
+
+class RemoteNodePathSamplerInput(RemoteSamplerInput):
+  """Seeds the server loads from a ``.npy`` file path of its own."""
+
+  def __init__(self, node_path: str, input_type: Optional[NodeType] = None):
+    self.node_path = node_path
+    self.input_type = input_type
+
+  def to_input(self) -> NodeSamplerInput:
+    seeds = np.load(self.node_path)
+    return NodeSamplerInput(seeds, self.input_type)
 
 
 class BaseSampler:

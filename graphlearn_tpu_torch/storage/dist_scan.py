@@ -47,8 +47,8 @@ the all-device trainer's:
 
 Scope: a one-process mesh (the prologue and the stager read every
 shard's rows on one host). Labels stay a full (small) ``DistFeature``. Not
-ported: the spans, the tuned ``config=`` and the ``storage.dist_stage``
-fault site (``DistChunkStager._stage_fault`` is its no-op seam).
+ported: the spans and the tuned ``config=``. The stager's worker passes
+the ``storage.dist_stage`` fault site (``DistChunkStager._stage_fault``).
 """
 import time
 from typing import Optional
@@ -60,6 +60,7 @@ from .. import metrics
 from .. import ops
 from ..loader.scan_epoch import DistScanTrainer
 from ..sampler.capacity import CapacityPlanError
+from ..utils.faults import fault_point
 from . import planner
 from .dist import TieredDistFeature
 from .staging import INT32_MAX, ChunkStager, _Slot, pow2_slab_cap
@@ -71,6 +72,11 @@ class DistChunkStager(ChunkStager):
   ``[P, cap]`` per-shard layout the chunk's lookup reads. Pad slots carry
   INT32_MAX positions (a binary search never matches them); per-shard
   position lists stay sorted because the encoded plan is."""
+
+  def _stage_fault(self):
+    # the distributed stager's own fault site, in the worker only, so
+    # take()'s synchronous fallback still gathers cleanly
+    fault_point('storage.dist_stage')
 
   def _ring_cap(self, chunk_rows) -> int:
     """The plan's largest per-shard pow2 count (``ExchangePlan``'s)."""

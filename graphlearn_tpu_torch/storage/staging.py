@@ -21,8 +21,8 @@ Failure semantics, as in JAX: a failed or slow worker never yields a
 wrong batch. :meth:`ChunkStager.take` falls back to a synchronous gather
 of the same planned rows (counted by ``storage.prefetch_miss``), so the
 degraded epoch is bit-identical to the healthy one, only slower.
-``_stage_fault`` is the worker's fault seam: a no-op here (the fault
-registry comes with the tooling slice), overridden by tests.
+``_stage_fault`` is the worker's fault site (``storage.stage``; the
+distributed stager's is ``storage.dist_stage``), overridden by tests.
 
 Metrics, JAX's names: ``storage.staged_rows`` / ``storage.staged_bytes``
 counters, ``storage.stage_ms`` / ``storage.promote_ms`` histograms and
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import metrics
+from ..utils.faults import fault_point
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -302,9 +303,11 @@ class ChunkStager:
       time.sleep(_POLL_S)
 
   def _stage_fault(self):
-    """The worker's fault seam (a no-op; tests override it). It runs in
-    the worker only, never in :meth:`take`'s synchronous fallback, so the
-    degraded path gathers the same planned rows cleanly."""
+    """The worker's fault site, ``storage.stage`` (tests also override
+    it). It runs in the worker only, never in :meth:`take`'s synchronous
+    fallback, so the degraded path gathers the same planned rows
+    cleanly."""
+    fault_point('storage.stage')
 
   def _gather_into(self, rows_abs: np.ndarray, slot: _Slot):
     """Gather the planned rows into ``slot``, pow2-padded as

@@ -3,20 +3,25 @@
 The port's counterpart of ``graphlearn_tpu/utils``: the CSR conversions
 (``topo``), ``CheckpointManager`` (``checkpoint``), the dict, port and
 module helpers (``common``), ``tensor``, ``units``, ``CastMixin``,
-``Singleton`` and ``python_exit_status``. ``compat``, ``device`` and
-``build`` are JAX-only; ``strict``, ``faults`` and ``trace`` wait for the
-tracing slice.
+``Singleton`` and ``python_exit_status``, the fault registry
+(``faults``: ``fault_point``, ``FaultError``) and the event counters of
+``trace`` (``counter_inc``, ``counter_get``, ``counters``,
+``reset_counters``). ``compat``, ``device`` and ``build`` are JAX-only;
+``strict`` and the profiler half of ``trace`` wait for the tracing
+slice.
 """
 import torch
 
 from .checkpoint import CheckpointManager
 from .common import count_dict, get_free_port, load_module, merge_dict
 from .exit_status import python_exit_status
+from .faults import FaultError, fault_point
 from .mixin import CastMixin
 from .singleton import Singleton
 from .tensor import convert_to_array, id2idx, squeeze_dict
 from .topo import (coo_to_csc, coo_to_csr, csr_to_coo, csr_to_csc, ind2ptr,
                    ptr2ind)
+from .trace import counter_get, counter_inc, counters, reset_counters
 from .units import format_size, parse_size
 
 

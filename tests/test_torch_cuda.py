@@ -72,7 +72,12 @@ syncs exactly its counted verdict reads; the negative kernel's shard-local
 entry against its plain version (owned-row counts past 65,536, an empty
 shard, strict and not, host and device keys) with no host sync; a
 distributed link batch with no host sync, equal to the CPU's; and a
-captured typed ``DistScanTrainer`` against the eager one.
+captured typed ``DistScanTrainer`` against the eager one; and the remote
+stack: spawned sampling workers on the card (the dataset shared by CUDA
+IPC) against the parent's sampler at each worker's seed, their launch
+counts through ``worker_metrics()``, and a card batch through
+``output_to_message`` -> ``ShmChannel`` -> ``message_to_data`` bit for
+bit.
 """
 import contextlib
 import copy
@@ -2426,3 +2431,162 @@ def test_typed_dist_scan_captured_matches_eager(cuda):
   for a, b in zip(runs[0][0].model.parameters(),
                   runs[1][0].model.parameters()):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+# ------------------------------------------------------- the remote stack
+
+
+def _remote_small(cuda):
+  rng = np.random.default_rng(8)
+  n = 3000
+  ei = np.stack([rng.integers(0, n, 24000), rng.integers(0, n, 24000)])
+  ds = gtt.data.Dataset(device=cuda)
+  ds.init_graph(ei, num_nodes=n)
+  ds.init_node_features(rng.standard_normal((n, 24)).astype(np.float32))
+  ds.init_node_labels(rng.integers(0, 5, n))
+  return ds
+
+
+def test_mp_workers_on_card_match_parent_sampler(cuda):
+  """Two spawned workers sample on the card from the IPC-shared dataset:
+  each batch equals the parent's own card sampler at that worker's seed
+  and call index, and the workers' launch counts (three level launches
+  a level plus one a batch, one K1 a batch) arrive through
+  ``worker_metrics()``."""
+  ds = _remote_small(cuda)
+  seeds, bs, fan = np.arange(0, 3000, 11), 64, [5, 3]
+  loader = gtt.distributed.MpDistNeighborLoader(
+      ds, fan, seeds, batch_size=bs, num_workers=2, seed=3)
+  shares = np.array_split(seeds, 2)
+  try:
+    got = {}
+    for b in loader:
+      ids = b.batch.cpu().numpy()[:b.batch_size]
+      w = 0 if ids[0] in shares[0] else 1
+      j = int(np.nonzero(shares[w] == ids[0])[0][0]) // bs
+      got[(w, j)] = b
+    assert len(got) == len(loader)
+    for (w, j), b in got.items():
+      s = gtt.sampler.NeighborSampler(ds.graph, fan, device=cuda,
+                                      seed=3 * 1000003 + w)
+      s._call_count = j
+      out = s.sample_from_nodes(
+          gtt.sampler.NodeSamplerInput(shares[w][j * bs:(j + 1) * bs]),
+          batch_cap=bs)
+      for got_t, want in ((b.node, out.node), (b.edge_mask, out.edge_mask),
+                          (b.edge_index, torch.stack([out.row, out.col])),
+                          (b.x, ds.node_features[out.node])):
+        assert torch.equal(got_t, want)
+      assert b.num_nodes == int(out.num_nodes)
+    snap = None
+    for _ in range(600):
+      snap = loader.worker_metrics()
+      if snap is not None and snap['workers'] == [0, 1]:
+        break
+      time.sleep(0.05)
+    assert snap['workers'] == [0, 1]
+    n = len(loader)
+    assert snap['launches']['sample_level'] == n * (3 * len(fan) + 1)
+    assert snap['launches']['gather_rows'] == n
+    assert snap['launches']['sample_hop'] == 0
+  finally:
+    loader.shutdown()
+  assert not any(p.is_alive() for p in loader.producer._procs)
+
+
+def test_card_batch_through_the_ring_bit_for_bit(cuda):
+  from graphlearn_tpu_torch.channel import ShmChannel
+  from graphlearn_tpu_torch.distributed import message
+  from graphlearn_tpu_torch.distributed.dist_sampling_producer import \
+      _batch_message
+  ds = _remote_small(cuda)
+  s = gtt.sampler.NeighborSampler(ds.graph, [5, 3], device=cuda, seed=1)
+  out = s.sample_from_nodes(gtt.sampler.NodeSamplerInput(np.arange(64)),
+                            batch_cap=64)
+  x, y = _batch_message(ds, out, True, False)
+  ch = ShmChannel(shm_size=64 << 20)
+  try:
+    ch.send(message.output_to_message(out, x, y))
+    b = message.message_to_data(ch.recv(timeout_ms=10000), device=cuda)
+  finally:
+    ch.close()
+  for got, want in ((b.node, out.node), (b.edge_mask, out.edge_mask),
+                    (b.edge_index, torch.stack([out.row, out.col])),
+                    (b.x, x), (b.y, y), (b.batch, out.batch)):
+    assert got.device.type == 'cuda' and got.dtype == want.dtype
+    assert torch.equal(got, want)
+  assert b.num_nodes == int(out.num_nodes)
+
+
+_PRODUCER_COMMON = """
+import numpy as np
+
+import graphlearn_tpu_torch as gtt
+
+
+def dataset():
+  rng = np.random.default_rng(8)
+  n = 3000
+  ds = gtt.data.Dataset(device='cuda')
+  ds.init_graph(np.stack([rng.integers(0, n, 24000),
+                          rng.integers(0, n, 24000)]), num_nodes=n)
+  ds.init_node_features(rng.standard_normal((n, 24)).astype(np.float32))
+  ds.init_node_labels(rng.integers(0, 5, n))
+  return ds
+"""
+
+_PRODUCERS = {
+    # the mp loader's producer is this process
+    'mp': """
+def main():
+  loader = gtt.distributed.MpDistNeighborLoader(
+      dataset(), [5, 3], np.arange(0, 3000, 11), batch_size=64,
+      num_workers=2, seed=3)
+  try:
+    print('batches', sum(1 for _ in loader), flush=True)
+  finally:
+    loader.shutdown()
+""",
+    # a DistServer's producers, created and destroyed over its RPC
+    'server': """
+def main():
+  gd = gtt.distributed
+  host, port = gd.init_server(1, 1, 0, dataset())
+  gd.init_client(1, 1, 0, [(host, port)])
+  opts = gd.RemoteDistSamplingWorkerOptions(server_rank=0, num_workers=2)
+  loader = gd.RemoteDistNeighborLoader(
+      [5, 3], np.arange(0, 3000, 11), batch_size=64, worker_options=opts,
+      seed=1)
+  try:
+    print('batches', sum(1 for _ in loader), flush=True)
+  finally:
+    loader.shutdown()
+  gd.shutdown_client()
+  gd.wait_and_shutdown_server(timeout=60)
+""",
+}
+
+
+@pytest.mark.parametrize('producer', sorted(_PRODUCERS))
+def test_mp_producer_ends_with_every_ipc_handle_released(cuda, tmp_path,
+                                                         producer):
+  """A process that shared its card dataset with two workers ends
+  cleanly, as the mp loader's process and as a server behind its RPC:
+  the workers drop their CUDA IPC handles before they exit and the
+  server's RPC threads hold no callee once it shut down, so torch never
+  reports a producer ending before its shared CUDA tensors were
+  released."""
+  import os
+  import subprocess
+  import sys
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  script = tmp_path / 'producer.py'
+  script.write_text(_PRODUCER_COMMON + _PRODUCERS[producer] +
+                    "\nif __name__ == '__main__':\n  main()\n")
+  proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                        text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=root))
+  assert proc.returncode == 0, proc.stderr[-3000:]
+  assert 'batches' in proc.stdout
+  assert 'shared CUDA tensors released' not in proc.stderr, \
+      proc.stderr[-3000:]

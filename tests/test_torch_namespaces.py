@@ -29,12 +29,10 @@ TRACING = 'the JAX tracing hooks: queue A item 8 (metrics, trace, strict)'
 JAX_ONLY = 'JAX-only: compilation cache, jax device placement, shard_map'
 REMOTE_SCAN = ('the chunk-staged remote scan (block producers, '
                'RemoteScanTrainer): ROADMAP queue A item 7')
-REMOTE = ('the multiprocess and remote sampling producers, servers, '
-          'clients and channels: ROADMAP queue A item 7')
+TENANCY = 'multi-tenancy (tenancy.py): ROADMAP queue A item 7'
 TUNE = 'tune/: ROADMAP queue A item 8'
 
 ABSENT = {
-    ('', 'channel'): REMOTE,
     ('', 'tune'): TUNE,
     ('models.models', 'freeze_etype_items'): FLAX,
     ('models.models', 'thaw_etype_items'): FLAX,
@@ -43,14 +41,6 @@ ABSENT = {
     ('ops.sample_fused', 'LANES'): BLOCKS128,
     ('ops.sample_fused', 'LEVEL_MAX_CANDIDATES'): BLOCKS128,
     ('ops.sample_fused', 'build_indices128'): BLOCKS128,
-    ('sampler', 'RemoteNodePathSamplerInput'): REMOTE,
-    ('sampler', 'RemoteSamplerInput'): REMOTE,
-    ('sampler', 'SamplingConfig'): REMOTE,
-    ('sampler', 'SamplingType'): REMOTE,
-    ('sampler.base', 'RemoteNodePathSamplerInput'): REMOTE,
-    ('sampler.base', 'RemoteSamplerInput'): REMOTE,
-    ('sampler.base', 'SamplingConfig'): REMOTE,
-    ('sampler.base', 'SamplingType'): REMOTE,
     ('metrics', 'flight'): TRACING,
     ('metrics', 'programs'): TRACING,
     ('metrics', 'spans'): TRACING,
@@ -63,40 +53,27 @@ for _n in ('ProgramRegistry', 'RetraceBudgetExceeded',
            'REGISTERED_METRICS', 'REGISTERED_SPANS', 'merge_scrape',
            'register_source', 'scrape_all', 'unregister_source'):
   ABSENT[('metrics', _n)] = TRACING
-for _n in ('FaultError', 'fault_point', 'strict_enabled', 'strict_guards',
-           'DispatchCounter', 'annotate', 'count_dispatches', 'counter_get',
-           'counter_inc', 'counters', 'device_op_ms', 'device_program_ms',
-           'dispatch_snapshot', 'maybe_start_trace', 'profile_trace',
-           'record_dispatch', 'reset_counters', 'step_annotation',
+for _n in ('strict_enabled', 'strict_guards', 'DispatchCounter',
+           'annotate', 'count_dispatches', 'device_op_ms',
+           'device_program_ms', 'dispatch_snapshot', 'maybe_start_trace',
+           'profile_trace', 'record_dispatch', 'step_annotation',
            'stop_trace', 'wrap_dispatch'):
   ABSENT[('utils', _n)] = TRACING
+# utils.trace holds the counter functions; its profiler half waits
+for _n in ('DispatchCounter', 'active_profile_dir', 'annotate',
+           'count_dispatches', 'device_op_ms', 'device_program_ms',
+           'dispatch_snapshot', 'maybe_start_trace', 'profile_trace',
+           'record_dispatch', 'step_annotation', 'stop_trace',
+           'wrap_dispatch'):
+  ABSENT[('utils.trace', _n)] = TRACING
 for _n in ('shard_map', 'enable_compilation_cache', 'ensure_device',
            'get_available_device', 'global_device_put'):
   ABSENT[('utils', _n)] = JAX_ONLY
-# both need the RPC layer (rpc.Barrier / RpcServer)
-for _n in ('DistRandomPartitioner', 'DistTableDataset'):
-  ABSENT[('distributed', _n)] = REMOTE
-ABSENT[('distributed.dist_random_partitioner', 'DistRandomPartitioner')] = \
-    REMOTE
-for _n in ('MpDistNeighborLoader', 'MpDistLinkNeighborLoader',
-           'RemoteDistNeighborLoader', 'RemoteDistLinkNeighborLoader'):
-  ABSENT[('distributed', _n)] = REMOTE
-  ABSENT[('distributed.dist_loader', _n)] = REMOTE
-for _n in ('CollocatedDistSamplingWorkerOptions',
-           'MpDistSamplingWorkerOptions', 'RemoteDistSamplingWorkerOptions',
-           'DistCollocatedSamplingProducer', 'DistMpSamplingProducer',
-           'DistServer', 'get_server', 'init_server',
-           'wait_and_shutdown_server', 'async_request_server',
-           'init_client', 'request_server', 'shutdown_client',
-           'ConcurrentEventLoop', 'message_to_data', 'output_to_message',
-           'DEFAULT_RETRY_POLICY', 'NO_RETRY', 'DeadlineExceeded',
-           'Heartbeat', 'RetryPolicy', 'ServerDeadError', 'Barrier',
-           'RpcCalleeBase', 'RpcClient', 'RpcDataPartitionRouter',
-           'RpcServer', 'PRIORITY_CLASSES', 'AdmissionController',
-           'TenancyConfig', 'TenantQuotaExceeded', 'TenantRejection',
-           'TenantSpec', 'TenantStarvedError', 'TenantThrottled',
-           'WeightedFairScheduler', 'with_backpressure'):
-  ABSENT[('distributed', _n)] = REMOTE
+for _n in ('PRIORITY_CLASSES', 'AdmissionController', 'TenancyConfig',
+           'TenantQuotaExceeded', 'TenantRejection', 'TenantSpec',
+           'TenantStarvedError', 'TenantThrottled', 'WeightedFairScheduler',
+           'with_backpressure'):
+  ABSENT[('distributed', _n)] = TENANCY
 for _n in ('BlockSampleProducer', 'block_mb_per_chunk',
            'stack_block_frames', 'RemoteBlockStager', 'RemoteScanTrainer'):
   ABSENT[('distributed', _n)] = REMOTE_SCAN
@@ -165,6 +142,14 @@ def test_compared_set_covers_the_new_namespaces():
                'distributed.dist_neighbor_sampler',
                'distributed.dist_dataset', 'distributed.dist_loader',
                'distributed.dist_random_partitioner',
+               'distributed.dist_table_dataset', 'distributed.dist_options',
+               'distributed.dist_sampling_producer', 'distributed.message',
+               'distributed.rpc', 'distributed.resilience',
+               'distributed.event_loop', 'distributed.dist_server',
+               'distributed.dist_client', 'channel', 'channel.base',
+               'channel.shm_channel', 'channel.mp_channel',
+               'channel.remote_channel', 'utils.faults', 'utils.trace',
+               'utils.build',
                'utils', 'utils.checkpoint', 'utils.common', 'utils.topo',
                'ops.route', 'ops.stitch', 'sampler.capacity',
                'recovery.failover', 'loader.scan_epoch',

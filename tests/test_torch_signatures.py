@@ -63,6 +63,14 @@ EXTRA_PARAMS = {
     ('DistScanTrainer', 'capture'): 'captured chunks (ScanTrainer)',
     ('TieredDistScanTrainer', 'capture'): 'captured chunks (ScanTrainer)',
     ('RotatingShardedStore', 'device'): 'where lookups return their rows',
+    # where the mp and remote loaders' batches go (mp: the dataset's
+    # device by default; remote: the card), and where message_to_data
+    # uploads (to_device=True)
+    ('MpDistNeighborLoader', 'device'): 'where the batches go',
+    ('MpDistLinkNeighborLoader', 'device'): 'where the batches go',
+    ('RemoteDistNeighborLoader', 'device'): 'where the batches go',
+    ('RemoteDistLinkNeighborLoader', 'device'): 'where the batches go',
+    ('message_to_data', 'device'): 'where the batch is uploaded',
 }
 MISSING_PARAMS = {
     # kernels route by device in the port (ROADMAP, deliberate divergences)
@@ -637,3 +645,71 @@ def test_distributed_training_signatures(mod, name):
     _compare_class(name, j, t)
   else:
     assert_same_signature(name, j, t)
+
+
+REMOTE_CLASSES = [
+    ('distributed', 'MpDistNeighborLoader'),
+    ('distributed', 'MpDistLinkNeighborLoader'),
+    ('distributed', 'RemoteDistNeighborLoader'),
+    ('distributed', 'RemoteDistLinkNeighborLoader'),
+    ('distributed', 'DistMpSamplingProducer'),
+    ('distributed', 'DistCollocatedSamplingProducer'),
+    ('distributed', 'CollocatedDistSamplingWorkerOptions'),
+    ('distributed', 'MpDistSamplingWorkerOptions'),
+    ('distributed', 'RemoteDistSamplingWorkerOptions'),
+    ('distributed', 'DistServer'), ('distributed', 'RpcServer'),
+    ('distributed', 'RpcClient'), ('distributed', 'RpcCalleeBase'),
+    ('distributed', 'RpcDataPartitionRouter'), ('distributed', 'Barrier'),
+    ('distributed', 'RetryPolicy'), ('distributed', 'Heartbeat'),
+    ('distributed', 'ServerDeadError'), ('distributed', 'ConcurrentEventLoop'),
+    ('distributed', 'DistRandomPartitioner'),
+    ('distributed', 'DistTableDataset'),
+    ('channel', 'ShmChannel'), ('channel', 'MpChannel'),
+    ('channel', 'RemoteReceivingChannel'), ('channel', 'PeerDeadError'),
+    ('channel', 'QueueTimeoutError'), ('channel', 'ChannelBase'),
+    ('sampler', 'SamplingConfig'), ('sampler', 'RemoteNodePathSamplerInput'),
+]
+REMOTE_FUNCTIONS = [
+    ('distributed', 'init_server'), ('distributed', 'get_server'),
+    ('distributed', 'wait_and_shutdown_server'),
+    ('distributed', 'init_client'), ('distributed', 'request_server'),
+    ('distributed', 'async_request_server'),
+    ('distributed', 'shutdown_client'), ('distributed', 'get_free_port'),
+    ('distributed', 'output_to_message'), ('distributed', 'message_to_data'),
+    ('distributed.message', 'hetero_output_to_message'),
+    ('distributed.rpc', 'register_wire_error'),
+    ('distributed.dist_client', 'barrier'),
+    ('distributed.dist_client', 'get_client'),
+    ('distributed.resilience', 'env_float'),
+    ('distributed.resilience', 'env_int'),
+    ('channel', 'serialize_message'), ('channel', 'deserialize_message'),
+    ('channel', 'live_channel_count'),
+    ('utils', 'fault_point'), ('utils.faults', 'arm'),
+    ('utils.faults', 'disarm'), ('utils.faults', 'armed'),
+    ('utils.faults', 'stats'), ('utils.faults', 'injected'),
+    ('utils.faults', 'env_spec'), ('utils.faults', 'load_env'),
+    ('utils', 'counter_inc'), ('utils', 'counter_get'),
+    ('utils', 'counters'), ('utils', 'reset_counters'),
+    ('utils.build', 'native_lib_path'), ('utils.build', 'build_native'),
+    ('utils.build', 'load_native'),
+]
+
+
+def _remote_attr(pkg, dotted):
+  import importlib
+  mod, _, name = dotted.rpartition(':')
+  return getattr(importlib.import_module(f'{pkg.__name__}.{mod}'), name)
+
+
+@pytest.mark.parametrize('mod,name', REMOTE_CLASSES)
+def test_remote_stack_class_signatures(mod, name):
+  """The multiprocess and server-client stack's classes (their public
+  methods too), the channels and the producers' options."""
+  _compare_class(name, _remote_attr(glt, f'{mod}:{name}'),
+                 _remote_attr(gtt, f'{mod}:{name}'))
+
+
+@pytest.mark.parametrize('mod,name', REMOTE_FUNCTIONS)
+def test_remote_stack_function_signatures(mod, name):
+  assert_same_signature(name, _remote_attr(glt, f'{mod}:{name}'),
+                        _remote_attr(gtt, f'{mod}:{name}'))
