@@ -15,7 +15,8 @@ typed RGNN serving and the tiered typed loader, partitioning with
 sample_prob, the partitioned (distributed) sampling path over 4 shards
 on the one card, the multiprocess and server-client sampling stack
 (sampling workers on the card, a server child and this process its
-client), the hot/cold
+client), the chunk-staged remote scan (K-batch block frames from a
+server child, a captured RemoteScanTrainer; a typed epoch), the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
 the spilled serving stores), and the two probe suites.
@@ -326,6 +327,34 @@ Phases (any failure exits non-zero, and the result line is not printed):
    of one message, deserialize, upload, train), the message bytes, the
    client's idle share and largest device ops; after shutdown no ring
    open or alive (``shmctl``) and no child process.
+   Then the chunk-staged remote scan (``remote_scan``): a server child
+   (the same ``remote_server_main``, its stderr kept) and this process
+   its client, block frames of K = 2 batches at [15, 10, 5] x 1,024
+   (merge uncalibrated, shuffle off, seed 1), 5 products steps an epoch
+   (chunks of 2, 2 and 1). The first block fetched directly, f32 and
+   bf16: its two steps exact against the CPU sampler at the stream's
+   worker seed and against the first two batches of a
+   ``RemoteDistNeighborLoader`` (one worker) at the same seed, the bf16
+   frame's ``x`` the f32 frame's rounded to nearest even, its other keys
+   equal; frame bytes beside ``block_mb_per_chunk``. An eager
+   ``RemoteScanTrainer`` epoch (its last step recomputed on the CPU by
+   ``cpu_step_check``), a captured one from the same weights taking up
+   the eager trainer's parameters and Adam state at each chunk start
+   (chunk losses within rtol 1e-4; one upload a chunk, one replay a
+   chunk after the eager warm-up), a second captured epoch of replays
+   only (0 host syncs counted, one upload and one replay a chunk;
+   ms/step; per chunk the server's sample+gather, pack and device->host
+   ms from its build log, the fetch RPC, the wait at ``take``, the
+   pinned copy, the upload and the chunk's device ms), a profiled epoch
+   (the client's idle share and five largest device ops) and a
+   bf16-wire epoch; the server's launches read before and after each
+   epoch (K4 10 and K1 1 a batch). Then ``train_hgt_mag_mp``'s defaults
+   cut to 4 batches at K = 2: a ``DistServer`` in this process over the
+   typed dataset on the card, the first block's two batches exact
+   against the CPU sampler at the stream's counter, a captured typed
+   epoch of HGT (merge-dense), K3 per plan item and K1 per featured type
+   a batch. After shutdown no ring, no child process and no report of
+   unreleased CUDA IPC handles in the server child's stderr.
 13. The hot/cold feature store. The card's pinned host-to-device rate
    (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
    from HBM, the cold rows read over UVA from the mapped host tail) on
@@ -7466,6 +7495,534 @@ def remote_phase(torch, gtt, ds, cpu_ds, topo, feats, labels, device, smi):
   return rep
 
 
+# ---- the chunk-staged remote scan (the remote_scan phase)
+RSCAN_STEPS = 5                      # products steps an epoch
+RSCAN_CHUNK = 2                      # K: chunks of 2, 2 and a tail of 1
+RSCAN_SEED = 1                       # folded: worker seeds past 2**32
+RSCAN_TYPED_BATCHES = 4              # the typed epoch's batches, at K
+IPC_WARNING = 'shared CUDA tensors released'
+
+
+def remote_scan_server_main(topo, feats, labels, q, device_name, err_path):
+  """``remote_server_main`` with this child's stderr in ``err_path``, so
+  the client reads whether torch reported unreleased CUDA IPC handles
+  at its exit."""
+  fd = os.open(err_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+  os.dup2(fd, 2)
+  os.close(fd)
+  remote_server_main(topo, feats, labels, q, device_name)
+
+
+def rscan_model(torch, gtt, device, b):
+  """The remote phase's products model: merge-dense GraphSAGE over the
+  uncalibrated merge layout, hidden HIDDEN, weights from seed 4."""
+  from graphlearn_tpu_torch.models import train
+  no, eo = train.merge_hop_offsets(b, FANOUTS)
+  return gtt.models.GraphSAGE(
+      FEAT_DIM, HIDDEN, CLASSES, num_layers=len(FANOUTS),
+      hop_node_offsets=no, hop_edge_offsets=eo, merge_dense=True,
+      fanouts=FANOUTS, device=device,
+      generator=torch.Generator().manual_seed(4))
+
+
+def rscan_tensors(trainer, state):
+  """The tensors a chunk updates in place: the parameters and Adam's."""
+  import torch
+  ps = list(trainer.model.parameters())
+  return ps + [v for p in ps for v in state.optimizer.state[p].values()
+               if torch.is_tensor(v)]
+
+
+def rscan_cpu_batch(gtt, cpu_ds, worker_seed, call_index, block):
+  """:func:`remote_cpu_batch` at the block's own batch width."""
+  from graphlearn_tpu_torch.distributed.dist_sampling_producer import \
+      _batch_message
+  s = gtt.sampler.NeighborSampler(cpu_ds.graph, FANOUTS, device='cpu',
+                                  seed=worker_seed)
+  s._call_count = call_index
+  out = s.sample_from_nodes(gtt.sampler.NodeSamplerInput(block),
+                            batch_cap=block.shape[0])
+  return (out, *_batch_message(cpu_ds, out, True, False))
+
+
+def rscan_frame_check(torch, frame, j, out, x, y, what):
+  """Step ``j`` of a homogeneous block frame exact against a batch (the
+  CPU sampler's ``out`` with its ``x`` and ``y``)."""
+  fields = dict(node=(frame['node'][j], out.node),
+                row=(frame['row'][j], out.row), col=(frame['col'][j], out.col),
+                edge_mask=(frame['edge_mask'][j], out.edge_mask),
+                x=(frame['x'][j], x), y=(frame['y'][j], y.to(torch.int32)),
+                batch=(frame['batch'][j], out.batch))
+  for name, (got, want) in fields.items():
+    if not torch.equal(torch.from_numpy(np.ascontiguousarray(got)),
+                       want.cpu()):
+      raise AssertionError(f'{what}: {name} of step {j} differs')
+  if int(frame['num_nodes'][j]) != int(out.num_nodes) or \
+      int(frame['num_sampled_nodes'][j][0]) != \
+      int(out.num_sampled_nodes[0]):
+    raise AssertionError(f'{what}: counts of step {j} differ')
+
+
+def rscan_epoch(torch, gdist, trainer, state, cuda, what, want,
+                syncs=False):
+  """One ``run_epoch``, the server's launch counters read before and
+  after: ``(state, losses, accs, ms, server launches, host syncs)``, the
+  launches held to ``want``; with ``syncs`` the epoch runs under
+  :func:`count_syncs` (else its count is None)."""
+  before = gdist.request_server(0, 'get_metrics',
+                                idempotent=True)['server']['launches']
+  if cuda:
+    torch.cuda.synchronize()
+  a = _event(torch, cuda)
+  n_syncs = None
+  if syncs and cuda:
+    (state, losses, accs), n_syncs, kinds = count_syncs(
+        torch, lambda: trainer.run_epoch(state))
+    if n_syncs:
+      log(f'{what}: host syncs {kinds}')
+  else:
+    state, losses, accs = trainer.run_epoch(state)
+  b = _event(torch, cuda)
+  if cuda:
+    b.synchronize()
+  after = gdist.request_server(0, 'get_metrics',
+                               idempotent=True)['server']['launches']
+  counts = {k: after[k] - before[k] for k in after}
+  if cuda:
+    expect_launches(counts, want, what)
+  return state, losses, accs, _span(a, b, cuda), counts, n_syncs
+
+
+def rscan_build_log(gdist, trainer):
+  """The server's build log of the trainer's block stream."""
+  (st,) = trainer._streams
+  return gdist.request_server(st['rank'], 'block_build_log', st['pid'],
+                              idempotent=True)
+
+
+def rscan_typed(torch, gtt, device, smi, rep):
+  """``train_hgt_mag_mp``'s defaults cut to RSCAN_TYPED_BATCHES batches at
+  K = RSCAN_CHUNK: a ``DistServer`` in this process holds the typed
+  dataset on the card (K3 per plan item, K1 per featured type a batch),
+  a captured typed ``RemoteScanTrainer`` trains HGT (merge-dense) over
+  its shuffled block stream; the first block's two batches exact
+  against the CPU sampler at the stream's counter."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.distributed.dist_sampling_producer import \
+      _batch_message
+  from graphlearn_tpu_torch.examples import train_hgt_mag as mag
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.sampler import SamplingConfig, SamplingType
+  cuda = device.type == 'cuda'
+  n_paper = MAG_MP_PAPERS if cuda else 6_000
+  b = MAG_MP_BATCH if cuda else 64
+  t0 = time.perf_counter()
+  ds = mag.build_dataset(n_paper, device)
+  cpu_ds = mag.build_dataset(n_paper, torch.device('cpu'))
+  pool = np.arange(int(n_paper * 0.2))[:b * RSCAN_TYPED_BATCHES]
+  srv = gdist.DistServer(ds)
+  names = ('create_block_producer', 'block_producer_num_batches',
+           'block_produce', 'block_fetch', 'destroy_block_producer',
+           'block_build_log', 'heartbeat', 'get_metrics', 'exit')
+  rpc = gdist.RpcServer(handlers={h: getattr(srv, h) for h in names})
+  gdist.init_client(1, 1, 0, [(rpc.host, rpc.port)])
+  build_s = time.perf_counter() - t0
+  try:
+    cfg_seed = 0 * 7919 + 0
+    cfg = SamplingConfig(SamplingType.NODE, mag.FANOUTS, b, True, True,
+                         False, True, False, False, 'out', cfg_seed)
+    pid = gdist.request_server(0, 'create_block_producer',
+                               gtt.sampler.NodeSamplerInput(pool, 'paper'),
+                               cfg, None)
+    frame = gdist.request_server(0, 'block_fetch', pid, 0, 0, RSCAN_CHUNK)
+    gdist.request_server(0, 'destroy_block_producer', pid)
+    order = np.random.default_rng((cfg_seed + 1) * 2654435761).permutation(
+        pool.shape[0])
+    s = gtt.sampler.NeighborSampler(cpu_ds.graph, mag.FANOUTS, device='cpu',
+                                    seed=cfg_seed * 1000003)
+    for j in range(RSCAN_CHUNK):
+      out = s.sample_from_nodes(gtt.sampler.NodeSamplerInput(
+          pool[order[j * b:(j + 1) * b]], 'paper'), batch_cap=b)
+      x_d, y_d = _batch_message(cpu_ds, out, True, True)
+      for t, v in out.node.items():
+        if not (np.array_equal(frame[f'node.{t}'][j], v.numpy()) and
+                (t not in x_d or
+                 np.array_equal(frame[f'x.{t}'][j], x_d[t].numpy()))):
+          raise AssertionError(f'remote_scan typed: {t} of batch {j}')
+      for et in out.row:
+        k = '__'.join(et)
+        if not (np.array_equal(frame[f'row.{k}'][j], out.row[et].numpy())
+                and np.array_equal(frame[f'edge_mask.{k}'][j],
+                                   out.edge_mask[et].numpy())):
+          raise AssertionError(f'remote_scan typed: {et} of batch {j}')
+      if not np.array_equal(frame['y.paper'][j],
+                            y_d['paper'].numpy().astype(np.int32)):
+        raise AssertionError(f'remote_scan typed: y of batch {j}')
+    items = s._call_count // RSCAN_CHUNK
+    n_types = len(x_d)
+    del frame
+    model = mag.build_model(b, 64, 4, device, mode='merge_dense',
+                            generator=torch.Generator().manual_seed(0))
+    trainer = gdist.RemoteScanTrainer(
+        mag.FANOUTS, ('paper', pool), model, mag.NUM_CLASSES, batch_size=b,
+        chunk_size=RSCAN_CHUNK, shuffle=True, drop_last=True,
+        worker_options=gdist.RemoteDistSamplingWorkerOptions(server_rank=0),
+        seed=0, device=device)
+    try:
+      state = train.create_train_state(model, lr=3e-3)
+      ops.reset_launch_counts()
+      if cuda:
+        torch.cuda.synchronize()
+      a = _event(torch, cuda)
+      state, losses, _ = trainer.run_epoch(state)
+      bev = _event(torch, cuda)
+      if cuda:
+        bev.synchronize()
+      counts = ops.launch_counts()
+      ms = _span(a, bev, cuda)
+      timings = trainer.chunk_timings()
+      blog = rscan_build_log(gdist, trainer)
+      uploads, capture_ms = trainer.uploads, trainer.capture_ms
+    finally:
+      trainer.shutdown()
+  finally:
+    from graphlearn_tpu_torch.distributed import dist_client
+    if dist_client._client is not None:
+      dist_client._client.close()
+      dist_client._client = None
+    srv.exit()
+    rpc.shutdown()
+  losses = losses.tolist()
+  if not all(np.isfinite(losses)) or len(losses) != RSCAN_TYPED_BATCHES:
+    raise AssertionError(f'remote_scan typed: losses {losses}')
+  rep['launch_runs'].append(counts)
+  if cuda:
+    expect_launches(counts, dict(
+        sample_hop=RSCAN_TYPED_BATCHES * items,
+        gather_rows=RSCAN_TYPED_BATCHES * n_types, sample_level=0),
+        'remote_scan typed server')
+  frame_bytes = [r['bytes'] for r in blog]
+  log(f'remote_scan typed (HGT, {n_paper} papers, batch {b}, K = '
+      f'{RSCAN_CHUNK}): {RSCAN_TYPED_BATCHES} steps in {ms:.1f} ms, losses '
+      f'{[round(v, 4) for v in losses]}; frames {frame_bytes} B; build ms '
+      f'{[round(r["build_ms"], 1) for r in blog]}; capture ms {capture_ms}; '
+      f'{items} plan items; server launches {counts}; first block exact '
+      f'on {smi}')
+  return dict(ms_per_step=ms / RSCAN_TYPED_BATCHES, losses=losses,
+              frame_bytes=frame_bytes, build_log=blog, chunks=timings,
+              capture_ms=capture_ms, uploads=uploads, launches=counts,
+              plan_items=items, build_s=build_s)
+
+
+def remote_scan_phase(torch, gtt, topo, feats, labels, cpu_ds, device, smi):
+  """The chunk-staged remote scan on the card. A ``DistServer`` child
+  holds the script's dataset (the remote phase's ``remote_server_main``),
+  this process its client over loopback: block frames of K =
+  RSCAN_CHUNK batches at [15, 10, 5] x 1,024 (merge, uncalibrated),
+  RSCAN_STEPS products steps an epoch (chunks 2, 2, 1), shuffle off.
+  Frames exact (the first block's two batches against the CPU sampler
+  and the per-batch remote loader at the same worker seed; a bf16
+  frame's features the f32 frame's rounded to nearest even); an eager
+  epoch, the last step recomputed on the CPU; a captured epoch from the
+  same start taking up the eager trainer's state at each chunk boundary,
+  its chunk losses within rtol 1e-4 of the eager ones; a timed captured
+  epoch of replays only (one upload and one replay a chunk, 0 host
+  syncs); a profiled one; a bf16-wire epoch; the server's launches a
+  block batch (K4 10, K1 1); then the typed epoch (:func:`rscan_typed`).
+  Afterwards no ring, no child process and no IPC warning."""
+  import multiprocessing as mp
+  import tempfile
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.channel import live_channel_count
+  from graphlearn_tpu_torch.distributed import block_producer, message
+  from graphlearn_tpu_torch.models import train
+  from graphlearn_tpu_torch.sampler import SamplingConfig, SamplingType
+  cuda = device.type == 'cuda'
+  t_phase = time.perf_counter()
+  n = topo.num_nodes
+  b = BATCH if cuda else 64
+  steps, chunk = RSCAN_STEPS, RSCAN_CHUNK
+  chunks = -(-steps // chunk)
+  rings0 = live_channel_count()
+  rep = dict(steps=steps, chunk=chunk, batch=b, launch_runs=[], rings=[])
+  err_path = os.path.join(tempfile.mkdtemp(prefix='rscan_'), 'server.err')
+  ctx = mp.get_context('spawn')
+  q = ctx.Queue()
+  t0 = time.perf_counter()
+  server = ctx.Process(target=remote_scan_server_main,
+                       args=(topo, feats, labels, q, str(device), err_path))
+  server.start()
+  try:
+    kind, host, port, _ = q.get(timeout=READY_S)
+    if kind != 'ready':
+      raise RuntimeError(f'remote_scan server failed to start:\n{host}')
+    rep['server_start_s'] = time.perf_counter() - t0
+    gdist.init_client(1, 1, 0, [(host, port)])
+    pool = np.random.default_rng(21).permutation(n)[:b * steps]
+    cfg_seed = RSCAN_SEED * 7919 + 0
+    wseed = cfg_seed * 1000003
+    cfg = SamplingConfig(SamplingType.NODE, FANOUTS, b, False, False,
+                         False, True, False, False, 'out', cfg_seed)
+    # ---- 1. frames: the first block (f32, bf16) fetched directly
+    frames, fetch_ms = {}, {}
+    for wire in (None, 'bf16'):
+      pid = gdist.request_server(0, 'create_block_producer', pool, cfg,
+                                 wire, idempotent=True)
+      t1 = time.perf_counter()
+      frames[wire] = gdist.request_server(0, 'block_fetch', pid, 0, 0,
+                                          chunk, idempotent=True)
+      fetch_ms[wire] = (time.perf_counter() - t1) * 1e3
+      gdist.request_server(0, 'destroy_block_producer', pid)
+    f32, f16 = frames[None], frames['bf16']
+    ref = [rscan_cpu_batch(gtt, cpu_ds, wseed, j, pool[j * b:(j + 1) * b])
+           for j in range(chunk)]
+    for j, (out, x, y) in enumerate(ref):
+      rscan_frame_check(torch, f32, j, out, x, y, 'remote_scan frame')
+    want16 = torch.from_numpy(f32['x']).to(torch.bfloat16).view(torch.int16)
+    if not np.array_equal(f16['x'].view(np.int16), want16.numpy()):
+      raise AssertionError('remote_scan: the bf16 frame\'s x is not the f32 '
+                           'frame rounded to nearest even')
+    for k in f32:
+      if k != 'x' and not np.array_equal(f32[k], f16[k]):
+        raise AssertionError(f'remote_scan: the bf16 frame\'s {k} differs')
+    nbytes = {w: block_producer._frame_nbytes(f) for w, f in frames.items()}
+    msg = message.output_to_message(*ref[0])
+    msg_bytes = sum(a.nbytes for a in msg.values())
+    rep['frames'] = dict(
+        bytes_f32=nbytes[None], bytes_bf16=nbytes['bf16'],
+        message_bytes=msg_bytes, fetch_ms=fetch_ms,
+        mb_per_chunk=block_producer.block_mb_per_chunk(
+            chunk, f32['x'].shape[1], f32['row'].shape[1], FEAT_DIM),
+        mb_per_chunk_bf16=block_producer.block_mb_per_chunk(
+            chunk, f32['x'].shape[1], f32['row'].shape[1], FEAT_DIM, 'bf16'))
+    # the per-batch remote path at the same worker seed: its first two
+    # messages equal the frame's steps
+    from graphlearn_tpu_torch.channel import serialize_message
+    opts = gdist.RemoteDistSamplingWorkerOptions(
+        server_rank=0, num_workers=1, prefetch_size=1,
+        buffer_size=2 * len(serialize_message(msg)) + (1 << 20))
+    del msg
+    loader = gdist.RemoteDistNeighborLoader(
+        FANOUTS, pool, batch_size=b, worker_options=opts, seed=RSCAN_SEED,
+        device=device)
+    try:
+      it = iter(loader)
+      for j in range(chunk):
+        bt = next(it)
+        rscan_frame_check(torch, f32, j, gtt.sampler.SamplerOutput(
+            node=bt.node.cpu(), row=bt.edge_index[0].cpu(),
+            col=bt.edge_index[1].cpu(), edge_mask=bt.edge_mask.cpu(),
+            batch=bt.batch.cpu(), num_nodes=bt.num_nodes,
+            num_sampled_nodes=bt.num_sampled_nodes), bt.x.cpu(), bt.y.cpu(),
+            'remote_scan frame vs the per-batch path')
+      del bt, it
+    finally:
+      loader.shutdown()
+    del frames, f32, f16, want16
+    log(f'remote_scan frames: {nbytes[None]} B f32 / {nbytes["bf16"]} B '
+        f'bf16 a block of {chunk} (block_mb_per_chunk '
+        f'{rep["frames"]["mb_per_chunk"]:.1f} / '
+        f'{rep["frames"]["mb_per_chunk_bf16"]:.1f} MB; a message '
+        f'{msg_bytes} B); fetch ms {fetch_ms}; steps 0-1 exact against the '
+        f'CPU sampler and the per-batch remote path on {smi}')
+
+    # ---- 2. eager, then captured from the same start
+    want = dict(sample_level=level_launch_count('merge', steps),
+                gather_rows=steps, sample_hop=0)
+
+    def trainer(capture, wire=None):
+      m = rscan_model(torch, gtt, device, b)
+      m.load_state_dict(start)
+      return gdist.RemoteScanTrainer(
+          FANOUTS, pool, m, CLASSES, batch_size=b, chunk_size=chunk,
+          worker_options=gdist.RemoteDistSamplingWorkerOptions(
+              server_rank=0, block_wire_dtype=wire),
+          seed=RSCAN_SEED, device=device, capture=capture)
+
+    start = rscan_model(torch, gtt, device, b).state_dict()
+    eag = trainer(False)
+    boundary = {}
+    eag_state = train.create_train_state(eag.model, lr=LR)
+
+    def keep_boundary(c, s, k):
+      boundary[c] = [t.detach().clone()
+                     for t in rscan_tensors(eag, eag_state)]
+    eag.stage_hook = keep_boundary
+    # the eager epoch's last step, recorded for the CPU recompute
+    last, calls, inner = {}, [0], eag._train_step
+
+    def recorded_step(state, batch):
+      calls[0] += 1
+      if calls[0] != steps:
+        return inner(state, batch)
+      import copy
+      pre = {}
+      last['check'] = (copy.deepcopy(eag.model.state_dict()),
+                       copy.deepcopy(state.optimizer.state_dict()),
+                       {k: v.cpu() for k, v in batch.items()})
+      hooks = relu_input_hooks(eag.model, recorder(pre))
+      res = inner(state, batch)
+      for h in hooks:
+        h.remove()
+      last['loss'] = res[1]
+      last['check'] += ([p.grad.detach().cpu()
+                         for p in eag.model.parameters()],
+                        {k: z.cpu() for k, z in pre.items()})
+      return res
+    eag._train_step = recorded_step
+    try:
+      eag_state, eag_losses, _, eag_ms, counts, _ = rscan_epoch(
+          torch, gdist, eag, eag_state, cuda, 'remote_scan eager', want)
+      rep['launch_runs'].append(counts)
+      eag_timings = eag.chunk_timings()
+    finally:
+      eag.shutdown()
+    c_check = cpu_step_check(
+        torch, gtt, None, eag.model, last['check'], last['loss'],
+        cpu_model=lambda: rscan_model(torch, gtt, torch.device('cpu'), b))
+    del last, eag
+    if cuda:
+      torch.cuda.empty_cache()
+    cap = trainer(None)
+    assert cap.capture == cuda
+    cap_state = train.create_train_state(cap.model, lr=LR)
+    took = []
+
+    def take_boundary(c, s, k):
+      # a common start: the chunk starts from the eager chunk's (Adam's
+      # tensors exist from the first step on)
+      mine = rscan_tensors(cap, cap_state)
+      if c in boundary and len(mine) == len(boundary[c]):
+        with torch.no_grad():
+          torch._foreach_copy_(mine, boundary[c])
+        took.append(c)
+    cap.stage_hook = take_boundary
+    try:
+      cap_state, cap_losses, _, cap_ms1, counts, _ = rscan_epoch(
+          torch, gdist, cap, cap_state, cuda, 'remote_scan captured 1',
+          want)
+      rep['launch_runs'].append(counts)
+      if cuda and (cap.uploads, cap.replays) != (chunks, chunks - 1):
+        raise AssertionError(f'remote_scan captured epoch 1: '
+                             f'{cap.uploads} uploads, {cap.replays} replays')
+      torch.testing.assert_close(cap_losses.cpu(), eag_losses.cpu(),
+                                 rtol=1e-4, atol=0)
+      equal = bool(torch.equal(cap_losses, eag_losses))
+      cap.stage_hook = None
+      del boundary
+      # ---- 3. the timed epoch: replays only, host syncs counted
+      cap_state, cap_losses2, _, cap_ms, counts, syncs = rscan_epoch(
+          torch, gdist, cap, cap_state, cuda, 'remote_scan captured 2',
+          want, syncs=True)
+      rep['launch_runs'].append(counts)
+      if cuda and (cap.uploads, cap.replays, syncs) != (chunks, chunks, 0):
+        raise AssertionError(f'remote_scan captured epoch 2: '
+                             f'{cap.uploads} uploads, {cap.replays} replays, '
+                             f'{syncs} host syncs')
+      timings = cap.chunk_timings()
+      blog = rscan_build_log(gdist, cap)
+      capture_ms = cap.capture_ms
+      # ---- 4. a profiled epoch (the client's device ops)
+      prof_state = [cap_state]
+
+      def prof_epoch():
+        prof_state[0] = cap.run_epoch(prof_state[0])[0]
+      prof = profiled(torch, prof_epoch, 1, device, 'remote_scan epoch')
+    finally:
+      cap.shutdown()
+      cap.drop_graphs()
+    del cap
+    if cuda:
+      torch.cuda.empty_cache()
+    # ---- 5. a bf16-wire epoch
+    b16 = trainer(None, 'bf16')
+    try:
+      _, b16_losses, _, b16_ms, counts, _ = rscan_epoch(
+          torch, gdist, b16, train.create_train_state(b16.model, lr=LR),
+          cuda, 'remote_scan bf16', want)
+      rep['launch_runs'].append(counts)
+      b16_log = rscan_build_log(gdist, b16)
+      b16_timings = b16.chunk_timings()
+    finally:
+      b16.shutdown()
+      b16.drop_graphs()
+    del b16
+    if cuda:
+      torch.cuda.empty_cache()
+    if not all(np.isfinite(b16_losses.tolist())):
+      raise AssertionError(f'remote_scan bf16: losses {b16_losses}')
+    gdist.shutdown_client()
+    kind, server_rings, _, _ = q.get(timeout=120)
+    server.join(timeout=120)
+    rep['rings'] = list(server_rings or ())
+    if kind != 'done' or server.exitcode != 0:
+      raise AssertionError(f'remote_scan server ended {kind}, exit '
+                           f'{server.exitcode}')
+  finally:
+    from graphlearn_tpu_torch.distributed import dist_client
+    if dist_client.get_client() is not None:
+      dist_client._client.close()
+      dist_client._client = None
+    if server.is_alive():
+      server.terminate()
+      server.join(30)
+  with open(err_path) as fh:
+    server_err = fh.read()
+  if server_err.strip():
+    log('remote_scan server stderr (tail): ' + server_err[-2000:])
+  rep['typed'] = rscan_typed(torch, gtt, device, smi, rep)
+  left = dict(rings_open=live_channel_count() - rings0,
+              rings_made=len(rep['rings']),
+              rings_alive=rings_alive(rep['rings']),
+              children=[p.pid for p in mp.active_children()],
+              ipc_warning=IPC_WARNING in server_err)
+  if left['rings_open'] or left['rings_alive'] or left['children'] or \
+      left['ipc_warning'] or left['rings_made'] < 1:
+    raise AssertionError(f'remote_scan phase left behind {left}')
+  per_chunk = []
+  for t, r in zip(timings, blog[-chunks:]):
+    per_chunk.append(dict(
+        k=t['k'], bytes=r['bytes'], server_sample_ms=r['sample_ms'],
+        server_pack_ms=r['pack_ms'], server_d2h_ms=r['d2h_ms'],
+        server_build_ms=r['build_ms'], fetch_rpc_ms=t['fetch_ms'],
+        wait_ms=t['wait_ms'], pin_ms=t['pin_ms'], upload_ms=t['upload_ms'],
+        device_ms=t['device_ms']))
+  rep.update(
+      eager_ms_per_step=eag_ms / steps, captured_first_ms_per_step=cap_ms1
+      / steps, captured_ms_per_step=cap_ms / steps,
+      bf16_ms_per_step=b16_ms / steps, capture_ms=capture_ms,
+      chunks=per_chunk, eager_chunks=eag_timings, bf16_chunks=b16_timings,
+      bf16_frame_bytes=[r['bytes'] for r in b16_log[-chunks:]],
+      losses=cap_losses2.tolist(), eager_losses=eag_losses.tolist(),
+      captured_vs_eager_bit_equal=equal, boundaries_taken=took,
+      host_syncs=syncs, profile=prof,
+      top5_device_ms=dict(sorted(prof['top_device_ms'].items(),
+                                 key=lambda kv: -kv[1])[:5]),
+      cpu_check={k: c_check[k] for k in ('pre_diff', 'opposite',
+                                         'grad_share', 'adam_diff',
+                                         'cpu_loss', 'loss')},
+      left=left)
+  rep['launches'] = {k: sum(c[k] for c in rep['launch_runs'])
+                     for k in rep['launch_runs'][0]}
+  rep['phase_s'] = time.perf_counter() - t_phase
+  for c in per_chunk:
+    log('remote_scan chunk: ' + ' '.join(
+        f'{k}={v:.2f}' if isinstance(v, float) else f'{k}={v}'
+        for k, v in c.items()))
+  log(f'remote_scan: ms/step captured {rep["captured_ms_per_step"]:.1f} '
+      f'(first epoch {rep["captured_first_ms_per_step"]:.1f}), eager '
+      f'{rep["eager_ms_per_step"]:.1f}, bf16 {rep["bf16_ms_per_step"]:.1f}; '
+      f'capture ms {capture_ms}; captured chunks within rtol 1e-4 of the '
+      f'eager ones (bit-equal {equal}); host syncs {syncs}; the last eager '
+      f'step on the CPU: gradients within {c_check["grad_share"]:.3g}; '
+      f'client idle share {prof["idle_share"]}; top ops '
+      f'{rep["top5_device_ms"]}; server launches {rep["launches"]}; phase '
+      f'{rep["phase_s"]:.1f} s; left behind {left} on {smi}')
+  return rep
+
+
 # ---- the hot/cold feature store
 HC_SPLIT = 0.25                      # the kernel case's device share
 PINNED_BYTES = 256 << 20             # the pinned host-to-device copy
@@ -8643,6 +9200,11 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('remote')
+  report['remote_scan'] = remote_scan_phase(torch, gtt, topo, feats, labels,
+                                            cpu_ds, device, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('remote_scan')
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -8674,6 +9236,9 @@ def main(argv=None):
   # the remote phase's runs: its workers' (in their own processes, read
   # from their metric snapshots) and the server's serve RPCs'
   paths += report['remote']['launch_runs']
+  # the remote scan's epochs: the server's counters read before and after
+  # each (its RPC threads launch), the typed epoch's in this process
+  paths += report['remote_scan']['launch_runs']
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
   for rec in report['modes'].values():

@@ -20,8 +20,14 @@ HMAC handshake, ``Barrier``) and its resilience layer (``RetryPolicy``,
 ``request_server``, ``shutdown_client``) and the remote loaders
 (``RemoteDistNeighborLoader``, ``RemoteDistLinkNeighborLoader``); then
 ``DistRandomPartitioner`` and ``DistTableDataset`` over the RPC's
-``Barrier``. The chunk-staged remote scan and multi-tenancy come with
-the next slice.
+``Barrier``.
+
+The chunk-staged remote scan: server-side K-batch block streams
+(``BlockSampleProducer``, ``stack_block_frames``, ``block_mb_per_chunk``)
+and ``RemoteScanTrainer`` with its ``RemoteBlockStager``; and the
+multi-tenant plane of the sampling servers (``TenancyConfig``,
+``TenantSpec``, ``AdmissionController``, ``WeightedFairScheduler``, the
+typed ``TenantRejection`` errors and ``with_backpressure``).
 """
 from .dist_context import (DistContext, DistRole, ShardMesh, get_context,
                            init_multihost, init_worker_group,
@@ -42,6 +48,9 @@ from .dist_options import (CollocatedDistSamplingWorkerOptions,
                            RemoteDistSamplingWorkerOptions)
 from .dist_sampling_producer import (DistCollocatedSamplingProducer,
                                      DistMpSamplingProducer)
+from .block_producer import (BlockSampleProducer, block_mb_per_chunk,
+                             stack_block_frames)
+from .remote_scan import RemoteBlockStager, RemoteScanTrainer
 from .dist_server import (DistServer, get_server, init_server,
                           wait_and_shutdown_server)
 from .dist_client import (async_request_server, init_client,
@@ -52,3 +61,7 @@ from .resilience import (DEFAULT_RETRY_POLICY, NO_RETRY, DeadlineExceeded,
                          Heartbeat, RetryPolicy, ServerDeadError)
 from .rpc import (Barrier, RpcCalleeBase, RpcClient,
                   RpcDataPartitionRouter, RpcServer, get_free_port)
+from .tenancy import (PRIORITY_CLASSES, AdmissionController, TenancyConfig,
+                      TenantQuotaExceeded, TenantRejection, TenantSpec,
+                      TenantStarvedError, TenantThrottled,
+                      WeightedFairScheduler, with_backpressure)

@@ -33,6 +33,7 @@ from ..typing import reverse_edge_type
 from ..typing import split_edge_type_seeds as _split_edge_type
 from .dist_dataset import DistDataset
 from .dist_neighbor_sampler import DistNeighborSampler
+from .tenancy import with_backpressure
 from ..utils import resolve_device, trace
 
 logger = logging.getLogger('graphlearn_tpu_torch.loader')
@@ -408,13 +409,6 @@ class MpDistLinkNeighborLoader(MpDistNeighborLoader):
                 config, channel_size, num_workers, seed, device=device)
 
 
-def _refuse_tenant(opts):
-  from .dist_server import NEXT_SLICE
-  if opts is not None and getattr(opts, 'tenant', None) is not None:
-    raise NotImplementedError(
-        f'tenant options (tenant={opts.tenant!r}) come with {NEXT_SLICE}')
-
-
 class _RemoteLoaderBase:
   """Shared remote (server-client) machinery: one producer per server
   from a per-server split of the sampler input, batches pulled through
@@ -437,6 +431,20 @@ class _RemoteLoaderBase:
   #: the link loader degrades to a hard error on server death.
   supports_failover = True
 
+  def _tenant_kwargs(self) -> dict:
+    """``create_sampling_producer`` keywords registering this loader's
+    producers under its tenant; empty (and understood by a server
+    without tenancy) when no tenant is configured."""
+    if getattr(self, '_tenant', None) is None:
+      return {}
+    return dict(tenant=self._tenant, priority=self._tenant_priority,
+                weight=self._tenant_weight)
+
+  def _note_throttle(self, rej):
+    # remembered so that an idle-budget QueueTimeoutError names the
+    # quota this tenant last bounced off
+    self._last_throttle = rej
+
   def _setup_remote(self, config, per_server_inputs, worker_options,
                     device=None):
     import dataclasses
@@ -446,10 +454,17 @@ class _RemoteLoaderBase:
     from . import dist_client
     from .resilience import Heartbeat
     opts = worker_options
-    _refuse_tenant(opts)
     self.device = resolve_device(device)
     self._opts = opts
     self._config = config
+    self._tenant = getattr(opts, 'tenant', None) if opts else None
+    self._tenant_priority = (getattr(opts, 'tenant_priority', None)
+                             if opts else None)
+    self._tenant_weight = (getattr(opts, 'tenant_weight', None)
+                           if opts else None)
+    self._bp_budget = (getattr(opts, 'backpressure_budget', 120.0)
+                       if opts else 120.0)
+    self._last_throttle = None   # the last TenantRejection, for context
     # the server's ring per producer: JAX's option, which JAX's loader
     # leaves at the server's 64 MiB default; a full-width batch needs more
     self._create_kw = {}
@@ -466,10 +481,16 @@ class _RemoteLoaderBase:
       # different servers would otherwise derive identical worker seeds
       cfg_i = dataclasses.replace(
           config, seed=(config.seed or 0) * 7919 + i)
-      pid = dist_client.request_server(
-          rank, 'create_sampling_producer', part, cfg_i,
-          opts.num_workers if opts else 1,
-          worker_key=(opts.worker_key if opts else None), **self._create_kw)
+      pid = with_backpressure(
+          lambda rank=rank, part=part, cfg_i=cfg_i:
+          dist_client.request_server(
+              rank, 'create_sampling_producer', part, cfg_i,
+              opts.num_workers if opts else 1,
+              worker_key=(opts.worker_key if opts else None),
+              **self._create_kw, **self._tenant_kwargs()),
+          describe=f'create_sampling_producer rank {rank}',
+          budget_s=self._bp_budget, tenant=self._tenant,
+          on_reject=self._note_throttle)
       self.producer_ids.append(pid)
       # the producer's own count: its workers split the seed share and
       # each rounds up, so ceil(n / batch_size) would undercount here
@@ -616,10 +637,15 @@ class _RemoteLoaderBase:
       # worker_key makes the create re-request-safe, so it may retry;
       # start_new_epoch_sampling has no such dedup and stays
       # single-attempt
-      pid2 = self._dist_client.request_server(
-          r2, 'create_sampling_producer', part2, cfg2,
-          self._opts.num_workers if self._opts else 1, worker_key=key,
-          idempotent=True, **self._create_kw)
+      pid2 = with_backpressure(
+          lambda r2=r2, part2=part2, cfg2=cfg2, key=key:
+          self._dist_client.request_server(
+              r2, 'create_sampling_producer', part2, cfg2,
+              self._opts.num_workers if self._opts else 1, worker_key=key,
+              idempotent=True, **self._create_kw, **self._tenant_kwargs()),
+          describe=f'failover producer rank {r2}',
+          budget_s=self._bp_budget, tenant=self._tenant,
+          on_reject=self._note_throttle)
       repl_expected = self._dist_client.request_server(
           r2, 'producer_num_expected', pid2, idempotent=True)
       self._dist_client.request_server(r2, 'start_new_epoch_sampling',
@@ -710,7 +736,7 @@ class _RemoteLoaderBase:
                                                 e.cause):
           yield self._to_data(m)
         continue
-      except QueueTimeoutError:
+      except QueueTimeoutError as qte:
         # quiet window: consult liveness before waiting further — a
         # partitioned or hung server never RSTs, the heartbeat is the
         # only signal
@@ -726,6 +752,10 @@ class _RemoteLoaderBase:
           idle_since = time.monotonic()
           continue
         if time.monotonic() - idle_since > self._idle_budget:
+          # a starved tenant's stall names who hit which limit
+          last = self._last_throttle
+          qte.with_context(tenant=self._tenant,
+                           quota=getattr(last, 'quota', None))
           raise
         continue
       idle_since = time.monotonic()

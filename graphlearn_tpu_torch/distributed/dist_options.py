@@ -48,11 +48,15 @@ class RemoteDistSamplingWorkerOptions(_BasicDistSamplingWorkerOptions):
   as the total-idle budget: an epoch that receives nothing for that
   long fails with a contextual QueueTimeoutError.
 
-  The chunk-staged scan's tunables (``block_wire_dtype``,
-  ``block_ahead``, ``block_timeout``) and the tenancy ones (``tenant``,
-  ``tenant_priority``, ``tenant_weight``, ``backpressure_budget``) are
-  JAX's fields; the remote scan and multi-tenancy come with the next
-  slice, and a loader given a tenant refuses it until then.
+  The chunk-staged scan's tunables (``RemoteScanTrainer``):
+  ``block_wire_dtype`` (None, or 'bf16' for half-width frame features),
+  ``block_ahead`` (frames prefetched ahead of the chunk that trains, and
+  the client's pinned slots) and ``block_timeout`` (how long a chunk
+  waits for its prefetch before fetching synchronously). The tenancy
+  ones: ``tenant``, ``tenant_priority`` and ``tenant_weight`` register
+  the client's producers with a server's admission controller, and
+  ``backpressure_budget`` bounds the seconds of throttle waits before
+  ``TenantStarvedError``.
   """
   server_rank: Optional[Union[int, List[int]]] = None
   buffer_size: Optional[Union[int, str]] = None

@@ -7,11 +7,15 @@ streams serialized ``SampleMessage``s on demand over the TCP RPC.
 ``fetch_one_sampled_message`` keeps the poll contract ``(message | None,
 end_of_epoch)`` with a bounded wait.
 
-The chunk-staged block producers (``create_block_producer`` and the
-other ``block_*`` RPCs) and multi-tenancy (``tenancy=``,
-``update_tenant``) come with the next slice and raise
-``NotImplementedError`` until then; with ``tenancy=None`` the server
-behaves as JAX's does without tenancy.
+The chunk-staged remote scan's block streams (``create_block_producer``
+and the other ``block_*`` RPCs, ``distributed/block_producer.py``) are
+counter-addressed replays on the server's dataset device: no worker
+process, no ring, so their lifecycle is a dict. ``tenancy=``
+(``tenancy.TenancyConfig``) turns on the multi-tenant plane: admission
+quotas at producer creation and in the block handlers (typed, retryable
+rejections), the weighted-fair block lane, per-tenant ``producer_ttl``
+and the tenants' quota state in ``get_metrics``; with ``tenancy=None``
+the server behaves as JAX's does without tenancy.
 """
 import dataclasses
 import logging
@@ -33,9 +37,6 @@ from .rpc import Barrier, RpcServer
 
 logger = logging.getLogger('graphlearn_tpu_torch.server')
 
-NEXT_SLICE = ('the chunk-staged remote scan and multi-tenancy slice '
-              '(ROADMAP queue A item 7)')
-
 
 def _node_input(seeds) -> NodeSamplerInput:
   """A producer's node seeds: a ``NodeSamplerInput`` (typed seeds ride
@@ -55,17 +56,25 @@ class DistServer:
   start) after which a background reaper destroys the producer and
   releases its ``ShmChannel`` — the backstop against clients that
   disconnect mid-stream without calling ``destroy_sampling_producer``.
-  None disables reaping. ``tenancy`` must be None: multi-tenancy comes
-  with the next slice.
+  None disables reaping.
+
+  ``tenancy`` (``tenancy.TenancyConfig``) turns on the multi-tenant
+  plane: per-tenant admission quotas at producer creation and in the
+  block handlers, the weighted-fair block lane, per-tenant
+  ``producer_ttl`` overrides (one vanished client reaps only its own
+  streams) and per-tenant quota state in ``get_metrics``. None keeps the
+  single-tenant behaviour.
   """
 
   def __init__(self, dataset, producer_ttl: Optional[float] = None,
                tenancy=None):
-    if tenancy is not None:
-      raise NotImplementedError(
-          f'DistServer(tenancy=...) comes with {NEXT_SLICE}')
+    from .tenancy import AdmissionController, WeightedFairScheduler
     self.dataset = dataset
     self._producers: Dict[int, DistMpSamplingProducer] = {}
+    # chunk-staged block streams: counter-addressed replays, no worker
+    # process and no ring, so their lifecycle is this dict
+    self._block_producers: Dict[int, object] = {}
+    self._block_key_to_id: Dict[str, int] = {}
     self._buffers: Dict[int, ShmChannel] = {}
     # per-producer fetch locks: destroy (client call OR idle reaper)
     # must not close a ring while a fetch thread is blocked inside its
@@ -80,16 +89,40 @@ class DistServer:
     self._exit = threading.Event()
     self.producer_ttl = producer_ttl
     self._serving = None
+    self._admission = (AdmissionController(tenancy)
+                       if tenancy is not None else None)
+    self._scheduler = (WeightedFairScheduler(
+        self._admission, quantum=tenancy.quantum,
+        timeout=tenancy.sched_timeout) if tenancy is not None else None)
     self._reaper: Optional[threading.Thread] = None
-    if producer_ttl is not None:
+    if self._min_ttl() is not None:
       self._reaper = threading.Thread(target=self._reap_loop, daemon=True)
       self._reaper.start()
+
+  def _min_ttl(self) -> Optional[float]:
+    """The smallest armed reap threshold (server-wide or any tenant's):
+    the reaper runs when any is armed and polls at its cadence."""
+    if self._admission is not None:
+      return self._admission.min_ttl(self.producer_ttl)
+    return self.producer_ttl
+
+  def _pid_ttl(self, pid: int) -> Optional[float]:
+    if self._admission is not None:
+      return self._admission.ttl_for_pid(pid, self.producer_ttl)
+    return self.producer_ttl
+
+  def _pid_context(self, pid: int) -> str:
+    """Tenant and quota context of a stale-handle error ('' without
+    tenancy)."""
+    if self._admission is None:
+      return ''
+    return self._admission.describe_pid(pid)
 
   def _touch(self, producer_id: int):
     self._last_active[producer_id] = time.monotonic()
 
   def _reap_loop(self):
-    interval = min(max(self.producer_ttl / 4.0, 0.05), 30.0)
+    interval = min(max((self._min_ttl() or 1.0) / 4.0, 0.05), 30.0)
     while not self._exit.wait(interval):
       try:
         self.reap_idle_producers()
@@ -97,18 +130,32 @@ class DistServer:
         logger.exception('reaping idle producers failed')
 
   def reap_idle_producers(self) -> int:
-    """Destroy producers idle for longer than ``producer_ttl``; returns
-    the number reaped (also callable directly from tests)."""
+    """Destroy producers idle for longer than their reap threshold (the
+    tenant's ``producer_ttl`` with tenancy on, else the server-wide one);
+    returns the number reaped (also callable directly from tests). Each
+    reap counts under ``tenant.reaped.<tenant>``."""
     now = time.monotonic()
     with self._lock:
-      stale = [pid for pid, ts in self._last_active.items()
-               if self.producer_ttl is not None and
-               now - ts > self.producer_ttl]
+      stale = []
+      for pid, ts in self._last_active.items():
+        ttl = self._pid_ttl(pid)
+        if ttl is not None and now - ts > ttl:
+          stale.append(pid)
+      stale_blocks = {pid for pid in stale if pid in self._block_producers}
     for pid in stale:
+      fault_point('tenant.reap')
+      tenant = (self._admission.tenant_of(pid)
+                if self._admission is not None else 'default')
       trace.counter_inc('resilience.producer_reaped')
-      logger.info('reaping idle producer %d (ttl=%s)', pid,
-                  self.producer_ttl)
-      self.destroy_sampling_producer(pid)
+      metrics.inc(f'tenant.reaped.{tenant}')
+      logger.info('reaping idle producer %d of tenant %r (ttl=%s)', pid,
+                  tenant, self._pid_ttl(pid))
+      if self._admission is not None:
+        self._admission.release_producer(pid, reaped=True)
+      if pid in stale_blocks:
+        self.destroy_block_producer(pid)
+      else:
+        self.destroy_sampling_producer(pid)
     return len(stale)
 
   # -- producer lifecycle ---------------------------------------------------
@@ -122,9 +169,11 @@ class DistServer:
                                weight: Optional[float] = None) -> int:
     """A producer over ``seeds`` with ``num_workers`` sampling workers
     and a ring of ``buffer_size`` bytes; its id. A repeated
-    ``worker_key`` returns the producer it created."""
-    if tenant is not None or priority is not None or weight is not None:
-      raise NotImplementedError(f'tenant producers come with {NEXT_SLICE}')
+    ``worker_key`` returns the producer it created. With tenancy on,
+    ``tenant`` / ``priority`` / ``weight`` register it with the admission
+    controller, which admits it with its ring bytes before anything is
+    allocated (an over-quota tenant gets a retryable
+    ``TenantQuotaExceeded``)."""
     fault_point('server.create_producer')
     with self._lock:
       if worker_key is not None and worker_key in self._worker_key_to_id:
@@ -133,7 +182,16 @@ class DistServer:
         return pid
       pid = self._next_id
       self._next_id += 1
-      buf = ShmChannel(shm_size=buffer_size)
+      if self._admission is not None:
+        self._admission.admit_producer(
+            tenant or 'default', pid, ring_bytes=int(buffer_size),
+            priority=priority, weight=weight)
+      try:
+        buf = ShmChannel(shm_size=buffer_size)
+      except BaseException:
+        if self._admission is not None:
+          self._admission.release_producer(pid)
+        raise
       try:
         # the server's dataset is the authority on edge orientation —
         # remote clients can't know it and default to 'out'
@@ -158,6 +216,9 @@ class DistServer:
         producer.init()
       except BaseException:
         buf.close()
+        # a failed create does not hold the tenant's admission slot
+        if self._admission is not None:
+          self._admission.release_producer(pid)
         raise
       self._producers[pid] = producer
       self._buffers[pid] = buf
@@ -178,7 +239,8 @@ class DistServer:
       raise RuntimeError(
           f'producer {producer_id} unknown on this server — it was '
           'destroyed or idle-reaped (producer_ttl); recreate the remote '
-          'loader to register a fresh producer')
+          'loader to register a fresh producer'
+          f'{self._pid_context(producer_id)}')
     return producer, buf
 
   def producer_num_expected(self, producer_id: int) -> int:
@@ -248,7 +310,9 @@ class DistServer:
   def destroy_sampling_producer(self, producer_id: int):
     """Idempotent: destroying an unknown or already-destroyed producer is
     a no-op. Stops and joins the producer's workers, then releases its
-    ring."""
+    ring (and, with tenancy on, the tenant's admission slot)."""
+    if self._admission is not None:
+      self._admission.release_producer(producer_id)
     with self._lock:
       producer = self._producers.pop(producer_id, None)
       buf = self._buffers.pop(producer_id, None)
@@ -271,7 +335,9 @@ class DistServer:
         buf.close()
     return True
 
-  # -- the next slice's RPCs ------------------------------------------------
+  # -- chunk-staged block streams (distributed/block_producer.py). A block
+  # is a pure function of (share, config, epoch, batch range), so every
+  # handler here is idempotent and the client calls them with retry.
 
   def create_block_producer(self, seeds, sampling_config,
                             wire_dtype: Optional[str] = None,
@@ -279,25 +345,134 @@ class DistServer:
                             tenant: Optional[str] = None,
                             priority: Optional[str] = None,
                             weight: Optional[float] = None) -> int:
-    raise NotImplementedError(f'block producers come with {NEXT_SLICE}')
+    """Register a block stream over a seed share; its id. ``worker_key``
+    dedups re-creates (client retries, failover replay producers on
+    survivors) as the sampling producers' key does. ``tenant`` /
+    ``priority`` / ``weight`` register the stream with the admission
+    controller: its staged frame bytes then count against the tenant's
+    in-flight quota and its builds drain through the weighted-fair
+    lane."""
+    from .block_producer import BlockSampleProducer
+    with self._lock:
+      if worker_key is not None and worker_key in self._block_key_to_id:
+        pid = self._block_key_to_id[worker_key]
+        self._touch(pid)
+        return pid
+      pid = self._next_id
+      self._next_id += 1
+      if self._admission is not None:
+        self._admission.admit_producer(
+            tenant or 'default', pid, ring_bytes=0,
+            priority=priority, weight=weight)
+      # the server's dataset is the authority on edge orientation
+      cfg = dataclasses.replace(sampling_config,
+                                edge_dir=self.dataset.edge_dir)
+      try:
+        producer = BlockSampleProducer(self.dataset, seeds, cfg,
+                                       wire_dtype=wire_dtype)
+      except BaseException:
+        if self._admission is not None:
+          self._admission.release_producer(pid)
+        raise
+      if self._admission is not None:
+        # in-flight bytes: charged as a frame stages into the producer's
+        # cache, released as the client fetches it
+        adm, t = self._admission, (tenant or 'default')
+        producer.on_stage = lambda n: adm.charge_inflight(t, n)
+        producer.on_fetch = lambda n: adm.release_inflight(t, n)
+      self._block_producers[pid] = producer
+      self._touch(pid)
+      if worker_key is not None:
+        self._block_key_to_id[worker_key] = pid
+      return pid
+
+  def _live_block_producer(self, producer_id: int):
+    producer = self._block_producers.get(producer_id)
+    if producer is None:
+      raise RuntimeError(
+          f'block producer {producer_id} unknown on this server — it '
+          'was destroyed or idle-reaped (producer_ttl); recreate the '
+          'remote scan trainer to register a fresh stream'
+          f'{self._pid_context(producer_id)}')
+    return producer
+
+  def _block_lane(self, producer_id: int, k: int, fn):
+    """Run a block build or fetch through the weighted-fair lane (strict
+    priority, then deficit-weighted round robin); a direct call without
+    tenancy. The cost is the batch count: a tail block is cheaper."""
+    if self._scheduler is None:
+      return fn()
+    tenant = self._admission.tenant_of(producer_id)
+    return self._scheduler.run(tenant, float(k), fn)
 
   def block_producer_num_batches(self, producer_id: int) -> int:
-    raise NotImplementedError(f'block producers come with {NEXT_SLICE}')
+    """Batches per epoch of this block stream."""
+    with self._lock:
+      producer = self._live_block_producer(producer_id)
+      self._touch(producer_id)
+    return producer.num_batches()
 
   def block_produce(self, producer_id: int, epoch: int, start: int,
                     k: int) -> bool:
-    raise NotImplementedError(f'block producers come with {NEXT_SLICE}')
+    """Stage block (epoch, [start, start + k)) into the frame cache: the
+    produce half of the client's produce-c+1-while-fetching-c. With
+    tenancy on, a tenant at its in-flight byte quota gets a retryable
+    ``TenantThrottled`` (producing ahead is optional work; fetching the
+    staged frames drains the quota), and the build drains through the
+    weighted-fair lane."""
+    with self._lock:
+      producer = self._live_block_producer(producer_id)
+      self._touch(producer_id)
+    if self._admission is not None:
+      self._admission.check_inflight(self._admission.tenant_of(producer_id))
+    return self._block_lane(
+        producer_id, k, lambda: producer.produce(epoch, start, k))
 
   def block_fetch(self, producer_id: int, epoch: int, start: int,
                   k: int) -> dict:
-    raise NotImplementedError(f'block producers come with {NEXT_SLICE}')
+    """The block frame (cache pop, or built on demand): pure, so a
+    retried fetch rebuilds identical bytes. It goes through the
+    weighted-fair lane and is never throttled by the in-flight quota:
+    fetching drains it."""
+    with self._lock:
+      producer = self._live_block_producer(producer_id)
+      self._touch(producer_id)
+    return self._block_lane(
+        producer_id, k, lambda: producer.fetch(epoch, start, k))
+
+  def block_build_log(self, producer_id: int) -> list:
+    """The block stream's ``build_log`` (per built frame: its range,
+    bytes, the sampling and gather, pack and host-copy ms). Read-only."""
+    with self._lock:
+      producer = self._live_block_producer(producer_id)
+    return list(producer.build_log)
 
   def destroy_block_producer(self, producer_id: int) -> bool:
-    raise NotImplementedError(f'block producers come with {NEXT_SLICE}')
+    """Idempotent, as ``destroy_sampling_producer``. Releases any
+    still-staged frame bytes and the tenant's admission slot."""
+    with self._lock:
+      producer = self._block_producers.pop(producer_id, None)
+      self._last_active.pop(producer_id, None)
+      for key, pid in list(self._block_key_to_id.items()):
+        if pid == producer_id:
+          del self._block_key_to_id[key]
+    if self._admission is not None:
+      tenant = self._admission.tenant_of(producer_id)
+      leftover = producer.cached_bytes() if producer is not None else 0
+      if leftover:
+        self._admission.release_inflight(tenant, leftover)
+      self._admission.release_producer(producer_id)
+    return True
 
   def update_tenant(self, tenant: str, priority: Optional[str] = None,
                     weight: Optional[float] = None) -> dict:
-    raise NotImplementedError(f'tenancy comes with {NEXT_SLICE}')
+    """Re-register a tenant's priority or weight mid-flight and return
+    its quota snapshot. Idempotent."""
+    if self._admission is None:
+      raise RuntimeError('tenancy is not enabled on this server '
+                         '(DistServer(tenancy=TenancyConfig(...)))')
+    self._admission.register(tenant, priority=priority, weight=weight)
+    return self._admission.snapshot(tenant)
 
   # -- liveness, metrics, serving ---------------------------------------------
 
@@ -318,6 +493,10 @@ class DistServer:
     srv = metrics.snapshot()
     srv['launches'] = ops.launch_counts()
     out = {'server': srv, 'producers': {}}
+    if self._admission is not None:
+      # per-tenant quota and usage state: visible backpressure
+      out['tenants'] = self._admission.snapshot_all()
+      out['tenant_served'] = dict(self._scheduler.served)
     with self._lock:
       producers = dict(self._producers)
     for pid, producer in producers.items():
@@ -358,6 +537,10 @@ class DistServer:
     and releasing its ring) and signals ``wait_for_exit``."""
     for pid in list(self._producers):
       self.destroy_sampling_producer(pid)
+    for pid in list(self._block_producers):
+      self.destroy_block_producer(pid)
+    if self._scheduler is not None:
+      self._scheduler.close()
     self._exit.set()
     return True
 
@@ -381,13 +564,13 @@ def init_server(num_servers: int, num_clients: int, server_rank: int,
   """Start this server's RPC endpoint; returns ``(host, port)`` to hand
   to the clients (port 0 binds a free one). ``producer_ttl`` bounds how
   long a producer abandoned by a vanished client holds its ring (off by
-  default). ``tenancy`` must be None until the next slice."""
+  default). ``tenancy`` (``tenancy.TenancyConfig``) arms the
+  multi-tenant plane: admission quotas, weighted-fair block scheduling
+  and per-tenant ttls."""
   global _server, _rpc_server
-  if tenancy is not None:
-    raise NotImplementedError(
-        f'init_server(tenancy=...) comes with {NEXT_SLICE}')
   _set_server_context(num_servers, num_clients, server_rank)
-  _server = DistServer(dataset, producer_ttl=producer_ttl)
+  _server = DistServer(dataset, producer_ttl=producer_ttl,
+                       tenancy=tenancy)
   s = _server
   barrier = Barrier(num_clients)
   # handlers registered at construction: the server accepts connections
@@ -406,6 +589,7 @@ def init_server(num_servers: int, num_clients: int, server_rank: int,
           'block_produce': s.block_produce,
           'block_fetch': s.block_fetch,
           'destroy_block_producer': s.destroy_block_producer,
+          'block_build_log': s.block_build_log,
           'update_tenant': s.update_tenant,
           'get_dataset_meta': s.get_dataset_meta,
           'heartbeat': s.heartbeat,

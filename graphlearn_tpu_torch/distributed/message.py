@@ -86,6 +86,12 @@ def _meta(metadata: dict, t: dict):
 def output_to_message(out, x=None, y=None) -> dict:
   """Flatten a (homogeneous) ``SamplerOutput`` and optional collected
   features ``x`` and labels ``y`` into a message of numpy arrays."""
+  return to_host(output_tensors(out, x, y))
+
+
+def output_tensors(out, x=None, y=None) -> dict:
+  """:func:`output_to_message`'s keys, as tensors where the batch lies
+  (a block producer stacks K batches before the one host copy)."""
   dev = out.node.device if torch.is_tensor(out.node) else None
   t = {
       'node': _leaf(out.node),
@@ -111,7 +117,7 @@ def output_to_message(out, x=None, y=None) -> dict:
   if y is not None:
     t['y'] = _leaf(y)
   _meta(out.metadata, t)
-  return to_host(t)
+  return t
 
 
 def _et_key(et) -> str:
@@ -124,6 +130,12 @@ def hetero_output_to_message(out, x_dict=None, y_dict=None) -> dict:
   ``row.paper__cites__paper``); ``#META.hetero`` marks the message so
   :func:`message_to_data` rebuilds a ``HeteroData``. Node and edge type
   names must not contain '.' or '__'."""
+  return to_host(hetero_output_tensors(out, x_dict, y_dict))
+
+
+def hetero_output_tensors(out, x_dict=None, y_dict=None) -> dict:
+  """:func:`hetero_output_to_message`'s keys, as tensors where the batch
+  lies."""
   t = {'#META.hetero': torch.tensor(1)}
   for nt, v in out.node.items():
     t[f'node.{nt}'] = _leaf(v)
@@ -155,7 +167,7 @@ def hetero_output_to_message(out, x_dict=None, y_dict=None) -> dict:
   for nt, v in (y_dict or {}).items():
     t[f'y.{nt}'] = _leaf(v)
   _meta(out.metadata, t)
-  return to_host(t)
+  return t
 
 
 def _hetero_message_to_data(msg: dict, conv):

@@ -12,6 +12,7 @@ Run on the card:  python -m graphlearn_tpu_torch.examples.feature_mp
 On the CPU:       ... --device cpu
 """
 import argparse
+import gc
 
 import numpy as np
 
@@ -20,10 +21,16 @@ ROWS = 128
 WIDTH = 128
 
 
-def worker(rank, handle, q):
+def worker(rank, box, q):
+  """``box`` holds the store's handle in a list: the worker empties it
+  when it is done, because the ``Process`` object keeps its arguments
+  until the process ends, and a CUDA IPC handle still referenced then is
+  never released to the producer (torch reports at the producer's exit
+  that it ended before all shared CUDA tensors were released)."""
+  feature = None
   try:
     import graphlearn_tpu_torch as gtt
-    feature = gtt.data.Feature.from_ipc_handle(handle)
+    feature = gtt.data.Feature.from_ipc_handle(box[0])
     assert list(feature.shape) == [ROWS * 3, WIDTH]
     # ids over all three value blocks (the JAX example's lines 31-36)
     ids = np.array([10, 20, 200, 210, 300, 310], np.int64)
@@ -35,6 +42,10 @@ def worker(rank, handle, q):
     q.put((rank, 'ok'))
   except Exception as e:  # report the worker's failure to the parent
     q.put((rank, f'{type(e).__name__}: {e}'))
+  finally:
+    box.clear()
+    del feature
+    gc.collect()
 
 
 def build_feature(device):
@@ -65,7 +76,7 @@ def run(device=None, world_size=WORLD_SIZE, timeout=120):
   handle = feature.share_ipc()
   ctx = mp.get_context('spawn')
   q = ctx.Queue()
-  procs = [ctx.Process(target=worker, args=(r, handle, q))
+  procs = [ctx.Process(target=worker, args=(r, [handle], q))
            for r in range(world_size)]
   for p in procs:
     p.start()

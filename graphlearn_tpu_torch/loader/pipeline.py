@@ -125,9 +125,10 @@ class FusedEpochTrainer:
 
 _DIST_REMOTE_MSG = (
     'scanned/fused distributed epochs are COLLOCATED-MESH only: pass a '
-    'DistNeighborLoader over the training mesh (the multiprocess and '
-    'remote loaders and RemoteScanTrainer come with a later slice, '
-    'ROADMAP queue A item 7)')
+    'DistNeighborLoader over the training mesh. Remote (server-client) '
+    'loaders have their own chunked path: distributed.RemoteScanTrainer, '
+    'where the sampling servers replay the counter-addressed stream into '
+    'K-batch blocks and the client trains one block per chunk')
 
 
 def data_parallel_step(optimizer, loss_fn, shards, mesh):

@@ -133,6 +133,46 @@ class _ChunkGraph(NamedTuple):
   capture_ms: float
 
 
+@contextlib.contextmanager
+def own_stream(stream):
+  """Run on ``stream``, ordered after the work the caller's current
+  stream holds and before what the caller enqueues next."""
+  caller = torch.cuda.current_stream(stream.device)
+  stream.wait_stream(caller)
+  try:
+    with torch.cuda.stream(stream):
+      yield
+  finally:
+    caller.wait_stream(stream)
+
+
+def capture_chunk(stream, body):
+  """Capture ``body()`` into a CUDA graph on ``stream``: ``(graph, its
+  outputs, the launches it recorded, host ms)``. The capture launches
+  nothing, so the launches it counted are taken back (every replay adds
+  them again). The collector does not run inside the capture: a dropped
+  trainer's graph freed there (its reset) invalidates the capture, so
+  garbage goes first and the collector waits until the capture ended."""
+  before = ops.launch_counts()
+  t0 = time.perf_counter()
+  graph = torch.cuda.CUDAGraph()
+  gc.collect()
+  collecting = gc.isenabled()
+  gc.disable()
+  try:
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode='thread_local'):
+      out = body()
+  finally:
+    if collecting:
+      gc.enable()
+  ms = (time.perf_counter() - t0) * 1e3
+  after = ops.launch_counts()
+  launches = {n: after[n] - before[n] for n in after}
+  ops.add_launch_counts({n: -c for n, c in launches.items()})
+  return graph, out, launches, ms
+
+
 def _replay_signature(model, optimizer) -> tuple:
   """What a captured chunk freezes of the train state: the optimizer
   object, the storage of the model's parameters and of each of the
@@ -414,16 +454,10 @@ class ScanTrainer(FusedEpochTrainer):
     if not self.capture:
       yield
       return
-    device = self._device
     if self._stream is None:
-      self._stream = torch.cuda.Stream(device)
-    caller = torch.cuda.current_stream(device)
-    self._stream.wait_stream(caller)
-    try:
-      with torch.cuda.stream(self._stream):
-        yield
-    finally:
-      caller.wait_stream(self._stream)
+      self._stream = torch.cuda.Stream(self._device)
+    with own_stream(self._stream):
+      yield
 
   def _chunk(self, state, seeds, masks, base_key, counter):
     """Steps of one chunk, eagerly: the hop keys from the counter, then
@@ -458,30 +492,11 @@ class ScanTrainer(FusedEpochTrainer):
     return g.losses.clone(), g.accs.clone(), g.ovf.clone(), g.keys
 
   def _capture(self, state, k: int) -> _ChunkGraph:
-    """Capture a ``k``-step chunk over the static buffers. The capture
-    launches nothing, so the launches it counted are taken back and
-    added again by every replay."""
+    """Capture a ``k``-step chunk over the static buffers
+    (:func:`capture_chunk`)."""
     args = {n: (t[:k] if n in _ROWS else t) for n, t in self._static.items()}
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    # the collector must not run inside the capture: a dropped trainer's
-    # graph freed there (its reset) invalidates the capture, so garbage
-    # goes first and the collector waits until the capture ended
-    gc.collect()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-      with torch.cuda.graph(graph, stream=self._stream,
-                            capture_error_mode='thread_local'):
-        out = self._chunk(state, **args)
-    finally:
-      if collecting:
-        gc.enable()
-    ms = (time.perf_counter() - t0) * 1e3
-    after = ops.launch_counts()
-    launches = {n: after[n] - before[n] for n in after}
-    ops.add_launch_counts({n: -c for n, c in launches.items()})
+    graph, out, launches, ms = capture_chunk(
+        self._stream, lambda: self._chunk(state, **args))
     return _ChunkGraph(graph, *out, launches, ms)
 
   # ------------------------------------------------- recovery protocol

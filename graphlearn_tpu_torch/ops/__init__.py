@@ -75,17 +75,21 @@ _COUNTERS = {
 
 
 def launch_counts() -> dict:
-  return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
+  with kernels.COUNT_LOCK:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts():
-  for mod, attr in _COUNTERS.values():
-    setattr(mod, attr, 0)
+  with kernels.COUNT_LOCK:
+    for mod, attr in _COUNTERS.values():
+      setattr(mod, attr, 0)
 
 
 def add_launch_counts(counts: dict):
   """Add ``counts`` (``launch_counts()`` names) to the counters: the
   launches a replayed CUDA graph made, as recorded when it was captured."""
-  for name, n in counts.items():
-    mod, attr = _COUNTERS[name]
-    setattr(mod, attr, getattr(mod, attr) + n)
+  with kernels.COUNT_LOCK:
+    for name, n in counts.items():
+      mod, attr = _COUNTERS[name]
+      setattr(mod, attr, getattr(mod, attr) + n)

@@ -54,5 +54,6 @@ def uniform(key, shape, device=None) -> torch.Tensor:
       key.data_ptr(), n, out.data_ptr(), device.index,
       torch.cuda.current_stream(device).cuda_stream)
   kernels.check(err, 'uniform_draw')
-  launches += 1
+  with kernels.COUNT_LOCK:
+    launches += 1
   return out

@@ -69,7 +69,8 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor):
       table.shape[1] * table.element_size(), table.device.index or 0,
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'gather_rows')
-  launches += 1
+  with kernels.COUNT_LOCK:
+    launches += 1
   return out
 
 
@@ -160,7 +161,8 @@ def gather_rows_unified(hot: torch.Tensor, cold: torch.Tensor,
   kernels.check(err, 'gather_unified')
   if n_cold:
     mapped.mark_used(cold, stream)
-  unified_launches += 1
+  with kernels.COUNT_LOCK:
+    unified_launches += 1
   return out
 
 
@@ -384,7 +386,8 @@ def _gather_runs_launch(table, ids, block_rows, run_span, plan_out=None):
       table.device.index or 0,
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'gather_runs')
-  runs_launches += 1
+  with kernels.COUNT_LOCK:
+    runs_launches += 1
   return out
 
 

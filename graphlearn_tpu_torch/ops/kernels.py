@@ -19,6 +19,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
+# every wrapper adds to its launch counter under this lock: launches come
+# from several threads of one process (a sampling server's RPC threads)
+COUNT_LOCK = threading.Lock()
 BUILD_DIR = _PKG.parent / 'build' / 'torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

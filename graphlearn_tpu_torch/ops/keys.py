@@ -68,7 +68,8 @@ def step_keys(base_key: torch.Tensor, counter: torch.Tensor, n_steps: int,
       out.data_ptr(), dev.index or 0,
       torch.cuda.current_stream(dev).cuda_stream)
   kernels.check(err, 'step_keys')
-  launches += 1
+  with kernels.COUNT_LOCK:
+    launches += 1
   return out
 
 
@@ -95,5 +96,6 @@ def dist_step_keys(base_key: torch.Tensor, counter: torch.Tensor,
       out.data_ptr(), dev.index or 0,
       torch.cuda.current_stream(dev).cuda_stream)
   kernels.check(err, 'dist_step_keys')
-  dist_launches += 1
+  with kernels.COUNT_LOCK:
+    dist_launches += 1
   return out

@@ -112,7 +112,8 @@ def negative_candidates(indptr, sorted_indices, num_src: int, num_dst: int,
       rows.data_ptr(), cols.data_ptr(), valid.data_ptr(), dev.index or 0,
       torch.cuda.current_stream(dev).cuda_stream)
   kernels.check(err, 'negative_sample')
-  launches += 1
+  with kernels.COUNT_LOCK:
+    launches += 1
   return rows, cols, valid
 
 
@@ -226,7 +227,8 @@ def local_candidates(row_ids, indptr_loc, sorted_indices, num_dst: int,
       cols.data_ptr(), valid.data_ptr(), owned.data_ptr(), dev.index or 0,
       torch.cuda.current_stream(dev).cuda_stream)
   kernels.check(err, 'negative_sample_local')
-  local_launches += 1
+  with kernels.COUNT_LOCK:
+    local_launches += 1
   return u, cols, valid, owned
 
 

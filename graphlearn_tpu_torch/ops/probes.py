@@ -84,9 +84,11 @@ def row_gather_probe(table: torch.Tensor, ids: torch.Tensor):
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'row_gather_probe')
   if bulk:
-    row_gather_bulk_launches += 1
+    with kernels.COUNT_LOCK:
+      row_gather_bulk_launches += 1
   else:
-    row_gather_vector_launches += 1
+    with kernels.COUNT_LOCK:
+      row_gather_vector_launches += 1
   return out
 
 
@@ -145,5 +147,6 @@ def smem_take(table: torch.Tensor, idx: torch.Tensor,
       idx.numel(), cluster, table.device.index or 0,
       torch.cuda.current_stream(table.device).cuda_stream)
   kernels.check(err, 'smem_take')
-  smem_take_launches += 1
+  with kernels.COUNT_LOCK:
+    smem_take_launches += 1
   return out

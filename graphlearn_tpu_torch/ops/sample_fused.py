@@ -122,7 +122,8 @@ def sample_hop_fused(indptr, indices, blocks128, seeds, seed_mask, k: int,
       indices.data_ptr(), indices.shape[0], key.data_ptr(), b, k,
       nbrs.data_ptr(), epos.data_ptr(), mask.data_ptr(), *_stream(dev))
   kernels.check(err, 'sample_hop')
-  launches += 1
+  with kernels.COUNT_LOCK:
+    launches += 1
   return nbrs, epos, mask
 
 
@@ -207,7 +208,8 @@ class LevelScratch:
         state.nodes.data_ptr(), min(prefix_len, self.capacity),
         state.num_nodes.data_ptr(), *_stream(self.device))
     kernels.check(err, 'sample_level begin')
-    level_launches += 1
+    with kernels.COUNT_LOCK:
+      level_launches += 1
     return self
 
 
@@ -301,7 +303,8 @@ def sample_level_fused(indptr, indices, blocks128, seeds, seed_mask, k: int,
       frontier.data_ptr(), fidx.data_ptr(), fmask.data_ptr(),
       counts.data_ptr(), *_stream(dev))
   kernels.check(err, 'sample_level')
-  level_launches += 3
+  with kernels.COUNT_LOCK:
+    level_launches += 3
   out = dict(rows=erows, cols=cols, edge_mask=emask, frontier=frontier,
              frontier_idx=fidx, frontier_mask=fmask, num_new=counts[0])
   return MergeInducerState(state.nodes, counts[1], state.sorted_ids,

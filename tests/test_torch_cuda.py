@@ -77,7 +77,14 @@ stack: spawned sampling workers on the card (the dataset shared by CUDA
 IPC) against the parent's sampler at each worker's seed, their launch
 counts through ``worker_metrics()``, and a card batch through
 ``output_to_message`` -> ``ShmChannel`` -> ``message_to_data`` bit for
-bit.
+bit, and the spawned ``feature_mp`` example's stderr free of torch's
+report of unreleased CUDA IPC handles; and the chunk-staged remote scan:
+a captured ``RemoteScanTrainer`` epoch against an eager one from a
+common state at each chunk start (one upload a chunk, the first chunk
+eager, then one replay a chunk), a replayed epoch with no host sync, the
+remote stager's pinned slot not refilled before its copy's event, and
+block frames built on a server's RPC threads from eight client threads
+with the launch counters exact.
 """
 import contextlib
 import copy
@@ -1551,6 +1558,25 @@ def test_feature_mp_two_workers_on_card(cuda):
   assert feature_mp.run(cuda, timeout=300) == [(0, 'ok'), (1, 'ok')]
 
 
+def test_feature_mp_ends_with_every_ipc_handle_released(cuda):
+  """The spawned ``feature_mp`` example in a child interpreter: its
+  workers drop the store's CUDA IPC handle before they exit (the Process
+  object keeps its arguments until then), so torch never reports that
+  the producer ended before its shared CUDA tensors were released."""
+  import os
+  import subprocess
+  import sys
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  proc = subprocess.run(
+      [sys.executable, '-m', 'graphlearn_tpu_torch.examples.feature_mp'],
+      capture_output=True, text=True, timeout=300,
+      env=dict(os.environ, PYTHONPATH=root))
+  assert proc.returncode == 0, proc.stderr[-3000:]
+  assert 'feature_mp OK' in proc.stdout
+  assert 'shared CUDA tensors released' not in proc.stderr, \
+      proc.stderr[-3000:]
+
+
 @pytest.mark.parametrize('dedup', ['tree', 'auto'])
 def test_hot_cold_loader_on_card_matches_cpu(cuda, dedup):
   """NeighborLoader batches over a hot/cold store: the same batches as
@@ -2590,3 +2616,206 @@ def test_mp_producer_ends_with_every_ipc_handle_released(cuda, tmp_path,
   assert 'batches' in proc.stdout
   assert 'shared CUDA tensors released' not in proc.stderr, \
       proc.stderr[-3000:]
+
+
+# ---- the chunk-staged remote scan
+
+_RSCAN_HANDLERS = ('create_block_producer', 'block_producer_num_batches',
+                   'block_produce', 'block_fetch', 'destroy_block_producer',
+                   'block_build_log', 'heartbeat', 'get_metrics', 'exit')
+
+
+@contextlib.contextmanager
+def _rscan_server(ds):
+  """A ``DistServer`` over ``ds`` behind an ``RpcServer`` in this process,
+  the port's client connected to it."""
+  from graphlearn_tpu_torch.distributed import dist_client
+  srv = gtt.distributed.DistServer(ds)
+  rpc = gtt.distributed.RpcServer(
+      handlers={h: getattr(srv, h) for h in _RSCAN_HANDLERS})
+  gtt.distributed.init_client(1, 1, 0, [(rpc.host, rpc.port)])
+  try:
+    yield srv
+  finally:
+    if dist_client._client is not None:
+      dist_client._client.close()
+      dist_client._client = None
+    srv.exit()
+    rpc.shutdown()
+
+
+def _rscan_model(cuda, b, fan, seed=0):
+  no, eo = gtt.models.merge_hop_offsets(b, fan)
+  return gtt.models.GraphSAGE(
+      24, 16, 5, num_layers=len(fan), hop_node_offsets=no,
+      hop_edge_offsets=eo, merge_dense=True, fanouts=fan, device=cuda,
+      generator=torch.Generator().manual_seed(seed))
+
+
+def _rscan_tensors(model, state):
+  ps = list(model.parameters())
+  return ps + [v for p in ps for v in state.optimizer.state[p].values()
+               if torch.is_tensor(v)]
+
+
+def test_remote_scan_captured_chunk_equals_eager(cuda):
+  """A captured ``RemoteScanTrainer`` epoch (5 steps at K = 2: chunks of
+  2, 2 and a tail of 1) taking up an eager trainer's parameters and Adam
+  state at each chunk start (merge training is chaotic on the card, so
+  the chunks start from a common state): its chunk losses within rtol
+  1e-4 of the eager ones; the first chunk eager (the warm-up), then one
+  upload a chunk and one replay for each later chunk, graphs of lengths
+  2 and 1."""
+  from graphlearn_tpu_torch.models import train
+  ds = _remote_small(cuda)
+  b, fan = 64, [5, 3]
+  seeds = np.arange(0, 3000, 7)[:5 * b]
+  opts = gtt.distributed.RemoteDistSamplingWorkerOptions(server_rank=0)
+  with _rscan_server(ds):
+    start = _rscan_model(cuda, b, fan).state_dict()
+    trainers = []
+    for capture in (False, True):
+      m = _rscan_model(cuda, b, fan)
+      m.load_state_dict(start)
+      trainers.append(gtt.distributed.RemoteScanTrainer(
+          fan, seeds, m, 5, batch_size=b, chunk_size=2, worker_options=opts,
+          seed=1, device=cuda, capture=capture))
+    eag, cap = trainers
+    assert cap.capture and not eag.capture
+    se = train.create_train_state(eag.model)
+    sc = train.create_train_state(cap.model)
+    boundary = {}
+    eag.stage_hook = lambda c, s, k: boundary.__setitem__(
+        c, [t.detach().clone() for t in _rscan_tensors(eag.model, se)])
+
+    def take(c, s, k):
+      mine = _rscan_tensors(cap.model, sc)
+      if len(mine) == len(boundary[c]):
+        with torch.no_grad():
+          torch._foreach_copy_(mine, boundary[c])
+    cap.stage_hook = take
+    try:
+      se, le, _ = eag.run_epoch(se)
+      sc, lc, _ = cap.run_epoch(sc)
+      torch.cuda.synchronize()
+      torch.testing.assert_close(lc, le, rtol=1e-4, atol=0)
+      assert (cap.uploads, cap.replays) == (3, 2)
+      assert (eag.uploads, eag.replays) == (3, 0)
+      assert sorted(cap._graphs) == [1, 2]
+      assert all(ok for _, ok in cap._stager.refills)
+      assert cap._stager.slot_bytes == 2 * cap._layout.nbytes
+      timings = cap.chunk_timings()
+      assert [t['k'] for t in timings] == [2, 2, 1]
+      assert all(t['upload_ms'] is not None and t['device_ms'] > 0
+                 for t in timings)
+    finally:
+      for t in trainers:
+        t.shutdown()
+        t.drop_graphs()
+
+
+def test_remote_scan_replayed_epoch_makes_no_host_sync(cuda):
+  """A second captured epoch is one upload and one replay a chunk, with
+  no host sync in it (its frames produced on the server beforehand, so
+  the in-process server's own copies lie outside the window); its
+  losses equal an eager trainer's from the same weights within rtol
+  1e-4 after the eager epoch took up the captured state."""
+  from graphlearn_tpu_torch.models import train
+  ds = _remote_small(cuda)
+  b, fan = 64, [5, 3]
+  seeds = np.arange(1, 3000, 7)[:5 * b]
+  opts = gtt.distributed.RemoteDistSamplingWorkerOptions(server_rank=0)
+  with _rscan_server(ds):
+    cap = gtt.distributed.RemoteScanTrainer(
+        fan, seeds, _rscan_model(cuda, b, fan), 5, batch_size=b,
+        chunk_size=2, worker_options=opts, seed=2, device=cuda)
+    try:
+      state = train.create_train_state(cap.model)
+      state, _, _ = cap.run_epoch(state)
+      (st,) = cap._streams
+      for start, k in ((0, 2), (2, 2), (4, 1)):
+        gtt.distributed.request_server(0, 'block_produce', st['pid'], 1,
+                                       start, k)
+      torch.cuda.synchronize()
+      with _no_sync_allowed():
+        state, losses, accs = cap.run_epoch(state)
+      torch.cuda.synchronize()
+      assert (cap.uploads, cap.replays) == (3, 3)
+      assert losses.shape == accs.shape == (5,)
+      assert bool(torch.isfinite(losses).all())
+      assert state.step == 10
+    finally:
+      cap.shutdown()
+      cap.drop_graphs()
+
+
+def test_remote_stager_slot_waits_for_its_copy_event(cuda):
+  """H7a for the remote stager: a slot copied to the device behind a
+  long kernel and acked with the copy's event is not refilled until the
+  event completed, and the device copy holds the first frame's bytes."""
+  frames = {c: dict(v=np.full((4, 1000), c + 1, np.float32))
+            for c in range(3)}
+
+  def pack(frame, buf):
+    buf.numpy().view(np.float32)[:4000] = frame['v'].reshape(-1)
+    return {}
+
+  stager = gtt.distributed.RemoteBlockStager(
+      frames.__getitem__, max_ahead=1, timeout_s=30.0, pack_fn=pack,
+      slot_bytes_fn=lambda f: 16000, pin=True)
+  stager.begin_epoch(3)
+  slab0 = stager.take(0)
+  buf = slab0.slot.buf
+  assert buf.is_pinned() and stager.slot_bytes == 16000
+  dst = torch.empty(buf.shape, dtype=torch.uint8, device=cuda)
+  torch.cuda._sleep(2_000_000_000)           # ~1 s of spin ahead of it
+  dst.copy_(buf, non_blocking=True)
+  ev = torch.cuda.Event()
+  ev.record()
+  stager.ack(0, ev)                          # submits chunk 1 (slot 0)
+  time.sleep(0.2)
+  assert not ev.query() and not stager.has_frame(1)
+  slab1 = stager.take(1)                     # packed once the event is done
+  assert ev.query() and not stager.degraded
+  assert slab1.slot.buf.data_ptr() == buf.data_ptr()
+  torch.cuda.synchronize()
+  got = dst.cpu().numpy().view(np.float32)
+  assert (got == 1).all()
+  assert (buf.numpy().view(np.float32) == 2).all()
+  assert stager.refills == [(0, True), (1, True)]
+  stager.close()
+
+
+def test_server_block_launch_counts_from_rpc_threads(cuda):
+  """Block frames built on the server's RPC threads, from eight client
+  threads at once over four streams: the launch counters stay exact
+  (K4 three a level and one a batch, K1 one a batch) and every frame
+  equals the same block built alone."""
+  import concurrent.futures
+
+  from graphlearn_tpu_torch.sampler import SamplingConfig, SamplingType
+  ds = _remote_small(cuda)
+  b, fan = 32, [4, 3]
+  cfg = SamplingConfig(SamplingType.NODE, fan, b, False, False, False, True,
+                       False, False, 'out', 3)
+  with _rscan_server(ds) as srv:
+    pids = [gtt.distributed.request_server(
+        0, 'create_block_producer', np.arange(s, 3000, 5)[:6 * b], cfg,
+        None) for s in range(4)]
+    blocks = [(pid, start) for pid in pids for start in range(0, 6, 2)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+      got = list(pool.map(
+          lambda pb: gtt.distributed.request_server(
+              0, 'block_fetch', pb[0], 0, pb[1], 2), blocks))
+    counts = ops.launch_counts()
+    batches = 2 * len(blocks)
+    assert counts['sample_level'] == batches * (3 * len(fan) + 1)
+    assert counts['gather_rows'] == batches
+    assert counts['sample_hop'] == 0
+    for (pid, start), frame in zip(blocks, got):
+      alone = srv._block_producers[pid].build_frame(0, start, 2)
+      assert sorted(alone) == sorted(frame)
+      for k in frame:
+        np.testing.assert_array_equal(frame[k], alone[k], err_msg=k)

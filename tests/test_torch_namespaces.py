@@ -27,9 +27,6 @@ BLOCKS128 = ('blocks128 is refused: the port reads the flat indices, so '
              "the TPU's 128-lane layout has no counterpart")
 TRACING = 'the JAX tracing hooks: queue A item 8 (metrics, trace, strict)'
 JAX_ONLY = 'JAX-only: compilation cache, jax device placement, shard_map'
-REMOTE_SCAN = ('the chunk-staged remote scan (block producers, '
-               'RemoteScanTrainer): ROADMAP queue A item 7')
-TENANCY = 'multi-tenancy (tenancy.py): ROADMAP queue A item 7'
 TUNE = 'tune/: ROADMAP queue A item 8'
 
 ABSENT = {
@@ -69,14 +66,6 @@ for _n in ('DispatchCounter', 'active_profile_dir', 'annotate',
 for _n in ('shard_map', 'enable_compilation_cache', 'ensure_device',
            'get_available_device', 'global_device_put'):
   ABSENT[('utils', _n)] = JAX_ONLY
-for _n in ('PRIORITY_CLASSES', 'AdmissionController', 'TenancyConfig',
-           'TenantQuotaExceeded', 'TenantRejection', 'TenantSpec',
-           'TenantStarvedError', 'TenantThrottled', 'WeightedFairScheduler',
-           'with_backpressure'):
-  ABSENT[('distributed', _n)] = TENANCY
-for _n in ('BlockSampleProducer', 'block_mb_per_chunk',
-           'stack_block_frames', 'RemoteBlockStager', 'RemoteScanTrainer'):
-  ABSENT[('distributed', _n)] = REMOTE_SCAN
 
 
 def _jax_file(name):
@@ -146,7 +135,9 @@ def test_compared_set_covers_the_new_namespaces():
                'distributed.dist_sampling_producer', 'distributed.message',
                'distributed.rpc', 'distributed.resilience',
                'distributed.event_loop', 'distributed.dist_server',
-               'distributed.dist_client', 'channel', 'channel.base',
+               'distributed.dist_client', 'distributed.tenancy',
+               'distributed.block_producer', 'distributed.remote_scan',
+               'channel', 'channel.base',
                'channel.shm_channel', 'channel.mp_channel',
                'channel.remote_channel', 'utils.faults', 'utils.trace',
                'utils.build',

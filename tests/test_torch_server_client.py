@@ -42,8 +42,8 @@ def server():
   process; the client is connected, and both are shut down after."""
   started = []
 
-  def start(ds):
-    host, port = gdist.init_server(1, 1, 0, ds)
+  def start(ds, **kw):
+    host, port = gdist.init_server(1, 1, 0, ds, **kw)
     gdist.init_client(1, 1, 0, [(host, port)])
     started.append(True)
     return host, port
@@ -302,22 +302,33 @@ def test_server_client_link_end_to_end(server):
 
 
 def test_next_slice_names_are_refused(server):
-  """Multi-tenancy and the chunk-staged block producers come with the
-  next slice: they raise NotImplementedError naming it, locally and
-  over the wire."""
-  _, ds, _, _ = datasets()
-  with pytest.raises(NotImplementedError, match='remote scan'):
-    gdist.DistServer(ds, tenancy=object())
-  server(ds)
-  with pytest.raises(RuntimeError, match='NotImplementedError.*remote scan'):
-    gdist.request_server(0, 'create_block_producer', np.arange(4), None)
-  with pytest.raises(RuntimeError, match='NotImplementedError'):
-    gdist.request_server(0, 'block_fetch', 0, 0, 0, 1)
+  """What the remote-scan slice brought is no longer refused: a server
+  with ``tenancy=``, the block producers' RPCs over the wire and a
+  remote loader's ``tenant=`` are served (``test_torch_tenancy.py`` and
+  ``test_torch_remote_scan.py`` hold them against JAX)."""
+  from graphlearn_tpu_torch.sampler import SamplingConfig, SamplingType
+  _, ds, feat, _ = datasets()
+  assert gdist.DistServer(ds, tenancy=gdist.TenancyConfig()).exit()
+  server(ds, tenancy=gdist.TenancyConfig())
+  cfg = SamplingConfig(SamplingType.NODE, [2], 4, False, False, False,
+                       True, False, False, 'out', 0)
+  pid = gdist.request_server(0, 'create_block_producer', np.arange(8), cfg,
+                             None)
+  assert gdist.request_server(0, 'block_producer_num_batches', pid) == 2
+  frame = gdist.request_server(0, 'block_fetch', pid, 0, 0, 1)
+  assert frame['x'].shape[0] == 1 and int(frame['#META.num_batches']) == 1
+  np.testing.assert_array_equal(
+      frame['x'][0], feat[np.maximum(frame['node'][0], 0)])
+  assert gdist.request_server(0, 'destroy_block_producer', pid)
   opts = gdist.RemoteDistSamplingWorkerOptions(server_rank=0,
                                                tenant='interactive')
-  with pytest.raises(NotImplementedError, match='tenant'):
-    gdist.RemoteDistNeighborLoader([2], np.arange(8), worker_options=opts,
-                                   device='cpu')
+  loader = gdist.RemoteDistNeighborLoader([2], np.arange(8),
+                                          worker_options=opts,
+                                          device='cpu')
+  try:
+    assert sum(1 for _ in loader) == len(loader) == 1
+  finally:
+    loader.shutdown()
 
 
 @pytest.mark.parametrize('seed', [0, 7, 2 ** 32, 2 * 7919 * 1000003 + 1,

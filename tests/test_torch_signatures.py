@@ -71,6 +71,16 @@ EXTRA_PARAMS = {
     ('RemoteDistNeighborLoader', 'device'): 'where the batches go',
     ('RemoteDistLinkNeighborLoader', 'device'): 'where the batches go',
     ('message_to_data', 'device'): 'where the batch is uploaded',
+    # where the model trains (the card unless the caller asks for the
+    # CPU), then a CUDA graph per chunk length, as the port's ScanTrainer
+    ('RemoteScanTrainer', 'device'): 'where the model trains',
+    ('RemoteScanTrainer', 'capture'): 'captured chunks (ScanTrainer)',
+    # the stager packs each frame into a pinned slot, made once
+    ('RemoteBlockStager', 'pack_fn'): 'packs a frame into a slot',
+    ('RemoteBlockStager', 'slot_bytes_fn'): 'sizes the slots once',
+    ('RemoteBlockStager', 'pin'): 'pinned slots on a card',
+    # a slot is handed back once its upload's event completed
+    ('RemoteBlockStager.ack', 'event'): 'the upload\'s CUDA event',
 }
 MISSING_PARAMS = {
     # kernels route by device in the port (ROADMAP, deliberate divergences)
@@ -87,6 +97,8 @@ MISSING_PARAMS = {
     ('DistScanTrainer', 'config'): 'tune/: item 8',
     ('TieredDistScanTrainer', 'tx'): 'Adam is in TrainState',
     ('TieredDistScanTrainer', 'config'): 'tune/: item 8',
+    ('RemoteScanTrainer', 'tx'): 'Adam is in TrainState',
+    ('RemoteScanTrainer', 'config'): 'tune/: item 8',
 }
 # (qualified name, parameter) -> why the default differs
 OTHER_DEFAULTS = {
@@ -97,6 +109,7 @@ OTHER_DEFAULTS = {
     ('TieredScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
     ('DistScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
     ('TieredDistScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
+    ('RemoteScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
 }
 MISSING_MEMBERS = {
     # a group of more than one device is refused until the distributed
@@ -138,10 +151,11 @@ def assert_same_signature(qual, jfn, tfn):
       assert not _same_default(jdef, tdef), (qual, name)
       continue
     assert _same_default(jdef, tdef), (qual, name, jdef, tdef)
-  for (q, name) in EXTRA_PARAMS:
-    if q == qual:
-      tall = [p[0] for p in _params(tfn)]
-      assert tall[-1] == name, (qual, 'an extra parameter goes last')
+  extras = [name for (q, name) in EXTRA_PARAMS if q == qual]
+  if extras:
+    tall = [p[0] for p in _params(tfn)]
+    assert tall[-len(extras):] == extras, \
+        (qual, 'the extra parameters go last, in their listed order')
 
 
 def _public(mod):
@@ -711,5 +725,38 @@ def test_remote_stack_class_signatures(mod, name):
 
 @pytest.mark.parametrize('mod,name', REMOTE_FUNCTIONS)
 def test_remote_stack_function_signatures(mod, name):
+  assert_same_signature(name, _remote_attr(glt, f'{mod}:{name}'),
+                        _remote_attr(gtt, f'{mod}:{name}'))
+
+
+REMOTE_SCAN_CLASSES = [
+    ('distributed', 'RemoteScanTrainer'), ('distributed', 'RemoteBlockStager'),
+    ('distributed', 'BlockSampleProducer'), ('distributed', 'TenantSpec'),
+    ('distributed', 'TenancyConfig'), ('distributed', 'TenantRejection'),
+    ('distributed', 'TenantQuotaExceeded'), ('distributed', 'TenantThrottled'),
+    ('distributed', 'TenantStarvedError'),
+    ('distributed', 'AdmissionController'),
+    ('distributed', 'WeightedFairScheduler'),
+]
+REMOTE_SCAN_FUNCTIONS = [
+    ('distributed', 'stack_block_frames'), ('distributed', 'block_mb_per_chunk'),
+    ('distributed', 'with_backpressure'),
+    ('distributed.block_producer', '_pad_pow2_axis0'),
+]
+
+
+@pytest.mark.parametrize('mod,name', REMOTE_SCAN_CLASSES)
+def test_remote_scan_class_signatures(mod, name):
+  """The chunk-staged remote scan and the tenancy plane: their classes
+  and public methods (``RemoteScanTrainer`` without ``tx`` or
+  ``config=``, with ``device=`` and ``capture=`` last; the stager's
+  slot packing; ``TenantSpec`` and ``TenancyConfig`` as JAX's
+  dataclasses)."""
+  _compare_class(name, _remote_attr(glt, f'{mod}:{name}'),
+                 _remote_attr(gtt, f'{mod}:{name}'))
+
+
+@pytest.mark.parametrize('mod,name', REMOTE_SCAN_FUNCTIONS)
+def test_remote_scan_function_signatures(mod, name):
   assert_same_signature(name, _remote_attr(glt, f'{mod}:{name}'),
                         _remote_attr(gtt, f'{mod}:{name}'))
