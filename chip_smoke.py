@@ -435,6 +435,7 @@ of those; no result line; exit code 3).
 """
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -2820,6 +2821,366 @@ def program_phase(torch, gtt, ds, device, mode, caps, pool, steps, smi,
 # hop). The hops of block (two draws from a split key), padded and
 # weighted sampling draw through csrc/uniform_draw.cu; node_budget's and
 # bf16's uniform hops take the hop (tree) or level (merge) kernel.
+OBS_STEPS = 20          # an epoch's steps: chunks of OBS_CHUNK, 8 and a tail
+OBS_CHUNK = 8           # K: two chunk lengths (8 and 4), one capture each
+OBS_REPS = 3            # timed epochs with recording on, and as many off
+# the remote requests, (start, k) blocks: a K = 2 block, the tail block,
+# then a block of the tail's size again (its host buffers seen before)
+OBS_BLOCKS = ((0, 2), (2, 1), (1, 1))
+
+
+@contextlib.contextmanager
+def env_set(env: dict, on: bool = True):
+  """``env``'s variables set (``on``) or unset inside the block, then
+  restored."""
+  old = {k: os.environ.pop(k, None) for k in env}
+  if on:
+    os.environ.update(env)
+  try:
+    yield
+  finally:
+    for k, v in old.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+
+
+def obs_records(torch, trainer, state, epochs, env):
+  """``epochs`` epochs of ``trainer`` with the flight and span logs of
+  ``env`` on and a dispatch region open; per epoch the graph replays
+  (``torch.cuda.CUDAGraph.replay`` calls) counted beside them. Returns
+  ``(state, replays per epoch)``."""
+  from graphlearn_tpu_torch.utils import trace
+  graph_cls = torch.cuda.CUDAGraph if torch.cuda.is_available() else None
+  replays = [0]
+  if graph_cls is not None:
+    plain = graph_cls.replay
+
+    def counted(self):
+      replays[0] += 1
+      return plain(self)
+
+    graph_cls.replay = counted
+  per_epoch = []
+  try:
+    with env_set(env), trace.count_dispatches():
+      for _ in range(epochs):
+        replays[0] = 0
+        state = trainer.run_epoch(state)[0]
+        per_epoch.append(replays[0])
+  finally:
+    if graph_cls is not None:
+      graph_cls.replay = plain
+  return state, per_epoch
+
+
+def obs_epoch_ms(torch, trainer, state, device, env, on: bool):
+  """One epoch's ms on the card (CUDA events), recording on or off."""
+  from graphlearn_tpu_torch.utils import trace
+  cuda = device.type == 'cuda'
+  with env_set(env, on), (trace.count_dispatches() if on
+                          else contextlib.nullcontext()):
+    a = _event(torch, cuda)
+    state = trainer.run_epoch(state)[0]
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+  return state, _span(a, b, cuda)
+
+
+def obs_trainer(torch, gtt, ds, device, mode, caps, pool, chunk):
+  from graphlearn_tpu_torch.models import train
+  loader = make_loader(gtt, ds, pool, device, mode, caps)
+  model, _ = make_model(torch, gtt, loader, device, 0)
+  model.train()
+  state = train.create_train_state(model, lr=LR)
+  return gtt.loader.ScanTrainer(loader, model, CLASSES,
+                                chunk_size=chunk), state
+
+
+def obs_profile_chunk(torch, trainer, state, device, tmp, label):
+  """``utils.trace.profile_trace`` over one chunk replayed on its own
+  (an epoch of one chunk's steps: the prologue and one replay), and
+  ``utils.trace.device_op_ms`` over its Chrome trace: the port's kernels
+  the trace shows, counted as ``ops.launch_counts()`` counts them in the
+  same window. The profiler can lose a window's first device records
+  (C6): the window idles PROFILE_LEAD_S first, and one that disagrees is
+  recorded again, at most PROFILE_EMPTY_RETRIES times."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.utils import trace
+  cuda = device.type == 'cuda'
+  for attempt in range(PROFILE_EMPTY_RETRIES + 1):
+    out = os.path.join(tmp, f'profile_{label}_{attempt}')
+    ops.reset_launch_counts()
+    with trace.profile_trace(out):
+      time.sleep(PROFILE_LEAD_S if cuda else 0)
+      state = trainer.run_epoch(state, max_steps=trainer.chunk_size)[0]
+    counted = {k: v for k, v in ops.launch_counts().items()
+               if k in PORT_KERNELS}
+    op_ms = trace.device_op_ms(out)
+    seen = kernel_counts({n: c for n, (_, c) in op_ms.items()})
+    if seen == counted or not cuda:
+      break
+    log(f'observability {label}: profile_trace saw {seen} against the '
+        f'counters {counted}; recording the window again')
+  top = sorted(op_ms.items(), key=lambda kv: -kv[1][0])[:4]
+  return state, dict(kernels=seen, launch_counters=counted,
+                     device_ops=sum(c for _, c in op_ms.values()),
+                     top_ms={k[:60]: v[0] for k, v in top},
+                     attempts=attempt + 1)
+
+
+def obs_remote_tree(ds, device, pool, env):
+  """One remote request a block: a loopback ``DistServer`` in this
+  process holds ``ds``; under a fresh trace id the client fetches each of
+  OBS_BLOCKS (merge, uncalibrated, [15, 10, 5] x BATCH a batch), and the
+  request is read back from ``metrics.scrape_all()`` plus the local ring
+  and the span log by its id alone: one tree, rpc.client.request ->
+  rpc.server.handle -> remote.block_stage, with the build's phase ms in
+  the block span."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.distributed import dist_client
+  from graphlearn_tpu_torch.sampler import SamplingConfig, SamplingType
+  srv = gdist.DistServer(ds)
+  names = ('create_block_producer', 'block_fetch', 'destroy_block_producer',
+           'get_metrics', 'heartbeat', 'exit')
+  rpc = gdist.RpcServer(handlers={h: getattr(srv, h) for h in names})
+  gdist.init_client(1, 1, 0, [(rpc.host, rpc.port)])
+  out = []
+  try:
+    cfg = SamplingConfig(SamplingType.NODE, FANOUTS, BATCH, False, False,
+                         False, True, False, False, 'out', 0)
+    pid = gdist.request_server(0, 'create_block_producer', pool, cfg,
+                               None, idempotent=True)
+    for start, k in OBS_BLOCKS:
+      with env_set(env):
+        out.append(obs_block_request(env, pid, start, k))
+    gdist.request_server(0, 'destroy_block_producer', pid)
+  finally:
+    if dist_client._client is not None:
+      dist_client._client.close()
+      dist_client._client = None
+    srv.exit()
+    rpc.shutdown()
+  return out
+
+
+def obs_block_request(env, pid, start, k):
+  """One block fetch under a fresh trace id, read back as one span tree
+  (see :func:`obs_remote_tree`): its sizes and span durations."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch import metrics
+  from graphlearn_tpu_torch.metrics import logcheck, spans
+  with spans.new_trace() as req:
+    t0 = time.perf_counter()
+    frame = gdist.request_server(0, 'block_fetch', pid, 0, start, k,
+                                 idempotent=True)
+    wall = (time.perf_counter() - t0) * 1e3
+  nbytes = sum(int(np.asarray(v).nbytes) for v in frame.values())
+  del frame
+  scr = metrics.scrape_all(timeout=30.0)
+  rows = spans.dedupe(spans.from_scrape(scr, trace=req) +
+                      spans.export(trace=req) +
+                      [r for r in spans.read_log(env['GLT_SPAN_LOG'])
+                       if r['trace'] == req])
+  tree = spans.build_tree(rows)
+  if tree['orphans'] or len(tree['roots']) != 1:
+    raise AssertionError(f'observability: block ({start}, {k}) read '
+                         f'back as {tree["roots"]} roots, orphans '
+                         f'{tree["orphans"]}')
+  root = tree['spans'][tree['roots'][0]]
+  kids = [tree['spans'][c] for c in tree['children'].get(root['span'],
+                                                           ())]
+  handle = [r for r in kids if r['name'] == 'rpc.server.handle']
+  stage = ([tree['spans'][c] for c in
+            tree['children'].get(handle[0]['span'], ())]
+           if len(handle) == 1 else [])
+  if root['name'] != 'rpc.client.request' or len(handle) != 1 or \
+      [r['name'] for r in stage] != ['remote.block_stage']:
+    raise AssertionError(f'observability: the request tree is '
+                         f'{[(r["name"], r["parent"]) for r in rows]}')
+  for r in rows:
+    if logcheck.validate_span(r):
+      raise AssertionError(logcheck.validate_span(r))
+  a = stage[0]['attrs']
+  return dict(start=start, k=k, bytes=nbytes, client_wall_ms=wall,
+              client_ms=root['dur_ms'], handle_ms=handle[0]['dur_ms'],
+              build_ms=stage[0]['dur_ms'], sample_ms=a['sample_ms'],
+              pack_ms=a['pack_ms'], d2h_ms=a['d2h_ms'], scraped=len(scr))
+
+
+def observability_phase(torch, gtt, ds, device, caps, smi):
+  """The observability layer on the card at the train phase's width: the
+  captured ``ScanTrainer`` (tree and merge; K1, K3, K4 and the step keys)
+  over OBS_STEPS steps of BATCH seeds, K = OBS_CHUNK.
+
+  - Two epochs with ``GLT_RUN_LOG`` and ``GLT_SPAN_LOG`` set to temp
+    files, under ``count_dispatches``: every record passes the port's
+    logcheck; epoch 1's ``programs`` delta is one capture per chunk
+    length (8 and 4), epoch 2's none; each epoch's ``scan_chunk``
+    dispatches equal its chunks, and epoch 2's equal its graph replays;
+    each epoch's ``epoch.chunk`` spans nest under its ``epoch.run``.
+  - A replayed epoch with recording on under
+    ``torch.cuda.set_sync_debug_mode('error')``: a host sync raises. The
+    merge loader's epoch-end overflow guard reads one flag (its own
+    sync, recording off as well): that epoch is counted instead, with
+    recording on and off, and the counts must be equal.
+  - ms per step with recording on and off (CUDA events; the median of
+    OBS_REPS epochs each, alternating). No bound on time.
+  - ``profile_trace`` of one replayed chunk: ``device_op_ms`` counts the
+    port's kernels as ``ops.launch_counts()`` does.
+  - One remote request a block through a loopback ``DistServer``, read
+    back from ``scrape_all()`` plus the local ring as one span tree
+    (:func:`obs_remote_tree`): where a block's time goes (the build's
+    sampling, packing and host copy against the handler and the client's
+    round trip: PERF.md §7's tail-block question)."""
+  import tempfile
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.metrics import flight, logcheck, spans
+  from graphlearn_tpu_torch.utils import trace
+  cuda = device.type == 'cuda'
+  n = ds.graph.topo.num_nodes
+  steps = OBS_STEPS if cuda else 3
+  chunk = OBS_CHUNK if cuda else 2
+  pool = np.random.default_rng(31).permutation(n)[:BATCH * steps]
+  tmp = tempfile.mkdtemp(prefix='glt_obs_')
+
+  def logs(name):
+    return dict(GLT_RUN_LOG=os.path.join(tmp, f'run_{name}.jsonl'),
+                GLT_SPAN_LOG=os.path.join(tmp, f'spans_{name}.jsonl'))
+
+  lengths = sorted({min(chunk, steps - s) for s in range(0, steps, chunk)})
+  n_chunks = -(-steps // chunk)
+  rep = dict(steps=steps, chunk=chunk, chunk_lengths=lengths, modes={},
+             launch_runs=[])
+  for mode in ('tree', 'merge'):
+    env = logs(mode)
+    trainer, state = obs_trainer(torch, gtt, ds, device, mode, caps, pool,
+                                 chunk)
+    spans.reset()
+    ops.reset_launch_counts()
+    state, replays = obs_records(torch, trainer, state, 2, env)
+    counts = ops.launch_counts()
+    rep['launch_runs'].append(counts)
+    recs = [r for r in flight.read_records(env['GLT_RUN_LOG'])
+            if r['emitter'] == 'ScanTrainer'][-2:]
+    problems = (logcheck.check_file(env['GLT_RUN_LOG']) +
+                logcheck.check_file(env['GLT_SPAN_LOG']))
+    if problems or len(recs) != 2:
+      raise AssertionError(f'observability {mode}: {len(recs)} records, '
+                           f'logcheck {problems[:4]}')
+    progs = [r['programs'].get('scan_chunk', {}) for r in recs]
+    want_caps = len(lengths) if cuda else 0
+    if progs[0].get('compiles', 0) != want_caps or \
+        progs[1].get('compiles', 0) != 0:
+      raise AssertionError(f'observability {mode}: programs deltas '
+                           f'{progs}, expected {want_caps} captures then 0')
+    for r in recs:
+      d = r['dispatch']
+      if d['scan_chunk'] != n_chunks or \
+          r['programs']['scan_chunk']['dispatches'] != n_chunks:
+        raise AssertionError(f'observability {mode}: dispatch {d}, '
+                             f'programs {r["programs"]}')
+    if cuda and (replays[1] != n_chunks or replays[0] != n_chunks - 1):
+      raise AssertionError(f'observability {mode}: graph replays '
+                           f'{replays}, expected {n_chunks - 1} then '
+                           f'{n_chunks}')
+    sp = [s for s in spans.read_log(env['GLT_SPAN_LOG'])
+          if s['name'] in ('epoch.run', 'epoch.chunk')]
+    tree = spans.build_tree(sp)
+    runs = [s for s in sp if s['name'] == 'epoch.run']
+    for run in runs:
+      kids = [tree['spans'][c]['name']
+              for c in tree['children'].get(run['span'], ())]
+      if kids != ['epoch.chunk'] * n_chunks:
+        raise AssertionError(f'observability {mode}: epoch.run holds '
+                             f'{kids}')
+    if len(runs) != 2 or tree['orphans']:
+      raise AssertionError(f'observability {mode}: {len(runs)} epoch '
+                           f'spans, orphans {tree["orphans"]}')
+    # per epoch, its chunks' spans: the first epoch's warm-up and
+    # captures, the second's replays
+    chunk_ms = [[tree['spans'][c]['dur_ms']
+                 for c in tree['children'][run['span']]] for run in runs]
+    # ---- a replayed epoch with recording on makes no host sync
+    guard = bool(trainer.loader.sampler.clamped_exact)
+    syncs_on = syncs_off = None
+    if cuda and not guard:
+      torch.cuda.synchronize()
+      torch.cuda.set_sync_debug_mode('error')
+      try:
+        with env_set(env), trace.count_dispatches():
+          state = trainer.run_epoch(state)[0]
+      finally:
+        torch.cuda.set_sync_debug_mode(0)
+      syncs_on = syncs_off = 0
+    elif cuda:
+      with env_set(env), trace.count_dispatches():
+        state, syncs_on, kinds_on = count_syncs(
+            torch, lambda: trainer.run_epoch(state)[0])
+      state, syncs_off, kinds_off = count_syncs(
+          torch, lambda: trainer.run_epoch(state)[0])
+      if syncs_on != syncs_off or syncs_on > 1:
+        raise AssertionError(
+            f'observability {mode}: host syncs with recording on '
+            f'{kinds_on}, off {kinds_off}')
+    # ---- ms per step, recording on and off
+    times = {True: [], False: []}
+    for i in range(2 * OBS_REPS):
+      on = i % 2 == 1
+      state, ms = obs_epoch_ms(torch, trainer, state, device, env, on)
+      times[on].append(ms / steps)
+    med = {('on' if k else 'off'): float(np.median(v))
+           for k, v in times.items()}
+    # ---- profile_trace of one replayed chunk
+    state, prof = obs_profile_chunk(torch, trainer, state, device, tmp,
+                                    mode)
+    if cuda and prof['kernels'] != prof['launch_counters']:
+      raise AssertionError(f'observability {mode}: device_op_ms counted '
+                           f'{prof["kernels"]}, the counters '
+                           f'{prof["launch_counters"]}')
+    rec = dict(programs=progs, dispatch=[r['dispatch'] for r in recs],
+               replays=replays, capture_ms=trainer.capture_ms,
+               epoch_chunk_span_ms=chunk_ms, guard_sync=guard,
+               syncs_recording_on=syncs_on, syncs_recording_off=syncs_off,
+               ms_per_step=med, ms_per_step_runs={
+                   ('on' if k else 'off'): v for k, v in times.items()},
+               profile_chunk=prof, launches=counts)
+    rep['modes'][mode] = rec
+    log(f'observability {mode}: programs deltas {progs} (chunk lengths '
+        f'{lengths}), dispatch {rec["dispatch"]}, graph replays {replays}; '
+        f'epoch.chunk spans (the host\'s enqueue) ms: epoch 1 (warm-up, '
+        f'captures) {[round(v, 1) for v in chunk_ms[0]]}, epoch 2 (replays) '
+        f'{[round(v, 3) for v in chunk_ms[1]]}; host syncs of a replayed '
+        f'epoch with '
+        f'recording on {syncs_on} (off {syncs_off}; the overflow guard '
+        f'{"reads one flag" if guard else "reads nothing"}); ms/step '
+        f'recording on {med["on"]:.3f}, off {med["off"]:.3f} (median of '
+        f'{OBS_REPS}); profile_trace of one chunk: device_op_ms kernels '
+        f'{prof["kernels"]} = launch counters; {prof["device_ops"]} '
+        f'device ops, top {prof["top_ms"]} on {smi}')
+    del trainer, state
+    if cuda:
+      torch.cuda.empty_cache()
+  # ---- one remote request a block, read back as one span tree
+  rpool = np.random.default_rng(32).permutation(n)[:BATCH * 3]
+  ops.reset_launch_counts()
+  rep['remote'] = obs_remote_tree(ds, device, rpool, logs('remote'))
+  rep['launch_runs'].append(ops.launch_counts())
+  for r in rep['remote']:
+    log(f'observability remote block ({r["start"]}, k={r["k"]}): '
+        f'{r["bytes"]} B; client span {r["client_ms"]:.1f} ms > server '
+        f'handle {r["handle_ms"]:.1f} ms > remote.block_stage '
+        f'{r["build_ms"]:.1f} ms (sample {r["sample_ms"]:.1f}, pack '
+        f'{r["pack_ms"]:.1f}, host copy {r["d2h_ms"]:.1f}); outside the '
+        f'build: {r["handle_ms"] - r["build_ms"]:.1f} ms in the handler, '
+        f'{r["client_ms"] - r["handle_ms"]:.1f} ms on the wire and in '
+        f'pickling; read back from {r["scraped"]} scrape roles on {smi}')
+  return rep
+
+
 MODE_BUDGET = 100_000
 MODES = {
     'block': (dict(dedup='tree', strategy='block'), False, 2),
@@ -4742,10 +5103,10 @@ def hetero_materialize_recorded(torch, mat):
   cuda = mat.device.type == 'cuda'
   run_pass, spill, passes = mat._pass, mat._spill_pass, []
 
-  def timed_pass(n_pad, block_fn):
+  def timed_pass(n_pad, block_fn, label):
     k1 = ops.launch_counts()['gather_rows']
     a = _event(torch, cuda)
-    out = run_pass(n_pad, block_fn)
+    out = run_pass(n_pad, block_fn, label)
     b = _event(torch, cuda)
     if cuda:
       b.synchronize()
@@ -5521,6 +5882,57 @@ def dscan_epoch(torch, trainer, state, cuda, **kw):
   return state, losses, accs, _span(a, b, cuda), ops.launch_counts()
 
 
+STAT_KEYS = ('hits', 'misses', 'unique_misses', 'overflow', 'lookups')
+
+
+class Published:
+  """``with Published(stores) as got``: ``got[key]`` sums what store
+  ``stores[key]``'s ``publish_stats`` published inside the block. The
+  distributed loaders and trainers publish their stores' counters once
+  an epoch, at its end (JAX's contract), and clear them: an epoch's
+  counters are read here, not from ``stats()`` after it."""
+
+  def __init__(self, stores: dict):
+    self.stores = stores
+    self.got = {k: dict.fromkeys(STAT_KEYS, 0) for k in stores}
+
+  def __enter__(self):
+    for key, store in self.stores.items():
+      store.publish_stats = self._wrap(key, store.publish_stats)
+    return self.got
+
+  def _wrap(self, key, plain):
+    def publish_stats(*a, **kw):
+      out = plain(*a, **kw)
+      for k in STAT_KEYS:
+        self.got[key][k] += out[k]
+      return out
+    return publish_stats
+
+  def __exit__(self, *exc):
+    for store in self.stores.values():
+      del store.publish_stats
+
+
+def let_publish_through(torch, loader) -> list:
+  """The loader's epoch-end publish (one host read a store) runs with the
+  sync debug mode off, so a counted window sees the epoch's other syncs
+  only; returns the list its calls are counted in."""
+  calls, publish = [], loader._publish_feature_stats
+
+  def let_through():
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+      publish()
+    finally:
+      torch.cuda.set_sync_debug_mode(mode)
+    calls.append(1)
+
+  loader._publish_feature_stats = let_through
+  return calls
+
+
 def dscan_state(trainer):
   """The tensors a chunk updates in place: the parameters and Adam's."""
   import torch
@@ -5716,23 +6128,27 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
   res = {}
   for name, t in (('captured', cap), ('eager', eag)):
     store.reset_stats()
-    st, losses, accs, ms, counts = dscan_epoch(torch, t, states[id(t)], cuda)
+    with Published({0: store}) as got:
+      st, losses, accs, ms, counts = dscan_epoch(torch, t, states[id(t)],
+                                                 cuda)
     states[id(t)] = st
     held(counts, f'tree {name} epoch 1')
-    res[name] = dict(losses=losses, stats=store.stats(), ms1=ms,
+    res[name] = dict(losses=losses, stats=got[0], ms1=ms,
                      capture_ms=t.capture_ms)
   eag._sample_collate = inner
   del eag._dp_step
   store.reset_stats()
   if cuda:
     torch.cuda.synchronize()
-  a = _event(torch, cuda)
-  states[id(loop)], llosses = loop.run_epoch_steps(states[id(loop)])
-  bev = _event(torch, cuda)
-  if cuda:
-    bev.synchronize()
-  res['loop'] = dict(losses=torch.stack(llosses), stats=store.stats(),
+  with Published({0: store}) as got:
+    a = _event(torch, cuda)
+    states[id(loop)], llosses = loop.run_epoch_steps(states[id(loop)])
+    bev = _event(torch, cuda)
+    if cuda:
+      bev.synchronize()
+  res['loop'] = dict(losses=torch.stack(llosses), stats=got[0],
                      ms1=_span(a, bev, cuda))
+  assert res['captured']['stats']['lookups'] > 0, res['captured']['stats']
   want = next(iter(loader()))
   fb = first['batch']
   for f in ('edge_index', 'edge_mask', 'x', 'y'):
@@ -5789,10 +6205,15 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
   if cuda:
     def cap_epoch():
       states[id(cap)] = cap.run_epoch(states[id(cap)])[0]
+    # the epoch's end publishes its store's counters (one host read, JAX's
+    # contract): let through and counted apart from the chunks' syncs
+    published = let_publish_through(torch, cap.loader)
     _, n_sync, kinds = count_syncs(torch, cap_epoch)
+    del cap.loader._publish_feature_stats
     torch.cuda.synchronize()
     rep['tree']['host_syncs_per_step'] = n_sync / steps
-    assert n_sync == 0, kinds
+    rep['tree']['publish_reads'] = len(published)
+    assert n_sync == 0 and len(published) == 1, (kinds, published)
     for name, t in (('captured', cap), ('eager', eag)):
       def epoch(t=t):
         states[id(t)] = t.run_epoch(states[id(t)])[0]
@@ -5897,10 +6318,11 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
   ref_t = trainer()
   ref_t.model.load_state_dict(start)
   store.reset_stats()
-  rs, rlosses, _, _, counts = dscan_epoch(
-      torch, ref_t, create_train_state(ref_t.model, lr=LR), cuda)
+  with Published({0: store}) as got:
+    rs, rlosses, _, _, counts = dscan_epoch(
+        torch, ref_t, create_train_state(ref_t.model, lr=LR), cuda)
   held(counts, 'checkpoint reference')
-  rstats = store.stats()
+  rstats = got[0]
   dscan_release(torch, cuda, ref_t)
   victim = trainer()
   victim.model.load_state_dict(start)
@@ -5925,15 +6347,16 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
   del victim
   fresh = trainer()
   t0 = time.perf_counter()
-  fst, flosses, _ = ChunkCheckpointer(ckdir).resume_epoch(
-      fresh, create_train_state(fresh.model, lr=LR))
+  with Published({0: store}) as got:
+    fst, flosses, _ = ChunkCheckpointer(ckdir).resume_epoch(
+        fresh, create_train_state(fresh.model, lr=LR))
   resume_s = time.perf_counter() - t0
   torch.testing.assert_close(torch.as_tensor(flosses), rlosses.cpu(),
                              rtol=1e-4, atol=0)
   pdiff = max(float((x - y).detach().abs().max()) for x, y in
               zip(fresh.model.parameters(), ref_t.model.parameters()))
   assert pdiff < PARAMS_LIMIT, pdiff
-  assert store.stats() == rstats, (store.stats(), rstats)
+  assert got[0] == rstats, (got[0], rstats)
   rep['checkpoint'] = dict(
       every=every, crash_chunk=crash_chunk, resume_s=resume_s,
       losses_bit_equal=bool(np.array_equal(flosses, rlosses.cpu().numpy())),
@@ -5972,10 +6395,11 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
     out = {}
     for name, t in (('tiered', tiered), ('hbm', hbm)):
       t._feat.reset_stats()
-      tst[id(t)], losses, _, ms, counts = dscan_epoch(torch, t, tst[id(t)],
-                                                      cuda)
+      with Published({0: t._feat}) as got:
+        tst[id(t)], losses, _, ms, counts = dscan_epoch(torch, t,
+                                                        tst[id(t)], cuda)
       held(counts, f'{name} epoch {epoch + 1}', replay=name == 'tiered')
-      out[name] = dict(losses=losses, ms=ms, stats=t._feat.stats())
+      out[name] = dict(losses=losses, ms=ms, stats=got[0])
     assert torch.equal(out['tiered']['losses'], out['hbm']['losses']), \
         f'tiered epoch {epoch + 1} != the all-device epoch'
     assert all(torch.equal(x, y) for x, y in zip(
@@ -6715,8 +7139,11 @@ def dmore_typed(torch, gtt, device, smi, rep):
   if cuda:
     def cap_epoch():
       runs['captured_state'] = cap.run_epoch(runs['captured_state'])[0]
+    # the epoch-end publish (one read a featured type's store) apart
+    published = let_publish_through(torch, cap.loader)
     _, syncs, kinds = count_syncs(torch, cap_epoch)
-    assert syncs == 0, kinds
+    del cap.loader._publish_feature_stats
+    assert syncs == 0 and len(published) == 1, (kinds, published)
     cprof = dmore_profile(torch, cap_epoch, device,
                           'dist_more typed captured epoch')
   ms_step = {k: runs[k][1][1] for k in ('captured', 'eager', 'loop')}
@@ -6757,7 +7184,8 @@ def dmore_typed(torch, gtt, device, smi, rep):
     st = gtt.models.create_train_state(t.model, lr=LR)
     for s in t._stores().values():
       s.reset_stats()
-    st, losses, _, ms, counts = dscan_epoch(torch, t, st, cuda)
+    with Published(t._stores()) as got:
+      st, losses, _, ms, counts = dscan_epoch(torch, t, st, cuda)
     want = dict(want_launch)
     if name == 'tiered':    # the prologue's id-only replay
       want['sample_hop'] *= 2
@@ -6765,8 +7193,7 @@ def dmore_typed(torch, gtt, device, smi, rep):
     for k, v in want.items():
       assert counts[k] == v, (name, k, counts)
     rep['launch_runs'].append(counts)
-    tres[name] = dict(losses=losses, ms=ms / steps,
-                      stats={k: s.stats() for k, s in t._stores().items()})
+    tres[name] = dict(losses=losses, ms=ms / steps, stats=got)
   assert torch.equal(tres['tiered']['losses'], tres['hbm']['losses']), \
       'typed tiered epoch != the all-device epoch'
   assert all(torch.equal(x, y) for x, y in zip(tiered.model.parameters(),
@@ -9134,6 +9561,9 @@ def main(argv=None):
         torch, gtt, ds, device, mode, caps, train_pool, steps,
         TRAIN_CHUNK if cuda else 2, smi, args.profile)
     phase_done(f'train_{mode}')
+  report['observability'] = observability_phase(torch, gtt, ds, device, caps,
+                                                smi)
+  phase_done('observability')
   mode_steps = MODE_STEPS if cuda else 4
   mode_pool = np.random.default_rng(6).permutation(n_nodes)[
       :BATCH * mode_steps]
@@ -9241,6 +9671,7 @@ def main(argv=None):
   paths += report['remote_scan']['launch_runs']
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
+  paths += report['observability']['launch_runs']
   for rec in report['modes'].values():
     paths += [rec['launches'], rec['launches_eager'],
               rec['inference_launches']]

@@ -16,7 +16,10 @@ Counterpart of ``graphlearn_tpu/data/unified_tensor.py``. A virtual
   because a TPU cannot read host memory.
 - On the CPU a lookup is the JAX store's mixed gather, the kernel's
   plain version (``ops.gather_rows_unified_plain``), and sets
-  ``_last_cold_cap`` as JAX does.
+  ``_last_cold_cap`` as JAX does. A mixed lookup counts JAX's two
+  dispatch sites (``unified_tensor.hot_gather`` / ``cold_scatter``) on
+  the CPU, and the hot/cold kernel's one launch as one
+  ``unified_tensor.hot_gather`` on a card.
 """
 import weakref
 from typing import Optional
@@ -28,6 +31,7 @@ from .. import ops
 from ..ops import mapped
 from ..ops.gather import gather_rows_hbm, gather_rows_hbm2
 from ..utils import resolve_device
+from ..utils.trace import record_dispatch
 
 
 def _as_rows(rows, dtype) -> torch.Tensor:
@@ -130,11 +134,17 @@ class UnifiedTensor:
                                 run_span=self.pallas_v2_run_span)
       return gather_rows_hbm(self._device_part, ids)
     if self.device.type == 'cpu':
+      if self._device_part is not None:
+        # JAX's two dispatches of a mixed lookup
+        record_dispatch('unified_tensor.hot_gather')
+        record_dispatch('unified_tensor.cold_scatter')
       rows, cap = ops.gather_rows_unified_plain(self._hot(), self._host_part,
                                                 ids)
       if self._device_part is not None:
         self._last_cold_cap = cap
       return rows
+    # one launch of the hot/cold kernel does both: one dispatch
+    record_dispatch('unified_tensor.hot_gather')
     return ops.gather_rows_unified(self._hot(), self._host_part, ids)
 
   def share_ipc(self):

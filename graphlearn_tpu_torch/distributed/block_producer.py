@@ -36,8 +36,9 @@ for the wire dtype, views them as bfloat16 on the device. At
 ``wire_dtype=None`` a frame equals JAX's key for key and array for
 array.
 
-Not ported: the ``remote.block_stage`` span (the tracing slice); the
-fault site of that name is kept.
+Each build is one ``remote.block_stage`` span (on the server's RPC
+thread, under the client's adopted ``rpc.server.handle`` span) carrying
+the build log's phase times.
 """
 import collections
 import contextlib
@@ -48,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..metrics import spans
 from ..sampler import (CapacityPlan, CapacityPlanError, EdgeSamplerInput,
                        NegativeSampling, NodeSamplerInput, SamplingConfig,
                        SamplingType)
@@ -392,40 +394,45 @@ class BlockSampleProducer:
     if not (0 <= start and start + k <= nb and k >= 1):
       raise ValueError(f'block [{start}, {start + k}) outside this '
                        f"stream's {nb}-batch epoch")
-    t0 = time.perf_counter()
-    ctx = (torch.cuda.stream(self._stream) if self._stream is not None
-           else contextlib.nullcontext())
-    with ctx:
-      m0 = self._mark()
-      # the remote.block_stage span's place
-      fault_point('remote.block_stage')
-      order = self._epoch_order(epoch)
-      msgs = [self._batch_tensors(order, epoch, j)
-              for j in range(start, start + k)]
-      m1 = self._mark()
-      frame = stack_block_frames(msgs)
-      del msgs
-      for key in list(frame):
-        v = frame[key]
-        if _is_y(key):
-          frame[key] = v.to(torch.int32)
-        elif self.wire_dtype is not None and _is_x(key):
-          # round to nearest even, as ml_dtypes' cast; the bits travel as
-          # uint16 (numpy has no bfloat16)
-          frame[key] = v.to(torch.bfloat16).view(torch.int16)
-      m2 = self._mark()
-      host = to_host(frame)
-      m3 = self._mark()
-    for key in list(host):
-      if self.wire_dtype is not None and _is_x(key):
-        host[key] = host[key].view(np.uint16)
-    host['#META.num_batches'] = np.asarray(k, np.int32)
-    nbytes = _frame_nbytes(host)
-    self.build_log.append(dict(
-        epoch=int(epoch), start=int(start), k=int(k), bytes=nbytes,
-        sample_ms=self._ms(m0, m1), pack_ms=self._ms(m1, m2),
-        d2h_ms=self._ms(m2, m3),
-        build_ms=(time.perf_counter() - t0) * 1e3))
+    # the block's build, sample to host frame: its phases' ms ride the
+    # span (the build log's fields), so a scrape shows where a slow
+    # block's time went
+    with spans.span('remote.block_stage', epoch=int(epoch),
+                    start=int(start), k=int(k)) as sp:
+      t0 = time.perf_counter()
+      ctx = (torch.cuda.stream(self._stream) if self._stream is not None
+             else contextlib.nullcontext())
+      with ctx:
+        m0 = self._mark()
+        fault_point('remote.block_stage')
+        order = self._epoch_order(epoch)
+        msgs = [self._batch_tensors(order, epoch, j)
+                for j in range(start, start + k)]
+        m1 = self._mark()
+        frame = stack_block_frames(msgs)
+        del msgs
+        for key in list(frame):
+          v = frame[key]
+          if _is_y(key):
+            frame[key] = v.to(torch.int32)
+          elif self.wire_dtype is not None and _is_x(key):
+            # round to nearest even, as ml_dtypes' cast; the bits travel
+            # as uint16 (numpy has no bfloat16)
+            frame[key] = v.to(torch.bfloat16).view(torch.int16)
+        m2 = self._mark()
+        host = to_host(frame)
+        m3 = self._mark()
+      for key in list(host):
+        if self.wire_dtype is not None and _is_x(key):
+          host[key] = host[key].view(np.uint16)
+      host['#META.num_batches'] = np.asarray(k, np.int32)
+      nbytes = _frame_nbytes(host)
+      self.build_log.append(dict(
+          epoch=int(epoch), start=int(start), k=int(k), bytes=nbytes,
+          sample_ms=self._ms(m0, m1), pack_ms=self._ms(m1, m2),
+          d2h_ms=self._ms(m2, m3),
+          build_ms=(time.perf_counter() - t0) * 1e3))
+      sp.attrs.update(self.build_log[-1])
     return host
 
   # ------------------------------------------------------------- serving

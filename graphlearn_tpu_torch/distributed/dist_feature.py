@@ -30,8 +30,11 @@ is below the full width reads the summed overflow on the host once
 (counted by ``dist_context.verdict_syncs``); ``bucket_frac=None`` reads
 nothing. The slab-backed owner lookup (JAX's ``_shard_body(slab=True)``:
 rows from a hot prefix or a staged slab) serves
-``storage.TieredDistFeature``; ``publish_stats`` comes with the tracing
-slice.
+``storage.TieredDistFeature``. ``publish_stats`` (one device read) moves
+the counters into the metric registry as ``<prefix>.hits`` etc. and
+clears them: the distributed loaders and trainers call it once per
+epoch, before the epoch's flight record, so the record's ``feature``
+fields equal the published counters.
 """
 from typing import Optional
 
@@ -40,6 +43,7 @@ import torch
 
 from .. import ops
 from ..ops.route import exchange_capacity
+from ..utils import trace
 from .dist_context import count_verdict_sync
 from .dist_graph import _to
 
@@ -211,6 +215,20 @@ class DistFeature:
 
   def reset_stats(self):
     self._stats = None
+
+  def publish_stats(self, prefix: str = 'dist_feature') -> dict:
+    """Read and clear the on-device counters into the registry's named
+    counters (``<prefix>.hits``, ``.misses``, ``.unique_misses``,
+    ``.overflow``, ``.lookups``; zeros are not written) — the per-epoch
+    surfacing hook. Returns the read :meth:`stats`."""
+    s = self.stats()
+    for k in ('hits', 'misses', 'unique_misses', 'overflow', 'lookups'):
+      if s[k]:
+        # a caller-chosen prefix: dist_feature.* and dist_label.* are
+        # both registered families
+        trace.counter_inc(f'{prefix}.{k}', s[k])
+    self.reset_stats()
+    return s
 
   # ------------------------------------------------------------ lookup
   def _lookup_local(self, d, l: int, flat):

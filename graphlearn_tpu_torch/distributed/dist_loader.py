@@ -18,6 +18,11 @@ device feeding a shared-memory ring) and the remote ones
 (``RemoteDistNeighborLoader``, ``RemoteDistLinkNeighborLoader``: batches
 pulled from ``DistServer`` producers over the RPC, with heartbeats and
 the failover of a dead server's unacked seeds) follow.
+
+Every loader's epoch writes one flight record (``metrics.flight``) and
+one ``epoch.run`` span; a collocated loader publishes its stores' hit /
+miss counters (``DistFeature.publish_stats``) once per epoch before its
+record, so the record's ``feature`` fields are the published counters.
 """
 import logging
 import time
@@ -27,6 +32,7 @@ import numpy as np
 
 from .. import ops
 from ..loader.node_loader import OverflowGuardMixin
+from ..metrics import flight, spans
 from ..loader.transform import Data, HeteroData
 from ..sampler import EdgeSamplerInput, HeteroSamplerOutput, NodeSamplerInput
 from ..typing import reverse_edge_type
@@ -34,7 +40,7 @@ from ..typing import split_edge_type_seeds as _split_edge_type
 from .dist_dataset import DistDataset
 from .dist_neighbor_sampler import DistNeighborSampler
 from .tenancy import with_backpressure
-from ..utils import resolve_device, trace
+from ..utils import resolve_device, step_annotation, trace
 
 logger = logging.getLogger('graphlearn_tpu_torch.loader')
 
@@ -115,24 +121,77 @@ class DistLoader(OverflowGuardMixin):
         mask = (np.arange(g) < n_valid).reshape(shape)
       yield idx.reshape(shape), mask
 
+  # every per-step loader epoch appends ONE flight record to
+  # GLT_RUN_LOG and one epoch.run span: host bookkeeping around the
+  # loop (the feature fields come from the epoch's one publish_stats
+  # read)
+
+  def _flight_begin(self):
+    # both carry the process run_id, so a flight line, a scrape and the
+    # epoch's span tree join on one id
+    return (flight.epoch_begin(),
+            spans.begin('epoch.run', emitter=type(self).__name__))
+
+  def _flight_end(self, tok, steps: int, completed: bool):
+    flight_tok, span_tok = tok
+    spans.end(span_tok, steps=steps, completed=completed)
+    flight.end_for(self, flight_tok, steps=steps, completed=completed,
+                   config=self._flight_config())
+
+  def _flight_config(self) -> dict:
+    """Static epoch configuration (fingerprinted in flight records)."""
+    return dict(loader=type(self).__name__, batch_size=self.batch_size,
+                shuffle=self.shuffle, drop_last=self.drop_last,
+                num_partitions=self.num_partitions, seed=self.seed,
+                num_neighbors=getattr(self.sampler, 'num_neighbors',
+                                      None))
+
+  def _publish_feature_stats(self):
+    """Move the stores' hit / miss counters into the registry once per
+    epoch (one device read each): the node and edge feature stores under
+    ``dist_feature``, the sampler's label stores under ``dist_label``.
+    Each accumulator is drained every epoch, as in JAX."""
+    for f in self.data.feature_stores():
+      f.publish_stats()
+    for f in self.sampler.label_stores():
+      f.publish_stats(prefix='dist_label')
+
   def __iter__(self):
+    # overflow-policy state resolves BEFORE the span/flight bracket: a
+    # raise from it must not leak the attached epoch.run span
     guarded, recompute = self._overflow_epoch_start()
-    for idx, mask in self._index_blocks():
-      inp = NodeSamplerInput(self.input_seeds[idx], self.input_type)
-      if recompute:
-        keys = self.sampler._next_keys()
-        out = self.sampler.sample_from_nodes(inp, seed_mask=mask, keys=keys)
-        if self._batch_overflowed(out):
-          self.overflow_recomputes += 1
-          out = self._replay_sampler().sample_from_nodes(
-              inp, seed_mask=mask, keys=keys)
-      else:
-        out = self.sampler.sample_from_nodes(inp, seed_mask=mask)
-        if guarded:
-          self._accumulate_overflow(out)
-      yield self._collate_fn(out)
-    if guarded and not recompute:
-      self._finish_epoch_overflow()
+    tok = self._flight_begin()
+    steps, completed = 0, False
+    try:
+      for i, (idx, mask) in enumerate(self._index_blocks()):
+        with step_annotation('glt_dist_batch', i):
+          inp = NodeSamplerInput(self.input_seeds[idx], self.input_type)
+          if recompute:
+            keys = self.sampler._next_keys()
+            out = self.sampler.sample_from_nodes(inp, seed_mask=mask,
+                                                 keys=keys)
+            if self._batch_overflowed(out):
+              self.overflow_recomputes += 1
+              out = self._replay_sampler().sample_from_nodes(
+                  inp, seed_mask=mask, keys=keys)
+          else:
+            out = self.sampler.sample_from_nodes(inp, seed_mask=mask)
+            if guarded:
+              self._accumulate_overflow(out)
+          batch = self._collate_fn(out)
+        yield batch
+        steps += 1
+      completed = True
+      if guarded and not recompute:
+        self._finish_epoch_overflow()
+    finally:
+      # also on early break/close: the accumulator is drained per epoch.
+      # The publish reads the card and can raise — the span/flight close
+      # must survive it, or the attached epoch span leaks
+      try:
+        self._publish_feature_stats()
+      finally:
+        self._flight_end(tok, steps, completed)
 
   def _collate_fn(self, out):
     """A ``SamplerOutput`` ``[L, ...]`` -> a stacked ``Data`` (a
@@ -222,27 +281,37 @@ class DistLinkNeighborLoader(DistLoader):
 
   def __iter__(self):
     guarded, recompute = self._overflow_epoch_start()
-    for idx, mask in self._index_blocks():
-      inputs = EdgeSamplerInput(
-          self.seed_rows[idx], self.seed_cols[idx],
-          label=(self.edge_label[idx]
-                 if self.edge_label is not None else None),
-          input_type=self.input_type, neg_sampling=self.neg_sampling)
-      if recompute:
-        keys = self.sampler._next_keys()
-        out = self.sampler.sample_from_edges(inputs, seed_mask=mask,
-                                             keys=keys)
-        if self._batch_overflowed(out):
-          self.overflow_recomputes += 1
-          out = self._replay_sampler().sample_from_edges(
-              inputs, seed_mask=mask, keys=keys)
-      else:
-        out = self.sampler.sample_from_edges(inputs, seed_mask=mask)
-        if guarded:
-          self._accumulate_overflow(out)
-      yield self._collate_fn(out)
-    if guarded and not recompute:
-      self._finish_epoch_overflow()
+    tok = self._flight_begin()
+    steps, completed = 0, False
+    try:
+      for idx, mask in self._index_blocks():
+        inputs = EdgeSamplerInput(
+            self.seed_rows[idx], self.seed_cols[idx],
+            label=(self.edge_label[idx]
+                   if self.edge_label is not None else None),
+            input_type=self.input_type, neg_sampling=self.neg_sampling)
+        if recompute:
+          keys = self.sampler._next_keys()
+          out = self.sampler.sample_from_edges(inputs, seed_mask=mask,
+                                               keys=keys)
+          if self._batch_overflowed(out):
+            self.overflow_recomputes += 1
+            out = self._replay_sampler().sample_from_edges(
+                inputs, seed_mask=mask, keys=keys)
+        else:
+          out = self.sampler.sample_from_edges(inputs, seed_mask=mask)
+          if guarded:
+            self._accumulate_overflow(out)
+        yield self._collate_fn(out)
+        steps += 1
+      completed = True
+      if guarded and not recompute:
+        self._finish_epoch_overflow()
+    finally:
+      try:
+        self._publish_feature_stats()
+      finally:
+        self._flight_end(tok, steps, completed)
 
 
 class DistSubGraphLoader(DistLoader):
@@ -266,10 +335,20 @@ class DistSubGraphLoader(DistLoader):
     self.max_degree = max_degree
 
   def __iter__(self):
-    for idx, mask in self._index_blocks():
-      out = self.sampler.subgraph(self.input_seeds[idx], seed_mask=mask,
-                                  max_degree=self.max_degree)
-      yield self._collate_fn(out)
+    tok = self._flight_begin()
+    steps, completed = 0, False
+    try:
+      for idx, mask in self._index_blocks():
+        out = self.sampler.subgraph(self.input_seeds[idx], seed_mask=mask,
+                                    max_degree=self.max_degree)
+        yield self._collate_fn(out)
+        steps += 1
+      completed = True
+    finally:
+      try:
+        self._publish_feature_stats()
+      finally:
+        self._flight_end(tok, steps, completed)
 
 
 class DistNeighborLoader(DistLoader):
@@ -355,22 +434,40 @@ class MpDistNeighborLoader:
   def __iter__(self):
     from ..channel import QueueTimeoutError
     from .message import message_to_data
+    cfg = self.producer.config
+    tok = flight.epoch_begin()
+    # the epoch span is CURRENT while produce_all ships the epoch
+    # commands, so the workers' spans (producer.epoch/batch) parent under
+    # it; produce_all runs INSIDE the try — a raise there must still end
+    # the attached span
+    sp = spans.begin('epoch.run', emitter=type(self).__name__)
     received = 0
-    self.producer.produce_all()
-    while received < self._expected:
-      try:
-        msg = self.channel.recv(timeout_ms=self.health_check_interval_ms)
-      except QueueTimeoutError:
-        # crashed worker -> restart + bit-identical replay (raises only
-        # once the restart budget is exhausted), rather than spinning on
-        # an empty channel forever
-        self.producer.check_worker_health()
-        if self.producer.is_all_sampling_completed() and \
-            self.channel.empty():
-          break
-        continue
-      received += 1
-      yield message_to_data(msg, device=self.device)
+    try:
+      self.producer.produce_all()
+      while received < self._expected:
+        try:
+          msg = self.channel.recv(timeout_ms=self.health_check_interval_ms)
+        except QueueTimeoutError:
+          # crashed worker -> restart + bit-identical replay (raises only
+          # once the restart budget is exhausted), rather than spinning
+          # on an empty channel forever
+          self.producer.check_worker_health()
+          if self.producer.is_all_sampling_completed() and \
+              self.channel.empty():
+            break
+          continue
+        received += 1
+        yield message_to_data(msg, device=self.device)
+    finally:
+      spans.end(sp, steps=received,
+                completed=received >= self._expected)
+      flight.end_for(
+          self, tok, steps=received,
+          completed=received >= self._expected,
+          config=dict(loader=type(self).__name__,
+                      batch_size=cfg.batch_size, shuffle=cfg.shuffle,
+                      num_neighbors=cfg.num_neighbors,
+                      num_workers=self.producer.num_workers))
 
   def worker_metrics(self):
     """Merged metric snapshot across this loader's sampling workers (see
@@ -590,6 +687,22 @@ class _RemoteLoaderBase:
           'failover is disabled (RemoteDistSamplingWorkerOptions'
           '.failover=False)')
     self._handled_pairs.add((rank, pid))
+    # the failover span is the epoch tree's resilience annotation: the
+    # dead rank, its cause and the redistributed seed count hang off the
+    # epoch's epoch.run span, and the replacement producers' RPCs parent
+    # under it
+    fo_span = spans.begin('loader.failover', rank=rank,
+                          cause=str(cause)[:200])
+    try:
+      return self._handle_dead_pair_spanned(rank, pid, cause, part,
+                                            fo_span)
+    except BaseException as e:
+      fo_span.attrs['error'] = f'{type(e).__name__}: {e}'
+      raise
+    finally:
+      spans.end(fo_span)
+
+  def _handle_dead_pair_spanned(self, rank, pid, cause, part, fo_span):
     self._live_pairs.discard((rank, pid))
     self._dead_ranks[rank] = cause
     self._heartbeat.mark_dead(rank, cause)
@@ -612,6 +725,8 @@ class _RemoteLoaderBase:
           'cannot complete the epoch')
     trace.counter_inc('resilience.failover')
     trace.counter_inc('resilience.failover_seeds', int(unacked.shape[0]))
+    fo_span.attrs.update(seeds=int(unacked.shape[0]),
+                         survivors=list(survivors))
     logger.warning(
         'server rank %d dead (%s): redistributing %d unacked seeds '
         'across surviving servers %s', rank, cause, unacked.shape[0],
@@ -671,7 +786,35 @@ class _RemoteLoaderBase:
     # new pullers.
     self.channel.stop(join=True)
     self._epoch += 1
-    yield from self._epoch_messages()
+    cfg = self._config
+    tok = flight.epoch_begin()
+    # the epoch span stays current across _epoch_messages, so the
+    # start_new_epoch_sampling RPCs (and through them the servers'
+    # producer workers) and any failover spans parent under it — one
+    # joinable tree per epoch across client, server and producers
+    sp = spans.begin('epoch.run', emitter=type(self).__name__,
+                     epoch=self._epoch)
+    received, completed = 0, False
+    try:
+      for data in self._epoch_messages():
+        yield data
+        received += 1
+      completed = True
+    finally:
+      spans.end(sp, steps=received, completed=completed,
+                dead_ranks=len(self._dead_ranks))
+      # the epoch's postmortem trail: failover / retry counter deltas,
+      # batches delivered, wall — nothing on the hot path
+      flight.end_for(
+          self, tok, epoch=self._epoch, steps=received,
+          completed=completed,
+          config=dict(loader=type(self).__name__,
+                      batch_size=cfg.batch_size, shuffle=cfg.shuffle,
+                      num_neighbors=cfg.num_neighbors,
+                      servers=list(self.server_ranks)),
+          extra={'expected': self._expected,
+                 'dead_ranks': {str(r): c for r, c in
+                                self._dead_ranks.items()}})
 
   def _to_data(self, msg):
     from .message import message_to_data

@@ -39,6 +39,7 @@ import torch
 
 from .. import metrics
 from ..channel import ChannelBase
+from ..metrics import spans
 from ..sampler import NodeSamplerInput, SamplingConfig, SamplingType
 from ..utils import trace
 from ..utils.faults import fault_point
@@ -171,60 +172,83 @@ def _worker_body(rank, dataset_handle, sampling_config, seeds, task_queue,
       continue
     if cmd == MpCommand.STOP:
       break
+    # payload: (epoch order, replay start batch, span wire-context): the
+    # ctx joins this worker's spans to the driving client's trace (a
+    # replayed command after a respawn carries the same ctx, so the
+    # replacement's spans land in the same tree)
     epoch_seed_order, start_batch = payload[0], payload[1]
+    span_ctx = payload[2] if len(payload) > 2 else None
     bs = cfg.batch_size
     batch_no = 0
-    for i in range(0, n_seeds - (n_seeds % bs if cfg.drop_last else 0), bs):
-      idx = epoch_seed_order[i:i + bs]
-      if idx.shape[0] == 0:
-        continue
-      if batch_no < start_batch:
-        # replay fast-forward: these batches landed before the previous
-        # incarnation died; their keys are covered by resume_calls
+    epoch_ctx = spans.adopt(span_ctx)
+    epoch_ctx.__enter__()
+    epoch_span = spans.begin('producer.epoch', worker=rank,
+                             start_batch=start_batch)
+    try:
+      end = n_seeds - (n_seeds % bs if cfg.drop_last else 0)
+      for i in range(0, end, bs):
+        idx = epoch_seed_order[i:i + bs]
+        if idx.shape[0] == 0:
+          continue
+        if batch_no < start_batch:
+          # replay fast-forward: these batches landed before the previous
+          # incarnation died; their keys are covered by resume_calls
+          batch_no += 1
+          continue
+        # chaos site: an armed 'exit' here kills the worker at an exact
+        # batch index with nothing in flight
+        fault_point('producer.worker.batch')
+        batch_span = spans.begin('producer.batch', batch=batch_no)
+        try:
+          t0 = time.perf_counter()
+          if is_link:
+            if idx.shape[0] < bs:
+              # the final short batch is padded cyclically to the batch
+              # shape
+              idx = np.resize(idx, bs)
+            out = sampler.sample_from_edges(EdgeSamplerInput(
+                rows_[idx], cols_[idx],
+                label=(label_[idx] if label_ is not None else None),
+                input_type=input_type, neg_sampling=neg))
+          else:
+            out = sampler.sample_from_nodes(
+                NodeSamplerInput(seeds[idx], input_type=input_type),
+                batch_cap=bs)
+          x, y = _batch_message(dataset, out, cfg.collect_features, hetero)
+          sync()
+          t1 = time.perf_counter()
+          msg = (hetero_output_to_message(out, x, y) if hetero
+                 else output_to_message(out, x, y))
+          t2 = time.perf_counter()
+          channel.send(msg)
+          t3 = time.perf_counter()
+          # worker-local observability: this process's own registry, sent
+          # to the producer in the epoch-end snapshot below
+          metrics.inc('producer.batches')
+          metrics.observe('producer.sample_ms', (t3 - t0) * 1e3)
+          metrics.observe('producer.sample_gather_ms', (t1 - t0) * 1e3)
+          metrics.observe('producer.d2h_ms', (t2 - t1) * 1e3)
+          metrics.observe('producer.send_ms', (t3 - t2) * 1e3)
+          metrics.set_gauge('producer.message_bytes',
+                            float(sum(a.nbytes for a in msg.values())))
+        finally:
+          # a raising sample/send must not strand the batch span on this
+          # worker's context stack — later batches would parent under it
+          spans.end(batch_span)
         batch_no += 1
-        continue
-      # chaos site: an armed 'exit' here kills the worker at an exact
-      # batch index with nothing in flight
-      fault_point('producer.worker.batch')
-      t0 = time.perf_counter()
-      if is_link:
-        if idx.shape[0] < bs:
-          # the final short batch is padded cyclically to the batch shape
-          idx = np.resize(idx, bs)
-        out = sampler.sample_from_edges(EdgeSamplerInput(
-            rows_[idx], cols_[idx],
-            label=(label_[idx] if label_ is not None else None),
-            input_type=input_type, neg_sampling=neg))
-      else:
-        out = sampler.sample_from_nodes(
-            NodeSamplerInput(seeds[idx], input_type=input_type),
-            batch_cap=bs)
-      x, y = _batch_message(dataset, out, cfg.collect_features, hetero)
-      sync()
-      t1 = time.perf_counter()
-      msg = (hetero_output_to_message(out, x, y) if hetero
-             else output_to_message(out, x, y))
-      t2 = time.perf_counter()
-      channel.send(msg)
-      t3 = time.perf_counter()
-      # worker-local observability: this process's own registry, sent to
-      # the producer in the epoch-end snapshot below
-      metrics.inc('producer.batches')
-      metrics.observe('producer.sample_ms', (t3 - t0) * 1e3)
-      metrics.observe('producer.sample_gather_ms', (t1 - t0) * 1e3)
-      metrics.observe('producer.d2h_ms', (t2 - t1) * 1e3)
-      metrics.observe('producer.send_ms', (t3 - t2) * 1e3)
-      metrics.set_gauge('producer.message_bytes',
-                        float(sum(a.nbytes for a in msg.values())))
-      batch_no += 1
-      if progress is not None:
-        # published AFTER the send: an uncontrolled crash between send
-        # and publish replays that one batch (a duplicate) rather than
-        # losing it; the chaos harness kills before the send
-        sent_arr, calls_arr = progress
-        with sent_arr.get_lock():
-          sent_arr[rank] = batch_no
-          calls_arr[rank] = sampler._call_count
+        if progress is not None:
+          # published AFTER the send: an uncontrolled crash between send
+          # and publish replays that one batch (a duplicate) rather than
+          # losing it; the chaos harness kills before the send
+          sent_arr, calls_arr = progress
+          with sent_arr.get_lock():
+            sent_arr[rank] = batch_no
+            calls_arr[rank] = sampler._call_count
+    finally:
+      # the epoch span and adopted context close even when a batch
+      # raises out of the loop
+      spans.end(epoch_span, batches=batch_no)
+      epoch_ctx.__exit__(None, None, None)
     with done_counter.get_lock():
       done_counter.value += 1
     if metrics_q is not None:
@@ -234,6 +258,11 @@ def _worker_body(rank, dataset_handle, sampling_config, seeds, task_queue,
         snap = metrics.snapshot()
         snap['launches'] = ops.launch_counts()
         snap['rank'] = rank
+        # this worker's span ring and the epoch's trace id: the server's
+        # get_metrics exposes them, so a scrape recovers producer spans
+        # by id alone
+        snap['spans'] = spans.export(limit=spans.SCRAPE_EXPORT_LIMIT)
+        snap['run_id'] = (span_ctx or {}).get('trace') or spans.run_id()
         metrics_q.put_nowait((rank, snap))
       except Exception:  # noqa: BLE001 - observability must not kill work
         logger.exception('worker %d could not publish its metrics', rank)
@@ -343,6 +372,7 @@ class DistMpSamplingProducer:
     self._worker_snaps = {}
     self._metrics_drain_lock = threading.Lock()
     self._last_orders = [None] * self.num_workers
+    self._last_ctx = [None] * self.num_workers
     g = self.dataset.graph
     nf = self.dataset.node_features
     self._handle = dict(
@@ -369,12 +399,17 @@ class DistMpSamplingProducer:
         self._sent[w] = 0
     if hasattr(self.channel, 'reset'):
       self.channel.reset()
+    # the epoch command carries the caller's span context (the client's
+    # epoch span, or an RPC handler's adopted one) so worker spans join
+    # the driving trace; kept per worker for a respawn's replay
+    ctx = spans.wire_context()
     for w in range(self.num_workers):
       n = self._splits[w].shape[0]
       order = (self._rng.permutation(n) if self.config.shuffle
                else np.arange(n))
       self._last_orders[w] = order
-      self._queues[w].put((MpCommand.SAMPLE_ALL, (order, 0)))
+      self._last_ctx[w] = ctx
+      self._queues[w].put((MpCommand.SAMPLE_ALL, (order, 0, ctx)))
 
   def is_all_sampling_completed(self) -> bool:
     with self._done.get_lock():
@@ -422,13 +457,15 @@ class DistMpSamplingProducer:
       self._spawn_worker(w, resume_calls=calls)
       order = self._last_orders[w]
       if order is not None and sent < self._expected_for_worker(w):
-        self._queues[w].put((MpCommand.SAMPLE_ALL, (order, sent)))
+        self._queues[w].put((MpCommand.SAMPLE_ALL,
+                             (order, sent, self._last_ctx[w])))
 
   def worker_metrics(self):
     """Merged metric snapshot across this producer's workers, or None
     before any worker has published (workers push cumulative snapshots
     at epoch end; latest-wins per rank). ``launches`` is the sum of the
-    workers' launch counts, ``workers`` the ranks that published."""
+    workers' launch counts, ``workers`` the ranks that published,
+    ``spans`` their span rings, concatenated."""
     q = getattr(self, '_metrics_q', None)
     if q is None:
       return None
@@ -446,6 +483,15 @@ class DistMpSamplingProducer:
     merged = metrics.merge_snapshots(snaps)
     merged['launches'] = _merge_launches(snaps)
     merged['workers'] = ranks
+    # span rings don't merge — concatenate them (and carry a run_id) so
+    # get_metrics / scrape_all expose producer spans per role
+    span_rows = [r for snap in snaps for r in snap.get('spans', ())]
+    if span_rows:
+      merged['spans'] = span_rows
+    for snap in snaps:
+      if snap.get('run_id'):
+        merged['run_id'] = snap['run_id']
+        break
     return merged
 
   def num_expected(self) -> int:

@@ -485,13 +485,20 @@ class DistServer:
                 n_producers=len(self._producers))
 
   def get_metrics(self) -> dict:
-    """This server PROCESS's metric snapshot (with its launch counts,
-    ``ops.launch_counts()``, under 'launches') plus each live producer's
-    merged worker snapshot (their launch counts too), keyed by producer
-    id. Read-only, so clients may retry it."""
+    """Scrape endpoint (``metrics.scrape_all``): this server PROCESS's
+    metric snapshot (with its launch counts, ``ops.launch_counts()``,
+    under 'launches', its run_id and its span ring) plus each live
+    producer's merged worker snapshot (their launch counts and spans
+    too), keyed by producer id. Read-only, so clients may retry it."""
     from .. import ops
+    from ..metrics import spans
     srv = metrics.snapshot()
     srv['launches'] = ops.launch_counts()
+    # run_id + the span ring ride the snapshot (extra keys, ignored by
+    # merge_snapshots): the scraping client recovers this server's spans
+    # — and the producers' worker spans below — by id alone
+    srv['run_id'] = spans.run_id()
+    srv['spans'] = spans.export(limit=spans.SCRAPE_EXPORT_LIMIT)
     out = {'server': srv, 'producers': {}}
     if self._admission is not None:
       # per-tenant quota and usage state: visible backpressure

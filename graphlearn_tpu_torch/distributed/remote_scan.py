@@ -61,8 +61,14 @@ Usage::
 
 Deliberate divergences: the optimizer is in the ``TrainState`` (no
 ``tx``); no tuned ``config=`` (the tune slice); ``device=`` (where the
-model trains, the card by default) and ``capture=`` come last. Not
-ported: spans, flight records and the program observatory.
+model trains, the card by default) and ``capture=`` come last.
+Observability is the other trainers': one flight record in an
+``epoch.run`` span per epoch, an ``epoch.chunk`` span per chunk's
+enqueue, a ``remote.block_fetch`` span per fetched block (the worker
+thread's: it joins the epoch's trace through the adopted context), a
+``loader.failover`` span per dead server, and the dispatch sites
+(``remote_epoch_begin``, ``remote_scan_chunk``, ``remote_metrics_concat``)
+and captures (``metrics.programs``).
 """
 import contextlib
 import dataclasses
@@ -79,10 +85,13 @@ import torch
 
 from .. import metrics, ops
 from ..loader.scan_epoch import (_ChunkGraph, _replay_signature,
-                                 capture_chunk, own_stream)
+                                 capture_chunk, capture_signature,
+                                 epoch_records, own_stream)
+from ..metrics import programs, spans
 from ..storage.staging import _POLL_S
 from ..typing import to_edge_type
 from ..utils import resolve_device, trace
+from ..utils.trace import record_dispatch
 from ..utils.faults import fault_point
 from .dist_loader import _norm_num_neighbors, _split_input_type
 from .resilience import NO_RETRY, DeadlineExceeded, ServerDeadError
@@ -160,6 +169,7 @@ class RemoteBlockStager:
     self._next_submit = 0
     self._gen = 0
     self.degraded = False   # a worker fetch failed this epoch
+    self._ctx = None        # the epoch's span context, adopted by _loop
     # per refill of a slot: (chunk, the previous occupant's release event
     # had completed) -- True by construction
     self.refills: List[tuple] = []
@@ -183,6 +193,10 @@ class RemoteBlockStager:
       self.wait_ms = {}
       for s in self._slots:
         s.chunk = None     # an earlier epoch's chunks are all acked
+      # the caller's (epoch-root) span context: the worker's fetch spans
+      # (remote.block_fetch, tenant.throttle) parent under the epoch
+      # tree instead of floating as orphans
+      self._ctx = spans.wire_context()
     self._ensure_worker()
     for _ in range(min(self.max_ahead, num_chunks - int(start_chunk))):
       self._submit_next()
@@ -236,12 +250,14 @@ class RemoteBlockStager:
       gen, c = item
       with self._lock:
         slab = self._slabs.get(c) if gen == self._gen else None
+        ctx = self._ctx
       if slab is None or slab.ready.is_set():
         continue   # the epoch moved on, or failover already failed it
       try:
         t0 = time.perf_counter()
         fault_point('remote.block_fetch')
-        frame = self.fetch_fn(c)
+        with spans.adopt(ctx):
+          frame = self.fetch_fn(c)
         slab.fetch_ms = (time.perf_counter() - t0) * 1e3
         metrics.observe('remote.block_stage_ms', slab.fetch_ms)
         if self._pack_fn is None:
@@ -642,13 +658,14 @@ class RemoteScanTrainer:
       except Exception:  # noqa: BLE001 - producing ahead is optional
         pass
     t0 = time.perf_counter()
-    # the remote.block_fetch span's place
-    frame = with_backpressure(
-        lambda: self._dist_client.request_server(
-            desc['rank'], 'block_fetch', desc['pid'], desc['epoch'],
-            desc['start'], desc['k'], idempotent=True),
-        describe=f'block_fetch chunk {c} rank {desc["rank"]}',
-        budget_s=self._bp_budget, tenant=self._tenant)
+    with spans.span('remote.block_fetch', chunk=int(c),
+                    rank=int(desc['rank']), start=int(desc['start'])):
+      frame = with_backpressure(
+          lambda: self._dist_client.request_server(
+              desc['rank'], 'block_fetch', desc['pid'], desc['epoch'],
+              desc['start'], desc['k'], idempotent=True),
+          describe=f'block_fetch chunk {c} rank {desc["rank"]}',
+          budget_s=self._bp_budget, tenant=self._tenant)
     metrics.observe('remote.block_fetch_ms',
                     (time.perf_counter() - t0) * 1e3)
     nbytes = sum(int(np.asarray(v).nbytes) for v in frame.values())
@@ -816,12 +833,21 @@ class RemoteScanTrainer:
       raise RuntimeError(
           f'all sampling servers dead (last: rank {rank}: {cause}) — '
           'cannot complete the epoch')
-    # the loader.failover span's place
-    for n, j in enumerate(pending):
-      surv = survivors[n % len(survivors)]
-      d = self._schedule[j]
-      d['pid'] = self._replay_pid(surv, d['stream'])
-      d['rank'] = surv
+    fo_span = spans.begin('loader.failover', rank=rank,
+                          cause=str(cause)[:200], blocks=len(pending),
+                          detected_chunk=int(ci),
+                          survivors=list(survivors))
+    try:
+      for n, j in enumerate(pending):
+        surv = survivors[n % len(survivors)]
+        d = self._schedule[j]
+        d['pid'] = self._replay_pid(surv, d['stream'])
+        d['rank'] = surv
+    except BaseException as e:
+      fo_span.attrs['error'] = f'{type(e).__name__}: {e}'
+      raise
+    finally:
+      spans.end(fo_span)
     trace.counter_inc('resilience.failover')
     metrics.inc('remote.failover_blocks', len(pending))
     logger.warning('sampling server rank %d dead (%s): re-replaying %d '
@@ -859,9 +885,11 @@ class RemoteScanTrainer:
     if not self._hb_started:
       self._heartbeat.start()
       self._hb_started = True
+    epoch_no = self._epochs
     full_steps = len(self)
     steps = full_steps
-    if max_steps is not None and max_steps < steps:
+    truncated = max_steps is not None and max_steps < steps
+    if truncated:
       steps = max_steps
     if start_step:
       if start_step not in set(self._block_boundaries()):
@@ -871,13 +899,27 @@ class RemoteScanTrainer:
       if not 0 <= start_step < steps:
         raise ValueError(f'start_step={start_step} outside this '
                          f"epoch's {steps} steps")
+    extra = {'chunk_size': self.chunk_size, 'truncated': truncated}
     if steps <= 0:
       empty = torch.zeros(0, dtype=torch.float32, device=self.device)
+      with epoch_records(self._NAME, epoch_no, self._flight_config(),
+                         extra) as rec:
+        rec['completed'] = True
       return state, empty, empty
-    self._steps_dispatched = start_step
-    state, losses, accs, ovf = self._run_epoch_body(
-        state, steps, full_steps, start_step=start_step,
-        resume_overflow=resume_overflow)
+    extra['start_step'] = start_step
+    # read when the record closes: the epoch's dead ranks
+    extra['dead_ranks'] = dead = {}
+    with epoch_records(self._NAME, epoch_no, self._flight_config(),
+                       extra) as rec:
+      self._steps_dispatched = start_step
+      try:
+        state, losses, accs, ovf = self._run_epoch_body(
+            state, steps, full_steps, start_step=start_step,
+            resume_overflow=resume_overflow)
+        rec['completed'] = True
+      finally:
+        rec['steps'] = steps if rec['completed'] else self._steps_dispatched
+        dead.update({str(r): c for r, c in self._dead_ranks.items()})
     self.last_overflow = ovf
     return state, losses, accs
 
@@ -904,6 +946,7 @@ class RemoteScanTrainer:
       self._graphs, self._warm, self._signature = {}, False, None
     self._stager.begin_epoch(len(self._schedule), start_chunk=start_idx)
     losses, accs = [], []
+    record_dispatch('remote_epoch_begin')
     try:
       with self._trainer_stream():
         ovf = torch.full((), bool(resume_overflow), dtype=torch.bool,
@@ -916,7 +959,9 @@ class RemoteScanTrainer:
           self._poll_liveness(ci)
           slab = self._take_with_failover(ci)
           rec = self._upload(ci, slab, desc['k'])
-          loss, acc, overflow = self._run_chunk(state, desc['k'])
+          record_dispatch('remote_scan_chunk')
+          with spans.span('epoch.chunk', start=desc['step0'], k=desc['k']):
+            loss, acc, overflow = self._run_chunk(state, desc['k'])
           rec['events'].append(self._event())
           # the upload's event: the slot is refilled once it completed
           self._stager.ack(ci, rec['events'][1])
@@ -934,6 +979,8 @@ class RemoteScanTrainer:
             self.ack_hook(ci, desc['step0'], desc['k'])
     finally:
       self._current_chunk = len(self._schedule)
+    if len(losses) > 1:
+      record_dispatch('remote_metrics_concat')
     self.last_epoch_seed_ids = (
         np.concatenate(self._seen_ids) if self._seen_ids
         else np.zeros((0,), np.int64))
@@ -1027,7 +1074,9 @@ class RemoteScanTrainer:
   def _run_chunk(self, state, k: int):
     """One chunk: eagerly (the CPU, ``capture=False``, the warm-up), or
     as a replay of its length's graph, captured at first use."""
+    reg = programs.default_program_registry()
     if not self.capture or not self._warm:
+      reg.on_dispatch('remote_scan_chunk')
       out = self._chunk(state, k)
       if self.capture:
         self._warm = True
@@ -1036,6 +1085,12 @@ class RemoteScanTrainer:
     g = self._graphs.get(k)
     if g is None:
       g = self._graphs[k] = self._capture(state, k)
+      sig = capture_signature(k, {'payload': self._dev_buf[
+          :k * self._layout.step_bytes]}, self.model, state.optimizer)
+      # the capture is the port's compile (its dispatch is the replay)
+      reg.on_compile('remote_scan_chunk', sig, g.capture_ms / 1e3)
+    else:
+      reg.on_dispatch('remote_scan_chunk')
     g.graph.replay()
     self.replays += 1
     ops.add_launch_counts(g.launches)

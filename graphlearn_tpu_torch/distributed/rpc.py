@@ -35,6 +35,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import metrics
+from ..metrics import spans
 from ..utils.faults import fault_point
 
 logger = logging.getLogger('graphlearn_tpu_torch.rpc')
@@ -177,11 +178,16 @@ class RpcServer:
             # armed 'delay' simulates a hung server (liveness-test
             # territory); 'raise' tears the connection down mid-stream
             fault_point('rpc.server.dispatch')
-            # the frame's 'ctx' (a JAX client's span context) is read by
-            # the tracing slice; the handler runs without it here
+            # adopt the caller's span context for the handler: spans it
+            # opens (and anything it propagates onward — mp producer
+            # commands, serving submits) join the caller's trace, so
+            # one request id recovers the whole cross-process tree
+            ctx = req.get('ctx')
             try:
-              fn = outer._handlers[req['func']]
-              result = fn(*req.get('args', ()), **req.get('kwargs', {}))
+              with spans.adopt(ctx), \
+                  spans.span('rpc.server.handle', func=req['func']):
+                fn = outer._handlers[req['func']]
+                result = fn(*req.get('args', ()), **req.get('kwargs', {}))
               _send_frame(sock, {'ok': True, 'result': result})
               # a thread waiting for the next request holds no callee
               # and no result
@@ -320,41 +326,57 @@ class RpcClient:
                timeout: Optional[float]):
     """One request/response round trip on the pooled connection."""
     t0 = time.perf_counter()
+    # one client span per round trip, carrying the current trace (or
+    # this process's run_id) over the wire in the frame's ctx field —
+    # the server adopts it for the handler, so client and server spans
+    # of one request join on the same id
+    sp = spans.begin('rpc.client.request', rank=rank, func=func)
+    # the span closes in ONE place (the finally) so no raise can leak
+    # it; each path records its outcome by rebinding end_kw first
+    end_kw = {'ok': False, 'error': 'client'}
     try:
-      fault_point('rpc.client.request')
-      sock = self._conn(rank, connect_timeout=timeout)
-      if timeout is not None:
-        sock.settimeout(timeout)
-      # 'ctx' keeps JAX's frame shape (a JAX server adopts it as a span
-      # context); the port carries no span yet
-      _send_frame(sock, {'func': func, 'args': args, 'kwargs': kwargs,
-                         'ctx': None})
-      resp = _recv_frame(sock)
-      fault_point('rpc.client.response')
-      if timeout is not None:
-        sock.settimeout(180)
-    except socket.timeout as e:
-      # normalize to TimeoutError so retry_on and callers see one type
-      self._drop_conn(rank)
-      raise TimeoutError(
-          f'rpc to rank {rank} func {func!r} timed out after '
-          f'{timeout}s') from e
-    except (ConnectionError, EOFError, OSError):
-      # a broken pooled connection must not poison the next attempt
-      self._drop_conn(rank)
-      raise
-    if not resp['ok']:
-      factory = _WIRE_ERRORS.get(resp.get('etype'))
-      if factory is not None:
-        # typed rejection: reconstruct it so callers can distinguish a
-        # retryable throttle from a remote fault
-        raise factory(resp.get('payload') or {})
-      raise RuntimeError(
-          f'remote error from rank {rank}: {resp["error"]}')
-    # successful round trips feed the request latency histogram
-    metrics.observe('rpc.client.request_ms',
-                    (time.perf_counter() - t0) * 1e3)
-    return resp['result']
+      try:
+        fault_point('rpc.client.request')
+        sock = self._conn(rank, connect_timeout=timeout)
+        if timeout is not None:
+          sock.settimeout(timeout)
+        _send_frame(sock, {'func': func, 'args': args, 'kwargs': kwargs,
+                           'ctx': {'trace': sp.trace,
+                                   'span': sp.span_id}})
+        resp = _recv_frame(sock)
+        fault_point('rpc.client.response')
+        if timeout is not None:
+          sock.settimeout(180)
+      except socket.timeout as e:
+        # normalize to TimeoutError so retry_on and callers see one type
+        end_kw = {'ok': False, 'error': 'timeout'}
+        self._drop_conn(rank)
+        raise TimeoutError(
+            f'rpc to rank {rank} func {func!r} timed out after '
+            f'{timeout}s') from e
+      except BaseException as e:
+        end_kw = {'ok': False, 'error': type(e).__name__}
+        # a broken pooled connection must not poison the next attempt
+        if isinstance(e, (ConnectionError, EOFError, OSError)):
+          self._drop_conn(rank)
+        raise
+      if not resp['ok']:
+        end_kw = {'ok': False, 'error': 'remote'}
+        factory = _WIRE_ERRORS.get(resp.get('etype'))
+        if factory is not None:
+          # typed rejection: reconstruct it so callers can distinguish
+          # a retryable throttle from a remote fault
+          end_kw = {'ok': False, 'error': str(resp.get('etype'))}
+          raise factory(resp.get('payload') or {})
+        raise RuntimeError(
+            f'remote error from rank {rank}: {resp["error"]}')
+      end_kw = {'ok': True}
+      # successful round trips feed the request latency histogram
+      metrics.observe('rpc.client.request_ms',
+                      (time.perf_counter() - t0) * 1e3)
+      return resp['result']
+    finally:
+      spans.end(sp, **end_kw)
 
   def request_sync(self, rank: int, func: str, *args,
                    timeout: Optional[float] = None,

@@ -28,8 +28,8 @@ turns that contention into a bounded, observable condition:
   quota state) instead of stalling.
 
 The scheduler and the admission state run on the sampling servers' RPC
-threads and touch no device. Not ported: the ``tenant.throttle`` span
-(the tracing slice); the wait is measured all the same.
+threads and touch no device. A client's throttle wait is a
+``tenant.throttle`` span.
 """
 import itertools
 import threading
@@ -38,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 from .. import metrics
+from ..metrics import spans
 from ..utils.faults import fault_point
 from .rpc import register_wire_error
 
@@ -513,7 +514,9 @@ def with_backpressure(fn: Callable, describe: str = '',
   exponential backoff — the client half of the backpressure contract.
 
   Every throttle episode records its wait in ``tenant.backpressure_ms``
-  (``tenant`` names the caller's tenant for the span JAX also emits).
+  and a ``tenant.throttle`` span carrying the tenant and the rejected
+  resource, parented under whatever span is current (the epoch root on
+  the dispatch thread; the stager worker adopts the epoch context).
   When the cumulative wait exceeds ``budget_s`` the tenant fails
   LOUDLY: :class:`TenantStarvedError` with the server's last quota
   snapshot aboard — never a silent stall, never an opaque
@@ -535,8 +538,10 @@ def with_backpressure(fn: Callable, describe: str = '',
         raise TenantStarvedError(describe or 'backpressured call',
                                  e, waited) from e
       t0 = time.perf_counter()
-      # the tenant.throttle span's place (tenant, resource, attempt)
-      time.sleep(delay)
+      with spans.span('tenant.throttle',
+                      tenant=str(tenant or e.tenant),
+                      resource=e.resource, attempt=attempt):
+        time.sleep(delay)
       wait_ms = (time.perf_counter() - t0) * 1e3
       metrics.observe('tenant.backpressure_ms', wait_ms)
       waited += delay

@@ -9,8 +9,9 @@ collates each batch (node features and labels, and the edge features of
 ``frontier_caps``. Under a padded-window sampler every epoch after the
 first starts with a reseed of the padded table (``_begin_epoch``).
 ``state_dict`` / ``load_state_dict`` resume mid-epoch (the batcher and
-the sampler's stream). The JAX loader's flight recorder and metrics are
-not ported.
+the sampler's stream). Each epoch of ``__iter__`` writes one flight
+record (``metrics.flight``, under ``GLT_RUN_LOG``) and each batch runs
+under a ``glt_batch`` step annotation, as in JAX.
 """
 from typing import Optional
 import warnings
@@ -20,8 +21,9 @@ import torch
 
 from .. import ops
 from ..data import Dataset
+from ..metrics import flight
 from ..sampler import NodeSamplerInput
-from ..utils import resolve_device
+from ..utils import resolve_device, step_annotation
 from .transform import to_data, to_hetero_data
 
 
@@ -269,24 +271,46 @@ class NodeLoader(OverflowGuardMixin):
 
   def __iter__(self):
     self._begin_epoch()
+    # overflow-policy resolve BEFORE the flight bracket opens: a config
+    # error raising here must not leave a permanently-open record
     guarded, recompute = self._overflow_epoch_start()
-    for idx in self._batcher:
-      inp = NodeSamplerInput(self.input_seeds[idx], self.input_type)
-      if recompute:
-        key = self.sampler._next_key()
-        out = self.sampler.sample_from_nodes(inp, batch_cap=self.batch_size,
-                                             key=key)
-        if self._batch_overflowed(out):
-          self.overflow_recomputes += 1
-          out = self._replay_sampler().sample_from_nodes(
-              inp, batch_cap=self.batch_size, key=key)
-      else:
-        out = self.sampler.sample_from_nodes(inp, batch_cap=self.batch_size)
-        if guarded:
-          self._accumulate_overflow(out)
-      yield self._collate_fn(out)
-    if guarded and not recompute:
-      self._finish_epoch_overflow()
+    tok = flight.epoch_begin()
+    steps, completed = 0, False
+    try:
+      for i, idx in enumerate(self._batcher):
+        with step_annotation('glt_batch', i):
+          inp = NodeSamplerInput(self.input_seeds[idx], self.input_type)
+          if recompute:
+            key = self.sampler._next_key()
+            out = self.sampler.sample_from_nodes(
+                inp, batch_cap=self.batch_size, key=key)
+            if self._batch_overflowed(out):
+              self.overflow_recomputes += 1
+              out = self._replay_sampler().sample_from_nodes(
+                  inp, batch_cap=self.batch_size, key=key)
+          else:
+            out = self.sampler.sample_from_nodes(
+                inp, batch_cap=self.batch_size)
+            if guarded:
+              self._accumulate_overflow(out)
+          batch = self._collate_fn(out)
+        yield batch
+        steps += 1
+      completed = True
+      if guarded and not recompute:
+        self._finish_epoch_overflow()
+    finally:
+      # one flight record per per-step epoch: host-side counter deltas
+      # only, nothing launched or read back
+      flight.end_for(
+          self, tok, steps=steps, completed=completed,
+          config=dict(loader=type(self).__name__,
+                      batch_size=self.batch_size,
+                      shuffle=self._batcher.shuffle,
+                      drop_last=self._batcher.drop_last,
+                      seed=self._batcher.seed,
+                      num_neighbors=getattr(self.sampler,
+                                            'num_neighbors', None)))
 
   def _collate_fn(self, out):
     """The fused collate over device-resident tables; a store with a host

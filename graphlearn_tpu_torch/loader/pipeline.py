@@ -12,8 +12,8 @@ graph (or run it eagerly).
 
 ``OverlappedTrainer`` trains batch n while batch n+1 is sampled and
 collated. JAX puts both in one program and leaves the overlap to XLA;
-here the sampling runs on a second CUDA stream. Not ported: its flight
-records.
+here the sampling runs on a second CUDA stream. Each epoch writes one
+flight record (``metrics.flight``).
 
 ``DistFusedEpochTrainer`` is the distributed counterpart of
 ``FusedEpochTrainer`` (``graphlearn_tpu/loader/pipeline.py:267``): the
@@ -31,6 +31,7 @@ import torch
 
 from .. import ops
 from .. import random as trandom
+from ..metrics import flight
 from ..models import train as train_lib
 from .link_loader import LinkLoader
 from .node_loader import NodeLoader
@@ -458,29 +459,43 @@ class OverlappedTrainer(FusedEpochTrainer):
       if self._side is None:
         self._side = torch.cuda.Stream(device)
       self._side.wait_stream(main)
-    losses, truncated = [], False
+    flight_tok = flight.epoch_begin()
+    losses, truncated, completed = [], False, False
     ovf = torch.zeros((), dtype=torch.bool, device=device)  # trained ones'
     batch = pending = ready = None
     try:
-      for padded, mask in self._seed_batches():
-        nxt = self._prefetch(padded, mask)
-        if batch is not None:
+      try:
+        for padded, mask in self._seed_batches():
+          nxt = self._prefetch(padded, mask)
+          if batch is not None:
+            state, loss = self._train(state, batch, pending, ready)
+            ovf = ovf | pending
+            losses.append(loss)
+          batch, pending, ready = nxt
+          if max_steps is not None and losses and len(losses) >= max_steps:
+            truncated = True   # the pending batch is dropped, flag and all
+            break
+        if batch is not None and not truncated:
           state, loss = self._train(state, batch, pending, ready)
           ovf = ovf | pending
           losses.append(loss)
-        batch, pending, ready = nxt
-        if max_steps is not None and losses and len(losses) >= max_steps:
-          truncated = True   # the pending batch is dropped, flag and all
-          break
-      if batch is not None and not truncated:
-        state, loss = self._train(state, batch, pending, ready)
-        ovf = ovf | pending
-        losses.append(loss)
+      finally:
+        if main is not None:
+          main.wait_stream(self._side)
+      completed = True
+      if guarded:
+        self.loader._ovf_accum = ovf
+        if not truncated:
+          self.loader._finish_epoch_overflow()
     finally:
-      if main is not None:
-        main.wait_stream(self._side)
-    if guarded:
-      self.loader._ovf_accum = ovf
-      if not truncated:
-        self.loader._finish_epoch_overflow()
+      # per-epoch flight record — host deltas only; a mid-epoch failure
+      # still records, with completed=False
+      flight.end_for(
+          self, flight_tok, emitter=self._NAME, steps=len(losses),
+          completed=completed,
+          config=dict(trainer=self._NAME, batch_size=self._batch_size,
+                      fanouts=list(self._sampler.num_neighbors),
+                      num_classes=self.num_classes,
+                      seed=self.loader._batcher.seed),
+          extra={'truncated': truncated})
     return state, losses

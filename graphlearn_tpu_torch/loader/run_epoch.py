@@ -58,8 +58,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import ops
+from .. import metrics, ops
 from .. import random as trandom
+from ..metrics import spans
 from ..models import train as train_lib
 from .node_loader import NodeLoader
 from .scan_epoch import ScanTrainer
@@ -89,6 +90,7 @@ class RunTrainer(ScanTrainer):
   """
 
   _NAME = 'RunTrainer'
+  _SITES = ('run_epoch_seeds', 'run_scan_chunk', 'run_metrics_concat')
 
   def __init__(self, loader: NodeLoader, model, num_classes: int,
                chunk_size: int = 32, epochs: int = 1,
@@ -143,11 +145,17 @@ class RunTrainer(ScanTrainer):
 
   def run_epoch(self, state, max_steps: Optional[int] = None,
                 start_step: int = 0, resume_overflow: bool = False):
+    metrics.inc('run.runs')
+    metrics.inc('run.epochs_scheduled', self.epochs)
     # a zero-step run returns before the body sets a report
     self.last_run_report = None
-    return super().run_epoch(state, max_steps=max_steps,
-                             start_step=start_step,
-                             resume_overflow=resume_overflow)
+    # the run's span: the inherited epoch.run / epoch.chunk spans parent
+    # under it
+    with spans.span('run.train', emitter=self._NAME, epochs=self.epochs,
+                    epoch0=self._epochs):
+      return super().run_epoch(state, max_steps=max_steps,
+                               start_step=start_step,
+                               resume_overflow=resume_overflow)
 
   def _prologue(self, full_steps: int):
     steps = full_steps // self.epochs

@@ -71,8 +71,18 @@ Padded-window sampling: every epoch starts with the loader's
 on each later one), as in JAX. JAX re-fetches the table for each epoch's
 program; a CUDA graph keeps the addresses it captured, so the sampler
 rebuilds the table into the same tensors and every replay samples the
-epoch's table. Not ported: spans and flight records,
-the program observatory, the tuned ``config=`` and the fault sites.
+epoch's table.
+
+Observability is JAX's, on the host only: each epoch writes one flight
+record (``metrics.flight``, under ``GLT_RUN_LOG``) inside an
+``epoch.run`` span, each chunk's enqueue runs under an ``epoch.chunk``
+span, and the dispatch sites (``utils.trace.record_dispatch``: the seed
+prologue, each chunk — a replay or an eager run — and the metrics
+concat) and the captures (``metrics.programs``: a capture is the port's
+compile, the chunk length and the static buffers' shapes its signature)
+are counted. None of it reads the card or launches anything, and none
+of it runs inside a capture. Not ported: the tuned ``config=`` and the
+fault sites.
 
 ``DistScanTrainer`` (``graphlearn_tpu/loader/scan_epoch.py:536``) runs
 the same frame over a collocated ``DistNeighborLoader``: the prologue
@@ -111,6 +121,8 @@ import torch
 
 from .. import ops
 from .. import random as trandom
+from ..metrics import flight, programs, spans
+from ..utils.trace import record_dispatch
 from .node_loader import NodeLoader
 from .pipeline import (_RECOMPUTE_MSG, DistFusedEpochTrainer,
                        FusedEpochTrainer, shard_batches)
@@ -195,6 +207,50 @@ def _replay_signature(model, optimizer) -> tuple:
           groups)
 
 
+def capture_signature(k: int, buffers: dict, model, optimizer) -> tuple:
+  """The program observatory's signature of a ``k``-step capture: the
+  chunk length, each captured buffer's dtype and shape (by name), and
+  what the graph freezes of the train state — the optimizer, the
+  storage of the parameters and of its state, and each group's
+  hyperparameters (one leaf each, so a recapture's diff names the one
+  that changed)."""
+
+  def digest(v) -> str:
+    return hashlib.sha1(repr(v).encode()).hexdigest()[:12]
+
+  frozen = _replay_signature(model, optimizer)
+  leaves = [f'static:k={k}']
+  leaves += [f'{n}:{programs.signature_of((t,), {})[0]}'
+             for n, t in sorted(buffers.items())]
+  leaves.append(f'static:optimizer={type(optimizer).__name__}'
+                f'@{frozen[0]:x}')
+  leaves.append(f'static:params@{digest(frozen[1])}')
+  for i, (hyper, state) in enumerate(frozen[2]):
+    leaves += [f'static:group{i}.{n}={v!r}' for n, v in hyper]
+    leaves.append(f'static:group{i}.state@{digest(state)}')
+  return tuple(leaves)
+
+
+@contextlib.contextmanager
+def epoch_records(emitter: str, epoch: int, config: dict, extra: dict):
+  """An epoch's flight record and its ``epoch.run`` span, JAX's
+  bracketing of ``ScanTrainer.run_epoch``: opened after the step
+  arithmetic, so nothing before them can raise with either open, and
+  closed once, in the finally, so a failed epoch still records
+  (``completed=False``). Yields a dict the body sets ``steps`` and
+  ``completed`` in. Host state only."""
+  tok = flight.epoch_begin()
+  sp = spans.begin('epoch.run', emitter=emitter, epoch=epoch)
+  rec = {'steps': 0, 'completed': False}
+  try:
+    yield rec
+  finally:
+    spans.end(sp, steps=rec['steps'], completed=rec['completed'])
+    flight.epoch_end(tok, emitter=emitter, epoch=epoch, steps=rec['steps'],
+                     completed=rec['completed'], config=config,
+                     extra=extra)
+
+
 def _recovery_config_for(trainer) -> dict:
   """The snapshot-fingerprint config (``recovery/checkpoint.py``): the
   flight grouping config plus every knob that decides the replayed
@@ -236,6 +292,9 @@ class ScanTrainer(FusedEpochTrainer):
   """
 
   _NAME = 'ScanTrainer'
+  # the dispatch sites (record_dispatch and the program observatory):
+  # the seed prologue, each chunk, the losses' concat
+  _SITES = ('epoch_seeds', 'scan_chunk', 'metrics_concat')
 
   # chunk-boundary hooks (``recovery.ChunkCheckpointer`` attaches to
   # ack_hook): ``stage_hook(c, start, k)`` runs on the host before chunk
@@ -352,20 +411,49 @@ class ScanTrainer(FusedEpochTrainer):
       if not 0 <= start_step < steps:
         raise ValueError(f'start_step={start_step} outside this epoch\'s '
                          f'{steps} steps')
+    epoch_no = self._epochs
+    extra = {'chunk_size': self.chunk_size, 'truncated': truncated}
     if steps <= 0:
       empty = torch.zeros(0, dtype=torch.float32, device=self._device)
+      # zero-step epochs still record (the per-step loop writes a
+      # steps=0 line), so flight epoch counts line up across drivers
+      with epoch_records(self._NAME, epoch_no, self._flight_config(),
+                         extra) as rec:
+        rec['completed'] = True
+        if guarded and not truncated:
+          self._zero_step_overflow()
+        self._epoch_end_publish()
       return state, empty, empty
-    # the resume point, until a chunk is enqueued: a body that fails
-    # reads as the boundary it reached
-    self._steps_dispatched = start_step
-    state, losses, accs, ovf = self._run_epoch_body(
-        state, steps, full_steps, start_step=start_step,
-        resume_overflow=resume_overflow)
-    if guarded:
-      self.loader._ovf_accum = ovf
-      if not truncated:
-        self.loader._finish_epoch_overflow()
+    extra['start_step'] = start_step
+    with epoch_records(self._NAME, epoch_no, self._flight_config(),
+                       extra) as rec:
+      # the resume point, until a chunk is enqueued: a body that fails
+      # reads as the boundary it reached
+      self._steps_dispatched = start_step
+      try:
+        state, losses, accs, ovf = self._run_epoch_body(
+            state, steps, full_steps, start_step=start_step,
+            resume_overflow=resume_overflow)
+        rec['completed'] = True
+        if guarded:
+          self.loader._ovf_accum = ovf
+          if not truncated:
+            self.loader._finish_epoch_overflow()
+      finally:
+        rec['steps'] = steps if rec['completed'] else self._steps_dispatched
+        # before the record: its feature fields are the published
+        # counters (the distributed trainer's stores)
+        self._epoch_end_publish()
     return state, losses, accs
+
+  def _zero_step_overflow(self):
+    """A zero-step epoch's overflow close (the distributed trainer's;
+    the local trainers close nothing)."""
+
+  def _epoch_end_publish(self):
+    """Once per epoch, before its flight record: publish what the
+    epoch accumulated on the card (nothing here; the distributed
+    trainer's feature stores)."""
 
   @property
   def capture_ms(self) -> dict:
@@ -378,6 +466,7 @@ class ScanTrainer(FusedEpochTrainer):
     if self._seeds_dev is None:
       self._seeds_dev = torch.as_tensor(
           np.asarray(self.loader.input_seeds, dtype=np.int32)).to(device)
+    record_dispatch(self._SITES[0])
     seed_mat, mask_mat = self._prologue(full_steps)
     base_key = trandom.to_device(self._sampler._key, device)
     count0 = self._sampler._call_count + 1
@@ -386,6 +475,7 @@ class ScanTrainer(FusedEpochTrainer):
       # the graphs froze another state: warm up again and recapture
       self._graphs, self._static, self._signature = {}, None, None
     losses, accs = [], []
+    site_chunk = self._SITES[1]
     with self._capture_stream():
       ovf = torch.full((), bool(resume_overflow), dtype=torch.bool,
                        device=device)
@@ -397,9 +487,15 @@ class ScanTrainer(FusedEpochTrainer):
           self.stage_hook(c, start, k)
         args = self._chunk_args(seed_mat, mask_mat, base_key,
                                 count0 + start, start, k)
-        # with capture, the first chunk runs eagerly: the warm-up
-        run = self._chunk if self._static is None else self._replay
-        loss, acc, overflow, _ = run(state, **args)
+        record_dispatch(site_chunk)
+        # the span times the host's enqueue of the chunk (a replay, or
+        # with capture first the warm-up and each length's capture)
+        with spans.span('epoch.chunk', start=start, k=k):
+          if self._static is None:   # eager: the CPU, or the warm-up
+            programs.default_program_registry().on_dispatch(site_chunk)
+            loss, acc, overflow, _ = self._chunk(state, **args)
+          else:
+            loss, acc, overflow, _ = self._replay(state, **args)
         self._chunk_enqueued(c)
         if self.capture and self._static is None:
           self._static = {
@@ -417,6 +513,8 @@ class ScanTrainer(FusedEpochTrainer):
               full_steps=full_steps, start_step=start_step)
           self.ack_hook(c, start, k)
     self._end_run()
+    if len(losses) > 1:
+      record_dispatch(self._SITES[2])
     # keep the host fold_in stream aligned with what the run consumed
     self._sampler._call_count += steps
     self._epochs += self._epochs_per_run
@@ -485,11 +583,23 @@ class ScanTrainer(FusedEpochTrainer):
     for n, t in args.items():
       (st[n][:k] if n in _ROWS else st[n]).copy_(t)
     g = self._graphs.get(k)
+    reg = programs.default_program_registry()
     if g is None:
       g = self._graphs[k] = self._capture(state, k)
+      sig = capture_signature(k, dict(self._capture_buffers(k)),
+                              self.model, state.optimizer)
+      # the capture is the port's compile (its dispatch is the replay)
+      reg.on_compile(self._SITES[1], sig, g.capture_ms / 1e3)
+    else:
+      reg.on_dispatch(self._SITES[1])
     g.graph.replay()
     ops.add_launch_counts(g.launches)
     return g.losses.clone(), g.accs.clone(), g.ovf.clone(), g.keys
+
+  def _capture_buffers(self, k: int):
+    """``(name, tensor)`` of what a ``k``-step graph reads that a
+    replay refills: the static buffers (and the tiered trainer's slab)."""
+    return [(n, t[:k] if n in _ROWS else t) for n, t in self._static.items()]
 
   def _capture(self, state, k: int) -> _ChunkGraph:
     """Capture a ``k``-step chunk over the static buffers
@@ -581,6 +691,7 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
   """
 
   _NAME = 'DistScanTrainer'
+  _SITES = ('dist_epoch_seeds', 'dist_scan_chunk', 'dist_metrics_concat')
 
   def __init__(self, loader, model, num_classes: int,
                chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
@@ -669,6 +780,16 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
 
   def _begin_epoch(self):
     """No padded table on the distributed path."""
+
+  def _zero_step_overflow(self):
+    # the per-step loop's zero-batch epoch closes its guard too
+    self.loader._finish_epoch_overflow()
+
+  def _epoch_end_publish(self):
+    """The stores' counters into the registry, also when the epoch
+    failed (a dropped partial epoch publishes zeros), as JAX's trainer
+    and the per-step loop do: one device read per store."""
+    self.loader._publish_feature_stats()
 
   # --------------------------------------------------------------- chunk
 

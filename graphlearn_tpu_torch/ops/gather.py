@@ -28,9 +28,12 @@ gather's output). Each v2 call bumps the reference's counter
 ``ops.gather_runs`` when it launches its kernel and
 ``ops.gather_fallbacks`` when it does not (CPU tensors, empty ids).
 """
+import time
+
 import torch
 
 from .. import metrics
+from ..utils.trace import record_dispatch
 from . import kernels, mapped
 
 # launches of the CUDA kernels (plain-version calls do not count)
@@ -359,8 +362,13 @@ def gather_rows_hbm2(table: torch.Tensor, ids: torch.Tensor,
     metrics.inc('ops.gather_fallbacks')
     return gather_rows_hbm2_plain(table, ids, block_rows, run_span,
                                   presorted)
+  t0 = time.perf_counter()
+  record_dispatch('gather2')
   out = _gather_runs_launch(table, ids, block_rows, run_span)
   metrics.inc('ops.gather_runs' if ids.shape[0] else 'ops.gather_fallbacks')
+  # the host's enqueue time, not the card's: a liveness / regression
+  # signal, never a throughput claim
+  metrics.observe('ops.gather_ms', (time.perf_counter() - t0) * 1e3)
   return out
 
 

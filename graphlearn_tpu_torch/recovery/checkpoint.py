@@ -40,8 +40,9 @@ A snapshot holds each parameter by its ``named_parameters()`` name
 arrays; the meta holds ``TrainState.step``, the groups' learning rates,
 the overflow flag, the epoch position and the sampler's ``state_dict()``.
 The metrics go through ``graphlearn_tpu_torch.metrics`` under JAX's
-names. Not ported: the ``checkpoint.save`` / ``recovery.resume`` spans
-and flight records, and the fault sites.
+names, and each snapshot write is a ``checkpoint.save`` span and each
+resume a ``recovery.resume`` span (the resumed epoch's ``epoch.run``
+under it). Not ported: the fault sites.
 """
 import hashlib
 import json
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import metrics
+from ..metrics import spans
 from . import snapshot as snapshot_lib
 from .snapshot import Snapshot, TornSnapshotError
 
@@ -411,13 +413,15 @@ class ChunkCheckpointer:
     try:
       meta, arrays = boundary.resolve()
       with self._wlock:
-        t0 = time.perf_counter()
-        _, nbytes = snapshot_lib.write_snapshot(self.directory, meta,
-                                                arrays)
-        metrics.observe('checkpoint.save_ms',
-                        (time.perf_counter() - t0) * 1e3)
-        metrics.inc('checkpoint.saves')
-        metrics.inc('checkpoint.bytes', nbytes)
+        with spans.span('checkpoint.save', epoch=meta['epoch'],
+                        next_start=meta['next_start'], sync=sync):
+          t0 = time.perf_counter()
+          _, nbytes = snapshot_lib.write_snapshot(self.directory, meta,
+                                                  arrays)
+          metrics.observe('checkpoint.save_ms',
+                          (time.perf_counter() - t0) * 1e3)
+          metrics.inc('checkpoint.saves')
+          metrics.inc('checkpoint.bytes', nbytes)
         self._prune()
     except Exception as e:
       # a failed save degrades (later boundaries write inline) but never
@@ -507,15 +511,18 @@ class ChunkCheckpointer:
       return state, saved_losses, saved_accs
     trainer._recovery_load(meta, extras)
     k = int(meta['chunk_size'])
-    metrics.inc('recovery.resume_chunks', -(-(steps - next_start) // k))
+    replay_chunks = -(-(steps - next_start) // k)
+    metrics.inc('recovery.resume_chunks', replay_chunks)
     max_steps = steps if steps < int(meta['full_steps']) else None
     trainer._recovery_prefix = dict(epoch=int(meta['epoch']),
                                     start_step=next_start,
                                     losses=saved_losses, accs=saved_accs)
     try:
-      state, losses, accs = trainer.run_epoch(
-          state, max_steps=max_steps, start_step=next_start,
-          resume_overflow=bool(meta.get('overflow', False)))
+      with spans.span('recovery.resume', epoch=meta['epoch'],
+                      start_step=next_start, replay_chunks=replay_chunks):
+        state, losses, accs = trainer.run_epoch(
+            state, max_steps=max_steps, start_step=next_start,
+            resume_overflow=bool(meta.get('overflow', False)))
     finally:
       trainer._recovery_prefix = None
     return (state,

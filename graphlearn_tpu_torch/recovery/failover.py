@@ -25,8 +25,9 @@ the unit of loss on a shard death is at most one chunk.
 
 ``metrics.inc('recovery.rollbacks')`` counts the rollbacks, and every
 rollback passes the ``recovery.roll_back`` fault site
-(:meth:`FailoverRunner._roll_back_fault`). Not ported: the
-``loader.failover`` span (the tooling slice).
+(:meth:`FailoverRunner._roll_back_fault`). Each rollback opens a
+``loader.failover`` span that the replacement trainer's epoch parents
+under.
 """
 import logging
 from typing import Any, Callable, List, Optional
@@ -35,6 +36,7 @@ import numpy as np
 
 from .. import metrics
 from .. import random as trandom
+from ..metrics import spans
 from ..utils.faults import fault_point
 from .checkpoint import ChunkCheckpointer, _load_train_state
 
@@ -156,70 +158,81 @@ class FailoverRunner:
     failures = 0
     state_in = state
     ovf0 = False
-    while True:
-      ckpt = ChunkCheckpointer(None, every=1, mem_every=1)
-      prev_stage = self._install_liveness_hook(trainer)
-      ckpt.attach(trainer)
-      rolled = None
-      try:
-        # a shard already dead at the epoch's start: its whole share
-        # fails over before anything is enqueued
-        if self.liveness is not None:
-          for rank, cause in self.liveness.dead_ranks().items():
-            if rank not in self._handled:
-              raise ShardDeadError(rank, cause, chunk=0)
-        state_out, losses, accs = trainer.run_epoch(
-            state_in, resume_overflow=ovf0)
-        losses = losses.detach().cpu().numpy().astype(np.float32)
-        accs = accs.detach().cpu().numpy().astype(np.float32)
-        losses_parts.append(losses)
-        accs_parts.append(accs)
-        report['segments'].append(dict(num_parts=trainer._nparts,
-                                       steps=int(losses.shape[0])))
-        return (state_out, np.concatenate(losses_parts),
-                np.concatenate(accs_parts), report)
-      except ShardDeadError as e:
-        failures += 1
-        self._handled.add(e.rank)
-        if failures > self.max_failovers:
-          raise
-        self._roll_back_fault()
-        metrics.inc('recovery.rollbacks')
-        rolled = ckpt.latest_mem
-        boundary = (int(rolled.meta['next_start'])
-                    if rolled is not None else 0)
-        k = trainer.chunk_size
-        logger.warning(
-            'shard rank %d died (%s): rolling back to chunk boundary %d '
-            '(step %d) and re-slicing over %d survivors', e.rank, e.cause,
-            boundary // k, boundary, survivors - 1)
-        rem = remaining_seeds(trainer, boundary)
+    open_spans = []
+    try:
+      while True:
+        ckpt = ChunkCheckpointer(None, every=1, mem_every=1)
+        prev_stage = self._install_liveness_hook(trainer)
+        ckpt.attach(trainer)
+        rolled = None
+        try:
+          # a shard already dead at the epoch's start: its whole share
+          # fails over before anything is enqueued
+          if self.liveness is not None:
+            for rank, cause in self.liveness.dead_ranks().items():
+              if rank not in self._handled:
+                raise ShardDeadError(rank, cause, chunk=0)
+          state_out, losses, accs = trainer.run_epoch(
+              state_in, resume_overflow=ovf0)
+          losses = losses.detach().cpu().numpy().astype(np.float32)
+          accs = accs.detach().cpu().numpy().astype(np.float32)
+          losses_parts.append(losses)
+          accs_parts.append(accs)
+          report['segments'].append(dict(num_parts=trainer._nparts,
+                                         steps=int(losses.shape[0])))
+          return (state_out, np.concatenate(losses_parts),
+                  np.concatenate(accs_parts), report)
+        except ShardDeadError as e:
+          failures += 1
+          self._handled.add(e.rank)
+          if failures > self.max_failovers:
+            raise
+          self._roll_back_fault()
+          metrics.inc('recovery.rollbacks')
+          rolled = ckpt.latest_mem
+          boundary = (int(rolled.meta['next_start'])
+                      if rolled is not None else 0)
+          k = trainer.chunk_size
+          # the rollback's span: the replacement trainer's epoch.run span
+          # parents under it (it stays open until the run ends)
+          open_spans.append(spans.begin(
+              'loader.failover', rank=e.rank, cause=str(e.cause)[:200],
+              rolled_back_chunk=boundary // k, detected_chunk=e.chunk,
+              survivors=survivors - 1))
+          logger.warning(
+              'shard rank %d died (%s): rolling back to chunk boundary %d '
+              '(step %d) and re-slicing over %d survivors', e.rank, e.cause,
+              boundary // k, boundary, survivors - 1)
+          rem = remaining_seeds(trainer, boundary)
+          if rolled is not None:
+            losses_parts.append(np.asarray(rolled.arrays['losses']))
+            accs_parts.append(np.asarray(rolled.arrays['accs']))
+            ovf0 = bool(rolled.meta['overflow'])
+          report['segments'].append(dict(num_parts=trainer._nparts,
+                                         steps=boundary))
+          report['failovers'].append(
+              dict(rank=e.rank, cause=str(e.cause)[:200],
+                   rolled_back_chunk=boundary // k, detected_chunk=e.chunk,
+                   remaining_seeds=len(rem), survivors=survivors - 1))
+          survivors -= 1
+          if survivors < 1:
+            raise
+        finally:
+          ckpt.detach()
+          trainer.stage_hook = prev_stage
+        # the old trainer's graphs go before the replacement captures its
+        # own on the same card
+        trainer._drop_graphs()
+        trainer = self.rebuild(rem, survivors)
+        if trainer.loader.shuffle:
+          raise ValueError('rebuild() must return a shuffle=False loader '
+                           'over the seeds it was handed: a reshuffle would '
+                           'break exact-once coverage')
         if rolled is not None:
-          losses_parts.append(np.asarray(rolled.arrays['losses']))
-          accs_parts.append(np.asarray(rolled.arrays['accs']))
-          ovf0 = bool(rolled.meta['overflow'])
-        report['segments'].append(dict(num_parts=trainer._nparts,
-                                       steps=boundary))
-        report['failovers'].append(
-            dict(rank=e.rank, cause=str(e.cause)[:200],
-                 rolled_back_chunk=boundary // k, detected_chunk=e.chunk,
-                 remaining_seeds=len(rem), survivors=survivors - 1))
-        survivors -= 1
-        if survivors < 1:
-          raise
-      finally:
-        ckpt.detach()
-        trainer.stage_hook = prev_stage
-      # the old trainer's graphs go before the replacement captures its
-      # own on the same card
-      trainer._drop_graphs()
-      trainer = self.rebuild(rem, survivors)
-      if trainer.loader.shuffle:
-        raise ValueError('rebuild() must return a shuffle=False loader '
-                         'over the seeds it was handed: a reshuffle would '
-                         'break exact-once coverage')
-      if rolled is not None:
-        if not _holds(state_in.optimizer, trainer.model):
-          from ..models.train import create_train_state
-          state_in = create_train_state(trainer.model)
-        state_in = _load_train_state(trainer.model, state_in, rolled)
+          if not _holds(state_in.optimizer, trainer.model):
+            from ..models.train import create_train_state
+            state_in = create_train_state(trainer.model)
+          state_in = _load_train_state(trainer.model, state_in, rolled)
+    finally:
+      for sp in reversed(open_spans):
+        spans.end(sp)

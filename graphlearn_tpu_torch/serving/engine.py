@@ -20,8 +20,12 @@ enqueues host ids, and each batch ends in one ``store.fetch`` (a
 synchronising copy to the host). Metrics go to the port's registry:
 ``serving.requests`` / ``batches`` / ``refreshed`` counters and the
 ``serving.queue_wait_ms`` / ``batch_fill`` / ``compute_ms`` /
-``total_ms`` histograms. Spans and the tuned ``config=`` artifact come
-with the tooling slice.
+``total_ms`` histograms. Spans as JAX's: a ``serving.request`` span
+opens on the submitting thread (so it joins the caller's trace, the
+``serve`` RPC handler's adopted context included) and closes at respond
+time, with ``serving.queue`` / ``serving.batch`` / ``serving.compute`` /
+``serving.respond`` under it. The tuned ``config=`` artifact is not
+ported.
 """
 import queue
 import threading
@@ -32,17 +36,23 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from .. import metrics
+from ..metrics import spans
 
 DEFAULT_BUCKETS = (16, 64, 256)
 
 
 class _Request:
-  __slots__ = ('ids', 'future', 't0')
+  __slots__ = ('ids', 'future', 't0', 'span')
 
   def __init__(self, ids: np.ndarray):
     self.ids = ids
     self.future: Future = Future()
     self.t0 = time.perf_counter()
+    # the request span opens on the SUBMITTING thread (so it inherits
+    # the caller's trace) but is closed by the dispatcher at respond
+    # time: attach=False keeps it off the submitter's context stack
+    self.span = spans.begin('serving.request', attach=False,
+                            n=int(ids.size))
 
 
 class ServingEngine:
@@ -238,26 +248,45 @@ class ServingEngine:
     if not batch:
       return
     t_batch = time.perf_counter()
+    t_batch_unix = time.time()
     for r in batch:
-      metrics.observe('serving.queue_wait_ms', (t_batch - r.t0) * 1e3)
+      wait = t_batch - r.t0
+      metrics.observe('serving.queue_wait_ms', wait * 1e3)
+      # retroactive queue span: measured as plain timestamps at pickup
+      spans.emit('serving.queue', trace=r.span.trace,
+                 parent=r.span.span_id, t0_unix=t_batch_unix - wait,
+                 dur_ms=wait * 1e3)
+    # one batch span per admission batch, under the FIRST request's span;
+    # the other requests name it in their request span's batch attr
     flat = np.concatenate([r.ids for r in batch])
-    self._refresh_stale(flat)
-    outs = []
-    pos = 0
-    while pos < flat.size:
-      take = min(flat.size - pos, self.buckets[-1])
-      cap = self._bucket_for(take)
-      padded = np.full((cap,), -1, np.int32)
-      padded[:take] = flat[pos:pos + take]
-      mask = padded >= 0
-      metrics.observe('serving.batch_fill', take / cap)
-      rows = self.store.fetch(self.store.lookup(padded, mask))
-      outs.append(rows[:take])
-      metrics.inc('serving.batches')
-      pos += take
-    rows_all = outs[0] if len(outs) == 1 else np.concatenate(outs)
-    metrics.observe('serving.compute_ms',
-                    (time.perf_counter() - t_batch) * 1e3)
+    batch_span = spans.begin('serving.batch', attach=False,
+                             trace=batch[0].span.trace,
+                             parent=batch[0].span.span_id,
+                             requests=len(batch))
+    try:
+      self._refresh_stale(flat)
+      outs = []
+      pos = 0
+      while pos < flat.size:
+        take = min(flat.size - pos, self.buckets[-1])
+        cap = self._bucket_for(take)
+        padded = np.full((cap,), -1, np.int32)
+        padded[:take] = flat[pos:pos + take]
+        mask = padded >= 0
+        metrics.observe('serving.batch_fill', take / cap)
+        rows = self.store.fetch(self.store.lookup(padded, mask))
+        outs.append(rows[:take])
+        metrics.inc('serving.batches')
+        pos += take
+      rows_all = outs[0] if len(outs) == 1 else np.concatenate(outs)
+      compute_s = time.perf_counter() - t_batch
+      metrics.observe('serving.compute_ms', compute_s * 1e3)
+      spans.emit('serving.compute', trace=batch_span.trace,
+                 parent=batch_span.span_id, t0_unix=t_batch_unix,
+                 dur_ms=compute_s * 1e3, ids=int(flat.size))
+    finally:
+      # a raising refresh / fetch must not strand the batch span open
+      spans.end(batch_span, fill=int(flat.size))
     o = 0
     for r in batch:
       res = rows_all[o:o + r.ids.size]
@@ -267,8 +296,15 @@ class ServingEngine:
       metrics.inc('serving.requests')
       metrics.observe('serving.total_ms',
                       (time.perf_counter() - r.t0) * 1e3)
+      t_resp = time.perf_counter()
       if not r.future.done():   # lost a stop() race: already failed
         r.future.set_result(res)
+      spans.emit('serving.respond', trace=r.span.trace,
+                 parent=r.span.span_id,
+                 dur_ms=(time.perf_counter() - t_resp) * 1e3)
+      # the request span's duration is the request's enqueue-to-rows
+      # latency
+      spans.end(r.span, batch=batch_span.span_id)
 
   def serve_numpy(self, ids) -> np.ndarray:
     """Synchronous host entry (the JAX package's ``serve`` RPC handler

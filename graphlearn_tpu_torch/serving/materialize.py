@@ -42,6 +42,9 @@ multi-hop forward per request.
   ntype=)`` reruns the last conv layer (and the head for the output
   type) for a bucket of one type's ids.
 
+Each pass writes one flight record (``metrics.flight``, its ``pass``
+label in the record), as a training epoch does.
+
 ``dist_embedding_store(mesh)`` serves the final table sharded over a
 ``distributed.ShardMesh`` (``store.DistEmbeddingStore``).
 """
@@ -52,11 +55,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..metrics import flight
 from ..models import train as train_lib
 from ..models.models import GAT, GCN, RGNN, GraphSAGE
 from ..ops.gather import gather_rows_hbm
 from ..typing import reverse_edge_type
 from ..utils import resolve_device
+from ..utils.trace import record_dispatch
 from .store import EmbeddingStore, TieredEmbeddingStore, pow2_cap
 
 
@@ -115,6 +120,8 @@ class EmbeddingMaterializer:
   ``out_ntype``, or the per-type stores without a head); the store set
   before the last layer stays on the instance for :meth:`refresh_rows`.
   """
+
+  _NAME = 'EmbeddingMaterializer'
 
   def __init__(self, dataset, model, *, block_size: int = 128,
                chunk_size: int = 8, neighbor_cap: Optional[int] = None,
@@ -272,22 +279,42 @@ class EmbeddingMaterializer:
   # ------------------------------------------------------------- passes
 
   @torch.no_grad()
-  def _pass(self, n_pad: int, block_fn) -> torch.Tensor:
+  def _pass(self, n_pad: int, block_fn, label: str) -> torch.Tensor:
     """One pass over ``n_pad`` rows: ``chunk_size`` blocks per chunk, each
     block's ``[B, F_out]`` rows from ``block_fn(base)`` written into the
-    output store in place."""
+    output store in place. Flight-recorded like a training epoch (one
+    record per pass, ``pass`` = ``label``), with one ``embed_store_init``
+    dispatch and one ``embed_chunk`` dispatch per chunk."""
     b = self.block_size
     nblocks = n_pad // b
     out = None
-    for start in range(0, nblocks, self.chunk_size):
-      for g in range(start, min(start + self.chunk_size, nblocks)):
-        base = g * b
-        h = block_fn(base)
-        if out is None:
-          out = torch.empty((n_pad, h.shape[1]), dtype=h.dtype,
-                            device=self.device)
-        out[base:base + b] = h
+    tok = flight.epoch_begin()
+    completed, chunks = False, 0
+    try:
+      record_dispatch('embed_store_init')
+      for start in range(0, nblocks, self.chunk_size):
+        record_dispatch('embed_chunk')
+        for g in range(start, min(start + self.chunk_size, nblocks)):
+          base = g * b
+          h = block_fn(base)
+          if out is None:
+            out = torch.empty((n_pad, h.shape[1]), dtype=h.dtype,
+                              device=self.device)
+          out[base:base + b] = h
+        chunks += 1
+      completed = True
+    finally:
+      flight.end_for(
+          self, tok, emitter=self._NAME, steps=nblocks,
+          completed=completed, config=self._flight_config(),
+          extra={'pass': label, 'chunks': chunks})
     return out
+
+  def _flight_config(self) -> dict:
+    return dict(emitter=self._NAME, block_size=self.block_size,
+                chunk_size=self.chunk_size, hetero=self.is_hetero,
+                num_layers=self.num_layers,
+                neighbor_cap=self.neighbor_cap)
 
   def _layer_pass(self, layer: int, prev: torch.Tensor) -> torch.Tensor:
     """One homogeneous layer over every block."""
@@ -301,7 +328,7 @@ class EmbeddingMaterializer:
       x, em = self._gather_block(prev, self_ids, self._nbr[base:base + b])
       return slice_fn(dict(x=x, edge_index=ei, edge_mask=em))[:b]
 
-    return self._pass(self.n_pad, block)
+    return self._pass(self.n_pad, block, str(layer))
 
   def _hetero_layout(self, t, live_ets, b: Optional[int] = None):
     """The block layout of target type ``t`` over the edge types
@@ -341,7 +368,7 @@ class EmbeddingMaterializer:
     return dict(x=x, edge_index=self._block_ei(t, live, self_ids.shape[0]),
                 edge_mask=masks)
 
-  def _rowlocal_pass(self, t, src, fn) -> torch.Tensor:
+  def _rowlocal_pass(self, t, src, fn, label: str) -> torch.Tensor:
     """A row-local pass (the per-type input projection, the head): each
     block's slice of ``src`` through ``fn``."""
     b = self.block_size
@@ -350,7 +377,7 @@ class EmbeddingMaterializer:
       h = fn(dict(x={t: src[base:base + b]}, edge_index={}, edge_mask={}))
       return h[t] if isinstance(h, dict) else h
 
-    return self._pass(src.shape[0], block)
+    return self._pass(src.shape[0], block, label)
 
   def _hetero_live_for(self, t, stores=None):
     """The edge types feeding target type ``t`` in a conv layer over the
@@ -367,7 +394,7 @@ class EmbeddingMaterializer:
                                              head=False)
     stores = {}
     for t, x0 in self._x0.items():
-      stores[t] = self._rowlocal_pass(t, x0, embed_fn)
+      stores[t] = self._rowlocal_pass(t, x0, embed_fn, f'embed/{t}')
       self._spill_pass(f'embed/{t}', stores[t])
     for layer in range(self.num_layers):
       slice_fn = train_lib.make_layer_slice_fn(
@@ -387,7 +414,8 @@ class EmbeddingMaterializer:
           return slice_fn(self._hetero_block(prev, t, live, self_ids,
                                              nbrs))[t][:b]
 
-        new_stores[t] = self._pass(stores[t].shape[0], block)
+        new_stores[t] = self._pass(stores[t].shape[0], block,
+                                   f'{layer}/{t}')
         self._spill_pass(f'{layer}/{t}', new_stores[t])
       if layer == self.num_layers - 1:
         self._penultimate = stores
@@ -401,7 +429,8 @@ class EmbeddingMaterializer:
       raise ValueError(f'out_ntype {out_t!r} received no messages')
     head_fn = train_lib.make_layer_slice_fn(
         model, self.num_layers, self.num_layers, embed=False, head=True)
-    self._embeddings = self._rowlocal_pass(out_t, stores[out_t], head_fn)
+    self._embeddings = self._rowlocal_pass(out_t, stores[out_t], head_fn,
+                                           f'head/{out_t}')
     self._spill_pass(f'head/{out_t}', self._embeddings)
     return self._embeddings
 
@@ -549,6 +578,7 @@ class EmbeddingMaterializer:
     cap = pow2_cap(ids.size)
     padded = np.full((cap,), -1, np.int32)
     padded[:ids.size] = ids
+    record_dispatch('serve_refresh')
     ids_t = torch.as_tensor(padded).to(self.device)
     mask = ids_t >= 0
     if self.is_hetero:

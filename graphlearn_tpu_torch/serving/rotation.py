@@ -31,7 +31,7 @@ rows on the store's device (the card unless the caller asks for the
 CPU), pad slots zeroed: the engine-facing store contract
 (``lookup`` / ``fetch`` / ``num_nodes`` / ``granularity``).
 :class:`RotationScheduler` drives rotations on an interval or a
-staleness trigger. Not ported: the ``serving.rotate`` span.
+staleness trigger. Each swap is one ``serving.rotate`` span.
 """
 import os
 import threading
@@ -43,8 +43,10 @@ import numpy as np
 import torch
 
 from .. import metrics
+from ..metrics import spans
 from ..storage.disk import spill_array
 from ..utils import resolve_device
+from ..utils.trace import record_dispatch
 
 
 def _host(table) -> np.ndarray:
@@ -159,16 +161,18 @@ class RotatingShardedStore:
       # A fault mid-pass abandons the staged list — the previous
       # version keeps serving, zero failed requests (chaos-tested)
       t0 = time.perf_counter()
-      staged = []
-      for lo, hi, tier in built:
-        self._rotate_fault()
-        staged.append(_VersionShard(lo, hi, tier, self.warm_rows))
-      # the one flip readers snapshot: a tuple assignment is atomic, and
-      # every lookup reads self._shards exactly once. No previous-version
-      # bookkeeping is needed: a reader's snapshot keeps its shard tuple
-      # (and mmaps) alive by reference
-      self._shards = tuple(staged)
-      self._version = v
+      with spans.span('serving.rotate', version=v,
+                      shards=self.num_shards):
+        staged = []
+        for lo, hi, tier in built:
+          self._rotate_fault()
+          staged.append(_VersionShard(lo, hi, tier, self.warm_rows))
+        # the one flip readers snapshot: a tuple assignment is atomic,
+        # and every lookup reads self._shards exactly once. No
+        # previous-version bookkeeping is needed: a reader's snapshot
+        # keeps its shard tuple (and mmaps) alive by reference
+        self._shards = tuple(staged)
+        self._version = v
       metrics.inc('serving.rotations')
       metrics.observe('serving.rotation_swap_ms',
                       (time.perf_counter() - t0) * 1e3)
@@ -217,6 +221,7 @@ class RotatingShardedStore:
     request answers from a single version even while a rotation swaps
     underneath."""
     shards = self._shards          # the one consistent-version snapshot
+    record_dispatch('serve_lookup')
     ids_np = np.asarray(ids, np.int64).reshape(-1)
     mask_np = np.asarray(mask, bool).reshape(-1)
     rows = np.zeros((ids_np.shape[0], self._fdim), shards[0].tier.dtype)

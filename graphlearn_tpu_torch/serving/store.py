@@ -18,6 +18,7 @@ import torch
 
 from ..ops.gather import gather_rows_hbm2
 from ..utils import resolve_device
+from ..utils.trace import record_dispatch
 
 
 def pow2_cap(n: int, floor: int = 8) -> int:
@@ -81,6 +82,7 @@ class EmbeddingStore:
     """``[cap]`` padded ids (-1 pads, mask False) -> ``[cap, F]`` device
     rows, pad slots zeroed. Ids are clamped into the table, as the JAX
     store's gather clamps them (an id past ``N_pad`` reads the last row)."""
+    record_dispatch('serve_lookup')
     ids = torch.as_tensor(ids).to(self.device)
     mask = torch.as_tensor(mask).to(self.device)
     safe = torch.clamp(ids, 0, self._emb.shape[0] - 1)
@@ -103,6 +105,7 @@ class EmbeddingStore:
     ids = np.asarray(ids, np.int64).reshape(-1)
     if ids.size == 0:
       return
+    record_dispatch('serve_store_update')
     vals = torch.as_tensor(np.asarray(rows)).to(self.device,
                                                 self._emb.dtype)
     self._emb[torch.as_tensor(ids).to(self.device)] = vals
@@ -139,6 +142,7 @@ class TieredEmbeddingStore:
   def lookup(self, ids, mask) -> torch.Tensor:
     """``[cap]`` padded host ids (-1 pads, mask False) -> ``[cap, F]``
     device rows, pad slots zeroed, as ``EmbeddingStore.lookup``."""
+    record_dispatch('serve_lookup')
     rows = self.tf[np.asarray(ids)]
     mask = torch.as_tensor(np.asarray(mask, bool))
     if rows.device.type == 'cuda':
@@ -225,11 +229,10 @@ class DistEmbeddingStore:
 
   def publish_stats(self):
     """The hot-embedding cache's hit / miss counters since the last call
-    (one device read), then cleared. The trace counters they are
-    published to in JAX come with the tracing slice."""
-    s = self.df.stats()
-    self.df.reset_stats()
-    return s
+    into the registry (``dist_feature.*``, one device read), then
+    cleared — the training feature cache's once-per-epoch discipline.
+    Returns the read counters."""
+    return self.df.publish_stats()
 
   def update_rows(self, ids, rows):
     raise NotImplementedError(

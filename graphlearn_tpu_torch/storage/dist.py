@@ -27,7 +27,7 @@ per-partition memory-mapped disk tiers (``storage.DiskTier``):
   bit-equal to the all-device store's. Counted as JAX counts it:
   ``storage.demand_pages``, ``storage.demand_paged_rows`` (also into
   ``storage.prefetch_miss``) and the ``storage.demand_page_ms``
-  histogram. Not ported: the ``storage.demand_page`` span.
+  histogram, under one ``storage.demand_page`` span per step.
 """
 import os
 import time
@@ -39,6 +39,7 @@ import torch
 from .. import metrics
 from ..distributed.dist_feature import INT32_MAX, DistFeature, _torch_dtype
 from ..distributed.dist_graph import _to
+from ..metrics import spans
 from .disk import DiskTier, spill_array
 
 
@@ -256,15 +257,16 @@ class TieredDistFeature(DistFeature):
       raise NotImplementedError(
           'the demand-paged get routes every shard\'s requests on one '
           'host: a one-process mesh only')
-    t0 = time.perf_counter()
-    slab_pos, slab_rows, staged = self._demand_slab(ids.cpu().numpy(),
-                                                    mask.cpu().numpy())
-    metrics.observe('storage.demand_page_ms',
-                    (time.perf_counter() - t0) * 1e3)
-    metrics.inc('storage.demand_pages')
-    if staged:
-      metrics.inc('storage.demand_paged_rows', staged)
-      metrics.inc('storage.prefetch_miss', staged)
+    ids_host, mask_host = ids.cpu().numpy(), mask.cpu().numpy()
+    with spans.span('storage.demand_page', b=int(ids_host.shape[1])):
+      t0 = time.perf_counter()
+      slab_pos, slab_rows, staged = self._demand_slab(ids_host, mask_host)
+      metrics.observe('storage.demand_page_ms',
+                      (time.perf_counter() - t0) * 1e3)
+      metrics.inc('storage.demand_pages')
+      if staged:
+        metrics.inc('storage.demand_paged_rows', staged)
+        metrics.inc('storage.prefetch_miss', staged)
     return dict(self.dist_scan_tables(),
                 slab_pos=_to(mesh, slab_pos, torch.int32),
                 slab_rows=torch.from_numpy(slab_rows).to(mesh.device))

@@ -283,6 +283,14 @@ class TieredDistScanTrainer(DistScanTrainer):
 
   # --------------------------------------------------------------- chunk
 
+  def _capture_buffers(self, k: int):
+    out = super()._capture_buffers(k)
+    for t in self._tiered:
+      name = '' if t is None else f'.{t}'
+      out += [(f'slab_pos{name}', self._slab_pos[t]),
+              (f'slab_rows{name}', self._slab_rows[t])]
+    return out
+
   def _chunk_args(self, seed_mat, mask_mat, base_key, count: int,
                   start: int, k: int) -> dict:
     args = super()._chunk_args(seed_mat, mask_mat, base_key, count, start,

@@ -42,8 +42,9 @@ bit-identical to the all-device trainer's:
   (``storage.prefetch_miss``); the epoch is bit-identical.
 
 Sampling runs twice per epoch (once id-only in the plan, once in the
-chunks): the price of an exact plan. Not ported: spans, flight records
-and the tuned ``config=``.
+chunks): the price of an exact plan. Flight records, spans and the
+dispatch / capture counts are ``ScanTrainer``'s (the slab is part of a
+capture's signature). Not ported: the tuned ``config=``.
 """
 import time
 from typing import Optional
@@ -231,6 +232,10 @@ class TieredScanTrainer(ScanTrainer):
                                k)
     self._load_slab(start // self.chunk_size)
     return args
+
+  def _capture_buffers(self, k: int):
+    return super()._capture_buffers(k) + [('slab_ids', self._slab_ids),
+                                          ('slab_rows', self._slab_rows)]
 
   def _event(self):
     if self.loader.device.type != 'cuda':

@@ -26,7 +26,8 @@ distributed stager's is ``storage.dist_stage``), overridden by tests.
 
 Metrics, JAX's names: ``storage.staged_rows`` / ``storage.staged_bytes``
 counters, ``storage.stage_ms`` / ``storage.promote_ms`` histograms and
-the ``storage.ring_rows`` gauge. Not ported: the ``storage.stage`` span.
+the ``storage.ring_rows`` gauge, and one ``storage.stage`` span per staged
+chunk on the worker thread.
 """
 import queue
 import threading
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import metrics
+from ..metrics import spans
 from ..utils.faults import fault_point
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -257,7 +259,9 @@ class ChunkStager:
         if not claimed:
           return     # closed while waiting for the slot
         t0 = time.perf_counter()
-        ids, rows = self._gather_into(rows_abs, slot)
+        with spans.span('storage.stage', chunk=int(c),
+                        rows=int(rows_abs.shape[0])):
+          ids, rows = self._gather_into(rows_abs, slot)
         with self._lock:
           if self._slabs.get(c) is not slab:
             slot.chunk = None   # acked while staging: nothing reads it

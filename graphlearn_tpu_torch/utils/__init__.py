@@ -4,11 +4,12 @@ The port's counterpart of ``graphlearn_tpu/utils``: the CSR conversions
 (``topo``), ``CheckpointManager`` (``checkpoint``), the dict, port and
 module helpers (``common``), ``tensor``, ``units``, ``CastMixin``,
 ``Singleton`` and ``python_exit_status``, the fault registry
-(``faults``: ``fault_point``, ``FaultError``) and the event counters of
-``trace`` (``counter_inc``, ``counter_get``, ``counters``,
-``reset_counters``). ``compat``, ``device`` and ``build`` are JAX-only;
-``strict`` and the profiler half of ``trace`` wait for the tracing
-slice.
+(``faults``: ``fault_point``, ``FaultError``) and ``trace``: the
+profiler over ``torch.profiler`` (``profile_trace``, ``annotate``,
+``maybe_start_trace``, ``device_op_ms``, ...), dispatch counting
+(``count_dispatches``, ``record_dispatch``) and the event counters
+(``counter_inc``, ``counters``, ...). ``compat``, ``device`` and the
+JAX ``build`` are JAX-only; ``strict`` waits for a later slice.
 """
 import torch
 
@@ -21,7 +22,12 @@ from .singleton import Singleton
 from .tensor import convert_to_array, id2idx, squeeze_dict
 from .topo import (coo_to_csc, coo_to_csr, csr_to_coo, csr_to_csc, ind2ptr,
                    ptr2ind)
-from .trace import counter_get, counter_inc, counters, reset_counters
+from .trace import (DispatchCounter, annotate, count_dispatches,
+                    counter_get, counter_inc, counters, device_op_ms,
+                    device_program_ms, dispatch_snapshot,
+                    maybe_start_trace, profile_trace, record_dispatch,
+                    reset_counters, step_annotation, stop_trace,
+                    wrap_dispatch)
 from .units import format_size, parse_size
 
 

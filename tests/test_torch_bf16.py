@@ -41,6 +41,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import models as tmodels
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 BF16_TOL = 3e-2   # of the output's largest magnitude (see the docstring)
 
 

@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-# one_torch_thread is a fixture the held test takes
-from test_torch_model_examples import (  # noqa: F401
-    _eq, check_readings, held_step, load_jax_example, one_torch_thread,
-    record_jax_steps)
+from test_torch_model_examples import (
+    _eq, check_readings, held_step, load_jax_example, record_jax_steps)
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 ARGV = ['--epochs', '1', '--n-user', '2000', '--n-item', '500',
         '--hidden', '16']
@@ -51,8 +52,7 @@ def test_bipartite_synthetic_matches_jax():
       example.reverse_edge_type(et) for et in edges)
 
 
-def test_bipartite_example_steps_agree_from_the_jax_state(monkeypatch,
-                                                          one_torch_thread):
+def test_bipartite_example_steps_agree_from_the_jax_state(monkeypatch):
   """Every step of one epoch (37 steps of 512 edges and 512 negatives),
   held from JAX's state: the typed link batch exact, loss, gradients
   and update within the stated tolerances; the JSON line's keys are the

@@ -22,6 +22,9 @@ from graphlearn_tpu.distributed import block_producer as jbp
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch.distributed import block_producer as tbp
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N = 40
 BS = 4
 UB, BU = ('user', 'buys', 'item'), ('item', 'rev_buys', 'user')

@@ -14,11 +14,15 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu.sampler import capacity as jcap
 from graphlearn_tpu_torch.sampler import capacity as tcap
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 UB, BU = ('user', 'buys', 'item'), ('item', 'rev_buys', 'user')
 NU, NI, BS = 18, 12, 4

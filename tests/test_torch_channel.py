@@ -26,6 +26,9 @@ from graphlearn_tpu_torch.channel import (MpChannel, QueueTimeoutError,
                                           live_channel_count,
                                           serialize_message)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

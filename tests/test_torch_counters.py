@@ -25,6 +25,9 @@ from graphlearn_tpu import ops as jops
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import metrics, ops
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def _count(registry, name):
   return registry.snapshot()['counters'].get(name, 0)

@@ -98,6 +98,9 @@ import torch
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import ops
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -797,6 +800,54 @@ def _no_sync_allowed():
     torch.cuda.set_sync_debug_mode('default')
     if collecting:
       gc.enable()
+
+
+STAT_KEYS = ('hits', 'misses', 'unique_misses', 'overflow', 'lookups')
+
+
+@contextlib.contextmanager
+def published(stores: dict):
+  """``{key: counters}``: what each of ``stores``' ``publish_stats``
+  published while the region ran, summed over its calls. The distributed
+  loaders and trainers publish once an epoch, at its end, and clear the
+  store, so an epoch's counters are read here, not from ``stats()`` after
+  it. (The CPU tests import it from here: this module imports no JAX.)"""
+  got = {k: dict.fromkeys(STAT_KEYS, 0) for k in stores}
+
+  def wrap(key, plain):
+    def publish_stats(*a, **kw):
+      out = plain(*a, **kw)
+      for k in STAT_KEYS:
+        got[key][k] += out[k]
+      return out
+    return publish_stats
+
+  for key, store in stores.items():
+    store.publish_stats = wrap(key, store.publish_stats)
+  try:
+    yield got
+  finally:
+    for store in stores.values():
+      del store.publish_stats
+
+
+def _publish_let_through(loader) -> list:
+  """Let the loader's epoch-end publish (its one host read a store, the
+  flight record's feature fields) through a ``set_sync_debug_mode('error')``
+  window; returns the list its calls are counted in."""
+  calls, publish = [], loader._publish_feature_stats
+
+  def let_through():
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('default')
+    try:
+      publish()
+    finally:
+      torch.cuda.set_sync_debug_mode(mode)
+    calls.append(1)
+
+  loader._publish_feature_stats = let_through
+  return calls
 
 
 class _Small:
@@ -2186,21 +2237,24 @@ def test_dist_scan_trainer_captured_matches_eager(cuda):
   """The captured DistScanTrainer against the eager one from one start,
   three epochs of 5 steps in chunks of 2 (a tail chunk of 1): losses and
   parameters within rtol 1e-4, launch counters equal (K3 P x hops and K1
-  3P a step, one dist_step_keys a chunk), the feature counters exact, the
-  graphs' keys the plain keys of the epoch's last chunks, and the third
-  epoch (replays only) under ``set_sync_debug_mode('error')``."""
+  3P a step, one dist_step_keys a chunk), the published feature counters
+  exact, the graphs' keys the plain keys of the epoch's last chunks, and
+  the third epoch (replays only) under ``set_sync_debug_mode('error')``
+  but for its one epoch-end publish."""
   (cap, cstate), (eag, estate) = _dist_scan_pair(cuda)
   assert cap.capture and not eag.capture
+  let_through = _publish_let_through(cap.loader)
   for epoch in range(3):
     count0 = cap._sampler._call_count + 1
-    counts = {}
+    counts, stats = {}, {}
     for name, t, st in (('cap', cap, cstate), ('eag', eag, estate)):
       ops.reset_launch_counts()
       if name == 'cap' and epoch == 2:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode('error')
       try:
-        st, losses, _ = t.run_epoch(st)
+        with published({0: t._feat}) as stats[name]:
+          st, losses, _ = t.run_epoch(st)
       finally:
         torch.cuda.set_sync_debug_mode('default')
       torch.cuda.synchronize()
@@ -2214,7 +2268,8 @@ def test_dist_scan_trainer_captured_matches_eager(cuda):
     assert counts['cap']['gather_rows'] == 3 * 4 * 5
     assert counts['cap']['dist_step_keys'] == 3
     torch.testing.assert_close(closs, eloss, rtol=1e-4, atol=0)
-    assert cap._feat.stats() == eag._feat.stats()
+    assert stats['cap'] == stats['eag'] and stats['cap'][0]['lookups'] > 0
+    assert len(let_through) == epoch + 1
     want = gtt.random.dist_step_keys_plain(
         cap._sampler._key, count0 + torch.arange(5, dtype=torch.int64), 4, 2)
     if 1 in cap._graphs:
@@ -2393,8 +2448,9 @@ def test_typed_dist_scan_captured_matches_eager(cuda):
   tests at P = 2 on one card, RGNN, 4 steps in chunks of 2) against the
   eager one from one start: losses and parameters within rtol 1e-4, the
   launch counters equal (K3 once per plan item a step and shard, one
-  dist_step_keys a chunk), the per-type feature counters exact, the
-  second epoch (replays only) under ``set_sync_debug_mode('error')``."""
+  dist_step_keys a chunk), the per-type published feature counters
+  exact, the second epoch (replays only) under
+  ``set_sync_debug_mode('error')`` but for its one epoch-end publish."""
   from graphlearn_tpu_torch import distributed as gdist
   from graphlearn_tpu_torch.typing import GraphPartitionData
   n, p = 40, 2
@@ -2432,28 +2488,29 @@ def test_typed_dist_scan_captured_matches_eager(cuda):
     assert t.capture == capture
     runs.append([t, gtt.models.create_train_state(model)])
   items = sum(len(h) for h in runs[0][0]._sampler._hetero_plan({'u': 2})[1])
+  let_through = _publish_let_through(runs[0][0].loader)
   for epoch in range(2):
     out = []
     for i, (t, st) in enumerate(runs):
-      for s in t._feat.values():
-        s.reset_stats()
       ops.reset_launch_counts()
       torch.cuda.synchronize()
       if i == 0 and epoch == 1:
         torch.cuda.set_sync_debug_mode('error')
       try:
-        st, losses, _ = t.run_epoch(st)
+        with published(t._feat) as stats:
+          st, losses, _ = t.run_epoch(st)
       finally:
         torch.cuda.set_sync_debug_mode('default')
       torch.cuda.synchronize()
       runs[i][1] = st
-      out.append((losses, ops.launch_counts(),
-                  {k: s.stats() for k, s in t._feat.items()}))
+      out.append((losses, ops.launch_counts(), stats))
     assert out[0][1] == out[1][1]
     assert out[0][1]['sample_hop'] == 4 * p * items
     assert out[0][1]['dist_step_keys'] == 2
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=0)
     assert out[0][2] == out[1][2]
+    assert all(st['lookups'] > 0 for st in out[0][2].values())
+  assert len(let_through) == 2
   for a, b in zip(runs[0][0].model.parameters(),
                   runs[1][0].model.parameters()):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
@@ -2819,3 +2876,100 @@ def test_server_block_launch_counts_from_rpc_threads(cuda):
       assert sorted(alone) == sorted(frame)
       for k in frame:
         np.testing.assert_array_equal(frame[k], alone[k], err_msg=k)
+
+
+# ------------------------------------------------------------ observability
+
+
+@pytest.mark.parametrize('mode', ['tree', 'merge'])
+def test_flight_record_of_a_captured_epoch_makes_no_host_sync(
+    cuda, mode, tmp_path, monkeypatch):
+  """A replayed captured epoch with the flight and span logs on and a
+  dispatch region open runs under ``set_sync_debug_mode('error')``; its
+  record passes logcheck, counts a ``scan_chunk`` dispatch per replay
+  and no capture, and its ``epoch.chunk`` spans nest under its
+  ``epoch.run``."""
+  from graphlearn_tpu_torch.metrics import flight, logcheck, spans
+  from graphlearn_tpu_torch.utils import trace
+  s = _Small(cuda, mode)
+  tr, state = s.trainer(gtt.loader.ScanTrainer, chunk_size=2)
+  state, _, _ = tr.run_epoch(state)        # warm-up and capture
+  torch.cuda.synchronize()
+  monkeypatch.setenv('GLT_RUN_LOG', str(tmp_path / 'run.jsonl'))
+  monkeypatch.setenv('GLT_SPAN_LOG', str(tmp_path / 'spans.jsonl'))
+  with trace.count_dispatches() as dc:
+    with _no_sync_allowed():
+      state, _, _ = tr.run_epoch(state)
+  (rec,) = flight.read_records()
+  assert logcheck.validate_flight_record(rec) == []
+  assert rec['dispatch']['scan_chunk'] == dc.counts['scan_chunk'] == 2
+  assert rec['programs'] == {'scan_chunk': {'dispatches': 2}}
+  tree = spans.build_tree(spans.read_log())
+  (root,) = tree['roots']
+  assert tree['spans'][root]['name'] == 'epoch.run'
+  assert [tree['spans'][c]['name'] for c in tree['children'][root]] == \
+      ['epoch.chunk'] * 2
+  assert logcheck.check_file(str(tmp_path / 'spans.jsonl')) == []
+
+
+def test_capture_counts_per_chunk_length_and_recapture_diff(cuda):
+  """The program observatory counts a capture per chunk length (3 and a
+  tail of 1) over the first epochs and none in a replayed one; a new
+  rate (the graphs froze the old one) is a recapture, a retrace whose
+  diff names the rate and not the chunk."""
+  from graphlearn_tpu_torch.metrics import programs
+  from graphlearn_tpu_torch.models import train
+  s = _Small(cuda, 'tree')
+  tr, state = s.trainer(gtt.loader.ScanTrainer, chunk_size=3)
+  reg = programs.default_program_registry()
+  base = reg.compile_count('scan_chunk')
+  state, _, _ = tr.run_epoch(state)          # warm-up (3), capture 1
+  state, _, _ = tr.run_epoch(state)          # capture 3, replay 1
+  assert reg.compile_count('scan_chunk') - base == 2
+  assert sorted(tr._graphs) == [1, 3]
+  with programs.retrace_budget('scan_chunk', 0):
+    tr.run_epoch(state)
+  assert reg.compile_count('scan_chunk') - base == 2
+  tr2, state2 = s.trainer(gtt.loader.ScanTrainer, chunk_size=2)
+  tr2.run_epoch(state2)                      # warm-up, capture 2
+  tr2.run_epoch(train.create_train_state(tr2.model, lr=7e-4))
+  assert reg.compile_count('scan_chunk') - base == 4
+  ev = programs.last_compile('scan_chunk')
+  assert ev.index >= 3 and '-> static:group0.lr=0.0007' in ev.diff
+  assert 'k=' not in ev.diff and 'seeds' not in ev.diff
+  torch.cuda.synchronize()
+
+
+def test_span_tree_across_server_and_client_on_card(cuda):
+  """A block fetched from a loopback ``DistServer`` on the card under a
+  request id reads back from ``scrape_all()`` and the local ring as one
+  tree: rpc.client.request -> rpc.server.handle -> remote.block_stage,
+  the block span carrying the build's phase times."""
+  from graphlearn_tpu_torch import metrics
+  from graphlearn_tpu_torch.metrics import spans
+  from graphlearn_tpu_torch.sampler import SamplingConfig, SamplingType
+  ds = _remote_small(cuda)
+  cfg = SamplingConfig(SamplingType.NODE, [4, 3], 32, False, False, False,
+                       True, False, False, 'out', 3)
+  with _rscan_server(ds):
+    pid = gtt.distributed.request_server(
+        0, 'create_block_producer', np.arange(0, 3000, 7)[:96], cfg, None)
+    with spans.new_trace() as req:
+      frame = gtt.distributed.request_server(0, 'block_fetch', pid, 0, 0,
+                                             2)
+    scr = metrics.scrape_all(timeout=30.0)
+  assert frame['x'].shape[0] == 2
+  rows = spans.dedupe(spans.from_scrape(scr, trace=req) +
+                      spans.export(trace=req))
+  tree = spans.build_tree(rows)
+  assert not tree['orphans'] and len(tree['roots']) == 1
+  root = tree['spans'][tree['roots'][0]]
+  (handle,) = tree['children'][root['span']]
+  (stage,) = tree['children'][handle]
+  assert [root['name'], tree['spans'][handle]['name'],
+          tree['spans'][stage]['name']] == [
+              'rpc.client.request', 'rpc.server.handle',
+              'remote.block_stage']
+  attrs = tree['spans'][stage]['attrs']
+  assert attrs['k'] == 2 and attrs['bytes'] > 0
+  assert 0 <= attrs['sample_ms'] <= tree['spans'][stage]['dur_ms']

@@ -19,6 +19,9 @@ import torch
 
 from test_torch_model_examples import load_jax_example
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 

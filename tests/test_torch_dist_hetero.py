@@ -38,6 +38,10 @@ from graphlearn_tpu_torch.typing import GraphPartitionData as TPart
 
 from test_torch_dist_link import hetero_graphs, hetero_ring
 from test_torch_distributed import N, _np, jmesh, tmesh
+from test_torch_cuda import published
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 ET1, ET2 = ('u', 'to', 'v'), ('v', 'back', 'u')
 FAN = {ET1: [2, 2], ET2: [1, 1]}
@@ -209,18 +213,20 @@ def test_typed_loader_equals_jax(kw):
   tl = gdist.DistNeighborLoader(tds, FAN, ('u', np.arange(N)),
                                 mesh=tmesh(2), **kw)
   assert tl.input_type == 'u' and len(tl) == len(jl) > 0
-  for jb, tb in zip(jl, tl):
-    assert isinstance(tb, gtt.loader.HeteroData)
-    assert_typed_equal(jb, tb, ('node', 'num_nodes', 'edge_index',
-                                'edge_mask', 'x', 'y', 'batch',
-                                'num_sampled_nodes', 'num_sampled_edges'),
-                       'loader')
-    for t, base in (('u', 0.0), ('v', 1000.0)):
-      valid = tb.node[t] >= 0
-      assert torch.equal(tb.x[t][..., 0][valid],
-                         base + tb.node[t][valid].float())
-  stats = {t: f.stats() for t, f in tds.node_features.items()}
+  with published(tds.node_features) as stats:
+    for jb, tb in zip(jl, tl):
+      assert isinstance(tb, gtt.loader.HeteroData)
+      assert_typed_equal(jb, tb, ('node', 'num_nodes', 'edge_index',
+                                  'edge_mask', 'x', 'y', 'batch',
+                                  'num_sampled_nodes', 'num_sampled_edges'),
+                         'loader')
+      for t, base in (('u', 0.0), ('v', 1000.0)):
+        valid = tb.node[t] >= 0
+        assert torch.equal(tb.x[t][..., 0][valid],
+                           base + tb.node[t][valid].float())
+  # the epoch published each store's counters once, at its end
   assert all(s['lookups'] > 0 for s in stats.values())
+  assert all(f.stats()['lookups'] == 0 for f in tds.node_features.values())
 
 
 def test_typed_partition_dir_and_spill_load_equal_jax(tmp_path):
@@ -355,9 +361,8 @@ def test_typed_scanned_epochs_equal_jax(jax_typed_ref):
   state = gtt.models.create_train_state(model, lr=1e-2)
   stores = loader.sampler.dist_feature
   for e in (1, 2):
-    for s in stores.values():
-      s.reset_stats()
-    state, losses, accs = trainer.run_epoch(state)
+    with published(stores) as got:
+      state, losses, accs = trainer.run_epoch(state)
     assert losses.shape == (4,) and state.step == 4 * e
     np.testing.assert_allclose(losses.numpy(), jax_typed_ref[f'losses{e}'],
                                **TOL)
@@ -365,7 +370,7 @@ def test_typed_scanned_epochs_equal_jax(jax_typed_ref):
                                **TOL)
     assert_params_close(model, jax_typed_ref[f'params{e}'])
     # JAX publishes the sum over its stores under one prefix
-    tot = {k: sum(s.stats()[k] for s in stores.values()) for k in STATS}
+    tot = {k: sum(s[k] for s in got.values()) for k in STATS}
     want = {k: jax_typed_ref[f'stats{e}'].get(f'dist_feature.{k}', 0)
             for k in STATS}
     assert tot == want
@@ -386,17 +391,19 @@ def test_typed_scanned_epoch_equals_the_per_step_loop(dedup, chunk, frac):
   sb = gtt.models.create_train_state(model_b, lr=1e-2)
   for _ in range(2):
     gdist.reset_verdict_syncs()
-    sa, losses_a = ref.run_epoch_steps(sa)
+    with published(la.sampler.dist_feature) as stats_a:
+      sa, losses_a = ref.run_epoch_steps(sa)
     syncs = gdist.verdict_syncs()
     gdist.reset_verdict_syncs()
-    sb, losses_b, _ = trainer.run_epoch(sb)
+    with published(lb.sampler.dist_feature) as stats_b:
+      sb, losses_b, _ = trainer.run_epoch(sb)
     assert gdist.verdict_syncs() == syncs
     assert torch.equal(torch.stack(losses_a), losses_b)
     for x, y in zip(model_a.parameters(), model_b.parameters()):
       assert torch.equal(x, y)
-    for t in ('u', 'v'):
-      assert la.sampler.dist_feature[t].stats() == \
-          lb.sampler.dist_feature[t].stats()
+    # each epoch published each store's counters once, at its end
+    assert stats_a == stats_b and sorted(stats_a) == ['u', 'v']
+    assert all(s['lookups'] > 0 for s in stats_a.values())
   if frac is None:
     assert syncs == 0
 
@@ -462,9 +469,9 @@ def test_typed_crash_resumes_with_per_type_counters(tmp_path):
   model = copy.deepcopy(model0)
   ref = gtt.loader.DistScanTrainer(port_typed_loader(), model, 3,
                                    chunk_size=2)
-  state, want, _ = ref.run_epoch(gtt.models.create_train_state(model,
-                                                               lr=1e-2))
-  want_stats = {t: s.stats() for t, s in ref._feat.items()}
+  with published(ref._feat) as want_stats:
+    state, want, _ = ref.run_epoch(gtt.models.create_train_state(model,
+                                                                 lr=1e-2))
   ckdir = str(tmp_path / 'ck')
   victim_model = copy.deepcopy(model0)
   victim = gtt.loader.DistScanTrainer(port_typed_loader(), victim_model, 3,
@@ -484,9 +491,12 @@ def test_typed_crash_resumes_with_per_type_counters(tmp_path):
   fresh_model = copy.deepcopy(model0)
   fresh = gtt.loader.DistScanTrainer(port_typed_loader(), fresh_model, 3,
                                      chunk_size=2)
-  _, losses, _ = ChunkCheckpointer(ckdir).resume_epoch(
-      fresh, gtt.models.create_train_state(fresh_model, lr=1e-2))
+  with published(fresh._feat) as got:
+    _, losses, _ = ChunkCheckpointer(ckdir).resume_epoch(
+        fresh, gtt.models.create_train_state(fresh_model, lr=1e-2))
   np.testing.assert_array_equal(losses, want.numpy())
   for x, y in zip(model.parameters(), fresh_model.parameters()):
     assert torch.equal(x, y)
-  assert {t: s.stats() for t, s in fresh._feat.items()} == want_stats
+  # the resumed epoch published the whole epoch's counters: the
+  # snapshot's prefix and the replayed chunks'
+  assert got == want_stats and all(s['lookups'] for s in got.values())

@@ -38,6 +38,10 @@ from graphlearn_tpu_torch.typing import GraphPartitionData as TPart
 
 from test_torch_dist_link import assert_link_equal
 from test_torch_distributed import N, _np, graphs, random_graph, ring
+from test_torch_cuda import published
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 FIELDS = ('node', 'num_nodes', 'row', 'col', 'edge_mask',
@@ -265,13 +269,16 @@ def test_hier_scanned_epoch_equals_the_per_step_loop(frac):
   sa = gtt.models.create_train_state(model_a, lr=1e-2)
   sb = gtt.models.create_train_state(model_b, lr=1e-2)
   gdist.reset_verdict_syncs()
-  sa, losses_a = ref.run_epoch_steps(sa)
+  with published({0: la.sampler.dist_feature}) as stats_a:
+    sa, losses_a = ref.run_epoch_steps(sa)
   syncs = gdist.verdict_syncs()
   gdist.reset_verdict_syncs()
-  sb, losses_b, _ = trainer.run_epoch(sb)
+  with published({0: lb.sampler.dist_feature}) as stats_b:
+    sb, losses_b, _ = trainer.run_epoch(sb)
   assert gdist.verdict_syncs() == syncs
   assert (syncs == 0) == (frac is None)
   assert torch.equal(torch.stack(losses_a), losses_b)
   for x, y in zip(model_a.parameters(), model_b.parameters()):
     assert torch.equal(x, y)
-  assert la.sampler.dist_feature.stats() == lb.sampler.dist_feature.stats()
+  # each epoch published its store's counters once, at its end
+  assert stats_a == stats_b and stats_a[0]['lookups'] > 0

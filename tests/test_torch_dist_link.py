@@ -35,6 +35,9 @@ from graphlearn_tpu_torch.typing import GraphPartitionData as TPart
 from test_torch_distributed import (N, _np, graphs, jmesh, random_graph,
                                     ring, tmesh)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 FIELDS = ('node', 'num_nodes', 'row', 'col', 'edge_mask',
           'num_sampled_nodes', 'num_sampled_edges')
 LINK_MD = ('edge_label_index', 'edge_label', 'src_index', 'dst_pos_index',

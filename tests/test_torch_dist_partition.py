@@ -15,10 +15,14 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch.utils import get_free_port
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 N = 40
 

@@ -32,6 +32,9 @@ from graphlearn_tpu_torch import distributed as gdist
 from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
 from graphlearn_tpu_torch.typing import GraphPartitionData
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N = 40
 P = 2
 MODES = [('tree', 2.0), ('tree', None), ('merge', 2.0), ('merge', None)]

@@ -34,6 +34,10 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.typing import GraphPartitionData as TPart
 
 from test_torch_keys import _threefry
+from test_torch_cuda import published
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 N = 40
 K = 2
@@ -242,18 +246,19 @@ def test_scanned_epochs_equal_jax(jax_ref):
   loader = port_loader(P_REF, REF_SEEDS, shuffle=True)
   trainer = gtt.loader.DistScanTrainer(loader, model, 3, chunk_size=K)
   state = gtt.models.create_train_state(model, lr=1e-2)
-  store = loader.sampler.dist_feature
   for e in (1, 2):
-    store.reset_stats()
+    # the epoch publishes its store's counters at its end, as JAX's does
+    gtt.utils.trace.reset_counters('dist_feature')
     state, losses, accs = trainer.run_epoch(state)
     assert losses.shape == (5,) and state.step == 5 * e
     np.testing.assert_allclose(losses.numpy(), jax_ref[f'losses{e}'], **TOL)
     np.testing.assert_allclose(accs.numpy(), jax_ref[f'accs{e}'], **TOL)
     assert_params_close(model, jax_ref[f'params{e}'])
-    st = store.stats()
+    st = gtt.utils.trace.counters('dist_feature')
     want = {k: jax_ref[f'stats{e}'].get(f'dist_feature.{k}', 0)
             for k in STATS}
-    assert {k: st[k] for k in STATS} == want
+    assert {k: st.get(f'dist_feature.{k}', 0) for k in STATS} == want
+    assert want['lookups'] > 0
   assert loader.sampler._call_count == 10 and trainer._epochs == 2
 
 
@@ -277,17 +282,19 @@ def test_scanned_epoch_equals_the_per_step_loop(p, num_seeds, chunk, kw):
   steps = len(ref_loader)
   for _ in range(2):
     gdist.reset_verdict_syncs()
-    sa, la = ref.run_epoch_steps(sa)
+    with published({0: ref_loader.sampler.dist_feature}) as ref_stats:
+      sa, la = ref.run_epoch_steps(sa)
     syncs_ref = gdist.verdict_syncs()
     gdist.reset_verdict_syncs()
-    sb, lb, ab = trainer.run_epoch(sb)
+    with published({0: scan_loader.sampler.dist_feature}) as scan_stats:
+      sb, lb, ab = trainer.run_epoch(sb)
     assert gdist.verdict_syncs() == syncs_ref
     assert len(la) == steps == lb.shape[0] == ab.shape[0]
     assert torch.equal(torch.stack(la), lb)
     for x, y in zip(model_a.parameters(), model_b.parameters()):
       assert torch.equal(x, y)
-    assert ref_loader.sampler.dist_feature.stats() == \
-        scan_loader.sampler.dist_feature.stats()
+    # each epoch published its store's counters once, at its end
+    assert ref_stats == scan_stats and ref_stats[0]['lookups'] > 0
     assert ref_loader.sampler._call_count == \
         scan_loader.sampler._call_count
   if kw.get('bucket_frac', 2.0) is None:

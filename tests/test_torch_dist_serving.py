@@ -35,6 +35,9 @@ from graphlearn_tpu_torch.serving import (DistEmbeddingStore,
 
 from test_torch_serving import F, N, _torch_dataset
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 STATS = ('hits', 'misses', 'unique_misses', 'overflow', 'lookups')
 
 

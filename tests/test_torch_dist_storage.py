@@ -35,6 +35,10 @@ from graphlearn_tpu_torch.storage import (DistChunkStager, TieredDistFeature,
 from graphlearn_tpu_torch.typing import GraphPartitionData as TPart
 
 from test_torch_dist_scan import jmesh, port_model, ring
+from test_torch_cuda import published
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 N = 40
 P = 2
@@ -76,8 +80,10 @@ def test_tiered_dist_scan_bit_identical_two_epochs(tmp_path, shuffle):
   sb = gtt.models.create_train_state(model_b, lr=1e-2)
   for epoch in range(2):
     staged0 = counter('storage.dist_staged_rows')
-    sa, la, _ = ref.run_epoch(sa)
-    sb, lb, _ = trainer.run_epoch(sb)
+    with published({0: ref._feat}) as stats_a:
+      sa, la, _ = ref.run_epoch(sa)
+    with published({0: trainer._feat}) as stats_b:
+      sb, lb, _ = trainer.run_epoch(sb)
     assert lb.shape == (10,) and torch.equal(la, lb), epoch
     for x, y in zip(model_a.parameters(), model_b.parameters()):
       assert torch.equal(x, y)
@@ -87,7 +93,8 @@ def test_tiered_dist_scan_bit_identical_two_epochs(tmp_path, shuffle):
     staged = plan.stats()['planned_rows']
     assert staged > 0
     assert counter('storage.dist_staged_rows') - staged0 == staged
-    assert ref._feat.stats() == trainer._feat.stats()
+    # each epoch published its store's counters once, at its end
+    assert stats_a == stats_b and stats_a[0]['lookups'] > 0
     # the plan is the JAX planner's over the same replayed ids
     rows = trainer._plan_rows(*trainer._epoch_seeds(
         gtt.random.fold_in(trainer._perm_key, trainer._epochs - 1), 10))
@@ -133,7 +140,8 @@ def test_crash_resume_of_the_tiered_trainer(tmp_path):
   ref_m = copy.deepcopy(model0)
   ref = TieredDistScanTrainer(make_loader(True, str(tmp_path / 'a')), ref_m,
                               3, chunk_size=4)
-  _, want, _ = ref.run_epoch(gtt.models.create_train_state(ref_m, 1e-2))
+  with published({0: ref._feat}) as want_stats:
+    _, want, _ = ref.run_epoch(gtt.models.create_train_state(ref_m, 1e-2))
   vm = copy.deepcopy(model0)
   victim = TieredDistScanTrainer(make_loader(True, str(tmp_path / 'b')), vm,
                                  3, chunk_size=4)
@@ -151,12 +159,14 @@ def test_crash_resume_of_the_tiered_trainer(tmp_path):
   fm = copy.deepcopy(model0)
   fresh = TieredDistScanTrainer(make_loader(True, str(tmp_path / 'c')), fm,
                                 3, chunk_size=4)
-  _, got, _ = ChunkCheckpointer(str(tmp_path / 'ck')).resume_epoch(
-      fresh, gtt.models.create_train_state(fm, 1e-2))
+  with published({0: fresh._feat}) as got_stats:
+    _, got, _ = ChunkCheckpointer(str(tmp_path / 'ck')).resume_epoch(
+        fresh, gtt.models.create_train_state(fm, 1e-2))
   np.testing.assert_array_equal(got, want.numpy())
   for x, y in zip(fm.parameters(), ref_m.parameters()):
     assert torch.equal(x, y)
-  assert fresh._feat.stats() == ref._feat.stats()
+  # the resumed epoch published the whole epoch's counters
+  assert got_stats == want_stats and want_stats[0]['lookups'] > 0
   for t in (ref, victim, fresh):
     t.close()
 

@@ -24,6 +24,9 @@ from graphlearn_tpu_torch import distributed as gdist
 from test_torch_distributed import (N, _np, graphs, jmesh, random_graph,
                                     ring, tmesh)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 FIELDS = ('node', 'num_nodes', 'row', 'col', 'edge_mask')
 
 

@@ -31,6 +31,10 @@ from graphlearn_tpu.typing import GraphPartitionData as JPart
 from graphlearn_tpu_torch import distributed as gdist
 from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
 from graphlearn_tpu_torch.typing import GraphPartitionData as TPart
+from test_torch_cuda import STAT_KEYS, published
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 N = 40
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -448,11 +452,17 @@ def test_dist_dataset_load_from_the_ports_partition_dir(tmp_path):
                                             mesh=jmesh(2))
     tl = gdist.DistNeighborLoader(tds, [2], np.arange(N), batch_size=4,
                                   seed=0, mesh=tmesh(2))
-    assert_batches_equal(jl, tl)
-    # JAX's loader drains its counters into the trace registry at the
-    # epoch's end (publish_stats, the tracing slice); the port's keep them
-    st = tds.node_features.stats()
+    jbefore = glt.utils.trace.counters('dist_feature')
+    with published({'node': tds.node_features}) as got:
+      assert_batches_equal(jl, tl)
+    jafter = glt.utils.trace.counters('dist_feature')
+    # both loaders drain their counters into the registry at the epoch's
+    # end (publish_stats): the port's published what JAX's did
+    st = got['node']
     assert st['lookups'] == st['hits'] + st['misses'] > 0
+    assert st == {k: jafter.get(f'dist_feature.{k}', 0) -
+                  jbefore.get(f'dist_feature.{k}', 0) for k in STAT_KEYS}
+    assert tds.node_features.stats()['lookups'] == 0
   # feature_spill_dir: the node store spills to disk tiers and serves
   # the same rows (TieredDistFeature)
   spilled = gdist.DistDataset().load(str(tmp_path), mesh=tmesh(2),

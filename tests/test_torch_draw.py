@@ -20,6 +20,9 @@ from graphlearn_tpu.ops import sample_fused as jsf
 from graphlearn_tpu_torch import random as trandom
 from graphlearn_tpu_torch.ops import neighbor
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 HEADER = (Path(__file__).resolve().parents[1] / 'graphlearn_tpu_torch' /
           'csrc' / 'csr_pick.cuh')
 SPEC = """\

@@ -28,6 +28,10 @@ from graphlearn_tpu_torch.recovery import (ChunkCheckpointer,
                                            remaining_seeds, snapshot)
 
 from test_torch_dist_scan import jax_loader, port_loader, port_model
+from test_torch_cuda import published
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 K = 2
 POOL = np.arange(20)       # 5 steps on P = 2 (4 seeds a step)
@@ -65,13 +69,15 @@ def ref():
   trainer = trainer_for(model)
   store = trainer.loader.sampler.dist_feature
   state = gtt.models.create_train_state(model, lr=1e-2)
-  state, losses, _ = trainer.run_epoch(state)
+  with published({0: store}) as stats:
+    state, losses, _ = trainer.run_epoch(state)
   out = dict(model0=model0, losses=losses.numpy(),
-             params=snapshot_params(model), stats=store.stats())
-  store.reset_stats()
-  state, losses2, _ = trainer.run_epoch(state)
+             params=snapshot_params(model), stats=stats[0])
+  with published({0: store}) as stats2:
+    state, losses2, _ = trainer.run_epoch(state)
   out.update(losses2=losses2.numpy(), params2=snapshot_params(model),
-             stats2=store.stats())
+             stats2=stats2[0])
+  assert stats[0]['lookups'] > 0 and stats2[0]['lookups'] > 0
   return out
 
 
@@ -81,24 +87,28 @@ def test_crash_and_resume_bit_identical_with_exact_counters(ref, tmp_path):
   victim = trainer_for(victim_model)
   ck = ChunkCheckpointer(ckdir, every=1).attach(victim)
   crash_at(victim, 2)
-  with pytest.raises(RuntimeError, match='injected'):
-    victim.run_epoch(gtt.models.create_train_state(victim_model, lr=1e-2))
+  with published({0: victim.loader.sampler.dist_feature}) as dropped:
+    with pytest.raises(RuntimeError, match='injected'):
+      victim.run_epoch(gtt.models.create_train_state(victim_model,
+                                                     lr=1e-2))
   ck.close()
-  # the failed epoch dropped its partial counts; the boundary's are in
-  # the snapshot
+  # the failed epoch dropped its partial counts (its publish read
+  # zeros); the boundary's are in the snapshot
+  assert dropped[0]['lookups'] == 0
   assert victim.loader.sampler.dist_feature.stats()['lookups'] == 0
   snap = ChunkCheckpointer(ckdir).latest()
   assert snap.meta['next_start'] == 4 and 'extra:stats:' in snap.arrays
   fresh_model = copy.deepcopy(ref['model0'])
   fresh = trainer_for(fresh_model)
   metrics.reset('recovery')
-  state, losses, _ = ChunkCheckpointer(ckdir).resume_epoch(
-      fresh, gtt.models.create_train_state(fresh_model, lr=1e-2))
+  with published({0: fresh.loader.sampler.dist_feature}) as got:
+    state, losses, _ = ChunkCheckpointer(ckdir).resume_epoch(
+        fresh, gtt.models.create_train_state(fresh_model, lr=1e-2))
   assert metrics.snapshot()['counters']['recovery.resume_chunks'] == 1
   np.testing.assert_array_equal(losses, ref['losses'])
   assert_params_equal(fresh_model, ref['params'])
   assert state.step == 5
-  assert fresh.loader.sampler.dist_feature.stats() == ref['stats']
+  assert got[0] == ref['stats']
   assert fresh._epochs == 1 and fresh._sampler._call_count == 5
 
 
@@ -119,10 +129,11 @@ def test_completed_epoch_snapshot_advances(ref, tmp_path):
   assert tb._epochs == 1
   # the finished epoch's counters are not restored: the next epoch's
   # equal the uninterrupted run's second epoch alone
-  sb, lb2, _ = tb.run_epoch(sb)
+  with published({0: tb.loader.sampler.dist_feature}) as got:
+    sb, lb2, _ = tb.run_epoch(sb)
   np.testing.assert_array_equal(lb2.numpy(), ref['losses2'])
   assert_params_equal(model_b, ref['params2'])
-  assert tb.loader.sampler.dist_feature.stats() == ref['stats2']
+  assert got[0] == ref['stats2']
 
 
 class BoundaryLiveness:

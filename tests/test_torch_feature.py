@@ -17,6 +17,9 @@ import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import ops
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 CPU = 'cpu'
 
 

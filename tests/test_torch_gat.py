@@ -27,6 +27,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import models as M
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-5, 1e-4
 F = 12
 

@@ -20,6 +20,9 @@ import graphlearn_tpu_torch as gtt
 from graphlearn_tpu.ops import gather_pallas as jg
 from graphlearn_tpu_torch import ops
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N_ROWS = 5000
 
 

@@ -18,6 +18,9 @@ from graphlearn_tpu.ops import gather_pallas as jg
 from graphlearn_tpu_torch import ops
 from graphlearn_tpu_torch.ops import gather
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N_ROWS = 3000
 B = 2500          # not a multiple of 16, 256 or 1024: a ragged last tile
 AT = 1030         # where a case puts its run: inside a 1024-slot tile

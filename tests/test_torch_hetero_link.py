@@ -14,11 +14,15 @@ tests/test_loader.py's typed link loader cases, batch for batch.
 """
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
 from test_torch_hetero_sampler import (CITES, REV, TAG, WRITES, both_graphs,
                                        fields, typed_edges)
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 FAN = {CITES: [3, 2], WRITES: [2, 2], REV: [2, 1], TAG: [1, 0]}
 LINK_KEYS = ('edge_label_index', 'edge_label', 'src_index',

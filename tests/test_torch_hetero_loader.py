@@ -30,6 +30,9 @@ from graphlearn_tpu_torch.models import train as ttrain
 from test_torch_hetero_sampler import CITES, REV, SIZES, TAG, WRITES, \
     typed_edges
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FAN = {CITES: [2, 2], WRITES: [2, 1], REV: [2, 1], TAG: [1, 0]}
 
@@ -256,17 +259,8 @@ def _record_inits(monkeypatch):
   return inits
 
 
-@pytest.fixture
-def one_torch_thread():
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize('model', ['rsage', 'rgat'])
-def test_train_rgnn_example_matches_jax(model, monkeypatch, capsys,
-                                        one_torch_thread):
+def test_train_rgnn_example_matches_jax(model, monkeypatch, capsys):
   """The ported IGBH RGNN example from the JAX example's initial weights:
   the same first and final loss (the JAX example prints them to 4
   places)."""
@@ -289,8 +283,7 @@ def test_train_rgnn_example_matches_jax(model, monkeypatch, capsys,
   assert abs(tres['final_train_acc'] - jres['final_train_acc']) <= 1e-4
 
 
-def test_hierarchical_sage_example_matches_jax(monkeypatch, capsys,
-                                               one_torch_thread):
+def test_hierarchical_sage_example_matches_jax(monkeypatch, capsys):
   """The ported hierarchical typed SAGE example from the JAX example's
   initial weights of both variants: the same first and final losses."""
   import json

@@ -18,6 +18,9 @@ from graphlearn_tpu_torch.models import convert
 from test_torch_hetero_sampler import CITES, REV, SIZES, TAG, WRITES, \
     typed_edges
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-5, 1e-4
 FAN = {CITES: [2, 2], WRITES: [2, 1], REV: [2, 1], TAG: [1, 0]}
 MSG_ETYPES = tuple(glt.typing.reverse_edge_type(et) for et in FAN)

@@ -8,9 +8,13 @@ typed cases of tests/test_neighbor_sampler.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 CITES = ('paper', 'cites', 'paper')
 WRITES = ('author', 'writes', 'paper')

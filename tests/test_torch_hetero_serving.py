@@ -25,6 +25,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.serving import (EmbeddingMaterializer,
                                           EmbeddingStore, ServingEngine)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 CITES = ('paper', 'cites', 'paper')
 WRITES = ('author', 'writes', 'paper')
 ATOL, RTOL = 1e-5, 1e-4

@@ -25,6 +25,9 @@ from test_torch_hetero_models import (FAN, MSG_ETYPES, _check_forward_and_grads,
                                       close, jax_batch, jax_dataset,
                                       torch_inputs)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 NTYPES = ('paper', 'author', 'topic')
 
 

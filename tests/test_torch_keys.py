@@ -20,6 +20,9 @@ import torch
 from graphlearn_tpu_torch import ops
 from graphlearn_tpu_torch import random as trandom
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 U32 = np.uint32
 COUNTS = (0, 1, 2 ** 31 - 1, 2 ** 32 - 1)

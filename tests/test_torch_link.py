@@ -34,6 +34,9 @@ from graphlearn_tpu_torch.examples import graph_sage_unsup as example
 from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 FIELDS = ('node', 'num_nodes', 'row', 'col', 'edge', 'edge_mask', 'batch')
 ENGINES = ('tree', 'auto', 'map_table', 'sort_legacy')
@@ -354,19 +357,7 @@ def _jax_example_run(monkeypatch, argv):
   return rec
 
 
-@pytest.fixture
-def one_torch_thread():
-  """One intra-op thread for the test (restored after): the suite runs in
-  several processes on shared cores, and torch's thread pool in each
-  slows a long CPU run several-fold."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
-
-
-def test_example_losses_track_the_jax_example(monkeypatch,
-                                              one_torch_thread):
+def test_example_losses_track_the_jax_example(monkeypatch):
   argv = ['--epochs', '1', '--num-nodes', '2000', '--batch-size', '64',
           '--avg-deg', '1']
   rec = _jax_example_run(monkeypatch, argv)

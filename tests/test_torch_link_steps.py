@@ -31,6 +31,9 @@ from graphlearn_tpu_torch.examples import graph_sage_unsup as example
 from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-4
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
@@ -127,16 +130,7 @@ def check_steps(monkeypatch, avg_deg, max_steps=None, num_nodes=2000,
   return readings
 
 
-@pytest.fixture
-def one_torch_thread():
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
-
-
-def test_example_steps_agree_from_the_jax_state(monkeypatch,
-                                                one_torch_thread):
+def test_example_steps_agree_from_the_jax_state(monkeypatch):
   """At ``--avg-deg 3``, the first 60 steps (past where a free-running
   epoch parts at ~100 steps, the whole epoch by the module's
   ``__main__``): every batch equal, every loss and update within

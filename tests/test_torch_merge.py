@@ -27,6 +27,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 from graphlearn_tpu_torch.sampler import calibrate as tcal
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 FILL = tops.FILL
 STATE_FIELDS = ('nodes', 'num_nodes', 'sorted_ids', 'sorted_loc')
 

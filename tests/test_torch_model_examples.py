@@ -32,18 +32,13 @@ import torch
 from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-4
 GRAD_ATOL, GRAD_RTOL = 1e-5, 2e-4
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
-
-
-@pytest.fixture
-def one_torch_thread():
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
 
 
 def load_jax_example(rel, name):
@@ -136,8 +131,7 @@ def _eq(a, b):
   return np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_hgt_mag_example_steps_agree_from_the_jax_state(monkeypatch,
-                                                       one_torch_thread):
+def test_hgt_mag_example_steps_agree_from_the_jax_state(monkeypatch):
   """examples/hetero/train_hgt_mag.py against its port: one epoch of 12
   steps (2,000 papers, batch 32, hidden 16, 2 heads), every step held
   from JAX's state."""
@@ -179,8 +173,7 @@ def test_hgt_mag_example_steps_agree_from_the_jax_state(monkeypatch,
   check_readings(readings, 12)
 
 
-def test_seal_example_steps_agree_from_the_jax_state(monkeypatch,
-                                                    one_torch_thread):
+def test_seal_example_steps_agree_from_the_jax_state(monkeypatch):
   """examples/seal_link_pred.py against its port: the extraction (DRNL
   labels, padding, link order) gives JAX's batches bit for bit, and each
   of the epoch's 6 DGCNN steps, held from JAX's state, gives JAX's loss,

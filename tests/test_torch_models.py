@@ -17,6 +17,9 @@ from graphlearn_tpu.models import train as jtrain
 from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def _jax_batch(fanouts, batch, n=250, f=12, c=6):
   rng = np.random.default_rng(len(fanouts))

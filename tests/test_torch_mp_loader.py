@@ -14,10 +14,14 @@ and epoch order (``np.random.default_rng(seed)``).
 """
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch.channel import live_channel_count
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 N = 40
 

@@ -16,8 +16,12 @@ import os
 import pkgutil
 
 import pytest
+import torch
 
 import graphlearn_tpu_torch as gtt
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_ROOT = os.path.join(ROOT, 'graphlearn_tpu')
@@ -25,9 +29,12 @@ JAX_ROOT = os.path.join(ROOT, 'graphlearn_tpu')
 FLAX = 'flax-only: freezes dicts into flax module attributes'
 BLOCKS128 = ('blocks128 is refused: the port reads the flat indices, so '
              "the TPU's 128-lane layout has no counterpart")
-TRACING = 'the JAX tracing hooks: queue A item 8 (metrics, trace, strict)'
+STRICT = ("utils/strict.py (JAX's transfer guard; the card's counterpart is "
+          "torch.cuda.set_sync_debug_mode): ROADMAP queue A item 8b")
+XLA_COST = ("JAX-only: reads XLA's cost and memory analysis of a compiled "
+            'program, which a CUDA graph capture does not carry')
 JAX_ONLY = 'JAX-only: compilation cache, jax device placement, shard_map'
-TUNE = 'tune/: ROADMAP queue A item 8'
+TUNE = 'tune/: ROADMAP queue A item 8c'
 
 ABSENT = {
     ('', 'tune'): TUNE,
@@ -38,31 +45,14 @@ ABSENT = {
     ('ops.sample_fused', 'LANES'): BLOCKS128,
     ('ops.sample_fused', 'LEVEL_MAX_CANDIDATES'): BLOCKS128,
     ('ops.sample_fused', 'build_indices128'): BLOCKS128,
-    ('metrics', 'flight'): TRACING,
-    ('metrics', 'programs'): TRACING,
-    ('metrics', 'spans'): TRACING,
     ('sampler.neighbor_sampler', 'ops_ptr2ind'): (
         "a host copy of ptr2ind inside JAX's sampler; the port calls "
         'utils.ptr2ind'),
 }
-for _n in ('ProgramRegistry', 'RetraceBudgetExceeded',
-           'default_program_registry', 'instrument', 'retrace_budget',
-           'REGISTERED_METRICS', 'REGISTERED_SPANS', 'merge_scrape',
-           'register_source', 'scrape_all', 'unregister_source'):
-  ABSENT[('metrics', _n)] = TRACING
-for _n in ('strict_enabled', 'strict_guards', 'DispatchCounter',
-           'annotate', 'count_dispatches', 'device_op_ms',
-           'device_program_ms', 'dispatch_snapshot', 'maybe_start_trace',
-           'profile_trace', 'record_dispatch', 'step_annotation',
-           'stop_trace', 'wrap_dispatch'):
-  ABSENT[('utils', _n)] = TRACING
-# utils.trace holds the counter functions; its profiler half waits
-for _n in ('DispatchCounter', 'active_profile_dir', 'annotate',
-           'count_dispatches', 'device_op_ms', 'device_program_ms',
-           'dispatch_snapshot', 'maybe_start_trace', 'profile_trace',
-           'record_dispatch', 'step_annotation', 'stop_trace',
-           'wrap_dispatch'):
-  ABSENT[('utils.trace', _n)] = TRACING
+for _n in ('COST_ENV', 'capture_cost', 'cost_enabled'):
+  ABSENT[('metrics.programs', _n)] = XLA_COST
+for _n in ('strict_enabled', 'strict_guards'):
+  ABSENT[('utils', _n)] = STRICT
 for _n in ('shard_map', 'enable_compilation_cache', 'ensure_device',
            'get_available_device', 'global_device_put'):
   ABSENT[('utils', _n)] = JAX_ONLY
@@ -144,7 +134,9 @@ def test_compared_set_covers_the_new_namespaces():
                'utils', 'utils.checkpoint', 'utils.common', 'utils.topo',
                'ops.route', 'ops.stitch', 'sampler.capacity',
                'recovery.failover', 'loader.scan_epoch',
-               'loader.pipeline'):
+               'loader.pipeline', 'metrics', 'metrics.flight',
+               'metrics.spans', 'metrics.programs', 'metrics.scrape',
+               'metrics.logcheck', 'metrics.registry_names'):
     assert name in MODULES, name
 
 

@@ -25,6 +25,9 @@ import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import random as trandom
 from test_torch_draw import threefry
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 U32 = np.uint32
 SPANS = (60_000, 65_536, 65_537, 1_000_003)
 

@@ -18,6 +18,9 @@ import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import ops as tops
 from graphlearn_tpu_torch import random as trandom
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def _t(a):
   return torch.as_tensor(np.asarray(a))

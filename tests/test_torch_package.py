@@ -23,6 +23,9 @@ import torch
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch import ops
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _BLOCKED_IMPORTS = r'''

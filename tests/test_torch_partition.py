@@ -22,6 +22,9 @@ import graphlearn_tpu_torch as gtt
 from graphlearn_tpu import partition as jpart
 from graphlearn_tpu_torch import partition as tpart
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def ring_edges(n):
   rows = np.arange(n)

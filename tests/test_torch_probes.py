@@ -24,6 +24,9 @@ from jax.experimental.pallas import tpu as pltpu
 from graphlearn_tpu_torch import ops
 from graphlearn_tpu_torch.benchmarks import prof_dedup, prof_mem
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def _pallas_row_gather(tbl, ridx):
   """``benchmarks/prof_mem.py:84-102``, in interpret mode."""

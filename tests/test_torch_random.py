@@ -6,8 +6,12 @@ is exact: key words as integers, uniforms as float32 bit patterns.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from graphlearn_tpu_torch import random as trandom
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 
 def _np(t):

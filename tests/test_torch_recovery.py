@@ -31,6 +31,9 @@ from graphlearn_tpu_torch.recovery import (ChunkCheckpointer,
                                            TornSnapshotError,
                                            config_fingerprint, snapshot)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N, F, C = 96, 6, 3
 SEEDS, BATCH, K = 44, 8, 2          # 6 steps -> 3 chunks of K = 2
 TOL = dict(atol=1e-5, rtol=1e-4)

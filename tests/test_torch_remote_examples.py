@@ -17,10 +17,14 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 import graphlearn_tpu as glt
 from graphlearn_tpu.distributed import message as jmsg
 from graphlearn_tpu_torch.channel import live_channel_count
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -40,6 +40,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 from graphlearn_tpu_torch.utils import faults
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 gdist = gtt.distributed
 N = 38          # 38 seeds / bs 4: 10 batches, a ragged tail batch of 2
 BS = 4

@@ -14,10 +14,14 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu_torch as gtt
 from graphlearn_tpu_torch.channel import live_channel_count
 from graphlearn_tpu_torch.utils import faults, trace
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 gdist = gtt.distributed
 

@@ -22,6 +22,9 @@ from graphlearn_tpu import ops as jops
 from graphlearn_tpu_torch import ops as tops
 from graphlearn_tpu_torch import random as trandom
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 INT32_MAX = np.iinfo(np.int32).max
 
 

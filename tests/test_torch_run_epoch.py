@@ -26,6 +26,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 from graphlearn_tpu_torch.recovery import ChunkCheckpointer
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N, F, C = 96, 6, 3
 FANOUTS = [3, 2]
 BS = 8

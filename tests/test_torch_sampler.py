@@ -6,9 +6,13 @@ Mirrors the whole-stream check of tests/test_ops.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 
 def _fields(out):

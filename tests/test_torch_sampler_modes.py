@@ -14,9 +14,13 @@ the port too.
 """
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 
 def _fields(out, torch_side):

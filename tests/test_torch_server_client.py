@@ -16,6 +16,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
@@ -24,6 +25,9 @@ from test_torch_mp_loader import (BU, UB, assert_homo_batch,
                                   assert_typed_batch, datasets,
                                   jax_worker_batches, key_node_batch,
                                   typed_datasets)
+
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
 
 gdist = gtt.distributed
 N = 40

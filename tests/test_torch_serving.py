@@ -36,6 +36,9 @@ from graphlearn_tpu_torch.serving import (EmbeddingMaterializer,
                                           EmbeddingStore, ServingEngine,
                                           padded_neighbors)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N, F = 90, 6
 TOL = dict(atol=1e-5, rtol=1e-4)
 

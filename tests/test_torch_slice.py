@@ -19,6 +19,9 @@ from graphlearn_tpu.models import train as jtrain
 from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N, F, C = 300, 16, 5
 FANOUTS = [4, 3]
 BATCH = 16

@@ -30,6 +30,9 @@ from graphlearn_tpu import storage as jstorage
 from graphlearn_tpu_torch import metrics as tmetrics
 from graphlearn_tpu_torch import storage as tstorage
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 N, F = 96, 6
 CPU = 'cpu'
 GRID = [(0, 40), (16, 30), (0, 0), (N, 0)]

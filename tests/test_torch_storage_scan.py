@@ -49,6 +49,9 @@ from graphlearn_tpu_torch.models import convert
 from graphlearn_tpu_torch.models import train as ttrain
 from graphlearn_tpu_torch.recovery import ChunkCheckpointer
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 N, F, C = 96, 6, 3
 SEEDS, K = 44, 4
@@ -492,14 +495,9 @@ def test_papers_scale_spill_dir_tracks_the_jax_example(tmp_path,
   rec = _jax_tiered_example(monkeypatch,
                             argv + ['--spill-dir', str(tmp_path / 'j')])
   jline = capsys.readouterr().out.strip().splitlines()[-1]
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  try:
-    args = papers.parser().parse_args(
-        argv + ['--spill-dir', str(tmp_path / 't'), '--device', CPU])
-    result, losses = papers.run(args, rec['params0'])
-  finally:
-    torch.set_num_threads(threads)
+  args = papers.parser().parse_args(
+      argv + ['--spill-dir', str(tmp_path / 't'), '--device', CPU])
+  result, losses = papers.run(args, rec['params0'])
   import json
   jres = json.loads(jline)
   for key in ('tiers', 'staged_rows', 'prefetch_miss', 'prefetch_hit_rate',

@@ -17,6 +17,9 @@ import graphlearn_tpu as glt
 import graphlearn_tpu_torch as gtt
 from test_torch_link import assert_outputs_equal
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def _np(v):
   return v.numpy() if torch.is_tensor(v) else np.asarray(v)

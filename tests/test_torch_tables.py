@@ -33,6 +33,9 @@ from graphlearn_tpu_torch.examples import feature_mp
 from graphlearn_tpu_torch.examples import train_from_tables as tables_example
 from graphlearn_tpu_torch.examples import train_sage_papers_scale as papers
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = 'cpu'
 
@@ -151,16 +154,7 @@ def _jax_example(monkeypatch, name, argv, max_steps):
   return rec
 
 
-@pytest.fixture
-def one_torch_thread():
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
-
-
-def test_papers_scale_losses_track_the_jax_example(monkeypatch,
-                                                   one_torch_thread):
+def test_papers_scale_losses_track_the_jax_example(monkeypatch):
   argv = ['--num-nodes', '20000', '--hot-gb', '0.004', '--steps', '4',
           '--batch-size', '32']
   rec = _jax_example(monkeypatch, 'train_sage_papers_scale', argv, 5)
@@ -172,7 +166,7 @@ def test_papers_scale_losses_track_the_jax_example(monkeypatch,
   np.testing.assert_allclose(losses, rec['losses'], rtol=1e-4, atol=0)
 
 
-def test_papers_scale_spill_dir_is_not_ported(tmp_path, one_torch_thread):
+def test_papers_scale_spill_dir_is_not_ported(tmp_path):
   """``--spill-dir`` was refused until the storage slice; it now runs the
   three-tier mode (its JAX parity: tests/test_torch_storage_scan.py), and
   refuses a split that leaves the disk tier empty."""
@@ -191,7 +185,7 @@ def test_papers_scale_spill_dir_is_not_ported(tmp_path, one_torch_thread):
     papers.run(args)
 
 
-def test_tables_losses_track_the_jax_example(monkeypatch, one_torch_thread):
+def test_tables_losses_track_the_jax_example(monkeypatch):
   steps = 8
   rec = _jax_example(monkeypatch, 'train_from_tables', [], steps)
   args = argparse.Namespace(epochs=1, lr=3e-3, seed=0, device='cpu')

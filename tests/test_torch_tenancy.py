@@ -26,6 +26,9 @@ from graphlearn_tpu_torch import metrics
 from graphlearn_tpu_torch.distributed import tenancy as tten
 from graphlearn_tpu_torch.models import train as ttrain
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 gdist = gtt.distributed
 N = 38          # 38 seeds / bs 4: 10 batches, a ragged tail batch of 2
 BS = 4

@@ -23,6 +23,9 @@ from graphlearn_tpu_torch import utils as tu
 from graphlearn_tpu.utils import (common as jcommon, tensor as jtensor,
                                   topo as jtopo, units as junits)
 
+# Six pytest workers share eight cores: one intra-op torch thread each.
+torch.set_num_threads(1)
+
 
 def _coo(seed=0, n=30, e=90):
   rng = np.random.default_rng(seed)
