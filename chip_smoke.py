@@ -159,6 +159,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
    an unsynchronised loop epoch and profiled over one more epoch (device
    busy as the union over both streams, the kernels' summed time, their
    difference the overlap, the streams seen, the idle share).
+   Then the tuner (``tune_phase``, after the observability phase):
+   ``graphlearn_tpu_torch.tune`` at this width over the slice pool (the
+   default field plus the retrace probe: captures per candidate in the
+   compile phase and the steady epoch, ms per step, peak MB; the probe
+   rejected with a chunk-length diff), ``ScanTrainer(config=art)`` over
+   two epochs (the second captures nothing), the serving engine routed
+   through K2 by the artifact (one launch per engine batch, answers
+   equal to the table), ``GLT_STRICT=1`` over captured tree and merge
+   epochs (no raise; a ``.item()`` in a stage_hook raises only under
+   it), and ``recovery.save`` / ``serving.rotate`` armed once each; after
+   the dist_scan phase, ``tune(topology='dist')`` over its 4 shards
+   (``tune_dist_phase``).
 6. Modes: the products example's other modes on the same graph and width
    (its flags --strategy block, --padded-window auto (W = 16), weights
    made from a seed, --node-budget 100000 on tree (the layered segment
@@ -3178,6 +3190,428 @@ def observability_phase(torch, gtt, ds, device, caps, smi):
         f'build: {r["handle_ms"] - r["build_ms"]:.1f} ms in the handler, '
         f'{r["client_ms"] - r["handle_ms"]:.1f} ms on the wire and in '
         f'pickling; read back from {r["scraped"]} scrape roles on {smi}')
+  return rep
+
+
+TUNE_SERVE_REQUESTS = 24   # sequential engine requests, one batch each
+TUNE_SERVE_DIM = 16        # the routed engine's table width
+TUNE_ROTATE_ROWS = 100_000  # the rotating store's rows (4 shards)
+TUNE_MEM_SLACK_MB = 16     # allocated MB a candidate may leave behind
+
+
+def counter_value(gtt, name: str) -> int:
+  return gtt.metrics.default_registry().counter_value(name)
+
+
+def tune_candidates_report(recs, cuda) -> list:
+  """One row per candidate record of a local tune: qualified, captures in
+  the compile phase and the steady epoch (the scan_chunk site), ms per
+  step, peak MB; checked: every candidate but the retrace probe
+  qualifies with one capture per chunk length in the compile phase and
+  none in the steady epoch; on a card the probe is rejected with a diff
+  naming the chunk length."""
+  rows = []
+  for r in recs:
+    comp = r.get('compile_epoch_compiles') or {}
+    steady = r.get('steady_epoch_compiles') or {}
+    row = dict(name=r['name'], qualified=bool(r['qualified']),
+               compile_epochs=r.get('compile_epochs'),
+               compile_captures=sum(comp.values()),
+               steady_captures=sum(steady.values()),
+               probe_steps=r.get('probe_steps'),
+               ms_per_step=(r['wall_s'] * 1e3 / r['probe_steps']
+                            if r.get('probe_steps') else None),
+               peak_mb=r.get('peak_mb'), mem_before_mb=r.get('mem_before_mb'),
+               mem_after_mb=r.get('mem_after_mb'),
+               rejected=r.get('rejected'), retrace_diff=r.get('retrace_diff'))
+    rows.append(row)
+    probe = r['name'].endswith('retrace_probe')
+    if probe and cuda:
+      if row['qualified'] or 'static:k=' not in (row['retrace_diff'] or ''):
+        raise AssertionError(f'tune: the retrace probe was not rejected with '
+                             f'a chunk-length diff: {row}')
+    elif not probe:
+      if not row['qualified'] or row['steady_captures']:
+        raise AssertionError(f'tune: candidate {row["name"]} did not '
+                             f'qualify: {row}')
+      if cuda and row['compile_captures'] != 1:
+        raise AssertionError(f'tune: candidate {row["name"]} captured '
+                             f'{row["compile_captures"]} chunk graphs in its '
+                             'compile phase, not one per chunk length')
+    # the first candidate also places what the dataset and the process
+    # keep (the feature table on its first lookup, cuBLAS's workspaces):
+    # from the second on, each must hand back what it allocated
+    if cuda and len(rows) > 1 and \
+        abs(row['mem_after_mb'] - row['mem_before_mb']) > TUNE_MEM_SLACK_MB:
+      raise AssertionError(f'tune: candidate {row["name"]} left '
+                           f'{row["mem_after_mb"] - row["mem_before_mb"]:.1f}'
+                           ' MB allocated')
+  return rows
+
+
+def tune_strict_checks(torch, gtt, ds, device, caps, pool, smi, rep):
+  """GLT_STRICT=1 over a captured tree and a captured merge ScanTrainer
+  (two epochs each: warm-up and captures, then replays): neither raises
+  (the merge guard's epoch-end flag read is outside the region). A
+  stage_hook that calls ``.item()`` raises under GLT_STRICT and not
+  without it. The tree trainer then takes a ChunkCheckpointer with
+  ``recovery.save`` armed once: the epoch completes, the checkpointer
+  degrades to synchronous writes and the last snapshot holds the epoch's
+  losses."""
+  import tempfile
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch.recovery import ChunkCheckpointer
+  from graphlearn_tpu_torch.recovery import snapshot as snap_lib
+  from graphlearn_tpu_torch.utils import faults
+  cuda = device.type == 'cuda'
+  strict_env = {'GLT_STRICT': '1'}
+  out = {}
+  for mode in ('tree', 'merge'):
+    ops.reset_launch_counts()
+    trainer, state = obs_trainer(torch, gtt, ds, device, mode, caps, pool,
+                                 TRAIN_CHUNK if cuda else 2)
+    with env_set(strict_env):
+      for _ in range(2):
+        state = trainer.run_epoch(state)[0]
+    probe = torch.ones((), device=device)
+
+    def read_back(c, start, k):
+      probe.item()
+
+    trainer.stage_hook = read_back
+    raised = None
+    with env_set(strict_env):
+      try:
+        state = trainer.run_epoch(state)[0]
+      except RuntimeError as e:
+        raised = str(e).splitlines()[0][:160]
+    if cuda and raised is None:
+      raise AssertionError(f'tune strict {mode}: a .item() in the region did '
+                           'not raise under GLT_STRICT')
+    state = trainer.run_epoch(state)[0]   # the same hook, strict off
+    trainer.stage_hook = None
+    rec = dict(strict_epochs_ok=2, item_raised=raised,
+               item_without_strict_ok=True, captures=sorted(trainer._graphs))
+    if mode == 'tree':
+      tmp = tempfile.mkdtemp(prefix='glt_tune_ck_')
+      ck = ChunkCheckpointer(tmp, every=1).attach(trainer)
+      e0 = counter_value(gtt, 'checkpoint.save_errors')
+      with faults.injected('recovery.save', 'raise', times=1):
+        state, losses, _ = trainer.run_epoch(state)
+        ck.flush()
+        _, fired = faults.stats('recovery.save')
+      ck.close()
+      last = snap_lib.load_snapshot(snap_lib.list_snapshots(tmp)[-1][2])
+      same = bool(np.array_equal(last.arrays['losses'],
+                                 losses.cpu().numpy()))
+      rec['save_fault'] = dict(
+          fired=fired, degraded=ck.degraded,
+          save_errors=counter_value(gtt, 'checkpoint.save_errors') - e0,
+          snapshots=len(snap_lib.list_snapshots(tmp)),
+          last_snapshot_losses_equal=same)
+      if fired != 1 or not ck.degraded or not same or \
+          rec['save_fault']['save_errors'] != 1:
+        raise AssertionError(f'tune: recovery.save armed once: '
+                             f'{rec["save_fault"]}')
+    rec['launches'] = ops.launch_counts()
+    rep['launch_runs'].append(rec['launches'])
+    out[mode] = rec
+    log(f'tune strict {mode}: GLT_STRICT=1 over a warm-up/capture epoch and '
+        f'a replayed one: no raise; a stage_hook .item() under GLT_STRICT '
+        f'raised: {raised!r}; without GLT_STRICT: no raise'
+        + (f'; recovery.save armed once: {rec["save_fault"]}'
+           if mode == 'tree' else '') + f' on {smi}')
+    del trainer, state
+    if cuda:
+      torch.cuda.empty_cache()
+  return out
+
+
+def tune_serving_checks(torch, gtt, art, n, device, smi, rep):
+  """``ServingEngine(store, config=art')``, ``art'`` the tuned artifact
+  with ``use_pallas_v2=True``: the artifact's buckets, every answer equal
+  to the table's rows, one K2 (gather_runs) launch per engine batch. Then
+  ``serving.rotate`` armed once on a 4-shard ``RotatingShardedStore`` on
+  the card: the rotation raises, version 0 keeps serving; the next
+  rotation publishes."""
+  import tempfile
+
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch import tune as gtune
+  from graphlearn_tpu_torch.serving import RotatingShardedStore
+  from graphlearn_tpu_torch.utils import faults
+  rng = np.random.default_rng(41)
+  table = rng.standard_normal((n, TUNE_SERVE_DIM), dtype=np.float32)
+  store = gtt.serving.EmbeddingStore(table, device=device)
+  routed = gtune.TuneArtifact(dict(art.choices, use_pallas_v2=True,
+                                   gather2_block_rows=256,
+                                   gather2_run_span=8), art.dataset)
+  ops.reset_launch_counts()
+  b0 = counter_value(gtt, 'serving.batches')
+  with gtt.serving.ServingEngine(store, config=routed) as eng:
+    buckets = eng.buckets
+    for _ in range(TUNE_SERVE_REQUESTS):
+      ids = rng.integers(0, n, int(rng.integers(1, max(buckets) + 1)))
+      got = eng.submit(ids).result(timeout=60)
+      if not np.array_equal(got, table[ids]):
+        raise AssertionError('tune serving: a K2-routed answer differs from '
+                             'the table')
+  batches = counter_value(gtt, 'serving.batches') - b0
+  launches = ops.launch_counts()
+  rep['launch_runs'].append(launches)
+  if tuple(buckets) != tuple(art.choices['serving_buckets']) or \
+      (device.type == 'cuda' and launches['gather_runs'] != batches):
+    raise AssertionError(f'tune serving: buckets {buckets}, K2 launches '
+                         f'{launches["gather_runs"]} for {batches} batches')
+  out = dict(buckets=list(buckets), requests=TUNE_SERVE_REQUESTS,
+             batches=batches, gather_runs_launches=launches['gather_runs'],
+             answers_equal=True)
+  del store, table
+  # ---- serving.rotate armed once
+  rows = min(n, TUNE_ROTATE_ROWS)
+  base = np.arange(rows, dtype=np.float32)[:, None] * np.ones(
+      (1, TUNE_SERVE_DIM), np.float32)
+  root = tempfile.mkdtemp(prefix='glt_tune_rot_')
+  ops.reset_launch_counts()
+  rot = RotatingShardedStore(root, 4, base, warm_rows=1024, device=device)
+  ids = rng.integers(0, rows, 512)
+  mask = np.ones(ids.shape[0], bool)
+  with faults.injected('serving.rotate', 'raise', after=2, times=1):
+    try:
+      rot.rotate(lambda: base + 7.0)
+      raised = False
+    except faults.FaultError:
+      raised = True
+    _, fired = faults.stats('serving.rotate')
+  kept = bool(np.array_equal(rot.fetch(rot.lookup(ids, mask)), base[ids]))
+  version_after_fault = rot.version
+  rot.rotate(lambda: base + 7.0)
+  fresh = bool(np.array_equal(rot.fetch(rot.lookup(ids, mask)),
+                              base[ids] + 7.0))
+  rep['launch_runs'].append(ops.launch_counts())
+  out['rotate_fault'] = dict(fired=fired, raised=raised,
+                             version_after_fault=version_after_fault,
+                             previous_rows_served=kept,
+                             next_version=rot.version, next_rows=fresh)
+  if not (raised and fired == 1 and version_after_fault == 0 and kept and
+          fresh and rot.version == 1):
+    raise AssertionError(f'tune: serving.rotate armed once: '
+                         f'{out["rotate_fault"]}')
+  log(f'tune serving: ServingEngine(config=art + use_pallas_v2) buckets '
+      f'{out["buckets"]}, {TUNE_SERVE_REQUESTS} requests in {batches} '
+      f'batches, K2 launches {launches["gather_runs"]}, answers equal the '
+      f'table; serving.rotate armed once: {out["rotate_fault"]} on {smi}')
+  return out
+
+
+def tune_phase(torch, gtt, ds, device, pool, train_pool, caps, train_rep,
+               smi):
+  """The one-call tuner on the card at the main path's full width.
+
+  - ``tune(ds, dict(fanouts=FANOUTS, input_nodes=pool,
+    batch_size=BATCH))`` over the default field (calibrated exact merge,
+    tree, two gather-v2 routes) plus ``retrace_probe_candidate``: per
+    candidate qualified, captures in the compile phase (one per chunk
+    length) and in the steady epoch (0 for a qualified one), ms per step
+    and peak MB, and from the second candidate on the allocated MB back
+    within TUNE_MEM_SLACK_MB after each (the first also places what the
+    dataset and the process keep); the probe rejected with a diff naming
+    the chunk length; the chosen K, caps, split and buckets.
+  - ``ScanTrainer(loader, ..., config=art)`` over the train phase's pool,
+    two epochs: the tuned K, the second epoch capturing nothing, its ms
+    per step beside the train phase's captured reading (no bound, no
+    claim).
+  - :func:`tune_serving_checks` and :func:`tune_strict_checks`."""
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch import tune as gtune
+  from graphlearn_tpu_torch.metrics import programs
+  from graphlearn_tpu_torch.models import train
+  cuda = device.type == 'cuda'
+  rep = dict(launch_runs=[])
+  t0 = time.perf_counter()
+  cfg = dict(fanouts=FANOUTS, input_nodes=pool, batch_size=BATCH)
+  tcaps, _ = gtune.probes.probe_frontier_caps(ds.graph, FANOUTS, BATCH,
+                                              input_nodes=pool)
+  cands = gtune.default_candidates(tcaps, exact=False)
+  cands.append(gtune.retrace_probe_candidate(cands[0]))
+  ops.reset_launch_counts()
+  art = gtt.tune(ds, cfg, candidates=cands)
+  rep['launch_runs'].append(ops.launch_counts())
+  rep['tune_s'] = time.perf_counter() - t0
+  recs = [e for e in art.evidence if e.get('kind') == 'candidate']
+  rep['candidates'] = tune_candidates_report(recs, cuda)
+  for row in rep['candidates']:
+    ms = row['ms_per_step']
+    log(f'tune candidate {row["name"]}: qualified={row["qualified"]} '
+        f'compile-phase captures {row["compile_captures"]} '
+        f'({row["compile_epochs"]} probe epochs) steady captures '
+        f'{row["steady_captures"]} '
+        f'ms/step {"n/a" if ms is None else f"{ms:.3f}"} peak MB '
+        f'{row["peak_mb"]} allocated MB {row["mem_before_mb"]} -> '
+        f'{row["mem_after_mb"]}'
+        + (f'; rejected: {row["retrace_diff"]}' if not row['qualified']
+           else ''))
+  ch = art.choices
+  winner = [e for e in art.evidence if e.get('kind') == 'winner'][0]
+  rep['choices'] = {k: ch[k] for k in (
+      'mode', 'chunk_k', 'frontier_caps', 'split_ratio', 'bucket_frac',
+      'slab_cap', 'serving_buckets', 'wire_dtype', 'use_pallas_v2',
+      'gather2_block_rows', 'gather2_run_span')}
+  rep['winner'] = winner['name']
+  rep['fingerprint'] = art.fingerprint
+  log(f'tune: {len(recs)} candidates in {rep["tune_s"]:.1f} s, winner '
+      f'{winner["name"]} (tie-break {winner["tie_break"]}); chosen '
+      f'{rep["choices"]} on {smi}')
+  # ---- ScanTrainer(config=art): the tuned K, a second epoch of replays
+  mode = 'merge' if ch['mode'] in ('map', 'merge', 'sort', 'auto') else 'tree'
+  loader = gtt.loader.NeighborLoader(ds, FANOUTS, train_pool, shuffle=False,
+                                     seed=0, device=device,
+                                     **art.loader_kwargs())
+  model, _ = make_model(torch, gtt, loader, device, 0)
+  model.train()
+  state = train.create_train_state(model, lr=LR)
+  ops.reset_launch_counts()
+  trainer = gtt.loader.ScanTrainer(loader, model, CLASSES, config=art)
+  epochs = []
+  for _ in range(2):
+    c0 = programs.compile_count('scan_chunk')
+    a = _event(torch, cuda)
+    state, losses, _ = trainer.run_epoch(state)
+    b = _event(torch, cuda)
+    if cuda:
+      b.synchronize()
+    epochs.append(dict(captures=programs.compile_count('scan_chunk') - c0,
+                       ms_per_step=_span(a, b, cuda) / losses.shape[0],
+                       finite=bool(torch.isfinite(losses).all())))
+  rep['launch_runs'].append(ops.launch_counts())
+  hand = train_rep[f'train_{mode}']['scan']['ms_per_step']
+  rep['scan'] = dict(mode=mode, chunk_size=trainer.chunk_size, epochs=epochs,
+                     hand_picked_chunk=train_rep[f'train_{mode}']['scan'][
+                         'chunk_size'], hand_picked_ms_per_step=hand)
+  if trainer.chunk_size != ch['chunk_k'] or epochs[1]['captures'] or \
+      not all(e['finite'] for e in epochs):
+    raise AssertionError(f'tune: ScanTrainer(config=art) {rep["scan"]}')
+  log(f'tune: ScanTrainer(config=art) {mode}: K={trainer.chunk_size} '
+      f'(tuned), epoch captures {[e["captures"] for e in epochs]}, ms/step '
+      f'{epochs[1]["ms_per_step"]:.3f} beside the train phase\'s captured '
+      f'{hand:.3f} at K={rep["scan"]["hand_picked_chunk"]} (no claim) on '
+      f'{smi}')
+  del trainer, model, state, loader
+  if cuda:
+    torch.cuda.empty_cache()
+  rep['serving'] = tune_serving_checks(torch, gtt, art,
+                                       ds.graph.topo.num_nodes, device, smi,
+                                       rep)
+  spool = train_pool[:BATCH * (TRAIN_STEPS if cuda else 4)]
+  rep['strict'] = tune_strict_checks(torch, gtt, ds, device, caps, spool, smi,
+                                     rep)
+  # tune() leaves the dataset routed as its winner ran (JAX's contract);
+  # the later phases count their launches on the default routing
+  gtune.apply_kernel_routing(ds, {})
+  return rep
+
+
+def tune_dist_phase(torch, gtt, ds, labels, device, smi, built):
+  """``tune(topology='dist')`` over DIST_PARTS shards of the one card at
+  the dist_scan phase's size (BATCH seeds a shard, DSCAN_STEPS steps, the
+  tree GraphSAGE), with two full-width candidates (a captured
+  ``DistScanTrainer`` needs full-width exchanges): no cache and the
+  DIST_CACHE hot cache. Every candidate qualifies with no steady capture;
+  ``DistScanTrainer(config=art)`` takes the winner and trains an epoch; a
+  local ``ScanTrainer`` refuses it."""
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch import ops
+  from graphlearn_tpu_torch import tune as gtune
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  from graphlearn_tpu_torch.models import create_train_state
+  cuda = device.type == 'cuda'
+  t0 = time.perf_counter()
+  nparts = DIST_PARTS
+  b = BATCH if cuda else 64
+  steps = DSCAN_STEPS if cuda else 4
+  parts, fparts, pb, hot = (built[k] for k in ('parts', 'fparts', 'pb',
+                                               'hot'))
+  n = pb.shape[0]
+  mesh = gdist.ShardMesh(nparts, device)
+  dg = gdist.DistGraph(nparts, 0, parts, pb)
+  pool = np.random.default_rng(12).permutation(n)[:nparts * b * steps]
+
+  def dataset(split):
+    return gdist.DistDataset(nparts, 0, dg, gdist.DistFeature(
+        nparts, fparts, pb, mesh, split_ratio=split, hotness=hot,
+        bucket_frac=None), node_labels=labels)
+
+  def make_scenario(knobs, k):
+    data = dataset(knobs.get('split_ratio') or 0.0)
+    loader = gdist.DistNeighborLoader(
+        data, FANOUTS, pool, batch_size=b, shuffle=False, drop_last=True,
+        seed=0, mesh=mesh, dedup='tree', bucket_frac=None)
+    model = ex.make_model(FEAT_DIM, HIDDEN, CLASSES, FANOUTS, b, device,
+                          torch.Generator().manual_seed(0))
+    return (gtt.loader.DistScanTrainer(loader, model, CLASSES, chunk_size=k),
+            create_train_state(model, lr=LR))
+
+  cands = [gtune.TopologyCandidate('dist_fullwidth',
+                                   dict(bucket_frac=None, split_ratio=0.0,
+                                        wire_dtype=None)),
+           gtune.TopologyCandidate('dist_fullwidth_cached',
+                                   dict(bucket_frac=None,
+                                        split_ratio=DIST_CACHE,
+                                        wire_dtype=None))]
+  data0 = dataset(0.0)
+  cfg = dict(fanouts=FANOUTS, batch_size=b, epoch_steps=steps,
+             make_scenario=make_scenario, feat_dim=FEAT_DIM,
+             num_partitions=nparts)
+  ops.reset_launch_counts()
+  art = gtt.tune(data0, cfg, topology='dist', candidates=cands)
+  rep = dict(launch_runs=[ops.launch_counts()], parts=nparts, batch=b,
+             steps=steps, tune_s=time.perf_counter() - t0)
+  recs = [e for e in art.evidence if e.get('kind') == 'candidate']
+  rep['candidates'] = [dict(
+      name=r['name'], qualified=r['qualified'],
+      compile_epochs=r.get('compile_epochs'),
+      compile_captures=sum((r.get('compile_epoch_compiles') or {}).values()),
+      steady_captures=sum((r.get('steady_epoch_compiles') or {}).values()),
+      ms_per_step=(r['wall_s'] * 1e3 / r['probe_steps']
+                   if r.get('wall_s') is not None else None),
+      rejected=r.get('rejected')) for r in recs]
+  for row in rep['candidates']:
+    if not row['qualified'] or row['steady_captures'] or \
+        (cuda and row['compile_captures'] != 1):
+      raise AssertionError(f'tune dist: candidate {row}')
+  ops.reset_launch_counts()
+  loader = gdist.DistNeighborLoader(
+      data0, FANOUTS, pool, batch_size=b, shuffle=False, drop_last=True,
+      seed=0, mesh=mesh, dedup='tree', bucket_frac=None)
+  model = ex.make_model(FEAT_DIM, HIDDEN, CLASSES, FANOUTS, b, device,
+                        torch.Generator().manual_seed(0))
+  tr = gtt.loader.DistScanTrainer(loader, model, CLASSES, config=art)
+  state, losses, _ = tr.run_epoch(create_train_state(model, lr=LR))
+  rep['launch_runs'].append(ops.launch_counts())
+  finite = bool(torch.isfinite(losses).all())
+  local = make_loader(gtt, ds, pool[:BATCH], device, 'tree')
+  try:
+    gtt.loader.ScanTrainer(local, make_model(torch, gtt, local, device, 0)[0],
+                           CLASSES, config=art)
+    refused = None
+  except ValueError as e:
+    refused = str(e)[:120]
+  rep.update(chunk_k=art.choices['chunk_k'], accepted_chunk=tr.chunk_size,
+             accepted_epoch_finite=finite, local_refusal=refused,
+             winner=[e for e in art.evidence
+                     if e.get('kind') == 'winner'][0]['name'],
+             fingerprint_partitions=art.dataset['num_partitions'])
+  if tr.chunk_size != art.choices['chunk_k'] or not finite or \
+      refused is None or 'tuned for topology' not in refused:
+    raise AssertionError(f'tune dist: {rep}')
+  log(f'tune dist: P={nparts} candidates {rep["candidates"]}; winner '
+      f'{rep["winner"]}, K={rep["chunk_k"]}; DistScanTrainer(config=art) '
+      f'trained an epoch; a local ScanTrainer refused it: {refused!r} on '
+      f'{smi}')
+  del tr, model, state, loader, data0
+  if cuda:
+    torch.cuda.empty_cache()
   return rep
 
 
@@ -9564,6 +9998,11 @@ def main(argv=None):
   report['observability'] = observability_phase(torch, gtt, ds, device, caps,
                                                 smi)
   phase_done('observability')
+  report['tune'] = tune_phase(torch, gtt, ds, device, pool, train_pool, caps,
+                              report, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('tune')
   mode_steps = MODE_STEPS if cuda else 4
   mode_pool = np.random.default_rng(6).permutation(n_nodes)[
       :BATCH * mode_steps]
@@ -9619,6 +10058,11 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('dist_scan')
+  report['tune_dist'] = tune_dist_phase(torch, gtt, ds, labels, device, smi,
+                                        dist_parts)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('tune_dist')
   report['dist_more'] = dist_more_phase(torch, gtt, ei, feats, topo, device,
                                         smi, built=dist_parts)
   del dist_parts
@@ -9672,6 +10116,7 @@ def main(argv=None):
   for p in ('train_tree', 'train_merge'):
     paths += report[p]['program']['launch_runs']
   paths += report['observability']['launch_runs']
+  paths += report['tune']['launch_runs'] + report['tune_dist']['launch_runs']
   for rec in report['modes'].values():
     paths += [rec['launches'], rec['launches_eager'],
               rec['inference_launches']]

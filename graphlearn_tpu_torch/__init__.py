@@ -13,7 +13,10 @@ partitioners (``partition``) and its partitioned sampling and training
 path (``distributed``: sharded graph, features, sampler and loader;
 ``loader.DistScanTrainer``, ``recovery.FailoverRunner``, the tiered
 distributed store and the sharded serving stores; the multiprocess and
-server-client sampling stack over ``channel``) on an NVIDIA GPU,
+server-client sampling stack over ``channel``) and its one-call tuner
+(``tune``: ``graphlearn_tpu_torch.tune(dataset, loader_cfg)`` gives the
+artifact every chunked trainer and the serving engine take as
+``config=``) on an NVIDIA GPU,
 with the TPU kernels of those paths rewritten by hand in CUDA
 (``csrc/``). The JAX
 package stays the reference: the same inputs and the same threefry
@@ -23,7 +26,7 @@ and numpy, never jax. Entry points run on the card
 """
 from . import (channel, data, distributed, loader, metrics, models, ops,
                partition, random, recovery, sampler, serving, storage,
-               typing, utils)
+               tune, typing, utils)
 
 from .loader import OverlappedTrainer, RunTrainer, ScanTrainer
 

@@ -60,8 +60,10 @@ Usage::
     state, losses, accs = trainer.run_epoch(state)
 
 Deliberate divergences: the optimizer is in the ``TrainState`` (no
-``tx``); no tuned ``config=`` (the tune slice); ``device=`` (where the
-model trains, the card by default) and ``capture=`` come last.
+``tx``); ``device=`` (where the model trains, the card by default) and
+``capture=`` come last. ``config=`` (a tune artifact) is JAX's
+(:func:`_resolve_remote_config`). Under ``GLT_STRICT`` the epoch body is
+the guarded region (``utils.strict``).
 Observability is the other trainers': one flight record in an
 ``epoch.run`` span per epoch, an ``epoch.chunk`` span per chunk's
 enqueue, a ``remote.block_fetch`` span per fetched block (the worker
@@ -90,7 +92,7 @@ from ..loader.scan_epoch import (_ChunkGraph, _replay_signature,
 from ..metrics import programs, spans
 from ..storage.staging import _POLL_S
 from ..typing import to_edge_type
-from ..utils import resolve_device, trace
+from ..utils import resolve_device, strict, trace
 from ..utils.trace import record_dispatch
 from ..utils.faults import fault_point
 from .dist_loader import _norm_num_neighbors, _split_input_type
@@ -416,6 +418,63 @@ def _torch_dtype(np_dtype):
   return torch.from_numpy(np.zeros((0,), np_dtype)).dtype
 
 
+def _norm_fans(f):
+  """Canonical comparison form of a fanout spec: per-etype dict fanouts
+  normalize to sorted string keys (tuned artifacts round-trip etype keys
+  through JSON as strings)."""
+  if isinstance(f, dict):
+    from ..typing import as_str
+    return {as_str(tuple(et)) if isinstance(et, (tuple, list))
+            else str(et): [int(k) for k in v]
+            for et, v in sorted(f.items(), key=lambda kv: str(kv[0]))}
+  return [int(k) for k in f]
+
+
+def _resolve_remote_config(name: str, config, fanouts,
+                           batch_size: int) -> dict:
+  """Validate a tune-artifact ``config=`` against the remote scenario and
+  return its tuned block knobs (empty without a config), as JAX's does:
+  the topology must be 'remote' or a generic 'local' artifact, and the
+  artifact's fanouts and batch size must be the stream's. The client
+  holds no dataset to recompute the fingerprint against: the artifact is
+  accepted on the tune side's validation, with a warning."""
+  if config is None:
+    return {}
+  art_topo = getattr(config, 'topology', 'local') or 'local'
+  if art_topo not in ('local', 'remote'):
+    raise ValueError(
+        f'{name}: tune artifact was tuned for topology {art_topo!r}, '
+        "but this trainer runs the 'remote' scenario — per-topology "
+        'knobs do not transfer; re-run graphlearn_tpu_torch.tune('
+        "topology='remote') (docs/tuning.md)")
+  choices = getattr(config, 'choices', None) or {}
+  tuned_fans = choices.get('fanouts')
+  if tuned_fans is not None and \
+      _norm_fans(tuned_fans) != _norm_fans(fanouts):
+    raise ValueError(
+        f'{name}: tune artifact pins fanouts {tuned_fans} but '
+        f'this trainer streams at {_norm_fans(fanouts)} — the '
+        'block frames were sized for a different sampling shape '
+        '(docs/tuning.md)')
+  tuned_bs = choices.get('batch_size')
+  if tuned_bs is not None and int(tuned_bs) != int(batch_size):
+    raise ValueError(
+        f'{name}: tune artifact pins batch_size={int(tuned_bs)} but '
+        f'this trainer streams at batch_size={int(batch_size)} '
+        '(docs/tuning.md)')
+  if getattr(config, 'dataset', None) is not None:
+    import warnings
+    warnings.warn(
+        f'{name}: the remote client holds no dataset to recompute '
+        'the artifact fingerprint against — tuned config accepted on '
+        'the tune-side validation only', RuntimeWarning, stacklevel=3)
+  if art_topo == 'remote' and hasattr(config, 'topology_kwargs'):
+    kw = config.topology_kwargs()
+    return {k: kw[k] for k in ('block_ahead', 'block_wire_dtype')
+            if k in kw}
+  return {}
+
+
 class RemoteScanTrainer:
   """Chunked epochs over sampling-server block streams (module
   docstring). Scope: supervised node classification with collected
@@ -438,6 +497,11 @@ class RemoteScanTrainer:
       the heartbeat and failover tunables, ``block_wire_dtype`` /
       ``block_ahead`` / ``block_timeout``, the tenant fields.
     seed: sampling seed, folded per server (``seed * 7919 + i``).
+    config: a tune artifact (``graphlearn_tpu_torch.tune(topology=
+      'remote')``, or a local one): gives the chunk size when
+      ``chunk_size`` is None and the tuned ``block_ahead`` /
+      ``block_wire_dtype`` (over the worker options'); a mismatched
+      topology, fanouts or batch size is refused.
     device: where the model trains (default: the card).
     capture: one CUDA graph per chunk length (default: True on a card; the
       CPU refuses True). ``False`` runs the chunks eagerly.
@@ -453,15 +517,20 @@ class RemoteScanTrainer:
   ack_hook = None
 
   def __init__(self, num_neighbors, input_nodes, model, num_classes: int,
-               batch_size: int = 64, chunk_size: int = 32,
+               batch_size: int = 64, chunk_size: Optional[int] = None,
                shuffle: bool = False, drop_last: bool = False,
                collect_features: bool = True, worker_options=None,
-               seed: Optional[int] = None, device=None,
+               seed: Optional[int] = None, config=None, device=None,
                capture: Optional[bool] = None):
     from ..models import train as train_lib
     from ..sampler import NodeSamplerInput, SamplingConfig, SamplingType
     from . import dist_client
     from .resilience import Heartbeat
+    tuned_block = _resolve_remote_config(
+        self._NAME, config, _norm_num_neighbors(num_neighbors), batch_size)
+    if chunk_size is None:
+      chunk_size = int(config.trainer_kwargs()['chunk_size']) \
+          if config is not None else 32
     if chunk_size < 1:
       raise ValueError(f'chunk_size must be >= 1, got {chunk_size}')
     if not collect_features:
@@ -501,6 +570,12 @@ class RemoteScanTrainer:
     self.server_ranks = list(ranks)
     self._wire_dtype = opts.block_wire_dtype if opts else None
     self._max_ahead = opts.block_ahead if opts else 2
+    # the artifact's tuned block knobs are the signed assignment: a tuned
+    # value overrides the worker options' (hand-pick without config=)
+    if 'block_wire_dtype' in tuned_block:
+      self._wire_dtype = tuned_block['block_wire_dtype']
+    if 'block_ahead' in tuned_block:
+      self._max_ahead = int(tuned_block['block_ahead'])
     self._fetch_timeout = opts.block_timeout if opts else 30.0
     self._failover_enabled = opts.failover if opts else True
     self._tenant = opts.tenant if opts else None
@@ -913,9 +988,11 @@ class RemoteScanTrainer:
                        extra) as rec:
       self._steps_dispatched = start_step
       try:
-        state, losses, accs, ovf = self._run_epoch_body(
-            state, steps, full_steps, start_step=start_step,
-            resume_overflow=resume_overflow)
+        # GLT_STRICT's region (utils.strict): the epoch body
+        with strict.strict_guards():
+          state, losses, accs, ovf = self._run_epoch_body(
+              state, steps, full_steps, start_step=start_step,
+              resume_overflow=resume_overflow)
         rec['completed'] = True
       finally:
         rec['steps'] = steps if rec['completed'] else self._steps_dispatched

@@ -87,20 +87,25 @@ class RunTrainer(ScanTrainer):
     track_eval: count the eval metric (one more forward per step, a pure
       read). ``False`` leaves ``eval_metric`` NaN; ``patience`` needs
       True.
+
+  ``config=`` (a tune artifact) is ``ScanTrainer``'s; a padded-window
+  loader is refused either way, so an artifact ``tune()`` signed never
+  carries a padded window. ``GLT_STRICT``'s region is ``ScanTrainer``'s
+  epoch body, here the whole run's.
   """
 
   _NAME = 'RunTrainer'
   _SITES = ('run_epoch_seeds', 'run_scan_chunk', 'run_metrics_concat')
 
   def __init__(self, loader: NodeLoader, model, num_classes: int,
-               chunk_size: int = 32, epochs: int = 1,
+               chunk_size: Optional[int] = None, epochs: int = 1,
                patience: Optional[int] = None, min_delta: float = 0.0,
                seed_labels_only: Optional[bool] = None,
-               perm_seed: Optional[int] = None,
-               capture: Optional[bool] = None, track_eval: bool = True):
+               perm_seed: Optional[int] = None, config=None,
+               track_eval: bool = True, capture: Optional[bool] = None):
     super().__init__(loader, model, num_classes, chunk_size=chunk_size,
                      seed_labels_only=seed_labels_only, perm_seed=perm_seed,
-                     capture=capture)
+                     config=config, capture=capture)
     if epochs < 1:
       raise ValueError(f'epochs must be >= 1, got {epochs}')
     if patience is not None and patience < 1:

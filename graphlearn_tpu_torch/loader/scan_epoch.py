@@ -81,8 +81,22 @@ prologue, each chunk — a replay or an eager run — and the metrics
 concat) and the captures (``metrics.programs``: a capture is the port's
 compile, the chunk length and the static buffers' shapes its signature)
 are counted. None of it reads the card or launches anything, and none
-of it runs inside a capture. Not ported: the tuned ``config=`` and the
-fault sites.
+of it runs inside a capture.
+
+``config=`` takes a tune artifact (``graphlearn_tpu_torch.tune()``), as
+JAX's does (:func:`_resolve_tuned_config`): its topology is checked
+against the trainer's, its dataset fingerprint against the loader's
+dataset (a drifted graph is refused), its chunk K is the chunk size when
+``chunk_size`` is not given, and its gather-kernel routing is stamped on
+the dataset's feature store.
+
+``GLT_STRICT=1`` (``utils.strict``) runs JAX's guarded region, the epoch
+body (the seed matrix, the chunk loop, the losses' concat; not the
+epoch-end overflow fetch nor the stats publish), under the card's sync
+debug mode 'error': a host sync inside raises. The deliberate syncs in
+it (the seed pool's first upload, a capture's entry) run under
+``utils.strict.explicit``. A ``stage_hook`` or ``ack_hook`` runs inside
+the region.
 
 ``DistScanTrainer`` (``graphlearn_tpu/loader/scan_epoch.py:536``) runs
 the same frame over a collocated ``DistNeighborLoader``: the prologue
@@ -122,6 +136,7 @@ import torch
 from .. import ops
 from .. import random as trandom
 from ..metrics import flight, programs, spans
+from ..utils import strict
 from ..utils.trace import record_dispatch
 from .node_loader import NodeLoader
 from .pipeline import (_RECOMPUTE_MSG, DistFusedEpochTrainer,
@@ -172,8 +187,10 @@ def capture_chunk(stream, body):
   collecting = gc.isenabled()
   gc.disable()
   try:
-    with torch.cuda.graph(graph, stream=stream,
-                          capture_error_mode='thread_local'):
+    # torch.cuda.graph synchronizes the card on entry: a deliberate sync
+    # (a capture is the port's compile, which JAX's guard allows)
+    with strict.explicit(), torch.cuda.graph(
+        graph, stream=stream, capture_error_mode='thread_local'):
       out = body()
   finally:
     if collecting:
@@ -183,6 +200,35 @@ def capture_chunk(stream, body):
   launches = {n: after[n] - before[n] for n in after}
   ops.add_launch_counts({n: -c for n, c in launches.items()})
   return graph, out, launches, ms
+
+
+def _resolve_tuned_config(trainer_name: str, dataset, chunk_size,
+                          config, topology: str = 'local') -> int:
+  """The chunk size from an explicit value or a tune-artifact
+  ``config=`` (JAX's ``_resolve_tuned_config``). An artifact is
+  validated against the loader's dataset by fingerprint (a tuned config
+  on a drifted graph refuses loudly) and against the trainer's topology:
+  a non-local artifact only fits the scenario it was tuned for, while a
+  local artifact's knobs (chunk K, kernel routing) are accepted by every
+  trainer. Duck-typed (``validate_dataset`` + ``trainer_kwargs``), so
+  the loader package does not import ``tune``."""
+  if config is not None:
+    art_topo = getattr(config, 'topology', 'local') or 'local'
+    if art_topo not in ('local', topology):
+      raise ValueError(
+          f'{trainer_name}: tune artifact was tuned for topology '
+          f'{art_topo!r}, but this trainer runs the {topology!r} '
+          'scenario — per-topology knobs do not transfer; re-run '
+          f'graphlearn_tpu_torch.tune(topology={topology!r}) '
+          '(docs/tuning.md "Topology candidates")')
+    config.validate_dataset(dataset, where=trainer_name)
+    if chunk_size is None:
+      chunk_size = config.trainer_kwargs()['chunk_size']
+    if hasattr(config, 'apply_kernel_routing'):
+      # kernel selection is an artifact choice: stamp the tuned gather
+      # routing onto the dataset's feature store
+      config.apply_kernel_routing(dataset)
+  return 32 if chunk_size is None else int(chunk_size)
 
 
 def _replay_signature(model, optimizer) -> tuple:
@@ -283,15 +329,22 @@ class ScanTrainer(FusedEpochTrainer):
       (a layered ``GraphSAGE`` or ``GAT`` matching the loader's layout,
       or a segment one), as JAX's takes any model.
     num_classes: label classes of the loss.
-    chunk_size: K, steps per chunk.
+    chunk_size: K, steps per chunk (default: the artifact's tuned K with
+      ``config``, else 32).
     perm_seed: base seed of the epoch permutation (default: the loader's
       seed).
+    config: a tune artifact (``graphlearn_tpu_torch.tune()``): validated
+      against the loader's dataset and this trainer's topology, it gives
+      the chunk size when ``chunk_size`` is None and routes the feature
+      store's gather.
     capture: run each chunk length as a captured CUDA graph (default:
       True on a card; a CPU loader refuses True). ``False`` is for a
       model that cannot be captured.
   """
 
   _NAME = 'ScanTrainer'
+  # which tune() scenario this trainer runs: the config= topology check
+  _TOPOLOGY = 'local'
   # the dispatch sites (record_dispatch and the program observatory):
   # the seed prologue, each chunk, the losses' concat
   _SITES = ('epoch_seeds', 'scan_chunk', 'metrics_concat')
@@ -308,8 +361,9 @@ class ScanTrainer(FusedEpochTrainer):
   _epochs_per_run = 1
 
   def __init__(self, loader: NodeLoader, model, num_classes: int,
-               chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
-               perm_seed: Optional[int] = None,
+               chunk_size: Optional[int] = None,
+               seed_labels_only: Optional[bool] = None,
+               perm_seed: Optional[int] = None, config=None,
                capture: Optional[bool] = None):
     on_card = loader.device.type == 'cuda'
     if capture is None:
@@ -319,6 +373,8 @@ class ScanTrainer(FusedEpochTrainer):
                        f'{loader.device}: a CUDA graph captures the card\'s '
                        'launches')
     super().__init__(loader, model, num_classes, seed_labels_only)
+    chunk_size = _resolve_tuned_config(self._NAME, loader.data, chunk_size,
+                                       config, topology=self._TOPOLOGY)
     b = loader._batcher
     self._init_frame(loader.device, chunk_size, b.shuffle, b.drop_last,
                      b.seed if perm_seed is None else perm_seed, capture,
@@ -431,9 +487,12 @@ class ScanTrainer(FusedEpochTrainer):
       # reads as the boundary it reached
       self._steps_dispatched = start_step
       try:
-        state, losses, accs, ovf = self._run_epoch_body(
-            state, steps, full_steps, start_step=start_step,
-            resume_overflow=resume_overflow)
+        # GLT_STRICT's region (utils.strict): the epoch body, not the
+        # epoch-end overflow fetch nor the publish below
+        with strict.strict_guards():
+          state, losses, accs, ovf = self._run_epoch_body(
+              state, steps, full_steps, start_step=start_step,
+              resume_overflow=resume_overflow)
         rec['completed'] = True
         if guarded:
           self.loader._ovf_accum = ovf
@@ -464,8 +523,9 @@ class ScanTrainer(FusedEpochTrainer):
                       start_step: int = 0, resume_overflow: bool = False):
     device = self._device
     if self._seeds_dev is None:
-      self._seeds_dev = torch.as_tensor(
-          np.asarray(self.loader.input_seeds, dtype=np.int32)).to(device)
+      with strict.explicit():   # the pool's one upload, a deliberate copy
+        self._seeds_dev = torch.as_tensor(
+            np.asarray(self.loader.input_seeds, dtype=np.int32)).to(device)
     record_dispatch(self._SITES[0])
     seed_mat, mask_mat = self._prologue(full_steps)
     base_key = trandom.to_device(self._sampler._key, device)
@@ -680,25 +740,32 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
     model: the model of one shard's batch (each shard runs it on its own
       batch; the gradients are averaged over the shards).
     num_classes: label classes of the loss.
-    chunk_size: K, steps per chunk.
+    chunk_size: K, steps per chunk (default: the artifact's, else 32).
     perm_seed: base seed of the epoch permutation (default: the loader's
       seed). ``shuffle=False`` replays the loader's order (arange, a
       cyclic ragged tail) and its keys, so such an epoch equals
       ``run_epoch_steps``.
+    config: a tune artifact of topology 'dist' (or a local one),
+      validated against the ``DistGraph``'s stacked-partition
+      fingerprint; it gives the chunk size when ``chunk_size`` is None.
     capture: one CUDA graph per chunk length (default: True on a card).
       Needs full-width exchanges (``bucket_frac=None``) and a
       one-process mesh; refused otherwise, never switched off silently.
   """
 
   _NAME = 'DistScanTrainer'
+  _TOPOLOGY = 'dist'
   _SITES = ('dist_epoch_seeds', 'dist_scan_chunk', 'dist_metrics_concat')
 
   def __init__(self, loader, model, num_classes: int,
-               chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
-               perm_seed: Optional[int] = None,
+               chunk_size: Optional[int] = None,
+               seed_labels_only: Optional[bool] = None,
+               perm_seed: Optional[int] = None, config=None,
                capture: Optional[bool] = None):
     DistFusedEpochTrainer.__init__(self, loader, model, num_classes,
                                    seed_labels_only)
+    chunk_size = _resolve_tuned_config(self._NAME, loader.data, chunk_size,
+                                       config, topology=self._TOPOLOGY)
     device = self.mesh.device
     on_card = device.type == 'cuda'
     if capture is None:

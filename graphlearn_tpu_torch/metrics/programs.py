@@ -36,7 +36,6 @@ stdlib at import.
 """
 import collections
 import contextlib
-import os
 import threading
 import time
 import warnings
@@ -418,8 +417,8 @@ def retrace_budget(site: str, n: int,
          f'in this region, budget {n}; {why}')
   from . import registry as _reg
   _reg.default_registry().inc('program.retrace_budget_exceeded')
-  # GLT_STRICT as JAX's utils.strict reads it (set, and not '0')
-  if os.environ.get('GLT_STRICT', '') not in ('', '0'):
+  from ..utils.strict import strict_enabled
+  if strict_enabled():
     raise RetraceBudgetExceeded(msg)
   warnings.warn(msg, RuntimeWarning, stacklevel=3)
 

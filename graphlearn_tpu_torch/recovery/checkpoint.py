@@ -42,7 +42,8 @@ the overflow flag, the epoch position and the sampler's ``state_dict()``.
 The metrics go through ``graphlearn_tpu_torch.metrics`` under JAX's
 names, and each snapshot write is a ``checkpoint.save`` span and each
 resume a ``recovery.resume`` span (the resumed epoch's ``epoch.run``
-under it). Not ported: the fault sites.
+under it). A snapshot write and a restore pass JAX's ``recovery.save``
+and ``recovery.restore`` fault sites (``recovery.snapshot``).
 """
 import hashlib
 import json
@@ -458,6 +459,10 @@ class ChunkCheckpointer:
       except (TornSnapshotError, OSError, ValueError) as e:
         metrics.inc('checkpoint.torn_skipped')
         logger.warning('skipping unrestorable snapshot %s: %s', path, e)
+      except Exception as e:  # noqa: BLE001 - injected restore faults land here
+        metrics.inc('checkpoint.torn_skipped')
+        logger.warning('snapshot %s failed to restore (%s) — falling '
+                       'back to the previous one', path, e)
     return None
 
   def resume_epoch(self, trainer, state_template,

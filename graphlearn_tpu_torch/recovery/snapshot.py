@@ -16,8 +16,10 @@ The header carries the payload's length and sha256, so a torn write is
 always detected (:class:`TornSnapshotError`), never restored. A write is
 atomic: the bytes go to a temporary file in the same directory, which is
 fsync'd and ``os.replace``'d onto the final name, and the directory entry
-is fsync'd. JAX's fault sites (``recovery.save``, ``recovery.restore``)
-are not ported: tests inject faults by monkeypatching.
+is fsync'd. JAX's fault sites sit where JAX has them: ``recovery.save``
+at the top of :func:`write_snapshot` (the checkpointer's writer thread
+and its degraded synchronous path both write through it) and
+``recovery.restore`` at the top of :func:`load_snapshot`.
 """
 import hashlib
 import io
@@ -32,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..utils.checkpoint import _dejsonify, _jsonify
+from ..utils.faults import fault_point
 
 MAGIC = b'GLTCKPT1'
 _NAME_RE = re.compile(r'^ckpt-(\d+)-(\d+)\.glt$')
@@ -108,7 +111,8 @@ def write_snapshot(directory: str, meta: dict,
                    arrays: Dict[str, np.ndarray]) -> Tuple[str, int]:
   """Atomically write one snapshot; returns ``(path, bytes)``. The
   checkpointer's writer thread and its synchronous path both write
-  through here."""
+  through here, past the ``recovery.save`` fault site."""
+  fault_point('recovery.save')
   os.makedirs(directory, exist_ok=True)
   blob = encode(meta, arrays)
   path = snapshot_path(directory, int(meta['epoch']),
@@ -139,7 +143,9 @@ def write_snapshot(directory: str, meta: dict,
 
 
 def load_snapshot(path: str) -> Snapshot:
-  """Read and validate one snapshot file."""
+  """Read and validate one snapshot file (the ``recovery.restore``
+  fault site arms the restore-under-fault scenario)."""
+  fault_point('recovery.restore')
   with open(path, 'rb') as fh:
     blob = fh.read()
   snap = decode(blob, label=os.path.basename(path))

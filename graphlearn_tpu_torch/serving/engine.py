@@ -24,8 +24,11 @@ synchronising copy to the host). Metrics go to the port's registry:
 opens on the submitting thread (so it joins the caller's trace, the
 ``serve`` RPC handler's adopted context included) and closes at respond
 time, with ``serving.queue`` / ``serving.batch`` / ``serving.compute`` /
-``serving.respond`` under it. The tuned ``config=`` artifact is not
-ported.
+``serving.respond`` under it. ``config=`` takes a tune artifact, as
+JAX's does: a store whose node count differs from the tuned dataset's
+is refused, the artifact's bucket ladder is the default, and its
+gather-kernel routing is stamped on the store (``use_pallas_v2``: the
+lookups go through the run-segmented gather, K2).
 """
 import queue
 import threading
@@ -68,11 +71,32 @@ class ServingEngine:
       ``lambda ids: mat.refresh_rows(ids, ntype='paper')``, the store
       holding that type's table) for stale nodes; needs a store with
       ``update_rows``.
+    config: a tune artifact (``graphlearn_tpu_torch.tune()``): the
+      bucket ladder when ``buckets`` is not given, and its kernel
+      routing on the store; a store whose node count drifted from the
+      tuned dataset's is refused.
   """
 
   def __init__(self, store, buckets: Optional[Sequence[int]] = None,
                max_wait_ms: float = 2.0,
-               refresh_fn: Optional[Callable] = None):
+               refresh_fn: Optional[Callable] = None, config=None):
+    if config is not None:
+      tuned_n = (config.dataset or {}).get('num_nodes')
+      store_n = getattr(store, 'num_nodes', None)
+      if tuned_n is not None and store_n is not None and \
+          int(tuned_n) != int(store_n):
+        raise ValueError(
+            f'ServingEngine config= artifact was tuned for '
+            f'{tuned_n} nodes but the store serves {store_n} — '
+            'dataset drifted; re-run graphlearn_tpu_torch.tune() '
+            f'(artifact fingerprint {config.fingerprint}, '
+            'docs/tuning.md)')
+      if buckets is None:
+        buckets = config.serving_kwargs()['buckets']
+      if hasattr(config, 'apply_kernel_routing'):
+        # the tuned gather-kernel choice reaches the engine's store;
+        # stores without the surface (dist / tiered) do not take it
+        config.apply_kernel_routing(store)
     if buckets is None:
       buckets = DEFAULT_BUCKETS
     buckets = tuple(sorted(int(b) for b in set(buckets)))

@@ -60,7 +60,7 @@ from ..models import train as train_lib
 from ..models.models import GAT, GCN, RGNN, GraphSAGE
 from ..ops.gather import gather_rows_hbm
 from ..typing import reverse_edge_type
-from ..utils import resolve_device
+from ..utils import resolve_device, strict
 from ..utils.trace import record_dispatch
 from .store import EmbeddingStore, TieredEmbeddingStore, pow2_cap
 
@@ -271,9 +271,12 @@ class EmbeddingMaterializer:
         ei = _block_edges(b, self._w)
       else:
         _, ei = self._hetero_layout(t, live, b)
-      self._ei[key] = (torch.as_tensor(ei).to(self.device) if t is None
-                       else {oet: torch.as_tensor(v).to(self.device)
-                             for oet, v in ei.items()})
+      # a one-time upload of a static table: deliberate (JAX's explicit
+      # device_put), so a GLT_STRICT pass lets it through
+      with strict.explicit():
+        self._ei[key] = (torch.as_tensor(ei).to(self.device) if t is None
+                         else {oet: torch.as_tensor(v).to(self.device)
+                               for oet, v in ei.items()})
     return self._ei[key]
 
   # ------------------------------------------------------------- passes
@@ -284,24 +287,27 @@ class EmbeddingMaterializer:
     block's ``[B, F_out]`` rows from ``block_fn(base)`` written into the
     output store in place. Flight-recorded like a training epoch (one
     record per pass, ``pass`` = ``label``), with one ``embed_store_init``
-    dispatch and one ``embed_chunk`` dispatch per chunk."""
+    dispatch and one ``embed_chunk`` dispatch per chunk. Under
+    ``GLT_STRICT`` the store init and the chunks are the guarded region
+    (``utils.strict``), as in JAX."""
     b = self.block_size
     nblocks = n_pad // b
     out = None
     tok = flight.epoch_begin()
     completed, chunks = False, 0
     try:
-      record_dispatch('embed_store_init')
-      for start in range(0, nblocks, self.chunk_size):
-        record_dispatch('embed_chunk')
-        for g in range(start, min(start + self.chunk_size, nblocks)):
-          base = g * b
-          h = block_fn(base)
-          if out is None:
-            out = torch.empty((n_pad, h.shape[1]), dtype=h.dtype,
-                              device=self.device)
-          out[base:base + b] = h
-        chunks += 1
+      with strict.strict_guards():
+        record_dispatch('embed_store_init')
+        for start in range(0, nblocks, self.chunk_size):
+          record_dispatch('embed_chunk')
+          for g in range(start, min(start + self.chunk_size, nblocks)):
+            base = g * b
+            h = block_fn(base)
+            if out is None:
+              out = torch.empty((n_pad, h.shape[1]), dtype=h.dtype,
+                                device=self.device)
+            out[base:base + b] = h
+          chunks += 1
       completed = True
     finally:
       flight.end_for(

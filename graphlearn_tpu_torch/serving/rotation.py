@@ -14,9 +14,8 @@ Version lifecycle:
      (``storage.spill_array``). Nothing the build does is visible to
      readers.
   2. **Swap.** Each shard's new payload is installed in a per-shard pass
-     (``_rotate_fault`` runs per shard: the seam of JAX's
-     ``serving.rotate`` fault site, a no-op until the fault registry is
-     ported), then one atomic pointer flip publishes the version: a
+     (``_rotate_fault`` runs per shard: JAX's ``serving.rotate`` fault
+     site), then one atomic pointer flip publishes the version: a
      lookup reads the shard tuple exactly once, so every request is
      answered from a single version. The flip's duration is the
      ``serving.rotation_swap_ms`` histogram.
@@ -46,6 +45,7 @@ from .. import metrics
 from ..metrics import spans
 from ..storage.disk import spill_array
 from ..utils import resolve_device
+from ..utils.faults import fault_point
 from ..utils.trace import record_dispatch
 
 
@@ -180,8 +180,9 @@ class RotatingShardedStore:
       return v
 
   def _rotate_fault(self):
-    """The per-shard swap's fault seam (JAX's ``serving.rotate`` site):
-    a no-op; tests override it."""
+    """The per-shard swap's fault seam: JAX's ``serving.rotate`` site
+    (``utils.faults``), which a subclass may also override."""
+    fault_point('serving.rotate')
 
   def _prune_versions(self, keep_from: int):
     """Delete spilled version dirs older than ``keep_from`` — the

@@ -47,8 +47,13 @@ the all-device trainer's:
 
 Scope: a one-process mesh (the prologue and the stager read every
 shard's rows on one host). Labels stay a full (small) ``DistFeature``. Not
-ported: the spans and the tuned ``config=``. The stager's worker passes
-the ``storage.dist_stage`` fault site (``DistChunkStager._stage_fault``).
+ported: the spans. The stager's worker passes the ``storage.dist_stage``
+fault site (``DistChunkStager._stage_fault``). ``config=`` takes a tune
+artifact of topology 'tiered_dist' (or a local one), as JAX's: its
+``hot_prefix_rows`` is a store-construction knob, so a store built with
+another hot prefix is refused. Under ``GLT_STRICT`` the prologue's one
+fetch of the replayed node ids is a deliberate sync
+(``utils.strict.explicit``).
 """
 import time
 from typing import Optional
@@ -60,6 +65,7 @@ from .. import metrics
 from .. import ops
 from ..loader.scan_epoch import DistScanTrainer
 from ..sampler.capacity import CapacityPlanError
+from ..utils import strict
 from ..utils.faults import fault_point
 from . import planner
 from .dist import TieredDistFeature
@@ -147,11 +153,13 @@ class TieredDistScanTrainer(DistScanTrainer):
   """
 
   _NAME = 'TieredDistScanTrainer'
+  _TOPOLOGY = 'tiered_dist'
 
   def __init__(self, loader, model, num_classes: int,
-               chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
+               chunk_size: Optional[int] = None,
+               seed_labels_only: Optional[bool] = None,
                perm_seed: Optional[int] = None, max_ahead: int = 2,
-               stage_timeout_s: float = 30.0,
+               stage_timeout_s: float = 30.0, config=None,
                capture: Optional[bool] = None):
     sampler = getattr(loader, 'sampler', None)
     store = getattr(sampler, 'dist_feature', None)
@@ -176,11 +184,29 @@ class TieredDistScanTrainer(DistScanTrainer):
       if st.mesh.group is not None:
         raise ValueError(f'{self._NAME} plans and stages every shard on '
                          'one host: a one-process mesh only')
+    if config is not None:
+      # hot_prefix_rows is a STORE-construction knob: a tuned value that
+      # disagrees with the store handed in is a loud error, not a silent
+      # acceptance of untuned capacity (JAX's rule)
+      tuned_hot = (config.choices or {}).get('hot_prefix_rows') \
+          if hasattr(config, 'choices') else None
+      for t, st in stores.items():
+        want = (tuned_hot.get(t) if isinstance(tuned_hot, dict)
+                else tuned_hot)
+        if want is not None and int(want) != int(st.hot_prefix_rows):
+          raise ValueError(
+              f'{self._NAME}: tune artifact pins hot_prefix_rows='
+              f'{int(want)} but the TieredDistFeature store'
+              f'{"" if t is None else f" for ntype {t!r}"} was '
+              f'built with hot_prefix_rows={int(st.hot_prefix_rows)} '
+              '— rebuild the store with the tuned value (the knob is '
+              'storage layout, not a trainer kwarg; docs/tuning.md)')
     self._store = store
     self._slab_pos = {}     # the static device slabs, [L, cap] per type
     self._slab_rows = {}
     super().__init__(loader, model, num_classes, chunk_size,
-                     seed_labels_only, perm_seed, capture)
+                     seed_labels_only, perm_seed, config=config,
+                     capture=capture)
     self._tiered = self._stores()
     self._stagers = {t: DistChunkStager(st, max_ahead=max_ahead,
                                         timeout_s=stage_timeout_s)
@@ -221,8 +247,9 @@ class TieredDistScanTrainer(DistScanTrainer):
         rows = {None: rows}
       types = list(self._tiered)
       widths = [rows[t].shape[-1] for t in types]
-      # the epoch's one host sync
-      flat = torch.cat([rows[t] for t in types], -1).cpu().numpy()
+      # the epoch's one host sync (JAX's explicit device_get)
+      with strict.explicit():
+        flat = torch.cat([rows[t] for t in types], -1).cpu().numpy()
       del rows
       plans, off = {}, 0
       for t, w in zip(types, widths):

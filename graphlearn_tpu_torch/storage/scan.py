@@ -44,7 +44,11 @@ bit-identical to the all-device trainer's:
 Sampling runs twice per epoch (once id-only in the plan, once in the
 chunks): the price of an exact plan. Flight records, spans and the
 dispatch / capture counts are ``ScanTrainer``'s (the slab is part of a
-capture's signature). Not ported: the tuned ``config=``.
+capture's signature). ``config=`` (a tune artifact) is
+``ScanTrainer``'s. Under ``GLT_STRICT`` the epoch body is the guarded
+region, as in JAX; the prologue's one fetch of the planned rows is a
+deliberate sync (``utils.strict.explicit``, JAX's explicit
+``device_get``).
 """
 import time
 from typing import Optional
@@ -57,6 +61,7 @@ from .. import random as trandom
 from ..loader.node_loader import NodeLoader
 from ..loader.scan_epoch import ScanTrainer
 from ..ops.gather import gather_rows_hbm
+from ..utils import strict
 from . import planner
 from .staging import INT32_MAX, ChunkStager
 from .tiered import TieredFeature
@@ -97,9 +102,10 @@ class TieredScanTrainer(ScanTrainer):
   _NAME = 'TieredScanTrainer'
 
   def __init__(self, loader: NodeLoader, model, num_classes: int,
-               chunk_size: int = 32, seed_labels_only: Optional[bool] = None,
+               chunk_size: Optional[int] = None,
+               seed_labels_only: Optional[bool] = None,
                perm_seed: Optional[int] = None, max_ahead: int = 2,
-               stage_timeout_s: float = 30.0,
+               stage_timeout_s: float = 30.0, config=None,
                capture: Optional[bool] = None):
     store = loader.data.node_features
     if not isinstance(store, TieredFeature):
@@ -108,8 +114,11 @@ class TieredScanTrainer(ScanTrainer):
           f'{type(store).__name__}; use loader.ScanTrainer for all-device '
           'Feature tables')
     self._store = store
+    # config= takes a tune artifact: fingerprint-validated in
+    # ScanTrainer.__init__, it supplies the tuned chunk K
     super().__init__(loader, model, num_classes, chunk_size,
-                     seed_labels_only, perm_seed, capture)
+                     seed_labels_only, perm_seed, config=config,
+                     capture=capture)
     self._stager = ChunkStager(store, max_ahead=max_ahead,
                                timeout_s=stage_timeout_s)
     self.last_plan = None      # EpochPlan of the most recent epoch
@@ -199,7 +208,8 @@ class TieredScanTrainer(ScanTrainer):
 
   def _fetch_plan_rows(self, rows_mat) -> np.ndarray:
     """The epoch's one host sync: the planned rows to the host."""
-    return rows_mat.cpu().numpy()
+    with strict.explicit():
+      return rows_mat.cpu().numpy()
 
   def _size_slab(self, cap: int):
     """Hold a static slab of at least ``cap`` rows; a larger one is a new

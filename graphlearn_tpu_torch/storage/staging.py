@@ -268,6 +268,7 @@ class ChunkStager:
         ms = (time.perf_counter() - t0) * 1e3
         metrics.observe('storage.stage_ms', ms)
         t1 = time.perf_counter()
+        fault_point('storage.promote')
         slab.ids, slab.rows = ids, rows
         slab.stage_ms = ms
         metrics.inc('storage.staged_rows', int(rows_abs.shape[0]))

@@ -8,8 +8,9 @@ module helpers (``common``), ``tensor``, ``units``, ``CastMixin``,
 profiler over ``torch.profiler`` (``profile_trace``, ``annotate``,
 ``maybe_start_trace``, ``device_op_ms``, ...), dispatch counting
 (``count_dispatches``, ``record_dispatch``) and the event counters
-(``counter_inc``, ``counters``, ...). ``compat``, ``device`` and the
-JAX ``build`` are JAX-only; ``strict`` waits for a later slice.
+(``counter_inc``, ``counters``, ...) and ``strict`` (``strict_enabled``,
+``strict_guards``: ``GLT_STRICT``'s guard over the card's sync debug
+mode). ``compat``, ``device`` and the JAX ``build`` are JAX-only.
 """
 import torch
 
@@ -19,6 +20,7 @@ from .exit_status import python_exit_status
 from .faults import FaultError, fault_point
 from .mixin import CastMixin
 from .singleton import Singleton
+from .strict import strict_enabled, strict_guards
 from .tensor import convert_to_array, id2idx, squeeze_dict
 from .topo import (coo_to_csc, coo_to_csr, csr_to_coo, csr_to_csc, ind2ptr,
                    ptr2ind)

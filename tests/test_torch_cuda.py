@@ -2973,3 +2973,97 @@ def test_span_tree_across_server_and_client_on_card(cuda):
   attrs = tree['spans'][stage]['attrs']
   assert attrs['k'] == 2 and attrs['bytes'] > 0
   assert 0 <= attrs['sample_ms'] <= tree['spans'][stage]['dur_ms']
+
+
+# ------------------------------------------------------------- the tuner
+
+
+def _tune_small(cuda, steps):
+  """A card dataset whose seed pool is ``steps`` batches of 16."""
+  rng = np.random.default_rng(21)
+  n, f = 600, 8
+  ei = np.stack([rng.integers(0, n, 6000), rng.integers(0, n, 6000)])
+  ds = gtt.data.Dataset(device=cuda)
+  ds.init_graph(ei, num_nodes=n)
+  ds.init_node_features(rng.standard_normal((n, f)).astype(np.float32))
+  ds.init_node_labels(rng.integers(0, 4, n))
+  cfg = dict(fanouts=[4, 3], input_nodes=rng.permutation(n)[:16 * steps],
+             batch_size=16)
+  return ds, cfg
+
+
+def test_tune_at_an_epoch_of_exactly_k_steps_qualifies_and_rejects_the_probe(
+    cuda):
+  """An epoch of exactly K steps: the probe epoch is one chunk, the
+  captured trainer's eager warm-up, so the compile phase runs it twice
+  and captures the one chunk length; every candidate qualifies with no
+  steady capture, and the retrace probe is rejected with a diff naming
+  the chunk length. From the second candidate on, each hands back what it
+  allocated."""
+  from graphlearn_tpu_torch import tune as gtune
+  ds, cfg = _tune_small(cuda, 4)
+  caps, _ = gtune.probes.probe_frontier_caps(ds.graph, [4, 3], 16,
+                                             input_nodes=cfg['input_nodes'])
+  cands = gtune.default_candidates(caps, exact=False)
+  cands.append(gtune.retrace_probe_candidate(cands[0]))
+  art = gtt.tune(ds, cfg, candidates=cands)
+  assert art.choices['chunk_k'] == 4
+  recs = {r['name']: r for r in art.evidence if r.get('kind') == 'candidate'}
+  assert len(recs) == len(cands)
+  for i, (name, r) in enumerate(recs.items()):
+    if i:   # the first also places what the dataset and process keep
+      assert abs(r['mem_after_mb'] - r['mem_before_mb']) < 16, r
+    if name.endswith('retrace_probe'):
+      assert not r['qualified']
+      assert 'static:k=4 -> static:k=2' in r['retrace_diff']
+      continue
+    assert r['qualified'], r
+    assert r['compile_epochs'] == 2 and r['probe_steps'] == 4
+    assert r['compile_epoch_compiles']['scan_chunk'] == 1
+    assert sum(r['steady_epoch_compiles'].values()) == 0
+    assert r['peak_mb'] > 0
+
+
+def test_a_strict_epoch_raises_on_a_read_back(cuda, monkeypatch):
+  """Under GLT_STRICT=1 a captured epoch runs (its capture's and the
+  seed pool's syncs let through), and a stage_hook's ``.item()`` inside
+  the region raises; without GLT_STRICT the same hook runs. The merge
+  guard's epoch-end flag read is outside the region."""
+  for mode in ('tree', 'merge'):
+    s = _Small(cuda, mode)
+    tr, state = s.trainer(gtt.loader.ScanTrainer, chunk_size=2)
+    monkeypatch.setenv('GLT_STRICT', '1')
+    for _ in range(2):
+      state, _, _ = tr.run_epoch(state)
+    probe = torch.ones((), device=cuda)
+    tr.stage_hook = lambda c, start, k: probe.item()
+    with pytest.raises(RuntimeError, match='synchroniz'):
+      tr.run_epoch(state)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    monkeypatch.delenv('GLT_STRICT')
+    state, losses, _ = tr.run_epoch(state)
+    assert torch.isfinite(losses).all()
+
+
+def test_serving_engine_config_routes_k2(cuda):
+  """``ServingEngine(config=)`` with ``use_pallas_v2``: the artifact's
+  buckets, the gather-v2 kernel once per engine batch, answers equal to
+  the table."""
+  from graphlearn_tpu_torch import metrics
+  n = 5000
+  table = np.random.default_rng(3).standard_normal((n, 12)).astype(
+      np.float32)
+  art = gtt.tune.TuneArtifact(dict(serving_buckets=[16, 64, 256],
+                                   use_pallas_v2=True, gather2_block_rows=128,
+                                   gather2_run_span=4),
+                              dict(num_nodes=n))
+  store = gtt.serving.EmbeddingStore(table, device=cuda)
+  b0 = metrics.default_registry().counter_value('serving.batches')
+  before = ops.launch_counts()['gather_runs']
+  with gtt.serving.ServingEngine(store, config=art) as eng:
+    assert eng.buckets == (16, 64, 256)
+    for ids in (np.arange(7), np.arange(100, 300), np.array([n - 1, 0])):
+      np.testing.assert_array_equal(eng.submit(ids).result(timeout=30),
+                                    table[ids])
+  batches = metrics.default_registry().counter_value('serving.batches') - b0
+  assert ops.launch_counts()['gather_runs'] - before == batches == 3

@@ -125,10 +125,9 @@ def test_every_name_the_port_emits_is_registered():
     else:
       assert rel == os.path.join('distributed', 'dist_feature.py'), where
   emitted = {n for _, _, k, n, lit in found if lit and k == 'span'}
-  # every span JAX's runtime modules open has its site in the port,
-  # save the tuner's (queue A item 8c)
-  assert emitted == {n for n in registry_names.REGISTERED_SPANS
-                     if not n.startswith('tune.')}
+  # every span JAX's runtime modules open has its site in the port, the
+  # tuner's included
+  assert emitted == set(registry_names.REGISTERED_SPANS)
 
 
 # ---------------------------------------------------------------- flight

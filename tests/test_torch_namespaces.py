@@ -29,15 +29,14 @@ JAX_ROOT = os.path.join(ROOT, 'graphlearn_tpu')
 FLAX = 'flax-only: freezes dicts into flax module attributes'
 BLOCKS128 = ('blocks128 is refused: the port reads the flat indices, so '
              "the TPU's 128-lane layout has no counterpart")
-STRICT = ("utils/strict.py (JAX's transfer guard; the card's counterpart is "
-          "torch.cuda.set_sync_debug_mode): ROADMAP queue A item 8b")
 XLA_COST = ("JAX-only: reads XLA's cost and memory analysis of a compiled "
             'program, which a CUDA graph capture does not carry')
 JAX_ONLY = 'JAX-only: compilation cache, jax device placement, shard_map'
-TUNE = 'tune/: ROADMAP queue A item 8c'
 
 ABSENT = {
-    ('', 'tune'): TUNE,
+    # the GLT_PROGRAM_COST near-tie margin: the port's tie-break is the
+    # wall, since a capture carries no XLA cost analysis
+    ('tune.tuner', 'COST_TIE_MARGIN'): XLA_COST,
     ('models.models', 'freeze_etype_items'): FLAX,
     ('models.models', 'thaw_etype_items'): FLAX,
     ('ops', 'LEVEL_MAX_CANDIDATES'): BLOCKS128,
@@ -51,11 +50,23 @@ ABSENT = {
 }
 for _n in ('COST_ENV', 'capture_cost', 'cost_enabled'):
   ABSENT[('metrics.programs', _n)] = XLA_COST
-for _n in ('strict_enabled', 'strict_guards'):
-  ABSENT[('utils', _n)] = STRICT
 for _n in ('shard_map', 'enable_compilation_cache', 'ensure_device',
            'get_available_device', 'global_device_put'):
   ABSENT[('utils', _n)] = JAX_ONLY
+
+
+# What JAX does that has no counterpart in the port, beyond names: the
+# JAX call, the module that makes it, and why the port leaves it out.
+JAX_ONLY_CALLS = {
+    ('utils.strict', 'checking_leaks'): (
+        "jax.checking_leaks has no torch counterpart: no tracer can escape "
+        'an eager or captured step; the port\'s guard is the card\'s sync '
+        "debug mode ('error'), JAX's transfer_guard('disallow')"),
+    ('tune.tuner', 'cost_enabled'): XLA_COST + (
+        ': the GLT_PROGRAM_COST near-tie break; the port\'s tie-break is '
+        'always the wall'),
+    ('tune.topology', 'cost_enabled'): XLA_COST,
+}
 
 
 def _jax_file(name):
@@ -147,6 +158,22 @@ def test_every_listed_absence_is_live_and_has_a_reason():
     assert path is not None, name
     assert n in jax_public(path), (name, n, 'not a JAX name')
     assert not hasattr(_port(name), n), (name, n, 'the port has it now')
+
+
+def test_every_jax_only_call_is_live_and_has_a_reason():
+  """JAX's module makes the call; the port's counterpart does not."""
+  for (name, call), why in JAX_ONLY_CALLS.items():
+    assert why, (name, call)
+    src = open(_jax_file(name)).read()
+    assert f'{call}(' in src, (name, call, 'JAX no longer calls it')
+    port = importlib.import_module(f'graphlearn_tpu_torch.{name}')
+    assert f'{call}(' not in open(port.__file__).read(), (name, call)
+
+
+def test_compared_set_covers_the_tune_and_strict_modules():
+  for name in ('tune', 'tune.artifact', 'tune.probes', 'tune.tuner',
+               'tune.topology', 'tune.retune', 'utils.strict'):
+    assert name in MODULES, name
 
 
 def test_c10_names_are_reachable():

@@ -91,28 +91,20 @@ MISSING_PARAMS = {
     ('NeighborLoader', 'fused_hop_window'): 'kernels route by device',
     # the optimizer lives in the port's TrainState, not beside the model
     ('TieredScanTrainer', 'tx'): 'Adam is in TrainState',
-    # tuned configs come with tune/ (ROADMAP queue A item 8)
-    ('TieredScanTrainer', 'config'): 'tune/: item 8',
     # the port's models own their weights
     ('EmbeddingMaterializer', 'params'): 'the model owns its weights',
     ('DistFusedEpochTrainer', 'tx'): 'Adam is in TrainState',
     ('DistScanTrainer', 'tx'): 'Adam is in TrainState',
-    ('DistScanTrainer', 'config'): 'tune/: item 8',
     ('TieredDistScanTrainer', 'tx'): 'Adam is in TrainState',
-    ('TieredDistScanTrainer', 'config'): 'tune/: item 8',
     ('RemoteScanTrainer', 'tx'): 'Adam is in TrainState',
-    ('RemoteScanTrainer', 'config'): 'tune/: item 8',
 }
 # (qualified name, parameter) -> why the default differs
 OTHER_DEFAULTS = {
     # the same member, of the port's own DistRole enum
     ('DistContext', 'role'): 'DistRole.WORKER of the port\'s enum',
-    # JAX resolves None to its chunk default; the port's ScanTrainer
-    # spells it out
-    ('TieredScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
-    ('DistScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
-    ('TieredDistScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
-    ('RemoteScanTrainer', 'chunk_size'): 'ScanTrainer\'s default, 32',
+    # the port routes its hop kernels by device: a fused-hop variant would
+    # measure the base candidate again, so none is fielded by default
+    ('kernel_candidates', 'fused_hop_windows'): 'hops route by device',
 }
 MISSING_MEMBERS = {
     # a group of more than one device is refused until the distributed
@@ -420,7 +412,7 @@ def test_every_named_difference_is_live():
   def port_fn(qual, pkg=gtt):
     head, _, member = qual.partition('.')
     for mod in (pkg.data, pkg.loader, pkg.storage, pkg.serving,
-                pkg.distributed):
+                pkg.distributed, pkg.tune):
       obj = getattr(mod, head, None)
       if obj is not None:
         obj = getattr(obj, member) if member else obj
@@ -760,3 +752,38 @@ def test_remote_scan_class_signatures(mod, name):
 def test_remote_scan_function_signatures(mod, name):
   assert_same_signature(name, _remote_attr(glt, f'{mod}:{name}'),
                         _remote_attr(gtt, f'{mod}:{name}'))
+
+
+TUNE_NAMES = _public(glt.tune)
+
+
+@pytest.mark.parametrize('name', TUNE_NAMES)
+def test_tune_signatures(name):
+  """The tuner's public calls (``tune``, the probes' candidates, the
+  artifact's methods, the topology field, the retune scheduler and its
+  probes): JAX's, the fused-hop default aside; and the seven
+  ``config=`` acceptors take it where JAX does."""
+  assert _public(gtt.tune) == TUNE_NAMES
+  j, t = getattr(glt.tune, name), getattr(gtt.tune, name)
+  if inspect.isclass(j):
+    _compare_class(name, j, t)
+  elif inspect.isfunction(j):
+    assert_same_signature(name, j, t)
+
+
+@pytest.mark.parametrize('qual', [
+    'loader.ScanTrainer', 'loader.RunTrainer', 'loader.DistScanTrainer',
+    'storage.TieredScanTrainer', 'storage.TieredDistScanTrainer',
+    'distributed.RemoteScanTrainer', 'serving.ServingEngine'])
+def test_config_acceptors_take_config_after_jax_parameters(qual):
+  """``config`` sits after the same JAX parameter in both packages (the
+  port's extra parameters, ``capture`` / ``device``, come after it)."""
+  mod, name = qual.split('.')
+  jp = list(inspect.signature(
+      getattr(getattr(glt, mod), name).__init__).parameters)
+  tp = list(inspect.signature(
+      getattr(getattr(gtt, mod), name).__init__).parameters)
+  before = jp[jp.index('config') - 1]
+  assert tp[tp.index('config') - 1] == before, qual
+  assert inspect.signature(getattr(getattr(gtt, mod), name).__init__
+                           ).parameters['config'].default is None
