@@ -427,6 +427,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
    aligned table, the vector route on a copy 4 bytes off, beside K1 and
    ``index_select``, with GB/s, rows/s and bulk copies/s), and the take at
    every cluster size beside ``torch.take``.
+16. Lint: the port's static analyzer, its CLI
+   (``python -m graphlearn_tpu_torch.analysis.lint --format json
+   --timings graphlearn_tpu_torch/``) in a child process over the
+   package of this checkout: exit 0, 0 findings, the package's (empty)
+   baseline; the files walked, the pragma-suppressed count, the child's
+   wall and each rule's seconds on the host's CPU (not a card number).
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes the
@@ -3568,12 +3574,14 @@ def tune_dist_phase(torch, gtt, ds, labels, device, smi, built):
   rep = dict(launch_runs=[ops.launch_counts()], parts=nparts, batch=b,
              steps=steps, tune_s=time.perf_counter() - t0)
   recs = [e for e in art.evidence if e.get('kind') == 'candidate']
+  # a record's probe_steps is the count asked for (2 K, JAX's rule); the
+  # probe epoch holds at most the epoch's steps
   rep['candidates'] = [dict(
       name=r['name'], qualified=r['qualified'],
       compile_epochs=r.get('compile_epochs'),
       compile_captures=sum((r.get('compile_epoch_compiles') or {}).values()),
       steady_captures=sum((r.get('steady_epoch_compiles') or {}).values()),
-      ms_per_step=(r['wall_s'] * 1e3 / r['probe_steps']
+      ms_per_step=(r['wall_s'] * 1e3 / min(r['probe_steps'], steps)
                    if r.get('wall_s') is not None else None),
       rejected=r.get('rejected')) for r in recs]
   for row in rep['candidates']:
@@ -6262,7 +6270,7 @@ def dist_phase(torch, gtt, ei, feats, labels, device, smi, keep=None):
 
 
 # ---- the scanned distributed epoch (DistScanTrainer, FailoverRunner)
-DSCAN_STEPS = 12                     # steps an epoch (P x BATCH seeds each)
+DSCAN_STEPS = 8                      # steps an epoch (P x BATCH seeds each)
 DSCAN_CHUNK = 4                      # K
 DSCAN_CRASH_CHUNK = 2                # the checkpointed epoch dies here
 DSCAN_DEAD_RANK = 2                  # the failover's dead shard
@@ -9860,6 +9868,42 @@ def _smem_ctas(torch, device, cluster):
   return sms // cluster * cluster
 
 
+LINT_TIMEOUT_S = 300   # the analyzer's child, a whole-package walk
+
+
+def lint_phase(smi) -> dict:
+  """The port's analyzer over the package of this checkout, through its
+  CLI in a child process: exit 0 and 0 findings asserted; the files
+  walked, the pragma-suppressed count, the child's wall and each rule's
+  host seconds."""
+  root = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-m', 'graphlearn_tpu_torch.analysis.lint',
+       '--format', 'json', '--timings', 'graphlearn_tpu_torch/'],
+      cwd=root, capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+  wall = time.perf_counter() - t0
+  if proc.returncode != 0:
+    raise AssertionError(f'lint: exit {proc.returncode}\n{proc.stdout}'
+                         f'{proc.stderr}')
+  doc = json.loads(proc.stdout)
+  assert doc['findings'] == [] and doc['baselined'] == 0, doc['findings']
+  rule_s = {r: ms / 1e3 for r, ms in doc['timings_ms'].items()}
+  rep = dict(rc=proc.returncode, files=doc['files'],
+             findings=len(doc['findings']),
+             pragma_suppressed=doc['pragma_suppressed'], wall_s=wall,
+             rule_s=rule_s)
+  log(f'lint: python -m graphlearn_tpu_torch.analysis.lint over '
+      f'{doc["files"]} files: exit 0, 0 findings, '
+      f'{doc["pragma_suppressed"]} pragma-suppressed, baseline empty; '
+      f'{wall:.1f} s wall in a child process (host CPU, not the card), '
+      f'rules {sum(rule_s.values()):.1f} s on {smi}')
+  log('lint per-rule host s: ' + json.dumps(
+      {r: round(v, 3) for r, v in sorted(rule_s.items(),
+                                         key=lambda kv: -kv[1])}))
+  return rep
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--out', default=None, help='also write the report here')
@@ -10095,6 +10139,8 @@ def main(argv=None):
   phase_done('tiered')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   phase_done('probes')
+  report['lint'] = lint_phase(smi)
+  phase_done('lint')
   ktab = report['kernels']
   widest = ktab['sample_level']['levels'][-1]
   serve_cap = ktab['gather_runs'][len(SERVE_BUCKETS) - 1]

@@ -256,6 +256,7 @@ class BlockSampleProducer:
     # staged frames, shared between produce-ahead builds and fetch RPCs:
     # every access holds _cache_lock (builds run outside it, under
     # _build_lock, so a cache hit never waits on a build)
+    # graftlint: shared[_cache_lock]
     self._frames: Dict[Tuple[int, int, int], dict] = {}
     # tenancy accounting seams (dist_server.create_block_producer):
     # on_stage(nbytes) as a frame lands in the cache, on_fetch(nbytes) as

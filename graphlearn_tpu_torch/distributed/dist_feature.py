@@ -224,8 +224,7 @@ class DistFeature:
     s = self.stats()
     for k in ('hits', 'misses', 'unique_misses', 'overflow', 'lookups'):
       if s[k]:
-        # a caller-chosen prefix: dist_feature.* and dist_label.* are
-        # both registered families
+        # graftlint: allow[metric-registry] caller-chosen prefix; both families (dist_feature.*/dist_label.*) are registered wildcards
         trace.counter_inc(f'{prefix}.{k}', s[k])
     self.reset_stats()
     return s

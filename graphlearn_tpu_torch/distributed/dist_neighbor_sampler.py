@@ -996,6 +996,7 @@ class DistNeighborSampler:
     A one-process mesh holds ``[P, P, node_cap * max_degree]`` results.
     Typed graphs are refused, as in JAX."""
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] reference-parity, not unmigrated
       raise NotImplementedError(
           'hetero distributed subgraph sampling (reference parity: '
           'dist_neighbor_sampler.py:505 raises NotImplementedError)')

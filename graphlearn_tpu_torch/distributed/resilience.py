@@ -213,8 +213,11 @@ class Heartbeat:
     self._on_dead = on_dead
     # liveness state shared between per-rank probe threads and caller
     # threads (is_dead/dead_ranks/mark_dead) — every access holds _lock
+    # graftlint: shared[_lock]
     self._dead: Dict[int, str] = {}
+    # graftlint: shared[_lock]
     self._misses: Dict[int, int] = {r: 0 for r in self._ranks}
+    # graftlint: shared[_lock]
     self._last_ok: Dict[int, float] = {}
     self._stop = threading.Event()
     self._lock = threading.Lock()

@@ -388,9 +388,12 @@ class WeightedFairScheduler:
     # grant thread (_drain/_pick) — guarded by _lock; _wake is a
     # Condition WRAPPING _lock, so waiting on it holds the same lock
     # per priority class: tenant -> deque of tickets (FIFO per tenant)
+    # graftlint: shared[_lock]
     self._queues: Dict[int, Dict[str, List[_Ticket]]] = {
         i: {} for i in range(len(PRIORITY_CLASSES))}
+    # graftlint: shared[_lock]
     self._deficit: Dict[str, float] = {}
+    # graftlint: shared[_lock]
     self._rr: Dict[int, int] = {i: 0 for i in range(len(PRIORITY_CLASSES))}
     self.served: Dict[str, float] = {}   # granted cost per tenant
     self._stop = False
@@ -449,6 +452,7 @@ class WeightedFairScheduler:
 
   # ------------------------------------------------------------ drain
 
+  # graftlint: locked[_lock]
   def _pick(self) -> Optional[_Ticket]:
     """Next ticket under the lock, or None when nothing is runnable.
     Strict priority first; DRR within the class."""

@@ -126,6 +126,7 @@ class OverflowGuardMixin:
         getattr(getattr(self, 'sampler', None), 'is_hetero', False):
       # typed batches draw their (hop, edge type) keys from the sampler's
       # own stream: no per-batch key exists to replay a truncated draw
+      # graftlint: allow[hetero-gate] no replayable hetero batch key
       raise ValueError(
           "overflow_policy='recompute' is homogeneous-only (hetero "
           'batches have no replayable per-batch key); use '

@@ -59,6 +59,7 @@ class FusedEpochTrainer:
                seed_labels_only: Optional[bool] = None):
     sampler = loader.sampler
     if getattr(sampler, 'is_hetero', False):
+      # graftlint: allow[hetero-gate] local trainer is homo by design
       raise ValueError(f'{self._NAME} is homogeneous-only')
     if isinstance(loader, (LinkLoader, SubGraphLoader)):
       # link and subgraph batches carry what the node classification
@@ -461,9 +462,11 @@ class OverlappedTrainer(FusedEpochTrainer):
       self._side.wait_stream(main)
     flight_tok = flight.epoch_begin()
     losses, truncated, completed = [], False, False
-    ovf = torch.zeros((), dtype=torch.bool, device=device)  # trained ones'
     batch = pending = ready = None
     try:
+      # inside the bracket, as JAX's: a failed allocation still closes
+      # the epoch's flight record
+      ovf = torch.zeros((), dtype=torch.bool, device=device)  # trained ones'
       try:
         for padded, mask in self._seed_batches():
           nxt = self._prefetch(padded, mask)

@@ -63,7 +63,9 @@ class JsonlAppender:
     self._lock = threading.Lock()
     # keep-open file handle shared by every thread that appends a
     # record — open/write/reset all hold _lock
+    # graftlint: shared[_lock]
     self._path: Optional[str] = None
+    # graftlint: shared[_lock]
     self._fh = None
 
   def append(self, path: str, rec: dict) -> bool:

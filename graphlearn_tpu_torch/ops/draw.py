@@ -19,7 +19,7 @@ from .. import random as trandom
 from . import kernels
 
 # launches of the CUDA kernel (plain-version calls do not count)
-launches = 0
+launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 
 def uniform(key, shape, device=None) -> torch.Tensor:

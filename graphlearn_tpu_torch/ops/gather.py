@@ -37,9 +37,9 @@ from ..utils.trace import record_dispatch
 from . import kernels, mapped
 
 # launches of the CUDA kernels (plain-version calls do not count)
-launches = 0
-runs_launches = 0
-unified_launches = 0
+launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+runs_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+unified_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -365,7 +365,10 @@ def gather_rows_hbm2(table: torch.Tensor, ids: torch.Tensor,
   t0 = time.perf_counter()
   record_dispatch('gather2')
   out = _gather_runs_launch(table, ids, block_rows, run_span)
-  metrics.inc('ops.gather_runs' if ids.shape[0] else 'ops.gather_fallbacks')
+  if ids.shape[0]:
+    metrics.inc('ops.gather_runs')
+  else:
+    metrics.inc('ops.gather_fallbacks')
   # the host's enqueue time, not the card's: a liveness / regression
   # signal, never a throughput claim
   metrics.observe('ops.gather_ms', (time.perf_counter() - t0) * 1e3)

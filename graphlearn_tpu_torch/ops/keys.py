@@ -21,8 +21,8 @@ from .. import random as trandom
 from . import kernels
 
 # launches of the CUDA kernels (plain-version calls do not count)
-launches = 0
-dist_launches = 0
+launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+dist_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 
 def _check_inputs(what, base_key, counter):

@@ -25,9 +25,9 @@ from . import kernels
 from .neighbor import edge_in_csr
 
 # launches of the CUDA kernel (plain-version calls do not count)
-launches = 0
+launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 # launches of its shard-local entry
-local_launches = 0
+local_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 INT32_MAX = 2 ** 31 - 1
 

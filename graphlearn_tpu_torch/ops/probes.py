@@ -31,9 +31,9 @@ from .gather import _check, gather_rows_plain
 
 # launches of the CUDA kernels (plain-version calls do not count), the
 # row gather's per route
-row_gather_bulk_launches = 0
-row_gather_vector_launches = 0
-smem_take_launches = 0
+row_gather_bulk_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+row_gather_vector_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+smem_take_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 FILL = -2 ** 31
 # the cluster sizes smem_take takes, and the one it launches by default

@@ -35,8 +35,8 @@ from .unique import FILL
 # launches of the CUDA kernels (plain-version calls do not count):
 # ``launches`` counts the hop kernel, ``level_launches`` every launch of
 # the level kernel's library (begin, pick, scan, resolve)
-launches = 0
-level_launches = 0
+launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+level_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 
 def _on_cpu(*tensors) -> bool:

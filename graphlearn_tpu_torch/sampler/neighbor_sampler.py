@@ -552,6 +552,7 @@ class NeighborSampler:
     """The resolved per-hop frontier capacities: a batch truncated under
     calibrated caps has ``num_sampled_nodes[i+1] > hop_caps[i+1]``."""
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] homo accessor by contract
       raise ValueError('hop_caps is homogeneous-only (the typed engine '
                        'plans capacities per edge type)')
     return capacity_plan(batch_cap, self.num_neighbors, self.node_budget,
@@ -801,8 +802,10 @@ class NeighborSampler:
     kernel-path counter: one per call routed through the level kernel
     (merge) or the hop kernel (the other engines)."""
     if self._backend() == 'fused':
-      metrics.inc('ops.fused_level_calls' if self._dedup_mode() == 'merge'
-                  else 'ops.fused_hop_calls')
+      if self._dedup_mode() == 'merge':
+        metrics.inc('ops.fused_level_calls')
+      else:
+        metrics.inc('ops.fused_hop_calls')
     return self._sample(seeds, seed_mask, key)
 
   def sample_from_nodes(self, inputs: NodeSamplerInput,
@@ -1207,6 +1210,7 @@ class NeighborSampler:
     per-hop ``(edge_index [2, caps[i] * k], edge_mask, e_id, size)`` in
     reverse hop order (deepest first), padded."""
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] a homogeneous-only method, as JAX's (no typed path to plan)
       raise ValueError('sample_pyg_v1 is homogeneous-only')
     seeds = np.asarray(seeds).reshape(-1)
     out = self.sample_from_nodes(NodeSamplerInput(seeds),
@@ -1240,6 +1244,7 @@ class NeighborSampler:
     ``metadata['num_dropped_rows']``. ``metadata['mapping']`` is each
     seed's position in ``node`` (-1 if absent)."""
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] a homogeneous-only method, as JAX's (no typed path to plan)
       raise ValueError('subgraph is homogeneous-only')
     g = self.graph
     nodes_out = self.sample_from_nodes(inputs)
@@ -1297,6 +1302,7 @@ class NeighborSampler:
     node count). On a card the sums add in no fixed order, so they agree
     with the CPU's within float32 rounding, not bit for bit."""
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] a homogeneous-only method, as JAX's (no typed path to plan)
       raise ValueError('sample_prob is homogeneous-only')
     g = self.graph
     dev = self.device

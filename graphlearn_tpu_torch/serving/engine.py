@@ -119,6 +119,7 @@ class ServingEngine:
     self._q: 'queue.Queue[_Request]' = queue.Queue()
     # stale-id set shared between caller threads (mark_stale) and the
     # dispatcher (_refresh_stale); every access holds _stale_lock
+    # graftlint: shared[_stale_lock]
     self._stale: set = set()
     self._stale_lock = threading.Lock()
     self._stop = threading.Event()

@@ -343,6 +343,7 @@ class EmbeddingMaterializer:
     edge-type order. Returns ``(offsets by edge type, {emitted edge type:
     [2, B*W] COO})``; ``b`` defaults to the block size (a refresh bucket
     passes its capacity: the same layout at its scale)."""
+    # graftlint: allow[host-sync] b is a Python int (the block size or a refresh bucket's capacity), never a tensor
     b = self.block_size if b is None else int(b)
     widths = {t: b}
     offsets = {}
@@ -479,6 +480,7 @@ class EmbeddingMaterializer:
     validation. The store writes refreshes into this same table
     (homogeneous only: typed stores are per type)."""
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] per-type outputs by design
       raise ValueError('hetero materialization produces per-type '
                        'stores — wrap the one you serve explicitly: '
                        'EmbeddingStore(table, num_nodes=N_type)')
@@ -493,6 +495,7 @@ class EmbeddingMaterializer:
     the materializer's)."""
     from ..storage.tiered import TieredFeature
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] per-type outputs by design
       raise ValueError('hetero materialization produces per-type '
                        'stores — build TieredEmbeddingStore over the '
                        'spilled pass tier you serve explicitly')
@@ -514,6 +517,7 @@ class EmbeddingMaterializer:
     (split_ratio / cache_rows / hotness / wire_dtype / bucket_frac)."""
     from .store import DistEmbeddingStore
     if self.is_hetero:
+      # graftlint: allow[hetero-gate] per-type outputs by design
       raise ValueError('hetero materialization produces per-type '
                        'stores — build the one you serve explicitly '
                        'with DistEmbeddingStore.build(table, mesh, '

@@ -122,9 +122,12 @@ class ChunkStager:
     self._lock = threading.Lock()
     # ring state shared between the dispatch thread (begin_epoch / take /
     # ack) and the worker (_loop): every access holds _lock
+    # graftlint: shared[_lock]
     self._plan: List[np.ndarray] = []
+    # graftlint: shared[_lock]
     self._slabs: Dict[int, _Slab] = {}
     self._slots: List[_Slot] = []
+    # graftlint: shared[_lock]
     self._next_submit = 0
     self._gen = 0          # epoch generation: the queue's stale ids skip
     self._q: 'queue.Queue' = queue.Queue()

@@ -69,6 +69,7 @@ import torch
 
 from .. import metrics
 from ..metrics import programs, spans
+from ..utils import strict
 from . import probes
 from .artifact import (KERNEL_CHOICE_DEFAULTS, TuneArtifact,
                        apply_kernel_routing, dataset_fingerprint)
@@ -331,7 +332,8 @@ def _model_and_state(model, tx, make_default):
 
 def _sync(device):
   if device.type == 'cuda':
-    torch.cuda.synchronize(device)
+    with strict.explicit():   # the probe's timing fence: a deliberate sync
+      torch.cuda.synchronize(device)
 
 
 _STREAMS = {}

@@ -69,6 +69,22 @@ JAX_ONLY_CALLS = {
 }
 
 
+# JAX's analysis rules with no counterpart in the port's analyzer
+# (graphlearn_tpu_torch/analysis): the rule, the JAX module that holds
+# it, and why the port leaves it out.
+JAX_ONLY_RULES = {
+    'compat-shard-map': ('compat_import', (
+        'the port has no utils/compat.py and no shard_map: its mesh is '
+        'torch.distributed or a one-process view, not a jax transform')),
+    'donation-safety': ('donation', (
+        'torch does not donate buffers: no argument is dead after a '
+        'call, so no read after one is stale')),
+    'retrace-hazard': ('retrace', (
+        'a torch call has no static arguments to retrace on; a shape '
+        'change costs a CUDA graph recapture, which '
+        'metrics/programs.retrace_budget counts at run time')),
+}
+
 def _jax_file(name):
   """The JAX module file of the port module ``name`` (relative, '' for
   the package), or None."""
@@ -203,3 +219,32 @@ def test_base_sampler_refuses_another_samplers_state():
   for call in (s.sample_from_nodes, s.sample_from_edges, s.subgraph):
     with pytest.raises(NotImplementedError):
       call(None)
+
+
+def test_every_jax_only_rule_is_live_and_has_a_reason():
+  """Each JAX rule is ported or listed here; a listed rule is JAX's, has
+  no module in the port, and the port's analyzer names it with why."""
+  from graphlearn_tpu.analysis import core as jcore
+  from graphlearn_tpu_torch import analysis
+  from graphlearn_tpu_torch.analysis import core
+  assert set(core.PRAGMA_RULES) | set(JAX_ONLY_RULES) == \
+      set(jcore.PRAGMA_RULES)
+  for rule, (module, why) in JAX_ONLY_RULES.items():
+    assert why and rule not in core.PRAGMA_RULES, rule
+    tree = ast.parse(open(_jax_file(f'analysis.{module}')).read())
+    assert any(isinstance(n, ast.Assign) and
+               any(getattr(t, 'id', '') == 'RULE' for t in n.targets) and
+               getattr(n.value, 'value', None) == rule
+               for n in tree.body), (rule, module)
+    assert f'analysis.{module}' not in MODULES, module
+    assert rule in analysis.__doc__, rule
+
+
+def test_compared_set_covers_the_analysis_modules():
+  for name in ('analysis', 'analysis.core', 'analysis.astutil',
+               'analysis.flow', 'analysis.brackets', 'analysis.dispatch',
+               'analysis.fault_points', 'analysis.hetero_gates',
+               'analysis.host_sync', 'analysis.lint', 'analysis.locks',
+               'analysis.metric_names', 'analysis.prng',
+               'analysis.span_names'):
+    assert name in MODULES, name

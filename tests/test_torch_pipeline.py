@@ -201,3 +201,78 @@ def test_overlapped_reseeds_the_padded_window_as_the_loop_does():
     assert torch.equal(a, b)
   assert tr.loader._epochs_started == loader._epochs_started == 2
   assert tr._sampler._padded_seed == loader.sampler._padded_seed == 1
+
+
+class _EpochFault(RuntimeError):
+  """The failure the bracket test injects."""
+
+
+def _fail_at(where, pkg, trainer, zeros_owner, monkeypatch):
+  """Make ``trainer.run_epoch`` fail right after its flight record opens:
+  at the epoch's first allocation (``zeros_owner.zeros``, armed by the
+  opener) or at its first batch."""
+  if where == 'first_batch':
+    def seed_batches():
+      raise _EpochFault('first batch')
+      yield   # pragma: no cover (a generator that raises on first use)
+    monkeypatch.setattr(trainer, '_seed_batches', seed_batches)
+    return
+  armed, real_zeros = [], zeros_owner.zeros
+  real_begin = pkg.metrics.flight.epoch_begin
+
+  def zeros(*args, **kwargs):
+    if armed:
+      armed.clear()
+      raise _EpochFault('allocation')
+    return real_zeros(*args, **kwargs)
+
+  def epoch_begin():
+    tok = real_begin()
+    armed.append(True)
+    return tok
+
+  monkeypatch.setattr(zeros_owner, 'zeros', zeros)
+  monkeypatch.setattr(pkg.metrics.flight, 'epoch_begin', epoch_begin)
+
+
+@pytest.mark.parametrize('where', ['allocation', 'first_batch'])
+def test_a_failed_epoch_start_closes_its_flight_record_as_jax(
+    where, tmp_path, monkeypatch):
+  """An epoch that fails between its flight record's opener and its first
+  step still writes the record, with ``completed=False``, and leaves no
+  span on the thread's stack: JAX's trainer on the same failure writes
+  the same record."""
+  ei, feats, labels = _graph()
+  ds = glt.data.Dataset()
+  ds.init_graph(ei, graph_mode='CPU', num_nodes=N)
+  ds.init_node_features(feats)
+  ds.init_node_labels(labels)
+  jloader = glt.loader.NeighborLoader(ds, [3, 2], _pool(), batch_size=8,
+                                      shuffle=False, seed=0)
+  jmodel = JaxSAGE(hidden_dim=8, out_dim=C, num_layers=2)
+  first = jtrain.batch_to_dict(next(iter(jloader)))
+  jstate, tx = jtrain.create_train_state(jmodel, jax.random.PRNGKey(0), first)
+  trainers = {
+      'jax': (glt, glt.loader.OverlappedTrainer(jloader, jmodel, tx, C),
+              jax.numpy, jstate),
+      'port': (gtt, gtt.loader.OverlappedTrainer(_loader(), _model(), C),
+               torch, None)}
+  records = {}
+  for name, (pkg, trainer, zeros_owner, state) in trainers.items():
+    log = tmp_path / f'{name}.jsonl'
+    with monkeypatch.context() as m:
+      m.setenv('GLT_RUN_LOG', str(log))
+      _fail_at(where, pkg, trainer, zeros_owner, m)
+      if state is None:
+        state = ttrain.create_train_state(trainer.model)
+      with pytest.raises(_EpochFault, match=where.replace('_', ' ')):
+        trainer.run_epoch(state)
+    assert pkg.metrics.spans.current() == (None, None), name
+    records[name] = pkg.metrics.flight.read_records(str(log))
+  for name, recs in records.items():
+    assert [(r['emitter'], r['steps'], r['completed'], r['truncated'])
+            for r in recs] == [('OverlappedTrainer', 0, False, False)], name
+  drop = ('wall_s', 'time_unix', 'run_id')
+  want, got = ({k: v for k, v in records[n][0].items() if k not in drop}
+               for n in ('jax', 'port'))
+  assert got == want
