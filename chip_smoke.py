@@ -19,7 +19,10 @@ client), the chunk-staged remote scan (K-batch block frames from a
 server child, a captured RemoteScanTrainer; a typed epoch), the hot/cold
 feature store (the papers-scale and table examples), the out-of-core
 tiered store (TieredScanTrainer, the papers example's three-tier mode,
-the spilled serving stores), and the two probe suites.
+the spilled serving stores), the two probe suites, the port's static
+analyzer, and the several-card path (a DeviceGroup store sharded over
+every card, one card named twice where there is one, and a
+DistScanTrainer captured under an NCCL group of one rank per card).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -410,7 +413,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    and a profiled epoch (the profiler's kernels equal to the counters).
    Merge (calibrated caps): two epochs, ``x`` bit-equal. Then the papers
    example's three-tier mode through ``run_tiered`` (``--spill-dir``,
-   2M nodes, ``--hot-gb 0.4 --warm-gb 0.2``, 32 steps in chunks of 8):
+   2M nodes, ``--hot-gb 0.4 --warm-gb 0.2``, 16 steps in chunks of 8):
    its JSON fields, per-chunk staging, and its last chunk run again
    eagerly from the state at its start, the last step recomputed on the
    CPU. Then the serving phase's model materialized with
@@ -433,6 +436,31 @@ Phases (any failure exits non-zero, and the result line is not printed):
    package of this checkout: exit 0, 0 findings, the package's (empty)
    baseline; the files walked, the pragma-suppressed count, the child's
    wall and each rule's seconds on the host's CPU (not a card number).
+17. Multicard (run right after ``dist_more``): the several-card path.
+   First a line with ``torch.cuda.device_count()``, the group (every
+   card; ``cuda:0`` named twice on a one-card machine, so one card runs
+   the sharded layout and its kernels) and each ordered pair's peer
+   access verdict (every pair must reach the other). (a) The script's
+   ``[1M, 100]`` f32 table in a ``Feature`` whose ``DeviceGroup`` is
+   that group, at split 1.0 (the sharded K1 entry) and 0.25 (the
+   sharded hot/cold entry; the tail mapped): the store's lookup of one
+   [15, 10, 5] x 1,024 tree batch's 937,984 ids (one sharded launch
+   each, its rows the table's), then the kernel on those ids against its
+   plain version bit for bit, timed beside the one-table kernel (K1, or
+   the hot/cold kernel of an ungrouped store at the same split) and the
+   shards' own ``index_select``, with the bound: the larger of the HBM
+   bytes over 3.35 TB/s, the distinct remote rows' bytes over NVLink's
+   450 GB/s one way and (a tail) the distinct cold rows' bytes over the
+   measured pinned rate. (b) One spawned rank per card (world 1 on one
+   card; ``init_multihost`` over NCCL, the graph rebuilt from its seed in
+   each rank and cut into world shards by RandomPartitioner's rule): the
+   dist_scan cell's trainer at ``bucket_frac=None`` (tree, [15, 10, 5] x
+   1,024 a shard, hidden 256, 8 steps at K = 4), a captured epoch and an
+   eager one from the same weights, bit-equal (losses and parameters),
+   at world 1 also the one-process mesh at P = 1, captured, bit-equal;
+   K3 3 and K1 3 a step and one ``dist_step_keys`` a chunk (each rank's
+   counters, read in its process); ms/step of a replayed epoch and the
+   idle share of a profiled one. Any failure fails the run.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. ``--out FILE`` also writes the
@@ -9204,7 +9232,7 @@ TIER_HOT, TIER_WARM = 0.25, 0.25
 TIER_STEPS, TIER_CHUNK = 16, 8
 # the papers example's three-tier mode at PAPERS_NODES: the shares of its
 # 10M default (2 GB hot, 1 GB warm of 4.77 GB: 42%, 21%, 37% on disk)
-PAPERS_WARM_GB, PAPERS_TIER_STEPS, PAPERS_TIER_CHUNK = 0.2, 32, 8
+PAPERS_WARM_GB, PAPERS_TIER_STEPS, PAPERS_TIER_CHUNK = 0.2, 16, 8
 SERVE_TIER_SYNC_LOOKUPS = 16         # lookups run under sync counting
 
 
@@ -9904,6 +9932,340 @@ def lint_phase(smi) -> dict:
   return rep
 
 
+# the multicard phase: a DeviceGroup store sharded over every card (one
+# card named twice where there is one) and a DistScanTrainer captured
+# under an NCCL group of one rank per card
+MC_SPLITS = (1.0, 0.25)               # a full and a mixed grouped split
+NVLINK_BYTES_PER_S = 450e9            # H100 NVLink, one way per card
+MC_STEPS, MC_CHUNK = 8, 4             # the captured group epoch: steps, K
+MC_TIMEOUT_S = 600                    # the ranks' join limit
+
+
+def multicard_group(torch, device):
+  """``(devices, verdicts)``: the group of every card (``cuda:0`` named
+  twice on one card; the CPU twice in a rehearsal) and, for each ordered
+  pair of distinct cards, whether one can read the other's memory."""
+  if device.type != 'cuda':
+    return [device, device], {}
+  cards = torch.cuda.device_count()
+  if cards == 1:
+    return [torch.device('cuda', 0)] * 2, {}
+  verdicts = {f'cuda:{a}->cuda:{b}': torch.cuda.can_device_access_peer(a, b)
+              for a in range(cards) for b in range(cards) if a != b}
+  return [torch.device('cuda', i) for i in range(cards)], verdicts
+
+
+def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
+                 rate, smi):
+  """One grouped store at ``split`` over ``group``: the store's lookup of
+  one tree batch's node ids (counted: one sharded launch), then its
+  kernel (the sharded K1 entry, or the sharded hot/cold entry with a
+  host tail) on the batch's rows against its plain version, bit for bit,
+  timed beside the one-table kernel on the same rows, with the bound:
+  the larger of the HBM bytes over 3.35 TB/s, the remote rows' bytes
+  over NVLink's one-way rate and (a host tail) the distinct cold rows'
+  bytes over the measured pinned rate."""
+  import gc
+
+  from graphlearn_tpu_torch import ops
+  cuda = device.type == 'cuda'
+  t0 = time.perf_counter()
+  current = torch.cuda.current_device() if cuda else None
+  store = gtt.data.Feature(feats, split, device_group_list=[
+      gtt.data.DeviceGroup(0, group)], device=device)
+  store.lazy_init()
+  ut = store.unified
+  part = ut.device_part
+  shards, cold = part.shards, ut.host_part
+  ops.reset_launch_counts()
+  looked = store[node]
+  if cuda:
+    torch.cuda.synchronize()
+    # placing the group (peer access) and its lookup leave the caller's
+    # current card as it was: an unindexed 'cuda' still means cuda:0
+    assert torch.cuda.current_device() == current, (
+        'grouped store moved the current device', current,
+        torch.cuda.current_device())
+  launches = ops.launch_counts()
+  want_x = torch.as_tensor(feats)[node.clamp(min=0).long().cpu()]
+  assert torch.equal(looked.cpu(), want_x), f'grouped store {split}: rows'
+  name = 'gather_unified_sharded' if ut.host_rows else 'gather_rows_sharded'
+  assert launches[name] == (1 if cuda else 0), (split, launches)
+  if ut.host_rows:
+    def kern():
+      return ops.gather_rows_unified_sharded(shards, part.pointers, cold,
+                                             rows)
+
+    def plain():
+      return ops.gather_rows_unified_sharded_plain(shards, cold, rows)[0]
+    one = gtt.data.Feature(feats, split, device=device)
+    one.lazy_init()
+    hot1, cold1 = one.unified._hot(), one.unified.host_part
+
+    def one_table():
+      return ops.gather_rows_unified(hot1, cold1, rows)
+  else:
+    def kern():
+      return ops.gather_rows_sharded(shards, part.pointers, rows)
+
+    def plain():
+      return ops.gather_rows_sharded_plain(shards, rows)
+    table = torch.as_tensor(feats).to(device)
+
+    def one_table():
+      return ops.gather_rows_hbm(table, rows)
+  got, ms, call_ms = timed(torch, kern, reps, device)
+  ref, plain_ms, plain_call_ms = timed(torch, plain, reps, device)
+  _, k1_ms, k1_call_ms = timed(torch, one_table, reps, device)
+  # the library yardstick: each shard's index_select of the rows it owns
+  # (no placement into the batch's order)
+  rps = part.rows_per_shard
+  n_hot = rps * len(shards)
+  hot_rows = rows[rows < n_hot].long()
+  local = [(s, (hot_rows[hot_rows // rps == i] - i * rps).to(s.device))
+           for i, s in enumerate(shards)]
+  _, lib_ms, _ = timed(torch, lambda: [s.index_select(0, r)
+                                       for s, r in local], reps, device)
+  if cuda:
+    torch.cuda.synchronize()
+  exact = bool(torch.equal(got, ref))
+  err = float((got.float() - ref.float()).abs().max())
+  row = shards[0].shape[1] * shards[0].element_size()
+  uniq = torch.unique(rows.clamp(0, ut.size - 1))
+  uhot = uniq[uniq < n_hot]
+  n_cold_u = int(uniq.numel() - uhot.numel())
+  remote_u = int(sum(int((uhot // rps == i).sum())
+                     for i, s in enumerate(shards) if s.device != part.device))
+  hbm = rows.numel() * rows.element_size() + uhot.numel() * row + \
+      rows.numel() * row
+  times = [hbm / H100_BYTES_PER_S, remote_u * row / NVLINK_BYTES_PER_S]
+  if n_cold_u:
+    times.append(n_cold_u * row / rate)
+  bound = max(times) * 1e3
+  rec = dict(split=split, group=[str(d) for d in group], kernel=name,
+             hot_rows=n_hot, rows_per_shard=rps, ids=rows.numel(),
+             remote_distinct_rows=remote_u, distinct_cold_rows=n_cold_u,
+             exact=exact, max_abs_err=err, ms=ms, call_ms=call_ms,
+             plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+             one_table_ms=k1_ms, one_table_call_ms=k1_call_ms,
+             bound_ms=bound, bound_by='bytes',
+             library_ms=None if ut.host_rows else lib_ms,
+             shard_index_select_ms=lib_ms, lookup_launches=launches,
+             case_s=time.perf_counter() - t0)
+  log(f'multicard {name} split={split} over {rec["group"]} ({rps} rows a '
+      f'shard, {n_hot} hot of {ut.size}): ids={rows.numel()} exact={exact} '
+      f'ms={ms:.4f} call_ms={call_ms:.4f}; plain ms={plain_ms:.4f}; '
+      f'the one-table kernel ms={k1_ms:.4f}; the shards\' index_select '
+      f'ms={lib_ms:.4f}; bound_ms={bound:.4f} (HBM {hbm / 1e6:.1f} MB, '
+      f'{remote_u} distinct remote rows, {n_cold_u} distinct cold rows); '
+      f'the store\'s lookup launched {launches[name]} on {smi}')
+  assert exact, f'{name} split={split}: kernel != plain version'
+  del store, ut, part, shards, cold, got, ref, looked
+  gc.collect()
+  return rec
+
+
+def multicard_rank(rank, world, port, n_nodes, device_names, outdir, smi):
+  """One rank of the captured group epoch (a spawned child on
+  ``device_names[rank]``): the script's graph (rebuilt from its seed) in
+  ``world`` shards, one held here under ``init_multihost`` (NCCL on a
+  card), the dist_scan cell's trainer at ``bucket_frac=None`` (FANOUTS at
+  BATCH seeds a shard, the example's GraphSAGE at hidden HIDDEN,
+  MC_STEPS steps in chunks of MC_CHUNK): a captured epoch and an eager
+  one from the same weights, bit-equal (losses and parameters); at world
+  1 also the one-process mesh at P = 1, captured, bit-equal; then a
+  timed replayed epoch (ms/step) and a profiled one (idle share). Writes
+  ``rank{rank}.json`` to ``outdir``."""
+  import traceback
+
+  import torch
+  try:
+    import torch.distributed as dist
+
+    import graphlearn_tpu_torch as gtt
+    from graphlearn_tpu_torch import distributed as gdist
+    from graphlearn_tpu_torch import ops
+    from graphlearn_tpu_torch.examples import (
+        dist_train_sage_supervised as ex)
+    from graphlearn_tpu_torch.models import create_train_state
+    device = torch.device(device_names[rank])
+    cuda = device.type == 'cuda'
+    if cuda:
+      torch.backends.cuda.matmul.allow_tf32 = False
+      torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ei, feats, labels = make_graph(n_nodes, 25)
+    n = n_nodes
+    b = BATCH if cuda else 64
+    steps = MC_STEPS if cuda else 4
+    chunk = MC_CHUNK if cuda else 2
+    pb = dist_book(n, world)
+    parts, fparts = ex.partition_in_memory(ei, feats, pb, world)
+    hot = np.bincount(ei[1], minlength=n)
+    del ei, feats
+    ctx = gdist.init_multihost(f'localhost:{port}', world, rank,
+                               device=device)
+    rep = dict(rank=rank, world=world, device=str(device),
+               backend=dist.get_backend(), build_s=time.perf_counter() - t0)
+    try:
+      pool = np.random.default_rng(12).permutation(n)[:world * b * steps]
+
+      def dataset(mesh):
+        return gdist.DistDataset(
+            world, 0, gdist.DistGraph(world, 0, parts, pb),
+            gdist.DistFeature(world, fparts, pb, mesh, split_ratio=DIST_CACHE,
+                              hotness=hot, bucket_frac=None),
+            node_labels=labels)
+
+      def trainer(ds, capture):
+        loader = gdist.DistNeighborLoader(
+            ds, FANOUTS, pool, batch_size=b, shuffle=False, drop_last=True,
+            seed=0, mesh=ds.node_features.mesh, dedup='tree',
+            bucket_frac=None)
+        model = ex.make_model(FEAT_DIM, HIDDEN, CLASSES, FANOUTS, b, device,
+                              torch.Generator().manual_seed(0))
+        return gtt.loader.DistScanTrainer(loader, model, CLASSES,
+                                          chunk_size=chunk, capture=capture)
+
+      ds = dataset(ctx.mesh)
+      runs = {'captured': trainer(ds, True if cuda else None),
+              'eager': trainer(ds, False)}
+      if world == 1:
+        runs['one_process'] = trainer(dataset(gdist.ShardMesh(1, device)),
+                                      True if cuda else None)
+      states, out = {}, {}
+      for name, t in runs.items():
+        st = create_train_state(t.model, lr=LR)
+        st, losses, _, ms, counts = dscan_epoch(torch, t, st, cuda)
+        states[name] = st
+        out[name] = dict(losses=losses.cpu(), ms=ms, counts=counts,
+                         params={k: v.detach().cpu() for k, v in
+                                 t.model.state_dict().items()})
+      ref = out['captured']
+      rep['captured'] = runs['captured'].capture
+      rep['launches'] = ref['counts']
+      want = dict(sample_hop=len(FANOUTS) * steps if cuda else 0,
+                  gather_rows=3 * steps if cuda else 0,
+                  dist_step_keys=-(-steps // chunk) if cuda else 0)
+      for k, v in want.items():
+        assert ref['counts'][k] == v, ('multicard launches', k, ref['counts'])
+      rep['equal'] = {}
+      for name in out:
+        if name == 'captured':
+          continue
+        diff = max(float((ref['params'][k] - v).abs().max())
+                   for k, v in out[name]['params'].items())
+        same = (torch.equal(ref['losses'], out[name]['losses']) and
+                diff == 0.0)
+        rep['equal'][name] = dict(bit_equal=same, max_param_diff=diff)
+      rep['losses'] = ref['losses'].tolist()
+      cap = runs['captured']
+      rep['capture_ms'] = cap.capture_ms
+      st, _, _, ms, counts = dscan_epoch(torch, cap, states['captured'],
+                                         cuda)
+      states['captured'] = st
+      rep['ms_per_step'] = ms / steps
+      rep['eager_ms_per_step'] = out['eager']['ms'] / steps
+      if cuda:
+        def epoch():
+          states['captured'] = cap.run_epoch(states['captured'])[0]
+        prof = profiled(torch, epoch, 1, device, 'multicard captured epoch',
+                        warmup=epoch)
+        rep['idle_share'] = prof['idle_share']
+        rep['busy_ms_per_step'] = prof['device_busy_ms'] / steps
+      rep['steps'], rep['chunk'], rep['batch'] = steps, chunk, b
+    finally:
+      dist.destroy_process_group()
+    rep['ok'] = True
+  except BaseException:
+    rep = dict(rank=rank, ok=False, error=traceback.format_exc())
+  with open(os.path.join(outdir, f'rank{rank}.json'), 'w') as fh:
+    json.dump(rep, fh)
+  if not rep['ok']:
+    sys.exit(1)
+
+
+def multicard_epoch(torch, gtt, n_nodes, device, smi):
+  """The captured group epoch: one spawned rank per card (world 1 on one
+  card; two CPU ranks over gloo in a rehearsal), each running
+  ``multicard_rank``; every rank must finish, bit-equal."""
+  import multiprocessing as mp
+  import shutil
+  import tempfile
+  cuda = device.type == 'cuda'
+  world = torch.cuda.device_count() if cuda else 2
+  names = ([f'cuda:{r}' for r in range(world)] if cuda else ['cpu'] * world)
+  outdir = tempfile.mkdtemp(prefix='glt_multicard_')
+  t0 = time.perf_counter()
+  try:
+    ctx = mp.get_context('spawn')
+    port = gtt.utils.get_free_port()
+    procs = [ctx.Process(target=multicard_rank,
+                         args=(r, world, port, n_nodes, names, outdir, smi))
+             for r in range(world)]
+    for p in procs:
+      p.start()
+    deadline = time.perf_counter() + MC_TIMEOUT_S
+    for p in procs:
+      p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+      if p.is_alive():
+        p.kill()
+        p.join()
+    reps = []
+    for r in range(world):
+      path = os.path.join(outdir, f'rank{r}.json')
+      reps.append(json.load(open(path)) if os.path.exists(path) else
+                  dict(rank=r, ok=False, error='no report'))
+  finally:
+    shutil.rmtree(outdir, ignore_errors=True)
+  bad = [r for r in reps if not r.get('ok')]
+  assert not alive and not bad, (alive, [r.get('error') for r in bad])
+  for r in reps:
+    for name, eq in r['equal'].items():
+      assert eq['bit_equal'], (r['rank'], name, eq)
+  r0 = reps[0]
+  log(f'multicard group epoch: {world} rank(s) ({r0["backend"]}) on '
+      f'{names}, {r0["steps"]} steps of {r0["batch"]} seeds a shard in '
+      f'chunks of {r0["chunk"]}, captured {r0["captured"]}: bit-equal '
+      f'{ {k: v["bit_equal"] for k, v in r0["equal"].items()} }; '
+      f'{r0["ms_per_step"]:.3f} ms/step captured (eager epoch 1 '
+      f'{r0["eager_ms_per_step"]:.3f}), idle share '
+      f'{r0.get("idle_share", float("nan")):.1%}; launches '
+      f'{ {k: v for k, v in r0["launches"].items() if v} }; phase '
+      f'{time.perf_counter() - t0:.1f} s on {smi}')
+  return dict(world=world, devices=names, ranks=reps,
+              seconds=time.perf_counter() - t0)
+
+
+def multicard_phase(torch, gtt, feats, ds, pool, device, reps, smi):
+  """The several-card path: the group (every card; ``cuda:0`` twice on
+  one card) and each pair's peer-access verdict, then (a) the grouped
+  store at MC_SPLITS on a tree batch (``sharded_case``) and (b) the
+  captured group epoch (``multicard_epoch``)."""
+  cuda = device.type == 'cuda'
+  group, verdicts = multicard_group(torch, device)
+  count = torch.cuda.device_count() if cuda else 0
+  log(f'multicard: torch.cuda.device_count()={count}; group '
+      f'{[str(d) for d in group]}; peer access '
+      f'{verdicts or "none needed (one card named twice)"}')
+  assert all(verdicts.values()), verdicts
+  rate = pinned_rate(torch, device) if cuda else 1.0
+  rows = tree_batch_rows(torch, gtt, ds, np.arange(feats.shape[0]), pool,
+                         device)
+  rep = dict(device_count=count, group=[str(d) for d in group],
+             peer_access=verdicts, cases=[])
+  for split in MC_SPLITS:
+    rep['cases'].append(sharded_case(torch, gtt, feats, split, group, rows,
+                                     rows, device, reps, rate, smi))
+  rep['launch_runs'] = [c['lookup_launches'] for c in rep['cases']]
+  rep['epoch'] = multicard_epoch(torch, gtt, feats.shape[0], device, smi)
+  rep['launch_runs'] += [r['launches'] for r in rep['epoch']['ranks']]
+  rep['across_cards'] = count > 1
+  return rep
+
+
 def main(argv=None):
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--out', default=None, help='also write the report here')
@@ -10113,6 +10475,11 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('dist_more')
+  report['multicard'] = multicard_phase(torch, gtt, feats, ds, pool, device,
+                                        reps, smi)
+  if cuda:
+    torch.cuda.empty_cache()
+  phase_done('multicard')
   report['remote'] = remote_phase(torch, gtt, ds, cpu_ds, topo, feats,
                                   labels, device, smi)
   if cuda:
@@ -10153,6 +10520,9 @@ def main(argv=None):
   paths += [m['launches'] for m in report['dist']['modes'].values()]
   paths += report['dist_scan']['launch_runs']
   paths += report['dist_more']['launch_runs']
+  # the grouped store's lookups and each rank's captured group epoch (read
+  # in its own process)
+  paths += report['multicard']['launch_runs']
   # the remote phase's runs: its workers' (in their own processes, read
   # from their metric snapshots) and the server's serve RPCs'
   paths += report['remote']['launch_runs']
@@ -10197,6 +10567,7 @@ def main(argv=None):
   neg_rec = ktab['negative_sample'][0]
   nloc_rec = report['dist_more']['kernel']
   hc_rec = ktab['gather_unified'][0]
+  mc_rec = {c['kernel']: c for c in report['multicard']['cases']}
   line = {'kernels': [
       dict(name='gather_rows', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_rows.cu',
@@ -10273,6 +10644,25 @@ def main(argv=None):
            ms=hc_rec['ms'], plain_ms=hc_rec['plain_ms'],
            bound_ms=hc_rec['bound_ms'], bound_by=hc_rec['bound_by'],
            library_ms=None),
+      dict(name='gather_rows_sharded', route='cuda',
+           source='graphlearn_tpu_torch/csrc/gather_rows.cu',
+           replaces='graphlearn_tpu/ops/gather_pallas.py:47',
+           launches=launches['gather_rows_sharded'],
+           max_abs_err=mc_rec['gather_rows_sharded']['max_abs_err'],
+           ms=mc_rec['gather_rows_sharded']['ms'],
+           plain_ms=mc_rec['gather_rows_sharded']['plain_ms'],
+           bound_ms=mc_rec['gather_rows_sharded']['bound_ms'],
+           bound_by='bytes',
+           library_ms=mc_rec['gather_rows_sharded']['library_ms']),
+      dict(name='gather_unified_sharded', route='cuda',
+           source='graphlearn_tpu_torch/csrc/gather_unified.cu',
+           replaces='graphlearn_tpu/data/unified_tensor.py:131',
+           launches=launches['gather_unified_sharded'],
+           max_abs_err=mc_rec['gather_unified_sharded']['max_abs_err'],
+           ms=mc_rec['gather_unified_sharded']['ms'],
+           plain_ms=mc_rec['gather_unified_sharded']['plain_ms'],
+           bound_ms=mc_rec['gather_unified_sharded']['bound_ms'],
+           bound_by='bytes', library_ms=None),
       dict(name='gather_runs', route='cuda',
            source='graphlearn_tpu_torch/csrc/gather_runs.cu',
            replaces='graphlearn_tpu/ops/gather_pallas.py:196',

@@ -7,9 +7,19 @@ tail (``UnifiedTensor``); ``id2index`` carries the hotness reorder
 the most read rows. On a card a lookup with a host tail is one launch of
 the hot/cold kernel, which reads the cold rows over UVA.
 
-``DeviceGroup`` keeps JAX's fields. A one-device group places the hot
-block on that device; a larger group (a hot table sharded over several
-cards) needs more than one card and comes with the distributed slice.
+``DeviceGroup`` keeps JAX's fields and rules
+(``graphlearn_tpu/data/feature.py:122-140``). A one-device group places
+the hot block on that device. A larger group row-shards the hot block
+over its devices in equal blocks (``ops.ShardedRows``): a
+full split pads the block up to a multiple of the group size with zero
+rows (so ``device_table()`` stays usable), a mixed split rounds it down
+(the demoted rows stay on the host), and further groups are replicas,
+which placement across processes handles (as in JAX). Lookups run on the
+store's ``device`` (default: the group's first), each hot row read from
+its owner block by address: over NVLink from another card, the
+reference's peer-pointer design. Unlike JAX's mesh, a group may name one
+device more than once (each entry its own block): one card then runs the
+sharded layout and its kernels.
 """
 from typing import List, Optional, Sequence
 
@@ -17,7 +27,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
-from .unified_tensor import UnifiedTensor
+from .unified_tensor import RowSharding, UnifiedTensor
 
 
 def _fill_value(dtype):
@@ -39,6 +49,11 @@ class DeviceGroup:
   def size(self):
     return len(self.device_list)
 
+  def sharding(self) -> RowSharding:
+    """The row sharding of a hot block over this group, the first device
+    its home (``RowSharding.ranges(rows)``: the rows each device holds)."""
+    return RowSharding(self.device_list)
+
 
 class Feature:
   """2-D feature store with a hot/cold split.
@@ -49,9 +64,10 @@ class Feature:
     split_ratio: fraction of rows kept on the device (0 = all on the
       host, the JAX default; 1 = all on the device).
     device_group_list: optional ``DeviceGroup``s; the first places the
-      hot block (one device only).
-    device: torch device for the hot part and for lookups' results
-      (None means the card).
+      hot block (row-sharded over a group of several devices).
+    device: torch device for the hot part, or of a grouped store the
+      device that runs its lookups, and for lookups' results (None means
+      the group's first device, else the card).
     with_device: False keeps every row on the host.
     id2index: optional ``[N]`` old-id -> row map (the hotness reorder).
     dtype: optional storage dtype (e.g. ``torch.bfloat16``).
@@ -79,11 +95,6 @@ class Feature:
     self.device_group_list = device_group_list
     if device_group_list:
       group = device_group_list[0]
-      if group.size > 1:
-        raise NotImplementedError(
-            'a DeviceGroup of more than one device shards the hot table '
-            'over several cards; that comes with the distributed slice '
-            '(ROADMAP queue A item 7)')
       if group.device_list and device is None:
         device = group.device_list[0]
     self.device = resolve_device(device)
@@ -110,7 +121,9 @@ class Feature:
   def lazy_init(self):
     """Place the rows: the first ``H`` on the device, the rest on the
     host (``H`` from ``cache_rows``, else ``int(N * split_ratio)``; 0
-    without ``with_device``)."""
+    without ``with_device``). A group of several devices row-shards the
+    ``H`` rows over them, ``H`` padded up to a multiple of the group size
+    with zero rows when every row is hot, else rounded down to one."""
     if self._unified is not None:
       return
     n = self.feature_array.shape[0]
@@ -120,9 +133,26 @@ class Feature:
       hot = self.cache_rows
     else:
       hot = int(n * self.split_ratio)
-    self._unified = UnifiedTensor(self.device, self.dtype).init_from(
-        self.feature_array[:hot] if hot else None,
-        self.feature_array[hot:] if hot < n else None)
+    place = self.device
+    hot_block = self.feature_array[:hot] if hot else None
+    if self.device_group_list and self.device_group_list[0].size > 1:
+      group = self.device_group_list[0]
+      place = RowSharding(group.device_list, self.device)
+      rem = hot % group.size
+      if rem and hot == n:
+        pad = np.zeros((group.size - rem,) + self.feature_array.shape[1:],
+                       self.feature_array.dtype)
+        hot_block = np.concatenate([self.feature_array, pad])
+        hot += group.size - rem
+      elif rem:
+        hot -= rem
+        hot_block = self.feature_array[:hot] if hot else None
+    self._unified = UnifiedTensor(place, self.dtype).init_from(
+        hot_block, self.feature_array[hot:] if hot < n else None)
+    if place is not self.device:
+      # a grouped store's lookups run on the sharding's home, a card with
+      # its index: not whatever card is current when a lookup comes
+      self.device = self._unified.device
     if self._kernel_routing is not None:
       for k, v in self._kernel_routing.items():
         setattr(self._unified, k, v)
@@ -163,7 +193,9 @@ class Feature:
   def device_table(self):
     """``(feats, id2index)`` on the device when every row is there (the
     loaders' fused collate gathers from it), else None: a store with a
-    host part is read through ``__getitem__``."""
+    host part is read through ``__getitem__``. A grouped store's
+    ``feats`` is its ``ShardedRows`` (``ops.gather_rows_hbm`` routes it
+    to the sharded kernel)."""
     self.lazy_init()
     if self._unified.host_rows or self._unified.device_part is None:
       return None

@@ -33,6 +33,17 @@ Where JAX picks a fractional exchange's width under ``lax.cond`` with no
 host round trip, the port reads the overflow verdict on the host once
 per such exchange (a shape depends on it): ``verdict_syncs`` counts
 those reads.
+
+A process group's collectives are capture-safe: each is one NCCL call on
+device tensors with equal splits (no split lists, no host read, no
+``barrier``), and ``local_rows`` takes this rank's row as a view, so a
+``DistScanTrainer`` chunk records them into its CUDA graph. NCCL makes a
+communicator at its first collective, which a capture cannot do: the
+trainer's first chunk runs eagerly (its warm-up) on every rank.
+
+Torch's counterpart of JAX's one-process mesh over several chips is one
+rank per card (``init_multihost``, NCCL): ``init_worker_group`` keeps
+every shard on one device.
 """
 import enum
 from typing import Optional
@@ -137,13 +148,18 @@ class ShardMesh:
 
   def local_rows(self, x):
     """This process's rows of a per-shard array: ``x`` itself when it
-    has ``num_local`` rows, else its ``local_shards`` rows of all P."""
+    has ``num_local`` rows, else its ``local_shards`` rows of all P (a
+    rank's one row as a view: no index upload, which a capture could not
+    make)."""
     if x.shape[0] == self.num_local:
       return x
     if x.shape[0] != self.num_partitions:
       raise ValueError(f'{x.shape[0]} shard rows for a mesh of '
                        f'{self.num_partitions} shards ({self.num_local} '
                        'local)')
+    if self.num_local == 1:
+      r = self.local_shards[0]
+      return x[r:r + 1]
     return x[self.local_shards]
 
   def all_to_all(self, x, axis=None):
@@ -252,8 +268,11 @@ def init_worker_group(world_size: int = 1, rank: int = 0,
   if isinstance(devices, (list, tuple)):
     if len(devices) != 1:
       raise NotImplementedError(
-          'the one-process mesh holds every shard on one device; a '
-          'device group of several cards comes with a later slice')
+          f'init_worker_group(devices={list(devices)}): the one-process '
+          'mesh holds every shard on one device. Several cards run one '
+          'rank each: call init_multihost (NCCL) in one process per card, '
+          'as examples/dist_train_sage_supervised.py does on a machine '
+          'with several cards (--num-partitions one per card)')
     devices = devices[0]
   nparts = int(num_partitions or 1)
   mesh = ShardMesh(nparts, devices, shape=mesh_shape)

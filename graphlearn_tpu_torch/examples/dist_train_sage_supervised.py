@@ -14,11 +14,21 @@ gradient is summed by ``all_reduce`` after the backward of its loss over
 P. One JSON line: the first and final loss, the final train accuracy and
 the mean epoch time.
 
-Run on the card:   python -m graphlearn_tpu_torch.examples.dist_train_sage_supervised
-On the CPU:        ... --device cpu --num-nodes 4000 --num-partitions 4
+``--num-partitions`` defaults to JAX's rule, one partition per device.
+On a machine with several cards (``--device`` not given) the example runs
+one rank per card, torch's counterpart of JAX's one-process mesh over
+several chips: ``torch.multiprocessing`` spawns the ranks, each joins an
+NCCL group (``init_multihost`` on ``localhost``) and holds one shard, and
+rank 0 prints the line. With one card, or a named ``--device``, one
+process holds every partition on that device (one unless more are asked
+for).
+
+Run on the card(s): python -m graphlearn_tpu_torch.examples.dist_train_sage_supervised
+On the CPU:         ... --device cpu --num-nodes 4000 --num-partitions 4
 """
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -106,26 +116,11 @@ def dp_step(model, optimizer, batch, mesh, ncls: int = NUM_CLASSES):
                             shard_batches(stacked), mesh)
 
 
-def main(argv=None):
-  ap = argparse.ArgumentParser()
-  ap.add_argument('--epochs', type=int, default=2)
-  ap.add_argument('--num-nodes', type=int, default=20_000)
-  ap.add_argument('--avg-deg', type=int, default=12)
-  ap.add_argument('--batch-size', type=int, default=128)
-  ap.add_argument('--fanout', type=int, nargs='+', default=[10, 5])
-  ap.add_argument('--hidden', type=int, default=128)
-  ap.add_argument('--lr', type=float, default=3e-3)
-  ap.add_argument('--num-partitions', type=int, default=4)
-  ap.add_argument('--device', default=None,
-                  help="torch device (default: the card); 'cpu' to run on "
-                  'the CPU')
-  args = ap.parse_args(argv)
-
+def train(args, ctx):
+  """The example's epochs on the context's mesh: ``(first loss, final
+  loss, final accuracy, mean epoch s)``."""
   from graphlearn_tpu_torch import distributed as gdist
   from graphlearn_tpu_torch.models import create_train_state
-
-  ctx = gdist.init_worker_group(num_partitions=args.num_partitions,
-                                devices=args.device)
   mesh = ctx.mesh
   nparts = ctx.num_partitions
   rng = np.random.default_rng(0)
@@ -151,13 +146,83 @@ def main(argv=None):
     if mesh.device.type == 'cuda':
       torch.cuda.synchronize(mesh.device)
     epoch_times.append(time.perf_counter() - t0)
+  return (float(losses[0]), float(losses[-1]), float(accs[-1]),
+          float(np.mean(epoch_times)))
+
+
+def report(nparts: int, ranks: int, result):
+  first, final, acc, epoch_s = result
   print(json.dumps({
       'mesh_size': nparts,
-      'first_loss': round(float(losses[0]), 4),
-      'final_loss': round(float(losses[-1]), 4),
-      'final_train_acc': round(float(accs[-1]), 4),
-      'epoch_time_s': round(float(np.mean(epoch_times)), 3),
+      'ranks': ranks,
+      'first_loss': round(first, 4),
+      'final_loss': round(final, 4),
+      'final_train_acc': round(acc, 4),
+      'epoch_time_s': round(epoch_s, 3),
   }), flush=True)
+
+
+def rank_main(rank: int, world: int, port: int, devices, argv):
+  """One rank of the several-card run: joins the group of ``world`` ranks
+  on ``devices[rank]`` (NCCL on a card, gloo on the CPU), trains its
+  shard; rank 0 prints the line."""
+  import torch.distributed as dist
+  from graphlearn_tpu_torch import distributed as gdist
+  args = parse_args(argv)
+  ctx = gdist.init_multihost(f'localhost:{port}', world, rank,
+                             num_partitions=world, device=devices[rank])
+  try:
+    result = train(args, ctx)
+  finally:
+    dist.destroy_process_group()
+  if rank == 0:
+    report(world, world, result)
+
+
+def run_ranks(argv, devices) -> None:
+  """Spawn one rank per entry of ``devices`` (``rank_main``) and wait for
+  them; raises if one fails."""
+  import torch.multiprocessing as tmp
+  from graphlearn_tpu_torch.utils import get_free_port
+  tmp.spawn(rank_main, args=(len(devices), get_free_port(), list(devices),
+                             list(argv)), nprocs=len(devices), join=True)
+
+
+def parse_args(argv=None):
+  ap = argparse.ArgumentParser()
+  ap.add_argument('--epochs', type=int, default=2)
+  ap.add_argument('--num-nodes', type=int, default=20_000)
+  ap.add_argument('--avg-deg', type=int, default=12)
+  ap.add_argument('--batch-size', type=int, default=128)
+  ap.add_argument('--fanout', type=int, nargs='+', default=[10, 5])
+  ap.add_argument('--hidden', type=int, default=128)
+  ap.add_argument('--lr', type=float, default=3e-3)
+  ap.add_argument('--num-partitions', type=int, default=None,
+                  help='graph shards (default: one per device: the cards, '
+                  'or 1 on a named --device)')
+  ap.add_argument('--device', default=None,
+                  help="torch device (default: the cards, one rank each "
+                  "when there are several); 'cpu' to run on the CPU")
+  return ap.parse_args(argv)
+
+
+def main(argv=None):
+  argv = list(sys.argv[1:] if argv is None else argv)
+  args = parse_args(argv)
+  from graphlearn_tpu_torch import distributed as gdist
+  cards = (torch.cuda.device_count()
+           if args.device is None and torch.cuda.is_available() else 0)
+  if cards > 1:
+    nparts = args.num_partitions or cards
+    if nparts > cards:
+      raise SystemExit(f'--num-partitions {nparts} on {cards} cards: one '
+                       'rank holds one shard on its card; name a --device '
+                       'to stack partitions on one card')
+    run_ranks(argv, [f'cuda:{r}' for r in range(nparts)])
+    return
+  ctx = gdist.init_worker_group(num_partitions=args.num_partitions or 1,
+                                devices=args.device)
+  report(ctx.num_partitions, 1, train(args, ctx))
 
 
 if __name__ == '__main__':

@@ -113,8 +113,13 @@ fractional exchange width is chosen by a host read
 ``capture=True`` (the default on a card) every exchange must be full
 width (``bucket_frac=None`` on the loader and its ``DistFeature``), or
 the trainer refuses; ``capture=False`` runs the chunks eagerly with the
-per-step loop's counted verdicts. A process-group mesh (one shard per
-rank) runs eagerly only: the chunk's collectives are not captured.
+per-step loop's counted verdicts. Under an NCCL process group (one
+shard per rank, ``init_multihost``) the chunk's collectives (the hops'
+and the store's ``all_to_all_single``, the gradients' ``all_reduce``)
+are captured with it: every rank runs the same chunk lengths in the same
+order, so every rank captures the same graphs, and the first chunk runs
+eagerly on every rank, which makes NCCL's communicators before any
+capture. On the CPU (gloo) nothing is captured.
 
 Usage::
 
@@ -748,9 +753,10 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
     config: a tune artifact of topology 'dist' (or a local one),
       validated against the ``DistGraph``'s stacked-partition
       fingerprint; it gives the chunk size when ``chunk_size`` is None.
-    capture: one CUDA graph per chunk length (default: True on a card).
-      Needs full-width exchanges (``bucket_frac=None``) and a
-      one-process mesh; refused otherwise, never switched off silently.
+    capture: one CUDA graph per chunk length (default: True on a card),
+      on a one-process mesh or under an NCCL process group. Needs
+      full-width exchanges (``bucket_frac=None``) and a card; refused
+      otherwise, never switched off silently.
   """
 
   _NAME = 'DistScanTrainer'
@@ -785,11 +791,6 @@ class DistScanTrainer(DistFusedEpochTrainer, ScanTrainer):
             'which a CUDA graph cannot make. Build the loader and its '
             'DistFeature with bucket_frac=None (full-width exchanges), or '
             'pass capture=False to run the chunks eagerly')
-      if self.mesh.group is not None:
-        raise ValueError(
-            'capture=True on a process-group mesh: the chunk\'s '
-            'collectives (all_to_all_single, all_reduce) are not captured '
-            'into a CUDA graph; run it with capture=False')
       if not on_card:
         raise ValueError(f'capture=True needs a mesh on a CUDA device, got '
                          f'{device}: a CUDA graph captures the card\'s '

@@ -3,7 +3,9 @@ distributed engine), induction, gathers, collation, the exchange's
 routing (``route``) and stitching, the hop keys of a chunk of steps.
 
 The CUDA kernels (``gather_rows_hbm``, ``gather_rows_hbm2``, the hot/cold
-``gather_rows_unified``, the fused
+``gather_rows_unified``, their row-sharded entries ``gather_rows_sharded``
+and ``gather_rows_unified_sharded`` (a device group's table; ``peer``
+enables the cards' peer access), the fused
 hop ``sample_hop_fused``, the fused level ``sample_level_fused``, the
 chunk's ``step_keys`` and the distributed chunk's
 ``dist_step_keys``, the sampling backends' draw ``draw.uniform``, the
@@ -15,14 +17,17 @@ reads them (``sample_hop`` and ``sample_level`` name the two sampling
 kernels), ``reset_launch_counts`` sets them to 0 and
 ``add_launch_counts`` adds a recorded set (a CUDA graph's replay).
 """
-from . import (draw, gather, kernels, keys, mapped, negative, probes,
+from . import (draw, gather, kernels, keys, mapped, negative, peer, probes,
                sample_fused)
 from .collate import (collate_batch, gather_rows, stack2, stack2_batched,
                       valid_mask)
-from .gather import (apply_gather_plan, decode_gather_plan, gather_rows_hbm,
-                     gather_rows_hbm2, gather_rows_hbm2_plain,
-                     gather_rows_plain, gather_rows_unified,
-                     gather_rows_unified_plain, plan_gather_runs,
+from .gather import (ShardedRows, apply_gather_plan, decode_gather_plan,
+                     gather_rows_hbm, gather_rows_hbm2,
+                     gather_rows_hbm2_plain, gather_rows_plain,
+                     gather_rows_sharded, gather_rows_sharded_plain,
+                     gather_rows_unified, gather_rows_unified_plain,
+                     gather_rows_unified_sharded,
+                     gather_rows_unified_sharded_plain, plan_gather_runs,
                      plan_runs_in_tiles)
 from .induce import InducerState, induce_next, init_empty, init_node
 from .induce_map import MapInducerState, induce_next_map, init_node_map
@@ -61,6 +66,8 @@ _COUNTERS = {
     'gather_rows': (gather, 'launches'),
     'gather_runs': (gather, 'runs_launches'),
     'gather_unified': (gather, 'unified_launches'),
+    'gather_rows_sharded': (gather, 'sharded_launches'),
+    'gather_unified_sharded': (gather, 'unified_sharded_launches'),
     'sample_hop': (sample_fused, 'launches'),
     'sample_level': (sample_fused, 'level_launches'),
     'step_keys': (keys, 'launches'),

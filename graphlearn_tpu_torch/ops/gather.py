@@ -27,6 +27,17 @@ there and shipped padded to a power of two, scattered into the hot
 gather's output). Each v2 call bumps the reference's counter
 ``ops.gather_runs`` when it launches its kernel and
 ``ops.gather_fallbacks`` when it does not (CPU tensors, empty ids).
+
+The row-sharded gathers, ``gather_rows_sharded`` and
+``gather_rows_unified_sharded``: the hot rows of a store whose device
+group names several devices are S equal row blocks, block s on group
+device s (:class:`ShardedRows`). On a card each is one
+launch of the second entry of ``csrc/gather_rows.cu`` or
+``csrc/gather_unified.cu`` on the ids' card, which reads each row from
+its owner block through an ``[S]`` array of the blocks' base addresses
+(``ops.peer``), over NVLink for a block on another card. Their plain
+versions gather each block's rows on its own device, copy them to the
+ids' device and ``index_copy_`` them into place.
 """
 import time
 
@@ -34,12 +45,14 @@ import torch
 
 from .. import metrics
 from ..utils.trace import record_dispatch
-from . import kernels, mapped
+from . import kernels, mapped, peer
 
 # launches of the CUDA kernels (plain-version calls do not count)
 launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 runs_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 unified_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+sharded_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+unified_sharded_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -56,8 +69,13 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor):
     table: ``[N, F]`` float32 / bfloat16 / float16 / int32, contiguous.
     ids: ``[B]`` int32 or int64 on the table's device.
 
-  Returns ``[B, F]`` rows of ``table``'s dtype.
+  Returns ``[B, F]`` rows of ``table``'s dtype. A device group's
+  :class:`ShardedRows` (what a grouped store's ``device_table()`` gives)
+  goes to :func:`gather_rows_sharded`: one launch of the sharded entry on
+  a card.
   """
+  if isinstance(table, ShardedRows):
+    return gather_rows_sharded(table.shards, table.pointers, ids)
   if table.device.type == 'cpu' and ids.device.type == 'cpu':
     return gather_rows_plain(table, ids)
   _check(table, ids, 'gather_rows_hbm')
@@ -95,11 +113,16 @@ def gather_rows_unified_plain(hot: torch.Tensor, cold: torch.Tensor,
   copy (pinned, on a card) and scattered into place. With no hot rows
   (``H = 0``) the host rows are shipped whole and ``cold_cap`` is None,
   as in JAX."""
-  n_hot = hot.shape[0]
+  return _unified_plain(hot.shape[0], lambda r: hot.index_select(0, r),
+                        cold, ids, hot.device)
+
+
+def _unified_plain(n_hot: int, hot_gather, cold, ids, device):
+  """The mixed gather of :func:`gather_rows_unified_plain` over ``n_hot``
+  hot rows read by ``hot_gather(rows on device)``."""
   n = n_hot + cold.shape[0]
   r_dev = ids.clamp(0, n - 1).long()
   r = r_dev.cpu()
-  device = hot.device
 
   def ship(block):
     if device.type == 'cuda':
@@ -115,7 +138,7 @@ def gather_rows_unified_plain(hot: torch.Tensor, cold: torch.Tensor,
   cold_cap = min(b, max(1, next_pow2(n_cold)))
   block = cold.new_zeros((cold_cap, cold.shape[1]))
   block[:n_cold] = cold.index_select(0, r[cold_pos] - n_hot)
-  out = hot.index_select(0, torch.where(is_hot.to(device), r_dev, 0))
+  out = hot_gather(torch.where(is_hot.to(device), r_dev, 0))
   block = ship(block)
   out.index_copy_(0, cold_pos.to(device), block[:n_cold])
   return out, cold_cap
@@ -167,6 +190,188 @@ def gather_rows_unified(hot: torch.Tensor, cold: torch.Tensor,
   with kernels.COUNT_LOCK:
     unified_launches += 1
   return out
+
+
+# ------------------------------------------------------------ sharded
+
+
+def gather_rows_sharded_plain(shards, ids: torch.Tensor, device=None):
+  """``cat(shards)[clip(ids, 0, N-1)]`` in plain torch, ``N = S * R`` for
+  S blocks of R rows: for each block, ``index_select`` on its own device
+  of the rows it owns, a copy to ``device`` (default: the ids'), and an
+  ``index_copy_`` into the output."""
+  device = ids.device if device is None else torch.device(device)
+  rps = shards[0].shape[0]
+  r = ids.clamp(0, rps * len(shards) - 1).long().to(device)
+  out = torch.empty((r.shape[0], shards[0].shape[1]), dtype=shards[0].dtype,
+                    device=device)
+  owner = r // rps
+  for s, shard in enumerate(shards):
+    pos = torch.nonzero(owner == s).squeeze(1)
+    rows = shard.index_select(0, (r[pos] - s * rps).to(shard.device))
+    out.index_copy_(0, pos, rows.to(device))
+  return out
+
+
+def gather_rows_sharded(shards, pointers, ids: torch.Tensor):
+  """Rows of the virtual table ``cat(shards)`` at ``ids`` clamped to
+  ``[0, N)``.
+
+  Args:
+    shards: S contiguous ``[R, F]`` blocks of one dtype (block s holds
+      rows ``[s * R, (s + 1) * R)``), all on the CPU, or on cards that
+      the ids' card can read (``ops.peer.enable``); a card may hold
+      several.
+    pointers: ``[S]`` int64 on the ids' card, the blocks' base addresses
+      (``ops.peer.pointer_table``, made once); unused on the CPU.
+    ids: ``[B]`` int32 or int64.
+
+  Returns ``[B, F]`` on the ids' device. On CPU tensors this is
+  :func:`gather_rows_sharded_plain`; on a card it is one launch of the
+  sharded row-gather kernel or raises.
+  """
+  if ids.device.type == 'cpu' and all(
+      s.device.type == 'cpu' for s in shards):
+    return gather_rows_sharded_plain(shards, ids)
+  _check_shards(shards, pointers, ids, 'gather_rows_sharded')
+  global sharded_launches
+  ref = shards[0]
+  out = torch.empty((ids.shape[0], ref.shape[1]), dtype=ref.dtype,
+                    device=ids.device)
+  if ids.shape[0] == 0:
+    return out
+  err = kernels.lib('gather_rows').glt_gather_rows_sharded(
+      pointers.data_ptr(), len(shards), ref.shape[0], peer.bases_or(shards),
+      ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(),
+      ids.shape[0], ref.shape[1] * ref.element_size(),
+      ids.device.index or 0,
+      torch.cuda.current_stream(ids.device).cuda_stream)
+  kernels.check(err, 'gather_rows_sharded')
+  with kernels.COUNT_LOCK:
+    sharded_launches += 1
+  return out
+
+
+class ShardedRows:
+  """A device group's hot rows: S equal ``[R, F]`` blocks, block s on its
+  own device and holding rows ``[s * R, (s + 1) * R)``, read on
+  ``device`` (a card without an index: the current one). On a card the
+  pairs of cards get peer access (``peer.enable``; a pair that cannot
+  reach each other raises) and the ``[S]`` array of the blocks' base
+  addresses is made on ``device`` once, here, so a captured lookup
+  replays its launch. ``rows[ids]`` and :func:`gather_rows_hbm` are one
+  launch of :func:`gather_rows_sharded`, or its plain version on the CPU.
+
+  Pickled (a store's IPC handle), it travels as its blocks, each by its
+  own handle, and the receiver makes its own address array."""
+
+  def __init__(self, shards, device):
+    self.shards = list(shards)
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    self.device = device
+    ref = self.shards[0]
+    self.rows_per_shard = int(ref.shape[0])
+    self.shape = torch.Size((self.rows_per_shard * len(self.shards),
+                             ref.shape[1]))
+    self.dtype = ref.dtype
+    self.pointers = None
+    if self.device.type == 'cuda':
+      peer.enable([self.device] + [s.device for s in self.shards])
+      self.pointers = peer.pointer_table(self.shards, self.device)
+
+  def __getitem__(self, ids) -> torch.Tensor:
+    ids = torch.as_tensor(ids, device=self.device)
+    if ids.dtype not in (torch.int32, torch.int64):
+      ids = ids.to(torch.int64)
+    return gather_rows_sharded(self.shards, self.pointers, ids.contiguous())
+
+  def __reduce__(self):
+    return (ShardedRows, (self.shards, self.device))
+
+
+def gather_rows_unified_sharded_plain(shards, cold: torch.Tensor,
+                                      ids: torch.Tensor, device=None):
+  """``(rows, cold_cap)``: :func:`gather_rows_unified_plain` with the hot
+  part held as ``shards`` (read by :func:`gather_rows_sharded_plain`);
+  the output on ``device`` (default: the ids')."""
+  device = ids.device if device is None else torch.device(device)
+  return _unified_plain(
+      shards[0].shape[0] * len(shards),
+      lambda r: gather_rows_sharded_plain(shards, r, device), cold, ids,
+      device)
+
+
+def gather_rows_unified_sharded(shards, pointers, cold: torch.Tensor,
+                                ids: torch.Tensor):
+  """Rows of the virtual table ``cat([*shards, cold])`` at ``ids`` clamped
+  to ``[0, N)``: :func:`gather_rows_unified` with the hot part held as
+  ``shards`` (as :func:`gather_rows_sharded` takes them, with their
+  ``pointers``). ``cold`` as :func:`gather_rows_unified` takes it (mapped
+  for the ids' card). On CPU tensors this is
+  :func:`gather_rows_unified_sharded_plain`; on a card it is one launch
+  of the sharded hot/cold kernel or raises."""
+  if ids.device.type == 'cpu' and all(
+      s.device.type == 'cpu' for s in shards):
+    return gather_rows_unified_sharded_plain(shards, cold, ids)[0]
+  _check_shards(shards, pointers, ids, 'gather_rows_unified_sharded')
+  ref = shards[0]
+  n_cold = cold.shape[0]
+  if (cold.device.type != 'cpu' or cold.dim() != 2 or
+      cold.dtype != ref.dtype or cold.shape[1] != ref.shape[1] or
+      not cold.is_contiguous()):
+    raise ValueError('gather_rows_unified_sharded: cold must be contiguous '
+                     f'CPU rows of [*, {ref.shape[1]}] {ref.dtype}, got '
+                     f'{tuple(cold.shape)} {cold.dtype} on {cold.device}')
+  global unified_sharded_launches
+  out = torch.empty((ids.shape[0], ref.shape[1]), dtype=ref.dtype,
+                    device=ids.device)
+  if ids.shape[0] == 0:
+    return out
+  stream = torch.cuda.current_stream(ids.device)
+  cold_ptr = mapped.device_pointer(cold) if n_cold else None
+  err = kernels.lib('gather_unified').glt_gather_unified_sharded(
+      pointers.data_ptr(), len(shards), ref.shape[0], peer.bases_or(shards),
+      cold_ptr, ids.data_ptr(), int(ids.dtype == torch.int64),
+      out.data_ptr(), ref.shape[0] * len(shards) + n_cold, ids.shape[0],
+      ref.shape[1] * ref.element_size(), ids.device.index or 0,
+      stream.cuda_stream)
+  kernels.check(err, 'gather_unified_sharded')
+  if n_cold:
+    mapped.mark_used(cold, stream)
+  with kernels.COUNT_LOCK:
+    unified_sharded_launches += 1
+  return out
+
+
+def _check_shards(shards, pointers, ids, what):
+  if ids.device.type != 'cuda':
+    raise ValueError(f'{what}: ids on {ids.device} and shards on '
+                     f'{sorted({str(s.device) for s in shards})}; the kernel '
+                     'needs the ids on a CUDA device and every shard on a '
+                     'card')
+  ref = shards[0] if shards else None
+  if ref is None or ref.dim() != 2 or ref.dtype not in _ROW_DTYPES or \
+      ref.shape[0] == 0:
+    raise ValueError(f'{what}: shards must be non-empty 2-D blocks of '
+                     f'{_ROW_DTYPES}')
+  for s in shards:
+    if (s.device.type != 'cuda' or s.shape != ref.shape or
+        s.dtype != ref.dtype or not s.is_contiguous()):
+      raise ValueError(f'{what}: every shard must be a contiguous '
+                       f'{tuple(ref.shape)} {ref.dtype} block on a card, got '
+                       f'{tuple(s.shape)} {s.dtype} on {s.device}')
+  if (pointers is None or pointers.device != ids.device or
+      pointers.dtype != torch.int64 or
+      tuple(pointers.shape) != (len(shards),)):
+    raise ValueError(f'{what}: pointers must be the [{len(shards)}] int64 '
+                     f'shard addresses on {ids.device} '
+                     '(ops.peer.pointer_table)')
+  if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64) or \
+      not ids.is_contiguous():
+    raise ValueError(f'{what}: ids must be contiguous 1-D int32/int64, got '
+                     f'{tuple(ids.shape)} {ids.dtype}')
 
 
 # ------------------------------------------------------------------ v2

@@ -31,7 +31,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     'gather_rows': ('gather_rows.cu', {
-        'glt_gather_rows': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I)}),
+        'glt_gather_rows': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I),
+        'glt_gather_rows_sharded': ([_P, _L, _L, _L, _P, _I, _P, _L, _L, _I,
+                                     _P], _I),
+        'glt_enable_peer_access': ([_I, _I, _P], _I)}),
     'gather_runs': ('gather_runs.cu', {
         'glt_gather_runs': ([_P, _P, _I, _P, _P, _L, _L, _L, _L, _I, _I,
                              _P], _I)}),
@@ -57,6 +60,8 @@ SOURCES = {
     'gather_unified': ('gather_unified.cu', {
         'glt_gather_unified': ([_P, _P, _P, _I, _P, _L, _L, _L, _L, _I, _P],
                                _I),
+        'glt_gather_unified_sharded': ([_P, _L, _L, _L, _P, _P, _I, _P, _L,
+                                        _L, _L, _I, _P], _I),
         'glt_host_register': ([_P, _L, _I, _P, _P], _I),
         'glt_host_unregister': ([_P, _I], _I)}),
     'negative_sample': ('negative_sample.cu', {

@@ -3067,3 +3067,350 @@ def test_serving_engine_config_routes_k2(cuda):
                                     table[ids])
   batches = metrics.default_registry().counter_value('serving.batches') - b0
   assert ops.launch_counts()['gather_runs'] - before == batches == 3
+
+
+# ------------------------------------------------ several cards (a group)
+
+
+def _group(cuda, across):
+  """Every card, or ``cuda:0`` named three times (the sharded layout on
+  one card); ``across`` needs two cards or more and skips without."""
+  cards = torch.cuda.device_count()
+  if across:
+    if cards < 2:
+      pytest.skip('needs two cards or more (a group across cards)')
+    return [torch.device('cuda', i) for i in range(cards)]
+  return [torch.device('cuda', 0)] * 3
+
+
+@pytest.mark.parametrize('across', [False, True])
+@pytest.mark.parametrize('dtype,width', [
+    (torch.float32, 100), (torch.bfloat16, 100), (torch.float16, 3),
+    (torch.int32, 128)])
+@pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
+def test_gather_rows_sharded_kernel_matches_plain(cuda, across, dtype, width,
+                                                  id_dtype):
+  """The sharded K1 entry over a group (one card named three times, or
+  every card: rows read over NVLink) against its plain version and the
+  whole table, bit for bit, ids clamped; one launch, none for no ids."""
+  devices = _group(cuda, across)
+  gen = torch.Generator().manual_seed(width)
+  r = 333
+  table = (torch.randn((r * len(devices), width), generator=gen) * 100).to(
+      dtype)
+  shards = [table[i * r:(i + 1) * r].to(d, copy=True)
+            for i, d in enumerate(devices)]
+  home = torch.device('cuda', 0)
+  ops.peer.enable(devices)
+  ptrs = ops.peer.pointer_table(shards, home)
+  ids = torch.randint(-5, table.shape[0] + 5, (4099,), generator=gen).to(
+      id_dtype)
+  before = ops.launch_counts()['gather_rows_sharded']
+  got = ops.gather_rows_sharded(shards, ptrs, ids.to(home))
+  torch.cuda.synchronize()
+  assert got.device == home
+  assert torch.equal(got, ops.gather_rows_sharded_plain(shards,
+                                                        ids.to(home)))
+  assert torch.equal(got.cpu(), ops.gather_rows_plain(table, ids))
+  assert ops.launch_counts()['gather_rows_sharded'] == before + 1
+  empty = ops.gather_rows_sharded(shards, ptrs, ids[:0].to(home))
+  assert empty.shape == (0, width)
+  assert ops.launch_counts()['gather_rows_sharded'] == before + 1
+
+
+@pytest.mark.parametrize('across', [False, True])
+@pytest.mark.parametrize('rps,n_cold', [(300, 400), (1, 5), (50, 0)])
+def test_gather_unified_sharded_kernel_matches_plain(cuda, across, rps,
+                                                     n_cold):
+  """The sharded hot/cold entry (a group's shards, the tail mapped) against
+  its plain version (the JAX store's mixed gather over the shards) and the
+  whole table, bit for bit; one launch."""
+  from graphlearn_tpu_torch.ops import mapped
+  devices = _group(cuda, across)
+  gen = torch.Generator().manual_seed(rps)
+  n_hot = rps * len(devices)
+  table = torch.randn((n_hot + n_cold, 100), generator=gen)
+  shards = [table[i * rps:(i + 1) * rps].to(d, copy=True)
+            for i, d in enumerate(devices)]
+  home = torch.device('cuda', 0)
+  ops.peer.enable(devices)
+  ptrs = ops.peer.pointer_table(shards, home)
+  cold = mapped.empty((n_cold, 100), torch.float32)
+  cold.copy_(table[n_hot:])
+  if n_cold:
+    mapped.register(cold, home)
+  try:
+    ids = torch.randint(-3, table.shape[0] + 3, (2048,), generator=gen)
+    before = ops.launch_counts()['gather_unified_sharded']
+    got = ops.gather_rows_unified_sharded(shards, ptrs, cold, ids.to(home))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()['gather_unified_sharded'] == before + 1
+    want, _ = ops.gather_rows_unified_sharded_plain(shards, cold,
+                                                    ids.to(home))
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), ops.gather_rows_plain(table, ids))
+  finally:
+    if n_cold:
+      mapped.release(cold)
+
+
+@pytest.mark.parametrize('across', [False, True])
+@pytest.mark.parametrize('split', [1.0, 0.5])
+def test_grouped_feature_on_card_matches_cpu(cuda, across, split):
+  """A ``DeviceGroup`` store on the card against the same group of CPU
+  devices: rows equal (FILL pads, the pad rows of a padded full split,
+  the fill past them), one sharded launch a lookup and no host sync in
+  it; ``device_table()`` usable at the full split; the in-process IPC
+  round trip exact."""
+  devices = _group(cuda, across)
+  rng = np.random.default_rng(7)
+  feat = rng.standard_normal((1001, 16)).astype(np.float32)
+  store = gtt.data.Feature(feat, split_ratio=split, device_group_list=[
+      gtt.data.DeviceGroup(0, devices)])
+  host = gtt.data.Feature(feat, split_ratio=split, device_group_list=[
+      gtt.data.DeviceGroup(0, ['cpu'] * len(devices))])
+  store.lazy_init()
+  assert store.unified.sharded
+  ids_np = np.concatenate([rng.integers(0, 1001, 500),
+                           [-1, 0, 1000, 1001, 5000]]).astype(np.int64)
+  ids = torch.as_tensor(ids_np).to(store.device)
+  name = 'gather_rows_sharded' if split == 1.0 else 'gather_unified_sharded'
+  before = ops.launch_counts()[name]
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    got = store[ids]
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  torch.cuda.synchronize()
+  assert ops.launch_counts()[name] == before + 1
+  np.testing.assert_array_equal(got.cpu().numpy(), host[ids_np].numpy())
+  assert (store.device_table() is not None) == (split == 1.0)
+  clone = gtt.data.Feature.from_ipc_handle(store.share_ipc())
+  np.testing.assert_array_equal(clone[ids].cpu().numpy(), got.cpu().numpy())
+
+
+
+@pytest.mark.parametrize('across', [False, True])
+def test_grouped_store_leaves_the_current_device(cuda, across):
+  """Peer access between a group's cards and a grouped store given the
+  unindexed ``'cuda'`` (the current card) leave the calling thread's
+  current device as it was; the store's lookups then run on that card,
+  its index pinned, and their rows land there."""
+  devices = _group(cuda, across)
+  torch.cuda.set_device(0)
+  ops.peer.enable(devices)
+  assert torch.cuda.current_device() == 0
+  rng = np.random.default_rng(3)
+  feat = rng.standard_normal((301, 8)).astype(np.float32)
+  for split in (1.0, 0.5):
+    store = gtt.data.Feature(feat, split_ratio=split, device=cuda,
+                             device_group_list=[
+                                 gtt.data.DeviceGroup(0, devices)])
+    store.lazy_init()
+    assert torch.cuda.current_device() == 0
+    assert store.device == torch.device('cuda', 0)
+    ids = rng.integers(0, 301, 200)
+    got = store[ids]
+    torch.cuda.synchronize()
+    assert torch.cuda.current_device() == 0 and got.device == store.device
+    np.testing.assert_array_equal(got.cpu().numpy(), feat[ids])
+
+
+def _grouped_dataset(cuda, rng_seed, devices):
+  """A small graph's ``Dataset`` with its features in one table
+  (``devices`` None) or a full split row-sharded over ``devices``."""
+  rng = np.random.default_rng(rng_seed)
+  n, f, c = 2000, 16, 5
+  ei = np.stack([rng.integers(0, n, 30000), rng.zipf(1.5, 30000) % n])
+  feats = rng.standard_normal((n, f)).astype(np.float32)
+  ds = gtt.data.Dataset(device=cuda)
+  ds.init_graph(ei, num_nodes=n)
+  ds.init_node_features(feats, device_group_list=(
+      None if devices is None else [gtt.data.DeviceGroup(0, devices)]))
+  ds.init_node_labels(rng.integers(0, c, n))
+  return ds, feats, rng.permutation(n)
+
+
+@pytest.mark.parametrize('across', [False, True])
+def test_neighbor_loader_collates_a_grouped_store(cuda, across):
+  """The loader's fused collate over a grouped full split (2000 rows over
+  one card named three times, padded to 2001, or over every card): its
+  ``device_table()`` is the ``ShardedRows``, each batch one sharded
+  launch and no K1 launch, the rows bit-equal to the same loader's over
+  one table and to the features."""
+  devices = _group(cuda, across)
+  out = {}
+  for name, group in (('one', None), ('group', devices)):
+    ds, feats, perm = _grouped_dataset(cuda, 21, group)
+    assert (type(ds.node_features.device_table()[0]) is ops.ShardedRows) \
+        == (group is not None)
+    loader = gtt.loader.NeighborLoader(ds, [5, 4], perm[:150],
+                                       batch_size=48, shuffle=True, seed=3,
+                                       dedup='tree', device=cuda)
+    ops.reset_launch_counts()
+    out[name] = [b.x for b in loader]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts['gather_rows_sharded'] == (4 if group else 0), counts
+    assert counts['gather_rows'] == (0 if group else 4), counts
+  for a, b in zip(out['one'], out['group']):
+    assert torch.equal(a, b)
+  assert len(out['group']) == 4
+
+
+@pytest.mark.parametrize('across', [False, True])
+def test_scan_trainer_captured_over_a_grouped_store(cuda, across):
+  """A captured ScanTrainer whose features are a grouped full split (one
+  card named three times, 2000 rows padded to 2001, or every card)
+  against the same captured trainer over one table, from one start, for
+  three epochs of 4 steps of 48 seeds in chunks of 3: each step one
+  sharded launch in place of K1's (the replays counted), every other
+  count equal; a step's collated rows bit-equal; losses and parameters
+  within rtol 1e-4 (the backward's scatter atomics sum in no fixed
+  order); the third epoch (replays only) makes no host sync."""
+  from graphlearn_tpu_torch.models import train
+  torch.backends.cuda.matmul.allow_tf32 = False
+  devices = _group(cuda, across)
+  fanouts, b = [5, 4], 48
+  no, eo = train.tree_hop_offsets(b, fanouts)
+  runs = {}
+  for name, group in (('one', None), ('group', devices)):
+    ds, feats, perm = _grouped_dataset(cuda, 13, group)
+    loader = gtt.loader.NeighborLoader(ds, fanouts, perm[:3 * b + 20],
+                                       batch_size=b, shuffle=True, seed=3,
+                                       dedup='tree', device=cuda)
+    model = gtt.models.GraphSAGE(
+        16, 32, 5, num_layers=2, hop_node_offsets=no, hop_edge_offsets=eo,
+        tree_dense=True, fanouts=fanouts, device=cuda,
+        generator=torch.Generator().manual_seed(0))
+    t = gtt.loader.ScanTrainer(loader, model, 5, chunk_size=3,
+                               capture=True)
+    assert t.capture
+    runs[name] = [t, train.create_train_state(model), None]
+  for epoch in range(3):
+    counts = {}
+    for name, run in runs.items():
+      t, st, _ = run
+      ops.reset_launch_counts()
+      torch.cuda.synchronize()
+      if name == 'group' and epoch == 2:
+        torch.cuda.set_sync_debug_mode('error')
+      try:
+        st, losses, _ = t.run_epoch(st)
+      finally:
+        torch.cuda.set_sync_debug_mode('default')
+      torch.cuda.synchronize()
+      run[1], run[2] = st, losses
+      counts[name] = ops.launch_counts()
+    one, grp = counts['one'], counts['group']
+    assert grp['gather_rows_sharded'] == one['gather_rows'] == 4, grp
+    assert grp['gather_rows'] == one['gather_rows_sharded'] == 0
+    assert {k: v for k, v in grp.items()
+            if k not in ('gather_rows', 'gather_rows_sharded')} == \
+        {k: v for k, v in one.items()
+         if k not in ('gather_rows', 'gather_rows_sharded')}
+    torch.testing.assert_close(runs['group'][2], runs['one'][2], rtol=1e-4,
+                               atol=0)
+  tg, to = runs['group'][0], runs['one'][0]
+  assert sorted(tg._graphs) == [1, 3]
+  seeds, masks = tg._epoch_seeds(gtt.random.fold_in(tg._perm_key, 0), 4)
+  keys = gtt.random.step_keys_plain(
+      tg._sampler._key, torch.arange(1, 2, dtype=torch.int64), 2)[0]
+  rows = [t._sample_collate(seeds[0], masks[0], keys.to(seeds.device))[0]
+          ['x'] for t in (tg, to)]
+  assert torch.equal(rows[0], rows[1])
+  for a, b in zip(tg.model.parameters(), to.model.parameters()):
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+def _nccl_dist_scan(cuda, shape):
+  """Over a world-size-1 NCCL group (``init_multihost``; ``shape`` its
+  2-axis layout or None): a captured and an eager ``DistScanTrainer``
+  over the group's mesh and a captured one over the one-process mesh at
+  P = 1, from one start; 5 steps of 32 seeds (the last ragged) in chunks
+  of 2. Returns ``{name: (trainer, state)}`` and the group's teardown."""
+  import torch.distributed as dist
+
+  from graphlearn_tpu_torch import distributed as gdist
+  from graphlearn_tpu_torch.examples import dist_train_sage_supervised as ex
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs = _chip_smoke()
+  n, b = 4000, 32
+  ei, feats, labels = cs.make_graph(n, 10)
+  pb = np.zeros(n, dtype=np.int32)
+  parts, fparts = ex.partition_in_memory(ei, feats, pb, 1)
+  pool = np.random.default_rng(2).permutation(n)[:4 * b + 20]
+  ctx = gdist.init_multihost(f'localhost:{gtt.utils.get_free_port()}', 1,
+                             0, device=torch.device('cuda', 0),
+                             mesh_shape=shape)
+  assert dist.get_backend() == 'nccl'
+
+  def trainer(mesh, capture):
+    ds = gdist.DistDataset(1, 0, gdist.DistGraph(1, 0, parts, pb),
+                           gdist.DistFeature(1, fparts, pb, mesh,
+                                             split_ratio=0.1,
+                                             bucket_frac=None),
+                           node_labels=labels)
+    loader = gdist.DistNeighborLoader(ds, [5, 3], pool, batch_size=b,
+                                      shuffle=True, drop_last=False, seed=0,
+                                      mesh=mesh, dedup='tree',
+                                      bucket_frac=None)
+    model = ex.make_model(cs.FEAT_DIM, 32, cs.CLASSES, [5, 3], b, cuda,
+                          torch.Generator().manual_seed(0))
+    return (gtt.loader.DistScanTrainer(loader, model, cs.CLASSES,
+                                       chunk_size=2, capture=capture),
+            gtt.models.create_train_state(model))
+
+  runs = {'group_captured': trainer(ctx.mesh, None),
+          'group_eager': trainer(ctx.mesh, False),
+          'one_process': trainer(gdist.ShardMesh(1, cuda, shape=shape),
+                                 None)}
+  return runs, dist.destroy_process_group
+
+
+@pytest.mark.parametrize('shape', [None, (1, 1)])
+def test_dist_scan_captured_under_nccl_equals_eager_and_one_process(cuda,
+                                                                    shape):
+  """``DistScanTrainer`` under an NCCL group (capture on by default on a
+  card; flat, and the (1, 1) 2-axis layout with its subgroups): three
+  epochs, the captured group's losses and parameters bit-equal to the
+  eager group's and to the one-process mesh's captured epoch at P = 1;
+  the same launches; the third epoch (replays only) makes no host sync
+  but its one epoch-end publish."""
+  runs, teardown = _nccl_dist_scan(cuda, shape)
+  try:
+    cap = runs['group_captured'][0]
+    assert cap.capture and cap.mesh.group is not None
+    assert runs['one_process'][0].capture
+    assert not runs['group_eager'][0].capture
+    let_through = _publish_let_through(cap.loader)
+    states = {k: st for k, (_, st) in runs.items()}
+    for epoch in range(3):
+      losses, counts = {}, {}
+      for name, (t, _) in runs.items():
+        ops.reset_launch_counts()
+        strict = name == 'group_captured' and epoch == 2
+        torch.cuda.synchronize()
+        if strict:
+          torch.cuda.set_sync_debug_mode('error')
+        try:
+          states[name], losses[name], _ = t.run_epoch(states[name])
+        finally:
+          torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+      for name in ('group_eager', 'one_process'):
+        assert torch.equal(losses['group_captured'], losses[name]), \
+            (epoch, name)
+        assert counts[name] == counts['group_captured'], (epoch, name)
+      assert counts['group_captured']['sample_hop'] == 2 * 5
+      assert counts['group_captured']['gather_rows'] == 3 * 5
+      assert counts['group_captured']['dist_step_keys'] == 3
+    assert sorted(cap._graphs) == [1, 2]
+    assert len(let_through) == 3
+    ref = list(cap.model.parameters())
+    for name in ('group_eager', 'one_process'):
+      for a, b in zip(ref, runs[name][0].model.parameters()):
+        assert torch.equal(a, b), name
+  finally:
+    teardown()

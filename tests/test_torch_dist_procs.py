@@ -9,7 +9,8 @@ None, with edge ids) equal, exactly, the one-process ``ShardMesh``
 result for that shard, and one data-parallel step of the example (the
 gradients summed by ``all_reduce``) leaves the same parameters and loss
 as the one-process step, and an eager ``DistScanTrainer`` epoch equals
-the one-process epoch (``capture=True`` is refused on a group). So do
+the one-process epoch (on the CPU ``capture=True`` is refused: a CUDA
+graph needs a card; under NCCL the chunk is captured). So do
 a link batch (shard-local negatives), a typed batch of the two-type
 ring, a subgraph batch (the ``all_gather`` of the node keys) and node
 batches on the 2-axis layouts (2, 1) and (1, 2) (subgroups per slice and
@@ -172,7 +173,9 @@ def more_paths(mesh, parts, node_pb, edge_pb):
 def scan_epoch(mesh, parts, feats, node_pb, edge_pb):
   """An eager ``DistScanTrainer`` epoch over the ring (5 steps, chunks of
   2, the last step ragged): its losses and parameters; under a process
-  group, whether ``capture=True`` is refused for the group."""
+  group, whether ``capture=True`` is refused there (gloo on the CPU: a
+  CUDA graph needs a card), and whether ``local_rows`` takes the rank's
+  row as a view (no index upload inside a capture)."""
   out = {}
   df = gdist.DistFeature(P, feats, node_pb, mesh, split_ratio=0.25,
                          bucket_frac=None)
@@ -188,9 +191,16 @@ def scan_epoch(mesh, parts, feats, node_pb, edge_pb):
     try:
       gtt.loader.DistScanTrainer(loader, model, 3, chunk_size=2,
                                  capture=True)
-      out['group_refused'] = torch.tensor(False)
+      out['cpu_capture_refused'] = torch.tensor(False)
     except ValueError as e:
-      out['group_refused'] = torch.tensor('process-group' in str(e))
+      out['cpu_capture_refused'] = torch.tensor('CUDA device' in str(e))
+    rows = torch.arange(P * 3).reshape(P, 3)
+    mine = mesh.local_rows(rows)
+    out['local_rows_view'] = torch.tensor(
+        mine.untyped_storage().data_ptr() ==
+        rows.untyped_storage().data_ptr() and
+        mine.data_ptr() == rows[mesh.local_shards[0]].data_ptr() and
+        torch.equal(mine, rows[mesh.local_shards]))
   trainer = gtt.loader.DistScanTrainer(loader, model, 3, chunk_size=2)
   state = gtt.models.create_train_state(model, lr=1e-2)
   state, losses, _ = trainer.run_epoch(state)
@@ -273,11 +283,13 @@ def test_dp_step_all_reduce_equals_one_process(ranks, whole):
 
 def test_scanned_epoch_on_the_group_equals_one_process(ranks, whole):
   """One shard per rank, the gradients summed by ``all_reduce``: the
-  eager scanned epoch equals the one-process mesh's; ``capture=True`` is
-  refused on a group (its collectives are not captured)."""
+  eager scanned epoch equals the one-process mesh's; on the CPU (gloo)
+  ``capture=True`` is refused by its CPU rule (a CUDA graph needs a
+  card; under NCCL it captures), and a rank's rows are a view."""
   assert whole['scan/losses'].shape == (5,)
   for res in ranks:
-    assert bool(res['group_refused'])
+    assert bool(res['cpu_capture_refused'])
+    assert bool(res['local_rows_view'])
     torch.testing.assert_close(res['scan/losses'], whole['scan/losses'],
                                **TOL)
     for k, v in whole.items():
@@ -295,3 +307,20 @@ def test_link_typed_subgraph_and_hier_per_rank_equal_one_process(ranks,
     assert set(keys) <= set(res)
     for k in keys:
       assert torch.equal(res[k][0], whole[k][r]), k
+
+
+def test_example_one_rank_per_device_equals_one_process(capfd):
+  """The example's several-device route (one spawned rank per device,
+  ``init_multihost``; gloo here, NCCL on cards) trains the same P = 2
+  shards as one process holding both: the same line, but for ``ranks``."""
+  import json
+  argv = ['--num-nodes', '400', '--epochs', '1', '--batch-size', '16',
+          '--hidden', '8', '--fanout', '3', '2']
+  ex.run_ranks(argv, ['cpu', 'cpu'])
+  ranks = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+  ex.main(argv + ['--device', 'cpu', '--num-partitions', '2'])
+  whole = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+  assert ranks['mesh_size'] == whole['mesh_size'] == 2
+  assert ranks['ranks'] == 2 and whole['ranks'] == 1
+  for k in ('first_loss', 'final_loss', 'final_train_acc'):
+    assert abs(ranks[k] - whole[k]) <= 2e-4, (k, ranks[k], whole[k])

@@ -628,7 +628,17 @@ def test_example_dp_step_equals_jax_pmean_step():
 
 def test_example_main_runs_on_the_cpu(capsys):
   ex.main(['--device', 'cpu', '--num-nodes', '1000', '--epochs', '1',
-           '--batch-size', '32', '--hidden', '16'])
+           '--batch-size', '32', '--hidden', '16', '--num-partitions', '4'])
   import json
   line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
   assert line['mesh_size'] == 4 and np.isfinite(line['final_loss'])
+
+
+def test_example_defaults_to_one_partition_per_device(capsys):
+  """JAX's rule: one partition per device; a named device is one."""
+  ex.main(['--device', 'cpu', '--num-nodes', '400', '--epochs', '1',
+           '--batch-size', '32', '--hidden', '8'])
+  import json
+  line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+  assert line['mesh_size'] == 1 and line['ranks'] == 1
+  assert np.isfinite(line['final_loss'])

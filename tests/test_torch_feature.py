@@ -138,13 +138,6 @@ def test_device_group_of_one_places_the_hot_block():
   np.testing.assert_array_equal(store[ids].numpy(), feat[ids])
 
 
-def test_device_group_of_more_than_one_device_is_refused():
-  group = gtt.data.DeviceGroup(0, [CPU, CPU])
-  with pytest.raises(NotImplementedError, match='item 7'):
-    gtt.data.Feature(make_feat(), split_ratio=1.0, device_group_list=[group],
-                     device=CPU)
-
-
 @pytest.mark.parametrize('split_ratio', [0.0, 0.5, 1.0])
 def test_feature_ipc_roundtrip(split_ratio):
   feat = make_feat(10, 4)

@@ -173,7 +173,9 @@ def test_cpu_tensors_take_the_plain_path(no_gpu):
                                  'smem_take': 0, 'uniform_draw': 0,
                                  'negative_sample': 0,
                                  'negative_sample_local': 0,
-                                 'gather_unified': 0}
+                                 'gather_unified': 0,
+                                 'gather_rows_sharded': 0,
+                                 'gather_unified_sharded': 0}
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
@@ -204,6 +206,11 @@ def test_kernel_wrappers_refuse_mixed_devices():
   with pytest.raises(ValueError, match='CUDA'):
     ops.random_negative_sample_local(torch.zeros(2, dtype=torch.int32),
                                      indptr, ind.to('meta'), 4, 2, key)
+  shards = [torch.zeros((2, 2)), torch.zeros((2, 2))]
+  with pytest.raises(ValueError, match='CUDA'):
+    ops.gather_rows_sharded(shards, None, ids)
+  with pytest.raises(ValueError, match='CUDA'):
+    ops.gather_rows_unified_sharded(shards, None, torch.zeros((1, 2)), ids)
   assert ops.launch_counts() == {'gather_rows': 0, 'gather_runs': 0,
                                  'sample_hop': 0, 'sample_level': 0,
                                  'step_keys': 0, 'dist_step_keys': 0,
@@ -212,7 +219,9 @@ def test_kernel_wrappers_refuse_mixed_devices():
                                  'smem_take': 0, 'uniform_draw': 0,
                                  'negative_sample': 0,
                                  'negative_sample_local': 0,
-                                 'gather_unified': 0}
+                                 'gather_unified': 0,
+                                 'gather_rows_sharded': 0,
+                                 'gather_unified_sharded': 0}
 
 
 def test_every_kernel_source_is_built_and_has_a_plain_version():

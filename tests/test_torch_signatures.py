@@ -107,9 +107,6 @@ OTHER_DEFAULTS = {
     ('kernel_candidates', 'fused_hop_windows'): 'hops route by device',
 }
 MISSING_MEMBERS = {
-    # a group of more than one device is refused until the distributed
-    # slice (ROADMAP queue A item 7)
-    ('DeviceGroup', 'sharding'): 'multi-device groups: item 7',
     # placed at init: instance attributes, not lazy properties
     ('Graph', 'indptr'): 'an instance attribute in the port',
     ('Graph', 'indices'): 'an instance attribute in the port',
