@@ -371,22 +371,33 @@ Phases (any failure exits non-zero, and the result line is not printed):
    a batch. After shutdown no ring, no child process and no report of
    unreleased CUDA IPC handles in the server child's stderr.
 13. The hot/cold feature store. The card's pinned host-to-device rate
-   (a 256 MB copy). The hot/cold kernel (one launch: the device prefix
-   from HBM, the cold rows read over UVA from the mapped host tail) on
-   the storage rows of one [15, 10, 5] x 1024 tree batch over the
-   script's table reordered by in-degree (``sort_by_in_degree``), at
-   split 0.25 and with every row on the host, against its plain version,
-   the JAX store's design built in torch on the card (ids to the host,
-   the cold rows gathered there, a pinned copy, ``index_copy_``), bit
-   for bit; the cold share, and the bound: the larger of the HBM bytes
-   over 3.35 TB/s and the distinct cold rows' bytes over the measured
-   pinned rate. Then the papers-scale example's hot/cold mode
+   (a 256 MB copy), and, read only, where the mapped tail sits: the
+   card's NUMA node, this process's CPU affinity and those CPUs' nodes,
+   the nodes of the tail's pages (``/proc/self/numa_maps``) and whether
+   the read-only mapping was granted. The hot/cold kernel (one call: a
+   memset and two kernels; the device prefix from HBM, each distinct
+   cold row read once over UVA from the mapped host tail and copied on
+   the card to the other slots naming it) on the storage rows of one
+   [15, 10, 5] x 1024 tree batch over the script's table reordered by
+   in-degree (``sort_by_in_degree``), at split 0.25 and with every row
+   on the host, and on as many ids with no duplicate (a permutation of
+   the table's rows from the seed) at split 0.25, against its plain
+   version, the JAX store's design built in torch on the card (ids to
+   the host, the cold rows gathered there, a pinned copy,
+   ``index_copy_``), bit for bit; the kernel's fetch counter equal to
+   the distinct cold rows (``torch.unique``); three timings in the call
+   (each the median of 20); the cold share, the rate on distinct cold
+   bytes beside the pinned rate, and the bound: the larger of the HBM
+   bytes over 3.35 TB/s and the distinct cold rows' bytes over the
+   measured pinned rate. Then the papers-scale example's hot/cold mode
    (``examples/train_sage_papers_scale.py``, cut to 2M nodes with
    ``--hot-gb 0.4``: split ~0.42; block sampling [5, 5] at 256, 8 steps
    after the warm-up step): ms/step split into sample+collate and train,
    one hot/cold launch a step and no row-gather launch, the hot hit
    rate, 0 host syncs in the lookup (``count_syncs``), the peak memory,
-   the last step recomputed on the CPU. Then ``train_from_tables.py`` at
+   the last step recomputed on the CPU, and the kernel on the last
+   batch's rows timed three times with its fetch counter checked. Then
+   ``train_from_tables.py`` at
    its size (20,000 nodes, three edge tables, every feature row on the
    host): one epoch, every batch's ``x`` equal to the table's rows, one
    hot/cold and two hop launches a step; and the store rebuilt in this
@@ -446,7 +457,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    sharded hot/cold entry; the tail mapped): the store's lookup of one
    [15, 10, 5] x 1,024 tree batch's 937,984 ids (one sharded launch
    each, its rows the table's), then the kernel on those ids against its
-   plain version bit for bit, timed beside the one-table kernel (K1, or
+   plain version bit for bit (the sharded hot/cold entry's fetch counter
+   equal to the distinct cold rows; three timings), timed beside the
+   one-table kernel (K1, or
    the hot/cold kernel of an ungrouped store at the same split) and the
    shards' own ``index_select``, with the bound: the larger of the HBM
    bytes over 3.35 TB/s, the distinct remote rows' bytes over NVLink's
@@ -636,6 +649,14 @@ def timed(torch, fn, reps: int, device, setup=None):
       dev_times.append((time.perf_counter() - t0) * 1e3)
   call_times = call_times or dev_times
   return out, float(np.median(dev_times)), float(np.median(call_times))
+
+
+def timed3(torch, fn, reps: int, device):
+  """:func:`timed` three times in a row: ``(result, [device ms] * 3,
+  [call ms] * 3)``, so a spread inside one call shows apart from the
+  spread between calls."""
+  runs = [timed(torch, fn, reps, device) for _ in range(3)]
+  return runs[-1][0], [r[1] for r in runs], [r[2] for r in runs]
 
 
 def bound_ms(nbytes: int, ops: int = 0) -> float:
@@ -8922,6 +8943,8 @@ def remote_scan_phase(torch, gtt, topo, feats, labels, cpu_ds, device, smi):
 
 # ---- the hot/cold feature store
 HC_SPLIT = 0.25                      # the kernel case's device share
+HC_SEED = 25                         # the no-duplicate case's permutation
+HC_PLAIN_REPS = 5                    # its plain version's timed calls
 PINNED_BYTES = 256 << 20             # the pinned host-to-device copy
 # the papers-scale example cut from its 10M nodes (4.77 GB of features,
 # a 2 GB hot budget) to fit the script's time: the host build (draws,
@@ -8947,15 +8970,98 @@ def pinned_rate(torch, device):
   return PINNED_BYTES / (float(np.median(times)) * 1e-3)
 
 
+def mapped_tail_placement(torch, gtt, cold, smi):
+  """Where the hot/cold kernel's cold rows live, read only (nothing here
+  sets an affinity or a memory policy): the card's NUMA node (sysfs, by
+  the PCI address nvidia-smi gives, else torch's), this process's CPU
+  affinity and the NUMA nodes of those CPUs, the pages of the mapped
+  tail per NUMA node (``/proc/self/numa_maps`` over the mappings that
+  hold it) and whether the read-only mapping was granted. A field that
+  cannot be read is None."""
+  rec = {}
+  bus = None
+  try:
+    out = subprocess.run(
+        ['nvidia-smi', '-i', '0', '--query-gpu=pci.bus_id',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    if ':' in out:
+      dom, rest = out.lower().split(':', 1)
+      bus = f'{dom[-4:]}:{rest}'
+  except (OSError, subprocess.SubprocessError):
+    pass
+  if bus is None and torch.cuda.is_available():
+    p = torch.cuda.get_device_properties(0)
+    if hasattr(p, 'pci_bus_id'):
+      bus = (f'{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:'
+             f'{p.pci_device_id:02x}.0')
+  rec['pci_bus_id'] = bus
+
+  def read(path):
+    try:
+      with open(path) as fh:
+        return fh.read().strip()
+    except OSError:
+      return None
+  node = read(f'/sys/bus/pci/devices/{bus}/numa_node') if bus else None
+  rec['card_numa_node'] = int(node) if node is not None else None
+  cpus = sorted(os.sched_getaffinity(0))
+  rec['cpu_affinity'] = cpus
+  base = '/sys/devices/system/node'
+  cpu_nodes = {} if os.path.isdir(base) else None
+  for d in (sorted(os.listdir(base)) if cpu_nodes is not None else []):
+    if d.startswith('node') and d[4:].isdigit():
+      listed = read(f'{base}/{d}/cpulist') or ''
+      mine = set()
+      for part in filter(None, listed.split(',')):
+        lo, _, hi = part.partition('-')
+        mine.update(range(int(lo), int(hi or lo) + 1))
+      if mine & set(cpus):
+        cpu_nodes[int(d[4:])] = len(mine & set(cpus))
+  rec['affinity_cpus_per_node'] = cpu_nodes
+  pages = None
+  numa_maps = read('/proc/self/numa_maps')
+  if cold is not None and cold.numel() and numa_maps is not None:
+    lo = cold.data_ptr()
+    hi = lo + cold.numel() * cold.element_size()
+    starts = set()
+    for line in (read('/proc/self/maps') or '').splitlines():
+      a, b = (int(x, 16) for x in line.split()[0].split('-'))
+      if a < hi and lo < b:
+        starts.add(a)
+    pages = {}
+    for line in numa_maps.splitlines():
+      f = line.split()
+      if f and int(f[0], 16) in starts:
+        for tok in f[1:]:
+          if tok.startswith('N') and '=' in tok:
+            k, v = tok[1:].split('=')
+            pages[int(k)] = pages.get(int(k), 0) + int(v)
+  rec['tail_pages_per_node'] = pages
+  rec['read_only_mapping'] = (gtt.ops.mapped.lookup(cold).read_only
+                              if cold is not None and cold.numel() and
+                              torch.cuda.is_available() else None)
+  log(f'mapped tail placement: card {bus} on NUMA node '
+      f'{rec["card_numa_node"]}; CPU affinity {len(cpus)} CPUs '
+      f'(per node {cpu_nodes}); the tail\'s pages per node {pages}; '
+      f'read-only mapping {rec["read_only_mapping"]} on {smi}')
+  return rec
+
+
 def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
-                         reps, rate, smi):
-  """The hot/cold kernel on the storage rows ``rows`` of one tree batch
-  over the reordered ``[1M, 100]`` table at ``split``, against its plain
-  version (the JAX store's design on the card: ids to the host, the cold
-  rows gathered there, a pinned copy, ``index_copy_``), exact; the bound
-  the larger of the HBM bytes (ids, distinct hot rows, output) over
-  3.35 TB/s and the distinct cold rows' bytes over the measured pinned
-  rate. No PyTorch call reads mapped host memory: library_ms null."""
+                         reps, rate, smi, label='tree batch',
+                         plain_reps=None, placement=False):
+  """The hot/cold kernel on the storage rows ``rows`` (one tree batch's,
+  or as many with no duplicate) over the reordered ``[1M, 100]`` table
+  at ``split``, against its plain version (the JAX store's design on
+  the card: ids to the host, the cold rows gathered there, a pinned
+  copy, ``index_copy_``), exact; its fetch counter equal to the distinct
+  cold rows; three timings (each the median of ``reps``); the rate on
+  distinct cold bytes; the bound the larger of the HBM bytes (ids,
+  distinct hot rows, output) over 3.35 TB/s and the distinct cold rows'
+  bytes over the measured pinned rate; with ``placement``, where the
+  mapped tail sits (:func:`mapped_tail_placement`). No PyTorch call
+  reads mapped host memory: library_ms null."""
   import gc
 
   from graphlearn_tpu_torch import ops
@@ -8965,12 +9071,14 @@ def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
   ut = store.unified
   hot, cold = ut._hot(), ut.host_part
   h, n = hot.shape[0], ut.size
+  where = mapped_tail_placement(torch, gtt, cold, smi) if placement else None
   t0 = time.perf_counter()
-  got, ms, call_ms = timed(
+  got, ms_runs, call_runs = timed3(
       torch, lambda: ops.gather_rows_unified(hot, cold, rows), reps, device)
+  fetched = int(ops.gather.unified_fetches) if cuda else None
   ref, plain_ms, plain_call_ms = timed(
       torch, lambda: ops.gather_rows_unified_plain(hot, cold, rows)[0],
-      reps, device)
+      plain_reps or reps, device)
   if cuda:
     torch.cuda.synchronize()
   exact = bool(torch.equal(got, ref))
@@ -8982,25 +9090,36 @@ def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
       row + rows.numel() * row
   pcie = n_cold_u * row
   bound = max(hbm / H100_BYTES_PER_S, pcie / rate) * 1e3
+  ms, call_ms = float(np.median(ms_runs)), float(np.median(call_runs))
+  cold_rate = pcie / (ms * 1e-3) if cuda else None
   cold_share = float((rows >= h).float().mean())
-  rec = dict(split=split, hot_rows=h, ids=rows.numel(),
+  rec = dict(split=split, ids_from=label, hot_rows=h, ids=rows.numel(),
              cold_share=cold_share, distinct_cold_rows=n_cold_u,
-             exact=exact, max_abs_err=err, ms=ms, call_ms=call_ms,
+             fetched_rows=fetched, exact=exact, max_abs_err=err, ms=ms,
+             call_ms=call_ms, ms_runs=ms_runs, call_ms_runs=call_runs,
              plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              jax_design_ms=plain_call_ms, bound_ms=bound, bound_by='bytes',
-             hbm_bytes=hbm, cold_bytes=pcie, library_ms=None,
+             hbm_bytes=hbm, cold_bytes=pcie,
+             cold_bytes_per_s=cold_rate, pinned_bytes_per_s=rate,
+             library_ms=None,
              read_only_mapping=(gtt.ops.mapped.lookup(cold).read_only
                                 if cuda and cold is not None else None),
-             case_s=time.perf_counter() - t0)
-  log(f'kernel gather_unified split={split} (H={h} of {n}): ids='
-      f'{rows.numel()} cold share {cold_share:.4f} ({n_cold_u} distinct '
-      f'cold rows, {pcie / 1e6:.1f} MB) exact={exact} ms={ms:.4f} call_ms='
-      f'{call_ms:.4f}; plain (the JAX design: sync, host gather, pinned '
-      f'copy, index_copy_) ms={plain_ms:.4f} call_ms={plain_call_ms:.4f}; '
-      f'bound_ms={bound:.4f} (HBM {hbm / 1e6:.1f} MB, PCIe at '
-      f'{rate / 1e9:.2f} GB/s); read-only mapping '
-      f'{rec["read_only_mapping"]} on {smi}')
+             placement=where, case_s=time.perf_counter() - t0)
+  log(f'kernel gather_unified split={split} on the {label} (H={h} of {n}): '
+      f'ids={rows.numel()} cold share {cold_share:.4f} ({n_cold_u} '
+      f'distinct cold rows, {pcie / 1e6:.1f} MB; fetched {fetched}) '
+      f'exact={exact} ms={ms:.4f} (runs '
+      + ' '.join(f'{t:.4f}' for t in ms_runs) + ') call_ms='
+      f'{call_ms:.4f}; distinct cold bytes at '
+      + (f'{cold_rate / 1e9:.2f}' if cuda else '-') +
+      f' GB/s beside the pinned {rate / 1e9:.2f} GB/s; plain (the JAX '
+      f'design: sync, host gather, pinned copy, index_copy_) ms='
+      f'{plain_ms:.4f} call_ms={plain_call_ms:.4f}; bound_ms={bound:.4f} '
+      f'(HBM {hbm / 1e6:.1f} MB, PCIe at {rate / 1e9:.2f} GB/s); read-only '
+      f'mapping {rec["read_only_mapping"]} on {smi}')
   assert exact, f'gather_unified split={split}: kernel != plain version'
+  assert not cuda or fetched == n_cold_u, (
+      'gather_unified fetched', fetched, 'distinct cold rows', n_cold_u)
   del store, ut, hot, cold, got, ref
   gc.collect()
   return rec
@@ -9109,22 +9228,33 @@ def papers_path(torch, gtt, device, smi, rate):
   node = nodes[-1]
   rows = torch.where(node < 0, 0, i2i[node.clamp(min=0).long()]).contiguous()
   ut = feat.unified
-  got, ms, call_ms = timed(
+  got, ms_runs, call_runs = timed3(
       torch, lambda: ops.gather_rows_unified(ut._hot(), ut.host_part, rows),
       REPS if cuda else 2, device)
+  fetched = int(ops.gather.unified_fetches) if cuda else None
   ref, plain_ms, plain_call_ms = timed(
       torch, lambda: ops.gather_rows_unified_plain(ut._hot(), ut.host_part,
                                                    rows)[0],
       REPS if cuda else 2, device)
   assert torch.equal(got, ref), 'gather_unified != plain at the path shape'
+  h = ut._hot().shape[0]
+  uniq = torch.unique(rows.clamp(0, ut.size - 1))
+  n_cold_u = int((uniq >= h).sum())
+  assert not cuda or fetched == n_cold_u, (
+      'papers lookup fetched', fetched, 'distinct cold rows', n_cold_u)
+  ms, call_ms = float(np.median(ms_runs)), float(np.median(call_runs))
   rec['lookup'] = dict(ids=rows.numel(), ms=ms, call_ms=call_ms,
+                       ms_runs=ms_runs, call_ms_runs=call_runs,
                        plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-                       cold_share=float((rows >= ut._hot().shape[0]).float()
-                                        .mean()), exact=True)
+                       distinct_cold_rows=n_cold_u, fetched_rows=fetched,
+                       cold_share=float((rows >= h).float().mean()),
+                       exact=True)
   log(f'papers lookup of one batch ({rows.numel()} rows, cold share '
-      f'{rec["lookup"]["cold_share"]:.4f}): kernel ms={ms:.4f} call_ms='
-      f'{call_ms:.4f}, plain (the JAX design) call_ms={plain_call_ms:.4f}, '
-      'exact')
+      f'{rec["lookup"]["cold_share"]:.4f}, {n_cold_u} distinct cold rows, '
+      f'fetched {fetched}): kernel ms={ms:.4f} (runs '
+      + ' '.join(f'{t:.4f}' for t in ms_runs) + '; the one-warp-a-slot '
+      f'kernel read 0.0096) call_ms={call_ms:.4f}, plain (the JAX design) '
+      f'call_ms={plain_call_ms:.4f}, exact')
   if cuda:
     # the lookup of one more batch's nodes under sync counting: 0
     ds.node_features[node]
@@ -9217,9 +9347,17 @@ def hot_cold_phase(torch, gtt, ds, topo, feats, pool, device, reps, smi):
   re, id2index = gtt.data.sort_by_in_degree(feats, HC_SPLIT, topo)
   rows = tree_batch_rows(torch, gtt, ds, id2index, pool, device)
   rep['kernel'] = [hot_cold_kernel_case(torch, gtt, re, id2index, rows,
-                                        split, device, reps, rate, smi)
+                                        split, device, reps, rate, smi,
+                                        placement=split == HC_SPLIT)
                    for split in (HC_SPLIT, 0.0)]
-  del re, rows
+  # as many ids with no duplicate: what the table costs when nothing
+  # dedups (the plain version moves ~0.3 GB a call: fewer timed calls)
+  distinct = torch.as_tensor(np.random.default_rng(HC_SEED).permutation(
+      re.shape[0])[:rows.numel()]).to(device)
+  rep['kernel'].append(hot_cold_kernel_case(
+      torch, gtt, re, id2index, distinct, HC_SPLIT, device, reps, rate, smi,
+      label='permutation (no duplicate)', plain_reps=HC_PLAIN_REPS))
+  del re, rows, distinct
   rep['papers'] = papers_path(torch, gtt, device, smi, rate)
   rep['tables'] = tables_path(torch, gtt, device, smi)
   return rep
@@ -10014,7 +10152,10 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
 
     def one_table():
       return ops.gather_rows_hbm(table, rows)
-  got, ms, call_ms = timed(torch, kern, reps, device)
+  got, ms_runs, call_runs = timed3(torch, kern, reps, device)
+  fetched = (int(ops.gather.unified_sharded_fetches)
+             if cuda and ut.host_rows else None)
+  ms, call_ms = float(np.median(ms_runs)), float(np.median(call_runs))
   ref, plain_ms, plain_call_ms = timed(torch, plain, reps, device)
   _, k1_ms, k1_call_ms = timed(torch, one_table, reps, device)
   # the library yardstick: each shard's index_select of the rows it owns
@@ -10045,7 +10186,8 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
   rec = dict(split=split, group=[str(d) for d in group], kernel=name,
              hot_rows=n_hot, rows_per_shard=rps, ids=rows.numel(),
              remote_distinct_rows=remote_u, distinct_cold_rows=n_cold_u,
-             exact=exact, max_abs_err=err, ms=ms, call_ms=call_ms,
+             fetched_rows=fetched, exact=exact, max_abs_err=err, ms=ms,
+             call_ms=call_ms, ms_runs=ms_runs, call_ms_runs=call_runs,
              plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              one_table_ms=k1_ms, one_table_call_ms=k1_call_ms,
              bound_ms=bound, bound_by='bytes',
@@ -10054,12 +10196,16 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
              case_s=time.perf_counter() - t0)
   log(f'multicard {name} split={split} over {rec["group"]} ({rps} rows a '
       f'shard, {n_hot} hot of {ut.size}): ids={rows.numel()} exact={exact} '
-      f'ms={ms:.4f} call_ms={call_ms:.4f}; plain ms={plain_ms:.4f}; '
+      f'ms={ms:.4f} (runs ' + ' '.join(f'{t:.4f}' for t in ms_runs) +
+      f') call_ms={call_ms:.4f}; plain ms={plain_ms:.4f}; '
       f'the one-table kernel ms={k1_ms:.4f}; the shards\' index_select '
       f'ms={lib_ms:.4f}; bound_ms={bound:.4f} (HBM {hbm / 1e6:.1f} MB, '
-      f'{remote_u} distinct remote rows, {n_cold_u} distinct cold rows); '
-      f'the store\'s lookup launched {launches[name]} on {smi}')
+      f'{remote_u} distinct remote rows, {n_cold_u} distinct cold rows, '
+      f'fetched {fetched}); the store\'s lookup launched {launches[name]} '
+      f'on {smi}')
   assert exact, f'{name} split={split}: kernel != plain version'
+  assert fetched is None or fetched == n_cold_u, (
+      name, 'fetched', fetched, 'distinct cold rows', n_cold_u)
   del store, ut, part, shards, cold, got, ref, looked
   gc.collect()
   return rec

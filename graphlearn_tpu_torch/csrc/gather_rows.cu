@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_restore.cuh"
+
 namespace {
 
 template <typename V, typename I>
@@ -93,6 +95,7 @@ extern "C" int glt_gather_rows(const void* table, const void* ids, int ids_64,
                                void* out, long long n_rows, long long n_ids,
                                long long row_bytes, int device,
                                void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_ids == 0) return 0;
@@ -109,20 +112,6 @@ extern "C" int glt_gather_rows(const void* table, const void* ids, int ids_64,
 }
 
 namespace {
-
-// Restores the calling thread's current device when the entry returns: the
-// entries below set the device they launch on or configure, and a caller
-// that left an unindexed 'cuda' device (the current one) must find it
-// unchanged.
-struct DeviceRestore {
-  int prev = -1;
-  DeviceRestore() {
-    if (cudaGetDevice(&prev) != cudaSuccess) prev = -1;
-  }
-  ~DeviceRestore() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 // Rows are n_rows / rows_per_shard equal blocks; `shards` is a device array
 // of their base addresses (on this card or its peers).
@@ -201,7 +190,7 @@ extern "C" int glt_gather_rows_sharded(const void* shards, long long n_shards,
                                        int ids_64, void* out, long long n_ids,
                                        long long row_bytes, int device,
                                        void* stream) {
-  DeviceRestore restore;
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_ids == 0) return 0;
@@ -228,7 +217,7 @@ extern "C" int glt_gather_rows_sharded(const void* shards, long long n_shards,
 // enabled before (by this library or by PyTorch's copies) is not an error.
 // The caller's current device is left as it was.
 extern "C" int glt_enable_peer_access(int device, int peer, int* can) {
-  DeviceRestore restore;
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceCanAccessPeer(can, device, peer);

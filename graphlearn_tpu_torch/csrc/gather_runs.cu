@@ -46,6 +46,8 @@
 
 #include <mutex>
 
+#include "device_restore.cuh"
+
 namespace {
 
 constexpr int kMaxDevices = 64;
@@ -321,6 +323,7 @@ extern "C" int glt_gather_runs(const void* table, const void* ids, int ids_64,
                                long long n_out, long long row_bytes,
                                long long block_rows, int span, int device,
                                void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_out == 0) return 0;

@@ -53,6 +53,7 @@
 #include <stdint.h>
 
 #include "csr_pick.cuh"
+#include "device_restore.cuh"
 
 namespace {
 
@@ -219,6 +220,7 @@ extern "C" int glt_negative_sample(const void* key, const void* indptr,
                                    long long span_c, long long total,
                                    void* rows, void* cols, void* valid,
                                    int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (total < 0 || n_ptr < 1 || n_edges < 0 || span_r < 1 || span_c < 1 ||
@@ -250,6 +252,7 @@ extern "C" int glt_negative_sample_local(
     const void* indptr, long long n_ptr, const void* indices,
     long long n_edges, long long span_c, long long total, void* rows,
     void* cols, void* valid, void* count_out, int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (total < 0 || n_row_ids < 0 || n_ptr < 1 || n_edges < 0 ||

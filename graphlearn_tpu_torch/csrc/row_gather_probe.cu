@@ -51,6 +51,8 @@
 
 #include <mutex>
 
+#include "device_restore.cuh"
+
 namespace {
 
 constexpr int kMaxDevices = 64;
@@ -378,6 +380,7 @@ extern "C" int glt_row_gather_probe(const void* table, const void* ids,
                                     int ids_64, void* out, long long n_rows,
                                     long long n_ids, long long row_bytes,
                                     int bulk, int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_ids == 0) return 0;

@@ -32,6 +32,7 @@
 #include <stdint.h>
 
 #include "csr_pick.cuh"
+#include "device_restore.cuh"
 
 namespace {
 
@@ -76,6 +77,7 @@ extern "C" int glt_sample_hop_fused(const void* seeds, const void* seed_mask,
                                     const void* key, long long n_seeds, int k,
                                     void* nbrs, void* epos, void* mask,
                                     int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_seeds == 0 || k == 0) return 0;

@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "csr_pick.cuh"
+#include "device_restore.cuh"
 
 namespace {
 
@@ -383,6 +384,7 @@ extern "C" int glt_level_begin(void* scratch, long long n_nodes,
                                long long capacity, const void* nodes,
                                long long prefix_len, const void* num_nodes,
                                int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_nodes <= 0 || n_nodes > 0x7fffffffLL || capacity < 0 ||
@@ -421,6 +423,7 @@ extern "C" int glt_level_run(void* scratch, long long n_nodes,
                              void* erows, void* emask, void* frontier,
                              void* frontier_idx, void* frontier_mask,
                              void* counts, int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_cand = n_frontier * k;

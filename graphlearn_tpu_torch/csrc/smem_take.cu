@@ -45,6 +45,8 @@
 
 #include <mutex>
 
+#include "device_restore.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -171,6 +173,7 @@ cudaError_t setup(int device, int* sms) {
 extern "C" int glt_smem_take(const void* table, long long tn, const void* idx,
                              void* out, long long n, int cluster, int device,
                              void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;

@@ -39,6 +39,7 @@
 #include <stdint.h>
 
 #include "csr_pick.cuh"
+#include "device_restore.cuh"
 
 namespace {
 
@@ -99,6 +100,7 @@ __global__ void dist_step_keys_kernel(const long long* __restrict__ base_key,
 extern "C" int glt_step_keys(const void* base_key, const void* counter,
                              int n_steps, int n_hops, void* out, int device,
                              void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_steps < 0 || n_hops < 0) {
@@ -123,6 +125,7 @@ extern "C" int glt_step_keys(const void* base_key, const void* counter,
 extern "C" int glt_dist_step_keys(const void* base_key, const void* counter,
                                   int n_steps, int n_parts, int n_hops,
                                   void* out, int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_steps < 0 || n_parts < 0 || n_hops < 0) {

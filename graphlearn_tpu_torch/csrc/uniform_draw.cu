@@ -29,6 +29,7 @@
 #include <stdint.h>
 
 #include "csr_pick.cuh"
+#include "device_restore.cuh"
 
 namespace {
 
@@ -57,6 +58,7 @@ __global__ void uniform_draw_kernel(const long long* __restrict__ key,
 // `stream` and returns cudaGetLastError() of the launch (0 when n == 0).
 extern "C" int glt_uniform_draw(const void* key, long long n, void* out,
                                 int device, void* stream) {
+  glt::DeviceRestore restore;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -20,13 +20,19 @@ On CPU tensors both wrappers run their plain versions. Both clamp ids to
 
 The hot/cold gather, ``gather_rows_unified``: rows ``[0, H)`` of a table
 on the card and rows ``[H, N)`` in host memory. On a card the wrapper
-makes one launch of ``csrc/gather_unified.cu``, which reads the cold rows
-over UVA from the mapped host tail (``ops.mapped``); the plain version
-is the JAX store's mixed gather (ids to the host, the cold rows gathered
-there and shipped padded to a power of two, scattered into the hot
-gather's output). Each v2 call bumps the reference's counter
-``ops.gather_runs`` when it launches its kernel and
-``ops.gather_fallbacks`` when it does not (CPU tensors, empty ids).
+makes one call of ``csrc/gather_unified.cu`` (a memset and two kernels
+on the caller's stream), which reads each distinct cold row once over
+UVA from the mapped host tail (``ops.mapped``) and copies it on the card
+to every other slot that names it; the wrapper allocates the kernel's
+scratch (a hash table of the cold rows and a duplicate list) on the ids'
+card. The number of distinct cold rows the last call read stays on the
+card in ``unified_fetches`` (``unified_sharded_fetches`` for the sharded
+entry), for those who ask. The plain version is the JAX store's mixed
+gather (ids to the host, the cold rows gathered there and shipped padded
+to a power of two, scattered into the hot gather's output). Each v2 call
+bumps the reference's counter ``ops.gather_runs`` when it launches its
+kernel and ``ops.gather_fallbacks`` when it does not (CPU tensors, empty
+ids).
 
 The row-sharded gathers, ``gather_rows_sharded`` and
 ``gather_rows_unified_sharded``: the hot rows of a store whose device
@@ -53,6 +59,10 @@ runs_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 unified_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 sharded_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
 unified_sharded_launches = 0  # graftlint: shared[kernels.COUNT_LOCK]
+# the last hot/cold call's distinct cold rows, a [1] int64 tensor on its
+# card (None before the first call); never read back on the path
+unified_fetches = None  # graftlint: shared[kernels.COUNT_LOCK]
+unified_sharded_fetches = None  # graftlint: shared[kernels.COUNT_LOCK]
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
@@ -144,6 +154,31 @@ def _unified_plain(n_hot: int, hot_gather, cold, ids, device):
   return out, cold_cap
 
 
+# the hot/cold kernel keys its table by cold row and records slots in 32
+# bits: the cold part and the ids of one call stay below 2**31
+MAX_UNIFIED_ROWS = 2**31 - 1
+
+
+def unified_scratch(n_ids: int, n_cold: int, what: str):
+  """``(cap, words)``: the hot/cold kernel's hash table capacity (a power
+  of two at least twice the cold rows a call of ``n_ids`` ids can name,
+  0 with no cold part) and its scratch size in 32-bit words (two
+  counters, the keys and winning slots of the table, a duplicate list of
+  ``n_ids`` pairs). Raises, naming the count, past the kernel's 32-bit
+  keys and slots."""
+  if n_cold > MAX_UNIFIED_ROWS:
+    raise ValueError(f'{what}: the host part has {n_cold} rows; the kernel '
+                     f'keys cold rows in 32 bits (at most '
+                     f'{MAX_UNIFIED_ROWS})')
+  if n_ids > MAX_UNIFIED_ROWS:
+    raise ValueError(f'{what}: {n_ids} ids in one call; the kernel records '
+                     f'slots in 32 bits (at most {MAX_UNIFIED_ROWS})')
+  if n_cold == 0:
+    return 0, 2
+  cap = max(2, next_pow2(2 * min(n_ids, n_cold)))
+  return cap, 2 + 2 * cap + 2 * n_ids
+
+
 def gather_rows_unified(hot: torch.Tensor, cold: torch.Tensor,
                         ids: torch.Tensor):
   """Rows of the virtual table ``cat([hot, cold])`` at ``ids`` clamped to
@@ -156,8 +191,8 @@ def gather_rows_unified(hot: torch.Tensor, cold: torch.Tensor,
     ids: ``[B]`` int32 or int64 on ``hot``'s device.
 
   Returns ``[B, F]`` on ``hot``'s device. On CPU tensors this is
-  :func:`gather_rows_unified_plain`; on a card it is one launch of the
-  kernel (no host sync) or raises.
+  :func:`gather_rows_unified_plain`; on a card it is one call of the
+  kernel (no host sync; each distinct cold row read once) or raises.
   """
   if hot.device.type == 'cpu' and ids.device.type == 'cpu':
     return gather_rows_unified_plain(hot, cold, ids)[0]
@@ -172,23 +207,27 @@ def gather_rows_unified(hot: torch.Tensor, cold: torch.Tensor,
   n = hot.shape[0] + n_cold
   if n == 0 and ids.shape[0] > 0:
     raise ValueError('gather_rows_unified: gather from an empty table')
-  global unified_launches
+  cap, words = unified_scratch(ids.shape[0], n_cold, 'gather_rows_unified')
+  global unified_launches, unified_fetches
   out = torch.empty((ids.shape[0], hot.shape[1]), dtype=hot.dtype,
                     device=hot.device)
   if ids.shape[0] == 0:
     return out
+  scratch = torch.empty((words,), dtype=torch.int32, device=hot.device)
+  fetches = torch.empty((1,), dtype=torch.int64, device=hot.device)
   stream = torch.cuda.current_stream(hot.device)
   cold_ptr = mapped.device_pointer(cold) if n_cold else None
   err = kernels.lib('gather_unified').glt_gather_unified(
       hot.data_ptr() if hot.shape[0] else None, cold_ptr, ids.data_ptr(),
       int(ids.dtype == torch.int64), out.data_ptr(), hot.shape[0], n,
-      ids.shape[0], hot.shape[1] * hot.element_size(),
-      hot.device.index or 0, stream.cuda_stream)
+      ids.shape[0], hot.shape[1] * hot.element_size(), scratch.data_ptr(),
+      cap, fetches.data_ptr(), hot.device.index or 0, stream.cuda_stream)
   kernels.check(err, 'gather_unified')
   if n_cold:
     mapped.mark_used(cold, stream)
   with kernels.COUNT_LOCK:
     unified_launches += 1
+    unified_fetches = fetches
   return out
 
 
@@ -310,8 +349,9 @@ def gather_rows_unified_sharded(shards, pointers, cold: torch.Tensor,
   ``shards`` (as :func:`gather_rows_sharded` takes them, with their
   ``pointers``). ``cold`` as :func:`gather_rows_unified` takes it (mapped
   for the ids' card). On CPU tensors this is
-  :func:`gather_rows_unified_sharded_plain`; on a card it is one launch
-  of the sharded hot/cold kernel or raises."""
+  :func:`gather_rows_unified_sharded_plain`; on a card it is one call of
+  the sharded hot/cold kernel (each distinct cold row read once) or
+  raises."""
   if ids.device.type == 'cpu' and all(
       s.device.type == 'cpu' for s in shards):
     return gather_rows_unified_sharded_plain(shards, cold, ids)[0]
@@ -324,24 +364,29 @@ def gather_rows_unified_sharded(shards, pointers, cold: torch.Tensor,
     raise ValueError('gather_rows_unified_sharded: cold must be contiguous '
                      f'CPU rows of [*, {ref.shape[1]}] {ref.dtype}, got '
                      f'{tuple(cold.shape)} {cold.dtype} on {cold.device}')
-  global unified_sharded_launches
+  cap, words = unified_scratch(ids.shape[0], n_cold,
+                               'gather_rows_unified_sharded')
+  global unified_sharded_launches, unified_sharded_fetches
   out = torch.empty((ids.shape[0], ref.shape[1]), dtype=ref.dtype,
                     device=ids.device)
   if ids.shape[0] == 0:
     return out
+  scratch = torch.empty((words,), dtype=torch.int32, device=ids.device)
+  fetches = torch.empty((1,), dtype=torch.int64, device=ids.device)
   stream = torch.cuda.current_stream(ids.device)
   cold_ptr = mapped.device_pointer(cold) if n_cold else None
   err = kernels.lib('gather_unified').glt_gather_unified_sharded(
       pointers.data_ptr(), len(shards), ref.shape[0], peer.bases_or(shards),
       cold_ptr, ids.data_ptr(), int(ids.dtype == torch.int64),
       out.data_ptr(), ref.shape[0] * len(shards) + n_cold, ids.shape[0],
-      ref.shape[1] * ref.element_size(), ids.device.index or 0,
-      stream.cuda_stream)
+      ref.shape[1] * ref.element_size(), scratch.data_ptr(), cap,
+      fetches.data_ptr(), ids.device.index or 0, stream.cuda_stream)
   kernels.check(err, 'gather_unified_sharded')
   if n_cold:
     mapped.mark_used(cold, stream)
   with kernels.COUNT_LOCK:
     unified_sharded_launches += 1
+    unified_sharded_fetches = fetches
   return out
 
 

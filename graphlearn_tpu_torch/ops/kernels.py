@@ -58,10 +58,10 @@ SOURCES = {
     'uniform_draw': ('uniform_draw.cu', {
         'glt_uniform_draw': ([_P, _L, _P, _I, _P], _I)}),
     'gather_unified': ('gather_unified.cu', {
-        'glt_gather_unified': ([_P, _P, _P, _I, _P, _L, _L, _L, _L, _I, _P],
-                               _I),
+        'glt_gather_unified': ([_P, _P, _P, _I, _P, _L, _L, _L, _L, _P, _L,
+                                _P, _I, _P], _I),
         'glt_gather_unified_sharded': ([_P, _L, _L, _L, _P, _P, _I, _P, _L,
-                                        _L, _L, _I, _P], _I),
+                                        _L, _L, _P, _L, _P, _I, _P], _I),
         'glt_host_register': ([_P, _L, _I, _P, _P], _I),
         'glt_host_unregister': ([_P, _I], _I)}),
     'negative_sample': ('negative_sample.cu', {

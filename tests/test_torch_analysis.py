@@ -1084,8 +1084,9 @@ def test_port_carries_the_lock_annotations(port_lint):
       m = rx.search(text)
       if m:
         got.setdefault(mod.relpath, []).append(m.groups())
-  # JAX's 14 on the same fields, and the 15 launch counters
-  assert sum(len(v) for v in got.values()) == 14 + 15
+  # JAX's 14 on the same fields, the 15 launch counters and the hot/cold
+  # kernel's 2 fetch counters
+  assert sum(len(v) for v in got.values()) == 14 + 15 + 2
   assert sorted({k for k, v in got.items()
                  if ('shared', 'kernels.COUNT_LOCK') in v}) == [
       'ops/draw.py', 'ops/gather.py', 'ops/keys.py', 'ops/negative.py',

@@ -44,7 +44,9 @@ against the CPU's with their launches, a link batch with no host sync,
 two link train steps against the CPU; subgraph batches, exact and
 bucketed, against the CPU's; and the hot/cold gather against its plain
 version bit for bit (H = 0, a mixed split, H = N; row widths down to 2
-bytes; f32, bf16, f16, int32; int32 and int64 ids), unmapped rows
+bytes; f32, bf16, f16, int32; int32 and int64 ids; random ids, one cold
+row in every slot, every cold row 50 times, no duplicate), its fetch
+counter equal to the distinct cold rows and no host sync, unmapped rows
 refused, a mapped tail freed after its last launch and mapped again, a
 hot/cold ``Feature`` on the card against the CPU's with no host sync in
 the lookup, the in-process IPC round trip, the spawned two-worker
@@ -84,7 +86,8 @@ common state at each chunk start (one upload a chunk, the first chunk
 eager, then one replay a chunk), a replayed epoch with no host sync, the
 remote stager's pinned slot not refilled before its copy's event, and
 block frames built on a server's RPC threads from eight client threads
-with the launch counters exact.
+with the launch counters exact; and every single-device kernel entry
+leaving the calling thread's current device as it was.
 """
 import contextlib
 import copy
@@ -1481,30 +1484,61 @@ def _unified_case(cuda, n, width, dtype, hot, seed=0):
   return table[:hot].contiguous().to(cuda), cold, table
 
 
+_ID_PATTERNS = ['random', 'one_row', 'repeat50', 'distinct']
+
+
+def _unified_ids(pattern, n, hot_rows, gen):
+  """Lookup ids over a table of ``n`` rows, ``hot_rows`` on the card:
+  random ids past both ends (clamped), every slot one cold row, every
+  cold row (every row with no cold part) 50 times in shuffled order, or
+  a permutation of the table's rows (no duplicate)."""
+  if pattern == 'random':
+    return torch.randint(-5, n + 5, (4099,), generator=gen)
+  if pattern == 'one_row':
+    return torch.full((4099,), n - 1, dtype=torch.int64)
+  if pattern == 'repeat50':
+    rows = torch.arange(hot_rows if hot_rows < n else 0, n).repeat(50)
+    return rows[torch.randperm(rows.numel(), generator=gen)]
+  return torch.randperm(n, generator=gen)
+
+
+def _distinct_cold(ids, n, hot_rows):
+  return int((torch.unique(ids.cpu().clamp(0, n - 1)) >= hot_rows).sum())
+
+
 @pytest.mark.parametrize('dtype,width', [
     (torch.float32, 100), (torch.float32, 128), (torch.bfloat16, 100),
     (torch.float16, 3), (torch.int32, 7), (torch.bfloat16, 1)])
 @pytest.mark.parametrize('split', ['all_host', 'mixed', 'all_hot'])
 @pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('pattern', _ID_PATTERNS)
 def test_gather_unified_kernel_matches_plain(cuda, dtype, width, split,
-                                             id_dtype):
+                                             id_dtype, pattern):
   """The hot/cold kernel against its plain version (the JAX store's
   mixed gather on the card), bit for bit: H = 0, a mixed split and H = N,
-  row widths down to 2 bytes, ids clamped at both ends."""
+  row widths down to 2 bytes, ids clamped at both ends, one cold row in
+  every slot, every cold row 50 times, no duplicate. Its fetch counter
+  equals the distinct cold rows; the call makes no host sync, counts one
+  launch, and none for no ids."""
   from graphlearn_tpu_torch.ops import mapped
   n = 1000
   hot_rows = dict(all_host=0, mixed=371, all_hot=n)[split]
   hot, cold, table = _unified_case(cuda, n, width, dtype, hot_rows, width)
   gen = torch.Generator().manual_seed(3)
-  ids = torch.randint(-5, n + 5, (4099,), generator=gen).to(id_dtype)
-  ids = ids.to(cuda)
+  ids = _unified_ids(pattern, n, hot_rows, gen).to(id_dtype).to(cuda)
   before = ops.launch_counts()['gather_unified']
-  got = ops.gather_rows_unified(hot, cold, ids)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    got = ops.gather_rows_unified(hot, cold, ids)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
   torch.cuda.synchronize()
   plain, _ = ops.gather_rows_unified_plain(hot, cold, ids)
   assert torch.equal(got, plain)
   assert torch.equal(got.cpu(), table[ids.cpu().clamp(0, n - 1).long()])
   assert ops.launch_counts()['gather_unified'] == before + 1
+  assert int(ops.gather.unified_fetches) == _distinct_cold(ids, n, hot_rows)
   assert ops.gather_rows_unified(hot, cold, ids[:0]).shape == (0, width)
   assert ops.launch_counts()['gather_unified'] == before + 1
   if n - hot_rows:
@@ -3120,11 +3154,13 @@ def test_gather_rows_sharded_kernel_matches_plain(cuda, across, dtype, width,
 
 @pytest.mark.parametrize('across', [False, True])
 @pytest.mark.parametrize('rps,n_cold', [(300, 400), (1, 5), (50, 0)])
+@pytest.mark.parametrize('pattern', _ID_PATTERNS)
 def test_gather_unified_sharded_kernel_matches_plain(cuda, across, rps,
-                                                     n_cold):
+                                                     n_cold, pattern):
   """The sharded hot/cold entry (a group's shards, the tail mapped) against
   its plain version (the JAX store's mixed gather over the shards) and the
-  whole table, bit for bit; one launch."""
+  whole table, bit for bit, over the id patterns of the one-block test;
+  one launch, no host sync, the fetch counter the distinct cold rows."""
   from graphlearn_tpu_torch.ops import mapped
   devices = _group(cuda, across)
   gen = torch.Generator().manual_seed(rps)
@@ -3140,11 +3176,19 @@ def test_gather_unified_sharded_kernel_matches_plain(cuda, across, rps,
   if n_cold:
     mapped.register(cold, home)
   try:
-    ids = torch.randint(-3, table.shape[0] + 3, (2048,), generator=gen)
+    ids = _unified_ids(pattern, table.shape[0], n_hot, gen).to(home)
     before = ops.launch_counts()['gather_unified_sharded']
-    got = ops.gather_rows_unified_sharded(shards, ptrs, cold, ids.to(home))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+      got = ops.gather_rows_unified_sharded(shards, ptrs, cold, ids)
+    finally:
+      torch.cuda.set_sync_debug_mode('default')
     torch.cuda.synchronize()
     assert ops.launch_counts()['gather_unified_sharded'] == before + 1
+    assert int(ops.gather.unified_sharded_fetches) == _distinct_cold(
+        ids, table.shape[0], n_hot)
+    ids = ids.cpu()
     want, _ = ops.gather_rows_unified_sharded_plain(shards, cold,
                                                     ids.to(home))
     assert torch.equal(got, want)
@@ -3215,6 +3259,66 @@ def test_grouped_store_leaves_the_current_device(cuda, across):
     torch.cuda.synchronize()
     assert torch.cuda.current_device() == 0 and got.device == store.device
     np.testing.assert_array_equal(got.cpu().numpy(), feat[ids])
+
+
+@pytest.mark.parametrize('across', [False, True])
+def test_kernel_entries_leave_the_current_device(cuda, across):
+  """Every single-device entry, on ``cuda:1`` (``across``; skips on one
+  card) or on ``cuda:0``, with ``cuda:0`` current, leaves the calling
+  thread's current device as it was: the mapping of a host tail and its
+  release, the hot/cold gather, K1, K2, the fused hop, the fused level,
+  both chunk-key entries, the draw, both negative entries and both
+  probes; each result lands on the entry's card."""
+  from graphlearn_tpu_torch.ops import mapped
+  if across and torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards or more (an entry on cuda:1)')
+  dev = torch.device('cuda', 1 if across else 0)
+  torch.cuda.set_device(0)
+  gen = torch.Generator().manual_seed(0)
+  table = torch.randn((500, 32), generator=gen).to(dev)
+  ids = torch.randint(0, 500, (300,), generator=gen).to(dev)
+  cold = mapped.empty((300, 32), torch.float32)
+  cold.copy_(table[200:].cpu())
+  key = gtt.random.to_device(gtt.random.fold_in(gtt.random.PRNGKey(2), 1),
+                             dev)
+  counter = torch.zeros((), dtype=torch.int64, device=dev)
+  g, seeds, mask = _hop_graph(dev, 5)
+  lg, lseeds, lsmask, k, state, src, c = _level_inputs(dev, 'hubs')
+  _, _, gptr, gidx = _neg_csr(dev, 300, 2000)
+  grid, lptr, lidx = (t.to(dev) for t in _local_shard(300, 2000, 2))
+  take = torch.randint(0, 1000, (1000,), dtype=torch.int32,
+                       generator=gen).to(dev)
+  calls = [
+      ('host_register', lambda: mapped.register(cold, dev)),
+      ('gather_unified', lambda: ops.gather_rows_unified(table[:200], cold,
+                                                         ids)),
+      ('gather_rows', lambda: ops.gather_rows_hbm(table, ids)),
+      ('gather_runs', lambda: ops.gather_rows_hbm2(table, ids)),
+      ('sample_hop', lambda: ops.sample_hop_fused(
+          g.indptr, g.indices, None, seeds, mask, 5, key,
+          meta=g.csr_meta)[0]),
+      ('sample_level', lambda: ops.sample_level_fused(
+          lg.indptr, lg.indices, None, lseeds, lsmask, k, key,
+          _clone(state), src, meta=lg.csr_meta, prefix_cap=c)[2]),
+      ('step_keys', lambda: ops.step_keys(key, counter, 3, 3)),
+      ('dist_step_keys', lambda: ops.dist_step_keys(key, counter, 3, 4, 3)),
+      ('uniform_draw', lambda: ops.draw.uniform(key, (1000,), device=dev)),
+      ('negative_sample', lambda: ops.random_negative_sample(
+          gptr, gidx, 300, 300, 64, key)[0]),
+      ('negative_sample_local', lambda: ops.random_negative_sample_local(
+          grid, lptr, lidx, 1000, 32, key)[0]),
+      ('row_gather_probe', lambda: ops.row_gather_probe(table, ids)),
+      ('smem_take', lambda: ops.smem_take(take, take)),
+      ('host_unregister', lambda: mapped.release(cold))]
+  try:
+    for name, call in calls:
+      out = call()
+      torch.cuda.synchronize(dev)
+      assert torch.cuda.current_device() == 0, name
+      assert out is None or out.device == dev, name
+  finally:
+    if mapped.is_mapped(cold):
+      mapped.release(cold)
 
 
 def _grouped_dataset(cuda, rng_seed, devices):

@@ -5,7 +5,8 @@ split at 0.0 / 0.4 / 1.0, host-only, the degree sort, the mixed
 round trip, the homogeneous ``Dataset``); the hot/cold gather (the
 kernel's plain version, the CPU route) against JAX's mixed path over
 random splits, id sets (FILL pads, repeats, all hot, all cold) and
-dtypes, ``_last_cold_cap`` included; ``reorder``; a ``NeighborLoader``
+dtypes, ``_last_cold_cap`` included; the hot/cold kernel's scratch
+size and its 32-bit limits; ``reorder``; a ``NeighborLoader``
 batch over a hot/cold store; and the epoch trainers refusing one.
 """
 import jax.numpy as jnp
@@ -259,6 +260,30 @@ def test_plain_gather_all_host_ships_the_rows_whole():
   np.testing.assert_array_equal(
       ops.gather_rows_unified(hot, table, torch.tensor([3, 3])).numpy(),
       table[[3, 3]].numpy())
+
+
+@pytest.mark.parametrize('n_ids,n_cold,cap', [
+    (937_984, 750_000, 2_097_152), (7_936, 100, 256), (5, 0, 0), (1, 1, 2),
+    (3, 1_000_000, 8)])
+def test_unified_scratch_keeps_the_table_at_most_half_full(n_ids, n_cold,
+                                                           cap):
+  """The hot/cold kernel's scratch: a power-of-two table at least twice
+  the cold rows a call can name (none without a cold part), two
+  counters, the table's keys and winners and a duplicate list of one
+  pair a slot."""
+  got, words = ops.gather.unified_scratch(n_ids, n_cold, 'lookup')
+  assert got == cap
+  assert words == (2 if n_cold == 0 else 2 + 2 * cap + 2 * n_ids)
+  if n_cold:
+    assert cap >= 2 * min(n_ids, n_cold) and cap & (cap - 1) == 0
+
+
+def test_unified_scratch_refuses_counts_past_32_bits():
+  with pytest.raises(ValueError, match='host part has 2147483648 rows'):
+    ops.gather.unified_scratch(4, 2 ** 31, 'gather_rows_unified')
+  with pytest.raises(ValueError, match='2147483648 ids in one call'):
+    ops.gather.unified_scratch(2 ** 31, 5, 'gather_rows_unified')
+  assert ops.gather.unified_scratch(2 ** 31 - 1, 0, 'x') == (0, 2)
 
 
 # -------------------------------------------------------------- reorder
