@@ -688,12 +688,14 @@ def _span(a, b, cuda):
   return a.elapsed_time(b) if cuda else (b - a) * 1e3
 
 
-def kernel_phase(torch, gtt, ds, device, gen, reps):
+def kernel_phase(torch, gtt, ds, device, gen, reps, pool):
   """Each kernel against its plain version at main-path shapes."""
   from graphlearn_tpu_torch import ops
   records = {}
   n = ds.graph.num_nodes
-  # ---- K1 gather_rows: the collate gather of a products batch
+  # ---- K1 gather_rows: the collate gather of a products batch, on
+  # uniform ids over three tables and on one tree batch's ids (those the
+  # multicard phase gives the sharded entry)
   slots = BATCH * (1 + FANOUTS[0] + FANOUTS[0] * FANOUTS[1] +
                    FANOUTS[0] * FANOUTS[1] * FANOUTS[2])
   ids = torch.randint(0, n, (slots,), generator=gen, dtype=torch.int64)
@@ -703,19 +705,19 @@ def kernel_phase(torch, gtt, ds, device, gen, reps):
   ids[slots // 2:slots // 2 + slots // 8] = ids[:slots // 8].clone()
   ids = ids.to(torch.int32).to(device)
   f32 = ds.node_features.device_table()[0]
-  tables = {
-      f'f32[{n},100]': f32,
-      f'bf16[{n},100]': f32.to(torch.bfloat16),
-      f'f32[{n},128]': torch.randn((n, 128), generator=gen).to(device),
-  }
-  clamped = ids.clamp(0, n - 1).long()
-  uniq = int(torch.unique(clamped).numel())
+  tree = tree_batch_rows(torch, gtt, ds, np.arange(n), pool, device)
+  runs = [(f'f32[{n},100]', f32, ids),
+          (f'bf16[{n},100]', f32.to(torch.bfloat16), ids),
+          (f'f32[{n},128]', torch.randn((n, 128), generator=gen).to(device),
+           ids),
+          (f'f32[{n},100] tree batch', f32, tree)]
   cases = []
-  for name, table in tables.items():
+  for name, table, case_ids in runs:
     got, ms, call_ms = timed(
-        torch, lambda: ops.gather_rows_hbm(table, ids), reps, device)
+        torch, lambda: ops.gather_rows_hbm(table, case_ids), reps, device)
     ref, plain_ms, plain_call_ms = timed(
-        torch, lambda: ops.gather_rows_plain(table, ids), reps, device)
+        torch, lambda: ops.gather_rows_plain(table, case_ids), reps, device)
+    clamped = case_ids.clamp(0, n - 1).long()
     _, lib_ms, lib_call_ms = timed(
         torch, lambda: torch.index_select(table, 0, clamped), reps, device)
     if device.type == 'cuda':
@@ -723,16 +725,25 @@ def kernel_phase(torch, gtt, ds, device, gen, reps):
     exact = bool(torch.equal(got, ref))
     err = float((got.float() - ref.float()).abs().max())
     row = table.shape[1] * table.element_size()
-    nbytes = slots * 4 + uniq * row + slots * row
-    cases.append(dict(table=name, ids=slots, unique_rows=uniq, exact=exact,
+    b = case_ids.numel()
+    uniq = int(torch.unique(clamped).numel())
+    nbytes = b * case_ids.element_size() + uniq * row + b * row
+    # every slot's row read and written: the floor of a gather that does
+    # not dedup
+    every = b * case_ids.element_size() + 2 * b * row
+    shape = (ops.gather.gather_rows_shape(table, case_ids)
+             if device.type == 'cuda' else None)
+    cases.append(dict(table=name, ids=b, unique_rows=uniq, exact=exact,
                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, call_ms=call_ms,
                       plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
-                      bound_ms=bound_ms(nbytes), bytes=nbytes))
-    log(f'kernel gather_rows {name}: ids={slots} exact={exact} '
+                      bound_ms=bound_ms(nbytes), bytes=nbytes,
+                      every_slot_ms=bound_ms(every), launch_shape=shape))
+    log(f'kernel gather_rows {name}: ids={b} exact={exact} '
         f'ms={ms:.4f} plain_ms={plain_ms:.4f} index_select_ms={lib_ms:.4f} '
-        f'bound_ms={bound_ms(nbytes):.4f}; call ms {call_ms:.4f} '
-        f'{plain_call_ms:.4f} {lib_call_ms:.4f}')
+        f'bound_ms={bound_ms(nbytes):.4f} every_slot_ms='
+        f'{bound_ms(every):.4f}; call ms {call_ms:.4f} '
+        f'{plain_call_ms:.4f} {lib_call_ms:.4f}; launch shape {shape}')
     assert exact, f'gather_rows {name}: kernel != plain version'
   records['gather_rows'] = cases
   # ---- K3 the fused hop: hops 0-2 of a products batch, hubs at hop 2
@@ -1427,7 +1438,11 @@ def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
               device_sum_ms=total / 1e3 / reps, device_streams=len(streams),
               idle_share=1 - busy_ms / wall if wall else None,
               device_ops_per_call=launches / reps, top_device_ms=dict(top),
-              kernels=kernel_counts(counts))
+              kernels=kernel_counts(counts),
+              # every device kernel whose name holds a port kernel's, as
+              # the profiler names it (read where a count disagrees)
+              port_kernel_names={k: c for k, c in counts.items() if any(
+                  f in k for fns in PORT_KERNELS.values() for f in fns)})
 
 
 # launch_counts() name -> the device kernels the profiler shows for it
@@ -6713,7 +6728,8 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
                                                    ops.reset_launch_counts()))
       counted = {k: v for k, v in ops.launch_counts().items()
                  if k in PORT_KERNELS}
-      assert prof['kernels'] == counted, (name, prof['kernels'], counted)
+      assert prof['kernels'] == counted, (name, prof['kernels'], counted,
+                                          prof['port_kernel_names'])
       rep['tree'][f'profile_{name}'] = dict(
           idle_share=prof['idle_share'],
           busy_ms_per_step=prof['device_busy_ms'] / steps,
@@ -10183,6 +10199,9 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
   if n_cold_u:
     times.append(n_cold_u * row / rate)
   bound = max(times) * 1e3
+  # every slot's row read and written (no dedup), for the sharded K1 entry
+  every = bound_ms(rows.numel() * rows.element_size() +
+                   2 * rows.numel() * row)
   rec = dict(split=split, group=[str(d) for d in group], kernel=name,
              hot_rows=n_hot, rows_per_shard=rps, ids=rows.numel(),
              remote_distinct_rows=remote_u, distinct_cold_rows=n_cold_u,
@@ -10190,7 +10209,7 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
              call_ms=call_ms, ms_runs=ms_runs, call_ms_runs=call_runs,
              plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              one_table_ms=k1_ms, one_table_call_ms=k1_call_ms,
-             bound_ms=bound, bound_by='bytes',
+             bound_ms=bound, bound_by='bytes', every_slot_ms=every,
              library_ms=None if ut.host_rows else lib_ms,
              shard_index_select_ms=lib_ms, lookup_launches=launches,
              case_s=time.perf_counter() - t0)
@@ -10201,8 +10220,8 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
       f'the one-table kernel ms={k1_ms:.4f}; the shards\' index_select '
       f'ms={lib_ms:.4f}; bound_ms={bound:.4f} (HBM {hbm / 1e6:.1f} MB, '
       f'{remote_u} distinct remote rows, {n_cold_u} distinct cold rows, '
-      f'fetched {fetched}); the store\'s lookup launched {launches[name]} '
-      f'on {smi}')
+      f'fetched {fetched}); every_slot_ms={every:.4f}; the store\'s lookup '
+      f'launched {launches[name]} on {smi}')
   assert exact, f'{name} split={split}: kernel != plain version'
   assert fetched is None or fetched == n_cold_u, (
       name, 'fetched', fetched, 'distinct cold rows', n_cold_u)
@@ -10497,8 +10516,8 @@ def main(argv=None):
         json.dump(report, fh, indent=1)
     log('noise measured: no result line')
     return 3
-  report['kernels'] = kernel_phase(torch, gtt, ds, device, gen, reps)
   pool = np.random.default_rng(1).permutation(n_nodes)[:BATCH * BATCHES]
+  report['kernels'] = kernel_phase(torch, gtt, ds, device, gen, reps, pool)
   t0 = time.perf_counter()
   merge_loader = make_loader(gtt, ds, pool, device, 'merge')
   caps = list(merge_loader.sampler.frontier_caps)

@@ -5,7 +5,8 @@ Counterpart of ``graphlearn_tpu/ops/gather_pallas.py``, both
 generations:
 
 - v1, ``gather_rows_hbm``: on a CUDA tensor the wrapper launches the
-  ``csrc/gather_rows.cu`` kernel (one warp per output row).
+  ``csrc/gather_rows.cu`` kernel (a persistent grid; each warp walks a
+  run of output rows, several rows in flight at once).
 - v2, ``gather_rows_hbm2``: the same gather, each full ``run_span``-row
   stretch of consecutive table rows copied at once and every other slot
   row by row. The plain version (the CPU route) follows the JAX design:
@@ -45,6 +46,7 @@ its owner block through an ``[S]`` array of the blocks' base addresses
 versions gather each block's rows on its own device, copy them to the
 ids' device and ``index_copy_`` them into place.
 """
+import ctypes
 import time
 
 import torch
@@ -103,6 +105,27 @@ def gather_rows_hbm(table: torch.Tensor, ids: torch.Tensor):
   with kernels.COUNT_LOCK:
     launches += 1
   return out
+
+
+def gather_rows_shape(table, ids: torch.Tensor) -> dict:
+  """The launch shape :func:`gather_rows_hbm` takes for ``table`` (a
+  tensor, or a :class:`ShardedRows`: the sharded entry's) and ``ids`` on
+  their card, with nothing launched: the persistent grid's warps, the
+  rows a warp copies at once, the vector's bytes and the vectors a lane
+  holds in flight."""
+  if isinstance(table, ShardedRows):
+    ref, bases, sharded = table.shards[0], peer.bases_or(table.shards), 1
+  else:
+    _check(table, ids, 'gather_rows_shape')
+    ref, bases, sharded = table, table.data_ptr(), 0
+  shape = (ctypes.c_longlong * 4)()
+  err = kernels.lib('gather_rows').glt_gather_rows_shape(
+      bases, sharded, int(ids.dtype == torch.int64), max(ids.shape[0], 1),
+      ref.shape[1] * ref.element_size(), ids.device.index or 0,
+      ctypes.addressof(shape))
+  kernels.check(err, 'gather_rows_shape')
+  return dict(zip(('grid_warps', 'rows_per_group', 'vector_bytes',
+                   'vectors_per_lane'), shape))
 
 
 # ---------------------------------------------------------- hot / cold

@@ -34,6 +34,7 @@ SOURCES = {
         'glt_gather_rows': ([_P, _P, _I, _P, _L, _L, _L, _I, _P], _I),
         'glt_gather_rows_sharded': ([_P, _L, _L, _L, _P, _I, _P, _L, _L, _I,
                                      _P], _I),
+        'glt_gather_rows_shape': ([_L, _I, _I, _L, _L, _I, _P], _I),
         'glt_enable_peer_access': ([_I, _I, _P], _I)}),
     'gather_runs': ('gather_runs.cu', {
         'glt_gather_runs': ([_P, _P, _I, _P, _P, _L, _L, _L, _L, _I, _I,

@@ -3,7 +3,11 @@
 These tests need a CUDA GPU and nvcc; without them they skip. On a
 machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 They cover the edge cases the main-path check in chip_smoke.py does not:
-empty batches, 2- and 1-byte aligned rows, int64 ids; for the fused hop
+empty batches, 2- and 1-byte aligned rows, int64 ids; for K1, both
+entries, rows of 1 to 1,024 elements, id counts around a 32-id batch and
+one above the persistent grid's rows a pass, a table view one element
+off, a table and an output past 4 GiB, and a launch captured in a CUDA
+graph and replayed over ids changed in place; for the fused hop
 a hub of high degree, a deg-0 seed, k above a warp, the row table or
 indptr, a host key against the same key on the device,
 and two calls giving the same bytes; for the fused level an empty
@@ -114,16 +118,41 @@ def cuda():
   return torch.device('cuda')
 
 
-@pytest.mark.parametrize('dtype,width', [
-    (torch.float32, 100), (torch.bfloat16, 100), (torch.float16, 3),
-    (torch.int32, 128), (torch.bfloat16, 1)])
+# K1's edges: rows of 1, 4, 25, 100, 128, 129 and 1024 f32 (1, 2 and 4
+# rows a warp at once, a row wider than a lane's vectors, the 4/8/16-byte
+# routes), bf16 at 1, 100 and 101 (the 2/8/2-byte routes), f16 3, int32 128
+_K1_WIDTHS = [(torch.float32, w) for w in (1, 4, 25, 100, 128, 129, 1024)] + [
+    (torch.bfloat16, 1), (torch.bfloat16, 100), (torch.bfloat16, 101),
+    (torch.float16, 3), (torch.int32, 128)]
+# id counts: one id, under and over a warp's 32 lanes, several groups a
+# warp, and one above the persistent grid's rows a pass (every warp one
+# group of rows)
+_K1_IDS = [1, 31, 33, 4099, 'pass+1']
+
+
+def _k1_ids(n_ids, table, n, id_dtype, gen, cuda):
+  """``n_ids`` ids in ``[-5, n + 5)`` (clamped by the kernel); 'pass+1'
+  is one group of rows for each warp of ``table``'s persistent grid,
+  plus one."""
+  if n_ids == 'pass+1':
+    probe = torch.zeros(1, dtype=id_dtype, device=cuda)
+    shape = ops.gather.gather_rows_shape(table, probe)
+    n_ids = shape['grid_warps'] * shape['rows_per_group'] + 1
+  return torch.randint(-5, n + 5, (n_ids,), generator=gen).to(id_dtype).to(
+      cuda)
+
+
+@pytest.mark.parametrize('dtype,width', _K1_WIDTHS)
 @pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
-def test_gather_rows_kernel_matches_plain(cuda, dtype, width, id_dtype):
+@pytest.mark.parametrize('n_ids', _K1_IDS)
+def test_gather_rows_kernel_matches_plain(cuda, dtype, width, id_dtype,
+                                          n_ids):
+  """K1 against its plain version, bit for bit, ids clamped; one launch,
+  none for no ids."""
   gen = torch.Generator().manual_seed(width)
   n = 1000
   table = (torch.randn((n, width), generator=gen) * 100).to(dtype).to(cuda)
-  ids = torch.randint(-5, n + 5, (4099,), generator=gen).to(id_dtype)
-  ids = ids.to(cuda)
+  ids = _k1_ids(n_ids, table, n, id_dtype, gen, cuda)
   before = ops.launch_counts()['gather_rows']
   got = ops.gather_rows_hbm(table, ids)
   torch.cuda.synchronize()
@@ -132,6 +161,122 @@ def test_gather_rows_kernel_matches_plain(cuda, dtype, width, id_dtype):
   empty = ops.gather_rows_hbm(table, ids[:0])
   assert empty.shape == (0, width)
   assert ops.launch_counts()['gather_rows'] == before + 1
+
+
+def _k1_entry(entry, table, cuda):
+  """``table`` as K1's ``entry`` reads it: the tensor itself ('one') or
+  three row blocks on the card (``ShardedRows``, the sharded entry), and
+  the plain version of that read."""
+  if entry == 'one':
+    return table, ops.gather_rows_plain
+  r = table.shape[0] // 3
+  rows = ops.ShardedRows([table[i * r:(i + 1) * r].clone() for i in range(3)],
+                         cuda)
+  return rows, lambda _, ids: ops.gather_rows_sharded_plain(rows.shards, ids)
+
+
+def _k1_launches(entry):
+  return ops.launch_counts()['gather_rows' if entry == 'one' else
+                             'gather_rows_sharded']
+
+
+@pytest.mark.parametrize('entry', ['one', 'sharded'])
+@pytest.mark.parametrize('dtype,width', [
+    (torch.float32, 100), (torch.float32, 128), (torch.bfloat16, 100),
+    (torch.float16, 3), (torch.int32, 128)])
+def test_gather_rows_kernel_on_a_view_off_by_one_element(cuda, entry, dtype,
+                                                         width):
+  """A table (each block, sharded) whose base lies one element past an
+  allocation's: the narrow vector routes (4 or 2 bytes), bit for bit."""
+  gen = torch.Generator().manual_seed(width)
+  n = 999
+  flat = (torch.randn((n * width + 1,), generator=gen) * 100).to(dtype).to(
+      cuda)
+  table = flat[1:].view(n, width)
+  if entry == 'sharded':
+    r = n // 3
+    blocks = []
+    for i in range(3):
+      b = torch.empty((r * width + 1,), dtype=dtype, device=cuda)
+      b[1:] = table[i * r:(i + 1) * r].reshape(-1)
+      blocks.append(b[1:].view(r, width))
+    rows = ops.ShardedRows(blocks, cuda)
+    assert ops.peer.bases_or(blocks) % 16 == flat.element_size()
+  else:
+    rows = table
+    assert table.data_ptr() % 16 == flat.element_size()
+  ids = torch.randint(-5, n + 5, (4099,), generator=gen).to(cuda)
+  shape = ops.gather.gather_rows_shape(rows, ids)
+  assert shape['vector_bytes'] == flat.element_size(), shape
+  before = _k1_launches(entry)
+  got = ops.gather_rows_hbm(rows, ids)
+  torch.cuda.synchronize()
+  assert torch.equal(got, ops.gather_rows_plain(table, ids))
+  assert _k1_launches(entry) == before + 1
+
+
+@pytest.mark.parametrize('entry', ['one', 'sharded'])
+def test_gather_rows_kernel_past_4gib(cuda, entry):
+  """A table (each block, sharded) and an output over 2**32 bytes, ids
+  near the table's end: the row and output offsets need 64 bits."""
+  width = 1024                                  # int32: 4 KiB rows
+  rows_4g = 2 ** 32 // (width * 4)
+  r = rows_4g + 64                              # each block past 4 GiB
+  n = r * (1 if entry == 'one' else 2)
+  blocks = [torch.empty((r, width), dtype=torch.int32, device=cuda)
+            for _ in range(n // r)]
+  gen = torch.Generator().manual_seed(7)
+  for b in blocks:                              # the last 256 rows of each
+    b[-256:] = torch.randint(-2 ** 31, 2 ** 31 - 1, (256, width),
+                             generator=gen, dtype=torch.int32).to(cuda)
+  ends = torch.cat([torch.arange((i + 1) * r - 256, (i + 1) * r)
+                    for i in range(len(blocks))])
+  # the output's 4 GiB mark falls inside its last rows
+  ids = ends[torch.randint(0, ends.numel(), (rows_4g + 64,), generator=gen)]
+  ids[-1] = n + 3                               # clamped to the last row
+  ids = ids.to(cuda)
+  table = blocks[0] if entry == 'one' else ops.ShardedRows(blocks, cuda)
+  before = _k1_launches(entry)
+  got = ops.gather_rows_hbm(table, ids)
+  torch.cuda.synchronize()
+  assert _k1_launches(entry) == before + 1
+  assert got.numel() * 4 > 2 ** 32
+  idx = ids.clamp(0, n - 1)
+  want = blocks[0][idx] if entry == 'one' else \
+      ops.gather_rows_sharded_plain(blocks, ids)
+  assert torch.equal(got, want)
+  del got, want, blocks, table
+  torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize('entry', ['one', 'sharded'])
+@pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
+def test_gather_rows_kernel_captured_replays_new_ids(cuda, entry, id_dtype):
+  """K1 captured into a CUDA graph: each replay reads the ids as they are
+  then (changed in place between replays), bit for bit."""
+  gen = torch.Generator().manual_seed(11)
+  n = 3000
+  table = (torch.randn((n, 100), generator=gen) * 100).to(cuda)
+  rows, plain = _k1_entry(entry, table, cuda)
+  ids = torch.randint(-5, n + 5, (40_000,), generator=gen).to(id_dtype).to(
+      cuda)
+  stream = torch.cuda.Stream()
+  stream.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(stream):
+    ops.gather_rows_hbm(rows, ids)              # warm-up, outside capture
+  torch.cuda.current_stream().wait_stream(stream)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = ops.gather_rows_hbm(rows, ids)
+  before = _k1_launches(entry)
+  for seed in range(3):
+    new = torch.randint(-5, n + 5, (ids.numel(),),
+                        generator=torch.Generator().manual_seed(seed))
+    ids.copy_(new.to(id_dtype).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(table, ids))
+  assert _k1_launches(entry) == before          # replays launch no wrapper
 
 
 def _hop_graph(cuda, k):
@@ -3118,12 +3263,11 @@ def _group(cuda, across):
 
 
 @pytest.mark.parametrize('across', [False, True])
-@pytest.mark.parametrize('dtype,width', [
-    (torch.float32, 100), (torch.bfloat16, 100), (torch.float16, 3),
-    (torch.int32, 128)])
+@pytest.mark.parametrize('dtype,width', _K1_WIDTHS)
 @pytest.mark.parametrize('id_dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('n_ids', _K1_IDS)
 def test_gather_rows_sharded_kernel_matches_plain(cuda, across, dtype, width,
-                                                  id_dtype):
+                                                  id_dtype, n_ids):
   """The sharded K1 entry over a group (one card named three times, or
   every card: rows read over NVLink) against its plain version and the
   whole table, bit for bit, ids clamped; one launch, none for no ids."""
@@ -3137,8 +3281,8 @@ def test_gather_rows_sharded_kernel_matches_plain(cuda, across, dtype, width,
   home = torch.device('cuda', 0)
   ops.peer.enable(devices)
   ptrs = ops.peer.pointer_table(shards, home)
-  ids = torch.randint(-5, table.shape[0] + 5, (4099,), generator=gen).to(
-      id_dtype)
+  ids = _k1_ids(n_ids, ops.ShardedRows(shards, home), table.shape[0],
+                id_dtype, gen, home).cpu()
   before = ops.launch_counts()['gather_rows_sharded']
   got = ops.gather_rows_sharded(shards, ptrs, ids.to(home))
   torch.cuda.synchronize()

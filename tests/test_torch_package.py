@@ -144,14 +144,15 @@ def test_entry_points_default_to_the_card(no_gpu):
   with pytest.raises(RuntimeError, match="device='cpu'"):
     gtt.models.GraphSAGE(4, 8, 3, num_layers=2)
   # the training example and the probe suites: the card or nothing
-  from graphlearn_tpu_torch.benchmarks import prof_dedup, prof_mem, prof_uva
+  from graphlearn_tpu_torch.benchmarks import (prof_dedup, prof_gather_rows,
+                                               prof_mem, prof_uva)
   from graphlearn_tpu_torch.examples import (graph_sage_unsup,
                                              train_sage_products)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     train_sage_products.main(['--num-nodes', '100'])
   with pytest.raises(RuntimeError, match="device='cpu'"):
     graph_sage_unsup.main(['--num-nodes', '100'])
-  for suite in (prof_mem, prof_dedup, prof_uva):
+  for suite in (prof_mem, prof_dedup, prof_uva, prof_gather_rows):
     with pytest.raises(SystemExit, match='no CUDA device'):
       suite.main([])
 
