@@ -35,9 +35,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the main paths' shapes (exact equality), with the kernel's, the plain
    version's and (where one exists) one library call's median device
    time (and, beside it, the time of a call including its host launch
-   cost), and the bound computed from the inputs (bytes over the memory
-   rate, or the in-kernel draw's 32-bit operations over the scalar rate,
-   whichever is larger). The fused hop (one launch: seed rows, threefry
+   cost), and the bound computed from the inputs: bytes over the memory
+   rate, or the kernel's instructions (its unit's SASS, read with
+   ``cuobjdump -sass`` from the libraries just built, times the units
+   the inputs need) over the card's issue (what only the ALU pipe runs
+   and what only the FMA pipe runs at 64 a clock per SM each, all
+   instructions at 128, the 2-input adds on either pipe and each 3-input
+   add as one ALU instruction or two IMADs, over 132 SMs at the SM clock
+   nvidia-smi reads), whichever is larger; beside each, the
+   fill floor (``fill_(0)`` of the output's bytes, timed alike) and the
+   yardstick's share of the kernel's time (the yardstick: the larger of
+   the bound and the fill). The fused hop (one launch: seed rows, threefry
    draw, pick) runs at hops 0-2 of a products batch, hop 2 with 1% hub
    seeds whose rows in a fabricated row table point at long segments,
    against the plain hop on the same device key and beside
@@ -447,6 +455,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    package of this checkout: exit 0, 0 findings, the package's (empty)
    baseline; the files walked, the pragma-suppressed count, the child's
    wall and each rule's seconds on the host's CPU (not a card number).
+   The child starts after the set-up and runs beside the phases.
 17. Multicard (run right after ``dist_more``): the several-card path.
    First a line with ``torch.cuda.device_count()``, the group (every
    card; ``cuda:0`` named twice on a one-card machine, so one card runs
@@ -465,8 +474,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    bytes over 3.35 TB/s, the distinct remote rows' bytes over NVLink's
    450 GB/s one way and (a tail) the distinct cold rows' bytes over the
    measured pinned rate. (b) One spawned rank per card (world 1 on one
-   card; ``init_multihost`` over NCCL, the graph rebuilt from its seed in
-   each rank and cut into world shards by RandomPartitioner's rule): the
+   card; ``init_multihost`` over NCCL, the script's graph arrays mapped
+   from a temporary directory and cut into world shards by
+   RandomPartitioner's rule while (a) runs, the card touched after): the
    dist_scan cell's trainer at ``bucket_frac=None`` (tree, [15, 10, 5] x
    1,024 a shard, hidden 256, 8 steps at K = 4), a captured epoch and an
    eager one from the same weights, bit-equal (losses and parameters),
@@ -498,6 +508,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -506,12 +518,45 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA's H100 SXM data sheet
-H100_OPS_PER_S = 67e12       # float32 outside the tensor cores (data sheet)
-# 32-bit operations of one drawn slot in csrc/csr_pick.cuh: threefry's
-# 20 rounds of add, rotate and xor (60), its key injections (17), and the
-# offset (shift, or, fsub, int2float, fmul, floor, float2int, min: 8)
+# The card's issue, for a kernel bound by its instructions (the draw's
+# threefry: integer add, xor and funnel shift). An SM's four schedulers
+# issue at most one warp instruction a clock each (128 thread
+# instructions); its ALU pipe (logic, shift, compare, select, a 3-input
+# add) and the integer side of its FMA pipe (IMAD) take 64 a clock each,
+# and float32 add, multiply and FMA 128 (CUDA's throughput table,
+# compute capability 9.0), so those bound nothing the issue does not.
+# The bound takes what each instruction needs, not the pipe ptxas chose
+# for it: a 2-input add or a move runs on either pipe, and a 3-input add
+# is one ALU instruction or two IMADs (``issue_quotients`` places them
+# where they cost least). The instructions are counted from the built
+# libraries' SASS (``cuobjdump -sass``: ``sass_unit_counts``), at the SM
+# clock nvidia-smi reads as clocks.max.sm
+H100_SMS = 132
+SM_ISSUE_PER_CLOCK, SM_ALU_PER_CLOCK, SM_FMA_PER_CLOCK = 128, 64, 64
+SM_CLOCK_HZ = 1.98e9   # the H100 SXM's clocks.max.sm; main reads the card's
+# the rate the bounds used before the recount: float32 outside the tensor
+# cores (an FMA counted as two operations), with an estimate of 85 32-bit
+# operations a drawn word; kept for the comparison the report prints
+H100_OPS_PER_S = 67e12
 DRAW_OPS = 85
-THREEFRY_OPS = 77   # one threefry2x32 block: 60 round ops + 17 key injections
+# SASS opcodes (before the first '.') by what they need (``sass_need``):
+# the ALU pipe alone, the FMA pipe alone (an integer multiply), or either
+# (a 2-input add, a shift-add or a move); IADD3 is read from its
+# operands. The rest (float32 arithmetic, loads, stores, branches,
+# conversions, uniform-datapath instructions) count only against the
+# issue rate
+ALU_OPCODES = frozenset((
+    'LOP3', 'SHF', 'ISETP', 'SEL', 'IMNMX', 'VIMNMX', 'FSETP', 'FMNMX',
+    'FSEL', 'PRMT', 'PLOP3', 'IABS', 'BMSK', 'SGXT', 'LOP', 'SHL', 'SHR',
+    'P2R', 'R2P'))
+FMA_OPCODES = frozenset((
+    'IMAD', 'IMUL', 'IDP', 'IDP4A', 'HFMA2', 'HADD2', 'HMUL2', 'FCHK'))
+EITHER_OPCODES = frozenset(('MOV', 'VIADD', 'IADD', 'ISCADD'))
+# IMAD forms that add, shift or move (no multiply): either pipe
+IMAD_EITHER = frozenset(('IADD', 'MOV', 'SHL', 'X'))
+ZERO_OPERANDS = frozenset(('RZ', 'URZ', '0x0', '-RZ', '-URZ'))
+# where sass_units found each kernel's counted unit, for the report
+SASS_UNITS = {}
 FANOUTS = [15, 10, 5]
 BATCH = 1024
 FEAT_DIM = 100
@@ -547,9 +592,23 @@ PROFILE_LEAD_S = 0.05
 # the warm-up cycles cost the script
 PROFILE_WARMUPS_S = []
 # the profiled windows recorded again because their trace held no device
-# event (``profiled``), and how many times a window may be
+# event (``profiled``), and how many times a window may be recorded again
+# (for that or for a short count, ``record_window``)
 PROFILE_EMPTY_WINDOWS = []
 PROFILE_EMPTY_RETRIES = 2
+# the windows recorded again because the profiler counted fewer launches
+# of a port kernel than its launch counter: label, the kernels short and by
+# how many, and where the window's device records sit (``record_window``)
+PROFILE_SHORT_WINDOWS = []
+# the windows whose first recording loses one record of a port kernel on
+# purpose (``drop_one_port_record``; once each, the first time the label
+# is recorded): a drill of the re-record on the card at the sites whose
+# ``reset`` or ``Batches`` must put state back (a resumed trainer; a
+# loader's iterator, there rolled into a new epoch). Their entries in
+# PROFILE_SHORT_WINDOWS carry ``drill``; PROFILE_DRILLED lists them
+PROFILE_DRILLS = frozenset(('train tree resume_epoch (warm-up, capture, '
+                            'replay)', 'hetero merge batch'))
+PROFILE_DRILLED = []
 # the CPU recompute of the loop's last train step (cpu_step_readings),
 # held in parts: the ReLU and leaky_relu inputs within PRE_RTOL /
 # PRE_ATOL; the gradients, the CPU following the card's side of 0 at each
@@ -576,11 +635,6 @@ OPS_BEFORE = dict(tree=690, merge=768, train_tree=860, train_merge=1063)
 LINK_FANOUTS, LINK_BATCH, LINK_HIDDEN = [10, 5], 512, 128
 LINK_STEPS = 16                      # one epoch of the seed-edge pool
 NEG_TRIALS = 5                       # random_negative_sample's default
-# the negative kernel's 32-bit operations: four threefry blocks and two
-# uint32 reductions (3 remainders, a product and a sum each) per
-# candidate, and a compare, a select and the index arithmetic (~6) per
-# search round
-NEG_OPS, NEG_ROUND_OPS = 4 * THREEFRY_OPS + 10, 6
 SUB_BATCH = 256                      # the subgraph phase's seeds a batch
 EDGE_FEAT_DIM = 4                    # its edge-feature table's width
 B6_REMOVED_DESIGNS_MS = {'one 32-thread CTA per row, 16-byte vectors': 0.0978,
@@ -600,6 +654,33 @@ def nvidia_smi_line() -> str:
   return proc.stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+  """The card's highest SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+  proc = subprocess.run(
+      ['nvidia-smi', '-i', '0', '--query-gpu=clocks.max.sm',
+       '--format=csv,noheader,nounits'], capture_output=True, text=True,
+      timeout=60)
+  if proc.returncode != 0 or not proc.stdout.strip():
+    raise RuntimeError(f'nvidia-smi failed: {proc.stderr.strip()}')
+  return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+GRAPH_FILES = ('edge_index', 'features', 'labels')
+
+
+def save_graph(directory: str, *arrays):
+  """The script's graph arrays (``make_graph``'s) as .npy files in
+  ``directory``, for the spawned children to map (``load_graph``)."""
+  for name, a in zip(GRAPH_FILES, arrays):
+    np.save(os.path.join(directory, f'{name}.npy'), a)
+
+
+def load_graph(directory: str):
+  """``save_graph``'s arrays, mapped read-only."""
+  return tuple(np.load(os.path.join(directory, f'{name}.npy'), mmap_mode='r')
+               for name in GRAPH_FILES)
+
+
 def make_graph(num_nodes: int, avg_deg: int, seed: int = 0):
   """bench.py's synthetic graph: half the edges uniform, half into a
   zipf(1.5) head; features and labels from the same stream."""
@@ -615,6 +696,93 @@ def make_graph(num_nodes: int, avg_deg: int, seed: int = 0):
   return np.stack([rows, cols]), feats, labels
 
 
+class ShapeTally:
+  """Launches of the kernels never redesigned, by kernel and shape, as
+  this process makes them (``TALLY_SHAPES``: the library function, its
+  ``launch_counts`` name and the shape read from its arguments). A launch
+  outside a capture counts once; one made while a CUDA graph is captured
+  counts at each replay of that graph; none counts while ``paused`` (the
+  measurement loops of ``timed``). ``install`` puts it over
+  ``kernels.lib`` and ``torch.cuda.CUDAGraph``'s capture and replay;
+  ``shapes()`` reads it as ``{kernel: {shape: launches}}``."""
+
+  def __init__(self):
+    self.counts, self.paused = {}, 0
+    self.lock, self.local = threading.Lock(), threading.local()
+
+  def add(self, seen):
+    if self.paused:
+      return
+    with self.lock:
+      for kernel, shape in seen:
+        per = self.counts.setdefault(kernel, {})
+        per[shape] = per.get(shape, 0) + 1
+
+  def launched(self, torch, kernel, shape):
+    graph = getattr(self.local, 'graph', None)
+    if graph is not None and torch.cuda.is_current_stream_capturing():
+      graph._glt_tally.append((kernel, shape))
+    else:
+      self.add([(kernel, shape)])
+
+  def install(self, torch, kernels):
+    tally, lib = self, kernels.lib
+
+    class Lib:
+      def __init__(self, handle):
+        self.handle = handle
+
+      def __getattr__(self, fn):
+        f = getattr(self.handle, fn)
+        if fn not in TALLY_SHAPES:
+          return f
+        kernel, shape_of = TALLY_SHAPES[fn]
+
+        def call(*args):
+          err = f(*args)
+          if err == 0:
+            tally.launched(torch, kernel, shape_of(args))
+          return err
+        return call
+
+    kernels.lib = lambda name: Lib(lib(name))
+    cls = torch.cuda.CUDAGraph
+    begin, end, replay = cls.capture_begin, cls.capture_end, cls.replay
+
+    def capture_begin(graph, *a, **kw):
+      graph._glt_tally = []
+      tally.local.graph = graph
+      return begin(graph, *a, **kw)
+
+    def capture_end(graph, *a, **kw):
+      tally.local.graph = None
+      return end(graph, *a, **kw)
+
+    def graph_replay(graph, *a, **kw):
+      tally.add(getattr(graph, '_glt_tally', ()))
+      return replay(graph, *a, **kw)
+
+    cls.capture_begin, cls.capture_end, cls.replay = (
+        capture_begin, capture_end, graph_replay)
+
+  def shapes(self) -> dict:
+    with self.lock:
+      return {k: {json.dumps(list(sh)): n for sh, n in per.items()}
+              for k, per in self.counts.items()}
+
+
+# the library functions ShapeTally counts: (launch_counts name, the
+# launch's shape from the function's arguments)
+TALLY_SHAPES = {
+    'glt_uniform_draw': ('uniform_draw', lambda a: (a[1],)),
+    'glt_step_keys': ('step_keys', lambda a: (a[2], a[3])),
+    'glt_dist_step_keys': ('dist_step_keys', lambda a: (a[2], a[3], a[4])),
+    'glt_negative_sample': ('negative_sample', lambda a: (a[7],)),
+    'glt_negative_sample_local': ('negative_sample_local', lambda a: (a[8],)),
+}
+TALLY = ShapeTally()
+
+
 def timed(torch, fn, reps: int, device, setup=None):
   """(result, device ms, call ms): medians over ``reps`` calls after one
   warm-up call. The device ms is taken between CUDA events with the call
@@ -624,6 +792,14 @@ def timed(torch, fn, reps: int, device, setup=None):
   clock. ``setup`` (restoring state a call changes) runs before every
   call, outside the timed span."""
   setup = setup or (lambda: None)
+  TALLY.paused += 1
+  try:
+    return _timed(torch, fn, reps, device, setup)
+  finally:
+    TALLY.paused -= 1
+
+
+def _timed(torch, fn, reps, device, setup):
   setup()
   out = fn()
   dev_times, call_times = [], []
@@ -659,21 +835,281 @@ def timed3(torch, fn, reps: int, device):
   return runs[-1][0], [r[1] for r in runs], [r[2] for r in runs]
 
 
-def bound_ms(nbytes: int, ops: int = 0) -> float:
+def issue_quotients(instr, clock_hz: float = None, sms: int = H100_SMS):
+  """The least ms the card's issue takes for ``instr`` (thread
+  instructions by need, ``sass_pipes``' keys), by each limit: the ALU
+  pipe's and the FMA pipe's 64 a clock per SM and the schedulers' 128 a
+  clock per SM, over ``sms`` SMs at ``clock_hz``. The 2-input adds
+  (``either``) go where there is room, which the issue limit covers; of
+  the 3-input adds, the share ``y`` that runs as two IMADs each is the
+  one that makes the largest quotient least (the quotients are linear
+  in ``y``, so the least lies where the falling ALU quotient crosses a
+  rising one, or at an end)."""
+  rate = sms * (clock_hz or SM_CLOCK_HZ) / 1e3     # SM clocks a ms
+  alu, fma, add3, total = (instr.get(k, 0) for k in ('alu', 'fma', 'add3',
+                                                     'total'))
+
+  def clocks(y):
+    return dict(alu=(alu + add3 - y) / SM_ALU_PER_CLOCK,
+                fma=(fma + 2 * y) / SM_FMA_PER_CLOCK,
+                issue=(total + y) / SM_ISSUE_PER_CLOCK)
+
+  ys = [0, add3] + [min(max(y, 0), add3) for y in (
+      (alu + add3 - fma) / 3, (2 * (alu + add3) - total) / 3)]
+  best = min((clocks(y) for y in ys), key=lambda c: max(c.values()))
+  return {k: v / rate for k, v in best.items()}
+
+
+def issue_ms(instr, clock_hz: float = None) -> float:
+  """The issue model's least time: the largest of its quotients."""
+  return max(issue_quotients(instr, clock_hz).values()) if instr else 0.0
+
+
+def bound_ms(nbytes: int, instr=None) -> float:
   """The least time for the work: the larger of the bytes over the card's
-  memory rate and the 32-bit operations over its scalar rate."""
-  return max(nbytes / H100_BYTES_PER_S, ops / H100_OPS_PER_S) * 1e3
+  memory rate and the issue model's time for the thread instructions
+  ``instr`` (``issue_ms``)."""
+  return max(nbytes / H100_BYTES_PER_S * 1e3, issue_ms(instr))
 
 
-def bound_by(nbytes: int, ops: int = 0) -> str:
-  return 'bytes' if nbytes / H100_BYTES_PER_S >= ops / H100_OPS_PER_S \
-      else 'operations'
+def bound_by(nbytes: int, instr=None) -> str:
+  return ('bytes' if nbytes / H100_BYTES_PER_S * 1e3 >= issue_ms(instr)
+          else 'operations')
 
 
-def draw_ops(deg, seed_mask, k: int) -> int:
-  """32-bit operations of the in-kernel draws this hop runs: one threefry
-  and offset per slot of a valid seed with deg > k (the rest take j)."""
-  return int(((deg > k) & seed_mask).sum()) * k * DRAW_OPS
+def instructions(units: dict) -> dict:
+  """Thread instructions by need of ``units`` (``{name: count}``:
+  SASS_UNITS' unit ``name`` run ``count`` times), as ``issue_quotients``
+  takes them; empty where the SASS was not read (a rehearsal)."""
+  out = {}
+  for name, n in units.items():
+    unit = SASS_UNITS.get(name)
+    if unit is None:
+      continue
+    for need, per in unit.items():
+      out[need] = out.get(need, 0) + int(n) * per
+  return out
+
+
+SASS_LINE = re.compile(r'/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?'
+                       r'([A-Z][A-Z0-9_.]*)([^;]*);')
+# the counted unit of each operation-bound kernel: (library, kernel
+# function, how its unit is found in the SASS):
+#   'loop'   the loop that stores the output, per store (a drawn word);
+#   'all'    the whole kernel (one thread a key, no loop);
+#   'search' the grid-stride loop of a candidate, its unrolled search
+#            split off: per candidate, and per search round (the gap
+#            between the search's exits); 'search+count' also the
+#            loop without a store (block thread 0's count of owned rows),
+#            per round of that count;
+#   'draw'   the least region a forward branch skips that holds a
+#            threefry block's 20 funnel shifts (a slot's draw)
+SASS_UNIT_SPECS = (
+    ('uniform_draw.word', 'uniform_draw', 'uniform_draw_kernel', 'loop'),
+    ('step_keys.key', 'step_keys', 'step_keys_kernel', 'all'),
+    ('dist_step_keys.key', 'step_keys', 'dist_step_keys_kernel', 'all'),
+    ('negative_sample', 'negative_sample', 'negative_sample_kernel',
+     'search'),
+    ('negative_sample_local', 'negative_sample',
+     'negative_sample_local_kernel', 'search+count'),
+    ('sample_hop.draw', 'sample_hop', 'hop_slot_kernel', 'draw'),
+    ('sample_level.draw', 'sample_level', 'pick_kernel', 'draw'),
+)
+
+
+def sass_functions(text: str) -> dict:
+  """``cuobjdump -sass`` output as ``{function: [(address, opcode,
+  operands)]}``, NOPs and the dead self-branch after the last EXIT (and
+  what follows it) dropped."""
+  out, cur = {}, None
+  for line in text.splitlines():
+    m = re.search(r'Function : (\S+)', line)
+    if m:
+      cur = out.setdefault(m.group(1), [])
+      continue
+    m = SASS_LINE.search(line)
+    if m and cur is not None and m.group(2) != 'NOP':
+      cur.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+  for ins in out.values():
+    for j, (addr, op, arg) in enumerate(ins):
+      if op == 'BRA' and _sass_target(arg) == addr:
+        del ins[j:]
+        break
+  return out
+
+
+def _sass_target(arg: str):
+  m = re.fullmatch(r'`?\(?0x([0-9a-f]+)\)?`?', arg.strip())
+  return int(m.group(1), 16) if m else None
+
+
+def sass_need(op: str, arg: str):
+  """What SASS instruction ``op`` (``arg`` its operands) needs:
+  ``'alu'``, ``'fma'``, ``'either'``, ``'add3'`` (a 3-input add: one ALU
+  instruction or two IMADs) or None (the issue only). An IADD3 that
+  writes a carry predicate stays on the ALU pipe; one with a zero source
+  is a 2-input add."""
+  base, _, mods = op.partition('.')
+  if base == 'IADD3':
+    regs = [a.strip() for a in arg.split(',')][1:]
+    carry = bool(regs) and re.fullmatch(r'!?P[0-6T]', regs[0]) is not None
+    srcs = [a for a in regs if not re.fullmatch(r'!?U?P[0-6T]', a)][:3]
+    if carry:
+      return 'alu'
+    return 'add3' if sum(a not in ZERO_OPERANDS for a in srcs) > 2 \
+        else 'either'
+  if base == 'IMAD':
+    return 'either' if mods.split('.')[0] in IMAD_EITHER else 'fma'
+  if base == 'LEA':
+    return 'alu' if mods.startswith('HI') else 'either'
+  if base in EITHER_OPCODES:
+    return 'either'
+  if base in ALU_OPCODES:
+    return 'alu'
+  return 'fma' if base in FMA_OPCODES else None
+
+
+def sass_pipes(ins) -> dict:
+  """Instructions of ``ins`` by need (``sass_need``): ``alu`` and ``fma``
+  (that pipe alone), ``either``, ``add3`` and ``total`` (every one
+  issues)."""
+  out = dict(alu=0, fma=0, either=0, add3=0, total=len(ins))
+  for _, op, arg in ins:
+    need = sass_need(op, arg)
+    if need is not None:
+      out[need] += 1
+  return out
+
+
+def _sass_branches(ins):
+  """``(index, target index)`` of each branch to a known address."""
+  at = {addr: j for j, (addr, _, _) in enumerate(ins)}
+  out = []
+  for j, (_, op, arg) in enumerate(ins):
+    t = _sass_target(arg) if op == 'BRA' else None
+    if t in at:
+      out.append((j, at[t]))
+  return out
+
+
+def sass_unit(ins, how: str) -> dict:
+  """The counted unit(s) of one kernel's instructions (SASS_UNIT_SPECS):
+  ``{suffix: {alu, fma, total}}``."""
+  def stores(lo, hi):
+    return sum(op.startswith('STG') for _, op, _ in ins[lo:hi + 1])
+
+  branches = _sass_branches(ins)
+  loops = [(t, j) for j, t in branches if t <= j]      # [head, branch]
+  if how == 'all':
+    return {'': sass_pipes(ins)}
+  if how == 'draw':
+    regions = [ins[j + 1:t] for j, t in branches if t > j]
+    regions = [r for r in regions
+               if sum(op.startswith('SHF.L.W') for _, op, _ in r) >= 20]
+    return {'': sass_pipes(min(regions, key=len))}
+  lo, hi = max((lp for lp in loops if stores(*lp)),
+               key=lambda lp: lp[1] - lp[0])
+  whole = sass_pipes(ins[lo:hi + 1])
+  if how == 'loop':
+    return {'': {k: v / stores(lo, hi) for k, v in whole.items()}}
+  # the search's exits: the loop's forward branches that most share one
+  # target
+  exits = {}
+  for j, t in branches:
+    if lo <= j <= hi and t > j:
+      exits.setdefault(t, []).append(j)
+  ex = max(exits.values(), key=len)
+  k = len(ex) // 2
+  rnd = sass_pipes(ins[ex[k - 1] + 1:ex[k] + 1])
+  out = {'.candidate': {p: whole[p] - len(ex) * rnd[p] for p in whole},
+         '.round': rnd}
+  if how == 'search+count':
+    a, b = min((lp for lp in loops if not stores(*lp)),
+               key=lambda lp: lp[1] - lp[0])
+    out['.count_round'] = sass_pipes(ins[a:b + 1])
+  return out
+
+
+def sass_unit_counts(texts: dict) -> dict:
+  """SASS_UNITS from ``{library: cuobjdump -sass text}``: each spec's
+  kernel found by its mangled name (``<length><name>E``)."""
+  units = {}
+  for name, lib, fn, how in SASS_UNIT_SPECS:
+    fns = sass_functions(texts[lib])
+    mangled = [k for k in fns if f'{len(fn)}{fn}E' in k]
+    if len(mangled) != 1:
+      raise RuntimeError(f'SASS of {lib}: {fn} found {len(mangled)} times')
+    for suffix, counts in sass_unit(fns[mangled[0]], how).items():
+      units[name + suffix] = counts
+  return units
+
+
+def read_sass(kernels) -> dict:
+  """``cuobjdump -sass`` of each library SASS_UNIT_SPECS reads, from the
+  libraries this run built (``kernels``: graphlearn_tpu_torch.ops.kernels)."""
+  tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin',
+                      'cuobjdump')
+  if not os.path.exists(tool):
+    tool = shutil.which('cuobjdump')
+  if tool is None:
+    raise RuntimeError('cuobjdump not found (set CUDA_HOME): the operation '
+                       'bounds are counted from the kernels\' SASS')
+  procs = {lib: subprocess.Popen([tool, '-sass', str(kernels._lib_path(lib))],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+           for lib in sorted({spec[1] for spec in SASS_UNIT_SPECS})}
+  texts = {}
+  for lib, proc in procs.items():       # all started together
+    out, err = proc.communicate(timeout=120)
+    if proc.returncode != 0:
+      raise RuntimeError(f'cuobjdump -sass {lib}: {err.strip()}')
+    texts[lib] = out
+  return texts
+
+
+def bound_record(nbytes: int, instr, fill: float, ms: float) -> dict:
+  """A kernel record's bound fields: ``bound_ms`` / ``bound_by`` from its
+  ``nbytes`` and SASS instructions ``instr``, the issue model's
+  quotients, the fill floor ``fill`` (``fill_ms``), the yardstick (the
+  larger of the bound and the fill) and its share of the kernel's
+  ``ms``."""
+  bound = bound_ms(nbytes, instr)
+  yard = max(bound, fill)
+  return dict(bound_ms=bound, bound_by=bound_by(nbytes, instr),
+              bytes=nbytes, instructions=instr or None,
+              issue_ms=issue_quotients(instr) if instr else None,
+              fill_ms=fill, yardstick_ms=yard,
+              yardstick_share=yard / ms if ms else None)
+
+
+def bound_text(rec: dict) -> str:
+  """A log line's account of ``bound_record``'s fields."""
+  text = (f'bound_ms={rec["bound_ms"]:.6f} ({rec["bound_by"]}: '
+          f'{rec["bytes"]} B')
+  if rec['instructions']:
+    i, q = rec['instructions'], rec['issue_ms']
+    text += (f'; SASS instructions: ALU only {i["alu"]:.0f}, FMA only '
+             f'{i["fma"]:.0f}, either pipe {i["either"]:.0f}, 3-input adds '
+             f'{i["add3"]:.0f}, all {i["total"]:.0f}: ALU pipe '
+             f'{q["alu"]:.6f} ms, FMA pipe {q["fma"]:.6f}, issue '
+             f'{q["issue"]:.6f} at {SM_CLOCK_HZ / 1e6:.0f} MHz')
+  return (text + f') fill_ms={rec["fill_ms"]:.4f} yardstick '
+          f'{rec["yardstick_ms"]:.6f} ms, '
+          f'{(rec["yardstick_share"] or 0):.1%} of the kernel\'s')
+
+
+def drawing_slots(deg, seed_mask, k: int) -> int:
+  """Slots whose in-kernel draw runs: those of a valid seed with deg > k
+  (the rest take j)."""
+  return int(((deg > k) & seed_mask).sum()) * k
+
+
+def fill_ms(torch, outs, device, reps: int) -> float:
+  """The fill floor of a kernel whose outputs are ``outs``: ``timed``
+  device ms of ``fill_(0)`` on one uint8 tensor of their bytes."""
+  nbytes = sum(t.numel() * t.element_size() for t in outs)
+  buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+  return timed(torch, lambda: buf.fill_(0), reps, device)[1]
 
 
 def _event(torch, cuda):
@@ -737,13 +1173,14 @@ def kernel_phase(torch, gtt, ds, device, gen, reps, pool):
                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, call_ms=call_ms,
                       plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms,
-                      bound_ms=bound_ms(nbytes), bytes=nbytes,
-                      every_slot_ms=bound_ms(every), launch_shape=shape))
+                      every_slot_ms=bound_ms(every), launch_shape=shape,
+                      **bound_record(nbytes, None, fill_ms(
+                          torch, [got], device, reps), ms)))
     log(f'kernel gather_rows {name}: ids={b} exact={exact} '
         f'ms={ms:.4f} plain_ms={plain_ms:.4f} index_select_ms={lib_ms:.4f} '
-        f'bound_ms={bound_ms(nbytes):.4f} every_slot_ms='
-        f'{bound_ms(every):.4f}; call ms {call_ms:.4f} '
-        f'{plain_call_ms:.4f} {lib_call_ms:.4f}; launch shape {shape}')
+        f'{bound_text(cases[-1])} every_slot_ms={bound_ms(every):.4f}; call '
+        f'ms {call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f}; launch '
+        f'shape {shape}')
     assert exact, f'gather_rows {name}: kernel != plain version'
   records['gather_rows'] = cases
   # ---- K3 the fused hop: hops 0-2 of a products batch, hubs at hop 2
@@ -808,7 +1245,9 @@ def negative_case(torch, gtt, g, device, reps, num):
   rounds = int(np.where(deg > 0, np.floor(np.log2(np.maximum(deg, 1))) + 1,
                         0).sum())
   nbytes = 16 + total * (2 * 4 + 4 + 9) + rounds * 4
-  ops_n = total * NEG_OPS + rounds * NEG_ROUND_OPS
+  ops_n = instructions({'negative_sample.candidate': total,
+                        'negative_sample.round': rounds})
+  fill = fill_ms(torch, cand, device, reps)
   valid = int(cand[2].sum())
   rec = dict(num_samples=num, candidates=total, span=n, exact=exact,
              max_abs_err=err, valid_candidates=valid,
@@ -817,13 +1256,11 @@ def negative_case(torch, gtt, g, device, reps, num):
              full_ms=full_ms, full_call_ms=full_call_ms,
              full_plain_ms=full_plain_ms,
              full_plain_call_ms=full_plain_call_ms, library_ms=None,
-             bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             **bound_record(nbytes, ops_n, fill, ms))
   log(f'kernel negative_sample {total} candidates (span {n}): exact={exact} '
       f'valid={valid} launches/call={per_call} ms={ms:.4f} (call '
       f'{call_ms:.4f}) plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) '
-      f'bound_ms={rec["bound_ms"]:.6f} ({rec["bound_by"]}: {nbytes} B, '
-      f'{ops_n} ops, {rounds} search rounds); with the partition: '
+      f'{bound_text(rec)}, {rounds} search rounds; with the partition: '
       f'ms={full_ms:.4f} (call {full_call_ms:.4f}) plain_ms='
       f'{full_plain_ms:.4f} (call {full_plain_call_ms:.4f}); library_ms '
       'null (no PyTorch call draws jax.random.randint\'s words)')
@@ -850,18 +1287,22 @@ def draw_case(torch, gtt, device, reps, shape):
       torch, lambda: gtt.random.uniform(key, shape, device), reps, device)
   exact = bool(torch.equal(got, ref))
   n = int(np.prod(shape))
-  nbytes, ops_n = 16 + 4 * n, DRAW_OPS * n
+  nbytes = 16 + 4 * n
+  ops_n = instructions({'uniform_draw.word': n})
   rec = dict(shape=list(shape), words=n, exact=exact,
              max_abs_err=float((got - ref).abs().max()),
              launches_per_call=per_call, ms=ms, call_ms=call_ms,
              plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=None,
-             bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             **bound_record(nbytes, ops_n, fill_ms(torch, [got], device,
+                                                   reps), ms),
+             bound_at_67t_ms=max(nbytes / H100_BYTES_PER_S,
+                                 DRAW_OPS * n / H100_OPS_PER_S) * 1e3)
   log(f'kernel uniform_draw {list(shape)}: exact={exact} launches/call='
       f'{per_call} ms={ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} '
-      f'(call {plain_call_ms:.4f}) bound_ms={rec["bound_ms"]:.4f} '
-      f'({rec["bound_by"]}: {nbytes} B, {ops_n} ops); library_ms null '
-      '(torch.rand is Philox, not the same function)')
+      f'(call {plain_call_ms:.4f}) {bound_text(rec)} (before the recount: '
+      f'{DRAW_OPS} operations a word over 67 T/s, '
+      f'{rec["bound_at_67t_ms"]:.4f} ms); library_ms null (torch.rand is '
+      'Philox, not the same function)')
   assert exact, f'uniform_draw {shape}: kernel != plain version'
   assert per_call == (1 if device.type == 'cuda' else 0), per_call
   return rec
@@ -886,15 +1327,15 @@ def step_keys_case(torch, gtt, device, reps):
   exact = bool(torch.equal(got, ref))
   keys = TRAIN_CHUNK * hops
   nbytes = 2 * 8 + 8 + keys * 2 * 8
-  ops_n = keys * 2 * THREEFRY_OPS
+  ops_n = instructions({'step_keys.key': keys})
   rec = dict(steps=TRAIN_CHUNK, hops=hops, exact=exact,
              max_abs_err=float((got - ref).abs().max()), ms=ms,
              call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-             bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             **bound_record(nbytes, ops_n, fill_ms(torch, [got], device,
+                                                   reps), ms))
   log(f'kernel step_keys: [{TRAIN_CHUNK}, {hops}, 2] keys exact={exact} '
-      f'ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={rec["bound_ms"]:.6f} '
-      f'({rec["bound_by"]}); call ms {call_ms:.4f} {plain_call_ms:.4f}')
+      f'ms={ms:.4f} plain_ms={plain_ms:.4f} {bound_text(rec)}; call ms '
+      f'{call_ms:.4f} {plain_call_ms:.4f}')
   assert exact, 'step_keys: kernel != plain version'
   return rec
 
@@ -948,19 +1389,22 @@ def hop_case(torch, gtt, g, device, gen, reps, hop):
   uniq_rows = int(torch.unique(safe).numel())
   uniq_e = int(torch.unique(ref[1][valid]).numel())
   nbytes = b * 5 + uniq_rows * 8 + uniq_e * 4 + b * k * 9
-  ops_n = draw_ops(rows[:, 1], seed_mask, k)
+  drawn = drawing_slots(rows[:, 1], seed_mask, k)
+  ops_n = instructions({'sample_hop.draw': drawn})
   rec = dict(hop=hop, seeds=b, k=k, hubs=n_hub, valid_picks=int(valid.sum()),
              unique_rows=uniq_rows, unique_elements=uniq_e, exact=exact,
              max_abs_err=err, launches_per_call=per_call, ms=ms,
              call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              indexing_ms=lib_ms, indexing_call_ms=lib_call_ms,
-             library_ms=None, bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             library_ms=None, drawn_slots=drawn,
+             **bound_record(nbytes, ops_n, fill_ms(torch, got, device, reps),
+                            ms))
   log(f'kernel sample_hop (fused) hop {hop}: seeds={b} k={k} hubs={n_hub} '
       f'exact={exact} launches/call={per_call} ms={ms:.4f} '
       f'(call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call '
-      f'{plain_call_ms:.4f}) indices[epos]_ms={lib_ms:.4f} bound_ms={rec["bound_ms"]:.4f} ({rec["bound_by"]}: {nbytes} B, '
-      f'{ops_n} ops); no single PyTorch call draws and picks: library_ms null')
+      f'{plain_call_ms:.4f}) indices[epos]_ms={lib_ms:.4f} '
+      f'{bound_text(rec)} (the draw of {drawn} slots); no single PyTorch '
+      'call draws and picks: library_ms null')
   assert exact, f'sample_hop hop {hop}: kernel != plain version'
   assert per_call == (1 if device.type == 'cuda' else 0), per_call
   return rec
@@ -1040,14 +1484,18 @@ def time_level(torch, call, reps, device):
   # block and the two counts
   nbytes = f * 9 + uniq_rows * 8 + uniq_e * 4 + nn * 4 + size * 23 + \
       limit * 4 + 8
-  ops_n = draw_ops(rows[:, 1], seed_mask, k)
+  drawn = drawing_slots(rows[:, 1], seed_mask, k)
+  ops_n = instructions({'sample_level.draw': drawn})
+  outs = [got[0].nodes, got[2], got[3]] + [
+      v for v in got[1].values() if torch.is_tensor(v)]
   rec = dict(frontier=f, k=k, candidates=size, prefix=c, num_nodes=nn,
              limit=limit, valid=int(valid.sum()),
              num_new=int(got[1]['num_new']), exact=not diff, differ=diff,
              max_abs_err=err, launches_per_call=per_call, ms=ms,
              call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-             library_ms=None, bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             library_ms=None, drawn_slots=drawn,
+             **bound_record(nbytes, ops_n, fill_ms(torch, outs, device, reps),
+                            ms))
   return rec, got
 
 
@@ -1119,9 +1567,9 @@ def level_phase(torch, gtt, loader, device, gen, reps):
         f'num_new={rec["num_new"]} exact={rec["exact"]} '
         f'launches/call={rec["launches_per_call"]} ms={rec["ms"]:.4f} (call '
         f'{rec["call_ms"]:.4f}) plain_ms={rec["plain_ms"]:.4f} (call '
-        f'{rec["plain_call_ms"]:.4f}) bound_ms={rec["bound_ms"]:.4f} '
-        f'({rec["bound_by"]}: {rec["bytes"]} B, {rec["ops"]} ops); no single '
-        'PyTorch call computes this function: library_ms null')
+        f'{rec["plain_call_ms"]:.4f}) {bound_text(rec)} (the draw of '
+        f'{rec["drawn_slots"]} slots); no single PyTorch call computes this '
+        'function: library_ms null')
     assert rec['exact'], f'sample_level level {i}: differs in {rec["differ"]}'
     assert rec['launches_per_call'] == (3 if cuda else 0), rec
   # ---- an extra call: hubs, duplicates, all-found and all-masked seeds
@@ -1349,8 +1797,107 @@ def profile_phases(torch, gtt, ds, device, mode, caps, reps: int = 3):
   return result
 
 
+class Batches:
+  """``next`` of a loader's iterator ``it`` as a call, going on into a new
+  epoch of ``loader`` once ``it`` ends: a profiled window recorded again
+  takes more batches than the epoch was sized for. ``it`` is the iterator
+  in use, ``rolled`` whether it is a new epoch's; ``first(batch)``, where
+  given, sees each batch of the first epoch it hands out."""
+
+  def __init__(self, loader, it, first=None):
+    self.loader, self.it, self.first = loader, it, first
+    self.rolled = False
+
+  def __call__(self):
+    try:
+      batch = next(self.it)
+    except StopIteration:
+      self.it, self.rolled = iter(self.loader), True
+      return next(self.it)
+    if self.first is not None and not self.rolled:
+      self.first(batch)
+    return batch
+
+
+def port_launch_counts() -> dict:
+  """The launch counters of the port's kernels the profiler names
+  (PORT_KERNELS)."""
+  from graphlearn_tpu_torch import ops
+  return {k: v for k, v in ops.launch_counts().items() if k in PORT_KERNELS}
+
+
+def count_verdict(seen: dict, want: dict):
+  """``(verdict, short)`` of the profiler's kernel counts ``seen`` against
+  the launch counters ``want``: 'over' when some kernel was seen more
+  often than launched, else 'short' when some was seen less often, else
+  'exact'; ``short`` maps each kernel seen less often to how many
+  fewer."""
+  if any(seen.get(k, 0) > v for k, v in want.items()) or \
+      any(k not in want and c for k, c in seen.items()):
+    return 'over', {}
+  short = {k: v - seen.get(k, 0) for k, v in want.items()
+           if seen.get(k, 0) < v}
+  return ('short' if short else 'exact'), short
+
+
+def record_window(record, label, kernels_of, empty=None, expect=None,
+                  reset=None, where=None, drop=None):
+  """``record() -> (trace, wall)``, recorded again (at most
+  PROFILE_EMPTY_RETRIES times) while the profiler plainly lost records:
+  when ``empty(trace)`` (no device event at all), or when ``expect()``
+  (the launch counters, read after the window) finds the trace's port
+  kernels (``kernels_of(trace)``) short of them and none over. A window
+  with a kernel over its counter is never recorded again; a window still
+  short after the retries is returned as it is. The caller's check on
+  the returned window stays exact. ``reset()`` runs before each new
+  recording (what the window changed and the next recording needs put
+  back); ``where(trace)`` describes where the device records sit, for
+  PROFILE_SHORT_WINDOWS. ``drop(trace)``, where given, takes records out
+  of the first recording (a drill: ``PROFILE_DRILLS``). Returns
+  ``(trace, wall)``."""
+  trace, wall = record()
+  drilled = drop is not None
+  if drilled:
+    trace = drop(trace)
+  for _ in range(PROFILE_EMPTY_RETRIES):
+    if empty is not None and empty(trace):
+      PROFILE_EMPTY_WINDOWS.append(label)
+      log(f'profile {label}: the trace holds no device event; recording '
+          'the window again')
+    elif expect is None:
+      break
+    else:
+      verdict, short = count_verdict(kernels_of(trace), expect())
+      if verdict != 'short':
+        break
+      entry = dict(label=label, short=short, **(where(trace) if where
+                                                else {}))
+      if drilled:
+        entry['drill'] = True
+      drilled = False
+      PROFILE_SHORT_WINDOWS.append(entry)
+      log(f'profile {label}: the profiler counted fewer launches than the '
+          f'counters ({entry}); recording the window again')
+    if reset is not None:
+      reset()
+    trace, wall = record()
+  return trace, wall
+
+
+def drop_one_port_record(trace):
+  """``trace`` (``trace_records``') less its first device record of a
+  port kernel (PORT_KERNELS): a window that lost a record, made on
+  purpose."""
+  dev, window = trace
+  for j, (name, _, _, _) in enumerate(dev):
+    if any(_names_kernel(name, f) for fns in PORT_KERNELS.values()
+           for f in fns):
+      return dev[:j] + dev[j + 1:], window
+  return trace
+
+
 def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
-             warmup=None):
+             warmup=None, expect=None, reset=None):
   """torch.profiler over ``reps`` calls of ``fn`` (warmed up by the
   caller): wall ms per call (host clock, synchronised), device-busy ms
   per call (the union of the kernel and copy intervals the profiler saw),
@@ -1359,25 +1906,36 @@ def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
   a call made in the profiler's warm-up cycle (tracing on, its records
   dropped; ``torch.profiler.schedule``), which takes the window's first
   device records where they get lost (see PROFILE_LEAD_S), before the
-  recorded calls."""
-  from torch.autograd import DeviceType
+  recorded calls. ``expect``: a callable giving the launch counters of
+  the port's kernels after the window (``port_launch_counts``); a window
+  whose port kernels the profiler counted short of them is recorded
+  again (``record_window``), after ``reset()`` where the window changed
+  state the next recording needs back (a warm-up that sets the counters
+  to 0 needs none)."""
   from torch.profiler import ProfilerActivity, profile, schedule
   cuda = device.type == 'cuda'
   sync = torch.cuda.synchronize if cuda else (lambda: None)
   acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
 
-  def device_events(events):
-    # user annotations (the optimizer's Optimizer.step#Adam.step) also
-    # appear on the device timeline; they are ranges, not device work
-    return [e for e in events if e.device_type == DeviceType.CUDA and
-            not getattr(e, 'is_user_annotation', False) and
-            not e.name.startswith('Optimizer.')]
+  def trace_of(p):
+    # the profile's records read raw (``trace_records``); the first
+    # window is also read through torch's own events(), and the two must
+    # agree on its device records
+    trace = trace_records(p.profiler.kineto_results.events(), raw=True)
+    if not PROFILE_RAW_CHECK:
+      slow = trace_records(p.events(), raw=False)
+      PROFILE_RAW_CHECK.append(dict(label=label, raw=len(trace[0]),
+                                    events=len(slow[0])))
+      assert records_agree(trace, slow), (
+          'profiler: the raw device records differ from events()\'s',
+          PROFILE_RAW_CHECK)
+    return trace
 
   def record():
     ready = []
     kw = {} if warmup is None else dict(
         schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-        on_trace_ready=lambda p: ready.append(p.events()))
+        on_trace_ready=lambda p: ready.append(trace_of(p)))
     sync()
     with profile(activities=acts, **kw) as prof:
       if warmup is not None:
@@ -1399,31 +1957,40 @@ def profiled(torch, fn, reps, device, label, lead_s=PROFILE_LEAD_S,
       wall = (time.perf_counter() - t0) * 1e3 / reps
       if warmup is not None:
         prof.step()
-    return (prof.events() if warmup is None else ready[-1]), wall
+    return (trace_of(prof) if warmup is None else ready[-1]), wall
 
-  events, wall = record()
+  def kernels_of(trace):
+    counts = {}
+    for name, _, _, _ in trace[0]:
+      counts[name] = counts.get(name, 0) + 1
+    return kernel_counts(counts)
+
   # a window with a warm-up whose trace holds no device event at all: the
   # profiler lost the whole window (once in a proof run, a GAT train
   # step's: 0 device ops in 43 ms of wall), not a path that ran no
-  # kernel; it is recorded again, warm-up included (at most twice), and
-  # every check on the recorded window stands as before
-  for _ in range(PROFILE_EMPTY_RETRIES):
-    if not cuda or warmup is None or device_events(events):
-      break
-    PROFILE_EMPTY_WINDOWS.append(label)
-    log(f'profile {label}: the trace holds no device event; recording the '
-        'window again')
-    events, wall = record()
+  # kernel. A window whose port kernels fall short of the counters lost
+  # part of its records (C9: a captured dist_scan epoch's trace held 92
+  # of its 96 K1 launches). Either is recorded again, warm-up included
+  # (at most twice), and every check on the recorded window stands as
+  # before
+  drill = cuda and expect is not None and label in PROFILE_DRILLS and \
+      label not in PROFILE_DRILLED
+  if drill:
+    PROFILE_DRILLED.append(label)
+  trace, wall = record_window(
+      record, label, kernels_of,
+      empty=(lambda tr: not tr[0]) if cuda and warmup is not None else None,
+      expect=expect if cuda else None, reset=reset, where=window_placement,
+      drop=drop_one_port_record if drill else None)
   spans, per_name, counts, launches = [], {}, {}, 0
   total, streams = 0.0, set()
-  for e in device_events(events):
+  for name, start, end, stream in trace[0]:
     launches += 1
-    spans.append((e.time_range.start, e.time_range.end))
-    total += e.time_range.end - e.time_range.start
-    streams.add(getattr(e, 'device_resource_id', None))
-    per_name[e.name] = per_name.get(e.name, 0.0) + \
-        e.time_range.elapsed_us() / 1e3 / reps
-    counts[e.name] = counts.get(e.name, 0) + 1
+    spans.append((start, end))
+    total += end - start
+    streams.add(stream)
+    per_name[name] = per_name.get(name, 0.0) + (end - start) / 1e3 / reps
+    counts[name] = counts.get(name, 0) + 1
   busy, end = 0.0, -1.0
   for a, b in sorted(spans):
     if b > end:
@@ -1468,6 +2035,77 @@ def _names_kernel(device_name: str, fn: str) -> bool:
         return True
       at = device_name.find(fn + tail, at + 1)
   return False
+
+
+# the first profiled window's device records counted both ways (raw and
+# through events()): ``trace_records``' one check against torch's reading
+PROFILE_RAW_CHECK = []
+
+
+def trace_records(events, raw: bool):
+  """A profile's records as ``(device, (first, last))``: ``device`` the
+  device records that are device work, ``(name, start us, end us,
+  stream)`` (user annotations, such as the optimizer's
+  Optimizer.step#Adam.step, are ranges on the device timeline, not
+  work), and the window's first start and last end over every record,
+  host or device. ``events``: kineto's raw records (``raw``, read as
+  they come: torch's events() first builds a tree of every host op) or
+  torch's FunctionEvents."""
+  from torch.autograd import DeviceType
+  device, first, last = [], None, None
+  for e in events:
+    if raw:
+      name, start, end = e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3
+      kind, stream = e.device_type(), e.device_resource_id()
+      note = e.is_user_annotation()
+    else:
+      name, start, end = e.name, e.time_range.start, e.time_range.end
+      kind, stream = e.device_type, getattr(e, 'device_resource_id', None)
+      note = getattr(e, 'is_user_annotation', False)
+    first = start if first is None else min(first, start)
+    last = end if last is None else max(last, end)
+    if kind == DeviceType.CUDA and not note and \
+        not name.startswith('Optimizer.'):
+      device.append((name, start, end, stream))
+  return device, (first, last)
+
+
+def records_agree(a, b) -> bool:
+  """Two readings of one profile hold the same device records: the same
+  names, each name's durations alike to 1 us (one reading may truncate
+  to whole us)."""
+  def key(tr):
+    return sorted((n, e - s) for n, s, e, _ in tr[0])
+  ka, kb = key(a), key(b)
+  return len(ka) == len(kb) and all(
+      n == m and abs(x - y) <= 1.0 + 1e-6 for (n, x), (m, y) in zip(ka, kb))
+
+
+def window_placement(trace) -> dict:
+  """Where a trace's device records sit in its window (ms from the
+  window's first record, host or device): the first and last device
+  records, the window's span, the device records by stream, and the
+  first and last of each port kernel the trace holds."""
+  dev, (t0, t1) = trace
+  if t0 is None:
+    return {}
+  span = (t1 - t0) / 1e3
+  if not dev:
+    return dict(window_ms=span, device_records=0)
+  streams, kern = {}, {}
+  for name, start, _, stream in dev:
+    streams[str(stream)] = streams.get(str(stream), 0) + 1
+    for k, fns in PORT_KERNELS.items():
+      if any(_names_kernel(name, f) for f in fns):
+        at = (start - t0) / 1e3
+        lo, hi = kern.get(k, (at, at))
+        kern[k] = (min(lo, at), max(hi, at))
+  return dict(window_ms=span, device_records=len(dev),
+              first_device_ms=(min(r[1] for r in dev) - t0) / 1e3,
+              last_device_ms=(max(r[2] for r in dev) - t0) / 1e3,
+              streams=streams,
+              port_kernels_ms={k: [round(a, 3), round(b, 3)]
+                               for k, (a, b) in kern.items()})
 
 
 def kernel_counts(counts) -> dict:
@@ -1797,14 +2435,15 @@ def gather_runs_phase(torch, table, n, device, reps, probe_rows,
                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
                library_ms=lib_ms, library_call_ms=lib_call_ms,
                k1_ms=k1_ms, k1_call_ms=k1_call_ms,
-               bound_ms=bound_ms(nbytes), bytes=nbytes)
+               **bound_record(nbytes, None, fill_ms(torch, [got], device,
+                                                    reps), ms))
     records.append(rec)
     log(f'kernel gather_runs {name}: ids={b} table={rec["table"]} '
         f'presorted={presorted} run_share jax_plan={run_share:.3f} '
         f'kernel_tiles={tile_share:.3f} (kernel plan == mirror: '
         f'{plan_equal}) exact={exact} '
         f'ms={ms:.4f} plain_ms={plain_ms:.4f} index_select_ms={lib_ms:.4f} '
-        f'k1_ms={k1_ms:.4f} bound_ms={rec["bound_ms"]:.4f}; call ms '
+        f'k1_ms={k1_ms:.4f} {bound_text(rec)}; call ms '
         f'{call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f} {k1_call_ms:.4f}')
     assert exact, f'gather_runs {name}: kernel != plain version'
     assert plan_equal is not False, f'gather_runs {name}: kernel plan != mirror'
@@ -2412,9 +3051,9 @@ def train_phase(torch, gtt, ds, device, mode, caps, pool, steps, chunk,
       # 0: a window without one can lose its first device records (C6)
       prof = profiled(torch, epoch, 1, device,
                       f'train {mode} ScanTrainer epoch ({name})',
-                      warmup=lambda: (epoch(), ops.reset_launch_counts()))
-      counted = {k: v for k, v in ops.launch_counts().items()
-                 if k in PORT_KERNELS}
+                      warmup=lambda: (epoch(), ops.reset_launch_counts()),
+                      expect=port_launch_counts)
+      counted = port_launch_counts()
       prof['per_step'] = dict(device_ops=prof['device_ops_per_call'] / steps,
                               device_busy_ms=prof['device_busy_ms'] / steps,
                               wall_ms=prof['wall_ms'] / steps)
@@ -2651,24 +3290,35 @@ def program_phase(torch, gtt, ds, device, mode, caps, pool, steps, smi,
   # the resumed trainer's first chunk
   at_crash = snap_of(victim.model, sv.optimizer)
   del victim, sv
-  resumed, template = fresh(gtt.loader.ScanTrainer, weights=None,
-                            chunk_size=ck_chunk)
-  params = list(resumed.model.parameters())
+  run, grab, out = {}, {}, {}
+
+  def fresh_resumed():
+    # a fresh trainer (an earlier recording's goes, its graphs with it),
+    # the counters from 0: what the window below changes
+    run.clear()
+    grab.clear()
+    out.clear()
+    tr, template = fresh(gtt.loader.ScanTrainer, weights=None,
+                         chunk_size=ck_chunk)
+
+    def ack(c, s0, k):
+      if s0 + k == cut + ck_chunk:
+        grab['state'] = snap_of(tr.model, tr._chunk_carry['state'].optimizer)
+
+    tr.ack_hook = ack
+    run.update(trainer=tr, template=template)
+    ops.reset_launch_counts()
+
+  fresh_resumed()
+  params = list(run['trainer'].model.parameters())
   assert apart(params, ref[3]['state'][:len(params)]) > PARAMS_LIMIT
-  grab = {}
-
-  def ack(c, s0, k):
-    if s0 + k == cut + ck_chunk:
-      grab['state'] = snap_of(resumed.model, resumed._chunk_carry[
-          'state'].optimizer)
-
-  resumed.ack_hook = ack
-  out = {}
-  ops.reset_launch_counts()
+  del params
   prof = profiled(torch, lambda: out.update(zip(
       ('state', 'losses', 'accs'), ChunkCheckpointer(crash_dir).resume_epoch(
-          resumed, template))), 1, device,
-      f'train {mode} resume_epoch (warm-up, capture, replay)')
+          run['trainer'], run['template']))), 1, device,
+      f'train {mode} resume_epoch (warm-up, capture, replay)',
+      expect=port_launch_counts, reset=fresh_resumed)
+  resumed = run['trainer']
   launched = ops.launch_counts()
   rep['launch_runs'].append(launched)
   counted = {k: v for k, v in launched.items() if k in PORT_KERNELS}
@@ -2707,7 +3357,7 @@ def program_phase(torch, gtt, ds, device, mode, caps, pool, steps, smi,
       f'{PARAMS_LIMIT}), at the epoch\'s end {end_diff:.3g} from the '
       f'uninterrupted epoch\'s; hop keys exact; profiler kernels '
       f'{prof["kernels"]} == counters')
-  del resumed, template
+  del resumed, run
 
   # ---- 2. RunTrainer against a ScanTrainer from A's state after two
   # epochs, chunk by chunk
@@ -3775,7 +4425,82 @@ def padded_window_times(torch, gtt, g, device, gen, reps):
   return out
 
 
-def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi):
+PADDED_REBUILD_SEED = 1   # the padded table's reseed: the second epoch's
+PADDED_REBUILD_THREADS = 2   # the rebuild child's torch threads
+
+
+def padded_rebuild_main(directory, window, seed, threads):
+  """A spawned child: the padded table's CPU rebuild
+  (``ops.build_padded_adjacency_device`` on the CPU, from
+  ``PRNGKey(seed)``) over the CPU graph's arrays in ``directory``,
+  written there as ``tab.npy`` and ``deg.npy`` with its seconds in
+  ``rebuild.json``."""
+  import torch
+
+  import graphlearn_tpu_torch as gtt
+  torch.set_num_threads(threads)
+  indptr, indices = (torch.from_numpy(np.load(os.path.join(directory,
+                                                           f'{k}.npy')))
+                     for k in ('indptr', 'indices'))
+  t0 = time.perf_counter()
+  tab, deg, _ = gtt.ops.build_padded_adjacency_device(
+      indptr, indices, window, gtt.random.PRNGKey(seed))
+  took = time.perf_counter() - t0
+  for name, t in (('tab', tab), ('deg', deg)):
+    np.save(os.path.join(directory, f'{name}.npy'), t.numpy())
+  with open(os.path.join(directory, 'rebuild.json'), 'w') as fh:
+    json.dump(dict(window=window, seed=seed, threads=threads, seconds=took),
+              fh)
+
+
+def padded_rebuild_start(gtt, graph) -> dict:
+  """Starts the modes phase's CPU rebuild of the padded table in a
+  spawned child (``padded_rebuild_main``, PADDED_REBUILD_THREADS torch
+  threads, no card), at the window ``padded_window='auto'`` picks for
+  FANOUTS and the reseed's key, so the phase finds it done."""
+  import multiprocessing as mp
+  import tempfile
+  directory = tempfile.mkdtemp(prefix='glt_padded_')
+  np.save(os.path.join(directory, 'indptr.npy'), graph.indptr.numpy())
+  np.save(os.path.join(directory, 'indices.npy'), graph.indices.numpy())
+  window = gtt.ops.choose_padded_window(FANOUTS)
+  proc = mp.get_context('spawn').Process(
+      target=padded_rebuild_main,
+      args=(directory, window, PADDED_REBUILD_SEED, PADDED_REBUILD_THREADS),
+      daemon=True)        # ended with the script if it fails before modes
+  proc.start()
+  return dict(proc=proc, directory=directory, window=window,
+              seed=PADDED_REBUILD_SEED)
+
+
+def padded_rebuild_take(torch, started, window, seed):
+  """``(table, degrees, rebuild seconds)`` of the child
+  (``padded_rebuild_start``) once it ends. The child built the window and
+  key the phase picks (``window``, ``seed``); where they differ, the
+  script's constants have drifted from the sampler's and this fails. The
+  child is joined and its directory removed either way."""
+  proc = started['proc']
+  proc.join(600)
+  if proc.is_alive():
+    proc.kill()
+    proc.join()
+  try:
+    assert (window, seed) == (started['window'], started['seed']), (
+        'the padded rebuild child built another table', (window, seed),
+        (started['window'], started['seed']))
+    if proc.exitcode != 0:
+      raise AssertionError(f'padded rebuild child exited {proc.exitcode}')
+    with open(os.path.join(started['directory'], 'rebuild.json')) as fh:
+      took = json.load(fh)['seconds']
+    return tuple(torch.from_numpy(np.load(os.path.join(
+        started['directory'], f'{name}.npy'))) for name in ('tab', 'deg')
+                 ) + (took,)
+  finally:
+    shutil.rmtree(started['directory'], ignore_errors=True)
+
+
+def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi,
+                rebuild):
   """The products example's other modes at full width, each: a captured
   ScanTrainer (K = ``chunk``) and an eager one from the same weights, one
   warm-up epoch each, then, from the captured trainer's state, one timed
@@ -3788,7 +4513,9 @@ def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi):
   largest logit), before a profiled third epoch of the captured trainer
   (device busy per step; the profiler's kernels equal to the counters).
   The padded mode also checks its reseeded table: not the first epoch's,
-  and equal to a CPU rebuild from the same key."""
+  and equal to a CPU rebuild from the same key (``rebuild``: the child
+  ``padded_rebuild_start`` started, which built it beside the earlier
+  phases)."""
   import copy
 
   from graphlearn_tpu_torch import ops
@@ -3869,18 +4596,19 @@ def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi):
       assert not torch.equal(tab, first_tab), 'the reseed kept the table'
       assert torch.equal(tab, eag._sampler._padded_arrays()['tab'])
       t1 = time.perf_counter()
-      cg = cpu_ds.graph
-      cpu_tab, cpu_deg, _ = gtt.ops.build_padded_adjacency_device(
-          cg.indptr, cg.indices, sampler.padded_window,
-          gtt.random.PRNGKey(sampler._padded_seed))
+      cpu_tab, cpu_deg, child_s = padded_rebuild_take(
+          torch, rebuild, sampler.padded_window, sampler._padded_seed)
+      wait_s = time.perf_counter() - t1
       assert torch.equal(tab.cpu(), cpu_tab), 'card table != CPU rebuild'
       table = dict(window=sampler.padded_window, seed=sampler._padded_seed,
                    changed_rows=int((tab != first_tab).any(1).sum()),
-                   cpu_rebuild_s=time.perf_counter() - t1)
+                   cpu_rebuild_s=child_s, child_wait_s=wait_s)
       log(f'modes {name}: reseeded table (seed {table["seed"]}, W='
           f'{table["window"]}) differs from the first in '
           f'{table["changed_rows"]} rows and equals the CPU rebuild from the '
-          f'same key ({table["cpu_rebuild_s"]:.1f} s on the CPU)')
+          f'same key ({table["cpu_rebuild_s"]:.1f} s on the CPU in a child '
+          f'beside the earlier phases, waited {table["child_wait_s"]:.1f} '
+          's)')
     # one sampled batch through the entry points, recomputed on the CPU
     cmodel.eval()
     seeds = pool[:BATCH]
@@ -3939,10 +4667,10 @@ def modes_phase(torch, gtt, dss, cpu_dss, device, pool, steps, chunk, smi):
     # (C6)
     prof = profiled(torch, epoch, 1, device,
                     f'modes {name} ScanTrainer epoch (captured)',
-                    warmup=lambda: (epoch(), ops.reset_launch_counts()))
+                    warmup=lambda: (epoch(), ops.reset_launch_counts()),
+                    expect=port_launch_counts)
     cstate = holder[0]
-    counted = {k: v for k, v in ops.launch_counts().items()
-               if k in PORT_KERNELS}
+    counted = port_launch_counts()
     assert prof['kernels'] == counted, (name, prof['kernels'], counted)
     rec = dict(
         loader=kw, bf16=bf16, steps=steps, chunk_size=chunk,
@@ -4225,14 +4953,16 @@ def link_run(torch, gtt, ds, device, pool, steps, name, kw, smi):
     # of 2 runs, where a process running the link phase alone lost none)
     gc.collect()
 
+    more = Batches(loader, it)
+
     def loop_step():
-      step_fn(state, train.link_batch_to_dict(next(it)))
+      step_fn(state, train.link_batch_to_dict(more()))
 
     # a step in the profiler's warm-up cycle, then the counters from 0
     prof = profiled(torch, loop_step, 1, device, f'link {name} loop step',
-                    warmup=lambda: (loop_step(), ops.reset_launch_counts()))
-    counted = {k: v for k, v in ops.launch_counts().items()
-               if k in PORT_KERNELS}
+                    warmup=lambda: (loop_step(), ops.reset_launch_counts()),
+                    expect=port_launch_counts)
+    counted = port_launch_counts()
     assert prof['kernels'] == counted, (prof['kernels'], counted)
     assert counted['negative_sample'] == 1, counted
     prof['launch_counters'] = counted
@@ -4456,8 +5186,10 @@ def hetero_batches(torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b,
   0 before and read after (the hop kernel once per plan item, the row
   gather once per featured type); the last batch equal to the CPU's from
   the same sampler state, bit for bit; one more batch under
-  torch.profiler (its kernels equal to the counters); the rest of the
-  epoch drained, no batch truncated (merge)."""
+  torch.profiler (its kernels equal to the counters), the epoch drained
+  but two batches before it, so a window recorded again goes on into the
+  next epoch (``Batches``); no batch of the first epoch truncated
+  (merge), every one of them counted."""
   from graphlearn_tpu_torch import ops
   cuda = device.type == 'cuda'
   loader = hetero_loader(gtt, ex, ds, pool, device, kind, caps, b)
@@ -4465,9 +5197,10 @@ def hetero_batches(torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b,
                              kind, caps, b)
   items = hetero_items(gtt, ex, b, caps if kind == 'merge' else None)
   it = iter(loader)
-  next(it)                      # the first use of the graphs and tables
+  # the first use of the graphs and tables
+  flags = [next(it).metadata['overflow']]
   ops.reset_launch_counts()
-  per, batches, flags = [], [], []
+  per, batches = [], []
   for i in range(nb):
     if i == nb - 1:
       state = loader.sampler.state_dict()
@@ -4497,15 +5230,23 @@ def hetero_batches(torch, gtt, ex, ds, cpu_ds, pool, device, kind, caps, b,
              edges={str(et): int(m.sum())
                     for et, m in want.edge_mask.items()})
   if cuda:
-    prof = profiled(torch, lambda: next(it), 1, device,
-                    f'hetero {kind} batch',
-                    warmup=lambda: (next(it), ops.reset_launch_counts()))
-    counted = {k: v for k, v in ops.launch_counts().items()
-               if k in PORT_KERNELS}
+    assert len(loader) >= len(flags) + 2, (len(loader), len(flags))
+    for _ in range(len(loader) - len(flags) - 2):
+      flags.append(next(it).metadata['overflow'])
+    more = Batches(loader, it,
+                   first=lambda batch: flags.append(batch.metadata['overflow']))
+    prof = profiled(torch, more, 1, device, f'hetero {kind} batch',
+                    warmup=lambda: (more(), ops.reset_launch_counts()),
+                    expect=port_launch_counts)
+    counted = port_launch_counts()
     assert prof['kernels'] == counted, (prof['kernels'], counted)
     rec['profile_batch'] = prof
+    rec['profile_rolled_epoch'] = more.rolled
+    it = iter(()) if more.rolled else more.it
   for batch in it:              # the epoch's end: the overflow guard's check
     flags.append(batch.metadata['overflow'])
+  # every batch of the first epoch, and only those
+  assert len(flags) == len(loader), (kind, len(flags), len(loader))
   rec['truncated_batches'] = int(torch.stack(flags).sum())
   assert rec['truncated_batches'] == 0, rec['truncated_batches']
   med = float(np.median(per))
@@ -4749,13 +5490,15 @@ def loop_train(torch, gtt, loader, model_on, num_classes, steps, expect,
     rep['host_sync_kinds'] = kinds
     assert syncs == 0, (label, kinds)
 
+    more = Batches(loader, it)
+
     def loop_step():
-      step_fn(state, to_dict(next(it)))
+      step_fn(state, to_dict(more()))
 
     prof = profiled(torch, loop_step, 1, loader.device, f'{label} step',
-                    warmup=lambda: (loop_step(), ops.reset_launch_counts()))
-    counted = {k: v for k, v in ops.launch_counts().items()
-               if k in PORT_KERNELS}
+                    warmup=lambda: (loop_step(), ops.reset_launch_counts()),
+                    expect=port_launch_counts)
+    counted = port_launch_counts()
     assert prof['kernels'] == counted, (prof['kernels'], counted)
     prof['launch_counters'] = counted
     rep['profile_step'] = prof
@@ -6360,15 +7103,15 @@ def dist_keys_case(torch, gtt, device, reps, k, nparts, hops):
   exact = bool(torch.equal(got, ref))
   keys = k * nparts * hops
   nbytes = 2 * 8 + 8 + keys * 2 * 8
-  ops_n = keys * 3 * THREEFRY_OPS
+  ops_n = instructions({'dist_step_keys.key': keys})
   rec = dict(steps=k, parts=nparts, hops=hops, exact=exact,
              max_abs_err=float((got - ref).abs().max()), ms=ms,
              call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-             bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             **bound_record(nbytes, ops_n, fill_ms(torch, [got], device,
+                                                   reps), ms))
   log(f'kernel dist_step_keys: [{k}, {nparts}, {hops}, 2] keys exact={exact} '
-      f'ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={rec["bound_ms"]:.6f} '
-      f'({rec["bound_by"]}); call ms {call_ms:.4f} {plain_call_ms:.4f}')
+      f'ms={ms:.4f} plain_ms={plain_ms:.4f} {bound_text(rec)}; call ms '
+      f'{call_ms:.4f} {plain_call_ms:.4f}')
   assert exact, 'dist_step_keys: kernel != plain version'
   return rec
 
@@ -6725,9 +7468,9 @@ def dist_scan_phase(torch, gtt, ei, feats, labels, device, smi, built=None):
         states[id(t)] = t.run_epoch(states[id(t)])[0]
       prof = profiled(torch, epoch, 1, device, f'dist_scan tree epoch '
                       f'({name})', warmup=lambda: (epoch(),
-                                                   ops.reset_launch_counts()))
-      counted = {k: v for k, v in ops.launch_counts().items()
-                 if k in PORT_KERNELS}
+                                                   ops.reset_launch_counts()),
+                      expect=port_launch_counts)
+      counted = port_launch_counts()
       assert prof['kernels'] == counted, (name, prof['kernels'], counted,
                                           prof['port_kernel_names'])
       rep['tree'][f'profile_{name}'] = dict(
@@ -7088,28 +7831,45 @@ def negative_local_case(torch, gtt, garr, sorted_loc, num_dst, num, device,
   deg = (ptr_h[rows + 1] - ptr_h[rows]).astype(np.float64)
   rounds = int(np.where(deg > 0, np.floor(np.log2(np.maximum(deg, 1))) + 1,
                         0).sum())
-  blocks = min(-(-total // 256), 132 * 16)
-  count_rounds = blocks * int(np.ceil(np.log2(max(rid.shape[0], 2))))
-  nbytes = 16 + 4 + total * (2 * 4 + 4 + 9) + (rounds + count_rounds) * 4
-  ops_n = total * (NEG_OPS + 1) + (rounds + count_rounds) * NEG_ROUND_OPS
   owned = int(cand[3])
+  # the count's steps run in one warp a block (32 lanes a step)
+  blocks = min(-(-total // 256), 132 * 16)
+  count_rounds = blocks * 32 * count_search_steps(rid.shape[0], owned)
+  nbytes = 16 + 4 + total * (2 * 4 + 4 + 9) + (rounds + count_rounds) * 4
+  ops_n = instructions({'negative_sample_local.candidate': total,
+                        'negative_sample_local.round': rounds,
+                        'negative_sample_local.count_round': count_rounds})
   rec = dict(num_samples=num, candidates=total, owned_rows=owned,
              span=num_dst, exact=exact, max_abs_err=err,
              valid=int(got[2].sum()), launches_per_call=per_call, ms=ms,
              call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              full_ms=full_ms, full_plain_ms=full_plain_ms, library_ms=None,
-             bound_ms=bound_ms(nbytes, ops_n),
-             bound_by=bound_by(nbytes, ops_n), bytes=nbytes, ops=ops_n)
+             search_rounds=rounds, count_rounds=count_rounds,
+             **bound_record(nbytes, ops_n, fill_ms(torch, cand, device, reps),
+                            ms))
   log(f'kernel negative_sample_local {total} candidates of shard 0 '
       f'({owned} owned rows, span {num_dst}): exact={exact} strict-valid='
       f'{rec["valid"]} launches/call={per_call} ms={ms:.4f} (call '
       f'{call_ms:.4f}) plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) '
-      f'bound_ms={rec["bound_ms"]:.6f} ({rec["bound_by"]}); with the '
+      f'{bound_text(rec)}, {rounds} search rounds; with the '
       f'partition ms={full_ms:.4f} plain_ms={full_plain_ms:.4f}; library_ms '
       'null')
   assert exact, 'negative_sample_local: kernel != plain version'
   assert per_call == (1 if device.type == 'cuda' else 0), per_call
   return rec
+
+
+def count_search_steps(n: int, owned: int) -> int:
+  """Steps of the loop of the local negative kernel's 32-ary count
+  search (``csrc/negative_sample.cu``) over ``n`` row ids of which the
+  first ``owned`` are not padding."""
+  lo, hi, steps = 0, n, 0
+  while hi - lo > 32:
+    step = -(-(hi - lo) // 32)
+    below = min(32, max(owned - lo, 0) // step)
+    lo, hi = lo + below * step, min(hi, lo + (below + 1) * step - 1)
+    steps += 1
+  return steps
 
 
 def dmore_counted(torch, cuda, fn, n):
@@ -7138,9 +7898,9 @@ def dmore_profile(torch, fn, device, label):
   largest device ops; its kernels equal to the counters."""
   from graphlearn_tpu_torch import ops
   prof = profiled(torch, fn, 1, device, label,
-                  warmup=lambda: (fn(), ops.reset_launch_counts()))
-  counted = {k: v for k, v in ops.launch_counts().items()
-             if k in PORT_KERNELS}
+                  warmup=lambda: (fn(), ops.reset_launch_counts()),
+                  expect=port_launch_counts)
+  counted = port_launch_counts()
   assert prof['kernels'] == counted, (label, prof['kernels'], counted)
   return dict(idle_share=prof['idle_share'], busy_ms=prof['device_busy_ms'],
               wall_ms=prof['wall_ms'], device_ops=prof['device_ops_per_call'],
@@ -7254,8 +8014,8 @@ def dmore_link(torch, gtt, dg, cpu_dg, store, topo, feats_t, device, smi,
     if cuda:
       _, syncs, kinds = count_syncs(torch, lambda: next(it))
       assert syncs == 0, (mode, kinds)
-      prof = dmore_profile(torch, lambda: next(it), device, f'dist link '
-                           f'{mode} batch')
+      prof = dmore_profile(torch, Batches(loader, it), device,
+                           f'dist link {mode} batch')
       assert prof['kernels']['negative_sample_local'] == nparts, prof
     out[mode] = dict(ms=ms, wall_ms=wall, launches=counts, checked_slots=seen,
                      cpu_check_s=check_s, valid_negatives=neg_pairs,
@@ -7505,8 +8265,9 @@ def dmore_typed(torch, gtt, device, smi, rep):
     if cuda:
       _, syncs, kinds = count_syncs(torch, lambda: next(it))
       assert syncs == 0, (kind, kinds)
-      prof = dmore_profile(torch, lambda: next(it), device,
-                           f'dist typed {kind} batch')
+      more = Batches(loader, it)
+      prof = dmore_profile(torch, more, device, f'dist typed {kind} batch')
+      it = more.it
     for _ in it:
       pass                                  # the overflow guard's check
     out[kind] = dict(ms=ms, wall_ms=wall, launches=counts, items=items,
@@ -7881,7 +8642,7 @@ def remote_server_main(topo, feats, labels, q, device_name):
     engine = gtt.serving.ServingEngine(store, buckets=SERVE_BUCKETS).start()
     host, port = gtt.distributed.init_server(1, 1, 0, ds)
     gtt.distributed.get_server().register_serving_engine(engine)
-    q.put(('ready', host, port, os.getpid()))
+    q.put(('ready', host, port, (os.getpid(), time.time())))
     gtt.distributed.wait_and_shutdown_server()
     engine.stop()
     q.put(('done', rings, None, None))
@@ -8226,14 +8987,38 @@ def remote_typed(torch, gtt, device, smi, rep):
               channel_size=channel_size)
 
 
-def remote_server_client(torch, gtt, topo, feats, labels, cpu_ds, device,
-                         smi, rep):
-  """A ``DistServer`` in a child process holds the script's dataset on
-  the card (two workers a producer); this process is the client over
-  loopback: ``RemoteDistNeighborLoader`` for four products steps (the
-  workers' batches exact against the CPU at the server-folded seeds),
-  then four ``serve`` RPCs against the registered engine (gather v2)."""
+def server_spawn(target, *args) -> dict:
+  """A server child (``remote_server_main`` or
+  ``remote_scan_server_main``) spawned on ``args``, its queue put
+  between the dataset and the rest: ``{server, q, t0}`` (t0 the host's
+  wall clock at the spawn, which the child's ready message is read
+  against)."""
   import multiprocessing as mp
+  ctx = mp.get_context('spawn')
+  q = ctx.Queue()
+  t0 = time.time()
+  server = ctx.Process(target=target, args=args[:3] + (q,) + args[3:])
+  server.start()
+  return dict(server=server, q=q, t0=t0)
+
+
+def server_ready(started, what):
+  """``(host, port, start-up s)`` once the server child is ready."""
+  kind, host, port, spid = started['q'].get(timeout=READY_S)
+  if kind != 'ready':
+    raise RuntimeError(f'{what} server failed to start:\n{host}')
+  return host, port, spid[1] - started['t0']
+
+
+def remote_server_client(torch, gtt, topo, feats, labels, cpu_ds, device,
+                         smi, rep, started):
+  """A ``DistServer`` in a child process (``started``: ``server_spawn``
+  of ``remote_server_main`` at the phase's start, so its start-up runs
+  beside the mp loaders) holds the script's dataset on the card (two
+  workers a producer); this process is the client over loopback:
+  ``RemoteDistNeighborLoader`` for four products steps (the workers'
+  batches exact against the CPU at the server-folded seeds), then four
+  ``serve`` RPCs against the registered engine (gather v2)."""
   import pickle
 
   from graphlearn_tpu_torch import distributed as gdist
@@ -8241,18 +9026,10 @@ def remote_server_client(torch, gtt, topo, feats, labels, cpu_ds, device,
   from graphlearn_tpu_torch.models import train
   cuda = device.type == 'cuda'
   n = topo.num_nodes
-  ctx = mp.get_context('spawn')
-  q = ctx.Queue()
-  t0 = time.perf_counter()
-  server = ctx.Process(target=remote_server_main,
-                       args=(topo, feats, labels, q, str(device)))
-  server.start()
+  server, q = started['server'], started['q']
   out = dict(server_pid=server.pid)
   try:
-    kind, host, port, spid = q.get(timeout=READY_S)
-    if kind != 'ready':
-      raise RuntimeError(f'remote server failed to start:\n{host}')
-    out['server_start_s'] = time.perf_counter() - t0
+    host, port, out['server_start_s'] = server_ready(started, 'remote')
     gdist.init_client(1, 1, 0, [(host, port)])
     seed = 1            # folded: (1 * 7919 + 0) * 1000003 + rank > 2**32
     pool = np.random.default_rng(12).permutation(n)[:BATCH * REMOTE_STEPS]
@@ -8407,12 +9184,21 @@ def remote_phase(torch, gtt, ds, cpu_ds, topo, feats, labels, device, smi):
   t_phase = time.perf_counter()
   rings = live_channel_count()
   rep = dict(launch_runs=[], rings=[])
-  rep['mp'] = remote_mp(torch, gtt, ds, cpu_ds, device, smi, rep)
-  rep['typed'] = remote_typed(torch, gtt, device, smi, rep)
+  # the server child starts now: its start-up (the import, the dataset
+  # on the card) runs while the mp loaders' workers start and run
+  started = server_spawn(remote_server_main, topo, feats, labels,
+                         str(device))
+  try:
+    rep['mp'] = remote_mp(torch, gtt, ds, cpu_ds, device, smi, rep)
+    rep['typed'] = remote_typed(torch, gtt, device, smi, rep)
+  except BaseException:
+    started['server'].kill()
+    started['server'].join()
+    raise
   if device.type == 'cuda':
     torch.cuda.empty_cache()
   rep['server_client'] = remote_server_client(
-      torch, gtt, topo, feats, labels, cpu_ds, device, smi, rep)
+      torch, gtt, topo, feats, labels, cpu_ds, device, smi, rep, started)
   left = dict(rings_open=live_channel_count() - rings,
               rings_made=len(rep['rings']),
               rings_alive=rings_alive(rep['rings']),
@@ -8663,7 +9449,8 @@ def remote_scan_phase(torch, gtt, topo, feats, labels, cpu_ds, device, smi):
   its chunk losses within rtol 1e-4 of the eager ones; a timed captured
   epoch of replays only (one upload and one replay a chunk, 0 host
   syncs); a profiled one; a bf16-wire epoch; the server's launches a
-  block batch (K4 10, K1 1); then the typed epoch (:func:`rscan_typed`).
+  block batch (K4 10, K1 1). The typed epoch (:func:`rscan_typed`) runs
+  first, while the server child starts.
   Afterwards no ring, no child process and no IPC warning."""
   import multiprocessing as mp
   import tempfile
@@ -8682,17 +9469,14 @@ def remote_scan_phase(torch, gtt, topo, feats, labels, cpu_ds, device, smi):
   rings0 = live_channel_count()
   rep = dict(steps=steps, chunk=chunk, batch=b, launch_runs=[], rings=[])
   err_path = os.path.join(tempfile.mkdtemp(prefix='rscan_'), 'server.err')
-  ctx = mp.get_context('spawn')
-  q = ctx.Queue()
-  t0 = time.perf_counter()
-  server = ctx.Process(target=remote_scan_server_main,
-                       args=(topo, feats, labels, q, str(device), err_path))
-  server.start()
+  started = server_spawn(remote_scan_server_main, topo, feats, labels,
+                         str(device), err_path)
+  server, q = started['server'], started['q']
   try:
-    kind, host, port, _ = q.get(timeout=READY_S)
-    if kind != 'ready':
-      raise RuntimeError(f'remote_scan server failed to start:\n{host}')
-    rep['server_start_s'] = time.perf_counter() - t0
+    # the typed epoch (a server of its own, in this process) runs while
+    # the products server child starts
+    rep['typed'] = rscan_typed(torch, gtt, device, smi, rep)
+    host, port, rep['server_start_s'] = server_ready(started, 'remote_scan')
     gdist.init_client(1, 1, 0, [(host, port)])
     pool = np.random.default_rng(21).permutation(n)[:b * steps]
     cfg_seed = RSCAN_SEED * 7919 + 0
@@ -8906,7 +9690,6 @@ def remote_scan_phase(torch, gtt, topo, feats, labels, cpu_ds, device, smi):
     server_err = fh.read()
   if server_err.strip():
     log('remote_scan server stderr (tail): ' + server_err[-2000:])
-  rep['typed'] = rscan_typed(torch, gtt, device, smi, rep)
   left = dict(rings_open=live_channel_count() - rings0,
               rings_made=len(rep['rings']),
               rings_alive=rings_alive(rep['rings']),
@@ -9099,6 +9882,7 @@ def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
     torch.cuda.synchronize()
   exact = bool(torch.equal(got, ref))
   err = float((got.float() - ref.float()).abs().max())
+  fill = fill_ms(torch, [got], device, reps)
   uniq = torch.unique(rows.clamp(0, n - 1))
   n_cold_u = int((uniq >= h).sum())
   row = hot.shape[1] * hot.element_size()
@@ -9115,7 +9899,7 @@ def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
              call_ms=call_ms, ms_runs=ms_runs, call_ms_runs=call_runs,
              plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              jax_design_ms=plain_call_ms, bound_ms=bound, bound_by='bytes',
-             hbm_bytes=hbm, cold_bytes=pcie,
+             fill_ms=fill, hbm_bytes=hbm, cold_bytes=pcie,
              cold_bytes_per_s=cold_rate, pinned_bytes_per_s=rate,
              library_ms=None,
              read_only_mapping=(gtt.ops.mapped.lookup(cold).read_only
@@ -9131,7 +9915,8 @@ def hot_cold_kernel_case(torch, gtt, re, id2index, rows, split, device,
       f' GB/s beside the pinned {rate / 1e9:.2f} GB/s; plain (the JAX '
       f'design: sync, host gather, pinned copy, index_copy_) ms='
       f'{plain_ms:.4f} call_ms={plain_call_ms:.4f}; bound_ms={bound:.4f} '
-      f'(HBM {hbm / 1e6:.1f} MB, PCIe at {rate / 1e9:.2f} GB/s); read-only '
+      f'(HBM {hbm / 1e6:.1f} MB, PCIe at {rate / 1e9:.2f} GB/s) fill_ms='
+      f'{fill:.4f}; read-only '
       f'mapping {rec["read_only_mapping"]} on {smi}')
   assert exact, f'gather_unified split={split}: kernel != plain version'
   assert not cuda or fetched == n_cold_u, (
@@ -9151,6 +9936,97 @@ def tree_batch_rows(torch, gtt, ds, id2index, pool, device):
   return torch.where(node < 0, 0, i2i[node.clamp(min=0).long()]).contiguous()
 
 
+class SameDraws:
+  """``make_graph`` of the papers example, drawn once for the script's
+  two builds of it: the hot/cold phase's ``build`` and the tiered phase's
+  ``build_tiered`` draw the same synthetic from ``default_rng(0)``. A
+  call with arguments and a generator state in ``kept``
+  (``papers_draw_take``'s: the draw a child made) gets copies of those
+  arrays, and its generator is left where that draw left it, so every
+  later draw is as it was; any other call fails (the child drew another
+  synthetic than the builds ask for). ``fn`` is the example's own
+  ``make_graph``, put back after the builds."""
+
+  def __init__(self, fn, kept):
+    self.fn, self.kept = fn, dict(kept)
+
+  @staticmethod
+  def key(args, state) -> str:
+    return json.dumps([[int(a) for a in args], state], sort_keys=True)
+
+  def __call__(self, *args):
+    *args, rng = args
+    key = self.key(args, rng.bit_generator.state)
+    if key not in self.kept:
+      raise AssertionError(f'papers draw: no draw kept for {args} from '
+                           'this generator state')
+    out, after = self.kept[key]
+    rng.bit_generator.state = after
+    return tuple(np.copy(a) for a in out)
+
+
+def papers_argv(cuda: bool) -> list:
+  """The papers example's size in this script (PAPERS_NODES on a card)."""
+  return (['--num-nodes', str(PAPERS_NODES), '--hot-gb', str(PAPERS_HOT_GB)]
+          if cuda else ['--num-nodes', '20000', '--hot-gb', '0.004'])
+
+
+PAPERS_DRAW = ('edge_rows', 'edge_cols', 'features', 'labels')
+
+
+def papers_draw_main(directory, args):
+  """A spawned child (no card): the papers example's ``make_graph(*args,
+  default_rng(0))``, its arrays and the generator's states before and
+  after written to ``directory``."""
+  from graphlearn_tpu_torch.examples import train_sage_papers_scale as pex
+  rng = np.random.default_rng(0)
+  before = rng.bit_generator.state
+  out = pex.make_graph(*args, rng)
+  for name, a in zip(PAPERS_DRAW, out):
+    np.save(os.path.join(directory, f'{name}.npy'), a)
+  with open(os.path.join(directory, 'draw.json'), 'w') as fh:
+    json.dump(dict(args=list(args), before=before,
+                   after=rng.bit_generator.state), fh)
+
+
+def papers_draw_start(cuda: bool) -> dict:
+  """Starts ``papers_draw_main`` at the example's size here (its
+  parser's ``avg_deg`` and ``feat_dim``), so the hot/cold and tiered
+  builds find the synthetic drawn."""
+  import multiprocessing as mp
+  import tempfile
+  from graphlearn_tpu_torch.examples import train_sage_papers_scale as pex
+  a = pex.parser().parse_args(papers_argv(cuda))
+  directory = tempfile.mkdtemp(prefix='glt_papers_')
+  proc = mp.get_context('spawn').Process(
+      target=papers_draw_main,
+      args=(directory, (a.num_nodes, a.avg_deg, a.feat_dim)), daemon=True)
+  proc.start()
+  return dict(proc=proc, directory=directory)
+
+
+def papers_draw_take(started) -> dict:
+  """``SameDraws``' ``kept`` from the child ``papers_draw_start`` started,
+  once it ends (joined, its directory removed)."""
+  proc = started['proc']
+  proc.join(600)
+  try:
+    if proc.is_alive() or proc.exitcode != 0:
+      raise AssertionError(f'papers draw child: exit {proc.exitcode}')
+    d = started['directory']
+    with open(os.path.join(d, 'draw.json')) as fh:
+      meta = json.load(fh)
+    out = tuple(np.load(os.path.join(d, f'{name}.npy'))
+                for name in PAPERS_DRAW)
+    return {SameDraws.key(meta['args'], meta['before']): (out,
+                                                          meta['after'])}
+  finally:
+    if proc.is_alive():
+      proc.kill()
+      proc.join()
+    shutil.rmtree(started['directory'], ignore_errors=True)
+
+
 def papers_path(torch, gtt, device, smi, rate):
   """The papers-scale example's hot/cold mode through the port's entry
   points (``Dataset.init_node_features(sort_func=sort_by_in_degree,
@@ -9167,9 +10043,8 @@ def papers_path(torch, gtt, device, smi, rate):
   from graphlearn_tpu_torch.examples import train_sage_papers_scale as papers
   from graphlearn_tpu_torch.models import train
   cuda = device.type == 'cuda'
-  argv = (['--num-nodes', str(PAPERS_NODES), '--hot-gb', str(PAPERS_HOT_GB)]
-          if cuda else ['--num-nodes', '20000', '--hot-gb', '0.004',
-                        '--steps', '3', '--batch-size', '32'])
+  argv = papers_argv(cuda) + ([] if cuda else ['--steps', '3',
+                                               '--batch-size', '32'])
   args = papers.parser().parse_args(argv + ['--device', device.type])
   ds, loader, info = papers.build(args, device)
   log(f'papers: {info["num_nodes"]} nodes, {info["feat_gb"]:.3f} GB of '
@@ -9639,9 +10514,9 @@ def tiered_training(torch, gtt, ds, tds, pool, device, mode, caps, smi,
     # this window, late in the script, lost its first step-keys record
     # without one (C6)
     prof = profiled(torch, epoch, 1, device, 'tiered tree epoch (captured)',
-                    warmup=lambda: (epoch(), ops.reset_launch_counts()))
-    counted = {k: v for k, v in ops.launch_counts().items()
-               if k in PORT_KERNELS}
+                    warmup=lambda: (epoch(), ops.reset_launch_counts()),
+                    expect=port_launch_counts)
+    counted = port_launch_counts()
     prof['launch_counters'] = counted
     rep['profile_epoch'] = prof
     log(f'tiered tree profiled epoch: profiler kernels {prof["kernels"]} vs '
@@ -9965,14 +10840,15 @@ def probe_phase(torch, device, reps, smi, profile=False):
       ms=ms, call_ms=call_ms, vector_ms=vec_ms, vector_call_ms=vec_call_ms,
       plain_ms=plain_ms, plain_call_ms=plain_call_ms, library_ms=lib_ms,
       library_call_ms=lib_call_ms, k1_ms=k1_ms, k1_call_ms=k1_call_ms,
-      bound_ms=bound_ms(nbytes), bytes=nbytes, rates=rates,
+      rates=rates, **bound_record(nbytes, None, fill_ms(torch, [got], device,
+                                                        reps), ms),
       bulk_copies_per_s=copies_per_s,
       removed_designs_ms=B6_REMOVED_DESIGNS_MS)
   log(f'kernel row_gather_probe: ids={ids.numel()} table={list(feat.shape)} '
       f'routes {routes} exact={exact} ms={ms:.4f} (bulk) '
       f'vector_ms={vec_ms:.4f} plain_ms={plain_ms:.4f} '
       f'index_select_ms={lib_ms:.4f} k1_ms={k1_ms:.4f} '
-      f'bound_ms={bound_ms(nbytes):.4f}; call ms {call_ms:.4f} '
+      f'{bound_text(rep["row_gather_probe"])}; call ms {call_ms:.4f} '
       f'{vec_call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f} '
       f'{k1_call_ms:.4f}; launches per route '
       f'{rep["row_gather_probe"]["route_launches"]}')
@@ -10021,12 +10897,12 @@ def probe_phase(torch, device, reps, smi, profile=False):
       ids=s, table=table.numel(), cluster=ops.probes.SMEM_TAKE_CLUSTER,
       exact=exact, max_abs_err=float((got - ref).abs().max()), ms=ms,
       call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-      library_ms=lib_ms, library_call_ms=lib_call_ms,
-      bound_ms=bound_ms(nbytes), bytes=nbytes, clusters=clusters)
+      library_ms=lib_ms, library_call_ms=lib_call_ms, clusters=clusters,
+      **bound_record(nbytes, None, fill_ms(torch, [got], device, reps), ms))
   log(f'kernel smem_take: ids={list(idx.shape)} table={table.numel()} '
       f'cluster={ops.probes.SMEM_TAKE_CLUSTER} '
       f'exact={exact} ms={ms:.4f} plain_ms={plain_ms:.4f} '
-      f'torch_take_ms={lib_ms:.4f} bound_ms={bound_ms(nbytes):.4f}; call ms '
+      f'torch_take_ms={lib_ms:.4f} {bound_text(rep["smem_take"])}; call ms '
       f'{call_ms:.4f} {plain_call_ms:.4f} {lib_call_ms:.4f}')
   assert exact, 'smem_take: kernel != plain version'
   if profile:
@@ -10053,22 +10929,44 @@ def _smem_ctas(torch, device, cluster):
 LINT_TIMEOUT_S = 300   # the analyzer's child, a whole-package walk
 
 
-def lint_phase(smi) -> dict:
-  """The port's analyzer over the package of this checkout, through its
-  CLI in a child process: exit 0 and 0 findings asserted; the files
-  walked, the pragma-suppressed count, the child's wall and each rule's
-  host seconds."""
+def lint_start() -> dict:
+  """Starts the port's analyzer over the package of this checkout,
+  through its CLI in a child process (host CPU only), from a thread that
+  waits for it: the phases run meanwhile, and ``lint_phase`` reads it.
+  The child is killed at the script's exit if it is still running."""
+  import atexit
   root = os.path.dirname(os.path.abspath(__file__))
-  t0 = time.perf_counter()
-  proc = subprocess.run(
+  run = dict(t0=time.perf_counter())
+  proc = subprocess.Popen(
       [sys.executable, '-m', 'graphlearn_tpu_torch.analysis.lint',
        '--format', 'json', '--timings', 'graphlearn_tpu_torch/'],
-      cwd=root, capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
-  wall = time.perf_counter() - t0
+      cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+  atexit.register(lambda: proc.poll() is None and proc.kill())
+
+  def wait():
+    try:
+      run['out'] = proc.communicate(timeout=LINT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+      proc.kill()
+      run['out'] = proc.communicate()
+    run['wall'] = time.perf_counter() - run['t0']
+
+  run['proc'], run['thread'] = proc, threading.Thread(target=wait,
+                                                      daemon=True)
+  run['thread'].start()
+  return run
+
+
+def lint_phase(smi, run) -> dict:
+  """The analyzer's child (``lint_start``) read: exit 0 and 0 findings
+  asserted; the files walked, the pragma-suppressed count, the child's
+  wall and each rule's host seconds."""
+  run['thread'].join()
+  proc, wall = run['proc'], run['wall']
+  stdout, stderr = run['out']
   if proc.returncode != 0:
-    raise AssertionError(f'lint: exit {proc.returncode}\n{proc.stdout}'
-                         f'{proc.stderr}')
-  doc = json.loads(proc.stdout)
+    raise AssertionError(f'lint: exit {proc.returncode}\n{stdout}{stderr}')
+  doc = json.loads(stdout)
   assert doc['findings'] == [] and doc['baselined'] == 0, doc['findings']
   rule_s = {r: ms / 1e3 for r, ms in doc['timings_ms'].items()}
   rep = dict(rc=proc.returncode, files=doc['files'],
@@ -10078,8 +10976,9 @@ def lint_phase(smi) -> dict:
   log(f'lint: python -m graphlearn_tpu_torch.analysis.lint over '
       f'{doc["files"]} files: exit 0, 0 findings, '
       f'{doc["pragma_suppressed"]} pragma-suppressed, baseline empty; '
-      f'{wall:.1f} s wall in a child process (host CPU, not the card), '
-      f'rules {sum(rule_s.values()):.1f} s on {smi}')
+      f'{wall:.1f} s wall in a child process (host CPU, not the card; '
+      f'run beside the phases since the set-up), rules '
+      f'{sum(rule_s.values()):.1f} s on {smi}')
   log('lint per-rule host s: ' + json.dumps(
       {r: round(v, 3) for r, v in sorted(rule_s.items(),
                                          key=lambda kv: -kv[1])}))
@@ -10187,6 +11086,7 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
     torch.cuda.synchronize()
   exact = bool(torch.equal(got, ref))
   err = float((got.float() - ref.float()).abs().max())
+  fill = fill_ms(torch, [got], device, reps)
   row = shards[0].shape[1] * shards[0].element_size()
   uniq = torch.unique(rows.clamp(0, ut.size - 1))
   uhot = uniq[uniq < n_hot]
@@ -10210,7 +11110,7 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
              plain_ms=plain_ms, plain_call_ms=plain_call_ms,
              one_table_ms=k1_ms, one_table_call_ms=k1_call_ms,
              bound_ms=bound, bound_by='bytes', every_slot_ms=every,
-             library_ms=None if ut.host_rows else lib_ms,
+             fill_ms=fill, library_ms=None if ut.host_rows else lib_ms,
              shard_index_select_ms=lib_ms, lookup_launches=launches,
              case_s=time.perf_counter() - t0)
   log(f'multicard {name} split={split} over {rec["group"]} ({rps} rows a '
@@ -10220,7 +11120,8 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
       f'the one-table kernel ms={k1_ms:.4f}; the shards\' index_select '
       f'ms={lib_ms:.4f}; bound_ms={bound:.4f} (HBM {hbm / 1e6:.1f} MB, '
       f'{remote_u} distinct remote rows, {n_cold_u} distinct cold rows, '
-      f'fetched {fetched}); every_slot_ms={every:.4f}; the store\'s lookup '
+      f'fetched {fetched}); every_slot_ms={every:.4f} fill_ms={fill:.4f}; '
+      f'the store\'s lookup '
       f'launched {launches[name]} on {smi}')
   assert exact, f'{name} split={split}: kernel != plain version'
   assert fetched is None or fetched == n_cold_u, (
@@ -10230,10 +11131,12 @@ def sharded_case(torch, gtt, feats, split, group, rows, node, device, reps,
   return rec
 
 
-def multicard_rank(rank, world, port, n_nodes, device_names, outdir, smi):
+def multicard_rank(rank, world, port, n_nodes, device_names, outdir, smi,
+                   go=None):
   """One rank of the captured group epoch (a spawned child on
-  ``device_names[rank]``): the script's graph (rebuilt from its seed) in
-  ``world`` shards, one held here under ``init_multihost`` (NCCL on a
+  ``device_names[rank]``): the script's graph (the parent's arrays, read
+  from ``outdir``, ``save_graph``) in ``world`` shards, built on the host
+  before the card is touched, then, once ``go`` is set, one held here under ``init_multihost`` (NCCL on a
   card), the dist_scan cell's trainer at ``bucket_frac=None`` (FANOUTS at
   BATCH seeds a shard, the example's GraphSAGE at hidden HIDDEN,
   MC_STEPS steps in chunks of MC_CHUNK): a captured epoch and an eager
@@ -10259,7 +11162,7 @@ def multicard_rank(rank, world, port, n_nodes, device_names, outdir, smi):
       torch.backends.cuda.matmul.allow_tf32 = False
       torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    ei, feats, labels = make_graph(n_nodes, 25)
+    ei, feats, labels = load_graph(outdir)
     n = n_nodes
     b = BATCH if cuda else 64
     steps = MC_STEPS if cuda else 4
@@ -10267,11 +11170,16 @@ def multicard_rank(rank, world, port, n_nodes, device_names, outdir, smi):
     pb = dist_book(n, world)
     parts, fparts = ex.partition_in_memory(ei, feats, pb, world)
     hot = np.bincount(ei[1], minlength=n)
+    labels = np.array(labels)
     del ei, feats
+    build_s = time.perf_counter() - t0
+    if go is not None:
+      go.wait()
     ctx = gdist.init_multihost(f'localhost:{port}', world, rank,
                                device=device)
     rep = dict(rank=rank, world=world, device=str(device),
-               backend=dist.get_backend(), build_s=time.perf_counter() - t0)
+               backend=dist.get_backend(), build_s=build_s,
+               go_wait_s=time.perf_counter() - t0 - build_s)
     try:
       pool = np.random.default_rng(12).permutation(n)[:world * b * steps]
 
@@ -10350,26 +11258,42 @@ def multicard_rank(rank, world, port, n_nodes, device_names, outdir, smi):
     sys.exit(1)
 
 
-def multicard_epoch(torch, gtt, n_nodes, device, smi):
-  """The captured group epoch: one spawned rank per card (world 1 on one
-  card; two CPU ranks over gloo in a rehearsal), each running
-  ``multicard_rank``; every rank must finish, bit-equal."""
+def multicard_spawn(torch, gtt, graph, device, smi) -> dict:
+  """Starts the captured group epoch's ranks: one spawned rank per card
+  (world 1 on one card; two CPU ranks over gloo in a rehearsal), each
+  running ``multicard_rank`` on ``graph`` (``(ei, feats, labels)``,
+  written once to the ranks' temporary directory). They build their
+  shards on the host and wait for ``go`` before they touch a card."""
   import multiprocessing as mp
-  import shutil
   import tempfile
   cuda = device.type == 'cuda'
   world = torch.cuda.device_count() if cuda else 2
   names = ([f'cuda:{r}' for r in range(world)] if cuda else ['cpu'] * world)
   outdir = tempfile.mkdtemp(prefix='glt_multicard_')
   t0 = time.perf_counter()
+  save_graph(outdir, *graph)
+  ctx = mp.get_context('spawn')
+  go = ctx.Event()
+  port = gtt.utils.get_free_port()
+  procs = [ctx.Process(target=multicard_rank,
+                       args=(r, world, port, graph[1].shape[0], names, outdir,
+                             smi, go))
+           for r in range(world)]
+  for p in procs:
+    p.start()
+  return dict(world=world, names=names, outdir=outdir, procs=procs, go=go,
+              t0=t0)
+
+
+def multicard_epoch(torch, gtt, device, smi, started):
+  """The captured group epoch of the ranks ``multicard_spawn`` started:
+  ``go`` set, every rank must finish, bit-equal."""
+  import shutil
+  world, names, outdir, procs = (started[k] for k in (
+      'world', 'names', 'outdir', 'procs'))
+  t0 = started['t0']
   try:
-    ctx = mp.get_context('spawn')
-    port = gtt.utils.get_free_port()
-    procs = [ctx.Process(target=multicard_rank,
-                         args=(r, world, port, n_nodes, names, outdir, smi))
-             for r in range(world)]
-    for p in procs:
-      p.start()
+    started['go'].set()
     deadline = time.perf_counter() + MC_TIMEOUT_S
     for p in procs:
       p.join(max(1.0, deadline - time.perf_counter()))
@@ -10404,31 +11328,79 @@ def multicard_epoch(torch, gtt, n_nodes, device, smi):
               seconds=time.perf_counter() - t0)
 
 
-def multicard_phase(torch, gtt, feats, ds, pool, device, reps, smi):
+def multicard_phase(torch, gtt, graph, ds, pool, device, reps, rate, smi):
   """The several-card path: the group (every card; ``cuda:0`` twice on
   one card) and each pair's peer-access verdict, then (a) the grouped
   store at MC_SPLITS on a tree batch (``sharded_case``) and (b) the
-  captured group epoch (``multicard_epoch``)."""
+  captured group epoch (``multicard_epoch``), whose ranks start first
+  and build their shards on the host while (a) runs. ``rate``: the
+  pinned copy rate, measured before the ranks started."""
   cuda = device.type == 'cuda'
-  group, verdicts = multicard_group(torch, device)
-  count = torch.cuda.device_count() if cuda else 0
-  log(f'multicard: torch.cuda.device_count()={count}; group '
-      f'{[str(d) for d in group]}; peer access '
-      f'{verdicts or "none needed (one card named twice)"}')
-  assert all(verdicts.values()), verdicts
-  rate = pinned_rate(torch, device) if cuda else 1.0
-  rows = tree_batch_rows(torch, gtt, ds, np.arange(feats.shape[0]), pool,
-                         device)
-  rep = dict(device_count=count, group=[str(d) for d in group],
-             peer_access=verdicts, cases=[])
-  for split in MC_SPLITS:
-    rep['cases'].append(sharded_case(torch, gtt, feats, split, group, rows,
-                                     rows, device, reps, rate, smi))
-  rep['launch_runs'] = [c['lookup_launches'] for c in rep['cases']]
-  rep['epoch'] = multicard_epoch(torch, gtt, feats.shape[0], device, smi)
+  feats = graph[1]
+  started = multicard_spawn(torch, gtt, graph, device, smi)
+  try:
+    group, verdicts = multicard_group(torch, device)
+    count = torch.cuda.device_count() if cuda else 0
+    log(f'multicard: torch.cuda.device_count()={count}; group '
+        f'{[str(d) for d in group]}; peer access '
+        f'{verdicts or "none needed (one card named twice)"}')
+    assert all(verdicts.values()), verdicts
+    rows = tree_batch_rows(torch, gtt, ds, np.arange(feats.shape[0]), pool,
+                           device)
+    rep = dict(device_count=count, group=[str(d) for d in group],
+               peer_access=verdicts, cases=[], pinned_rate=rate)
+    log(f'multicard: pinned host-to-device copy {rate / 1e9:.2f} GB/s, '
+        f'measured before the ranks started, on {smi}')
+    for split in MC_SPLITS:
+      rep['cases'].append(sharded_case(torch, gtt, feats, split, group, rows,
+                                       rows, device, reps, rate, smi))
+    rep['launch_runs'] = [c['lookup_launches'] for c in rep['cases']]
+  except BaseException:
+    # no rank is left waiting for go
+    for p in started['procs']:
+      p.kill()
+      p.join()
+    shutil.rmtree(started['outdir'], ignore_errors=True)
+    raise
+  rep['epoch'] = multicard_epoch(torch, gtt, device, smi, started)
   rep['launch_runs'] += [r['launches'] for r in rep['epoch']['ranks']]
   rep['across_cards'] = count > 1
   return rep
+
+
+def never_redesigned_ranking(ktab, dkeys, nloc, shapes) -> dict:
+  """The kernels never redesigned at each shape the kernel phase times,
+  each with its time, yardstick (the larger of the bound and the fill
+  floor), the yardstick's share of the time, and this process's launches
+  at that shape after the kernel phase (``shapes``: ``ShapeTally``'s).
+  ``ranked``: the shapes the script's paths launched, by launches times
+  the gap to the yardstick; ``not_launched``: timed shapes no path
+  launched (a stress case); ``untimed``: launches at shapes no case
+  times."""
+  cases = [('uniform_draw', r['shape'], [r['words']], r)
+           for r in ktab['uniform_draw']]
+  cases += [('step_keys', [ktab['step_keys']['steps'],
+                           ktab['step_keys']['hops']], None,
+             ktab['step_keys']),
+            ('dist_step_keys', [dkeys['steps'], dkeys['parts'],
+                                dkeys['hops']], None, dkeys)]
+  cases += [('negative_sample', [r['candidates']], None, r)
+            for r in ktab['negative_sample']]
+  cases += [('negative_sample_local', [nloc['candidates']], None, nloc)]
+  left = {k: dict(v) for k, v in shapes.items()}
+  ranked, idle = [], []
+  for name, shape, key, r in cases:
+    n = left.get(name, {}).pop(json.dumps(key or shape), 0)
+    yard = r['yardstick_ms']
+    row = dict(kernel=name, shape=shape, launches=n, ms=r['ms'],
+               bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+               fill_ms=r['fill_ms'], yardstick_ms=yard,
+               share=yard / r['ms'],
+               launches_x_gap_ms=n * max(r['ms'] - yard, 0.0))
+    (ranked if n else idle).append(row)
+  return dict(ranked=sorted(ranked, key=lambda r: -r['launches_x_gap_ms']),
+              not_launched=idle,
+              untimed={k: v for k, v in left.items() if v})
 
 
 def main(argv=None):
@@ -10443,6 +11415,7 @@ def main(argv=None):
   ap.add_argument('--profile', action='store_true',
                   help='also trace each phase with torch.profiler')
   args = ap.parse_args(argv)
+  global SM_CLOCK_HZ
   t_start = time.perf_counter()
   import torch
   if not args.rehearse and not torch.cuda.is_available():
@@ -10493,6 +11466,16 @@ def main(argv=None):
       if ('registers' in line or 'spill' in line) and line not in seen:
         seen.add(line)
         log(f'  ptxas {name}: {line}')
+  if not args.rehearse:
+    # the operation bounds' instructions, from this run's libraries
+    SM_CLOCK_HZ = sm_clock_hz()
+    SASS_UNITS.update(sass_unit_counts(read_sass(kernels)))
+    report['sass_units'] = dict(SASS_UNITS, sm_clock_hz=SM_CLOCK_HZ)
+    for unit, c in SASS_UNITS.items():
+      log(f'  SASS {unit}: {c["total"]:g} instructions: ALU only '
+          f'{c["alu"]:g}, FMA only {c["fma"]:g}, either pipe '
+          f'{c["either"]:g}, 3-input adds {c["add3"]:g} (cuobjdump -sass; '
+          f'SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz)')
 
   def dataset(dev, graph=None, dtype=None):
     ds = gtt.data.Dataset(device=dev)
@@ -10505,6 +11488,10 @@ def main(argv=None):
   cpu_ds = dataset(torch.device('cpu'))
   gen = torch.Generator().manual_seed(0)
   phase_done('setup')
+  # the analyzer and the padded table's CPU rebuild need no card: their
+  # children run beside the phases
+  lint = None if args.noise else lint_start()
+  rebuild = None if args.noise else padded_rebuild_start(gtt, cpu_ds.graph)
   if args.noise:
     windows, runs, *typed = (int(v) for v in args.noise.split(','))
     report['noise'] = noise_phase(torch, gtt, ds, device, n_nodes, windows,
@@ -10529,6 +11516,9 @@ def main(argv=None):
   report['kernels']['sample_level'] = level_phase(torch, gtt, merge_loader,
                                                   device, gen, reps)
   phase_done('kernels')
+  # from here on, the never-redesigned kernels' launches by shape
+  if device.type == 'cuda':
+    TALLY.install(torch, kernels)
   for mode, loader in (('tree', make_loader(gtt, ds, pool, device, 'tree')),
                        ('merge', merge_loader)):
     per_batch, counts, acc, cross, prof = slice_phase(
@@ -10583,7 +11573,8 @@ def main(argv=None):
   report['modes'] = modes_phase(
       torch, gtt, {False: ds, True: dataset(device, ds.graph, torch.bfloat16)},
       {False: cpu_ds, True: dataset(cpu, cpu_ds.graph, torch.bfloat16)},
-      device, mode_pool, mode_steps, MODE_CHUNK if cuda else 2, smi)
+      device, mode_pool, mode_steps, MODE_CHUNK if cuda else 2, smi,
+      rebuild=rebuild)
   if cuda:
     torch.cuda.empty_cache()
   phase_done('modes')
@@ -10640,8 +11631,15 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('dist_more')
-  report['multicard'] = multicard_phase(torch, gtt, feats, ds, pool, device,
-                                        reps, smi)
+  # the papers example's synthetic (the hot/cold and tiered phases build
+  # it twice) is drawn by a child while the multicard ranks run
+  # the pinned copy rate bounds the grouped store's cold rows: measured
+  # before the multicard ranks and the papers draw child load the host
+  rate = pinned_rate(torch, device) if cuda else 1.0
+  papers_draw = papers_draw_start(cuda)
+  report['multicard'] = multicard_phase(torch, gtt, (ei, feats, labels), ds,
+                                        pool, device, reps, rate, smi)
+  papers_kept = papers_draw_take(papers_draw)
   if cuda:
     torch.cuda.empty_cache()
   phase_done('multicard')
@@ -10655,6 +11653,9 @@ def main(argv=None):
   if cuda:
     torch.cuda.empty_cache()
   phase_done('remote_scan')
+  # the papers example's synthetic, drawn once for its two builds
+  from graphlearn_tpu_torch.examples import train_sage_papers_scale as pex
+  pex.make_graph = SameDraws(pex.make_graph, papers_kept)
   report['hot_cold'] = hot_cold_phase(torch, gtt, ds, topo, feats, pool,
                                       device, reps, smi)
   report['kernels']['gather_unified'] = report['hot_cold']['kernel']
@@ -10665,13 +11666,14 @@ def main(argv=None):
   report['tiered'] = tiered_phase(torch, gtt, ds, topo, feats, device, caps,
                                   smi)
   report['tiered']['phase_s'] = time.perf_counter() - t0
+  pex.make_graph = pex.make_graph.fn
   log(f'tiered phase wall {report["tiered"]["phase_s"]:.1f} s')
   if cuda:
     torch.cuda.empty_cache()
   phase_done('tiered')
   report['probes'] = probe_phase(torch, device, reps, smi, args.profile)
   phase_done('probes')
-  report['lint'] = lint_phase(smi)
+  report['lint'] = lint_phase(smi, lint)
   phase_done('lint')
   ktab = report['kernels']
   widest = ktab['sample_level']['levels'][-1]
@@ -10848,16 +11850,46 @@ def main(argv=None):
                            ('smem_take', 'benchmarks/prof_dedup.py:99'))]}
   report['profile_warmups_s'] = PROFILE_WARMUPS_S
   report['profile_empty_windows'] = PROFILE_EMPTY_WINDOWS
+  report['profile_short_windows'] = PROFILE_SHORT_WINDOWS
+  if cuda:
+    # every drill was recorded again, and its site's exact check held
+    drilled = [w['label'] for w in PROFILE_SHORT_WINDOWS if 'drill' in w]
+    assert sorted(drilled) == sorted(PROFILE_DRILLS) == \
+        sorted(PROFILE_DRILLED), (drilled, PROFILE_DRILLED)
+  report['launch_shapes'] = TALLY.shapes()
+  report['never_redesigned'] = never_redesigned_ranking(
+      ktab, report['dist_scan']['kernel'], report['dist_more']['kernel'],
+      report['launch_shapes'])
   if args.out:
     with open(args.out, 'w') as fh:
       json.dump(dict(report, kernels_line=line), fh, indent=1)
   if args.rehearse:
     log('rehearsal finished: no result line')
     return 3
+  nr = report['never_redesigned']
+  for what, rows in (('never redesigned', nr['ranked']),
+                     ('never redesigned, not launched by a path',
+                      nr['not_launched'])):
+    for r in rows:
+      log(f'{what}: {r["kernel"]} {r["shape"]}: {r["launches"]} '
+          f'launches at this shape, {r["ms"]:.4f} ms against a yardstick of '
+          f'{r["yardstick_ms"]:.4f} (bound {r["bound_ms"]:.4f} by '
+          f'{r["bound_by"]}, fill {r["fill_ms"]:.4f}): {r["share"]:.1%}, '
+          f'launches x gap {r["launches_x_gap_ms"]:.3f} ms on {smi}')
+  log('never redesigned, launched at shapes no case times (this process '
+      'after the kernel phase; the ranks\' and servers\' processes not '
+      f'seen): {json.dumps(nr["untimed"])}; all launches by shape '
+      f'{json.dumps(report["launch_shapes"])}')
+  log('phase seconds: ' + json.dumps(
+      {k: round(v, 1) for k, v in report['phase_s'].items()}))
   log(f'script wall {time.perf_counter() - t_start:.1f} s, the build '
       f'included; {len(PROFILE_WARMUPS_S)} profiled windows\' warm-up '
       f'calls {sum(t for _, t in PROFILE_WARMUPS_S):.2f} s of it; '
-      f'windows recorded again for an empty trace: {PROFILE_EMPTY_WINDOWS}')
+      f'windows recorded again for an empty trace: {PROFILE_EMPTY_WINDOWS}; '
+      f'for a short count: '
+      f'{json.dumps([w for w in PROFILE_SHORT_WINDOWS if "drill" not in w])}'
+      f'; drills (one record dropped on purpose, then recorded again): '
+      f'{json.dumps([w for w in PROFILE_SHORT_WINDOWS if "drill" in w])}')
   log(smi)
   log(json.dumps(line))
   log(json.dumps({'ok': True, 'device': {

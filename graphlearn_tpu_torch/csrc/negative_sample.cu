@@ -42,13 +42,20 @@
 // random_negative_sample_local): the row is a LOCAL row index,
 // randint(kr, 0, 2**30) % max(num_rows, 1), where num_rows is the count
 // of the shard's row_ids that are not INT32_MAX padding. JAX computes that
-// count on the device; here each block's first thread counts it with a
-// lower-bound search for INT32_MAX over the ascending, INT32_MAX-padded
-// row_ids (the DistGraph layout), so the link batch reads nothing back
-// on the host. Block 0 writes the count out for the caller's validity
+// count on the device; here each block counts it with a search for the
+// first INT32_MAX over the ascending, INT32_MAX-padded row_ids (the
+// DistGraph layout), so the link batch reads nothing back on the host. Block 0 writes the count out for the caller's validity
 // mask. The span 2**30 makes randint's multiplier (2**16 % span)**2 wrap
 // to 0 in uint32, as in JAX. The column draw and the membership test are
 // the first entry's.
+//
+// Its block prologue is latency, not work: at a link batch's 2,560
+// candidates the entry took 0.0104-0.0106 ms against a fill floor of
+// 0.0052 (49-50% of its yardstick; NVIDIA H100 80GB HBM3, 700.00 W). So
+// the first warp derives the subkeys in two dependent threefry blocks
+// (lanes 0-1, then 0-3) where one thread ran six, and the second warp
+// counts the owned rows beside it with a 32-ary search (a ballot over 32
+// probes a step: 4 dependent loads over a million ids, not 20).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -147,28 +154,39 @@ __global__ void negative_sample_local_kernel(
     uint8_t* __restrict__ valid, int* __restrict__ count_out) {
   __shared__ uint32_t sub[8];
   __shared__ uint32_t num_rows;
-  if (threadIdx.x == 0) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    // the four subkeys in two dependent threefry blocks: lanes 0 and 1
+    // split the key into kr and kc, lanes 0..3 split those
     const uint32_t k0 = static_cast<uint32_t>(key[0]);
     const uint32_t k1 = static_cast<uint32_t>(key[1]);
-    uint32_t kr[2], kc[2];
-    split_key(k0, k1, 0, kr);
-    split_key(k0, k1, 1, kc);
-    split_key(kr[0], kr[1], 0, sub);
-    split_key(kr[0], kr[1], 1, sub + 2);
-    split_key(kc[0], kc[1], 0, sub + 4);
-    split_key(kc[0], kc[1], 1, sub + 6);
-    // rows owned: the first INT32_MAX pad of the ascending row ids
+    uint32_t half[2] = {0, 0};
+    if (lane < 2) split_key(k0, k1, lane, half);
+    const uint32_t p0 = __shfl_sync(0xFFFFFFFFu, half[0], lane >> 1);
+    const uint32_t p1 = __shfl_sync(0xFFFFFFFFu, half[1], lane >> 1);
+    if (lane < 4) split_key(p0, p1, lane & 1, sub + 2 * lane);
+  } else if (threadIdx.x < 64) {
+    // rows owned: the first INT32_MAX pad of the ascending row ids, the
+    // second warp's 32-ary search. It is in [lo, hi]; each step probes
+    // 32 points a step apart and keeps the step between the last probe
+    // below the pad and the first at it: log32 dependent loads.
     long long lo = 0, hi = n_row_ids;
-    while (lo < hi) {
-      const long long mid = (lo + hi) / 2;
-      if (row_ids[mid] < 0x7FFFFFFF) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
+    while (hi - lo > 32) {
+      const long long step = (hi - lo + 31) / 32;
+      const long long at = lo + (lane + 1) * step - 1;
+      const int below = __popc(__ballot_sync(
+          0xFFFFFFFFu, at < hi && row_ids[at] < 0x7FFFFFFF));
+      const long long next = lo + (below + 1) * step - 1;
+      lo += below * step;
+      hi = next < hi ? next : hi;
     }
-    if (blockIdx.x == 0) *count_out = static_cast<int>(lo);
-    num_rows = lo > 0 ? static_cast<uint32_t>(lo) : 1u;
+    const long long at = lo + lane;
+    lo += __popc(__ballot_sync(0xFFFFFFFFu,
+                               at < hi && row_ids[at] < 0x7FFFFFFF));
+    if (lane == 0) {
+      if (blockIdx.x == 0) *count_out = static_cast<int>(lo);
+      num_rows = lo > 0 ? static_cast<uint32_t>(lo) : 1u;
+    }
   }
   __syncthreads();
   const uint32_t span_r = 1u << 30;

@@ -17,12 +17,16 @@
 // values in [0, 2**32), as the port's keys are. random.step_keys_plain is
 // the same function in torch ops.
 //
-// Bound on the H100: bytes, though both bounds are far below a launch. The
-// call reads 24 bytes, writes 16 per key and runs two threefry blocks (~77
-// 32-bit operations each) per key: at K = 8 and 3 hops 408 bytes (0.12 ns
-// at 3.35 TB/s) and ~3,700 operations (0.06 ns at 67 T/s). What it costs
-// is one launch; what it removes is the host's fold_in, split and key
-// upload of every step.
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): both bounds are far
+// below a launch. The call reads 24 bytes and writes 16 per key; a key's
+// thread runs 184 instructions (two threefry blocks; cuobjdump -sass of
+// this file, sm_90a): 91 that only the ALU pipe runs, 47 adds and moves
+// either pipe runs, 19 3-input adds and 8 multiplies. At K = 8 and 3 hops:
+// 408 bytes (0.12 ns at 3.35 TB/s) and 1.53 SM clocks a key on the ALU
+// pipe with the 3-input adds on IMAD (0.14 ns at 64 a clock per SM over
+// 132 SMs at 1,980 MHz): operations, by a little. What it costs is one
+// launch; what it removes is the host's fold_in, split and key upload of
+// every step.
 //
 // The distributed chunk (graphlearn_tpu/loader/scan_epoch.py, lines
 // 692-706 of DistScanTrainer's chunk) draws per scanned step and shard
@@ -31,7 +35,8 @@
 // _homo_hop_loop). glt_dist_step_keys writes the whole chunk's keys at
 // once: out[j, p, h] = split(split(fold_in(base_key, c + j), P)[p],
 // n_hops)[h], three threefry blocks per key. At K = 4, P = 4 and 3 hops
-// that is 48 keys: 1,152 bytes and ~11,000 operations, again one launch.
+// that is 48 keys: 1,152 bytes and 48 threads of 286 instructions (141
+// on the ALU pipe alone and 28 3-input adds: 0.44 ns), again one launch.
 //
 // Design: one thread per (step, hop) key, or per (step, shard, hop) key,
 // 128 threads a block: one block for any chunk of at most 128 keys.

@@ -16,11 +16,19 @@
 // read from device memory (a [2] int64 tensor of uint32 words), so a
 // captured CUDA graph draws from whatever key the buffer holds at replay.
 //
-// Bound on the H100: one threefry block and the float step per word, ~85
-// 32-bit operations (1.27 ps a word at 67 T/s), against 4 bytes written
-// (1.19 ps at 3.35 TB/s): operations, by a little. Both are far below a
-// launch at a hop's width (768,000 words at hop 2 of a products batch:
-// 0.97 us); the table build's 25M words take ~32 us.
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700.00 W), counted from this
+// file's SASS (cuobjdump -sass, sm_90a): a word's loop iteration is 78
+// instructions. 46 run on the ALU pipe alone (threefry's 20 SHF and 21
+// LOP3, compares, address highs), 19 are 2-input adds or moves either
+// pipe runs (ptxas puts 17 on IMAD), and 10 are 3-input IADD3s, one ALU
+// instruction or two IMADs each. The ALU and FMA pipes take 64 a clock
+// per SM and the schedulers issue 128: with the 3-input adds on IMAD, the
+// ALU-only instructions bound it at 0.719 SM clocks a word, 2.75 ps over
+// 132 SMs at the 1,980 MHz SM clock, against 4 bytes written (1.19 ps at
+// 3.35 TB/s). It is not the float32 rate (67 T/s counts an FMA twice; an
+// integer add, xor or shift is one instruction). A hop's width is far
+// below a launch (768,000 words at hop 2 of a products batch: 2.1 us);
+// the table build's 25M words take at least 69 us.
 //
 // Design: one thread per word, 256 threads a block, a grid-stride loop
 // over at most 132 * 16 blocks, so a warp's stores are one coalesced

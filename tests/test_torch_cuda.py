@@ -2533,7 +2533,9 @@ def _local_shard(n_owned, e, pad, seed=0):
 
 @pytest.mark.parametrize('n_owned,e,pad,num,num_dst', [
     (70_000, 300_000, 5, 512, 1_000_003), (65_537, 100_000, 0, 300, 9),
-    (12, 60, 3, 64, 40), (0, 0, 6, 32, 100), (5, 0, 2, 16, 1)])
+    (12, 60, 3, 64, 40), (0, 0, 6, 32, 100), (5, 0, 2, 16, 1),
+    (1_000, 5_000, 70_000, 64, 5_000), (32, 100, 0, 16, 50),
+    (33, 100, 31, 16, 50)])
 @pytest.mark.parametrize('strict', [False, True])
 def test_negative_sample_local_kernel_matches_plain(cuda, n_owned, e, pad,
                                                     num, num_dst, strict):
@@ -2541,8 +2543,10 @@ def test_negative_sample_local_kernel_matches_plain(cuda, n_owned, e, pad,
   reads on the device, its candidates (randint over span 2**30 reduced
   by the count, past 65,536 owned rows) and the taken negatives equal
   the plain version's on the same key, on a shard that owns no row
-  (every slot invalid, ids -1) and one with no edge; one launch a call,
-  no host sync; a host key and the same key on the device agree."""
+  (every slot invalid, ids -1) and one with no edge, one mostly padding
+  and row-id counts about the count search's 32 probes a step; one
+  launch a call, no host sync; a host key and the same key on the device
+  agree."""
   rid, ptr, idx = _local_shard(n_owned, e, pad)
   grid, gptr, gidx = (t.to(cuda) for t in (rid, ptr, idx))
   key = gtt.random.fold_in(gtt.random.PRNGKey(5), n_owned)
